@@ -1,0 +1,47 @@
+"""Carry node batches and solver states across from the ``omc`` reference.
+
+``omc`` keeps them as ``NamedTuple`` pytrees of jax arrays; the port as
+dataclasses of torch tensors with the same fields in the same order.  These
+helpers take / give the leaves as numpy arrays, so a test can feed both
+packages the same state without this package importing jax::
+
+    batch_t = node_batch_from_numpy([np.asarray(x) for x in omc_batch])
+    state_t = admm_state_from_numpy([np.asarray(x) for x in omc_state])
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from omc_torch.sdp.admm import ADMMState
+from omc_torch.sdp.relax import NodeBatch
+
+
+def _tensors(leaves, n_expected, device, dtype):
+    leaves = list(leaves)
+    if len(leaves) != n_expected:
+        raise ValueError(f"expected {n_expected} leaves, got {len(leaves)}")
+    return [
+        torch.as_tensor(np.asarray(x), device=device).to(dtype).contiguous()
+        for x in leaves
+    ]
+
+
+def node_batch_from_numpy(leaves, device="cpu", dtype=torch.float64) -> NodeBatch:
+    """(cut_x, cut_lo, cut_hi, cut_mask, U_lo, U_hi) -> NodeBatch."""
+    return NodeBatch(*_tensors(leaves, 6, device, dtype))
+
+
+def node_batch_to_numpy(batch: NodeBatch) -> list:
+    return [np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x)
+            for x in batch.fields()]
+
+
+def admm_state_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ADMMState:
+    """The 26 leaves of ``omc.sdp.admm.ADMMState`` (field order) -> ADMMState."""
+    return ADMMState.from_leaves(_tensors(leaves, 26, device, dtype))
+
+
+def admm_state_to_numpy(state: ADMMState) -> list:
+    return [x.detach().cpu().numpy() for x in state.leaves()]

@@ -1,0 +1,208 @@
+"""Build, load and launch the hand-written CUDA kernels of the port.
+
+The kernels live in ``omc_torch/csrc/*.cu`` (CUDA C++ for ``sm_90a``).  At
+first use they are compiled with ``nvcc`` into one shared library with a
+plain C interface under ``build/omc_torch/<hash>/`` beside the package
+(the hash covers the sources and the flags, so an edited source rebuilds)
+and loaded with ``ctypes``.  Nothing is compiled or loaded at import time:
+a CPU-only installation imports this module and never calls ``library()``.
+
+Each C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing and returns ``cudaGetLastError()``; ``launch``
+raises on a non-zero code and counts the launch in ``LAUNCHES``.
+
+The wrappers that call these entry points sit beside each kernel's plain
+PyTorch version:
+
+- K1 ``omc_torch.ops.polar.project_psd_ns_multi``  (``csrc/k1_psd_sign.cu``)
+- K2 ``omc_torch.sdp.admm.zstep``                  (``csrc/k2_zstep.cu``)
+- K3 ``omc_torch.sdp.admm.cone_step``              (``csrc/k3_cone.cu``)
+
+A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
+raises.  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+# launches of each kernel in this process (the wrappers add one per launch)
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_INFO = {"seconds": None, "cached": None, "path": None, "ptxas": ""}
+
+
+def reset_launches():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = _load(_build())
+    return _lib
+
+
+def _build() -> Path:
+    srcs = _sources()
+    h = hashlib.sha256()
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    so = out_dir / "libomc_torch_kernels.so"
+    BUILD_INFO["path"] = str(so)
+    if so.exists():
+        BUILD_INFO.update(seconds=0.0, cached=True)
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libomc_torch_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
+    cmd += [str(p) for p in srcs if p.suffix == ".cu"]
+    t0 = time.time()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, so)
+    BUILD_INFO.update(seconds=time.time() - t0, cached=False, ptxas=res.stderr)
+    return so
+
+
+class K1Params(ctypes.Structure):
+    _fields_ = [
+        ("t", ctypes.c_void_p * 3), ("w", ctypes.c_void_p * 3),
+        ("u", ctypes.c_void_p * 3), ("acc", ctypes.c_void_p * 3),
+        ("scratch", ctypes.c_void_p * 3), ("D", ctypes.c_int * 3),
+        ("G", ctypes.c_int), ("B", ctypes.c_int),
+        ("rho", ctypes.c_void_p), ("beta", ctypes.c_float),
+    ]
+
+
+_K2_PTRS = (
+    "w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc", "wbox",
+    "ubox", "wa", "ua", "wb", "ub", "wc", "uc", "cut_x", "cut_lo", "cut_hi",
+    "cut_mask", "maskA", "mask", "sX", "sT", "rho", "G1c", "Xs", "Y", "Ths",
+    "U",
+)
+
+
+class K2Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _K2_PTRS] + [
+        ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
+        ("k", ctypes.c_int), ("L", ctypes.c_int), ("gamma", ctypes.c_float),
+    ]
+
+
+_K3_PTRS = (
+    "Xs", "Y", "Ths", "U", "w1", "u1", "w2", "u2", "w3", "u3", "t1", "t2",
+    "t3", "w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wa", "ua", "wb", "ub",
+    "wc", "uc", "acc_a", "acc_b", "acc_c", "cut_x", "cut_lo", "cut_hi",
+    "cut_mask", "U_lo", "U_hi", "sX", "sT", "rho",
+)
+
+
+class K3Params(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name in _K3_PTRS] + [
+        ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
+        ("k", ctypes.c_int), ("L", ctypes.c_int), ("alpha", ctypes.c_float),
+        ("beta", ctypes.c_float),
+    ]
+
+
+def _load(path: Path):
+    lib = ctypes.CDLL(str(path))
+    for name, params in (
+        ("omc_k1_psd_sign", K1Params),
+        ("omc_k2_zstep", K2Params),
+        ("omc_k3_cone", K3Params),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.omc_error_string.argtypes = [ctypes.c_int]
+    lib.omc_error_string.restype = ctypes.c_char_p
+    lib.omc_k1_smem_max_d.argtypes = []
+    lib.omc_k1_smem_max_d.restype = ctypes.c_int
+    return lib
+
+
+def launch(key: str, fn_name: str, params: ctypes.Structure, device):
+    """Launch one kernel on the current stream of ``device``; raise on a
+    launch error, count the launch."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn_name)(ctypes.byref(params), ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.omc_error_string(err).decode()
+        raise RuntimeError(f"{key} ({fn_name}) launch failed: {msg} ({err})")
+    LAUNCHES[key] += 1
+
+
+def check(name, t, shape, device):
+    """Validate one kernel operand: float32, contiguous, on ``device``,
+    of exactly ``shape``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, the CUDA kernels take float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return t.data_ptr()
+
+
+def require_full_fp32():
+    """The sign schedule and the on-device bound need full-fp32 matmuls
+    (TF32 keeps about three digits and floors ADMM accuracy)."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError(
+            "omc_torch needs torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.backends.cudnn.allow_tf32 = False on the GPU"
+        )
+
+
+def set_full_fp32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

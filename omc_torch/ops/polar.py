@@ -1,0 +1,180 @@
+"""Matmul-only PSD projection via a polynomial matrix-sign iteration (port
+of ``omc/ops/polar.py``).
+
+    proj_PSD(T) = (T + sign(T) T) / 2
+
+with ``sign(T)`` from an odd-polynomial iteration on ``Z = T / ||T||_F``:
+12 greedy-minimax quintic steps then 2 cubic Newton-Schulz polish steps
+(the same ``_SIGN_SCHEDULE`` as ``omc``; 43 matmuls in series).  Every
+eigenvalue with ``|lambda| / ||T||_F >= 1e-6`` is sent to ``+-1`` within
+float32 rounding; smaller eigenvalues contribute at most ~2 |lambda|
+relative error to the projection.  Certification does not depend on it:
+the safe dual bound re-projects the multipliers exactly in float64 on the
+host (``omc_torch/sdp/relax.py``).
+
+The matmuls must run in full float32 (no TF32): TF32-grade products floor
+the ADMM accuracy at ~1e-2.
+
+``project_psd_ns_multi`` is the wrapper of kernel K1
+(``omc_torch/csrc/k1_psd_sign.cu``): one launch projects the three PSD
+blocks of every node slot, one CTA per matrix, and can fuse the ADMM
+u-update and the dual EMA into its epilogue.  On a CPU tensor it runs the
+plain ``project_psd_ns_merged`` with the same epilogue.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from omc_torch import kernels
+
+# (a, b, c) per step; derived for l0 = 1e-6 (see omc/ops/polar.py).
+_SIGN_SCHEDULE = np.array([
+    (3.521451, -7.154590, 3.634029),
+    (3.406982, -6.751032, 4.344051),
+    (4.115155, -11.482394, 8.367240),
+    (3.562198, -7.405884, 3.849440),
+    (3.811135, -9.095166, 5.427381),
+    (4.202972, -12.190019, 8.987046),
+    (4.176513, -11.973807, 8.797295),
+    (4.110213, -12.007850, 8.897637),
+    (4.062958, -11.075007, 8.012057),
+    (3.454039, -6.995438, 4.470346),
+    (2.364441, -2.438842, 1.074450),
+    (2.135440, -1.778817, 0.643428),
+    (1.5, -0.5, 0.0),  # cubic NS polish
+    (1.5, -0.5, 0.0),
+])
+
+
+def matrix_sign_poly(Z, schedule=None, matmul=torch.matmul):
+    """Polynomial matrix-sign of symmetric ``Z`` with spectrum in [-1, 1]:
+    each step is ``a S + S (b S^2 + c S^4)`` (3 matmuls; cubic steps with
+    c = 0 skip the S^4 product).  ``matmul`` computes every product (the
+    tolerance controls pass a degraded one)."""
+    sched = _SIGN_SCHEDULE if schedule is None else schedule
+    S = Z
+    for a, b, c in np.asarray(sched):
+        S2 = matmul(S, S)
+        if c == 0.0:
+            S = float(a) * S + float(b) * matmul(S, S2)
+        else:
+            S4 = matmul(S2, S2)
+            S = float(a) * S + matmul(S, float(b) * S2 + float(c) * S4)
+    return S
+
+
+def project_psd_ns(T, schedule=None, matmul=torch.matmul):
+    """Project symmetric (..., d, d) matrices onto the PSD cone with the
+    sign schedule (matmuls only)."""
+    T = 0.5 * (T + T.transpose(-1, -2))
+    s = torch.sqrt(torch.sum(T * T, dim=(-2, -1), keepdim=True)) + 1e-30
+    S = matrix_sign_poly(T / s, schedule, matmul)
+    P = 0.5 * (T + matmul(S, T))
+    return 0.5 * (P + P.transpose(-1, -2))
+
+
+def truncated_matmul(bits: int):
+    """A float32 product of operands truncated to ``bits`` mantissa bits
+    (float32 keeps 23, TF32 10): a deliberately degraded product, the
+    control of the sign schedule's float32 tolerances."""
+    keep = ~((1 << (23 - bits)) - 1)
+
+    def cut(x):
+        return (x.contiguous().view(torch.int32) & keep).view(torch.float32)
+
+    def matmul(a, b):
+        return torch.matmul(cut(a), cut(b))
+
+    return matmul
+
+
+def project_psd_ns_merged(mats):
+    """Project several batches of symmetric matrices of different sizes in
+    one padded sign-schedule run: each (B, d_i, d_i) batch is zero-embedded
+    into (B, G, D, D) with D = max d_i (``proj(blockdiag(T, 0)) =
+    blockdiag(proj(T), 0)``, so padding is exact)."""
+    B = mats[0].shape[0]
+    D = max(t.shape[-1] for t in mats)
+    G = len(mats)
+    Tm = torch.zeros((B, G, D, D), dtype=mats[0].dtype, device=mats[0].device)
+    for g, t in enumerate(mats):
+        d = t.shape[-1]
+        Tm[:, g, :d, :d] = t
+    P = project_psd_ns(Tm.reshape(B * G, D, D)).reshape(B, G, D, D)
+    return [P[:, g, : t.shape[-1], : t.shape[-1]] for g, t in enumerate(mats)]
+
+
+def psd_epilogue(ts, ws, w_out=None, u_out=None, acc=None, rho=None, beta=0.0):
+    """The ADMM w/u-update and dual EMA that K1 fuses into its epilogue:
+    ``w_out[g] = ws[g]``, ``u_out[g] = ts[g] - ws[g]`` and
+    ``acc[g] += beta (rho u - acc[g])`` for every ``acc[g]`` given.
+    Returns the list of w (``w_out`` where given)."""
+    outs = []
+    for g, (t, w) in enumerate(zip(ts, ws)):
+        if w_out is not None:
+            w_out[g].copy_(w)
+            w = w_out[g]
+        outs.append(w)
+        if u_out is None:
+            continue
+        u_out[g].copy_(t - w)
+        if acc is not None and acc[g] is not None:
+            a = acc[g]
+            a.copy_(a + beta * (rho[:, None, None] * u_out[g] - a))
+    return outs
+
+
+def project_psd_ns_multi(ts, *, w_out=None, u_out=None, acc=None, rho=None,
+                         beta=0.0):
+    """K1: PSD-project every (B, d_g, d_g) batch in ``ts`` with the sign
+    schedule, in one launch on the GPU.
+
+    ``w_out`` (optional): tensors receiving the projections.  With
+    ``u_out`` the ADMM scaled duals ``u = t - w`` are written too, and for
+    each non-None ``acc[g]`` the dual EMA ``acc += beta (rho u - acc)`` is
+    updated (``rho`` (B,) per-slot penalties).  Returns the projections.
+
+    A CPU tensor runs the plain ``project_psd_ns_merged`` and
+    ``psd_epilogue``; a CUDA tensor runs the kernel or raises."""
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return psd_epilogue(ts, project_psd_ns_merged(ts), w_out, u_out, acc,
+                            rho, beta)
+    if dev.type != "cuda":
+        raise ValueError(f"project_psd_ns_multi: unsupported device {dev}")
+    G = len(ts)
+    if not 1 <= G <= 3:
+        raise ValueError(f"K1 takes 1 to 3 blocks, got {G}")
+    if acc is not None and u_out is None:
+        raise ValueError("the dual EMA needs u_out")
+    if w_out is None:
+        w_out = [torch.empty_like(t) for t in ts]
+    B = ts[0].shape[0]
+    p = kernels.K1Params()
+    p.G, p.B, p.beta = G, B, float(beta)
+    big = kernels.library().omc_k1_smem_max_d()
+    workspace = []  # held until the launch is queued
+    for g, t in enumerate(ts):
+        d = t.shape[-1]
+        shape = (B, d, d)
+        p.t[g] = kernels.check(f"t[{g}]", t, shape, dev)
+        p.w[g] = kernels.check(f"w_out[{g}]", w_out[g], shape, dev)
+        p.u[g] = kernels.check(f"u_out[{g}]", u_out[g], shape, dev) if u_out is not None else None
+        a = acc[g] if acc is not None else None
+        p.acc[g] = kernels.check(f"acc[{g}]", a, shape, dev) if a is not None else None
+        p.D[g] = d
+        p.scratch[g] = None
+        if d > big:
+            # large blocks run out of a per-matrix global workspace of four
+            # zero-padded (Dp, Dp) buffers, Dp = d rounded up to 64; once
+            # freed, the caching allocator reuses it only for work queued
+            # after this launch on the same stream
+            dp = -(-d // 64) * 64
+            workspace.append(torch.empty((B, 4, dp, dp), dtype=torch.float32, device=dev))
+            p.scratch[g] = workspace[-1].data_ptr()
+    if acc is not None and any(a is not None for a in acc):
+        p.rho = kernels.check("rho", rho, (B,), dev)
+    kernels.launch("K1", "omc_k1_psd_sign", p, dev)
+    return w_out

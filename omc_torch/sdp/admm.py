@@ -1,0 +1,671 @@
+"""Batched ADMM node-relaxation solver — the production bound engine (port
+of ``omc/sdp/admm.py``).
+
+The z-step solves (Q + rho K'K) z = rhs with K'K = D + V V', D constant per
+variable block (X: 2 sX^2, Y: 3, Theta: sT^2, U: 4) and V holding only
+p = 1 + L + L*k structured columns (the trace row, one chord row per cut,
+one interval direction per cut and coordinate).  The Woodbury Gram matrix
+G1 = I + V' D1^-1 V does not depend on rho, so one Cholesky factor per
+solve call serves every per-node penalty (``_gram1``).
+
+One iteration on the GPU is three kernel launches (``omc_torch/csrc``):
+
+1. K2 ``zstep``     — the adjoint of the slot residuals w - u - offs, the
+   diagonal divides, V' r, the p x p triangular solves with the G1 factor,
+   the V s correction, and the symmetrised (Xs, Y, Ths, U);
+2. K3 ``cone_step`` — the forward map at (Xs, Y, Ths, U), over-relaxation
+   alpha, the pre-projection PSD slots t1/t2/t3 (t = alpha f + (1-alpha) w
+   + u), the w/u-update of the trace, SOC, box and cut slots, and the dual
+   EMA of rho*ua, rho*ub, rho*uc;
+3. K1 ``project_psd_ns_multi`` — the sign-schedule projection of t1, t2,
+   t3 (one CTA per matrix), w = P, u = t - w, and the dual EMA of rho*u1
+   and rho*u2.
+
+So the dual EMA of the JAX loop body (``admm.py:510-521`` there) lives in
+the K3 and K1 epilogues, updated right after each u.  On the CPU the same
+three steps run as plain torch (``zstep_plain``, ``cone_step_plain``,
+``project_psd_ns_merged`` or ``project_psd`` plus ``psd_epilogue``), in the
+order of operations of ``omc``, so float64 iterates match ``omc``.
+
+Every ``check_every`` iterations the bias-corrected EMA duals go through
+the torch ``safe_dual_bound2`` (full fp32 matmuls), the best chunk by the
+estimator is kept, and the early-exit flag is read on the host once.
+The solver updates a clone of the state it is given in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from omc_torch import kernels
+from omc_torch.ops.cones import project_psd, project_soc
+from omc_torch.ops.polar import project_psd_ns_multi, psd_epilogue
+from omc_torch.sdp.relax import NodeBatch, safe_dual_bound2
+
+
+@dataclasses.dataclass
+class ADMMState:
+    # w: cone-slot variables; u: scaled duals (y = rho * u in the polar
+    # cone).  Field order matches omc.sdp.admm.ADMMState (warm slices).
+    w1: torch.Tensor  # (B, n+m, n+m)
+    w2: torch.Tensor  # (B, n+k, n+k)
+    w3: torch.Tensor  # (B, n, n)
+    w4: torch.Tensor  # (B,)
+    wsoc: torch.Tensor  # (B, k, 1+n)
+    wbox: torch.Tensor  # (B, n, k)
+    wa: torch.Tensor  # (B, L, k)
+    wb: torch.Tensor  # (B, L, k)
+    wc: torch.Tensor  # (B, L)
+    u1: torch.Tensor
+    u2: torch.Tensor
+    u3: torch.Tensor
+    u4: torch.Tensor
+    usoc: torch.Tensor
+    ubox: torch.Tensor
+    ua: torch.Tensor
+    ub: torch.Tensor
+    uc: torch.Tensor
+    X: torch.Tensor  # last primal iterate (scaled)
+    Y: torch.Tensor
+    Th: torch.Tensor
+    U: torch.Tensor
+    rho: torch.Tensor  # (B,) per-node ADMM penalty
+    sX: torch.Tensor  # (B,) block scales: X = sX * Xs, Theta = sT * Ths
+    sT: torch.Tensor
+    sS: torch.Tensor  # (B,) Shor-row weight (unused by the base solver)
+
+    def leaves(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    @classmethod
+    def from_leaves(cls, leaves) -> "ADMMState":
+        return cls(*leaves)
+
+    def clone(self) -> "ADMMState":
+        return ADMMState(*[
+            x.clone(memory_format=torch.contiguous_format) for x in self.leaves()
+        ])
+
+    def replace(self, **kw) -> "ADMMState":
+        return dataclasses.replace(self, **kw)
+
+
+def init_admm_state(B, n, m, k, L, dtype=torch.float32, device="cpu", *,
+                    sX=1.0, sT=1.0, sS=1.0, X0=None, Y0=None, Th0=None,
+                    U0=None, rho: float = 0.02) -> ADMMState:
+    def z(*s):
+        return torch.zeros(s, dtype=dtype, device=device)
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=dtype, device=device).expand(B).clone()
+
+    def prim(val, shape, scale):
+        if val is None:
+            return z(*shape)
+        s = torch.as_tensor(scale, dtype=dtype, device=device)
+        if s.ndim:  # (B,) per-slot scales -> (B, 1, ..., 1)
+            s = s.reshape(tuple(s.shape) + (1,) * (len(shape) - s.ndim))
+        v = torch.as_tensor(val, dtype=dtype, device=device)
+        return torch.broadcast_to(v / s, shape).clone()
+
+    return ADMMState(
+        w1=z(B, n + m, n + m), w2=z(B, n + k, n + k), w3=z(B, n, n), w4=z(B),
+        wsoc=z(B, k, 1 + n), wbox=z(B, n, k), wa=z(B, L, k), wb=z(B, L, k),
+        wc=z(B, L),
+        u1=z(B, n + m, n + m), u2=z(B, n + k, n + k), u3=z(B, n, n), u4=z(B),
+        usoc=z(B, k, 1 + n), ubox=z(B, n, k), ua=z(B, L, k), ub=z(B, L, k),
+        uc=z(B, L),
+        X=prim(X0, (B, n, m), sX), Y=prim(Y0, (B, n, n), 1.0),
+        Th=prim(Th0, (B, m, m), sT), U=prim(U0, (B, n, k), 1.0),
+        rho=torch.full((B,), rho, dtype=dtype, device=device),
+        sX=vec(sX), sT=vec(sT), sS=vec(sS),
+    )
+
+
+def set_slot_rho(state: ADMMState, rho_new) -> ADMMState:
+    """Re-target per-slot penalties (the rho-portfolio path): the state
+    stores scaled duals u = y / rho, so keeping y means u *= rho_old /
+    rho_new.  The z-step is rho-free (``_gram1``): no refactorisation."""
+    rho_new = torch.as_tensor(rho_new, dtype=state.rho.dtype, device=state.rho.device)
+    r = state.rho / rho_new
+    r3 = r[:, None, None]
+    return state.replace(
+        u1=state.u1 * r3, u2=state.u2 * r3, u3=state.u3 * r3,
+        u4=state.u4 * r, usoc=state.usoc * r3, ubox=state.ubox * r3,
+        ua=state.ua * r3, ub=state.ub * r3, uc=state.uc * r[:, None],
+        rho=torch.broadcast_to(rho_new, state.rho.shape).clone(),
+    )
+
+
+def _outer_sum(w, x):
+    """sum_l w_l x_l x_l' for w (B, L), x (B, L, n) -> (B, n, n)."""
+    return (x * w[..., None]).transpose(-1, -2) @ x
+
+
+def _forward(batch: NodeBatch, Xs, Y, Ths, U, k, sX, sT):
+    """Affine slot map (with constants), including the U box slot."""
+    X = sX * Xs
+    Th = sT * Ths
+    Xt = X.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    n = Y.shape[-1]
+    w1 = torch.cat([torch.cat([Y, X], dim=-1), torch.cat([Xt, Th], dim=-1)], dim=-2)
+    eye_k = torch.eye(k, dtype=U.dtype, device=U.device)
+    w2 = torch.cat(
+        [
+            torch.cat([Y, U], dim=-1),
+            torch.cat([Ut, torch.broadcast_to(eye_k, Ut.shape[:-2] + (k, k))], dim=-1),
+        ],
+        dim=-2,
+    )
+    w3 = torch.eye(n, dtype=Y.dtype, device=Y.device) - Y
+    w4 = k - torch.diagonal(Y, dim1=-2, dim2=-1).sum(-1)
+    ones = torch.ones(U.shape[:-2] + (k, 1), dtype=U.dtype, device=U.device)
+    wsoc = torch.cat([ones, Ut], dim=-1)
+    wbox = U
+    v = torch.einsum("bln,bnk->blk", batch.cut_x, U)
+    wa = v - batch.cut_lo
+    wb = batch.cut_hi - v
+    c = batch.cut_lo + batch.cut_hi
+    bconst = torch.sum(-batch.cut_lo * batch.cut_hi, dim=-1)
+    xYx = torch.sum((batch.cut_x @ Y) * batch.cut_x, dim=-1)
+    wc = torch.sum(c * v, dim=-1) + bconst - xYx
+    return w1, w2, w3, w4, wsoc, wbox, wa, wb, wc
+
+
+def _adjoint(batch: NodeBatch, y1, y2, y3, y4, ysoc, ybox, ya, yb, yc,
+             n, m, k, sX, sT):
+    gX = sX * 2.0 * y1[..., :n, n:]
+    gY = (
+        y1[..., :n, :n]
+        + y2[..., :n, :n]
+        - y3
+        - y4[..., None, None] * torch.eye(n, dtype=y3.dtype, device=y3.device)
+        - _outer_sum(yc, batch.cut_x)
+    )
+    gTh = sT * y1[..., n:, n:]
+    c = batch.cut_lo + batch.cut_hi
+    coef = ya - yb + yc[..., None] * c
+    gU = (
+        2.0 * y2[..., :n, n:]
+        + ysoc[..., 1:].transpose(-1, -2)
+        + ybox
+        + torch.einsum("bln,blk->bnk", batch.cut_x, coef)
+    )
+    return gX, gY, gTh, gU
+
+
+def _gram1(batch: NodeBatch, k, dtype):
+    """rho-independent Woodbury Gram G1 = I + V' D1^-1 V, (B, p, p) with
+    p = 1 + L + L*k and D1 the per-block K'K diagonal (Y: 3, U: 4).
+    Column order: [trace | chord rows l=1..L | interval directions (l, j)
+    row-major].  Since Q is zero on the Y and U blocks, one Cholesky of G1
+    serves every per-node penalty rho."""
+    B, L = batch.cut_mask.shape
+    n = batch.cut_x.shape[-1]
+    dev = batch.cut_x.device
+    cm = batch.cut_mask
+    x = batch.cut_x * cm[..., None]  # zero padded cuts
+    c = (batch.cut_lo + batch.cut_hi) * cm[..., None]
+    XX = torch.einsum("bln,bpn->blp", x, x)
+    CC = torch.einsum("blk,bpk->blp", c, c)
+    p = 1 + L + L * k
+    G = torch.zeros((B, p, p), dtype=dtype, device=dev)
+    iY = 1.0 / 3.0
+    iU = 1.0 / 4.0
+    G[:, 0, 0] = n * iY
+    tc = -torch.diagonal(XX, dim1=-2, dim2=-1) * iY
+    G[:, 0, 1 : 1 + L] = tc
+    G[:, 1 : 1 + L, 0] = tc
+    G[:, 1 : 1 + L, 1 : 1 + L] = XX * XX * iY + XX * CC * iU
+    cd = math.sqrt(2.0) * torch.einsum("blp,blk->blpk", XX, c) * iU
+    G[:, 1 : 1 + L, 1 + L :] = cd.reshape(B, L, L * k)
+    G[:, 1 + L :, 1 : 1 + L] = cd.reshape(B, L, L * k).transpose(-1, -2)
+    eye_k = torch.eye(k, dtype=dtype, device=dev)
+    dd = 2.0 * torch.einsum("blp,jk->bljpk", XX, eye_k) * iU
+    G[:, 1 + L :, 1 + L :] = dd.reshape(B, L * k, L * k)
+    G = G + torch.eye(p, dtype=dtype, device=dev)
+    return G
+
+
+def _Vt_apply(batch: NodeBatch, rY, rU, k):
+    """V' r for the structured columns; rY (B,n,n), rU (B,n,k) -> (B,p)."""
+    cm = batch.cut_mask
+    x = batch.cut_x * cm[..., None]
+    c = (batch.cut_lo + batch.cut_hi) * cm[..., None]
+    B, L = cm.shape
+    t0 = torch.diagonal(rY, dim1=-2, dim2=-1).sum(-1)[:, None]
+    xrx = torch.sum((x @ rY) * x, dim=-1)
+    xru = torch.einsum("bln,bnk->blk", x, rU)
+    chord = -xrx + torch.einsum("blk,blk->bl", c, xru)
+    dirs = math.sqrt(2.0) * xru.reshape(B, L * k)
+    return torch.cat([t0, chord, dirs], dim=-1)
+
+
+def _V_apply(batch: NodeBatch, s, n, k):
+    """V s: (B,p) -> (rY (B,n,n), rU (B,n,k))."""
+    cm = batch.cut_mask
+    x = batch.cut_x * cm[..., None]
+    c = (batch.cut_lo + batch.cut_hi) * cm[..., None]
+    B, L = cm.shape
+    s0 = s[:, 0]
+    sch = s[:, 1 : 1 + L]
+    sdir = s[:, 1 + L :].reshape(B, L, k)
+    eye = torch.eye(n, dtype=s.dtype, device=s.device)
+    rY = s0[:, None, None] * eye - _outer_sum(sch, x)
+    rU = x.transpose(-1, -2) @ (sch[..., None] * c) + math.sqrt(2.0) * (
+        x.transpose(-1, -2) @ sdir
+    )
+    return rY, rU
+
+
+def solve_z(batch: NodeBatch, G1c, mask, sX, sT, rho_b, rY_rhs, rX_rhs,
+            rTh_rhs, rU_rhs, n, k):
+    """(Q + rho K'K)^{-1} rhs via the rho-free Woodbury identity (see
+    ``_gram1``); rho_b is the per-node penalty (B,), sX/sT (B,1,1)."""
+    r3 = rho_b[:, None, None]
+    dX = mask[None] * (sX * sX) + r3 * 2.0 * sX * sX
+    zX = rX_rhs / dX
+    zY = rY_rhs / (3.0 * r3)
+    zTh = rTh_rhs / (r3 * sT * sT)
+    zU = rU_rhs / (4.0 * r3)
+    s = _Vt_apply(batch, zY, zU, k)
+    t = rho_b[:, None] * torch.cholesky_solve(s[..., None], G1c)[..., 0]
+    vY, vU = _V_apply(batch, t, n, k)
+    zY = zY - vY / (3.0 * r3)
+    zU = zU - vU / (4.0 * r3)
+    return zX, zY, zTh, zU
+
+
+@dataclasses.dataclass
+class _Consts:
+    """Per-solve-call constants shared by the three steps."""
+
+    batch: NodeBatch
+    mask: torch.Tensor
+    maskA: torch.Tensor
+    G1c: torch.Tensor
+    offs: tuple
+    cX: torch.Tensor
+    cTh: torch.Tensor
+    n: int
+    m: int
+    k: int
+    L: int
+    gamma: float
+    alpha: float
+    beta: float
+
+
+# --------------------------------------------------------------------------
+# K2: z-step
+# --------------------------------------------------------------------------
+
+
+def zstep_plain(c: _Consts, st: ADMMState):
+    """Plain version of K2: the adjoint of the slot residuals and the
+    Woodbury z-step, exactly as the ``omc`` loop body.  Returns (Xs, Y,
+    Ths, U) with Y and Ths symmetrised."""
+    cm = c.batch.cut_mask
+    offs = c.offs
+    sX = st.sX[:, None, None]
+    sT = st.sT[:, None, None]
+    rho_b = st.rho
+    r3 = rho_b[:, None, None]
+    rX, rY, rTh, rU = _adjoint(
+        c.batch,
+        st.w1 - st.u1 - offs[0], st.w2 - st.u2 - offs[1],
+        st.w3 - st.u3 - offs[2], st.w4 - st.u4 - offs[3],
+        st.wsoc - st.usoc - offs[4], st.wbox - st.ubox - offs[5],
+        (st.wa - st.ua - offs[6]) * cm[..., None],
+        (st.wb - st.ub - offs[7]) * cm[..., None],
+        (st.wc - st.uc - offs[8]) * cm,
+        c.n, c.m, c.k, sX, sT,
+    )
+    Xs, Y, Ths, U = solve_z(
+        c.batch, c.G1c, c.mask, sX, sT, rho_b, r3 * rY, r3 * rX - c.cX,
+        r3 * rTh - c.cTh, r3 * rU, c.n, c.k,
+    )
+    Y = 0.5 * (Y + Y.transpose(-1, -2))
+    Ths = 0.5 * (Ths + Ths.transpose(-1, -2))
+    return Xs, Y, Ths, U
+
+
+def zstep(c: _Consts, st: ADMMState):
+    """K2 wrapper: writes (Xs, Y, Ths, U) into ``st.X/Y/Th/U``.  A CPU
+    state runs ``zstep_plain``; a CUDA state launches
+    ``csrc/k2_zstep.cu`` (one CTA per node slot) or raises."""
+    dev = st.w1.device
+    if dev.type == "cpu":
+        for dst, src in zip((st.X, st.Y, st.Th, st.U), zstep_plain(c, st)):
+            dst.copy_(src)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"zstep: unsupported device {dev}")
+    kernels.launch("K2", "omc_k2_zstep", _k2_params(c, st), dev)
+
+
+def _k2_params(c: _Consts, st: ADMMState):
+    """Validate K2's operands and pack its parameter block."""
+    dev = st.w1.device
+    B = st.rho.shape[0]
+    n, m, k, L = c.n, c.m, c.k, c.L
+    p = 1 + L + L * k
+    shapes = _state_shapes(B, n, m, k, L)
+    prm = kernels.K2Params()
+    for name in ("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc",
+                 "usoc", "wbox", "ubox", "wa", "ua", "wb", "ub", "wc", "uc"):
+        setattr(prm, name, kernels.check(name, getattr(st, name), shapes[name], dev))
+    b = c.batch
+    prm.cut_x = kernels.check("cut_x", b.cut_x, (B, L, n), dev)
+    prm.cut_lo = kernels.check("cut_lo", b.cut_lo, (B, L, k), dev)
+    prm.cut_hi = kernels.check("cut_hi", b.cut_hi, (B, L, k), dev)
+    prm.cut_mask = kernels.check("cut_mask", b.cut_mask, (B, L), dev)
+    prm.maskA = kernels.check("maskA", c.maskA, (n, m), dev)
+    prm.mask = kernels.check("mask", c.mask, (n, m), dev)
+    prm.sX = kernels.check("sX", st.sX, (B,), dev)
+    prm.sT = kernels.check("sT", st.sT, (B,), dev)
+    prm.rho = kernels.check("rho", st.rho, (B,), dev)
+    prm.G1c = kernels.check("G1c", c.G1c, (B, p, p), dev)
+    prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
+    prm.Y = kernels.check("Y", st.Y, (B, n, n), dev)
+    prm.Ths = kernels.check("Th", st.Th, (B, m, m), dev)
+    prm.U = kernels.check("U", st.U, (B, n, k), dev)
+    prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
+    prm.gamma = float(c.gamma)
+    return prm
+
+
+# --------------------------------------------------------------------------
+# K3: forward map + cone step
+# --------------------------------------------------------------------------
+
+
+def cone_step_plain(c: _Consts, st: ADMMState, acc):
+    """Plain version of K3 at the current (Xs, Y, Ths, U) of ``st``:
+    returns ``(t1, t2, t3, rest, acc_new)`` where ``rest`` holds the new
+    (w4, u4, wsoc, usoc, wbox, ubox, wa, ua, wb, ub, wc, uc) and
+    ``acc_new`` the updated EMA of (rho ua, rho ub, rho uc)."""
+    b = c.batch
+    cm = b.cut_mask
+    alpha = c.alpha
+    f = _forward(b, st.X, st.Y, st.Th, st.U, c.k, st.sX[:, None, None],
+                 st.sT[:, None, None])
+
+    def relax_mix(fz, w):
+        return alpha * fz + (1.0 - alpha) * w
+
+    t1 = relax_mix(f[0], st.w1) + st.u1
+    t2 = relax_mix(f[1], st.w2) + st.u2
+    t3 = relax_mix(f[2], st.w3) + st.u3
+    t4 = relax_mix(f[3], st.w4) + st.u4
+    w4 = torch.clamp(t4, min=0.0)
+    u4 = t4 - w4
+    tsoc = relax_mix(f[4], st.wsoc) + st.usoc
+    pt, pw = project_soc(tsoc[..., 0], tsoc[..., 1:])
+    wsoc = torch.cat([pt[..., None], pw], dim=-1)
+    usoc = tsoc - wsoc
+    tbox = relax_mix(f[5], st.wbox) + st.ubox
+    wbox = torch.minimum(torch.maximum(tbox, b.U_lo), b.U_hi)
+    ubox = tbox - wbox
+    ta = relax_mix(f[6], st.wa) + st.ua
+    wa = torch.clamp(ta, min=0.0)
+    ua = (ta - wa) * cm[..., None]
+    tb = relax_mix(f[7], st.wb) + st.ub
+    wb = torch.clamp(tb, min=0.0)
+    ub = (tb - wb) * cm[..., None]
+    tc = relax_mix(f[8], st.wc) + st.uc
+    wc = torch.clamp(tc, min=0.0)
+    uc = (tc - wc) * cm
+    beta = c.beta
+    rb3 = st.rho[:, None, None]
+    acc_new = (
+        acc[0] + beta * (rb3 * ua - acc[0]),
+        acc[1] + beta * (rb3 * ub - acc[1]),
+        acc[2] + beta * (st.rho[:, None] * uc - acc[2]),
+    )
+    rest = (w4, u4, wsoc, usoc, wbox, ubox, wa, ua, wb, ub, wc, uc)
+    return t1, t2, t3, rest, acc_new
+
+
+_REST = ("w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wa", "ua", "wb", "ub",
+         "wc", "uc")
+
+
+def cone_step(c: _Consts, st: ADMMState, ts, acc):
+    """K3 wrapper: writes the pre-projection PSD slots into ``ts`` (t1, t2,
+    t3), updates the non-PSD slots of ``st`` and the EMA accumulators
+    ``acc`` (rho ua, rho ub, rho uc) in place.  A CPU state runs
+    ``cone_step_plain``; a CUDA state launches ``csrc/k3_cone.cu`` (one CTA
+    per node slot) or raises."""
+    dev = st.w1.device
+    if dev.type == "cpu":
+        t1, t2, t3, rest, acc_new = cone_step_plain(c, st, acc)
+        for dst, src in zip(ts, (t1, t2, t3)):
+            dst.copy_(src)
+        for name, src in zip(_REST, rest):
+            getattr(st, name).copy_(src)
+        for dst, src in zip(acc, acc_new):
+            dst.copy_(src)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"cone_step: unsupported device {dev}")
+    kernels.launch("K3", "omc_k3_cone", _k3_params(c, st, ts, acc), dev)
+
+
+def _k3_params(c: _Consts, st: ADMMState, ts, acc):
+    """Validate K3's operands and pack its parameter block."""
+    dev = st.w1.device
+    B = st.rho.shape[0]
+    n, m, k, L = c.n, c.m, c.k, c.L
+    shapes = _state_shapes(B, n, m, k, L)
+    prm = kernels.K3Params()
+    prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
+    prm.Y = kernels.check("Y", st.Y, (B, n, n), dev)
+    prm.Ths = kernels.check("Th", st.Th, (B, m, m), dev)
+    prm.U = kernels.check("U", st.U, (B, n, k), dev)
+    for name in ("w1", "u1", "w2", "u2", "w3", "u3") + _REST:
+        setattr(prm, name, kernels.check(name, getattr(st, name), shapes[name], dev))
+    prm.t1 = kernels.check("t1", ts[0], shapes["w1"], dev)
+    prm.t2 = kernels.check("t2", ts[1], shapes["w2"], dev)
+    prm.t3 = kernels.check("t3", ts[2], shapes["w3"], dev)
+    prm.acc_a = kernels.check("acc_a", acc[0], (B, L, k), dev)
+    prm.acc_b = kernels.check("acc_b", acc[1], (B, L, k), dev)
+    prm.acc_c = kernels.check("acc_c", acc[2], (B, L), dev)
+    b = c.batch
+    prm.cut_x = kernels.check("cut_x", b.cut_x, (B, L, n), dev)
+    prm.cut_lo = kernels.check("cut_lo", b.cut_lo, (B, L, k), dev)
+    prm.cut_hi = kernels.check("cut_hi", b.cut_hi, (B, L, k), dev)
+    prm.cut_mask = kernels.check("cut_mask", b.cut_mask, (B, L), dev)
+    prm.U_lo = kernels.check("U_lo", b.U_lo, (B, n, k), dev)
+    prm.U_hi = kernels.check("U_hi", b.U_hi, (B, n, k), dev)
+    prm.sX = kernels.check("sX", st.sX, (B,), dev)
+    prm.sT = kernels.check("sT", st.sT, (B,), dev)
+    prm.rho = kernels.check("rho", st.rho, (B,), dev)
+    prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
+    prm.alpha, prm.beta = float(c.alpha), float(c.beta)
+    return prm
+
+
+def _state_shapes(B, n, m, k, L):
+    return {
+        "w1": (B, n + m, n + m), "u1": (B, n + m, n + m),
+        "w2": (B, n + k, n + k), "u2": (B, n + k, n + k),
+        "w3": (B, n, n), "u3": (B, n, n), "w4": (B,), "u4": (B,),
+        "wsoc": (B, k, 1 + n), "usoc": (B, k, 1 + n),
+        "wbox": (B, n, k), "ubox": (B, n, k),
+        "wa": (B, L, k), "ua": (B, L, k), "wb": (B, L, k), "ub": (B, L, k),
+        "wc": (B, L), "uc": (B, L),
+    }
+
+
+def make_consts(A, mask, batch: NodeBatch, state: ADMMState, n, m, k, gamma,
+                alpha, beta, dtype):
+    """The per-call constants: G1 Cholesky factor, linear objective
+    coefficients and the constant slot offsets (forward map at zero)."""
+    B, L = batch.cut_mask.shape
+    dev = state.rho.device
+    sX = state.sX[:, None, None]
+    sT = state.sT[:, None, None]
+    G1 = _gram1(batch, k, dtype)
+    G1c = torch.linalg.cholesky(G1).contiguous()  # column-major on CUDA
+    cX = -sX * (mask * A)[None]
+    cTh = (sT * 0.5 / gamma) * torch.eye(m, dtype=dtype, device=dev)[None]
+    zeros = (
+        torch.zeros((B, n, m), dtype=dtype, device=dev),
+        torch.zeros((B, n, n), dtype=dtype, device=dev),
+        torch.zeros((B, m, m), dtype=dtype, device=dev),
+        torch.zeros((B, n, k), dtype=dtype, device=dev),
+    )
+    offs = _forward(batch, *zeros, k, sX, sT)
+    return _Consts(
+        batch=batch, mask=mask, maskA=(mask * A).contiguous(), G1c=G1c,
+        offs=offs, cX=cX, cTh=cTh, n=n, m=m, k=k, L=L, gamma=float(gamma),
+        alpha=float(alpha), beta=float(beta),
+    )
+
+
+def iteration(c: _Consts, st: ADMMState, ts, acc, psd_method: str):
+    """One in-place ADMM iteration: K2 -> K3 -> K1 (see the module
+    docstring).  ``acc`` holds the five EMA accumulators (rho u1, rho u2,
+    rho ua, rho ub, rho uc); ``ts`` the t1/t2/t3 scratch.  Each step is
+    its kernel's wrapper, so a CPU state runs the plain versions and a
+    CUDA state the kernels."""
+    ws = (st.w1, st.w2, st.w3)
+    us = (st.u1, st.u2, st.u3)
+    accs = (acc[0], acc[1], None)
+    zstep(c, st)
+    cone_step(c, st, ts, acc[2:])
+    if psd_method == "ns":
+        project_psd_ns_multi(list(ts), w_out=ws, u_out=us, acc=accs,
+                             rho=st.rho, beta=c.beta)
+    else:
+        psd_epilogue(ts, [project_psd(t) for t in ts], ws, us, accs,
+                     st.rho, c.beta)
+
+
+def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
+                     iters: int = 400, dtype=torch.float32,
+                     alpha: float = 1.6, psd_method: str = "auto",
+                     check_every: int = 2000, ema_iters: int = 1500):
+    """Build the batched ADMM solver (port of
+    ``omc.sdp.admm.make_admm_solver`` without the PDHG-era ``adapt_rho``
+    and ``halpern`` options).
+
+    ``psd_method``: "ns" (sign schedule, kernel K1 on the GPU), "eigh"
+    (exact, CPU only), or "auto" (ns for float32, eigh for float64).
+    ``check_every``: iterations between on-device safe-bound evaluations
+    and early-exit checks.  The ADMM penalty is each state's own ``rho``
+    (``init_admm_state``, ``set_slot_rho``)."""
+    if psd_method == "auto":
+        psd_method = "eigh" if dtype == torch.float64 else "ns"
+    if psd_method not in ("ns", "eigh"):
+        raise ValueError(f"psd_method {psd_method!r}")
+
+    def solve(A, mask, batch: NodeBatch, ub_bar, state: ADMMState,
+              n_iters=None, target=None, group=None):
+        """Run up to ``n_iters`` (default ``iters``) iterations from a clone
+        of ``state``; returns ``(state, out)``.
+
+        ``target`` (optional, (B,)): per-slot certified-bound target; the
+        loop stops once every group's best on-device estimate clears its
+        target (-inf slots count as cleared).  ``group`` ((B,) int): slot
+        -> node grouping for the rho portfolio — a node is done when any of
+        its replica slots clears."""
+        dev = state.rho.device
+        if dev.type == "cuda":
+            kernels.require_full_fp32()
+            if dtype != torch.float32:
+                raise ValueError("the CUDA path runs float32 only")
+            if psd_method != "ns":
+                raise ValueError('the CUDA path projects with psd_method="ns"')
+        ni = int(iters if n_iters is None else n_iters)
+        A = torch.as_tensor(A, device=dev).to(dtype).contiguous()
+        mask = torch.as_tensor(mask, device=dev).to(dtype).contiguous()
+        batch_t = batch.map(lambda x: torch.as_tensor(x, device=dev).to(dtype).contiguous())
+        B = batch_t.cut_mask.shape[0]
+        st = state.clone()
+        beta = 1.0 / max(ema_iters, 1)
+        c = make_consts(A, mask, batch_t, st, n, m, k, gamma, alpha, beta, dtype)
+        ts = (torch.empty_like(st.w1), torch.empty_like(st.w2),
+              torch.empty_like(st.w3))
+        if group is None:
+            group = torch.arange(B, device=dev)
+        group = torch.as_tensor(group, device=dev).to(torch.int64)
+        group = group - group.min()
+        if target is not None:
+            target = torch.as_tensor(target, device=dev).to(dtype)
+
+        def zero_acc():
+            return [torch.zeros_like(st.u1), torch.zeros_like(st.u2),
+                    torch.zeros_like(st.ua), torch.zeros_like(st.ub),
+                    torch.zeros_like(st.uc)]
+
+        ema = zero_acc()
+        b_ybar = zero_acc()
+        b_lb = torch.full((B,), -math.inf, dtype=dtype, device=dev)
+        b_est = b_lb.clone()
+        beta_t = torch.tensor(beta, dtype=dtype, device=dev)
+        it = 0
+        done = False
+        while it < ni and not done:
+            chunk = min(check_every, ni - it)
+            for _ in range(chunk):
+                iteration(c, st, ts, ema, psd_method)
+            # bias correction (the EMA starts from zero duals), in the
+            # compute dtype
+            corr = 1.0 - (1.0 - beta_t) ** torch.tensor(float(it + chunk), dtype=dtype, device=dev)
+            inv = 1.0 / torch.maximum(corr, beta_t)
+            ybar = [inv * a for a in ema]
+            lb, lb_est = safe_dual_bound2(
+                A, mask, batch_t, ybar[0], ybar[1], ybar[2], ybar[3], ybar[4],
+                gamma, k, ub_bar,
+            )
+            # per-slot best chunk by the estimator
+            take = lb_est > b_est
+            for j in range(5):
+                shp = (B,) + (1,) * (ybar[j].ndim - 1)
+                b_ybar[j] = torch.where(take.reshape(shp), ybar[j], b_ybar[j])
+            b_lb = torch.where(take, lb, b_lb)
+            b_est = torch.where(take, lb_est, b_est)
+            it += chunk
+            if target is not None:
+                cleared = (b_est >= target).to(torch.int32)
+                gmax = torch.zeros((B,), dtype=torch.int32, device=dev).scatter_reduce(
+                    0, group, cleared, reduce="amax"
+                )
+                done = bool(torch.all((gmax[group] | cleared) > 0))
+
+        Msep = torch.einsum("bik,bjk->bij", st.U, st.U) - st.Y
+        Msep = 0.5 * (Msep + Msep.transpose(-1, -2))
+        sep_w, sep_V = torch.linalg.eigh(Msep)
+        sX = st.sX[:, None, None]
+        sT = st.sT[:, None, None]
+        out = {
+            "X": sX * st.X, "Y": st.Y, "Th": sT * st.Th, "U": st.U,
+            "y1": b_ybar[0], "y2": b_ybar[1],
+            "ya": b_ybar[2], "yb": b_ybar[3], "yc": b_ybar[4],
+            # the best chunk's margin-guarded on-device safe bound
+            "lb_dev": b_lb,
+            # float64-tracking estimator (not a sound bound)
+            "lb_est": b_est,
+            "iters_run": torch.full((B,), it, dtype=torch.int32, device=dev),
+            "sep_w": sep_w[..., :2], "sep_V": sep_V[..., :, :2],
+        }
+        return st, out
+
+    return solve
+
+
+def to_numpy_out(out: dict) -> dict:
+    """One host fetch of a solver output dict."""
+    return {key: val.detach().cpu().numpy() for key, val in out.items()}
+
+
+__all__ = [
+    "ADMMState", "init_admm_state", "set_slot_rho", "make_admm_solver",
+    "zstep", "zstep_plain", "cone_step", "cone_step_plain", "solve_z",
+]

@@ -1,0 +1,306 @@
+"""Node-batch data and certified safe dual bounds (port of the main-path
+parts of ``omc/sdp/relax.py``; see that module's docstring for the
+relaxation and the certification argument).
+
+The node relaxation (disjunctive-cut path, reference lines 1491-1857):
+
+    min  1/2 sum_Omega (X_ij - A_ij)^2 + 1/(2 gamma) tr(Theta)
+    s.t. M1 = [Y X; X' Theta] PSD, M2 = [Y U; U' I_k] PSD, I - Y PSD,
+         k - tr(Y) >= 0, U in [U_lo, U_hi], (1, U_j) in SOC,
+         per cut l: lo_l <= U' x_l <= hi_l and the chord row.
+
+Lower bounds do not come from the solver's objective: ``safe_dual_bound2``
+evaluates the partial Lagrangian dual in closed form for any dual iterate
+(multipliers re-projected onto their cones; Y, Theta, X, U minimised over a
+compact kept set that contains every master-feasible point with objective
+<= ub_bar).  It is written here in torch for the on-device screen;
+``safe_dual_bound`` / ``host_certified_bound`` are the numpy float64 host
+certification, as in ``omc``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class NodeBatch:
+    """Per-node constraint data, padded to fixed shapes.
+
+    cut_x:    (B, L, n)   unit breakpoint vectors
+    cut_lo:   (B, L, k)   region lower bounds on v = U' x   (0 when padded)
+    cut_hi:   (B, L, k)   region upper bounds on v          (0 when padded)
+    cut_mask: (B, L)      1.0 for real cuts
+    U_lo:     (B, n, k)   box lower bounds on U
+    U_hi:     (B, n, k)   box upper bounds on U
+    """
+
+    cut_x: object
+    cut_lo: object
+    cut_hi: object
+    cut_mask: object
+    U_lo: object
+    U_hi: object
+
+    def fields(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def map(self, fn) -> "NodeBatch":
+        return NodeBatch(*[fn(x) for x in self.fields()])
+
+
+def margin_rel_default(dtype):
+    """The floating-point safety-margin constant: 1e-10 for float64 host
+    certification, 3e-5 for compute-dtype on-device screening."""
+    if dtype in (np.float64, torch.float64):
+        return 1e-10
+    return 3e-5
+
+
+def safe_dual_bound2(A, mask, batch: NodeBatch, y1, y2, ya, yb, yc, gamma, k,
+                     ub_bar, margin_rel=None):
+    """``(lb_valid, lb_est)`` from one torch evaluation (port of
+    ``omc.sdp.relax.safe_dual_bound2``).
+
+    ``lb_valid`` is the margin-guarded safe bound; ``lb_est`` omits the
+    floating-point margin and tracks what the float64 host evaluation of
+    the same duals returns — an estimator for early-exit decisions, not a
+    sound bound.  The off-support X-block of S1 is zeroed and compensated
+    by a diagonal shift delta = ||q_off||_F (see the ``omc`` docstring)."""
+    n, m = A.shape[-2], A.shape[-1]
+    dt = A.dtype
+
+    def _psd(Mat):
+        Mat = 0.5 * (Mat + Mat.transpose(-1, -2))
+        w, V = torch.linalg.eigh(Mat)
+        return (V * torch.clamp(w, min=0.0)[..., None, :]) @ V.transpose(-1, -2)
+
+    obs = mask > 0
+    zero = torch.zeros((), dtype=dt, device=A.device)
+    # pre-zero the off-support q block before projecting
+    S1in = -y1
+    S1in = torch.cat(
+        [
+            torch.cat([S1in[..., :n, :n], torch.where(obs, S1in[..., :n, n:], zero)], dim=-1),
+            torch.cat([torch.where(obs.T, S1in[..., n:, :n], zero), S1in[..., n:, n:]], dim=-1),
+        ],
+        dim=-2,
+    )
+    S1 = _psd(S1in)
+    # zero the residual off-support q exactly; compensating shift delta
+    q_full = S1[..., :n, n:]
+    q_off = torch.where(obs, zero, q_full)
+    delta = torch.sqrt(torch.sum(q_off * q_off, dim=(-2, -1)))
+    # rescale so that R1 + delta I <= I/(2 gamma)
+    lmaxR1 = torch.linalg.eigvalsh(S1[..., n:, n:])[..., -1] + delta
+    c_scale = torch.clamp((0.5 / gamma) / torch.clamp(lmaxR1, min=1e-30), max=1.0)
+    S1 = S1 * c_scale[..., None, None]
+    delta = delta * c_scale
+    S2 = _psd(-y2)
+    P1, q, R1 = S1[..., :n, :n], S1[..., :n, n:], S1[..., n:, n:]
+    q = torch.where(obs, q, zero)
+    P2, E = S2[..., :n, :n], S2[..., n:, n:]
+    D = S2[..., :n, n:]
+    cmask = batch.cut_mask
+    alpha = torch.clamp(-ya, min=0.0) * cmask[..., None]
+    beta = torch.clamp(-yb, min=0.0) * cmask[..., None]
+    lam = torch.clamp(-yc, min=0.0) * cmask
+
+    lo, hi = batch.cut_lo, batch.cut_hi
+    c = lo + hi
+    bconst = torch.sum(-lo * hi, dim=-1)  # (B, L)
+
+    # Y block: inf over {0 <= Y <= I, tr Y <= k} of <G_Y, Y>
+    G_Y = -(P1 + P2) + (batch.cut_x * lam[..., None]).transpose(-1, -2) @ batch.cut_x
+    G_Y = 0.5 * (G_Y + G_Y.transpose(-1, -2))
+    wY = torch.linalg.eigh(G_Y)[0]
+    y_term = torch.sum(torch.clamp(wY[..., :k] - delta[..., None], max=0.0), dim=-1)
+
+    # Theta block: inf over {Theta >= 0, tr Theta <= T} of <G_Th, Theta>
+    T_th = 2.0 * gamma * ub_bar
+    G_Th = (0.5 / gamma) * torch.eye(m, dtype=dt, device=A.device) - R1
+    G_Th = 0.5 * (G_Th + G_Th.transpose(-1, -2))
+    wT = torch.linalg.eigh(G_Th)[0]
+    th_term = T_th * torch.clamp(wT[..., 0] - delta, max=0.0)
+
+    # X block: per-entry clamped quadratic over |X_ij| <= R_X on the support
+    R_X = float(np.sqrt(2.0 * gamma * ub_bar))
+    x_star = torch.clamp(A + 2.0 * q, -R_X, R_X)
+    obs_val = 0.5 * (x_star - A) ** 2 - 2.0 * q * x_star
+    x_term = torch.sum(torch.where(obs, obs_val, zero), dim=(-2, -1))
+
+    # U block: linear over the box
+    W_U = -2.0 * D - torch.einsum(
+        "bln,blk->bnk", batch.cut_x, alpha - beta + lam[..., None] * c
+    )
+    u_term = torch.sum(torch.minimum(W_U * batch.U_lo, W_U * batch.U_hi), dim=(-2, -1))
+
+    const = (
+        torch.sum(alpha * lo, dim=(-2, -1))
+        - torch.sum(beta * hi, dim=(-2, -1))
+        - torch.sum(lam * bconst, dim=-1)
+        - torch.diagonal(E, dim1=-2, dim2=-1).sum(-1)
+    )
+
+    lb = y_term + th_term + x_term + u_term + const
+    if margin_rel is None:
+        margin_rel = margin_rel_default(dt)
+    scale = (
+        1.0
+        + torch.abs(lb)
+        + ub_bar
+        + torch.sqrt(torch.sum(S1 * S1, dim=(-2, -1)))
+        + torch.sqrt(torch.sum(S2 * S2, dim=(-2, -1)))
+    )
+    return lb - margin_rel * scale, lb
+
+
+# ---------------------------------------------------------------------------
+# float64 host certification (numpy, as in omc.sdp.relax)
+# ---------------------------------------------------------------------------
+
+
+def safe_dual_bound(A, mask, batch, y1, y2, ya, yb, yc, gamma, k, ub_bar,
+                    margin_rel=1e-10):
+    """Margin-guarded safe dual bound evaluated in numpy float64 (the
+    numpy evaluation of ``omc.sdp.relax.safe_dual_bound2``)."""
+    n, m = A.shape[-2], A.shape[-1]
+
+    def _psd(Mat):
+        Mat = 0.5 * (Mat + np.swapaxes(Mat, -1, -2))
+        w, V = np.linalg.eigh(Mat)
+        return np.einsum("...ik,...k,...jk->...ij", V, np.maximum(w, 0.0), V)
+
+    S1in = -y1
+    obs = mask > 0
+    obsT = obs.T
+    S1in = np.concatenate(
+        [
+            np.concatenate(
+                [S1in[..., :n, :n], np.where(obs, S1in[..., :n, n:], 0.0)], axis=-1
+            ),
+            np.concatenate(
+                [np.where(obsT, S1in[..., n:, :n], 0.0), S1in[..., n:, n:]],
+                axis=-1,
+            ),
+        ],
+        axis=-2,
+    )
+    S1 = _psd(S1in)
+    q_full = S1[..., :n, n:]
+    q_off = np.where(obs, 0.0, q_full)
+    delta = np.sqrt(np.sum(q_off * q_off, axis=(-2, -1)))
+    lmaxR1 = np.linalg.eigvalsh(S1[..., n:, n:])[..., -1] + delta
+    c_scale = np.minimum(1.0, (0.5 / gamma) / np.maximum(lmaxR1, 1e-30))
+    S1 = S1 * c_scale[..., None, None]
+    delta = delta * c_scale
+    S2 = _psd(-y2)
+    P1, q, R1 = S1[..., :n, :n], S1[..., :n, n:], S1[..., n:, n:]
+    q = np.where(obs, q, 0.0)
+    P2, E = S2[..., :n, :n], S2[..., n:, n:]
+    D = S2[..., :n, n:]
+    cmask = batch.cut_mask
+    alpha = np.maximum(-ya, 0.0) * cmask[..., None]
+    beta = np.maximum(-yb, 0.0) * cmask[..., None]
+    lam = np.maximum(-yc, 0.0) * cmask
+
+    lo, hi = batch.cut_lo, batch.cut_hi
+    c = lo + hi
+    bconst = np.sum(-lo * hi, axis=-1)
+
+    G_Y = -(P1 + P2) + np.einsum("bl,bln,blp->bnp", lam, batch.cut_x, batch.cut_x)
+    G_Y = 0.5 * (G_Y + np.swapaxes(G_Y, -1, -2))
+    wY = np.linalg.eigh(G_Y)[0]
+    y_term = np.sum(np.minimum(wY[..., :k] - delta[..., None], 0.0), axis=-1)
+
+    T_th = 2.0 * gamma * ub_bar
+    G_Th = (0.5 / gamma) * np.eye(m, dtype=A.dtype) - R1
+    G_Th = 0.5 * (G_Th + np.swapaxes(G_Th, -1, -2))
+    wT = np.linalg.eigh(G_Th)[0]
+    th_term = T_th * np.minimum(wT[..., 0] - delta, 0.0)
+
+    R_X = np.sqrt(2.0 * gamma * ub_bar)
+    x_star = np.clip(A + 2.0 * q, -R_X, R_X)
+    obs_val = 0.5 * (x_star - A) ** 2 - 2.0 * q * x_star
+    x_term = np.sum(np.where(mask > 0, obs_val, 0.0), axis=(-2, -1))
+
+    W_U = -2.0 * D - np.einsum(
+        "bln,blk->bnk", batch.cut_x, alpha - beta + lam[..., None] * c
+    )
+    u_term = np.sum(np.minimum(W_U * batch.U_lo, W_U * batch.U_hi), axis=(-2, -1))
+
+    const = (
+        np.sum(alpha * lo, axis=(-2, -1))
+        - np.sum(beta * hi, axis=(-2, -1))
+        - np.sum(lam * bconst, axis=-1)
+        - np.trace(E, axis1=-2, axis2=-1)
+    )
+    lb = y_term + th_term + x_term + u_term + const
+    scale = (
+        1.0
+        + np.abs(lb)
+        + ub_bar
+        + np.sqrt(np.sum(S1 * S1, axis=(-2, -1)))
+        + np.sqrt(np.sum(S2 * S2, axis=(-2, -1)))
+    )
+    return lb - margin_rel * scale
+
+
+def host_certified_bound(A, mask, batch: NodeBatch, out: dict, gamma, k, ub_bar):
+    """Recompute the safe bound on the host in float64 from solver outputs
+    (tensors on any device, or numpy arrays)."""
+    f = lambda a: _np(a).astype(np.float64)
+    hb = NodeBatch(*[f(x) for x in batch.fields()])
+    return safe_dual_bound(
+        f(A), f(mask), hb, f(out["y1"]), f(out["y2"]), f(out["ya"]),
+        f(out["yb"]), f(out["yc"]), float(gamma), k, float(ub_bar),
+        margin_rel=1e-10,
+    )
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+# ---------------------------------------------------------------------------
+# warm-start slices
+# ---------------------------------------------------------------------------
+
+
+def state_to_host(state, compress=np.float32) -> list:
+    """Fetch a whole batch solver state to the host, one transfer per
+    field (not per node).  Returns a flat list of (B, ...) host arrays in
+    the state's field order."""
+    return [_np(x).astype(compress) for x in state.leaves()]
+
+
+def host_state_slice(host_leaves: list, i: int) -> list:
+    """Node ``i``'s warm-start slice from ``state_to_host`` output."""
+    return [x[i] for x in host_leaves]
+
+
+def apply_warm_slices(base_leaves, slices):
+    """Overwrite rows of host template leaves with per-node slice lists (in
+    place).  A slice from a solve with a different cut capacity is copied
+    row-truncated / zero-padded along its leading axis (rows past a node's
+    real count are masked, so this is lossless); structurally incompatible
+    slices keep the template's values."""
+    for li, base in enumerate(base_leaves):
+        tgt = base.shape[1:]  # per-node shape
+        for i, sl in enumerate(slices):
+            if sl is None or li >= len(sl):
+                continue
+            v = np.asarray(sl[li], dtype=base.dtype)
+            if v.shape == tgt:
+                base[i] = v
+            elif v.ndim == len(tgt) and len(tgt) >= 1 and v.shape[1:] == tgt[1:]:
+                r = min(tgt[0], v.shape[0])
+                base[i][:r] = v[:r]
+                if r < tgt[0]:
+                    base[i][r:] = 0.0
+    return base_leaves

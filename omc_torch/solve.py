@@ -1,0 +1,1024 @@
+"""Branch-and-bound driver — the public entry point (port of the main-path
+parts of ``omc/solve.py``).
+
+Up to ``batch_size`` frontier nodes are popped per super-step (best-first),
+relaxed together by the batched ADMM solver on one device, certified on the
+host in float64, then closed, pruned, refined or split into 2^k children
+along the most negative eigenvector of ``U U' - Y``.  Alternating
+minimisation supplies upper bounds (multi-restart at the root, probability-
+gated at tree nodes); master-feasible relaxation points are rounded to
+exact rank-k incumbents.
+
+Soundness notes (as in ``omc``):
+
+- Lower bounds are safe Lagrangian dual bounds (valid at any solver
+  accuracy), monotone down the tree via max(parent LB, computed LB).
+- A node whose relaxation solution is master-feasible
+  (lambda_min(UU' - Y) >= -1e-6, reference line 1274) is rounded to an
+  exactly evaluated rank-k incumbent; it is closed only if its local gap is
+  within the target, and its certified LB then caps the reported global
+  lower bound (``tree.closed_lb_floor``).
+- The 11-category node census (reference lines 411-454) keeps the
+  reference's keys.
+
+The device is chosen once, by the ``device`` argument (default: the first
+CUDA device when there is one, else the CPU).  On a CUDA device the solver
+runs float32 through the hand-written kernels K1-K3 (``omc_torch/csrc``).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from omc_torch import kernels
+from omc_torch.altmin import make_altmin
+from omc_torch.branch import create_matrix_cut_child_nodes
+from omc_torch.config import SolverConfig
+from omc_torch.problem import compute_MSE
+from omc_torch.sdp.admm import (
+    ADMMState,
+    init_admm_state,
+    make_admm_solver,
+    set_slot_rho,
+    to_numpy_out,
+)
+from omc_torch.sdp.cuts import region_bounds
+from omc_torch.sdp.relax import (
+    NodeBatch,
+    apply_warm_slices,
+    host_certified_bound,
+    host_state_slice,
+    state_to_host,
+)
+from omc_torch.tree import BBNode, BBTree, compute_gap, root_box
+from omc_torch.utils.logging import (
+    UPDATE_HEADER,
+    add_message,
+    alternating_minimization_printout,
+    update_row,
+)
+
+_L_BUCKETS = (8, 32, 128, 512, 2048)
+
+
+def _l_bucket(need: int) -> int:
+    for b in _L_BUCKETS:
+        if need <= b:
+            return b
+    raise ValueError(f"cut count {need} exceeds the largest supported bucket")
+
+
+def _b_bucket(need: int, B: int) -> int:
+    """Smallest batch bucket >= need (powers of 4 up to the configured batch
+    size): when the frontier underfills the batch, the solve runs at the
+    tight bucket."""
+    for b in (1, 4, 16, 64, 256, 1024):
+        if b >= B:
+            break
+        if need <= b:
+            return b
+    return B
+
+
+def _cut_interval_arrays(cuts, cuts_type: Optional[str], n: int, k: int,
+                         dtype=np.float64):
+    """Pack one node's cut list into (x, lo, hi, mask) interval arrays with
+    leading dim max(1, len(cuts)) — the altmin U-step projection's input
+    (reference's per-cut v-interval constraints, lines 2048-2092)."""
+    L = max(1, len(cuts))
+    cx = np.zeros((L, n), dtype=dtype)
+    clo = -np.ones((L, k), dtype=dtype)
+    chi = np.ones((L, k), dtype=dtype)
+    cm = np.zeros((L,), dtype=dtype)
+    for l, cut in enumerate(cuts):
+        cx[l] = cut.x
+        lo, hi = region_bounds(cuts_type, cut.code, cut.vhat)
+        clo[l], chi[l] = lo, hi
+        cm[l] = 1.0
+    return cx, clo, chi, cm
+
+
+def _pack_batch(nodes: List[BBNode], B: int, L: int, n: int, k: int,
+                cuts_type: Optional[str], dtype) -> NodeBatch:
+    """Host (numpy) node batch: padded cut tensors and U boxes."""
+    cut_x = np.zeros((B, L, n), dtype=dtype)
+    cut_lo = np.zeros((B, L, k), dtype=dtype)
+    cut_hi = np.zeros((B, L, k), dtype=dtype)
+    cut_mask = np.zeros((B, L), dtype=dtype)
+    U_lo = np.zeros((B, n, k), dtype=dtype)
+    U_hi = np.zeros((B, n, k), dtype=dtype)
+    for i, node in enumerate(nodes):
+        U_lo[i] = node.U_lower
+        U_hi[i] = node.U_upper
+        if node.cuts:
+            pc = node.packed_cuts
+            if pc is None or pc[0].shape[0] != len(node.cuts):
+                Lc = len(node.cuts)
+                px = np.empty((Lc, n))
+                plo = np.empty((Lc, k))
+                phi = np.empty((Lc, k))
+                for l, cut in enumerate(node.cuts):
+                    px[l] = cut.x
+                    lo, hi = region_bounds(cuts_type, cut.code, cut.vhat)
+                    plo[l], phi[l] = lo, hi
+                node.packed_cuts = pc = (px, plo, phi)
+            Lc = pc[0].shape[0]
+            cut_x[i, :Lc] = pc[0]
+            cut_lo[i, :Lc] = pc[1]
+            cut_hi[i, :Lc] = pc[2]
+            cut_mask[i, :Lc] = 1.0
+    return NodeBatch(cut_x, cut_lo, cut_hi, cut_mask, U_lo, U_hi)
+
+
+def _np_objective(X, A, mask, gamma):
+    """Exact objective in numpy float64."""
+    fit = 0.5 * float(np.sum(mask * (X - A) ** 2))
+    return fit + (0.5 / gamma) * float(np.sum(X * X))
+
+
+def _polish_incumbent(X0, A, mask, gamma, k, iters=25):
+    """Host float64 polish of an incumbent candidate: closed-form
+    alternating ridge steps from X0, then SVD re-orthonormalisation and the
+    exact objective.  At a 1e-4 target the incumbent's last ~1e-5 decides
+    whether the root bound can close the gap, so this runs in float64."""
+    X = np.asarray(X0, dtype=np.float64)
+    if not np.all(np.isfinite(X)):
+        # a diverged relaxation iterate is an unusable candidate
+        return np.inf, np.zeros_like(np.asarray(A)), np.zeros(
+            (np.asarray(A).shape[0], k)
+        )
+    U = np.linalg.svd(X, full_matrices=False)[0][:, :k]
+    eye_k = 1e-12 * np.eye(k)
+    best_obj, best_X = np.inf, X
+    for _ in range(iters):
+        G = np.einsum("nk,nm,nl->mkl", U, mask, U) + (1.0 / gamma) * (U.T @ U)[None]
+        rhs = (U.T @ (mask * A)).T
+        V = np.linalg.solve(G + eye_k, rhs[..., None])[..., 0].T  # (k, m)
+        H = np.einsum("km,nm,lm->nkl", V, mask, V) + (1.0 / gamma) * (V @ V.T)[None]
+        rhs_u = (mask * A) @ V.T
+        U_new = np.linalg.solve(H + eye_k, rhs_u[..., None])[..., 0]  # (n, k)
+        X = U_new @ V
+        obj = _np_objective(X, A, mask, gamma)
+        if obj < best_obj - 1e-14:
+            best_obj, best_X = obj, X
+        U = U_new
+    best_U = np.linalg.svd(best_X, full_matrices=False)[0][:, :k]
+    return best_obj, best_X, best_U
+
+
+def _round_to_incumbent(Y, A, mask, gamma, k):
+    """Orthonormal U from the top-k eigenvectors of Y + exact closed-form
+    V-step -> (objective, X, U), a valid rank-k upper bound."""
+    Y = np.asarray(Y, dtype=np.float64)
+    if not np.all(np.isfinite(Y)):
+        return np.inf, np.zeros_like(np.asarray(A)), np.zeros((Y.shape[0], k))
+    w, V = np.linalg.eigh(0.5 * (Y + Y.T))
+    U = V[:, ::-1][:, :k]  # top-k eigvecs
+    G = np.einsum("nk,nm,nl->mkl", U, mask, U) + (1.0 / gamma) * (U.T @ U)[None]
+    G += 1e-12 * np.eye(k)[None]
+    rhs = (U.T @ (mask * A)).T
+    Vv = np.linalg.solve(G, rhs[..., None])[..., 0]  # (m, k)
+    X = U @ Vv.T
+    obj = _np_objective(X, A, mask, gamma)
+    return obj, X, U
+
+
+def _decayed_probability(depth, max_p, min_p, decay):
+    if depth > np.log(max_p / min_p) / np.log(decay):
+        return min_p
+    return max_p / (decay**depth)
+
+
+def matrix_completion_branchandbound(
+    k: int,
+    A: np.ndarray,
+    indices: np.ndarray,
+    gamma: float,
+    *,
+    device,
+    **kwargs,
+):
+    """Complete matrix ``A`` (observed mask ``indices``) with a rank-``k``
+    matrix to certified optimality.  Returns ``(solution, printlist,
+    instance)`` with the field contract of ``omc.solve``.
+
+    ``device`` (required): where the relaxations run, ``"cuda"`` (the
+    kernels; needs ``dtype="float32"``) or ``"cpu"`` (the plain versions).
+    There is no default, so a run never lands on the CPU by accident."""
+    cfg = SolverConfig(**kwargs)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if cfg.dtype != "float32":
+            raise ValueError('the CUDA path runs dtype="float32" only')
+        kernels.set_full_fp32()
+
+    A = np.asarray(A, dtype=np.float64)
+    indices = np.asarray(indices)
+    if A.shape != indices.shape:
+        raise ValueError(
+            "Dimension mismatch. Input matrix A must have size (n, m); "
+            "input matrix indices must have size (n, m)."
+        )
+    n, m = A.shape
+    if not n <= m:
+        raise ValueError(
+            f"Input matrix A must have size (n, m) with n <= m. Current size is {A.shape}."
+        )
+
+    mask = indices.astype(np.float64)
+    rng = np.random.default_rng(cfg.seed)
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+    np_dtype = np.float64 if cfg.dtype == "float64" else np.float32
+    # ADMM penalty: explicit knob wins; otherwise size- and density-scaled
+    # exactly as omc (solve.py:328-336 there, flagged in ROADMAP section 3:
+    # the density factor has no floor at 1)
+    frac_obs = float(mask.mean()) if mask.size else 1.0
+    rho_base = (
+        cfg.sdp_rho if cfg.sdp_rho is not None
+        else min(
+            0.05,
+            (62.5 / float(n * m))
+            * min(2.0, 0.5 / max(frac_obs, 1e-6)),
+        )
+    )
+    verbosity = cfg.verbosity
+
+    printlist: List[str] = []
+    start_time = time.time()
+    echo = verbosity >= 1
+    add_message(printlist, [
+        "Starting branch-and-bound on a matrix completion problem.\n",
+        f"k:                                              {k:15d}\n",
+        f"m:                                              {m:15d}\n",
+        f"n:                                              {n:15d}\n",
+        f"num_indices:                                    {int(indices.sum()):15d}\n",
+        f"gamma:                                          {gamma:15g}\n",
+        "\n",
+        f"Node selection:                                 {cfg.node_selection:>15s}\n",
+        f"Optimality gap:                                 {cfg.gap:15g}\n",
+        f"Use disjunctive cuts?:                          {str(cfg.use_disjunctive_cuts):>15s}\n",
+        f"Disjunctive cuts type:                          {str(cfg.disjunctive_cuts_type):>15s}\n",
+        f"Disjunction breakpoints:                        {str(cfg.disjunctive_cuts_breakpoints):>15s}\n",
+        f"Time limit (s):                                 {cfg.time_limit:15d}\n",
+        f"{'Batch size (' + dev.type + '):':48s}{cfg.batch_size:15d}\n",
+        f"{'ADMM iterations:':48s}{cfg.sdp_iters:15d}\n",
+    ], echo=echo)
+
+    run_log: List[dict] = []
+    solve_time_altmin = 0.0
+    solve_time_relaxation = 0.0
+    solve_time_relaxation_feasibility = 0.0
+    # phase split: device solver wall (incl. host<->device transfer), host
+    # float64 certification, host incumbent polish, solver iterations issued
+    solve_time_device = 0.0
+    solve_time_certify = 0.0
+    solve_time_polish = 0.0
+    sdp_iters_total = 0
+    device_steps = 0
+    nodes_closed_within_gap = 0
+    dict_solve_times_altmin: List[dict] = []
+    dict_num_iterations_altmin: List[dict] = []
+    dict_solve_times_relaxation: List[dict] = []
+
+    census = {
+        "nodes_dominated": 0,
+        "nodes_relax_infeasible": 0,
+        "nodes_relax_feasible": 0,
+        "nodes_relax_feasible_pruned": 0,
+        "nodes_master_feasible": 0,
+        "nodes_master_feasible_improvement": 0,
+        "nodes_relax_feasible_split": 0,
+        "nodes_relax_feasible_split_altmin": 0,
+        "nodes_relax_feasible_split_altmin_improvement": 0,
+    }
+
+    A_dev = torch.as_tensor(A, dtype=dtype, device=dev)
+    mask_dev = torch.as_tensor(mask, dtype=dtype, device=dev)
+
+    def T(x):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    # ------------------------------------------------------------------
+    # Root alternating-minimisation warm start (reference lines 521-601)
+    # ------------------------------------------------------------------
+    altmin_start = time.time()
+    U_base = np.linalg.svd(A * mask, full_matrices=False)[0][:, :k]
+    sc = float(np.max(np.abs(U_base)))
+    n_runs = cfg.altmin_root_n_iters
+    U_inits = np.stack(
+        [U_base] + [U_base + sc * rng.standard_normal((n, k)) for _ in range(n_runs - 1)]
+    )
+    root_lo, root_hi = root_box(n, k)
+    B = cfg.batch_size
+    altmin_fn = make_altmin(
+        n, m, k, gamma, max_iters=cfg.altmin_max_iters, tol=cfg.altmin_tol,
+        dtype=dtype,
+    )
+
+    def _fetch(r, rows):
+        return (r.U.cpu().numpy().astype(np.float64)[rows],
+                r.V.cpu().numpy().astype(np.float64)[rows],
+                r.converged.cpu().numpy()[rows],
+                r.n_iters.cpu().numpy()[rows],
+                r.obj_trace.cpu().numpy().astype(np.float64)[rows])
+
+    def run_altmin(U_init_batch: np.ndarray):
+        """Run altmin on the given initialisations, padding to the tight
+        batch bucket (chunking if more than cfg.batch_size)."""
+        outs = []
+        total = U_init_batch.shape[0]
+        for s0 in range(0, total, B):
+            chunk = U_init_batch[s0 : s0 + B]
+            Ba = _b_bucket(chunk.shape[0], B)
+            pad = np.repeat(chunk[-1:], Ba - chunk.shape[0], axis=0)
+            full = np.concatenate([chunk, pad], axis=0)
+            lo_b = T(np.broadcast_to(root_lo, (Ba, n, k)))
+            hi_b = T(np.broadcast_to(root_hi, (Ba, n, k)))
+            r = altmin_fn(A_dev, mask_dev, T(full), lo_b, hi_b)
+            outs.append(_fetch(r, slice(0, chunk.shape[0])))
+        return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
+
+    res_U, res_V, _, _, _ = run_altmin(U_inits)
+    t_root_altmin = time.time() - altmin_start
+    solve_time_altmin += t_root_altmin
+    dict_solve_times_altmin.append({"node_id": 0, "depth": 0, "solve_time": t_root_altmin})
+
+    best_obj = np.inf
+    X_initial = U_initial = None
+    for i in range(n_runs):
+        # float64 host polish: the device altmin runs in the compute dtype
+        obj_i, X_i, U_i = _polish_incumbent(res_U[i] @ res_V[i], A, mask, gamma, k)
+        if obj_i < best_obj:
+            best_obj, X_initial, U_initial = obj_i, X_i, U_i
+        add_message(printlist, [
+            "Altmin run %02d: \t Objective %e in %3.3f s.\n"
+            % (i + 1, obj_i, time.time() - altmin_start)
+        ], echo=echo)
+
+    Y_initial = U_initial @ U_initial.T
+    objective_initial = best_obj
+    MSE_in_initial = float(compute_MSE(X_initial, A, mask, kind="in"))
+    MSE_out_initial = float(compute_MSE(X_initial, A, mask, kind="out"))
+    MSE_all_initial = float(compute_MSE(X_initial, A, mask, kind="all"))
+    objective_initial_time_found = time.time() - start_time
+
+    solution: Dict = {
+        "objective_initial": objective_initial,
+        "objective_initial_time_found": objective_initial_time_found,
+        "MSE_in_initial": MSE_in_initial,
+        "MSE_out_initial": MSE_out_initial,
+        "MSE_all_initial": MSE_all_initial,
+        "Y_initial": Y_initial,
+        "U_initial": U_initial,
+        "X_initial": X_initial,
+        "objective": objective_initial,
+        "objective_time_found": objective_initial_time_found,
+        "MSE_in": MSE_in_initial,
+        "MSE_out": MSE_out_initial,
+        "MSE_all": MSE_all_initial,
+        "Y": Y_initial,
+        "U": U_initial,
+        "X": X_initial,
+    }
+
+    incumbent_ver = {"v": 0}
+
+    def update_solution(obj, Y, U, X, t_found):
+        solution["objective"] = obj
+        solution["objective_time_found"] = t_found
+        solution["Y"] = np.array(Y)
+        solution["U"] = np.array(U)
+        solution["X"] = np.array(X)
+        incumbent_ver["v"] += 1  # invalidate warm-start templates
+
+    # ------------------------------------------------------------------
+    # Tree initialisation (reference lines 626-698)
+    # ------------------------------------------------------------------
+    root = BBNode(
+        node_id=1, parent_id=0, U_lower=root_lo, U_upper=root_hi,
+        LB=-np.inf, depth=0, cuts=[], Shor_info=None,
+    )
+    tree = BBTree(root, best_upper_bound=objective_initial)
+    # root_node_timeout bookkeeping (reference lines 774-776): the root is
+    # resolved once it is pruned, closed, or split
+    root_resolved = False
+
+    add_message(printlist, UPDATE_HEADER, echo=echo)
+
+    def add_update(altmin_flag=False, echo_row=True):
+        tree.now_gap = compute_gap(tree.best_lower_bound, tree.best_upper_bound)
+        msg = update_row(tree, time.time() - start_time, altmin_flag=altmin_flag)
+        add_message(printlist, msg, echo=echo and echo_row)
+        run_log.append({
+            "explored": tree.nodes_explored, "total": tree.counter,
+            "remaining": tree.nodes_remaining,
+            "lower": tree.best_lower_bound, "upper": tree.best_upper_bound,
+            "gap": tree.now_gap, "runtime": time.time() - start_time,
+        })
+        tree.last_updated_counter = tree.counter
+
+    def _apply_best_duals(state: ADMMState, out_dev) -> ADMMState:
+        """The visit's best-chunk duals as scaled duals (u = y / rho): the
+        warm start handed to CHILD nodes only.  A node's own refinement
+        re-visits continue from the exact final iterate (resetting their
+        duals to the EMA midpoint stalls the contraction; see
+        ``omc.solve._apply_best_duals``)."""
+        r3 = state.rho[:, None, None]
+        return state.replace(
+            u1=out_dev["y1"] / r3, u2=out_dev["y2"] / r3, ua=out_dev["ya"] / r3,
+            ub=out_dev["yb"] / r3, uc=out_dev["yc"] / state.rho[:, None],
+        )
+
+    solvers: Dict[int, object] = {}
+    iter_rate: Dict[tuple, float] = {}  # measured seconds per solver iteration
+    iter_rate_samples: Dict[tuple, int] = {}
+
+    # block variable scales, chosen once from the data and the root upper
+    # bound (runtime state fields of the solver)
+    sX = max(1.0, float(np.max(np.abs(A))))
+    sT = max(1.0, 2.0 * gamma * objective_initial / (4.0 * m))
+    sS = sX ** cfg.shor_slot_pow
+
+    def get_solver(L):
+        if L not in solvers:
+            solvers[L] = make_admm_solver(
+                n, m, k, L, gamma, iters=cfg.sdp_iters, dtype=dtype,
+                alpha=cfg.sdp_alpha,
+                check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
+            )
+        return solvers[L]
+
+    # Warm-start cache: node_id (raw final state, refinement continuation)
+    # or ("bd", node_id) (best-chunk duals, child inheritance) -> float32
+    # host slice of the solver state
+    state_cache: "OrderedDict[object, list]" = OrderedDict()
+    state_cache_max = 2048
+
+    def _cache_put(key, sl):
+        state_cache[key] = sl
+        state_cache.move_to_end(key)
+        while len(state_cache) > state_cache_max:
+            state_cache.popitem(last=False)
+
+    # template state (incumbent primal, zero duals), rebuilt only when the
+    # incumbent moves; host leaves fetched lazily
+    template_cache: Dict[tuple, tuple] = {}
+
+    def _template_cached(Bb, L):
+        key = (Bb, L)
+        hit = template_cache.get(key)
+        if hit is not None and hit[2] == incumbent_ver["v"]:
+            return hit[0], hit[1]
+        U0 = solution["U"]
+        X0 = solution["X"]
+        V0 = U0.T @ X0
+        dev_state = init_admm_state(
+            Bb, n, m, k, L, dtype, dev, sX=sX, sT=sT, sS=sS,
+            X0=X0[None], Y0=(U0 @ U0.T)[None], Th0=(V0.T @ V0)[None],
+            U0=U0[None], rho=rho_base,
+        )
+        host_box = {"h": None}
+
+        def host():
+            if host_box["h"] is None:
+                host_box["h"] = [
+                    x.cpu().numpy().astype(np_dtype) for x in dev_state.leaves()
+                ]
+            return host_box["h"]
+
+        template_cache[key] = (dev_state, host, incumbent_ver["v"])
+        return dev_state, host
+
+    # The previous super-step's final state stays on the device; a step that
+    # re-visits exactly the same node set at the same shapes (the bound-
+    # refinement loop) reuses it with no host round trip.  Otherwise it is
+    # flushed to the host slice cache lazily.
+    last_solve = {
+        "key": None, "state": None, "slots": {}, "host": None,
+        "state_bd": None, "host_bd": None,
+    }
+
+    def _flush_last_solve(skip_ids=()):
+        if last_solve["state"] is None:
+            return
+        if last_solve["host"] is None:
+            last_solve["host"] = state_to_host(last_solve["state"])
+        if last_solve["state_bd"] is not None and last_solve["host_bd"] is None:
+            last_solve["host_bd"] = state_to_host(last_solve["state_bd"])
+        for nid, i in last_solve["slots"].items():
+            if nid not in skip_ids:
+                _cache_put(nid, host_state_slice(last_solve["host"], i))
+                if last_solve["host_bd"] is not None:
+                    _cache_put(("bd", nid), host_state_slice(last_solve["host_bd"], i))
+        last_solve["slots"] = {}
+
+    def warm_state(nodes: List[BBNode], Bb, L):
+        """Returns (state, fresh): ``fresh`` is False when the previous
+        super-step's device state is reused verbatim."""
+        key = (tuple(nd.node_id for nd in nodes), Bb, L)
+        if last_solve["key"] == key and last_solve["state"] is not None:
+            return last_solve["state"], False
+        slots = last_solve["slots"]
+        if slots and any(nd.node_id in slots or nd.parent_id in slots for nd in nodes):
+            _flush_last_solve()
+        # own state (refinement visits) first; a child inherits the parent's
+        # best-dual variant when available
+        if cfg.sdp_warm_start:
+            slices = [
+                state_cache.get(nd.node_id)
+                or state_cache.get(("bd", nd.parent_id))
+                or state_cache.get(nd.parent_id)
+                for nd in nodes
+            ]
+        else:
+            slices = [None] * len(nodes)
+        slices += [None] * (Bb - len(nodes))
+        tpl_dev, tpl_host = _template_cached(Bb, L)
+        if all(sl is None for sl in slices):
+            return tpl_dev, True
+        base = [leaf.copy() for leaf in tpl_host()]
+        apply_warm_slices(base, slices)
+        return ADMMState.from_leaves(
+            [torch.as_tensor(b_, device=dev) for b_ in base]
+        ), True
+
+    def record_solve(slot_nodes: List[BBNode], fin_state, Bb, L,
+                     best_slot=None, state_bd=None):
+        _flush_last_solve(skip_ids={nd.node_id for nd in slot_nodes})
+        last_solve["key"] = (tuple(nd.node_id for nd in slot_nodes), Bb, L)
+        last_solve["state"] = fin_state
+        last_solve["slots"] = (
+            dict(best_slot) if best_slot is not None
+            else {nd.node_id: i for i, nd in enumerate(slot_nodes)}
+        )
+        last_solve["host"] = None
+        last_solve["state_bd"] = state_bd
+        last_solve["host_bd"] = None
+
+    # ------------------------------------------------------------------
+    # Main batched branch-and-bound loop (reference lines 700-1073)
+    # ------------------------------------------------------------------
+    def _keep_running():
+        if tree.now_gap <= cfg.gap:
+            return False
+        return (
+            not (cfg.use_max_steps and tree.counter >= cfg.max_steps)
+            and time.time() - start_time <= cfg.time_limit
+        )
+
+    while _keep_running():
+        if len(tree) == 0:
+            break
+        popped = tree.retrieve_batch(
+            cfg.node_selection, B, cfg.bestfirst_depthfirst_cutoff
+        )
+        if not popped:
+            break
+
+        # dominance pre-check (reference lines 725-728)
+        work: List[BBNode] = []
+        for node in popped:
+            if node.LB > tree.best_upper_bound:
+                if node.refines == 0:
+                    census["nodes_dominated"] += 1
+                else:
+                    census["nodes_relax_feasible_pruned"] += 1
+                if node.node_id == 1:
+                    root_resolved = True
+            else:
+                work.append(node)
+        if not work:
+            tree.update_lower_bound()
+            add_update(echo_row=False)
+            continue
+
+        L = _l_bucket(max(1, max(len(nd.cuts) for nd in work)))
+        # rho portfolio: on refinement visits, replicate live nodes into
+        # otherwise-padded slots at different penalties; every replica bound
+        # is valid, the per-node max is taken, and the winning replica's
+        # state carries forward.  First visits run solo at the tight bucket.
+        use_portfolio = (
+            len(cfg.rho_portfolio) > 0 and all(nd.refines > 0 for nd in work)
+        )
+        P = 1 + len(cfg.rho_portfolio)
+        if use_portfolio:
+            Bb = _b_bucket(min(len(work) * P, B), B)
+        else:
+            Bb = _b_bucket(len(work), B)
+        if use_portfolio and Bb > len(work):
+            slot_nodes = [work[s % len(work)] for s in range(Bb)]
+            rho_mults = np.ones(Bb, dtype=np_dtype)
+            for s in range(len(work), Bb):
+                rho_mults[s] = cfg.rho_portfolio[
+                    (s // len(work) - 1) % len(cfg.rho_portfolio)
+                ]
+        else:
+            use_portfolio = False
+            slot_nodes = work
+            rho_mults = None
+        batch = _pack_batch(slot_nodes, Bb, L, n, k, cfg.disjunctive_cuts_type, np_dtype)
+        ub_bar = tree.best_upper_bound * (1.0 + 1e-9) + 1e-9
+
+        # a starved frontier spends the freed batch slots on more iterations
+        # for the live nodes, capped so one visit never eats more than a
+        # quarter of the remaining time budget
+        queue_slack = max(0, B - len(work) - len(tree))
+        boost = min(
+            cfg.sdp_iter_boost_max, max(1, queue_slack // max(1, len(work)))
+        )
+        visit_iters = cfg.sdp_iters * boost
+        skey = ("dc", Bb)
+        rate = iter_rate.get(skey)
+        if rate is not None and rate > 0:
+            remaining = max(cfg.time_limit - (time.time() - start_time), 0.0)
+            affordable = int(max(5.0, 0.25 * remaining) / rate)
+            visit_iters = max(
+                min(visit_iters, affordable), max(cfg.sdp_iters // 4, 1)
+            )
+
+        t0 = time.time()
+        state0, fresh = warm_state(slot_nodes, Bb, L)
+        if use_portfolio and fresh:
+            state0 = set_slot_rho(state0, state0.rho * T(rho_mults))
+        batch_dev = batch.map(T)
+        # on-device early exit: a slot is done when its chunk-averaged safe
+        # bound clears the certification level; replicas of a node share a
+        # group (any replica clearing finishes the node)
+        nw = len(work)
+        target_np = np.full(Bb, -np.inf, dtype=np_dtype)
+        group_np = np.arange(Bb, dtype=np.int64)
+        lvl = tree.best_upper_bound / (1.0 + cfg.gap)
+        n_live = Bb if use_portfolio else nw
+        target_np[:n_live] = lvl
+        if use_portfolio:
+            group_np = np.arange(Bb, dtype=np.int64) % nw
+        fin_state, out_dev = get_solver(L)(
+            A_dev, mask_dev, batch_dev, ub_bar, state0, visit_iters,
+            T(target_np), torch.as_tensor(group_np, device=dev),
+        )
+        state_bd = (
+            _apply_best_duals(fin_state, out_dev) if cfg.sdp_best_dual_warm else None
+        )
+        out = to_numpy_out(out_dev)  # one synchronised fetch
+        iters_done = int(np.max(out["iters_run"]))
+        t_dev_end = time.time()
+        if Bb > cfg.host_certify_max_batch:
+            # scale path: f64-certify only the binding slots (prune/close
+            # candidates by the estimator, and the lowest bounds, which
+            # drive the global LB); the rest keep the on-device
+            # margin-guarded bound
+            lb_dev = out["lb_dev"].astype(np.float64)
+            lb_scr = out["lb_est"].astype(np.float64)
+            binding = lb_scr >= 0.98 * lvl
+            order = np.argsort(lb_scr)
+            binding[order[: min(8, Bb)]] = True
+            sel = np.where(binding)[0]
+            lbs = lb_dev.copy()
+            if sel.size:
+                sub_batch = batch.map(lambda x: np.asarray(x)[sel])
+                sub_out = {
+                    key: val[sel] for key, val in out.items()
+                    if key in ("y1", "y2", "ya", "yb", "yc")
+                }
+                lbs[sel] = host_certified_bound(
+                    A, mask, sub_batch, sub_out, gamma, k, ub_bar
+                )
+        else:
+            lbs = host_certified_bound(A, mask, batch, out, gamma, k, ub_bar)
+
+        # portfolio reduction: per node, the max certified bound over its
+        # replica slots; the winning slot represents the node from here on
+        best_slot = None
+        sel_of = list(range(len(work)))
+        if use_portfolio:
+            lbs_nodes = np.empty(nw)
+            best_slot = {}
+            for i in range(nw):
+                slots_i = np.arange(i, Bb, nw)
+                j = int(slots_i[np.argmax(lbs[slots_i])])
+                lbs_nodes[i] = lbs[j]
+                sel_of[i] = j
+                best_slot[work[i].node_id] = j
+            lbs = lbs_nodes
+        record_solve(slot_nodes, fin_state, Bb, L, best_slot=best_slot,
+                     state_bd=state_bd)
+        t_relax = time.time() - t0
+        solve_time_relaxation += t_relax
+        solve_time_device += t_dev_end - t0
+        solve_time_certify += t_relax - (t_dev_end - t0)
+        sdp_iters_total += iters_done
+        device_steps += 1
+        new_rate = t_relax / max(iters_done, 1)
+        old_rate = iter_rate.get(skey)
+        # the first measurement includes warm-up costs — overwrite it on
+        # the second, then smooth
+        iter_rate[skey] = (
+            new_rate if old_rate is None or iter_rate_samples[skey] < 2
+            else 0.7 * old_rate + 0.3 * new_rate
+        )
+        iter_rate_samples[skey] = iter_rate_samples.get(skey, 0) + 1
+
+        altmin_marked: List[int] = []  # indices into `work`
+        split_nodes: List[int] = []
+
+        for i, node in enumerate(work):
+            lb_prev = node.LB
+            computed = float(lbs[i])
+            prev_solver = node.lb_solver
+            node.lb_solver = computed
+            lb_i = max(node.LB, computed)
+            node.LB = lb_i
+            # refinement re-visits are counted in tree.refinement_visits,
+            # not in the per-node census
+            if node.refines == 0:
+                census["nodes_relax_feasible"] += 1
+            dict_solve_times_relaxation.append({
+                "node_id": node.node_id, "depth": node.depth,
+                "solve_time": t_relax / max(len(work), 1),
+            })
+            if node.node_id == 1:
+                tree.best_lower_bound = max(tree.best_lower_bound, lb_i)
+
+            if lb_i > tree.best_upper_bound:
+                census["nodes_relax_feasible_pruned"] += 1
+                if node.node_id == 1:
+                    root_resolved = True
+                continue
+
+            sel = sel_of[i]
+            master_feasible = bool(out["sep_w"][sel, 0] >= -1e-6)
+            if master_feasible:
+                node.master_feasible = True
+                t_pol = time.time()
+                obj_r, X_r, U_r = _round_to_incumbent(out["Y"][sel], A, mask, gamma, k)
+                obj_p, X_p, U_p = _polish_incumbent(X_r, A, mask, gamma, k, iters=8)
+                solve_time_polish += time.time() - t_pol
+                if obj_p < obj_r:
+                    obj_r, X_r, U_r = obj_p, X_p, U_p
+                improved = obj_r < tree.best_upper_bound
+                if improved:
+                    tree.best_upper_bound = obj_r
+                    update_solution(obj_r, U_r @ U_r.T, U_r, X_r, time.time() - start_time)
+                    add_update()
+                # close the node if its local gap is within target; census
+                # (7)/(8) count at close time (terminal-outcome partition)
+                if obj_r <= lb_i * (1.0 + cfg.gap) or lb_i >= tree.best_upper_bound:
+                    census["nodes_master_feasible"] += 1
+                    if improved:
+                        census["nodes_master_feasible_improvement"] += 1
+                    tree.closed_lb_floor = min(tree.closed_lb_floor, lb_i)
+                    if node.node_id == 1:
+                        root_resolved = True
+                    continue
+
+            # gap-level close: a certified bound at ub/(1+gap) closes the
+            # node with its bound as the floor of the global LB
+            if lb_i >= tree.best_upper_bound / (1.0 + cfg.gap):
+                tree.closed_lb_floor = min(tree.closed_lb_floor, lb_i)
+                nodes_closed_within_gap += 1
+                census["nodes_relax_feasible_pruned"] += 1
+                if node.node_id == 1:
+                    root_resolved = True
+                continue
+
+            # bound refinement: requeue this node to continue from its own
+            # solver state while its computed bound is still behind the
+            # inherited bound, or still moving by more than refine_frac of
+            # the remaining local gap
+            behind = computed < lb_prev - 1e-9 * max(1.0, abs(lb_prev))
+            baseline = prev_solver if np.isfinite(prev_solver) else lb_prev
+            movement = abs(computed - baseline) if np.isfinite(baseline) else np.inf
+            local_gap = max(tree.best_upper_bound - lb_i, 0.0)
+            improving = (not np.isfinite(prev_solver)) or (
+                computed > prev_solver + 0.02 * local_gap
+            )
+            node.behind_streak = (
+                node.behind_streak + 1 if (behind and not improving) else 0
+            )
+            if (
+                node.refines < cfg.max_refines
+                and node.behind_streak < cfg.max_behind_refines
+                and (behind or movement > cfg.refine_frac * local_gap)
+            ):
+                node.refines += 1
+                # incumbent candidate from the tightening relaxation, gated
+                # like altmin
+                if cfg.altmin_flag and rng.random() < _decayed_probability(
+                    node.depth, cfg.max_altmin_probability,
+                    cfg.min_altmin_probability,
+                    cfg.altmin_probability_decay_rate,
+                ):
+                    t_pol = time.time()
+                    obj_r, X_r, U_r = _round_to_incumbent(
+                        out["Y"][sel], A, mask, gamma, k
+                    )
+                    obj_p, X_p, U_p = _polish_incumbent(
+                        X_r, A, mask, gamma, k, iters=8
+                    )
+                    if obj_p < obj_r:
+                        obj_r, X_r, U_r = obj_p, X_p, U_p
+                    solve_time_polish += time.time() - t_pol
+                    if obj_r < tree.best_upper_bound:
+                        tree.best_upper_bound = obj_r
+                        update_solution(
+                            obj_r, U_r @ U_r.T, U_r, X_r,
+                            time.time() - start_time,
+                        )
+                        add_update()
+                tree.requeue(node, lb_i)
+                continue
+
+            # altmin probability gating (reference lines 856-870)
+            if cfg.altmin_flag:
+                p = _decayed_probability(
+                    node.depth, cfg.max_altmin_probability,
+                    cfg.min_altmin_probability, cfg.altmin_probability_decay_rate,
+                )
+                if rng.random() < p:
+                    altmin_marked.append(i)
+            if node.node_id == 1:
+                root_resolved = True  # the root reached its split visit
+            split_nodes.append(i)
+
+        # ---- batched altmin heuristic at marked nodes ----
+        if altmin_marked:
+            t0 = time.time()
+            U_init_m = np.zeros((len(altmin_marked), n, k), dtype=np.float64)
+            for j, i in enumerate(altmin_marked):
+                Yi = out["Y"][sel_of[i]].astype(np.float64)
+                if not np.all(np.isfinite(Yi)):
+                    continue  # diverged iterate: zero init
+                w, V = np.linalg.eigh(0.5 * (Yi + Yi.T))
+                U_init_m[j] = V[:, ::-1][:, :k]
+            if all(not work[i].cuts for i in altmin_marked):
+                am_U, am_V, am_conv, am_iters, am_trace = run_altmin(U_init_m)
+            else:
+                # cut-constrained U-step (reference lines 2048-2092): the
+                # marked nodes' cut tensors are rows of the packed batch
+                Ba = _b_bucket(len(altmin_marked), B)
+                na = len(altmin_marked)
+                idx = np.asarray(altmin_marked + [altmin_marked[-1]] * (Ba - na))
+                r = altmin_fn(
+                    A_dev, mask_dev,
+                    T(U_init_m[np.minimum(np.arange(Ba), na - 1)]),
+                    T(batch.U_lo[idx]), T(batch.U_hi[idx]),
+                    cut_x=T(batch.cut_x[idx]), cut_lo=T(batch.cut_lo[idx]),
+                    cut_hi=T(batch.cut_hi[idx]), cut_mask=T(batch.cut_mask[idx]),
+                )
+                am_U, am_V, am_conv, am_iters, am_trace = _fetch(r, slice(0, na))
+            t_alt = time.time() - t0
+            solve_time_altmin += t_alt
+            for j, i in enumerate(altmin_marked):
+                node = work[i]
+                census["nodes_relax_feasible_split_altmin"] += 1
+                dict_solve_times_altmin.append({
+                    "node_id": node.node_id, "depth": node.depth,
+                    "solve_time": t_alt / len(altmin_marked),
+                })
+                dict_num_iterations_altmin.append({
+                    "node_id": node.node_id, "depth": node.depth,
+                    "n_iters": int(am_iters[j]),
+                })
+                alternating_minimization_printout(
+                    printlist, node.node_id,
+                    _decayed_probability(
+                        node.depth, cfg.max_altmin_probability,
+                        cfg.min_altmin_probability,
+                        cfg.altmin_probability_decay_rate,
+                    ),
+                    bool(am_conv[j]), int(am_iters[j]), cfg.altmin_max_iters,
+                    t_alt / len(altmin_marked),
+                    [float(v) for v in am_trace[j][: int(am_iters[j])]
+                     if np.isfinite(v)]
+                    or [_np_objective(am_U[j] @ am_V[j], A, mask, gamma)],
+                    verbosity,
+                )
+                if am_conv[j]:
+                    t_pol = time.time()
+                    obj_local, X_local, U_local = _polish_incumbent(
+                        am_U[j] @ am_V[j], A, mask, gamma, k, iters=8
+                    )
+                    solve_time_polish += time.time() - t_pol
+                    if obj_local < tree.best_upper_bound:
+                        census["nodes_relax_feasible_split_altmin_improvement"] += 1
+                        tree.best_upper_bound = obj_local
+                        update_solution(
+                            obj_local, U_local @ U_local.T, U_local, X_local,
+                            time.time() - start_time,
+                        )
+                        add_update(altmin_flag=True)
+
+        # ---- branching (reference lines 951-1031) ----
+        had_root = any(nd.node_id == 1 for nd in work)
+        if not cfg.root_only:
+            for i in split_nodes:
+                node = work[i]
+                census["nodes_relax_feasible_split"] += 1
+                children = create_matrix_cut_child_nodes(
+                    node,
+                    cfg.disjunctive_cuts_type,
+                    cfg.disjunctive_cuts_breakpoints,
+                    sep_w=out["sep_w"][sel_of[i]],
+                    sep_V=out["sep_V"][sel_of[i]],
+                    U_relax=out["U"][sel_of[i]],
+                    counter=tree.counter,
+                    objective_relax=node.LB,
+                )
+                tree.add_nodes(children, node.LB)
+
+        # queued mid-refinement nodes killed by a better incumbent are
+        # (5)-counted nodes whose terminal outcome is a bound prune -> (6)
+        pruned_refining, pruned_ids = tree.prune_dominated()
+        census["nodes_relax_feasible_pruned"] += pruned_refining
+        if 1 in pruned_ids:
+            root_resolved = True
+        lower_bounds_updated = tree.update_lower_bound()
+        tree.now_gap = compute_gap(tree.best_lower_bound, tree.best_upper_bound)
+
+        print_now = (
+            lower_bounds_updated
+            or had_root
+            or (tree.counter // cfg.update_step) > (tree.last_updated_counter // cfg.update_step)
+            or tree.now_gap <= cfg.gap
+            or (cfg.use_max_steps and tree.counter >= cfg.max_steps)
+            or time.time() - start_time > cfg.time_limit
+        )
+        add_update(echo_row=print_now if verbosity >= 1 else verbosity >= 3)
+
+        if cfg.root_only:
+            break
+
+    end_time = time.time()
+    time_taken = end_time - start_time
+
+    # terminal accounting for nodes still queued mid-refinement at a
+    # gap-certified exit (their outcome is a within-gap bound prune -> (6))
+    if compute_gap(tree.best_lower_bound, tree.best_upper_bound) <= cfg.gap:
+        for nd in tree.nodes.values():
+            if nd.refines > 0:
+                census["nodes_relax_feasible_pruned"] += 1
+        root_resolved = True
+
+    root_node_timeout = bool(time_taken > cfg.time_limit and not root_resolved)
+
+    solution["MSE_in"] = float(compute_MSE(solution["X"], A, mask, kind="in"))
+    solution["MSE_out"] = float(compute_MSE(solution["X"], A, mask, kind="out"))
+    solution["MSE_all"] = float(compute_MSE(solution["X"], A, mask, kind="all"))
+
+    run_details = OrderedDict(
+        [
+            ("k", k), ("m", m), ("n", n), ("A", A), ("indices", indices),
+            ("num_indices", int(indices.sum())), ("gamma", gamma),
+        ]
+    )
+    run_details.update(cfg.run_details_params())
+    run_details.update(
+        {
+            "log_time": start_time,
+            "start_time": start_time,
+            "end_time": end_time,
+            "time_taken": time_taken,
+            "solve_time_altmin": solve_time_altmin,
+            "dict_solve_times_altmin": dict_solve_times_altmin,
+            "dict_num_iterations_altmin": dict_num_iterations_altmin,
+            "solve_time_relaxation_feasibility": solve_time_relaxation_feasibility,
+            "solve_time_relaxation": solve_time_relaxation,
+            "dict_solve_times_relaxation": dict_solve_times_relaxation,
+            # phase split: device solver wall vs host float64 certification
+            # vs host incumbent polish
+            "solve_time_device": solve_time_device,
+            "solve_time_certify": solve_time_certify,
+            "solve_time_polish": solve_time_polish,
+            "sdp_iters_total": sdp_iters_total,
+            "device_steps": device_steps,
+            "device": str(dev),
+            # nodes closed because their certified bound reached ub/(1+gap)
+            "nodes_closed_within_gap": nodes_closed_within_gap,
+            "root_node_timeout": root_node_timeout,
+            "nodes_explored": tree.nodes_explored,
+            # bound-refinement re-visits (kept out of nodes_explored)
+            "refinement_visits": tree.refinement_visits,
+            "nodes_total": tree.counter,
+        }
+    )
+    run_details.update(census)
+
+    instance = {"run_log": run_log, "run_details": run_details}
+
+    add_message(printlist, [
+        "\n\nRun details:\n",
+        f"nodes_explored: {tree.nodes_explored:10d}\n",
+        f"nodes_total:    {tree.counter:10d}\n",
+        f"time_taken:     {time_taken:10.3f}\n",
+        "\n--------------------------------\n",
+        "\n\nInitial solution (warm start):\n%s" % repr(objective_initial),
+        "\n\nBest incumbent solution:\n%s" % repr(solution["objective"]),
+        "\n\nFinal gap:\n%s\n" % repr(tree.now_gap),
+    ], echo=echo)
+
+    return solution, printlist, instance
