@@ -9,10 +9,12 @@ knobs before they are echoed into ``run_details``) and the solver knobs of
 the PDHG step balance ``sdp_omega`` and the per-call duration caps
 ``sdp_max_call_seconds`` / ``sdp_first_call_iters``.
 
-The port runs the disjunctive-cut ADMM main path only.  A valid setting
-that selects a path the port does not have yet raises
+The port runs the disjunctive-cut ADMM path, with or without the rank-1
+Shor valid inequalities, under best-first or breadth-first node selection.
+A valid setting that selects a path the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item; it never runs some other
-path instead.
+path instead.  (Shor with k > 1 raises from the entry point, where k is
+known.)
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ _CUT_TYPES = ("linear", "linear2", "linear3")
 _BREAKPOINTS = ("smallest_1_eigvec", "smallest_2_eigvec")
 
 
-def _not_ported(what: str, item: str):
+def not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to omc_torch yet (ROADMAP.md, {item}); "
         "use the omc package for it."
@@ -226,30 +228,28 @@ class SolverConfig:
     def _check_ported(self):
         """Valid settings of paths the port does not have yet."""
         if self.sdp_method == "pdhg":
-            _not_ported('sdp_method="pdhg"', '"Not to port"')
+            not_ported('sdp_method="pdhg"', '"Not to port"')
         if self.sdp_halpern:
-            _not_ported("sdp_halpern", '"Not to port"')
+            not_ported("sdp_halpern", '"Not to port"')
         if not self.use_disjunctive_cuts:
-            _not_ported("The McCormick path (use_disjunctive_cuts=False)", "queue 1 item 12")
-        if self.add_Shor_valid_inequalities:
-            _not_ported("Shor valid inequalities", "queue 1 items 10-11")
+            not_ported("The McCormick path (use_disjunctive_cuts=False)", "queue 1 item 12")
         if self.disjunctive_cuts_type != "linear":
-            _not_ported(f'disjunctive_cuts_type="{self.disjunctive_cuts_type}"', "queue 1 item 9")
+            not_ported(f'disjunctive_cuts_type="{self.disjunctive_cuts_type}"', "queue 1 item 9")
         if self.disjunctive_cuts_breakpoints != "smallest_1_eigvec":
-            _not_ported(
+            not_ported(
                 f'disjunctive_cuts_breakpoints="{self.disjunctive_cuts_breakpoints}"',
                 "queue 1 item 9",
             )
-        if self.node_selection != "bestfirst":
-            _not_ported(f'node_selection="{self.node_selection}"', "queue 1 item 9")
+        if self.node_selection not in ("bestfirst", "breadthfirst"):
+            not_ported(f'node_selection="{self.node_selection}"', "queue 1 item 9")
         if self.checkpoint_path is not None or self.resume:
-            _not_ported("Checkpoint/resume", "queue 1 item 9")
+            not_ported("Checkpoint/resume", "queue 1 item 9")
         if self.mesh_shape is not None and math.prod(int(s) for s in self.mesh_shape) > 1:
-            _not_ported("mesh_shape", "queue 1 item 13")
+            not_ported("mesh_shape", "queue 1 item 13")
         if self.distributed:
-            _not_ported("distributed=True", "queue 1 item 13")
+            not_ported("distributed=True", "queue 1 item 13")
         if self.profile_dir is not None:
-            _not_ported("profile_dir", "queue 1 item 14")
+            not_ported("profile_dir", "queue 1 item 14")
 
     def run_details_params(self) -> dict:
         """Parameter echo for run_details, matching reference key names

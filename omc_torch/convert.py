@@ -7,6 +7,7 @@ packages the same state without this package importing jax::
 
     batch_t = node_batch_from_numpy([np.asarray(x) for x in omc_batch])
     state_t = admm_state_from_numpy([np.asarray(x) for x in omc_state])
+    sb_t = shor_batch_from_numpy([np.asarray(x) for x in omc_shor_batch])
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 from omc_torch.sdp.admm import ADMMState
+from omc_torch.sdp.admm_shor import ShorADMMState, ShorBatch, shor_batch_to_device
 from omc_torch.sdp.relax import NodeBatch
+from omc_torch.sdp.shor_encode import OMC_FIELDS, shor_batch_host_from_omc_leaves
 
 
 def _tensors(leaves, n_expected, device, dtype):
@@ -43,5 +46,23 @@ def admm_state_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ADMMStat
     return ADMMState.from_leaves(_tensors(leaves, 26, device, dtype))
 
 
-def admm_state_to_numpy(state: ADMMState) -> list:
+def admm_state_to_numpy(state) -> list:
+    """The leaves of an ADMMState or ShorADMMState as numpy arrays."""
     return [x.detach().cpu().numpy() for x in state.leaves()]
+
+
+def shor_batch_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ShorBatch:
+    """The 14 leaves of ``omc``'s ShorBatch / ShorBatchHost (field order:
+    minor_idx ... cnt_v3) -> ShorBatch, with the adjoint's inverse tables
+    built from them."""
+    leaves = [np.asarray(x) for x in leaves]
+    n, m = leaves[OMC_FIELDS.index("cnt_X")].shape[1:]
+    host = shor_batch_host_from_omc_leaves(leaves, n, m)
+    return shor_batch_to_device(host, dtype, device)
+
+
+def shor_state_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ShorADMMState:
+    """The leaves of ``omc.sdp.admm_shor.ShorADMMState`` (the 26 core
+    leaves, then W, v1, v2, v3, w5, u5, wr, ur, wl, ul, wp, up) ->
+    ShorADMMState."""
+    return ShorADMMState.from_leaves(_tensors(leaves, 38, device, dtype))

@@ -13,6 +13,19 @@ namespace omc {
 
 constexpr int kThreads = 256;
 
+// (a, b, c) per step of the sign schedule (omc/ops/polar.py _SIGN_SCHEDULE):
+// 12 quintic steps, then 2 cubic Newton-Schulz polish steps (c = 0)
+static __constant__ float kSignSched[14][3] = {
+    {3.521451f, -7.154590f, 3.634029f},   {3.406982f, -6.751032f, 4.344051f},
+    {4.115155f, -11.482394f, 8.367240f},  {3.562198f, -7.405884f, 3.849440f},
+    {3.811135f, -9.095166f, 5.427381f},   {4.202972f, -12.190019f, 8.987046f},
+    {4.176513f, -11.973807f, 8.797295f},  {4.110213f, -12.007850f, 8.897637f},
+    {4.062958f, -11.075007f, 8.012057f},  {3.454039f, -6.995438f, 4.470346f},
+    {2.364441f, -2.438842f, 1.074450f},   {2.135440f, -1.778817f, 0.643428f},
+    {1.5f, -0.5f, 0.0f},                  {1.5f, -0.5f, 0.0f},
+};
+constexpr int kSignSteps = 14;
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -68,5 +81,53 @@ struct K3Params {
   const float *cut_x, *cut_lo, *cut_hi, *cut_mask, *U_lo, *U_hi;
   const float *sX, *sT, *rho;
   int B, n, m, k, L;
+  float alpha, beta;
+};
+
+// K7: with t given, w = proj_PSD(t) for N 5x5 matrices; with t null, the
+// Shor minor slots of B node slots (N = B * M5) are gathered from the
+// primal, relax-mixed with w/u, projected, and u and the EMA updated.
+struct K7Params {
+  const float* t;              // (N, 5, 5) or null
+  float* w;                    // (N, 5, 5) projections (w5 in place)
+  float* u;                    // (N, 5, 5) u5 (gather mode)
+  float* acc;                  // (N, 5, 5) EMA of rho*u5, or null
+  const float *Xs, *Ws;        // (B, n*m) scaled primal
+  const float *v1, *v2, *v3;   // (B, P1), (B, P2), (B, P3)
+  const int* minor_idx;        // (B, M5, 4)
+  const int *iv1a, *iv1b, *iv2a, *iv2b, *iv3;  // (B, M5)
+  const float* minor_mask;     // (B, M5)
+  const float *sS, *rho;       // (B,)
+  int N, M5, nm, P1, P2, P3, m;
+  float alpha, beta;
+};
+
+// K8a: the Shor part of the z-step (adjoint of the minor, RSOC, link and
+// W >= 0 slots, diagonal solves, Theta-link correction) -> Xs, Ths, W, v.
+struct K8aParams {
+  const float *w1, *u1;                 // (B, n+m, n+m)
+  const float *w5, *u5;                 // (B, M5, 5, 5)
+  const float *wr, *ur, *soc_mask;      // (B, n*m, 3), (B, n*m)
+  const float *wl, *ul;                 // (B, m)
+  const float *wp, *up;                 // (B, n, m)
+  const int *xw_ptr, *xw_ent, *v1_ptr, *v1_ent, *v2_ptr, *v2_ent, *v3_ptr, *v3_ent;
+  const float *cnt_X, *cnt_W, *cnt_v1, *cnt_v2, *cnt_v3;
+  const float* g_link;                  // (B, m) Theta-link Gram diagonal
+  const float *maskA, *mask;            // (n, m)
+  const float *sX, *sT, *sS, *rho;      // (B,)
+  float *Xs, *Ths, *Ws, *v1, *v2, *v3;  // outputs
+  int B, n, m, M5, P1, P2, P3;
+  float gamma, R_X;                     // R_X = sqrt(2 gamma ub_bar)
+};
+
+// K8b: cone step of the RSOC, Theta-link and W >= 0 slots with their EMAs.
+struct K8bParams {
+  const float *Xs, *Ws, *Ths;    // (B, n, m), (B, n, m), (B, m, m)
+  float *wr, *ur, *acc_r;        // (B, n*m, 3)
+  const float* soc_mask;         // (B, n*m)
+  float *wl, *ul, *acc_l;        // (B, m)
+  float *wp, *up;                // (B, n, m)
+  const float *sX, *sT, *sS, *rho;
+  int B, n, m;
   float alpha, beta;
 };

@@ -24,18 +24,6 @@
 
 namespace {
 
-// (a, b, c) per step — omc/ops/polar.py _SIGN_SCHEDULE
-__constant__ float kSched[14][3] = {
-    {3.521451f, -7.154590f, 3.634029f},   {3.406982f, -6.751032f, 4.344051f},
-    {4.115155f, -11.482394f, 8.367240f},  {3.562198f, -7.405884f, 3.849440f},
-    {3.811135f, -9.095166f, 5.427381f},   {4.202972f, -12.190019f, 8.987046f},
-    {4.176513f, -11.973807f, 8.797295f},  {4.110213f, -12.007850f, 8.897637f},
-    {4.062958f, -11.075007f, 8.012057f},  {3.454039f, -6.995438f, 4.470346f},
-    {2.364441f, -2.438842f, 1.074450f},   {2.135440f, -1.778817f, 0.643428f},
-    {1.5f, -0.5f, 0.0f},                  {1.5f, -0.5f, 0.0f},
-};
-constexpr int kSteps = 14;
-
 // largest d whose four (Dp x (Dp+1)) buffers fit in shared memory, Dp = d
 // rounded up to 16: 4 * 112 * 113 * 4 B = 202,496 B of the 227 KB a block
 // may use
@@ -202,8 +190,9 @@ __global__ void __launch_bounds__(omc::kThreads) k1_kernel(K1Params p) {
     }
   };
 
-  for (int step = 0; step < kSteps; ++step) {
-    const float a = kSched[step][0], bq = kSched[step][1], c = kSched[step][2];
+  for (int step = 0; step < omc::kSignSteps; ++step) {
+    const float a = omc::kSignSched[step][0], bq = omc::kSignSched[step][1],
+                c = omc::kSignSched[step][2];
     mm(S, S, X1, nullptr, 1.f, 0.f);                 // X1 = S^2
     if (c != 0.f) {
       mm(X1, X1, X2, X1, c, bq);                     // X2 = c S^4 + b S^2

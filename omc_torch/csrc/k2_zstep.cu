@@ -8,6 +8,8 @@
 //   z = D^-1 (rho K' r - c)  per block,   s = V' z,
 //   t = rho G1^-1 s  (two triangular solves with the Cholesky factor of G1),
 //   z -= D^-1 V t,   Y = sym(zY), Ths = sym(zTh).
+// In the Shor loop (Xs and Ths null) it writes Y and U only: the Shor
+// relaxation shares their z-step, and K8a writes X and Theta.
 //
 // What bounds it on the H100: memory traffic — each slot reads its
 // (n+m)^2 + (n+k)^2 + n^2 residual blocks once and writes n m + n^2 + m^2
@@ -50,9 +52,9 @@ __global__ void __launch_bounds__(omc::kThreads) k2_kernel(K2Params p) {
   const float* clo = p.cut_lo + (size_t)b * L * k;
   const float* chi = p.cut_hi + (size_t)b * L * k;
   const float* cm = p.cut_mask + (size_t)b * L;
-  float* Xs = p.Xs + (size_t)b * n * m;
+  float* Xs = p.Xs ? p.Xs + (size_t)b * n * m : nullptr;
   float* Y = p.Y + (size_t)b * n * n;
-  float* Ths = p.Ths + (size_t)b * m * m;
+  float* Ths = p.Ths ? p.Ths + (size_t)b * m * m : nullptr;
   float* U = p.U + (size_t)b * n * k;
 
   // cut-slot duals: yc_l = (wc - uc - bconst_l) cm_l,
@@ -75,7 +77,7 @@ __global__ void __launch_bounds__(omc::kThreads) k2_kernel(K2Params p) {
   __syncthreads();
 
   // X block: zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho sX^2)
-  for (int e = tid; e < n * m; e += blockDim.x) {
+  for (int e = tid; Xs && e < n * m; e += blockDim.x) {
     const int i = e / m, j = e % m;
     const int q = i * D1 + n + j;
     const float gX = sX * 2.0f * (w1[q] - u1[q]);
@@ -85,7 +87,7 @@ __global__ void __launch_bounds__(omc::kThreads) k2_kernel(K2Params p) {
   }
   // Theta block (no Woodbury correction): symmetrised directly
   const float cth = sT * 0.5f / p.gamma;
-  for (int e = tid; e < m * m; e += blockDim.x) {
+  for (int e = tid; Ths && e < m * m; e += blockDim.x) {
     const int i = e / m, j = e % m;
     const int q1 = (n + i) * D1 + n + j, q2 = (n + j) * D1 + n + i;
     const float dg = (i == j) ? cth : 0.f;

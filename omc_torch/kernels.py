@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
 The kernels live in ``omc_torch/csrc/*.cu`` (CUDA C++ for ``sm_90a``).  At
-first use they are compiled with ``nvcc`` into one shared library with a
-plain C interface under ``build/omc_torch/<hash>/`` beside the package
-(the hash covers the sources and the flags, so an edited source rebuilds)
-and loaded with ``ctypes``.  Nothing is compiled or loaded at import time:
-a CPU-only installation imports this module and never calls ``library()``.
+first use each source is compiled by its own ``nvcc``, all at once, and the
+objects are linked into one shared library with a plain C interface under
+``build/omc_torch/<hash>/`` beside the package (the hash covers the sources
+and the flags, so an edited source rebuilds), loaded with ``ctypes``.
+Nothing is compiled or loaded at import time: a CPU-only installation
+imports this module and never calls ``library()``.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing and returns ``cudaGetLastError()``; ``launch``
@@ -17,6 +18,10 @@ PyTorch version:
 - K1 ``omc_torch.ops.polar.project_psd_ns_multi``  (``csrc/k1_psd_sign.cu``)
 - K2 ``omc_torch.sdp.admm.zstep``                  (``csrc/k2_zstep.cu``)
 - K3 ``omc_torch.sdp.admm.cone_step``              (``csrc/k3_cone.cu``)
+- K7 ``omc_torch.ops.polar.project_psd_small`` and
+  ``omc_torch.sdp.admm_shor.minor_step``           (``csrc/k7_minor_psd.cu``)
+- K8a ``omc_torch.sdp.admm_shor.shor_zstep``       (``csrc/k8_shor.cu``)
+- K8b ``omc_torch.sdp.admm_shor.shor_cone_step``   (``csrc/k8_shor.cu``)
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
@@ -36,13 +41,13 @@ from pathlib import Path
 import torch
 
 # launches of each kernel in this process (the wrappers add one per launch)
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -92,17 +97,33 @@ def _build() -> Path:
         BUILD_INFO.update(seconds=0.0, cached=True)
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libomc_torch_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
-    cmd += [str(p) for p in srcs if p.suffix == ".cu"]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in (p for p in srcs if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"libomc_torch_kernels.{tag}.so"
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
-    BUILD_INFO.update(seconds=time.time() - t0, cached=False, ptxas=res.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink()
+    BUILD_INFO.update(seconds=time.time() - t0, cached=False, ptxas="".join(logs))
     return so
 
 
@@ -147,12 +168,45 @@ class K3Params(ctypes.Structure):
     ]
 
 
+def _struct(ptrs, ints, floats):
+    return ([(name, ctypes.c_void_p) for name in ptrs]
+            + [(name, ctypes.c_int) for name in ints]
+            + [(name, ctypes.c_float) for name in floats])
+
+
+class K7Params(ctypes.Structure):
+    _fields_ = _struct(
+        ("t", "w", "u", "acc", "Xs", "Ws", "v1", "v2", "v3", "minor_idx",
+         "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask", "sS", "rho"),
+        ("N", "M5", "nm", "P1", "P2", "P3", "m"), ("alpha", "beta"))
+
+
+class K8aParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("w1", "u1", "w5", "u5", "wr", "ur", "soc_mask", "wl", "ul", "wp",
+         "up", "xw_ptr", "xw_ent", "v1_ptr", "v1_ent", "v2_ptr", "v2_ent",
+         "v3_ptr", "v3_ent", "cnt_X", "cnt_W", "cnt_v1", "cnt_v2", "cnt_v3",
+         "g_link", "maskA", "mask", "sX", "sT", "sS", "rho", "Xs", "Ths",
+         "Ws", "v1", "v2", "v3"),
+        ("B", "n", "m", "M5", "P1", "P2", "P3"), ("gamma", "R_X"))
+
+
+class K8bParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("Xs", "Ws", "Ths", "wr", "ur", "acc_r", "soc_mask", "wl", "ul",
+         "acc_l", "wp", "up", "sX", "sT", "sS", "rho"),
+        ("B", "n", "m"), ("alpha", "beta"))
+
+
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name, params in (
         ("omc_k1_psd_sign", K1Params),
         ("omc_k2_zstep", K2Params),
         ("omc_k3_cone", K3Params),
+        ("omc_k7_minor_psd", K7Params),
+        ("omc_k8a_shor_zstep", K8aParams),
+        ("omc_k8b_shor_cone", K8bParams),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]
@@ -176,15 +230,15 @@ def launch(key: str, fn_name: str, params: ctypes.Structure, device):
     LAUNCHES[key] += 1
 
 
-def check(name, t, shape, device):
-    """Validate one kernel operand: float32, contiguous, on ``device``,
-    of exactly ``shape``."""
+def check(name, t, shape, device, dtype=torch.float32):
+    """Validate one kernel operand: ``dtype`` (float32 values, int32
+    index tables), contiguous, on ``device``, of exactly ``shape``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the CUDA kernels take float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the CUDA kernels take {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

@@ -1,13 +1,31 @@
 """Batched cone projections (port of ``omc/ops/cones.py``).
 
 Closed-form projections used by the ADMM w-step and the safe dual bound.
-All functions accept leading batch dimensions.  ``project_rsoc`` waits for
-the Shor relaxations (ROADMAP queue 1, items 10-11).
+All functions accept leading batch dimensions.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+# cuSOLVER's batched eigh rejects batches of 32768 or more small matrices
+# (CUSOLVER_STATUS_INVALID_VALUE; measured with 5x5 float32 and float64
+# batches on an H100, torch 2.11 + CUDA 12.8), and the Shor minor slots
+# come in batches of up to B * 4096
+_EIGH_CHUNK = 16384
+
+
+def eigh(M):
+    """``torch.linalg.eigh`` of a (..., d, d) batch of any size, in chunks
+    of at most ``_EIGH_CHUNK`` matrices."""
+    flat = M.reshape(-1, *M.shape[-2:])
+    if flat.shape[0] <= _EIGH_CHUNK:
+        return torch.linalg.eigh(M)
+    parts = [torch.linalg.eigh(c) for c in flat.split(_EIGH_CHUNK)]
+    w = torch.cat([p[0] for p in parts]).reshape(M.shape[:-1])
+    V = torch.cat([p[1] for p in parts]).reshape(M.shape)
+    return w, V
 
 
 def symmetrize(M):
@@ -17,7 +35,7 @@ def symmetrize(M):
 def project_psd(M):
     """Project symmetric matrices (..., d, d) onto the PSD cone (eigh)."""
     M = symmetrize(M)
-    w, V = torch.linalg.eigh(M)
+    w, V = eigh(M)
     w = torch.clamp(w, min=0.0)
     return (V * w[..., None, :]) @ V.transpose(-1, -2)
 
@@ -43,3 +61,19 @@ def project_soc(t, x):
         inside[..., None], x, torch.where(polar[..., None], torch.zeros_like(x), x_b)
     )
     return t_out, x_out
+
+
+def project_rsoc(u, v, x):
+    """Project onto the rotated second-order cone
+    {(u, v, x): 2 u v >= ||x||^2, u >= 0, v >= 0}, through the isometry
+    (u, v) -> ((u+v)/sqrt2, (u-v)/sqrt2) onto the standard SOC
+    {(t, (s, x)): ||(s, x)|| <= t}.  ``u``, ``v``: (...,); ``x``: (..., d)."""
+    s2 = torch.sqrt(torch.tensor(2.0, dtype=x.dtype, device=x.device))
+    t = (u + v) / s2
+    s = (u - v) / s2
+    z = torch.cat([s[..., None], x], dim=-1)
+    t_p, z_p = project_soc(t, z)
+    s_p = z_p[..., 0]
+    u_p = (t_p + s_p) / s2
+    v_p = (t_p - s_p) / s2
+    return u_p, v_p, z_p[..., 1:]

@@ -20,6 +20,10 @@ the ADMM accuracy at ~1e-2.
 blocks of every node slot, one CTA per matrix, and can fuse the ADMM
 u-update and the dual EMA into its epilogue.  On a CPU tensor it runs the
 plain ``project_psd_ns_merged`` with the same epilogue.
+
+``project_psd_small`` is kernel K7 (``omc_torch/csrc/k7_minor_psd.cu``) on
+batches of 5x5 matrices (the Shor minor slots), one thread per matrix; its
+plain version is ``project_psd_ns_small``.
 """
 
 from __future__ import annotations
@@ -177,4 +181,55 @@ def project_psd_ns_multi(ts, *, w_out=None, u_out=None, acc=None, rho=None,
     if acc is not None and any(a is not None for a in acc):
         p.rho = kernels.check("rho", rho, (B,), dev)
     kernels.launch("K1", "omc_k1_psd_sign", p, dev)
+    return w_out
+
+
+def _mm_lanes(X, Y):
+    """(d, d, N) x (d, d, N) products with the batch along the last axis:
+    a broadcast multiply and a reduction, as omc runs them."""
+    return torch.sum(X[:, :, None, :] * Y[None, :, :, :], dim=1)
+
+
+def project_psd_ns_small(T):
+    """PSD projection of large batches of tiny symmetric (..., d, d)
+    matrices (the (B, M5, 5, 5) Shor minor slots) with the sign schedule,
+    the batch laid along the last axis as in ``omc`` (plain version of
+    K7)."""
+    T = 0.5 * (T + T.transpose(-1, -2))
+    shape = T.shape
+    d = shape[-1]
+    Tb = T.reshape(-1, d, d).permute(1, 2, 0)  # (d, d, N)
+    s = torch.sqrt(torch.sum(Tb * Tb, dim=(0, 1), keepdim=True)) + 1e-30
+    S = Tb / s
+    for a, b, c in np.asarray(_SIGN_SCHEDULE):
+        S2 = _mm_lanes(S, S)
+        if c == 0.0:
+            S = float(a) * S + float(b) * _mm_lanes(S, S2)
+        else:
+            S = float(a) * S + _mm_lanes(S, float(b) * S2 + float(c) * _mm_lanes(S2, S2))
+    P = 0.5 * (Tb + _mm_lanes(S, Tb))
+    P = 0.5 * (P + P.transpose(0, 1))
+    return P.permute(2, 0, 1).reshape(shape)
+
+
+def project_psd_small(T, w_out=None):
+    """K7 in its projection mode: the sign-schedule PSD projection of a
+    (..., 5, 5) batch, one thread per matrix on the GPU.  A CPU tensor runs
+    the plain ``project_psd_ns_small``; a CUDA tensor runs the kernel or
+    raises."""
+    dev = T.device
+    if dev.type == "cpu":
+        P = project_psd_ns_small(T)
+        return P if w_out is None else w_out.copy_(P)
+    if dev.type != "cuda":
+        raise ValueError(f"project_psd_small: unsupported device {dev}")
+    if T.shape[-2:] != (5, 5):
+        raise ValueError(f"K7 takes 5x5 matrices, got {tuple(T.shape)}")
+    if w_out is None:
+        w_out = torch.empty_like(T)
+    p = kernels.K7Params()
+    p.t = kernels.check("t", T, T.shape, dev)
+    p.w = kernels.check("w_out", w_out, T.shape, dev)
+    p.N = T.numel() // 25
+    kernels.launch("K7", "omc_k7_minor_psd", p, dev)
     return w_out

@@ -334,18 +334,24 @@ def zstep_plain(c: _Consts, st: ADMMState):
     return Xs, Y, Ths, U
 
 
-def zstep(c: _Consts, st: ADMMState):
-    """K2 wrapper: writes (Xs, Y, Ths, U) into ``st.X/Y/Th/U``.  A CPU
-    state runs ``zstep_plain``; a CUDA state launches
-    ``csrc/k2_zstep.cu`` (one CTA per node slot) or raises."""
+def zstep(c: _Consts, st: ADMMState, shor: bool = False):
+    """K2 wrapper: writes (Xs, Y, Ths, U) into ``st.X/Y/Th/U`` -- with
+    ``shor`` only Y and U, whose z-step the Shor relaxation shares (its X
+    and Theta come from K8a).  A CPU state runs ``zstep_plain``; a CUDA
+    state launches ``csrc/k2_zstep.cu`` (one CTA per node slot) or
+    raises."""
     dev = st.w1.device
     if dev.type == "cpu":
         for dst, src in zip((st.X, st.Y, st.Th, st.U), zstep_plain(c, st)):
-            dst.copy_(src)
+            if not (shor and (dst is st.X or dst is st.Th)):
+                dst.copy_(src)
         return
     if dev.type != "cuda":
         raise ValueError(f"zstep: unsupported device {dev}")
-    kernels.launch("K2", "omc_k2_zstep", _k2_params(c, st), dev)
+    prm = _k2_params(c, st)
+    if shor:
+        prm.Xs = prm.Ths = None
+    kernels.launch("K2", "omc_k2_zstep", prm, dev)
 
 
 def _k2_params(c: _Consts, st: ADMMState):
@@ -665,7 +671,18 @@ def to_numpy_out(out: dict) -> dict:
     return {key: val.detach().cpu().numpy() for key, val in out.items()}
 
 
+def apply_best_duals(state: ADMMState, out: dict) -> ADMMState:
+    """The visit's best-chunk duals of the base slots as scaled duals
+    (u = y / rho)."""
+    r3 = state.rho[:, None, None]
+    return state.replace(
+        u1=out["y1"] / r3, u2=out["y2"] / r3, ua=out["ya"] / r3,
+        ub=out["yb"] / r3, uc=out["yc"] / state.rho[:, None],
+    )
+
+
 __all__ = [
     "ADMMState", "init_admm_state", "set_slot_rho", "make_admm_solver",
     "zstep", "zstep_plain", "cone_step", "cone_step_plain", "solve_z",
+    "apply_best_duals",
 ]

@@ -1,13 +1,17 @@
-"""Branch-and-bound driver — the public entry point (port of the main-path
-parts of ``omc/solve.py``).
+"""Branch-and-bound driver — the public entry point (port of the
+disjunctive-cut and rank-1 Shor parts of ``omc/solve.py``).
 
-Up to ``batch_size`` frontier nodes are popped per super-step (best-first),
-relaxed together by the batched ADMM solver on one device, certified on the
-host in float64, then closed, pruned, refined or split into 2^k children
-along the most negative eigenvector of ``U U' - Y``.  Alternating
-minimisation supplies upper bounds (multi-restart at the root, probability-
-gated at tree nodes); master-feasible relaxation points are rounded to
-exact rank-k incumbents.
+Up to ``batch_size`` frontier nodes are popped per super-step (best-first
+or breadth-first), relaxed together by the batched ADMM solver on one
+device, certified on the host in float64, then closed, pruned, refined or
+split into 2^k children along the most negative eigenvector of
+``U U' - Y``.  Alternating minimisation supplies upper bounds (multi-
+restart at the root, probability-gated at tree nodes); master-feasible
+relaxation points are rounded to exact rank-k incumbents.  With
+``add_Shor_valid_inequalities`` (k = 1) every node also carries its 2x2
+minors (static, or grown from the top-scoring violated ones at refinement
+stalls and at child creation) and the Shor solver of
+``omc_torch.sdp.admm_shor`` relaxes it.
 
 Soundness notes (as in ``omc``):
 
@@ -21,9 +25,10 @@ Soundness notes (as in ``omc``):
 - The 11-category node census (reference lines 411-454) keeps the
   reference's keys.
 
-The device is chosen once, by the ``device`` argument (default: the first
-CUDA device when there is one, else the CPU).  On a CUDA device the solver
-runs float32 through the hand-written kernels K1-K3 (``omc_torch/csrc``).
+The device is chosen once, by the required ``device`` argument.  On a CUDA
+device the solver runs float32 through the hand-written kernels
+(``omc_torch/csrc``): K1-K3 on the base path, and K2, K8a, K3, K1, K7, K8b
+on the Shor path.
 """
 
 from __future__ import annotations
@@ -38,15 +43,24 @@ import torch
 from omc_torch import kernels
 from omc_torch.altmin import make_altmin
 from omc_torch.branch import create_matrix_cut_child_nodes
-from omc_torch.config import SolverConfig
+from omc_torch.config import SolverConfig, not_ported
 from omc_torch.problem import compute_MSE
+from omc_torch.sdp import shor as shor_mod
 from omc_torch.sdp.admm import (
     ADMMState,
+    apply_best_duals,
     init_admm_state,
     make_admm_solver,
     set_slot_rho,
     to_numpy_out,
 )
+from omc_torch.sdp.admm_shor import (
+    ShorADMMState,
+    host_certified_bound_shor,
+    init_shor_state,
+    make_shor_solver,
+)
+from omc_torch.sdp.admm_shor import apply_best_duals as apply_shor_best_duals
 from omc_torch.sdp.cuts import region_bounds
 from omc_torch.sdp.relax import (
     NodeBatch,
@@ -55,7 +69,8 @@ from omc_torch.sdp.relax import (
     host_state_slice,
     state_to_host,
 )
-from omc_torch.tree import BBNode, BBTree, compute_gap, root_box
+from omc_torch.sdp.shor_encode import pack_shor_batch
+from omc_torch.tree import BBNode, BBTree, ShorInfo, compute_gap, root_box
 from omc_torch.utils.logging import (
     UPDATE_HEADER,
     add_message,
@@ -64,6 +79,7 @@ from omc_torch.utils.logging import (
 )
 
 _L_BUCKETS = (8, 32, 128, 512, 2048)
+_M5_BUCKETS = (64, 256, 1024, 4096)
 
 
 def _l_bucket(need: int) -> int:
@@ -71,6 +87,18 @@ def _l_bucket(need: int) -> int:
         if need <= b:
             return b
     raise ValueError(f"cut count {need} exceeds the largest supported bucket")
+
+
+def _m5_bucket(need: int) -> int:
+    for b in _M5_BUCKETS:
+        if need <= b:
+            return b
+    raise ValueError(f"Shor minor count {need} exceeds the largest bucket")
+
+
+def _with_minors(n, m, minors) -> ShorInfo:
+    return ShorInfo(constraints_indexes=minors,
+                    SOC_constraints_indexes=shor_mod.shor_soc_complement(n, m, minors))
 
 
 def _b_bucket(need: int, B: int) -> int:
@@ -229,6 +257,10 @@ def matrix_completion_branchandbound(
         raise ValueError(
             f"Input matrix A must have size (n, m) with n <= m. Current size is {A.shape}."
         )
+    use_shor = cfg.add_Shor_valid_inequalities
+    if use_shor and k > 1:
+        not_ported("Shor valid inequalities with k > 1 (omc/sdp/shor_k.py)",
+                   "queue 1 item 11")
 
     mask = indices.astype(np.float64)
     rng = np.random.default_rng(cfg.seed)
@@ -280,6 +312,10 @@ def matrix_completion_branchandbound(
     solve_time_polish = 0.0
     sdp_iters_total = 0
     device_steps = 0
+    # Shor path: the largest active minor count of any relaxed node, and
+    # the growth rounds applied (at refinement stalls and to children)
+    shor_minors_max = 0
+    shor_growths = 0
     nodes_closed_within_gap = 0
     dict_solve_times_altmin: List[dict] = []
     dict_num_iterations_altmin: List[dict] = []
@@ -399,9 +435,25 @@ def matrix_completion_branchandbound(
     # ------------------------------------------------------------------
     # Tree initialisation (reference lines 626-698)
     # ------------------------------------------------------------------
+    root_shor = None
+    if use_shor:
+        if not cfg.add_Shor_valid_inequalities_iterative:
+            all_minors = shor_mod.generate_rank1_matrix_completion_Shor_constraints_indexes(
+                indices, list(cfg.Shor_valid_inequalities_noisy_rank1_num_entries_present),
+            )
+            frac = cfg.add_Shor_valid_inequalities_fraction
+            if frac is not None and frac < 1.0:
+                keep = rng.random(len(all_minors)) < frac
+                all_minors = [mm for mm, kp in zip(all_minors, keep) if kp]
+            root_shor = _with_minors(n, m, all_minors)
+        else:
+            root_shor = ShorInfo(
+                constraints_indexes=[],
+                SOC_constraints_indexes=[(i, j) for i in range(n) for j in range(m)],
+            )
     root = BBNode(
         node_id=1, parent_id=0, U_lower=root_lo, U_upper=root_hi,
-        LB=-np.inf, depth=0, cuts=[], Shor_info=None,
+        LB=-np.inf, depth=0, cuts=[], Shor_info=root_shor,
     )
     tree = BBTree(root, best_upper_bound=objective_initial)
     # root_node_timeout bookkeeping (reference lines 774-776): the root is
@@ -422,18 +474,6 @@ def matrix_completion_branchandbound(
         })
         tree.last_updated_counter = tree.counter
 
-    def _apply_best_duals(state: ADMMState, out_dev) -> ADMMState:
-        """The visit's best-chunk duals as scaled duals (u = y / rho): the
-        warm start handed to CHILD nodes only.  A node's own refinement
-        re-visits continue from the exact final iterate (resetting their
-        duals to the EMA midpoint stalls the contraction; see
-        ``omc.solve._apply_best_duals``)."""
-        r3 = state.rho[:, None, None]
-        return state.replace(
-            u1=out_dev["y1"] / r3, u2=out_dev["y2"] / r3, ua=out_dev["ya"] / r3,
-            ub=out_dev["yb"] / r3, uc=out_dev["yc"] / state.rho[:, None],
-        )
-
     solvers: Dict[int, object] = {}
     iter_rate: Dict[tuple, float] = {}  # measured seconds per solver iteration
     iter_rate_samples: Dict[tuple, int] = {}
@@ -444,14 +484,40 @@ def matrix_completion_branchandbound(
     sT = max(1.0, 2.0 * gamma * objective_initial / (4.0 * m))
     sS = sX ** cfg.shor_slot_pow
 
-    def get_solver(L):
-        if L not in solvers:
-            solvers[L] = make_admm_solver(
-                n, m, k, L, gamma, iters=cfg.sdp_iters, dtype=dtype,
-                alpha=cfg.sdp_alpha,
-                check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
-            )
-        return solvers[L]
+    def shor_probability(depth):
+        return _decayed_probability(
+            depth, cfg.max_update_Shor_indices_probability,
+            cfg.min_update_Shor_indices_probability,
+            cfg.update_Shor_indices_probability_decay_rate,
+        )
+
+    def violated_minors(X, existing):
+        """The top-scoring violated minors at a relaxation point X, none of
+        them in ``existing``."""
+        scored = shor_mod.generate_violated_Shor_minors(
+            X.astype(np.float64), indices,
+            list(cfg.Shor_valid_inequalities_noisy_rank1_num_entries_present),
+            existing, cfg.update_Shor_indices_n_minors,
+        )
+        return [mm for _, mm in scored]
+
+    def get_solver(L, M5=None):
+        """The base solver per cut bucket; with Shor, per (cut, minor)
+        bucket (omc's Shor solver keeps its own over-relaxation 1.6)."""
+        key = (L, M5)
+        if key not in solvers:
+            if use_shor:
+                solvers[key] = make_shor_solver(
+                    n, m, L, M5, n * m, gamma, iters=cfg.sdp_iters, dtype=dtype,
+                    check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
+                )
+            else:
+                solvers[key] = make_admm_solver(
+                    n, m, k, L, gamma, iters=cfg.sdp_iters, dtype=dtype,
+                    alpha=cfg.sdp_alpha,
+                    check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
+                )
+        return solvers[key]
 
     # Warm-start cache: node_id (raw final state, refinement continuation)
     # or ("bd", node_id) (best-chunk duals, child inheritance) -> float32
@@ -469,19 +535,20 @@ def matrix_completion_branchandbound(
     # incumbent moves; host leaves fetched lazily
     template_cache: Dict[tuple, tuple] = {}
 
-    def _template_cached(Bb, L):
-        key = (Bb, L)
+    def _template_cached(Bb, L, M5=None):
+        key = (Bb, L, M5)
         hit = template_cache.get(key)
         if hit is not None and hit[2] == incumbent_ver["v"]:
             return hit[0], hit[1]
         U0 = solution["U"]
         X0 = solution["X"]
         V0 = U0.T @ X0
-        dev_state = init_admm_state(
-            Bb, n, m, k, L, dtype, dev, sX=sX, sT=sT, sS=sS,
-            X0=X0[None], Y0=(U0 @ U0.T)[None], Th0=(V0.T @ V0)[None],
-            U0=U0[None], rho=rho_base,
-        )
+        kw = dict(sX=sX, sT=sT, sS=sS, X0=X0[None], Y0=(U0 @ U0.T)[None],
+                  Th0=(V0.T @ V0)[None], U0=U0[None], rho=rho_base)
+        if use_shor:
+            dev_state = init_shor_state(Bb, n, m, k, L, M5, n * m, dtype, dev, **kw)
+        else:
+            dev_state = init_admm_state(Bb, n, m, k, L, dtype, dev, **kw)
         host_box = {"h": None}
 
         def host():
@@ -517,10 +584,10 @@ def matrix_completion_branchandbound(
                     _cache_put(("bd", nid), host_state_slice(last_solve["host_bd"], i))
         last_solve["slots"] = {}
 
-    def warm_state(nodes: List[BBNode], Bb, L):
+    def warm_state(nodes: List[BBNode], Bb, L, M5=None):
         """Returns (state, fresh): ``fresh`` is False when the previous
         super-step's device state is reused verbatim."""
-        key = (tuple(nd.node_id for nd in nodes), Bb, L)
+        key = (tuple(nd.node_id for nd in nodes), Bb, L, M5)
         if last_solve["key"] == key and last_solve["state"] is not None:
             return last_solve["state"], False
         slots = last_solve["slots"]
@@ -538,19 +605,22 @@ def matrix_completion_branchandbound(
         else:
             slices = [None] * len(nodes)
         slices += [None] * (Bb - len(nodes))
-        tpl_dev, tpl_host = _template_cached(Bb, L)
+        tpl_dev, tpl_host = _template_cached(Bb, L, M5)
         if all(sl is None for sl in slices):
             return tpl_dev, True
         base = [leaf.copy() for leaf in tpl_host()]
+        # a slice from a smaller minor bucket fills the leading rows of
+        # w5/u5/v: the minor tables are prefix-stable (shor_encode)
         apply_warm_slices(base, slices)
-        return ADMMState.from_leaves(
+        state_cls = ShorADMMState if use_shor else ADMMState
+        return state_cls.from_leaves(
             [torch.as_tensor(b_, device=dev) for b_ in base]
         ), True
 
-    def record_solve(slot_nodes: List[BBNode], fin_state, Bb, L,
+    def record_solve(slot_nodes: List[BBNode], fin_state, Bb, L, M5=None,
                      best_slot=None, state_bd=None):
         _flush_last_solve(skip_ids={nd.node_id for nd in slot_nodes})
-        last_solve["key"] = (tuple(nd.node_id for nd in slot_nodes), Bb, L)
+        last_solve["key"] = (tuple(nd.node_id for nd in slot_nodes), Bb, L, M5)
         last_solve["state"] = fin_state
         last_solve["slots"] = (
             dict(best_slot) if best_slot is not None
@@ -603,7 +673,8 @@ def matrix_completion_branchandbound(
         # is valid, the per-node max is taken, and the winning replica's
         # state carries forward.  First visits run solo at the tight bucket.
         use_portfolio = (
-            len(cfg.rho_portfolio) > 0 and all(nd.refines > 0 for nd in work)
+            not use_shor and len(cfg.rho_portfolio) > 0
+            and all(nd.refines > 0 for nd in work)
         )
         P = 1 + len(cfg.rho_portfolio)
         if use_portfolio:
@@ -632,7 +703,7 @@ def matrix_completion_branchandbound(
             cfg.sdp_iter_boost_max, max(1, queue_slack // max(1, len(work)))
         )
         visit_iters = cfg.sdp_iters * boost
-        skey = ("dc", Bb)
+        skey = ("shor" if use_shor else "dc", Bb)
         rate = iter_rate.get(skey)
         if rate is not None and rate > 0:
             remaining = max(cfg.time_limit - (time.time() - start_time), 0.0)
@@ -642,7 +713,18 @@ def matrix_completion_branchandbound(
             )
 
         t0 = time.time()
-        state0, fresh = warm_state(slot_nodes, Bb, L)
+        M5 = sbh = None
+        if use_shor:
+            n_minors = max(len(nd.Shor_info.constraints_indexes) for nd in work)
+            shor_minors_max = max(shor_minors_max, n_minors)
+            M5 = _m5_bucket(max(1, n_minors))
+            pad = [[]] * (Bb - len(work))
+            sbh = pack_shor_batch(
+                n, m, [nd.Shor_info.constraints_indexes for nd in work] + pad,
+                [nd.Shor_info.SOC_constraints_indexes for nd in work] + pad,
+                M5, n * m,
+            )
+        state0, fresh = warm_state(slot_nodes, Bb, L, M5)
         if use_portfolio and fresh:
             state0 = set_slot_rho(state0, state0.rho * T(rho_mults))
         batch_dev = batch.map(T)
@@ -657,17 +739,35 @@ def matrix_completion_branchandbound(
         target_np[:n_live] = lvl
         if use_portfolio:
             group_np = np.arange(Bb, dtype=np.int64) % nw
-        fin_state, out_dev = get_solver(L)(
-            A_dev, mask_dev, batch_dev, ub_bar, state0, visit_iters,
-            T(target_np), torch.as_tensor(group_np, device=dev),
-        )
-        state_bd = (
-            _apply_best_duals(fin_state, out_dev) if cfg.sdp_best_dual_warm else None
-        )
+        target_dev = T(target_np)
+        group_dev = torch.as_tensor(group_np, device=dev)
+        state_bd = None
+        if use_shor:
+            fin_state, out_dev = get_solver(L, M5)(
+                A_dev, mask_dev, batch_dev, sbh, ub_bar, state0, visit_iters,
+                target_dev, group_dev,
+            )
+            # the Shor family continues from the best-chunk duals too: its
+            # growth-heavy re-visits behave like child solves (omc.solve)
+            if cfg.sdp_best_dual_warm:
+                fin_state = apply_shor_best_duals(fin_state, out_dev)
+        else:
+            fin_state, out_dev = get_solver(L)(
+                A_dev, mask_dev, batch_dev, ub_bar, state0, visit_iters,
+                target_dev, group_dev,
+            )
+            # the best-chunk duals are the warm start handed to CHILD nodes
+            # only: a node's own refinement re-visits continue from the
+            # exact final iterate (resetting their duals to the EMA midpoint
+            # stalls the contraction; see ``omc.solve._apply_best_duals``)
+            if cfg.sdp_best_dual_warm:
+                state_bd = apply_best_duals(fin_state, out_dev)
         out = to_numpy_out(out_dev)  # one synchronised fetch
         iters_done = int(np.max(out["iters_run"]))
         t_dev_end = time.time()
-        if Bb > cfg.host_certify_max_batch:
+        if use_shor:
+            lbs = host_certified_bound_shor(A, mask, batch, sbh, out, gamma, ub_bar)
+        elif Bb > cfg.host_certify_max_batch:
             # scale path: f64-certify only the binding slots (prune/close
             # candidates by the estimator, and the lowest bounds, which
             # drive the global LB); the rest keep the on-device
@@ -705,7 +805,7 @@ def matrix_completion_branchandbound(
                 sel_of[i] = j
                 best_slot[work[i].node_id] = j
             lbs = lbs_nodes
-        record_solve(slot_nodes, fin_state, Bb, L, best_slot=best_slot,
+        record_solve(slot_nodes, fin_state, Bb, L, M5, best_slot=best_slot,
                      state_bd=state_bd)
         t_relax = time.time() - t0
         solve_time_relaxation += t_relax
@@ -833,6 +933,27 @@ def matrix_completion_branchandbound(
                 tree.requeue(node, lb_i)
                 continue
 
+            # iterative Shor growth at a refinement stall (omc.solve): when
+            # a node would split and still has growth rounds, strengthen the
+            # same node with its top-scoring violated minors and continue
+            # from its own warm state; the refinement budget restarts
+            if (
+                use_shor and cfg.add_Shor_valid_inequalities_iterative
+                and node.growths < cfg.update_Shor_max_growths
+                and node.Shor_info is not None
+                and rng.random() < shor_probability(node.depth)
+            ):
+                have = node.Shor_info.constraints_indexes
+                fresh_minors = violated_minors(out["X"][sel], have)
+                if fresh_minors:
+                    node.Shor_info = _with_minors(n, m, list(have) + fresh_minors)
+                    node.growths += 1
+                    shor_growths += 1
+                    node.refines = 0
+                    node.behind_streak = 0
+                    tree.requeue(node, lb_i)
+                    continue
+
             # altmin probability gating (reference lines 856-870)
             if cfg.altmin_flag:
                 p = _decayed_probability(
@@ -919,6 +1040,16 @@ def matrix_completion_branchandbound(
             for i in split_nodes:
                 node = work[i]
                 census["nodes_relax_feasible_split"] += 1
+                # iterative Shor growth at child creation (reference lines
+                # 956-970, 2495-2518): with decaying probability the
+                # children get the top-scoring violated minors
+                new_shor = None
+                if (use_shor and cfg.add_Shor_valid_inequalities_iterative
+                        and rng.random() < shor_probability(node.depth)):
+                    have = node.Shor_info.constraints_indexes
+                    fresh_minors = violated_minors(out["X"][sel_of[i]], have)
+                    shor_growths += bool(fresh_minors)
+                    new_shor = _with_minors(n, m, list(have) + fresh_minors)
                 children = create_matrix_cut_child_nodes(
                     node,
                     cfg.disjunctive_cuts_type,
@@ -928,6 +1059,7 @@ def matrix_completion_branchandbound(
                     U_relax=out["U"][sel_of[i]],
                     counter=tree.counter,
                     objective_relax=node.LB,
+                    new_Shor_info=new_shor,
                 )
                 tree.add_nodes(children, node.LB)
 
@@ -996,6 +1128,8 @@ def matrix_completion_branchandbound(
             "solve_time_polish": solve_time_polish,
             "sdp_iters_total": sdp_iters_total,
             "device_steps": device_steps,
+            "shor_minors_max": shor_minors_max,
+            "shor_growths": shor_growths,
             "device": str(dev),
             # nodes closed because their certified bound reached ub/(1+gap)
             "nodes_closed_within_gap": nodes_closed_within_gap,

@@ -75,11 +75,9 @@ def test_config_invalid_values_raise_like_omc(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(use_disjunctive_cuts=False),
-    dict(add_Shor_valid_inequalities=True),
     dict(disjunctive_cuts_type="linear2"),
     dict(disjunctive_cuts_type="linear3"),
     dict(disjunctive_cuts_breakpoints="smallest_2_eigvec"),
-    dict(node_selection="breadthfirst"),
     dict(node_selection="depthfirst"),
     dict(node_selection="bestfirst_depthfirst"),
     dict(mesh_shape=(2,)),
@@ -92,6 +90,45 @@ def test_unported_options_raise_not_implemented(kw):
     jconfig.SolverConfig(**{**_MAIN, **kw})  # valid for omc
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfig.SolverConfig(**{**_MAIN, **kw})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(add_Shor_valid_inequalities=True),
+    dict(add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
+         add_Shor_valid_inequalities_fraction=0.5, node_selection="breadthfirst"),
+    dict(node_selection="breadthfirst"),
+])
+def test_ported_options_configure_like_omc(kw):
+    full = {**_MAIN, **kw}
+    assert (tconfig.SolverConfig(**full).run_details_params()
+            == jconfig.SolverConfig(**full).run_details_params())
+
+
+def test_shor_with_k_above_one_raises_naming_item_11():
+    A, idx = tdata.generate_matrix_completion_data(2, 6, 6, 24, 0)
+    from omc_torch.solve import matrix_completion_branchandbound
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 11"):
+        matrix_completion_branchandbound(2, A, idx, 10.0, device="cpu", **_MAIN,
+                                         add_Shor_valid_inequalities=True)
+
+
+def test_breadthfirst_end_to_end_like_omc():
+    """The base path under breadth-first selection on the 12x12 instance of
+    tests/test_e2e.py, against omc's same call."""
+    from omc.solve import matrix_completion_branchandbound as omc_bnb
+    from omc_torch.solve import matrix_completion_branchandbound
+
+    A, idx = tdata.generate_matrix_completion_data(1, 12, 12, 72, seed=3)
+    kw = dict(_MAIN, node_selection="breadthfirst", gap=1e-2, batch_size=4,
+              sdp_iters=1500, sdp_rho=0.03, dtype="float64", time_limit=60, verbosity=0)
+    sol, _, inst = matrix_completion_branchandbound(1, A, idx, 80.0, device="cpu", **kw)
+    sol_j, _, inst_j = omc_bnb(1, A, idx, 80.0, **kw)
+    gap, gap_j = inst["run_log"][-1]["gap"], inst_j["run_log"][-1]["gap"]
+    assert gap <= 1e-2
+    assert inst["run_details"]["node_selection"] == "breadthfirst"
+    assert abs(sol["objective"] - sol_j["objective"]) <= (gap + gap_j) * max(
+        1.0, abs(sol_j["objective"]))
 
 
 @pytest.mark.parametrize("cuts_type", ["linear", "linear2", "linear3"])

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import omc_torch
+import omc_torch.solve  # the driver with the Shor path, and what it imports
 from omc_torch.sdp.admm import init_admm_state, make_admm_solver
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.tree import root_box
