@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``omc_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, about 8.5 minutes on an H100
+    python3 chip_smoke.py            # every phase, about 9.5 minutes on an H100
 
 Phases, in order (each prints its numbers on lines of its own):
 
 1. device    — nvidia-smi name and power limit, torch/CUDA versions, TF32 off
 2. build     — nvcc build of omc_torch/csrc into build/omc_torch, one nvcc
                per source in parallel (timed)
-3. kernels   — K1, K2, K3, K7, K8a, K8b against their plain PyTorch
-               versions on the card, at the main paths' shapes, with median
-               CUDA-event times
+3. kernels   — K1, K2, K3, K7, K8a, K8b, K7t, K7x, K8c, K8d against their
+               plain PyTorch versions on the card, at the main paths'
+               shapes, with median CUDA-event times and each kernel's bound
+               (the least time the card could take for the same work)
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound
 5. fixtures  — the four certified instances of tests/fixtures/instances.json
@@ -18,12 +19,18 @@ Phases, in order (each prints its numbers on lines of its own):
 7. multinode — the 30%-observed instance, gap 1e-4
 8. branch    — the 20%-observed instance, 45 s budget
 9. shor      — the 30%-observed instance with static Shor minors
-               (breadth-first, 180 s): the K7/K8 path
+               (breadth-first, 60 s): the K7/K8a/K8b path
 10. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
-               180 s, with soundness checks
+               60 s, with soundness checks
+11. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
+               smallest_2_eigvec, best-first/depth-first, batch 64), 120 s
+12. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
+               instance: a root visit held to omc's bound, then the full
+               call (iterative Shor, batch 32), 120 s
 
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
-torch.profiler trace of the Shor loop at config 2's shape.
+torch.profiler trace of the Shor loop at config 2's shape and of the
+rank-k Shor loop at config 3's.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -47,7 +54,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
-          "multinode", "branch", "shor", "config2")
+          "multinode", "branch", "shor", "config2", "config3", "shork")
 EXTRA_PHASES = ("trace",)  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -55,6 +62,22 @@ EXTRA_PHASES = ("trace",)  # run only when named in --phases
 # instances, independent of the hardware)
 HEADLINE_OBJ, HEADLINE_GAP = 13.431711265419487, 4.0e-5
 MULTI_OBJ, MULTI_GAP = 12.948394910097942, 1.2e-5
+# omc's incumbent for BASELINE config 3's instance (BENCH_CONFIGS_r05.json,
+# certified to gap 1.02e-3): a fact about the instance, so no valid lower
+# bound of it may exceed this value
+CONFIG3_OBJ = 84.93227069198058
+# omc's certified root bound for the shork phase's root-only call, float32 on
+# a CPU (omc.solve.matrix_completion_branchandbound with SHORK_KW,
+# root_only=True, sdp_iter_boost_max=1; 2,000 iterations in one call)
+SHORK_ROOT_OMC = -168.05748086136975
+
+# the card's peak rates for the bound of a kernel (NVIDIA's H100 SXM data
+# sheet, at 700 W): fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# products in one sign-schedule projection: 3 per quintic step, 2 per cubic
+# step, 1 for (T + sign(T) T) / 2
+SIGN_PRODUCTS = 3 * 12 + 2 * 2 + 1
 
 
 def log(*a):
@@ -79,6 +102,20 @@ def cuda_time_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the fp32 peak (ms, which)."""
+    tb = 1e3 * nbytes / PEAK_BYTES
+    tf = 1e3 * flops / PEAK_FP32_FLOPS
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def with_bound(row, nbytes, flops):
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["bound_bytes"], row["bound_flops"] = float(nbytes), float(flops)
+    return row
 
 
 def rel_fro(a, b):
@@ -196,10 +233,17 @@ def phase_kernels(res):
             ts, w_out=w2, u_out=u2, acc=a2, rho=rho, beta=beta))
         ms_plain = cuda_time_ms(lambda: psd_epilogue(
             ts, project_psd_ns_merged(ts), w2, u2, a2, rho, beta))
+        # the library yardstick: the same chain of products through
+        # torch.bmm (cuBLAS), without the epilogue
+        ms_lib = cuda_time_ms(lambda: project_psd_ns_merged(ts))
         row = dict(B=B, dims=list(dims), rel_err=err, rel_err_u=err_u,
                    rel_err_acc=err_acc, max_abs_err=abs_err,
                    plain_vs_eigh=err_eigh, kernel_vs_eigh=err_k_eigh, **ctl,
-                   ms=ms, plain_ms=ms_plain)
+                   ms=ms, plain_ms=ms_plain, library_ms=ms_lib)
+        # t read, w and u written, acc read and written (first two blocks)
+        with_bound(row, 4 * sum(B * d * d * (3 + (2 if g < nacc else 0))
+                                for g, d in enumerate(dims)),
+                   sum(B * (SIGN_PRODUCTS * 2 * d ** 3 + 6 * d * d) for d in dims))
         log("K1", json.dumps(row))
         # Each float32 run of the 43-matmul chain sits ~5e-5 (relative
         # Frobenius) from the exact projection: rounding in the early
@@ -232,6 +276,16 @@ def phase_kernels(res):
         checks.append(("K3", r3, r3["rel_err"] <= 1e-6))
         k2.append(r2)
         k3.append(r3)
+    # K2 and K3 at k = 2 (BASELINE config 3: B = 64, n = m = 75, L in {8, 32})
+    for L in (8, 32):
+        c, st, acc, ts = _admm_inputs(64, 75, 75, 2, L, gen, dev)
+        r2, r3 = _check_k2_k3(c, st, acc, ts)
+        log("K2", json.dumps(r2))
+        log("K3", json.dumps(r3))
+        checks.append(("K2", r2, r2["rel_err"] <= 1e-6))
+        checks.append(("K3", r3, r3["rel_err"] <= 1e-6))
+        k2.append(r2)
+        k3.append(r3)
     out["K2"], out["K3"] = k2, k3
 
     # ---- K7, projection mode: (32, 4096, 5, 5), spectra +-[0.1, 1] ----
@@ -252,6 +306,7 @@ def phase_kernels(res):
                control_16bit_vs_eigh=ctl16,
                ms=cuda_time_ms(lambda: project_psd_small(T, w2)),
                plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
+    with_bound(row, 4 * 2 * T.numel(), T.numel() // 25 * (SIGN_PRODUCTS * 250 + 75))
     log("K7", json.dumps(row))
     # the bars of K1 (see above): each within 1e-4 of the exact
     # projection, the two within 2e-4, the truncated control fails
@@ -268,6 +323,47 @@ def phase_kernels(res):
     r7 = rows["K7fused"]
     checks.append(("K7fused", r7, r7["plain_vs_eigh"] <= 1e-4 and r7["kernel_vs_eigh"] <= 1e-4
                    and r7["rel_err"] <= 2e-4))
+    out.update({name: [row] for name, row in rows.items()})
+
+    # ---- K7x projection mode: (32, 4096, 3, 3), spectra +-[0.1, 1] ----
+    from omc_torch.ops.polar import project_psd_xwh
+
+    T, T64 = _spectral_batch(32 * 4096, 3, gen, dev)
+    T, T64 = T.reshape(32, 4096, 3, 3), T64.reshape(32, 4096, 3, 3)
+    wk = project_psd_xwh(T)
+    torch.cuda.synchronize()
+    wp = project_psd_ns_small(T)
+    exact = project_psd(T64.to(dev))
+    ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
+    w2 = torch.empty_like(T)
+    row = dict(shape=list(T.shape), rel_err=rel_fro(wk, wp),
+               max_abs_err=float((wk - wp).abs().max()),
+               plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
+               control_16bit_vs_eigh=ctl16,
+               ms=cuda_time_ms(lambda: project_psd_xwh(T, w2)),
+               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
+    with_bound(row, 4 * 2 * T.numel(), T.numel() // 9 * (SIGN_PRODUCTS * 54 + 27))
+    log("K7x", json.dumps(row))
+    checks.append(("K7x", row, row["plain_vs_eigh"] <= 1e-4 and row["kernel_vs_eigh"] <= 1e-4
+                   and row["rel_err"] <= 2e-4 and not ctl16 <= 1e-4))
+    out["K7x"] = [row]
+
+    # ---- K8c, K7t, K7x (slots), K8d at BASELINE config 3's shapes ----
+    rows = _check_shor_k_kernels(32, 75, 75, 8, 1024, gen, dev)
+    for name, row in rows.items():
+        log(name, json.dumps(row))
+    # K8c and K8d: float32 sums in another order than the plain version's
+    # scatter-adds, so 1e-5 relative as K8a/K8b; two launches on the same
+    # input must give the same bits (no atomics)
+    for name in ("K8c", "K8d"):
+        r = rows[name]
+        checks.append((name, r, r["rel_err"] <= 1e-5 and r["deterministic"]))
+    # K7t and the K7x slots: the bars of K1/K7 against a float64 eigh
+    # projection of the same slot values
+    for name in ("K7t", "K7xfused"):
+        r = rows[name]
+        checks.append((name, r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
+                       and r["rel_err"] <= 2e-4))
     out.update({name: [row] for name, row in rows.items()})
     res["kernels"] = out
     failed = [(name, row) for name, row, ok in checks if not ok]
@@ -296,8 +392,8 @@ def _shor_inputs(B, n, m, L, M5, gen, dev):
         minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
     socs = [shor_soc_complement(n, m, mm) for mm in minors]
     sbh = pack_shor_batch(n, m, minors, socs, M5, n * m)
-    sb = admm_shor.shor_batch_to_device(sbh, torch.float32, dev)
-    st = admm_shor.init_shor_state(B, n, m, 1, L, M5, n * m, torch.float32, dev)
+    sb = admm_shor.shor_batch_to_device(sbh, torch.float32, device=dev)
+    st = admm_shor.init_shor_state(B, n, m, 1, L, M5, n * m, torch.float32, device=dev)
     st = st.replace(core=core)
     core.sS.copy_(core.sX)
     for name in ("W", "v1", "v2", "v3", "w5", "u5", "wr", "ur", "wl", "ul", "wp", "up"):
@@ -335,6 +431,15 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
     out["K8a"] = dict(B=B, n=n, m=m, M5=M5, rel_err=rel, max_abs_err=ab,
                       ms=cuda_time_ms(lambda: S.shor_zstep(c, sc, s2)),
                       plain_ms=cuda_time_ms(lambda: S.shor_zstep_plain(c, sc, st)))
+    A_ = float(sc.sb.minor_mask.sum())  # active minors over the batch
+    P = sum(t.shape[1] for t in (st.v1, st.v2, st.v3))
+    nm = n * m
+    # per slot: X and Theta blocks of w1/u1, the RSOC X/W parts, W >= 0,
+    # Theta-link, counts and tables; per active minor the 14 entries of w5/u5
+    # the adjoint reads; out X, Theta, W, v
+    rd = 2 * (nm + m * m) + 4 * nm + nm + 2 * m + 2 * nm + 2 * nm + (nm + 1) + P + 3 + m + 4
+    with_bound(out["K8a"], 4 * (B * (rd + 2 * nm + m * m + P) + A_ * (2 * 14 + 9) + 2 * nm),
+               B * 25 * nm + A_ * 40)
 
     # K7 fused at K8a's primal; the exact reference projects the same t5
     acc5 = torch.randn(st.u5.shape, generator=gen).to(dev) * 0.1
@@ -352,6 +457,10 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
                           ms=cuda_time_ms(lambda: S.minor_step(c, sc, s8, a8, "ns")),
                           plain_ms=cuda_time_ms(lambda: S.minor_step_plain(
                               c, sc, sk, acc5, project_psd_ns_small)))
+    N = B * M5
+    # w5/u5/acc read and written, X, W, v read once, the tables
+    with_bound(out["K7fused"], 4 * (N * (6 * 25 + 10) + B * (2 * nm + P) + 2 * B),
+               N * (SIGN_PRODUCTS * 250 + 75))
 
     # K8b at K8a's primal
     acc_r = torch.randn(st.ur.shape, generator=gen).to(dev) * 0.1
@@ -368,6 +477,172 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
                       ms=cuda_time_ms(lambda: S.shor_cone_step(c, sc, s9, ar9, al9)),
                       plain_ms=cuda_time_ms(lambda: S.shor_cone_step_plain(
                           c, sc, sk, acc_r, acc_l)))
+    # per slot: X, W, the RSOC slots and their EMA (read and written), the
+    # mask, W >= 0, Theta's diagonal and the link rows
+    with_bound(out["K8b"], 4 * B * (2 * nm + 9 * nm + nm + 2 * nm + m + 3 * m + 9 * nm
+                                    + 2 * nm + 3 * m + 4),
+               B * 40 * nm)
+    return out
+
+
+def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2):
+    """Random rank-k Shor ADMM state and node batch at a config-3 shape
+    (float32 on the card): ~M5 - 24 random distinct 2x2 minors per slot, the
+    RSOC rows on the rest, slot values and duals of unit scale."""
+    import numpy as np
+    import torch
+
+    from omc_torch.sdp import shor_k as SK
+    from omc_torch.sdp.shor import shor_soc_complement
+
+    c, core, acc, ts = _admm_inputs(B, n, m, k, L, gen, dev)
+    rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
+    minors = []
+    for _ in range(B):
+        i = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
+        j = np.sort(rng.choice(m, (4 * M5, 2)), axis=1)
+        ok = (i[:, 0] < i[:, 1]) & (j[:, 0] < j[:, 1])
+        cand = dict.fromkeys(map(tuple, np.stack([i[:, 0], i[:, 1], j[:, 0], j[:, 1]], 1)[ok]))
+        minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
+    socs = [shor_soc_complement(n, m, mm) for mm in minors]
+    sbh = SK.pack_shor_k_batch(n, m, minors, socs, M5, n * m)
+    sb = SK.shor_k_batch_to_device(sbh, torch.float32, device=dev)
+    st = SK.init_shor_k_state(B, n, m, k, L, M5, n * m, torch.float32, device=dev)
+    st = st.replace(core=core)
+    core.sS.copy_(core.sX)
+    for name in ("Xt", "W", "Wt", "Hh", "v1", "v2", "v3", "w5", "u5", "wx", "ux", "wr", "ur",
+                 "wl", "ul", "wwl", "uwl", "wp", "up", "wq", "uq"):
+        t = getattr(st, name)
+        v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=torch.float32, device=dev)
+        if name in ("w5", "u5"):
+            v = 0.5 * (v + v.transpose(-1, -2)) * sb.minor_mask[..., None, None, None]
+        if name in ("wx", "ux"):
+            v = 0.5 * (v + v.transpose(-1, -2)) * sb.coord_mask[..., None, None]
+        t.copy_(v)
+    sc = SK.make_shor_k_consts(c, sb, core, 40.0, k)
+    return c, sc, st
+
+
+def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
+    """K8c, K7t, K7x (slots) and K8d against their plain versions on the
+    same inputs, each at the outputs of the step before it, with times,
+    bounds and a determinism check of K8c and K8d."""
+    import torch
+
+    from omc_torch.ops.cones import project_psd
+    from omc_torch.ops.polar import project_psd_ns_small
+    from omc_torch.sdp import shor_k as SK
+
+    c, sc, st = _shor_k_inputs(B, n, m, L, M5, gen, dev)
+    k, kp, C, Ms = st.Xt.shape[1], st.Hh.shape[1], st.Wt.shape[2], st.wr.shape[1]
+    nm = n * m
+    P = sum(t.shape[2] for t in (st.v1, st.v2, st.v3))
+    sb = sc.sb
+    A_ = float(sb.minor_mask.sum())   # active minors over the batch
+    Ca = float(sb.coord_mask.sum())   # active coordinates
+    Sa = float(sb.soc_mask.sum())     # active RSOC rows
+
+    def errs(got, ref):
+        rel = max(rel_fro(a, b) for a, b in zip(got, ref))
+        return rel, max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+    def same_bits(xs, ys):
+        return all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+    out = {}
+    zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
+    sk = st.clone()
+    SK.shor_k_zstep(c, sc, sk)
+    s2 = st.clone()
+    SK.shor_k_zstep(c, sc, s2)
+    torch.cuda.synchronize()
+    ref = SK.shor_k_zstep_plain(c, sc, st)
+    rel, ab = errs(zs(sk), ref)
+    s3 = st.clone()
+    out["K8c"] = dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
+                      deterministic=same_bits(zs(sk), zs(s2)),
+                      ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
+                      plain_ms=cuda_time_ms(lambda: SK.shor_k_zstep_plain(c, sc, st)))
+    # per slot: X and Theta blocks of w1/u1, Xt_prev, W >= 0, Wt >= 0, the
+    # link rows, the entry/coordinate constants and tables; per active minor
+    # and term the 14 entries of w5/u5 the adjoint reads, per active
+    # coordinate k^2 + k entries of wx/ux, per active RSOC row 2 of wr/ur;
+    # out Xt, X, Theta, W, Wt, H, v
+    rd = (2 * (nm + m * m) + k * nm + 2 * nm + 2 * k * C + 2 * m + 7 * nm + 5 * C + m + P
+          + 2 * m + (C + 1) + (P + 3) + 4)
+    wr = k * nm + nm + m * m + nm + (k + kp) * C + k * P
+    per_act = A_ * k * 2 * 14 + A_ * 9 + Ca * (2 * (k * k + k) + 3) + Sa * 5
+    with_bound(out["K8c"], 4 * (B * (rd + wr) + per_act + 2 * nm),
+               B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca)
+
+    # K7t at K8c's primal; the exact reference projects the same t5
+    acc5 = torch.randn(st.u5.shape, generator=gen).to(dev) * 0.1
+    s7 = sk.clone()
+    a7 = acc5.clone()
+    SK.minor_k_step(c, sc, s7, a7, "ns")
+    torch.cuda.synchronize()
+    exact = lambda t: project_psd(t.double()).float()  # noqa: E731
+    w5p, u5p, a5p = SK.minor_k_step_plain(c, sc, sk, acc5, project_psd_ns_small)
+    w5e, _, _ = SK.minor_k_step_plain(c, sc, sk, acc5, exact)
+    rel, ab = errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
+    s8, a8 = sk.clone(), acc5.clone()
+    out["K7t"] = dict(B=B, M5=M5, k=k, rel_err=rel, max_abs_err=ab,
+                      plain_vs_eigh=rel_fro(w5p, w5e), kernel_vs_eigh=rel_fro(s7.w5, w5e),
+                      ms=cuda_time_ms(lambda: SK.minor_k_step(c, sc, s8, a8, "ns")),
+                      plain_ms=cuda_time_ms(lambda: SK.minor_k_step_plain(
+                          c, sc, sk, acc5, project_psd_ns_small)))
+    N = B * M5 * k
+    with_bound(out["K7t"], 4 * (N * 6 * 25 + B * M5 * 10 + B * k * (nm + C) + B * k * P
+                                + B * C + 2 * B),
+               N * (SIGN_PRODUCTS * 250 + 75))
+
+    # K7x on the XWH slots at K8c's primal
+    accx = torch.randn(st.ux.shape, generator=gen).to(dev) * 0.1
+    sx_ = sk.clone()
+    ax = accx.clone()
+    SK.xwh_step(c, sc, sx_, ax, "ns")
+    torch.cuda.synchronize()
+    wxp, uxp, axp = SK.xwh_step_plain(c, sc, sk, accx, project_psd_ns_small)
+    wxe, _, _ = SK.xwh_step_plain(c, sc, sk, accx, exact)
+    rel, ab = errs((sx_.wx, sx_.ux, ax), (wxp, uxp, axp))
+    s9, a9 = sk.clone(), accx.clone()
+    out["K7xfused"] = dict(B=B, C=C, k=k, rel_err=rel, max_abs_err=ab,
+                           plain_vs_eigh=rel_fro(wxp, wxe), kernel_vs_eigh=rel_fro(sx_.wx, wxe),
+                           ms=cuda_time_ms(lambda: SK.xwh_step(c, sc, s9, a9, "ns")),
+                           plain_ms=cuda_time_ms(lambda: SK.xwh_step_plain(
+                               c, sc, sk, accx, project_psd_ns_small)))
+    D = k + 1
+    with_bound(out["K7xfused"], 4 * (B * C * (6 * D * D + 2) + B * k * nm + B * (k + kp) * C
+                                     + 2 * B),
+               B * C * (SIGN_PRODUCTS * 2 * D ** 3 + 3 * D * D))
+
+    # K8d at K8c's primal
+    accs = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (st.ur, st.ul, st.uwl)]
+    kd = lambda x: (x.wr, x.ur, x.wl, x.ul, x.wwl, x.uwl, x.wp, x.up, x.wq, x.uq)  # noqa: E731
+    sd = sk.clone()
+    ad = [a.clone() for a in accs]
+    SK.shor_k_cone_step(c, sc, sd, *ad)
+    sd2 = sk.clone()
+    ad2 = [a.clone() for a in accs]
+    SK.shor_k_cone_step(c, sc, sd2, *ad2)
+    torch.cuda.synchronize()
+    ref = SK.shor_k_cone_step_plain(c, sc, sk, *accs)
+    rel, ab = errs(kd(sd) + tuple(ad), ref)
+    s10 = sk.clone()
+    a10 = [a.clone() for a in accs]
+    out["K8d"] = dict(B=B, n=n, m=m, k=k, C=C, Ms=Ms, rel_err=rel, max_abs_err=ab,
+                      deterministic=same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
+                      ms=cuda_time_ms(lambda: SK.shor_k_cone_step(c, sc, s10, *a10)),
+                      plain_ms=cuda_time_ms(lambda: SK.shor_k_cone_step_plain(
+                          c, sc, sk, *accs)))
+    # per slot: X, W, Theta's diagonal, Wt, H, the RSOC rows with their EMA
+    # and tables, the link rows with their EMAs, W >= 0, Wt >= 0; out the
+    # same slots and EMAs
+    rd = (2 * nm + m + (k + kp) * C + 9 * Ms + 2 * Ms + 2 * m + 2 * C + 2 * nm + 2 * k * C
+          + 2 * C + 4)
+    wr = 9 * Ms + 3 * m + 3 * C + 2 * nm + 2 * k * C
+    with_bound(out["K8d"], 4 * B * (rd + wr),
+               B * (40 * Ms + 6 * nm + (k + kp + 6) * C + 5 * k * C))
     return out
 
 
@@ -400,7 +675,7 @@ def _admm_inputs(B, n, m, k, L, gen, dev):
     f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
     batch = NodeBatch(f(cut_x), f(cut_lo), f(cut_hi), f(cut_mask),
                       f(np.broadcast_to(lo, (B, n, k))), f(np.broadcast_to(hi, (B, n, k))))
-    st = init_admm_state(B, n, m, k, L, torch.float32, dev, sX=2.5, sT=1.7, rho=0.02)
+    st = init_admm_state(B, n, m, k, L, torch.float32, device=dev, sX=2.5, sT=1.7, rho=0.02)
     for name in ("w1", "w2", "w3", "w4", "wsoc", "wbox", "wa", "wb", "wc",
                  "u1", "u2", "u3", "u4", "usoc", "ubox", "ua", "ub", "uc",
                  "X", "Y", "Th", "U"):
@@ -439,6 +714,16 @@ def _check_k2_k3(c, st, acc, ts):
     ms2p = cuda_time_ms(lambda: zstep_plain(c, st))
     r2 = dict(B=c.batch.cut_mask.shape[0], n=c.n, m=c.m, k=c.k, L=c.L,
               rel_err=e2, max_abs_err=a2, ms=ms2, plain_ms=ms2p)
+    B, n, m, k, L = r2["B"], c.n, c.m, c.k, c.L
+    p = 1 + L + L * k
+    # per slot: the residual blocks K2 reads (Y, X, Theta of w1/u1; Y, U of
+    # w2/u2; w3/u3; the SOC, box and cut slots), the cuts, G1's lower
+    # triangle; out X, Y, Theta, U; mask and mask*A once
+    rd = (2 * (n * n + n * m + m * m) + 2 * (n * n + n * k) + 2 * n * n + 2 + 4 * k * n
+          + 4 * L * k + 2 * L + L * n + 2 * L * k + L + 3 + p * (p + 1) // 2)
+    wr = n * m + n * n + m * m + n * k
+    with_bound(r2, 4 * (B * (rd + wr) + 2 * n * m),
+               B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m + n * n)))
 
     # K3 at the z-step's outputs
     s3 = s_k.clone()
@@ -464,6 +749,16 @@ def _check_k2_k3(c, st, acc, ts):
     ms3p = cuda_time_ms(lambda: cone_step_plain(c, s_k, acc))
     r3 = dict(B=c.batch.cut_mask.shape[0], n=c.n, m=c.m, k=c.k, L=c.L,
               rel_err=e3, max_abs_err=a3, ms=ms3, plain_ms=ms3p)
+    d1, d2 = n + m, n + k
+    # per slot: X, Y, Theta, U and the w/u of every slot in; t1-t3 and the
+    # non-PSD slots and the three EMAs out (the EMAs are read too)
+    rd = (n * m + n * n + m * m + n * k + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
+          + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L + 2 * L * k + L + L * n
+          + 3 * L * k + L + 2 * n * k + 3)
+    wr = d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L \
+        + 2 * L * k + L
+    with_bound(r3, 4 * B * (rd + wr),
+               B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)))
     return r2, r3
 
 
@@ -505,7 +800,7 @@ def phase_admm(res):
     batch = NodeBatch(f(np.zeros((B, L, n))), f(np.zeros((B, L, k))), f(np.zeros((B, L, k))),
                       f(np.zeros((B, L))), f(np.broadcast_to(lo, (B, n, k))),
                       f(np.broadcast_to(hi, (B, n, k))))
-    st = init_admm_state(B, n, m, k, L, torch.float32, dev, sX=sX, sT=sT,
+    st = init_admm_state(B, n, m, k, L, torch.float32, device=dev, sX=sX, sT=sT,
                          X0=X0[None], Y0=(U0 @ U0.T)[None], Th0=(V0.T @ V0)[None],
                          U0=U0[None], rho=rho)
     solve = make_admm_solver(n, m, k, L, gamma, iters=2000, dtype=torch.float32,
@@ -630,18 +925,18 @@ def phase_branch(res):
 SHOR_KW = dict(
     BENCH_KW, node_selection="breadthfirst", add_Shor_valid_inequalities=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    add_Shor_valid_inequalities_fraction=0.25, time_limit=180,
+    add_Shor_valid_inequalities_fraction=0.25, time_limit=60,
 )
-# the certified gap the shor phase must reach in its 180 s: 1e-4 is out of
-# reach for this relaxation there (the card reaches ~3e-3; PERF.md, "shor
-# phase"), so the bar is 1e-2
+# the certified gap the shor phase must reach in its 60 s: 1e-4 is out of
+# reach for this relaxation there (the card reaches ~3e-3 in 180 s and
+# ~8e-3 by its second visit; PERF.md, "shor phase"), so the bar is 1e-2
 SHOR_GAP = 1e-2
 
 
 def phase_shor(res):
     """Static Shor ([4]-minors, a quarter of them) on the 30%-observed
-    50x50 instance, breadth-first: the K7/K8 path through the entry
-    point."""
+    50x50 instance, breadth-first, 60 s: the K7/K8a/K8b path through the
+    entry point."""
     from omc_torch import kernels
 
     A, idx = _bench_instance(0.3)
@@ -670,7 +965,7 @@ CONFIG2_KW = dict(
     disjunctive_cuts_breakpoints="smallest_1_eigvec",
     add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=180, batch_size=32,
+    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=60, batch_size=32,
     sdp_iters=2000, dtype="float32", altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: one visit's budget is not boosted 8x
     sdp_iter_boost_max=1,
@@ -679,7 +974,7 @@ CONFIG2_KW = dict(
 
 def phase_config2(res):
     """BASELINE config 2 at full width (rank-1 100x100, 30% observed, seed 1,
-    iterative [4]-minor Shor, breadth-first, batch 32), 180 s."""
+    iterative [4]-minor Shor, breadth-first, batch 32), 60 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -713,23 +1008,116 @@ def phase_config2(res):
     res["config2"] = row
 
 
-def phase_trace(res):
-    """(Run on request only.)  torch.profiler trace of the Shor loop at
-    config 2's shape: B=32, n=m=100, M5=1024, L=8, 50 iterations."""
+# BASELINE config 3 (benchmarks/bench_configs.py:96-108): rank-2 75x75, 50%
+# observed, seed 1, gamma 80, linear3 cuts, smallest_2_eigvec breakpoints,
+# best-first/depth-first, batch 64, 2000 iterations per visit, gap 1e-2
+CONFIG3_KW = dict(
+    node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
+    disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
+    gap=1e-2, time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
+    altmin_root_n_iters=3, verbosity=0,
+    # cut of depth, not width: the 8x boosted root visit (16,000 iterations
+    # of K1's d=150 chain) does not fit the budget
+    sdp_iter_boost_max=1,
+)
+# the rank-k Shor path on config 3's instance: config 2's Shor settings and
+# batch (iterative [4]-minors, 100 per growth, batch 32)
+SHORK_KW = dict(
+    CONFIG3_KW, batch_size=32, add_Shor_valid_inequalities=True,
+    add_Shor_valid_inequalities_iterative=True,
+    Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
+    update_Shor_indices_n_minors=100,
+)
+
+
+def _config3_instance():
+    from omc_torch.data import generate_matrix_completion_data
+
+    n = 75
+    return generate_matrix_completion_data(2, n, n, int(0.5 * n * n), seed=1)
+
+
+def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
+    """The soundness checks of a config-3 run: monotone lower bounds, none
+    above omc's incumbent for the instance, the incumbent no worse than
+    omc's, its float64 objective as reported, rank <= 2, the path's kernels
+    launched."""
+    import numpy as np
+
+    rd = inst["run_details"]
+    log_ = inst["run_log"]
+    lowers = [r["lower"] for r in log_ if r["lower"] > -1e300]
+    row = _summary(sol, inst, secs)
+    mask = idx.astype(np.float64)
+    X = np.asarray(sol["X"], np.float64)
+    obj64 = 0.5 * float(np.sum(mask * (X - A) ** 2)) + (0.5 / 80.0) * float(np.sum(X * X))
+    row.update(
+        launches=launches, growths=int(rd["shor_growths"]),
+        minors_max=int(rd["shor_minors_max"]),
+        ms_per_iter=1e3 * rd["solve_time_device"] / max(rd["sdp_iters_total"], 1),
+        gap_first=float(log_[0]["gap"]), gap_final=float(log_[-1]["gap"]),
+        lowers=lowers, objective_f64=obj64, rank=int(np.linalg.matrix_rank(X, tol=1e-6)),
+    )
+    log(name, json.dumps(row))
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert not lowers or lowers[-1] <= CONFIG3_OBJ * (1 + 1e-9), row
+    assert not lowers or lowers[-1] <= row["objective"] * (1 + 1e-12), row
+    assert row["objective"] <= CONFIG3_OBJ * (1 + 1e-6), row
+    assert abs(obj64 - row["objective"]) <= 1e-9 * abs(obj64), row
+    assert row["rank"] <= 2, row
+    for key in keys:
+        assert launches[key] > 0, launches
+    return row
+
+
+def phase_config3(res):
+    """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
+    smallest_2_eigvec, best-first/depth-first, batch 64), 120 s: the base
+    path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
+    from omc_torch import kernels
+
+    A, idx = _config3_instance()
+    kernels.reset_launches()
+    sol, inst, secs = _solve(A, idx, 80.0, k=2, **CONFIG3_KW)
+    launches = dict(kernels.LAUNCHES)
+    res["config3"] = _rank2_checks("config3", sol, inst, secs, A, idx, launches,
+                                   ("K1", "K2", "K3"))
+
+
+def phase_shork(res):
+    """The rank-k Shor path on config 3's instance: (i) one root visit of
+    2,000 iterations, held to omc's bound for the same call; (ii) the full
+    call (iterative Shor, batch 32), 120 s, through K1, K2, K3, K7t, K7x,
+    K8c and K8d."""
+    from omc_torch import kernels
+
+    A, idx = _config3_instance()
+    sol, inst, secs = _solve(A, idx, 80.0, k=2, **{**SHORK_KW, "root_only": True})
+    lb = float(inst["run_log"][-1]["lower"])
+    root = dict(seconds=secs, lower=lb, omc_lower=SHORK_ROOT_OMC,
+                rel_diff=abs(lb - SHORK_ROOT_OMC) / (1.0 + abs(SHORK_ROOT_OMC)),
+                iters=int(inst["run_details"]["sdp_iters_total"]))
+    log("shork root", json.dumps(root))
+    # float32 sign-schedule runs drift apart over iterations (8e-6 at 2,000
+    # iterations on config 2's root; PERF.md), so 1e-3 (1 + |b|)
+    assert root["rel_diff"] <= 1e-3, root
+    kernels.reset_launches()
+    sol, inst, secs = _solve(A, idx, 80.0, k=2, **SHORK_KW)
+    launches = dict(kernels.LAUNCHES)
+    row = _rank2_checks("shork", sol, inst, secs, A, idx, launches,
+                        ("K1", "K2", "K3", "K7t", "K7x", "K8c", "K8d"))
+    assert row["minors_max"] > 0, row
+    res["shork_root"] = root
+    res["shork"] = row
+    res["shork_launches"] = launches
+
+
+def _trace_loop(step, names, iters, **shape):
+    """CUDA-event time per iteration of ``step`` and a torch.profiler trace
+    over ``iters`` iterations: device time per kernel, busy and idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from omc_torch.sdp import admm_shor as S
-
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator().manual_seed(1)
-    c, sc, st = _shor_inputs(32, 100, 100, 8, 1024, gen, dev)
-    acc = [torch.zeros_like(x) for x in (st.core.u1, st.core.u2, st.core.ua, st.core.ub,
-                                         st.core.uc, st.u5, st.ur, st.ul)]
-    ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
-          torch.empty_like(st.core.w3))
-    iters = 20
-    step = lambda: S.shor_iteration(c, sc, st, ts, acc, "ns")  # noqa: E731
     ev_ms = cuda_time_ms(step, reps=iters)  # per iteration, without the profiler
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -737,8 +1125,6 @@ def phase_trace(res):
             step()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.time() - t0) / iters
-    names = {"k1_kernel": "K1", "k2_kernel": "K2", "k3_kernel": "K3", "k7_kernel": "K7",
-             "k8a_kernel": "K8a", "k8b_kernel": "K8b"}
     by = {}
     for ev in prof.key_averages():
         # kernels carry their own (self) device time; host ops carry none
@@ -749,51 +1135,94 @@ def phase_trace(res):
     busy = sum(by.values())
     # the idle share is taken against the unprofiled CUDA-event time: the
     # profiled wall includes the profiler's own start and stop
-    row = dict(B=32, n=100, m=100, M5=1024, L=8, iters=iters, event_ms_per_iter=ev_ms,
-               profiled_wall_ms_per_iter=wall_ms, kernel_ms_per_iter=by,
-               device_busy_ms_per_iter=busy, k1_share=by.get("K1", 0.0) / max(busy, 1e-30),
-               idle_share=max(0.0, 1.0 - busy / ev_ms))
+    return dict(**shape, iters=iters, event_ms_per_iter=ev_ms,
+                profiled_wall_ms_per_iter=wall_ms, kernel_ms_per_iter=by,
+                device_busy_ms_per_iter=busy, k1_share=by.get("K1", 0.0) / max(busy, 1e-30),
+                idle_share=max(0.0, 1.0 - busy / ev_ms))
+
+
+def phase_trace(res):
+    """(Run on request only.)  torch.profiler traces of the Shor loop at
+    config 2's shape (B=32, n=m=100, M5=1024, L=8) and of the rank-k Shor
+    loop at config 3's (B=32, n=m=75, k=2, M5=1024, L=8), 20 iterations
+    each."""
+    import torch
+
+    from omc_torch.sdp import admm_shor as S
+    from omc_torch.sdp import shor_k as SK
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(1)
+    names = {"k1_kernel": "K1", "k2_kernel": "K2", "k3_kernel": "K3", "k7_kernel": "K7",
+             "k8a_kernel": "K8a", "k8b_kernel": "K8b", "k7t_kernel": "K7t",
+             "k7x_kernel": "K7x", "k8c_kernel": "K8c", "k8d_kernel": "K8d"}
+    c, sc, st = _shor_inputs(32, 100, 100, 8, 1024, gen, dev)
+    acc = [torch.zeros_like(x) for x in (st.core.u1, st.core.u2, st.core.ua, st.core.ub,
+                                         st.core.uc, st.u5, st.ur, st.ul)]
+    ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
+          torch.empty_like(st.core.w3))
+    row = _trace_loop(lambda: S.shor_iteration(c, sc, st, ts, acc, "ns"), names, 20,
+                      B=32, n=100, m=100, M5=1024, L=8)
     log("trace", json.dumps(row))
     res["trace"] = row
+    c, sc, st = _shor_k_inputs(32, 75, 75, 8, 1024, gen, dev)
+    acc = [torch.zeros_like(x) for x in (st.core.u1, st.core.u2, st.core.ua, st.core.ub,
+                                         st.core.uc, st.u5, st.ux, st.ur, st.ul, st.uwl)]
+    ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
+          torch.empty_like(st.core.w3))
+    row = _trace_loop(lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "ns"), names, 20,
+                      B=32, n=75, m=75, k=2, M5=1024, L=8)
+    log("trace shork", json.dumps(row))
+    res["trace_shork"] = row
+
+
+KERNELS = (
+    # key, rows of the kernels phase (the first is the one timed in the
+    # record), the main path that counts its launches, name, source, replaces
+    ("K1", ("K1",), "launches", "K1 sign-schedule PSD projection (B=64, d=100/51/50)",
+     "omc_torch/csrc/k1_psd_sign.cu", "omc/ops/polar.py:102"),
+    ("K2", ("K2",), "launches", "K2 adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
+     "omc_torch/csrc/k2_zstep.cu", "omc/sdp/admm.py:324"),
+    ("K3", ("K3",), "launches", "K3 forward map + cone step (B=64, n=m=50, L=8)",
+     "omc_torch/csrc/k3_cone.cu", "omc/sdp/admm.py:133"),
+    ("K7", ("K7fused", "K7"), "shor_launches",
+     "K7 5x5 minor-slot PSD projection, fused (B=32, M5=1024)",
+     "omc_torch/csrc/k7_minor_psd.cu", "omc/ops/polar.py:127"),
+    ("K8a", ("K8a",), "shor_launches", "K8a Shor adjoint + z-step (B=32, n=m=100, M5=1024)",
+     "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:178"),
+    ("K8b", ("K8b",), "shor_launches", "K8b Shor RSOC/link/W>=0 cone step (B=32, n=m=100)",
+     "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:423"),
+    ("K7t", ("K7t",), "shork_launches",
+     "K7t per-term 5x5 minor slots, rank-k Shor (B=32, M5=1024, k=2)",
+     "omc_torch/csrc/k7k_minor_xwh.cu", "omc/sdp/shor_k.py:349"),
+    ("K7x", ("K7xfused", "K7x"), "shork_launches",
+     "K7x (k+1)x(k+1) XWH slots, rank-k Shor (B=32, C=4096, k=2)",
+     "omc_torch/csrc/k7k_minor_xwh.cu", "omc/sdp/shor_k.py:373"),
+    ("K8c", ("K8c",), "shork_launches",
+     "K8c rank-k Shor adjoint + z-step (B=32, n=m=75, k=2, M5=1024)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:618"),
+    ("K8d", ("K8d",), "shork_launches",
+     "K8d rank-k Shor RSOC/link/W>=0/Wt>=0 cone step (B=32, n=m=75, k=2)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
+)
 
 
 def kernel_record(res):
-    launches = res["launches"]
-    shor = res["shor_launches"]
-    k1 = res["kernels"]["K1"][0]
-    k2 = res["kernels"]["K2"][0]
-    k3 = res["kernels"]["K3"][0]
-    k7 = res["kernels"]["K7fused"][0]
-    k8a = res["kernels"]["K8a"][0]
-    k8b = res["kernels"]["K8b"][0]
-    err = lambda rows: max(r["max_abs_err"] for r in rows)
-    return {"kernels": [
-        {"name": "K1 sign-schedule PSD projection (B=64, d=100/51/50)", "route": "cuda",
-         "source": "omc_torch/csrc/k1_psd_sign.cu", "replaces": "omc/ops/polar.py:102",
-         "launches": launches["K1"], "max_abs_err": err(res["kernels"]["K1"]),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "K2 adjoint + Woodbury z-step (B=64, n=m=50, L=8)", "route": "cuda",
-         "source": "omc_torch/csrc/k2_zstep.cu", "replaces": "omc/sdp/admm.py:324",
-         "launches": launches["K2"], "max_abs_err": err(res["kernels"]["K2"]),
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "K3 forward map + cone step (B=64, n=m=50, L=8)", "route": "cuda",
-         "source": "omc_torch/csrc/k3_cone.cu", "replaces": "omc/sdp/admm.py:133",
-         "launches": launches["K3"], "max_abs_err": err(res["kernels"]["K3"]),
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
-        {"name": "K7 5x5 minor-slot PSD projection, fused (B=32, M5=1024)", "route": "cuda",
-         "source": "omc_torch/csrc/k7_minor_psd.cu", "replaces": "omc/ops/polar.py:127",
-         "launches": shor["K7"],
-         "max_abs_err": err(res["kernels"]["K7"] + res["kernels"]["K7fused"]),
-         "ms": k7["ms"], "plain_ms": k7["plain_ms"]},
-        {"name": "K8a Shor adjoint + z-step (B=32, n=m=100, M5=1024)", "route": "cuda",
-         "source": "omc_torch/csrc/k8_shor.cu", "replaces": "omc/sdp/admm_shor.py:178",
-         "launches": shor["K8a"], "max_abs_err": err(res["kernels"]["K8a"]),
-         "ms": k8a["ms"], "plain_ms": k8a["plain_ms"]},
-        {"name": "K8b Shor RSOC/link/W>=0 cone step (B=32, n=m=100)", "route": "cuda",
-         "source": "omc_torch/csrc/k8_shor.cu", "replaces": "omc/sdp/admm_shor.py:423",
-         "launches": shor["K8b"], "max_abs_err": err(res["kernels"]["K8b"]),
-         "ms": k8b["ms"], "plain_ms": k8b["plain_ms"]},
-    ]}
+    """The per-kernel JSON record: launches on its main path, the largest
+    absolute error against its plain version, the kernel, plain and library
+    times and the bound of the row it was timed on."""
+    rec = []
+    for key, rows, path, name, source, replaces in KERNELS:
+        all_rows = [r for rk in rows for r in res["kernels"][rk]]
+        r = res["kernels"][rows[0]][0]
+        rec.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": res[path][key],
+            "max_abs_err": max(x["max_abs_err"] for x in all_rows),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+        })
+    return {"kernels": rec}
 
 
 def main(argv=None):

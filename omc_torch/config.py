@@ -9,12 +9,12 @@ knobs before they are echoed into ``run_details``) and the solver knobs of
 the PDHG step balance ``sdp_omega`` and the per-call duration caps
 ``sdp_max_call_seconds`` / ``sdp_first_call_iters``.
 
-The port runs the disjunctive-cut ADMM path, with or without the rank-1
-Shor valid inequalities, under best-first or breadth-first node selection.
-A valid setting that selects a path the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item; it never runs some other
-path instead.  (Shor with k > 1 raises from the entry point, where k is
-known.)
+The port runs the disjunctive-cut ADMM path (linear, linear2 or linear3
+cuts, smallest_1_eigvec or smallest_2_eigvec breakpoints), with or without
+the Shor valid inequalities (rank 1 and rank k > 1), under every node
+selection policy.  A valid setting that selects a path the port does not
+have yet raises ``NotImplementedError`` naming its ROADMAP item; it never
+runs some other path instead.
 """
 
 from __future__ import annotations
@@ -233,15 +233,6 @@ class SolverConfig:
             not_ported("sdp_halpern", '"Not to port"')
         if not self.use_disjunctive_cuts:
             not_ported("The McCormick path (use_disjunctive_cuts=False)", "queue 1 item 12")
-        if self.disjunctive_cuts_type != "linear":
-            not_ported(f'disjunctive_cuts_type="{self.disjunctive_cuts_type}"', "queue 1 item 9")
-        if self.disjunctive_cuts_breakpoints != "smallest_1_eigvec":
-            not_ported(
-                f'disjunctive_cuts_breakpoints="{self.disjunctive_cuts_breakpoints}"',
-                "queue 1 item 9",
-            )
-        if self.node_selection not in ("bestfirst", "breadthfirst"):
-            not_ported(f'node_selection="{self.node_selection}"', "queue 1 item 9")
         if self.checkpoint_path is not None or self.resume:
             not_ported("Checkpoint/resume", "queue 1 item 9")
         if self.mesh_shape is not None and math.prod(int(s) for s in self.mesh_shape) > 1:

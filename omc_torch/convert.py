@@ -5,9 +5,11 @@ dataclasses of torch tensors with the same fields in the same order.  These
 helpers take / give the leaves as numpy arrays, so a test can feed both
 packages the same state without this package importing jax::
 
-    batch_t = node_batch_from_numpy([np.asarray(x) for x in omc_batch])
-    state_t = admm_state_from_numpy([np.asarray(x) for x in omc_state])
-    sb_t = shor_batch_from_numpy([np.asarray(x) for x in omc_shor_batch])
+    batch_t = node_batch_from_numpy([np.asarray(x) for x in omc_batch], device="cpu")
+    state_t = admm_state_from_numpy([np.asarray(x) for x in omc_state], device="cpu")
+    sb_t = shor_batch_from_numpy([np.asarray(x) for x in omc_shor_batch], device="cpu")
+
+Every helper takes the target ``device`` as a required keyword.
 """
 
 from __future__ import annotations
@@ -19,6 +21,12 @@ from omc_torch.sdp.admm import ADMMState
 from omc_torch.sdp.admm_shor import ShorADMMState, ShorBatch, shor_batch_to_device
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.sdp.shor_encode import OMC_FIELDS, shor_batch_host_from_omc_leaves
+from omc_torch.sdp.shor_k import (
+    ShorKBatch,
+    ShorKState,
+    shor_k_batch_host_from_omc_leaves,
+    shor_k_batch_to_device,
+)
 
 
 def _tensors(leaves, n_expected, device, dtype):
@@ -31,7 +39,7 @@ def _tensors(leaves, n_expected, device, dtype):
     ]
 
 
-def node_batch_from_numpy(leaves, device="cpu", dtype=torch.float64) -> NodeBatch:
+def node_batch_from_numpy(leaves, *, device, dtype=torch.float64) -> NodeBatch:
     """(cut_x, cut_lo, cut_hi, cut_mask, U_lo, U_hi) -> NodeBatch."""
     return NodeBatch(*_tensors(leaves, 6, device, dtype))
 
@@ -41,7 +49,7 @@ def node_batch_to_numpy(batch: NodeBatch) -> list:
             for x in batch.fields()]
 
 
-def admm_state_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ADMMState:
+def admm_state_from_numpy(leaves, *, device, dtype=torch.float64) -> ADMMState:
     """The 26 leaves of ``omc.sdp.admm.ADMMState`` (field order) -> ADMMState."""
     return ADMMState.from_leaves(_tensors(leaves, 26, device, dtype))
 
@@ -51,18 +59,33 @@ def admm_state_to_numpy(state) -> list:
     return [x.detach().cpu().numpy() for x in state.leaves()]
 
 
-def shor_batch_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ShorBatch:
+def shor_batch_from_numpy(leaves, *, device, dtype=torch.float64) -> ShorBatch:
     """The 14 leaves of ``omc``'s ShorBatch / ShorBatchHost (field order:
     minor_idx ... cnt_v3) -> ShorBatch, with the adjoint's inverse tables
     built from them."""
     leaves = [np.asarray(x) for x in leaves]
     n, m = leaves[OMC_FIELDS.index("cnt_X")].shape[1:]
     host = shor_batch_host_from_omc_leaves(leaves, n, m)
-    return shor_batch_to_device(host, dtype, device)
+    return shor_batch_to_device(host, dtype, device=device)
 
 
-def shor_state_from_numpy(leaves, device="cpu", dtype=torch.float64) -> ShorADMMState:
+def shor_state_from_numpy(leaves, *, device, dtype=torch.float64) -> ShorADMMState:
     """The leaves of ``omc.sdp.admm_shor.ShorADMMState`` (the 26 core
     leaves, then W, v1, v2, v3, w5, u5, wr, ur, wl, ul, wp, up) ->
     ShorADMMState."""
     return ShorADMMState.from_leaves(_tensors(leaves, 38, device, dtype))
+
+
+def shor_k_batch_from_numpy(leaves, *, device, dtype=torch.float64) -> ShorKBatch:
+    """The 20 leaves of ``omc``'s ShorKBatch / ShorKBatchHost (field order:
+    minor_idx ... cnt_v3) -> ShorKBatch, with the kernels' inverse tables
+    built from them."""
+    return shor_k_batch_to_device(shor_k_batch_host_from_omc_leaves(leaves), dtype,
+                                  device=device)
+
+
+def shor_k_state_from_numpy(leaves, *, device, dtype=torch.float64) -> ShorKState:
+    """The 47 leaves of ``omc.sdp.shor_k.ShorKState`` (the 26 core leaves,
+    then Xt, W, Wt, Hh, v1, v2, v3, w5, u5, wx, ux, wr, ur, wl, ul, wwl, uwl,
+    wp, up, wq, uq) -> ShorKState."""
+    return ShorKState.from_leaves(_tensors(leaves, 47, device, dtype))

@@ -45,6 +45,107 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
+// C = A B for D x D matrices in registers
+template <int D>
+__device__ __forceinline__ void mm_small(const float (&A)[D][D], const float (&B)[D][D],
+                                         float (&C)[D][D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float c = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) c = fmaf(A[i][k], B[k][j], c);
+      C[i][j] = c;
+    }
+}
+
+// Sign-schedule PSD projection of one D x D matrix held by one thread in
+// registers (plain version: omc_torch.ops.polar.project_psd_ns_small):
+// T <- sym(T); W <- (T + sign(T) T) / 2, symmetrised, with sign(T) from the
+// 12 quintic + 2 cubic steps of kSignSched on T / ||T||_F (43 products).
+template <int D>
+__device__ __forceinline__ void project_psd_small(float (&T)[D][D], float (&W)[D][D]) {
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      if (j > i) {
+        const float a = 0.5f * (T[i][j] + T[j][i]);
+        T[i][j] = a;
+        T[j][i] = a;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) ss = fmaf(T[i][j], T[i][j], ss);
+  const float s = sqrtf(ss) + 1e-30f;
+  float S[D][D], S2[D][D], M[D][D];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) S[i][j] = T[i][j] / s;
+  for (int step = 0; step < kSignSteps; ++step) {
+    const float a = kSignSched[step][0], b = kSignSched[step][1], c = kSignSched[step][2];
+    mm_small<D>(S, S, S2);
+    if (c != 0.f) {
+      mm_small<D>(S2, S2, M);  // S^4
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < D; ++j) M[i][j] = b * S2[i][j] + c * M[i][j];
+      mm_small<D>(S, M, S2);   // S (b S^2 + c S^4)
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < D; ++j) S[i][j] = a * S[i][j] + S2[i][j];
+    } else {
+      mm_small<D>(S, S2, M);   // S^3
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < D; ++j) S[i][j] = a * S[i][j] + b * M[i][j];
+    }
+  }
+  mm_small<D>(S, T, M);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) W[i][j] = 0.5f * (T[i][j] + M[i][j]);
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i + 1; j < D; ++j) {
+      const float a = 0.5f * (W[i][j] + W[j][i]);
+      W[i][j] = a;
+      W[j][i] = a;
+    }
+}
+
+// projection onto {(u, v, x): 2 u v >= x^2, u, v >= 0} through the standard
+// SOC of (t, s, x) = ((u+v)/sqrt2, (u-v)/sqrt2, x)  (omc/ops/cones.py
+// project_rsoc in closed form)
+__device__ __forceinline__ void project_rsoc1(float u, float v, float x, float& pu, float& pv,
+                                              float& px) {
+  const float s2 = sqrtf(2.0f);
+  const float t = (u + v) / s2, s = (u - v) / s2;
+  const float nz = sqrtf(s * s + x * x);
+  float tp, zs, zx;
+  if (nz <= t) {
+    tp = t, zs = s, zx = x;
+  } else if (nz <= -t) {
+    tp = 0.f, zs = 0.f, zx = 0.f;
+  } else {
+    const float scale = nz > 0.f ? 0.5f * (1.0f + t / nz) : 0.f;
+    tp = 0.5f * (t + nz), zs = scale * s, zx = scale * x;
+  }
+  pu = (tp + zs) / s2;
+  pv = (tp - zs) / s2;
+  px = zx;
+}
+
 }  // namespace omc
 
 struct K1Params {
@@ -129,5 +230,81 @@ struct K8bParams {
   float *wp, *up;                // (B, n, m)
   const float *sX, *sT, *sS, *rho;
   int B, n, m;
+  float alpha, beta;
+};
+
+// K7t: the per-term 5x5 minor slots of the rank-k Shor relaxation, gathered
+// from term t of Xt, Wt and v1-v3, relax-mixed, projected, u and EMA updated.
+struct K7tParams {
+  float *w, *u, *acc;                    // (B, M5, k, 5, 5); acc may be null
+  const float *Xt;                       // (B, k, n*m) scaled
+  const float *Wt;                       // (B, k, C)
+  const float *v1, *v2, *v3;             // (B, k, P1), (B, k, P2), (B, k, P3)
+  const int *mc;                         // (B, M5, 4) coordinate of each corner
+  const int *coord_flat;                 // (B, C)
+  const int *iv1a, *iv1b, *iv2a, *iv2b, *iv3;  // (B, M5)
+  const float *minor_mask;               // (B, M5)
+  const float *sS, *rho;                 // (B,)
+  int B, M5, k, nm, C, P1, P2, P3;
+  float alpha, beta;
+};
+
+// K7x: with t given, w = proj_PSD(t) for N (k+1)x(k+1) matrices; with t
+// null, the XWH slots [[1, Xt'], [Xt, M]] of N = B * C coordinates.
+struct K7xParams {
+  const float* t;                        // (N, D, D) or null
+  float *w, *u, *acc;                    // (N, D, D); u, acc in the slot mode
+  const float *Xt, *Wt, *Hh;             // (B, k, n*m), (B, k, C), (B, kp, C)
+  const int* coord_flat;                 // (B, C)
+  const float* coord_mask;               // (B, C)
+  const float *sS, *rho;                 // (B,)
+  int N, C, k, nm;
+  float alpha, beta;
+};
+
+// K8c: the rank-k Shor z-step (adjoint of every Shor slot, Sherman-Morrison
+// X solve per entry, diagonal solves, link Woodbury, clip) -> Xt, X = sum_t
+// Xt, Theta, W, Wt, H, v1-v3.
+struct K8cParams {
+  const float *w1, *u1;                  // (B, n+m, n+m)
+  const float *w5, *u5;                  // (B, M5, k, 5, 5)
+  const float *wx, *ux;                  // (B, C, k+1, k+1)
+  const float *wr, *ur;                  // (B, Ms, 3)
+  const float *wl, *ul;                  // (B, m)
+  const float *wwl, *uwl;                // (B, C)
+  const float *wp, *up;                  // (B, n, m)
+  const float *wq, *uq;                  // (B, k, C)
+  const float *soc_mask, *coord_mask;    // (B, Ms), (B, C)
+  const int* coord_flat;                 // (B, C)
+  const int *cm_ptr, *cm_ent;            // coordinate -> 4 l + corner (table a)
+  const int *col_ptr, *col_ent;          // column -> coordinates (table b)
+  const int *flat_coord, *flat_soc;      // (B, n*m) entry -> coordinate / RSOC slot or -1
+  const int *v1_ptr, *v1_ent, *v2_ptr, *v2_ent, *v3_ptr, *v3_ent;
+  const float *D1x, *c1x, *D1w;          // (B, n*m)
+  const float *D1wt, *D1h, *D_c, *B_jc;  // (B, C)
+  const float* S_th;                     // (B, m)
+  const float *D1v1, *D1v2, *D1v3;       // (B, P*)
+  const float *maskA, *mask;             // (n, m)
+  const float *sX, *sT, *sS, *rho;       // (B,)
+  float *Xt, *Xs, *Ths, *Ws, *Wt, *Hh, *v1, *v2, *v3;  // outputs
+  int B, n, m, k, M5, C, Ms, P1, P2, P3;
+  float gamma, R_X;                      // R_X = sqrt(2 gamma ub_bar)
+};
+
+// K8d: cone step of the RSOC, Theta-link, W-link, W >= 0 and Wt >= 0 slots
+// of the rank-k Shor relaxation, with the EMAs of rho*ur, rho*ul, rho*uwl.
+struct K8dParams {
+  const float *Xs, *Ws, *Ths, *Wt, *Hh;  // (B,n,m), (B,n,m), (B,m,m), (B,k,C), (B,kp,C)
+  float *wr, *ur, *acc_r;                // (B, Ms, 3)
+  float *wl, *ul, *acc_l;                // (B, m)
+  float *wwl, *uwl, *acc_wl;             // (B, C)
+  float *wp, *up;                        // (B, n, m)
+  float *wq, *uq;                        // (B, k, C)
+  const int* soc_flat;                   // (B, Ms)
+  const float* soc_mask;                 // (B, Ms)
+  const int* coord_flat;                 // (B, C)
+  const float* coord_mask;               // (B, C)
+  const float *sX, *sT, *sS, *rho;       // (B,)
+  int B, n, m, k, C, Ms;
   float alpha, beta;
 };

@@ -16,8 +16,8 @@
 // whole card is busy.  omc laid the batch along the TPU's lanes to keep the
 // 5x5 products off the matrix unit; here the same idea is one thread per
 // matrix with all four working matrices (T, S, S^2, S^4 / products) in
-// registers: no shared memory, no synchronisation, full fp32 FMAs, no
-// tensor cores.  The t5 of a minor is exactly symmetric (every input slot
+// registers (omc::project_psd_small in common.cuh, shared with K7t/K7x): no
+// shared memory, no synchronisation, full fp32 FMAs, no tensor cores.  The t5 of a minor is exactly symmetric (every input slot
 // is), so u5 = t5 - w5 uses the symmetrised T.
 #include "common.cuh"
 
@@ -27,79 +27,6 @@ constexpr int kD = 5;
 constexpr int kThreads7 = 128;
 
 typedef float Mat5[kD][kD];
-
-__device__ __forceinline__ void mm5(const Mat5& A, const Mat5& B, Mat5& C) {
-#pragma unroll
-  for (int i = 0; i < kD; ++i)
-#pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      float c = 0.f;
-#pragma unroll
-      for (int k = 0; k < kD; ++k) c = fmaf(A[i][k], B[k][j], c);
-      C[i][j] = c;
-    }
-}
-
-// T <- sym(T); W <- (T + sign(T) T) / 2, symmetrised
-__device__ __forceinline__ void project5(Mat5& T, Mat5& W) {
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < kD; ++i)
-#pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      if (j > i) {
-        const float a = 0.5f * (T[i][j] + T[j][i]);
-        T[i][j] = a;
-        T[j][i] = a;
-      }
-    }
-#pragma unroll
-  for (int i = 0; i < kD; ++i)
-#pragma unroll
-    for (int j = 0; j < kD; ++j) ss = fmaf(T[i][j], T[i][j], ss);
-  const float s = sqrtf(ss) + 1e-30f;
-  Mat5 S, S2, M;
-#pragma unroll
-  for (int i = 0; i < kD; ++i)
-#pragma unroll
-    for (int j = 0; j < kD; ++j) S[i][j] = T[i][j] / s;
-  for (int step = 0; step < omc::kSignSteps; ++step) {
-    const float a = omc::kSignSched[step][0], b = omc::kSignSched[step][1],
-                c = omc::kSignSched[step][2];
-    mm5(S, S, S2);
-    if (c != 0.f) {
-      mm5(S2, S2, M);  // S^4
-#pragma unroll
-      for (int i = 0; i < kD; ++i)
-#pragma unroll
-        for (int j = 0; j < kD; ++j) M[i][j] = b * S2[i][j] + c * M[i][j];
-      mm5(S, M, S2);   // S (b S^2 + c S^4)
-#pragma unroll
-      for (int i = 0; i < kD; ++i)
-#pragma unroll
-        for (int j = 0; j < kD; ++j) S[i][j] = a * S[i][j] + S2[i][j];
-    } else {
-      mm5(S, S2, M);   // S^3
-#pragma unroll
-      for (int i = 0; i < kD; ++i)
-#pragma unroll
-        for (int j = 0; j < kD; ++j) S[i][j] = a * S[i][j] + b * M[i][j];
-    }
-  }
-  mm5(S, T, M);
-#pragma unroll
-  for (int i = 0; i < kD; ++i)
-#pragma unroll
-    for (int j = 0; j < kD; ++j) W[i][j] = 0.5f * (T[i][j] + M[i][j]);
-#pragma unroll
-  for (int i = 0; i < kD; ++i)
-#pragma unroll
-    for (int j = i + 1; j < kD; ++j) {
-      const float a = 0.5f * (W[i][j] + W[j][i]);
-      W[i][j] = a;
-      W[j][i] = a;
-    }
-}
 
 __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -111,7 +38,7 @@ __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
     for (int i = 0; i < kD; ++i)
 #pragma unroll
       for (int j = 0; j < kD; ++j) T[i][j] = p.t[off + i * kD + j];
-    project5(T, W);
+    omc::project_psd_small<kD>(T, W);
 #pragma unroll
     for (int i = 0; i < kD; ++i)
 #pragma unroll
@@ -149,7 +76,7 @@ __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
       const size_t q = off + i * kD + j;
       T[i][j] = (alpha * (sS * F[i][j]) + om * p.w[q]) + p.u[q];
     }
-  project5(T, W);
+  omc::project_psd_small<kD>(T, W);
   const float mask = p.minor_mask[g], rho = p.rho[b];
 #pragma unroll
   for (int i = 0; i < kD; ++i)

@@ -162,27 +162,6 @@ __global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
   }
 }
 
-// projection onto {(u, v, x): 2 u v >= x^2, u, v >= 0} through the standard
-// SOC of (t, s, x) = ((u+v)/sqrt2, (u-v)/sqrt2, x)
-__device__ __forceinline__ void project_rsoc1(float u, float v, float x, float& pu,
-                                              float& pv, float& px) {
-  const float s2 = sqrtf(2.0f);
-  const float t = (u + v) / s2, s = (u - v) / s2;
-  const float nz = sqrtf(s * s + x * x);
-  float tp, zs, zx;
-  if (nz <= t) {
-    tp = t, zs = s, zx = x;
-  } else if (nz <= -t) {
-    tp = 0.f, zs = 0.f, zx = 0.f;
-  } else {
-    const float scale = nz > 0.f ? 0.5f * (1.0f + t / nz) : 0.f;
-    tp = 0.5f * (t + nz), zs = scale * s, zx = scale * x;
-  }
-  pu = (tp + zs) / s2;
-  pv = (tp - zs) / s2;
-  px = zx;
-}
-
 __global__ void __launch_bounds__(omc::kThreads) k8b_kernel(K8bParams p) {
   __shared__ float part[kRows][kCols];
   const int b = blockIdx.y, tid = threadIdx.x;
@@ -204,7 +183,7 @@ __global__ void __launch_bounds__(omc::kThreads) k8b_kernel(K8bParams p) {
       float t[3], pr[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * p.wr[3 * q + c]) + p.ur[3 * q + c];
-      project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
+      omc::project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
       const float sm = p.soc_mask[q];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {

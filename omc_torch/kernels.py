@@ -22,6 +22,11 @@ PyTorch version:
   ``omc_torch.sdp.admm_shor.minor_step``           (``csrc/k7_minor_psd.cu``)
 - K8a ``omc_torch.sdp.admm_shor.shor_zstep``       (``csrc/k8_shor.cu``)
 - K8b ``omc_torch.sdp.admm_shor.shor_cone_step``   (``csrc/k8_shor.cu``)
+- K7t ``omc_torch.sdp.shor_k.minor_k_step``        (``csrc/k7k_minor_xwh.cu``)
+- K7x ``omc_torch.sdp.shor_k.xwh_step`` and
+  ``omc_torch.ops.polar.project_psd_xwh``          (``csrc/k7k_minor_xwh.cu``)
+- K8c ``omc_torch.sdp.shor_k.shor_k_zstep``        (``csrc/k8k_shor_k.cu``)
+- K8d ``omc_torch.sdp.shor_k.shor_k_cone_step``    (``csrc/k8k_shor_k.cu``)
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
@@ -41,7 +46,8 @@ from pathlib import Path
 import torch
 
 # launches of each kernel in this process (the wrappers add one per launch)
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
+            "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
@@ -198,6 +204,39 @@ class K8bParams(ctypes.Structure):
         ("B", "n", "m"), ("alpha", "beta"))
 
 
+class K7tParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("w", "u", "acc", "Xt", "Wt", "v1", "v2", "v3", "mc", "coord_flat",
+         "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask", "sS", "rho"),
+        ("B", "M5", "k", "nm", "C", "P1", "P2", "P3"), ("alpha", "beta"))
+
+
+class K7xParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("t", "w", "u", "acc", "Xt", "Wt", "Hh", "coord_flat", "coord_mask",
+         "sS", "rho"),
+        ("N", "C", "k", "nm"), ("alpha", "beta"))
+
+
+class K8cParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("w1", "u1", "w5", "u5", "wx", "ux", "wr", "ur", "wl", "ul", "wwl",
+         "uwl", "wp", "up", "wq", "uq", "soc_mask", "coord_mask", "coord_flat",
+         "cm_ptr", "cm_ent", "col_ptr", "col_ent", "flat_coord", "flat_soc",
+         "v1_ptr", "v1_ent", "v2_ptr", "v2_ent", "v3_ptr", "v3_ent", "D1x", "c1x", "D1w", "D1wt", "D1h", "D_c", "B_jc", "S_th",
+         "D1v1", "D1v2", "D1v3", "maskA", "mask", "sX", "sT", "sS", "rho", "Xt",
+         "Xs", "Ths", "Ws", "Wt", "Hh", "v1", "v2", "v3"),
+        ("B", "n", "m", "k", "M5", "C", "Ms", "P1", "P2", "P3"), ("gamma", "R_X"))
+
+
+class K8dParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("Xs", "Ws", "Ths", "Wt", "Hh", "wr", "ur", "acc_r", "wl", "ul", "acc_l",
+         "wwl", "uwl", "acc_wl", "wp", "up", "wq", "uq", "soc_flat", "soc_mask",
+         "coord_flat", "coord_mask", "sX", "sT", "sS", "rho"),
+        ("B", "n", "m", "k", "C", "Ms"), ("alpha", "beta"))
+
+
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name, params in (
@@ -207,6 +246,10 @@ def _load(path: Path):
         ("omc_k7_minor_psd", K7Params),
         ("omc_k8a_shor_zstep", K8aParams),
         ("omc_k8b_shor_cone", K8bParams),
+        ("omc_k7t_minor_k", K7tParams),
+        ("omc_k7x_xwh", K7xParams),
+        ("omc_k8c_shor_k_zstep", K8cParams),
+        ("omc_k8d_shor_k_cone", K8dParams),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]

@@ -233,3 +233,28 @@ def project_psd_small(T, w_out=None):
     p.N = T.numel() // 25
     kernels.launch("K7", "omc_k7_minor_psd", p, dev)
     return w_out
+
+
+def project_psd_xwh(T, w_out=None):
+    """K7x in its projection mode: the sign-schedule PSD projection of a
+    (..., d, d) batch with 3 <= d <= 5 (the rank-k Shor XWH slots are
+    (k+1) x (k+1)), one thread per matrix on the GPU.  A CPU tensor runs the
+    plain ``project_psd_ns_small``; a CUDA tensor runs the kernel or
+    raises."""
+    dev = T.device
+    if dev.type == "cpu":
+        P = project_psd_ns_small(T)
+        return P if w_out is None else w_out.copy_(P)
+    if dev.type != "cuda":
+        raise ValueError(f"project_psd_xwh: unsupported device {dev}")
+    d = T.shape[-1]
+    if T.ndim < 2 or T.shape[-2] != d or not 3 <= d <= 5:
+        raise ValueError(f"K7x takes d x d matrices with 3 <= d <= 5, got {tuple(T.shape)}")
+    if w_out is None:
+        w_out = torch.empty_like(T)
+    p = kernels.K7xParams()
+    p.t = kernels.check("t", T, T.shape, dev)
+    p.w = kernels.check("w_out", w_out, T.shape, dev)
+    p.N, p.k = T.numel() // (d * d), d - 1
+    kernels.launch("K7x", "omc_k7x_xwh", p, dev)
+    return w_out

@@ -93,7 +93,7 @@ class ADMMState:
         return dataclasses.replace(self, **kw)
 
 
-def init_admm_state(B, n, m, k, L, dtype=torch.float32, device="cpu", *,
+def init_admm_state(B, n, m, k, L, dtype=torch.float32, *, device,
                     sX=1.0, sT=1.0, sS=1.0, X0=None, Y0=None, Th0=None,
                     U0=None, rho: float = 0.02) -> ADMMState:
     def z(*s):

@@ -53,7 +53,7 @@ _INT_FIELDS = {"minor_idx", "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "soc_idx",
                *INVERSE_FIELDS}
 
 
-def shor_batch_to_device(h: ShorBatchHost, dtype, device="cpu") -> ShorBatch:
+def shor_batch_to_device(h: ShorBatchHost, dtype, *, device) -> ShorBatch:
     def conv(name, x):
         t = torch.as_tensor(x, device=device)
         return t.to(torch.int32 if name in _INT_FIELDS else dtype).contiguous()
@@ -103,7 +103,7 @@ class ShorADMMState:
         return dataclasses.replace(self, **kw)
 
 
-def init_shor_state(B, n, m, k, L, M5, Ms, dtype=torch.float32, device="cpu", *,
+def init_shor_state(B, n, m, k, L, M5, Ms, dtype=torch.float32, *, device,
                     sX=1.0, sT=1.0, rho=0.02, **kw) -> ShorADMMState:
     P1 = P2 = 2 * M5
     P3 = M5
@@ -111,7 +111,7 @@ def init_shor_state(B, n, m, k, L, M5, Ms, dtype=torch.float32, device="cpu", *,
     def z(*s):
         return torch.zeros(s, dtype=dtype, device=device)
 
-    core = init_admm_state(B, n, m, k, L, dtype, device, sX=sX, sT=sT, rho=rho, **kw)
+    core = init_admm_state(B, n, m, k, L, dtype, device=device, sX=sX, sT=sT, rho=rho, **kw)
     return ShorADMMState(
         core=core, W=z(B, n, m), v1=z(B, P1), v2=z(B, P2), v3=z(B, P3),
         w5=z(B, M5, 5, 5), u5=z(B, M5, 5, 5), wr=z(B, Ms, 3), ur=z(B, Ms, 3),
@@ -548,7 +548,7 @@ def make_shor_solver(n: int, m: int, L: int, M5: int, Ms: int, gamma: float, *,
         A = torch.as_tensor(A, device=dev).to(dtype).contiguous()
         mask = torch.as_tensor(mask, device=dev).to(dtype).contiguous()
         batch_t = batch.map(lambda x: torch.as_tensor(x, device=dev).to(dtype).contiguous())
-        sb_t = shor_batch_to_device(sb, dtype, dev)
+        sb_t = shor_batch_to_device(sb, dtype, device=dev)
         B = batch_t.cut_mask.shape[0]
         st = state.clone()
         core = st.core
@@ -774,7 +774,7 @@ def host_certified_bound_shor(A, mask, batch: NodeBatch, sbh: ShorBatchHost,
     arrays).  Returns a numpy (B,) array."""
     f = lambda a: torch.as_tensor(_np(a), dtype=torch.float64)
     hb = batch.map(f)
-    sb = shor_batch_to_device(sbh, torch.float64, "cpu")
+    sb = shor_batch_to_device(sbh, torch.float64, device="cpu")
     lb = safe_dual_bound_shor(
         f(A), f(mask), hb, sb, f(out["y1"]), f(out["y2"]), f(out["ya"]),
         f(out["yb"]), f(out["yc"]), f(out["y5"]), f(out["yr"]), f(out["yl"]),

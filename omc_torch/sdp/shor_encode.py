@@ -97,6 +97,30 @@ def _csr(keys, ents, size):
     return ptr, ents[order].astype(np.int32)
 
 
+def v_inverse_tables(B, M5, P1, P2, P3) -> dict:
+    """Empty v1/v2/v3 inverse tables for B slots of M5 minors."""
+    return {
+        "v1_ptr": np.zeros((B, P1 + 1), np.int32),
+        "v1_ent": np.zeros((B, 2 * M5), np.int32),
+        "v2_ptr": np.zeros((B, P2 + 1), np.int32),
+        "v2_ent": np.zeros((B, 2 * M5), np.int32),
+        "v3_ptr": np.zeros((B, P3 + 1), np.int32),
+        "v3_ent": np.zeros((B, M5), np.int32),
+    }
+
+
+def fill_v_inverse(out, b, act, iv1a, iv1b, iv2a, iv2b, iv3, P1, P2, P3):
+    """Slot ``b``'s rows of the v inverse tables from its active minors
+    ``act``: v1/v2 entry -> 2*l (the iv*a use) or 2*l+1 (iv*b), v3 -> l."""
+    for name, ia, ib, P in (("v1", iv1a, iv1b, P1), ("v2", iv2a, iv2b, P2)):
+        keys = np.stack([np.asarray(ia[b])[act], np.asarray(ib[b])[act]], axis=1)
+        ents = 2 * act[:, None] + np.arange(2)[None]
+        ptr, ent = _csr(keys.reshape(-1).astype(np.int64), ents.reshape(-1), P)
+        out[f"{name}_ptr"][b], out[f"{name}_ent"][b, : ent.size] = ptr, ent
+    ptr, ent = _csr(np.asarray(iv3[b])[act].astype(np.int64), act, P3)
+    out["v3_ptr"][b], out["v3_ent"][b, : ent.size] = ptr, ent
+
+
 def inverse_tables(n, m, minor_idx, minor_mask, iv1a, iv1b, iv2a, iv2b, iv3,
                    P1, P2, P3) -> dict:
     """The adjoint's inverse gather tables from the forward tables (active
@@ -105,12 +129,7 @@ def inverse_tables(n, m, minor_idx, minor_mask, iv1a, iv1b, iv2a, iv2b, iv3,
     out = {
         "xw_ptr": np.zeros((B, n * m + 1), np.int32),
         "xw_ent": np.zeros((B, 4 * M5), np.int32),
-        "v1_ptr": np.zeros((B, P1 + 1), np.int32),
-        "v1_ent": np.zeros((B, 2 * M5), np.int32),
-        "v2_ptr": np.zeros((B, P2 + 1), np.int32),
-        "v2_ent": np.zeros((B, 2 * M5), np.int32),
-        "v3_ptr": np.zeros((B, P3 + 1), np.int32),
-        "v3_ent": np.zeros((B, M5), np.int32),
+        **v_inverse_tables(B, M5, P1, P2, P3),
     }
     for b in range(B):
         act = np.flatnonzero(np.asarray(minor_mask[b]) > 0)
@@ -121,13 +140,7 @@ def inverse_tables(n, m, minor_idx, minor_mask, iv1a, iv1b, iv2a, iv2b, iv3,
         ents = 4 * act[:, None] + np.arange(4)[None]
         ptr, ent = _csr(flat.reshape(-1), ents.reshape(-1), n * m)
         out["xw_ptr"][b], out["xw_ent"][b, : ent.size] = ptr, ent
-        for name, ia, ib, P in (("v1", iv1a, iv1b, P1), ("v2", iv2a, iv2b, P2)):
-            keys = np.stack([np.asarray(ia[b])[act], np.asarray(ib[b])[act]], axis=1)
-            ents = 2 * act[:, None] + np.arange(2)[None]
-            ptr, ent = _csr(keys.reshape(-1).astype(np.int64), ents.reshape(-1), P)
-            out[f"{name}_ptr"][b], out[f"{name}_ent"][b, : ent.size] = ptr, ent
-        ptr, ent = _csr(np.asarray(iv3[b])[act].astype(np.int64), act, P3)
-        out["v3_ptr"][b], out["v3_ent"][b, : ent.size] = ptr, ent
+        fill_v_inverse(out, b, act, iv1a, iv1b, iv2a, iv2b, iv3, P1, P2, P3)
     return out
 
 

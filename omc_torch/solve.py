@@ -1,17 +1,19 @@
 """Branch-and-bound driver — the public entry point (port of the
-disjunctive-cut and rank-1 Shor parts of ``omc/solve.py``).
+disjunctive-cut and Shor parts of ``omc/solve.py``).
 
 Up to ``batch_size`` frontier nodes are popped per super-step (best-first
 or breadth-first), relaxed together by the batched ADMM solver on one
 device, certified on the host in float64, then closed, pruned, refined or
-split into 2^k children along the most negative eigenvector of
-``U U' - Y``.  Alternating minimisation supplies upper bounds (multi-
+split into 2^k / 3^k / 4^k children (linear / linear2 / linear3 cuts)
+along the most negative eigenvector of ``U U' - Y`` (or the blend of the
+two most negative, ``smallest_2_eigvec``).  Alternating minimisation supplies upper bounds (multi-
 restart at the root, probability-gated at tree nodes); master-feasible
 relaxation points are rounded to exact rank-k incumbents.  With
-``add_Shor_valid_inequalities`` (k = 1) every node also carries its 2x2
-minors (static, or grown from the top-scoring violated ones at refinement
-stalls and at child creation) and the Shor solver of
-``omc_torch.sdp.admm_shor`` relaxes it.
+``add_Shor_valid_inequalities`` every node also carries its 2x2 minors
+(static, or grown from the top-scoring violated ones at refinement stalls
+and at child creation, scored per term over the Xt split when k > 1) and
+the Shor solver relaxes it: ``omc_torch.sdp.admm_shor`` for k = 1,
+``omc_torch.sdp.shor_k`` for k > 1.
 
 Soundness notes (as in ``omc``):
 
@@ -27,8 +29,9 @@ Soundness notes (as in ``omc``):
 
 The device is chosen once, by the required ``device`` argument.  On a CUDA
 device the solver runs float32 through the hand-written kernels
-(``omc_torch/csrc``): K1-K3 on the base path, and K2, K8a, K3, K1, K7, K8b
-on the Shor path.
+(``omc_torch/csrc``): K1-K3 on the base path, K2, K8a, K3, K1, K7, K8b
+on the rank-1 Shor path, and K2, K8c, K3, K1, K7t, K7x, K8d on the rank-k
+Shor path.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 from omc_torch import kernels
 from omc_torch.altmin import make_altmin
 from omc_torch.branch import create_matrix_cut_child_nodes
-from omc_torch.config import SolverConfig, not_ported
+from omc_torch.config import SolverConfig
 from omc_torch.problem import compute_MSE
 from omc_torch.sdp import shor as shor_mod
 from omc_torch.sdp.admm import (
@@ -70,6 +73,14 @@ from omc_torch.sdp.relax import (
     state_to_host,
 )
 from omc_torch.sdp.shor_encode import pack_shor_batch
+from omc_torch.sdp.shor_k import (
+    ShorKState,
+    host_certified_bound_shor_k,
+    init_shor_k_state,
+    make_shor_k_solver,
+    pack_shor_k_batch,
+)
+from omc_torch.sdp.shor_k import apply_best_duals as apply_shor_k_best_duals
 from omc_torch.tree import BBNode, BBTree, ShorInfo, compute_gap, root_box
 from omc_torch.utils.logging import (
     UPDATE_HEADER,
@@ -258,9 +269,8 @@ def matrix_completion_branchandbound(
             f"Input matrix A must have size (n, m) with n <= m. Current size is {A.shape}."
         )
     use_shor = cfg.add_Shor_valid_inequalities
-    if use_shor and k > 1:
-        not_ported("Shor valid inequalities with k > 1 (omc/sdp/shor_k.py)",
-                   "queue 1 item 11")
+    # k > 1 uses the Xt-split Shor relaxation (omc_torch.sdp.shor_k)
+    use_shor_k = use_shor and k > 1
 
     mask = indices.astype(np.float64)
     rng = np.random.default_rng(cfg.seed)
@@ -491,9 +501,11 @@ def matrix_completion_branchandbound(
             cfg.update_Shor_indices_probability_decay_rate,
         )
 
-    def violated_minors(X, existing):
-        """The top-scoring violated minors at a relaxation point X, none of
-        them in ``existing``."""
+    def violated_minors(out, sel, existing):
+        """The top-scoring violated minors at slot ``sel``'s relaxation point
+        (scored per term over the Xt split when k > 1), none of them in
+        ``existing``."""
+        X = out["Xt" if use_shor_k else "X"][sel]
         scored = shor_mod.generate_violated_Shor_minors(
             X.astype(np.float64), indices,
             list(cfg.Shor_valid_inequalities_noisy_rank1_num_entries_present),
@@ -506,7 +518,12 @@ def matrix_completion_branchandbound(
         bucket (omc's Shor solver keeps its own over-relaxation 1.6)."""
         key = (L, M5)
         if key not in solvers:
-            if use_shor:
+            if use_shor_k:
+                solvers[key] = make_shor_k_solver(
+                    n, m, k, L, M5, n * m, gamma, iters=cfg.sdp_iters, dtype=dtype,
+                    check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
+                )
+            elif use_shor:
                 solvers[key] = make_shor_solver(
                     n, m, L, M5, n * m, gamma, iters=cfg.sdp_iters, dtype=dtype,
                     check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
@@ -545,10 +562,12 @@ def matrix_completion_branchandbound(
         V0 = U0.T @ X0
         kw = dict(sX=sX, sT=sT, sS=sS, X0=X0[None], Y0=(U0 @ U0.T)[None],
                   Th0=(V0.T @ V0)[None], U0=U0[None], rho=rho_base)
-        if use_shor:
-            dev_state = init_shor_state(Bb, n, m, k, L, M5, n * m, dtype, dev, **kw)
+        if use_shor_k:
+            dev_state = init_shor_k_state(Bb, n, m, k, L, M5, n * m, dtype, device=dev, **kw)
+        elif use_shor:
+            dev_state = init_shor_state(Bb, n, m, k, L, M5, n * m, dtype, device=dev, **kw)
         else:
-            dev_state = init_admm_state(Bb, n, m, k, L, dtype, dev, **kw)
+            dev_state = init_admm_state(Bb, n, m, k, L, dtype, device=dev, **kw)
         host_box = {"h": None}
 
         def host():
@@ -612,7 +631,7 @@ def matrix_completion_branchandbound(
         # a slice from a smaller minor bucket fills the leading rows of
         # w5/u5/v: the minor tables are prefix-stable (shor_encode)
         apply_warm_slices(base, slices)
-        state_cls = ShorADMMState if use_shor else ADMMState
+        state_cls = ShorKState if use_shor_k else ShorADMMState if use_shor else ADMMState
         return state_cls.from_leaves(
             [torch.as_tensor(b_, device=dev) for b_ in base]
         ), True
@@ -719,7 +738,7 @@ def matrix_completion_branchandbound(
             shor_minors_max = max(shor_minors_max, n_minors)
             M5 = _m5_bucket(max(1, n_minors))
             pad = [[]] * (Bb - len(work))
-            sbh = pack_shor_batch(
+            sbh = (pack_shor_k_batch if use_shor_k else pack_shor_batch)(
                 n, m, [nd.Shor_info.constraints_indexes for nd in work] + pad,
                 [nd.Shor_info.SOC_constraints_indexes for nd in work] + pad,
                 M5, n * m,
@@ -750,7 +769,8 @@ def matrix_completion_branchandbound(
             # the Shor family continues from the best-chunk duals too: its
             # growth-heavy re-visits behave like child solves (omc.solve)
             if cfg.sdp_best_dual_warm:
-                fin_state = apply_shor_best_duals(fin_state, out_dev)
+                apply = apply_shor_k_best_duals if use_shor_k else apply_shor_best_duals
+                fin_state = apply(fin_state, out_dev)
         else:
             fin_state, out_dev = get_solver(L)(
                 A_dev, mask_dev, batch_dev, ub_bar, state0, visit_iters,
@@ -765,7 +785,9 @@ def matrix_completion_branchandbound(
         out = to_numpy_out(out_dev)  # one synchronised fetch
         iters_done = int(np.max(out["iters_run"]))
         t_dev_end = time.time()
-        if use_shor:
+        if use_shor_k:
+            lbs = host_certified_bound_shor_k(A, mask, batch, sbh, out, gamma, k, ub_bar)
+        elif use_shor:
             lbs = host_certified_bound_shor(A, mask, batch, sbh, out, gamma, ub_bar)
         elif Bb > cfg.host_certify_max_batch:
             # scale path: f64-certify only the binding slots (prune/close
@@ -944,7 +966,7 @@ def matrix_completion_branchandbound(
                 and rng.random() < shor_probability(node.depth)
             ):
                 have = node.Shor_info.constraints_indexes
-                fresh_minors = violated_minors(out["X"][sel], have)
+                fresh_minors = violated_minors(out, sel, have)
                 if fresh_minors:
                     node.Shor_info = _with_minors(n, m, list(have) + fresh_minors)
                     node.growths += 1
@@ -1047,7 +1069,7 @@ def matrix_completion_branchandbound(
                 if (use_shor and cfg.add_Shor_valid_inequalities_iterative
                         and rng.random() < shor_probability(node.depth)):
                     have = node.Shor_info.constraints_indexes
-                    fresh_minors = violated_minors(out["X"][sel_of[i]], have)
+                    fresh_minors = violated_minors(out, sel_of[i], have)
                     shor_growths += bool(fresh_minors)
                     new_shor = _with_minors(n, m, list(have) + fresh_minors)
                 children = create_matrix_cut_child_nodes(

@@ -87,7 +87,7 @@ def _jax_batch(leaves):
 
 def test_gram1_forward_adjoint_parity():
     A, mask, bl, sl = _setup()
-    jb, tb = _jax_batch(bl), convert.node_batch_from_numpy(bl)
+    jb, tb = _jax_batch(bl), convert.node_batch_from_numpy(bl, device="cpu")
     G_j = np.asarray(jadmm._gram1(jb, K, jnp.float64))
     G_t = tadmm._gram1(tb, K, torch.float64).numpy()
     assert _rel(G_t, G_j) <= 1e-12
@@ -113,7 +113,7 @@ def test_gram1_forward_adjoint_parity():
 def test_solve_z_parity():
     """The rho-free Woodbury z-step, same right-hand sides: <= 1e-12."""
     A, mask, bl, sl = _setup()
-    jb, tb = _jax_batch(bl), convert.node_batch_from_numpy(bl)
+    jb, tb = _jax_batch(bl), convert.node_batch_from_numpy(bl, device="cpu")
     rng = np.random.default_rng(2)
     rho = np.array([0.05, 0.02, 0.2, 0.0125])
     sX = rng.uniform(1, 2, (B, 1, 1))
@@ -154,8 +154,8 @@ def _run_both(dtype, iters, psd_method, check_every=100):
     ub = 50.0
     st_j = jadmm.ADMMState(*[jnp.asarray(x) for x in sl])
     fin_j, out_j = solve_j(jnp.asarray(A), jnp.asarray(mask), _jax_batch(bl), ub, st_j)
-    st_t = convert.admm_state_from_numpy(sl, dtype=tdt)
-    tb = convert.node_batch_from_numpy(bl, dtype=tdt)
+    st_t = convert.admm_state_from_numpy(sl, dtype=tdt, device="cpu")
+    tb = convert.node_batch_from_numpy(bl, dtype=tdt, device="cpu")
     fin_t, out_t = solve_t(torch.as_tensor(A), torch.as_tensor(mask), tb, ub, st_t)
     return fin_j, out_j, fin_t, out_t, st_t
 
@@ -199,8 +199,8 @@ def test_admm_early_exit_and_groups_match():
     solve_j = jadmm.make_admm_solver(N, M, K, L, GAMMA, dtype=jnp.float64, **kw)
     solve_t = tadmm.make_admm_solver(N, M, K, L, GAMMA, dtype=torch.float64, **kw)
     _, out0 = solve_t(torch.as_tensor(A), torch.as_tensor(mask),
-                      convert.node_batch_from_numpy(bl), 50.0,
-                      convert.admm_state_from_numpy(sl), 300)
+                      convert.node_batch_from_numpy(bl, device="cpu"), 50.0,
+                      convert.admm_state_from_numpy(sl, device="cpu"), 300)
     target = out0["lb_est"].numpy() - 1e-3
     target[2:] = -np.inf
     group = np.array([5, 6, 5, 6], dtype=np.int32)  # re-based to 0/1
@@ -208,8 +208,8 @@ def test_admm_early_exit_and_groups_match():
                        jadmm.ADMMState(*[jnp.asarray(x) for x in sl]), 2000,
                        jnp.asarray(target), jnp.asarray(group))
     _, out_t = solve_t(torch.as_tensor(A), torch.as_tensor(mask),
-                       convert.node_batch_from_numpy(bl), 50.0,
-                       convert.admm_state_from_numpy(sl), 2000,
+                       convert.node_batch_from_numpy(bl, device="cpu"), 50.0,
+                       convert.admm_state_from_numpy(sl, device="cpu"), 2000,
                        torch.as_tensor(target), torch.as_tensor(group))
     assert int(out_t["iters_run"][0]) == int(np.asarray(out_j["iters_run"])[0]) < 2000
 
@@ -219,13 +219,13 @@ def test_state_helpers_parity(fn):
     A, mask, bl, sl = _setup()
     if fn == "set_slot_rho":
         new = np.array([0.1, 0.01, 0.3, 0.05])
-        a = tadmm.set_slot_rho(convert.admm_state_from_numpy(sl), torch.as_tensor(new))
+        a = tadmm.set_slot_rho(convert.admm_state_from_numpy(sl, device="cpu"), torch.as_tensor(new))
         b = jadmm.set_slot_rho(jadmm.ADMMState(*[jnp.asarray(x) for x in sl]), new)
     else:
         sX = np.array([1.5, 2.0, 1.0, 3.0])
         X0 = np.arange(N * M, dtype=np.float64).reshape(1, N, M)
         a = tadmm.init_admm_state(B, N, M, K, L, torch.float64, sX=sX, sT=2.0,
-                                  X0=X0, rho=0.03)
+                                  X0=X0, rho=0.03, device="cpu")
         b = jadmm.init_admm_state(B, N, M, K, L, jnp.float64, sX=sX, sT=2.0,
                                   X0=X0, rho=0.03)
     for x, y in zip(convert.admm_state_to_numpy(a), b):

@@ -75,11 +75,6 @@ def test_config_invalid_values_raise_like_omc(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(use_disjunctive_cuts=False),
-    dict(disjunctive_cuts_type="linear2"),
-    dict(disjunctive_cuts_type="linear3"),
-    dict(disjunctive_cuts_breakpoints="smallest_2_eigvec"),
-    dict(node_selection="depthfirst"),
-    dict(node_selection="bestfirst_depthfirst"),
     dict(mesh_shape=(2,)),
     dict(distributed=True),
     dict(checkpoint_path="ckpt.pkl"),
@@ -97,6 +92,11 @@ def test_unported_options_raise_not_implemented(kw):
     dict(add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
          add_Shor_valid_inequalities_fraction=0.5, node_selection="breadthfirst"),
     dict(node_selection="breadthfirst"),
+    dict(disjunctive_cuts_type="linear2"),
+    dict(disjunctive_cuts_type="linear3"),
+    dict(disjunctive_cuts_breakpoints="smallest_2_eigvec"),
+    dict(node_selection="depthfirst"),
+    dict(node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=50),
 ])
 def test_ported_options_configure_like_omc(kw):
     full = {**_MAIN, **kw}
@@ -104,13 +104,81 @@ def test_ported_options_configure_like_omc(kw):
             == jconfig.SolverConfig(**full).run_details_params())
 
 
-def test_shor_with_k_above_one_raises_naming_item_11():
-    A, idx = tdata.generate_matrix_completion_data(2, 6, 6, 24, 0)
+def test_shor_with_k_above_one_runs_like_omc():
+    """k = 2 with static Shor minors, one root visit: the same run details
+    and the same certified root bound as omc (float64, eigh)."""
+    from omc.solve import matrix_completion_branchandbound as omc_bnb
     from omc_torch.solve import matrix_completion_branchandbound
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 11"):
-        matrix_completion_branchandbound(2, A, idx, 10.0, device="cpu", **_MAIN,
-                                         add_Shor_valid_inequalities=True)
+    A, idx = tdata.generate_matrix_completion_data(2, 6, 6, 24, 0)
+    kw = dict(_MAIN, add_Shor_valid_inequalities=True,
+              Shor_valid_inequalities_noisy_rank1_num_entries_present=[4, 3],
+              root_only=True, batch_size=4, sdp_iters=400, sdp_iter_boost_max=1,
+              dtype="float64", verbosity=0)
+    sol, _, inst = matrix_completion_branchandbound(2, A, idx, 10.0, device="cpu", **kw)
+    sol_j, _, inst_j = omc_bnb(2, A, idx, 10.0, **kw)
+    rd, rd_j = inst["run_details"], inst_j["run_details"]
+    for key in tconfig.SolverConfig(**kw).run_details_params():
+        assert rd[key] == rd_j[key], key
+    assert rd["shor_minors_max"] > 0
+    lb, lb_j = inst["run_log"][-1]["lower"], inst_j["run_log"][-1]["lower"]
+    assert abs(lb - lb_j) <= 1e-6 * (1.0 + abs(lb_j)), (lb, lb_j)
+    assert sol["objective"] == sol_j["objective"]
+
+
+def test_rank2_config3_options_end_to_end_like_omc():
+    """BASELINE config 3's driver options (linear3 cuts, smallest_2_eigvec,
+    best-first/depth-first) at rank 2 on an 8x8 instance: the incumbents
+    agree within the two runs' gaps, lower bounds are monotone, rank <= 2,
+    and a split makes 4^k = 16 children."""
+    from omc.solve import matrix_completion_branchandbound as omc_bnb
+    from omc_torch.solve import matrix_completion_branchandbound
+
+    A, idx = tdata.generate_matrix_completion_data(2, 8, 8, 40, 1)
+    kw = dict(node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10,
+              disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
+              gap=1e-2, batch_size=8, sdp_iters=600, dtype="float64", time_limit=15,
+              verbosity=0)
+    sol, _, inst = matrix_completion_branchandbound(2, A, idx, 20.0, device="cpu", **kw)
+    sol_j, _, inst_j = omc_bnb(2, A, idx, 20.0, **kw)
+    gap, gap_j = inst["run_log"][-1]["gap"], inst_j["run_log"][-1]["gap"]
+    obj, obj_j = sol["objective"], sol_j["objective"]
+    assert abs(obj - obj_j) <= (gap + gap_j) * max(1.0, abs(obj_j)), (obj, obj_j, gap, gap_j)
+    lowers = [r["lower"] for r in inst["run_log"] if np.isfinite(r["lower"])]
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:]))
+    assert lowers[-1] <= obj_j * (1.0 + 1e-9)
+    assert np.linalg.matrix_rank(sol["X"], tol=1e-6) <= 2
+    rd = inst["run_details"]
+    assert (rd["nodes_total"] - 1) % tcuts.N_PIECES["linear3"] ** 2 == 0, rd["nodes_total"]
+    assert tcuts.N_PIECES["linear3"] == 4
+    assert rd["disjunctive_cuts_type"] == "linear3"
+
+
+def _device_helpers():
+    from omc_torch import convert
+    from omc_torch.sdp import admm, admm_shor, shor_k
+
+    return {
+        "init_admm_state": lambda **kw: admm.init_admm_state(1, 3, 3, 1, 8, **kw),
+        "init_shor_state": lambda **kw: admm_shor.init_shor_state(1, 3, 3, 1, 8, 4, 9, **kw),
+        "init_shor_k_state": lambda **kw: shor_k.init_shor_k_state(1, 3, 3, 2, 8, 4, 9, **kw),
+        "shor_batch_to_device": lambda **kw: admm_shor.shor_batch_to_device(
+            None, torch.float32, **kw),
+        "shor_k_batch_to_device": lambda **kw: shor_k.shor_k_batch_to_device(
+            None, torch.float32, **kw),
+        **{name: (lambda name: lambda **kw: getattr(convert, name)([], **kw))(name)
+           for name in ("node_batch_from_numpy", "admm_state_from_numpy",
+                        "shor_batch_from_numpy", "shor_state_from_numpy",
+                        "shor_k_batch_from_numpy", "shor_k_state_from_numpy")},
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_device_helpers()))
+def test_helpers_that_allocate_require_a_device(name):
+    """No public helper of the port chooses the CPU by itself: called
+    without ``device`` it raises TypeError before doing anything."""
+    with pytest.raises(TypeError, match="device"):
+        _device_helpers()[name]()
 
 
 def test_breadthfirst_end_to_end_like_omc():
@@ -263,7 +331,7 @@ def test_driver_helpers_match_omc():
     bj = jsolve._pack_batch(nodes_j, 4, 8, 10, 1, "linear", np.float32)
     for a, b in zip(convert.node_batch_to_numpy(bt), bj):
         assert np.array_equal(a, np.asarray(b))
-    tb = convert.node_batch_from_numpy(convert.node_batch_to_numpy(bt), dtype=torch.float32)
+    tb = convert.node_batch_from_numpy(convert.node_batch_to_numpy(bt), dtype=torch.float32, device="cpu")
     assert all(np.array_equal(x.numpy(), y) for x, y in zip(tb.fields(), bt.fields()))
     for a, b in zip(tsolve._cut_interval_arrays(nodes_t[0].cuts, "linear", 10, 1),
                     jsolve._cut_interval_arrays(nodes_j[0].cuts, "linear", 10, 1)):

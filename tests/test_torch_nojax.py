@@ -16,7 +16,8 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import omc_torch
-import omc_torch.solve  # the driver with the Shor path, and what it imports
+import omc_torch.solve  # the driver with the Shor paths, and what it imports
+import omc_torch.sdp.shor_k
 from omc_torch.sdp.admm import init_admm_state, make_admm_solver
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.tree import root_box
@@ -28,7 +29,7 @@ t = lambda x: torch.as_tensor(np.ascontiguousarray(x))
 batch = NodeBatch(t(np.zeros((B, L, n))), t(np.zeros((B, L, k))), t(np.zeros((B, L, k))),
                   t(np.zeros((B, L))), t(np.broadcast_to(lo, (B, n, k))),
                   t(np.broadcast_to(hi, (B, n, k))))
-st = init_admm_state(B, n, m, k, L, torch.float64, rho=0.05)
+st = init_admm_state(B, n, m, k, L, torch.float64, device="cpu", rho=0.05)
 solve = make_admm_solver(n, m, k, L, 10.0, iters=1, dtype=torch.float64, check_every=1)
 fin, out = solve(t(A), t(mask), batch, 10.0, st)
 assert np.all(np.isfinite(out["lb_est"].numpy())), out["lb_est"]

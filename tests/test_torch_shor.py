@@ -111,7 +111,7 @@ def test_pack_shor_batch_fields_and_inverse_tables():
             assert np.allclose(via, dense, rtol=0, atol=1e-12)
         assert a.v3_ptr[b_][-1] == len(minors[b_])
     # omc's 14 leaves through convert rebuild the same inverse tables
-    sb = convert.shor_batch_from_numpy(list(b))
+    sb = convert.shor_batch_from_numpy(list(b), device="cpu")
     for f in tenc.INVERSE_FIELDS:
         assert np.array_equal(getattr(sb, f).numpy(), getattr(a, f)), f
 
@@ -189,7 +189,7 @@ def _jax_state(leaves, like):
 def test_forward_adjoint_shor_parity_and_adjoint_identity():
     A, mask, bl, sbj, leaves, _ = _setup()
     sbd = jshor.shor_batch_to_device(sbj, jnp.float64)
-    sbt = convert.shor_batch_from_numpy(list(sbj))
+    sbt = convert.shor_batch_from_numpy(list(sbj), device="cpu")
     rng = np.random.default_rng(3)
     Xs, Ws = rng.standard_normal((2, B, N, M))
     vs = [rng.standard_normal(np.shape(c)) for c in (sbj.cnt_v1, sbj.cnt_v2, sbj.cnt_v3)]
@@ -232,11 +232,11 @@ def _run_both(dtype, iters, psd_method):
     sj = jshor.make_shor_solver(N, M, L, M5, N * M, GAMMA, dtype=jdt, **kw)
     fj, oj = sj(jnp.asarray(A), jnp.asarray(mask), jrelax.NodeBatch(*map(jnp.asarray, bl)),
                 jshor.shor_batch_to_device(sbj, jdt), ub, _jax_state(leaves, like))
-    st_t = convert.shor_state_from_numpy(leaves, dtype=tdt)
+    st_t = convert.shor_state_from_numpy(leaves, dtype=tdt, device="cpu")
     st = tshor.make_shor_solver(N, M, L, M5, N * M, GAMMA, dtype=tdt, **kw)
     ft, ot = st(torch.as_tensor(A), torch.as_tensor(mask),
-                convert.node_batch_from_numpy(bl, dtype=tdt),
-                convert.shor_batch_from_numpy(list(sbj), dtype=tdt), ub, st_t)
+                convert.node_batch_from_numpy(bl, dtype=tdt, device="cpu"),
+                convert.shor_batch_from_numpy(list(sbj), dtype=tdt, device="cpu"), ub, st_t)
     return fj, oj, ft, ot, st_t, leaves
 
 
@@ -277,15 +277,15 @@ def test_safe_dual_bounds_parity():
     ub = 0.5 * float(np.sum(mask * A * A))
     jb = jrelax.NodeBatch(*bl)
     a = tshor.safe_dual_bound_shor(
-        torch.as_tensor(A), torch.as_tensor(mask), convert.node_batch_from_numpy(bl),
-        convert.shor_batch_from_numpy(list(sbj)), *map(torch.as_tensor, duals), GAMMA, ub,
+        torch.as_tensor(A), torch.as_tensor(mask), convert.node_batch_from_numpy(bl, device="cpu"),
+        convert.shor_batch_from_numpy(list(sbj), device="cpu"), *map(torch.as_tensor, duals), GAMMA, ub,
         margin_rel=1e-10, sX=torch.as_tensor(sX), sS=torch.as_tensor(sS)).numpy()
     b = jshor.safe_dual_bound_shor(np, A, mask, jb, sbj, *duals, GAMMA, ub,
                                    margin_rel=1e-10, sX=sX, sS=sS)
     assert np.all(np.abs(a - b) <= 1e-10 * np.maximum(1.0, np.abs(b))), (a, b)
     a2 = tshor.safe_dual_bound_shor2(
-        torch.as_tensor(A), torch.as_tensor(mask), convert.node_batch_from_numpy(bl),
-        convert.shor_batch_from_numpy(list(sbj)), *map(torch.as_tensor, duals), GAMMA, ub,
+        torch.as_tensor(A), torch.as_tensor(mask), convert.node_batch_from_numpy(bl, device="cpu"),
+        convert.shor_batch_from_numpy(list(sbj), device="cpu"), *map(torch.as_tensor, duals), GAMMA, ub,
         sX=torch.as_tensor(sX), sS=torch.as_tensor(sS))
     b2 = jshor.safe_dual_bound_shor2(jnp, jnp.asarray(A), jnp.asarray(mask),
                                      jrelax.NodeBatch(*map(jnp.asarray, bl)),
@@ -309,10 +309,10 @@ def test_kernel_wrappers_cpu_path_is_plain():
     A, mask, bl, sbj, leaves, _ = _setup(np.float32)
     from omc_torch.sdp.admm import make_consts
 
-    st = convert.shor_state_from_numpy(leaves, dtype=torch.float32)
-    sb = convert.shor_batch_from_numpy(list(sbj), dtype=torch.float32)
+    st = convert.shor_state_from_numpy(leaves, dtype=torch.float32, device="cpu")
+    sb = convert.shor_batch_from_numpy(list(sbj), dtype=torch.float32, device="cpu")
     c = make_consts(torch.as_tensor(A), torch.as_tensor(mask),
-                    convert.node_batch_from_numpy(bl, dtype=torch.float32), st.core,
+                    convert.node_batch_from_numpy(bl, dtype=torch.float32, device="cpu"), st.core,
                     N, M, K, GAMMA, 1.6, 0.01, torch.float32)
     sc = tshor.make_shor_consts(c, sb, st.core, 30.0)
     ref = tshor.shor_zstep_plain(c, sc, st)
@@ -337,7 +337,7 @@ def test_warm_slices_across_minor_buckets():
     _, _, _, _, leaves, like = _setup()
     big = jshor.init_shor_state(B, N, M, K, L, 64, N * M, jnp.float64)
     tpl = [np.asarray(x, np.float32).copy() for x in jax.tree.leaves(big)]
-    st_t = convert.shor_state_from_numpy(leaves)
+    st_t = convert.shor_state_from_numpy(leaves, device="cpu")
     host_t = trelax.state_to_host(st_t)
     host_j = jrelax.state_to_host(_jax_state(leaves, like))
     slices_t = [trelax.host_state_slice(host_t, 1), None]
