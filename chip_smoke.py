@@ -8,10 +8,10 @@ Phases, in order (each prints its numbers on lines of its own):
 1. device    — nvidia-smi name and power limit, torch/CUDA versions, TF32 off
 2. build     — nvcc build of omc_torch/csrc into build/omc_torch, one nvcc
                per source in parallel (timed)
-3. kernels   — K1, K2, K3, K7, K8a, K8b, K7t, K7x, K8c, K8d against their
-               plain PyTorch versions on the card, at the main paths'
-               shapes, with median CUDA-event times and each kernel's bound
-               (the least time the card could take for the same work)
+3. kernels   — K1, K2, K3, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a, K9b
+               against their plain PyTorch versions on the card, at the main
+               paths' shapes, with median CUDA-event times and each kernel's
+               bound (the least time the card could take for the same work)
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound
 5. fixtures  — the four certified instances of tests/fixtures/instances.json
@@ -23,14 +23,18 @@ Phases, in order (each prints its numbers on lines of its own):
 10. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
                60 s, with soundness checks
 11. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 120 s
+               smallest_2_eigvec, best-first/depth-first, batch 64), 75 s
 12. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
-               call (iterative Shor, batch 32), 120 s
+               call (iterative Shor, batch 32), 75 s
+13. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
+               entry point on the headline's root and a rank-2 root visit on
+               config 3's instance, each held to omc's bound, then the full
+               McCormick B&B on the headline instance, 45 s
 
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
-torch.profiler trace of the Shor loop at config 2's shape and of the
-rank-k Shor loop at config 3's.
+torch.profiler trace of the Shor loop at config 2's shape, of the rank-k
+Shor loop at config 3's and of the McCormick loop at the headline's.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -54,7 +58,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
-          "multinode", "branch", "shor", "config2", "config3", "shork")
+          "multinode", "branch", "shor", "config2", "config3", "shork", "mccormick")
 EXTRA_PHASES = ("trace",)  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -124,6 +128,22 @@ def rel_fro(a, b):
     a = a.double()
     b = b.double()
     return float(torch.linalg.norm(a - b) / torch.clamp(torch.linalg.norm(b), min=1e-30))
+
+
+def _errs(got, ref):
+    """The largest relative Frobenius error and the largest absolute error
+    over pairs of outputs; an all-zero reference (a masked or equality slot)
+    must come out exactly zero."""
+    rel = max(rel_fro(a, b) if float(b.abs().max()) > 0
+              else (0.0 if float(a.abs().max()) == 0 else float("inf"))
+              for a, b in zip(got, ref))
+    return rel, max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+
+def _same_bits(xs, ys):
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(xs, ys))
 
 
 def phase_device(res):
@@ -365,6 +385,20 @@ def phase_kernels(res):
         checks.append((name, r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
                        and r["rel_err"] <= 2e-4))
     out.update({name: [row] for name, row in rows.items()})
+
+    # ---- K9s, K9a, K9b at the headline's shape and at config 3's ----
+    for name in ("K9s", "K9a", "K9b"):
+        out[name] = []
+    for B, n, k in ((64, 50, 1), (64, 75, 2)):
+        rows = _check_mc_kernels(B, n, n, k, gen, dev)
+        for name, row in rows.items():
+            log(name, json.dumps(row))
+            # float32 sums in another order than the plain version's, so
+            # 1e-5 relative as K8c/K8d; two launches give the same bits;
+            # K9s's factors reproduce the row Grams
+            checks.append((name, row, row["rel_err"] <= 1e-5 and row["deterministic"]
+                           and row.get("gram_rel_err", 0.0) <= 1e-5))
+            out[name].append(row)
     res["kernels"] = out
     failed = [(name, row) for name, row, ok in checks if not ok]
     assert not failed, failed
@@ -417,16 +451,12 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
 
     c, sc, st = _shor_inputs(B, n, m, L, M5, gen, dev)
 
-    def errs(got, ref):
-        rel = max(rel_fro(a, b) for a, b in zip(got, ref))
-        return rel, max(float((a - b).abs().max()) for a, b in zip(got, ref))
-
     out = {}
     sk = st.clone()
     S.shor_zstep(c, sc, sk)
     torch.cuda.synchronize()
     ref = S.shor_zstep_plain(c, sc, st)
-    rel, ab = errs((sk.core.X, sk.core.Th, sk.W, sk.v1, sk.v2, sk.v3), ref)
+    rel, ab = _errs((sk.core.X, sk.core.Th, sk.W, sk.v1, sk.v2, sk.v3), ref)
     s2 = st.clone()
     out["K8a"] = dict(B=B, n=n, m=m, M5=M5, rel_err=rel, max_abs_err=ab,
                       ms=cuda_time_ms(lambda: S.shor_zstep(c, sc, s2)),
@@ -449,7 +479,7 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
     torch.cuda.synchronize()
     w5p, u5p, a5p = S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)
     w5e, _, _ = S.minor_step_plain(c, sc, sk, acc5, lambda t: project_psd(t.double()).float())
-    rel, ab = errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
+    rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
     s8 = sk.clone()
     a8 = acc5.clone()
     out["K7fused"] = dict(B=B, M5=M5, rel_err=rel, max_abs_err=ab,
@@ -470,7 +500,7 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
     S.shor_cone_step(c, sc, sb_, ar, al)
     torch.cuda.synchronize()
     ref = S.shor_cone_step_plain(c, sc, sk, acc_r, acc_l)
-    rel, ab = errs((sb_.wr, sb_.ur, sb_.wl, sb_.ul, sb_.wp, sb_.up, ar, al), ref)
+    rel, ab = _errs((sb_.wr, sb_.ur, sb_.wl, sb_.ul, sb_.wp, sb_.up, ar, al), ref)
     s9 = sk.clone()
     ar9, al9 = acc_r.clone(), acc_l.clone()
     out["K8b"] = dict(B=B, n=n, m=m, rel_err=rel, max_abs_err=ab,
@@ -542,13 +572,6 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     Ca = float(sb.coord_mask.sum())   # active coordinates
     Sa = float(sb.soc_mask.sum())     # active RSOC rows
 
-    def errs(got, ref):
-        rel = max(rel_fro(a, b) for a, b in zip(got, ref))
-        return rel, max(float((a - b).abs().max()) for a, b in zip(got, ref))
-
-    def same_bits(xs, ys):
-        return all(torch.equal(a, b) for a, b in zip(xs, ys))
-
     out = {}
     zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
     sk = st.clone()
@@ -557,10 +580,10 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     SK.shor_k_zstep(c, sc, s2)
     torch.cuda.synchronize()
     ref = SK.shor_k_zstep_plain(c, sc, st)
-    rel, ab = errs(zs(sk), ref)
+    rel, ab = _errs(zs(sk), ref)
     s3 = st.clone()
     out["K8c"] = dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
-                      deterministic=same_bits(zs(sk), zs(s2)),
+                      deterministic=_same_bits(zs(sk), zs(s2)),
                       ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
                       plain_ms=cuda_time_ms(lambda: SK.shor_k_zstep_plain(c, sc, st)))
     # per slot: X and Theta blocks of w1/u1, Xt_prev, W >= 0, Wt >= 0, the
@@ -584,7 +607,7 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     exact = lambda t: project_psd(t.double()).float()  # noqa: E731
     w5p, u5p, a5p = SK.minor_k_step_plain(c, sc, sk, acc5, project_psd_ns_small)
     w5e, _, _ = SK.minor_k_step_plain(c, sc, sk, acc5, exact)
-    rel, ab = errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
+    rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
     s8, a8 = sk.clone(), acc5.clone()
     out["K7t"] = dict(B=B, M5=M5, k=k, rel_err=rel, max_abs_err=ab,
                       plain_vs_eigh=rel_fro(w5p, w5e), kernel_vs_eigh=rel_fro(s7.w5, w5e),
@@ -604,7 +627,7 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     torch.cuda.synchronize()
     wxp, uxp, axp = SK.xwh_step_plain(c, sc, sk, accx, project_psd_ns_small)
     wxe, _, _ = SK.xwh_step_plain(c, sc, sk, accx, exact)
-    rel, ab = errs((sx_.wx, sx_.ux, ax), (wxp, uxp, axp))
+    rel, ab = _errs((sx_.wx, sx_.ux, ax), (wxp, uxp, axp))
     s9, a9 = sk.clone(), accx.clone()
     out["K7xfused"] = dict(B=B, C=C, k=k, rel_err=rel, max_abs_err=ab,
                            plain_vs_eigh=rel_fro(wxp, wxe), kernel_vs_eigh=rel_fro(sx_.wx, wxe),
@@ -627,11 +650,11 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     SK.shor_k_cone_step(c, sc, sd2, *ad2)
     torch.cuda.synchronize()
     ref = SK.shor_k_cone_step_plain(c, sc, sk, *accs)
-    rel, ab = errs(kd(sd) + tuple(ad), ref)
+    rel, ab = _errs(kd(sd) + tuple(ad), ref)
     s10 = sk.clone()
     a10 = [a.clone() for a in accs]
     out["K8d"] = dict(B=B, n=n, m=m, k=k, C=C, Ms=Ms, rel_err=rel, max_abs_err=ab,
-                      deterministic=same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
+                      deterministic=_same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
                       ms=cuda_time_ms(lambda: SK.shor_k_cone_step(c, sc, s10, *a10)),
                       plain_ms=cuda_time_ms(lambda: SK.shor_k_cone_step_plain(
                           c, sc, sk, *accs)))
@@ -706,9 +729,7 @@ def _check_k2_k3(c, st, acc, ts):
     zstep(c, s_k)
     torch.cuda.synchronize()
     ref = zstep_plain(c, st)
-    got = (s_k.X, s_k.Y, s_k.Th, s_k.U)
-    e2 = max(rel_fro(a, b) for a, b in zip(got, ref))
-    a2 = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    e2, a2 = _errs((s_k.X, s_k.Y, s_k.Th, s_k.U), ref)
     s_t = st.clone()
     ms2 = cuda_time_ms(lambda: zstep(c, s_t))
     ms2p = cuda_time_ms(lambda: zstep_plain(c, st))
@@ -735,14 +756,7 @@ def _check_k2_k3(c, st, acc, ts):
     pairs = list(zip(ts_k, (t1, t2, t3)))
     pairs += [(getattr(s3, nm), v) for nm, v in zip(_REST, rest)]
     pairs += list(zip(acc_k, acc_p))
-    # relative Frobenius error per output; an all-zero reference (masked
-    # cut slots) must come out exactly zero
-    e3 = max(
-        rel_fro(a, b) if float(b.abs().max()) > 0
-        else (0.0 if float(a.abs().max()) == 0 else float("inf"))
-        for a, b in pairs
-    )
-    a3 = max(float((a - b).abs().max()) for a, b in pairs)
+    e3, a3 = _errs(*zip(*pairs))
     s4 = s_k.clone()
     acc4 = [a.clone() for a in acc]
     ms3 = cuda_time_ms(lambda: cone_step(c, s4, ts_k, acc4))
@@ -760,6 +774,131 @@ def _check_k2_k3(c, st, acc, ts):
     with_bound(r3, 4 * B * (rd + wr),
                B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)))
     return r2, r3
+
+
+def _mc_inputs(B, n, m, k, gen, dev):
+    """Random McCormick ADMM state and node boxes at a main-path shape
+    (float32 on the card): boxes inside [-1, 1] of widths 0.05 to 1, slot
+    values and duals of unit scale, penalties around omc's 10."""
+    import numpy as np
+    import torch
+
+    from omc_torch.sdp.mccormick import MCBatch, init_mc_state, make_mc_consts
+
+    rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
+    A = rng.standard_normal((n, m))
+    mask = (rng.random((n, m)) < 0.5).astype(np.float64)
+    lo = rng.uniform(-1.0, 0.5, (B, n, k))
+    hi = np.minimum(lo + rng.uniform(0.05, 1.0, (B, n, k)), 1.0)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    batch = MCBatch(f(lo), f(hi))
+    st = init_mc_state(B, n, m, k, torch.float32, device=dev, sX=2.5, sT=1.7, rho=10.0)
+    for name in ("w1", "w2", "w3", "w4", "wsoc", "wbox", "wmc", "worth", "u1", "u2", "u3",
+                 "u4", "usoc", "ubox", "umc", "uorth", "X", "Y", "Th", "U", "t"):
+        t = getattr(st, name)
+        v = f(rng.standard_normal(tuple(t.shape)) * 0.3)
+        if v.ndim == 3 and v.shape[-1] == v.shape[-2]:
+            v = 0.5 * (v + v.transpose(-1, -2))
+        t.copy_(v)
+    st.rho.copy_(f(rng.uniform(5.0, 15.0, B)))
+    c = make_mc_consts(f(A), f(mask), batch, st, n, m, k, 80.0, 1.6, torch.float32)
+    return c, st
+
+
+def _check_mc_kernels(B, n, m, k, gen, dev):
+    """K9s, K9a and K9b against their plain versions on the same inputs
+    (K9b at K9a's outputs), with times, bounds, a determinism check of each
+    and, for K9s, Mc Mc' against the row Grams."""
+    import torch
+
+    from omc_torch.sdp import mccormick as MC
+
+    c, st = _mc_inputs(B, n, m, k, gen, dev)
+    q = k * (k + 1) // 2
+    kq = k + q
+    d1, d2 = n + m, n + k
+
+    out = {}
+    # ---- K9s ----
+    got = MC.mc_setup(c.batch, k)
+    got2 = MC.mc_setup(c.batch, k)
+    torch.cuda.synchronize()
+    ref = MC.mc_setup_plain(c.batch, k)
+    gram = MC.mc_gram_plain(c.batch, k)
+    rel, ab = _errs(got, ref)
+    Et = torch.zeros((kq, q), dtype=torch.float32, device=dev)
+    Et[k:] = torch.eye(q, dtype=torch.float32, device=dev)
+    Etb = Et.expand(B, n, kq, q).contiguous()
+    out["K9s"] = dict(B=B, n=n, k=k, rel_err=rel, max_abs_err=ab,
+                      gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
+                      deterministic=_same_bits(got, got2),
+                      ms=cuda_time_ms(lambda: MC.mc_setup(c.batch, k)),
+                      plain_ms=cuda_time_ms(lambda: MC.mc_setup_plain(c.batch, k)),
+                      # the library chain on the same Grams: cuSOLVER's
+                      # batched Cholesky, then the triangular solves for S_i
+                      library_ms=cuda_time_ms(
+                          lambda: torch.cholesky_solve(Etb, torch.linalg.cholesky(gram))))
+    # boxes in; Mc, Si, Gc out.  Per row: the Gram (4q rank-1 updates of
+    # (k+q)^2), its Cholesky, q solves; per slot G's sum and Cholesky
+    with_bound(out["K9s"], 4 * (B * n * (2 * k + kq * kq + kq * q) + B * q * q),
+               B * n * (8 * q * kq * kq + kq ** 3 // 3 + 2 * q * kq * kq) + B * (n * q * q + q ** 3))
+
+    # ---- K9a ----
+    zs = lambda x: (x.X, x.Y, x.Th, x.U, x.t)  # noqa: E731
+    sk = st.clone()
+    MC.mc_zstep(c, sk)
+    s2 = st.clone()
+    MC.mc_zstep(c, s2)
+    torch.cuda.synchronize()
+    rel, ab = _errs(zs(sk), MC.mc_zstep_plain(c, st))
+    s3 = st.clone()
+    out["K9a"] = dict(B=B, n=n, m=m, k=k, rel_err=rel, max_abs_err=ab,
+                      deterministic=_same_bits(zs(sk), zs(s2)),
+                      ms=cuda_time_ms(lambda: MC.mc_zstep(c, s3)),
+                      plain_ms=cuda_time_ms(lambda: MC.mc_zstep_plain(c, st)),
+                      library_ms=None)
+    # per slot: the X, Theta, Y blocks of w1/u1, the Y and U blocks of
+    # w2/u2, w3/u3, the trace, SOC, box, envelope and orthogonality slots,
+    # the boxes, Mc, Si, Gc; out X, Y, Theta, U, t; mask and mask*A once
+    rd = (2 * (n * m + m * m + n * n) + 2 * (n * n + n * k) + 2 * n * n + 2 + 2 * k * n
+          + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + n * (kq * kq + kq * q) + q * q + 3)
+    wr = n * m + n * n + m * m + n * k + n * q
+    with_bound(out["K9a"], 4 * (B * (rd + wr) + 2 * n * m),
+               B * (10 * (n * m + m * m + n * n) + n * (40 * q + 4 * kq * kq + 2 * kq * q)))
+
+    # ---- K9b at K9a's outputs, with the running means ----
+    acc = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (st.umc, st.uorth)]
+    beta = 0.25
+
+    def run_k9b():
+        sb_ = sk.clone()
+        a_ = [a.clone() for a in acc]
+        ts_ = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
+        MC.mc_cone_step(c, sb_, ts_, a_, beta)
+        return ts_ + tuple(getattr(sb_, name) for name in MC._REST) + tuple(a_)
+
+    got = run_k9b()
+    got2 = run_k9b()
+    torch.cuda.synchronize()
+    t1, t2, t3, rest, acc_p = MC.mc_cone_step_plain(c, sk, acc, beta)
+    rel, ab = _errs(got, (t1, t2, t3) + tuple(rest) + tuple(acc_p))
+    s4 = sk.clone()
+    a4 = [a.clone() for a in acc]
+    ts4 = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
+    out["K9b"] = dict(B=B, n=n, m=m, k=k, rel_err=rel, max_abs_err=ab,
+                      deterministic=_same_bits(got, got2),
+                      ms=cuda_time_ms(lambda: MC.mc_cone_step(c, s4, ts4, a4, beta)),
+                      plain_ms=cuda_time_ms(lambda: MC.mc_cone_step_plain(c, sk, acc, beta)),
+                      library_ms=None)
+    # per slot: X, Y, Theta, U, t and the w/u of every slot in, the boxes and
+    # both running means (read and written); t1-t3 and the non-PSD slots out
+    rd = (n * m + n * n + m * m + n * k + n * q + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
+          + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + 4 * n * q + q + 3)
+    wr = (d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q
+          + 4 * n * q + q)
+    with_bound(out["K9b"], 4 * B * (rd + wr),
+               B * (5 * (d1 * d1 + d2 * d2 + n * n) + 20 * n * q + 10 * n * k))
+    return out
 
 
 def _bench_instance(frac, seed=0, n=50):
@@ -1014,10 +1153,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=75, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget
+    # of K1's d=150 chain) does not fit the budget, and the budget is 75 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -1072,7 +1211,7 @@ def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
 
 def phase_config3(res):
     """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
-    smallest_2_eigvec, best-first/depth-first, batch 64), 120 s: the base
+    smallest_2_eigvec, best-first/depth-first, batch 64), 75 s: the base
     path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
     from omc_torch import kernels
 
@@ -1087,7 +1226,7 @@ def phase_config3(res):
 def phase_shork(res):
     """The rank-k Shor path on config 3's instance: (i) one root visit of
     2,000 iterations, held to omc's bound for the same call; (ii) the full
-    call (iterative Shor, batch 32), 120 s, through K1, K2, K3, K7t, K7x,
+    call (iterative Shor, batch 32), 75 s, through K1, K2, K3, K7t, K7x,
     K8c and K8d."""
     from omc_torch import kernels
 
@@ -1110,6 +1249,86 @@ def phase_shork(res):
     res["shork_root"] = root
     res["shork"] = row
     res["shork_launches"] = launches
+
+
+# the McCormick path (use_disjunctive_cuts=False): the headline's settings
+# with one visit's budget not boosted 8x (a cut of depth, so that the root
+# splits inside the budget)
+MC_KW = dict(BENCH_KW, use_disjunctive_cuts=False, disjunctive_cuts_type=None,
+             disjunctive_cuts_breakpoints=None, time_limit=45, sdp_iter_boost_max=1)
+# config 3's instance and batch on the McCormick path, one root visit
+MC3_KW = dict(node_selection="bestfirst", use_disjunctive_cuts=False, gap=1e-2,
+              time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
+              altmin_root_n_iters=3, verbosity=0, sdp_iter_boost_max=1, root_only=True)
+# omc's certified McCormick bounds for the same calls, float32 on a CPU:
+# omc.api.matrix_completion_SDP_relaxation on the headline instance's root
+# node (2,000 iterations), and omc.solve.matrix_completion_branchandbound
+# with MC3_KW on config 3's instance (one 2,000-iteration call)
+MC_API_OMC = -52.35261076808982
+MC3_ROOT_OMC = -229.971577418594
+
+
+def phase_mccormick(res):
+    """The McCormick path (K9s/K9a/K9b with K1): (i) the standalone
+    relaxation entry point on the headline's root node, held to omc's bound;
+    (ii) a rank-2 root visit of the driver on config 3's instance, held to
+    omc's bound; (iii) the full McCormick B&B on the headline instance,
+    45 s."""
+    import numpy as np
+
+    from omc_torch import kernels
+    from omc_torch.api import matrix_completion_SDP_relaxation
+    from omc_torch.tree import BBNode, root_box
+
+    A, idx = _bench_instance(0.5)
+    lo, hi = root_box(50, 1)
+    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0,
+                  cuts=None)
+    t0 = time.time()
+    r = matrix_completion_SDP_relaxation(node, 50, 1, A, idx, 80.0, use_disjunctive_cuts=False,
+                                         iters=2000, dtype="float32", device="cuda")
+    api = dict(seconds=time.time() - t0, lower=r["lower_bound"], objective=r["objective"],
+               omc_lower=MC_API_OMC,
+               rel_diff=abs(r["lower_bound"] - MC_API_OMC) / (1.0 + abs(MC_API_OMC)))
+    log("mccormick api", json.dumps(api))
+    # float32 sign-schedule runs drift apart over iterations, so 1e-3 (1 + |b|)
+    assert api["rel_diff"] <= 1e-3, api
+    assert api["lower"] <= HEADLINE_OBJ, api
+
+    A3, idx3 = _config3_instance()
+    sol, inst, secs = _solve(A3, idx3, 80.0, k=2, **MC3_KW)
+    lb = float(inst["run_log"][-1]["lower"])
+    root = dict(seconds=secs, lower=lb, omc_lower=MC3_ROOT_OMC,
+                rel_diff=abs(lb - MC3_ROOT_OMC) / (1.0 + abs(MC3_ROOT_OMC)),
+                iters=int(inst["run_details"]["sdp_iters_total"]),
+                feasibility_s=inst["run_details"]["solve_time_relaxation_feasibility"])
+    log("mccormick root k=2", json.dumps(root))
+    assert root["rel_diff"] <= 1e-3, root
+    assert root["lower"] <= CONFIG3_OBJ, root
+
+    kernels.reset_launches()
+    sol, inst, secs = _solve(A, idx, 80.0, **MC_KW)
+    launches = dict(kernels.LAUNCHES)
+    rd = inst["run_details"]
+    lowers = [x["lower"] for x in inst["run_log"] if x["lower"] > -1e300]
+    row = _summary(sol, inst, secs)
+    row.update(launches=launches, lowers=lowers,
+               nodes_relax_infeasible=int(rd["nodes_relax_infeasible"]),
+               solve_time_relaxation_feasibility=rd["solve_time_relaxation_feasibility"],
+               ms_per_iter=1e3 * rd["solve_time_device"] / max(rd["sdp_iters_total"], 1))
+    log("mccormick", json.dumps(row))
+    assert abs(row["objective"] - HEADLINE_OBJ) <= 1e-6 * HEADLINE_OBJ, row
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert all(x <= HEADLINE_OBJ * (1 + 1e-4) for x in lowers), lowers
+    assert row["nodes_explored"] > 1, row
+    # one K9a and one K9b per iteration, one K9s per visit, K1 per iteration
+    iters, visits = row["sdp_iters_total"], row["device_steps"]
+    assert launches["K9a"] == launches["K9b"] == launches["K1"] == iters > 0, (launches, row)
+    assert launches["K9s"] == visits > 0, (launches, row)
+    res["mccormick_api"] = api
+    res["mccormick_root"] = root
+    res["mccormick"] = row
+    res["mccormick_launches"] = launches
 
 
 def _trace_loop(step, names, iters, **shape):
@@ -1145,7 +1364,8 @@ def phase_trace(res):
     """(Run on request only.)  torch.profiler traces of the Shor loop at
     config 2's shape (B=32, n=m=100, M5=1024, L=8) and of the rank-k Shor
     loop at config 3's (B=32, n=m=75, k=2, M5=1024, L=8), 20 iterations
-    each."""
+    each, and of the McCormick loop at the headline's shape (n=m=50, k=1;
+    B=1 and B=64), 50 iterations each."""
     import torch
 
     from omc_torch.sdp import admm_shor as S
@@ -1174,6 +1394,64 @@ def phase_trace(res):
                       B=32, n=75, m=75, k=2, M5=1024, L=8)
     log("trace shork", json.dumps(row))
     res["trace_shork"] = row
+    # the McCormick loop (K9a -> K9b -> K1) at the headline's shape, with
+    # the running means on, at B=1 (the root visit) and B=64
+    from omc_torch.sdp import mccormick as MC
+
+    names.update({"k9a_kernel": "K9a", "k9b_kernel": "K9b"})
+    for B in (1, 64):
+        c, st = _mc_inputs(B, 50, 50, 1, gen, dev)
+        acc = [torch.zeros_like(x) for x in (st.u1, st.u2, st.umc, st.uorth)]
+        ts = (torch.empty_like(st.w1), torch.empty_like(st.w2), torch.empty_like(st.w3))
+        row = _trace_loop(lambda: MC.mc_iteration(c, st, ts, acc, 0.25, "ns"), names, 50,
+                          B=B, n=50, m=50, k=1)
+        log("trace mccormick", json.dumps(row))
+        res[f"trace_mccormick_B{B}"] = row
+    res["unported"] = _time_unported_ops(gen, dev)
+
+
+def _time_unported_ops(gen, dev):
+    """The device ops of omc that have no kernel in the port yet, as the
+    port runs them (torch around library calls), at the headline's shapes,
+    with each one's bound: K4 the on-device safe bound (B=64, L=8), K5 the
+    separation eigh (64, 50, 50), K6 one altmin V-step + U-step at the root
+    altmin's batch (B=4).  An eigendecomposition is counted as 9 d^3 flops
+    with eigenvectors and 4 d^3 / 3 without."""
+    import torch
+
+    from omc_torch.ops.linalg import u_step_unconstrained, v_step
+    from omc_torch.sdp.relax import safe_dual_bound2
+
+    B, n, m, k, L = 64, 50, 50, 1, 8
+    c, st, _, _ = _admm_inputs(B, n, m, k, L, gen, dev)
+    y = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (st.u1, st.u2, st.ua, st.ub, st.uc)]
+    for i in (0, 1):
+        y[i] = 0.5 * (y[i] + y[i].transpose(-1, -2))
+    A = c.maskA
+    rows = {}
+    r = dict(B=B, n=n, m=m, k=k, L=L,
+             ms=cuda_time_ms(lambda: safe_dual_bound2(A, c.mask, c.batch, *y, 80.0, k, 20.0)))
+    d1, d2 = n + m, n + k
+    with_bound(r, 4 * (B * (d1 * d1 + d2 * d2 + 3 * L * k + L + L * n + 2 * L * k + L + 2 * n * k + 2)
+                       + 2 * n * m),
+               B * (11 * d1 ** 3 + 11 * d2 ** 3 + 4 * (m ** 3 + n ** 3 + m ** 3) // 3))
+    rows["K4"] = r
+    T = torch.randn((B, n, n), generator=gen).to(dev)
+    T = 0.5 * (T + T.transpose(-1, -2))
+    r = dict(B=B, n=n, ms=cuda_time_ms(lambda: torch.linalg.eigh(T)))
+    with_bound(r, 4 * B * (n * n + n + n * n), B * 9 * n ** 3)
+    rows["K5"] = r
+    Ba = 4
+    U = torch.randn((Ba, n, k), generator=gen).to(dev)
+    r = dict(B=Ba, n=n, m=m, k=k, ms=cuda_time_ms(
+        lambda: u_step_unconstrained(v_step(U, A, c.mask, 80.0), A, c.mask, 80.0)))
+    # A and the mask read once, U in, V and U out; per entry and slot the
+    # masked k x k Gram terms and right-hand sides of both steps
+    with_bound(r, 4 * (2 * n * m + Ba * (2 * n * k + k * m)), Ba * 2 * (2 * n * m * (k * k + k)))
+    rows["K6"] = r
+    for name, r in rows.items():
+        log(f"unported {name}", json.dumps(r))
+    return rows
 
 
 KERNELS = (
@@ -1204,6 +1482,15 @@ KERNELS = (
     ("K8d", ("K8d",), "shork_launches",
      "K8d rank-k Shor RSOC/link/W>=0/Wt>=0 cone step (B=32, n=m=75, k=2)",
      "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
+    ("K9s", ("K9s",), "mccormick_launches",
+     "K9s McCormick row Grams, Cholesky factors, orthogonality Woodbury (B=64, n=50, k=1)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:385"),
+    ("K9a", ("K9a",), "mccormick_launches",
+     "K9a McCormick adjoint + z-step (B=64, n=m=50, k=1)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:446"),
+    ("K9b", ("K9b",), "mccormick_launches",
+     "K9b McCormick forward map + cone step (B=64, n=m=50, k=1)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
 )
 
 

@@ -6,7 +6,8 @@ The eigen-decomposition of ``U U' - Y`` is computed on the device at the end
 of the batched relaxation solve (batched ``eigh`` replaces the reference's
 per-node ARPACK calls, lines 2466-2477); this module consumes those
 eigenpairs on the host to enumerate direction tuples and build children.
-The McCormick bisection children are not ported yet (ROADMAP queue 1).
+On the McCormick path ``create_mccormick_child_nodes`` bisects the widest U
+interval instead (reference lines 991-1029).
 """
 
 from __future__ import annotations
@@ -82,4 +83,24 @@ def create_matrix_cut_child_nodes(
             )
         )
     return children
+
+
+def create_mccormick_child_nodes(node: BBNode, counter: int,
+                                 objective_relax: float) -> List[BBNode]:
+    """Bisect the widest U box interval into two children (reference lines
+    991-1029); McCormick nodes carry no cuts."""
+    diff = node.U_upper - node.U_lower
+    ind = np.unravel_index(np.argmax(diff), diff.shape)
+    branch_val = node.U_lower[ind] + diff[ind] / 2.0
+    U_upper_left = node.U_upper.copy()
+    U_upper_left[ind] = branch_val
+    U_lower_right = node.U_lower.copy()
+    U_lower_right[ind] = branch_val
+    return [
+        BBNode(node_id=counter + 1 + c, parent_id=node.node_id, U_lower=lo, U_upper=hi,
+               LB=objective_relax, depth=node.depth + 1, cuts=None,
+               Shor_info=node.Shor_info)
+        for c, (lo, hi) in enumerate(((node.U_lower, U_upper_left),
+                                      (U_lower_right, node.U_upper)))
+    ]
 

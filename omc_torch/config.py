@@ -11,10 +11,11 @@ the PDHG step balance ``sdp_omega`` and the per-call duration caps
 
 The port runs the disjunctive-cut ADMM path (linear, linear2 or linear3
 cuts, smallest_1_eigvec or smallest_2_eigvec breakpoints), with or without
-the Shor valid inequalities (rank 1 and rank k > 1), under every node
-selection policy.  A valid setting that selects a path the port does not
-have yet raises ``NotImplementedError`` naming its ROADMAP item; it never
-runs some other path instead.
+the Shor valid inequalities (rank 1 and rank k > 1), and the McCormick path
+(``use_disjunctive_cuts=False``), under every node selection policy, with
+checkpoint/resume.  A valid setting that selects a path the port does not
+have yet (meshes, multiple hosts, profiling) raises ``NotImplementedError``
+naming its ROADMAP item; it never runs some other path instead.
 """
 
 from __future__ import annotations
@@ -231,10 +232,6 @@ class SolverConfig:
             not_ported('sdp_method="pdhg"', '"Not to port"')
         if self.sdp_halpern:
             not_ported("sdp_halpern", '"Not to port"')
-        if not self.use_disjunctive_cuts:
-            not_ported("The McCormick path (use_disjunctive_cuts=False)", "queue 1 item 12")
-        if self.checkpoint_path is not None or self.resume:
-            not_ported("Checkpoint/resume", "queue 1 item 9")
         if self.mesh_shape is not None and math.prod(int(s) for s in self.mesh_shape) > 1:
             not_ported("mesh_shape", "queue 1 item 13")
         if self.distributed:

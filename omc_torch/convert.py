@@ -19,6 +19,7 @@ import torch
 
 from omc_torch.sdp.admm import ADMMState
 from omc_torch.sdp.admm_shor import ShorADMMState, ShorBatch, shor_batch_to_device
+from omc_torch.sdp.mccormick import MCBatch, MCState
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.sdp.shor_encode import OMC_FIELDS, shor_batch_host_from_omc_leaves
 from omc_torch.sdp.shor_k import (
@@ -34,7 +35,7 @@ def _tensors(leaves, n_expected, device, dtype):
     if len(leaves) != n_expected:
         raise ValueError(f"expected {n_expected} leaves, got {len(leaves)}")
     return [
-        torch.as_tensor(np.asarray(x), device=device).to(dtype).contiguous()
+        torch.as_tensor(np.array(x), device=device).to(dtype).contiguous()
         for x in leaves
     ]
 
@@ -89,3 +90,14 @@ def shor_k_state_from_numpy(leaves, *, device, dtype=torch.float64) -> ShorKStat
     then Xt, W, Wt, Hh, v1, v2, v3, w5, u5, wx, ux, wr, ur, wl, ul, wwl, uwl,
     wp, up, wq, uq) -> ShorKState."""
     return ShorKState.from_leaves(_tensors(leaves, 47, device, dtype))
+
+
+def mc_batch_from_numpy(leaves, *, device, dtype=torch.float64) -> MCBatch:
+    """(U_lo, U_hi) of ``omc.sdp.mccormick.MCBatch`` -> MCBatch."""
+    return MCBatch(*_tensors(leaves, 2, device, dtype))
+
+
+def mc_state_from_numpy(leaves, *, device, dtype=torch.float64) -> MCState:
+    """The 24 leaves of ``omc.sdp.mccormick.MCState`` (field order: w1 ...
+    uorth, X, Y, Th, U, t, rho, sX, sT) -> MCState."""
+    return MCState.from_leaves(_tensors(leaves, 24, device, dtype))

@@ -291,6 +291,41 @@ struct K8cParams {
   float gamma, R_X;                      // R_X = sqrt(2 gamma ub_bar)
 };
 
+// K9s: rho-free factorisations of the McCormick z-step (once per solve call)
+struct K9sParams {
+  const float *U_lo, *U_hi;   // (B, n, k) node boxes
+  float* Mc;                  // (B, n, k+q, k+q) lower Cholesky factors of the row Grams
+  float* Si;                  // (B, n, k+q, q) M_i^-1 E_t
+  float* Gc;                  // (B, q, q) lower Cholesky factor of G = I + sum_i Si[i, k:, :]
+  int B, n, k;
+};
+
+// K9a: McCormick adjoint + z-step -> Xs, Y, Ths, U, t
+struct K9aParams {
+  const float *w1, *u1, *w2, *u2, *w3, *u3, *w4, *u4, *wsoc, *usoc, *wbox, *ubox,
+      *wmc, *umc, *worth, *uorth;
+  const float *U_lo, *U_hi;   // (B, n, k)
+  const float *maskA, *mask;  // (n, m)
+  const float *sX, *sT, *rho; // (B,)
+  const float *Mc, *Si, *Gc;  // K9s
+  float *Xs, *Y, *Ths, *U, *t;
+  int B, n, m, k;
+  float gamma;
+};
+
+// K9b: McCormick forward map + cone step of every slot but the PSD blocks,
+// with the running means of rho*umc and rho*uorth (acc null: none)
+struct K9bParams {
+  const float *Xs, *Y, *Ths, *U, *t;
+  const float *w1, *u1, *w2, *u2, *w3, *u3;
+  float *t1, *t2, *t3;
+  float *w4, *u4, *wsoc, *usoc, *wbox, *ubox, *wmc, *umc, *worth, *uorth;
+  float *acc_mc, *acc_orth;
+  const float *U_lo, *U_hi, *sX, *sT, *rho;
+  int B, n, m, k;
+  float alpha, beta;
+};
+
 // K8d: cone step of the RSOC, Theta-link, W-link, W >= 0 and Wt >= 0 slots
 // of the rank-k Shor relaxation, with the EMAs of rho*ur, rho*ul, rho*uwl.
 struct K8dParams {

@@ -27,6 +27,9 @@ PyTorch version:
   ``omc_torch.ops.polar.project_psd_xwh``          (``csrc/k7k_minor_xwh.cu``)
 - K8c ``omc_torch.sdp.shor_k.shor_k_zstep``        (``csrc/k8k_shor_k.cu``)
 - K8d ``omc_torch.sdp.shor_k.shor_k_cone_step``    (``csrc/k8k_shor_k.cu``)
+- K9s ``omc_torch.sdp.mccormick.mc_setup``         (``csrc/k9_mccormick.cu``)
+- K9a ``omc_torch.sdp.mccormick.mc_zstep``         (``csrc/k9_mccormick.cu``)
+- K9b ``omc_torch.sdp.mccormick.mc_cone_step``     (``csrc/k9_mccormick.cu``)
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
@@ -47,7 +50,7 @@ import torch
 
 # launches of each kernel in this process (the wrappers add one per launch)
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
-            "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0}
+            "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
@@ -237,6 +240,26 @@ class K8dParams(ctypes.Structure):
         ("B", "n", "m", "k", "C", "Ms"), ("alpha", "beta"))
 
 
+class K9sParams(ctypes.Structure):
+    _fields_ = _struct(("U_lo", "U_hi", "Mc", "Si", "Gc"), ("B", "n", "k"), ())
+
+
+class K9aParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc", "wbox",
+         "ubox", "wmc", "umc", "worth", "uorth", "U_lo", "U_hi", "maskA", "mask",
+         "sX", "sT", "rho", "Mc", "Si", "Gc", "Xs", "Y", "Ths", "U", "t"),
+        ("B", "n", "m", "k"), ("gamma",))
+
+
+class K9bParams(ctypes.Structure):
+    _fields_ = _struct(
+        ("Xs", "Y", "Ths", "U", "t", "w1", "u1", "w2", "u2", "w3", "u3", "t1",
+         "t2", "t3", "w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wmc", "umc",
+         "worth", "uorth", "acc_mc", "acc_orth", "U_lo", "U_hi", "sX", "sT", "rho"),
+        ("B", "n", "m", "k"), ("alpha", "beta"))
+
+
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name, params in (
@@ -250,6 +273,9 @@ def _load(path: Path):
         ("omc_k7x_xwh", K7xParams),
         ("omc_k8c_shor_k_zstep", K8cParams),
         ("omc_k8d_shor_k_cone", K8dParams),
+        ("omc_k9s_setup", K9sParams),
+        ("omc_k9a_zstep", K9aParams),
+        ("omc_k9b_cone", K9bParams),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]

@@ -1,5 +1,5 @@
 """Branch-and-bound driver — the public entry point (port of the
-disjunctive-cut and Shor parts of ``omc/solve.py``).
+single-device paths of ``omc/solve.py``).
 
 Up to ``batch_size`` frontier nodes are popped per super-step (best-first
 or breadth-first), relaxed together by the batched ADMM solver on one
@@ -13,7 +13,13 @@ relaxation points are rounded to exact rank-k incumbents.  With
 (static, or grown from the top-scoring violated ones at refinement stalls
 and at child creation, scored per term over the Xt split when k > 1) and
 the Shor solver relaxes it: ``omc_torch.sdp.admm_shor`` for k = 1,
-``omc_torch.sdp.shor_k`` for k > 1.
+``omc_torch.sdp.shor_k`` for k > 1.  With ``use_disjunctive_cuts=False``
+the McCormick path runs instead (``omc_torch.sdp.mccormick``): first visits
+are screened for relaxation feasibility on the host (interval test, then
+the envelope LP), master feasibility is the reference's oracle, and a split
+bisects the widest U interval.  ``checkpoint_path`` saves the tree, the
+incumbent, the census and the RNG state every ``checkpoint_every`` seconds
+and at the end; ``resume=True`` continues from that file.
 
 Soundness notes (as in ``omc``):
 
@@ -27,15 +33,17 @@ Soundness notes (as in ``omc``):
 - The 11-category node census (reference lines 411-454) keeps the
   reference's keys.
 
-The device is chosen once, by the required ``device`` argument.  On a CUDA
-device the solver runs float32 through the hand-written kernels
-(``omc_torch/csrc``): K1-K3 on the base path, K2, K8a, K3, K1, K7, K8b
-on the rank-1 Shor path, and K2, K8c, K3, K1, K7t, K7x, K8d on the rank-k
-Shor path.
+The device is chosen once, by the ``device`` argument, ``"cuda"`` unless
+the caller asks for ``"cpu"``.  On a CUDA device the solver runs float32
+through the hand-written kernels (``omc_torch/csrc``): K1-K3 on the base
+path, K2, K8a, K3, K1, K7, K8b on the rank-1 Shor path, K2, K8c, K3, K1,
+K7t, K7x, K8d on the rank-k Shor path, and K9s, K9a, K9b, K1 on the
+McCormick path.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional
@@ -45,7 +53,7 @@ import torch
 
 from omc_torch import kernels
 from omc_torch.altmin import make_altmin
-from omc_torch.branch import create_matrix_cut_child_nodes
+from omc_torch.branch import create_matrix_cut_child_nodes, create_mccormick_child_nodes
 from omc_torch.config import SolverConfig
 from omc_torch.problem import compute_MSE
 from omc_torch.sdp import shor as shor_mod
@@ -65,6 +73,16 @@ from omc_torch.sdp.admm_shor import (
 )
 from omc_torch.sdp.admm_shor import apply_best_duals as apply_shor_best_duals
 from omc_torch.sdp.cuts import region_bounds
+from omc_torch.sdp.mccormick import (
+    MCBatch,
+    MCState,
+    host_certified_bound_mc,
+    init_mc_state,
+    make_mccormick_solver,
+    master_feasible_mccormick,
+    mccormick_box_feasible,
+    mccormick_lp_feasible,
+)
 from omc_torch.sdp.relax import (
     NodeBatch,
     apply_warm_slices,
@@ -82,6 +100,7 @@ from omc_torch.sdp.shor_k import (
 )
 from omc_torch.sdp.shor_k import apply_best_duals as apply_shor_k_best_duals
 from omc_torch.tree import BBNode, BBTree, ShorInfo, compute_gap, root_box
+from omc_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from omc_torch.utils.logging import (
     UPDATE_HEADER,
     add_message,
@@ -233,28 +252,43 @@ def _decayed_probability(depth, max_p, min_p, decay):
     return max_p / (decay**depth)
 
 
+def entry_device(device, dtype: str) -> torch.device:
+    """The device of an entry point: ``"cuda"`` (the kernels; float32 only)
+    unless the caller asks for ``"cpu"`` (the plain versions).  A CUDA
+    request without a usable GPU raises; it never falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={device!r} but no CUDA device is available; "
+                'pass device="cpu" to run the plain versions on the CPU'
+            )
+        if dtype != "float32":
+            raise ValueError('the CUDA path runs dtype="float32" only')
+        kernels.set_full_fp32()
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
 def matrix_completion_branchandbound(
     k: int,
     A: np.ndarray,
     indices: np.ndarray,
     gamma: float,
     *,
-    device,
+    device="cuda",
     **kwargs,
 ):
     """Complete matrix ``A`` (observed mask ``indices``) with a rank-``k``
     matrix to certified optimality.  Returns ``(solution, printlist,
     instance)`` with the field contract of ``omc.solve``.
 
-    ``device`` (required): where the relaxations run, ``"cuda"`` (the
-    kernels; needs ``dtype="float32"``) or ``"cpu"`` (the plain versions).
-    There is no default, so a run never lands on the CPU by accident."""
+    ``device``: where the relaxations run, ``"cuda"`` (the default: the
+    kernels; needs ``dtype="float32"``) or ``"cpu"`` (the plain versions,
+    only when asked for).  Without a GPU the default raises."""
     cfg = SolverConfig(**kwargs)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if cfg.dtype != "float32":
-            raise ValueError('the CUDA path runs dtype="float32" only')
-        kernels.set_full_fp32()
+    dev = entry_device(device, cfg.dtype)
 
     A = np.asarray(A, dtype=np.float64)
     indices = np.asarray(indices)
@@ -268,7 +302,10 @@ def matrix_completion_branchandbound(
         raise ValueError(
             f"Input matrix A must have size (n, m) with n <= m. Current size is {A.shape}."
         )
-    use_shor = cfg.add_Shor_valid_inequalities
+    use_mccormick = not cfg.use_disjunctive_cuts
+    # the McCormick path relaxes no Shor minors (omc's McCormick arm takes
+    # precedence over its Shor arm)
+    use_shor = cfg.add_Shor_valid_inequalities and not use_mccormick
     # k > 1 uses the Xt-split Shor relaxation (omc_torch.sdp.shor_k)
     use_shor_k = use_shor and k > 1
 
@@ -466,9 +503,39 @@ def matrix_completion_branchandbound(
         LB=-np.inf, depth=0, cuts=[], Shor_info=root_shor,
     )
     tree = BBTree(root, best_upper_bound=objective_initial)
+    # resume (not in the reference, which loses the tree on timeout):
+    # warm-start states are not checkpointed, so resumed nodes get a fresh
+    # refinement budget
+    if cfg.resume and cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        payload = load_checkpoint(cfg.checkpoint_path)
+        tree = payload["tree"]
+        for nd in tree.nodes.values():
+            nd.refines = 0
+            nd.behind_streak = 0
+        solution.update(payload["solution"])
+        census.update(payload["census"])
+        run_log.extend(payload["run_log"])
+        rng.bit_generator.state = payload["rng_state"]
+        add_message(printlist, [
+            f"Resumed from checkpoint {cfg.checkpoint_path}: "
+            f"{tree.nodes_explored} nodes explored, "
+            f"{tree.nodes_remaining} remaining, gap {tree.now_gap:g}.\n"
+        ], echo=echo)
+    last_checkpoint = time.time()
+
+    def maybe_checkpoint(force=False):
+        nonlocal last_checkpoint
+        if cfg.checkpoint_path and (
+                force or time.time() - last_checkpoint >= cfg.checkpoint_every):
+            save_checkpoint(cfg.checkpoint_path, {
+                "tree": tree, "solution": solution, "census": census,
+                "run_log": run_log, "rng_state": rng.bit_generator.state,
+            })
+            last_checkpoint = time.time()
+
     # root_node_timeout bookkeeping (reference lines 774-776): the root is
     # resolved once it is pruned, closed, or split
-    root_resolved = False
+    root_resolved = 1 not in tree.nodes
 
     add_message(printlist, UPDATE_HEADER, echo=echo)
 
@@ -518,7 +585,12 @@ def matrix_completion_branchandbound(
         bucket (omc's Shor solver keeps its own over-relaxation 1.6)."""
         key = (L, M5)
         if key not in solvers:
-            if use_shor_k:
+            if use_mccormick:
+                solvers[key] = make_mccormick_solver(
+                    n, m, k, gamma, iters=cfg.sdp_iters, dtype=dtype,
+                    alpha=cfg.sdp_alpha_mccormick,
+                )
+            elif use_shor_k:
                 solvers[key] = make_shor_k_solver(
                     n, m, k, L, M5, n * m, gamma, iters=cfg.sdp_iters, dtype=dtype,
                     check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
@@ -562,7 +634,11 @@ def matrix_completion_branchandbound(
         V0 = U0.T @ X0
         kw = dict(sX=sX, sT=sT, sS=sS, X0=X0[None], Y0=(U0 @ U0.T)[None],
                   Th0=(V0.T @ V0)[None], U0=U0[None], rho=rho_base)
-        if use_shor_k:
+        if use_mccormick:
+            kw.update(rho=cfg.sdp_rho_mccormick)
+            del kw["sS"]
+            dev_state = init_mc_state(Bb, n, m, k, dtype, device=dev, **kw)
+        elif use_shor_k:
             dev_state = init_shor_k_state(Bb, n, m, k, L, M5, n * m, dtype, device=dev, **kw)
         elif use_shor:
             dev_state = init_shor_state(Bb, n, m, k, L, M5, n * m, dtype, device=dev, **kw)
@@ -631,7 +707,8 @@ def matrix_completion_branchandbound(
         # a slice from a smaller minor bucket fills the leading rows of
         # w5/u5/v: the minor tables are prefix-stable (shor_encode)
         apply_warm_slices(base, slices)
-        state_cls = ShorKState if use_shor_k else ShorADMMState if use_shor else ADMMState
+        state_cls = (MCState if use_mccormick else ShorKState if use_shor_k
+                     else ShorADMMState if use_shor else ADMMState)
         return state_cls.from_leaves(
             [torch.as_tensor(b_, device=dev) for b_ in base]
         ), True
@@ -679,6 +756,18 @@ def matrix_completion_branchandbound(
                     census["nodes_relax_feasible_pruned"] += 1
                 if node.node_id == 1:
                     root_resolved = True
+            elif use_mccormick and node.refines == 0:
+                # relaxation feasibility of a first visit (reference lines
+                # 731-742, 1294-1429): the interval screen, then the exact
+                # envelope LP; re-visits keep their box and skip it
+                t_feas = time.time()
+                feas = (mccormick_box_feasible(node.U_lower, node.U_upper)
+                        and mccormick_lp_feasible(node.U_lower, node.U_upper))
+                solve_time_relaxation_feasibility += time.time() - t_feas
+                if feas:
+                    work.append(node)
+                else:
+                    census["nodes_relax_infeasible"] += 1
             else:
                 work.append(node)
         if not work:
@@ -686,13 +775,14 @@ def matrix_completion_branchandbound(
             add_update(echo_row=False)
             continue
 
-        L = _l_bucket(max(1, max(len(nd.cuts) for nd in work)))
+        # McCormick nodes carry no cuts (cuts=None)
+        L = _l_bucket(1 if use_mccormick else max(1, max(len(nd.cuts) for nd in work)))
         # rho portfolio: on refinement visits, replicate live nodes into
         # otherwise-padded slots at different penalties; every replica bound
         # is valid, the per-node max is taken, and the winning replica's
         # state carries forward.  First visits run solo at the tight bucket.
         use_portfolio = (
-            not use_shor and len(cfg.rho_portfolio) > 0
+            not use_shor and not use_mccormick and len(cfg.rho_portfolio) > 0
             and all(nd.refines > 0 for nd in work)
         )
         P = 1 + len(cfg.rho_portfolio)
@@ -722,7 +812,7 @@ def matrix_completion_branchandbound(
             cfg.sdp_iter_boost_max, max(1, queue_slack // max(1, len(work)))
         )
         visit_iters = cfg.sdp_iters * boost
-        skey = ("shor" if use_shor else "dc", Bb)
+        skey = ("mc" if use_mccormick else "shor" if use_shor else "dc", Bb)
         rate = iter_rate.get(skey)
         if rate is not None and rate > 0:
             remaining = max(cfg.time_limit - (time.time() - start_time), 0.0)
@@ -761,7 +851,15 @@ def matrix_completion_branchandbound(
         target_dev = T(target_np)
         group_dev = torch.as_tensor(group_np, device=dev)
         state_bd = None
-        if use_shor:
+        if use_mccormick:
+            # one call per visit: its duals are averaged over the last
+            # quarter of the visit (omc averages its last <= 2,000-iteration
+            # chunk; ROADMAP section 3)
+            fin_state, out_dev = get_solver(L)(
+                A_dev, mask_dev, MCBatch(T(batch.U_lo), T(batch.U_hi)), ub_bar, state0,
+                visit_iters,
+            )
+        elif use_shor:
             fin_state, out_dev = get_solver(L, M5)(
                 A_dev, mask_dev, batch_dev, sbh, ub_bar, state0, visit_iters,
                 target_dev, group_dev,
@@ -785,7 +883,9 @@ def matrix_completion_branchandbound(
         out = to_numpy_out(out_dev)  # one synchronised fetch
         iters_done = int(np.max(out["iters_run"]))
         t_dev_end = time.time()
-        if use_shor_k:
+        if use_mccormick:
+            lbs = host_certified_bound_mc(A, mask, batch.U_lo, batch.U_hi, out, gamma, k, ub_bar)
+        elif use_shor_k:
             lbs = host_certified_bound_shor_k(A, mask, batch, sbh, out, gamma, k, ub_bar)
         elif use_shor:
             lbs = host_certified_bound_shor(A, mask, batch, sbh, out, gamma, ub_bar)
@@ -873,7 +973,11 @@ def matrix_completion_branchandbound(
                 continue
 
             sel = sel_of[i]
-            master_feasible = bool(out["sep_w"][sel, 0] >= -1e-6)
+            if use_mccormick:
+                master_feasible = master_feasible_mccormick(
+                    out["Y"][sel], out["U"][sel], out["X"][sel], out["Th"][sel])
+            else:
+                master_feasible = bool(out["sep_w"][sel, 0] >= -1e-6)
             if master_feasible:
                 node.master_feasible = True
                 t_pol = time.time()
@@ -998,7 +1102,39 @@ def matrix_completion_branchandbound(
                     continue  # diverged iterate: zero init
                 w, V = np.linalg.eigh(0.5 * (Yi + Yi.T))
                 U_init_m[j] = V[:, ::-1][:, :k]
-            if all(not work[i].cuts for i in altmin_marked):
+            if use_mccormick:
+                # node-box-local altmin (the reference's McCormick U-model,
+                # lines 2095-2171) plus a global replica per node, the
+                # better objective kept (both are valid incumbents); chunked
+                # so the local + global pair fits one batch bucket
+                parts = []
+                half = max(1, B // 2)
+                for s0 in range(0, len(altmin_marked), half):
+                    ids = altmin_marked[s0 : s0 + half]
+                    nc = len(ids)
+                    Ba = _b_bucket(2 * nc, B)
+                    paired = Ba >= 2 * nc
+                    if paired:
+                        sel_i = np.minimum(np.arange(Ba) % nc, nc - 1)
+                        is_local = np.arange(Ba) < nc
+                    else:  # batch_size 1: box-local only, as the reference
+                        Ba = _b_bucket(nc, B)
+                        sel_i = np.minimum(np.arange(Ba), nc - 1)
+                        is_local = np.ones(Ba, dtype=bool)
+                    r = altmin_fn(
+                        A_dev, mask_dev, T(U_init_m[s0 + sel_i]),
+                        T(np.stack([work[ids[t]].U_lower for t in sel_i])),
+                        T(np.stack([work[ids[t]].U_upper for t in sel_i])),
+                        box_on=T(is_local.astype(np_dtype)),
+                    )
+                    pick = np.arange(nc)
+                    if paired:
+                        r_obj = r.objective.cpu().numpy().astype(np.float64)
+                        pick = np.where(r_obj[:nc] <= r_obj[nc : 2 * nc], pick, pick + nc)
+                    parts.append(_fetch(r, pick))
+                am_U, am_V, am_conv, am_iters, am_trace = (
+                    np.concatenate(p, axis=0) for p in zip(*parts))
+            elif all(not work[i].cuts for i in altmin_marked):
                 am_U, am_V, am_conv, am_iters, am_trace = run_altmin(U_init_m)
             else:
                 # cut-constrained U-step (reference lines 2048-2092): the
@@ -1062,6 +1198,10 @@ def matrix_completion_branchandbound(
             for i in split_nodes:
                 node = work[i]
                 census["nodes_relax_feasible_split"] += 1
+                if use_mccormick:  # bisect the widest U interval
+                    tree.add_nodes(
+                        create_mccormick_child_nodes(node, tree.counter, node.LB), node.LB)
+                    continue
                 # iterative Shor growth at child creation (reference lines
                 # 956-970, 2495-2518): with decaying probability the
                 # children get the top-scoring violated minors
@@ -1103,12 +1243,14 @@ def matrix_completion_branchandbound(
             or time.time() - start_time > cfg.time_limit
         )
         add_update(echo_row=print_now if verbosity >= 1 else verbosity >= 3)
+        maybe_checkpoint()
 
         if cfg.root_only:
             break
 
     end_time = time.time()
     time_taken = end_time - start_time
+    maybe_checkpoint(force=True)
 
     # terminal accounting for nodes still queued mid-refinement at a
     # gap-certified exit (their outcome is a within-gap bound prune -> (6))

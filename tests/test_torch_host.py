@@ -1,5 +1,6 @@
 """Parity of the port's host-side modules with omc: instance data
-(bit-identical), configuration, cuts, tree, branching, oracles, logging."""
+(bit-identical), configuration, cuts, tree, branching, oracles, logging,
+public names; the entry points' device default."""
 
 import dataclasses
 
@@ -74,10 +75,9 @@ def test_config_invalid_values_raise_like_omc(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_disjunctive_cuts=False),
     dict(mesh_shape=(2,)),
     dict(distributed=True),
-    dict(checkpoint_path="ckpt.pkl"),
+    dict(profile_dir="trace"),
     dict(sdp_halpern=True),
     dict(sdp_method="pdhg"),
 ])
@@ -97,6 +97,10 @@ def test_unported_options_raise_not_implemented(kw):
     dict(disjunctive_cuts_breakpoints="smallest_2_eigvec"),
     dict(node_selection="depthfirst"),
     dict(node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=50),
+    dict(use_disjunctive_cuts=False),
+    dict(use_disjunctive_cuts=False, node_selection="breadthfirst", altmin_flag=False),
+    dict(checkpoint_path="ckpt.pkl"),
+    dict(checkpoint_path="ckpt.pkl", resume=True, checkpoint_every=5),
 ])
 def test_ported_options_configure_like_omc(kw):
     full = {**_MAIN, **kw}
@@ -156,10 +160,11 @@ def test_rank2_config3_options_end_to_end_like_omc():
 
 def _device_helpers():
     from omc_torch import convert
-    from omc_torch.sdp import admm, admm_shor, shor_k
+    from omc_torch.sdp import admm, admm_shor, mccormick, shor_k
 
     return {
         "init_admm_state": lambda **kw: admm.init_admm_state(1, 3, 3, 1, 8, **kw),
+        "init_mc_state": lambda **kw: mccormick.init_mc_state(1, 3, 3, 2, **kw),
         "init_shor_state": lambda **kw: admm_shor.init_shor_state(1, 3, 3, 1, 8, 4, 9, **kw),
         "init_shor_k_state": lambda **kw: shor_k.init_shor_k_state(1, 3, 3, 2, 8, 4, 9, **kw),
         "shor_batch_to_device": lambda **kw: admm_shor.shor_batch_to_device(
@@ -169,7 +174,8 @@ def _device_helpers():
         **{name: (lambda name: lambda **kw: getattr(convert, name)([], **kw))(name)
            for name in ("node_batch_from_numpy", "admm_state_from_numpy",
                         "shor_batch_from_numpy", "shor_state_from_numpy",
-                        "shor_k_batch_from_numpy", "shor_k_state_from_numpy")},
+                        "shor_k_batch_from_numpy", "shor_k_state_from_numpy",
+                        "mc_batch_from_numpy", "mc_state_from_numpy")},
     }
 
 
@@ -179,6 +185,57 @@ def test_helpers_that_allocate_require_a_device(name):
     without ``device`` it raises TypeError before doing anything."""
     with pytest.raises(TypeError, match="device"):
         _device_helpers()[name]()
+
+
+def _entry_calls():
+    import omc_torch.api as tapi
+    from omc_torch.solve import matrix_completion_branchandbound
+
+    A, idx = tdata.generate_matrix_completion_data(1, 5, 5, 15, 0)
+    lo, hi = ttree.root_box(5, 1)
+    node = ttree.BBNode(1, 0, lo, hi, -np.inf, 0, cuts=None)
+    return {
+        "matrix_completion_branchandbound": lambda: matrix_completion_branchandbound(
+            1, A, idx, 20.0, **_MAIN),
+        "matrix_completion_SDP_relaxation": lambda: tapi.matrix_completion_SDP_relaxation(
+            node, 5, 1, A, idx, 20.0, use_disjunctive_cuts=False, dtype="float32"),
+        "alternating_minimization": lambda: tapi.alternating_minimization(
+            A, 5, 1, idx, 20.0, U_initial=np.ones((5, 1)) / np.sqrt(5.0), dtype="float32"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_calls()))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """The entry points run on the GPU unless the caller asks for the CPU:
+    without a GPU, a call that names no device raises before any solver or
+    heuristic is built, so it never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    import omc_torch.altmin
+    import omc_torch.sdp.admm
+    import omc_torch.sdp.mccormick
+    import omc_torch.solve
+
+    def ran(*a, **kw):
+        raise AssertionError("ran on the CPU without being asked to")
+
+    for mod, attr in ((omc_torch.solve, "make_altmin"), (omc_torch.altmin, "make_altmin"),
+                      (omc_torch.sdp.mccormick, "make_mccormick_solver"),
+                      (omc_torch.sdp.admm, "make_admm_solver")):
+        monkeypatch.setattr(mod, attr, ran)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_calls()[name]()
+
+
+def test_public_names_cover_omcs():
+    import omc
+    import omc_torch
+
+    assert set(omc.__all__) <= set(omc_torch.__all__)
+    for name in omc.__all__:
+        assert getattr(omc_torch, name) is not None, name
+    assert omc_torch.BBNodeDisjunctiveCuts is omc_torch.DisjunctiveCut
+    assert omc_torch.BBNodeShorInfo is omc_torch.ShorInfo
 
 
 def test_breadthfirst_end_to_end_like_omc():

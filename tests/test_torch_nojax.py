@@ -16,8 +16,11 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import omc_torch
-import omc_torch.solve  # the driver with the Shor paths, and what it imports
+import omc_torch.solve  # the driver with the Shor and McCormick paths, and what it imports
 import omc_torch.sdp.shor_k
+import omc_torch.sdp.mccormick
+import omc_torch.api
+import omc_torch.utils.checkpoint
 from omc_torch.sdp.admm import init_admm_state, make_admm_solver
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.tree import root_box
@@ -33,6 +36,11 @@ st = init_admm_state(B, n, m, k, L, torch.float64, device="cpu", rho=0.05)
 solve = make_admm_solver(n, m, k, L, 10.0, iters=1, dtype=torch.float64, check_every=1)
 fin, out = solve(t(A), t(mask), batch, 10.0, st)
 assert np.all(np.isfinite(out["lb_est"].numpy())), out["lb_est"]
+from omc_torch.tree import BBNode
+r = omc_torch.api.matrix_completion_SDP_relaxation(
+    BBNode(1, 0, lo, hi, -np.inf, 0, cuts=None), n, k, A, mask, 10.0,
+    use_disjunctive_cuts=False, iters=2, device="cpu")
+assert np.isfinite(r["lower_bound"]), r["lower_bound"]
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("NOJAX_OK", int(out["iters_run"][0]))
 """
