@@ -8,12 +8,16 @@ Phases, in order (each prints its numbers on lines of its own):
 1. device    — nvidia-smi name and power limit, torch/CUDA versions, TF32 off
 2. build     — nvcc build of omc_torch/csrc into build/omc_torch, one nvcc
                per source in parallel (timed)
-3. kernels   — K1, K2, K3, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a, K9b
-               against their plain PyTorch versions on the card, at the main
-               paths' shapes, with median CUDA-event times and each kernel's
-               bound (the least time the card could take for the same work)
+3. kernels   — K1, K2, K3, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a, K9b,
+               K4, K4s, K5, K6 against their plain PyTorch versions on the
+               card, at the main paths' shapes, with median CUDA-event times,
+               the library call's time and each kernel's bound (the least
+               time the card could take for the same work); the Jacobi
+               kernels K4/K4s/K5 also against a float64 eigh, with their
+               sweep counts
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
-               headline instance; device bound vs float64 host bound
+               headline instance; device bound vs float64 host bound (the
+               same bound through torch's eigh is logged as a reading)
 5. fixtures  — the four certified instances of tests/fixtures/instances.json
 6. headline  — rank-1 50x50, 50% observed, gamma 80, gap 1e-4 (cold, warm)
 7. multinode — the 30%-observed instance, gap 1e-4
@@ -32,9 +36,14 @@ Phases, in order (each prints its numbers on lines of its own):
                config 3's instance, each held to omc's bound, then the full
                McCormick B&B on the headline instance, 45 s
 
+Every phase that drives the solver asserts that the launch counts of the
+kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
+bounds' small slots, K5 the separation, K6 altmin).
+
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape, of the rank-k
-Shor loop at config 3's and of the McCormick loop at the headline's.
+Shor loop at config 3's, of the McCormick loop at the headline's, and of
+one base-path root visit at B=64 with its safe-bound calls.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -198,7 +207,7 @@ def _spectral_batch(B, d, gen, dev):
 def phase_kernels(res):
     import torch
 
-    from omc_torch.ops.cones import project_psd
+    from omc_torch.ops.cones import project_psd_plain
     from omc_torch.ops.polar import (
         _SIGN_SCHEDULE,
         project_psd_ns,
@@ -236,7 +245,7 @@ def phase_kernels(res):
         err_acc = max(rel_fro(a, b) for a, b in zip(ak[:nacc], ap[:nacc]))
         abs_err = max(float((a - b).abs().max()) for a, b in zip(wk, wp))
         # both float32 sign schedules against an exact float64 eigh projection
-        exact = [project_psd(t64.to(dev)) for t64 in ts64]
+        exact = [project_psd_plain(t64.to(dev)) for t64 in ts64]
         err_eigh = max(rel_fro(p, e) for p, e in zip(wp, exact))
         err_k_eigh = max(rel_fro(w, e) for w, e in zip(wk, exact))
         # controls: the plain schedule with products of operands truncated
@@ -316,7 +325,7 @@ def phase_kernels(res):
     wk = project_psd_small(T)
     torch.cuda.synchronize()
     wp = project_psd_ns_small(T)
-    exact = project_psd(T64.to(dev))
+    exact = project_psd_plain(T64.to(dev))
     # control: the plain schedule with operands truncated to 16 bits
     ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
     w2 = torch.empty_like(T)
@@ -353,7 +362,7 @@ def phase_kernels(res):
     wk = project_psd_xwh(T)
     torch.cuda.synchronize()
     wp = project_psd_ns_small(T)
-    exact = project_psd(T64.to(dev))
+    exact = project_psd_plain(T64.to(dev))
     ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
     w2 = torch.empty_like(T)
     row = dict(shape=list(T.shape), rel_err=rel_fro(wk, wp),
@@ -399,6 +408,14 @@ def phase_kernels(res):
             checks.append((name, row, row["rel_err"] <= 1e-5 and row["deterministic"]
                            and row.get("gram_rel_err", 0.0) <= 1e-5))
             out[name].append(row)
+
+    # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps ----
+    rows = _check_eig_kernels(gen, dev)
+    for name, rs in rows.items():
+        for row in rs:
+            log(name, json.dumps(row))
+            checks.append((name, row, row["ok"]))
+    out.update(rows)
     res["kernels"] = out
     failed = [(name, row) for name, row, ok in checks if not ok]
     assert not failed, failed
@@ -445,7 +462,7 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
     inputs, each at the outputs of the step before it, with times."""
     import torch
 
-    from omc_torch.ops.cones import project_psd
+    from omc_torch.ops.cones import project_psd_plain
     from omc_torch.ops.polar import project_psd_ns_small
     from omc_torch.sdp import admm_shor as S
 
@@ -478,7 +495,8 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
     S.minor_step(c, sc, s7, a7, "ns")
     torch.cuda.synchronize()
     w5p, u5p, a5p = S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)
-    w5e, _, _ = S.minor_step_plain(c, sc, sk, acc5, lambda t: project_psd(t.double()).float())
+    w5e, _, _ = S.minor_step_plain(c, sc, sk, acc5,
+                                   lambda t: project_psd_plain(t.double()).float())
     rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
     s8 = sk.clone()
     a8 = acc5.clone()
@@ -559,7 +577,7 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     bounds and a determinism check of K8c and K8d."""
     import torch
 
-    from omc_torch.ops.cones import project_psd
+    from omc_torch.ops.cones import project_psd_plain
     from omc_torch.ops.polar import project_psd_ns_small
     from omc_torch.sdp import shor_k as SK
 
@@ -604,7 +622,7 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     a7 = acc5.clone()
     SK.minor_k_step(c, sc, s7, a7, "ns")
     torch.cuda.synchronize()
-    exact = lambda t: project_psd(t.double()).float()  # noqa: E731
+    exact = lambda t: project_psd_plain(t.double()).float()  # noqa: E731
     w5p, u5p, a5p = SK.minor_k_step_plain(c, sc, sk, acc5, project_psd_ns_small)
     w5e, _, _ = SK.minor_k_step_plain(c, sc, sk, acc5, exact)
     rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
@@ -901,6 +919,220 @@ def _check_mc_kernels(B, n, m, k, gen, dev):
     return out
 
 
+def _eig_batch(B, d, gen, dev):
+    """Symmetric (B, d, d) float32 matrices Q diag(lam) Q' on the card, lam
+    uniform in [-1, 1] with degenerate and negative clusters: for d >= 20
+    five eigenvalues equal to 0.5, five within 1e-7 of -0.3 and five zeros;
+    for small d a double eigenvalue in every second matrix and zeros in
+    every fourth.  Returns the float32 batch and its float64 copy (the
+    reference's input is the float32 matrix itself)."""
+    import torch
+
+    Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64))
+    lam = torch.empty(B, d, dtype=torch.float64).uniform_(-1.0, 1.0, generator=gen)
+    if d >= 20:
+        lam[:, :5] = 0.5
+        lam[:, 5:10] = -0.3 + 1e-7 * torch.arange(5)
+        lam[:, 10:15] = 0.0
+    else:
+        lam[1::2, :2] = 0.5
+        lam[::4, 2:] = 0.0
+    T = (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
+    T = (0.5 * (T + T.transpose(-1, -2))).float().to(dev).contiguous()
+    return T, T.double()
+
+
+def _check_eig_kernels(gen, dev):
+    """K4 (three epilogues), K4s, K5 and K6 against float64 references and
+    their plain versions on the card, with times, bounds and sweep counts.
+    Bars: eigenvalues within 1e-5 max|lambda| and projections within 1e-5
+    relative Frobenius of a float64 eigh of the same float32 input, K5's
+    vectors within 1e-5 up to sign, K6 within 1e-5 relative of its plain
+    version; no Jacobi hits its sweep cap.  Times: ``tm`` below."""
+    import torch
+
+    from omc_torch.ops import cones
+    from omc_torch.ops.jacobi import MAX_SWEEPS
+    from omc_torch.ops.linalg import (
+        u_step_unconstrained,
+        u_step_unconstrained_plain,
+        v_step,
+        v_step_plain,
+    )
+    from omc_torch.sdp.relax import separation_eigpairs, separation_eigpairs_plain
+
+    out = {"K4": [], "K4s": [], "K5": [], "K6": [], "K4_nonfinite": []}
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def tm(fn):
+        """Median of 20 timed calls; of 3 for a call over 20 ms (cuSOLVER
+        at B=64), one call for a call over 200 ms (K4 at d=500)."""
+        probe = cuda_time_ms(fn, reps=1, warmup=1)
+        if probe > 200.0:
+            return probe
+        return cuda_time_ms(fn) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
+
+    # a NaN or an Inf runs to the sweep cap and gives NaN out (K4 and K4s)
+    for D in (50, 5):
+        T, _ = _eig_batch(2, D, gen, dev)
+        T[0, 1, 2], T[1, 0, 0] = float("nan"), float("inf")
+        sw = torch.empty(2, **i32)
+        got = cones.k4_jacobi(T, 1, sweeps=sw) if D > 8 else cones.k4s_project_psd(T, sw)
+        torch.cuda.synchronize()
+        row = dict(D=D, sweeps=sw.tolist(), all_nan=bool(got.isnan().all()))
+        row["ok"] = row["all_nan"] and row["sweeps"] == [MAX_SWEEPS + 1] * 2
+        out["K4_nonfinite"].append(row)
+
+    # ---- K4: the headline's S1 first (the row the record times) ----
+    for B, d in ((64, 100), (64, 50), (64, 51), (64, 150), (32, 200), (2, 500)):
+        T, T64 = _eig_batch(B, d, gen, dev)
+        w64, V64 = torch.linalg.eigh(T64)
+        P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
+        lam = w64.abs().amax(-1)
+        # the plain eigenvalue and eigenpair versions are the library calls
+        # themselves: each is timed once
+        lib_eigvalsh = tm(lambda: torch.linalg.eigvalsh(T))
+        lib_eigh = tm(lambda: torch.linalg.eigh(T))
+        for mode in (1, 0, 2):
+            sw = torch.empty(B, **i32)
+            got = cones.k4_jacobi(T, mode, sweeps=sw)
+            torch.cuda.synchronize()
+            row = dict(B=B, d=d, mode=("eigvalsh", "projection", "eigh")[mode],
+                       max_sweeps=int(sw.max()), min_sweeps=int(sw.min()))
+            if mode == 1:
+                row["rel_err_vs_f64"] = float(((got.double() - P64).norm(dim=(-2, -1))
+                                               / P64.norm(dim=(-2, -1))).max())
+                plain = cones.project_psd_plain(T)
+                row["max_abs_err"] = float((got - plain).abs().max())
+                times = (tm(lambda: cones.k4_jacobi(T, 1)), tm(lambda: cones.project_psd_plain(T)),
+                         lib_eigh)
+                ok = row["rel_err_vs_f64"] <= 1e-5
+            else:
+                w = got if mode == 0 else got[0]
+                row["eig_err_vs_f64"] = float(((w.double() - w64).abs().amax(-1) / lam).max())
+                if mode == 0:
+                    row["max_abs_err"] = float((w - torch.linalg.eigvalsh(T)).abs().max())
+                    times = (tm(lambda: cones.k4_jacobi(T, 0)), lib_eigvalsh, lib_eigvalsh)
+                    ok = row["eig_err_vs_f64"] <= 1e-5
+                else:
+                    V = got[1].double()
+                    resid = (T64 @ V - V * w.double()[..., None, :]).norm(dim=(-2, -1))
+                    eye = torch.eye(d, dtype=torch.float64, device=dev)
+                    row["residual"] = float((resid / T64.norm(dim=(-2, -1))).max())
+                    row["orthogonality"] = float((V.transpose(-1, -2) @ V - eye)
+                                                 .norm(dim=(-2, -1)).max())
+                    # eigenvalues only: the vectors of a cluster are a basis
+                    # of its subspace, not unique, and signs are free
+                    row["max_abs_err"] = float((w - cones.eigh_plain(T)[0]).abs().max())
+                    times = (tm(lambda: cones.k4_jacobi(T, 2)), lib_eigh, lib_eigh)
+                    ok = (row["eig_err_vs_f64"] <= 1e-5 and row["residual"] <= 1e-5 * d ** 0.5
+                          and row["orthogonality"] <= 1e-5 * d ** 0.5)
+            row["ok"] = ok and row["max_sweeps"] <= MAX_SWEEPS
+            row.update(ms=times[0], plain_ms=times[1], library_ms=times[2])
+            # an eigendecomposition counts 9 d^3 flops with vectors and
+            # 4 d^3 / 3 without, whatever the method; the projection adds
+            # the symmetric half of V max(w, 0) V' (d^3)
+            outf = (d, d * d, d * d + d)[mode]
+            with_bound(row, 4 * B * (d * d + outf),
+                       B * (4 * d ** 3 / 3, 10 * d ** 3, 9 * d ** 3)[mode])
+            out["K4"].append(row)
+
+    # ---- K4s: the Shor bounds' 5x5 minors and 3x3 XWH slots, 32 x 4096 ----
+    for D in (5, 3):
+        T, T64 = _eig_batch(32 * 4096, D, gen, dev)
+        sw = torch.empty(T.shape[0], **i32)
+        got = cones.k4s_project_psd(T, sw)
+        torch.cuda.synchronize()
+        P64 = cones.project_psd_plain(T64)
+        plain = cones.project_psd_plain(T)
+        per = ((got.double() - P64).norm(dim=(-2, -1)) / T64.norm(dim=(-2, -1))).max()
+        row = dict(N=T.shape[0], D=D, rel_err_vs_f64=rel_fro(got, P64),
+                   per_matrix_err_vs_f64=float(per), max_abs_err=float((got - plain).abs().max()),
+                   max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
+                   ms=tm(lambda: cones.k4s_project_psd(T)),
+                   plain_ms=tm(lambda: cones.project_psd_plain(T)),
+                   # cuSOLVER's batched eigh, chunked below its limit
+                   library_ms=tm(lambda: cones.eigh_plain(T)))
+        row["ok"] = (row["rel_err_vs_f64"] <= 1e-5 and row["per_matrix_err_vs_f64"] <= 1e-5
+                     and row["max_sweeps"] <= MAX_SWEEPS)
+        with_bound(row, 4 * 2 * T.numel(), T.shape[0] * 10 * D ** 3)
+        out["K4s"].append(row)
+
+    # ---- K5: U U' - Y with its two smallest eigenvalues -1 and -0.6 ----
+    for B, n, k in ((64, 50, 1), (64, 75, 2)):
+        U = torch.randn(B, n, k, generator=gen, dtype=torch.float64)
+        Q, _ = torch.linalg.qr(torch.randn(B, n, n, generator=gen, dtype=torch.float64))
+        lam = torch.empty(B, n, dtype=torch.float64).uniform_(-0.3, 1.0, generator=gen)
+        lam[:, 0], lam[:, 1] = -1.0, -0.6
+        Y = U @ U.transpose(-1, -2) - (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
+        U32 = U.float().to(dev).contiguous()
+        Y32 = (0.5 * (Y + Y.transpose(-1, -2))).float().to(dev).contiguous()
+        M64 = U32.double() @ U32.double().transpose(-1, -2) - Y32.double()
+        w64, V64 = torch.linalg.eigh(0.5 * (M64 + M64.transpose(-1, -2)))
+        sw = torch.empty(B, **i32)
+        w, V = cones.k4_jacobi(None, 2, 2, U=U32, Y=Y32, sweeps=sw)
+        torch.cuda.synchronize()
+        wp, Vp = separation_eigpairs_plain(U32, Y32)
+
+        def aligned(X, R):  # X's columns with R's signs
+            return X * torch.sign(torch.sum(X * R, dim=-2, keepdim=True))
+
+        Va = aligned(V.double(), V64[..., :2])
+        M32 = 0.5 * (M64 + M64.transpose(-1, -2)).float()
+        row = dict(B=B, n=n, k=k, max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
+                   eig_err_vs_f64=float(((w.double() - w64[:, :2]).abs().amax(-1)
+                                         / w64.abs().amax(-1)).max()),
+                   vec_err_vs_f64=float((Va - V64[..., :2]).norm(dim=-2).max()),
+                   max_abs_err=max(float((w - wp).abs().max()),
+                                   float((aligned(V, Vp) - Vp).abs().max())),
+                   ms=tm(lambda: separation_eigpairs(U32, Y32)),
+                   plain_ms=tm(lambda: separation_eigpairs_plain(U32, Y32)),
+                   library_ms=tm(lambda: torch.linalg.eigh(M32)))
+        row["ok"] = (row["eig_err_vs_f64"] <= 1e-5 and row["vec_err_vs_f64"] <= 1e-5
+                     and row["max_sweeps"] <= MAX_SWEEPS)
+        with_bound(row, 4 * B * (n * k + n * n + 2 + 2 * n), B * 9 * n ** 3)
+        out["K5"].append(row)
+
+    # ---- K6: one V-step + U-step at the headline's n = m = 50 ----
+    n = m = 50
+    A = torch.randn(n, m, generator=gen).to(dev)
+    mask = (torch.rand(n, m, generator=gen) < 0.5).float().to(dev)
+    for B, k in ((4, 1), (64, 1), (4, 2), (64, 2), (4, 10), (64, 10)):
+        # well-conditioned factors, as altmin's SVD warm start gives
+        Q, _ = torch.linalg.qr(torch.randn(B, n, k, generator=gen, dtype=torch.float64))
+        U = (Q * torch.empty(B, 1, k, dtype=torch.float64).uniform_(0.5, 2.0, generator=gen))
+        U = U.float().to(dev).contiguous()
+        V = v_step(U, A, mask, 80.0)
+        U2 = u_step_unconstrained(V, A, mask, 80.0)
+        torch.cuda.synchronize()
+        Vp = v_step_plain(U, A, mask, 80.0)
+        U2p = u_step_unconstrained_plain(V, A, mask, 80.0)  # on the kernel's V
+        G = torch.einsum("bnk,nm,bnl->bmkl", U, mask, U) + (1 / 80.0) * (
+            U.transpose(-1, -2) @ U)[:, None] + 1e-10 * torch.eye(k, device=dev)
+        r = (U.transpose(-1, -2) @ (mask * A)).transpose(-1, -2)[..., None]
+        H = torch.einsum("bkm,nm,blm->bnkl", V, mask, V) + (1 / 80.0) * (
+            V @ V.transpose(-1, -2))[:, None] + 1e-10 * torch.eye(k, device=dev)
+        r2 = ((mask * A) @ V.transpose(-1, -2))[..., None]
+        row = dict(B=B, n=n, m=m, k=k, rel_err=max(rel_fro(V, Vp), rel_fro(U2, U2p)),
+                   max_abs_err=max(float((V - Vp).abs().max()), float((U2 - U2p).abs().max())),
+                   ms=cuda_time_ms(lambda: u_step_unconstrained(v_step(U, A, mask, 80.0),
+                                                                A, mask, 80.0)),
+                   plain_ms=cuda_time_ms(lambda: u_step_unconstrained_plain(
+                       v_step_plain(U, A, mask, 80.0), A, mask, 80.0)),
+                   # the library's batched solves on the same Grams
+                   library_ms=cuda_time_ms(lambda: (torch.linalg.solve(G, r),
+                                                    torch.linalg.solve(H, r2))))
+        row["ok"] = row["rel_err"] <= 1e-5
+        # A and the mask read once, U in, V and U out; per observed entry
+        # and slot, in each of the two steps, the lower triangle of the
+        # masked k x k Gram term (k^2 + k flops) and the right-hand side (2k)
+        nnz = float(mask.sum())
+        with_bound(row, 4 * (2 * n * m + B * (2 * n * k + k * m)),
+                   2 * B * nnz * (k * k + 3 * k))
+        out["K6"].append(row)
+    return out
+
+
 def _bench_instance(frac, seed=0, n=50):
     from omc_torch.data import generate_matrix_completion_data
 
@@ -915,19 +1147,21 @@ BENCH_KW = dict(
 )
 
 
-def phase_admm(res):
+def _admm_root(B=64, L=8, iters=2000):
+    """One root ADMM visit of the headline instance at a batch of B copies:
+    the solver, its arguments and the problem's constants."""
     import numpy as np
     import torch
 
     from omc_torch.sdp.admm import init_admm_state, make_admm_solver
-    from omc_torch.sdp.relax import NodeBatch, host_certified_bound
+    from omc_torch.sdp.relax import NodeBatch
     from omc_torch.solve import _polish_incumbent
     from omc_torch.tree import root_box
 
     dev = torch.device("cuda", 0)
     A, idx = _bench_instance(0.5)
     mask = idx.astype(np.float64)
-    n, m, k, B, L, gamma = 50, 50, 1, 64, 8, 80.0
+    n, m, k, gamma = 50, 50, 1, 80.0
     U0 = np.linalg.svd(A * mask, full_matrices=False)[0][:, :k]
     obj0, X0, U0 = _polish_incumbent(U0 @ (U0.T @ (A * mask)), A, mask, gamma, k)
     V0 = U0.T @ X0
@@ -942,25 +1176,79 @@ def phase_admm(res):
     st = init_admm_state(B, n, m, k, L, torch.float32, device=dev, sX=sX, sT=sT,
                          X0=X0[None], Y0=(U0 @ U0.T)[None], Th0=(V0.T @ V0)[None],
                          U0=U0[None], rho=rho)
-    solve = make_admm_solver(n, m, k, L, gamma, iters=2000, dtype=torch.float32,
+    solve = make_admm_solver(n, m, k, L, gamma, iters=iters, dtype=torch.float32,
                              alpha=1.9, check_every=1000, ema_iters=1000)
     ub_bar = obj0 * (1 + 1e-9) + 1e-9
+    return solve, (f(A), f(mask), batch, ub_bar, st), dict(A=A, mask=mask, k=k, gamma=gamma,
+                                                          ub_bar=ub_bar, obj0=obj0)
+
+
+def phase_admm(res):
+    """One root visit (B=64, L=8, 2,000 iterations: two safe-bound calls
+    through K4 and one separation through K5); the device bound against the
+    float64 host bound.  The same bound through torch's eigh is logged."""
+    import numpy as np
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops import cones
+    from omc_torch.sdp import relax
+
+    solve, args, c = _admm_root(64)
+    B, L = 64, 8
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    _, out = solve(f(A), f(mask), batch, ub_bar, st)
+    _, out = solve(*args)
     torch.cuda.synchronize()
     dt = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
     o = {kk: v.cpu().numpy() for kk, v in out.items()}
-    lb_host = host_certified_bound(A, mask, batch, o, gamma, k, ub_bar)
+    batch = args[2]
+    lb_host = relax.host_certified_bound(c["A"], c["mask"], batch, o, c["gamma"], c["k"],
+                                         c["ub_bar"])
     lb_dev, lb_est = o["lb_dev"].astype(np.float64), o["lb_est"].astype(np.float64)
     worst = float(np.max(np.abs(lb_dev - lb_host) / (1.0 + np.abs(lb_host))))
+    scale = (lb_est - lb_dev) / relax.margin_rel_default(torch.float32)
+    # a reading, not a check: the same on-device bound on the same duals
+    # through torch's float32 eigh (cuSOLVER), as the port ran it before K4,
+    # and each bound's distance from the float64 certificate
+    ys = [out[key] for key in ("y1", "y2", "ya", "yb", "yc")]
+    saved = relax.project_psd, relax.eigvalsh
+    relax.project_psd, relax.eigvalsh = cones.project_psd_plain, torch.linalg.eigvalsh
+    try:
+        lb_t, est_t = relax.safe_dual_bound2(args[0], args[1], batch, *ys, c["gamma"], c["k"],
+                                             c["ub_bar"])
+    finally:
+        relax.project_psd, relax.eigvalsh = saved
+    lb_t, est_t = lb_t.double().cpu().numpy(), est_t.double().cpu().numpy()
+    d_lb = np.abs(lb_dev - lb_t)
     row = dict(B=B, L=L, iters=2000, seconds=dt, ms_per_iter=1e3 * dt / 2000,
-               ub=obj0, lb_dev=float(lb_dev[0]), lb_est=float(lb_est[0]),
-               lb_host=float(lb_host[0]), worst_rel_dev_vs_host=worst)
+               ub=c["obj0"], lb_dev=float(lb_dev[0]), lb_est=float(lb_est[0]),
+               lb_host=float(lb_host[0]), worst_rel_dev_vs_host=worst, scale=float(scale[0]),
+               lb_torch_eigh=float(lb_t[0]),
+               worst_dlb_vs_torch_eigh_over_scale=float(np.max(d_lb / scale)),
+               worst_k4_est_vs_host_over_scale=float(np.max(np.abs(lb_est - lb_host) / scale)),
+               worst_torch_est_vs_host_over_scale=float(np.max(np.abs(est_t - lb_host) / scale)),
+               launches=launches)
     log("admm", json.dumps(row))
     assert np.all(np.isfinite(lb_host))
     assert worst <= 1e-2, row
+    # K4's margin-free bound sits within 1e-5 scale of the float64
+    # certificate of the same duals (well inside the 3e-5 margin)
+    assert np.all(np.abs(lb_est - lb_host) <= 1e-5 * scale), row
+    assert launches["K4"] > 0 and launches["K5"] == 1, launches
     res["admm"] = row
+
+
+# the launch counts every driver run must raise: the on-device safe bound
+# (K4, not on the McCormick path), the separation (K5) and the root altmin (K6)
+BOUND_KEYS = ("K4", "K5", "K6")
+
+
+def _assert_launched(launches, keys):
+    missing = [key for key in keys if not launches[key] > 0]
+    assert not missing, (missing, launches)
 
 
 def _solve(A, idx, gamma, k=1, **kw):
@@ -987,12 +1275,14 @@ def _summary(sol, inst, secs):
 
 
 def phase_fixtures(res):
+    from omc_torch import kernels
     from omc_torch.data import generate_matrix_completion_data
 
     with open(os.path.join(HERE, "tests", "fixtures", "instances.json")) as fh:
         fixtures = json.load(fh)
     rows = []
     for fx in fixtures:
+        kernels.reset_launches()
         A, idx = generate_matrix_completion_data(
             fx["k"], fx["n"], fx["m"], fx["n_indices"], fx["seed"])
         sol, inst, secs = _solve(
@@ -1002,6 +1292,7 @@ def phase_fixtures(res):
             batch_size=8, sdp_iters=1200, dtype="float32", time_limit=300,
             verbosity=0)
         row = dict(k=fx["k"], n=fx["n"], seed=fx["seed"], **_summary(sol, inst, secs))
+        _assert_launched(kernels.LAUNCHES, BOUND_KEYS)
         ref = fx["certified_objective"]
         tol = (fx["certified_gap"] + 1e-2) * max(1.0, abs(ref))
         row.update(reference=ref, tol=tol)
@@ -1013,10 +1304,15 @@ def phase_fixtures(res):
 
 
 def _certify(name, frac, ref, ref_gap, res):
+    from omc_torch import kernels
+
     A, idx = _bench_instance(frac)
     rows = {}
     for run in ("cold", "warm") if name == "headline" else ("run",):
+        before = dict(kernels.LAUNCHES)
         sol, inst, secs = _solve(A, idx, 80.0, **BENCH_KW)
+        _assert_launched({key: kernels.LAUNCHES[key] - before[key] for key in before},
+                         BOUND_KEYS)
         row = _summary(sol, inst, secs)
         rows[run] = row
         log(name, run, json.dumps(row))
@@ -1035,8 +1331,7 @@ def phase_headline(res):
     _certify("headline", 0.5, HEADLINE_OBJ, HEADLINE_GAP, res)
     launches = dict(kernels.LAUNCHES)
     log("headline launches", json.dumps(launches))
-    for key in ("K1", "K2", "K3"):
-        assert launches[key] > 0, launches
+    _assert_launched(launches, ("K1", "K2", "K3") + BOUND_KEYS)
     res["launches"] = launches
 
 
@@ -1045,8 +1340,12 @@ def phase_multinode(res):
 
 
 def phase_branch(res):
+    from omc_torch import kernels
+
     A, idx = _bench_instance(0.2)
+    kernels.reset_launches()
     sol, inst, secs = _solve(A, idx, 80.0, **{**BENCH_KW, "time_limit": 45})
+    _assert_launched(kernels.LAUNCHES, BOUND_KEYS)
     row = _summary(sol, inst, secs)
     log_ = inst["run_log"]
     row["gap_first"] = float(log_[0]["gap"])
@@ -1093,8 +1392,7 @@ def phase_shor(res):
     assert row["gap"] <= SHOR_GAP, row
     assert abs(row["objective"] - MULTI_OBJ) <= (row["gap"] + MULTI_GAP) * MULTI_OBJ, row
     assert row["minors"] > 0, row
-    for key in ("K1", "K2", "K3", "K7", "K8a", "K8b"):
-        assert launches[key] > 0, launches
+    _assert_launched(launches, ("K1", "K2", "K3", "K7", "K8a", "K8b", "K4s") + BOUND_KEYS)
     res["shor"] = row
     res["shor_launches"] = launches
 
@@ -1143,7 +1441,7 @@ def phase_config2(res):
     assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
     assert not lowers or lowers[-1] <= row["objective"] * (1 + 1e-12), row
     assert abs(obj64 - row["objective"]) <= 1e-9 * abs(obj64), row
-    assert launches["K7"] > 0 and launches["K8a"] > 0 and launches["K8b"] > 0, launches
+    _assert_launched(launches, ("K7", "K8a", "K8b", "K4s") + BOUND_KEYS)
     res["config2"] = row
 
 
@@ -1220,7 +1518,7 @@ def phase_config3(res):
     sol, inst, secs = _solve(A, idx, 80.0, k=2, **CONFIG3_KW)
     launches = dict(kernels.LAUNCHES)
     res["config3"] = _rank2_checks("config3", sol, inst, secs, A, idx, launches,
-                                   ("K1", "K2", "K3"))
+                                   ("K1", "K2", "K3") + BOUND_KEYS)
 
 
 def phase_shork(res):
@@ -1231,7 +1529,9 @@ def phase_shork(res):
     from omc_torch import kernels
 
     A, idx = _config3_instance()
+    kernels.reset_launches()
     sol, inst, secs = _solve(A, idx, 80.0, k=2, **{**SHORK_KW, "root_only": True})
+    _assert_launched(kernels.LAUNCHES, ("K4s",) + BOUND_KEYS)
     lb = float(inst["run_log"][-1]["lower"])
     root = dict(seconds=secs, lower=lb, omc_lower=SHORK_ROOT_OMC,
                 rel_diff=abs(lb - SHORK_ROOT_OMC) / (1.0 + abs(SHORK_ROOT_OMC)),
@@ -1244,7 +1544,7 @@ def phase_shork(res):
     sol, inst, secs = _solve(A, idx, 80.0, k=2, **SHORK_KW)
     launches = dict(kernels.LAUNCHES)
     row = _rank2_checks("shork", sol, inst, secs, A, idx, launches,
-                        ("K1", "K2", "K3", "K7t", "K7x", "K8c", "K8d"))
+                        ("K1", "K2", "K3", "K7t", "K7x", "K8c", "K8d", "K4s") + BOUND_KEYS)
     assert row["minors_max"] > 0, row
     res["shork_root"] = root
     res["shork"] = row
@@ -1284,9 +1584,11 @@ def phase_mccormick(res):
     lo, hi = root_box(50, 1)
     node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0,
                   cuts=None)
+    kernels.reset_launches()
     t0 = time.time()
     r = matrix_completion_SDP_relaxation(node, 50, 1, A, idx, 80.0, use_disjunctive_cuts=False,
                                          iters=2000, dtype="float32", device="cuda")
+    assert kernels.LAUNCHES["K5"] == 1, kernels.LAUNCHES
     api = dict(seconds=time.time() - t0, lower=r["lower_bound"], objective=r["objective"],
                omc_lower=MC_API_OMC,
                rel_diff=abs(r["lower_bound"] - MC_API_OMC) / (1.0 + abs(MC_API_OMC)))
@@ -1325,10 +1627,25 @@ def phase_mccormick(res):
     iters, visits = row["sdp_iters_total"], row["device_steps"]
     assert launches["K9a"] == launches["K9b"] == launches["K1"] == iters > 0, (launches, row)
     assert launches["K9s"] == visits > 0, (launches, row)
+    # one separation per visit, the root altmin; no on-device bound here
+    assert launches["K5"] == visits and launches["K6"] > 0 and launches["K4"] == 0, launches
     res["mccormick_api"] = api
     res["mccormick_root"] = root
     res["mccormick"] = row
     res["mccormick_launches"] = launches
+
+
+def _device_ms_by_kernel(prof, names, per=1):
+    """Device milliseconds per kernel name in a profile (``names`` maps a
+    substring of the CUDA name to a key; the rest under "other: ...")."""
+    by = {}
+    for ev in prof.key_averages():
+        # kernels carry their own (self) device time; host ops carry none
+        dt = getattr(ev, "self_device_time_total", 0) or 0
+        if dt > 0:
+            key = next((v for k_, v in names.items() if k_ in ev.key), "other: " + ev.key[:60])
+            by[key] = by.get(key, 0.0) + dt / 1e3 / per
+    return by
 
 
 def _trace_loop(step, names, iters, **shape):
@@ -1344,13 +1661,7 @@ def _trace_loop(step, names, iters, **shape):
             step()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.time() - t0) / iters
-    by = {}
-    for ev in prof.key_averages():
-        # kernels carry their own (self) device time; host ops carry none
-        dt = getattr(ev, "self_device_time_total", 0) or 0
-        if dt > 0:
-            key = next((v for k_, v in names.items() if k_ in ev.key), "other: " + ev.key[:60])
-            by[key] = by.get(key, 0.0) + dt / 1e3 / iters  # ms per iteration
+    by = _device_ms_by_kernel(prof, names, per=iters)  # ms per iteration
     busy = sum(by.values())
     # the idle share is taken against the unprofiled CUDA-event time: the
     # profiled wall includes the profiler's own start and stop
@@ -1364,8 +1675,9 @@ def phase_trace(res):
     """(Run on request only.)  torch.profiler traces of the Shor loop at
     config 2's shape (B=32, n=m=100, M5=1024, L=8) and of the rank-k Shor
     loop at config 3's (B=32, n=m=75, k=2, M5=1024, L=8), 20 iterations
-    each, and of the McCormick loop at the headline's shape (n=m=50, k=1;
-    B=1 and B=64), 50 iterations each."""
+    each, of the McCormick loop at the headline's shape (n=m=50, k=1; B=1
+    and B=64), 50 iterations each, and of one base-path root visit at B=64
+    with its two safe-bound calls (K4) and its separation (K5)."""
     import torch
 
     from omc_torch.sdp import admm_shor as S
@@ -1398,7 +1710,8 @@ def phase_trace(res):
     # the running means on, at B=1 (the root visit) and B=64
     from omc_torch.sdp import mccormick as MC
 
-    names.update({"k9a_kernel": "K9a", "k9b_kernel": "K9b"})
+    names.update({"k9a_kernel": "K9a", "k9b_kernel": "K9b", "k4_kernel<false>": "K4",
+                  "k4_kernel<true>": "K5", "k4s_kernel": "K4s", "k6_kernel": "K6"})
     for B in (1, 64):
         c, st = _mc_inputs(B, 50, 50, 1, gen, dev)
         acc = [torch.zeros_like(x) for x in (st.u1, st.u2, st.umc, st.uorth)]
@@ -1407,51 +1720,51 @@ def phase_trace(res):
                           B=B, n=50, m=50, k=1)
         log("trace mccormick", json.dumps(row))
         res[f"trace_mccormick_B{B}"] = row
-    res["unported"] = _time_unported_ops(gen, dev)
+    visit, call = _trace_visit(names)
+    log("trace visit", json.dumps(visit))
+    log("trace bound call", json.dumps(call))
+    res["trace_visit"], res["trace_bound_call"] = visit, call
 
 
-def _time_unported_ops(gen, dev):
-    """The device ops of omc that have no kernel in the port yet, as the
-    port runs them (torch around library calls), at the headline's shapes,
-    with each one's bound: K4 the on-device safe bound (B=64, L=8), K5 the
-    separation eigh (64, 50, 50), K6 one altmin V-step + U-step at the root
-    altmin's batch (B=4).  An eigendecomposition is counted as 9 d^3 flops
-    with eigenvectors and 4 d^3 / 3 without."""
+def _trace_visit(names):
+    """One base-path root visit at the headline's shape and B=64 (2,000
+    iterations, two safe-bound calls, one separation) under the profiler,
+    and one safe-bound call alone, split into the eigensolver (K4) and the
+    torch terms."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    from omc_torch.ops.linalg import u_step_unconstrained, v_step
     from omc_torch.sdp.relax import safe_dual_bound2
 
-    B, n, m, k, L = 64, 50, 50, 1, 8
-    c, st, _, _ = _admm_inputs(B, n, m, k, L, gen, dev)
-    y = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (st.u1, st.u2, st.ua, st.ub, st.uc)]
-    for i in (0, 1):
-        y[i] = 0.5 * (y[i] + y[i].transpose(-1, -2))
-    A = c.maskA
-    rows = {}
-    r = dict(B=B, n=n, m=m, k=k, L=L,
-             ms=cuda_time_ms(lambda: safe_dual_bound2(A, c.mask, c.batch, *y, 80.0, k, 20.0)))
-    d1, d2 = n + m, n + k
-    with_bound(r, 4 * (B * (d1 * d1 + d2 * d2 + 3 * L * k + L + L * n + 2 * L * k + L + 2 * n * k + 2)
-                       + 2 * n * m),
-               B * (11 * d1 ** 3 + 11 * d2 ** 3 + 4 * (m ** 3 + n ** 3 + m ** 3) // 3))
-    rows["K4"] = r
-    T = torch.randn((B, n, n), generator=gen).to(dev)
-    T = 0.5 * (T + T.transpose(-1, -2))
-    r = dict(B=B, n=n, ms=cuda_time_ms(lambda: torch.linalg.eigh(T)))
-    with_bound(r, 4 * B * (n * n + n + n * n), B * 9 * n ** 3)
-    rows["K5"] = r
-    Ba = 4
-    U = torch.randn((Ba, n, k), generator=gen).to(dev)
-    r = dict(B=Ba, n=n, m=m, k=k, ms=cuda_time_ms(
-        lambda: u_step_unconstrained(v_step(U, A, c.mask, 80.0), A, c.mask, 80.0)))
-    # A and the mask read once, U in, V and U out; per entry and slot the
-    # masked k x k Gram terms and right-hand sides of both steps
-    with_bound(r, 4 * (2 * n * m + Ba * (2 * n * k + k * m)), Ba * 2 * (2 * n * m * (k * k + k)))
-    rows["K6"] = r
-    for name, r in rows.items():
-        log(f"unported {name}", json.dumps(r))
-    return rows
+    solve, args, c = _admm_root(64)
+    _, out = solve(*args)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _, out = solve(*args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+    by = _device_ms_by_kernel(prof, names)
+    busy = sum(by.values())
+    visit = dict(B=64, n=50, m=50, k=1, L=8, iters=2000, bound_calls=2, separations=1,
+                 profiled_wall_ms=wall, device_busy_ms=busy, kernel_ms=by,
+                 k4_share_of_busy=by.get("K4", 0.0) / max(busy, 1e-30),
+                 k5_share_of_busy=by.get("K5", 0.0) / max(busy, 1e-30),
+                 idle_share=max(0.0, 1.0 - busy / wall))
+    ys = [out[key] for key in ("y1", "y2", "ya", "yb", "yc")]
+    bound = lambda: safe_dual_bound2(args[0], args[1], args[2], *ys, c["gamma"],  # noqa: E731
+                                     c["k"], c["ub_bar"])
+    ev_ms = cuda_time_ms(bound)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            bound()
+        torch.cuda.synchronize()
+    bb = _device_ms_by_kernel(prof, names, per=5)
+    k4 = bb.get("K4", 0.0)
+    call = dict(B=64, n=50, m=50, k=1, L=8, event_ms=ev_ms, k4_device_ms=k4,
+                torch_terms_device_ms=sum(bb.values()) - k4,
+                host_and_gaps_ms=max(0.0, ev_ms - sum(bb.values())), kernel_ms=bb)
+    return visit, call
 
 
 KERNELS = (
@@ -1491,6 +1804,18 @@ KERNELS = (
     ("K9b", ("K9b",), "mccormick_launches",
      "K9b McCormick forward map + cone step (B=64, n=m=50, k=1)",
      "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
+    ("K4", ("K4",), "launches",
+     "K4 Jacobi eigensolver of the safe bounds, PSD projection (B=64, d=100)",
+     "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),
+    ("K4s", ("K4s",), "shor_launches",
+     "K4s Jacobi PSD projection of 5x5 minor duals, one thread each (32x4096)",
+     "omc_torch/csrc/k4s_jacobi_small.cu", "omc/sdp/admm_shor.py:786"),
+    ("K5", ("K5",), "launches",
+     "K5 separation eigenpairs of UU'-Y, two smallest (B=64, n=50)",
+     "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/admm.py:576"),
+    ("K6", ("K6",), "launches",
+     "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
+     "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
 )
 
 

@@ -5,6 +5,8 @@
 // on the given stream, allocates nothing and returns cudaGetLastError().
 #pragma once
 
+#include <cfloat>
+
 #include <cuda_runtime.h>
 
 #define OMC_EXPORT extern "C" __attribute__((visibility("default")))
@@ -144,6 +146,43 @@ __device__ __forceinline__ void project_rsoc1(float u, float v, float x, float& 
   pu = (tp + zs) / s2;
   pv = (tp - zs) / s2;
   px = zx;
+}
+
+// ---- Jacobi eigensolver core (K4, K4s, K5; mirror: omc_torch/ops/jacobi.py)
+
+// sweeps before the loop gives up; a sweep count of kJacobiMaxSweeps + 1
+// means the cap was hit
+constexpr int kJacobiMaxSweeps = 30;
+
+// The floor of the stopping rule: eps ||A||_F / (4 d), or NaN for a
+// non-finite matrix, so that every pair then rotates until the cap.
+__device__ __forceinline__ float jacobi_floor(float normF, int d) {
+  return isfinite(normF) ? FLT_EPSILON * normF / (4.f * d) : __int_as_float(0x7fffffff);
+}
+
+// One rotation of the pair (p, q) of a symmetric matrix (Golub & Van Loan,
+// sym.schur2): false when the pair is skipped, |a_pq| <= max(eps
+// sqrt|a_pp| sqrt|a_qq|, floor) (a NaN fails the test, so it rotates);
+// else t, s and r = s / (1 + c) of Rutishauser's update form.
+__device__ __forceinline__ bool jacobi_rotation(float app, float aqq, float apq, float floor_,
+                                                float& t, float& s, float& r) {
+  const float rel = FLT_EPSILON * sqrtf(fabsf(app)) * sqrtf(fabsf(aqq));
+  const float thr = rel > floor_ ? rel : floor_;
+  if (fabsf(apq) <= thr) return false;
+  const float tau = (aqq - app) / (2.f * apq);
+  t = copysignf(1.f, tau) / (fabsf(tau) + hypotf(1.f, tau));
+  const float c = 1.f / sqrtf(1.f + t * t);
+  s = t * c;
+  r = s / (1.f + c);
+  return true;
+}
+
+// (c x - s y, s x + c y) in Rutishauser's form: the rounding error is
+// relative to the change, so small late-sweep angles keep V orthogonal
+__device__ __forceinline__ void jacobi_rot(float& x, float& y, float s, float r) {
+  const float x0 = x, y0 = y;
+  x = x0 - s * (y0 + r * x0);
+  y = y0 + s * (x0 - r * y0);
 }
 
 }  // namespace omc
@@ -342,4 +381,38 @@ struct K8dParams {
   const float *sX, *sT, *sS, *rho;       // (B,)
   int B, n, m, k, C, Ms;
   float alpha, beta;
+};
+
+// K4 / K5: batched symmetric eigensolver, one CTA per matrix.  K4 reads M;
+// K5 (M null) forms U U' - Y.  mode 0: the eigenvalues ascending into w
+// (nout = d); mode 1: the PSD projection V max(w, 0) V' into P; mode 2: the
+// nout smallest eigenpairs into w and V.
+struct K4Params {
+  const float* M;      // (B, d, d), or null for K5
+  const float *U, *Y;  // K5: (B, d, k), (B, d, d)
+  float* w;            // (B, nout) or null
+  float* V;            // (B, d, nout) or null
+  float* P;            // (B, d, d) or null
+  int* sweeps;         // (B,) sweeps run; kJacobiMaxSweeps + 1 at the cap
+  float* work;         // (B, omc_k4_workspace_floats(d, mode)) or null
+  int B, d, k, nout, mode;
+};
+
+// K4s: PSD projection of N tiny (D x D, D <= 8) symmetric matrices, one
+// thread per matrix in registers
+struct K4sParams {
+  const float* t;      // (N, D, D)
+  float* w;            // (N, D, D)
+  int* sweeps;         // (N,) or null
+  int N, D;
+};
+
+// K6: altmin's masked ridge step; the V-step reads U (B, n, k) and writes
+// V (B, k, m), the U-step reads V (B, k, m) and writes U (B, n, k)
+struct K6Params {
+  const float* F;      // the fixed factor
+  const float *A, *mask;  // (n, m)
+  float* out;          // the solved factor
+  int B, n, m, k;
+  float inv_gamma, ridge_eps;
 };

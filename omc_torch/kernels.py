@@ -30,6 +30,12 @@ PyTorch version:
 - K9s ``omc_torch.sdp.mccormick.mc_setup``         (``csrc/k9_mccormick.cu``)
 - K9a ``omc_torch.sdp.mccormick.mc_zstep``         (``csrc/k9_mccormick.cu``)
 - K9b ``omc_torch.sdp.mccormick.mc_cone_step``     (``csrc/k9_mccormick.cu``)
+- K4 ``omc_torch.ops.cones.eigvalsh`` and
+  ``project_psd`` (d > 8)                          (``csrc/k4_jacobi.cu``)
+- K4s ``omc_torch.ops.cones.project_psd`` (d <= 8) (``csrc/k4s_jacobi_small.cu``)
+- K5 ``omc_torch.sdp.relax.separation_eigpairs``   (``csrc/k4_jacobi.cu``)
+- K6 ``omc_torch.ops.linalg.v_step`` and
+  ``u_step_unconstrained``                         (``csrc/k6_altmin.cu``)
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
@@ -50,7 +56,8 @@ import torch
 
 # launches of each kernel in this process (the wrappers add one per launch)
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
-            "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0}
+            "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0,
+            "K4": 0, "K4s": 0, "K5": 0, "K6": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
@@ -260,6 +267,20 @@ class K9bParams(ctypes.Structure):
         ("B", "n", "m", "k"), ("alpha", "beta"))
 
 
+class K4Params(ctypes.Structure):
+    _fields_ = _struct(("M", "U", "Y", "w", "V", "P", "sweeps", "work"),
+                       ("B", "d", "k", "nout", "mode"), ())
+
+
+class K4sParams(ctypes.Structure):
+    _fields_ = _struct(("t", "w", "sweeps"), ("N", "D"), ())
+
+
+class K6Params(ctypes.Structure):
+    _fields_ = _struct(("F", "A", "mask", "out"), ("B", "n", "m", "k"),
+                       ("inv_gamma", "ridge_eps"))
+
+
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name, params in (
@@ -276,6 +297,10 @@ def _load(path: Path):
         ("omc_k9s_setup", K9sParams),
         ("omc_k9a_zstep", K9aParams),
         ("omc_k9b_cone", K9bParams),
+        ("omc_k4_jacobi", K4Params),
+        ("omc_k4s_jacobi_small", K4sParams),
+        ("omc_k6_vstep", K6Params),
+        ("omc_k6_ustep", K6Params),
     ):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]
@@ -284,6 +309,8 @@ def _load(path: Path):
     lib.omc_error_string.restype = ctypes.c_char_p
     lib.omc_k1_smem_max_d.argtypes = []
     lib.omc_k1_smem_max_d.restype = ctypes.c_int
+    lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.omc_k4_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 

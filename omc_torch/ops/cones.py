@@ -1,22 +1,33 @@
-"""Batched cone projections (port of ``omc/ops/cones.py``).
+"""Batched cone projections and eigendecompositions (port of
+``omc/ops/cones.py``).
 
 Closed-form projections used by the ADMM w-step and the safe dual bound.
 All functions accept leading batch dimensions.
+
+``eigvalsh`` and ``project_psd`` are the wrappers of kernels K4
+(``csrc/k4_jacobi.cu``: one CTA per matrix, parallel Jacobi) and K4s
+(``csrc/k4s_jacobi_small.cu``: the PSD projection of matrices up to 8 x 8,
+one thread each).  A CPU tensor takes the plain version, LAPACK through
+``torch.linalg`` (the float64 host certificates of the Shor bounds go
+through it); a CUDA tensor takes the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from omc_torch import kernels
 
 # cuSOLVER's batched eigh rejects batches of 32768 or more small matrices
 # (CUSOLVER_STATUS_INVALID_VALUE; measured with 5x5 float32 and float64
 # batches on an H100, torch 2.11 + CUDA 12.8), and the Shor minor slots
-# come in batches of up to B * 4096
+# come in batches of up to B * 4096; the plain versions chunk on any device
 _EIGH_CHUNK = 16384
+# the largest matrices K4s takes (one thread per matrix, in registers)
+K4S_MAX_D = 8
 
 
-def eigh(M):
+def eigh_plain(M):
     """``torch.linalg.eigh`` of a (..., d, d) batch of any size, in chunks
     of at most ``_EIGH_CHUNK`` matrices."""
     flat = M.reshape(-1, *M.shape[-2:])
@@ -28,16 +39,118 @@ def eigh(M):
     return w, V
 
 
+def project_psd_plain(M):
+    """Project symmetric matrices (..., d, d) onto the PSD cone: symmetrise,
+    eigh, clamp the eigenvalues at 0 (plain version of K4/K4s)."""
+    M = symmetrize(M)
+    w, V = eigh_plain(M)
+    w = torch.clamp(w, min=0.0)
+    return (V * w[..., None, :]) @ V.transpose(-1, -2)
+
+
+def _cuda(name, M):
+    dev = M.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if M.ndim < 2 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"{name}: expected (..., d, d) matrices, got {tuple(M.shape)}")
+    return dev
+
+
+def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None):
+    """Launch K4 on a (..., d, d) batch ``M`` (or K5 on ``U`` (B, d, k) and
+    ``Y`` (B, d, d), the matrices U U' - Y).  ``mode`` 0: eigenvalues
+    ascending; 1: the PSD projection; 2: the ``nout`` smallest eigenpairs.
+    Each matrix is symmetrised on load.  ``sweeps`` (optional int32, one per
+    matrix) receives the sweeps run (``ops.jacobi.MAX_SWEEPS + 1``: the cap
+    was hit).  Returns ``w``, ``P`` or ``(w, V)``."""
+    key = "K4" if M is not None else "K5"
+    if mode not in (0, 1, 2):
+        raise ValueError(f"{key}: mode {mode!r} is not 0, 1 or 2")
+    src = M if M is not None else Y
+    dev = _cuda(key, src)
+    lead, d = src.shape[:-2], src.shape[-1]
+    Bn = 1
+    for x in lead:
+        Bn *= x
+    nout = d if nout is None else nout
+    if not 1 <= nout <= d:
+        raise ValueError(f"{key}: nout {nout} outside 1..{d}")
+    p = kernels.K4Params()
+    p.B, p.d, p.nout, p.mode, p.k = Bn, d, nout, mode, 0
+    if M is not None:
+        M = M.contiguous()
+        p.M = kernels.check("M", M, M.shape, dev)
+    else:
+        U, Y = U.contiguous(), Y.contiguous()
+        p.k = U.shape[-1]
+        p.U = kernels.check("U", U, (Bn, d, p.k), dev)
+        p.Y = kernels.check("Y", Y, (Bn, d, d), dev)
+    if sweeps is None:
+        sweeps = torch.empty(lead, dtype=torch.int32, device=dev)
+    p.sweeps = kernels.check("sweeps", sweeps, lead, dev, torch.int32)
+    w = V = P = None
+    if mode == 1:
+        P = torch.empty((*lead, d, d), dtype=torch.float32, device=dev)
+        p.P = P.data_ptr()
+    else:
+        w = torch.empty((*lead, nout), dtype=torch.float32, device=dev)
+        p.w = w.data_ptr()
+        if mode == 2:
+            V = torch.empty((*lead, d, nout), dtype=torch.float32, device=dev)
+            p.V = V.data_ptr()
+    nwork = kernels.library().omc_k4_workspace_floats(d, mode)
+    # held until the launch is queued; the caching allocator reuses it only
+    # for work queued after this launch on the same stream
+    work = torch.empty((Bn * nwork,), dtype=torch.float32, device=dev) if nwork else None
+    p.work = work.data_ptr() if work is not None else None
+    if Bn:
+        kernels.launch(key, "omc_k4_jacobi", p, dev)
+    return P if mode == 1 else (w if mode == 0 else (w, V))
+
+
+def k4s_project_psd(M, sweeps=None):
+    """Launch K4s: the PSD projection of a (..., d, d) batch, d <= 8, one
+    thread per matrix, any batch size in one launch."""
+    dev = _cuda("K4s", M)
+    d = M.shape[-1]
+    if d > K4S_MAX_D:
+        raise ValueError(f"K4s takes d <= {K4S_MAX_D}, got {d}")
+    M = M.contiguous()
+    out = torch.empty(M.shape, dtype=torch.float32, device=dev)
+    p = kernels.K4sParams()
+    p.N, p.D = M.numel() // (d * d), d
+    p.t = kernels.check("t", M, M.shape, dev)
+    p.w = out.data_ptr()
+    p.sweeps = kernels.check("sweeps", sweeps, M.shape[:-2], dev, torch.int32) \
+        if sweeps is not None else None
+    if p.N:
+        kernels.launch("K4s", "omc_k4s_jacobi_small", p, dev)
+    return out
+
+
+def eigvalsh(M):
+    """Eigenvalues, ascending, of symmetric (..., d, d) matrices: K4 on a
+    CUDA tensor, ``torch.linalg.eigvalsh`` on a CPU tensor."""
+    if M.device.type == "cpu":
+        return torch.linalg.eigvalsh(M)
+    return k4_jacobi(M, 0)
+
+
 def symmetrize(M):
     return 0.5 * (M + M.transpose(-1, -2))
 
 
 def project_psd(M):
-    """Project symmetric matrices (..., d, d) onto the PSD cone (eigh)."""
-    M = symmetrize(M)
-    w, V = eigh(M)
-    w = torch.clamp(w, min=0.0)
-    return (V * w[..., None, :]) @ V.transpose(-1, -2)
+    """Project symmetric matrices (..., d, d) onto the PSD cone: K4s
+    (d <= 8) or K4 on a CUDA tensor, ``project_psd_plain`` on a CPU
+    tensor."""
+    if M.device.type == "cpu":
+        return project_psd_plain(M)
+    _cuda("project_psd", M)
+    if M.shape[-1] <= K4S_MAX_D:
+        return k4s_project_psd(M)
+    return k4_jacobi(M, 1)
 
 
 def project_soc(t, x):

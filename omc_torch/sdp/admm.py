@@ -43,7 +43,7 @@ import torch
 from omc_torch import kernels
 from omc_torch.ops.cones import project_psd, project_soc
 from omc_torch.ops.polar import project_psd_ns_multi, psd_epilogue
-from omc_torch.sdp.relax import NodeBatch, safe_dual_bound2
+from omc_torch.sdp.relax import NodeBatch, safe_dual_bound2, separation_eigpairs
 
 
 @dataclasses.dataclass
@@ -645,9 +645,7 @@ def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
                 )
                 done = bool(torch.all((gmax[group] | cleared) > 0))
 
-        Msep = torch.einsum("bik,bjk->bij", st.U, st.U) - st.Y
-        Msep = 0.5 * (Msep + Msep.transpose(-1, -2))
-        sep_w, sep_V = torch.linalg.eigh(Msep)
+        sep_w, sep_V = separation_eigpairs(st.U, st.Y)
         sX = st.sX[:, None, None]
         sT = st.sT[:, None, None]
         out = {
@@ -659,7 +657,7 @@ def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
             # float64-tracking estimator (not a sound bound)
             "lb_est": b_est,
             "iters_run": torch.full((B,), it, dtype=torch.int32, device=dev),
-            "sep_w": sep_w[..., :2], "sep_V": sep_V[..., :, :2],
+            "sep_w": sep_w, "sep_V": sep_V,
         }
         return st, out
 

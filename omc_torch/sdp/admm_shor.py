@@ -26,9 +26,10 @@ plain PyTorch version beside it (CPU tensors take the plain versions, in
 6. K8b ``shor_cone_step``  -- RSOC, Theta-link and W >= 0 slots with EMAs.
 
 Every ``check_every`` iterations the bias-corrected EMA duals go through
-the torch ``safe_dual_bound_shor2`` (around ``torch.linalg.eigh``) and the
-best chunk is kept.  The host certificate ``host_certified_bound_shor``
-evaluates the same closed form in float64 on the CPU (LAPACK eigh).
+the torch ``safe_dual_bound_shor2`` (its eigendecompositions are kernels
+K4 and K4s on the GPU, ``omc_torch.ops.cones``) and the best chunk is kept.
+The host certificate ``host_certified_bound_shor`` evaluates the same
+closed form in float64 on the CPU (LAPACK eigh, the wrappers' CPU branch).
 """
 
 from __future__ import annotations
@@ -39,11 +40,11 @@ import math
 import torch
 
 from omc_torch import kernels
-from omc_torch.ops.cones import project_psd, project_rsoc
+from omc_torch.ops.cones import eigvalsh, project_psd, project_rsoc
 from omc_torch.ops.polar import project_psd_ns_multi, project_psd_ns_small, psd_epilogue
 from omc_torch.sdp.admm import ADMMState, cone_step, init_admm_state, make_consts, zstep
 from omc_torch.sdp.admm import apply_best_duals as apply_core_best_duals
-from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default
+from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default, separation_eigpairs
 from omc_torch.sdp.shor_encode import INVERSE_FIELDS, ShorBatchHost
 
 # the device form of a Shor batch: a ShorBatchHost whose fields are tensors
@@ -600,9 +601,7 @@ def make_shor_solver(n: int, m: int, L: int, M5: int, Ms: int, gamma: float, *,
                 )
                 done = bool(torch.all((gmax[group] | cleared) > 0))
 
-        Msep = torch.einsum("bik,bjk->bij", core.U, core.U) - core.Y
-        Msep = 0.5 * (Msep + Msep.transpose(-1, -2))
-        sep_w, sep_V = torch.linalg.eigh(Msep)
+        sep_w, sep_V = separation_eigpairs(core.U, core.Y)
         sX = core.sX[:, None, None]
         out = {
             "X": sX * core.X, "Y": core.Y, "Th": core.sT[:, None, None] * core.Th,
@@ -612,7 +611,7 @@ def make_shor_solver(n: int, m: int, L: int, M5: int, Ms: int, gamma: float, *,
             "yc": b_ybar[4], "y5": b_ybar[5], "yr": b_ybar[6], "yl": b_ybar[7],
             "lb_dev": b_lb, "lb_est": b_est,
             "iters_run": torch.full((B,), it, dtype=torch.int32, device=dev),
-            "sep_w": sep_w[..., :2], "sep_V": sep_V[..., :, :2],
+            "sep_w": sep_w, "sep_V": sep_V,
         }
         return st, out
 
@@ -680,7 +679,7 @@ def safe_dual_bound_shor(A, mask, batch: NodeBatch, sb: ShorBatch, y1, y2, ya, y
     # ---- Y / U / cut terms (as in the base bound) ----
     G_Y = -(P1 + P2) + torch.einsum("bl,bln,blp->bnp", lam, cut_x, cut_x)
     G_Y = 0.5 * (G_Y + G_Y.transpose(-1, -2))
-    y_term = torch.sum(torch.clamp(torch.linalg.eigvalsh(G_Y)[..., :k], max=0.0), dim=-1)
+    y_term = torch.sum(torch.clamp(eigvalsh(G_Y)[..., :k], max=0.0), dim=-1)
     W_U = -2.0 * D - torch.einsum("bln,blk->bnk", cut_x, alpha - beta + lam[..., None] * c)
     u_term = torch.sum(torch.minimum(W_U * batch.U_lo, W_U * batch.U_hi), dim=(-2, -1))
     cut_const = (
@@ -693,7 +692,7 @@ def safe_dual_bound_shor(A, mask, batch: NodeBatch, sb: ShorBatch, y1, y2, ya, y
     eye_m = torch.eye(m, dtype=A.dtype, device=A.device)
     G_Th = (0.5 / gamma) * eye_m[None] - R1 - mu[:, None, :] * eye_m[None]
     G_Th = 0.5 * (G_Th + G_Th.transpose(-1, -2))
-    th_term = T_th * torch.clamp(torch.linalg.eigvalsh(G_Th)[..., 0], max=0.0)
+    th_term = T_th * torch.clamp(eigvalsh(G_Th)[..., 0], max=0.0)
 
     # ---- X / W / V coefficients (scatter the minor duals) ----
     fl = _flat_idx(sb.minor_idx, m)

@@ -51,6 +51,7 @@ import torch
 from omc_torch import kernels
 from omc_torch.ops.cones import project_psd, project_soc
 from omc_torch.ops.polar import project_psd_ns_multi, psd_epilogue
+from omc_torch.sdp.relax import separation_eigpairs
 
 # ---------------------------------------------------------------------------
 # Pairs, envelope coefficients, corner boxes (numpy arrays or torch tensors)
@@ -769,15 +770,13 @@ def make_mccormick_solver(n: int, m: int, k: int, gamma: float, *, iters: int = 
         for it in range(ni):
             j = it - (ni - navg) + 1  # position inside the averaging window
             mc_iteration(c, st, ts, acc, 1.0 / j if j >= 1 else 0.0, psd_method)
-        Msep = torch.einsum("bik,bjk->bij", st.U, st.U) - st.Y
-        Msep = 0.5 * (Msep + Msep.transpose(-1, -2))
-        sep_w, sep_V = torch.linalg.eigh(Msep)
+        sep_w, sep_V = separation_eigpairs(st.U, st.Y)
         out = {
             "X": st.sX[:, None, None] * st.X, "Y": st.Y,
             "Th": st.sT[:, None, None] * st.Th, "U": st.U, "t": st.t,
             "y1": acc[0], "y2": acc[1], "ymc": acc[2], "yorth": acc[3],
             "iters_run": torch.full((B,), ni, dtype=torch.int32, device=dev),
-            "sep_w": sep_w[..., :2], "sep_V": sep_V[..., :, :2],
+            "sep_w": sep_w, "sep_V": sep_V,
         }
         return st, out
 

@@ -25,6 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from omc_torch.ops.cones import eigvalsh, k4_jacobi, project_psd
+
 
 @dataclasses.dataclass
 class NodeBatch:
@@ -72,12 +74,6 @@ def safe_dual_bound2(A, mask, batch: NodeBatch, y1, y2, ya, yb, yc, gamma, k,
     by a diagonal shift delta = ||q_off||_F (see the ``omc`` docstring)."""
     n, m = A.shape[-2], A.shape[-1]
     dt = A.dtype
-
-    def _psd(Mat):
-        Mat = 0.5 * (Mat + Mat.transpose(-1, -2))
-        w, V = torch.linalg.eigh(Mat)
-        return (V * torch.clamp(w, min=0.0)[..., None, :]) @ V.transpose(-1, -2)
-
     obs = mask > 0
     zero = torch.zeros((), dtype=dt, device=A.device)
     # pre-zero the off-support q block before projecting
@@ -89,17 +85,17 @@ def safe_dual_bound2(A, mask, batch: NodeBatch, y1, y2, ya, yb, yc, gamma, k,
         ],
         dim=-2,
     )
-    S1 = _psd(S1in)
+    S1 = project_psd(S1in)
     # zero the residual off-support q exactly; compensating shift delta
     q_full = S1[..., :n, n:]
     q_off = torch.where(obs, zero, q_full)
     delta = torch.sqrt(torch.sum(q_off * q_off, dim=(-2, -1)))
     # rescale so that R1 + delta I <= I/(2 gamma)
-    lmaxR1 = torch.linalg.eigvalsh(S1[..., n:, n:])[..., -1] + delta
+    lmaxR1 = eigvalsh(S1[..., n:, n:])[..., -1] + delta
     c_scale = torch.clamp((0.5 / gamma) / torch.clamp(lmaxR1, min=1e-30), max=1.0)
     S1 = S1 * c_scale[..., None, None]
     delta = delta * c_scale
-    S2 = _psd(-y2)
+    S2 = project_psd(-y2)
     P1, q, R1 = S1[..., :n, :n], S1[..., :n, n:], S1[..., n:, n:]
     q = torch.where(obs, q, zero)
     P2, E = S2[..., :n, :n], S2[..., n:, n:]
@@ -116,14 +112,14 @@ def safe_dual_bound2(A, mask, batch: NodeBatch, y1, y2, ya, yb, yc, gamma, k,
     # Y block: inf over {0 <= Y <= I, tr Y <= k} of <G_Y, Y>
     G_Y = -(P1 + P2) + (batch.cut_x * lam[..., None]).transpose(-1, -2) @ batch.cut_x
     G_Y = 0.5 * (G_Y + G_Y.transpose(-1, -2))
-    wY = torch.linalg.eigh(G_Y)[0]
+    wY = eigvalsh(G_Y)
     y_term = torch.sum(torch.clamp(wY[..., :k] - delta[..., None], max=0.0), dim=-1)
 
     # Theta block: inf over {Theta >= 0, tr Theta <= T} of <G_Th, Theta>
     T_th = 2.0 * gamma * ub_bar
     G_Th = (0.5 / gamma) * torch.eye(m, dtype=dt, device=A.device) - R1
     G_Th = 0.5 * (G_Th + G_Th.transpose(-1, -2))
-    wT = torch.linalg.eigh(G_Th)[0]
+    wT = eigvalsh(G_Th)
     th_term = T_th * torch.clamp(wT[..., 0] - delta, max=0.0)
 
     # X block: per-entry clamped quadratic over |X_ij| <= R_X on the support
@@ -156,6 +152,26 @@ def safe_dual_bound2(A, mask, batch: NodeBatch, y1, y2, ya, yb, yc, gamma, k,
         + torch.sqrt(torch.sum(S2 * S2, dim=(-2, -1)))
     )
     return lb - margin_rel * scale, lb
+
+
+def separation_eigpairs(U, Y):
+    """The two smallest eigenpairs of the symmetrised U U' - Y, the
+    branching separation of every family (``omc``: ``eigh(U U' - Y)``
+    sliced to two).  ``U`` (B, n, k), ``Y`` (B, n, n); returns ``sep_w``
+    (B, 2) ascending and ``sep_V`` (B, n, 2).  Kernel K5 on a CUDA tensor,
+    ``separation_eigpairs_plain`` on a CPU tensor.
+    Neither fixes the eigenvectors' signs, as ``omc`` does not."""
+    if U.device.type == "cpu":
+        return separation_eigpairs_plain(U, Y)
+    return k4_jacobi(None, 2, min(2, Y.shape[-1]), U=U, Y=Y)
+
+
+def separation_eigpairs_plain(U, Y):
+    """Plain version of K5: ``einsum``, ``torch.linalg.eigh`` and slice."""
+    M = torch.einsum("bik,bjk->bij", U, U) - Y
+    M = 0.5 * (M + M.transpose(-1, -2))
+    w, V = torch.linalg.eigh(M)
+    return w[..., :2], V[..., :, :2]
 
 
 # ---------------------------------------------------------------------------

@@ -52,11 +52,11 @@ import numpy as np
 import torch
 
 from omc_torch import kernels
-from omc_torch.ops.cones import eigh, project_psd, project_rsoc
+from omc_torch.ops.cones import eigvalsh, project_psd, project_rsoc
 from omc_torch.ops.polar import project_psd_ns_multi, project_psd_ns_small, psd_epilogue
 from omc_torch.sdp.admm import ADMMState, cone_step, init_admm_state, make_consts, zstep
 from omc_torch.sdp.admm import apply_best_duals as apply_core_best_duals
-from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default
+from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default, separation_eigpairs
 from omc_torch.sdp.shor_encode import _csr, fill_v_inverse, v_inverse_tables
 
 # ---------------------------------------------------------------------------
@@ -1080,9 +1080,7 @@ def make_shor_k_solver(n: int, m: int, k: int, L: int, M5: int, Ms: int, gamma: 
                 )
                 done = bool(torch.all((gmax[group] | cleared) > 0))
 
-        Msep = torch.einsum("bik,bjk->bij", core.U, core.U) - core.Y
-        Msep = 0.5 * (Msep + Msep.transpose(-1, -2))
-        sep_w, sep_V = torch.linalg.eigh(Msep)
+        sep_w, sep_V = separation_eigpairs(core.U, core.Y)
         sX = core.sX[:, None, None]
         names = ("y1", "y2", "ya", "yb", "yc", "y5", "yx", "yr", "yl", "ywl")
         out = {
@@ -1092,7 +1090,7 @@ def make_shor_k_solver(n: int, m: int, k: int, L: int, M5: int, Ms: int, gamma: 
             **dict(zip(names, b_ybar)),
             "lb_dev": b_lb, "lb_est": b_est,
             "iters_run": torch.full((B,), it, dtype=torch.int32, device=dev),
-            "sep_w": sep_w[..., :2], "sep_V": sep_V[..., :, :2],
+            "sep_w": sep_w, "sep_V": sep_V,
         }
         return st, out
 
@@ -1119,7 +1117,8 @@ def safe_dual_bound_shor_k(A, mask, batch: NodeBatch, sb: ShorKBatch, y1, y2, ya
     projected here; the kept sets are |Xt| <= R_X, W, Wt in [0, 2 gamma
     ub], |H|, |V| <= 2 gamma ub, Y in the spectrahedron, U in the box and
     Theta PSD with trace <= 2 gamma ub.  Torch, on any device and dtype;
-    every batched eigh goes through ``ops.cones.eigh`` (chunked)."""
+    every eigendecomposition goes through ``ops.cones`` (kernels K4 and K4s
+    on the GPU, LAPACK on the CPU)."""
     n, m = A.shape[-2], A.shape[-1]
     B = y1.shape[0]
     kp = (k * (k - 1)) // 2
@@ -1167,7 +1166,7 @@ def safe_dual_bound_shor_k(A, mask, batch: NodeBatch, sb: ShorKBatch, y1, y2, ya
     # ---- Y / U / cut terms ----
     G_Y = -(P1_ + P2_) + torch.einsum("bl,bln,blp->bnp", lam, cut_x, cut_x)
     G_Y = 0.5 * (G_Y + G_Y.transpose(-1, -2))
-    y_term = torch.sum(torch.clamp(eigh(G_Y)[0][..., :k], max=0.0), dim=-1)
+    y_term = torch.sum(torch.clamp(eigvalsh(G_Y)[..., :k], max=0.0), dim=-1)
     W_U = -2.0 * D - torch.einsum("bln,blk->bnk", cut_x, alpha - beta + lam[..., None] * c)
     u_term = torch.sum(torch.minimum(W_U * batch.U_lo, W_U * batch.U_hi), dim=(-2, -1))
     cut_const = (
@@ -1180,7 +1179,7 @@ def safe_dual_bound_shor_k(A, mask, batch: NodeBatch, sb: ShorKBatch, y1, y2, ya
     eye_m = torch.eye(m, dtype=A.dtype, device=dev)
     G_Th = (0.5 / gamma) * eye_m[None] - R1 + yl[:, None, :] * eye_m[None]
     G_Th = 0.5 * (G_Th + G_Th.transpose(-1, -2))
-    th_term = T_th * torch.clamp(eigh(G_Th)[0][..., 0], max=0.0)
+    th_term = T_th * torch.clamp(eigvalsh(G_Th)[..., 0], max=0.0)
 
     # ---- coefficient assembly (the Lagrangian adds <y, slot> per slot) ----
     cf = _corner_flat(sb)
