@@ -16,16 +16,19 @@ namespace omc {
 constexpr int kThreads = 256;
 
 // (a, b, c) per step of the sign schedule (omc/ops/polar.py _SIGN_SCHEDULE):
-// 12 quintic steps, then 2 cubic Newton-Schulz polish steps (c = 0)
-static __constant__ float kSignSched[14][3] = {
-    {3.521451f, -7.154590f, 3.634029f},   {3.406982f, -6.751032f, 4.344051f},
-    {4.115155f, -11.482394f, 8.367240f},  {3.562198f, -7.405884f, 3.849440f},
-    {3.811135f, -9.095166f, 5.427381f},   {4.202972f, -12.190019f, 8.987046f},
-    {4.176513f, -11.973807f, 8.797295f},  {4.110213f, -12.007850f, 8.897637f},
-    {4.062958f, -11.075007f, 8.012057f},  {3.454039f, -6.995438f, 4.470346f},
-    {2.364441f, -2.438842f, 1.074450f},   {2.135440f, -1.778817f, 0.643428f},
-    {1.5f, -0.5f, 0.0f},                  {1.5f, -0.5f, 0.0f},
-};
+// 12 quintic steps, then 2 cubic Newton-Schulz polish steps (c = 0); one
+// table for device code; OMC_SIGN_SCHED also gives host code its copy
+#define OMC_SIGN_SCHED                                                     \
+  {                                                                        \
+    {3.521451f, -7.154590f, 3.634029f}, {3.406982f, -6.751032f, 4.344051f}, \
+    {4.115155f, -11.482394f, 8.367240f}, {3.562198f, -7.405884f, 3.849440f}, \
+    {3.811135f, -9.095166f, 5.427381f}, {4.202972f, -12.190019f, 8.987046f}, \
+    {4.176513f, -11.973807f, 8.797295f}, {4.110213f, -12.007850f, 8.897637f}, \
+    {4.062958f, -11.075007f, 8.012057f}, {3.454039f, -6.995438f, 4.470346f}, \
+    {2.364441f, -2.438842f, 1.074450f}, {2.135440f, -1.778817f, 0.643428f},  \
+    {1.5f, -0.5f, 0.0f}, {1.5f, -0.5f, 0.0f},                              \
+  }
+static __constant__ float kSignSched[14][3] = OMC_SIGN_SCHED;
 constexpr int kSignSteps = 14;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -192,10 +195,15 @@ struct K1Params {
   float* w[3];         // (B, D_g, D_g) projections
   float* u[3];         // (B, D_g, D_g) u = t - w, or null
   float* acc[3];       // (B, D_g, D_g) EMA of rho*u, or null
-  float* scratch[3];   // (B, 4, Dp, Dp) workspace for D_g > kSmemMaxD, or null
+  float* scratch[3];   // tiles path: (B, 4, Dp, ld) working matrices, then
+                       // B x ceil(Dp / 64) partial sums (Dp = D_g rounded up
+                       // to 16, ld its row stride); null on the cluster path
+  long long scratch_floats[3];  // floats of scratch[g]: the launch refuses
+                                // less than omc_k1_scratch_floats(D_g, B)
   int D[3];
   int G;
   int B;
+  int C;               // CTAs per cluster (1..8, cluster path), 0 for the tiles path
   const float* rho;    // (B,), needed when some acc is given
   float beta;
 };

@@ -147,8 +147,9 @@ class K1Params(ctypes.Structure):
     _fields_ = [
         ("t", ctypes.c_void_p * 3), ("w", ctypes.c_void_p * 3),
         ("u", ctypes.c_void_p * 3), ("acc", ctypes.c_void_p * 3),
-        ("scratch", ctypes.c_void_p * 3), ("D", ctypes.c_int * 3),
-        ("G", ctypes.c_int), ("B", ctypes.c_int),
+        ("scratch", ctypes.c_void_p * 3), ("scratch_floats", ctypes.c_longlong * 3),
+        ("D", ctypes.c_int * 3),
+        ("G", ctypes.c_int), ("B", ctypes.c_int), ("C", ctypes.c_int),
         ("rho", ctypes.c_void_p), ("beta", ctypes.c_float),
     ]
 
@@ -307,10 +308,12 @@ def _load(path: Path):
         fn.restype = ctypes.c_int
     lib.omc_error_string.argtypes = [ctypes.c_int]
     lib.omc_error_string.restype = ctypes.c_char_p
-    lib.omc_k1_smem_max_d.argtypes = []
-    lib.omc_k1_smem_max_d.restype = ctypes.c_int
     lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.omc_k4_workspace_floats.restype = ctypes.c_longlong
+    lib.omc_k1_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.omc_k1_scratch_floats.restype = ctypes.c_longlong
+    lib.omc_k1_cluster_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.omc_k1_cluster_smem.restype = ctypes.c_longlong
     return lib
 
 

@@ -12,13 +12,18 @@ relative error to the projection.  Certification does not depend on it:
 the safe dual bound re-projects the multipliers exactly in float64 on the
 host (``omc_torch/sdp/relax.py``).
 
-The matmuls must run in full float32 (no TF32): TF32-grade products floor
-the ADMM accuracy at ~1e-2.
+The matmuls must be float32-accurate: one-pass TF32 products floor the
+ADMM accuracy at ~1e-2 (K1's 3xTF32 products, below, are float32-grade).
 
 ``project_psd_ns_multi`` is the wrapper of kernel K1
-(``omc_torch/csrc/k1_psd_sign.cu``): one launch projects the three PSD
-blocks of every node slot, one CTA per matrix, and can fuse the ADMM
-u-update and the dual EMA into its epilogue.  On a CPU tensor it runs the
+(``omc_torch/csrc/k1_psd_sign.cu``): one call projects the three PSD
+blocks of every node slot and can fuse the ADMM u-update and the dual EMA
+into its epilogue.  K1 spreads each matrix's chain over several SMs: a
+thread-block cluster per matrix while the working matrices fit in the
+cluster's shared memory, else one launch per product over all matrices'
+tiles (``k1_plan`` picks the path).  Its products are 3xTF32 tensor-core
+products of exactly symmetric matrices: ``symmetric_matmul`` of
+``tf32x3_matmul`` is their CPU mirror.  On a CPU tensor the wrapper runs the
 plain ``project_psd_ns_merged`` with the same epilogue.
 
 ``project_psd_small`` is kernel K7 (``omc_torch/csrc/k7_minor_psd.cu``) on
@@ -94,6 +99,37 @@ def truncated_matmul(bits: int):
     return matmul
 
 
+def _tf32_rna(x):
+    """``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds it (sign-magnitude bits, so adding
+    half an ulp to the magnitude's bits and cutting rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (1 << 12)) & ~((1 << 13) - 1)).view(torch.float32)
+
+
+def tf32x3_matmul(a, b):
+    """The float32 product K1 forms on the tensor cores (3xTF32): each
+    operand splits into ``big = tf32(x)`` and ``small = tf32(x - big)``
+    (round to nearest), and ``big.big + big.small + small.big`` is summed in
+    float32 (``small.small`` is below float32 rounding)."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    asm, bsm = _tf32_rna(a - ab), _tf32_rna(b - bb)
+    return torch.matmul(asm, bb) + torch.matmul(ab, bsm) + torch.matmul(ab, bb)
+
+
+def symmetric_matmul(matmul=torch.matmul):
+    """The product of two commuting symmetric matrices as K1 forms it:
+    ``C = A B^T`` (rows of both operands) for the upper triangle only,
+    mirrored to the lower, so every product of the chain is exactly
+    symmetric."""
+
+    def mm(a, b):
+        c = matmul(a, b.transpose(-1, -2))
+        return torch.triu(c) + torch.triu(c, 1).transpose(-1, -2)
+
+    return mm
+
+
 def project_psd_ns_merged(mats):
     """Project several batches of symmetric matrices of different sizes in
     one padded sign-schedule run: each (B, d_i, d_i) batch is zero-embedded
@@ -130,15 +166,91 @@ def psd_epilogue(ts, ws, w_out=None, u_out=None, acc=None, rho=None, beta=0.0):
     return outs
 
 
+# K1's geometry (omc_torch/csrc/k1_psd_sign.cu): 16-row strips, 64 x 64
+# tiles on the tiles path, and the H100's limits it is planned against
+K1_STRIP, K1_TILE, K1_RED = 16, 64, 32
+K1_SMEM_MAX = 232448   # bytes of shared memory one CTA may use
+K1_CLUSTER_MAX = 8     # the portable cluster size
+H100_SMS = 132
+K1_CLUSTER_MATRICES = 32  # matrices per call from which clusters > 2 lose
+
+
+def _round_up(x, r):
+    return -(-x // r) * r
+
+
+def k1_row_stride(dp):
+    """Row stride (floats) of K1's (dp x dp) working matrices: 16 more than
+    a multiple of 32, so the kernel's float4 fragment loads are free of bank
+    conflicts."""
+    return dp if dp % 32 == 16 else dp + 16
+
+
+def k1_cluster_smem(dims, C):
+    """Bytes of shared memory per CTA of K1's cluster path with clusters of
+    ``C`` CTAs: each CTA holds its strips of the four working matrices."""
+    per = []
+    for d in dims:
+        dp = _round_up(d, K1_STRIP)
+        strips = -(-(dp // K1_STRIP) // C)
+        per.append(4 * strips * K1_STRIP * k1_row_stride(dp))
+    return 4 * (K1_RED + max(per))
+
+
+def k1_plan(dims, B, cluster=None):
+    """K1's path for blocks of sizes ``dims`` at batch ``B``.
+
+    The cluster path needs the four working matrices of the largest block
+    to fit in the shared memory of a cluster of at most 8 CTAs.  Its cluster
+    size is the smallest power of two that fits and gives two CTAs per SM
+    (``B * len(dims) * C >= 264``), or 8.  Clusters of more than 2 CTAs read
+    most operands from their peers' shared memory, which loses to clusters
+    of 2 and to the tiles path once ``K1_CLUSTER_MATRICES`` matrices or more
+    share the card (H100 measurements in PERF.md); they serve the small
+    batches, where the chain's latency is the time.  From that many matrices
+    on the cluster is capped at 2 CTAs where the blocks fit.  Otherwise the
+    tiles path runs, with a global workspace of ``scratch_floats[g]`` floats
+    per block (``omc_k1_scratch_floats`` in the kernel's source; the launch
+    refuses a smaller one).  ``cluster`` forces
+    the cluster size, 0 the tiles path (timing sweeps).  Returns a dict:
+    ``path`` ("cluster" or "tiles"), ``cluster`` (0 on the tiles path),
+    ``smem`` (bytes per CTA) and ``scratch_floats``."""
+    G = len(dims)
+    if cluster is None:
+        C = 1
+        while C < K1_CLUSTER_MAX and k1_cluster_smem(dims, C) > K1_SMEM_MAX:
+            C *= 2
+        while C < K1_CLUSTER_MAX and B * G * C < 2 * H100_SMS:
+            C *= 2
+        if C > 2 and B * G >= K1_CLUSTER_MATRICES:
+            C = 2 if k1_cluster_smem(dims, 2) <= K1_SMEM_MAX else 0
+    else:
+        C = int(cluster)
+        if C not in (0, 1, 2, 4, 8):
+            raise ValueError(f"K1 cluster size must be 0, 1, 2, 4 or 8, got {cluster}")
+    if C and k1_cluster_smem(dims, C) <= K1_SMEM_MAX:
+        return dict(path="cluster", cluster=C, smem=k1_cluster_smem(dims, C),
+                    scratch_floats=[0] * G)
+    if C and cluster is not None:
+        raise ValueError(f"K1: blocks {list(dims)} do not fit clusters of {C} CTAs")
+    scratch = []
+    for d in dims:
+        dp = _round_up(d, K1_STRIP)
+        scratch.append(B * 4 * dp * k1_row_stride(dp) + B * -(-dp // K1_TILE))
+    return dict(path="tiles", cluster=0, smem=0, scratch_floats=scratch)
+
+
 def project_psd_ns_multi(ts, *, w_out=None, u_out=None, acc=None, rho=None,
-                         beta=0.0):
+                         beta=0.0, cluster=None):
     """K1: PSD-project every (B, d_g, d_g) batch in ``ts`` with the sign
-    schedule, in one launch on the GPU.
+    schedule on the GPU (one launch on the cluster path, one per product on
+    the tiles path; ``k1_plan``).
 
     ``w_out`` (optional): tensors receiving the projections.  With
     ``u_out`` the ADMM scaled duals ``u = t - w`` are written too, and for
     each non-None ``acc[g]`` the dual EMA ``acc += beta (rho u - acc)`` is
     updated (``rho`` (B,) per-slot penalties).  Returns the projections.
+    ``cluster`` forces the cluster size (timing sweeps).
 
     A CPU tensor runs the plain ``project_psd_ns_merged`` and
     ``psd_epilogue``; a CUDA tensor runs the kernel or raises."""
@@ -156,9 +268,10 @@ def project_psd_ns_multi(ts, *, w_out=None, u_out=None, acc=None, rho=None,
     if w_out is None:
         w_out = [torch.empty_like(t) for t in ts]
     B = ts[0].shape[0]
+    plan = k1_plan([t.shape[-1] for t in ts], B, cluster)
     p = kernels.K1Params()
     p.G, p.B, p.beta = G, B, float(beta)
-    big = kernels.library().omc_k1_smem_max_d()
+    p.C = plan["cluster"]
     workspace = []  # held until the launch is queued
     for g, t in enumerate(ts):
         d = t.shape[-1]
@@ -170,13 +283,12 @@ def project_psd_ns_multi(ts, *, w_out=None, u_out=None, acc=None, rho=None,
         p.acc[g] = kernels.check(f"acc[{g}]", a, shape, dev) if a is not None else None
         p.D[g] = d
         p.scratch[g] = None
-        if d > big:
-            # large blocks run out of a per-matrix global workspace of four
-            # zero-padded (Dp, Dp) buffers, Dp = d rounded up to 64; once
-            # freed, the caching allocator reuses it only for work queued
-            # after this launch on the same stream
-            dp = -(-d // 64) * 64
-            workspace.append(torch.empty((B, 4, dp, dp), dtype=torch.float32, device=dev))
+        p.scratch_floats[g] = plan["scratch_floats"][g]
+        if plan["scratch_floats"][g]:
+            # once freed, the caching allocator reuses the workspace only for
+            # work queued after these launches on the same stream
+            workspace.append(torch.empty(plan["scratch_floats"][g], dtype=torch.float32,
+                                         device=dev))
             p.scratch[g] = workspace[-1].data_ptr()
     if acc is not None and any(a is not None for a in acc):
         p.rho = kernels.check("rho", rho, (B,), dev)
