@@ -15,7 +15,9 @@ Phases, in order (each prints its numbers on lines of its own):
                time the card could take for the same work); K1 (B=1 to 64,
                d=50 to 2000, with its time on every path k1_plan could take)
                and the Jacobi kernels K4/K4s/K5 also against a float64 eigh,
-               the latter with their sweep counts
+               the latter with their sweep counts; K4 and K5 (d=50 to 1000,
+               B=1 to 128) on every path k4_plan could take, and the block
+               path's grid barrier
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -36,6 +38,10 @@ Phases, in order (each prints its numbers on lines of its own):
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
                McCormick B&B on the headline instance, 45 s
+14. config4  — BASELINE config 4's frontier step (rank-5 250x250, a device
+               batch of 128 nodes, 400 iterations, one safe-bound call: K4 at
+               d=500, 255 and 250, K5 at d=250): a warm-up step, then two
+               timed sub-steps, the 8 lowest bounds certified in float64
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -44,8 +50,10 @@ bounds' small slots, K5 the separation, K6 altmin).
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape, of the rank-k
 Shor loop at config 3's, of the McCormick loop at the headline's, of the
-headline's root visit at B=1 (with the device's idle share) and of one
-base-path root visit at B=64 with its safe-bound calls.
+headline's root visit at B=1 (with the device's idle share), of one
+base-path root visit at B=64 with its safe-bound calls, and of safe-bound
+calls at config 4's shape (B=128, n=m=250, k=5), each split into K4 and the
+torch terms.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -69,7 +77,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
-          "multinode", "branch", "shor", "config2", "config3", "shork", "mccormick")
+          "multinode", "branch", "shor", "config2", "config3", "shork", "mccormick",
+          "config4")
 EXTRA_PHASES = ("trace",)  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -133,6 +142,19 @@ def bound(nbytes, flops, peak=PEAK_FP32_FLOPS):
 def with_bound(row, nbytes, flops, peak=PEAK_FP32_FLOPS):
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
     row["bound_bytes"], row["bound_flops"] = float(nbytes), float(flops)
+    return row
+
+
+def with_path_bound(row, path, nbytes, flops):
+    """K4's and K5's bound on the path the row's plan takes: the fp32 rate
+    on the CTA path, the 3xTF32 rate (three tensor-core passes) on the block
+    path, whose tile products and projection epilogue are 3xTF32, with the
+    fp32 reading beside it (``bound_fp32_ms``), as K1's rows have."""
+    if path == "cta":
+        return with_bound(row, nbytes, flops)
+    with_bound(row, nbytes, 3 * flops, PEAK_TF32_FLOPS)
+    row["bound_flops"] = float(flops)
+    row["bound_fp32_ms"] = bound(nbytes, flops)[0]
     return row
 
 
@@ -366,6 +388,19 @@ def phase_kernels(res):
         checks.append(("K3", r3, r3["rel_err"] <= 1e-6))
         k2.append(r2)
         k3.append(r3)
+    # K2 and K3 at BASELINE config 4's shape (B = 128, n = m = 250, k = 5).
+    # Here the float32 plain version is itself 1.1e-6 to 1.4e-6 from its
+    # float64 evaluation (K3's uc: the cut residuals, sums of n^2 = 62,500
+    # terms; on an H100), so the kernels are held to 1e-6 of the float64 one
+    c, st, acc, ts = _admm_inputs(C4["B"], C4["n"], C4["m"], C4["k"], C4["L"], gen, dev)
+    r2, r3 = _check_k2_k3(c, st, acc, ts)
+    log("K2", json.dumps(r2))
+    log("K3", json.dumps(r3))
+    checks.append(("K2", r2, r2["rel_err_vs_f64"] <= 1e-6))
+    checks.append(("K3", r3, r3["rel_err_vs_f64"] <= 1e-6))
+    k2.append(r2)
+    k3.append(r3)
+    del c, st, acc, ts
     out["K2"], out["K3"] = k2, k3
 
     # ---- K7, projection mode: (32, 4096, 5, 5), spectra +-[0.1, 1] ----
@@ -789,7 +824,25 @@ def _admm_inputs(B, n, m, k, L, gen, dev):
     return c, st, acc, ts
 
 
+def _to64(x):
+    """A float64 copy of the float32 tensors in a (nested) state or constants."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.dtype == torch.float32 else x
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _to64(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to64(y) for y in x)
+    return x
+
+
 def _check_k2_k3(c, st, acc, ts):
+    """K2 and K3 against their plain versions on the same inputs, in float32
+    (``rel_err``) and in float64 (``rel_err_vs_f64``, with the float32 plain
+    version's own distance ``plain_vs_f64``)."""
     import torch
 
     from omc_torch.sdp.admm import _REST, cone_step, cone_step_plain, zstep, zstep_plain
@@ -798,12 +851,15 @@ def _check_k2_k3(c, st, acc, ts):
     zstep(c, s_k)
     torch.cuda.synchronize()
     ref = zstep_plain(c, st)
-    e2, a2 = _errs((s_k.X, s_k.Y, s_k.Th, s_k.U), ref)
+    ref64 = zstep_plain(_to64(c), _to64(st))
+    got = (s_k.X, s_k.Y, s_k.Th, s_k.U)
+    e2, a2 = _errs(got, ref)
     s_t = st.clone()
     ms2 = cuda_time_ms(lambda: zstep(c, s_t))
     ms2p = cuda_time_ms(lambda: zstep_plain(c, st))
     r2 = dict(B=c.batch.cut_mask.shape[0], n=c.n, m=c.m, k=c.k, L=c.L,
-              rel_err=e2, max_abs_err=a2, ms=ms2, plain_ms=ms2p)
+              rel_err=e2, rel_err_vs_f64=_errs(got, ref64)[0],
+              plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a2, ms=ms2, plain_ms=ms2p)
     B, n, m, k, L = r2["B"], c.n, c.m, c.k, c.L
     p = 1 + L + L * k
     # per slot: the residual blocks K2 reads (Y, X, Theta of w1/u1; Y, U of
@@ -822,16 +878,18 @@ def _check_k2_k3(c, st, acc, ts):
     cone_step(c, s3, ts_k, acc_k)
     torch.cuda.synchronize()
     t1, t2, t3, rest, acc_p = cone_step_plain(c, s_k, acc)
-    pairs = list(zip(ts_k, (t1, t2, t3)))
-    pairs += [(getattr(s3, nm), v) for nm, v in zip(_REST, rest)]
-    pairs += list(zip(acc_k, acc_p))
-    e3, a3 = _errs(*zip(*pairs))
+    T1, T2, T3, rest64, acc64 = cone_step_plain(_to64(c), _to64(s_k), _to64(acc))
+    got = list(ts_k) + [getattr(s3, nm) for nm in _REST] + list(acc_k)
+    ref = [t1, t2, t3, *rest, *acc_p]
+    ref64 = [T1, T2, T3, *rest64, *acc64]
+    e3, a3 = _errs(got, ref)
     s4 = s_k.clone()
     acc4 = [a.clone() for a in acc]
     ms3 = cuda_time_ms(lambda: cone_step(c, s4, ts_k, acc4))
     ms3p = cuda_time_ms(lambda: cone_step_plain(c, s_k, acc))
     r3 = dict(B=c.batch.cut_mask.shape[0], n=c.n, m=c.m, k=c.k, L=c.L,
-              rel_err=e3, max_abs_err=a3, ms=ms3, plain_ms=ms3p)
+              rel_err=e3, rel_err_vs_f64=_errs(got, ref64)[0],
+              plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a3, ms=ms3, plain_ms=ms3p)
     d1, d2 = n + m, n + k
     # per slot: X, Y, Theta, U and the w/u of every slot in; t1-t3 and the
     # non-PSD slots and the three EMAs out (the EMAs are read too)
@@ -1002,6 +1060,7 @@ def _check_eig_kernels(gen, dev):
     version; no Jacobi hits its sweep cap.  Times: ``tm`` below."""
     import torch
 
+    from omc_torch import kernels
     from omc_torch.ops import cones
     from omc_torch.ops.jacobi import MAX_SWEEPS
     from omc_torch.ops.linalg import (
@@ -1015,78 +1074,145 @@ def _check_eig_kernels(gen, dev):
     out = {"K4": [], "K4s": [], "K5": [], "K6": [], "K4_nonfinite": []}
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def tm(fn):
+    def tm(fn, warm=False):
         """Median of 20 timed calls; of 3 for a call over 20 ms (cuSOLVER
-        at B=64), one call for a call over 200 ms (K4 at d=500)."""
-        probe = cuda_time_ms(fn, reps=1, warmup=1)
+        at B=64), one call for a call over 200 ms (cuSOLVER at B=128).
+        ``warm``: the call has just run, so the first timed call counts."""
+        probe = cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
         if probe > 200.0:
             return probe
         return cuda_time_ms(fn) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
 
-    # a NaN or an Inf runs to the sweep cap and gives NaN out (K4 and K4s)
-    for D in (50, 5):
+    # a NaN or an Inf runs to the sweep cap and gives NaN out (K4 on each
+    # of its paths, K4s)
+    for D, path in [(50, path) for path in cones.K4_PATHS] + [(5, None)]:
         T, _ = _eig_batch(2, D, gen, dev)
         T[0, 1, 2], T[1, 0, 0] = float("nan"), float("inf")
         sw = torch.empty(2, **i32)
-        got = cones.k4_jacobi(T, 1, sweeps=sw) if D > 8 else cones.k4s_project_psd(T, sw)
+        got = (cones.k4_jacobi(T, 1, sweeps=sw, path=path) if D > 8
+               else cones.k4s_project_psd(T, sw))
         torch.cuda.synchronize()
-        row = dict(D=D, sweeps=sw.tolist(), all_nan=bool(got.isnan().all()))
+        row = dict(D=D, path=path, sweeps=sw.tolist(), all_nan=bool(got.isnan().all()))
         row["ok"] = row["all_nan"] and row["sweeps"] == [MAX_SWEEPS + 1] * 2
         out["K4_nonfinite"].append(row)
 
-    # ---- K4: the headline's S1 first (the row the record times) ----
-    for B, d in ((64, 100), (64, 50), (64, 51), (64, 150), (32, 200), (2, 500)):
+    # ---- K4: the headline's S1 first (the row the record times), the
+    # headline's B=1 and multinode's B=4 visits (S1 at d = 100, S2 at d =
+    # 51), then BASELINE config 4's bound (B = 128: S1 at d = 500, S2 at
+    # d = 255, the spectra at d = 250) and config 5's sizing (B = 1,
+    # d = 1000) ----
+    lib = kernels.library()
+    m3, m10 = (1, 0, 2), (1, 0)
+    for B, d, modes in ((64, 100, m3), (64, 50, m3), (64, 51, m3), (64, 150, m3),
+                        (1, 100, m10), (4, 100, m10), (1, 51, m10), (4, 51, m10),
+                        (32, 200, m3), (2, 500, m3), (128, 500, (1,)), (128, 255, (1,)),
+                        (128, 250, (0,)), (1, 1000, m10)):
         T, T64 = _eig_batch(B, d, gen, dev)
         w64, V64 = torch.linalg.eigh(T64)
         P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
         lam = w64.abs().amax(-1)
         # the plain eigenvalue and eigenpair versions are the library calls
         # themselves: each is timed once
-        lib_eigvalsh = tm(lambda: torch.linalg.eigvalsh(T))
-        lib_eigh = tm(lambda: torch.linalg.eigh(T))
-        for mode in (1, 0, 2):
+        lib_ms = {}
+
+        def library_ms(name):
+            if name not in lib_ms:
+                fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
+                lib_ms[name] = tm(lambda: fn(T))
+            return lib_ms[name]
+
+        for mode in modes:
+            plan = cones.k4_plan(B, d, mode)
+
+            def judge(got, sw):
+                """The row's errors and its bars for one output."""
+                r = dict(max_sweeps=int(sw.max()), min_sweeps=int(sw.min()))
+                if mode == 1:
+                    r["rel_err_vs_f64"] = float(((got.double() - P64).norm(dim=(-2, -1))
+                                                 / P64.norm(dim=(-2, -1))).max())
+                    ok = r["rel_err_vs_f64"] <= 1e-5
+                else:
+                    w = got if mode == 0 else got[0]
+                    r["eig_err_vs_f64"] = float(((w.double() - w64).abs().amax(-1) / lam).max())
+                    ok = r["eig_err_vs_f64"] <= 1e-5
+                    if mode == 2:
+                        V = got[1].double()
+                        resid = (T64 @ V - V * w.double()[..., None, :]).norm(dim=(-2, -1))
+                        eye = torch.eye(d, dtype=torch.float64, device=dev)
+                        r["residual"] = float((resid / T64.norm(dim=(-2, -1))).max())
+                        r["orthogonality"] = float((V.transpose(-1, -2) @ V - eye)
+                                                   .norm(dim=(-2, -1)).max())
+                        ok = (ok and r["residual"] <= 1e-5 * d ** 0.5
+                              and r["orthogonality"] <= 1e-5 * d ** 0.5)
+                r["ok"] = ok and r["max_sweeps"] <= MAX_SWEEPS
+                return r
+
             sw = torch.empty(B, **i32)
             got = cones.k4_jacobi(T, mode, sweeps=sw)
             torch.cuda.synchronize()
-            row = dict(B=B, d=d, mode=("eigvalsh", "projection", "eigh")[mode],
-                       max_sweeps=int(sw.max()), min_sweeps=int(sw.min()))
+            row = dict(B=B, d=d, mode=("eigvalsh", "projection", "eigh")[mode], plan=plan,
+                       **judge(got, sw))
             if mode == 1:
-                row["rel_err_vs_f64"] = float(((got.double() - P64).norm(dim=(-2, -1))
-                                               / P64.norm(dim=(-2, -1))).max())
                 plain = cones.project_psd_plain(T)
                 row["max_abs_err"] = float((got - plain).abs().max())
-                times = (tm(lambda: cones.k4_jacobi(T, 1)), tm(lambda: cones.project_psd_plain(T)),
-                         lib_eigh)
-                ok = row["rel_err_vs_f64"] <= 1e-5
+                plain_ms, library = tm(lambda: cones.project_psd_plain(T)), library_ms("eigh")
+            elif mode == 0:
+                row["max_abs_err"] = float((got - torch.linalg.eigvalsh(T)).abs().max())
+                plain_ms = library = library_ms("eigvalsh")
             else:
-                w = got if mode == 0 else got[0]
-                row["eig_err_vs_f64"] = float(((w.double() - w64).abs().amax(-1) / lam).max())
-                if mode == 0:
-                    row["max_abs_err"] = float((w - torch.linalg.eigvalsh(T)).abs().max())
-                    times = (tm(lambda: cones.k4_jacobi(T, 0)), lib_eigvalsh, lib_eigvalsh)
-                    ok = row["eig_err_vs_f64"] <= 1e-5
-                else:
-                    V = got[1].double()
-                    resid = (T64 @ V - V * w.double()[..., None, :]).norm(dim=(-2, -1))
-                    eye = torch.eye(d, dtype=torch.float64, device=dev)
-                    row["residual"] = float((resid / T64.norm(dim=(-2, -1))).max())
-                    row["orthogonality"] = float((V.transpose(-1, -2) @ V - eye)
-                                                 .norm(dim=(-2, -1)).max())
-                    # eigenvalues only: the vectors of a cluster are a basis
-                    # of its subspace, not unique, and signs are free
-                    row["max_abs_err"] = float((w - cones.eigh_plain(T)[0]).abs().max())
-                    times = (tm(lambda: cones.k4_jacobi(T, 2)), lib_eigh, lib_eigh)
-                    ok = (row["eig_err_vs_f64"] <= 1e-5 and row["residual"] <= 1e-5 * d ** 0.5
-                          and row["orthogonality"] <= 1e-5 * d ** 0.5)
-            row["ok"] = ok and row["max_sweeps"] <= MAX_SWEEPS
-            row.update(ms=times[0], plain_ms=times[1], library_ms=times[2])
+                # eigenvalues only: the vectors of a cluster are a basis of
+                # its subspace, not unique, and signs are free
+                row["max_abs_err"] = float((got[0] - cones.eigh_plain(T)[0]).abs().max())
+                plain_ms = library = library_ms("eigh")
+            # every path k4_plan could take: its time, its bars, and its
+            # workspace held against the kernel's export
+            by_path, err_by_path = {}, {}
+            for path in cones.K4_PATHS:
+                try:
+                    pp = cones.k4_plan(B, d, mode, path)
+                except ValueError:
+                    continue  # A (and V) do not fit the CTA path's shared memory
+                ws = lib.omc_k4_workspace_floats(B, d, mode, int(path != "cta"))
+                sw2 = torch.empty(B, **i32)
+                out2 = cones.k4_jacobi(T, mode, sweeps=sw2, path=path)
+                torch.cuda.synchronize()
+                err_by_path[path] = judge(out2, sw2)
+                err_by_path[path]["workspace_matches_kernel"] = ws == pp["workspace_floats"]
+                by_path[path] = tm(lambda: cones.k4_jacobi(T, mode, path=path), warm=True)
+                if path != "cta":
+                    # the grid barriers the call passed, the time its first
+                    # CTA spent in each phase, and its launch shape
+                    st = {}
+                    cones.k4_jacobi(T, mode, path=path, stats=st)
+                    err_by_path[path].update(st)
+            row.update(ms=by_path[plan["path"]], plain_ms=plain_ms, library_ms=library,
+                       ms_by_path=by_path, err_by_path=err_by_path)
+            row["ok"] = row["ok"] and all(
+                e["ok"] and e["workspace_matches_kernel"] for e in err_by_path.values())
             # an eigendecomposition counts 9 d^3 flops with vectors and
             # 4 d^3 / 3 without, whatever the method; the projection adds
             # the symmetric half of V max(w, 0) V' (d^3)
             outf = (d, d * d, d * d + d)[mode]
-            with_bound(row, 4 * B * (d * d + outf),
-                       B * (4 * d ** 3 / 3, 10 * d ** 3, 9 * d ** 3)[mode])
+            with_path_bound(row, plan["path"], 4 * B * (d * d + outf),
+                            B * (4 * d ** 3 / 3, 10 * d ** 3, 9 * d ** 3)[mode])
             out["K4"].append(row)
+
+    # the grid barrier's cost: the block path on diagonal matrices (one
+    # outer sweep that rotates nothing: 1 + 2 x 31 barriers at d = 500 and
+    # no products)
+    T = torch.diag_embed(torch.linspace(-1.0, 1.0, 500, device=dev)).expand(1, 500, 500)
+    T = T.contiguous()
+    sw = torch.empty(1, **i32)
+    cones.k4_jacobi(T, 0, sweeps=sw, path="block16")
+    rounds = cones.k4_plan(1, 500, 0, "block16")["rounds"]
+    st = {}
+    cones.k4_jacobi(T, 0, path="block16", stats=st)
+    probe = dict(B=1, d=500, sweeps=int(sw.max()), **st,
+                 ms=tm(lambda: cones.k4_jacobi(T, 0, path="block16")))
+    probe["us_per_barrier_at_most"] = 1e3 * probe["ms"] / probe["grid_barriers"]
+    probe["ok"] = probe["sweeps"] == 1 and probe["grid_barriers"] == 1 + 2 * rounds
+    log("K4 barrier", json.dumps(probe))
+    out["K4_barrier"] = [probe]
 
     # ---- K4s: the Shor bounds' 5x5 minors and 3x3 XWH slots, 32 x 4096 ----
     for D in (5, 3):
@@ -1110,7 +1236,8 @@ def _check_eig_kernels(gen, dev):
         out["K4s"].append(row)
 
     # ---- K5: U U' - Y with its two smallest eigenvalues -1 and -0.6 ----
-    for B, n, k in ((64, 50, 1), (64, 75, 2)):
+    # (the headline's B=1 visit's separation too)
+    for B, n, k in ((64, 50, 1), (64, 75, 2), (1, 50, 1), (C4["B"], C4["n"], C4["k"])):
         U = torch.randn(B, n, k, generator=gen, dtype=torch.float64)
         Q, _ = torch.linalg.qr(torch.randn(B, n, n, generator=gen, dtype=torch.float64))
         lam = torch.empty(B, n, dtype=torch.float64).uniform_(-0.3, 1.0, generator=gen)
@@ -1128,20 +1255,37 @@ def _check_eig_kernels(gen, dev):
         def aligned(X, R):  # X's columns with R's signs
             return X * torch.sign(torch.sum(X * R, dim=-2, keepdim=True))
 
-        Va = aligned(V.double(), V64[..., :2])
         M32 = 0.5 * (M64 + M64.transpose(-1, -2)).float()
-        row = dict(B=B, n=n, k=k, max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
-                   eig_err_vs_f64=float(((w.double() - w64[:, :2]).abs().amax(-1)
-                                         / w64.abs().amax(-1)).max()),
-                   vec_err_vs_f64=float((Va - V64[..., :2]).norm(dim=-2).max()),
+
+        def judge(w, V, sw):
+            Va = aligned(V.double(), V64[..., :2])
+            r = dict(max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
+                     eig_err_vs_f64=float(((w.double() - w64[:, :2]).abs().amax(-1)
+                                           / w64.abs().amax(-1)).max()),
+                     vec_err_vs_f64=float((Va - V64[..., :2]).norm(dim=-2).max()))
+            r["ok"] = (r["eig_err_vs_f64"] <= 1e-5 and r["vec_err_vs_f64"] <= 1e-5
+                       and r["max_sweeps"] <= MAX_SWEEPS)
+            return r
+
+        by_path, err_by_path = {}, {}
+        for path in cones.K4_PATHS:
+            if path == "cta" and not cones.k4_cta_fits(n, 2):
+                continue
+            sw2 = torch.empty(B, **i32)
+            w2, V2 = cones.k4_jacobi(None, 2, 2, U=U32, Y=Y32, sweeps=sw2, path=path)
+            torch.cuda.synchronize()
+            err_by_path[path] = judge(w2, V2, sw2)
+            by_path[path] = tm(lambda: cones.k4_jacobi(None, 2, 2, U=U32, Y=Y32, path=path))
+        row = dict(B=B, n=n, k=k, plan=cones.k4_plan(B, n, 2), **judge(w, V, sw),
                    max_abs_err=max(float((w - wp).abs().max()),
                                    float((aligned(V, Vp) - Vp).abs().max())),
                    ms=tm(lambda: separation_eigpairs(U32, Y32)),
                    plain_ms=tm(lambda: separation_eigpairs_plain(U32, Y32)),
-                   library_ms=tm(lambda: torch.linalg.eigh(M32)))
-        row["ok"] = (row["eig_err_vs_f64"] <= 1e-5 and row["vec_err_vs_f64"] <= 1e-5
-                     and row["max_sweeps"] <= MAX_SWEEPS)
-        with_bound(row, 4 * B * (n * k + n * n + 2 + 2 * n), B * 9 * n ** 3)
+                   library_ms=tm(lambda: torch.linalg.eigh(M32)),
+                   ms_by_path=by_path, err_by_path=err_by_path)
+        row["ok"] = row["ok"] and all(e["ok"] for e in err_by_path.values())
+        with_path_bound(row, row["plan"]["path"], 4 * B * (n * k + n * n + 2 + 2 * n),
+                        B * 9 * n ** 3)
         out["K5"].append(row)
 
     # ---- K6: one V-step + U-step at the headline's n = m = 50 ----
@@ -1686,6 +1830,163 @@ def phase_mccormick(res):
     res["mccormick_launches"] = launches
 
 
+# BASELINE config 4 (benchmarks/bench_configs.py config4): rank-5 250x250,
+# 30% observed, seed 1, gamma 80, L = 8, a device batch of 128 nodes, 400
+# ADMM iterations per step with one safe-bound call and one separation.
+# The one cut: the timed frontier is 2 sub-steps (256 node relaxations)
+# after one warm-up step, where bench_configs.py defaults to 1,024 and
+# BASELINE asks for 4,096; n, m, k, L and the device batch are as published.
+C4 = dict(n=250, m=250, k=5, L=8, B=128, iters=400, substeps=2, gamma=80.0)
+# kernel names in a profile: K4 and K5 share one template per path
+K4_NAMES = {"k4_kernel<false>": "K4", "k4_kernel<true>": "K5",
+            "k4_block_kernel<16, false>": "K4", "k4_block_kernel<16, true>": "K5"}
+
+
+def _config4_frontier(dev, B=None, iters=None):
+    """BASELINE config 4's instance and synthetic depth-1 frontier (each
+    node one random unit-vector cut, cut_lo = -1, cut_hi = 0.1) on the
+    port's API; returns the solver, its arguments and the constants."""
+    import numpy as np
+    import torch
+
+    from omc_torch.data import generate_matrix_completion_data
+    from omc_torch.sdp.admm import init_admm_state, make_admm_solver
+    from omc_torch.sdp.relax import NodeBatch
+    from omc_torch.tree import root_box
+
+    n, m, k, L, gamma = C4["n"], C4["m"], C4["k"], C4["L"], C4["gamma"]
+    B = C4["B"] if B is None else B
+    iters = C4["iters"] if iters is None else iters
+    A, idx = generate_matrix_completion_data(k, n, m, int(0.3 * n * m), seed=1)
+    mask = idx.astype(np.float64)
+    lo, hi = root_box(n, k)
+    rng = np.random.default_rng(0)
+    cut_x = rng.standard_normal((B, L, n))
+    cut_x /= np.linalg.norm(cut_x, axis=-1, keepdims=True)
+    cut_lo = np.tile(np.array([-1.0] * k), (B, L, 1))
+    cut_hi = np.tile(np.array([0.1] * k), (B, L, 1))
+    cut_mask = np.zeros((B, L))
+    cut_mask[:, 0] = 1.0
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    batch = NodeBatch(f(cut_x), f(cut_lo), f(cut_hi), f(cut_mask),
+                      f(np.broadcast_to(lo, (B, n, k))), f(np.broadcast_to(hi, (B, n, k))))
+    ub_bar = 0.5 * float(np.sum(mask * A * A))
+    solve = make_admm_solver(n, m, k, L, gamma, iters=iters, check_every=iters)
+    st = init_admm_state(B, n, m, k, L, torch.float32, device=dev,
+                         sX=max(1.0, float(np.abs(A).max())), sT=1.0, rho=0.03)
+    return solve, (f(A), f(mask), batch, ub_bar, st), dict(A=A, mask=mask, k=k, gamma=gamma,
+                                                           ub_bar=ub_bar)
+
+
+def _bound_split(args, c, ys, reps=1):
+    """Safe-bound calls on the duals ``ys`` (warm: the solver has run
+    them) under the profiler: CUDA-event ms per call, and its device time
+    split into the eigensolver (K4) and the torch terms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from omc_torch.sdp.relax import safe_dual_bound2
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        for _ in range(reps):
+            safe_dual_bound2(args[0], args[1], args[2], *ys, c["gamma"], c["k"], c["ub_bar"])
+        b.record()
+        torch.cuda.synchronize()
+    ev_ms = a.elapsed_time(b) / reps
+    bb = _device_ms_by_kernel(prof, K4_NAMES, per=reps)
+    k4 = bb.get("K4", 0.0)
+    return dict(event_ms=ev_ms, k4_device_ms=k4, torch_terms_device_ms=sum(bb.values()) - k4,
+                host_and_gaps_ms=max(0.0, ev_ms - sum(bb.values())), kernel_ms=bb)
+
+
+def phase_config4(res):
+    """BASELINE config 4's frontier step on the port (``config4()`` of
+    benchmarks/bench_configs.py): rank-5 250x250, a device batch of 128
+    nodes, 400 iterations a step with one safe-bound call (K4 at d = 500,
+    255 and 250) and one separation (K5 at d = 250, k = 5); one warm-up
+    step, then two timed sub-steps.  The 8 slots with the lowest lb_est are
+    certified in float64 on the host; the same bound through torch's
+    float32 eigh is logged as a reading."""
+    import numpy as np
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops import cones
+    from omc_torch.sdp import relax
+    from omc_torch.sdp.relax import NodeBatch
+
+    dev = torch.device("cuda", 0)
+    solve, args, c = _config4_frontier(dev)
+    A_d, m_d, batch, ub_bar, st = args
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    st, out = solve(A_d, m_d, batch, ub_bar, st)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    kernels.reset_launches()
+    t0 = time.time()
+    for _ in range(C4["substeps"]):
+        st, out = solve(A_d, m_d, batch, ub_bar, st)
+        torch.cuda.synchronize()
+    frontier_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ys = [out[key] for key in ("y1", "y2", "ya", "yb", "yc")]
+    call = _bound_split(args, c, ys)
+    k5_ms = cuda_time_ms(lambda: relax.separation_eigpairs(st.U, st.Y), reps=3, warmup=1)
+
+    # the 8 slots with the lowest lb_est, certified in float64 on the host
+    lb_dev = out["lb_dev"].double().cpu().numpy()
+    lb_est = out["lb_est"].double().cpu().numpy()
+    sel = np.argsort(lb_est)[:8]
+    sel_t = torch.as_tensor(sel, device=dev)
+    sub = NodeBatch(*[x[sel_t] for x in batch.fields()])
+    sub_out = {key: out[key][sel_t] for key in ("y1", "y2", "ya", "yb", "yc")}
+    t0 = time.time()
+    lb_host = relax.host_certified_bound(c["A"], c["mask"], sub, sub_out, c["gamma"], c["k"],
+                                         ub_bar)
+    certify_s = time.time() - t0
+    scale = (lb_est[sel] - lb_dev[sel]) / relax.margin_rel_default(torch.float32)
+    # a reading: the same bound of the same slots through torch's float32
+    # eigh (cuSOLVER), as the admm phase takes it
+    saved = relax.project_psd, relax.eigvalsh
+    relax.project_psd, relax.eigvalsh = cones.project_psd_plain, torch.linalg.eigvalsh
+    try:
+        _, est_t = relax.safe_dual_bound2(A_d, m_d, sub, *sub_out.values(), c["gamma"],
+                                          c["k"], ub_bar)
+    finally:
+        relax.project_psd, relax.eigvalsh = saved
+    est_t = est_t.double().cpu().numpy()
+    k4_over = np.abs(lb_est[sel] - lb_host) / scale
+    torch_over = np.abs(est_t - lb_host) / scale
+    iters, nsub = C4["iters"], C4["substeps"]
+    row = dict(n=C4["n"], m=C4["m"], k=C4["k"], L=C4["L"], device_batch=C4["B"],
+               iters_per_step=iters, frontier=nsub * C4["B"], first_step_s=first_s,
+               frontier_s=frontier_s, step_s=frontier_s / nsub,
+               node_relaxations_per_s=nsub * C4["B"] / frontier_s,
+               ms_per_iter=1e3 * frontier_s / (nsub * iters), bound_call=call,
+               k5_ms=k5_ms, certify_s=certify_s, max_memory_allocated=peak,
+               lb_est_min=float(lb_est.min()), lb_dev_min=float(lb_dev.min()),
+               lb_host_min=float(lb_host.min()), scale_min=float(scale.min()),
+               worst_k4_est_vs_host_over_scale=float(k4_over.max()),
+               worst_torch_est_vs_host_over_scale=float(torch_over.max()),
+               launches=launches)
+    log("config4", json.dumps(row))
+    assert np.all(np.isfinite(lb_dev)) and np.all(np.isfinite(lb_est)), row
+    assert np.all(np.isfinite(lb_host)), row
+    # the margin-guarded device bound is sound against the float64
+    # certificate, and K4's margin-free estimate sits within 1e-5 scale of
+    # it (the admm phase's bar, well inside the 3e-5 margin)
+    assert np.all(lb_dev[sel] <= lb_host), row
+    assert np.all(k4_over <= 1e-5), row
+    _assert_launched(launches, ("K1", "K2", "K3", "K4", "K5"))
+    res["config4"] = row
+
+
 def _device_ms_by_kernel(prof, names, per=1):
     """Device milliseconds per kernel name in a profile (``names`` maps a
     substring of the CUDA name to a key; the rest under "other: ...")."""
@@ -1761,8 +2062,8 @@ def phase_trace(res):
     # the running means on, at B=1 (the root visit) and B=64
     from omc_torch.sdp import mccormick as MC
 
-    names.update({"k9a_kernel": "K9a", "k9b_kernel": "K9b", "k4_kernel<false>": "K4",
-                  "k4_kernel<true>": "K5", "k4s_kernel": "K4s", "k6_kernel": "K6"})
+    names.update({"k9a_kernel": "K9a", "k9b_kernel": "K9b", **K4_NAMES,
+                  "k4s_kernel": "K4s", "k6_kernel": "K6"})
     for B in (1, 64):
         c, st = _mc_inputs(B, 50, 50, 1, gen, dev)
         acc = [torch.zeros_like(x) for x in (st.u1, st.u2, st.umc, st.uorth)]
@@ -1780,6 +2081,14 @@ def phase_trace(res):
     log("trace visit", json.dumps(visit))
     log("trace bound call", json.dumps(call))
     res["trace_visit"], res["trace_bound_call"] = visit, call
+    # the same split at BASELINE config 4's shape (B = 128, n = m = 250,
+    # k = 5), on the duals of 40 iterations from the config4 phase's start
+    solve, args, c = _config4_frontier(dev, iters=40)
+    _, out = solve(*args)
+    call = _bound_split(args, c, [out[key] for key in ("y1", "y2", "ya", "yb", "yc")], reps=3)
+    call.update(B=C4["B"], n=C4["n"], m=C4["m"], k=C4["k"], L=C4["L"])
+    log("trace bound call config4", json.dumps(call))
+    res["trace_bound_call_config4"] = call
 
 
 def _trace_root_visit(names, B):
@@ -1813,27 +2122,11 @@ def _trace_root_visit(names, B):
 def _trace_visit(names):
     """One base-path root visit at the headline's shape and B=64 (2,000
     iterations, two safe-bound calls, one separation) under the profiler,
-    and one safe-bound call alone, split into the eigensolver (K4) and the
+    and five safe-bound calls alone, split into the eigensolver (K4) and the
     torch terms."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from omc_torch.sdp.relax import safe_dual_bound2
-
     visit, (solve, args, c, out) = _trace_root_visit(names, 64)
-    ys = [out[key] for key in ("y1", "y2", "ya", "yb", "yc")]
-    bound = lambda: safe_dual_bound2(args[0], args[1], args[2], *ys, c["gamma"],  # noqa: E731
-                                     c["k"], c["ub_bar"])
-    ev_ms = cuda_time_ms(bound)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            bound()
-        torch.cuda.synchronize()
-    bb = _device_ms_by_kernel(prof, names, per=5)
-    k4 = bb.get("K4", 0.0)
-    call = dict(B=64, n=50, m=50, k=1, L=8, event_ms=ev_ms, k4_device_ms=k4,
-                torch_terms_device_ms=sum(bb.values()) - k4,
-                host_and_gaps_ms=max(0.0, ev_ms - sum(bb.values())), kernel_ms=bb)
+    call = _bound_split(args, c, [out[key] for key in ("y1", "y2", "ya", "yb", "yc")], reps=5)
+    call.update(B=64, n=50, m=50, k=1, L=8)
     return visit, call
 
 

@@ -402,8 +402,9 @@ struct K4Params {
   float* V;            // (B, d, nout) or null
   float* P;            // (B, d, d) or null
   int* sweeps;         // (B,) sweeps run; kJacobiMaxSweeps + 1 at the cap
-  float* work;         // (B, omc_k4_workspace_floats(d, mode)) or null
+  float* work;         // omc_k4_workspace_floats(B, d, mode, path) floats, or null
   int B, d, k, nout, mode;
+  int path;            // 0: one CTA per matrix; 1: the block path
 };
 
 // K4s: PSD projection of N tiny (D x D, D <= 8) symmetric matrices, one

@@ -60,14 +60,17 @@ __global__ void __launch_bounds__(omc::kThreads) k3_kernel(K3Params p) {
     s = omc::warp_sum(s);
     if (lane == 0) v[q] = s;
   }
+  // x_l' Y x_l: n^2 terms that largely cancel, summed in float64 (in
+  // float32 the chord slots of 250 x 250 nodes sat ~1e-6 from the float64
+  // sum, relative)
   for (int l = warp; l < L; l += nwarps) {
-    float s = 0.f;
+    double s = 0.0;
     for (int e = lane; e < n * n; e += 32) {
       const int i = e / n, j = e % n;
-      s += cx[l * n + i] * Y[e] * cx[l * n + j];
+      s = fma((double)cx[l * n + i] * Y[e], (double)cx[l * n + j], s);
     }
-    s = omc::warp_sum(s);
-    if (lane == 0) xyx[l] = s;
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) xyx[l] = (float)s;
   }
   for (int j = warp; j < k; j += nwarps) {
     float s = 0.f;

@@ -270,7 +270,7 @@ class K9bParams(ctypes.Structure):
 
 class K4Params(ctypes.Structure):
     _fields_ = _struct(("M", "U", "Y", "w", "V", "P", "sweeps", "work"),
-                       ("B", "d", "k", "nout", "mode"), ())
+                       ("B", "d", "k", "nout", "mode", "path"), ())
 
 
 class K4sParams(ctypes.Structure):
@@ -308,7 +308,7 @@ def _load(path: Path):
         fn.restype = ctypes.c_int
     lib.omc_error_string.argtypes = [ctypes.c_int]
     lib.omc_error_string.restype = ctypes.c_char_p
-    lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.omc_k4_workspace_floats.restype = ctypes.c_longlong
     lib.omc_k1_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.omc_k1_scratch_floats.restype = ctypes.c_longlong

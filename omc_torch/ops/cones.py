@@ -5,7 +5,8 @@ Closed-form projections used by the ADMM w-step and the safe dual bound.
 All functions accept leading batch dimensions.
 
 ``eigvalsh`` and ``project_psd`` are the wrappers of kernels K4
-(``csrc/k4_jacobi.cu``: one CTA per matrix, parallel Jacobi) and K4s
+(``csrc/k4_jacobi.cu``: parallel Jacobi, one CTA per matrix, or block
+Jacobi spread over all SMs; ``k4_plan`` picks the path) and K4s
 (``csrc/k4s_jacobi_small.cu``: the PSD projection of matrices up to 8 x 8,
 one thread each).  A CPU tensor takes the plain version, LAPACK through
 ``torch.linalg`` (the float64 host certificates of the Shor bounds go
@@ -57,13 +58,81 @@ def _cuda(name, M):
     return dev
 
 
-def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None):
+# K4's geometry (csrc/k4_jacobi.cu): the shared memory one CTA may use on
+# the H100, the CTA path's head of per-pair and per-index scratch, and the
+# block path's control words and block width
+K4_SMEM_MAX = 232448
+K4_CTL = 16
+K4_WIDTH = 16
+K4_PATHS = ("cta", "block16")
+# where the CTA path beats the block path (H100 measurements of both at
+# B = 1, 4, 32, 64 and d = 50 to 200, PERF.md): eigenvalues of matrices up
+# to K4_CTA_EIGVALS_D at any batch; vectors of matrices up to
+# K4_CTA_VECTORS_D at batches of K4_CTA_VECTORS_B or more (at B <= 4 the
+# block path's chain of few rounds wins at d = 100 and ties at d = 51);
+# each only while A (and V) fit in its shared memory
+K4_CTA_EIGVALS_D = 150
+K4_CTA_VECTORS_D, K4_CTA_VECTORS_B = 100, 64
+
+
+def k4_cta_fits(d, mode):
+    """Whether the CTA path holds A (and, with vectors, V) of order ``d``
+    in one CTA's shared memory (``cta_smem_bytes`` in the kernel's source):
+    up to d = 237 for eigenvalues, 168 with vectors."""
+    ld = d | 1
+    head = 6 * ((d + 1) // 2) + 32 + 3 * d + 1
+    return 4 * (head + d * ld * (2 if mode else 1)) <= K4_SMEM_MAX
+
+
+def k4_block_geometry(d, mode):
+    """The block path's schedule and workspace (``BGeom`` in the kernel's
+    source): ``nb`` blocks of ``K4_WIDTH``, ``rounds`` per outer sweep (with
+    a bye block when ``nb`` is odd), ``pairs`` per round, the padded order
+    ``D`` and the workspace floats per matrix."""
+    nb = -(-d // K4_WIDTH)
+    Nb = nb + (nb & 1)
+    P, D, N2 = Nb // 2, Nb * K4_WIDTH, 2 * K4_WIDTH
+    floats = D * D * (2 if mode else 1) + P * N2 * N2 + D + (P + 4 + 3) // 4 * 4
+    return dict(nb=nb, rounds=Nb - 1, pairs=P, D=D, mat_floats=floats)
+
+
+def k4_plan(B, d, mode, path=None):
+    """K4's path for ``B`` matrices of order ``d`` in ``mode``: the CTA path
+    (one CTA per matrix) where it wins (``K4_CTA_*`` above), else the block
+    path (blocks of 16).  ``path`` (one of ``K4_PATHS``) forces it; the CTA
+    path raises ``ValueError`` where A (and V) do not fit its shared
+    memory.  Returns a dict: ``path``, ``workspace_floats`` (the whole
+    call's, as ``omc_k4_workspace_floats`` reports it) and ``rounds`` per
+    outer sweep on the block path (two grid barriers each; 0 on the CTA
+    path)."""
+    if path is None:
+        if mode == 0:
+            cta = d <= K4_CTA_EIGVALS_D
+        else:
+            cta = d <= K4_CTA_VECTORS_D and B >= K4_CTA_VECTORS_B
+        path = "cta" if cta and k4_cta_fits(d, mode) else "block16"
+    if path not in K4_PATHS:
+        raise ValueError(f"K4 path must be one of {K4_PATHS}, got {path!r}")
+    if path == "cta":
+        if not k4_cta_fits(d, mode):
+            raise ValueError(f"K4's CTA path: d={d} (mode {mode}) does not fit shared memory")
+        return dict(path=path, workspace_floats=0, rounds=0)
+    geo = k4_block_geometry(d, mode)
+    return dict(path=path, workspace_floats=K4_CTL + B * geo["mat_floats"], rounds=geo["rounds"])
+
+
+def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=None,
+              stats=None):
     """Launch K4 on a (..., d, d) batch ``M`` (or K5 on ``U`` (B, d, k) and
     ``Y`` (B, d, d), the matrices U U' - Y).  ``mode`` 0: eigenvalues
     ascending; 1: the PSD projection; 2: the ``nout`` smallest eigenpairs.
     Each matrix is symmetrised on load.  ``sweeps`` (optional int32, one per
     matrix) receives the sweeps run (``ops.jacobi.MAX_SWEEPS + 1``: the cap
-    was hit).  Returns ``w``, ``P`` or ``(w, V)``."""
+    was hit).  ``path`` forces ``k4_plan``'s path (timing).  ``stats`` (a
+    dict, block path): waits for the kernel and fills in its grid barriers,
+    the milliseconds its first CTA spent in each phase, barrier included,
+    its grid (CTAs) and group (phase 1's warps per block pair).  Returns
+    ``w``, ``P`` or ``(w, V)``."""
     key = "K4" if M is not None else "K5"
     if mode not in (0, 1, 2):
         raise ValueError(f"{key}: mode {mode!r} is not 0, 1 or 2")
@@ -76,8 +145,10 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None):
     nout = d if nout is None else nout
     if not 1 <= nout <= d:
         raise ValueError(f"{key}: nout {nout} outside 1..{d}")
+    plan = k4_plan(Bn, d, mode, path)
     p = kernels.K4Params()
     p.B, p.d, p.nout, p.mode, p.k = Bn, d, nout, mode, 0
+    p.path = int(plan["path"] != "cta")
     if M is not None:
         M = M.contiguous()
         p.M = kernels.check("M", M, M.shape, dev)
@@ -99,13 +170,18 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None):
         if mode == 2:
             V = torch.empty((*lead, d, nout), dtype=torch.float32, device=dev)
             p.V = V.data_ptr()
-    nwork = kernels.library().omc_k4_workspace_floats(d, mode)
+    nwork = kernels.library().omc_k4_workspace_floats(Bn, d, mode, p.path)
     # held until the launch is queued; the caching allocator reuses it only
     # for work queued after this launch on the same stream
-    work = torch.empty((Bn * nwork,), dtype=torch.float32, device=dev) if nwork else None
+    work = torch.empty((nwork,), dtype=torch.float32, device=dev) if nwork else None
     p.work = work.data_ptr() if work is not None else None
     if Bn:
         kernels.launch(key, "omc_k4_jacobi", p, dev)
+    if stats is not None and p.path and Bn:
+        ctl = work[:K4_CTL].cpu()  # synchronises
+        ns, words = ctl[4:8].view(torch.int64), ctl.view(torch.int32)
+        stats.update(grid_barriers=int(words[1]), phase1_ms=float(ns[0]) / 1e6,
+                     phase2_ms=float(ns[1]) / 1e6, grid=int(words[8]), group=int(words[9]))
     return P if mode == 1 else (w if mode == 0 else (w, V))
 
 

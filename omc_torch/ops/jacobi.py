@@ -38,6 +38,8 @@ from __future__ import annotations
 
 import torch
 
+from omc_torch.ops.polar import tf32x3_matmul
+
 # sweeps before the loop gives up (kJacobiMaxSweeps in csrc/common.cuh);
 # a matrix whose sweep count is MAX_SWEEPS + 1 hit the cap.  Float32
 # matrices up to d = 200, rank-deficient ones included, stop within 14
@@ -159,3 +161,184 @@ def jacobi_project_psd(M, max_sweeps: int = MAX_SWEEPS):
     w, V, sweeps = jacobi_eigh(M, max_sweeps)
     wp = torch.where(w > 0, w, torch.where(torch.isnan(w), w, torch.zeros_like(w)))
     return (V * wp[..., None, :]) @ V.transpose(-1, -2), sweeps
+
+
+# ---------------------------------------------------------------------------
+# the block path of K4 and K5 (csrc/k4_jacobi.cu, k4_block_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _block_matmul(dtype):
+    """The block path's tile products: 3xTF32 on the tensor cores for
+    float32 (``ops.polar.tf32x3_matmul``), plain products for float64."""
+    return tf32x3_matmul if dtype == torch.float32 else torch.matmul
+
+
+def block_tournament(nb: int):
+    """The rounds of one outer sweep of the block path over ``nb`` blocks:
+    per round a list of ``(I, J)`` block pairs, ``I < J``; ``J == nb`` is
+    the bye when ``nb`` is odd (its pair is block ``I`` alone)."""
+    N = nb + (nb & 1)
+    rounds = []
+    for r in range(N - 1):
+        pairs = []
+        for a in range(N // 2):
+            x, y = (N - 1, r) if a == 0 else ((r + a) % (N - 1), (r - a) % (N - 1))
+            pairs.append((min(x, y), max(x, y)))
+        rounds.append(pairs)
+    return rounds
+
+
+def _inner_sweep(S, E, vmask, floor, active):
+    """One sweep of the scalar parallel Jacobi on every pair's (2w x 2w)
+    subproblem ``S`` (..., P, 2w, 2w; float64), accumulating ``E = Q - I``
+    of its rotations in E's dtype, the input's.  Each rotation (test and
+    parameters) is computed in the input dtype from S's values rounded to
+    it, and applied whole to S in float64 (no exact zero on the pair's own
+    block), as the kernel does.  ``vmask`` (P, 2w): the indices that exist
+    (a ragged last block's tail and the bye's half never rotate).  Returns
+    ``(S, E, rotated)``, ``rotated`` (..., P) true where a pair rotated."""
+    n2 = S.shape[-1]
+    dt = E.dtype
+    eps = torch.finfo(dt).eps
+    rotated = torch.zeros(S.shape[:-2], dtype=torch.bool, device=S.device)
+    fl = floor[:, None, None]
+    for p, q in round_robin(n2):
+        p, q = p.to(S.device), q.to(S.device)
+        app, aqq, apq = S[..., p, p].to(dt), S[..., q, q].to(dt), S[..., p, q].to(dt)
+        rel = eps * torch.sqrt(torch.abs(app)) * torch.sqrt(torch.abs(aqq))
+        thr = torch.where(rel > fl, rel, fl.expand_as(rel))
+        rot = ~(torch.abs(apq) <= thr) & (vmask[:, p] & vmask[:, q]) & active[:, None, None]
+        if not bool(rot.any()):
+            continue
+        safe = torch.where(rot, apq, torch.ones_like(apq))
+        tau = (aqq - app) / (2.0 * safe)
+        t = torch.copysign(torch.ones_like(tau), tau) / (
+            torch.abs(tau) + torch.hypot(torch.ones_like(tau), tau))
+        t = torch.where(rot, t, torch.zeros_like(t))
+        c = torch.where(rot, 1.0 / torch.sqrt(1.0 + t * t), torch.ones_like(t))
+        s = t * c
+        r = s / (1.0 + c)
+        s64, r64 = s.double(), r.double()
+        Sp, Sq = S[..., p, :], S[..., q, :]
+        S = S.clone()
+        S[..., p, :] = _rot0(Sp, Sq, s64[..., None], r64[..., None])
+        S[..., q, :] = _rot1(Sp, Sq, s64[..., None], r64[..., None])
+        Cp, Cq = S[..., :, p], S[..., :, q]
+        S[..., :, p] = _rot0(Cp, Cq, s64[..., None, :], r64[..., None, :])
+        S[..., :, q] = _rot1(Cp, Cq, s64[..., None, :], r64[..., None, :])
+        # the lower triangle from the upper, as the kernel writes each 2x2
+        # block and its transpose from one computation
+        S = torch.triu(S) + torch.triu(S, 1).transpose(-1, -2)
+        # E <- (I + E) J - I: the rotation of E's columns in Rutishauser's
+        # form, plus J - I on rows p and q (c - 1 = -s r, no cancellation)
+        Ep, Eq = E[..., :, p], E[..., :, q]
+        E = E.clone()
+        E[..., :, p] = _rot0(Ep, Eq, s[..., None, :], r[..., None, :])
+        E[..., :, q] = _rot1(Ep, Eq, s[..., None, :], r[..., None, :])
+        E[..., p, p] -= s * r
+        E[..., q, p] -= s
+        E[..., p, q] += s
+        E[..., q, q] -= s * r
+        rotated = rotated | rot.any(dim=-1)
+    return S, E, rotated
+
+
+def jacobi_eigh_blocked(M, width: int = 16, max_sweeps: int = MAX_SWEEPS):
+    """Eigenvalues (ascending), eigenvectors and sweep counts of a batch of
+    symmetric (..., d, d) matrices by the schedule of K4's block path.
+
+    The indices split into ``nb = ceil(d / width)`` blocks (a ragged last
+    block is masked, never rotated); an outer sweep is the round robin of
+    ``block_tournament(nb)``.  In each round every pair (I, J) runs ONE
+    sweep of the scalar schedule (``jacobi_eigh``'s rotation and stopping
+    test in the input dtype, with the whole matrix's floor) on its 2w x 2w
+    subproblem [[A_II, A_IJ], [A_JI, A_JJ]] held in float64, each rotation
+    applied whole (no exact zero), accumulating E = Q - I in the input
+    dtype; the rotated subproblem, rounded back, is the pair's new diagonal
+    tile.  A pair none of whose
+    entries fails the test is skipped (E = 0).  Every other tile, between
+    pairs a < c, becomes X + E_a' X with X = T + T E_c (T = the tile), and
+    is mirrored below the diagonal, so A stays exactly symmetric; V's
+    columns of pair a become V_a + V_a E_a.  The products are the kernel's
+    3xTF32 ``tf32x3_matmul`` for float32 (``torch.matmul`` for float64).
+    The outer sweeps stop after the first
+    that rotates no pair, or at ``max_sweeps`` (``sweeps`` is then
+    ``max_sweeps + 1``).  Returns ``(w, V, sweeps)``."""
+    matmul = _block_matmul(M.dtype)
+    shape = M.shape
+    d, w = shape[-1], int(width)
+    A0 = M.reshape(-1, d, d)
+    A0 = 0.5 * (A0 + A0.transpose(-1, -2))
+    Bn = A0.shape[0]
+    dt, dev = A0.dtype, A0.device
+    eps = torch.finfo(dt).eps
+    nb = -(-d // w)
+    nb2 = nb + (nb & 1)  # a bye block, all masked, when nb is odd
+    D = nb2 * w
+    A = torch.zeros((Bn, D, D), dtype=dt, device=dev)
+    A[:, :d, :d] = A0
+    valid = torch.arange(D, device=dev) < d
+    V = torch.diag_embed(valid.to(dt)).expand(Bn, D, D).clone()
+    normF = torch.sqrt(torch.sum(A0 * A0, dim=(-2, -1)))
+    floor = torch.where(torch.isfinite(normF), eps * normF / (4.0 * d),
+                        torch.full_like(normF, float("nan")))
+    sweeps = torch.full((Bn,), max_sweeps + 1, dtype=torch.int32, device=dev)
+    active = torch.ones((Bn,), dtype=torch.bool, device=dev)
+    loc = torch.arange(w, device=dev)
+    rounds = []
+    for pairs in block_tournament(nb):
+        idx = torch.stack([torch.cat([I * w + loc, J * w + loc]) for I, J in pairs])
+        perm = idx.reshape(-1)
+        tile = torch.arange(len(pairs), device=dev).repeat_interleave(2 * w)
+        rounds.append((idx, perm, tile))
+    for sweep in range(1, max_sweeps + 1):
+        rotated = torch.zeros((Bn,), dtype=torch.bool, device=dev)
+        for idx, perm, tile in rounds:
+            P = idx.shape[0]
+            S = A[:, idx[:, :, None], idx[:, None, :]]
+            E = torch.zeros_like(S)
+            S, E, rot = _inner_sweep(S.double(), E, valid[idx], floor, active)
+            S = S.to(dt)
+            rotated = rotated | rot.any(dim=-1)
+            # the tiles in pair order: X = T + T E_c, then X + E_a' X
+            Eb = torch.zeros((Bn, D, D), dtype=dt, device=dev)
+            for a in range(P):
+                Eb[:, 2 * w * a:2 * w * (a + 1), 2 * w * a:2 * w * (a + 1)] = E[:, a]
+            Ap = A[:, perm[:, None], perm[None, :]]
+            X = Ap + matmul(Ap, Eb)
+            An = X + matmul(Eb.transpose(-1, -2), X)
+            upper = tile[:, None] < tile[None, :]
+            An = torch.where(upper, An, An.transpose(-1, -2))
+            for a in range(P):
+                An[:, 2 * w * a:2 * w * (a + 1), 2 * w * a:2 * w * (a + 1)] = S[:, a]
+            A = A.clone()
+            A[:, perm[:, None], perm[None, :]] = An
+            Vp = V[:, :, perm]
+            V = V.clone()
+            V[:, :, perm] = Vp + matmul(Vp, Eb)
+        newly = active & ~rotated
+        sweeps = torch.where(newly, torch.full_like(sweeps, sweep), sweeps)
+        active = active & rotated
+        if not bool(active.any()):
+            break
+    wd = torch.diagonal(A, dim1=-2, dim2=-1)[:, :d]
+    V = V[:, :d, :d]
+    key = torch.where(torch.isnan(wd), torch.full_like(wd, float("inf")), wd)
+    order = torch.sort(key, dim=-1, stable=True).indices
+    wd = torch.gather(wd, -1, order)
+    V = torch.gather(V, -1, order[:, None, :].expand(Bn, d, d))
+    bad = ~torch.isfinite(normF)
+    wd = torch.where(bad[:, None], torch.full_like(wd, float("nan")), wd)
+    V = torch.where(bad[:, None, None], torch.full_like(V, float("nan")), V)
+    return wd.reshape(shape[:-1]), V.reshape(shape), sweeps.reshape(shape[:-2])
+
+
+def jacobi_project_psd_blocked(M, width: int = 16, max_sweeps: int = MAX_SWEEPS):
+    """The PSD projection of K4's block path: V max(w, 0) V' through
+    ``jacobi_eigh_blocked``, formed as the kernel's epilogue does (the
+    upper triangle, mirrored; NaN eigenvalues propagate)."""
+    w, V, sweeps = jacobi_eigh_blocked(M, width, max_sweeps)
+    wp = torch.where(w > 0, w, torch.where(torch.isnan(w), w, torch.zeros_like(w)))
+    P = _block_matmul(M.dtype)(V * wp[..., None, :], V.transpose(-1, -2))
+    return torch.triu(P) + torch.triu(P, 1).transpose(-1, -2), sweeps
