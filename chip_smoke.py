@@ -17,7 +17,10 @@ Phases, in order (each prints its numbers on lines of its own):
                and the Jacobi kernels K4/K4s/K5 also against a float64 eigh,
                the latter with their sweep counts; K4 and K5 (d=50 to 1000,
                B=1 to 128) on every path k4_plan could take, and the block
-               path's grid barrier
+               path's grid barrier; K6 (n=m=50, 250, 1000; k=1 to 10; B=4
+               and 64) on every path k6_plan could take, against the
+               library's batched solve; K8c at k=2 (timed), 3 and 4; the
+               build fails if ptxas reports a spill in K6 or K8c
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -216,6 +219,34 @@ def phase_build(res):
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
     res["build_s"] = time.time() - t0
+    report = _ptxas_report(info.get("ptxas", ""))
+    res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
+    log("build: kernels that spill", json.dumps(spills))
+    res["k6_k8c_registers"] = regs = {f: r["registers"] for f, r in report.items()
+                                      if "k6_" in f or "k8c_kernel" in f}
+    log("build: K6 and K8c registers", json.dumps(regs))
+    # K6's and K8c's instantiations keep every value in registers
+    assert not [f for f in spills if "k6_" in f or "k8c_kernel" in f], spills
+
+
+def _ptxas_report(text):
+    """{function: {"registers": n, "spill": [store bytes, load bytes]}}
+    from ptxas's report (``-Xptxas -v``)."""
+    import re
+
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": None, "spill": [0, 0]})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn]["spill"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def _spectral_batch(B, d, gen, dev):
@@ -472,7 +503,8 @@ def phase_kernels(res):
     # input must give the same bits (no atomics)
     for name in ("K8c", "K8d"):
         r = rows[name]
-        checks.append((name, r, r["rel_err"] <= 1e-5 and r["deterministic"]))
+        checks.append((name, r, r["rel_err"] <= 1e-5 and r["deterministic"]
+                       and r.get("smem_matches_kernel", True)))
     # K7t and the K7x slots: the bars of K1/K7 against a float64 eigh
     # projection of the same slot values
     for name in ("K7t", "K7xfused"):
@@ -480,6 +512,13 @@ def phase_kernels(res):
         checks.append((name, r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
                        and r["rel_err"] <= 2e-4))
     out.update({name: [row] for name, row in rows.items()})
+    # K8c at k = 3 and 4: the same bars on the kernel's other instantiations
+    for k in (3, 4):
+        r = _check_k8c(32, 75, 75, 8, 1024, k, gen, dev)
+        log("K8c", json.dumps(r))
+        checks.append(("K8c", r, r["rel_err"] <= 1e-5 and r["deterministic"]
+                       and r["smem_matches_kernel"]))
+        out["K8c"].append(r)
 
     # ---- K9s, K9a, K9b at the headline's shape and at config 3's ----
     for name in ("K9s", "K9a", "K9b"):
@@ -657,6 +696,36 @@ def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2):
     return c, sc, st
 
 
+def _k8c_plan_row(B, n, m, k):
+    """K8c's tile at this shape, its shared memory held against the
+    kernel's own count (``omc_k8c_smem_bytes``)."""
+    from omc_torch import kernels
+    from omc_torch.sdp.shor_k import k8c_plan
+
+    plan = k8c_plan(B, n, m, k)
+    smem = kernels.library().omc_k8c_smem_bytes(n, m, k, plan["cols"])
+    return dict(plan=plan, smem_matches_kernel=smem == plan["smem_bytes"])
+
+
+def _check_k8c(B, n, m, L, M5, k, gen, dev):
+    """K8c alone at rank k: within 1e-5 relative of its plain version, the
+    same bits from two launches (no timing: a second instantiation of the
+    kernel on the card)."""
+    import torch
+
+    from omc_torch.sdp import shor_k as SK
+
+    c, sc, st = _shor_k_inputs(B, n, m, L, M5, gen, dev, k=k)
+    zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
+    sk, s2 = st.clone(), st.clone()
+    SK.shor_k_zstep(c, sc, sk)
+    SK.shor_k_zstep(c, sc, s2)
+    torch.cuda.synchronize()
+    rel, ab = _errs(zs(sk), SK.shor_k_zstep_plain(c, sc, st))
+    return dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
+                deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k))
+
+
 def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     """K8c, K7t, K7x (slots) and K8d against their plain versions on the
     same inputs, each at the outputs of the step before it, with times,
@@ -687,7 +756,7 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     rel, ab = _errs(zs(sk), ref)
     s3 = st.clone()
     out["K8c"] = dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
-                      deterministic=_same_bits(zs(sk), zs(s2)),
+                      deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k),
                       ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
                       plain_ms=cuda_time_ms(lambda: SK.shor_k_zstep_plain(c, sc, st)))
     # per slot: X and Theta blocks of w1/u1, Xt_prev, W >= 0, Wt >= 0, the
@@ -1064,6 +1133,8 @@ def _check_eig_kernels(gen, dev):
     from omc_torch.ops import cones
     from omc_torch.ops.jacobi import MAX_SWEEPS
     from omc_torch.ops.linalg import (
+        K6_PATHS,
+        k6_plan,
         u_step_unconstrained,
         u_step_unconstrained_plain,
         v_step,
@@ -1288,36 +1359,62 @@ def _check_eig_kernels(gen, dev):
                         B * 9 * n ** 3)
         out["K5"].append(row)
 
-    # ---- K6: one V-step + U-step at the headline's n = m = 50 ----
-    n = m = 50
-    A = torch.randn(n, m, generator=gen).to(dev)
-    mask = (torch.rand(n, m, generator=gen) < 0.5).float().to(dev)
-    for B, k in ((4, 1), (64, 1), (4, 2), (64, 2), (4, 10), (64, 10)):
+    # ---- K6: one V-step + U-step at the headline's n = m = 50, config 4's
+    # 250 (k = 5) and config 5's 1000 (k = 10) ----
+    lib = kernels.library()
+    for n, B, k in ((50, 4, 1), (50, 64, 1), (50, 4, 2), (50, 64, 2), (50, 4, 10),
+                    (50, 64, 10), (250, 4, 5), (250, 64, 5), (1000, 4, 10), (1000, 64, 10)):
+        m = n
+        A = torch.randn(n, m, generator=gen).to(dev)
+        mask = (torch.rand(n, m, generator=gen) < 0.5).float().to(dev)
         # well-conditioned factors, as altmin's SVD warm start gives
         Q, _ = torch.linalg.qr(torch.randn(B, n, k, generator=gen, dtype=torch.float64))
         U = (Q * torch.empty(B, 1, k, dtype=torch.float64).uniform_(0.5, 2.0, generator=gen))
         U = U.float().to(dev).contiguous()
+        # every path k6_plan could take, each held to the plain version (the
+        # U-step on that path's V) and to its own second launch
+        by_path, err_by_path = {}, {}
+        for path in K6_PATHS:
+            try:
+                pl = {"v": k6_plan(B, n, m, k, path), "u": k6_plan(B, m, n, k, path)}
+            except ValueError:  # the slots path needs n k and m k multiples of 4
+                continue
+            V = v_step(U, A, mask, 80.0, path=path)
+            U2 = u_step_unconstrained(V, A, mask, 80.0, path=path)
+            V_b = v_step(U, A, mask, 80.0, path=path)
+            U2_b = u_step_unconstrained(V, A, mask, 80.0, path=path)
+            torch.cuda.synchronize()
+            Vp = v_step_plain(U, A, mask, 80.0)
+            U2p = u_step_unconstrained_plain(V, A, mask, 80.0)
+            err_by_path[path] = dict(
+                rel_err=max(rel_fro(V, Vp), rel_fro(U2, U2p)),
+                max_abs_err=max(float((V - Vp).abs().max()), float((U2 - U2p).abs().max())),
+                deterministic=_same_bits((V, U2), (V_b, U2_b)),
+                smem_matches_kernel=all(
+                    x["smem_bytes"] == lib.omc_k6_smem_bytes(
+                        K6_PATHS.index(path), k, x["S"], x["W"], x["rpw"]) for x in pl.values()))
+            by_path[path] = cuda_time_ms(lambda: u_step_unconstrained(
+                v_step(U, A, mask, 80.0, path=path), A, mask, 80.0, path=path))
+        plans = {"v": k6_plan(B, n, m, k), "u": k6_plan(B, m, n, k)}
+        path = plans["v"]["path"]
         V = v_step(U, A, mask, 80.0)
-        U2 = u_step_unconstrained(V, A, mask, 80.0)
-        torch.cuda.synchronize()
-        Vp = v_step_plain(U, A, mask, 80.0)
-        U2p = u_step_unconstrained_plain(V, A, mask, 80.0)  # on the kernel's V
         G = torch.einsum("bnk,nm,bnl->bmkl", U, mask, U) + (1 / 80.0) * (
             U.transpose(-1, -2) @ U)[:, None] + 1e-10 * torch.eye(k, device=dev)
         r = (U.transpose(-1, -2) @ (mask * A)).transpose(-1, -2)[..., None]
         H = torch.einsum("bkm,nm,blm->bnkl", V, mask, V) + (1 / 80.0) * (
             V @ V.transpose(-1, -2))[:, None] + 1e-10 * torch.eye(k, device=dev)
         r2 = ((mask * A) @ V.transpose(-1, -2))[..., None]
-        row = dict(B=B, n=n, m=m, k=k, rel_err=max(rel_fro(V, Vp), rel_fro(U2, U2p)),
-                   max_abs_err=max(float((V - Vp).abs().max()), float((U2 - U2p).abs().max())),
-                   ms=cuda_time_ms(lambda: u_step_unconstrained(v_step(U, A, mask, 80.0),
-                                                                A, mask, 80.0)),
+        row = dict(B=B, n=n, m=m, k=k, plan=plans, **err_by_path[path],
+                   ms=by_path[path], ms_by_path=by_path, err_by_path=err_by_path,
                    plain_ms=cuda_time_ms(lambda: u_step_unconstrained_plain(
                        v_step_plain(U, A, mask, 80.0), A, mask, 80.0)),
                    # the library's batched solves on the same Grams
                    library_ms=cuda_time_ms(lambda: (torch.linalg.solve(G, r),
                                                     torch.linalg.solve(H, r2))))
-        row["ok"] = row["rel_err"] <= 1e-5
+        row["max_abs_err"] = max(e["max_abs_err"] for e in err_by_path.values())
+        row["beats_library"] = row["ms"] <= row["library_ms"]
+        row["ok"] = all(e["rel_err"] <= 1e-5 and e["deterministic"] and e["smem_matches_kernel"]
+                        for e in err_by_path.values())
         # A and the mask read once, U in, V and U out; per observed entry
         # and slot, in each of the two steps, the lower triangle of the
         # masked k x k Gram term (k^2 + k flops) and the right-hand side (2k)

@@ -322,9 +322,7 @@ struct K8cParams {
   const float *wp, *up;                  // (B, n, m)
   const float *wq, *uq;                  // (B, k, C)
   const float *soc_mask, *coord_mask;    // (B, Ms), (B, C)
-  const int* coord_flat;                 // (B, C)
-  const int *cm_ptr, *cm_ent;            // coordinate -> 4 l + corner (table a)
-  const int *col_ptr, *col_ent;          // column -> coordinates (table b)
+  const int *fm_ptr, *fm_ent;            // (B, n*m+1), (B, 4*M5) entry -> 4 l + corner
   const int *flat_coord, *flat_soc;      // (B, n*m) entry -> coordinate / RSOC slot or -1
   const int *v1_ptr, *v1_ent, *v2_ptr, *v2_ent, *v3_ptr, *v3_ent;
   const float *D1x, *c1x, *D1w;          // (B, n*m)
@@ -335,6 +333,7 @@ struct K8cParams {
   const float *sX, *sT, *sS, *rho;       // (B,)
   float *Xt, *Xs, *Ths, *Ws, *Wt, *Hh, *v1, *v2, *v3;  // outputs
   int B, n, m, k, M5, C, Ms, P1, P2, P3;
+  int cols;                              // columns a CTA (sdp.shor_k.k8c_plan)
   float gamma, R_X;                      // R_X = sqrt(2 gamma ub_bar)
 };
 
@@ -422,6 +421,8 @@ struct K6Params {
   const float* F;      // the fixed factor
   const float *A, *mask;  // (n, m)
   float* out;          // the solved factor
+  float* gram;         // slots path: (B, k(k+1)/2) scratch for (1/gamma) F'F
   int B, n, m, k;
+  int path, S, W, rpw;  // the plan (ops.linalg.k6_plan)
   float inv_gamma, ridge_eps;
 };

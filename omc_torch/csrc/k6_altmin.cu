@@ -12,25 +12,43 @@
 // rhs_i = sum_j mask_ij A_ij v_j.  One kernel serves both: it reduces over
 // index r and solves for output o, reading mask and A at r * s_r + o * s_o.
 //
-// Design: one CTA (one warp) per (slot, tile of 32 outputs); each CTA
-// recomputes (1/gamma) F'F for its slot (R k^2 work, cheap beside the
-// masked sums).  The reduction runs over chunks of 32 r: the chunk's 32 x 32
-// tiles of mask and A are staged through shared memory (coalesced for both
-// steps, so the U-step reads the row-major mask without a transpose) with
-// the chunk's k-vectors of the factor; each lane then accumulates its own
-// output's packed lower-triangular Gram and right-hand side, kept in shared
-// memory as [entry][lane] (k <= 10: a 10 x 10 factor per lane does not fit
-// registers), r in order, so the result does not depend on the launch.
-// Then each lane factors its k x k system by Cholesky (SPD: the ridge) and
-// solves; k = 1 divides, as the plain version does.  What bounds it on the
-// H100: 2 (k^2 + k) flops per observed entry and slot against reading the
-// n x m mask and A once, bytes-bound and launch-dominated at the headline's
-// n = m = 50.
+// What bounds it on the H100: fp32 operations.  Per (slot, output, r) the
+// packed lower Gram and the right-hand side take k(k+1)/2 + 2k + 2 flops
+// (77 at k = 10), against reading the n x m mask and A once; the tile path
+// does them for every r, the slots path for the observed r only.
+//
+// Design: K is a template parameter (1..10); each lane keeps one (slot,
+// output)'s packed lower Gram and right-hand side in registers (at most
+// 55 + 10 floats), and every update, the Cholesky and both triangular solves
+// unroll.  ops.linalg.k6_plan picks one of two paths and its tiling:
+// - tile path (lanes = 32 outputs of one slot; small batches): a CTA serves
+//   32 outputs of S slots with S x W warps, warp (s, w) summing the
+//   contiguous r range [w rpw, (w + 1) rpw) of slot s.  The S warps of a
+//   range stage its mask and A tiles through shared memory together
+//   (coalesced for both steps, so the U-step reads the row-major mask
+//   without a transpose), each with its own factor chunk.  (1/gamma) F'F
+//   rides in the same sums (the Gram weight of r is mask + 1/gamma); the W
+//   partials are added in warp order through shared memory.
+// - slots path (lanes = 32 slots, one output a warp; batches of 32 and
+//   more): the mask is the same for every slot, so a warp skips an r its
+//   output does not observe as a whole, and does the Gram work of the
+//   observed entries only.  A CTA of W warps (up to 16) serves W outputs of
+//   32 slots; the 32 slots' factor rows (the U-step's wrapper hands V in as
+//   (B, m, k)) stream in 16-byte cp.async pieces through two shared-memory
+//   buffers of 32 rows, each shared by the W warps, so the copies per
+//   output fall as W grows.  (1/gamma) F'F comes from a small kernel before
+//   it (one CTA a slot, 16 r ranges added in order) into the wrapper's
+//   scratch.
+// Sums run in a fixed order, so two launches give the same bits; k = 1
+// divides, as the plain version does.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 32, kMaxK = 10, kTri = kMaxK * (kMaxK + 1) / 2;
+constexpr int kTile = 32, kUnit = 8, kMaxWarps = 8, kMaxSlotsWarps = 16;
+constexpr int kSmemMax = 232448;  // a CTA's shared memory on the H100
 
 struct Geom {
   int R, O;              // reduction length, outputs
@@ -39,98 +57,425 @@ struct Geom {
   long long oB, oo, ol;  // output (b, o, l) strides
 };
 
-__device__ __forceinline__ int tri(int a) { return a * (a + 1) / 2; }
+__host__ __device__ constexpr int tri(int a) { return a * (a + 1) / 2; }
+__host__ __device__ constexpr int fstride(int k) { return (k + 3) & ~3; }
 
-__global__ void __launch_bounds__(kTile) k6_kernel(K6Params p, Geom g) {
-  __shared__ float G[kTri][kTile];
-  __shared__ float rhs[kMaxK][kTile];
-  __shared__ float gram[kTri];
-  __shared__ float fac[kTile][kMaxK];
-  __shared__ float mt[kTile][kTile + 1], at[kTile][kTile + 1];
-  const int lane = threadIdx.x, b = blockIdx.y, o0 = blockIdx.x * kTile;
-  const int k = p.k, nt = tri(k);
-  const float* F = p.F + b * g.fB;
+// the slots path's slot stride: rpw rows of k floats as they lie in the
+// factor (so 16-byte copies land whole), rounded up to an odd number of
+// 16-byte units (lanes read distinct bank groups: float4 rows for k % 4 ==
+// 0, float2 rows two lanes a bank pair for even k)
+__host__ __device__ constexpr int slot_stride(int k, int rpw) {
+  return ((rpw * k + 3) & ~3) + ((((rpw * k + 3) & ~3) / 4) % 2 == 0 ? 4 : 0);
+}
 
-  // (1/gamma) F'F, r in order
-  for (int e = lane; e < nt; e += kTile) {
-    int a = 0;
-    while (tri(a + 1) <= e) ++a;
-    const int c = e - tri(a);
-    float s = 0.f;
-    for (int r = 0; r < g.R; ++r) s = fmaf(F[r * g.fr + a * g.fl], F[r * g.fr + c * g.fl], s);
-    gram[e] = p.inv_gamma * s;
-  }
-  for (int e = 0; e < nt; ++e) G[e][lane] = 0.f;
-  for (int a = 0; a < k; ++a) rhs[a][lane] = 0.f;
+// 16 bytes global -> shared, of which `bytes` (0..16) are read and the rest
+// zero-filled (src is not read when bytes == 0)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
 
-  for (int r0 = 0; r0 < g.R; r0 += kTile) {
-    __syncthreads();
-    for (int e = 0; e < kTile; ++e) {
-      // coalesced: lanes walk the stride-1 axis of the (n, m) arrays
-      const int rl = g.so == 1 ? e : lane, ol = g.so == 1 ? lane : e;
-      const int r = r0 + rl, o = o0 + ol;
-      const bool in = r < g.R && o < g.O;
-      const long long at_ = (long long)r * g.sr + (long long)o * g.so;
-      mt[rl][ol] = in ? p.mask[at_] : 0.f;
-      at[rl][ol] = in ? p.A[at_] : 0.f;
-    }
-    for (int e = lane; e < kTile * k; e += kTile) {
-      const int rl = e / k, l = e - rl * k;
-      fac[rl][l] = r0 + rl < g.R ? F[(r0 + rl) * g.fr + l * g.fl] : 0.f;
-    }
-    __syncthreads();
-    const int rend = min(kTile, g.R - r0);
-    for (int rl = 0; rl < rend; ++rl) {
-      const float w = mt[rl][lane], aw = w * at[rl][lane];
-      for (int a = 0; a < k; ++a) {
-        const float ua = fac[rl][a];
-        rhs[a][lane] = fmaf(aw, ua, rhs[a][lane]);
-        const float wu = w * ua;
-        for (int c = 0; c <= a; ++c) G[tri(a) + c][lane] = fmaf(wu, fac[rl][c], G[tri(a) + c][lane]);
-      }
-    }
+// dynamic shared memory (floats).  Tile path: per r range the padded
+// mask and A tiles of min(32, rpw) rows, per warp its factor chunk; the
+// combine reuses it for the S (W - 1) partials.  Slots path: two buffers
+// (cp.async double buffering), each the 32 slots' factor chunk, then the
+// W outputs' mask and A chunk.
+__host__ __device__ inline int smem_floats(int path, int k, int S, int W, int rpw) {
+  if (path == 1) return 2 * (kTile * slot_stride(k, rpw) + 2 * W * rpw);
+  const int ch = rpw < kTile ? rpw : kTile;
+  const int stage = W * 2 * ch * (kTile + 1) + S * W * ch * fstride(k);
+  const int comb = S * (W - 1) * (tri(k) + k) * kTile;
+  return stage > comb ? stage : comb;
+}
+
+// A thread's share of a staging copy: items i = 0 .. count - 1, U loads
+// at a time started before their stores, so a thread's loads overlap instead
+// of queueing (the item -> address maps are cheap: no division by a
+// runtime value in the loop).  U = 4 on the tile path keeps k = 10 within
+// the 128 registers of two CTAs an SM.
+template <int U, typename T, typename Load, typename Store>
+__device__ __forceinline__ void stage(int count, Load load, Store store) {
+  for (int i0 = 0; i0 < count; i0 += U) {
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u < count) v[u] = load(i0 + u);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u < count) store(i0 + u, v[u]);
   }
-  const int o = o0 + lane;
-  if (o >= g.O) return;
-  for (int a = 0; a < k; ++a) {
-    for (int c = 0; c <= a; ++c) G[tri(a) + c][lane] += gram[tri(a) + c];
-    G[tri(a) + a][lane] += p.ridge_eps;
+}
+
+// 4 bytes global -> shared, zero-filled where !valid (src is not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void range_barrier(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// G += w f f' (lower), rhs += aw f
+template <int K>
+__device__ __forceinline__ void gram_update(float (&G)[tri(K)], float (&rhs)[K],
+                                            const float (&f)[fstride(K)], float w, float aw) {
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    rhs[a] = fmaf(aw, f[a], rhs[a]);
+    const float wu = w * f[a];
+#pragma unroll
+    for (int c = 0; c <= a; ++c) G[tri(a) + c] = fmaf(wu, f[c], G[tri(a) + c]);
   }
-  float* out = p.out + b * g.oB + o * g.oo;
-  if (k == 1) {
-    out[0] = rhs[0][lane] / G[0][lane];
+}
+
+// f[0 .. K) = row[0 .. K): float4 pieces for K % 4 == 0, float2 for even
+// K (the slots path's rows are K-float aligned)
+template <int K>
+__device__ __forceinline__ void load_row(float (&f)[fstride(K)], const float* row) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int a = 0; a < K; a += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(row + a);
+      f[a] = v.x, f[a + 1] = v.y, f[a + 2] = v.z, f[a + 3] = v.w;
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int a = 0; a < K; a += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(row + a);
+      f[a] = v.x, f[a + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < K; ++a) f[a] = row[a];
+  }
+}
+
+// out[l * ol] = (G + eps I)^-1 rhs: k = 1 divides; else G = L L' in place
+// (packed lower), then L y = rhs, L' x = y
+template <int K>
+__device__ __forceinline__ void solve_store(float (&G)[tri(K)], float (&rhs)[K], float eps,
+                                            float* out, long long ol) {
+#pragma unroll
+  for (int a = 0; a < K; ++a) G[tri(a) + a] += eps;
+  if (K == 1) {
+    out[0] = rhs[0] / G[0];
     return;
   }
-  // Cholesky G = L L' in place (packed lower), then L y = rhs, L' x = y
-  for (int j = 0; j < k; ++j) {
-    float djj = G[tri(j) + j][lane];
-    for (int q = 0; q < j; ++q) djj -= G[tri(j) + q][lane] * G[tri(j) + q][lane];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    float djj = G[tri(j) + j];
+#pragma unroll
+    for (int q = 0; q < j; ++q) djj -= G[tri(j) + q] * G[tri(j) + q];
     djj = sqrtf(djj);
-    G[tri(j) + j][lane] = djj;
-    for (int i = j + 1; i < k; ++i) {
-      float v = G[tri(i) + j][lane];
-      for (int q = 0; q < j; ++q) v -= G[tri(i) + q][lane] * G[tri(j) + q][lane];
-      G[tri(i) + j][lane] = v / djj;
+    G[tri(j) + j] = djj;
+#pragma unroll
+    for (int i = j + 1; i < K; ++i) {
+      float v = G[tri(i) + j];
+#pragma unroll
+      for (int q = 0; q < j; ++q) v -= G[tri(i) + q] * G[tri(j) + q];
+      G[tri(i) + j] = v / djj;
     }
   }
-  for (int i = 0; i < k; ++i) {
-    float v = rhs[i][lane];
-    for (int q = 0; q < i; ++q) v -= G[tri(i) + q][lane] * rhs[q][lane];
-    rhs[i][lane] = v / G[tri(i) + i][lane];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float v = rhs[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) v -= G[tri(i) + q] * rhs[q];
+    rhs[i] = v / G[tri(i) + i];
   }
-  for (int i = k - 1; i >= 0; --i) {
-    float v = rhs[i][lane];
-    for (int q = i + 1; q < k; ++q) v -= G[tri(q) + i][lane] * rhs[q][lane];
-    rhs[i][lane] = v / G[tri(i) + i][lane];
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float v = rhs[i];
+#pragma unroll
+    for (int q = i + 1; q < K; ++q) v -= G[tri(q) + i] * rhs[q];
+    rhs[i] = v / G[tri(i) + i];
   }
-  for (int l = 0; l < k; ++l) out[l * g.ol] = rhs[l][lane];
+#pragma unroll
+  for (int l = 0; l < K; ++l) out[l * ol] = rhs[l];
+}
+
+// ---- tile path: lanes = 32 outputs of a slot ----
+template <int K>
+__global__ void __launch_bounds__(kMaxWarps * kTile, 2) k6_kernel(K6Params p, Geom g) {
+  constexpr int NT = tri(K), FS = fstride(K);
+  extern __shared__ __align__(16) float sm[];
+  const int S = p.S, W = p.W, CH = min(p.rpw, kTile);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = warp % S, w = warp / S;
+  const int b = blockIdx.y * S + s;
+  const int o0 = blockIdx.x * kTile;
+  const int lo = w * p.rpw, hi = min(g.R, lo + p.rpw);
+  float* mt = sm + w * 2 * CH * (kTile + 1);
+  float* at = mt + CH * (kTile + 1);
+  float* fac = sm + W * 2 * CH * (kTile + 1) + warp * CH * FS;
+  const float* F = p.F + (size_t)min(b, p.B - 1) * g.fB;
+  const float ig = p.inv_gamma;
+  const int nthr = S * kTile;
+  // U-step staging: the lanes as per x CH (row, output offset) pairs
+  const bool v_step = g.so == 1;
+  const int per = kTile / CH, lane_r = lane % CH, lane_o = lane / CH;
+
+  float G[NT], rhs[K];
+#pragma unroll
+  for (int e = 0; e < NT; ++e) G[e] = 0.f;
+#pragma unroll
+  for (int a = 0; a < K; ++a) rhs[a] = 0.f;
+
+  for (int r0 = lo; r0 < hi; r0 += CH) {
+    const int rows = min(CH, hi - r0);
+    range_barrier(1 + w, nthr);  // the range's previous chunk is consumed
+    // mask and A, coalesced: the lanes walk the stride-1 axis of (n, m)
+    if (v_step) {  // outputs along the lanes, rows s, s + S, ...
+      stage<4, float2>((CH - s + S - 1) / S,
+                    [&](int i) {
+                      const int rl = s + i * S;
+                      if (rl >= rows || o0 + lane >= g.O) return make_float2(0.f, 0.f);
+                      const long long q = (long long)(r0 + rl) * g.sr + o0 + lane;
+                      return make_float2(__ldg(p.mask + q), __ldg(p.A + q));
+                    },
+                    [&](int i, float2 v) {
+                      const int rl = s + i * S;
+                      mt[rl * (kTile + 1) + lane] = v.x, at[rl * (kTile + 1) + lane] = v.y;
+                    });
+    } else if (lane < per * CH) {  // rows along the lanes, outputs lo_, lo_ + per, ...
+      stage<4, float2>((kTile - lane_o - s * per + S * per - 1) / (S * per),
+                    [&](int i) {
+                      const int ol = lane_o + (s + i * S) * per;
+                      if (lane_r >= rows || o0 + ol >= g.O) return make_float2(0.f, 0.f);
+                      const long long q = (long long)(r0 + lane_r) * g.sr + (long long)(o0 + ol) * g.so;
+                      return make_float2(__ldg(p.mask + q), __ldg(p.A + q));
+                    },
+                    [&](int i, float2 v) {
+                      const int ol = lane_o + (s + i * S) * per;
+                      mt[lane_r * (kTile + 1) + ol] = v.x, at[lane_r * (kTile + 1) + ol] = v.y;
+                    });
+    }
+    // this warp's factor rows
+    if (g.fl == 1) {  // the chunk's CH x K floats are contiguous
+      stage<4, float>((CH * K - lane + kTile - 1) / kTile,
+                   [&](int i) {
+                     const int q = lane + i * kTile, rl = q / K;
+                     return rl < rows ? __ldg(F + (size_t)r0 * g.fr + q) : 0.f;
+                   },
+                   [&](int i, float v) {
+                     const int q = lane + i * kTile, rl = q / K;
+                     fac[rl * FS + q - rl * K] = v;
+                   });
+    } else if (lane < CH) {  // K rows of the chunk's CH contiguous floats
+      stage<4, float>(K,
+                   [&](int l) {
+                     return lane < rows ? __ldg(F + (size_t)(r0 + lane) * g.fr + (size_t)l * g.fl)
+                                        : 0.f;
+                   },
+                   [&](int l, float v) { fac[lane * FS + l] = v; });
+    }
+    range_barrier(1 + w, nthr);
+    for (int rl = 0; rl < rows; ++rl) {
+      const float wv = mt[rl * (kTile + 1) + lane];
+      float f[FS];
+#pragma unroll
+      for (int a = 0; a < FS; a += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(fac + rl * FS + a);
+        f[a] = v.x, f[a + 1] = v.y, f[a + 2] = v.z, f[a + 3] = v.w;
+      }
+      gram_update<K>(G, rhs, f, wv + ig, wv * at[rl * (kTile + 1) + lane]);
+    }
+  }
+
+  // ---- the W partials in warp order ----
+  __syncthreads();
+  if (w > 0) {
+    float* dst = sm + ((w - 1) * S + s) * (NT + K) * kTile + lane;
+#pragma unroll
+    for (int e = 0; e < NT; ++e) dst[e * kTile] = G[e];
+#pragma unroll
+    for (int a = 0; a < K; ++a) dst[(NT + a) * kTile] = rhs[a];
+  }
+  __syncthreads();
+  const int o = o0 + lane;
+  if (w != 0 || b >= p.B || o >= g.O) return;
+  for (int v = 1; v < W; ++v) {
+    const float* src = sm + ((v - 1) * S + s) * (NT + K) * kTile + lane;
+#pragma unroll
+    for (int e = 0; e < NT; ++e) G[e] += src[e * kTile];
+#pragma unroll
+    for (int a = 0; a < K; ++a) rhs[a] += src[(NT + a) * kTile];
+  }
+  solve_store<K>(G, rhs, p.ridge_eps, p.out + b * g.oB + o * g.oo, g.ol);
+}
+
+// ---- slots path: (1/gamma) F'F per slot, kGramRanges r ranges added in order ----
+constexpr int kGramRanges = 16;
+template <int K>
+__global__ void __launch_bounds__(kGramRanges * 64) k6_gram_kernel(K6Params p, Geom g) {
+  constexpr int NT = tri(K);
+  __shared__ float part[kGramRanges][64];
+  const int e = threadIdx.x & 63, q = threadIdx.x >> 6, b = blockIdx.x;
+  const float* F = p.F + (size_t)b * g.fB;
+  float s = 0.f;
+  if (e < NT) {
+    int a = 0;
+    while (tri(a + 1) <= e) ++a;
+    const int c = e - tri(a), len = (g.R + kGramRanges - 1) / kGramRanges;
+    const int lo = q * len, hi = min(g.R, lo + len);
+#pragma unroll 4
+    for (int r = lo; r < hi; ++r) s = fmaf(F[r * g.fr + a * g.fl], F[r * g.fr + c * g.fl], s);
+  }
+  part[q][e] = s;
+  __syncthreads();
+  if (q == 0 && e < NT) {
+    float t = part[0][e];
+    for (int i = 1; i < kGramRanges; ++i) t += part[i][e];
+    p.gram[(size_t)b * NT + e] = p.inv_gamma * t;
+  }
+}
+
+// ---- slots path: lanes = 32 slots, warp = one output ----
+template <int K>
+__global__ void __launch_bounds__(kMaxSlotsWarps * kTile, 1) k6_slots_kernel(K6Params p, Geom g) {
+  constexpr int NT = tri(K), FS = fstride(K);
+  extern __shared__ __align__(16) float sm[];
+  const int NW = p.W, CH = p.rpw, FSTR = slot_stride(K, CH);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b0 = blockIdx.y * kTile, b = b0 + lane;
+  const int o0 = blockIdx.x * NW, o = o0 + warp;
+  // the (row, output) this thread stages: outputs along the threads for
+  // the V-step's row-major mask, rows for the U-step's
+  const int st_r = g.so == 1 ? threadIdx.x / NW : lane, st_o = g.so == 1 ? threadIdx.x % NW : warp;
+  const int buf = kTile * FSTR + 2 * NW * CH;  // one buffer: [32][FSTR], [NW][CH] x 2
+
+  float G[NT], rhs[K];
+#pragma unroll
+  for (int e = 0; e < NT; ++e) G[e] = 0.f;
+#pragma unroll
+  for (int a = 0; a < K; ++a) rhs[a] = 0.f;
+
+  // chunk r0's copies into buffer bs: the 32 slots' rows r0 .. r0 + 31 of
+  // the factor, (B, R, K) rows (32 K contiguous floats a slot, 16 bytes a
+  // copy), then one (row, output) of mask and A a thread
+  constexpr int Q = kTile * K / 4;  // 16-byte pieces of a slot's chunk
+  auto copy_chunk = [&](int r0, float* bs) {
+    const int rows = min(CH, g.R - r0);
+    for (int c = threadIdx.x; c < kTile * Q; c += blockDim.x) {
+      const int sl = c / Q, q = c - sl * Q, bb = b0 + sl;
+      const int bytes = bb < p.B ? 4 * min(4, max(0, rows * K - 4 * q)) : 0;
+      cp_async16(bs + sl * FSTR + 4 * q,
+                 bytes ? p.F + bb * g.fB + (size_t)r0 * K + 4 * q : p.F, bytes);
+    }
+    const bool in = st_r < rows && o0 + st_o < g.O;
+    const long long q = in ? (long long)(r0 + st_r) * g.sr + (long long)(o0 + st_o) * g.so : 0;
+    float* ms = bs + kTile * FSTR;
+    cp_async4(ms + st_o * CH + st_r, p.mask + q, in);
+    cp_async4(ms + NW * CH + st_o * CH + st_r, p.A + q, in);
+    cp_async_commit();
+  };
+  const int nch = (g.R + CH - 1) / CH;
+  if (nch > 0) copy_chunk(0, sm);
+  for (int c = 0; c < nch; ++c) {
+    // the next chunk's copies fly while this one is summed
+    if (c + 1 < nch) {
+      copy_chunk((c + 1) * CH, sm + ((c + 1) & 1) * buf);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* fs = sm + (c & 1) * buf;
+    const float* ms = fs + kTile * FSTR;
+    const float* as = ms + NW * CH;
+    const int rows = min(CH, g.R - c * CH);
+    for (int rl = 0; rl < rows; ++rl) {
+      const float wv = ms[warp * CH + rl];  // the same for every lane
+      if (wv == 0.f) continue;
+      float f[FS];
+      load_row<K>(f, fs + lane * FSTR + rl * K);
+      gram_update<K>(G, rhs, f, wv, wv * as[warp * CH + rl]);
+    }
+    __syncthreads();  // the buffer is refilled two chunks on
+  }
+  if (b >= p.B || o >= g.O) return;
+  const float* gr = p.gram + (size_t)b * NT;
+#pragma unroll
+  for (int e = 0; e < NT; ++e) G[e] += gr[e];
+  solve_store<K>(G, rhs, p.ridge_eps, p.out + b * g.oB + o * g.oo, g.ol);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool& done) {
+  // once per instantiation: the card's whole per-CTA shared memory
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int K>
+int launch_k(const K6Params& p, const Geom& g, void* stream) {
+  const size_t smem = sizeof(float) * smem_floats(p.path, K, p.S, p.W, p.rpw);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.path == 0) {
+    static bool done = false;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = allow_smem(k6_kernel<K>, done);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((g.O + kTile - 1) / kTile, (p.B + p.S - 1) / p.S);
+    k6_kernel<K><<<grid, p.S * p.W * kTile, smem, st>>>(p, g);
+    return (int)cudaGetLastError();
+  }
+  static bool done = false;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_smem(k6_slots_kernel<K>, done);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k6_gram_kernel<K><<<p.B, kGramRanges * 64, 0, st>>>(p, g);
+  const dim3 grid((g.O + p.W - 1) / p.W, (p.B + kTile - 1) / kTile);
+  k6_slots_kernel<K><<<grid, p.W * kTile, smem, st>>>(p, g);
+  return (int)cudaGetLastError();
 }
 
 int launch(const K6Params& p, const Geom& g, void* stream) {
-  if (p.k < 1 || p.k > kMaxK) return (int)cudaErrorInvalidValue;
-  dim3 grid((g.O + kTile - 1) / kTile, p.B);
-  k6_kernel<<<grid, kTile, 0, (cudaStream_t)stream>>>(p, g);
-  return (int)cudaGetLastError();
+  const int R1 = g.R > 0 ? g.R : 1;
+  if (p.path == 0) {
+    // W non-empty ranges of a multiple of kUnit rows cover every r once,
+    // in at most kMaxWarps warps
+    if (p.S < 1 || p.W < 1 || p.S * p.W > kMaxWarps || p.rpw < kUnit || p.rpw % kUnit ||
+        (long long)(p.W - 1) * p.rpw >= R1 || (long long)p.W * p.rpw < R1)
+      return (int)cudaErrorInvalidValue;
+  } else if (p.path != 1 || p.W < 1 || p.W > kMaxSlotsWarps || p.rpw != kTile ||
+             p.gram == nullptr || g.fl != 1 || g.fr != p.k || (long long)g.R * p.k % 4 ||
+             reinterpret_cast<uintptr_t>(p.F) % 16) {
+    // the slots path stages 32 rows a chunk in 16-byte pieces of (B, R, k)
+    // rows, one (row, output) of mask and A a thread
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.B <= 0 || g.O <= 0) return (int)cudaSuccess;
+  switch (p.k) {
+    case 1: return launch_k<1>(p, g, stream);
+    case 2: return launch_k<2>(p, g, stream);
+    case 3: return launch_k<3>(p, g, stream);
+    case 4: return launch_k<4>(p, g, stream);
+    case 5: return launch_k<5>(p, g, stream);
+    case 6: return launch_k<6>(p, g, stream);
+    case 7: return launch_k<7>(p, g, stream);
+    case 8: return launch_k<8>(p, g, stream);
+    case 9: return launch_k<9>(p, g, stream);
+    case 10: return launch_k<10>(p, g, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -143,10 +488,17 @@ OMC_EXPORT int omc_k6_vstep(const K6Params* params, void* stream) {
   return launch(p, g, stream);
 }
 
-// U-step: V (B, k, m) fixed, U (B, n, k) solved per row i; r = column j
+// U-step: V (B, k, m) fixed, U (B, n, k) solved per row i; r = column j.
+// The slots path takes V transposed, (B, m, k): rows of k, as U is.
 OMC_EXPORT int omc_k6_ustep(const K6Params* params, void* stream) {
   const K6Params p = *params;
-  const Geom g{p.m, p.n, (long long)p.k * p.m, 1, p.m, 1, p.m,
+  const bool rows = p.path == 1;
+  const Geom g{p.m, p.n, (long long)p.k * p.m, rows ? p.k : 1, rows ? 1 : p.m, 1, p.m,
                (long long)p.n * p.k, p.k, 1};
   return launch(p, g, stream);
+}
+
+// the plan's shared memory, held against ops.linalg.k6_plan by the smoke
+OMC_EXPORT long long omc_k6_smem_bytes(int path, int k, int S, int W, int rpw) {
+  return (long long)sizeof(float) * smem_floats(path, k, S, W, rpw);
 }

@@ -21,19 +21,30 @@
 // the n*m entries once, and gathers the k (5x5) minor duals and the
 // (k+1)x(k+1) XWH duals of each coordinate through the inverse tables, with
 // tens of flops per entry; K8d streams W, wp/up and the RSOC, link and Wt
-// slots once.  Design: one CTA per (node slot, tile of 32 columns), 8 row
-// groups of 32 threads, consecutive threads on consecutive columns.  Each
-// (i, j) thread holds all k terms of its entry (the Sherman-Morrison solve
-// of D1x I_k + c1x J_k is per entry).  Every coupling of the link Woodbury
-// is column-local: p_j sums zW over column j, S_th and B q sum over the
-// coordinates of column j (table b), b_c needs a at coord_j[c], and the
-// corrections touch W, Wt and H of that column only; a CTA owns whole
-// columns, so the sums are shared-memory reductions in the CTA and one
-// launch finishes the step (no atomics, no second pass).  The v1-v3 solves
-// are diagonal and the padded coordinates need no link term, so both are
-// spread over the slot's CTAs by index range.  All sums run in a fixed
-// order through tables built on the host once per visit, so two launches on
-// the same input give the same bits.
+// slots once.
+//
+// K8c's design (sdp.shor_k.k8c_plan picks the tile):
+// - A CTA of 256 threads owns `cols` whole columns of one node slot (8 at
+//   config 3's B = 32, m = 75: 320 CTAs), as 256 / cols row groups; every
+//   coupling of the link Woodbury is column-local, so one launch finishes
+//   the step (no atomics, no second pass).
+// - Phase 1, per entry (i, j): the adjoint, the Sherman-Morrison X solve,
+//   the uncorrected W, Wt and H, and the entry's W-link residual q_c, all in
+//   registers.  The minor duals are two loads away: fm_ptr[f] (coalesced)
+//   and fm_ent[e] = 4 l + corner give the 5x5 record of minor l directly.
+//   The uncorrected values and q_c are kept in shared memory for phase 3;
+//   each thread adds its entries' W and B_jc q_c / D_c to two column sums.
+// - Phase 2: the row groups' column sums are added in row-group order (so
+//   two launches give the same bits); one thread a column finishes Theta's
+//   diagonal and the Woodbury coefficient a_j.
+// - Phase 3, per entry: the link corrections of W, Wt and H from the kept
+//   values, then Theta off the diagonal, whose transposed half was staged
+//   through shared memory by coalesced row reads at the start.
+// - The v1-v3 solves are diagonal and the padded coordinates need no link
+//   term, so both are spread over all of the slot's CTAs by index range,
+//   one table walk serving a v entry's k terms.
+// All sums run in a fixed order through tables built on the host once per
+// visit.  K8d keeps one CTA per (slot, 32 columns), 8 row groups.
 #include "common.cuh"
 
 namespace {
@@ -41,76 +52,88 @@ namespace {
 constexpr int kCols = 32;
 constexpr int kRows = omc::kThreads / kCols;  // 8
 
-// q_c = cdm sS (W_c - sum_t Wt - 2 sum_p H): the W-link row at the z-step's
-// uncorrected values (read back by the thread or CTA that wrote them)
-template <int K>
-__device__ __forceinline__ float wlink_q(const float* Ws, const float* Wt, const float* Hh,
-                                         int C, int c, int f, float cm, float sS) {
-  constexpr int KP = K * (K - 1) / 2;
-  float sw = Wt[c];
-#pragma unroll
-  for (int t = 1; t < K; ++t) sw += Wt[(size_t)t * C + c];
-  float sh = Hh[c];
-#pragma unroll
-  for (int q = 1; q < KP; ++q) sh += Hh[(size_t)q * C + c];
-  return (cm * sS) * (Ws[f] - sw - 2.0f * sh);
+// K8c's dynamic shared memory (floats): the kept per-entry values
+// (W, q_c, c, Wt, H: k + k(k-1)/2 + 3 fields of n x cols), two column sums
+// per row group, a_j, and Theta's staged block rows (cols x (m + 1))
+__host__ __device__ inline int k8c_smem_floats(int n, int m, int k, int cols) {
+  const int nf = k + k * (k - 1) / 2 + 3, rg = omc::kThreads / cols;
+  return nf * n * cols + 2 * rg * cols + cols + cols * (m + 1);
 }
 
+// (one CTA an SM at least: ptxas may then give k = 4 the registers it needs)
 template <int K>
-__global__ void __launch_bounds__(omc::kThreads) k8c_kernel(K8cParams p) {
+__global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
   constexpr int KP = K * (K - 1) / 2;
   constexpr int D = K + 1, DD = D * D;
-  __shared__ float part[kRows][kCols];
-  __shared__ float a_s[kCols];
+  // fields of the kept per-entry values
+  constexpr int fW = 0, fQ = 1, fC = 2, fWt = 3, fH = 3 + K, NF = 3 + K + KP;
+  extern __shared__ __align__(16) float sm[];
+  const int cols = p.cols, RG = omc::kThreads / cols;
   const int b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % kCols, ty = tid / kCols;
+  const int col = tid % cols, rg = tid / cols;
   const int n = p.n, m = p.m, D1 = n + m, nm = n * m, C = p.C;
-  const int j = blockIdx.x * kCols + lane;
-  const bool col = j < m;
+  const int j0 = blockIdx.x * cols, j = j0 + col;
+  const bool live = j < m;
+  float* kept = sm;                            // [NF][n][cols]
+  float* part = kept + NF * n * cols;          // [2][RG][cols]
+  float* a_s = part + 2 * RG * cols;           // [cols]
+  float* thb = a_s + cols;                     // [cols][m + 1]
+#define KEPT(fld, i) kept[((fld) * n + (i)) * cols + col]
   const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
   const float sW = sX * sX;
-  const float* w1 = p.w1 + (size_t)b * D1 * D1;
-  const float* u1 = p.u1 + (size_t)b * D1 * D1;
-  const float* w5 = p.w5 + (size_t)b * p.M5 * K * 25;
-  const float* u5 = p.u5 + (size_t)b * p.M5 * K * 25;
-  const float* wx = p.wx + (size_t)b * C * DD;
-  const float* ux = p.ux + (size_t)b * C * DD;
-  const float* wr = p.wr + (size_t)b * p.Ms * 3;
-  const float* ur = p.ur + (size_t)b * p.Ms * 3;
-  const float* socm = p.soc_mask + (size_t)b * p.Ms;
-  const float* cdm = p.coord_mask + (size_t)b * C;
-  const float* wwl = p.wwl + (size_t)b * C;
-  const float* uwl = p.uwl + (size_t)b * C;
-  const float* wq = p.wq + (size_t)b * K * C;
-  const float* uq = p.uq + (size_t)b * K * C;
-  const int* cf = p.coord_flat + (size_t)b * C;
-  const int* cm_ptr = p.cm_ptr + (size_t)b * (C + 1);
-  const int* cm_ent = p.cm_ent + (size_t)b * 4 * p.M5;
-  const int* flat_coord = p.flat_coord + (size_t)b * nm;
-  const int* flat_soc = p.flat_soc + (size_t)b * nm;
-  const float* D1x = p.D1x + (size_t)b * nm;
-  const float* c1x = p.c1x + (size_t)b * nm;
-  const float* D1w = p.D1w + (size_t)b * nm;
-  const float* D1wt = p.D1wt + (size_t)b * C;
-  const float* D1h = p.D1h + (size_t)b * C;
-  const float* D_c = p.D_c + (size_t)b * C;
-  const float* B_jc = p.B_jc + (size_t)b * C;
-  float* Xt = p.Xt + (size_t)b * K * nm;
-  float* Xs = p.Xs + (size_t)b * nm;
-  float* Ws = p.Ws + (size_t)b * nm;
-  float* Wt = p.Wt + (size_t)b * K * C;
-  float* Hh = p.Hh + (size_t)b * KP * C;
+  const float* __restrict__ w1 = p.w1 + (size_t)b * D1 * D1;
+  const float* __restrict__ u1 = p.u1 + (size_t)b * D1 * D1;
+  const float* __restrict__ w5 = p.w5 + (size_t)b * p.M5 * K * 25;
+  const float* __restrict__ u5 = p.u5 + (size_t)b * p.M5 * K * 25;
+  const float* __restrict__ wx = p.wx + (size_t)b * C * DD;
+  const float* __restrict__ ux = p.ux + (size_t)b * C * DD;
+  const float* __restrict__ wr = p.wr + (size_t)b * p.Ms * 3;
+  const float* __restrict__ ur = p.ur + (size_t)b * p.Ms * 3;
+  const float* __restrict__ socm = p.soc_mask + (size_t)b * p.Ms;
+  const float* __restrict__ cdm = p.coord_mask + (size_t)b * C;
+  const float* __restrict__ wwl = p.wwl + (size_t)b * C;
+  const float* __restrict__ uwl = p.uwl + (size_t)b * C;
+  const float* __restrict__ wq = p.wq + (size_t)b * K * C;
+  const float* __restrict__ uq = p.uq + (size_t)b * K * C;
+  const int* __restrict__ fm_ptr = p.fm_ptr + (size_t)b * (nm + 1);
+  const int* __restrict__ fm_ent = p.fm_ent + (size_t)b * 4 * p.M5;
+  const int* __restrict__ flat_coord = p.flat_coord + (size_t)b * nm;
+  const int* __restrict__ flat_soc = p.flat_soc + (size_t)b * nm;
+  const float* __restrict__ D1x = p.D1x + (size_t)b * nm;
+  const float* __restrict__ c1x = p.c1x + (size_t)b * nm;
+  const float* __restrict__ D1w = p.D1w + (size_t)b * nm;
+  const float* __restrict__ D1wt = p.D1wt + (size_t)b * C;
+  const float* __restrict__ D1h = p.D1h + (size_t)b * C;
+  const float* __restrict__ D_c = p.D_c + (size_t)b * C;
+  const float* __restrict__ B_jc = p.B_jc + (size_t)b * C;
+  float* __restrict__ Xt = p.Xt + (size_t)b * K * nm;
+  float* __restrict__ Xs = p.Xs + (size_t)b * nm;
+  float* __restrict__ Ws = p.Ws + (size_t)b * nm;
+  float* __restrict__ Wt = p.Wt + (size_t)b * K * C;
+  float* __restrict__ Hh = p.Hh + (size_t)b * KP * C;
+  float* __restrict__ Ths = p.Ths + (size_t)b * m * m;
   const float R_Xs = p.R_X / sX;
-  const float yl = col ? p.wl[b * m + j] - p.ul[b * m + j] : 0.f;
+  const float yl = live ? p.wl[b * m + j] - p.ul[b * m + j] : 0.f;
 
-  // ---- per entry: adjoint, X solve, uncorrected W / Wt / H; column sums ----
-  float csum = 0.f;
-  if (col) {
-    for (int i = ty; i < n; i += kRows) {
+  // ---- Theta's block rows n + j0 .. n + j0 + cols - 1, read along rows ----
+  for (int e = tid; e < cols * m; e += omc::kThreads) {
+    const int cl = e / m, i = e - cl * m;
+    if (j0 + cl < m) {
+      const int qb = (n + j0 + cl) * D1 + n + i;
+      thb[cl * (m + 1) + i] = (rho * (sT * (w1[qb] - u1[qb]))) / (rho * sT * sT);
+    }
+  }
+
+  // ---- per entry: adjoint, X solve, uncorrected W / Wt / H, q_c ----
+  float csum = 0.f, bsum = 0.f;
+  if (live) {
+    for (int i = rg; i < n; i += RG) {
       const int f = i * m + j;
-      float gx[K];
+      float gx[K], zWt[K], zH[KP];
 #pragma unroll
-      for (int t = 0; t < K; ++t) gx[t] = 0.f;
+      for (int t = 0; t < K; ++t) gx[t] = 0.f, zWt[t] = 0.f;
+#pragma unroll
+      for (int q = 0; q < KP; ++q) zH[q] = 0.f;
       float gw = 0.f, ywl = 0.f;
       const int c = flat_coord[f];
       if (c >= 0) {
@@ -118,9 +141,10 @@ __global__ void __launch_bounds__(omc::kThreads) k8c_kernel(K8cParams p) {
         float gwt[K], gh[KP];
 #pragma unroll
         for (int t = 0; t < K; ++t) gwt[t] = 0.f;
-        // per-term 5x5 minor duals through table (a): (0, cc) and (cc, cc)
-        for (int e = cm_ptr[c]; e < cm_ptr[c + 1]; ++e) {
-          const int ent = cm_ent[e], l = ent >> 2, cc = (ent & 3) + 1;
+        // per-term 5x5 minor duals of the entry's minors: (0, cc), (cc, cc)
+        const int e1 = fm_ptr[f + 1];
+        for (int e = fm_ptr[f]; e < e1; ++e) {
+          const int ent = fm_ent[e], l = ent >> 2, cc = (ent & 3) + 1;
 #pragma unroll
           for (int t = 0; t < K; ++t) {
             const size_t q = ((size_t)l * K + t) * 25;
@@ -150,20 +174,20 @@ __global__ void __launch_bounds__(omc::kThreads) k8c_kernel(K8cParams p) {
         for (int t = 0; t < K; ++t) {
           gwt[t] = gwt[t] - ywl;
           gwt[t] = gwt[t] + sS * (wq[(size_t)t * C + c] - uq[(size_t)t * C + c]);
-          Wt[(size_t)t * C + c] = ((rho * gwt[t]) / rho) / D1wt[c];
+          zWt[t] = ((rho * gwt[t]) / rho) / D1wt[c];
         }
 #pragma unroll
         for (int q = 0; q < KP; ++q) {
           gh[q] = gh[q] - 2.0f * ywl;
-          Hh[(size_t)q * C + c] = ((rho * gh[q]) / rho) / D1h[c];
+          zH[q] = ((rho * gh[q]) / rho) / D1h[c];
         }
       }
       // RSOC row (0.5, W, sum_t Xt): its X slot lands on every term
       const int s = flat_soc[f];
       if (s >= 0) {
-        const float sm = socm[s];
-        gw += (sS * (wr[3 * s + 1] - ur[3 * s + 1])) * sm;
-        const float y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm;
+        const float sm_ = socm[s];
+        gw += (sS * (wr[3 * s + 1] - ur[3 * s + 1])) * sm_;
+        const float y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm_;
 #pragma unroll
         for (int t = 0; t < K; ++t) gx[t] += y2;
       }
@@ -195,71 +219,81 @@ __global__ void __launch_bounds__(omc::kThreads) k8c_kernel(K8cParams p) {
       }
       Xs[f] = xs;
       const float zW = ((rho * gw - (0.5f * sW) * p.mask[f]) / rho) / D1w[f];
-      Ws[f] = zW;
       csum += zW;
+      // the W-link row at the uncorrected values:
+      // q_c = cdm sS (W_c - sum_t Wt - 2 sum_p H)
+      float qc = 0.f;
+      if (c >= 0) {
+        float sw = zWt[0], sh = zH[0];
+#pragma unroll
+        for (int t = 1; t < K; ++t) sw += zWt[t];
+#pragma unroll
+        for (int q = 1; q < KP; ++q) sh += zH[q];
+        qc = (cdm[c] * sS) * (zW - sw - 2.0f * sh);
+        bsum += B_jc[c] * (qc / D_c[c]);
+      }
+      KEPT(fW, i) = zW;
+      KEPT(fQ, i) = qc;
+      KEPT(fC, i) = __int_as_float(c);
+#pragma unroll
+      for (int t = 0; t < K; ++t) KEPT(fWt + t, i) = zWt[t];
+#pragma unroll
+      for (int q = 0; q < KP; ++q) KEPT(fH + q, i) = zH[q];
     }
   }
-  part[ty][lane] = csum;
+  part[rg * cols + col] = csum;
+  part[(RG + rg) * cols + col] = bsum;
   __syncthreads();
 
-  // ---- per column: Theta diagonal and the link Woodbury's a_j ----
-  float* Ths = p.Ths + (size_t)b * m * m;
-  if (ty == 0 && col) {
-    float sw = 0.f;
-    for (int r = 0; r < kRows; ++r) sw += part[r][lane];
+  // ---- per column, row groups in order: Theta's diagonal and a_j ----
+  if (rg == 0 && live) {
+    float sw = 0.f, bq = 0.f;
+    for (int r = 0; r < RG; ++r) sw += part[r * cols + col];
+    for (int r = 0; r < RG; ++r) bq += part[(RG + r) * cols + col];
     const int qd = (n + j) * D1 + n + j;
     const float RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - sT * 0.5f / p.gamma;
-    float zTh = RT / (rho * sT * sT);
+    const float zTh = RT / (rho * sT * sT);
     const float pj = sT * zTh - sW * sw;
-    // B q over the coordinates of column j (table b), ascending c
-    const int* col_ptr = p.col_ptr + (size_t)b * (m + 1);
-    const int* col_ent = p.col_ent + (size_t)b * C;
-    float bq = 0.f;
-    for (int e = col_ptr[j]; e < col_ptr[j + 1]; ++e) {
-      const int c = col_ent[e];
-      const float qc = wlink_q<K>(Ws, Wt, Hh, C, c, cf[c], cdm[c], sS);
-      bq += B_jc[c] * (qc / D_c[c]);
-    }
     const float a = (pj - bq) / p.S_th[b * m + j];
     Ths[j * m + j] = zTh - a / sT;
-    a_s[lane] = a;
+    a_s[col] = a;
   }
   __syncthreads();
 
   // ---- per entry: link corrections of W, Wt, H; Theta off the diagonal ----
-  if (col) {
-    const float a = a_s[lane];
-    for (int i = ty; i < n; i += kRows) {
+  if (live) {
+    const float a = a_s[col];
+    for (int i = rg; i < n; i += RG) {
       const int f = i * m + j;
-      float zW = Ws[f] - ((-sW) * a) / D1w[f];
-      const int c = flat_coord[f];
+      float zW = KEPT(fW, i) - ((-sW) * a) / D1w[f];
+      const int c = __float_as_int(KEPT(fC, i));
       if (c >= 0) {
         const float cm = cdm[c];
-        const float qc = wlink_q<K>(Ws, Wt, Hh, C, c, f, cm, sS);
-        const float bc = (qc - B_jc[c] * a) / D_c[c];
+        const float bc = (KEPT(fQ, i) - B_jc[c] * a) / D_c[c];
         zW = zW + (-((sS * bc) * cm)) / D1w[f];
 #pragma unroll
         for (int t = 0; t < K; ++t)
-          Wt[(size_t)t * C + c] = Wt[(size_t)t * C + c] - ((-(sS * bc)) * cm) / D1wt[c];
+          Wt[(size_t)t * C + c] = KEPT(fWt + t, i) - ((-(sS * bc)) * cm) / D1wt[c];
 #pragma unroll
         for (int q = 0; q < KP; ++q)
-          Hh[(size_t)q * C + c] = Hh[(size_t)q * C + c] - (((-(2.0f * sS)) * bc) * cm) / D1h[c];
+          Hh[(size_t)q * C + c] = KEPT(fH + q, i) - (((-(2.0f * sS)) * bc) * cm) / D1h[c];
       }
       Ws[f] = zW;
     }
-    for (int i = ty; i < m; i += kRows) {
+    for (int i = rg; i < m; i += RG) {
       if (i == j) continue;
-      const int qa = (n + i) * D1 + n + j, qb = (n + j) * D1 + n + i;
+      const int qa = (n + i) * D1 + n + j;
       const float za = (rho * (sT * (w1[qa] - u1[qa]))) / (rho * sT * sT);
-      const float zb = (rho * (sT * (w1[qb] - u1[qb]))) / (rho * sT * sT);
-      Ths[i * m + j] = 0.5f * (za + zb);
+      Ths[i * m + j] = 0.5f * (za + thb[col * (m + 1) + i]);
     }
   }
+#undef KEPT
 
-  // ---- strided over the slot's CTAs: padded coordinates, v1 | v2 | v3 ----
+  // ---- strided over the slot's CTAs: padded coordinates, v1 | v2 | v3,
+  // one item a coordinate or v entry with its k terms (one table walk) ----
   const int P1 = p.P1, P2 = p.P2, P3 = p.P3;
-  const int nv = K * (P1 + P2 + P3);
-  for (int e = blockIdx.x * blockDim.x + tid; e < C + nv; e += gridDim.x * blockDim.x) {
+  for (int e = blockIdx.x * blockDim.x + tid; e < C + P1 + P2 + P3;
+       e += gridDim.x * blockDim.x) {
     if (e < C) {
       // a padded coordinate carries only its Wt >= 0 slot (H = 0)
       if (cdm[e] != 0.f) continue;
@@ -272,43 +306,34 @@ __global__ void __launch_bounds__(omc::kThreads) k8c_kernel(K8cParams p) {
       for (int q = 0; q < KP; ++q) Hh[(size_t)q * C + e] = 0.f;
       continue;
     }
-    const int r = e - C;
-    float g = 0.f, dv;
-    float* out;
-    if (r < K * P1) {
-      const int t = r / P1, v = r % P1;
-      const int* ptr = p.v1_ptr + (size_t)b * (P1 + 1);
-      const int* ent = p.v1_ent + (size_t)b * 2 * p.M5;
-      for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
-        const size_t q = ((size_t)(ent[h] >> 1) * K + t) * 25;
-        g += (ent[h] & 1) ? 2.0f * (sS * (w5[q + 19] - u5[q + 19]))    // (3, 4)
-                          : 2.0f * (sS * (w5[q + 7] - u5[q + 7]));     // (1, 2)
+    // v1 entry 2 l + c reads (1, 2) (c = 0) or (3, 4) of minor l, v2 (1, 3)
+    // or (2, 4), v3 entry l (1, 4) + (2, 3)
+    const int r = e - C, kind = r < P1 ? 1 : r < P1 + P2 ? 2 : 3;
+    const int v = kind == 1 ? r : kind == 2 ? r - P1 : r - P1 - P2;
+    const int P = kind == 1 ? P1 : kind == 2 ? P2 : P3;
+    const int* __restrict__ ptr = (kind == 1 ? p.v1_ptr : kind == 2 ? p.v2_ptr : p.v3_ptr) +
+                                  (size_t)b * (P + 1);
+    const int* __restrict__ ent = kind == 1 ? p.v1_ent + (size_t)b * 2 * p.M5
+                                : kind == 2 ? p.v2_ent + (size_t)b * 2 * p.M5
+                                            : p.v3_ent + (size_t)b * p.M5;
+    float g[K];
+#pragma unroll
+    for (int t = 0; t < K; ++t) g[t] = 0.f;
+    for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
+      const int en = ent[h], l = kind == 3 ? en : en >> 1;
+      const int o = kind == 1 ? ((en & 1) ? 19 : 7) : ((en & 1) ? 14 : 8);
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        const size_t q = ((size_t)l * K + t) * 25;
+        g[t] += kind == 3
+                    ? 2.0f * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]))
+                    : 2.0f * (sS * (w5[q + o] - u5[q + o]));
       }
-      dv = p.D1v1[(size_t)b * P1 + v];
-      out = p.v1 + ((size_t)b * K + t) * P1 + v;
-    } else if (r < K * (P1 + P2)) {
-      const int r2 = r - K * P1, t = r2 / P2, v = r2 % P2;
-      const int* ptr = p.v2_ptr + (size_t)b * (P2 + 1);
-      const int* ent = p.v2_ent + (size_t)b * 2 * p.M5;
-      for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
-        const size_t q = ((size_t)(ent[h] >> 1) * K + t) * 25;
-        g += (ent[h] & 1) ? 2.0f * (sS * (w5[q + 14] - u5[q + 14]))    // (2, 4)
-                          : 2.0f * (sS * (w5[q + 8] - u5[q + 8]));     // (1, 3)
-      }
-      dv = p.D1v2[(size_t)b * P2 + v];
-      out = p.v2 + ((size_t)b * K + t) * P2 + v;
-    } else {
-      const int r3 = r - K * (P1 + P2), t = r3 / P3, v = r3 % P3;
-      const int* ptr = p.v3_ptr + (size_t)b * (P3 + 1);
-      const int* ent = p.v3_ent + (size_t)b * p.M5;
-      for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
-        const size_t q = ((size_t)ent[h] * K + t) * 25;
-        g += 2.0f * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]));  // (1,4)+(2,3)
-      }
-      dv = p.D1v3[(size_t)b * P3 + v];
-      out = p.v3 + ((size_t)b * K + t) * P3 + v;
     }
-    *out = ((rho * g) / rho) / dv;
+    const float dv = (kind == 1 ? p.D1v1 : kind == 2 ? p.D1v2 : p.D1v3)[(size_t)b * P + v];
+    float* out = (kind == 1 ? p.v1 : kind == 2 ? p.v2 : p.v3) + (size_t)b * K * P + v;
+#pragma unroll
+    for (int t = 0; t < K; ++t) out[(size_t)t * P] = ((rho * g[t]) / rho) / dv;
   }
 }
 
@@ -403,15 +428,39 @@ int launch_tiles(Kernel kernel, const Params& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <int K>
+int launch_k8c(const K8cParams& p, void* stream) {
+  const size_t smem = sizeof(float) * k8c_smem_floats(p.n, p.m, K, p.cols);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k8c_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (p.B > 0 && p.m > 0) {
+    const dim3 grid((p.m + p.cols - 1) / p.cols, p.B);
+    k8c_kernel<K><<<grid, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 OMC_EXPORT int omc_k8c_shor_k_zstep(const K8cParams* params, void* stream) {
+  // a tile is a power of two of at most 32 columns (whole row groups)
+  const int cols = params->cols;
+  if (cols < 1 || cols > kCols || (cols & (cols - 1))) return (int)cudaErrorInvalidValue;
   switch (params->k) {
-    case 2: return launch_tiles(k8c_kernel<2>, *params, stream);
-    case 3: return launch_tiles(k8c_kernel<3>, *params, stream);
-    case 4: return launch_tiles(k8c_kernel<4>, *params, stream);
+    case 2: return launch_k8c<2>(*params, stream);
+    case 3: return launch_k8c<3>(*params, stream);
+    case 4: return launch_k8c<4>(*params, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K8c's shared memory for a tile of `cols` columns, held against
+// sdp.shor_k.k8c_plan by the smoke
+OMC_EXPORT long long omc_k8c_smem_bytes(int n, int m, int k, int cols) {
+  return (long long)sizeof(float) * k8c_smem_floats(n, m, k, cols);
 }
 
 OMC_EXPORT int omc_k8d_shor_k_cone(const K8dParams* params, void* stream) {

@@ -232,12 +232,12 @@ class K7xParams(ctypes.Structure):
 class K8cParams(ctypes.Structure):
     _fields_ = _struct(
         ("w1", "u1", "w5", "u5", "wx", "ux", "wr", "ur", "wl", "ul", "wwl",
-         "uwl", "wp", "up", "wq", "uq", "soc_mask", "coord_mask", "coord_flat",
-         "cm_ptr", "cm_ent", "col_ptr", "col_ent", "flat_coord", "flat_soc",
-         "v1_ptr", "v1_ent", "v2_ptr", "v2_ent", "v3_ptr", "v3_ent", "D1x", "c1x", "D1w", "D1wt", "D1h", "D_c", "B_jc", "S_th",
-         "D1v1", "D1v2", "D1v3", "maskA", "mask", "sX", "sT", "sS", "rho", "Xt",
-         "Xs", "Ths", "Ws", "Wt", "Hh", "v1", "v2", "v3"),
-        ("B", "n", "m", "k", "M5", "C", "Ms", "P1", "P2", "P3"), ("gamma", "R_X"))
+         "uwl", "wp", "up", "wq", "uq", "soc_mask", "coord_mask", "fm_ptr", "fm_ent",
+         "flat_coord", "flat_soc", "v1_ptr", "v1_ent", "v2_ptr", "v2_ent", "v3_ptr",
+         "v3_ent", "D1x", "c1x", "D1w", "D1wt", "D1h", "D_c", "B_jc", "S_th", "D1v1",
+         "D1v2", "D1v3", "maskA", "mask", "sX", "sT", "sS", "rho", "Xt", "Xs", "Ths",
+         "Ws", "Wt", "Hh", "v1", "v2", "v3"),
+        ("B", "n", "m", "k", "M5", "C", "Ms", "P1", "P2", "P3", "cols"), ("gamma", "R_X"))
 
 
 class K8dParams(ctypes.Structure):
@@ -278,8 +278,8 @@ class K4sParams(ctypes.Structure):
 
 
 class K6Params(ctypes.Structure):
-    _fields_ = _struct(("F", "A", "mask", "out"), ("B", "n", "m", "k"),
-                       ("inv_gamma", "ridge_eps"))
+    _fields_ = _struct(("F", "A", "mask", "out", "gram"),
+                       ("B", "n", "m", "k", "path", "S", "W", "rpw"), ("inv_gamma", "ridge_eps"))
 
 
 def _load(path: Path):
@@ -314,6 +314,10 @@ def _load(path: Path):
     lib.omc_k1_scratch_floats.restype = ctypes.c_longlong
     lib.omc_k1_cluster_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.omc_k1_cluster_smem.restype = ctypes.c_longlong
+    lib.omc_k6_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.omc_k6_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.omc_k8c_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

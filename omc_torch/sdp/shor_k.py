@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import operator
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -70,7 +72,7 @@ OMC_FIELDS = (
     "soc_mask", "cnt_minor", "is_coord", "is_soc", "cnt_v1", "cnt_v2", "cnt_v3",
 )
 INVERSE_FIELDS = (
-    "cm_ptr", "cm_ent", "col_ptr", "col_ent", "flat_coord", "flat_soc",
+    "fm_ptr", "fm_ent", "flat_coord", "flat_soc",
     "v1_ptr", "v1_ent", "v2_ptr", "v2_ent", "v3_ptr", "v3_ent",
 )
 _INT_FIELDS = {"minor_idx", "mc", "coord_flat", "coord_j", "iv1a", "iv1b", "iv2a",
@@ -82,10 +84,10 @@ class ShorKBatchHost:
     """Numpy rank-k Shor batch: ``omc``'s fields (see
     ``omc.sdp.shor_k.ShorKBatchHost``), then the inverse tables:
 
-    cm_ptr/cm_ent:   (B, C+1), (B, 4*M5) int32  coordinate c -> entries
-                     4*l + corner of the active minors touching it (table a)
-    col_ptr/col_ent: (B, m+1), (B, C) int32     column j -> the active
-                     coordinates c with coord_j[c] == j (table b)
+    fm_ptr/fm_ent:   (B, n*m+1), (B, 4*M5) int32  flat entry f -> entries
+                     4*l + corner of the active minors with a corner at f,
+                     ascending l (so K8c reads a minor's 5x5 record one
+                     load after the entry's pointer)
     flat_coord:      (B, n*m) int32             flat entry -> c, or -1
     flat_soc:        (B, n*m) int32             flat entry -> RSOC slot, or -1
     v*_ptr/v*_ent:   the v1/v2/v3 lists of ``shor_encode.inverse_tables``
@@ -111,10 +113,8 @@ class ShorKBatchHost:
     cnt_v1: np.ndarray
     cnt_v2: np.ndarray
     cnt_v3: np.ndarray
-    cm_ptr: np.ndarray
-    cm_ent: np.ndarray
-    col_ptr: np.ndarray
-    col_ent: np.ndarray
+    fm_ptr: np.ndarray
+    fm_ent: np.ndarray
     flat_coord: np.ndarray
     flat_soc: np.ndarray
     v1_ptr: np.ndarray
@@ -134,31 +134,27 @@ class ShorKBatchHost:
 ShorKBatch = ShorKBatchHost
 
 
-def inverse_tables_k(n, m, mc, minor_mask, coord_flat, coord_j, coord_mask,
+def inverse_tables_k(n, m, mc, minor_mask, coord_flat, coord_mask,
                      iv1a, iv1b, iv2a, iv2b, iv3, soc_flat, soc_mask,
                      P1, P2, P3) -> dict:
     """The kernels' inverse tables from the forward tables (active minors,
     coordinates and RSOC slots only: padded ones are masked to zero)."""
     B, M5 = minor_mask.shape
-    C = coord_mask.shape[1]
     out = {
-        "cm_ptr": np.zeros((B, C + 1), np.int32),
-        "cm_ent": np.zeros((B, 4 * M5), np.int32),
-        "col_ptr": np.zeros((B, m + 1), np.int32),
-        "col_ent": np.zeros((B, C), np.int32),
+        "fm_ptr": np.zeros((B, n * m + 1), np.int32),
+        "fm_ent": np.zeros((B, 4 * M5), np.int32),
         "flat_coord": np.full((B, n * m), -1, np.int32),
         "flat_soc": np.full((B, n * m), -1, np.int32),
         **v_inverse_tables(B, M5, P1, P2, P3),
     }
     for b in range(B):
         act = np.flatnonzero(np.asarray(minor_mask[b]) > 0)
-        keys = np.asarray(mc[b], np.int64)[act]  # (A, 4) coordinate of each corner
+        # the flat entry of each active minor's corners
+        keys = np.asarray(coord_flat[b], np.int64)[np.asarray(mc[b], np.int64)[act]]
         ents = 4 * act[:, None] + np.arange(4)[None]
-        ptr, ent = _csr(keys.reshape(-1), ents.reshape(-1), C)
-        out["cm_ptr"][b], out["cm_ent"][b, : ent.size] = ptr, ent
+        ptr, ent = _csr(keys.reshape(-1), ents.reshape(-1), n * m)
+        out["fm_ptr"][b], out["fm_ent"][b, : ent.size] = ptr, ent
         actc = np.flatnonzero(np.asarray(coord_mask[b]) > 0)
-        ptr, ent = _csr(np.asarray(coord_j[b], np.int64)[actc], actc, m)
-        out["col_ptr"][b], out["col_ent"][b, : ent.size] = ptr, ent
         acts = np.flatnonzero(np.asarray(soc_mask[b]) > 0)
         for name, idx, sel in (("flat_coord", coord_flat, actc), ("flat_soc", soc_flat, acts)):
             flat = np.asarray(idx[b], np.int64)[sel]
@@ -171,10 +167,9 @@ def inverse_tables_k(n, m, mc, minor_mask, coord_flat, coord_j, coord_mask,
 
 def _with_inverse(n, m, kw) -> ShorKBatchHost:
     inv = inverse_tables_k(
-        n, m, kw["mc"], kw["minor_mask"], kw["coord_flat"], kw["coord_j"],
-        kw["coord_mask"], kw["iv1a"], kw["iv1b"], kw["iv2a"], kw["iv2b"], kw["iv3"],
-        kw["soc_flat"], kw["soc_mask"], kw["cnt_v1"].shape[1], kw["cnt_v2"].shape[1],
-        kw["cnt_v3"].shape[1],
+        n, m, kw["mc"], kw["minor_mask"], kw["coord_flat"], kw["coord_mask"], kw["iv1a"],
+        kw["iv1b"], kw["iv2a"], kw["iv2b"], kw["iv3"], kw["soc_flat"], kw["soc_mask"],
+        kw["cnt_v1"].shape[1], kw["cnt_v2"].shape[1], kw["cnt_v3"].shape[1],
     )
     return ShorKBatchHost(**kw, **inv)
 
@@ -626,11 +621,37 @@ def _check_k(name, k):
         raise ValueError(f"{name}: the CUDA kernels take 2 <= k <= 4, got k={k}")
 
 
-def _table(sb, name, dev, B):
-    t = getattr(sb, name)
-    if t.shape[0] != B:
-        raise ValueError(f"{name}: batch {t.shape[0]}, expected {B}")
-    return kernels.check(name, t, tuple(t.shape), dev, torch.int32)
+# K8c's CTA (threads), the CTAs the plan aims for (two a streaming
+# multiprocessor of the H100) and the shared memory a CTA may use
+K8C_THREADS, K8C_TARGET_CTAS, K8C_MAX_SMEM = 256, 2 * 132, 232448
+
+
+def k8c_smem_bytes(n: int, m: int, k: int, cols: int) -> int:
+    """K8c's dynamic shared memory (``omc_k8c_smem_bytes``): the kept
+    per-entry values (W, q_c, c, the k Wt, the k(k-1)/2 H) of n x cols
+    entries, two column sums a row group, a_j, and Theta's staged block
+    rows (cols x (m + 1))."""
+    nf = k + k * (k - 1) // 2 + 3
+    rg = K8C_THREADS // cols
+    return 4 * (nf * n * cols + 2 * rg * cols + cols + cols * (m + 1))
+
+
+def k8c_plan(B: int, n: int, m: int, k: int) -> dict:
+    """K8c's tile: a CTA of 256 threads owns ``cols`` whole columns of one
+    slot as 256 / cols row groups (the link Woodbury couples only the
+    entries of a column).  The widest of 32, 16 and 8 columns that still
+    gives ``K8C_TARGET_CTAS`` CTAs, else 8; narrower where the kept values
+    outgrow shared memory.  Raises where even one column does not fit."""
+    _check_k("K8c", k)
+    cols = next((c for c in (32, 16, 8) if -(-m // c) * B >= K8C_TARGET_CTAS), 8)
+    while cols > 1 and k8c_smem_bytes(n, m, k, cols) > K8C_MAX_SMEM:
+        cols //= 2
+    smem = k8c_smem_bytes(n, m, k, cols)
+    if smem > K8C_MAX_SMEM:
+        raise ValueError(f"K8c: n={n}, m={m}, k={k} needs {smem} bytes of shared memory "
+                         f"for one column, more than {K8C_MAX_SMEM}")
+    return dict(cols=cols, row_groups=K8C_THREADS // cols, threads=K8C_THREADS,
+                grid=(-(-m // cols), B), smem_bytes=smem)
 
 
 # --------------------------------------------------------------------------
@@ -709,65 +730,99 @@ def shor_k_zstep_plain(c, sc: _ShorKConsts, st: ShorKState):
     return (Xt, torch.sum(Xt, dim=1), Ths, zW_flat.reshape(B, n, m), zWt, zH) + zv
 
 
+def _k8c_operands(c, sc: _ShorKConsts, st: ShorKState):
+    """(field, tensor, shape, dtype) of every operand of K8c's parameter
+    block, in one fixed order."""
+    core, sb = st.core, sc.sb
+    B, n, m, k, kp, C, Ms = _shapes(st)
+    M5, D1 = sc.M5, n + m
+    P1, P2, P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
+    f32, i32 = torch.float32, torch.int32
+    ops = [("w1", core.w1, (B, D1, D1), f32), ("u1", core.u1, (B, D1, D1), f32)]
+    ops += [(name, getattr(st, name), shape, f32) for name, shape in (
+        ("w5", (B, M5, k, 5, 5)), ("u5", (B, M5, k, 5, 5)), ("wx", (B, C, k + 1, k + 1)),
+        ("ux", (B, C, k + 1, k + 1)), ("wr", (B, Ms, 3)), ("ur", (B, Ms, 3)), ("wl", (B, m)),
+        ("ul", (B, m)), ("wwl", (B, C)), ("uwl", (B, C)), ("wp", (B, n, m)), ("up", (B, n, m)),
+        ("wq", (B, k, C)), ("uq", (B, k, C)))]
+    ops += [("soc_mask", sb.soc_mask, (B, Ms), f32), ("coord_mask", sb.coord_mask, (B, C), f32)]
+    # the inverse tables: batch B, each its own width
+    ops += [(name, getattr(sb, name), (B,) + tuple(getattr(sb, name).shape[1:]), i32)
+            for name in INVERSE_FIELDS]
+    ops += [("D1x", sc.D1x, (B, n, m), f32), ("c1x", sc.c1x, (B, n, m), f32),
+            ("D1w", sc.D1w, (B, n * m), f32)]
+    ops += [(name, getattr(sc, name), (B, C), f32) for name in ("D1wt", "D1h", "D_c", "B_jc")]
+    ops += [("S_th", sc.S_th, (B, m), f32)]
+    ops += [(name, d, (B, P), f32) for name, d, P in zip(("D1v1", "D1v2", "D1v3"), sc.D1v,
+                                                         (P1, P2, P3))]
+    ops += [("maskA", c.maskA, (n, m), f32), ("mask", c.mask, (n, m), f32)]
+    ops += [(name, getattr(core, name), (B,), f32) for name in ("sX", "sT", "sS", "rho")]
+    ops += [("Xt", st.Xt, (B, k, n, m), f32), ("Xs", core.X, (B, n, m), f32),
+            ("Ths", core.Th, (B, m, m), f32), ("Ws", st.W, (B, n, m), f32),
+            ("Wt", st.Wt, (B, k, C), f32), ("Hh", st.Hh, (B, kp, C), f32)]
+    ops += [(name, getattr(st, name), (B, k, P), f32) for name, P in (("v1", P1), ("v2", P2),
+                                                                     ("v3", P3))]
+    return ops
+
+
+# K8c's parameter blocks by (c, sc, st): the solve loop passes the same
+# tensors every iteration, so their checks and the packing run once.  A
+# block is reused only while every operand is the same live tensor object
+# (held by a weak reference, so the cache keeps no memory alive) at the same
+# address; the last few blocks are kept.
+_K8C_PACKED: Dict[tuple, tuple] = {}
+_K8C_PACKED_MAX = 8
+_K8C_ST = operator.attrgetter("w5", "u5", "wx", "ux", "wr", "ur", "wl", "ul", "wwl", "uwl",
+                              "wp", "up", "wq", "uq", "Xt", "W", "Wt", "Hh", "v1", "v2", "v3")
+_K8C_CORE = operator.attrgetter("w1", "u1", "sX", "sT", "sS", "rho", "X", "Th")
+_K8C_SB = operator.attrgetter("soc_mask", "coord_mask", *INVERSE_FIELDS)
+_K8C_SC = operator.attrgetter("D1x", "c1x", "D1w", "D1wt", "D1h", "D_c", "B_jc", "S_th")
+
+
+def _k8c_tensors(c, sc: _ShorKConsts, st: ShorKState) -> tuple:
+    """Every K8c operand, gathered cheaply for the reuse test."""
+    return (_K8C_ST(st) + _K8C_CORE(st.core) + _K8C_SB(sc.sb) + _K8C_SC(sc) + tuple(sc.D1v)
+            + (c.maskA, c.mask))
+
+
+def _k8c_params(c, sc: _ShorKConsts, st: ShorKState, dev):
+    tensors = _k8c_tensors(c, sc, st)
+    ptrs = tuple(t.data_ptr() for t in tensors)
+    scalars = (float(c.gamma), float(sc.R_X))
+    key = (id(c), id(sc), id(st))
+    hit = _K8C_PACKED.get(key)
+    if (hit is not None and hit[1] == ptrs and hit[2] == scalars
+            and all(r() is t for r, t in zip(hit[0], tensors))):
+        return hit[3]
+    ops = _k8c_operands(c, sc, st)
+    B, n, m, k, kp, C, Ms = _shapes(st)
+    p = kernels.K8cParams()
+    for name, t, shape, dtype in ops:
+        setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+    p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, sc.M5, C, Ms
+    p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
+    p.cols = k8c_plan(B, n, m, k)["cols"]
+    p.gamma, p.R_X = scalars
+    while len(_K8C_PACKED) >= _K8C_PACKED_MAX:
+        del _K8C_PACKED[next(iter(_K8C_PACKED))]
+    _K8C_PACKED[key] = (tuple(map(weakref.ref, tensors)), ptrs, scalars, p)
+    return p
+
+
 def shor_k_zstep(c, sc: _ShorKConsts, st: ShorKState):
     """K8c wrapper: writes Xt, X = sum_t Xt, Ths, W, Wt, Hh, v1, v2, v3 into
     ``st``.  A CPU state runs ``shor_k_zstep_plain``; a CUDA state launches
-    ``csrc/k8k_shor_k.cu`` (one CTA per node slot and 32 columns) or
-    raises."""
+    ``csrc/k8k_shor_k.cu`` (one CTA per node slot and ``k8c_plan``'s
+    columns) or raises."""
     core = st.core
     dev = core.w1.device
-    outs = (st.Xt, core.X, core.Th, st.W, st.Wt, st.Hh, st.v1, st.v2, st.v3)
     if dev.type == "cpu":
+        outs = (st.Xt, core.X, core.Th, st.W, st.Wt, st.Hh, st.v1, st.v2, st.v3)
         for dst, src in zip(outs, shor_k_zstep_plain(c, sc, st)):
             dst.copy_(src)
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_k_zstep: unsupported device {dev}")
-    B, n, m, k, kp, C, Ms = _shapes(st)
-    _check_k("K8c", k)
-    M5 = sc.M5
-    P1, P2, P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
-    D1 = n + m
-    sb = sc.sb
-    ck = kernels.check
-    p = kernels.K8cParams()
-    p.w1 = ck("w1", core.w1, (B, D1, D1), dev)
-    p.u1 = ck("u1", core.u1, (B, D1, D1), dev)
-    for name, shape in (("w5", (B, M5, k, 5, 5)), ("u5", (B, M5, k, 5, 5)),
-                        ("wx", (B, C, k + 1, k + 1)), ("ux", (B, C, k + 1, k + 1)),
-                        ("wr", (B, Ms, 3)), ("ur", (B, Ms, 3)), ("wl", (B, m)), ("ul", (B, m)),
-                        ("wwl", (B, C)), ("uwl", (B, C)), ("wp", (B, n, m)), ("up", (B, n, m)),
-                        ("wq", (B, k, C)), ("uq", (B, k, C))):
-        setattr(p, name, ck(name, getattr(st, name), shape, dev))
-    p.soc_mask = ck("soc_mask", sb.soc_mask, (B, Ms), dev)
-    p.coord_mask = ck("coord_mask", sb.coord_mask, (B, C), dev)
-    p.coord_flat = ck("coord_flat", sb.coord_flat, (B, C), dev, torch.int32)
-    for name in INVERSE_FIELDS:
-        setattr(p, name, _table(sb, name, dev, B))
-    for name in ("D1x", "c1x"):
-        setattr(p, name, ck(name, getattr(sc, name), (B, n, m), dev))
-    p.D1w = ck("D1w", sc.D1w, (B, n * m), dev)
-    for name in ("D1wt", "D1h", "D_c", "B_jc"):
-        setattr(p, name, ck(name, getattr(sc, name), (B, C), dev))
-    p.S_th = ck("S_th", sc.S_th, (B, m), dev)
-    for name, d, P in zip(("D1v1", "D1v2", "D1v3"), sc.D1v, (P1, P2, P3)):
-        setattr(p, name, ck(name, d, (B, P), dev))
-    p.maskA = ck("maskA", c.maskA, (n, m), dev)
-    p.mask = ck("mask", c.mask, (n, m), dev)
-    for name in ("sX", "sT", "sS", "rho"):
-        setattr(p, name, ck(name, getattr(core, name), (B,), dev))
-    p.Xt = ck("Xt", st.Xt, (B, k, n, m), dev)
-    p.Xs = ck("X", core.X, (B, n, m), dev)
-    p.Ths = ck("Th", core.Th, (B, m, m), dev)
-    p.Ws = ck("W", st.W, (B, n, m), dev)
-    p.Wt = ck("Wt", st.Wt, (B, k, C), dev)
-    p.Hh = ck("Hh", st.Hh, (B, kp, C), dev)
-    for name, P in (("v1", P1), ("v2", P2), ("v3", P3)):
-        setattr(p, name, ck(name, getattr(st, name), (B, k, P), dev))
-    p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, M5, C, Ms
-    p.P1, p.P2, p.P3 = P1, P2, P3
-    p.gamma, p.R_X = float(c.gamma), float(sc.R_X)
-    kernels.launch("K8c", "omc_k8c_shor_k_zstep", p, dev)
+    kernels.launch("K8c", "omc_k8c_shor_k_zstep", _k8c_params(c, sc, st, dev), dev)
 
 
 # --------------------------------------------------------------------------
@@ -1306,7 +1361,8 @@ def apply_best_duals(state: ShorKState, out: dict) -> ShorKState:
 
 __all__ = [
     "ShorKBatchHost", "ShorKBatch", "pack_shor_k_batch", "shor_k_batch_to_device",
-    "inverse_tables_k", "shor_k_batch_host_from_omc_leaves", "ShorKState",
+    "inverse_tables_k", "k8c_plan", "k8c_smem_bytes", "shor_k_batch_host_from_omc_leaves",
+    "ShorKState",
     "init_shor_k_state", "make_shor_k_consts", "make_shor_k_solver", "shor_k_iteration",
     "shor_k_zstep", "shor_k_zstep_plain", "minor_k_step", "minor_k_step_plain",
     "xwh_step", "xwh_step_plain", "shor_k_cone_step", "shor_k_cone_step_plain",

@@ -221,10 +221,12 @@ def test_separation_eigpairs_matches_omc(n, k):
 # ---- (d) altmin's ridge steps ----
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 10])
 def test_ridge_steps_match_omc(k):
     rng = np.random.default_rng(10 + k)
-    n, m, B = 9, 7, 3
+    # k <= 3 at 9 x 7; k = 5 and 10 (K6's config-4 and config-5 ranks) on
+    # more rows and columns than k, so the ridged systems stay well posed
+    n, m, B = (9, 7, 3) if k <= 3 else (3 * k, 2 * k + 5, 3)
     A = rng.standard_normal((n, m))
     mask = (rng.random((n, m)) < 0.6).astype(np.float64)
     U = rng.standard_normal((B, n, k))

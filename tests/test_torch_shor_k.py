@@ -72,8 +72,9 @@ def _packed(idx):
 
 
 def test_pack_shor_k_batch_fields_and_inverse_tables():
-    """omc's 20 fields bit-identical; tables (a) and (b), the entry maps and
-    the v lists reproduce the dense scatter of the forward tables."""
+    """omc's 20 fields bit-identical; the entry-keyed minor table, the entry
+    maps and the v lists reproduce the dense scatter of the forward
+    tables."""
     _, idx = _instance()
     minors, socs, b = _packed(idx)
     a = tshk.pack_shor_k_batch(N, M, minors, socs, M5, N * M)
@@ -82,22 +83,15 @@ def test_pack_shor_k_batch_fields_and_inverse_tables():
     rng = np.random.default_rng(0)
     for s in range(B):
         act = a.minor_mask[s] > 0
-        # table (a): coordinate -> 4 l + corner of the active minors
+        # flat entry -> 4 l + corner of the active minors with a corner there
         vals = rng.standard_normal((M5, 4))
-        dense = np.zeros(C)
-        np.add.at(dense, a.mc[s][act], vals[act])
-        ptr, ent = a.cm_ptr[s], a.cm_ent[s]
-        via = np.array([vals.reshape(-1)[ent[ptr[c]:ptr[c + 1]]].sum() for c in range(C)])
+        dense = np.zeros(N * M)
+        np.add.at(dense, a.coord_flat[s][a.mc[s][act]], vals[act])
+        ptr, ent = a.fm_ptr[s], a.fm_ent[s]
+        via = np.array([vals.reshape(-1)[ent[ptr[f]:ptr[f + 1]]].sum() for f in range(N * M)])
         assert np.allclose(via, dense, rtol=0, atol=1e-12)
-        # ascending minor order inside each coordinate's list
-        assert all(np.all(np.diff(ent[ptr[c]:ptr[c + 1]]) > 0) for c in range(C))
-        # table (b): column -> the active coordinates of that column
-        cv = rng.standard_normal(C) * a.coord_mask[s]
-        dense = np.zeros(M)
-        np.add.at(dense, a.coord_j[s], cv)
-        ptr, ent = a.col_ptr[s], a.col_ent[s]
-        via = np.array([cv[ent[ptr[j]:ptr[j + 1]]].sum() for j in range(M)])
-        assert np.allclose(via, dense, rtol=0, atol=1e-12)
+        # ascending minor order inside each entry's list
+        assert all(np.all(np.diff(ent[ptr[f]:ptr[f + 1]]) > 0) for f in range(N * M))
         # entry -> coordinate / RSOC slot
         for name, idxs, msk in (("flat_coord", a.coord_flat, a.coord_mask),
                                 ("flat_soc", a.soc_flat, a.soc_mask)):
@@ -327,6 +321,34 @@ def test_kernel_wrappers_cpu_path_is_plain():
         assert torch.equal(a, b)
     T = torch.as_tensor(leaves[35][:, :7], dtype=torch.float32)  # (B, 7, 3, 3)
     assert torch.equal(tpolar.project_psd_xwh(T), tpolar.project_psd_ns_small(T))
+
+
+def test_k8c_parameter_block_reused_only_for_the_same_operands():
+    """K8c's packed parameter block (checked once, then reused by the solve
+    loop) points at every operand, is reused for the same tensors and is
+    packed anew when an operand is another tensor."""
+    A, mask, bl, sbj, leaves, _ = _setup(np.float32)
+    st = convert.shor_k_state_from_numpy(leaves, dtype=torch.float32, device="cpu")
+    sb = convert.shor_k_batch_from_numpy(list(sbj), dtype=torch.float32, device="cpu")
+    c = make_consts(torch.as_tensor(A), torch.as_tensor(mask),
+                    convert.node_batch_from_numpy(bl, dtype=torch.float32, device="cpu"),
+                    st.core, N, M, K, GAMMA, 1.6, 0.01, torch.float32)
+    sc = tshk.make_shor_k_consts(c, sb, st.core, 30.0, K)
+    cpu = torch.device("cpu")
+    p = tshk._k8c_params(c, sc, st, cpu)
+    ops = tshk._k8c_operands(c, sc, st)
+    for name, t, _, _ in ops:
+        assert getattr(p, name) == t.data_ptr(), name
+    # the reuse test looks at every operand
+    assert sorted(map(id, tshk._k8c_tensors(c, sc, st))) == sorted(id(t) for _, t, _, _ in ops)
+    assert (p.B, p.n, p.m, p.k, p.cols) == (B, N, M, K, tshk.k8c_plan(B, N, M, K)["cols"])
+    assert tshk._k8c_params(c, sc, st, cpu) is p
+    st.Xt = st.Xt.clone()
+    q = tshk._k8c_params(c, sc, st, cpu)
+    assert q is not p and q.Xt == st.Xt.data_ptr()
+    st.W = st.W.double()  # a wrong dtype is refused, not reused
+    with pytest.raises(TypeError):
+        tshk._k8c_params(c, sc, st, cpu)
 
 
 def test_xwh_sign_schedule_meets_the_bar():
