@@ -19,8 +19,11 @@ Phases, in order (each prints its numbers on lines of its own):
                B=1 to 128) on every path k4_plan could take, and the block
                path's grid barrier; K6 (n=m=50, 250, 1000; k=1 to 10; B=4
                and 64) on every path k6_plan could take, against the
-               library's batched solve; K8c at k=2 (timed), 3 and 4; the
-               build fails if ptxas reports a spill in K6 or K8c
+               library's batched solve; K8c at k=2 (timed), 3 and 4; K2 and
+               K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
+               variant) with their device times on every cluster size
+               k2k3_plan could take; the build fails if ptxas reports a
+               spill in K2, K3, K6 or K8c
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -48,7 +51,8 @@ Phases, in order (each prints its numbers on lines of its own):
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
-bounds' small slots, K5 the separation, K6 altmin).
+bounds' small slots, K5 the separation, K6 altmin).  The record's launches
+of a kernel are its launches over all those phases (``COUNTED``).
 
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape, of the rank-k
@@ -56,7 +60,12 @@ Shor loop at config 3's, of the McCormick loop at the headline's, of the
 headline's root visit at B=1 (with the device's idle share), of one
 base-path root visit at B=64 with its safe-bound calls, and of safe-bound
 calls at config 4's shape (B=128, n=m=250, k=5), each split into K4 and the
-torch terms.
+torch terms; K2's and K3's device ms per iteration of the two Shor loops and
+the two root visits are given on their own.
+
+``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
+builds that tree's K2 and K3 and times them, with that tree's parameter
+blocks, beside every K2/K3 row of the kernels phase up to 512 cuts.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -222,11 +231,12 @@ def phase_build(res):
     report = _ptxas_report(info.get("ptxas", ""))
     res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
     log("build: kernels that spill", json.dumps(spills))
-    res["k6_k8c_registers"] = regs = {f: r["registers"] for f, r in report.items()
-                                      if "k6_" in f or "k8c_kernel" in f}
-    log("build: K6 and K8c registers", json.dumps(regs))
-    # K6's and K8c's instantiations keep every value in registers
-    assert not [f for f in spills if "k6_" in f or "k8c_kernel" in f], spills
+    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel")
+    res["registers"] = regs = {f: r["registers"] for f, r in report.items()
+                               if any(x in f for x in keep)}
+    log("build: K2, K3, K6 and K8c registers", json.dumps(regs))
+    # K2's, K3's, K6's and K8c's instantiations keep every value in registers
+    assert not [f for f in spills if any(x in f for x in keep)], spills
 
 
 def _ptxas_report(text):
@@ -398,39 +408,49 @@ def phase_kernels(res):
         k1.append(row)
     out["K1"] = k1
 
-    # ---- K2 / K3 ----
+    # ---- K2 / K3 at the shapes the cells run them: the base path at B=64
+    # (the row of the record; L = 8 and 32), the headline's root visit (B=1)
+    # and refinement portfolio (B=4), BASELINE config 3 at its base-path
+    # batch (B=64, k=2) and its rank-k Shor batch (B=32), config 2's Shor
+    # loop (B=32, n=m=100; K2's shor variant writes Y and U only), config
+    # 4's (B=128, n=m=250, k=5), n=m=1000 (k=10, B=2), where K2's band of
+    # sym(zY) lives in Y's rows, and a deep tree's 512 and 2048 cuts, whose
+    # vectors both kernels read from the input (at rank 10 both kernels'
+    # partials live in the global workspace; with 2048 cuts at B=1, since
+    # the plain version's batched cholesky_solve raises on the card at p =
+    # 12,289 and B=2)
     k2, k3 = [], []
-    for L in (8, 32):
-        c, st, acc, ts = _admm_inputs(64, 50, 50, 1, L, gen, dev)
-        r2, r3 = _check_k2_k3(c, st, acc, ts)
-        log("K2", json.dumps(r2))
-        log("K3", json.dumps(r3))
-        checks.append(("K2", r2, r2["rel_err"] <= 1e-6))
-        checks.append(("K3", r3, r3["rel_err"] <= 1e-6))
+    for B, n, k, L, shor in ((64, 50, 1, 8, False), (64, 50, 1, 32, False), (1, 50, 1, 8, False),
+                             (4, 50, 1, 8, False), (64, 75, 2, 8, False), (64, 75, 2, 32, False),
+                             (32, 75, 2, 8, False), (32, 100, 1, 8, True),
+                             (C4["B"], C4["n"], C4["k"], C4["L"], False), (2, 1000, 10, 8, False),
+                             (4, 50, 1, 512, False), (2, 250, 10, 512, False),
+                             (1, 250, 10, 2048, False)):
+        c, st, acc, ts = _admm_inputs(B, n, n, k, L, gen, dev)
+        r2, r3 = _check_k2_k3(c, st, acc, ts, shor=shor, sweep=n <= 250 and L <= 32)
+        del c, st, acc, ts
+        for name, r in (("K2", r2), ("K3", r3)):
+            log(name, json.dumps(r))
+            # float32 sums in another order than the plain version's: 1e-6
+            # relative.  At config 4's shape and beyond, the float32 plain
+            # version is itself 1.1e-6 to 1.4e-6 from its float64 evaluation
+            # (K3's uc: sums of n^2 = 62,500 terms; on an H100), and with 257
+            # cuts K2's U 5e-7 to 9e-7 (sums over every cut), so there the
+            # kernels are held to 1e-6 of the float64 one.  Two launches give
+            # the same bits; the plan's shared memory is the kernel's own.
+            err = r["rel_err_vs_f64"] if n >= 250 or L > 32 else r["rel_err"]
+            checks.append((name, r, err <= 1e-6 and r["deterministic"]
+                           and r["plan_matches_kernel"]))
         k2.append(r2)
         k3.append(r3)
-    # K2 and K3 at k = 2 (BASELINE config 3: B = 64, n = m = 75, L in {8, 32})
-    for L in (8, 32):
-        c, st, acc, ts = _admm_inputs(64, 75, 75, 2, L, gen, dev)
-        r2, r3 = _check_k2_k3(c, st, acc, ts)
-        log("K2", json.dumps(r2))
-        log("K3", json.dumps(r3))
-        checks.append(("K2", r2, r2["rel_err"] <= 1e-6))
-        checks.append(("K3", r3, r3["rel_err"] <= 1e-6))
-        k2.append(r2)
-        k3.append(r3)
-    # K2 and K3 at BASELINE config 4's shape (B = 128, n = m = 250, k = 5).
-    # Here the float32 plain version is itself 1.1e-6 to 1.4e-6 from its
-    # float64 evaluation (K3's uc: the cut residuals, sums of n^2 = 62,500
-    # terms; on an H100), so the kernels are held to 1e-6 of the float64 one
-    c, st, acc, ts = _admm_inputs(C4["B"], C4["n"], C4["m"], C4["k"], C4["L"], gen, dev)
-    r2, r3 = _check_k2_k3(c, st, acc, ts)
+    # K2's band in Y's rows at the headline's shape, against the same plain
+    # version
+    c, st, acc, ts = _admm_inputs(4, 50, 50, 1, 8, gen, dev)
+    r2, _ = _check_k2_k3(c, st, acc, ts, band="rows", sweep=False)
     log("K2", json.dumps(r2))
-    log("K3", json.dumps(r3))
-    checks.append(("K2", r2, r2["rel_err_vs_f64"] <= 1e-6))
-    checks.append(("K3", r3, r3["rel_err_vs_f64"] <= 1e-6))
+    checks.append(("K2", r2, r2["rel_err"] <= 1e-6 and r2["deterministic"]
+                   and r2["plan_matches_kernel"]))
     k2.append(r2)
-    k3.append(r3)
     del c, st, acc, ts
     out["K2"], out["K3"] = k2, k3
 
@@ -908,57 +928,221 @@ def _to64(x):
     return x
 
 
-def _check_k2_k3(c, st, acc, ts):
-    """K2 and K3 against their plain versions on the same inputs, in float32
-    (``rel_err``) and in float64 (``rel_err_vs_f64``, with the float32 plain
-    version's own distance ``plain_vs_f64``)."""
+# The parent tree's K2 and K3 (``--parent DIR``: a checkout of an older
+# tree), built from DIR's sources and launched on the same inputs as the
+# rows, for the records.  Their parameter blocks are DIR's own
+# (``omc_torch/kernels.py`` there), each field filled by name: a field this
+# script has no value for raises, so a tree whose blocks differ cannot be
+# packed wrongly.
+PARENT = {}
+
+
+def _load_parent(src):
+    """Build DIR's csrc/k2_zstep.cu and k3_cone.cu into one library (one
+    nvcc each, in parallel) and bind their entry points to DIR's blocks."""
+    import ctypes
+    import importlib.util
+
+    from omc_torch import kernels
+
+    root = os.path.abspath(src)
+    csrc = os.path.join(root, "omc_torch", "csrc")
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(root, "omc_torch", "kernels.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = os.path.join(HERE, "build", "parent_k2k3")
+    os.makedirs(out, exist_ok=True)
+    nvcc = kernels._nvcc()
+    jobs = [(os.path.join(out, f"{name}.o"), subprocess.Popen(
+        [nvcc, *kernels.NVCC_FLAGS, "-I", csrc, "-c", os.path.join(csrc, f"{name}.cu"), "-o",
+         os.path.join(out, f"{name}.o")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for name in ("k2_zstep", "k3_cone")]
+    for _, proc in jobs:
+        _, err = proc.communicate()
+        assert proc.returncode == 0, err
+    so = os.path.join(out, "libparent_k2k3.so")
+    subprocess.run([nvcc, "-shared", "-o", so, *[o for o, _ in jobs]], check=True)
+    lib = ctypes.CDLL(so)
+    for fn, st in ((lib.omc_k2_zstep, mod.K2Params), (lib.omc_k3_cone, mod.K3Params)):
+        fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, src=src)
+
+
+def _parent_block(cls, values):
+    """DIR's parameter block ``cls`` with every field set from ``values``
+    (name -> tensor, number or None)."""
     import torch
 
-    from omc_torch.sdp.admm import _REST, cone_step, cone_step_plain, zstep, zstep_plain
+    prm = cls()
+    for name, _ in cls._fields_:
+        assert name in values, f"--parent: no value for its block's field {name!r}"
+        v = values[name]
+        setattr(prm, name, v.data_ptr() if isinstance(v, torch.Tensor) else v)
+    return prm
 
-    s_k = st.clone()
-    zstep(c, s_k)
+
+def _parent_launch(fn, prm):
+    import ctypes
+
+    import torch
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = fn(ctypes.byref(prm), stream)
+        assert err == 0, f"parent kernel launch failed ({err})"
+    return run
+
+
+def _parent_values(c, st):
+    """The values a parent block's fields may name: the state's slots and
+    primal blocks, the cuts, the per-call constants and the shape."""
+    from omc_torch.sdp.admm import _SLOTS
+
+    b = c.batch
+    names = ("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc", "wbox", "ubox",
+             "wa", "ua", "wb", "ub", "wc", "uc")
+    return dict(zip(names, _SLOTS(st)), cut_x=b.cut_x, cut_lo=b.cut_lo, cut_hi=b.cut_hi,
+                cut_mask=b.cut_mask, U_lo=b.U_lo, U_hi=b.U_hi, maskA=c.maskA, mask=c.mask,
+                G1c=c.G1c, sX=st.sX, sT=st.sT, rho=st.rho, Xs=st.X, Y=st.Y, Ths=st.Th, U=st.U,
+                B=st.rho.shape[0], n=c.n, m=c.m, k=c.k, L=c.L, gamma=c.gamma, alpha=c.alpha,
+                beta=c.beta)
+
+
+def _parent_k2(c, st, shor=False):
+    """The parent's K2 on (c, st), writing into st: a launcher with its
+    parameter block packed once (``shor``: Xs and Ths null)."""
+    v = _parent_values(c, st)
+    if shor:
+        v.update(Xs=None, Ths=None)
+    return _parent_launch(PARENT["lib"].omc_k2_zstep, _parent_block(PARENT["P2"], v))
+
+
+def _parent_k3(c, st, ts, acc):
+    """The parent's K3 on (c, st), writing into st, ts and acc."""
+    v = _parent_values(c, st)
+    v.update(t1=ts[0], t2=ts[1], t3=ts[2], acc_a=acc[0], acc_b=acc[1], acc_c=acc[2])
+    return _parent_launch(PARENT["lib"].omc_k3_cone, _parent_block(PARENT["P3"], v))
+
+
+def _k2k3_device_ms(fns, reps=20, medians=("kernel", "parent")):
+    """Device milliseconds per launch of each kernel call in ``fns`` (name ->
+    function), read from torch.profiler traces: the calls' CUDA-event times
+    include the host's launch, which sets them at B=1.  A trace now and then
+    misses its events, so the names in ``medians`` take the median of three
+    traces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(getattr(ev, "self_device_time_total", 0) or 0
+                   for ev in prof.key_averages()) / 1e3 / reps
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    return {name: statistics.median(traced(fn) for _ in range(3 if name in medians else 1))
+            for name, fn in fns.items()}
+
+
+def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
+    """K2 and K3 against their plain versions on the same inputs, in float32
+    (``rel_err``) and in float64 (``rel_err_vs_f64``, with the float32 plain
+    version's own distance ``plain_vs_f64``); the same bits from two
+    launches; ``k2k3_plan`` and its shared memory against the kernels'
+    exports; CUDA-event times and device times (``device_ms``; on every
+    cluster size with ``sweep``, ``device_ms_by_cluster``) and, with
+    ``--parent``, the parent tree's kernels' beside them.  ``shor``: K2's variant that writes Y and U
+    only; ``band`` forces K2's band (K3 then runs unchecked)."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.sdp.admm import (
+        _REST,
+        K2K3_CLUSTERS,
+        cone_step,
+        cone_step_plain,
+        k2k3_plan,
+        zstep,
+        zstep_plain,
+    )
+
+    lib = kernels.library()
+    B, n, m, k, L = c.batch.cut_mask.shape[0], c.n, c.m, c.k, c.L
+    plan = k2k3_plan(B, n, m, k, L, band=band)
+    shape = dict(B=B, n=n, m=m, k=k, L=L)
+    outs = (lambda x: (x.Y, x.U)) if shor else (lambda x: (x.X, x.Y, x.Th, x.U))  # noqa: E731
+    s_k, s_2 = st.clone(), st.clone()
+    zstep(c, s_k, shor, band=band)
+    zstep(c, s_2, shor, band=band)
     torch.cuda.synchronize()
     ref = zstep_plain(c, st)
     ref64 = zstep_plain(_to64(c), _to64(st))
-    got = (s_k.X, s_k.Y, s_k.Th, s_k.U)
-    e2, a2 = _errs(got, ref)
+    if shor:
+        ref, ref64 = (ref[1], ref[3]), (ref64[1], ref64[3])
+    e2, a2 = _errs(outs(s_k), ref)
     s_t = st.clone()
-    ms2 = cuda_time_ms(lambda: zstep(c, s_t))
-    ms2p = cuda_time_ms(lambda: zstep_plain(c, st))
-    r2 = dict(B=c.batch.cut_mask.shape[0], n=c.n, m=c.m, k=c.k, L=c.L,
-              rel_err=e2, rel_err_vs_f64=_errs(got, ref64)[0],
-              plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a2, ms=ms2, plain_ms=ms2p)
-    B, n, m, k, L = r2["B"], c.n, c.m, c.k, c.L
+    k2fn = {"kernel": lambda: zstep(c, s_t, shor, band=band)}
+    ws2, ws3 = plan["k2_sums"] == "global", plan["k3_sums"] == "global"
+    r2 = dict(**shape, shor=shor, plan=plan,
+              plan_matches_kernel=plan["k2_smem"] == lib.omc_k2_smem_bytes(
+                  n, m, k, L, plan["k2_cluster"], int(plan["band"] == "smem"),
+                  int(plan["k2_xs"] == "smem"), int(ws2))
+              and plan["k2_ws"] == (lib.omc_k2_ws_doubles(n, m, k, L, plan["k2_cluster"])
+                                    if ws2 else 0),
+              rel_err=e2, rel_err_vs_f64=_errs(outs(s_k), ref64)[0],
+              plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a2,
+              deterministic=_same_bits(outs(s_k), outs(s_2)),
+              ms=cuda_time_ms(k2fn["kernel"]), plain_ms=cuda_time_ms(lambda: zstep_plain(c, st)))
     p = 1 + L + L * k
     # per slot: the residual blocks K2 reads (Y, X, Theta of w1/u1; Y, U of
-    # w2/u2; w3/u3; the SOC, box and cut slots), the cuts, G1's lower
-    # triangle; out X, Y, Theta, U; mask and mask*A once
-    rd = (2 * (n * n + n * m + m * m) + 2 * (n * n + n * k) + 2 * n * n + 2 + 4 * k * n
+    # w2/u2; w3/u3; the SOC, box and cut slots), the cuts, G1 (its
+    # triangle: the Cholesky factor or the symmetric inverse is enough); out
+    # X, Y, Theta, U; mask and mask*A once (the shor variant: no X or Theta
+    # blocks in or out, no masks)
+    xt = 0 if shor else 1
+    rd = (2 * (n * n + xt * (n * m + m * m)) + 2 * (n * n + n * k) + 2 * n * n + 2 + 4 * k * n
           + 4 * L * k + 2 * L + L * n + 2 * L * k + L + 3 + p * (p + 1) // 2)
-    wr = n * m + n * n + m * m + n * k
-    with_bound(r2, 4 * (B * (rd + wr) + 2 * n * m),
-               B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m + n * n)))
+    wr = n * n + n * k + xt * (n * m + m * m)
+    with_bound(r2, 4 * (B * (rd + wr) + xt * 2 * n * m),
+               B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m * xt + n * n)))
+    if band is not None:
+        return r2, None
 
     # K3 at the z-step's outputs
-    s3 = s_k.clone()
-    acc_k = [a.clone() for a in acc]
-    ts_k = tuple(torch.empty_like(t) for t in ts)
+    s3, s3b = s_k.clone(), s_k.clone()
+    acc_k, acc_b = [a.clone() for a in acc], [a.clone() for a in acc]
+    ts_k, ts_b = tuple(torch.empty_like(t) for t in ts), tuple(torch.empty_like(t) for t in ts)
     cone_step(c, s3, ts_k, acc_k)
+    cone_step(c, s3b, ts_b, acc_b)
     torch.cuda.synchronize()
     t1, t2, t3, rest, acc_p = cone_step_plain(c, s_k, acc)
     T1, T2, T3, rest64, acc64 = cone_step_plain(_to64(c), _to64(s_k), _to64(acc))
-    got = list(ts_k) + [getattr(s3, nm) for nm in _REST] + list(acc_k)
+    k3out = lambda x, t, a: list(t) + [getattr(x, nm) for nm in _REST] + list(a)  # noqa: E731
+    got = k3out(s3, ts_k, acc_k)
     ref = [t1, t2, t3, *rest, *acc_p]
     ref64 = [T1, T2, T3, *rest64, *acc64]
     e3, a3 = _errs(got, ref)
     s4 = s_k.clone()
     acc4 = [a.clone() for a in acc]
-    ms3 = cuda_time_ms(lambda: cone_step(c, s4, ts_k, acc4))
-    ms3p = cuda_time_ms(lambda: cone_step_plain(c, s_k, acc))
-    r3 = dict(B=c.batch.cut_mask.shape[0], n=c.n, m=c.m, k=c.k, L=c.L,
+    k3fn = {"kernel": lambda: cone_step(c, s4, ts_k, acc4)}
+    r3 = dict(**shape, plan=plan,
+              plan_matches_kernel=plan["k3_smem"] == lib.omc_k3_smem_bytes(
+                  n, m, k, L, plan["k3_cluster"], int(plan["k3_xs"] == "smem"),
+                  int(plan["k3_slots"] == "smem"), int(ws3))
+              and plan["k3_ws"] == (lib.omc_k3_ws_doubles(n, m, k, L, plan["k3_cluster"])
+                                    if ws3 else 0),
               rel_err=e3, rel_err_vs_f64=_errs(got, ref64)[0],
-              plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a3, ms=ms3, plain_ms=ms3p)
+              plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a3,
+              deterministic=_same_bits(got, k3out(s3b, ts_b, acc_b)),
+              ms=cuda_time_ms(k3fn["kernel"]),
+              plain_ms=cuda_time_ms(lambda: cone_step_plain(c, s_k, acc)))
     d1, d2 = n + m, n + k
     # per slot: X, Y, Theta, U and the w/u of every slot in; t1-t3 and the
     # non-PSD slots and the three EMAs out (the EMAs are read too)
@@ -969,6 +1153,28 @@ def _check_k2_k3(c, st, acc, ts):
         + 2 * L * k + L
     with_bound(r3, 4 * B * (rd + wr),
                B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)))
+
+    # the parent's kernels on the same inputs (up to 512 cuts), and every
+    # cluster size
+    if PARENT and L <= 512:
+        sp, accp = s_k.clone(), [a.clone() for a in acc]
+        k2fn["parent"] = _parent_k2(c, st.clone(), shor)
+        k3fn["parent"] = _parent_k3(c, sp, tuple(torch.empty_like(t) for t in ts), accp)
+        r2["parent_ms"] = cuda_time_ms(k2fn["parent"])
+        r3["parent_ms"] = cuda_time_ms(k3fn["parent"])
+    if sweep:
+        for C in K2K3_CLUSTERS:
+            if C <= min(n, m):
+                k2fn[C] = (lambda C=C: zstep(c, s_t, shor, cluster=C))
+                k3fn[C] = (lambda C=C: cone_step(c, s4, ts_k, acc4, cluster=C))
+    # device times: the kernel, the parent's, and (sweep) every cluster size
+    for r, fns in ((r2, k2fn), (r3, k3fn)):
+        dms = _k2k3_device_ms(fns)
+        r["device_ms"] = dms.pop("kernel")
+        if "parent" in dms:
+            r["parent_device_ms"] = dms.pop("parent")
+        if dms:
+            r["device_ms_by_cluster"] = dms
     return r2, r3
 
 
@@ -1538,6 +1744,26 @@ def phase_admm(res):
 BOUND_KEYS = ("K4", "K5", "K6")
 
 
+# the phases that drive the port's paths through its entry points: every
+# launch they make counts in the record (the kernels phase's launches, made
+# to compare each kernel with its plain version, do not)
+COUNTED = ("admm", "fixtures", "headline", "multinode", "branch", "shor", "config2", "config3",
+           "shork", "mccormick", "config4")
+_PHASE = {"name": None}
+
+
+def _bank(res):
+    """Add the launch counts so far to the running phase's totals in
+    ``res["launches_by_phase"]``, then set every count to 0."""
+    from omc_torch import kernels
+
+    tot = res.setdefault("launches_by_phase", {}).setdefault(
+        _PHASE["name"], dict.fromkeys(kernels.LAUNCHES, 0))
+    for key, v in kernels.LAUNCHES.items():
+        tot[key] += v
+    kernels.reset_launches()
+
+
 def _assert_launched(launches, keys):
     missing = [key for key in keys if not launches[key] > 0]
     assert not missing, (missing, launches)
@@ -1574,7 +1800,7 @@ def phase_fixtures(res):
         fixtures = json.load(fh)
     rows = []
     for fx in fixtures:
-        kernels.reset_launches()
+        _bank(res)  # the launches so far count, then 0
         A, idx = generate_matrix_completion_data(
             fx["k"], fx["n"], fx["m"], fx["n_indices"], fx["seed"])
         sol, inst, secs = _solve(
@@ -1832,7 +2058,7 @@ def phase_shork(res):
     # float32 sign-schedule runs drift apart over iterations (8e-6 at 2,000
     # iterations on config 2's root; PERF.md), so 1e-3 (1 + |b|)
     assert root["rel_diff"] <= 1e-3, root
-    kernels.reset_launches()
+    _bank(res)  # the launches so far count, then 0
     sol, inst, secs = _solve(A, idx, 80.0, k=2, **SHORK_KW)
     launches = dict(kernels.LAUNCHES)
     row = _rank2_checks("shork", sol, inst, secs, A, idx, launches,
@@ -1900,7 +2126,7 @@ def phase_mccormick(res):
     assert root["rel_diff"] <= 1e-3, root
     assert root["lower"] <= CONFIG3_OBJ, root
 
-    kernels.reset_launches()
+    _bank(res)  # the launches so far count, then 0
     sol, inst, secs = _solve(A, idx, 80.0, **MC_KW)
     launches = dict(kernels.LAUNCHES)
     rd = inst["run_details"]
@@ -2024,7 +2250,7 @@ def phase_config4(res):
     st, out = solve(A_d, m_d, batch, ub_bar, st)
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    kernels.reset_launches()
+    _bank(res)  # the launches so far count, then 0
     t0 = time.time()
     for _ in range(C4["substeps"]):
         st, out = solve(A_d, m_d, batch, ub_bar, st)
@@ -2142,8 +2368,8 @@ def phase_trace(res):
                                          st.core.uc, st.u5, st.ur, st.ul)]
     ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
           torch.empty_like(st.core.w3))
-    row = _trace_loop(lambda: S.shor_iteration(c, sc, st, ts, acc, "ns"), names, 20,
-                      B=32, n=100, m=100, M5=1024, L=8)
+    row = _k2k3_traced(lambda: _trace_loop(lambda: S.shor_iteration(c, sc, st, ts, acc, "ns"),
+                                           names, 20, B=32, n=100, m=100, M5=1024, L=8))
     log("trace", json.dumps(row))
     res["trace"] = row
     c, sc, st = _shor_k_inputs(32, 75, 75, 8, 1024, gen, dev)
@@ -2151,8 +2377,9 @@ def phase_trace(res):
                                          st.core.uc, st.u5, st.ux, st.ur, st.ul, st.uwl)]
     ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
           torch.empty_like(st.core.w3))
-    row = _trace_loop(lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "ns"), names, 20,
-                      B=32, n=75, m=75, k=2, M5=1024, L=8)
+    row = _k2k3_traced(lambda: _trace_loop(
+        lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "ns"), names, 20, B=32, n=75, m=75, k=2,
+        M5=1024, L=8))
     log("trace shork", json.dumps(row))
     res["trace_shork"] = row
     # the McCormick loop (K9a -> K9b -> K1) at the headline's shape, with
@@ -2171,7 +2398,7 @@ def phase_trace(res):
         res[f"trace_mccormick_B{B}"] = row
     # the headline's root visit runs at B=1: the K1 chain's latency and the
     # host's launches set its iteration
-    head, _ = _trace_root_visit(names, 1)
+    head = _k2k3_traced(lambda: _trace_root_visit(names, 1)[0])
     log("trace headline visit", json.dumps(head))
     res["trace_headline_visit"] = head
     visit, call = _trace_visit(names)
@@ -2186,6 +2413,20 @@ def phase_trace(res):
     call.update(B=C4["B"], n=C4["n"], m=C4["m"], k=C4["k"], L=C4["L"])
     log("trace bound call config4", json.dumps(call))
     res["trace_bound_call_config4"] = call
+
+
+def _k2k3_traced(run, row=None):
+    """``row`` (else ``run()``'s) with K2's and K3's device ms per iteration
+    and the iteration's ms."""
+    def split(r):
+        by = r.get("kernel_ms_per_iter") or {
+            key: v / r["iters"] for key, v in r["kernel_ms"].items()}
+        return dict(K2=by.get("K2", 0.0), K3=by.get("K3", 0.0),
+                    iter_ms=r.get("event_ms_per_iter", r.get("ms_per_iter")))
+
+    row = run() if row is None else row
+    row["k2k3_ms_per_iter"] = split(row)
+    return row
 
 
 def _trace_root_visit(names, B):
@@ -2222,6 +2463,7 @@ def _trace_visit(names):
     and five safe-bound calls alone, split into the eigensolver (K4) and the
     torch terms."""
     visit, (solve, args, c, out) = _trace_root_visit(names, 64)
+    _k2k3_traced(lambda: _trace_root_visit(names, 64)[0], visit)
     call = _bound_split(args, c, [out[key] for key in ("y1", "y2", "ya", "yb", "yc")], reps=5)
     call.update(B=64, n=50, m=50, k=1, L=8)
     return visit, call
@@ -2229,67 +2471,68 @@ def _trace_visit(names):
 
 KERNELS = (
     # key, rows of the kernels phase (the first is the one timed in the
-    # record), the main path that counts its launches, name, source, replaces
-    ("K1", ("K1",), "launches", "K1 sign-schedule PSD projection (B=64, d=100/51/50)",
+    # record), name, source, replaces
+    ("K1", ("K1",), "K1 sign-schedule PSD projection (B=64, d=100/51/50)",
      "omc_torch/csrc/k1_psd_sign.cu", "omc/ops/polar.py:102"),
-    ("K2", ("K2",), "launches", "K2 adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
+    ("K2", ("K2",), "K2 adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
      "omc_torch/csrc/k2_zstep.cu", "omc/sdp/admm.py:324"),
-    ("K3", ("K3",), "launches", "K3 forward map + cone step (B=64, n=m=50, L=8)",
+    ("K3", ("K3",), "K3 forward map + cone step (B=64, n=m=50, L=8)",
      "omc_torch/csrc/k3_cone.cu", "omc/sdp/admm.py:133"),
-    ("K7", ("K7fused", "K7"), "shor_launches",
+    ("K7", ("K7fused", "K7"),
      "K7 5x5 minor-slot PSD projection, fused (B=32, M5=1024)",
      "omc_torch/csrc/k7_minor_psd.cu", "omc/ops/polar.py:127"),
-    ("K8a", ("K8a",), "shor_launches", "K8a Shor adjoint + z-step (B=32, n=m=100, M5=1024)",
+    ("K8a", ("K8a",), "K8a Shor adjoint + z-step (B=32, n=m=100, M5=1024)",
      "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:178"),
-    ("K8b", ("K8b",), "shor_launches", "K8b Shor RSOC/link/W>=0 cone step (B=32, n=m=100)",
+    ("K8b", ("K8b",), "K8b Shor RSOC/link/W>=0 cone step (B=32, n=m=100)",
      "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:423"),
-    ("K7t", ("K7t",), "shork_launches",
+    ("K7t", ("K7t",),
      "K7t per-term 5x5 minor slots, rank-k Shor (B=32, M5=1024, k=2)",
      "omc_torch/csrc/k7k_minor_xwh.cu", "omc/sdp/shor_k.py:349"),
-    ("K7x", ("K7xfused", "K7x"), "shork_launches",
+    ("K7x", ("K7xfused", "K7x"),
      "K7x (k+1)x(k+1) XWH slots, rank-k Shor (B=32, C=4096, k=2)",
      "omc_torch/csrc/k7k_minor_xwh.cu", "omc/sdp/shor_k.py:373"),
-    ("K8c", ("K8c",), "shork_launches",
+    ("K8c", ("K8c",),
      "K8c rank-k Shor adjoint + z-step (B=32, n=m=75, k=2, M5=1024)",
      "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:618"),
-    ("K8d", ("K8d",), "shork_launches",
+    ("K8d", ("K8d",),
      "K8d rank-k Shor RSOC/link/W>=0/Wt>=0 cone step (B=32, n=m=75, k=2)",
      "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
-    ("K9s", ("K9s",), "mccormick_launches",
+    ("K9s", ("K9s",),
      "K9s McCormick row Grams, Cholesky factors, orthogonality Woodbury (B=64, n=50, k=1)",
      "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:385"),
-    ("K9a", ("K9a",), "mccormick_launches",
+    ("K9a", ("K9a",),
      "K9a McCormick adjoint + z-step (B=64, n=m=50, k=1)",
      "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:446"),
-    ("K9b", ("K9b",), "mccormick_launches",
+    ("K9b", ("K9b",),
      "K9b McCormick forward map + cone step (B=64, n=m=50, k=1)",
      "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
-    ("K4", ("K4",), "launches",
+    ("K4", ("K4",),
      "K4 Jacobi eigensolver of the safe bounds, PSD projection (B=64, d=100)",
      "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),
-    ("K4s", ("K4s",), "shor_launches",
+    ("K4s", ("K4s",),
      "K4s Jacobi PSD projection of 5x5 minor duals, one thread each (32x4096)",
      "omc_torch/csrc/k4s_jacobi_small.cu", "omc/sdp/admm_shor.py:786"),
-    ("K5", ("K5",), "launches",
+    ("K5", ("K5",),
      "K5 separation eigenpairs of UU'-Y, two smallest (B=64, n=50)",
      "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/admm.py:576"),
-    ("K6", ("K6",), "launches",
+    ("K6", ("K6",),
      "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
 )
 
 
 def kernel_record(res):
-    """The per-kernel JSON record: launches on its main path, the largest
-    absolute error against its plain version, the kernel, plain and library
-    times and the bound of the row it was timed on."""
+    """The per-kernel JSON record: launches over every phase that drives the
+    port's paths, the largest absolute error against its plain version, the
+    kernel, plain and library times and the bound of the row it was timed
+    on."""
     rec = []
-    for key, rows, path, name, source, replaces in KERNELS:
+    for key, rows, name, source, replaces in KERNELS:
         all_rows = [r for rk in rows for r in res["kernels"][rk]]
         r = res["kernels"][rows[0]][0]
         rec.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": res[path][key],
+            "launches": sum(c[key] for c in res["launches_by_phase"].values()),
             "max_abs_err": max(x["max_abs_err"] for x in all_rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
@@ -2302,6 +2545,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
+    ap.add_argument("--parent", help="a checkout of an older tree: its K2 and K3 are timed "
+                    "beside the kernels phase's rows")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -2317,12 +2562,21 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     import omc_torch  # noqa: F401  (fails here when run outside the repository)
 
+    if args.parent:
+        _load_parent(args.parent)
+    from omc_torch import kernels
+
     res = {}
     t_all = time.time()
     for p in phases:
         t0 = time.time()
         log(f"== {p}")
+        _PHASE["name"] = p
+        if p in COUNTED:
+            kernels.reset_launches()
         globals()[f"phase_{p}"](res)
+        if p in COUNTED:
+            _bank(res)
         log(f"== {p} done in {time.time() - t0:.1f} s")
     res["total_s"] = time.time() - t_all
     if args.out:

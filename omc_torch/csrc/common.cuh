@@ -50,6 +50,111 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
+__device__ __forceinline__ double warp_sum_d(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A read-only view of a kernel input: loads go through the non-coherent
+// path (ld.global.nc), which the compiler may schedule ahead of the
+// kernel's own stores.  Only for data the kernel does not write.
+struct RO {
+  const float* p;
+  template <class I>
+  __device__ __forceinline__ float operator[](I i) const { return __ldg(p + i); }
+};
+
+// an odd row stride >= n for a shared-memory band: a column of it, read or
+// written by consecutive lanes, then falls in distinct banks
+__host__ __device__ __forceinline__ int odd_ld(int n) { return n | 1; }
+
+// rows [lo, hi) of N split over C owners as evenly as possible: every
+// owner gets floor(N / C) or cdiv(N, C) rows
+__device__ __forceinline__ int band_lo(int N, int C, int r) { return (int)((long long)r * N / C); }
+
+// (i, j) = divmod(e, W) for 0 <= e < 2^24 through a float reciprocal
+// inv = 1 / W, corrected by one step: a few instructions, no division
+__device__ __forceinline__ void divmod(int e, int W, float inv, int& i, int& j) {
+  i = __float2int_rz(((float)e + 0.5f) * inv);
+  j = e - i * W;
+  if (j < 0) --i, j += W;
+  else if (j >= W) ++i, j -= W;
+}
+
+// The items (i, j) of an R x W grid, e = i W + j from `start` in steps of
+// `stride` (a CTA's threads, or a cluster's): consecutive threads take
+// consecutive j, so a row-major operand is read coalesced (a column band of
+// width W as runs of W).  ld(i, j) loads an item's values and st(i, j, v)
+// uses them; a thread loads kB items before it uses any, so their loads are
+// in flight together.
+template <int kB, class Ld, class St>
+__device__ __forceinline__ void grid_items(int R, int W, int start, int stride, Ld ld, St st) {
+  const int tot = R * W;
+  const float inv = 1.0f / (float)W;
+  for (int e0 = start; e0 < tot; e0 += kB * stride) {
+    decltype(ld(0, 0)) v[kB];
+    int ii[kB], jj[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int e = e0 + u * stride;
+      if (e < tot) {
+        divmod(e, W, inv, ii[u], jj[u]);
+        v[u] = ld(ii[u], jj[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u)
+      if (e0 + u * stride < tot) st(ii[u], jj[u], v[u]);
+  }
+}
+
+// The sum over the cluster's C CTAs, in rank order, of each CTA's part[q],
+// q < NP, into tot[q]: one remote load a thread for each (q, rank) pair, all
+// in flight together, gathered in stage[] (C NP doubles), then the sums.
+// Ends with __syncthreads(); the caller has passed a cluster barrier since
+// every CTA wrote its part.
+template <class Cluster>
+__device__ __forceinline__ void cluster_sum(Cluster& cluster, const double* part, double* stage,
+                                            double* tot, int NP, int C) {
+  for (int e = threadIdx.x; e < NP * C; e += blockDim.x) {
+    const int r = e / NP;
+    stage[e] = *cluster.map_shared_rank(part + (e - r * NP), r);
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < NP; q += blockDim.x) {
+    double s = 0.0;
+    for (int r = 0; r < C; ++r) s += stage[r * NP + q];
+    tot[q] = s;
+  }
+  __syncthreads();
+}
+
+// The same sum where each CTA's partials lie in global memory, rank r's at
+// part0 + r * stride, each thread's writes fenced (__threadfence) before the
+// cluster barrier the caller has passed: read through L2, in rank order (the
+// same bits as cluster_sum).  Ends with __syncthreads().
+__device__ __forceinline__ void cluster_sum_global(const double* part0, size_t stride,
+                                                   double* tot, int NP, int C) {
+  for (int q = threadIdx.x; q < NP; q += blockDim.x) {
+    double s = 0.0;
+    for (int r = 0; r < C; ++r) s += __ldcg(part0 + r * stride + q);
+    tot[q] = s;
+  }
+  __syncthreads();
+}
+
+// the two halves of a thread-block cluster barrier (every thread of every
+// CTA of the cluster calls both, in turn): arrive releases this CTA's
+// shared-memory writes, wait acquires the others'
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // C = A B for D x D matrices in registers
 template <int D>
 __device__ __forceinline__ void mm_small(const float (&A)[D][D], const float (&B)[D][D],
@@ -214,9 +319,14 @@ struct K2Params {
   const float *cut_x, *cut_lo, *cut_hi, *cut_mask;
   const float *maskA, *mask;  // (n, m): mask * A and the 0/1 mask
   const float *sX, *sT, *rho;  // (B,)
-  const float* G1c;            // (B, p, p) lower Cholesky factor of G1
-  float *Xs, *Y, *Ths, *U;     // outputs
+  const float* G1i;            // (B, p, p) inverse of G1
+  float *Xs, *Y, *Ths, *U;     // outputs (Xs, Ths null: Y and U only)
+  double* ws;                  // null, or the partials of s and the p- and L k-sized
+                               // vectors in global memory (omc_k2_ws_doubles a slot)
   int B, n, m, k, L;
+  int C;                       // CTAs per cluster, one cluster per slot (1..16)
+  int band;                    // 1: sym(zY) bands in shared memory; 0: in Y's rows
+  int xsmem;                   // 1: the cut vectors staged in shared memory
   float gamma;
 };
 
@@ -228,7 +338,12 @@ struct K3Params {
   float *acc_a, *acc_b, *acc_c;
   const float *cut_x, *cut_lo, *cut_hi, *cut_mask, *U_lo, *U_hi;
   const float *sX, *sT, *rho;
+  double* ws;                  // null, or the partials in global memory
+                               // (omc_k3_ws_doubles a slot)
   int B, n, m, k, L;
+  int C;                       // CTAs per cluster, one cluster per slot (1..16)
+  int xsmem;                   // 1: the cut vectors staged in shared memory
+  int slsmem;                  // 1: rank 0 stages the trace, interval and chord slots
   float alpha, beta;
 };
 

@@ -6,205 +6,529 @@
 //   r = w - u - offs  (nine slots; cut slots masked)
 //   (gX, gY, gTh, gU) = K' r
 //   z = D^-1 (rho K' r - c)  per block,   s = V' z,
-//   t = rho G1^-1 s  (two triangular solves with the Cholesky factor of G1),
-//   z -= D^-1 V t,   Y = sym(zY), Ths = sym(zTh).
+//   t = rho G1^-1 s,   z -= D^-1 V t,   Y = sym(zY), Ths = sym(zTh).
 // In the Shor loop (Xs and Ths null) it writes Y and U only: the Shor
 // relaxation shares their z-step, and K8a writes X and Theta.
 //
 // What bounds it on the H100: memory traffic — each slot reads its
 // (n+m)^2 + (n+k)^2 + n^2 residual blocks once and writes n m + n^2 + m^2
 // + n k outputs; the arithmetic is O(L n^2) for the cut contractions plus
-// O(p^2) for the p = 1 + L + L k triangular solves, which are sequential.
-// Design: one CTA per node slot; the block residuals are read straight from
-// w and u (no r tensors in device memory), the z blocks are written to the
-// output tensors and corrected in place, and the triangular solves run in
-// one warp with the right-hand side in shared memory (no block-wide
-// barrier per column; the factor's rows come through L1/L2).
+// O(p^2), p = 1 + L + L k, for t.
+//
+// Design: one thread-block cluster of C CTAs per node slot (C from
+// omc_torch.sdp.admm.k2k3_plan, up to 16, so that small batches still spread
+// over many SMs).  CTA r owns a band of rows of Y and U; X's entries and
+// Theta's 16 x 16 tile pairs are spread over the whole cluster.  Every large
+// loop runs over flat (row, column) items, consecutive threads on
+// consecutive columns, each thread loading a few items before it stores
+// any, so its loads are in flight together.
+// * Phase 1: two global round trips.  The CTA forms its band of Y's
+//   residual r + r' in shared memory: the (i, j) half row by row, then the
+//   (j, i) half from the inputs' column band (a contiguous run of each row),
+//   so every global read is coalesced and nothing of Y is written yet.
+//   G1^-1 and the cut-slot duals are staged beside it.  Operands the kernel
+//   does not write are read through the non-coherent path, so loads may run
+//   ahead of stores.
+// * Each thread then forms its entries of the band's sym(zY) and sums its
+//   partials of s = V'z — the trace, the chord sums x_l' zY x_l in float64 —
+//   and the CTA its x_l' zU_j.  The CTA arrives at a cluster barrier and,
+//   before it waits, writes its share of X and of Theta, which need no
+//   Woodbury correction: a warp loads a tile pair (I, J), (J, I) of Theta,
+//   coalesced, transposes it through its own shared memory and writes
+//   (z + z') / 2 to both.  The partials are added across the cluster in rank
+//   order through distributed shared memory: no atomics, so two launches
+//   give the same bits.
+// * Phase 2.  Every CTA forms t = rho G1^-1 s as one p x p product with the
+//   inverse that make_consts forms once per solve call (G1 = I + V'D^-1 V
+//   >= I, so ||G1^-1|| <= 1) — no dependent substitution steps — then writes
+//   its rows of Y and U once, corrected.
+// Y and Theta are exactly symmetric: both halves of an entry are formed
+// from the same commutative sums and products.  Where a band of sym(zY)
+// outgrows shared memory (n beyond ~900), it lives in the CTA's own rows of
+// Y instead (band = 0), at the cost of passes through L2.  Where even one
+// CTA's partials of s and its p- and L k-sized vectors outgrow it (a deep
+// tree's 2048 cuts at rank 5 and beyond), they live in a global workspace
+// (ws): each rank's partials are fenced before the cluster barrier and read
+// through L2, and t's rows are spread over the cluster, a warp a row of
+// G1^-1 (coalesced), and gathered through the workspace behind one more
+// cluster barrier.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kSqrt2 = 1.41421356237309515f;
+constexpr int kWarps = omc::kThreads / 32;
+constexpr int kChunk = 8;    // chord sums a lane keeps in registers at once
+constexpr int kT = 16;       // Theta's tile edge
+constexpr int kGiMax = 112;  // G1^-1 is staged in shared memory up to p = kGiMax
+constexpr int kU = 4;        // items a thread loads before it stores any
 
-__global__ void __launch_bounds__(omc::kThreads) k2_kernel(K2Params p) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+// Shared memory of one CTA: doubles first (per-warp partials, the CTA's
+// partials of s, their cluster sums), then floats.  Offsets in elements of
+// their type from the start; omc_torch.sdp.admm.k2_smem_bytes mirrors it.
+// With ws, part and tot (doubles) and cl, coef, sv and tv (floats) are
+// counted from the start of the rank's region of wsr doubles in the slot's
+// wss doubles of workspace instead; t's gathered rows (floats) start at wst.
+struct K2Smem {
+  int wpart, part, stage, tot;                     // doubles
+  int xs, cms, cl, yc, coef, sv, tv, ub, gi, tt, buf;  // floats
+  size_t bytes;
+  int wsr, wst, wss;
+};
+
+__host__ __device__ inline K2Smem k2_smem(int n, int m, int k, int L, int C, int band,
+                                          int xsmem, int ws) {
+  K2Smem s;
+  const int P = 1 + L + L * k, bw = omc::cdiv(n, C);
+  int d = 0, g = 0;  // doubles: shared memory, the rank's workspace region
+  s.wpart = d, d += kWarps * (1 + kChunk);  // a warp's trace and chunk of chords
+  if (ws) {
+    s.part = g, g += P;
+    s.stage = -1;
+    s.tot = g, g += P;
+  } else {
+    s.part = d, d += P;
+    // the cluster's partials, gathered, and their sums (one CTA: its own)
+    s.stage = C > 1 ? d : s.part, d += C > 1 ? C * P : 0;
+    s.tot = C > 1 ? d : s.part, d += C > 1 ? P : 0;
+  }
+  int f = 2 * d, h = 2 * g;  // floats
+  int& v = ws ? h : f;       // where the p- and L k-sized vectors go
+  s.xs = f, f += xsmem ? L * n : 0;  // masked cut vectors
+  s.cms = f, f += L;          // the cut mask
+  s.cl = v, v += L * k;       // (lo + hi) cm
+  s.yc = f, f += L;           // chord-slot duals
+  s.coef = v, v += L * k;     // interval-slot dual combination
+  s.sv = v, v += P;           // s = V'z
+  s.tv = v, v += P;           // t = rho G1^-1 s
+  s.ub = f, f += bw * k;      // the band's zU
+  s.gi = f, f += P <= kGiMax ? P * P : 0;        // G1^-1
+  s.tt = f, f += kWarps * 2 * kT * (kT + 1);     // a Theta tile pair a warp
+  s.buf = f, f += band ? bw * omc::odd_ld(n) : 0;  // the band of sym(zY)
+  s.bytes = (size_t)f * sizeof(float);
+  s.wsr = ws ? (h + 1) / 2 : 0;
+  s.wst = C * s.wsr;
+  s.wss = ws ? s.wst + (P + 1) / 2 : 0;
+  return s;
+}
+
+// The masked cut vectors x_l[j]: staged in shared memory (s), or, where
+// they do not fit, read from the input g and masked by cm[l]
+struct CutX {
+  const float* s;
+  omc::RO g;
+  const float* cm;
+  int n;
+  __device__ __forceinline__ float operator()(int l, int j) const {
+    return s ? s[l * n + j] : g[l * n + j] * cm[l];
+  }
+};
+
+// One warp's share of the 16 x 16 tile pairs (I, J), (J, I), J <= I, of an
+// N x N matrix: pairs cw, cw + CW, ...  f(a, c) is entry (a, c)'s value; for
+// every entry out(a, c, v(a, c) + v(c, a)) takes the symmetric sum, the two
+// tiles' entries loaded (coalesced, 16 columns a row) before either is
+// stored, and transposed through the warp's 2 x 16 x 17 floats at t.
+template <class F, class O>
+__device__ __forceinline__ void tile_pairs(int N, int cw, int CW, float* t, F f, O out) {
+  constexpr int R = kT / 2, ld = kT + 1;
+  const int lane = threadIdx.x & 31, nt = omc::cdiv(N, kT), cc = lane & (kT - 1), r0 = lane >> 4;
+  float* ta = t;
+  float* tb = t + kT * ld;
+  for (int pr = cw; pr < nt * (nt + 1) / 2; pr += CW) {
+    int I = 0;
+    while ((I + 1) * (I + 2) / 2 <= pr) ++I;
+    const int J = pr - I * (I + 1) / 2;
+    float va[R], vb[R];
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      const int rr = r0 + 2 * h;
+      if (I * kT + rr < N && J * kT + cc < N) va[h] = f(I * kT + rr, J * kT + cc);
+      if (I != J && J * kT + rr < N && I * kT + cc < N) vb[h] = f(J * kT + rr, I * kT + cc);
+    }
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      const int rr = r0 + 2 * h;
+      if (I * kT + rr < N && J * kT + cc < N) ta[rr * ld + cc] = va[h];
+      if (I != J && J * kT + rr < N && I * kT + cc < N) tb[rr * ld + cc] = vb[h];
+    }
+    __syncwarp();
+    const float* tt = I != J ? tb : ta;  // v at (J-block rows, I-block columns)
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      const int rr = r0 + 2 * h;
+      if (I * kT + rr < N && J * kT + cc < N)
+        out(I * kT + rr, J * kT + cc, ta[rr * ld + cc] + tt[cc * ld + rr]);
+      if (I != J && J * kT + rr < N && I * kT + cc < N)
+        out(J * kT + rr, I * kT + cc, tb[rr * ld + cc] + ta[cc * ld + rr]);
+    }
+    __syncwarp();
+  }
+}
+
+// three CTAs an SM (80 registers, no spill): at 250 x 250 nodes the bands
+// need the occupancy more than the registers.  kWs: the partials in the
+// global workspace (two CTAs an SM: its t rows need the registers)
+template <bool kBand, bool kWs>
+__global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* const dsm = reinterpret_cast<double*>(smem_raw);
+  float* const fsm = reinterpret_cast<float*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = p.C, rank = (int)cluster.block_rank(), b = blockIdx.x / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n, m = p.m, k = p.k, L = p.L;
   const int D1 = n + m, D2 = n + k, P = 1 + L + L * k;
-  float* red = smem;              // 32
-  float* yc = red + 32;           // L
-  float* coef = yc + L;           // L * k
-  float* sv = coef + L * k;       // P
+  const K2Smem S = k2_smem(n, m, k, L, C, kBand, p.xsmem, kWs);
+  // the slot's workspace, and where part, tot, cl, coef, sv and tv live
+  double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
+  double* const rd = kWs ? wsd + (size_t)rank * S.wsr : dsm;
+  float* const rf = reinterpret_cast<float*>(rd);
+  double* wpart = dsm + S.wpart;
+  double* part = rd + S.part;
+  double* tot = rd + S.tot;
+  const float y4 = p.w4[b] - p.u4[b] - (float)k;
+  float* xs = fsm + S.xs;
+  float* cms = fsm + S.cms;
+  float* cl = rf + S.cl;
+  float* yc = fsm + S.yc;
+  float* coef = rf + S.coef;
+  float* sv = rf + S.sv;
+  float* tv = rf + S.tv;
+  float* Ub = fsm + S.ub;
+  // this CTA's rows [i0, i0 + nb) of Y and U
+  const int i0 = omc::band_lo(n, C, rank), nb = omc::band_lo(n, C, rank + 1) - i0;
 
   const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b];
-  const float* w1 = p.w1 + (size_t)b * D1 * D1;
-  const float* u1 = p.u1 + (size_t)b * D1 * D1;
-  const float* w2 = p.w2 + (size_t)b * D2 * D2;
-  const float* u2 = p.u2 + (size_t)b * D2 * D2;
-  const float* w3 = p.w3 + (size_t)b * n * n;
-  const float* u3 = p.u3 + (size_t)b * n * n;
-  const float* wsoc = p.wsoc + (size_t)b * k * (1 + n);
-  const float* usoc = p.usoc + (size_t)b * k * (1 + n);
-  const float* wbox = p.wbox + (size_t)b * n * k;
-  const float* ubox = p.ubox + (size_t)b * n * k;
-  const float* cx = p.cut_x + (size_t)b * L * n;
-  const float* clo = p.cut_lo + (size_t)b * L * k;
-  const float* chi = p.cut_hi + (size_t)b * L * k;
-  const float* cm = p.cut_mask + (size_t)b * L;
-  float* Xs = p.Xs ? p.Xs + (size_t)b * n * m : nullptr;
+  // every operand K2 reads it does not write
+  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const omc::RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  const omc::RO cx{p.cut_x + (size_t)b * L * n}, clo{p.cut_lo + (size_t)b * L * k};
+  const omc::RO chi{p.cut_hi + (size_t)b * L * k}, cm{p.cut_mask + (size_t)b * L};
+  const omc::RO maskA{p.maskA}, mask{p.mask};
+  const float* G1i = p.G1i + (size_t)b * P * P;
+  const float* Gi = P <= kGiMax ? fsm + S.gi : G1i;
   float* Y = p.Y + (size_t)b * n * n;
-  float* Ths = p.Ths ? p.Ths + (size_t)b * m * m : nullptr;
   float* U = p.U + (size_t)b * n * k;
+  float* Yb = kBand ? fsm + S.buf : Y + (size_t)i0 * n;
+  const int ldY = kBand ? omc::odd_ld(n) : n;
 
-  // cut-slot duals: yc_l = (wc - uc - bconst_l) cm_l,
-  // coef_lj = ya - yb + yc_l c_lj with ya = (wa - ua + lo) cm, yb = (wb - ub - hi) cm
-  for (int l = tid; l < L; l += blockDim.x) {
-    float bc = 0.f;
-    for (int j = 0; j < k; ++j) bc += -clo[l * k + j] * chi[l * k + j];
-    yc[l] = (p.wc[b * L + l] - p.uc[b * L + l] - bc) * cm[l];
-  }
-  __syncthreads();
+  // ======== phase 1: the loads the sums of s need
+  // the cuts: masked vectors; per interval slot (l, j) the chord-slot dual
+  // yc_l = (wc - uc - bconst_l) cm_l and coef_lj = ya - yb + yc_l (lo + hi),
+  // ya = (wa - ua + lo) cm, yb = (wb - ub - hi) cm
+  for (int l = tid; l < L; l += blockDim.x) cms[l] = cm[l];
+  if (p.xsmem)
+    for (int l = warp; l < L; l += kWarps) {
+      const float c = cm[l];
+      for (int j = lane; j < n; j += 32) xs[l * n + j] = cx[l * n + j] * c;
+    }
+  const CutX X{p.xsmem ? xs : nullptr, cx, cms, n};
   for (int e = tid; e < L * k; e += blockDim.x) {
     const int l = e / k;
+    float bc = 0.f;
+    for (int j = 0; j < k; ++j) bc += -clo[l * k + j] * chi[l * k + j];
+    const float ycl = (__ldg(p.wc + b * L + l) - __ldg(p.uc + b * L + l) - bc) * cm[l];
+    if (e == l * k) yc[l] = ycl;
     const size_t q = (size_t)b * L * k + e;
     const float lo = clo[e], hi = chi[e];
-    const float ya = (p.wa[q] - p.ua[q] - (-lo)) * cm[l];
-    const float yb = (p.wb[q] - p.ub[q] - hi) * cm[l];
-    coef[e] = ya - yb + yc[l] * (lo + hi);
+    const float ya = (__ldg(p.wa + q) - __ldg(p.ua + q) - (-lo)) * cm[l];
+    const float yb = (__ldg(p.wb + q) - __ldg(p.ub + q) - hi) * cm[l];
+    coef[e] = ya - yb + ycl * (lo + hi);
+    cl[e] = (lo + hi) * cm[l];
   }
-  const float y4 = p.w4[b] - p.u4[b] - (float)k;
+  if (P <= kGiMax)
+    for (int q = tid; q < P * P; q += blockDim.x) fsm[S.gi + q] = __ldg(G1i + q);
+  // the band's residual part of gU = 2 (w2 - u2) + (wsoc - usoc) + (wbox - ubox)
+  for (int e = tid; e < nb * k; e += blockDim.x) {
+    const int ii = e / k, j = e - ii * k, i = i0 + ii;
+    const int q2 = i * D2 + n + j, qs = j * (1 + n) + 1 + i;
+    const size_t ws = (size_t)b * k * (1 + n) + qs, wb = (size_t)b * n * k + i * k + j;
+    Ub[e] = 2.0f * (w2[q2] - u2[q2]) + (__ldg(p.wsoc + ws) - __ldg(p.usoc + ws)) +
+            (__ldg(p.wbox + wb) - __ldg(p.ubox + wb));
+  }
+  // the band's residual r = (w1 - u1) + (w2 - u2) - (w3 - u3): r(i, j) row
+  // by row, then (second round trip) r(j, i) from the inputs' column band,
+  // read as runs of nb, added (r + r', the same bits at (j, i) in its band)
+  const auto resid = [&](int i, int j) {
+    const int q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
+    return (w1[q1] - u1[q1]) + (w2[q2] - u2[q2]) - (w3[q3] - u3[q3]);
+  };
+  omc::grid_items<kU>(
+      nb, n, tid, blockDim.x, [&](int ii, int j) { return resid(i0 + ii, j); },
+      [&](int ii, int j, float v) { Yb[ii * ldY + j] = v; });
+  __syncthreads();
+  omc::grid_items<kU>(
+      n, nb, tid, blockDim.x, [&](int j, int ii) { return resid(j, i0 + ii); },
+      [&](int j, int ii, float v) { Yb[ii * ldY + j] += v; });
   __syncthreads();
 
-  // X block: zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho sX^2)
-  for (int e = tid; Xs && e < n * m; e += blockDim.x) {
-    const int i = e / m, j = e % m;
-    const int q = i * D1 + n + j;
-    const float gX = sX * 2.0f * (w1[q] - u1[q]);
-    const float rX = rho * gX + sX * p.maskA[e];
-    const float dX = p.mask[e] * (sX * sX) + rho * 2.0f * sX * sX;
-    Xs[e] = rX / dX;
-  }
-  // Theta block (no Woodbury correction): symmetrised directly
-  const float cth = sT * 0.5f / p.gamma;
-  for (int e = tid; Ths && e < m * m; e += blockDim.x) {
-    const int i = e / m, j = e % m;
-    const int q1 = (n + i) * D1 + n + j, q2 = (n + j) * D1 + n + i;
-    const float dg = (i == j) ? cth : 0.f;
-    const float za = (rho * (sT * (w1[q1] - u1[q1])) - dg) / (rho * sT * sT);
-    const float zb = (rho * (sT * (w1[q2] - u1[q2])) - dg) / (rho * sT * sT);
-    Ths[e] = 0.5f * (za + zb);
-  }
-  // U block before correction: zU = rho gU / (4 rho)
-  for (int e = tid; e < n * k; e += blockDim.x) {
-    const int i = e / k, j = e % k;
-    const int q2 = i * D2 + n + j;
-    const int qs = j * (1 + n) + 1 + i;
-    float gU = 2.0f * (w2[q2] - u2[q2]) + (wsoc[qs] - usoc[qs]) + (wbox[e] - ubox[e]);
-    float ct = 0.f;
-    for (int l = 0; l < L; ++l) ct += cx[l * n + i] * coef[l * k + j];
-    gU += ct;
-    U[e] = (rho * gU) / (4.0f * rho);
-  }
-  // Y block before correction: zY = rho gY / (3 rho)
-  for (int e = tid; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    const int q1 = i * D1 + j, q2 = i * D2 + j;
-    float gY = (w1[q1] - u1[q1]) + (w2[q2] - u2[q2]) -
-               (w3[e] - u3[e] - (i == j ? 1.0f : 0.f));
-    if (i == j) gY -= y4;
-    float cc = 0.f;
-    for (int l = 0; l < L; ++l) cc += yc[l] * cx[l * n + i] * cx[l * n + j];
-    gY -= cc;
-    Y[e] = (rho * gY) / (3.0f * rho);
-  }
-  __syncthreads();
-
-  // s = V' z: trace, chord rows, interval directions (masked cuts)
-  float tr = 0.f;
-  for (int i = tid; i < n; i += blockDim.x) tr += Y[i * n + i];
-  tr = omc::block_sum(tr, red);
-  if (tid == 0) sv[0] = tr;
-  for (int l = warp; l < L; l += nwarps) {
-    const float cml = cm[l];
-    float xr = 0.f;
-    for (int e = lane; e < n * n; e += 32) {
-      const int i = e / n, j = e % n;
-      xr += (cx[l * n + i] * cml) * Y[e] * (cx[l * n + j] * cml);
+  // zY = rho gY / (3 rho), gY = r - y4 I + I - sum_l yc_l x_l x_l' (the
+  // product x_l[i] x_l[j] first, so the (i, j) and (j, i) entries are the
+  // same bits), the band's entries spread over the CTA's threads; each
+  // thread sums zY(i, j) x_l[i] x_l[j] over its entries in float64, then one
+  // warp sum per chunk of cuts
+  double tr = 0.0;
+  const float inv_n = 1.0f / (float)n;
+  for (int l0 = 0; l0 == 0 || l0 < L; l0 += kChunk) {
+    double acc[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) acc[c] = 0.0;
+    for (int e = tid; e < nb * n; e += blockDim.x) {
+      int ii, j;
+      omc::divmod(e, n, inv_n, ii, j);
+      const int i = i0 + ii;
+      float z;
+      if (l0 == 0) {
+        float cc = 0.f;
+        for (int l = 0; l < L; ++l) cc += yc[l] * (X(l, i) * X(l, j));
+        float g = 0.5f * Yb[ii * ldY + j] - cc;
+        if (j == i) g += 1.0f - y4;
+        z = (rho * g) / (3.0f * rho);
+        Yb[ii * ldY + j] = z;
+        if (j == i) tr += z;
+      } else {
+        z = Yb[ii * ldY + j];
+      }
+      const double zd = z;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c)
+        if (l0 + c < L)
+          acc[c] = fma(zd * (double)X(l0 + c, i), (double)X(l0 + c, j), acc[c]);
     }
-    xr = omc::warp_sum(xr);
-    float chord = -xr;
-    for (int j = 0; j < k; ++j) {
-      float v = 0.f;
-      for (int i = lane; i < n; i += 32) v += (cx[l * n + i] * cml) * U[i * k + j];
-      v = omc::warp_sum(v);
-      chord += (clo[l * k + j] + chi[l * k + j]) * cml * v;
-      if (lane == 0) sv[1 + L + l * k + j] = kSqrt2 * v;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (l0 + c >= L) break;
+      const double s = omc::warp_sum_d(acc[c]);
+      if (lane == 0) wpart[warp * (1 + kChunk) + 1 + c] = s;
     }
-    if (lane == 0) sv[1 + l] = chord;
+    __syncthreads();  // this chunk's chord partials, in warp order
+    for (int c = tid; c < kChunk && l0 + c < L; c += blockDim.x) {
+      double s = 0.0;
+      for (int w = 0; w < kWarps; ++w) s += wpart[w * (1 + kChunk) + 1 + c];
+      part[1 + l0 + c] = s;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-
-  // t = rho G1^-1 s: forward then backward substitution in warp 0
-  if (warp == 0) {
-    const float* Lf = p.G1c + (size_t)b * P * P;
-    for (int jj = 0; jj < P; ++jj) {
-      const float yj = sv[jj] / Lf[jj * P + jj];
-      __syncwarp();
-      if (lane == 0) sv[jj] = yj;
-      for (int i = jj + 1 + lane; i < P; i += 32) sv[i] -= Lf[i * P + jj] * yj;
-      __syncwarp();
-    }
-    for (int jj = P - 1; jj >= 0; --jj) {
-      const float tj = sv[jj] / Lf[jj * P + jj];
-      __syncwarp();
-      if (lane == 0) sv[jj] = tj;
-      for (int i = lane; i < jj; i += 32) sv[i] -= Lf[jj * P + i] * tj;
-      __syncwarp();
-    }
-    for (int i = lane; i < P; i += 32) sv[i] *= rho;
+  tr = omc::warp_sum_d(tr);
+  if (lane == 0) wpart[warp * (1 + kChunk)] = tr;
+  // the band's zU = rho gU / (4 rho), gU = r + sum_l x_l coef_l
+  for (int e = tid; e < nb * k; e += blockDim.x) {
+    const int ii = e / k, j = e - ii * k, i = i0 + ii;
+    double ct = 0.0;  // U's few entries sum over every cut: float64
+    for (int l = 0; l < L; ++l) ct = fma((double)X(l, i), (double)coef[l * k + j], ct);
+    Ub[e] = (rho * (Ub[e] + (float)ct)) / (4.0f * rho);
   }
   __syncthreads();
 
-  // z -= D^-1 V t, then Y = sym(zY)
-  const float t0 = sv[0];
-  for (int e = tid; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    if (i > j) continue;
+  // ---- this CTA's partials of s: trace and chords in warp order, x_l' zU_j
+  if (tid == 0) {
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) s += wpart[w * (1 + kChunk)];
+    part[0] = s;
+  }
+  for (int e = tid; e < L * k; e += blockDim.x) {
+    const int l = e / k, j = e - l * k;
+    double v = 0.0;
+    for (int ii = 0; ii < nb; ++ii) v = fma((double)X(l, i0 + ii), (double)Ub[ii * k + j], v);
+    part[1 + L + e] = v;
+  }
+  if (kWs) __threadfence();  // the partials reach L2 before the barrier
+  omc::cluster_arrive();
+  // ---- while the other CTAs reach the barrier: X over the cluster's
+  // threads, zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho sX^2)
+  // (X from rank 0 up, Theta's pairs from the last rank down: at small
+  // batches no CTA holds both)
+  const int cw = (C - 1 - rank) * kWarps + warp, CW = C * kWarps;
+  if (p.Xs) {
+    float* Xs = p.Xs + (size_t)b * n * m;
+    omc::grid_items<kU>(
+        n, m, rank * blockDim.x + tid, C * blockDim.x,
+        [&](int i, int j) {
+          const int q = i * D1 + n + j, e = i * m + j;
+          const float gX = sX * 2.0f * (w1[q] - u1[q]);
+          const float rX = rho * gX + sX * maskA[e];
+          const float dX = mask[e] * (sX * sX) + rho * 2.0f * sX * sX;
+          return rX / dX;
+        },
+        [&](int i, int j, float v) { Xs[i * m + j] = v; });
+  }
+  // Theta (no Woodbury correction) over the cluster's warps, a tile pair at
+  // a time: Ths = (z + z') / 2
+  float* ta = fsm + S.tt + warp * 2 * kT * (kT + 1);
+  if (p.Ths) {
+    float* Ths = p.Ths + (size_t)b * m * m;
+    const float cth = sT * 0.5f / p.gamma, den = rho * sT * sT;
+    tile_pairs(
+        m, cw, CW, ta,
+        [&](int a, int j) {
+          const int q = (n + a) * D1 + n + j;
+          return (rho * (sT * (w1[q] - u1[q])) - (a == j ? cth : 0.f)) / den;
+        },
+        [&](int a, int j, float s) { Ths[(size_t)a * m + j] = 0.5f * s; });
+  }
+  omc::cluster_wait();
+  // the partials' sums over the cluster, in rank order
+  if (kWs) {
+    omc::cluster_sum_global(wsd + S.part, S.wsr, tot, P, C);
+  } else {
+    omc::cluster_sum(cluster, part, dsm + S.stage, tot, P, C);
+    omc::cluster_arrive();  // this CTA reads no other CTA's memory from here
+  }
+  // s = V'z: [trace | -x_l'zY x_l + sum_j c_lj x_l'zU_j | sqrt2 x_l'zU_j]
+  for (int q = tid; q < P; q += blockDim.x) {
+    float s;
+    if (q == 0) {
+      s = (float)tot[0];
+    } else if (q <= L) {
+      double ch = -tot[q];
+      for (int j = 0; j < k; ++j) ch += (double)cl[(q - 1) * k + j] * tot[1 + L + (q - 1) * k + j];
+      s = (float)ch;
+    } else {
+      s = kSqrt2 * (float)tot[q];
+    }
+    sv[q] = s;
+  }
+  __syncthreads();
+
+  // ======== phase 2: t = rho G1^-1 s
+  if (kWs) {
+    // the rows of t spread over the cluster, a warp a row of G1^-1 read
+    // coalesced, four independent sums a lane, then gathered from the
+    // workspace behind a cluster barrier (L2 reads)
+    float* tg = reinterpret_cast<float*>(wsd + S.wst);
+    const int q1 = omc::band_lo(P, C, rank + 1);
+    for (int q = omc::band_lo(P, C, rank) + warp; q < q1; q += kWarps) {
+      const float* g = p.G1i + (size_t)b * P * P + (size_t)q * P;
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      int r = lane;
+      for (; r + 96 < P; r += 128)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          s[h] = fma((double)__ldg(g + r + 32 * h), (double)sv[r + 32 * h], s[h]);
+      for (; r < P; r += 32) s[0] = fma((double)__ldg(g + r), (double)sv[r], s[0]);
+      const double t = omc::warp_sum_d((s[0] + s[1]) + (s[2] + s[3]));
+      if (lane == 0) tg[q] = rho * (float)t;
+    }
+    __threadfence();
+    omc::cluster_arrive();
+    omc::cluster_wait();
+    for (int q = tid; q < P; q += blockDim.x) tv[q] = __ldcg(tg + q);
+    __syncthreads();
+    omc::cluster_arrive();  // pairs with the wait at the end
+  } else {
+    // a thread per entry (p is odd: the rows' reads fall in distinct banks),
+    // four independent sums a thread
+    for (int q = tid; q < P; q += blockDim.x) {
+      const float* g = Gi + q * P;
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+      int r = 0;
+      for (; r + 4 <= P; r += 4)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) s[h] = fma((double)g[r + h], (double)sv[r + h], s[h]);
+      for (; r < P; ++r) s[0] = fma((double)g[r], (double)sv[r], s[0]);
+      tv[q] = rho * (float)((s[0] + s[1]) + (s[2] + s[3]));
+    }
+    __syncthreads();
+  }
+
+  // z -= D^-1 V t: Y (3 rho) and U (4 rho), each entry written once
+  const float t0 = tv[0];
+  for (int e = tid; e < nb * n; e += blockDim.x) {
+    int ii, j;
+    omc::divmod(e, n, inv_n, ii, j);
+    const int i = i0 + ii;
     float vy = 0.f;
-    for (int l = 0; l < L; ++l)
-      vy += sv[1 + l] * (cx[l * n + i] * cm[l]) * (cx[l * n + j] * cm[l]);
+    for (int l = 0; l < L; ++l) vy += tv[1 + l] * (X(l, i) * X(l, j));
     vy = (i == j ? t0 : 0.f) - vy;
-    const float a = Y[i * n + j] - vy / (3.0f * rho);
-    const float c = Y[j * n + i] - vy / (3.0f * rho);
-    const float ys = 0.5f * (a + c);
-    Y[i * n + j] = ys;
-    Y[j * n + i] = ys;
+    Y[(size_t)i * n + j] = Yb[ii * ldY + j] - vy / (3.0f * rho);
   }
-  for (int e = tid; e < n * k; e += blockDim.x) {
-    const int i = e / k, j = e % k;
-    float a = 0.f, d = 0.f;
+  for (int e = tid; e < nb * k; e += blockDim.x) {
+    const int ii = e / k, j = e - ii * k, i = i0 + ii;
+    double a = 0.0, d = 0.0;
     for (int l = 0; l < L; ++l) {
-      const float xli = cx[l * n + i] * cm[l];
-      a += sv[1 + l] * xli * ((clo[l * k + j] + chi[l * k + j]) * cm[l]);
-      d += xli * sv[1 + L + l * k + j];
+      const double xli = X(l, i);
+      a = fma((double)tv[1 + l] * xli, (double)cl[l * k + j], a);
+      d = fma(xli, (double)tv[1 + L + l * k + j], d);
     }
-    const float vu = a + kSqrt2 * d;
-    U[e] = U[e] - vu / (4.0f * rho);
+    const float vu = (float)a + kSqrt2 * (float)d;
+    U[i * k + j] = Ub[e] - vu / (4.0f * rho);
   }
+  omc::cluster_wait();  // no CTA leaves while another may read its partials
+}
+
+// a failed runtime call also sets the thread's last error: clear it, so a
+// later launch's cudaGetLastError() does not report it again
+int fail(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
+}
+
+template <bool kBand, bool kWs>
+int launch(const K2Params& p, cudaStream_t stream) {
+  static int smem_attr = -1;
+  static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
+  const int smem = (int)k2_smem(p.n, p.m, p.k, p.L, p.C, kBand, p.xsmem, kWs).bytes;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.C * p.B, 1, 1);
+  cfg.blockDim = dim3(omc::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
+    err = cudaFuncSetAttribute(k2_kernel<kBand, kWs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return fail(err);
+    smem_attr = 0;
+  }
+  if (smem > smem_attr) {
+    err = cudaFuncSetAttribute(k2_kernel<kBand, kWs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return fail(err);
+    smem_attr = smem;
+  }
+  if (smem > schedulable[p.C]) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k2_kernel<kBand, kWs>, &cfg);
+    if (err != cudaSuccess) return fail(err);
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    schedulable[p.C] = smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, k2_kernel<kBand, kWs>, p);
+  if (err != cudaSuccess) return fail(err);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the shared memory omc_torch.sdp.admm.k2k3_plan plans with (chip_smoke.py
+// holds the plan against it at every K2 row)
+OMC_EXPORT long long omc_k2_smem_bytes(int n, int m, int k, int L, int C, int band, int xsmem,
+                                       int ws) {
+  return (long long)k2_smem(n, m, k, L, C, band, xsmem, ws).bytes;
+}
+
+// the doubles of global workspace a slot takes where the partials of s live
+// there (K2Params.ws)
+OMC_EXPORT long long omc_k2_ws_doubles(int n, int m, int k, int L, int C) {
+  return (long long)k2_smem(n, m, k, L, C, 0, 0, 1).wss;
+}
+
 OMC_EXPORT int omc_k2_zstep(const K2Params* params, void* stream) {
-  K2Params p = *params;
-  const int P = 1 + p.L + p.L * p.k;
-  const size_t smem = (size_t)(32 + p.L + p.L * p.k + P) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        k2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  k2_kernel<<<p.B, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const K2Params& p = *params;
+  if (p.C < 1 || p.C > 16 || p.B < 1 || p.n < 1 || p.m < 1 || p.k < 1 || p.L < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.ws) return p.band ? launch<true, true>(p, st) : launch<false, true>(p, st);
+  return p.band ? launch<true, false>(p, st) : launch<false, false>(p, st);
 }

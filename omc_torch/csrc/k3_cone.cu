@@ -15,192 +15,483 @@
 // What bounds it on the H100: bytes.  Per slot it reads Xs, Y, Ths, U and
 // the w/u blocks of the three PSD slots and writes t1, t2, t3 — about
 // 3 (n+m)^2 floats — with a few flops per element; the reductions (tr Y,
-// ||U_j||, x_l' U, x_l' Y x_l) are O(L n^2).  Design: one CTA per node slot
-// makes every per-slot reduction a block reduction (no atomics, no second
-// pass); the reductions run first and are kept in shared memory, then one
-// elementwise pass writes each output exactly once, so the in-place slot
-// updates never race with the reads they depend on.
+// ||U_j||, x_l' U, x_l' Y x_l) are O(L n^2).
+//
+// Design: one thread-block cluster of C CTAs per node slot (C from
+// omc_torch.sdp.admm.k2k3_plan, as K2's).  CTA r owns a band of the rows of
+// Y and of Theta; X's 16 x 16 tiles go to every warp of the cluster in turn.
+// * First the band's Y entries, spread over the CTA's threads (consecutive
+//   threads on consecutive columns, a few entries loaded before any is
+//   stored), each read once for the entry's t1, t2 and t3; each thread sums
+//   tr Y and Y(i, j) x_l[i] x_l[j] over its entries in float64 (in float32
+//   the chord slots of 250 x 250 nodes sat ~1e-6 from the float64 sum,
+//   relative), the cut vectors staged in float64 (no conversion an entry).  The CTA keeps its SOC entries' t and sums its partials of
+//   ||tsoc_j[1:]||^2 and x_l' U_j; rank 0 stages the trace, interval and
+//   chord slots.  Operands the kernel does not write are read through the
+//   non-coherent path, so loads may run ahead of stores.
+// * The CTA then arrives at a cluster barrier and, before it waits, does the
+//   work no sum needs: a warp per X tile reads it once and writes it to t1's
+//   upper right and, through shared memory, transposed to t1's lower left
+//   (coalesced both ways); the Theta band gives t1's lower right; the box
+//   slot of the band's rows.  The partials are then added across the cluster
+//   in rank order through distributed shared memory (no atomics: two
+//   launches give the same bits), each CTA projects its SOC entries, and
+//   rank 0 updates the trace, the SOC heads, the cut interval and chord
+//   slots and their EMAs, in the order of operations of
+//   omc_torch.sdp.admm.cone_step_plain, from shared memory.  Every slot
+//   entry is read by the CTA that writes it, or before the barrier.
+// Where even one CTA's partials outgrow shared memory (a deep tree's 2048
+// cuts at n = 1000, rank 10), they live in a global workspace (ws): each
+// rank's are fenced before the cluster barrier and read through L2.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void __launch_bounds__(omc::kThreads) k3_kernel(K3Params p) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+constexpr int kWarps = omc::kThreads / 32;
+constexpr int kChunk = 8;  // chord sums a lane keeps in registers at once
+constexpr int kT = 16;     // X's tile edge
+constexpr int kU = 4;      // items a thread loads before it stores any
+
+// Shared memory of one CTA: doubles first (per-warp partials, the CTA's
+// partials, their cluster sums: tr Y, x_l'Y x_l, ||tsoc_j[1:]||^2, x_l'U_j),
+// then floats.  omc_torch.sdp.admm.k3_smem_bytes mirrors it.  With ws, part
+// and tot are counted from the start of the rank's region of wsr doubles in
+// the slot's wss doubles of workspace instead.
+struct K3Smem {
+  int wpart, part, stage, tot, xd;  // doubles
+  int us, ts0, tsb, tt, sl;         // floats
+  size_t bytes;
+  int wsr, wss;
+};
+
+__host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int xsmem,
+                                          int slsmem, int ws) {
+  K3Smem s;
+  const int NP = 1 + L + k + L * k;
+  int d = 0;
+  s.wpart = d, d += kWarps * (1 + kChunk);  // a warp's trace and chunk of chords
+  if (ws) {
+    s.part = 0, s.stage = -1, s.tot = NP;
+  } else {
+    s.part = d, d += NP;
+    // the cluster's partials, gathered, and their sums (one CTA: its own)
+    s.stage = C > 1 ? d : s.part, d += C > 1 ? C * NP : 0;
+    s.tot = C > 1 ? d : s.part, d += C > 1 ? NP : 0;
+  }
+  s.wsr = ws ? 2 * NP : 0;
+  s.wss = C * s.wsr;
+  s.xd = d, d += xsmem ? L * n : 0;  // the cut vectors, in float64 for x'Yx and x'U
+  int f = 2 * d;
+  s.us = f, f += n * k;                   // U
+  s.ts0 = f, f += k;                      // tsoc_j[0]
+  s.tsb = f, f += k * omc::cdiv(n, C);    // the band's tsoc_j[1 + i]
+  s.tt = f, f += kWarps * kT * (kT + 1);  // an X tile a warp
+  // rank 0's staged slots (where they fit): wa, ua, wb, ub, acc_a, acc_b,
+  // lo, hi (L k each); wc, uc, acc_c, cm (L each); w4, u4
+  s.sl = f, f += slsmem ? 8 * L * k + 4 * L + 2 : 0;
+  s.bytes = (size_t)f * sizeof(float);
+  return s;
+}
+
+// kWs: the partials in the global workspace
+template <bool kWs>
+__global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* const dsm = reinterpret_cast<double*>(smem_raw);
+  float* const fsm = reinterpret_cast<float*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = p.C, rank = (int)cluster.block_rank(), b = blockIdx.x / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n, m = p.m, k = p.k, L = p.L;
-  const int D1 = n + m, D2 = n + k;
+  const int D1 = n + m, D2 = n + k, NP = 1 + L + k + L * k, Lk = L * k;
   const float alpha = p.alpha, om = 1.0f - p.alpha;
-  float* red = smem;          // 32
-  float* v = red + 32;        // L * k   x_l' U
-  float* xyx = v + L * k;     // L       x_l' Y x_l
-  float* nx = xyx + L;        // k       ||tsoc_j[1:]||
-  float* ts0 = nx + k;        // k       tsoc_j[0]
+  const K3Smem S = k3_smem(n, m, k, L, C, p.xsmem, p.slsmem, kWs);
+  // the slot's workspace, and where part and tot live
+  double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
+  double* const rd = kWs ? wsd + (size_t)rank * S.wsr : dsm;
+  double* wpart = dsm + S.wpart;
+  double* part = rd + S.part;
+  double* tot = rd + S.tot;
+  double* xd = dsm + S.xd;
+  float* us = fsm + S.us;
+  float* ts0 = fsm + S.ts0;
+  float* tsb = fsm + S.tsb;
+  float* sl = fsm + S.sl;
+  // this CTA's rows of Y [i0, i0 + nb) and of Theta [a0, a0 + nbT)
+  const int i0 = omc::band_lo(n, C, rank), nb = omc::band_lo(n, C, rank + 1) - i0;
+  const int a0 = omc::band_lo(m, C, rank), nbT = omc::band_lo(m, C, rank + 1) - a0;
 
   const float sX = p.sX[b], sT = p.sT[b], rho = p.rho[b];
-  const float* Xs = p.Xs + (size_t)b * n * m;
-  const float* Y = p.Y + (size_t)b * n * n;
-  const float* Ths = p.Ths + (size_t)b * m * m;
-  const float* U = p.U + (size_t)b * n * k;
-  const float* cx = p.cut_x + (size_t)b * L * n;
-  const float* clo = p.cut_lo + (size_t)b * L * k;
-  const float* chi = p.cut_hi + (size_t)b * L * k;
-  const float* cm = p.cut_mask + (size_t)b * L;
+  // the operands K3 reads and does not write
+  const omc::RO Xs{p.Xs + (size_t)b * n * m}, Y{p.Y + (size_t)b * n * n};
+  const omc::RO Ths{p.Ths + (size_t)b * m * m}, U{p.U + (size_t)b * n * k};
+  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const omc::RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  const omc::RO cx{p.cut_x + (size_t)b * L * n}, Ulo{p.U_lo}, Uhi{p.U_hi};
+  float* t1 = p.t1 + (size_t)b * D1 * D1;
+  float* t2 = p.t2 + (size_t)b * D2 * D2;
+  float* t3 = p.t3 + (size_t)b * n * n;
   float* wsoc = p.wsoc + (size_t)b * k * (1 + n);
   float* usoc = p.usoc + (size_t)b * k * (1 + n);
 
-  // ---- reductions (read phase) ----
-  float tr = 0.f;
-  for (int i = tid; i < n; i += blockDim.x) tr += Y[i * n + i];
-  tr = omc::block_sum(tr, red);
-  for (int q = warp; q < L * k; q += nwarps) {
-    const int l = q / k, j = q % k;
-    float s = 0.f;
-    for (int i = lane; i < n; i += 32) s += cx[l * n + i] * U[i * k + j];
-    s = omc::warp_sum(s);
-    if (lane == 0) v[q] = s;
+  if (p.xsmem)
+    for (int l = warp; l < L; l += kWarps)
+      for (int j = lane; j < n; j += 32) xd[l * n + j] = (double)cx[l * n + j];
+  // the cut vectors: staged, or where they do not fit read from the input
+  const auto X = [&](int l, int j) { return p.xsmem ? xd[l * n + j] : (double)cx[l * n + j]; };
+  for (int e = tid; e < n * k; e += blockDim.x) us[e] = U[e];
+  for (int j = tid; j < k; j += blockDim.x) {
+    const int q = j * (1 + n);
+    ts0[j] = alpha * 1.0f + om * wsoc[q] + usoc[q];
   }
-  // x_l' Y x_l: n^2 terms that largely cancel, summed in float64 (in
-  // float32 the chord slots of 250 x 250 nodes sat ~1e-6 from the float64
-  // sum, relative)
-  for (int l = warp; l < L; l += nwarps) {
-    double s = 0.0;
-    for (int e = lane; e < n * n; e += 32) {
-      const int i = e / n, j = e % n;
-      s = fma((double)cx[l * n + i] * Y[e], (double)cx[l * n + j], s);
+  if (rank == 0 && p.slsmem) {  // the slots rank 0 updates after the cluster sums
+    const size_t qk = (size_t)b * Lk, ql = (size_t)b * L;
+    for (int e = tid; e < Lk; e += blockDim.x) {
+      sl[e] = p.wa[qk + e], sl[Lk + e] = p.ua[qk + e];
+      sl[2 * Lk + e] = p.wb[qk + e], sl[3 * Lk + e] = p.ub[qk + e];
+      sl[4 * Lk + e] = p.acc_a[qk + e], sl[5 * Lk + e] = p.acc_b[qk + e];
+      sl[6 * Lk + e] = p.cut_lo[qk + e], sl[7 * Lk + e] = p.cut_hi[qk + e];
     }
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) xyx[l] = (float)s;
-  }
-  for (int j = warp; j < k; j += nwarps) {
-    float s = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const int q = j * (1 + n) + 1 + i;
-      const float t = alpha * U[i * k + j] + om * wsoc[q] + usoc[q];
-      s += t * t;
+    for (int l = tid; l < L; l += blockDim.x) {
+      sl[8 * Lk + l] = p.wc[ql + l], sl[8 * Lk + L + l] = p.uc[ql + l];
+      sl[8 * Lk + 2 * L + l] = p.acc_c[ql + l], sl[8 * Lk + 3 * L + l] = p.cut_mask[ql + l];
     }
-    s = omc::warp_sum(s);
-    if (lane == 0) {
-      const int q = j * (1 + n);
-      nx[j] = sqrtf(s);
-      ts0[j] = alpha * 1.0f + om * wsoc[q] + usoc[q];
-    }
+    if (tid == 0) sl[8 * Lk + 4 * L] = p.w4[b], sl[8 * Lk + 4 * L + 1] = p.u4[b];
   }
   __syncthreads();
 
-  // ---- PSD slots: t = alpha f + (1 - alpha) w + u ----
-  {
-    const float* w1 = p.w1 + (size_t)b * D1 * D1;
-    const float* u1 = p.u1 + (size_t)b * D1 * D1;
-    float* t1 = p.t1 + (size_t)b * D1 * D1;
-    for (int e = tid; e < D1 * D1; e += blockDim.x) {
-      const int i = e / D1, j = e % D1;
-      float f;
-      if (i < n && j < n) f = Y[i * n + j];
-      else if (i < n) f = sX * Xs[i * m + (j - n)];
-      else if (j < n) f = sX * Xs[j * m + (i - n)];
-      else f = sT * Ths[(i - n) * m + (j - n)];
-      t1[e] = (alpha * f + om * w1[e]) + u1[e];
+  // ---- PSD slots, t = alpha f + (1 - alpha) w + u.  The band's rows of
+  // t1, t2 and t3 from its Y rows, the entries spread over the CTA's
+  // threads, with tr Y and, per thread over its entries, Y(i, j) x_l[i]
+  // x_l[j]; one warp sum per chunk of cuts
+  const float inv_n = 1.0f / (float)n;
+  const int nbn = nb * n;
+  double tr = 0.0;
+  for (int l0 = 0; l0 == 0 || l0 < L; l0 += kChunk) {
+    double acc[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) acc[c] = 0.0;
+    for (int e0 = tid; e0 < nbn; e0 += kU * blockDim.x) {
+      float y[kU], a1[kU], b1[kU], a2[kU], b2[kU], a3[kU], b3[kU];
+      int iv[kU], jv[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e < nbn) {
+          int ii, j;
+          omc::divmod(e, n, inv_n, ii, j);
+          const int i = i0 + ii, q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
+          iv[u] = i, jv[u] = j;
+          y[u] = Y[q3];
+          if (l0 == 0) {
+            a1[u] = w1[q1], b1[u] = u1[q1], a2[u] = w2[q2], b2[u] = u2[q2];
+            a3[u] = w3[q3], b3[u] = u3[q3];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (e0 + u * blockDim.x >= nbn) break;
+        const int i = iv[u], j = jv[u];
+        if (l0 == 0) {
+          const int q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
+          t1[q1] = (alpha * y[u] + om * a1[u]) + b1[u];
+          t2[q2] = (alpha * y[u] + om * a2[u]) + b2[u];
+          t3[q3] = (alpha * ((i == j ? 1.0f : 0.f) - y[u]) + om * a3[u]) + b3[u];
+          if (j == i) tr += y[u];
+        }
+        const double yd = y[u];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c)
+          if (l0 + c < L)
+            acc[c] = fma(yd * X(l0 + c, i), X(l0 + c, j), acc[c]);
+      }
     }
-    const float* w2 = p.w2 + (size_t)b * D2 * D2;
-    const float* u2 = p.u2 + (size_t)b * D2 * D2;
-    float* t2 = p.t2 + (size_t)b * D2 * D2;
-    for (int e = tid; e < D2 * D2; e += blockDim.x) {
-      const int i = e / D2, j = e % D2;
-      float f;
-      if (i < n && j < n) f = Y[i * n + j];
-      else if (i < n) f = U[i * k + (j - n)];
-      else if (j < n) f = U[j * k + (i - n)];
-      else f = (i == j) ? 1.0f : 0.f;
-      t2[e] = (alpha * f + om * w2[e]) + u2[e];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (l0 + c >= L) break;
+      const double s = omc::warp_sum_d(acc[c]);
+      if (lane == 0) wpart[warp * (1 + kChunk) + 1 + c] = s;
     }
-    const float* w3 = p.w3 + (size_t)b * n * n;
-    const float* u3 = p.u3 + (size_t)b * n * n;
-    float* t3 = p.t3 + (size_t)b * n * n;
-    for (int e = tid; e < n * n; e += blockDim.x) {
-      const int i = e / n, j = e % n;
-      const float f = (i == j ? 1.0f : 0.f) - Y[e];
-      t3[e] = (alpha * f + om * w3[e]) + u3[e];
+    __syncthreads();  // this chunk's x'Yx partials, in warp order
+    for (int c = tid; c < kChunk && l0 + c < L; c += blockDim.x) {
+      double s = 0.0;
+      for (int w = 0; w < kWarps; ++w) s += wpart[w * (1 + kChunk) + 1 + c];
+      part[1 + l0 + c] = s;
     }
+    __syncthreads();
+  }
+  tr = omc::warp_sum_d(tr);
+  if (lane == 0) wpart[warp * (1 + kChunk)] = tr;
+  // t2's U columns of the band's rows
+  for (int e = tid; e < nb * k; e += blockDim.x) {
+    const int ii = e / k, c = e - ii * k, q = (i0 + ii) * D2 + n + c;
+    t2[q] = (alpha * us[(i0 + ii) * k + c] + om * w2[q]) + u2[q];
   }
 
-  // ---- trace slot ----
+  // ---- the band's SOC entries tsoc_j[1 + i], kept, with ||.||^2 (a warp
+  // per j), and x_l' U_j over the band
+  for (int j = warp; j < k; j += kWarps) {
+    double s = 0.0;
+    for (int ii = lane; ii < nb; ii += 32) {
+      const int i = i0 + ii, q = j * (1 + n) + 1 + i;
+      const float t = (alpha * us[i * k + j] + om * wsoc[q]) + usoc[q];
+      tsb[j * nb + ii] = t;
+      s = fma((double)t, (double)t, s);
+    }
+    s = omc::warp_sum_d(s);
+    if (lane == 0) part[1 + L + j] = s;
+  }
+  for (int e = tid; e < Lk; e += blockDim.x) {
+    const int l = e / k, j = e - l * k;
+    double v = 0.0;
+    for (int i = i0; i < i0 + nb; ++i) v = fma(X(l, i), (double)us[i * k + j], v);
+    part[1 + L + k + e] = v;
+  }
+  __syncthreads();
   if (tid == 0) {
-    const float t4 = (alpha * ((float)k - tr) + om * p.w4[b]) + p.u4[b];
-    const float w4 = fmaxf(t4, 0.f);
-    p.w4[b] = w4;
-    p.u4[b] = t4 - w4;
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) s += wpart[w * (1 + kChunk)];
+    part[0] = s;
+  }
+  if (kWs) __threadfence();  // the partials reach L2 before the barrier
+  omc::cluster_arrive();
+  // ---- while the other CTAs reach the barrier, the work no sum needs.
+  // X's tiles, every warp of the cluster in turn: t1's upper right as read,
+  // its lower left through the warp's tile in shared memory
+  {
+    float* tt = fsm + S.tt + warp * kT * (kT + 1);
+    const int ntn = omc::cdiv(n, kT), ntm = omc::cdiv(m, kT), cc = lane & (kT - 1),
+              r0 = lane >> 4;
+    constexpr int R = kT / 2;  // rows of a tile a lane takes
+    // (from the last rank down: at small batches rank 0 has the small slots)
+    for (int tl = (C - 1 - rank) * kWarps + warp; tl < ntn * ntm; tl += C * kWarps) {
+      const int I = tl / ntm, J = tl - I * ntm;
+      // every load of the tile pair's entries first, then the stores
+      float x[R], wu[R], uu[R], wl[R], ul[R];
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        const int rr = r0 + 2 * h, i = I * kT + rr, a = J * kT + cc;
+        if (i < n && a < m) {
+          const int q = i * D1 + n + a;
+          x[h] = Xs[i * m + a], wu[h] = w1[q], uu[h] = u1[q];
+        }
+        const int a2 = J * kT + rr, j2 = I * kT + cc;
+        if (a2 < m && j2 < n) {
+          const int q = (n + a2) * D1 + j2;
+          wl[h] = w1[q], ul[h] = u1[q];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        const int rr = r0 + 2 * h, i = I * kT + rr, a = J * kT + cc;
+        if (i < n && a < m) {
+          tt[rr * (kT + 1) + cc] = x[h];
+          t1[i * D1 + n + a] = (alpha * (sX * x[h]) + om * wu[h]) + uu[h];
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        const int rr = r0 + 2 * h, a = J * kT + rr, j = I * kT + cc;
+        if (a < m && j < n)
+          t1[(n + a) * D1 + j] = (alpha * (sX * tt[cc * (kT + 1) + rr]) + om * wl[h]) + ul[h];
+      }
+      __syncwarp();
+    }
+  }
+  // t1's lower right from the Theta band's rows
+  omc::grid_items<kU>(
+      nbT, m, tid, blockDim.x,
+      [&](int aa, int j) {
+        const int a = a0 + aa, q = (n + a) * D1 + n + j;
+        return make_float3(Ths[a * m + j], w1[q], u1[q]);
+      },
+      [&](int aa, int j, float3 v) {
+        t1[(n + a0 + aa) * D1 + n + j] = (alpha * (sT * v.x) + om * v.y) + v.z;
+      });
+  // t2's rows n + c: [U', I], row c by CTA c mod C
+  for (int c = rank + C * warp; c < k; c += C * kWarps) {
+    const int r = n + c;
+    for (int j = lane; j < n; j += 32) {
+      const int q = r * D2 + j;
+      t2[q] = (alpha * us[j * k + c] + om * w2[q]) + u2[q];
+    }
+    for (int j = lane; j < k; j += 32) {
+      const int q = r * D2 + n + j;
+      t2[q] = (alpha * (c == j ? 1.0f : 0.f) + om * w2[q]) + u2[q];
+    }
   }
 
-  // ---- SOC slots (1, U_j) ----
-  for (int e = tid; e < k * (1 + n); e += blockDim.x) {
-    const int j = e / (1 + n), q = e % (1 + n);
-    const float f = (q == 0) ? 1.0f : U[(q - 1) * k + j];
-    const float t = (alpha * f + om * wsoc[e]) + usoc[e];
-    const float tt = ts0[j], nj = nx[j];
-    const bool inside = nj <= tt, polar = nj <= -tt;
-    float w;
-    if (inside) w = t;
-    else if (polar) w = 0.f;
-    else if (q == 0) w = 0.5f * (tt + nj);
-    else w = (nj > 0.f ? 0.5f * (1.0f + tt / nj) : 0.f) * t;
-    wsoc[e] = w;
-    usoc[e] = t - w;
-  }
-
-  // ---- box slot ----
-  for (int e = tid; e < n * k; e += blockDim.x) {
-    const size_t q = (size_t)b * n * k + e;
-    const float t = (alpha * U[e] + om * p.wbox[q]) + p.ubox[q];
-    const float w = fminf(fmaxf(t, p.U_lo[q]), p.U_hi[q]);
+  // ---- box slot of the band's rows
+  for (int e = tid; e < nb * k; e += blockDim.x) {
+    const size_t q = (size_t)b * n * k + (size_t)i0 * k + e;
+    const float t = (alpha * us[i0 * k + e] + om * p.wbox[q]) + p.ubox[q];
+    const float w = fminf(fmaxf(t, Ulo[q]), Uhi[q]);
     p.wbox[q] = w;
     p.ubox[q] = t - w;
   }
 
-  // ---- cut interval slots and the dual EMA ----
-  for (int e = tid; e < L * k; e += blockDim.x) {
-    const int l = e / k;
-    const size_t q = (size_t)b * L * k + e;
-    const float lo = clo[e], hi = chi[e], c = cm[l];
-    const float ta = (alpha * (v[e] - lo) + om * p.wa[q]) + p.ua[q];
-    const float wa = fmaxf(ta, 0.f), ua = (ta - wa) * c;
-    p.wa[q] = wa;
-    p.ua[q] = ua;
-    p.acc_a[q] = p.acc_a[q] + p.beta * (rho * ua - p.acc_a[q]);
-    const float tb = (alpha * (hi - v[e]) + om * p.wb[q]) + p.ub[q];
-    const float wb = fmaxf(tb, 0.f), ub = (tb - wb) * c;
-    p.wb[q] = wb;
-    p.ub[q] = ub;
-    p.acc_b[q] = p.acc_b[q] + p.beta * (rho * ub - p.acc_b[q]);
-  }
-  // chord slots
-  for (int l = tid; l < L; l += blockDim.x) {
-    float cv = 0.f, bc = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float lo = clo[l * k + j], hi = chi[l * k + j];
-      cv += (lo + hi) * v[l * k + j];
-      bc += -lo * hi;
+  omc::cluster_wait();
+  if (kWs)
+    omc::cluster_sum_global(wsd + S.part, S.wsr, tot, NP, C);
+  else
+    omc::cluster_sum(cluster, part, dsm + S.stage, tot, NP, C);
+  omc::cluster_arrive();  // this CTA reads no other CTA's memory from here
+
+  // ---- SOC slots (1, U_j): the band's entries, and the heads on rank 0
+  for (int j = 0; j < k; ++j) {
+    const float tt = ts0[j], nj = (float)sqrt(tot[1 + L + j]);
+    const bool inside = nj <= tt, polar = nj <= -tt;
+    const float scale = nj > 0.f ? 0.5f * (1.0f + tt / nj) : 0.f;
+    for (int ii = tid; ii < nb; ii += blockDim.x) {
+      const int q = j * (1 + n) + 1 + i0 + ii;
+      const float t = tsb[j * nb + ii];
+      const float w = inside ? t : (polar ? 0.f : scale * t);
+      wsoc[q] = w;
+      usoc[q] = t - w;
     }
-    const float f = cv + bc - xyx[l];
-    const size_t q = (size_t)b * L + l;
-    const float tc = (alpha * f + om * p.wc[q]) + p.uc[q];
-    const float wc = fmaxf(tc, 0.f), uc = (tc - wc) * cm[l];
-    p.wc[q] = wc;
-    p.uc[q] = uc;
-    p.acc_c[q] = p.acc_c[q] + p.beta * (rho * uc - p.acc_c[q]);
+    if (rank == 0 && tid == 0) {
+      const int q = j * (1 + n);
+      const float w = inside ? tt : (polar ? 0.f : 0.5f * (tt + nj));
+      wsoc[q] = w;
+      usoc[q] = tt - w;
+    }
   }
+  if (rank == 0) {
+    // the slots as staged, or in place where they did not fit
+    const bool stg = p.slsmem;
+    const size_t qk = (size_t)b * Lk, ql = (size_t)b * L;
+    const float* wa0 = stg ? sl : p.wa + qk;
+    const float* ua0 = stg ? sl + Lk : p.ua + qk;
+    const float* wb0 = stg ? sl + 2 * Lk : p.wb + qk;
+    const float* ub0 = stg ? sl + 3 * Lk : p.ub + qk;
+    const float* aa0 = stg ? sl + 4 * Lk : p.acc_a + qk;
+    const float* ab0 = stg ? sl + 5 * Lk : p.acc_b + qk;
+    const float* lo_ = stg ? sl + 6 * Lk : p.cut_lo + qk;
+    const float* hi_ = stg ? sl + 7 * Lk : p.cut_hi + qk;
+    const float* wc0 = stg ? sl + 8 * Lk : p.wc + ql;
+    const float* uc0 = stg ? sl + 8 * Lk + L : p.uc + ql;
+    const float* ac0 = stg ? sl + 8 * Lk + 2 * L : p.acc_c + ql;
+    const float* cm = stg ? sl + 8 * Lk + 3 * L : p.cut_mask + ql;
+    // ---- trace slot
+    if (tid == 0) {
+      const float tr_y = (float)tot[0];
+      const float w40 = stg ? sl[8 * Lk + 4 * L] : p.w4[b];
+      const float u40 = stg ? sl[8 * Lk + 4 * L + 1] : p.u4[b];
+      const float t4 = (alpha * ((float)k - tr_y) + om * w40) + u40;
+      const float w4 = fmaxf(t4, 0.f);
+      p.w4[b] = w4;
+      p.u4[b] = t4 - w4;
+    }
+    // ---- cut interval slots and the dual EMA
+    const double* v = tot + 1 + L + k;
+    for (int e = tid; e < Lk; e += blockDim.x) {
+      const size_t q = qk + e;
+      const float lo = lo_[e], hi = hi_[e], c = cm[e / k], ve = (float)v[e];
+      const float ta = (alpha * (ve - lo) + om * wa0[e]) + ua0[e];
+      const float wa = fmaxf(ta, 0.f), ua = (ta - wa) * c;
+      const float aa = aa0[e];
+      p.wa[q] = wa;
+      p.ua[q] = ua;
+      p.acc_a[q] = aa + p.beta * (rho * ua - aa);
+      const float tb = (alpha * (hi - ve) + om * wb0[e]) + ub0[e];
+      const float wb = fmaxf(tb, 0.f), ub = (tb - wb) * c;
+      const float ab = ab0[e];
+      p.wb[q] = wb;
+      p.ub[q] = ub;
+      p.acc_b[q] = ab + p.beta * (rho * ub - ab);
+    }
+    // chord slots
+    for (int l = tid; l < L; l += blockDim.x) {
+      float cv = 0.f, bc = 0.f;
+      for (int j = 0; j < k; ++j) {
+        const float lo = lo_[l * k + j], hi = hi_[l * k + j];
+        cv += (lo + hi) * (float)v[l * k + j];
+        bc += -lo * hi;
+      }
+      const float f = cv + bc - (float)tot[1 + l];
+      const size_t q = ql + l;
+      const float tc = (alpha * f + om * wc0[l]) + uc0[l];
+      const float wc = fmaxf(tc, 0.f), uc = (tc - wc) * cm[l];
+      const float ac = ac0[l];
+      p.wc[q] = wc;
+      p.uc[q] = uc;
+      p.acc_c[q] = ac + p.beta * (rho * uc - ac);
+    }
+  }
+  omc::cluster_wait();  // no CTA leaves while another may read its partials
+}
+
+int fail(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
+}
+
+template <bool kWs>
+int launch(const K3Params& p, cudaStream_t stream) {
+  static int smem_attr = -1;
+  static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
+  const int smem = (int)k3_smem(p.n, p.m, p.k, p.L, p.C, p.xsmem, p.slsmem, kWs).bytes;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.C * p.B, 1, 1);
+  cfg.blockDim = dim3(omc::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
+    err = cudaFuncSetAttribute(k3_kernel<kWs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return fail(err);
+    smem_attr = 0;
+  }
+  if (smem > smem_attr) {
+    err = cudaFuncSetAttribute(k3_kernel<kWs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return fail(err);
+    smem_attr = smem;
+  }
+  if (smem > schedulable[p.C]) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k3_kernel<kWs>, &cfg);
+    if (err != cudaSuccess) return fail(err);
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    schedulable[p.C] = smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, k3_kernel<kWs>, p);
+  if (err != cudaSuccess) return fail(err);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the shared memory omc_torch.sdp.admm.k2k3_plan plans with (chip_smoke.py
+// holds the plan against it at every K3 row)
+OMC_EXPORT long long omc_k3_smem_bytes(int n, int m, int k, int L, int C, int xsmem,
+                                       int slsmem, int ws) {
+  return (long long)k3_smem(n, m, k, L, C, xsmem, slsmem, ws).bytes;
+}
+
+// the doubles of global workspace a slot takes where the partials live
+// there (K3Params.ws)
+OMC_EXPORT long long omc_k3_ws_doubles(int n, int m, int k, int L, int C) {
+  return (long long)k3_smem(n, m, k, L, C, 0, 0, 1).wss;
+}
+
 OMC_EXPORT int omc_k3_cone(const K3Params* params, void* stream) {
-  K3Params p = *params;
-  const size_t smem = (size_t)(32 + p.L * p.k + p.L + 2 * p.k) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        k3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  k3_kernel<<<p.B, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const K3Params& p = *params;
+  if (p.C < 1 || p.C > 16 || p.B < 1 || p.n < 1 || p.m < 1 || p.k < 1 || p.L < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return p.ws ? launch<true>(p, st) : launch<false>(p, st);
 }

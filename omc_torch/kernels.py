@@ -157,15 +157,18 @@ class K1Params(ctypes.Structure):
 _K2_PTRS = (
     "w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc", "wbox",
     "ubox", "wa", "ua", "wb", "ub", "wc", "uc", "cut_x", "cut_lo", "cut_hi",
-    "cut_mask", "maskA", "mask", "sX", "sT", "rho", "G1c", "Xs", "Y", "Ths",
+    "cut_mask", "maskA", "mask", "sX", "sT", "rho", "G1i", "Xs", "Y", "Ths",
     "U",
 )
 
 
 class K2Params(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in _K2_PTRS] + [
+    # ws: the block's own workspace where the plan puts the partials of s in
+    # global memory (held by the block), else null
+    _fields_ = [(name, ctypes.c_void_p) for name in _K2_PTRS + ("ws",)] + [
         ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
-        ("k", ctypes.c_int), ("L", ctypes.c_int), ("gamma", ctypes.c_float),
+        ("k", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
+        ("band", ctypes.c_int), ("xsmem", ctypes.c_int), ("gamma", ctypes.c_float),
     ]
 
 
@@ -178,9 +181,10 @@ _K3_PTRS = (
 
 
 class K3Params(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in _K3_PTRS] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in _K3_PTRS + ("ws",)] + [
         ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
-        ("k", ctypes.c_int), ("L", ctypes.c_int), ("alpha", ctypes.c_float),
+        ("k", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
+        ("xsmem", ctypes.c_int), ("slsmem", ctypes.c_int), ("alpha", ctypes.c_float),
         ("beta", ctypes.c_float),
     ]
 
@@ -318,6 +322,10 @@ def _load(path: Path):
     lib.omc_k6_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.omc_k8c_smem_bytes.restype = ctypes.c_longlong
+    for name, nargs in (("omc_k2_smem_bytes", 8), ("omc_k3_smem_bytes", 8),
+                        ("omc_k2_ws_doubles", 5), ("omc_k3_ws_doubles", 5)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * nargs
+        getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 

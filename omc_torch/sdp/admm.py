@@ -11,15 +11,20 @@ solve call serves every per-node penalty (``_gram1``).
 One iteration on the GPU is three kernel launches (``omc_torch/csrc``):
 
 1. K2 ``zstep``     — the adjoint of the slot residuals w - u - offs, the
-   diagonal divides, V' r, the p x p triangular solves with the G1 factor,
-   the V s correction, and the symmetrised (Xs, Y, Ths, U);
+   diagonal divides, V' r, the p x p product t = rho G1^-1 s with the
+   inverse ``make_consts`` forms once per call, the V t correction, and the
+   symmetrised (Xs, Y, Ths, U);
 2. K3 ``cone_step`` — the forward map at (Xs, Y, Ths, U), over-relaxation
    alpha, the pre-projection PSD slots t1/t2/t3 (t = alpha f + (1-alpha) w
    + u), the w/u-update of the trace, SOC, box and cut slots, and the dual
    EMA of rho*ua, rho*ub, rho*uc;
 3. K1 ``project_psd_ns_multi`` — the sign-schedule projection of t1, t2,
-   t3 (one CTA per matrix), w = P, u = t - w, and the dual EMA of rho*u1
+   t3 (``ops.polar.k1_plan``), w = P, u = t - w, and the dual EMA of rho*u1
    and rho*u2.
+
+K2 and K3 each run one thread-block cluster of CTAs per node slot, each CTA
+owning a band of rows (``k2k3_plan``), the per-slot sums added across the
+cluster in rank order.
 
 So the dual EMA of the JAX loop body (``admm.py:510-521`` there) lives in
 the K3 and K1 epilogues, updated right after each u.  On the CPU the same
@@ -37,6 +42,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import operator
+import weakref
 
 import torch
 
@@ -287,7 +294,8 @@ class _Consts:
     batch: NodeBatch
     mask: torch.Tensor
     maskA: torch.Tensor
-    G1c: torch.Tensor
+    G1c: torch.Tensor  # lower Cholesky factor of G1 (the plain z-step)
+    G1i: torch.Tensor | None  # G1^-1 (K2; CUDA states only)
     offs: tuple
     cX: torch.Tensor
     cTh: torch.Tensor
@@ -298,6 +306,192 @@ class _Consts:
     gamma: float
     alpha: float
     beta: float
+
+
+# --------------------------------------------------------------------------
+# K2 and K3: the plan
+# --------------------------------------------------------------------------
+
+# K2 and K3 run 256 threads a CTA and one cluster of C CTAs per node slot
+K2K3_THREADS = 256
+K2K3_WARPS = K2K3_THREADS // 32
+# the cluster sizes (16 is beyond the portable 8; the kernels allow it)
+K2K3_CLUSTERS = (1, 2, 4, 8, 16)
+# K3's C is the largest with B C at most this many CTAs, so that small
+# batches spread over the card's 132 SMs while large ones keep small
+# clusters (on an H100, more CTAs measured slower at every batch of 32 and
+# more: fewer large clusters fit a GPC at once); K2's the same where
+# p = 1 + L + L k > K2_GI_MAX_FAST, else up to K2_TARGET_CTAS (three K2 CTAs
+# fit an SM; each stages the p x p G1^-1)
+K2K3_TARGET_CTAS = 128
+K2_TARGET_CTAS = 256
+K2_GI_MAX_FAST = 64
+# then K2 doubles C until its band of sym(zY) takes at most this many bytes
+# of shared memory, and K3 until a CTA has at most this many rows of Y
+# (both measured at 250 x 250 nodes)
+K2_BAND_MAX = 49152
+K3_BAND_ROWS = 128
+# shared memory a CTA may use on an H100 (227 KB)
+K2K3_MAX_SMEM = 232448
+# K2 stages G1^-1 in shared memory up to p = 1 + L + L k of this size
+K2_GI_MAX = 112
+# the edge of the tiles of Theta (K2) and X (K3) a warp transposes
+K2K3_TILE = 16
+# the chord sums a thread keeps in registers at once
+K2K3_CHUNK = 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _odd(n):
+    return n | 1
+
+
+def k2_smem_bytes(n, m, k, L, C, band, xsmem=True, ws=False):
+    """K2's dynamic shared memory (``omc_k2_smem_bytes``): per-warp partials
+    of a chunk of chords, the CTA's partials of s, the cluster's gathered and
+    their sums (one CTA: its own; float64), the masked cuts (``xsmem``), the
+    mask, the cut-slot duals, s, t, the band's zU, G1^-1 (p <= K2_GI_MAX), a
+    Theta tile pair a warp, and with ``band`` the band of sym(zY) at an odd
+    row stride.  With ``ws`` the partials, their sums, s, t and the two L k
+    interval-slot vectors are in the global workspace (``k2_ws_doubles``)."""
+    P = 1 + L + L * k
+    bw = _cdiv(n, C)
+    sums = 0 if ws else 2 * (2 + C if C > 1 else 1) * P + 2 * L * k + 2 * P
+    f = (2 * K2K3_WARPS * (1 + K2K3_CHUNK) + sums + (L * n if xsmem else 0) + 2 * L
+         + bw * k + (P * P if P <= K2_GI_MAX else 0)
+         + K2K3_WARPS * 2 * K2K3_TILE * (K2K3_TILE + 1))
+    return 4 * (f + (bw * _odd(n) if band else 0))
+
+
+def k2_ws_doubles(n, m, k, L, C):
+    """K2's global workspace a slot (``omc_k2_ws_doubles``): for each of the
+    C CTAs its partials of s and their sums (float64), the two interval-slot
+    vectors, s and t (float32); then t's rows as the cluster forms them."""
+    P = 1 + L + L * k
+    return C * (3 * P + L * k) + (P + 1) // 2
+
+
+def k3_smem_bytes(n, m, k, L, C, xsmem=True, slsmem=True, ws=False):
+    """K3's dynamic shared memory (``omc_k3_smem_bytes``): per-warp partials
+    of a chunk of chords, the CTA's partials (tr Y, x_l'Y x_l,
+    ||tsoc_j[1:]||^2, x_l'U_j), the cluster's gathered and their sums (one
+    CTA: its own; with ``ws`` in the global workspace, ``k3_ws_doubles``),
+    the cuts (``xsmem``; all float64), U, tsoc_j[0], the band's tsoc, an X
+    tile a warp, and (``slsmem``) the trace, interval and chord slots rank 0
+    stages."""
+    NP = 1 + L + k + L * k
+    return 4 * (2 * (K2K3_WARPS * (1 + K2K3_CHUNK) + (0 if ws else (2 + C if C > 1 else 1) * NP)
+                     + (L * n if xsmem else 0))
+                + n * k + k + k * _cdiv(n, C) + K2K3_WARPS * K2K3_TILE * (K2K3_TILE + 1)
+                + (8 * L * k + 4 * L + 2 if slsmem else 0))
+
+
+def k3_ws_doubles(n, m, k, L, C):
+    """K3's global workspace a slot (``omc_k3_ws_doubles``): each CTA's
+    partials and their sums."""
+    return 2 * C * (1 + L + k + L * k)
+
+
+def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -> dict:
+    """K2's and K3's launches: one cluster of C CTAs per node slot (grid B C),
+    CTA r owning rows [r n / C, (r + 1) n / C) of Y and U (and of t1-t3) and
+    [r m / C, (r + 1) m / C) of Theta in K3; X's entries and the 16 x 16
+    tiles of Theta (K2) and X (K3) go to the cluster's warps in turn.  C
+    (``k2_cluster``, ``k3_cluster``) follows the rules beside
+    ``K2K3_TARGET_CTAS``.
+    K2 keeps its band of sym(zY) in shared memory ("smem") where it fits,
+    else in the CTA's own rows of Y ("rows"); either kernel stages the cut
+    vectors in shared memory where they fit ("smem"), else reads them from
+    the input ("global"), and K3's rank 0 its small slots likewise.  ``cluster`` (both kernels) and ``band`` force a
+    choice, for timing and checks.  Raises where a shape needs more shared
+    memory than a CTA has.
+
+    Where a CTA's partials (C p float64 gathered) would not fit
+    (``k2_sums``/``k3_sums`` "global"), they go to a global workspace of
+    ``k2_ws``/``k3_ws`` doubles a slot (K2 then spreads t's rows over the
+    cluster)."""
+    if min(B, n, m, k) < 1 or L < 0:
+        raise ValueError(f"K2/K3: unsupported shape B={B}, n={n}, m={m}, k={k}, L={L}")
+    if band not in (None, "smem", "rows"):
+        raise ValueError(f"K2: band {band!r} not in ('smem', 'rows')")
+    if cluster is None:
+        cap = min(n, m)
+
+        def largest(target):
+            return max([c for c in K2K3_CLUSTERS if B * c <= target and c <= cap] or [1])
+
+        C3 = largest(K2K3_TARGET_CTAS)
+        while C3 < K2K3_CLUSTERS[-1] and 2 * C3 <= cap and _cdiv(n, C3) > K3_BAND_ROWS:
+            C3 *= 2
+        C2 = largest(K2_TARGET_CTAS if 1 + L + L * k <= K2_GI_MAX_FAST else K2K3_TARGET_CTAS)
+        while (C2 < K2K3_CLUSTERS[-1] and 2 * C2 <= cap
+               and 4 * _cdiv(n, C2) * _odd(n) > K2_BAND_MAX):
+            C2 *= 2
+    elif cluster in K2K3_CLUSTERS:
+        C2 = C3 = cluster
+    else:
+        raise ValueError(f"K2/K3: cluster {cluster!r} not in {K2K3_CLUSTERS}")
+
+    def fit2(C, ws):
+        for bd in (band,) if band else ("smem", "rows"):
+            for xsm in (True, False):
+                if k2_smem_bytes(n, m, k, L, C, bd == "smem", xsm, ws) <= K2K3_MAX_SMEM:
+                    return bd, xsm
+        return None
+
+    def fit3(C, ws):
+        for xsm, slm in ((True, True), (True, False), (False, True), (False, False)):
+            if k3_smem_bytes(n, m, k, L, C, xsm, slm, ws) <= K2K3_MAX_SMEM:
+                return xsm, slm
+        return None
+
+    # the partials in shared memory where they fit, else in the workspace
+    ws2, ws3 = fit2(C2, False) is None, fit3(C3, False) is None
+    f2, f3 = fit2(C2, ws2), fit3(C3, ws3)
+    if f2 is None or f3 is None:
+        raise ValueError(f"K2/K3: n={n}, m={m}, k={k}, L={L} needs more than {K2K3_MAX_SMEM} "
+                         "bytes of shared memory a CTA")
+    bd, xs2 = f2
+    xs3, sl3 = f3
+    where = {True: "smem", False: "global"}
+    return dict(k2_cluster=C2, k3_cluster=C3, threads=K2K3_THREADS, k2_rows=_cdiv(n, C2),
+                k3_rows=_cdiv(n, C3), band=bd, k2_xs=where[xs2], k3_xs=where[xs3],
+                k3_slots=where[sl3], k2_sums=where[not ws2], k3_sums=where[not ws3],
+                k2_smem=k2_smem_bytes(n, m, k, L, C2, bd == "smem", xs2, ws2),
+                k3_smem=k3_smem_bytes(n, m, k, L, C3, xs3, sl3, ws3),
+                k2_ws=k2_ws_doubles(n, m, k, L, C2) if ws2 else 0,
+                k3_ws=k3_ws_doubles(n, m, k, L, C3) if ws3 else 0)
+
+
+# The kernels' parameter blocks (K2, K3 and shor_k's K8c): the solve loop
+# passes the same tensors every iteration, so their checks and the packing
+# run once.  A block is reused only while every operand is the same live
+# tensor object (held by a weak reference, so the cache keeps no memory
+# alive) at the same address; the last few blocks are kept.
+_PACKED: dict = {}
+_PACKED_MAX = 16
+_SLOTS = operator.attrgetter("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc",
+                             "wbox", "ubox", "wa", "ua", "wb", "ub", "wc", "uc")
+_PRIMAL = operator.attrgetter("X", "Y", "Th", "U", "sX", "sT", "rho")
+_CUTS = operator.attrgetter("cut_x", "cut_lo", "cut_hi", "cut_mask")
+
+
+def _packed(key, tensors, scalars, build):
+    """The block ``build()`` packed for ``key``, reused while ``tensors``
+    (every operand) and ``scalars`` are those it was packed for."""
+    ptrs = tuple(t.data_ptr() for t in tensors)
+    hit = _PACKED.get(key)
+    if (hit is not None and hit[1] == ptrs and hit[2] == scalars
+            and all(r() is t for r, t in zip(hit[0], tensors))):
+        return hit[3]
+    prm = build()
+    while len(_PACKED) >= _PACKED_MAX:
+        del _PACKED[next(iter(_PACKED))]
+    _PACKED[key] = (tuple(map(weakref.ref, tensors)), ptrs, scalars, prm)
+    return prm
 
 
 # --------------------------------------------------------------------------
@@ -334,12 +528,12 @@ def zstep_plain(c: _Consts, st: ADMMState):
     return Xs, Y, Ths, U
 
 
-def zstep(c: _Consts, st: ADMMState, shor: bool = False):
+def zstep(c: _Consts, st: ADMMState, shor: bool = False, cluster=None, band=None):
     """K2 wrapper: writes (Xs, Y, Ths, U) into ``st.X/Y/Th/U`` -- with
     ``shor`` only Y and U, whose z-step the Shor relaxation shares (its X
     and Theta come from K8a).  A CPU state runs ``zstep_plain``; a CUDA
-    state launches ``csrc/k2_zstep.cu`` (one CTA per node slot) or
-    raises."""
+    state launches ``csrc/k2_zstep.cu`` (``k2k3_plan``'s cluster per node
+    slot; ``cluster`` and ``band`` force its choices) or raises."""
     dev = st.w1.device
     if dev.type == "cpu":
         for dst, src in zip((st.X, st.Y, st.Th, st.U), zstep_plain(c, st)):
@@ -348,13 +542,18 @@ def zstep(c: _Consts, st: ADMMState, shor: bool = False):
         return
     if dev.type != "cuda":
         raise ValueError(f"zstep: unsupported device {dev}")
-    prm = _k2_params(c, st)
-    if shor:
-        prm.Xs = prm.Ths = None
+    prm = _packed(("K2", id(c), id(st), shor, cluster, band), _k2_tensors(c, st), (c.gamma,),
+                  lambda: _k2_params(c, st, shor, k2k3_plan(st.rho.shape[0], c.n, c.m, c.k,
+                                                              c.L, cluster, band)))
     kernels.launch("K2", "omc_k2_zstep", prm, dev)
 
 
-def _k2_params(c: _Consts, st: ADMMState):
+def _k2_tensors(c: _Consts, st: ADMMState) -> tuple:
+    """Every K2 operand, gathered cheaply for the reuse test."""
+    return _SLOTS(st) + _PRIMAL(st) + _CUTS(c.batch) + (c.maskA, c.mask, c.G1i)
+
+
+def _k2_params(c: _Consts, st: ADMMState, shor: bool, plan: dict):
     """Validate K2's operands and pack its parameter block."""
     dev = st.w1.device
     B = st.rho.shape[0]
@@ -375,14 +574,26 @@ def _k2_params(c: _Consts, st: ADMMState):
     prm.sX = kernels.check("sX", st.sX, (B,), dev)
     prm.sT = kernels.check("sT", st.sT, (B,), dev)
     prm.rho = kernels.check("rho", st.rho, (B,), dev)
-    prm.G1c = kernels.check("G1c", c.G1c, (B, p, p), dev)
-    prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
+    prm.G1i = kernels.check("G1i", c.G1i, (B, p, p), dev)
     prm.Y = kernels.check("Y", st.Y, (B, n, n), dev)
-    prm.Ths = kernels.check("Th", st.Th, (B, m, m), dev)
     prm.U = kernels.check("U", st.U, (B, n, k), dev)
+    if not shor:
+        prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
+        prm.Ths = kernels.check("Th", st.Th, (B, m, m), dev)
     prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
+    prm.C, prm.band = plan["k2_cluster"], int(plan["band"] == "smem")
+    prm.xsmem = int(plan["k2_xs"] == "smem")
     prm.gamma = float(c.gamma)
+    _workspace(prm, B * plan["k2_ws"], dev)
     return prm
+
+
+def _workspace(prm, doubles, dev):
+    """The block's global workspace of ``doubles`` float64 (none: null),
+    kept alive by the block itself."""
+    if doubles:
+        prm.workspace = torch.empty(doubles, dtype=torch.float64, device=dev)
+        prm.ws = prm.workspace.data_ptr()
 
 
 # --------------------------------------------------------------------------
@@ -441,12 +652,13 @@ _REST = ("w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wa", "ua", "wb", "ub",
          "wc", "uc")
 
 
-def cone_step(c: _Consts, st: ADMMState, ts, acc):
+def cone_step(c: _Consts, st: ADMMState, ts, acc, cluster=None):
     """K3 wrapper: writes the pre-projection PSD slots into ``ts`` (t1, t2,
     t3), updates the non-PSD slots of ``st`` and the EMA accumulators
     ``acc`` (rho ua, rho ub, rho uc) in place.  A CPU state runs
-    ``cone_step_plain``; a CUDA state launches ``csrc/k3_cone.cu`` (one CTA
-    per node slot) or raises."""
+    ``cone_step_plain``; a CUDA state launches ``csrc/k3_cone.cu``
+    (``k2k3_plan``'s cluster per node slot; ``cluster`` forces a size, for
+    timing) or raises."""
     dev = st.w1.device
     if dev.type == "cpu":
         t1, t2, t3, rest, acc_new = cone_step_plain(c, st, acc)
@@ -459,14 +671,23 @@ def cone_step(c: _Consts, st: ADMMState, ts, acc):
         return
     if dev.type != "cuda":
         raise ValueError(f"cone_step: unsupported device {dev}")
-    kernels.launch("K3", "omc_k3_cone", _k3_params(c, st, ts, acc), dev)
+    prm = _packed(("K3", id(c), id(st), cluster), _k3_tensors(c, st, ts, acc),
+                  (c.alpha, c.beta), lambda: _k3_params(c, st, ts, acc, cluster))
+    kernels.launch("K3", "omc_k3_cone", prm, dev)
 
 
-def _k3_params(c: _Consts, st: ADMMState, ts, acc):
+def _k3_tensors(c: _Consts, st: ADMMState, ts, acc) -> tuple:
+    """Every K3 operand, gathered cheaply for the reuse test."""
+    b = c.batch
+    return _SLOTS(st) + _PRIMAL(st) + _CUTS(b) + (b.U_lo, b.U_hi) + tuple(ts) + tuple(acc)
+
+
+def _k3_params(c: _Consts, st: ADMMState, ts, acc, cluster):
     """Validate K3's operands and pack its parameter block."""
     dev = st.w1.device
     B = st.rho.shape[0]
     n, m, k, L = c.n, c.m, c.k, c.L
+    plan = k2k3_plan(B, n, m, k, L, cluster)
     shapes = _state_shapes(B, n, m, k, L)
     prm = kernels.K3Params()
     prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
@@ -492,7 +713,10 @@ def _k3_params(c: _Consts, st: ADMMState, ts, acc):
     prm.sT = kernels.check("sT", st.sT, (B,), dev)
     prm.rho = kernels.check("rho", st.rho, (B,), dev)
     prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
+    prm.C, prm.xsmem = plan["k3_cluster"], int(plan["k3_xs"] == "smem")
+    prm.slsmem = int(plan["k3_slots"] == "smem")
     prm.alpha, prm.beta = float(c.alpha), float(c.beta)
+    _workspace(prm, B * plan["k3_ws"], dev)
     return prm
 
 
@@ -508,16 +732,27 @@ def _state_shapes(B, n, m, k, L):
     }
 
 
+def g1_factors(G1, cuda: bool):
+    """G1's lower Cholesky factor (the plain z-step) and, for a CUDA state,
+    G1^-1 (K2): both from one float64 factor.  G1 >= I, so ||G1^-1|| <= 1
+    and K2 forms t = rho G1^-1 s as one product.  A CPU state factors in its
+    own dtype and has no inverse."""
+    if not cuda:
+        return torch.linalg.cholesky(G1), None
+    L64 = torch.linalg.cholesky(G1.double())  # column-major on CUDA
+    return L64.to(G1.dtype).contiguous(), torch.cholesky_inverse(L64).to(G1.dtype).contiguous()
+
+
 def make_consts(A, mask, batch: NodeBatch, state: ADMMState, n, m, k, gamma,
                 alpha, beta, dtype):
-    """The per-call constants: G1 Cholesky factor, linear objective
-    coefficients and the constant slot offsets (forward map at zero)."""
+    """The per-call constants: G1's Cholesky factor and, for a CUDA state,
+    its inverse (``g1_factors``), linear objective coefficients and the
+    constant slot offsets (forward map at zero)."""
     B, L = batch.cut_mask.shape
     dev = state.rho.device
     sX = state.sX[:, None, None]
     sT = state.sT[:, None, None]
-    G1 = _gram1(batch, k, dtype)
-    G1c = torch.linalg.cholesky(G1).contiguous()  # column-major on CUDA
+    G1c, G1i = g1_factors(_gram1(batch, k, dtype), dev.type == "cuda")
     cX = -sX * (mask * A)[None]
     cTh = (sT * 0.5 / gamma) * torch.eye(m, dtype=dtype, device=dev)[None]
     zeros = (
@@ -528,7 +763,7 @@ def make_consts(A, mask, batch: NodeBatch, state: ADMMState, n, m, k, gamma,
     )
     offs = _forward(batch, *zeros, k, sX, sT)
     return _Consts(
-        batch=batch, mask=mask, maskA=(mask * A).contiguous(), G1c=G1c,
+        batch=batch, mask=mask, maskA=(mask * A).contiguous(), G1c=G1c, G1i=G1i,
         offs=offs, cX=cX, cTh=cTh, n=n, m=m, k=k, L=L, gamma=float(gamma),
         alpha=float(alpha), beta=float(beta),
     )
@@ -682,5 +917,5 @@ def apply_best_duals(state: ADMMState, out: dict) -> ADMMState:
 __all__ = [
     "ADMMState", "init_admm_state", "set_slot_rho", "make_admm_solver",
     "zstep", "zstep_plain", "cone_step", "cone_step_plain", "solve_z",
-    "apply_best_duals",
+    "apply_best_duals", "k2k3_plan",
 ]

@@ -47,7 +47,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import operator
-import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -56,7 +55,14 @@ import torch
 from omc_torch import kernels
 from omc_torch.ops.cones import eigvalsh, project_psd, project_rsoc
 from omc_torch.ops.polar import project_psd_ns_multi, project_psd_ns_small, psd_epilogue
-from omc_torch.sdp.admm import ADMMState, cone_step, init_admm_state, make_consts, zstep
+from omc_torch.sdp.admm import (
+    ADMMState,
+    _packed,
+    cone_step,
+    init_admm_state,
+    make_consts,
+    zstep,
+)
 from omc_torch.sdp.admm import apply_best_duals as apply_core_best_duals
 from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default, separation_eigpairs
 from omc_torch.sdp.shor_encode import _csr, fill_v_inverse, v_inverse_tables
@@ -764,13 +770,8 @@ def _k8c_operands(c, sc: _ShorKConsts, st: ShorKState):
     return ops
 
 
-# K8c's parameter blocks by (c, sc, st): the solve loop passes the same
-# tensors every iteration, so their checks and the packing run once.  A
-# block is reused only while every operand is the same live tensor object
-# (held by a weak reference, so the cache keeps no memory alive) at the same
-# address; the last few blocks are kept.
-_K8C_PACKED: Dict[tuple, tuple] = {}
-_K8C_PACKED_MAX = 8
+# K8c's parameter blocks by (c, sc, st), packed once per operands
+# (``admm._packed``)
 _K8C_ST = operator.attrgetter("w5", "u5", "wx", "ux", "wr", "ur", "wl", "ul", "wwl", "uwl",
                               "wp", "up", "wq", "uq", "Xt", "W", "Wt", "Hh", "v1", "v2", "v3")
 _K8C_CORE = operator.attrgetter("w1", "u1", "sX", "sT", "sS", "rho", "X", "Th")
@@ -785,27 +786,20 @@ def _k8c_tensors(c, sc: _ShorKConsts, st: ShorKState) -> tuple:
 
 
 def _k8c_params(c, sc: _ShorKConsts, st: ShorKState, dev):
-    tensors = _k8c_tensors(c, sc, st)
-    ptrs = tuple(t.data_ptr() for t in tensors)
     scalars = (float(c.gamma), float(sc.R_X))
-    key = (id(c), id(sc), id(st))
-    hit = _K8C_PACKED.get(key)
-    if (hit is not None and hit[1] == ptrs and hit[2] == scalars
-            and all(r() is t for r, t in zip(hit[0], tensors))):
-        return hit[3]
-    ops = _k8c_operands(c, sc, st)
-    B, n, m, k, kp, C, Ms = _shapes(st)
-    p = kernels.K8cParams()
-    for name, t, shape, dtype in ops:
-        setattr(p, name, kernels.check(name, t, shape, dev, dtype))
-    p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, sc.M5, C, Ms
-    p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
-    p.cols = k8c_plan(B, n, m, k)["cols"]
-    p.gamma, p.R_X = scalars
-    while len(_K8C_PACKED) >= _K8C_PACKED_MAX:
-        del _K8C_PACKED[next(iter(_K8C_PACKED))]
-    _K8C_PACKED[key] = (tuple(map(weakref.ref, tensors)), ptrs, scalars, p)
-    return p
+
+    def build():
+        B, n, m, k, kp, C, Ms = _shapes(st)
+        p = kernels.K8cParams()
+        for name, t, shape, dtype in _k8c_operands(c, sc, st):
+            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+        p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, sc.M5, C, Ms
+        p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
+        p.cols = k8c_plan(B, n, m, k)["cols"]
+        p.gamma, p.R_X = scalars
+        return p
+
+    return _packed(("K8c", id(c), id(sc), id(st)), _k8c_tensors(c, sc, st), scalars, build)
 
 
 def shor_k_zstep(c, sc: _ShorKConsts, st: ShorKState):
