@@ -22,8 +22,10 @@ Phases, in order (each prints its numbers on lines of its own):
                library's batched solve; K8c at k=2 (timed), 3 and 4; K2 and
                K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
                variant) with their device times on every cluster size
-               k2k3_plan could take; the build fails if ptxas reports a
-               spill in K2, K3, K6 or K8c
+               k2k3_plan could take; K8a and K7 (fused and projection mode)
+               at every shape of the Shor k=1 loop (SHOR_SHAPES) with their
+               device times; the build fails if ptxas reports a
+               spill in K2, K3, K6, K7, K8a or K8c
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -55,7 +57,8 @@ bounds' small slots, K5 the separation, K6 altmin).  The record's launches
 of a kernel are its launches over all those phases (``COUNTED``).
 
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
-torch.profiler trace of the Shor loop at config 2's shape, of the rank-k
+torch.profiler trace of the Shor loop at config 2's shape and at the shor
+cell's (with K7's and K8a's device ms per iteration), of the rank-k
 Shor loop at config 3's, of the McCormick loop at the headline's, of the
 headline's root visit at B=1 (with the device's idle share), of one
 base-path root visit at B=64 with its safe-bound calls, and of safe-bound
@@ -64,8 +67,9 @@ torch terms; K2's and K3's device ms per iteration of the two Shor loops and
 the two root visits are given on their own.
 
 ``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
-builds that tree's K2 and K3 and times them, with that tree's parameter
-blocks, beside every K2/K3 row of the kernels phase up to 512 cuts.
+builds that tree's K2, K3, K7 and K8a and times them, with that tree's
+parameter blocks, beside every K2/K3 row of the kernels phase up to 512
+cuts and every K7/K8a row, and reports ptxas's registers of its K7 and K8a.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -231,17 +235,27 @@ def phase_build(res):
     report = _ptxas_report(info.get("ptxas", ""))
     res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
     log("build: kernels that spill", json.dumps(spills))
-    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel")
+    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel", "k7_kernel", "k8a_kernel")
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
-    log("build: K2, K3, K6 and K8c registers", json.dumps(regs))
-    # K2's, K3's, K6's and K8c's instantiations keep every value in registers
+    log("build: K2, K3, K6, K7, K8a and K8c registers", json.dumps(regs))
+    if PARENT:
+        res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
+                               if "k7_kernel" in f or "k8a_kernel" in f}
+        log("build: the parent's K7 and K8a", json.dumps(res["parent_ptxas"]))
+    # K2's, K3's, K6's, K7's, K8a's and K8c's instantiations keep every value
+    # in registers; K7's and K8a's index their small arrays only with
+    # constants (no stack frame: a 5x5 triangle in local memory costs K7 ten
+    # times its time)
     assert not [f for f in spills if any(x in f for x in keep)], spills
+    frames = {f: r["stack"] for f, r in report.items()
+              if ("k7_kernel" in f or "k8a_kernel" in f) and r["stack"]}
+    assert not frames, frames
 
 
 def _ptxas_report(text):
-    """{function: {"registers": n, "spill": [store bytes, load bytes]}}
-    from ptxas's report (``-Xptxas -v``)."""
+    """{function: {"registers": n, "spill": [store bytes, load bytes],
+    "stack": bytes}} from ptxas's report (``-Xptxas -v``)."""
     import re
 
     out, fn = {}, None
@@ -249,10 +263,12 @@ def _ptxas_report(text):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?", line)
         if m:
             fn = m.group(1)
-            out.setdefault(fn, {"registers": None, "spill": [0, 0]})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out.setdefault(fn, {"registers": None, "spill": [0, 0], "stack": 0})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m and fn:
-            out[fn]["spill"] = [int(m.group(1)), int(m.group(2))]
+            out[fn]["stack"] = int(m.group(1))
+            out[fn]["spill"] = [int(m.group(2)), int(m.group(3))]
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             out[fn]["registers"] = int(m.group(1))
@@ -454,45 +470,35 @@ def phase_kernels(res):
     del c, st, acc, ts
     out["K2"], out["K3"] = k2, k3
 
-    # ---- K7, projection mode: (32, 4096, 5, 5), spectra +-[0.1, 1] ----
-    from omc_torch.ops.polar import project_psd_ns_small, project_psd_small
-
-    T, T64 = _spectral_batch(32 * 4096, 5, gen, dev)
-    T, T64 = T.reshape(32, 4096, 5, 5), T64.reshape(32, 4096, 5, 5)
-    wk = project_psd_small(T)
-    torch.cuda.synchronize()
-    wp = project_psd_ns_small(T)
-    exact = project_psd_plain(T64.to(dev))
-    # control: the plain schedule with operands truncated to 16 bits
-    ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
-    w2 = torch.empty_like(T)
-    row = dict(shape=list(T.shape), rel_err=rel_fro(wk, wp),
-               max_abs_err=float((wk - wp).abs().max()),
-               plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
-               control_16bit_vs_eigh=ctl16,
-               ms=cuda_time_ms(lambda: project_psd_small(T, w2)),
-               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
-    with_bound(row, 4 * 2 * T.numel(), T.numel() // 25 * (SIGN_PRODUCTS * 250 + 75))
-    log("K7", json.dumps(row))
-    # the bars of K1 (see above): each within 1e-4 of the exact
-    # projection, the two within 2e-4, the truncated control fails
-    checks.append(("K7", row, row["plain_vs_eigh"] <= 1e-4 and row["kernel_vs_eigh"] <= 1e-4
-                   and row["rel_err"] <= 2e-4 and not ctl16 <= 1e-4))
-    out["K7"] = [row]
-
-    # ---- K8a, K7 fused, K8b at config 2's shapes ----
-    rows = _check_shor_kernels(32, 100, 100, 8, 1024, gen, dev)
-    for name, row in rows.items():
-        log(name, json.dumps(row))
-    checks.append(("K8a", rows["K8a"], rows["K8a"]["rel_err"] <= 1e-5))
-    checks.append(("K8b", rows["K8b"], rows["K8b"]["rel_err"] <= 1e-5))
-    r7 = rows["K7fused"]
-    checks.append(("K7fused", r7, r7["plain_vs_eigh"] <= 1e-4 and r7["kernel_vs_eigh"] <= 1e-4
-                   and r7["rel_err"] <= 2e-4))
-    out.update({name: [row] for name, row in rows.items()})
+    # ---- K8a, K7 (fused and projection mode) at every shape the Shor k=1
+    # loop runs them, K8b at config 2's (the first row of each is the
+    # record's) ----
+    for name in ("K8a", "K7fused", "K7", "K8b"):
+        out[name] = []
+    for B, n, M5 in SHOR_SHAPES:
+        rows = _check_shor_kernels(B, n, n, 8, M5, gen, dev, k8b=not out["K8b"])
+        rows["K7"] = _check_k7_projection(B, M5, gen, dev)
+        for name, row in rows.items():
+            log(name, json.dumps(row))
+            out[name].append(row)
+        r8, r7, rp = rows["K8a"], rows["K7fused"], rows["K7"]
+        # K8a: float32 sums in another order than the plain version's
+        # scatter-adds, 1e-5 relative, K8a's plan the kernel's; K7: the bars
+        # of K1 (see above); both the same bits twice
+        checks.append(("K8a", r8, r8["rel_err"] <= 1e-5 and r8["deterministic"]
+                       and r8["plan_matches_kernel"]))
+        checks.append(("K7fused", r7, r7["plain_vs_eigh"] <= 1e-4 and r7["kernel_vs_eigh"] <= 1e-4
+                       and r7["rel_err"] <= 2e-4 and r7["deterministic"]))
+        # the bars of K1 (see above): each within 1e-4 of the exact
+        # projection, the two within 2e-4, the truncated control fails
+        checks.append(("K7", rp, rp["plain_vs_eigh"] <= 1e-4 and rp["kernel_vs_eigh"] <= 1e-4
+                       and rp["rel_err"] <= 2e-4 and rp["deterministic"]
+                       and not rp["control_16bit_vs_eigh"] <= 1e-4))
+        if "K8b" in rows:
+            checks.append(("K8b", rows["K8b"], rows["K8b"]["rel_err"] <= 1e-5))
 
     # ---- K7x projection mode: (32, 4096, 3, 3), spectra +-[0.1, 1] ----
-    from omc_torch.ops.polar import project_psd_xwh
+    from omc_torch.ops.polar import project_psd_ns_small, project_psd_xwh
 
     T, T64 = _spectral_batch(32 * 4096, 3, gen, dev)
     T, T64 = T.reshape(32, 4096, 3, 3), T64.reshape(32, 4096, 3, 3)
@@ -602,58 +608,94 @@ def _shor_inputs(B, n, m, L, M5, gen, dev):
     return c, sc, st
 
 
-def _check_shor_kernels(B, n, m, L, M5, gen, dev):
-    """K8a, K7 (fused) and K8b against their plain versions on the same
-    inputs, each at the outputs of the step before it, with times."""
+# (B, n = m, M5) of the Shor k=1 loop's K7 and K8a launches: config 2's
+# frontier (the record's row), its root visit's first minor bucket, its
+# largest bucket after the growths, and the shor cell's root and frontier
+SHOR_SHAPES = ((32, 100, 1024), (1, 100, 64), (32, 100, 4096), (1, 50, 4096), (4, 50, 4096))
+
+
+def _check_shor_kernels(B, n, m, L, M5, gen, dev, k8b=False):
+    """K8a and K7 (fused), and with ``k8b`` K8b, against their plain
+    versions on the same inputs, each at the outputs of the step before it:
+    errors, the same bits from two launches, CUDA-event and device times
+    (with ``--parent``, the parent tree's kernels on the same inputs)."""
     import torch
 
     from omc_torch.ops.cones import project_psd_plain
     from omc_torch.ops.polar import project_psd_ns_small
     from omc_torch.sdp import admm_shor as S
 
+    from omc_torch import kernels
+
+    lib = kernels.library()
     c, sc, st = _shor_inputs(B, n, m, L, M5, gen, dev)
+    shape = dict(B=B, n=n, m=m, M5=M5)
+    k8a_out = lambda x: (x.core.X, x.core.Th, x.W, x.v1, x.v2, x.v3)  # noqa: E731
+    plan8 = S.k8a_plan(B, n, m, M5)
+    P = sum(t.shape[1] for t in (st.v1, st.v2, st.v3))
 
     out = {}
-    sk = st.clone()
+    sk, s2 = st.clone(), st.clone()
     S.shor_zstep(c, sc, sk)
+    S.shor_zstep(c, sc, s2)
     torch.cuda.synchronize()
     ref = S.shor_zstep_plain(c, sc, st)
-    rel, ab = _errs((sk.core.X, sk.core.Th, sk.W, sk.v1, sk.v2, sk.v3), ref)
-    s2 = st.clone()
-    out["K8a"] = dict(B=B, n=n, m=m, M5=M5, rel_err=rel, max_abs_err=ab,
-                      ms=cuda_time_ms(lambda: S.shor_zstep(c, sc, s2)),
-                      plain_ms=cuda_time_ms(lambda: S.shor_zstep_plain(c, sc, st)))
+    rel, ab = _errs(k8a_out(sk), ref)
+    s3 = st.clone()
+    fns = {"kernel": lambda: S.shor_zstep(c, sc, s3)}
+    r8 = out["K8a"] = dict(
+        **shape, plan=plan8, plan_matches_kernel=plan8["smem"] == lib.omc_k8a_smem_bytes(
+            n, m, plan8["cluster"], plan8["groups"])
+        and plan8["grid"][0] == lib.omc_k8a_grid_x(m, P, plan8["cluster"], plan8["groups"]),
+        rel_err=rel, max_abs_err=ab, deterministic=_same_bits(k8a_out(sk), k8a_out(s2)),
+        ms=cuda_time_ms(fns["kernel"]),
+        plain_ms=cuda_time_ms(lambda: S.shor_zstep_plain(c, sc, st)))
+    if PARENT:
+        fns["parent"] = _parent_k8a(c, sc, st.clone())
+        r8["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(r8, fns)
     A_ = float(sc.sb.minor_mask.sum())  # active minors over the batch
-    P = sum(t.shape[1] for t in (st.v1, st.v2, st.v3))
     nm = n * m
     # per slot: X and Theta blocks of w1/u1, the RSOC X/W parts, W >= 0,
     # Theta-link, counts and tables; per active minor the 14 entries of w5/u5
     # the adjoint reads; out X, Theta, W, v
     rd = 2 * (nm + m * m) + 4 * nm + nm + 2 * m + 2 * nm + 2 * nm + (nm + 1) + P + 3 + m + 4
-    with_bound(out["K8a"], 4 * (B * (rd + 2 * nm + m * m + P) + A_ * (2 * 14 + 9) + 2 * nm),
+    with_bound(r8, 4 * (B * (rd + 2 * nm + m * m + P) + A_ * (2 * 14 + 9) + 2 * nm),
                B * 25 * nm + A_ * 40)
 
     # K7 fused at K8a's primal; the exact reference projects the same t5
     acc5 = torch.randn(st.u5.shape, generator=gen).to(dev) * 0.1
-    s7 = sk.clone()
-    a7 = acc5.clone()
+    s7, s7b = sk.clone(), sk.clone()
+    a7, a7b = acc5.clone(), acc5.clone()
     S.minor_step(c, sc, s7, a7, "ns")
+    S.minor_step(c, sc, s7b, a7b, "ns")
     torch.cuda.synchronize()
     w5p, u5p, a5p = S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)
     w5e, _, _ = S.minor_step_plain(c, sc, sk, acc5,
                                    lambda t: project_psd_plain(t.double()).float())
     rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
-    s8 = sk.clone()
-    a8 = acc5.clone()
-    out["K7fused"] = dict(B=B, M5=M5, rel_err=rel, max_abs_err=ab,
-                          plain_vs_eigh=rel_fro(w5p, w5e), kernel_vs_eigh=rel_fro(s7.w5, w5e),
-                          ms=cuda_time_ms(lambda: S.minor_step(c, sc, s8, a8, "ns")),
-                          plain_ms=cuda_time_ms(lambda: S.minor_step_plain(
-                              c, sc, sk, acc5, project_psd_ns_small)))
+    s8, a8 = sk.clone(), acc5.clone()
+    fns = {"kernel": lambda: S.minor_step(c, sc, s8, a8, "ns")}
+    r7 = out["K7fused"] = dict(
+        **shape, rel_err=rel, max_abs_err=ab, plain_vs_eigh=rel_fro(w5p, w5e),
+        kernel_vs_eigh=rel_fro(s7.w5, w5e),
+        deterministic=_same_bits((s7.w5, s7.u5, a7), (s7b.w5, s7b.u5, a7b)),
+        ms=cuda_time_ms(fns["kernel"]),
+        plain_ms=cuda_time_ms(lambda: S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)))
+    if PARENT:
+        fns["parent"] = _parent_k7(c, sc, sk.clone(), acc5.clone())
+        r7["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(r7, fns)
     N = B * M5
-    # w5/u5/acc read and written, X, W, v read once, the tables
-    with_bound(out["K7fused"], 4 * (N * (6 * 25 + 10) + B * (2 * nm + P) + 2 * B),
-               N * (SIGN_PRODUCTS * 250 + 75))
+    xw, nv = _k7_gathered(sc.sb, st, n, m)
+    # w5/u5/acc read and written, the tables, and once each the entries of
+    # X, W and v that this batch's minors gather; the operations: the
+    # symmetric schedule's products (the upper triangle, 15 entries of 5
+    # FMAs) and the mixing, epilogue and EMA
+    with_bound(r7, 4 * (N * (6 * 25 + 10) + 2 * xw + nv + 2 * B),
+               N * (SIGN_PRODUCTS * 150 + 75))
+    if not k8b:
+        return out
 
     # K8b at K8a's primal
     acc_r = torch.randn(st.ur.shape, generator=gen).to(dev) * 0.1
@@ -676,6 +718,70 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev):
                                     + 2 * nm + 3 * m + 4),
                B * 40 * nm)
     return out
+
+
+def _k7_gathered(sb, st, n, m):
+    """The distinct entries K7's fused gather reads in each slot, summed
+    over the slots: of X (and as many of W: the same coordinates), and of
+    v1, v2 and v3 together."""
+    import torch
+
+    B = sb.minor_idx.shape[0]
+    mi = sb.minor_idx.long()
+    b = torch.arange(B, device=mi.device)
+    f = torch.stack([mi[..., i] * m + mi[..., 2 + j] for i in (0, 1) for j in (0, 1)], -1)
+    xw = torch.unique(b[:, None, None] * (n * m) + f).numel()
+    nv = sum(torch.unique(b[:, None] * v.shape[1] + torch.cat(
+        [getattr(sb, name).long() for name in names], 1)).numel()
+        for v, names in ((st.v1, ("iv1a", "iv1b")), (st.v2, ("iv2a", "iv2b")),
+                         (st.v3, ("iv3",))))
+    return xw, nv
+
+
+def _check_k7_projection(B, M5, gen, dev):
+    """K7's projection mode on B M5 5x5 matrices of spectra +-[0.1, 1]:
+    against its plain version and a float64 eigh, with the truncated-product
+    control, the same bits twice, CUDA-event and device times."""
+    import torch
+
+    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.polar import (
+        project_psd_ns,
+        project_psd_ns_small,
+        project_psd_small,
+        truncated_matmul,
+    )
+
+    T, T64 = _spectral_batch(B * M5, 5, gen, dev)
+    T, T64 = T.reshape(B, M5, 5, 5), T64.reshape(B, M5, 5, 5)
+    wk, wb = project_psd_small(T), project_psd_small(T)
+    torch.cuda.synchronize()
+    wp = project_psd_ns_small(T)
+    exact = project_psd_plain(T64.to(dev))
+    # control: the plain schedule with operands truncated to 16 bits
+    ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
+    w2 = torch.empty_like(T)
+    fns = {"kernel": lambda: project_psd_small(T, w2)}
+    row = dict(B=B, M5=M5, shape=list(T.shape), rel_err=rel_fro(wk, wp),
+               max_abs_err=float((wk - wp).abs().max()),
+               plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
+               control_16bit_vs_eigh=ctl16, deterministic=torch.equal(wk, wb),
+               ms=cuda_time_ms(fns["kernel"]),
+               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
+    if PARENT:
+        fns["parent"] = _parent_k7_projection(T, torch.empty_like(T))
+    _device_rows(row, fns)
+    with_bound(row, 4 * 2 * T.numel(), T.numel() // 25 * (SIGN_PRODUCTS * 150 + 75))
+    return row
+
+
+def _device_rows(row, fns):
+    """``row``'s device ms per launch (``device_ms``; with ``--parent``,
+    ``parent_device_ms``)."""
+    dms = _k2k3_device_ms(fns)
+    row["device_ms"] = dms.pop("kernel")
+    if "parent" in dms:
+        row["parent_device_ms"] = dms.pop("parent")
 
 
 def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2):
@@ -928,18 +1034,21 @@ def _to64(x):
     return x
 
 
-# The parent tree's K2 and K3 (``--parent DIR``: a checkout of an older
-# tree), built from DIR's sources and launched on the same inputs as the
-# rows, for the records.  Their parameter blocks are DIR's own
+# The parent tree's K2, K3, K7 and K8a (``--parent DIR``: a checkout of an
+# older tree), built from DIR's sources and launched on the same inputs as
+# the rows, for the records.  Their parameter blocks are DIR's own
 # (``omc_torch/kernels.py`` there), each field filled by name: a field this
 # script has no value for raises, so a tree whose blocks differ cannot be
-# packed wrongly.
+# packed wrongly.  K2's and K3's plan fields come from DIR's own
+# ``k2k3_plan`` (``omc_torch/sdp/admm.py`` there).
 PARENT = {}
+PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor")
 
 
 def _load_parent(src):
-    """Build DIR's csrc/k2_zstep.cu and k3_cone.cu into one library (one
-    nvcc each, in parallel) and bind their entry points to DIR's blocks."""
+    """Build DIR's K2, K3, K7 and K8 sources into one library (one nvcc
+    each, in parallel), bind their entry points to DIR's blocks, take DIR's
+    ``k2k3_plan`` and keep ptxas's report of DIR's kernels."""
     import ctypes
     import importlib.util
 
@@ -947,27 +1056,38 @@ def _load_parent(src):
 
     root = os.path.abspath(src)
     csrc = os.path.join(root, "omc_torch", "csrc")
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels", os.path.join(root, "omc_torch", "kernels.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    out = os.path.join(HERE, "build", "parent_k2k3")
+
+    def module(name, *path):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(root, "omc_torch", *path))
+        mod = sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    mod = module("parent_kernels", "kernels.py")
+    plan = module("parent_admm", "sdp", "admm.py").k2k3_plan
+    out = os.path.join(HERE, "build", "parent_kernels")
     os.makedirs(out, exist_ok=True)
     nvcc = kernels._nvcc()
     jobs = [(os.path.join(out, f"{name}.o"), subprocess.Popen(
         [nvcc, *kernels.NVCC_FLAGS, "-I", csrc, "-c", os.path.join(csrc, f"{name}.cu"), "-o",
          os.path.join(out, f"{name}.o")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)) for name in ("k2_zstep", "k3_cone")]
+        text=True)) for name in PARENT_SOURCES]
+    logs = []
     for _, proc in jobs:
         _, err = proc.communicate()
         assert proc.returncode == 0, err
-    so = os.path.join(out, "libparent_k2k3.so")
+        logs.append(err)
+    so = os.path.join(out, "libparent_kernels.so")
     subprocess.run([nvcc, "-shared", "-o", so, *[o for o, _ in jobs]], check=True)
     lib = ctypes.CDLL(so)
-    for fn, st in ((lib.omc_k2_zstep, mod.K2Params), (lib.omc_k3_cone, mod.K3Params)):
+    for fn, st in ((lib.omc_k2_zstep, mod.K2Params), (lib.omc_k3_cone, mod.K3Params),
+                   (lib.omc_k7_minor_psd, mod.K7Params),
+                   (lib.omc_k8a_shor_zstep, mod.K8aParams)):
         fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, src=src)
+    PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
+                  P8a=mod.K8aParams, k2k3_plan=plan, src=src,
+                  ptxas=_ptxas_report("".join(logs)))
 
 
 def _parent_block(cls, values):
@@ -983,7 +1103,9 @@ def _parent_block(cls, values):
     return prm
 
 
-def _parent_launch(fn, prm):
+def _parent_launch(fn, prm, *keep):
+    """A launcher of the parent's ``fn`` with block ``prm`` (``keep``: the
+    tensors the block points to that nothing else holds)."""
     import ctypes
 
     import torch
@@ -993,6 +1115,7 @@ def _parent_launch(fn, prm):
     def run():
         err = fn(ctypes.byref(prm), stream)
         assert err == 0, f"parent kernel launch failed ({err})"
+    run.keep = keep
     return run
 
 
@@ -1011,27 +1134,83 @@ def _parent_values(c, st):
                 beta=c.beta)
 
 
+def _parent_plan_values(c, st, kernel):
+    """A parent K2 or K3 block's plan fields, from the parent's own
+    k2k3_plan, with the global workspace that plan needs."""
+    import torch
+
+    B = st.rho.shape[0]
+    plan = PARENT["k2k3_plan"](B, c.n, c.m, c.k, c.L)
+    ws = B * plan[f"{kernel}_ws"]
+    v = dict(C=plan[f"{kernel}_cluster"], xsmem=int(plan[f"{kernel}_xs"] == "smem"),
+             band=int(plan["band"] == "smem"), slsmem=int(plan["k3_slots"] == "smem"),
+             ws=torch.empty(ws, dtype=torch.float64, device=st.rho.device) if ws else None)
+    return v
+
+
 def _parent_k2(c, st, shor=False):
     """The parent's K2 on (c, st), writing into st: a launcher with its
     parameter block packed once (``shor``: Xs and Ths null)."""
     v = _parent_values(c, st)
+    v.update(_parent_plan_values(c, st, "k2"), G1i=c.G1i)
     if shor:
         v.update(Xs=None, Ths=None)
-    return _parent_launch(PARENT["lib"].omc_k2_zstep, _parent_block(PARENT["P2"], v))
+    return _parent_launch(PARENT["lib"].omc_k2_zstep, _parent_block(PARENT["P2"], v), v["ws"])
 
 
 def _parent_k3(c, st, ts, acc):
     """The parent's K3 on (c, st), writing into st, ts and acc."""
     v = _parent_values(c, st)
-    v.update(t1=ts[0], t2=ts[1], t3=ts[2], acc_a=acc[0], acc_b=acc[1], acc_c=acc[2])
-    return _parent_launch(PARENT["lib"].omc_k3_cone, _parent_block(PARENT["P3"], v))
+    v.update(_parent_plan_values(c, st, "k3"), t1=ts[0], t2=ts[1], t3=ts[2], acc_a=acc[0],
+             acc_b=acc[1], acc_c=acc[2])
+    return _parent_launch(PARENT["lib"].omc_k3_cone, _parent_block(PARENT["P3"], v), v["ws"])
+
+
+def _parent_shor_values(c, sc, st):
+    """The values a parent K7 or K8a block's fields may name."""
+    sb, core = sc.sb, st.core
+    B, n, m = core.X.shape
+    v = {name: getattr(sb, name) for name in (
+        "minor_idx", "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask", "soc_mask", "cnt_X",
+        "cnt_W", "cnt_v1", "cnt_v2", "cnt_v3", "xw_ptr", "xw_ent", "v1_ptr", "v1_ent",
+        "v2_ptr", "v2_ent", "v3_ptr", "v3_ent")}
+    v.update({name: getattr(st, name) for name in (
+        "w5", "u5", "wr", "ur", "wl", "ul", "wp", "up", "v1", "v2", "v3")})
+    v.update(w1=core.w1, u1=core.u1, g_link=sc.g_link, maskA=c.maskA, mask=c.mask, sX=core.sX,
+             sT=core.sT, sS=core.sS, rho=core.rho, Xs=core.X, Ths=core.Th, Ws=st.W, B=B, n=n,
+             m=m, M5=sc.M5, nm=n * m, P1=st.v1.shape[1], P2=st.v2.shape[1],
+             P3=st.v3.shape[1], gamma=c.gamma, R_X=sc.R_X, alpha=c.alpha, beta=c.beta)
+    return v
+
+
+def _parent_k8a(c, sc, st):
+    """The parent's K8a on (c, sc, st), writing into st."""
+    return _parent_launch(PARENT["lib"].omc_k8a_shor_zstep,
+                          _parent_block(PARENT["P8a"], _parent_shor_values(c, sc, st)))
+
+
+def _parent_k7(c, sc, st, acc5):
+    """The parent's K7 (fused) on (c, sc, st), writing into st and acc5."""
+    v = _parent_shor_values(c, sc, st)
+    v.update(t=None, w=st.w5, u=st.u5, acc=acc5, N=v["B"] * v["M5"])
+    return _parent_launch(PARENT["lib"].omc_k7_minor_psd, _parent_block(PARENT["P7"], v))
+
+
+def _parent_k7_projection(T, w):
+    """The parent's K7 (projection mode) of T into w: no fused operand."""
+    v = dict.fromkeys(("u", "acc", "Xs", "Ws", "v1", "v2", "v3", "minor_idx", "iv1a", "iv1b",
+                       "iv2a", "iv2b", "iv3", "minor_mask", "sS", "rho"))
+    v.update(dict.fromkeys(("M5", "nm", "P1", "P2", "P3", "m"), 0), alpha=0.0, beta=0.0, t=T,
+             w=w, N=T.numel() // 25)
+    return _parent_launch(PARENT["lib"].omc_k7_minor_psd, _parent_block(PARENT["P7"], v))
 
 
 def _k2k3_device_ms(fns, reps=20, medians=("kernel", "parent")):
     """Device milliseconds per launch of each kernel call in ``fns`` (name ->
     function), read from torch.profiler traces: the calls' CUDA-event times
     include the host's launch, which sets them at B=1.  A trace now and then
-    misses its events, so the names in ``medians`` take the median of three
+    misses its events: a trace that saw none is taken again, and a call that
+    no trace saw raises; the names in ``medians`` take the median of three
     traces."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1044,11 +1223,23 @@ def _k2k3_device_ms(fns, reps=20, medians=("kernel", "parent")):
         return sum(getattr(ev, "self_device_time_total", 0) or 0
                    for ev in prof.key_averages()) / 1e3 / reps
 
+    def timed(fn, want):
+        # the median of ``want`` traces that saw the kernel (at most 3 want
+        # tries)
+        got = []
+        for _ in range(3 * want):
+            t = traced(fn)
+            if t > 0:
+                got.append(t)
+            if len(got) == want:
+                break
+        assert got, f"no trace of {3 * want} saw a device kernel"
+        return statistics.median(got)
+
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    return {name: statistics.median(traced(fn) for _ in range(3 if name in medians else 1))
-            for name, fn in fns.items()}
+    return {name: timed(fn, 3 if name in medians else 1) for name, fn in fns.items()}
 
 
 def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
@@ -2348,7 +2539,8 @@ def _trace_loop(step, names, iters, **shape):
 
 def phase_trace(res):
     """(Run on request only.)  torch.profiler traces of the Shor loop at
-    config 2's shape (B=32, n=m=100, M5=1024, L=8) and of the rank-k Shor
+    config 2's shape (B=32, n=m=100, M5=1024, L=8) and at the shor cell's
+    (B=4, n=m=50, M5=4096), of the rank-k Shor
     loop at config 3's (B=32, n=m=75, k=2, M5=1024, L=8), 20 iterations
     each, of the McCormick loop at the headline's shape (n=m=50, k=1; B=1
     and B=64), 50 iterations each, and of one base-path root visit at B=64
@@ -2363,15 +2555,20 @@ def phase_trace(res):
     names = {"k1_": "K1", "k2_kernel": "K2", "k3_kernel": "K3", "k7_kernel": "K7",
              "k8a_kernel": "K8a", "k8b_kernel": "K8b", "k7t_kernel": "K7t",
              "k7x_kernel": "K7x", "k8c_kernel": "K8c", "k8d_kernel": "K8d"}
-    c, sc, st = _shor_inputs(32, 100, 100, 8, 1024, gen, dev)
-    acc = [torch.zeros_like(x) for x in (st.core.u1, st.core.u2, st.core.ua, st.core.ub,
-                                         st.core.uc, st.u5, st.ur, st.ul)]
-    ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
-          torch.empty_like(st.core.w3))
-    row = _k2k3_traced(lambda: _trace_loop(lambda: S.shor_iteration(c, sc, st, ts, acc, "ns"),
-                                           names, 20, B=32, n=100, m=100, M5=1024, L=8))
-    log("trace", json.dumps(row))
-    res["trace"] = row
+    # the Shor loop at config 2's shape, then at the shor cell's frontier
+    for key, (B, n, M5) in (("trace", (32, 100, 1024)), ("trace_shor", (4, 50, 4096))):
+        c, sc, st = _shor_inputs(B, n, n, 8, M5, gen, dev)
+        acc = [torch.zeros_like(x) for x in (st.core.u1, st.core.u2, st.core.ua, st.core.ub,
+                                             st.core.uc, st.u5, st.ur, st.ul)]
+        ts = (torch.empty_like(st.core.w1), torch.empty_like(st.core.w2),
+              torch.empty_like(st.core.w3))
+        row = _k2k3_traced(lambda: _trace_loop(
+            lambda: S.shor_iteration(c, sc, st, ts, acc, "ns"), names, 20, B=B, n=n, m=n,
+            M5=M5, L=8))
+        by = row["kernel_ms_per_iter"]
+        row["k7_k8a_ms_per_iter"] = by.get("K7", 0.0) + by.get("K8a", 0.0)
+        log(key.replace("_", " "), json.dumps(row))
+        res[key] = row
     c, sc, st = _shor_k_inputs(32, 75, 75, 8, 1024, gen, dev)
     acc = [torch.zeros_like(x) for x in (st.core.u1, st.core.u2, st.core.ua, st.core.ub,
                                          st.core.uc, st.u5, st.ux, st.ur, st.ul, st.uwl)]
@@ -2545,8 +2742,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
-    ap.add_argument("--parent", help="a checkout of an older tree: its K2 and K3 are timed "
-                    "beside the kernels phase's rows")
+    ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7 and K8a are "
+                    "timed beside the kernels phase's rows")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:

@@ -171,7 +171,8 @@ __device__ __forceinline__ void mm_small(const float (&A)[D][D], const float (&B
 }
 
 // Sign-schedule PSD projection of one D x D matrix held by one thread in
-// registers (plain version: omc_torch.ops.polar.project_psd_ns_small):
+// registers, full products (K7t and K7x; K7 runs project_psd_small_sym
+// below; plain version: omc_torch.ops.polar.project_psd_ns_small):
 // T <- sym(T); W <- (T + sign(T) T) / 2, symmetrised, with sign(T) from the
 // 12 quintic + 2 cubic steps of kSignSched on T / ||T||_F (43 products).
 template <int D>
@@ -232,6 +233,74 @@ __device__ __forceinline__ void project_psd_small(float (&T)[D][D], float (&W)[D
       W[i][j] = a;
       W[j][i] = a;
     }
+}
+
+// The index of entry (i, j) of a symmetric D x D matrix held as its upper
+// triangle, row by row (kTri<D> floats): (j, i) for i > j.
+template <int D>
+constexpr int kTri = D * (D + 1) / 2;
+template <int D>
+__host__ __device__ __forceinline__ constexpr int tri(int i, int j) {
+  return i <= j ? i * D - i * (i - 1) / 2 + (j - i) : j * D - j * (j - 1) / 2 + (i - j);
+}
+
+// C = A B for commuting symmetric D x D matrices held as upper triangles:
+// the upper triangle of the product only (D (D + 1) / 2 entries of D FMAs,
+// each summed in order of k), so C is exactly symmetric
+template <int D>
+__device__ __forceinline__ void mm_sym(const float (&A)[D * (D + 1) / 2],
+                                       const float (&B)[D * (D + 1) / 2],
+                                       float (&C)[D * (D + 1) / 2]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = i; j < D; ++j) {
+      float c = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) c = fmaf(A[tri<D>(i, k)], B[tri<D>(k, j)], c);
+      C[tri<D>(i, j)] = c;
+    }
+}
+
+// project_psd_small on the upper triangle T of a symmetric matrix (the
+// caller symmetrises): every iterate of the sign schedule is a polynomial in
+// T, so every product is one of commuting symmetric matrices and takes its
+// upper triangle only (mm_sym; 43 x 75 FMAs for D = 5, not 43 x 125), and
+// W = (T + sign(T) T) / 2 comes out exactly symmetric.  Four triangles of
+// state.  CPU mirror: omc_torch.ops.polar.project_psd_ns with
+// symmetric_matmul().
+template <int D>
+__device__ __forceinline__ void project_psd_small_sym(const float (&T)[D * (D + 1) / 2],
+                                                      float (&W)[D * (D + 1) / 2]) {
+  constexpr int NT = D * (D + 1) / 2;
+  float ss = 0.f;  // ||T||_F^2 over the full matrix, row by row
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) ss = fmaf(T[tri<D>(i, j)], T[tri<D>(i, j)], ss);
+  const float s = sqrtf(ss) + 1e-30f;
+  float S[NT], S2[NT], M[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) S[q] = T[q] / s;
+  for (int step = 0; step < kSignSteps; ++step) {
+    const float a = kSignSched[step][0], b = kSignSched[step][1], c = kSignSched[step][2];
+    mm_sym<D>(S, S, S2);
+    if (c != 0.f) {
+      mm_sym<D>(S2, S2, M);  // S^4
+#pragma unroll
+      for (int q = 0; q < NT; ++q) M[q] = b * S2[q] + c * M[q];
+      mm_sym<D>(S, M, S2);   // S (b S^2 + c S^4)
+#pragma unroll
+      for (int q = 0; q < NT; ++q) S[q] = a * S[q] + S2[q];
+    } else {
+      mm_sym<D>(S, S2, M);   // S^3
+#pragma unroll
+      for (int q = 0; q < NT; ++q) S[q] = a * S[q] + b * M[q];
+    }
+  }
+  mm_sym<D>(S, T, M);
+#pragma unroll
+  for (int q = 0; q < NT; ++q) W[q] = 0.5f * (T[q] + M[q]);
 }
 
 // projection onto {(u, v, x): 2 u v >= x^2, u, v >= 0} through the standard
@@ -366,7 +435,9 @@ struct K7Params {
 };
 
 // K8a: the Shor part of the z-step (adjoint of the minor, RSOC, link and
-// W >= 0 slots, diagonal solves, Theta-link correction) -> Xs, Ths, W, v.
+// W >= 0 slots, diagonal solves, Theta-link correction) -> Xs, Ths, W, v;
+// per node slot Q clusters of C CTAs on the X/W coordinates, then CTAs on
+// Theta's off-diagonal tile pairs and on the v entries (omc_k8a_grid_x).
 struct K8aParams {
   const float *w1, *u1;                 // (B, n+m, n+m)
   const float *w5, *u5;                 // (B, M5, 5, 5)
@@ -380,6 +451,9 @@ struct K8aParams {
   const float *sX, *sT, *sS, *rho;      // (B,)
   float *Xs, *Ths, *Ws, *v1, *v2, *v3;  // outputs
   int B, n, m, M5, P1, P2, P3;
+  int C, Q;                             // the X/W coordinates' clusters of C CTAs
+                                        // (1..8) over Q column groups
+                                        // (omc_torch.sdp.admm_shor.k8a_plan)
   float gamma, R_X;                     // R_X = sqrt(2 gamma ub_bar)
 };
 

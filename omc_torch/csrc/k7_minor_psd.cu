@@ -10,90 +10,154 @@
 //   u5 = (t5 - w5) mask,   acc += beta (rho u5 - acc).
 // Without the fused mode it projects a given (N, 5, 5) batch.
 //
-// What bounds it on the H100: fp32 FMAs.  One matrix is 43 x 125 = 5,375
-// FMAs against 300 bytes of w5/u5/acc traffic (plus 60 gathered), ~18 FMAs
-// per byte; at config 2 there are up to 32 x 4096 = 131,072 matrices, so the
-// whole card is busy.  omc laid the batch along the TPU's lanes to keep the
-// 5x5 products off the matrix unit; here the same idea is one thread per
-// matrix with all four working matrices (T, S, S^2, S^4 / products) in
-// registers (omc::project_psd_small in common.cuh, shared with K7t/K7x): no
-// shared memory, no synchronisation, full fp32 FMAs, no tensor cores.  The t5 of a minor is exactly symmetric (every input slot
-// is), so u5 = t5 - w5 uses the symmetrised T.
+// What bounds it on the H100: fp32 FMAs and bytes in nearly equal shares.
+// One matrix is 43 x 75 = 3,225 FMAs (the upper triangles of products of
+// commuting symmetric matrices, omc::project_psd_small_sym) against 300
+// bytes of w5/u5/acc read and written, plus 60 gathered.  omc laid the batch
+// along the TPU's lanes to keep the 5x5 products off the matrix unit; here
+// it is one thread per matrix, four 15-float triangles in registers, no
+// tensor cores (an mma tile would waste most of its area on a 5x5, and the
+// fp32 bar needs 3xTF32, three times the issue count).  The 100-byte
+// records of w5, u5 and acc are staged through shared memory: a CTA's
+// matrices are one contiguous block of each array, read and written with
+// 16-byte vector accesses by consecutive threads, and each thread reads its
+// own matrix at a stride of 25 words (odd: no bank conflicts).  The t5 of a
+// minor is exactly symmetric (every input slot is), so u5 = t5 - w5 uses the
+// symmetrised T.  A CTA is 128 threads (smaller CTAs were never faster on
+// the H100 at the Shor loop's shapes: a matrix's chain of products is the
+// time, even where 128 leaves SMs idle).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kD = 5;
+constexpr int kD5 = kD * kD;
+constexpr int kNT = omc::kTri<kD>;
 constexpr int kThreads7 = 128;
 
-typedef float Mat5[kD][kD];
+using omc::tri;
+
+// nf floats from global g (16-byte aligned at its start, or the copy goes a
+// float at a time) into shared s, and back: consecutive threads on
+// consecutive 16-byte words
+__device__ __forceinline__ void load_block(const float* g, float* s, int nf) {
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
+  for (int q = threadIdx.x; q < n4; q += kThreads7)
+    reinterpret_cast<float4*>(s)[q] = reinterpret_cast<const float4*>(g)[q];
+  for (int q = 4 * n4 + threadIdx.x; q < nf; q += kThreads7) s[q] = g[q];
+}
+
+__device__ __forceinline__ void store_block(float* g, const float* s, int nf) {
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
+  for (int q = threadIdx.x; q < n4; q += kThreads7)
+    reinterpret_cast<float4*>(g)[q] = reinterpret_cast<const float4*>(s)[q];
+  for (int q = 4 * n4 + threadIdx.x; q < nf; q += kThreads7) g[q] = s[q];
+}
 
 __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= p.N) return;
-  const size_t off = (size_t)g * kD * kD;
-  Mat5 T, W;
+  // the CTA's blocks of w5 (or t), u5 and acc, kThreads7 matrices each (a
+  // multiple of 4 matrices: every block starts 16-byte aligned)
+  __shared__ float4 k7_smem[3 * kThreads7 * kD5 / 4];
+  float* sw = reinterpret_cast<float*>(k7_smem);
+  float* su = sw + kThreads7 * kD5;
+  float* sa = su + kThreads7 * kD5;
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * kThreads7;
+  const int cnt = min(kThreads7, p.N - base);
+  const int nf = cnt * kD5;
+  const size_t off = (size_t)base * kD5;
+  float* mw = sw + tid * kD5;
+  float* mu = su + tid * kD5;
+  float* ma = sa + tid * kD5;
+  float T[kNT], W[kNT];
+
   if (p.t != nullptr) {
+    load_block(p.t + off, sw, nf);
+    __syncthreads();
+    if (tid < cnt) {
 #pragma unroll
-    for (int i = 0; i < kD; ++i)
+      for (int i = 0; i < kD; ++i)
 #pragma unroll
-      for (int j = 0; j < kD; ++j) T[i][j] = p.t[off + i * kD + j];
-    omc::project_psd_small<kD>(T, W);
+        for (int j = i; j < kD; ++j)
+          T[tri<kD>(i, j)] = i == j ? mw[i * kD + i] : 0.5f * (mw[i * kD + j] + mw[j * kD + i]);
+      omc::project_psd_small_sym<kD>(T, W);
 #pragma unroll
-    for (int i = 0; i < kD; ++i)
+      for (int i = 0; i < kD; ++i)
 #pragma unroll
-      for (int j = 0; j < kD; ++j) p.w[off + i * kD + j] = W[i][j];
+        for (int j = 0; j < kD; ++j) mw[i * kD + j] = W[tri<kD>(i, j)];
+    }
+    __syncthreads();
+    store_block(p.w + off, sw, nf);
     return;
   }
 
+  load_block(p.w + off, sw, nf);
+  load_block(p.u + off, su, nf);
+  if (p.acc != nullptr) load_block(p.acc + off, sa, nf);
   // fused mode: gather the minor's 15 distinct entries (omc _forward_shor)
-  const int b = g / p.M5;
-  const int* mi = p.minor_idx + (size_t)g * 4;
-  const int i1 = mi[0], i2 = mi[1], j1 = mi[2], j2 = mi[3];
-  const float* X = p.Xs + (size_t)b * p.nm;
-  const float* Wv = p.Ws + (size_t)b * p.nm;
-  const int f11 = i1 * p.m + j1, f12 = i1 * p.m + j2;
-  const int f21 = i2 * p.m + j1, f22 = i2 * p.m + j2;
-  const float x11 = X[f11], x12 = X[f12], x21 = X[f21], x22 = X[f22];
-  const float w11 = Wv[f11], w12 = Wv[f12], w21 = Wv[f21], w22 = Wv[f22];
-  const float V1a = p.v1[(size_t)b * p.P1 + p.iv1a[g]];
-  const float V1b = p.v1[(size_t)b * p.P1 + p.iv1b[g]];
-  const float V2a = p.v2[(size_t)b * p.P2 + p.iv2a[g]];
-  const float V2b = p.v2[(size_t)b * p.P2 + p.iv2b[g]];
-  const float V3 = p.v3[(size_t)b * p.P3 + p.iv3[g]];
-  const Mat5 F = {
-      {1.f, x11, x12, x21, x22},
-      {x11, w11, V1a, V2a, V3},
-      {x12, V1a, w12, V3, V2b},
-      {x21, V2a, V3, w21, V1b},
-      {x22, V3, V2b, V1b, w22},
-  };
-  const float sS = p.sS[b], alpha = p.alpha, om = 1.0f - p.alpha;
+  // while the blocks arrive
+  const bool act = tid < cnt;
+  float x11 = 0.f, x12 = 0.f, x21 = 0.f, x22 = 0.f, w11 = 0.f, w12 = 0.f, w21 = 0.f, w22 = 0.f;
+  float V1a = 0.f, V1b = 0.f, V2a = 0.f, V2b = 0.f, V3 = 0.f, sS = 0.f, mask = 0.f, rho = 0.f;
+  if (act) {
+    const int g = base + tid;
+    const int b = g / p.M5;
+    const int4 mi = reinterpret_cast<const int4*>(p.minor_idx)[g];  // (i1, i2, j1, j2)
+    const float* X = p.Xs + (size_t)b * p.nm;
+    const float* Wv = p.Ws + (size_t)b * p.nm;
+    const int f11 = mi.x * p.m + mi.z, f12 = mi.x * p.m + mi.w;
+    const int f21 = mi.y * p.m + mi.z, f22 = mi.y * p.m + mi.w;
+    x11 = X[f11], x12 = X[f12], x21 = X[f21], x22 = X[f22];
+    w11 = Wv[f11], w12 = Wv[f12], w21 = Wv[f21], w22 = Wv[f22];
+    V1a = p.v1[(size_t)b * p.P1 + p.iv1a[g]];
+    V1b = p.v1[(size_t)b * p.P1 + p.iv1b[g]];
+    V2a = p.v2[(size_t)b * p.P2 + p.iv2a[g]];
+    V2b = p.v2[(size_t)b * p.P2 + p.iv2b[g]];
+    V3 = p.v3[(size_t)b * p.P3 + p.iv3[g]];
+    sS = p.sS[b], mask = p.minor_mask[g], rho = p.rho[b];
+  }
+  __syncthreads();
+  if (act) {
+    const float F[kD][kD] = {
+        {1.f, x11, x12, x21, x22},
+        {x11, w11, V1a, V2a, V3},
+        {x12, V1a, w12, V3, V2b},
+        {x21, V2a, V3, w21, V1b},
+        {x22, V3, V2b, V1b, w22},
+    };
+    const float alpha = p.alpha, om = 1.0f - p.alpha;
 #pragma unroll
-  for (int i = 0; i < kD; ++i)
+    for (int i = 0; i < kD; ++i)
 #pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      const size_t q = off + i * kD + j;
-      T[i][j] = (alpha * (sS * F[i][j]) + om * p.w[q]) + p.u[q];
-    }
-  omc::project_psd_small<kD>(T, W);
-  const float mask = p.minor_mask[g], rho = p.rho[b];
+      for (int j = i; j < kD; ++j) {
+        const float tij = (alpha * (sS * F[i][j]) + om * mw[i * kD + j]) + mu[i * kD + j];
+        const float tji = (alpha * (sS * F[j][i]) + om * mw[j * kD + i]) + mu[j * kD + i];
+        T[tri<kD>(i, j)] = i == j ? tij : 0.5f * (tij + tji);
+      }
+    omc::project_psd_small_sym<kD>(T, W);
 #pragma unroll
-  for (int i = 0; i < kD; ++i)
+    for (int i = 0; i < kD; ++i)
 #pragma unroll
-    for (int j = 0; j < kD; ++j) {
-      const size_t q = off + i * kD + j;
-      const float u = (T[i][j] - W[i][j]) * mask;
-      p.w[q] = W[i][j];
-      p.u[q] = u;
-      if (p.acc != nullptr) p.acc[q] = p.acc[q] + p.beta * (rho * u - p.acc[q]);
-    }
+      for (int j = 0; j < kD; ++j) {
+        const int q = i * kD + j;
+        const float u = (T[tri<kD>(i, j)] - W[tri<kD>(i, j)]) * mask;
+        mw[q] = W[tri<kD>(i, j)];
+        mu[q] = u;
+        if (p.acc != nullptr) ma[q] = ma[q] + p.beta * (rho * u - ma[q]);
+      }
+  }
+  __syncthreads();
+  store_block(p.w + off, sw, nf);
+  store_block(p.u + off, su, nf);
+  if (p.acc != nullptr) store_block(p.acc + off, sa, nf);
 }
 
 }  // namespace
 
 OMC_EXPORT int omc_k7_minor_psd(const K7Params* params, void* stream) {
-  const K7Params p = *params;
+  const K7Params& p = *params;
   if (p.N > 0) {
     const int grid = (p.N + kThreads7 - 1) / kThreads7;
     k7_kernel<<<grid, kThreads7, 0, (cudaStream_t)stream>>>(p);

@@ -13,37 +13,94 @@
 // rows (:429-431) and the W >= 0 slot (:433-435), with the dual EMAs of
 // rho*ur and rho*ul (:493-494).
 //
-// What bounds both on the H100: bytes.  Per slot they stream the n*m
+// What bounds both on the H100: bytes, and for K8a at small batches the
+// latency of its dependent gathers.  Per slot they stream the n*m
 // coordinates' X, W, RSOC (3 floats), W >= 0 and count arrays once, plus
-// the minor duals through the inverse tables, with a few flops each.
-// Design: one CTA per (node slot, tile of 32 columns), 8 row groups of 32
-// threads, consecutive threads on consecutive columns (coalesced rows).
-// The link rows need column sums over i of W; a CTA owns whole columns, so
-// the sums are a shared-memory reduction inside the CTA (no atomics, no
-// second pass).  The adjoint gathers each coordinate's minor duals through
-// the CSR inverse tables built on the host once per visit, in ascending
-// minor order, so every sum is deterministic (no atomics).
+// the minor duals through the inverse tables, with a few flops each.  The
+// adjoint gathers each coordinate's and each v entry's minor duals through
+// the CSR inverse tables built on the host once per visit, summed in the
+// tables' (ascending minor) order, so every sum is deterministic (no
+// atomics); four entries' loads are in flight at once.
+//
+// K8a's grid is sized to the card (omc_torch.sdp.admm_shor.k8a_plan), with
+// three kinds of CTA per node slot (grid (omc_k8a_grid_x, B), clusters of C
+// along x):
+//  (a) x < Q C: Q clusters on the X/W coordinates, cluster k owning columns
+//      [k m / Q, (k + 1) m / Q) and its CTA r rows [r n / C, (r + 1) n / C),
+//      the tile's items (i, j) walked flat with consecutive threads on
+//      consecutive j.  The link rows need the column sums of zW over every
+//      row: each CTA keeps its tile of zW (and of W's diagonal) in shared
+//      memory and sums its rows in order, the cluster adds the C partials
+//      in rank order through distributed shared memory, every CTA forms t_l
+//      and writes its W once, corrected, and rank 0 writes Theta's
+//      diagonal.  One launch, no atomics, the same bits every run.
+//  (b) then one CTA per 32 x 32 tile pair (I, J), I >= J, of Theta's
+//      off-diagonal: both tiles of w1 - u1 read by rows into shared memory
+//      and written as sym(Theta) by rows, so both reads are coalesced.
+//  (c) then the 5 M5 v entries of the slot, one a thread.
+// K8b keeps one CTA per (node slot, tile of 32 columns), 8 row groups of 32
+// threads, consecutive threads on consecutive columns; its link rows' column
+// sums are a shared-memory reduction inside the CTA.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kCols = 32;
 constexpr int kRows = omc::kThreads / kCols;  // 8
 constexpr int kD5 = 25;                        // floats per 5x5 minor slot
+constexpr int kTile = 32;                      // K8a's Theta tiles
+constexpr int kClusterMax = 8;                 // K8a's clusters: the portable size
+constexpr int kChunk = 4;                      // CSR entries whose loads fly together
 
 __device__ __forceinline__ float y5(const float* w5, const float* u5, int l, int i, int j) {
   const int q = l * kD5 + i * 5 + j;
   return w5[q] - u5[q];
 }
 
-__global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
-  __shared__ float part[kRows][kCols];
-  __shared__ float tl_s[kCols];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % kCols, ty = tid / kCols;
+// The sum of term(ent[e]) over the CSR list e in [lo, hi), in list order:
+// kChunk entries' loads are issued before any of them is added.
+template <class Term>
+__device__ __forceinline__ float csr_sum(const int* ent, int lo, int hi, Term term) {
+  float g = 0.f;
+  for (int e0 = lo; e0 < hi; e0 += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) v[u] = e0 + u < hi ? term(ent[e0 + u]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if (e0 + u < hi) g += v[u];
+  }
+  return g;
+}
+
+// the tile pair (I, J), I >= J, of index pr = I (I + 1) / 2 + J
+__device__ __forceinline__ void tile_pair(int pr, int& I, int& J) {
+  I = (int)((sqrtf(8.0f * pr + 1.0f) - 1.0f) * 0.5f);
+  while (I * (I + 1) / 2 > pr) --I;
+  while ((I + 1) * (I + 2) / 2 <= pr) ++I;
+  J = pr - I * (I + 1) / 2;
+}
+
+// (a): the X/W coordinates of rows [band_lo(n, C, r), band_lo(n, C, r + 1))
+// and columns [band_lo(m, Q, k), band_lo(m, Q, k + 1)), the cluster's column
+// sums, t_l, W's correction and Theta's diagonal there; shared memory holds
+// the columns' partials and t_l, then the tile's zW and W's diagonal d_W
+__device__ __forceinline__ void k8a_coords(const K8aParams& p, int b, int k, float* smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank(), C = p.C;
   const int n = p.n, m = p.m, D1 = n + m, nm = n * m;
-  const int j = blockIdx.x * kCols + lane;
-  const bool col = j < m;
+  const int lo = omc::band_lo(n, C, r), hi = omc::band_lo(n, C, r + 1);
+  const int j0 = omc::band_lo(m, p.Q, k), mw = omc::band_lo(m, p.Q, k + 1) - j0;
+  const int items = (hi - lo) * mw;
+  const float inv_w = 1.0f / (float)mw;
+  float* part = smem;
+  float* tl_s = part + mw;
+  float* zw_s = tl_s + mw;
+  float* dw_s = zw_s + items;
   const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
   const float sW = sX * sX, sS2 = sS * sS;
   const float* w1 = p.w1 + (size_t)b * D1 * D1;
@@ -53,112 +110,197 @@ __global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
   const int* xw_ptr = p.xw_ptr + (size_t)b * (nm + 1);
   const int* xw_ent = p.xw_ent + (size_t)b * 4 * p.M5;
   const float R_Xs = p.R_X / sX;
-  const float yl = col ? p.wl[b * m + j] - p.ul[b * m + j] : 0.f;
+  float* Ws = p.Ws + (size_t)b * nm;
 
-  // ---- X and W entries of this CTA's columns; column sums of zW ----
-  float csum = 0.f;
-  if (col) {
-    for (int i = ty; i < n; i += kRows) {
-      const int f = i * m + j;
-      const size_t q = (size_t)b * nm + f;
-      float gx = 0.f, gw = 0.f;
-      for (int e = xw_ptr[f]; e < xw_ptr[f + 1]; ++e) {
-        const int ent = xw_ent[e], l = ent >> 2, c = (ent & 3) + 1;
-        gx += 2.0f * (sS * y5(w5, u5, l, 0, c));
-        gw += sS * y5(w5, u5, l, c, c);
+  for (int e = threadIdx.x; e < items; e += blockDim.x) {
+    int il, jl;
+    omc::divmod(e, mw, inv_w, il, jl);
+    const int i = lo + il, j = j0 + jl, f = i * m + j;
+    const size_t q = (size_t)b * nm + f;
+    const float yl = p.wl[b * m + j] - p.ul[b * m + j];
+    // the minors at this coordinate: 2 sS y5[0, c] on X, sS y5[c, c] on W
+    float gx = 0.f, gw = 0.f;
+    const int e1 = xw_ptr[f + 1];
+    for (int e0 = xw_ptr[f]; e0 < e1; e0 += kChunk) {
+      float vx[kChunk], vw[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        vx[u] = vw[u] = 0.f;
+        if (e0 + u < e1) {
+          const int ent = xw_ent[e0 + u], l = ent >> 2, c = (ent & 3) + 1;
+          vx[u] = 2.0f * (sS * y5(w5, u5, l, 0, c));
+          vw[u] = sS * y5(w5, u5, l, c, c);
+        }
       }
-      const float sm = p.soc_mask[q];
-      gw += sS * (p.wr[3 * q + 1] - p.ur[3 * q + 1]) * sm;
-      gx += sS * (p.wr[3 * q + 2] - p.ur[3 * q + 2]) * sm;
-      gw = gw - sW * yl;
-      gw = gw + sS * (p.wp[q] - p.up[q]);
-      const int q1 = i * D1 + n + j;
-      const float rX = sX * 2.0f * (w1[q1] - u1[q1]);
-      const float RX = rho * (rX + gx) + sX * p.maskA[f];
-      const float dX1 = 2.0f * sX * sX + sS2 * p.cnt_X[q];
-      const float zX = RX / (rho * dX1);
-      p.Xs[q] = fminf(fmaxf(zX, -R_Xs), R_Xs);
-      const float RW = rho * gw - 0.5f * sW * p.mask[f];
-      const float dW1 = sS2 * fmaxf(p.cnt_W[q], 1.0f);
-      const float zW = RW / (rho * dW1);
-      p.Ws[q] = zW;
-      csum += zW;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u)
+        if (e0 + u < e1) gx += vx[u], gw += vw[u];
     }
+    const float sm = p.soc_mask[q];
+    gw += sS * (p.wr[3 * q + 1] - p.ur[3 * q + 1]) * sm;
+    gx += sS * (p.wr[3 * q + 2] - p.ur[3 * q + 2]) * sm;
+    gw = gw - sW * yl;
+    gw = gw + sS * (p.wp[q] - p.up[q]);
+    const int q1 = i * D1 + n + j;
+    const float rX = sX * 2.0f * (w1[q1] - u1[q1]);
+    const float RX = rho * (rX + gx) + sX * p.maskA[f];
+    const float dX1 = 2.0f * sX * sX + sS2 * p.cnt_X[q];
+    const float zX = RX / (rho * dX1);
+    p.Xs[q] = fminf(fmaxf(zX, -R_Xs), R_Xs);
+    const float RW = rho * gw - 0.5f * sW * p.mask[f];
+    const float dW1 = sS2 * fmaxf(p.cnt_W[q], 1.0f);
+    zw_s[e] = RW / (rho * dW1);
+    dw_s[e] = dW1;
   }
-  part[ty][lane] = csum;
   __syncthreads();
-
-  // ---- Theta diagonal with the link correction ----
-  float* Ths = p.Ths + (size_t)b * m * m;
-  if (ty == 0 && col) {
+  // this CTA's column sums of zW, its rows in order
+  for (int jl = threadIdx.x; jl < mw; jl += blockDim.x) {
     float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += part[r][lane];
+    for (int il = 0; il < hi - lo; ++il) s += zw_s[il * mw + jl];
+    part[jl] = s;
+  }
+  omc::cluster_arrive();
+  omc::cluster_wait();
+  // the cluster's sums in rank order -> t_l; Theta's diagonal from rank 0
+  float* Ths = p.Ths + (size_t)b * m * m;
+  for (int jl = threadIdx.x; jl < mw; jl += blockDim.x) {
+    const int j = j0 + jl;
+    float v[kClusterMax];
+#pragma unroll
+    for (int rr = 0; rr < kClusterMax; ++rr)
+      if (rr < C) v[rr] = *cluster.map_shared_rank(part + jl, rr);
+    float s = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < kClusterMax; ++rr)
+      if (rr < C) s += v[rr];
+    const float yl = p.wl[b * m + j] - p.ul[b * m + j];
     const int qd = (n + j) * D1 + n + j;
     const float RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - sT * 0.5f / p.gamma;
-    float zTh = RT / (rho * sT * sT);
+    const float zTh = RT / (rho * sT * sT);
     const float t_l = rho * (sT * zTh - sW * s) / p.g_link[b * m + j];
-    zTh = zTh - t_l / (rho * sT);
-    Ths[j * m + j] = zTh;
-    tl_s[lane] = t_l;
+    tl_s[jl] = t_l;
+    if (r == 0) Ths[j * m + j] = zTh - t_l / (rho * sT);
   }
   __syncthreads();
+  omc::cluster_arrive();  // this CTA reads no peer's partials any more
+  for (int e = threadIdx.x; e < items; e += blockDim.x) {
+    int il, jl;
+    omc::divmod(e, mw, inv_w, il, jl);
+    Ws[(lo + il) * m + j0 + jl] = zw_s[e] + sW * tl_s[jl] / (rho * dw_s[e]);
+  }
+  omc::cluster_wait();  // no CTA leaves while a peer may read its partials
+}
 
-  if (col) {
-    const float t_l = tl_s[lane];
-    for (int i = ty; i < n; i += kRows) {
-      const size_t q = (size_t)b * nm + i * m + j;
-      const float dW1 = sS2 * fmaxf(p.cnt_W[q], 1.0f);
-      p.Ws[q] = p.Ws[q] + sW * t_l / (rho * dW1);
+// (b): Theta's off-diagonal on the tile pair (I, J), I >= J: sym of the base
+// slots' share (no link term); the diagonal is (a)'s
+__device__ __forceinline__ void k8a_theta(const K8aParams& p, int b, int pr, float* tiles) {
+  int I, J;
+  tile_pair(pr, I, J);
+  float(*ta)[kTile + 1] = reinterpret_cast<float(*)[kTile + 1]>(tiles);
+  float(*tb)[kTile + 1] = ta + kTile;
+  const int n = p.n, m = p.m, D1 = n + m;
+  const float* w1 = p.w1 + (size_t)b * D1 * D1;
+  const float* u1 = p.u1 + (size_t)b * D1 * D1;
+  const float rho = p.rho[b], sT = p.sT[b];
+  const int lane = threadIdx.x % kTile, ty = threadIdx.x / kTile;
+  const int ny = blockDim.x / kTile;
+  // ta[ii][jj] = z(I*32 + ii, J*32 + jj), tb[ii][jj] = z(J*32 + ii, I*32 + jj)
+  for (int ii = ty; ii < kTile; ii += ny) {
+    const int ra = I * kTile + ii, ca = J * kTile + lane;
+    if (ra < m && ca < m) {
+      const int q = (n + ra) * D1 + n + ca;
+      ta[ii][lane] = (rho * (sT * (w1[q] - u1[q]))) / (rho * sT * sT);
     }
-    // Theta off the diagonal: sym of the base slots' share (no link term)
-    for (int i = ty; i < m; i += kRows) {
-      if (i == j) continue;
-      const int qa = (n + i) * D1 + n + j, qb = (n + j) * D1 + n + i;
-      const float za = (rho * (sT * (w1[qa] - u1[qa]))) / (rho * sT * sT);
-      const float zb = (rho * (sT * (w1[qb] - u1[qb]))) / (rho * sT * sT);
-      Ths[i * m + j] = 0.5f * (za + zb);
+    const int rb = J * kTile + ii, cb = I * kTile + lane;
+    if (I != J && rb < m && cb < m) {
+      const int q = (n + rb) * D1 + n + cb;
+      tb[ii][lane] = (rho * (sT * (w1[q] - u1[q]))) / (rho * sT * sT);
     }
   }
+  __syncthreads();
+  float* Ths = p.Ths + (size_t)b * m * m;
+  for (int ii = ty; ii < kTile; ii += ny) {
+    const int i = I * kTile + ii, j = J * kTile + lane;
+    if (i < m && j < m && i != j)
+      Ths[i * m + j] = 0.5f * (ta[ii][lane] + (I != J ? tb[lane][ii] : ta[lane][ii]));
+    const int i2 = J * kTile + ii, j2 = I * kTile + lane;
+    if (I != J && i2 < m && j2 < m) Ths[i2 * m + j2] = 0.5f * (tb[ii][lane] + ta[lane][ii]);
+  }
+}
 
-  // ---- shared v entries: v1 | v2 | v3, strided over the slot's CTAs ----
+// (c): the shared v entries v1 | v2 | v3, entry e of the slot
+__device__ __forceinline__ void k8a_v(const K8aParams& p, int b, int e) {
   const int P1 = p.P1, P2 = p.P2, P3 = p.P3;
-  for (int e = blockIdx.x * blockDim.x + tid; e < P1 + P2 + P3;
-       e += gridDim.x * blockDim.x) {
-    float g = 0.f, cnt;
-    float* out;
-    if (e < P1) {
-      const int* ptr = p.v1_ptr + (size_t)b * (P1 + 1);
-      const int* ent = p.v1_ent + (size_t)b * 2 * p.M5;
-      for (int t = ptr[e]; t < ptr[e + 1]; ++t) {
-        const int l = ent[t] >> 1;
-        g += (ent[t] & 1) ? 2.0f * (sS * y5(w5, u5, l, 3, 4))
-                          : 2.0f * (sS * y5(w5, u5, l, 1, 2));
-      }
-      cnt = p.cnt_v1[(size_t)b * P1 + e];
-      out = p.v1 + (size_t)b * P1 + e;
-    } else if (e < P1 + P2) {
-      const int r = e - P1;
-      const int* ptr = p.v2_ptr + (size_t)b * (P2 + 1);
-      const int* ent = p.v2_ent + (size_t)b * 2 * p.M5;
-      for (int t = ptr[r]; t < ptr[r + 1]; ++t) {
-        const int l = ent[t] >> 1;
-        g += (ent[t] & 1) ? 2.0f * (sS * y5(w5, u5, l, 2, 4))
-                          : 2.0f * (sS * y5(w5, u5, l, 1, 3));
-      }
-      cnt = p.cnt_v2[(size_t)b * P2 + r];
-      out = p.v2 + (size_t)b * P2 + r;
-    } else {
-      const int r = e - P1 - P2;
-      const int* ptr = p.v3_ptr + (size_t)b * (P3 + 1);
-      const int* ent = p.v3_ent + (size_t)b * p.M5;
-      for (int t = ptr[r]; t < ptr[r + 1]; ++t) {
-        const int l = ent[t];
-        g += 2.0f * (sS * y5(w5, u5, l, 1, 4) + sS * y5(w5, u5, l, 2, 3));
-      }
-      cnt = p.cnt_v3[(size_t)b * P3 + r];
-      out = p.v3 + (size_t)b * P3 + r;
-    }
-    *out = (rho * g) / (rho * (sS2 * fmaxf(cnt, 1.0f)));
+  if (e >= P1 + P2 + P3) return;
+  const float rho = p.rho[b], sS = p.sS[b], sS2 = sS * sS;
+  const float* w5 = p.w5 + (size_t)b * p.M5 * kD5;
+  const float* u5 = p.u5 + (size_t)b * p.M5 * kD5;
+  float g, cnt;
+  float* out;
+  if (e < P1) {
+    const int* ptr = p.v1_ptr + (size_t)b * (P1 + 1);
+    g = csr_sum(p.v1_ent + (size_t)b * 2 * p.M5, ptr[e], ptr[e + 1], [&](int ent) {
+      const int l = ent >> 1;
+      return (ent & 1) ? 2.0f * (sS * y5(w5, u5, l, 3, 4)) : 2.0f * (sS * y5(w5, u5, l, 1, 2));
+    });
+    cnt = p.cnt_v1[(size_t)b * P1 + e];
+    out = p.v1 + (size_t)b * P1 + e;
+  } else if (e < P1 + P2) {
+    const int r = e - P1;
+    const int* ptr = p.v2_ptr + (size_t)b * (P2 + 1);
+    g = csr_sum(p.v2_ent + (size_t)b * 2 * p.M5, ptr[r], ptr[r + 1], [&](int ent) {
+      const int l = ent >> 1;
+      return (ent & 1) ? 2.0f * (sS * y5(w5, u5, l, 2, 4)) : 2.0f * (sS * y5(w5, u5, l, 1, 3));
+    });
+    cnt = p.cnt_v2[(size_t)b * P2 + r];
+    out = p.v2 + (size_t)b * P2 + r;
+  } else {
+    const int r = e - P1 - P2;
+    const int* ptr = p.v3_ptr + (size_t)b * (P3 + 1);
+    g = csr_sum(p.v3_ent + (size_t)b * p.M5, ptr[r], ptr[r + 1], [&](int l) {
+      return 2.0f * (sS * y5(w5, u5, l, 1, 4) + sS * y5(w5, u5, l, 2, 3));
+    });
+    cnt = p.cnt_v3[(size_t)b * P3 + r];
+    out = p.v3 + (size_t)b * P3 + r;
+  }
+  *out = (rho * g) / (rho * (sS2 * fmaxf(cnt, 1.0f)));
+}
+
+// CTAs of each kind a slot takes: Q C on the coordinates, one per tile pair
+// of Theta, one per kThreads v entries; the slot's row of the grid rounded
+// up to whole clusters
+struct K8aLayout {
+  int coords, pairs, vctas, grid_x;
+};
+
+__host__ __device__ __forceinline__ K8aLayout k8a_layout(int m, int P, int C, int Q) {
+  const int nt = omc::cdiv(m, kTile);
+  K8aLayout l;
+  l.coords = Q * C;
+  l.pairs = nt * (nt + 1) / 2;
+  l.vctas = omc::cdiv(P, omc::kThreads);
+  l.grid_x = omc::cdiv(l.coords + l.pairs + l.vctas, C) * C;
+  return l;
+}
+
+// the partials, t_l, zW and d_W of a coordinates' CTA (at most cdiv(n, C)
+// rows of cdiv(m, Q) columns), or the two tiles
+__host__ __device__ __forceinline__ int k8a_smem(int n, int m, int C, int Q) {
+  const int rows = omc::cdiv(n, C), cols = omc::cdiv(m, Q);
+  const int tiles = 2 * kTile * (kTile + 1), coords = 2 * cols + 2 * rows * cols;
+  return (int)sizeof(float) * (tiles > coords ? tiles : coords);
+}
+
+__global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
+  extern __shared__ float k8a_smem_f[];
+  const int b = blockIdx.y, x = blockIdx.x;
+  const K8aLayout l = k8a_layout(p.m, p.P1 + p.P2 + p.P3, p.C, p.Q);
+  if (x < l.coords) {
+    k8a_coords(p, b, x / p.C, k8a_smem_f);
+  } else if (x < l.coords + l.pairs) {
+    k8a_theta(p, b, x - l.coords, k8a_smem_f);
+  } else {
+    k8a_v(p, b, (x - l.coords - l.pairs) * blockDim.x + threadIdx.x);
   }
 }
 
@@ -215,21 +357,57 @@ __global__ void __launch_bounds__(omc::kThreads) k8b_kernel(K8bParams p) {
   }
 }
 
-template <typename Kernel, typename Params>
-int launch_tiles(Kernel kernel, const Params& p, void* stream) {
-  if (p.B > 0 && p.m > 0) {
-    const dim3 grid((p.m + kCols - 1) / kCols, p.B);
-    kernel<<<grid, omc::kThreads, 0, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+// a failed runtime call also sets the thread's last error: clear it, so a
+// later launch's cudaGetLastError() does not report it again
+int fail(cudaError_t err) {
+  cudaGetLastError();
+  return (int)err;
 }
 
 }  // namespace
 
+// K8a's shared memory and its grid's width a slot (omc_torch.sdp.admm_shor
+// .k8a_plan plans with them; chip_smoke.py holds the plan against them)
+OMC_EXPORT long long omc_k8a_smem_bytes(int n, int m, int C, int Q) {
+  return k8a_smem(n, m, C, Q);
+}
+
+OMC_EXPORT int omc_k8a_grid_x(int m, int P, int C, int Q) { return k8a_layout(m, P, C, Q).grid_x; }
+
 OMC_EXPORT int omc_k8a_shor_zstep(const K8aParams* params, void* stream) {
-  return launch_tiles(k8a_kernel, *params, stream);
+  const K8aParams& p = *params;
+  if (p.C < 1 || p.C > kClusterMax || p.C > p.n || p.Q < 1 || p.Q > p.m || p.B < 1 || p.n < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = k8a_smem(p.n, p.m, p.C, p.Q);
+  static int smem_attr = 48 * 1024;
+  cudaError_t err;
+  if (smem > smem_attr) {
+    err = cudaFuncSetAttribute(k8a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return fail(err);
+    smem_attr = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k8a_layout(p.m, p.P1 + p.P2 + p.P3, p.C, p.Q).grid_x, p.B, 1);
+  cfg.blockDim = dim3(omc::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, k8a_kernel, p);
+  if (err != cudaSuccess) return fail(err);
+  return (int)cudaGetLastError();
 }
 
 OMC_EXPORT int omc_k8b_shor_cone(const K8bParams* params, void* stream) {
-  return launch_tiles(k8b_kernel, *params, stream);
+  const K8bParams& p = *params;
+  if (p.B > 0 && p.m > 0) {
+    const dim3 grid((p.m + kCols - 1) / kCols, p.B);
+    k8b_kernel<<<grid, omc::kThreads, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
 }

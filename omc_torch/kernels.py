@@ -209,7 +209,7 @@ class K8aParams(ctypes.Structure):
          "v3_ptr", "v3_ent", "cnt_X", "cnt_W", "cnt_v1", "cnt_v2", "cnt_v3",
          "g_link", "maskA", "mask", "sX", "sT", "sS", "rho", "Xs", "Ths",
          "Ws", "v1", "v2", "v3"),
-        ("B", "n", "m", "M5", "P1", "P2", "P3"), ("gamma", "R_X"))
+        ("B", "n", "m", "M5", "P1", "P2", "P3", "C", "Q"), ("gamma", "R_X"))
 
 
 class K8bParams(ctypes.Structure):
@@ -322,6 +322,10 @@ def _load(path: Path):
     lib.omc_k6_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.omc_k8c_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k8a_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.omc_k8a_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k8a_grid_x.argtypes = [ctypes.c_int] * 4
+    lib.omc_k8a_grid_x.restype = ctypes.c_int
     for name, nargs in (("omc_k2_smem_bytes", 8), ("omc_k3_smem_bytes", 8),
                         ("omc_k2_ws_doubles", 5), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs

@@ -27,8 +27,10 @@ products of exactly symmetric matrices: ``symmetric_matmul`` of
 plain ``project_psd_ns_merged`` with the same epilogue.
 
 ``project_psd_small`` is kernel K7 (``omc_torch/csrc/k7_minor_psd.cu``) on
-batches of 5x5 matrices (the Shor minor slots), one thread per matrix; its
-plain version is ``project_psd_ns_small``.
+batches of 5x5 matrices (the Shor minor slots), one thread per matrix;
+its plain version is ``project_psd_ns_small``, and
+``project_psd_ns`` with ``symmetric_matmul()`` mirrors its products (the
+upper triangles of symmetric matrices).
 """
 
 from __future__ import annotations
@@ -326,9 +328,10 @@ def project_psd_ns_small(T):
 
 def project_psd_small(T, w_out=None):
     """K7 in its projection mode: the sign-schedule PSD projection of a
-    (..., 5, 5) batch, one thread per matrix on the GPU.  A CPU tensor runs
-    the plain ``project_psd_ns_small``; a CUDA tensor runs the kernel or
-    raises."""
+    (..., 5, 5) batch, one thread per matrix on the GPU.  A CPU tensor runs the plain
+    ``project_psd_ns_small``; a CUDA tensor runs the kernel or raises.  The
+    kernel's order of work (the upper triangles of symmetric products) has
+    the CPU mirror ``project_psd_ns(T, matmul=symmetric_matmul())``."""
     dev = T.device
     if dev.type == "cpu":
         P = project_psd_ns_small(T)

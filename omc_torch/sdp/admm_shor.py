@@ -36,13 +36,26 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 
 import torch
 
 from omc_torch import kernels
 from omc_torch.ops.cones import eigvalsh, project_psd, project_rsoc
-from omc_torch.ops.polar import project_psd_ns_multi, project_psd_ns_small, psd_epilogue
-from omc_torch.sdp.admm import ADMMState, cone_step, init_admm_state, make_consts, zstep
+from omc_torch.ops.polar import (
+    H100_SMS,
+    project_psd_ns_multi,
+    project_psd_ns_small,
+    psd_epilogue,
+)
+from omc_torch.sdp.admm import (
+    ADMMState,
+    _packed,
+    cone_step,
+    init_admm_state,
+    make_consts,
+    zstep,
+)
 from omc_torch.sdp.admm import apply_best_duals as apply_core_best_duals
 from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default, separation_eigpairs
 from omc_torch.sdp.shor_encode import INVERSE_FIELDS, ShorBatchHost
@@ -310,10 +323,167 @@ def shor_zstep_plain(c, sc: _ShorConsts, st: ShorADMMState):
     return (Xs, Ths, zW) + zv
 
 
+# K8a's geometry (csrc/k8_shor.cu): CTAs of 256 threads, Theta's 32 x 32
+# tile pairs, clusters of at most 8 CTAs (the portable size) on the X/W
+# coordinates, and the H100's shared memory a CTA
+K8A_THREADS, K8A_TILE, K8A_CLUSTER_MAX = 256, 32, 8
+K8A_SMEM_MAX = 232448
+# the coordinates' CTAs of all slots the plan widens the column groups to:
+# four an SM
+K8A_TARGET_CTAS = 4 * H100_SMS
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def k8a_plan(B: int, n: int, m: int, M5: int, cluster=None, groups=None) -> dict:
+    """K8a's grid: per node slot (grid row b) ``groups`` Q column groups of
+    the X/W coordinates, each a cluster of C CTAs (``cluster``; CTA r owns
+    rows [r n / C, (r + 1) n / C) of its group's columns [k m / Q, (k + 1) m
+    / Q), and the cluster adds the link rows' column sums in rank order),
+    then one CTA per 32 x 32 tile pair (I, J), I >= J, of Theta's
+    off-diagonal (``pairs``), then one CTA per 256 of the slot's 5 M5 v
+    entries (``v_ctas``); the row rounded up to whole clusters (``grid``).
+
+    C is the largest power of two up to 8 and n: a slot's coordinates over
+    as many SMs as a portable cluster has.  Q doubles while each CTA keeps
+    at least a coordinate for every other thread and the coordinates' CTAs
+    of all slots stay within ``K8A_TARGET_CTAS`` (the batches of 1 to 4
+    split columns; on the H100 the Q this picks was the fastest, or within
+    2%, at every shape the Shor loop runs), and beyond that until a CTA's
+    tile of zW and W's diagonal, with its columns' partials and t_l, fits
+    its shared memory (``smem``, or two tiles of Theta).  ``cluster`` and
+    ``groups`` force C and Q; a forced Q whose tile does not fit raises."""
+    if min(B, n, m, M5) < 1:
+        raise ValueError(f"K8a: unsupported shape B={B}, n={n}, m={m}, M5={M5}")
+    if cluster is None:
+        C = 1
+        while 2 * C <= min(K8A_CLUSTER_MAX, n):
+            C *= 2
+    elif cluster in (1, 2, 4, 8) and cluster <= n:
+        C = cluster
+    else:
+        raise ValueError(f"K8a: cluster {cluster!r} not a power of two up to 8 and n={n}")
+    rows = _cdiv(n, C)
+
+    def smem_of(Q):
+        cols = _cdiv(m, Q)
+        return 4 * max(2 * K8A_TILE * (K8A_TILE + 1), 2 * cols + 2 * rows * cols)
+
+    if groups is None:
+        Q = 1
+        while (2 * Q <= m and B * C * 2 * Q <= K8A_TARGET_CTAS
+               and 2 * rows * _cdiv(m, 2 * Q) >= K8A_THREADS):
+            Q *= 2
+        while 2 * Q <= m and smem_of(Q) > K8A_SMEM_MAX:
+            Q *= 2
+    elif 1 <= groups <= m:
+        Q = int(groups)
+    else:
+        raise ValueError(f"K8a: groups {groups!r} not in [1, m={m}]")
+    if smem_of(Q) > K8A_SMEM_MAX:
+        raise ValueError(f"K8a: {rows} x {_cdiv(m, Q)} coordinates a CTA need {smem_of(Q)} "
+                         "bytes of shared memory")
+    nt = _cdiv(m, K8A_TILE)
+    pairs = nt * (nt + 1) // 2
+    v_ctas = _cdiv(5 * M5, K8A_THREADS)
+    grid_x = _cdiv(Q * C + pairs + v_ctas, C) * C
+    smem = smem_of(Q)
+    return dict(cluster=C, groups=Q, rows=rows, cols=_cdiv(m, Q), pairs=pairs, v_ctas=v_ctas,
+                grid=(grid_x, B), threads=K8A_THREADS, smem=smem)
+
+
+def shor_zstep_tiled(c, sc: _ShorConsts, st: ShorADMMState, plan: dict):
+    """Torch mirror of K8a's order of work (``plan`` from ``k8a_plan``), for
+    the tests: each coordinate's and v entry's adjoint summed along its CSR
+    list in order, the column sums of zW per CTA band of rows in row order
+    and added over the cluster in rank order, then t_l, Theta's diagonal and
+    W's correction; Theta's off-diagonal as sym of the base slots' share.
+    Returns (Xs, Ths, W, v1, v2, v3) like ``shor_zstep_plain``."""
+    core = st.core
+    sb = sc.sb
+    B, n, m = core.X.shape
+    nm = n * m
+    dt = core.X.dtype
+    sX, sT, sS, rho = core.sX[:, None], core.sT[:, None], core.sS[:, None], core.rho[:, None]
+    sW, sS2 = sX * sX, sS * sS
+    D1 = n + m
+    y1 = (core.w1 - core.u1).reshape(B, D1, D1)
+    y5 = (st.w5 - st.u5).reshape(B, -1)
+
+    def csr(ptr, ent, term):
+        """sum_e term(ent[e]) over each row's list of the CSR table, in list
+        order: (B, rows)."""
+        ptr = ptr.long()
+        lo, hi = ptr[:, :-1], ptr[:, 1:]
+        g = torch.zeros(lo.shape, dtype=dt, device=lo.device)
+        for d in range(int((hi - lo).max()) if lo.numel() else 0):
+            on = lo + d < hi
+            e = torch.gather(ent.long(), 1, torch.where(on, lo + d, 0))
+            g = torch.where(on, g + term(e), g)
+        return g
+
+    def y(l, i, j):
+        return torch.gather(y5, 1, l * 25 + (i * 5 + j))
+
+    c_of = lambda e: (e & 3) + 1  # noqa: E731
+    gx = csr(sb.xw_ptr, sb.xw_ent, lambda e: 2.0 * (sS * torch.gather(
+        y5, 1, (e >> 2) * 25 + c_of(e))))
+    gw = csr(sb.xw_ptr, sb.xw_ent, lambda e: sS * torch.gather(
+        y5, 1, (e >> 2) * 25 + c_of(e) * 6))
+    yr = (st.wr - st.ur).reshape(B, nm, 3)
+    sm = sb.soc_mask
+    yl = (st.wl - st.ul)[:, None, :].expand(B, n, m).reshape(B, nm)
+    gw = gw + sS * yr[..., 1] * sm
+    gx = gx + sS * yr[..., 2] * sm
+    gw = gw - sW * yl
+    gw = gw + sS * (st.wp - st.up).reshape(B, nm)
+    rX = sX * 2.0 * y1[:, :n, n:].reshape(B, nm)
+    RX = rho * (rX + gx) + sX * c.maskA.reshape(1, nm)
+    dX1 = 2.0 * sX * sX + sS2 * sb.cnt_X.reshape(B, nm)
+    zX = RX / (rho * dX1)
+    R_Xs = sc.R_X / sX
+    Xs = torch.minimum(torch.maximum(zX, -R_Xs), R_Xs)
+    RW = rho * gw - 0.5 * sW * c.mask.reshape(1, nm)
+    dW1 = sS2 * torch.clamp(sb.cnt_W.reshape(B, nm), min=1.0)
+    zW = (RW / (rho * dW1)).reshape(B, n, m)
+    # the column sums: each CTA's rows in order, then the cluster's CTAs in
+    # rank order
+    C = plan["cluster"]
+    tot = torch.zeros((B, m), dtype=dt, device=zW.device)
+    for r in range(C):
+        part = torch.zeros((B, m), dtype=dt, device=zW.device)
+        for i in range(r * n // C, (r + 1) * n // C):
+            part = part + zW[:, i]
+        tot = tot + part
+    yl_j = st.wl - st.ul
+    dg = torch.diagonal(y1[:, n:, n:], dim1=-2, dim2=-1)
+    RT = rho * (sT * dg + sT * yl_j) - sT * 0.5 / c.gamma
+    zTh_d = RT / (rho * sT * sT)
+    t_l = rho * (sT * zTh_d - sW * tot) / sc.g_link
+    W = zW + sW[:, :, None] * t_l[:, None, :] / (rho[:, :, None] * dW1.reshape(B, n, m))
+    zT = (rho[:, :, None] * (sT[:, :, None] * y1[:, n:, n:])) / (
+        rho[:, :, None] * sT[:, :, None] * sT[:, :, None])
+    Ths = 0.5 * (zT + zT.transpose(-1, -2))
+    Ths = torch.diagonal_scatter(Ths, zTh_d - t_l / (rho * sT), dim1=-2, dim2=-1)
+    vs = []
+    for name, (ta, tb) in (("v1", ((1, 2), (3, 4))), ("v2", ((1, 3), (2, 4)))):
+        ptr, ent = getattr(sb, f"{name}_ptr"), getattr(sb, f"{name}_ent")
+        vs.append(csr(ptr, ent, lambda e, ta=ta, tb=tb: torch.where(
+            (e & 1) == 1, 2.0 * (sS * y(e >> 1, *tb)), 2.0 * (sS * y(e >> 1, *ta)))))
+    vs.append(csr(sb.v3_ptr, sb.v3_ent,
+                  lambda e: 2.0 * (sS * y(e, 1, 4) + sS * y(e, 2, 3))))
+    vs = [(rho * g) / (rho * (sS2 * torch.clamp(cv, min=1.0)))
+          for g, cv in zip(vs, (sb.cnt_v1, sb.cnt_v2, sb.cnt_v3))]
+    return (Xs.reshape(B, n, m), Ths, W) + tuple(vs)
+
+
 def shor_zstep(c, sc: _ShorConsts, st: ShorADMMState):
     """K8a wrapper: writes Xs, Ths, W, v1, v2, v3 into ``st``.  A CPU state
     runs ``shor_zstep_plain``; a CUDA state launches ``csrc/k8_shor.cu``
-    (one CTA per node slot and 32 columns) or raises."""
+    (``k8a_plan``'s grid) or raises.  The parameter block is packed once per operands
+    (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     outs = (core.X, core.Th, st.W, st.v1, st.v2, st.v3)
@@ -323,49 +493,70 @@ def shor_zstep(c, sc: _ShorConsts, st: ShorADMMState):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_zstep: unsupported device {dev}")
+    scalars = (float(c.gamma), float(sc.R_X))
+
+    def build():
+        B, n, m = core.X.shape
+        plan = k8a_plan(B, n, m, sc.M5)
+        p = kernels.K8aParams()
+        for name, t, shape, dtype in _k8a_operands(c, sc, st):
+            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+        p.B, p.n, p.m, p.M5 = B, n, m, sc.M5
+        p.P1, p.P2, p.P3 = st.v1.shape[1], st.v2.shape[1], st.v3.shape[1]
+        p.C, p.Q = plan["cluster"], plan["groups"]
+        p.gamma, p.R_X = scalars
+        return p
+
+    prm = _packed(("K8a", id(c), id(sc), id(st)), _k8a_tensors(c, sc, st), scalars, build)
+    kernels.launch("K8a", "omc_k8a_shor_zstep", prm, dev)
+
+
+# K7's and K8a's operands, gathered cheaply for the reuse test of their
+# packed blocks (``admm._packed``)
+_K8A_ST = operator.attrgetter("w5", "u5", "wr", "ur", "wl", "ul", "wp", "up", "W", "v1", "v2",
+                              "v3")
+_K8A_CORE = operator.attrgetter("w1", "u1", "sX", "sT", "sS", "rho", "X", "Th")
+_K8A_SB = operator.attrgetter("soc_mask", "cnt_X", "cnt_W", "cnt_v1", "cnt_v2", "cnt_v3",
+                              *INVERSE_FIELDS)
+_K7_ST = operator.attrgetter("w5", "u5", "W", "v1", "v2", "v3")
+_K7_CORE = operator.attrgetter("X", "sS", "rho")
+_K7_SB = operator.attrgetter("minor_idx", "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask")
+
+
+def _k8a_tensors(c, sc: _ShorConsts, st: ShorADMMState) -> tuple:
+    return _K8A_ST(st) + _K8A_CORE(st.core) + _K8A_SB(sc.sb) + (sc.g_link, c.maskA, c.mask)
+
+
+def _k7_tensors(sc: _ShorConsts, st: ShorADMMState, acc5) -> tuple:
+    return _K7_ST(st) + _K7_CORE(st.core) + _K7_SB(sc.sb) + (acc5,)
+
+
+def _k8a_operands(c, sc: _ShorConsts, st: ShorADMMState) -> list:
+    """(field, tensor, shape, dtype) of every K8a operand."""
+    core, sb = st.core, sc.sb
     B, n, m = core.X.shape
-    M5 = sc.M5
-    P1, P2, P3 = st.v1.shape[1], st.v2.shape[1], st.v3.shape[1]
-    D1 = n + m
-    sb = sc.sb
-    ck = kernels.check
-    i32 = torch.int32
-    p = kernels.K8aParams()
-    p.w1 = ck("w1", core.w1, (B, D1, D1), dev)
-    p.u1 = ck("u1", core.u1, (B, D1, D1), dev)
-    for name in ("w5", "u5"):
-        setattr(p, name, ck(name, getattr(st, name), (B, M5, 5, 5), dev))
-    for name in ("wr", "ur"):
-        setattr(p, name, ck(name, getattr(st, name), (B, n * m, 3), dev))
-    p.soc_mask = ck("soc_mask", sb.soc_mask, (B, n * m), dev)
-    for name in ("wl", "ul"):
-        setattr(p, name, ck(name, getattr(st, name), (B, m), dev))
-    for name in ("wp", "up"):
-        setattr(p, name, ck(name, getattr(st, name), (B, n, m), dev))
-    for name, size in (("xw", n * m), ("v1", P1), ("v2", P2), ("v3", P3)):
-        ptr, ent = getattr(sb, f"{name}_ptr"), getattr(sb, f"{name}_ent")
-        setattr(p, f"{name}_ptr", ck(f"{name}_ptr", ptr, (B, size + 1), dev, i32))
-        setattr(p, f"{name}_ent", ck(f"{name}_ent", ent, tuple(ent.shape), dev, i32))
-        if ent.shape[0] != B:
-            raise ValueError(f"{name}_ent: batch {ent.shape[0]}, expected {B}")
-    p.cnt_X = ck("cnt_X", sb.cnt_X, (B, n, m), dev)
-    p.cnt_W = ck("cnt_W", sb.cnt_W, (B, n, m), dev)
-    for name, P in (("cnt_v1", P1), ("cnt_v2", P2), ("cnt_v3", P3)):
-        setattr(p, name, ck(name, getattr(sb, name), (B, P), dev))
-    p.g_link = ck("g_link", sc.g_link, (B, m), dev)
-    p.maskA = ck("maskA", c.maskA, (n, m), dev)
-    p.mask = ck("mask", c.mask, (n, m), dev)
-    for name in ("sX", "sT", "sS", "rho"):
-        setattr(p, name, ck(name, getattr(core, name), (B,), dev))
-    p.Xs = ck("X", core.X, (B, n, m), dev)
-    p.Ths = ck("Th", core.Th, (B, m, m), dev)
-    p.Ws = ck("W", st.W, (B, n, m), dev)
-    p.v1 = ck("v1", st.v1, (B, P1), dev)
-    p.v2 = ck("v2", st.v2, (B, P2), dev)
-    p.v3 = ck("v3", st.v3, (B, P3), dev)
-    p.B, p.n, p.m, p.M5, p.P1, p.P2, p.P3 = B, n, m, M5, P1, P2, P3
-    p.gamma, p.R_X = float(c.gamma), float(sc.R_X)
-    kernels.launch("K8a", "omc_k8a_shor_zstep", p, dev)
+    M5, D1, nm = sc.M5, n + m, n * m
+    P = (2 * M5, 2 * M5, M5)
+    f32, i32 = torch.float32, torch.int32
+    ops = [("w1", core.w1, (B, D1, D1), f32), ("u1", core.u1, (B, D1, D1), f32)]
+    ops += [(nm_, getattr(st, nm_), (B, M5, 5, 5), f32) for nm_ in ("w5", "u5")]
+    ops += [(nm_, getattr(st, nm_), (B, nm, 3), f32) for nm_ in ("wr", "ur")]
+    ops += [("soc_mask", sb.soc_mask, (B, nm), f32)]
+    ops += [(nm_, getattr(st, nm_), (B, m), f32) for nm_ in ("wl", "ul")]
+    ops += [(nm_, getattr(st, nm_), (B, n, m), f32) for nm_ in ("wp", "up")]
+    for name, size, ents in (("xw", nm, 4 * M5), ("v1", P[0], 2 * M5), ("v2", P[1], 2 * M5),
+                             ("v3", P[2], M5)):
+        ops += [(f"{name}_ptr", getattr(sb, f"{name}_ptr"), (B, size + 1), i32),
+                (f"{name}_ent", getattr(sb, f"{name}_ent"), (B, ents), i32)]
+    ops += [("cnt_X", sb.cnt_X, (B, n, m), f32), ("cnt_W", sb.cnt_W, (B, n, m), f32)]
+    ops += [(f"cnt_v{g + 1}", getattr(sb, f"cnt_v{g + 1}"), (B, P[g]), f32) for g in range(3)]
+    ops += [("g_link", sc.g_link, (B, m), f32), ("maskA", c.maskA, (n, m), f32),
+            ("mask", c.mask, (n, m), f32)]
+    ops += [(nm_, getattr(core, nm_), (B,), f32) for nm_ in ("sX", "sT", "sS", "rho")]
+    ops += [("Xs", core.X, (B, n, m), f32), ("Ths", core.Th, (B, m, m), f32),
+            ("Ws", st.W, (B, n, m), f32)]
+    ops += [(f"v{g + 1}", getattr(st, f"v{g + 1}"), (B, P[g]), f32) for g in range(3)]
+    return ops
 
 
 # --------------------------------------------------------------------------
@@ -392,7 +583,8 @@ def minor_step(c, sc: _ShorConsts, st: ShorADMMState, acc5, psd_method: str):
     """K7 wrapper (fused mode): updates ``st.w5``, ``st.u5`` and the EMA
     ``acc5`` in place.  A CPU state runs ``minor_step_plain`` (the sign
     schedule, or ``eigh`` with ``psd_method="eigh"``); a CUDA state
-    launches ``csrc/k7_minor_psd.cu`` (one thread per minor) or raises."""
+    launches ``csrc/k7_minor_psd.cu`` (one thread per minor) or raises.
+    The parameter block is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -402,30 +594,39 @@ def minor_step(c, sc: _ShorConsts, st: ShorADMMState, acc5, psd_method: str):
         return
     if dev.type != "cuda":
         raise ValueError(f"minor_step: unsupported device {dev}")
+    scalars = (float(c.alpha), float(c.beta))
+
+    def build():
+        B, n, m = core.X.shape
+        p = kernels.K7Params()
+        for name, t, shape, dtype in _k7_operands(sc, st, acc5):
+            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+        if p.minor_idx % 16:
+            raise ValueError("minor_idx: K7 reads each minor's 4 indices as one 16-byte word")
+        p.N, p.M5, p.nm, p.m = B * sc.M5, sc.M5, n * m, m
+        p.P1, p.P2, p.P3 = st.v1.shape[1], st.v2.shape[1], st.v3.shape[1]
+        p.alpha, p.beta = scalars
+        return p
+
+    prm = _packed(("K7", id(c), id(sc), id(st)), _k7_tensors(sc, st, acc5), scalars, build)
+    kernels.launch("K7", "omc_k7_minor_psd", prm, dev)
+
+
+def _k7_operands(sc: _ShorConsts, st: ShorADMMState, acc5) -> list:
+    """(field, tensor, shape, dtype) of every K7 operand (fused mode)."""
+    core, sb = st.core, sc.sb
     B, n, m = core.X.shape
     M5 = sc.M5
-    P1, P2, P3 = st.v1.shape[1], st.v2.shape[1], st.v3.shape[1]
-    sb = sc.sb
-    ck = kernels.check
-    p = kernels.K7Params()
-    p.w = ck("w5", st.w5, (B, M5, 5, 5), dev)
-    p.u = ck("u5", st.u5, (B, M5, 5, 5), dev)
-    p.acc = ck("acc5", acc5, (B, M5, 5, 5), dev)
-    p.Xs = ck("X", core.X, (B, n, m), dev)
-    p.Ws = ck("W", st.W, (B, n, m), dev)
-    p.v1 = ck("v1", st.v1, (B, P1), dev)
-    p.v2 = ck("v2", st.v2, (B, P2), dev)
-    p.v3 = ck("v3", st.v3, (B, P3), dev)
-    p.minor_idx = ck("minor_idx", sb.minor_idx, (B, M5, 4), dev, torch.int32)
-    for name in ("iv1a", "iv1b", "iv2a", "iv2b", "iv3"):
-        setattr(p, name, ck(name, getattr(sb, name), (B, M5), dev, torch.int32))
-    p.minor_mask = ck("minor_mask", sb.minor_mask, (B, M5), dev)
-    p.sS = ck("sS", core.sS, (B,), dev)
-    p.rho = ck("rho", core.rho, (B,), dev)
-    p.N, p.M5, p.nm, p.m = B * M5, M5, n * m, m
-    p.P1, p.P2, p.P3 = P1, P2, P3
-    p.alpha, p.beta = float(c.alpha), float(c.beta)
-    kernels.launch("K7", "omc_k7_minor_psd", p, dev)
+    f32, i32 = torch.float32, torch.int32
+    return ([("w", st.w5, (B, M5, 5, 5), f32), ("u", st.u5, (B, M5, 5, 5), f32),
+             ("acc", acc5, (B, M5, 5, 5), f32), ("Xs", core.X, (B, n, m), f32),
+             ("Ws", st.W, (B, n, m), f32), ("v1", st.v1, (B, 2 * M5), f32),
+             ("v2", st.v2, (B, 2 * M5), f32), ("v3", st.v3, (B, M5), f32),
+             ("minor_idx", sb.minor_idx, (B, M5, 4), i32)]
+            + [(name, getattr(sb, name), (B, M5), i32)
+               for name in ("iv1a", "iv1b", "iv2a", "iv2b", "iv3")]
+            + [("minor_mask", sb.minor_mask, (B, M5), f32), ("sS", core.sS, (B,), f32),
+               ("rho", core.rho, (B,), f32)])
 
 
 # --------------------------------------------------------------------------
@@ -795,7 +996,8 @@ def apply_best_duals(state: ShorADMMState, out: dict) -> ShorADMMState:
 
 __all__ = [
     "ShorBatch", "shor_batch_to_device", "ShorADMMState", "init_shor_state",
-    "make_shor_solver", "shor_zstep", "shor_zstep_plain", "minor_step",
+    "make_shor_solver", "shor_zstep", "shor_zstep_plain", "shor_zstep_tiled", "k8a_plan",
+    "minor_step",
     "minor_step_plain", "shor_cone_step", "shor_cone_step_plain",
     "safe_dual_bound_shor", "safe_dual_bound_shor2", "host_certified_bound_shor",
     "apply_best_duals",
