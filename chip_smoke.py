@@ -22,10 +22,11 @@ Phases, in order (each prints its numbers on lines of its own):
                library's batched solve; K8c at k=2 (timed), 3 and 4; K2 and
                K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
                variant) with their device times on every cluster size
-               k2k3_plan could take; K8a and K7 (fused and projection mode)
-               at every shape of the Shor k=1 loop (SHOR_SHAPES) with their
-               device times; the build fails if ptxas reports a
-               spill in K2, K3, K6, K7, K8a or K8c
+               k2k3_plan could take; K8a, K7 (fused and projection mode)
+               and K8b at every shape of the Shor k=1 loop (SHOR_SHAPES)
+               and K7t at k = 2, 3 and 4 with their device times; the build
+               fails if ptxas reports a spill in K2, K3, K6, K7, K7t, K8a,
+               K8b or K8c
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -58,18 +59,20 @@ of a kernel are its launches over all those phases (``COUNTED``).
 
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape and at the shor
-cell's (with K7's and K8a's device ms per iteration), of the rank-k
-Shor loop at config 3's, of the McCormick loop at the headline's, of the
-headline's root visit at B=1 (with the device's idle share), of one
-base-path root visit at B=64 with its safe-bound calls, and of safe-bound
-calls at config 4's shape (B=128, n=m=250, k=5), each split into K4 and the
-torch terms; K2's and K3's device ms per iteration of the two Shor loops and
-the two root visits are given on their own.
+cell's (with K7's, K8a's and K8b's device ms per iteration), of the
+rank-k Shor loop at config 3's (with K7t's), of the McCormick loop at
+the headline's, of the headline's root visit at B=1 (with the device's
+idle share), of one base-path root visit at B=64 with its safe-bound
+calls, and of safe-bound calls at config 4's shape (B=128, n=m=250,
+k=5), each split into K4 and the torch terms; K2's and K3's device ms per
+iteration of the two Shor loops and the two root visits are given on their
+own.
 
 ``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
-builds that tree's K2, K3, K7 and K8a and times them, with that tree's
-parameter blocks, beside every K2/K3 row of the kernels phase up to 512
-cuts and every K7/K8a row, and reports ptxas's registers of its K7 and K8a.
+builds that tree's K2, K3, K7, K8a, K8b and K7t and times them, with that
+tree's parameter blocks, beside every K2/K3 row of the kernels phase up to
+512 cuts and every K7/K8a/K8b/K7t row, and reports ptxas's registers of its
+K7, K8a, K8b and K7t.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -220,6 +223,10 @@ def phase_device(res):
     res["cuda"] = torch.version.cuda
 
 
+# the kernels whose small arrays must stay in registers (no stack frame)
+NO_FRAME = ("k7_kernel", "k7t_kernel", "k8a_kernel", "k8b_kernel")
+
+
 def phase_build(res):
     from omc_torch import kernels
 
@@ -235,22 +242,23 @@ def phase_build(res):
     report = _ptxas_report(info.get("ptxas", ""))
     res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
     log("build: kernels that spill", json.dumps(spills))
-    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel", "k7_kernel", "k8a_kernel")
+    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel") + NO_FRAME
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
-    log("build: K2, K3, K6, K7, K8a and K8c registers", json.dumps(regs))
+    log("build: K2, K3, K6, K7, K7t, K8a, K8b and K8c registers", json.dumps(regs))
     if PARENT:
         res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
-                               if "k7_kernel" in f or "k8a_kernel" in f}
-        log("build: the parent's K7 and K8a", json.dumps(res["parent_ptxas"]))
-    # K2's, K3's, K6's, K7's, K8a's and K8c's instantiations keep every value
-    # in registers; K7's and K8a's index their small arrays only with
-    # constants (no stack frame: a 5x5 triangle in local memory costs K7 ten
-    # times its time)
+                               if any(x in f for x in NO_FRAME)}
+        log("build: the parent's K7, K7t, K8a and K8b", json.dumps(res["parent_ptxas"]))
+    # K2's, K3's, K6's, K7's, K7t's, K8a's, K8b's and K8c's instantiations
+    # keep every value in registers; K7's, K7t's, K8a's and K8b's index their
+    # small arrays only with constants (no stack frame: a 5x5 triangle in
+    # local memory costs K7 ten times its time)
     assert not [f for f in spills if any(x in f for x in keep)], spills
     frames = {f: r["stack"] for f, r in report.items()
-              if ("k7_kernel" in f or "k8a_kernel" in f) and r["stack"]}
+              if any(x in f for x in NO_FRAME) and r["stack"]}
     assert not frames, frames
+
 
 
 def _ptxas_report(text):
@@ -470,13 +478,12 @@ def phase_kernels(res):
     del c, st, acc, ts
     out["K2"], out["K3"] = k2, k3
 
-    # ---- K8a, K7 (fused and projection mode) at every shape the Shor k=1
-    # loop runs them, K8b at config 2's (the first row of each is the
-    # record's) ----
+    # ---- K8a, K7 (fused and projection mode) and K8b at every shape the
+    # Shor k=1 loop runs them (the first row of each is the record's) ----
     for name in ("K8a", "K7fused", "K7", "K8b"):
         out[name] = []
     for B, n, M5 in SHOR_SHAPES:
-        rows = _check_shor_kernels(B, n, n, 8, M5, gen, dev, k8b=not out["K8b"])
+        rows = _check_shor_kernels(B, n, n, 8, M5, gen, dev)
         rows["K7"] = _check_k7_projection(B, M5, gen, dev)
         for name, row in rows.items():
             log(name, json.dumps(row))
@@ -494,8 +501,11 @@ def phase_kernels(res):
         checks.append(("K7", rp, rp["plain_vs_eigh"] <= 1e-4 and rp["kernel_vs_eigh"] <= 1e-4
                        and rp["rel_err"] <= 2e-4 and rp["deterministic"]
                        and not rp["control_16bit_vs_eigh"] <= 1e-4))
-        if "K8b" in rows:
-            checks.append(("K8b", rows["K8b"], rows["K8b"]["rel_err"] <= 1e-5))
+        # K8b: float32 link sums in another order than the plain version's,
+        # 1e-5 relative as K8a, the same bits twice, its plan the kernel's
+        r8b = rows["K8b"]
+        checks.append(("K8b", r8b, r8b["rel_err"] <= 1e-5 and r8b["deterministic"]
+                       and r8b["plan_matches_kernel"]))
 
     # ---- K7x projection mode: (32, 4096, 3, 3), spectra +-[0.1, 1] ----
     from omc_torch.ops.polar import project_psd_ns_small, project_psd_xwh
@@ -531,20 +541,30 @@ def phase_kernels(res):
         r = rows[name]
         checks.append((name, r, r["rel_err"] <= 1e-5 and r["deterministic"]
                        and r.get("smem_matches_kernel", True)))
-    # K7t and the K7x slots: the bars of K1/K7 against a float64 eigh
-    # projection of the same slot values
-    for name in ("K7t", "K7xfused"):
-        r = rows[name]
-        checks.append((name, r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
-                       and r["rel_err"] <= 2e-4))
+    # the K7x slots: the bars of K1/K7 against a float64 eigh projection of
+    # the same slot values
+    r = rows["K7xfused"]
+    checks.append(("K7xfused", r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
+                   and r["rel_err"] <= 2e-4))
     out.update({name: [row] for name, row in rows.items()})
-    # K8c at k = 3 and 4: the same bars on the kernel's other instantiations
+    # K8c at k = 3 and 4: the same bars on the kernel's other instantiations;
+    # K7t at k = 3 and 4 on K8c's primal
     for k in (3, 4):
-        r = _check_k8c(32, 75, 75, 8, 1024, k, gen, dev)
+        r, stepped = _check_k8c(32, 75, 75, 8, 1024, k, gen, dev)
         log("K8c", json.dumps(r))
         checks.append(("K8c", r, r["rel_err"] <= 1e-5 and r["deterministic"]
                        and r["smem_matches_kernel"]))
         out["K8c"].append(r)
+        r = _check_k7t(*stepped, gen, dev)
+        log("K7t", json.dumps(r))
+        out["K7t"].append(r)
+    # K7t: the bars of K1/K7 against a float64 eigh projection of the same
+    # slot values, the truncated-product control failing them, the same bits
+    # twice
+    for r in out["K7t"]:
+        checks.append(("K7t", r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
+                       and r["rel_err"] <= 2e-4 and r["deterministic"]
+                       and not r["control_16bit_vs_eigh"] <= 1e-4))
 
     # ---- K9s, K9a, K9b at the headline's shape and at config 3's ----
     for name in ("K9s", "K9a", "K9b"):
@@ -614,11 +634,11 @@ def _shor_inputs(B, n, m, L, M5, gen, dev):
 SHOR_SHAPES = ((32, 100, 1024), (1, 100, 64), (32, 100, 4096), (1, 50, 4096), (4, 50, 4096))
 
 
-def _check_shor_kernels(B, n, m, L, M5, gen, dev, k8b=False):
-    """K8a and K7 (fused), and with ``k8b`` K8b, against their plain
-    versions on the same inputs, each at the outputs of the step before it:
-    errors, the same bits from two launches, CUDA-event and device times
-    (with ``--parent``, the parent tree's kernels on the same inputs)."""
+def _check_shor_kernels(B, n, m, L, M5, gen, dev):
+    """K8a, K7 (fused) and K8b against their plain versions on the same
+    inputs, each at the outputs of the step before it: errors, the same bits
+    from two launches, CUDA-event and device times (with ``--parent``, the
+    parent tree's kernels on the same inputs)."""
     import torch
 
     from omc_torch.ops.cones import project_psd_plain
@@ -694,28 +714,35 @@ def _check_shor_kernels(B, n, m, L, M5, gen, dev, k8b=False):
     # FMAs) and the mixing, epilogue and EMA
     with_bound(r7, 4 * (N * (6 * 25 + 10) + 2 * xw + nv + 2 * B),
                N * (SIGN_PRODUCTS * 150 + 75))
-    if not k8b:
-        return out
 
     # K8b at K8a's primal
     acc_r = torch.randn(st.ur.shape, generator=gen).to(dev) * 0.1
     acc_l = torch.randn(st.ul.shape, generator=gen).to(dev) * 0.1
-    sb_ = sk.clone()
-    ar, al = acc_r.clone(), acc_l.clone()
-    S.shor_cone_step(c, sc, sb_, ar, al)
+    k8b_out = lambda x, ar, al: (x.wr, x.ur, x.wl, x.ul, x.wp, x.up, ar, al)  # noqa: E731
+    runs = [(sk.clone(), acc_r.clone(), acc_l.clone()) for _ in range(2)]
+    for x, ar, al in runs:
+        S.shor_cone_step(c, sc, x, ar, al)
     torch.cuda.synchronize()
     ref = S.shor_cone_step_plain(c, sc, sk, acc_r, acc_l)
-    rel, ab = _errs((sb_.wr, sb_.ur, sb_.wl, sb_.ul, sb_.wp, sb_.up, ar, al), ref)
-    s9 = sk.clone()
-    ar9, al9 = acc_r.clone(), acc_l.clone()
-    out["K8b"] = dict(B=B, n=n, m=m, rel_err=rel, max_abs_err=ab,
-                      ms=cuda_time_ms(lambda: S.shor_cone_step(c, sc, s9, ar9, al9)),
-                      plain_ms=cuda_time_ms(lambda: S.shor_cone_step_plain(
-                          c, sc, sk, acc_r, acc_l)))
+    rel, ab = _errs(k8b_out(*runs[0]), ref)
+    s9, ar9, al9 = sk.clone(), acc_r.clone(), acc_l.clone()
+    plan8b = S.k8b_plan(B, n, m)
+    fns = {"kernel": lambda: S.shor_cone_step(c, sc, s9, ar9, al9)}
+    r8b = out["K8b"] = dict(
+        **shape, plan=plan8b,
+        plan_matches_kernel=plan8b["grid"] == lib.omc_k8b_grid_x(B, n, m, plan8b["qpc"]),
+        rel_err=rel, max_abs_err=ab,
+        deterministic=_same_bits(k8b_out(*runs[0]), k8b_out(*runs[1])),
+        ms=cuda_time_ms(fns["kernel"]),
+        plain_ms=cuda_time_ms(lambda: S.shor_cone_step_plain(c, sc, sk, acc_r, acc_l)))
+    if PARENT:
+        fns["parent"] = _parent_k8b(c, sc, sk.clone(), acc_r.clone(), acc_l.clone())
+        r8b["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(r8b, fns)
     # per slot: X, W, the RSOC slots and their EMA (read and written), the
     # mask, W >= 0, Theta's diagonal and the link rows
-    with_bound(out["K8b"], 4 * B * (2 * nm + 9 * nm + nm + 2 * nm + m + 3 * m + 9 * nm
-                                    + 2 * nm + 3 * m + 4),
+    with_bound(r8b, 4 * B * (2 * nm + 9 * nm + nm + 2 * nm + m + 3 * m + 9 * nm
+                             + 2 * nm + 3 * m + 4),
                B * 40 * nm)
     return out
 
@@ -836,7 +863,7 @@ def _k8c_plan_row(B, n, m, k):
 def _check_k8c(B, n, m, L, M5, k, gen, dev):
     """K8c alone at rank k: within 1e-5 relative of its plain version, the
     same bits from two launches (no timing: a second instantiation of the
-    kernel on the card)."""
+    kernel on the card).  Returns the row and (c, sc, the stepped state)."""
     import torch
 
     from omc_torch.sdp import shor_k as SK
@@ -849,7 +876,7 @@ def _check_k8c(B, n, m, L, M5, k, gen, dev):
     torch.cuda.synchronize()
     rel, ab = _errs(zs(sk), SK.shor_k_zstep_plain(c, sc, st))
     return dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
-                deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k))
+                deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k)), (c, sc, sk)
 
 
 def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
@@ -897,26 +924,8 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     with_bound(out["K8c"], 4 * (B * (rd + wr) + per_act + 2 * nm),
                B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca)
 
-    # K7t at K8c's primal; the exact reference projects the same t5
-    acc5 = torch.randn(st.u5.shape, generator=gen).to(dev) * 0.1
-    s7 = sk.clone()
-    a7 = acc5.clone()
-    SK.minor_k_step(c, sc, s7, a7, "ns")
-    torch.cuda.synchronize()
+    out["K7t"] = _check_k7t(c, sc, sk, gen, dev)
     exact = lambda t: project_psd_plain(t.double()).float()  # noqa: E731
-    w5p, u5p, a5p = SK.minor_k_step_plain(c, sc, sk, acc5, project_psd_ns_small)
-    w5e, _, _ = SK.minor_k_step_plain(c, sc, sk, acc5, exact)
-    rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
-    s8, a8 = sk.clone(), acc5.clone()
-    out["K7t"] = dict(B=B, M5=M5, k=k, rel_err=rel, max_abs_err=ab,
-                      plain_vs_eigh=rel_fro(w5p, w5e), kernel_vs_eigh=rel_fro(s7.w5, w5e),
-                      ms=cuda_time_ms(lambda: SK.minor_k_step(c, sc, s8, a8, "ns")),
-                      plain_ms=cuda_time_ms(lambda: SK.minor_k_step_plain(
-                          c, sc, sk, acc5, project_psd_ns_small)))
-    N = B * M5 * k
-    with_bound(out["K7t"], 4 * (N * 6 * 25 + B * M5 * 10 + B * k * (nm + C) + B * k * P
-                                + B * C + 2 * B),
-               N * (SIGN_PRODUCTS * 250 + 75))
 
     # K7x on the XWH slots at K8c's primal
     accx = torch.randn(st.ux.shape, generator=gen).to(dev) * 0.1
@@ -966,6 +975,72 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     with_bound(out["K8d"], 4 * B * (rd + wr),
                B * (40 * Ms + 6 * nm + (k + kp + 6) * C + 5 * k * C))
     return out
+
+
+def _check_k7t(c, sc, sk, gen, dev):
+    """K7t at a K8c-stepped primal against its plain version and against a
+    float64 eigh of the same t5, with the plain schedule on 16-bit operands
+    as the control; the same bits from two launches; CUDA-event and device
+    times (with ``--parent``, the parent's kernel on the same inputs)."""
+    import torch
+
+    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.polar import project_psd_ns, project_psd_ns_small, truncated_matmul
+    from omc_torch.sdp import shor_k as SK
+
+    B, n, m, k, kp, C, Ms = SK._shapes(sk)
+    M5 = sc.M5
+    acc5 = torch.randn(sk.u5.shape, generator=gen).to(dev) * 0.1
+    runs = [(sk.clone(), acc5.clone()) for _ in range(2)]
+    for x, a in runs:
+        SK.minor_k_step(c, sc, x, a, "ns")
+    torch.cuda.synchronize()
+    plain = lambda proj: SK.minor_k_step_plain(c, sc, sk, acc5, proj)  # noqa: E731
+    w5p, u5p, a5p = plain(project_psd_ns_small)
+    w5e = plain(lambda t: project_psd_plain(t.double()).float())[0]
+    w5c = plain(lambda t: project_psd_ns(t, matmul=truncated_matmul(16)))[0]
+    (s7, a7), (s7b, a7b) = runs
+    rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
+    s8, a8 = sk.clone(), acc5.clone()
+    fns = {"kernel": lambda: SK.minor_k_step(c, sc, s8, a8, "ns")}
+    row = dict(B=B, M5=M5, k=k, rel_err=rel, max_abs_err=ab, plain_vs_eigh=rel_fro(w5p, w5e),
+               kernel_vs_eigh=rel_fro(s7.w5, w5e), control_16bit_vs_eigh=rel_fro(w5c, w5e),
+               deterministic=_same_bits((s7.w5, s7.u5, a7), (s7b.w5, s7b.u5, a7b)),
+               ms=cuda_time_ms(fns["kernel"]), plain_ms=cuda_time_ms(lambda: plain(
+                   project_psd_ns_small)))
+    if PARENT:
+        fns["parent"] = _parent_k7t(c, sc, sk.clone(), acc5.clone())
+        row["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(row, fns)
+    # w5/u5/acc read and written, the records and the mask, and once each
+    # the entries of Xt, Wt and v that this batch's minors gather for each
+    # term; the operations: the symmetric schedule's products (the upper
+    # triangle, 15 entries of 5 FMAs) and the mixing, epilogue and EMA.
+    # bound_all_ms counts all of Xt, Wt and v and the full products instead.
+    N = B * M5 * k
+    with_bound(row, 4 * (N * 6 * 25 + B * M5 * 17 + _k7t_gathered(sc, n * m) + 2 * B),
+               N * (SIGN_PRODUCTS * 150 + 75))
+    P = sum(t.shape[2] for t in (sk.v1, sk.v2, sk.v3))
+    row["bound_all_ms"] = bound(4 * (N * 6 * 25 + B * M5 * 10 + B * k * (n * m + C) + B * k * P
+                                     + B * C + 2 * B), N * (SIGN_PRODUCTS * 250 + 75))[0]
+    return row
+
+
+def _k7t_gathered(sc, nm):
+    """The entries K7t's gather reads in each slot, summed over the slots
+    and the k terms: the distinct corners' flat entries of Xt, coordinates
+    of Wt and entries of v1, v2 and v3."""
+    import torch
+
+    rec = sc.rec.long()
+    B, M5 = rec.shape[:2]
+    C = sc.sb.coord_mask.shape[1]
+    b = torch.arange(B, device=rec.device)[:, None, None]
+    cnt = torch.unique(b * nm + rec[..., 0:4]).numel() + torch.unique(b * C + rec[..., 4:8]).numel()
+    P = {name: getattr(sc.sb, f"cnt_{name}").shape[1] for name in ("v1", "v2", "v3")}
+    for name, cols in (("v1", slice(8, 10)), ("v2", slice(10, 12)), ("v3", slice(12, 13))):
+        cnt += torch.unique(b * P[name] + rec[..., cols]).numel()
+    return sc.k * cnt
 
 
 def _admm_inputs(B, n, m, k, L, gen, dev):
@@ -1034,19 +1109,19 @@ def _to64(x):
     return x
 
 
-# The parent tree's K2, K3, K7 and K8a (``--parent DIR``: a checkout of an
-# older tree), built from DIR's sources and launched on the same inputs as
+# The parent tree's K2, K3, K7, K8a, K8b and K7t (``--parent DIR``: a
+# checkout of an older tree), built from DIR's sources and launched on the same inputs as
 # the rows, for the records.  Their parameter blocks are DIR's own
 # (``omc_torch/kernels.py`` there), each field filled by name: a field this
 # script has no value for raises, so a tree whose blocks differ cannot be
 # packed wrongly.  K2's and K3's plan fields come from DIR's own
 # ``k2k3_plan`` (``omc_torch/sdp/admm.py`` there).
 PARENT = {}
-PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor")
+PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh")
 
 
 def _load_parent(src):
-    """Build DIR's K2, K3, K7 and K8 sources into one library (one nvcc
+    """Build DIR's K2, K3, K7, K8 and K7t/K7x sources into one library (one nvcc
     each, in parallel), bind their entry points to DIR's blocks, take DIR's
     ``k2k3_plan`` and keep ptxas's report of DIR's kernels."""
     import ctypes
@@ -1082,11 +1157,14 @@ def _load_parent(src):
     lib = ctypes.CDLL(so)
     for fn, st in ((lib.omc_k2_zstep, mod.K2Params), (lib.omc_k3_cone, mod.K3Params),
                    (lib.omc_k7_minor_psd, mod.K7Params),
-                   (lib.omc_k8a_shor_zstep, mod.K8aParams)):
+                   (lib.omc_k8a_shor_zstep, mod.K8aParams),
+                   (lib.omc_k8b_shor_cone, mod.K8bParams),
+                   (lib.omc_k7t_minor_k, mod.K7tParams)):
         fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
-                  P8a=mod.K8aParams, k2k3_plan=plan, src=src,
+                  P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, k2k3_plan=plan,
+                  src=src,
                   ptxas=_ptxas_report("".join(logs)))
 
 
@@ -1167,9 +1245,13 @@ def _parent_k3(c, st, ts, acc):
 
 
 def _parent_shor_values(c, sc, st):
-    """The values a parent K7 or K8a block's fields may name."""
+    """The values a parent K7, K8a or K8b block's fields may name (K8a's
+    cluster and column groups from this tree's ``k8a_plan``)."""
+    from omc_torch.sdp.admm_shor import k8a_plan
+
     sb, core = sc.sb, st.core
     B, n, m = core.X.shape
+    plan = k8a_plan(B, n, m, sc.M5)
     v = {name: getattr(sb, name) for name in (
         "minor_idx", "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask", "soc_mask", "cnt_X",
         "cnt_W", "cnt_v1", "cnt_v2", "cnt_v3", "xw_ptr", "xw_ent", "v1_ptr", "v1_ent",
@@ -1179,7 +1261,8 @@ def _parent_shor_values(c, sc, st):
     v.update(w1=core.w1, u1=core.u1, g_link=sc.g_link, maskA=c.maskA, mask=c.mask, sX=core.sX,
              sT=core.sT, sS=core.sS, rho=core.rho, Xs=core.X, Ths=core.Th, Ws=st.W, B=B, n=n,
              m=m, M5=sc.M5, nm=n * m, P1=st.v1.shape[1], P2=st.v2.shape[1],
-             P3=st.v3.shape[1], gamma=c.gamma, R_X=sc.R_X, alpha=c.alpha, beta=c.beta)
+             P3=st.v3.shape[1], gamma=c.gamma, R_X=sc.R_X, alpha=c.alpha, beta=c.beta,
+             C=plan["cluster"], Q=plan["groups"])
     return v
 
 
@@ -1194,6 +1277,31 @@ def _parent_k7(c, sc, st, acc5):
     v = _parent_shor_values(c, sc, st)
     v.update(t=None, w=st.w5, u=st.u5, acc=acc5, N=v["B"] * v["M5"])
     return _parent_launch(PARENT["lib"].omc_k7_minor_psd, _parent_block(PARENT["P7"], v))
+
+
+def _parent_k8b(c, sc, st, acc_r, acc_l):
+    """The parent's K8b on (c, sc, st), writing into st, acc_r and acc_l (a
+    block with a quads-a-CTA field takes this tree's ``k8b_plan``'s)."""
+    from omc_torch.sdp.admm_shor import k8b_plan
+
+    v = _parent_shor_values(c, sc, st)
+    v.update(acc_r=acc_r, acc_l=acc_l, qpc=k8b_plan(v["B"], v["n"], v["m"])["qpc"])
+    return _parent_launch(PARENT["lib"].omc_k8b_shor_cone, _parent_block(PARENT["P8b"], v))
+
+
+def _parent_k7t(c, sc, st, acc5):
+    """The parent's K7t on (c, sc, st), writing into st and acc5 (its block
+    takes the minors' tables, or the index records)."""
+    sb, core = sc.sb, st.core
+    B, n, m = core.X.shape
+    k = st.Xt.shape[1]
+    v = {name: getattr(sb, name) for name in (
+        "mc", "coord_flat", "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask")}
+    v.update(w=st.w5, u=st.u5, acc=acc5, Xt=st.Xt, Wt=st.Wt, v1=st.v1, v2=st.v2, v3=st.v3,
+             rec=sc.rec, sS=core.sS, rho=core.rho, B=B, M5=sc.M5, k=k, nm=n * m,
+             C=st.Wt.shape[2], P1=st.v1.shape[2], P2=st.v2.shape[2], P3=st.v3.shape[2],
+             alpha=c.alpha, beta=c.beta)
+    return _parent_launch(PARENT["lib"].omc_k7t_minor_k, _parent_block(PARENT["P7t"], v))
 
 
 def _parent_k7_projection(T, w):
@@ -2540,9 +2648,9 @@ def _trace_loop(step, names, iters, **shape):
 def phase_trace(res):
     """(Run on request only.)  torch.profiler traces of the Shor loop at
     config 2's shape (B=32, n=m=100, M5=1024, L=8) and at the shor cell's
-    (B=4, n=m=50, M5=4096), of the rank-k Shor
-    loop at config 3's (B=32, n=m=75, k=2, M5=1024, L=8), 20 iterations
-    each, of the McCormick loop at the headline's shape (n=m=50, k=1; B=1
+    (B=4, n=m=50, M5=4096), with K7 + K8a's and K8b's device ms per
+    iteration, of the rank-k Shor loop at config 3's (B=32, n=m=75, k=2,
+    M5=1024, L=8), with K7t's, 20 iterations each, of the McCormick loop at the headline's shape (n=m=50, k=1; B=1
     and B=64), 50 iterations each, and of one base-path root visit at B=64
     with its two safe-bound calls (K4) and its separation (K5)."""
     import torch
@@ -2567,6 +2675,7 @@ def phase_trace(res):
             M5=M5, L=8))
         by = row["kernel_ms_per_iter"]
         row["k7_k8a_ms_per_iter"] = by.get("K7", 0.0) + by.get("K8a", 0.0)
+        row["k8b_ms_per_iter"] = by.get("K8b", 0.0)
         log(key.replace("_", " "), json.dumps(row))
         res[key] = row
     c, sc, st = _shor_k_inputs(32, 75, 75, 8, 1024, gen, dev)
@@ -2577,6 +2686,7 @@ def phase_trace(res):
     row = _k2k3_traced(lambda: _trace_loop(
         lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "ns"), names, 20, B=32, n=75, m=75, k=2,
         M5=1024, L=8))
+    row["k7t_ms_per_iter"] = row["kernel_ms_per_iter"].get("K7t", 0.0)
     log("trace shork", json.dumps(row))
     res["trace_shork"] = row
     # the McCormick loop (K9a -> K9b -> K1) at the headline's shape, with
@@ -2742,8 +2852,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
-    ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7 and K8a are "
-                    "timed beside the kernels phase's rows")
+    ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7, K8a, K8b "
+                    "and K7t are timed beside the kernels phase's rows")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:

@@ -233,11 +233,11 @@ class SolverConfig:
         if self.sdp_halpern:
             not_ported("sdp_halpern", '"Not to port"')
         if self.mesh_shape is not None and math.prod(int(s) for s in self.mesh_shape) > 1:
-            not_ported("mesh_shape", "queue 1 item 13")
+            not_ported("mesh_shape", "queue 1, parallel/mesh.py")
         if self.distributed:
-            not_ported("distributed=True", "queue 1 item 13")
+            not_ported("distributed=True", "queue 1, parallel/dist.py")
         if self.profile_dir is not None:
-            not_ported("profile_dir", "queue 1 item 14")
+            not_ported("profile_dir", "queue 1, profile_dir")
 
     def run_details_params(self) -> dict:
         """Parameter echo for run_details, matching reference key names

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cfloat>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -65,6 +66,25 @@ struct RO {
   template <class I>
   __device__ __forceinline__ float operator[](I i) const { return __ldg(p + i); }
 };
+
+// nf floats from global g (16-byte aligned at its start, or the copy goes a
+// float at a time) into shared s, and back: a CTA's NT threads on
+// consecutive 16-byte words (K7's and K7t's staged records)
+template <int NT>
+__device__ __forceinline__ void load_block(const float* g, float* s, int nf) {
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
+  for (int q = threadIdx.x; q < n4; q += NT)
+    reinterpret_cast<float4*>(s)[q] = reinterpret_cast<const float4*>(g)[q];
+  for (int q = 4 * n4 + threadIdx.x; q < nf; q += NT) s[q] = g[q];
+}
+
+template <int NT>
+__device__ __forceinline__ void store_block(float* g, const float* s, int nf) {
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
+  for (int q = threadIdx.x; q < n4; q += NT)
+    reinterpret_cast<float4*>(g)[q] = reinterpret_cast<const float4*>(s)[q];
+  for (int q = 4 * n4 + threadIdx.x; q < nf; q += NT) g[q] = s[q];
+}
 
 // an odd row stride >= n for a shared-memory band: a column of it, read or
 // written by consecutive lanes, then falls in distinct banks
@@ -171,7 +191,7 @@ __device__ __forceinline__ void mm_small(const float (&A)[D][D], const float (&B
 }
 
 // Sign-schedule PSD projection of one D x D matrix held by one thread in
-// registers, full products (K7t and K7x; K7 runs project_psd_small_sym
+// registers, full products (K7x; K7 and K7t run project_psd_small_sym
 // below; plain version: omc_torch.ops.polar.project_psd_ns_small):
 // T <- sym(T); W <- (T + sign(T) T) / 2, symmetrised, with sign(T) from the
 // 12 quintic + 2 cubic steps of kSignSched on T / ||T||_F (43 products).
@@ -457,7 +477,9 @@ struct K8aParams {
   float gamma, R_X;                     // R_X = sqrt(2 gamma ub_bar)
 };
 
-// K8b: cone step of the RSOC, Theta-link and W >= 0 slots with their EMAs.
+// K8b: cone step of the RSOC, Theta-link and W >= 0 slots with their EMAs;
+// B ceil(m / 32) CTAs on the link rows, then CTAs of qpc quads of four
+// consecutive coordinates of the batch (omc_k8b_grid_x).
 struct K8bParams {
   const float *Xs, *Ws, *Ths;    // (B, n, m), (B, n, m), (B, m, m)
   float *wr, *ur, *acc_r;        // (B, n*m, 3)
@@ -466,6 +488,8 @@ struct K8bParams {
   float *wp, *up;                // (B, n, m)
   const float *sX, *sT, *sS, *rho;
   int B, n, m;
+  int qpc;                       // quads a coordinates' CTA: 32, 64 or 128
+                                 // (sdp.admm_shor.k8b_plan)
   float alpha, beta;
 };
 
@@ -476,9 +500,11 @@ struct K7tParams {
   const float *Xt;                       // (B, k, n*m) scaled
   const float *Wt;                       // (B, k, C)
   const float *v1, *v2, *v3;             // (B, k, P1), (B, k, P2), (B, k, P3)
-  const int *mc;                         // (B, M5, 4) coordinate of each corner
-  const int *coord_flat;                 // (B, C)
-  const int *iv1a, *iv1b, *iv2a, *iv2b, *iv3;  // (B, M5)
+  const int *rec;                        // (B, M5, 16) a minor's index record
+                                         // (sdp.shor_k.minor_records): the flat
+                                         // entries of its four corners, their
+                                         // coordinates, iv1a, iv1b, iv2a, iv2b,
+                                         // iv3, 3 pad; 16-byte aligned
   const float *minor_mask;               // (B, M5)
   const float *sS, *rho;                 // (B,)
   int B, M5, k, nm, C, P1, P2, P3;

@@ -26,8 +26,6 @@
 // symmetrised T.  A CTA is 128 threads (smaller CTAs were never faster on
 // the H100 at the Shor loop's shapes: a matrix's chain of products is the
 // time, even where 128 leaves SMs idle).
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
@@ -38,23 +36,6 @@ constexpr int kNT = omc::kTri<kD>;
 constexpr int kThreads7 = 128;
 
 using omc::tri;
-
-// nf floats from global g (16-byte aligned at its start, or the copy goes a
-// float at a time) into shared s, and back: consecutive threads on
-// consecutive 16-byte words
-__device__ __forceinline__ void load_block(const float* g, float* s, int nf) {
-  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
-  for (int q = threadIdx.x; q < n4; q += kThreads7)
-    reinterpret_cast<float4*>(s)[q] = reinterpret_cast<const float4*>(g)[q];
-  for (int q = 4 * n4 + threadIdx.x; q < nf; q += kThreads7) s[q] = g[q];
-}
-
-__device__ __forceinline__ void store_block(float* g, const float* s, int nf) {
-  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
-  for (int q = threadIdx.x; q < n4; q += kThreads7)
-    reinterpret_cast<float4*>(g)[q] = reinterpret_cast<const float4*>(s)[q];
-  for (int q = 4 * n4 + threadIdx.x; q < nf; q += kThreads7) g[q] = s[q];
-}
 
 __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
   // the CTA's blocks of w5 (or t), u5 and acc, kThreads7 matrices each (a
@@ -74,7 +55,7 @@ __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
   float T[kNT], W[kNT];
 
   if (p.t != nullptr) {
-    load_block(p.t + off, sw, nf);
+    omc::load_block<kThreads7>(p.t + off, sw, nf);
     __syncthreads();
     if (tid < cnt) {
 #pragma unroll
@@ -89,13 +70,13 @@ __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
         for (int j = 0; j < kD; ++j) mw[i * kD + j] = W[tri<kD>(i, j)];
     }
     __syncthreads();
-    store_block(p.w + off, sw, nf);
+    omc::store_block<kThreads7>(p.w + off, sw, nf);
     return;
   }
 
-  load_block(p.w + off, sw, nf);
-  load_block(p.u + off, su, nf);
-  if (p.acc != nullptr) load_block(p.acc + off, sa, nf);
+  omc::load_block<kThreads7>(p.w + off, sw, nf);
+  omc::load_block<kThreads7>(p.u + off, su, nf);
+  if (p.acc != nullptr) omc::load_block<kThreads7>(p.acc + off, sa, nf);
   // fused mode: gather the minor's 15 distinct entries (omc _forward_shor)
   // while the blocks arrive
   const bool act = tid < cnt;
@@ -149,9 +130,9 @@ __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
       }
   }
   __syncthreads();
-  store_block(p.w + off, sw, nf);
-  store_block(p.u + off, su, nf);
-  if (p.acc != nullptr) store_block(p.acc + off, sa, nf);
+  omc::store_block<kThreads7>(p.w + off, sw, nf);
+  omc::store_block<kThreads7>(p.u + off, su, nf);
+  if (p.acc != nullptr) omc::store_block<kThreads7>(p.acc + off, sa, nf);
 }
 
 }  // namespace

@@ -38,9 +38,20 @@
 //      off-diagonal: both tiles of w1 - u1 read by rows into shared memory
 //      and written as sym(Theta) by rows, so both reads are coalesced.
 //  (c) then the 5 M5 v entries of the slot, one a thread.
-// K8b keeps one CTA per (node slot, tile of 32 columns), 8 row groups of 32
-// threads, consecutive threads on consecutive columns; its link rows' column
-// sums are a shared-memory reduction inside the CTA.
+// K8b's grid is sized to the card too (omc_torch.sdp.admm_shor.k8b_plan),
+// one dimension, two kinds of CTA:
+//  (l) x < B ceil(m / 32): the link rows of 32 columns of a slot, 4 row
+//      groups of 32 threads, group g summing sW W_ij over the rows i = g
+//      (mod 4) in row order, then the 4 partials in order: no atomics, the
+//      same bits every run; then t_l, wl, ul and the EMA.  They re-read W,
+//      4 of the ~96 bytes a coordinate.
+//  (q) then the coordinates of the whole batch, walked flat: a thread takes
+//      a quad of 4 consecutive coordinates with 16-byte loads and stores of
+//      X, W, the mask, wp and up, a CTA qpc quads (the plan narrows the
+//      CTAs until there are enough to fill the card), and a warp's RSOC
+//      triples are staged through shared memory as whole 16-byte words.  No
+//      coordinate depends on another, so a thread's loads are all in flight
+//      at once (the operands are __restrict__: no load waits on a store).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -49,8 +60,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCols = 32;
-constexpr int kRows = omc::kThreads / kCols;  // 8
 constexpr int kD5 = 25;                        // floats per 5x5 minor slot
 constexpr int kTile = 32;                      // K8a's Theta tiles
 constexpr int kClusterMax = 8;                 // K8a's clusters: the portable size
@@ -304,56 +313,215 @@ __global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
   }
 }
 
-__global__ void __launch_bounds__(omc::kThreads) k8b_kernel(K8bParams p) {
-  __shared__ float part[kRows][kCols];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % kCols, ty = tid / kCols;
-  const int n = p.n, m = p.m, nm = n * m;
-  const int j = blockIdx.x * kCols + lane;
-  const bool col = j < m;
-  const float rho = p.rho[b], sX = p.sX[b], sS = p.sS[b];
-  const float sW = sX * sX, alpha = p.alpha, om = 1.0f - p.alpha, beta = p.beta;
+// K8b's CTA (both kinds) and its link tiles: 32 columns in 4 row groups
+constexpr int kThreads8b = 128;
+constexpr int kLinkCols = 32;
+constexpr int kLinkRows = kThreads8b / kLinkCols;  // 4
 
-  float csum = 0.f;
-  if (col) {
-    for (int i = ty; i < n; i += kRows) {
-      const size_t q = (size_t)b * nm + i * m + j;
-      const float x = p.Xs[q], w = p.Ws[q];
-      csum += sW * w;
-      // RSOC row (0.5, W, X) scaled by sS
-      const float fr[3] = {sS * 0.5f, sS * w, sS * x};
-      float t[3], pr[3];
+struct K8bLayout {
+  int links, coords, grid_x;
+};
+
+__host__ __device__ __forceinline__ K8bLayout k8b_layout(int B, int n, int m, int qpc) {
+  K8bLayout l;
+  l.links = B * omc::cdiv(m, kLinkCols);
+  l.coords = omc::cdiv(omc::cdiv(B * n * m, 4), qpc);
+  l.grid_x = l.links + l.coords;
+  return l;
+}
+
+// the values of one coordinate's RSOC row (r[0..2], its dual u and EMA a)
+// and W >= 0 slot (wp, up) at the primal (x, w), updated in place
+__device__ __forceinline__ void k8b_coord(float x, float w, float sm, float sS, float rho,
+                                          float alpha, float beta, float (&r)[3], float (&u)[3],
+                                          float (&a)[3], float& wp, float& up) {
+  const float om = 1.0f - alpha;
+  // RSOC row (0.5, W, X) scaled by sS
+  const float fr[3] = {sS * 0.5f, sS * w, sS * x};
+  float t[3], pr[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * p.wr[3 * q + c]) + p.ur[3 * q + c];
-      omc::project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
-      const float sm = p.soc_mask[q];
+  for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * r[c]) + u[c];
+  omc::project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float u = (t[c] - pr[c]) * sm;
-        p.wr[3 * q + c] = pr[c];
-        p.ur[3 * q + c] = u;
-        p.acc_r[3 * q + c] = p.acc_r[3 * q + c] + beta * (rho * u - p.acc_r[3 * q + c]);
-      }
-      // W >= 0 slot
-      const float tp = (alpha * (sS * w) + om * p.wp[q]) + p.up[q];
-      const float wp = fmaxf(tp, 0.f);
-      p.wp[q] = wp;
-      p.up[q] = tp - wp;
-    }
+  for (int c = 0; c < 3; ++c) {
+    const float uc = (t[c] - pr[c]) * sm;
+    r[c] = pr[c];
+    u[c] = uc;
+    a[c] = a[c] + beta * (rho * uc - a[c]);
   }
-  part[ty][lane] = csum;
-  __syncthreads();
+  const float tp = (alpha * (sS * w) + om * wp) + up;
+  const float wn = fmaxf(tp, 0.f);
+  wp = wn;
+  up = tp - wn;
+}
 
+__device__ __forceinline__ float& lane4(float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// (l): the link rows of columns [32 tile, 32 tile + 32) of slot b
+__device__ __forceinline__ void k8b_link(const K8bParams& p, int b, int tile) {
+  __shared__ float part[kLinkRows][kLinkCols];
+  const int lane = threadIdx.x % kLinkCols, g = threadIdx.x / kLinkCols;
+  const int n = p.n, m = p.m, j = tile * kLinkCols + lane;
+  const float* __restrict__ W = p.Ws + (size_t)b * n * m;
+  const float sW = __ldg(p.sX + b) * __ldg(p.sX + b);
+  // the row's other operands, loaded while the sums' loads are in flight
+  const size_t ql = (size_t)b * m + j;
+  const bool own = g == 0 && j < m;
+  float th = 0.f, ul = 0.f, al = 0.f;
+  if (own) th = __ldg(p.Ths + (size_t)b * m * m + (size_t)j * m + j), ul = p.ul[ql], al = p.acc_l[ql];
+  const float sT = __ldg(p.sT + b), rho = __ldg(p.rho + b);
+  float s = 0.f;
+  if (j < m) {
+#pragma unroll 8
+    for (int i = g; i < n; i += kLinkRows) s += __fmul_rn(sW, __ldg(W + (size_t)i * m + j));
+  }
+  part[g][lane] = s;
+  __syncthreads();
   // Theta-link rows Theta_jj - sum_i W_ij: zero cone, the dual accumulates
-  if (ty == 0 && col) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += part[r][lane];
-    const size_t ql = (size_t)b * m + j;
-    const float f_link = p.sT[b] * p.Ths[(size_t)b * m * m + j * m + j] - s;
-    const float tl = alpha * f_link + p.ul[ql];
+  if (own) {
+    float tot = 0.f;
+#pragma unroll
+    for (int r = 0; r < kLinkRows; ++r) tot += part[r][lane];
+    const float tl = p.alpha * (sT * th - tot) + ul;
     p.wl[ql] = 0.f;
     p.ul[ql] = tl;
-    p.acc_l[ql] = p.acc_l[ql] + beta * (rho * tl - p.acc_l[ql]);
+    p.acc_l[ql] = al + p.beta * (rho * tl - al);
+  }
+}
+
+// (q): the quads [quad0, quad0 + qpc) of the batch's flat B n m, a quad a
+// thread (fewer than 4 coordinates at the ragged end), a warp 32 quads.  The
+// RSOC triples of a warp's coordinates are one contiguous block of each of
+// wr, ur and acc_r (16-byte aligned: 12 floats a quad), staged through the
+// warp's own shared memory with 16-byte accesses by consecutive lanes, each
+// lane's loads issued before any store, no barrier but the warp's; a lane
+// reads its 12 floats as 3 words at a 48-byte stride (no bank conflicts).
+// X, W, the mask, wp and up are 16-byte words a lane.
+__device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
+  constexpr int kW4 = 3 * 32;  // 16-byte words of a warp's block of one array
+  __shared__ float4 k8b_smem[3 * kW4 * (kThreads8b / 32)];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* __restrict__ X = p.Xs;
+  const float* __restrict__ W = p.Ws;
+  const float* __restrict__ M = p.soc_mask;
+  float* __restrict__ wp = p.wp;
+  float* __restrict__ up = p.up;
+  const int nm = p.n * p.m, tot = p.B * nm;
+  const int c0 = 4 * (quad0 + 32 * warp);  // the warp's first coordinate
+  if (32 * warp >= p.qpc || c0 >= tot) return;
+  const int cnt = min(128, tot - c0);
+  const size_t off = 3 * (size_t)c0;
+  float4* sr = k8b_smem + 3 * kW4 * warp;
+  float4* su = sr + kW4;
+  float4* sa = su + kW4;
+  const int q0 = c0 + 4 * lane;
+  const int rem = q0 < tot ? min(4, tot - q0) : 0;
+  // the quad's slots: b0, and b0 + 1 from coordinate bnd on (n m >= 4)
+  const int b0 = rem > 0 ? q0 / nm : 0, b1 = min(b0 + 1, p.B - 1), bnd = (b0 + 1) * nm;
+  const float sS0 = __ldg(p.sS + b0), rho0 = __ldg(p.rho + b0);
+  const float sS1 = __ldg(p.sS + b1), rho1 = __ldg(p.rho + b1);
+  float4 x4 = {}, w4 = {}, m4 = {}, p4 = {}, u4 = {};
+  if (rem == 4) {
+    x4 = __ldg(reinterpret_cast<const float4*>(X + q0));
+    w4 = __ldg(reinterpret_cast<const float4*>(W + q0));
+    m4 = __ldg(reinterpret_cast<const float4*>(M + q0));
+    p4 = *reinterpret_cast<const float4*>(wp + q0);
+    u4 = *reinterpret_cast<const float4*>(up + q0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < rem) {
+        lane4(x4, e) = X[q0 + e], lane4(w4, e) = W[q0 + e], lane4(m4, e) = M[q0 + e];
+        lane4(p4, e) = wp[q0 + e], lane4(u4, e) = up[q0 + e];
+      }
+  }
+  // the warp's blocks of the three RSOC arrays, 3 words a lane of each
+  const int nf = 3 * cnt, n4 = nf >> 2;
+  {
+    const float4* gr = reinterpret_cast<const float4*>(p.wr + off);
+    const float4* gu = reinterpret_cast<const float4*>(p.ur + off);
+    const float4* ga = reinterpret_cast<const float4*>(p.acc_r + off);
+    float4 vr[3], vu[3], va[3];
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+      if (lane + 32 * h < n4) {
+        vr[h] = gr[lane + 32 * h], vu[h] = gu[lane + 32 * h], va[h] = ga[lane + 32 * h];
+      }
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+      if (lane + 32 * h < n4) sr[lane + 32 * h] = vr[h], su[lane + 32 * h] = vu[h],
+                              sa[lane + 32 * h] = va[h];
+    float* fr = reinterpret_cast<float*>(sr);
+    float* fu = reinterpret_cast<float*>(su);
+    float* fa = reinterpret_cast<float*>(sa);
+    for (int q = 4 * n4 + lane; q < nf; q += 32)
+      fr[q] = p.wr[off + q], fu[q] = p.ur[off + q], fa[q] = p.acc_r[off + q];
+  }
+  __syncwarp();
+  if (rem > 0) {
+    float4 r4[3], v4[3], a4[3];
+#pragma unroll
+    for (int h = 0; h < 3; ++h) r4[h] = sr[3 * lane + h], v4[h] = su[3 * lane + h],
+                                a4[h] = sa[3 * lane + h];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e >= rem) continue;
+      const bool hi = q0 + e >= bnd;
+      float r[3], u[3], a[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        r[c] = lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4);
+        u[c] = lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4);
+        a[c] = lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4);
+      }
+      k8b_coord(lane4(x4, e), lane4(w4, e), lane4(m4, e), hi ? sS1 : sS0, hi ? rho1 : rho0,
+                p.alpha, p.beta, r, u, a, lane4(p4, e), lane4(u4, e));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4) = r[c];
+        lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4) = u[c];
+        lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4) = a[c];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 3; ++h) sr[3 * lane + h] = r4[h], su[3 * lane + h] = v4[h],
+                                sa[3 * lane + h] = a4[h];
+    if (rem == 4) {
+      *reinterpret_cast<float4*>(wp + q0) = p4;
+      *reinterpret_cast<float4*>(up + q0) = u4;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < rem) wp[q0 + e] = lane4(p4, e), up[q0 + e] = lane4(u4, e);
+    }
+  }
+  __syncwarp();
+  {
+    float4* gr = reinterpret_cast<float4*>(p.wr + off);
+    float4* gu = reinterpret_cast<float4*>(p.ur + off);
+    float4* ga = reinterpret_cast<float4*>(p.acc_r + off);
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+      if (lane + 32 * h < n4) gr[lane + 32 * h] = sr[lane + 32 * h],
+                              gu[lane + 32 * h] = su[lane + 32 * h],
+                              ga[lane + 32 * h] = sa[lane + 32 * h];
+    const float* fr = reinterpret_cast<const float*>(sr);
+    const float* fu = reinterpret_cast<const float*>(su);
+    const float* fa = reinterpret_cast<const float*>(sa);
+    for (int q = 4 * n4 + lane; q < nf; q += 32)
+      p.wr[off + q] = fr[q], p.ur[off + q] = fu[q], p.acc_r[off + q] = fa[q];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads8b) k8b_kernel(K8bParams p) {
+  const int x = blockIdx.x;
+  const int tiles = omc::cdiv(p.m, kLinkCols);
+  if (x < p.B * tiles) {
+    k8b_link(p, x / tiles, x % tiles);
+  } else {
+    k8b_coords(p, (x - p.B * tiles) * p.qpc);
   }
 }
 
@@ -403,11 +571,17 @@ OMC_EXPORT int omc_k8a_shor_zstep(const K8aParams* params, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// K8b's grid width (omc_torch.sdp.admm_shor.k8b_plan plans with it;
+// chip_smoke.py holds the plan against it)
+OMC_EXPORT int omc_k8b_grid_x(int B, int n, int m, int qpc) {
+  return k8b_layout(B, n, m, qpc).grid_x;
+}
+
 OMC_EXPORT int omc_k8b_shor_cone(const K8bParams* params, void* stream) {
   const K8bParams& p = *params;
-  if (p.B > 0 && p.m > 0) {
-    const dim3 grid((p.m + kCols - 1) / kCols, p.B);
-    k8b_kernel<<<grid, omc::kThreads, 0, (cudaStream_t)stream>>>(p);
-  }
+  if (p.B < 1 || p.n < 1 || p.m < 1 || p.n * p.m < 4 || p.qpc < 32 || p.qpc > kThreads8b ||
+      p.qpc % 32)
+    return (int)cudaErrorInvalidValue;
+  k8b_kernel<<<k8b_layout(p.B, p.n, p.m, p.qpc).grid_x, kThreads8b, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

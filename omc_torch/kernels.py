@@ -216,13 +216,12 @@ class K8bParams(ctypes.Structure):
     _fields_ = _struct(
         ("Xs", "Ws", "Ths", "wr", "ur", "acc_r", "soc_mask", "wl", "ul",
          "acc_l", "wp", "up", "sX", "sT", "sS", "rho"),
-        ("B", "n", "m"), ("alpha", "beta"))
+        ("B", "n", "m", "qpc"), ("alpha", "beta"))
 
 
 class K7tParams(ctypes.Structure):
     _fields_ = _struct(
-        ("w", "u", "acc", "Xt", "Wt", "v1", "v2", "v3", "mc", "coord_flat",
-         "iv1a", "iv1b", "iv2a", "iv2b", "iv3", "minor_mask", "sS", "rho"),
+        ("w", "u", "acc", "Xt", "Wt", "v1", "v2", "v3", "rec", "minor_mask", "sS", "rho"),
         ("B", "M5", "k", "nm", "C", "P1", "P2", "P3"), ("alpha", "beta"))
 
 
@@ -326,6 +325,8 @@ def _load(path: Path):
     lib.omc_k8a_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8a_grid_x.argtypes = [ctypes.c_int] * 4
     lib.omc_k8a_grid_x.restype = ctypes.c_int
+    lib.omc_k8b_grid_x.argtypes = [ctypes.c_int] * 4
+    lib.omc_k8b_grid_x.restype = ctypes.c_int
     for name, nargs in (("omc_k2_smem_bytes", 8), ("omc_k3_smem_bytes", 8),
                         ("omc_k2_ws_doubles", 5), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs

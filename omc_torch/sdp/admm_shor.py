@@ -664,11 +664,62 @@ def shor_cone_step_plain(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l):
     return wr, ur, wl, ul, wp, up, acc_r, acc_l
 
 
+# K8b's geometry (csrc/k8_shor.cu): CTAs of 128 threads; a link CTA sums a
+# tile of 32 columns in 4 row groups; a coordinates' CTA takes up to 128
+# quads of 4 coordinates, fewer until the grid has a CTA for every SM
+K8B_THREADS, K8B_LINK_COLS, K8B_LINK_ROWS = 128, 32, 4
+K8B_TARGET_CTAS = H100_SMS
+
+
+def k8b_plan(B: int, n: int, m: int) -> dict:
+    """K8b's grid, one dimension: ``link_ctas`` = B ceil(m / 32) CTAs on the
+    link rows (slot x // ceil(m / 32), columns [32 t, 32 t + 32) for t = x %
+    ceil(m / 32); row group g of 4 sums rows g, g + 4, ... in order, then
+    the groups in order), then ``coord_ctas`` CTAs of ``qpc`` quads of 4
+    consecutive coordinates of the batch's flat B n m (``grid``).  ``qpc``
+    halves from 128 to 32 while there are fewer coordinates' CTAs than
+    ``K8B_TARGET_CTAS``."""
+    if min(B, n, m) < 1 or n * m < 4:
+        raise ValueError(f"K8b: unsupported shape B={B}, n={n}, m={m}")
+    quads = _cdiv(B * n * m, 4)
+    qpc = K8B_THREADS
+    while qpc > 32 and _cdiv(quads, qpc) < K8B_TARGET_CTAS:
+        qpc //= 2
+    links, coords = B * _cdiv(m, K8B_LINK_COLS), _cdiv(quads, qpc)
+    return dict(qpc=qpc, link_ctas=links, coord_ctas=coords, grid=links + coords,
+                threads=K8B_THREADS, link_rows=K8B_LINK_ROWS)
+
+
+def shor_cone_step_tiled(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l, plan: dict):
+    """Torch mirror of K8b's order of work (``plan`` from ``k8b_plan``), for
+    the tests: the link rows' column sums of sW W per row group (rows g, g +
+    G, ... in order), the G groups added in order; every coordinate's slots
+    as ``shor_cone_step_plain`` (no coordinate depends on another).  Returns
+    the plain version's tuple."""
+    out = list(shor_cone_step_plain(c, sc, st, acc_r, acc_l))
+    core = st.core
+    n = core.X.shape[1]
+    sWW = (core.sX * core.sX)[:, None, None] * st.W
+    G = plan["link_rows"]
+    tot = torch.zeros_like(st.ul)
+    for g in range(G):
+        part = torch.zeros_like(st.ul)
+        for i in range(g, n, G):
+            part = part + sWW[:, i]
+        tot = tot + part
+    f_link = core.sT[:, None] * torch.diagonal(core.Th, dim1=-2, dim2=-1) - tot
+    ul = c.alpha * f_link + st.ul
+    out[2], out[3] = torch.zeros_like(ul), ul
+    out[7] = acc_l + c.beta * (core.rho[:, None] * ul - acc_l)
+    return tuple(out)
+
+
 def shor_cone_step(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l):
     """K8b wrapper: updates the RSOC, link and W >= 0 slots of ``st`` and
     the EMAs ``acc_r``, ``acc_l`` in place.  A CPU state runs
-    ``shor_cone_step_plain``; a CUDA state launches ``csrc/k8_shor.cu`` or
-    raises."""
+    ``shor_cone_step_plain``; a CUDA state launches ``csrc/k8_shor.cu``
+    (``k8b_plan``'s grid) or raises.  The parameter block is packed once per
+    operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -678,26 +729,51 @@ def shor_cone_step(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_cone_step: unsupported device {dev}")
+    kernels.launch("K8b", "omc_k8b_shor_cone", _k8b_params(c, sc, st, acc_r, acc_l, dev), dev)
+
+
+# the operands K8b reads and writes as 16-byte words
+_K8B_WORDS = ("Xs", "Ws", "wr", "ur", "acc_r", "soc_mask", "wp", "up")
+# K8b's operands, gathered cheaply for the reuse test of its packed block
+_K8B_ST = operator.attrgetter("W", "wr", "ur", "wl", "ul", "wp", "up")
+_K8B_CORE = operator.attrgetter("X", "Th", "sX", "sT", "sS", "rho")
+
+
+def _k8b_tensors(sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l) -> tuple:
+    return _K8B_ST(st) + _K8B_CORE(st.core) + (sc.sb.soc_mask, acc_r, acc_l)
+
+
+def _k8b_operands(sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l) -> list:
+    """(field, tensor, shape) of every K8b operand (float32)."""
+    core = st.core
     B, n, m = core.X.shape
-    ck = kernels.check
-    p = kernels.K8bParams()
-    p.Xs = ck("X", core.X, (B, n, m), dev)
-    p.Ws = ck("W", st.W, (B, n, m), dev)
-    p.Ths = ck("Th", core.Th, (B, m, m), dev)
-    p.wr = ck("wr", st.wr, (B, n * m, 3), dev)
-    p.ur = ck("ur", st.ur, (B, n * m, 3), dev)
-    p.acc_r = ck("acc_r", acc_r, (B, n * m, 3), dev)
-    p.soc_mask = ck("soc_mask", sc.sb.soc_mask, (B, n * m), dev)
-    p.wl = ck("wl", st.wl, (B, m), dev)
-    p.ul = ck("ul", st.ul, (B, m), dev)
-    p.acc_l = ck("acc_l", acc_l, (B, m), dev)
-    p.wp = ck("wp", st.wp, (B, n, m), dev)
-    p.up = ck("up", st.up, (B, n, m), dev)
-    for name in ("sX", "sT", "sS", "rho"):
-        setattr(p, name, ck(name, getattr(core, name), (B,), dev))
-    p.B, p.n, p.m = B, n, m
-    p.alpha, p.beta = float(c.alpha), float(c.beta)
-    kernels.launch("K8b", "omc_k8b_shor_cone", p, dev)
+    nm = n * m
+    return ([("Xs", core.X, (B, n, m)), ("Ws", st.W, (B, n, m)), ("Ths", core.Th, (B, m, m)),
+             ("wr", st.wr, (B, nm, 3)), ("ur", st.ur, (B, nm, 3)), ("acc_r", acc_r, (B, nm, 3)),
+             ("soc_mask", sc.sb.soc_mask, (B, nm)), ("wl", st.wl, (B, m)), ("ul", st.ul, (B, m)),
+             ("acc_l", acc_l, (B, m)), ("wp", st.wp, (B, n, m)), ("up", st.up, (B, n, m))]
+            + [(name, getattr(core, name), (B,)) for name in ("sX", "sT", "sS", "rho")])
+
+
+def _k8b_params(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l, dev):
+    """K8b's parameter block, packed once per operands (``admm._packed``)."""
+    scalars = (float(c.alpha), float(c.beta))
+
+    def build():
+        B, n, m = st.core.X.shape
+        p = kernels.K8bParams()
+        for name, t, shape in _k8b_operands(sc, st, acc_r, acc_l):
+            setattr(p, name, kernels.check(name, t, shape, dev))
+        if any(getattr(p, name) % 16 for name in _K8B_WORDS):
+            raise ValueError("K8b reads X, W, the RSOC slots, the mask and the W >= 0 slot as "
+                             "16-byte words: their storage must start 16-byte aligned")
+        p.B, p.n, p.m = B, n, m
+        p.qpc = k8b_plan(B, n, m)["qpc"]
+        p.alpha, p.beta = scalars
+        return p
+
+    return _packed(("K8b", id(c), id(sc), id(st)), _k8b_tensors(sc, st, acc_r, acc_l), scalars,
+                   build)
 
 
 def shor_iteration(c, sc: _ShorConsts, st: ShorADMMState, ts, acc, psd_method: str):
@@ -997,6 +1073,7 @@ def apply_best_duals(state: ShorADMMState, out: dict) -> ShorADMMState:
 __all__ = [
     "ShorBatch", "shor_batch_to_device", "ShorADMMState", "init_shor_state",
     "make_shor_solver", "shor_zstep", "shor_zstep_plain", "shor_zstep_tiled", "k8a_plan",
+    "k8b_plan", "shor_cone_step_tiled",
     "minor_step",
     "minor_step_plain", "shor_cone_step", "shor_cone_step_plain",
     "safe_dual_bound_shor", "safe_dual_bound_shor2", "host_certified_bound_shor",

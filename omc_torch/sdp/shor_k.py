@@ -401,6 +401,17 @@ def _corner_flat(sb: ShorKBatch):
     return torch.gather(sb.coord_flat.long(), 1, sb.mc.long().reshape(B, -1)).reshape(B, M5, 4)
 
 
+def minor_records(sb: ShorKBatch, cf) -> torch.Tensor:
+    """K7t's index records, (B, M5, 16) int32, one per (slot, minor), packed
+    once per visit: the flat entries ``cf`` = coord_flat[mc] of its four
+    corners, their coordinates ``mc``, then iv1a, iv1b, iv2a, iv2b, iv3 and
+    three zeros.  The k threads of a minor read one record, so no thread
+    gathers through coord_flat."""
+    ivs = [getattr(sb, name).long()[..., None] for name in ("iv1a", "iv1b", "iv2a", "iv2b", "iv3")]
+    pad = torch.zeros_like(ivs[0]).expand(*ivs[0].shape[:-1], 3)
+    return torch.cat([cf, sb.mc.long(), *ivs, pad], dim=-1).to(torch.int32).contiguous()
+
+
 def _minor_blocks_k(sb: ShorKBatch, cf, Xt_s, Wts, v1s, v2s, v3s):
     """The unweighted per-term 5x5 minor slots, (B, M5, k, 5, 5)."""
     B, k = Xt_s.shape[:2]
@@ -551,6 +562,7 @@ class _ShorKConsts:
     k: int
     kp: int
     cf: torch.Tensor  # (B, M5, 4) int64 flat entry of each minor corner
+    rec: torch.Tensor  # (B, M5, 16) int32 K7t's index records (minor_records)
     offs5: torch.Tensor
     offsx: torch.Tensor
     offsr: torch.Tensor
@@ -607,8 +619,9 @@ def make_shor_k_consts(c, sb: ShorKBatch, core: ADMMState, ub_bar, k: int) -> _S
         z(B, k, sb.cnt_v1.shape[1]), z(B, k, sb.cnt_v2.shape[1]), z(B, k, sb.cnt_v3.shape[1]),
         k, m, sX_f, sW_f, sS_f)
     cont = lambda t: t.contiguous()  # noqa: E731
+    cf = _corner_flat(sb)
     return _ShorKConsts(
-        sb=sb, k=k, kp=kp, cf=_corner_flat(sb), offs5=offs5, offsx=offsx, offsr=offsr,
+        sb=sb, k=k, kp=kp, cf=cf, rec=minor_records(sb, cf), offs5=offs5, offsx=offsx, offsr=offsr,
         cW=0.5 * sW * c.mask[None], D1x=cont(D1x), c1x=cont(c1x), D1w=cont(D1w),
         D1wt=cont(D1wt), D1h=cont(D1h), D1v=tuple(cont(d) for d in D1v), D1w_c=D1w_c,
         D_c=cont(D_c), B_jc=cont(B_jc), S_th=cont(S_th),
@@ -842,7 +855,8 @@ def minor_k_step(c, sc: _ShorKConsts, st: ShorKState, acc5, psd_method: str):
     """K7t wrapper: updates ``st.w5``, ``st.u5`` and the EMA ``acc5`` in
     place.  A CPU state runs ``minor_k_step_plain`` (the sign schedule, or
     ``eigh`` with ``psd_method="eigh"``); a CUDA state launches
-    ``csrc/k7k_minor_xwh.cu`` (one thread per minor and term) or raises."""
+    ``csrc/k7k_minor_xwh.cu`` (one thread per minor and term) or raises.  The
+    parameter block is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -852,31 +866,50 @@ def minor_k_step(c, sc: _ShorKConsts, st: ShorKState, acc5, psd_method: str):
         return
     if dev.type != "cuda":
         raise ValueError(f"minor_k_step: unsupported device {dev}")
+    kernels.launch("K7t", "omc_k7t_minor_k", _k7t_params(c, sc, st, acc5, dev), dev)
+
+
+def _k7t_operands(sc: _ShorKConsts, st: ShorKState, acc5) -> list:
+    """(field, tensor, shape, dtype) of every K7t operand."""
     B, n, m, k, kp, C, Ms = _shapes(st)
-    _check_k("K7t", k)
     M5 = sc.M5
-    P1, P2, P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
-    sb = sc.sb
-    ck = kernels.check
-    p = kernels.K7tParams()
-    p.w = ck("w5", st.w5, (B, M5, k, 5, 5), dev)
-    p.u = ck("u5", st.u5, (B, M5, k, 5, 5), dev)
-    p.acc = ck("acc5", acc5, (B, M5, k, 5, 5), dev)
-    p.Xt = ck("Xt", st.Xt, (B, k, n, m), dev)
-    p.Wt = ck("Wt", st.Wt, (B, k, C), dev)
-    for name, P in (("v1", P1), ("v2", P2), ("v3", P3)):
-        setattr(p, name, ck(name, getattr(st, name), (B, k, P), dev))
-    p.mc = ck("mc", sb.mc, (B, M5, 4), dev, torch.int32)
-    p.coord_flat = ck("coord_flat", sb.coord_flat, (B, C), dev, torch.int32)
-    for name in ("iv1a", "iv1b", "iv2a", "iv2b", "iv3"):
-        setattr(p, name, ck(name, getattr(sb, name), (B, M5), dev, torch.int32))
-    p.minor_mask = ck("minor_mask", sb.minor_mask, (B, M5), dev)
-    p.sS = ck("sS", core.sS, (B,), dev)
-    p.rho = ck("rho", core.rho, (B,), dev)
-    p.B, p.M5, p.k, p.nm, p.C = B, M5, k, n * m, C
-    p.P1, p.P2, p.P3 = P1, P2, P3
-    p.alpha, p.beta = float(c.alpha), float(c.beta)
-    kernels.launch("K7t", "omc_k7t_minor_k", p, dev)
+    f32, i32 = torch.float32, torch.int32
+    return ([("w", st.w5, (B, M5, k, 5, 5), f32), ("u", st.u5, (B, M5, k, 5, 5), f32),
+             ("acc", acc5, (B, M5, k, 5, 5), f32), ("Xt", st.Xt, (B, k, n, m), f32),
+             ("Wt", st.Wt, (B, k, C), f32)]
+            + [(name, getattr(st, name), (B, k, getattr(st, name).shape[2]), f32)
+               for name in ("v1", "v2", "v3")]
+            + [("rec", sc.rec, (B, M5, 16), i32), ("minor_mask", sc.sb.minor_mask, (B, M5), f32),
+               ("sS", st.core.sS, (B,), f32), ("rho", st.core.rho, (B,), f32)])
+
+
+# K7t's operands, gathered cheaply for the reuse test of its packed block
+_K7T_ST = operator.attrgetter("w5", "u5", "Xt", "Wt", "v1", "v2", "v3")
+_K7T_CORE = operator.attrgetter("sS", "rho")
+
+
+def _k7t_tensors(sc: _ShorKConsts, st: ShorKState, acc5) -> tuple:
+    return _K7T_ST(st) + _K7T_CORE(st.core) + (sc.rec, sc.sb.minor_mask, acc5)
+
+
+def _k7t_params(c, sc: _ShorKConsts, st: ShorKState, acc5, dev):
+    """K7t's parameter block, packed once per operands (``admm._packed``)."""
+    scalars = (float(c.alpha), float(c.beta))
+
+    def build():
+        B, n, m, k, kp, C, Ms = _shapes(st)
+        _check_k("K7t", k)
+        p = kernels.K7tParams()
+        for name, t, shape, dtype in _k7t_operands(sc, st, acc5):
+            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+        if p.rec % 16:
+            raise ValueError("rec: K7t reads each minor's index record as 16-byte words")
+        p.B, p.M5, p.k, p.nm, p.C = B, sc.M5, k, n * m, C
+        p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
+        p.alpha, p.beta = scalars
+        return p
+
+    return _packed(("K7t", id(c), id(sc), id(st)), _k7t_tensors(sc, st, acc5), scalars, build)
 
 
 # --------------------------------------------------------------------------
@@ -1358,7 +1391,7 @@ __all__ = [
     "inverse_tables_k", "k8c_plan", "k8c_smem_bytes", "shor_k_batch_host_from_omc_leaves",
     "ShorKState",
     "init_shor_k_state", "make_shor_k_consts", "make_shor_k_solver", "shor_k_iteration",
-    "shor_k_zstep", "shor_k_zstep_plain", "minor_k_step", "minor_k_step_plain",
+    "shor_k_zstep", "shor_k_zstep_plain", "minor_k_step", "minor_k_step_plain", "minor_records",
     "xwh_step", "xwh_step_plain", "shor_k_cone_step", "shor_k_cone_step_plain",
     "safe_dual_bound_shor_k", "safe_dual_bound_shor_k2", "host_certified_bound_shor_k",
     "apply_best_duals",

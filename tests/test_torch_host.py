@@ -87,6 +87,19 @@ def test_unported_options_raise_not_implemented(kw):
         tconfig.SolverConfig(**{**_MAIN, **kw})
 
 
+@pytest.mark.parametrize("kw,item", [
+    (dict(mesh_shape=(2,)), "queue 1, parallel/mesh.py"),
+    (dict(distributed=True), "queue 1, parallel/dist.py"),
+    (dict(profile_dir="trace"), "queue 1, profile_dir"),
+])
+def test_unported_option_messages_name_their_roadmap_item(kw, item):
+    """Each option the port lacks names its ROADMAP.md item by the module or
+    option it ports, as queue 1 lists it."""
+    with pytest.raises(NotImplementedError) as err:
+        tconfig.SolverConfig(**{**_MAIN, **kw})
+    assert f"(ROADMAP.md, {item})" in str(err.value)
+
+
 @pytest.mark.parametrize("kw", [
     dict(add_Shor_valid_inequalities=True),
     dict(add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
