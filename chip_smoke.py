@@ -23,10 +23,11 @@ Phases, in order (each prints its numbers on lines of its own):
                K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
                variant) with their device times on every cluster size
                k2k3_plan could take; K8a, K7 (fused and projection mode)
-               and K8b at every shape of the Shor k=1 loop (SHOR_SHAPES)
-               and K7t at k = 2, 3 and 4 with their device times; the build
-               fails if ptxas reports a spill in K2, K3, K6, K7, K7t, K8a,
-               K8b or K8c
+               and K8b at every shape of the Shor k=1 loop (SHOR_SHAPES),
+               K7t, K7x (fused) and K8d at k = 2, 3 and 4 and K7x's
+               projection mode, with their device times; the build fails
+               if ptxas reports a spill in K2, K3, K6, K7, K7t, K7x, K8a,
+               K8b, K8c or K8d
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -60,19 +61,19 @@ of a kernel are its launches over all those phases (``COUNTED``).
 ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape and at the shor
 cell's (with K7's, K8a's and K8b's device ms per iteration), of the
-rank-k Shor loop at config 3's (with K7t's), of the McCormick loop at
-the headline's, of the headline's root visit at B=1 (with the device's
-idle share), of one base-path root visit at B=64 with its safe-bound
-calls, and of safe-bound calls at config 4's shape (B=128, n=m=250,
-k=5), each split into K4 and the torch terms; K2's and K3's device ms per
-iteration of the two Shor loops and the two root visits are given on their
-own.
+rank-k Shor loop at config 3's (with K7t's, K7x's and K8d's), of the
+McCormick loop at the headline's, of the headline's root visit at B=1
+(with the device's idle share), of one base-path root visit at B=64 with
+its safe-bound calls, and of safe-bound calls at config 4's shape (B=128,
+n=m=250, k=5), each split into K4 and the torch terms; K2's and K3's
+device ms per iteration of the two Shor loops and the two root visits are
+given on their own.
 
 ``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
-builds that tree's K2, K3, K7, K8a, K8b and K7t and times them, with that
-tree's parameter blocks, beside every K2/K3 row of the kernels phase up to
-512 cuts and every K7/K8a/K8b/K7t row, and reports ptxas's registers of its
-K7, K8a, K8b and K7t.
+builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x and K8d and times them,
+with that tree's parameter blocks, beside every K2/K3 row of the kernels
+phase up to 512 cuts and every K7/K8a/K8b/K7t/K7x/K8d row, and reports
+ptxas's registers of its K7, K7t, K7x, K8a, K8b and K8d.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -224,7 +225,7 @@ def phase_device(res):
 
 
 # the kernels whose small arrays must stay in registers (no stack frame)
-NO_FRAME = ("k7_kernel", "k7t_kernel", "k8a_kernel", "k8b_kernel")
+NO_FRAME = ("k7_kernel", "k7t_kernel", "k7x_kernel", "k8a_kernel", "k8b_kernel", "k8d_kernel")
 
 
 def phase_build(res):
@@ -245,15 +246,16 @@ def phase_build(res):
     keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel") + NO_FRAME
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
-    log("build: K2, K3, K6, K7, K7t, K8a, K8b and K8c registers", json.dumps(regs))
+    log("build: K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c and K8d registers", json.dumps(regs))
     if PARENT:
         res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
                                if any(x in f for x in NO_FRAME)}
-        log("build: the parent's K7, K7t, K8a and K8b", json.dumps(res["parent_ptxas"]))
-    # K2's, K3's, K6's, K7's, K7t's, K8a's, K8b's and K8c's instantiations
-    # keep every value in registers; K7's, K7t's, K8a's and K8b's index their
-    # small arrays only with constants (no stack frame: a 5x5 triangle in
-    # local memory costs K7 ten times its time)
+        log("build: the parent's K7, K7t, K7x, K8a, K8b and K8d", json.dumps(res["parent_ptxas"]))
+    # K2's, K3's, K6's, K7's, K7t's, K7x's, K8a's, K8b's, K8c's and K8d's
+    # instantiations keep every value in registers; K7's, K7t's, K7x's,
+    # K8a's, K8b's and K8d's index their small arrays only with constants (no
+    # stack frame: a 5x5 triangle in local memory costs K7 ten times its
+    # time)
     assert not [f for f in spills if any(x in f for x in keep)], spills
     frames = {f: r["stack"] for f, r in report.items()
               if any(x in f for x in NO_FRAME) and r["stack"]}
@@ -508,56 +510,57 @@ def phase_kernels(res):
                        and r8b["plan_matches_kernel"]))
 
     # ---- K7x projection mode: (32, 4096, 3, 3), spectra +-[0.1, 1] ----
-    from omc_torch.ops.polar import project_psd_ns_small, project_psd_xwh
-
-    T, T64 = _spectral_batch(32 * 4096, 3, gen, dev)
-    T, T64 = T.reshape(32, 4096, 3, 3), T64.reshape(32, 4096, 3, 3)
-    wk = project_psd_xwh(T)
-    torch.cuda.synchronize()
-    wp = project_psd_ns_small(T)
-    exact = project_psd_plain(T64.to(dev))
-    ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
-    w2 = torch.empty_like(T)
-    row = dict(shape=list(T.shape), rel_err=rel_fro(wk, wp),
-               max_abs_err=float((wk - wp).abs().max()),
-               plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
-               control_16bit_vs_eigh=ctl16,
-               ms=cuda_time_ms(lambda: project_psd_xwh(T, w2)),
-               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
-    with_bound(row, 4 * 2 * T.numel(), T.numel() // 9 * (SIGN_PRODUCTS * 54 + 27))
+    row = _check_k7x_projection(32, 4096, 3, gen, dev)
     log("K7x", json.dumps(row))
+    # the bars of K1/K7 (see above)
     checks.append(("K7x", row, row["plain_vs_eigh"] <= 1e-4 and row["kernel_vs_eigh"] <= 1e-4
-                   and row["rel_err"] <= 2e-4 and not ctl16 <= 1e-4))
+                   and row["rel_err"] <= 2e-4 and row["deterministic"]
+                   and not row["control_16bit_vs_eigh"] <= 1e-4))
     out["K7x"] = [row]
 
     # ---- K8c, K7t, K7x (slots), K8d at BASELINE config 3's shapes ----
     rows = _check_shor_k_kernels(32, 75, 75, 8, 1024, gen, dev)
     for name, row in rows.items():
         log(name, json.dumps(row))
-    # K8c and K8d: float32 sums in another order than the plain version's
+    # K8c: float32 sums in another order than the plain version's
     # scatter-adds, so 1e-5 relative as K8a/K8b; two launches on the same
     # input must give the same bits (no atomics)
-    for name in ("K8c", "K8d"):
-        r = rows[name]
-        checks.append((name, r, r["rel_err"] <= 1e-5 and r["deterministic"]
-                       and r.get("smem_matches_kernel", True)))
-    # the K7x slots: the bars of K1/K7 against a float64 eigh projection of
-    # the same slot values
-    r = rows["K7xfused"]
-    checks.append(("K7xfused", r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
-                   and r["rel_err"] <= 2e-4))
+    r = rows["K8c"]
+    checks.append(("K8c", r, r["rel_err"] <= 1e-5 and r["deterministic"]
+                   and r["smem_matches_kernel"]))
     out.update({name: [row] for name, row in rows.items()})
     # K8c at k = 3 and 4: the same bars on the kernel's other instantiations;
-    # K7t at k = 3 and 4 on K8c's primal
+    # K7t, K7x and K8d at k = 3 and 4 on K8c's primal
     for k in (3, 4):
         r, stepped = _check_k8c(32, 75, 75, 8, 1024, k, gen, dev)
         log("K8c", json.dumps(r))
         checks.append(("K8c", r, r["rel_err"] <= 1e-5 and r["deterministic"]
                        and r["smem_matches_kernel"]))
         out["K8c"].append(r)
-        r = _check_k7t(*stepped, gen, dev)
-        log("K7t", json.dumps(r))
-        out["K7t"].append(r)
+        for name, fn in (("K7t", _check_k7t), ("K7xfused", _check_k7x), ("K8d", _check_k8d)):
+            r = fn(*stepped, gen, dev)
+            log(name, json.dumps(r))
+            out[name].append(r)
+    # K7x and K8d at a root visit's B=1 (M5=64): K8d's last W >= 0 and RSOC
+    # quads are ragged (n m = 5,625)
+    c, sc, st = _shor_k_inputs(1, 75, 75, 8, 64, gen, dev)
+    for name, fn in (("K7xfused", _check_k7x), ("K8d", _check_k8d)):
+        r = fn(c, sc, st, gen, dev)
+        log(name, json.dumps(r))
+        out[name].append(r)
+    del c, sc, st
+    # K8d: float32 link sums in another order than the plain version's, so
+    # 1e-5 relative as K8c; the same bits twice; its plan the kernel's
+    for r in out["K8d"]:
+        checks.append(("K8d", r, r["rel_err"] <= 1e-5 and r["deterministic"]
+                       and r["plan_matches_kernel"]))
+    # the K7x slots: the bars of K1/K7 against a float64 eigh projection of
+    # the same slot values, the truncated-product control failing them, the
+    # same bits twice
+    for r in out["K7xfused"]:
+        checks.append(("K7xfused", r, r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
+                       and r["rel_err"] <= 2e-4 and r["deterministic"]
+                       and not r["control_16bit_vs_eigh"] <= 1e-4))
     # K7t: the bars of K1/K7 against a float64 eigh projection of the same
     # slot values, the truncated-product control failing them, the same bits
     # twice
@@ -882,11 +885,9 @@ def _check_k8c(B, n, m, L, M5, k, gen, dev):
 def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
     """K8c, K7t, K7x (slots) and K8d against their plain versions on the
     same inputs, each at the outputs of the step before it, with times,
-    bounds and a determinism check of K8c and K8d."""
+    bounds and a determinism check of each."""
     import torch
 
-    from omc_torch.ops.cones import project_psd_plain
-    from omc_torch.ops.polar import project_psd_ns_small
     from omc_torch.sdp import shor_k as SK
 
     c, sc, st = _shor_k_inputs(B, n, m, L, M5, gen, dev)
@@ -925,56 +926,144 @@ def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
                B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca)
 
     out["K7t"] = _check_k7t(c, sc, sk, gen, dev)
-    exact = lambda t: project_psd_plain(t.double()).float()  # noqa: E731
+    out["K7xfused"] = _check_k7x(c, sc, sk, gen, dev)
+    out["K8d"] = _check_k8d(c, sc, sk, gen, dev)
+    return out
 
-    # K7x on the XWH slots at K8c's primal
-    accx = torch.randn(st.ux.shape, generator=gen).to(dev) * 0.1
-    sx_ = sk.clone()
-    ax = accx.clone()
-    SK.xwh_step(c, sc, sx_, ax, "ns")
+
+def _check_k7x(c, sc, sk, gen, dev):
+    """K7x (slot mode) at a K8c-stepped primal against its plain version and
+    against a float64 eigh of the same slot values, with the plain schedule
+    on 16-bit operands as the control; the same bits from two launches;
+    CUDA-event and device times (with ``--parent``, the parent's kernel on
+    the same inputs)."""
+    import torch
+
+    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.polar import project_psd_ns, project_psd_ns_small, truncated_matmul
+    from omc_torch.sdp import shor_k as SK
+
+    B, n, m, k, kp, C, Ms = SK._shapes(sk)
+    accx = torch.randn(sk.ux.shape, generator=gen).to(dev) * 0.1
+    runs = [(sk.clone(), accx.clone()) for _ in range(2)]
+    for x, a in runs:
+        SK.xwh_step(c, sc, x, a, "ns")
     torch.cuda.synchronize()
-    wxp, uxp, axp = SK.xwh_step_plain(c, sc, sk, accx, project_psd_ns_small)
-    wxe, _, _ = SK.xwh_step_plain(c, sc, sk, accx, exact)
-    rel, ab = _errs((sx_.wx, sx_.ux, ax), (wxp, uxp, axp))
-    s9, a9 = sk.clone(), accx.clone()
-    out["K7xfused"] = dict(B=B, C=C, k=k, rel_err=rel, max_abs_err=ab,
-                           plain_vs_eigh=rel_fro(wxp, wxe), kernel_vs_eigh=rel_fro(sx_.wx, wxe),
-                           ms=cuda_time_ms(lambda: SK.xwh_step(c, sc, s9, a9, "ns")),
-                           plain_ms=cuda_time_ms(lambda: SK.xwh_step_plain(
-                               c, sc, sk, accx, project_psd_ns_small)))
+    plain = lambda proj: SK.xwh_step_plain(c, sc, sk, accx, proj)  # noqa: E731
+    wxp, uxp, axp = plain(project_psd_ns_small)
+    wxe = plain(lambda t: project_psd_plain(t.double()).float())[0]
+    wxc = plain(lambda t: project_psd_ns(t, matmul=truncated_matmul(16)))[0]
+    (s7, a7), (s7b, a7b) = runs
+    rel, ab = _errs((s7.wx, s7.ux, a7), (wxp, uxp, axp))
+    s8, a8 = sk.clone(), accx.clone()
+    fns = {"kernel": lambda: SK.xwh_step(c, sc, s8, a8, "ns")}
+    row = dict(B=B, C=C, k=k, rel_err=rel, max_abs_err=ab, plain_vs_eigh=rel_fro(wxp, wxe),
+               kernel_vs_eigh=rel_fro(s7.wx, wxe), control_16bit_vs_eigh=rel_fro(wxc, wxe),
+               deterministic=_same_bits((s7.wx, s7.ux, a7), (s7b.wx, s7b.ux, a7b)),
+               ms=cuda_time_ms(fns["kernel"]),
+               plain_ms=cuda_time_ms(lambda: plain(project_psd_ns_small)))
+    if PARENT:
+        fns["parent"] = _parent_k7x(c, sc, sk.clone(), accx.clone())
+        row["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(row, fns)
+    # wx/ux/acc read and written, coord_flat and the mask, Wt and H, the
+    # entries of Xt that this batch's coordinates gather for each term; the
+    # operations: the symmetric schedule's products (the upper triangle,
+    # D (D + 1) / 2 entries of D FMAs) and the mixing, epilogue and EMA.
+    # bound_all_ms counts all of Xt and the full products instead.
     D = k + 1
-    with_bound(out["K7xfused"], 4 * (B * C * (6 * D * D + 2) + B * k * nm + B * (k + kp) * C
-                                     + 2 * B),
-               B * C * (SIGN_PRODUCTS * 2 * D ** 3 + 3 * D * D))
+    N = B * C
+    fl = sc.sb.coord_flat.long()
+    gathered = k * torch.unique(torch.arange(B, device=fl.device)[:, None] * (n * m) + fl).numel()
+    with_bound(row, 4 * (N * (6 * D * D + 2) + gathered + B * (k + kp) * C + 2 * B),
+               N * (SIGN_PRODUCTS * D * D * (D + 1) + 3 * D * D))
+    row["bound_all_ms"] = bound(4 * (N * (6 * D * D + 2) + B * k * n * m + B * (k + kp) * C
+                                     + 2 * B), N * (SIGN_PRODUCTS * 2 * D ** 3 + 3 * D * D))[0]
+    return row
 
-    # K8d at K8c's primal
-    accs = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (st.ur, st.ul, st.uwl)]
+
+def _check_k7x_projection(B, C, D, gen, dev):
+    """K7x's projection mode on B C D x D matrices of spectra +-[0.1, 1]:
+    against its plain version and a float64 eigh, with the truncated-product
+    control, the same bits twice, CUDA-event and device times."""
+    import torch
+
+    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.polar import (
+        project_psd_ns,
+        project_psd_ns_small,
+        project_psd_xwh,
+        truncated_matmul,
+    )
+
+    T, T64 = _spectral_batch(B * C, D, gen, dev)
+    T, T64 = T.reshape(B, C, D, D), T64.reshape(B, C, D, D)
+    wk, wb = project_psd_xwh(T), project_psd_xwh(T)
+    torch.cuda.synchronize()
+    wp = project_psd_ns_small(T)
+    exact = project_psd_plain(T64.to(dev))
+    ctl16 = rel_fro(project_psd_ns(T, matmul=truncated_matmul(16)), exact)
+    w2 = torch.empty_like(T)
+    fns = {"kernel": lambda: project_psd_xwh(T, w2)}
+    row = dict(shape=list(T.shape), rel_err=rel_fro(wk, wp),
+               max_abs_err=float((wk - wp).abs().max()),
+               plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
+               control_16bit_vs_eigh=ctl16, deterministic=torch.equal(wk, wb),
+               ms=cuda_time_ms(fns["kernel"]),
+               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
+    if PARENT:
+        fns["parent"] = _parent_k7x_projection(T, torch.empty_like(T))
+    _device_rows(row, fns)
+    # t read, w written; the symmetric schedule's products (bound_all_ms:
+    # the full products)
+    N = T.numel() // (D * D)
+    with_bound(row, 4 * 2 * T.numel(), N * (SIGN_PRODUCTS * D * D * (D + 1) + D * D))
+    row["bound_all_ms"] = bound(4 * 2 * T.numel(), N * (SIGN_PRODUCTS * 2 * D ** 3 + D * D))[0]
+    return row
+
+
+def _check_k8d(c, sc, sk, gen, dev):
+    """K8d at a K8c-stepped primal against its plain version: errors, the
+    same bits from two launches, CUDA-event and device times (with
+    ``--parent``, the parent's kernel on the same inputs)."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.sdp import shor_k as SK
+
+    B, n, m, k, kp, C, Ms = SK._shapes(sk)
+    nm = n * m
+    accs = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (sk.ur, sk.ul, sk.uwl)]
     kd = lambda x: (x.wr, x.ur, x.wl, x.ul, x.wwl, x.uwl, x.wp, x.up, x.wq, x.uq)  # noqa: E731
-    sd = sk.clone()
-    ad = [a.clone() for a in accs]
-    SK.shor_k_cone_step(c, sc, sd, *ad)
-    sd2 = sk.clone()
-    ad2 = [a.clone() for a in accs]
-    SK.shor_k_cone_step(c, sc, sd2, *ad2)
+    runs = [(sk.clone(), [a.clone() for a in accs]) for _ in range(2)]
+    for x, a in runs:
+        SK.shor_k_cone_step(c, sc, x, *a)
     torch.cuda.synchronize()
     ref = SK.shor_k_cone_step_plain(c, sc, sk, *accs)
+    (sd, ad), (sd2, ad2) = runs
     rel, ab = _errs(kd(sd) + tuple(ad), ref)
-    s10 = sk.clone()
-    a10 = [a.clone() for a in accs]
-    out["K8d"] = dict(B=B, n=n, m=m, k=k, C=C, Ms=Ms, rel_err=rel, max_abs_err=ab,
-                      deterministic=_same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
-                      ms=cuda_time_ms(lambda: SK.shor_k_cone_step(c, sc, s10, *a10)),
-                      plain_ms=cuda_time_ms(lambda: SK.shor_k_cone_step_plain(
-                          c, sc, sk, *accs)))
+    s10, a10 = sk.clone(), [a.clone() for a in accs]
+    fns = {"kernel": lambda: SK.shor_k_cone_step(c, sc, s10, *a10)}
+    plan = SK.k8d_plan(B, n, m, k, C, Ms)
+    row = dict(B=B, n=n, m=m, k=k, C=C, Ms=Ms, plan=plan,
+               plan_matches_kernel=plan["grid"] == kernels.library().omc_k8d_grid_x(
+                   B, n, m, C, Ms, plan["ipc"]),
+               rel_err=rel, max_abs_err=ab,
+               deterministic=_same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
+               ms=cuda_time_ms(fns["kernel"]),
+               plain_ms=cuda_time_ms(lambda: SK.shor_k_cone_step_plain(c, sc, sk, *accs)))
+    if PARENT:
+        fns["parent"] = _parent_k8d(c, sc, sk.clone(), *[a.clone() for a in accs])
+        row["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(row, fns)
     # per slot: X, W, Theta's diagonal, Wt, H, the RSOC rows with their EMA
     # and tables, the link rows with their EMAs, W >= 0, Wt >= 0; out the
     # same slots and EMAs
     rd = (2 * nm + m + (k + kp) * C + 9 * Ms + 2 * Ms + 2 * m + 2 * C + 2 * nm + 2 * k * C
           + 2 * C + 4)
     wr = 9 * Ms + 3 * m + 3 * C + 2 * nm + 2 * k * C
-    with_bound(out["K8d"], 4 * B * (rd + wr),
-               B * (40 * Ms + 6 * nm + (k + kp + 6) * C + 5 * k * C))
-    return out
+    with_bound(row, 4 * B * (rd + wr), B * (40 * Ms + 6 * nm + (k + kp + 6) * C + 5 * k * C))
+    return row
 
 
 def _check_k7t(c, sc, sk, gen, dev):
@@ -1109,7 +1198,7 @@ def _to64(x):
     return x
 
 
-# The parent tree's K2, K3, K7, K8a, K8b and K7t (``--parent DIR``: a
+# The parent tree's K2, K3, K7, K8a, K8b, K7t, K7x and K8d (``--parent DIR``: a
 # checkout of an older tree), built from DIR's sources and launched on the same inputs as
 # the rows, for the records.  Their parameter blocks are DIR's own
 # (``omc_torch/kernels.py`` there), each field filled by name: a field this
@@ -1117,13 +1206,14 @@ def _to64(x):
 # packed wrongly.  K2's and K3's plan fields come from DIR's own
 # ``k2k3_plan`` (``omc_torch/sdp/admm.py`` there).
 PARENT = {}
-PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh")
+PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh", "k8k_shor_k")
 
 
 def _load_parent(src):
-    """Build DIR's K2, K3, K7, K8 and K7t/K7x sources into one library (one nvcc
-    each, in parallel), bind their entry points to DIR's blocks, take DIR's
-    ``k2k3_plan`` and keep ptxas's report of DIR's kernels."""
+    """Build DIR's K2, K3, K7, K8, K7t/K7x and K8c/K8d sources into one
+    library (one nvcc each, in parallel), bind their entry points to DIR's
+    blocks, take DIR's ``k2k3_plan`` and keep ptxas's report of DIR's
+    kernels."""
     import ctypes
     import importlib.util
 
@@ -1159,12 +1249,13 @@ def _load_parent(src):
                    (lib.omc_k7_minor_psd, mod.K7Params),
                    (lib.omc_k8a_shor_zstep, mod.K8aParams),
                    (lib.omc_k8b_shor_cone, mod.K8bParams),
-                   (lib.omc_k7t_minor_k, mod.K7tParams)):
+                   (lib.omc_k7t_minor_k, mod.K7tParams), (lib.omc_k7x_xwh, mod.K7xParams),
+                   (lib.omc_k8d_shor_k_cone, mod.K8dParams)):
         fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
-                  P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, k2k3_plan=plan,
-                  src=src,
+                  P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, P7x=mod.K7xParams,
+                  P8d=mod.K8dParams, k2k3_plan=plan, src=src,
                   ptxas=_ptxas_report("".join(logs)))
 
 
@@ -1302,6 +1393,45 @@ def _parent_k7t(c, sc, st, acc5):
              C=st.Wt.shape[2], P1=st.v1.shape[2], P2=st.v2.shape[2], P3=st.v3.shape[2],
              alpha=c.alpha, beta=c.beta)
     return _parent_launch(PARENT["lib"].omc_k7t_minor_k, _parent_block(PARENT["P7t"], v))
+
+
+def _parent_shor_k_values(c, sc, st):
+    """The values a parent K7x or K8d block's fields may name (a block with
+    an items-a-CTA field takes this tree's ``k8d_plan``'s)."""
+    from omc_torch.sdp.shor_k import k8d_plan
+
+    sb, core = sc.sb, st.core
+    B, n, m = core.X.shape
+    v = {name: getattr(sb, name) for name in ("coord_flat", "coord_mask", "soc_flat", "soc_mask")}
+    v.update({name: getattr(st, name) for name in (
+        "Xt", "Wt", "Hh", "wr", "ur", "wl", "ul", "wwl", "uwl", "wp", "up", "wq", "uq")})
+    v.update(Xs=core.X, Ws=st.W, Ths=core.Th, sX=core.sX, sT=core.sT, sS=core.sS, rho=core.rho,
+             B=B, n=n, m=m, k=st.Xt.shape[1], nm=n * m, C=st.Wt.shape[2], Ms=st.wr.shape[1],
+             alpha=c.alpha, beta=c.beta)
+    v["ipc"] = k8d_plan(B, n, m, v["k"], v["C"], v["Ms"])["ipc"]
+    return v
+
+
+def _parent_k7x(c, sc, st, accx):
+    """The parent's K7x (slot mode) on (c, sc, st), writing into st and accx."""
+    v = _parent_shor_k_values(c, sc, st)
+    v.update(t=None, w=st.wx, u=st.ux, acc=accx, N=v["B"] * v["C"])
+    return _parent_launch(PARENT["lib"].omc_k7x_xwh, _parent_block(PARENT["P7x"], v))
+
+
+def _parent_k7x_projection(T, w):
+    """The parent's K7x (projection mode) of T into w: no slot operand."""
+    d = T.shape[-1]
+    v = dict.fromkeys(("u", "acc", "Xt", "Wt", "Hh", "coord_flat", "coord_mask", "sS", "rho"))
+    v.update(C=0, nm=0, alpha=0.0, beta=0.0, t=T, w=w, N=T.numel() // (d * d), k=d - 1)
+    return _parent_launch(PARENT["lib"].omc_k7x_xwh, _parent_block(PARENT["P7x"], v))
+
+
+def _parent_k8d(c, sc, st, acc_r, acc_l, acc_wl):
+    """The parent's K8d on (c, sc, st), writing into st and the three EMAs."""
+    v = _parent_shor_k_values(c, sc, st)
+    v.update(acc_r=acc_r, acc_l=acc_l, acc_wl=acc_wl)
+    return _parent_launch(PARENT["lib"].omc_k8d_shor_k_cone, _parent_block(PARENT["P8d"], v))
 
 
 def _parent_k7_projection(T, w):
@@ -2650,9 +2780,10 @@ def phase_trace(res):
     config 2's shape (B=32, n=m=100, M5=1024, L=8) and at the shor cell's
     (B=4, n=m=50, M5=4096), with K7 + K8a's and K8b's device ms per
     iteration, of the rank-k Shor loop at config 3's (B=32, n=m=75, k=2,
-    M5=1024, L=8), with K7t's, 20 iterations each, of the McCormick loop at the headline's shape (n=m=50, k=1; B=1
-    and B=64), 50 iterations each, and of one base-path root visit at B=64
-    with its two safe-bound calls (K4) and its separation (K5)."""
+    M5=1024, L=8), with K7t's, K7x's and K8d's, 20 iterations each, of the
+    McCormick loop at the headline's shape (n=m=50, k=1; B=1 and B=64), 50
+    iterations each, and of one base-path root visit at B=64 with its two
+    safe-bound calls (K4) and its separation (K5)."""
     import torch
 
     from omc_torch.sdp import admm_shor as S
@@ -2686,7 +2817,8 @@ def phase_trace(res):
     row = _k2k3_traced(lambda: _trace_loop(
         lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "ns"), names, 20, B=32, n=75, m=75, k=2,
         M5=1024, L=8))
-    row["k7t_ms_per_iter"] = row["kernel_ms_per_iter"].get("K7t", 0.0)
+    for name in ("K7t", "K7x", "K8d"):
+        row[f"{name.lower()}_ms_per_iter"] = row["kernel_ms_per_iter"].get(name, 0.0)
     log("trace shork", json.dumps(row))
     res["trace_shork"] = row
     # the McCormick loop (K9a -> K9b -> K1) at the headline's shape, with
@@ -2852,8 +2984,8 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
-    ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7, K8a, K8b "
-                    "and K7t are timed beside the kernels phase's rows")
+    ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7, K8a, K8b, "
+                    "K7t, K7x and K8d are timed beside the kernels phase's rows")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:

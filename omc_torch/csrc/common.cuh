@@ -175,86 +175,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// C = A B for D x D matrices in registers
-template <int D>
-__device__ __forceinline__ void mm_small(const float (&A)[D][D], const float (&B)[D][D],
-                                         float (&C)[D][D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      float c = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) c = fmaf(A[i][k], B[k][j], c);
-      C[i][j] = c;
-    }
-}
-
-// Sign-schedule PSD projection of one D x D matrix held by one thread in
-// registers, full products (K7x; K7 and K7t run project_psd_small_sym
-// below; plain version: omc_torch.ops.polar.project_psd_ns_small):
-// T <- sym(T); W <- (T + sign(T) T) / 2, symmetrised, with sign(T) from the
-// 12 quintic + 2 cubic steps of kSignSched on T / ||T||_F (43 products).
-template <int D>
-__device__ __forceinline__ void project_psd_small(float (&T)[D][D], float (&W)[D][D]) {
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      if (j > i) {
-        const float a = 0.5f * (T[i][j] + T[j][i]);
-        T[i][j] = a;
-        T[j][i] = a;
-      }
-    }
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) ss = fmaf(T[i][j], T[i][j], ss);
-  const float s = sqrtf(ss) + 1e-30f;
-  float S[D][D], S2[D][D], M[D][D];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) S[i][j] = T[i][j] / s;
-  for (int step = 0; step < kSignSteps; ++step) {
-    const float a = kSignSched[step][0], b = kSignSched[step][1], c = kSignSched[step][2];
-    mm_small<D>(S, S, S2);
-    if (c != 0.f) {
-      mm_small<D>(S2, S2, M);  // S^4
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-#pragma unroll
-        for (int j = 0; j < D; ++j) M[i][j] = b * S2[i][j] + c * M[i][j];
-      mm_small<D>(S, M, S2);   // S (b S^2 + c S^4)
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-#pragma unroll
-        for (int j = 0; j < D; ++j) S[i][j] = a * S[i][j] + S2[i][j];
-    } else {
-      mm_small<D>(S, S2, M);   // S^3
-#pragma unroll
-      for (int i = 0; i < D; ++i)
-#pragma unroll
-        for (int j = 0; j < D; ++j) S[i][j] = a * S[i][j] + b * M[i][j];
-    }
-  }
-  mm_small<D>(S, T, M);
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) W[i][j] = 0.5f * (T[i][j] + M[i][j]);
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = i + 1; j < D; ++j) {
-      const float a = 0.5f * (W[i][j] + W[j][i]);
-      W[i][j] = a;
-      W[j][i] = a;
-    }
-}
-
 // The index of entry (i, j) of a symmetric D x D matrix held as its upper
 // triangle, row by row (kTri<D> floats): (j, i) for i > j.
 template <int D>
@@ -282,13 +202,15 @@ __device__ __forceinline__ void mm_sym(const float (&A)[D * (D + 1) / 2],
     }
 }
 
-// project_psd_small on the upper triangle T of a symmetric matrix (the
-// caller symmetrises): every iterate of the sign schedule is a polynomial in
+// Sign-schedule PSD projection of one symmetric D x D matrix held by one
+// thread as its upper triangle T (the caller symmetrises; K7, K7t, K7x;
+// plain version: omc_torch.ops.polar.project_psd_ns_small): W = (T +
+// sign(T) T) / 2, with sign(T) from the 12 quintic + 2 cubic steps of
+// kSignSched on T / ||T||_F (43 products).  Every iterate is a polynomial in
 // T, so every product is one of commuting symmetric matrices and takes its
-// upper triangle only (mm_sym; 43 x 75 FMAs for D = 5, not 43 x 125), and
-// W = (T + sign(T) T) / 2 comes out exactly symmetric.  Four triangles of
-// state.  CPU mirror: omc_torch.ops.polar.project_psd_ns with
-// symmetric_matmul().
+// upper triangle only (mm_sym; 43 x 75 FMAs for D = 5, not 43 x 125), and W
+// comes out exactly symmetric.  Four triangles of state.  CPU mirror:
+// omc_torch.ops.polar.project_psd_ns with symmetric_matmul().
 template <int D>
 __device__ __forceinline__ void project_psd_small_sym(const float (&T)[D * (D + 1) / 2],
                                                       float (&W)[D * (D + 1) / 2]) {
@@ -343,6 +265,159 @@ __device__ __forceinline__ void project_rsoc1(float u, float v, float x, float& 
   pu = (tp + zs) / s2;
   pv = (tp - zs) / s2;
   px = zx;
+}
+
+// ---- the cone steps' shared parts (K8b, K8d) ----
+
+// one RSOC row (0.5, W, X) at the primal (x, w), scaled by sS, against its
+// slot r, dual u and EMA a (updated in place; sm the row's mask)
+__device__ __forceinline__ void rsoc_row(float x, float w, float sm, float sS, float rho,
+                                         float alpha, float beta, float (&r)[3], float (&u)[3],
+                                         float (&a)[3]) {
+  const float om = 1.0f - alpha;
+  const float fr[3] = {sS * 0.5f, sS * w, sS * x};
+  float t[3], pr[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * r[c]) + u[c];
+  project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float uc = (t[c] - pr[c]) * sm;
+    r[c] = pr[c];
+    u[c] = uc;
+    a[c] = a[c] + beta * (rho * uc - a[c]);
+  }
+}
+
+// a nonnegative slot (wp, up) at the primal w scaled by sS, updated in place
+__device__ __forceinline__ void nonneg_slot(float w, float sS, float alpha, float& wp, float& up) {
+  const float tp = (alpha * (sS * w) + (1.0f - alpha) * wp) + up;
+  const float wn = fmaxf(tp, 0.f);
+  wp = wn;
+  up = tp - wn;
+}
+
+__device__ __forceinline__ float& lane4(float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The Theta-link rows of columns [32 tile, 32 tile + 32) of slot b, by a CTA
+// of 128 threads: 4 row groups of 32 columns, group g summing sW W_ij over
+// the rows i = g (mod 4) in row order, then the 4 partials in order (no
+// atomics: the same bits every run); then, a zero cone, t_l = alpha (sT
+// Theta_jj - sum) + ul, wl = 0, ul = t_l and the EMA of rho ul.  P is a
+// parameter block with Ws, Ths, sX, sT, rho, wl, ul, acc_l, n, m, alpha,
+// beta.
+constexpr int kLinkCols = 32, kLinkRows = 4;
+
+template <class P>
+__device__ __forceinline__ void link_rows(const P& p, int b, int tile) {
+  __shared__ float part[kLinkRows][kLinkCols];
+  const int lane = threadIdx.x % kLinkCols, g = threadIdx.x / kLinkCols;
+  const int n = p.n, m = p.m, j = tile * kLinkCols + lane;
+  const float* __restrict__ W = p.Ws + (size_t)b * n * m;
+  const float sW = __ldg(p.sX + b) * __ldg(p.sX + b);
+  // the row's other operands, loaded while the sums' loads are in flight
+  const size_t ql = (size_t)b * m + j;
+  const bool own = g == 0 && j < m;
+  float th = 0.f, ul = 0.f, al = 0.f;
+  if (own) th = __ldg(p.Ths + (size_t)b * m * m + (size_t)j * m + j), ul = p.ul[ql], al = p.acc_l[ql];
+  const float sT = __ldg(p.sT + b), rho = __ldg(p.rho + b);
+  float s = 0.f;
+  if (j < m) {
+#pragma unroll 8
+    for (int i = g; i < n; i += kLinkRows) s += __fmul_rn(sW, __ldg(W + (size_t)i * m + j));
+  }
+  part[g][lane] = s;
+  __syncthreads();
+  if (own) {
+    float tot = 0.f;
+#pragma unroll
+    for (int r = 0; r < kLinkRows; ++r) tot += part[r][lane];
+    const float tl = p.alpha * (sT * th - tot) + ul;
+    p.wl[ql] = 0.f;
+    p.ul[ql] = tl;
+    p.acc_l[ql] = al + p.beta * (rho * tl - al);
+  }
+}
+
+// A warp's block of RSOC triples: the nf = 3 cnt floats (cnt <= 128 rows)
+// of wr, ur and acc_r from float offset off (16-byte aligned), staged
+// through the warp's shared block s (3 x 96 16-byte words: wr's, ur's,
+// acc_r's) by consecutive lanes in 16-byte words, each lane's loads issued
+// before its stores.  A lane then holds its 4 rows' 12 floats of each array
+// as the words 3 lane .. 3 lane + 2 (a 48-byte stride: no bank conflicts).
+__device__ __forceinline__ void triples_in(const float* __restrict__ wr,
+                                           const float* __restrict__ ur,
+                                           const float* __restrict__ ar, size_t off, int nf,
+                                           float4* s, int lane) {
+  constexpr int kW4 = 3 * 32;
+  const int n4 = nf >> 2;
+  const float4* gr = reinterpret_cast<const float4*>(wr + off);
+  const float4* gu = reinterpret_cast<const float4*>(ur + off);
+  const float4* ga = reinterpret_cast<const float4*>(ar + off);
+  float4 vr[3], vu[3], va[3];
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+    if (lane + 32 * h < n4) vr[h] = gr[lane + 32 * h], vu[h] = gu[lane + 32 * h], va[h] = ga[lane + 32 * h];
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+    if (lane + 32 * h < n4) s[lane + 32 * h] = vr[h], s[kW4 + lane + 32 * h] = vu[h],
+                            s[2 * kW4 + lane + 32 * h] = va[h];
+  float* fs = reinterpret_cast<float*>(s);
+  for (int q = 4 * n4 + lane; q < nf; q += 32)
+    fs[q] = wr[off + q], fs[4 * kW4 + q] = ur[off + q], fs[8 * kW4 + q] = ar[off + q];
+}
+
+__device__ __forceinline__ void triples_out(float* __restrict__ wr, float* __restrict__ ur,
+                                            float* __restrict__ ar, size_t off, int nf,
+                                            const float4* s, int lane) {
+  constexpr int kW4 = 3 * 32;
+  const int n4 = nf >> 2;
+  float4* gr = reinterpret_cast<float4*>(wr + off);
+  float4* gu = reinterpret_cast<float4*>(ur + off);
+  float4* ga = reinterpret_cast<float4*>(ar + off);
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+    if (lane + 32 * h < n4) gr[lane + 32 * h] = s[lane + 32 * h],
+                            gu[lane + 32 * h] = s[kW4 + lane + 32 * h],
+                            ga[lane + 32 * h] = s[2 * kW4 + lane + 32 * h];
+  const float* fs = reinterpret_cast<const float*>(s);
+  for (int q = 4 * n4 + lane; q < nf; q += 32)
+    wr[off + q] = fs[q], ur[off + q] = fs[4 * kW4 + q], ar[off + q] = fs[8 * kW4 + q];
+}
+
+// The RSOC rows e < rem of a lane's quad from its staged words (s, the
+// warp's block, as triples_in leaves it), at the primal (x, w) of each row
+// with its mask, scale and rho; the results back into the same words.
+template <class Row>
+__device__ __forceinline__ void triples_update(float4* s, int lane, int rem, Row row) {
+  constexpr int kW4 = 3 * 32;
+  float4 r4[3], v4[3], a4[3];
+#pragma unroll
+  for (int h = 0; h < 3; ++h) r4[h] = s[3 * lane + h], v4[h] = s[kW4 + 3 * lane + h],
+                              a4[h] = s[2 * kW4 + 3 * lane + h];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (e >= rem) continue;
+    float r[3], u[3], a[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      r[c] = lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4);
+      u[c] = lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4);
+      a[c] = lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4);
+    }
+    row(e, r, u, a);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4) = r[c];
+      lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4) = u[c];
+      lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4) = a[c];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 3; ++h) s[3 * lane + h] = r4[h], s[kW4 + 3 * lane + h] = v4[h],
+                              s[2 * kW4 + 3 * lane + h] = a4[h];
 }
 
 // ---- Jacobi eigensolver core (K4, K4s, K5; mirror: omc_torch/ops/jacobi.py)
@@ -588,7 +663,9 @@ struct K9bParams {
 };
 
 // K8d: cone step of the RSOC, Theta-link, W-link, W >= 0 and Wt >= 0 slots
-// of the rank-k Shor relaxation, with the EMAs of rho*ur, rho*ul, rho*uwl.
+// of the rank-k Shor relaxation, with the EMAs of rho*ur, rho*ul, rho*uwl;
+// B ceil(m / 32) CTAs on the link rows, then CTAs of ipc items of the
+// batch's W >= 0 quads, RSOC quads and coordinates (omc_k8d_grid_x).
 struct K8dParams {
   const float *Xs, *Ws, *Ths, *Wt, *Hh;  // (B,n,m), (B,n,m), (B,m,m), (B,k,C), (B,kp,C)
   float *wr, *ur, *acc_r;                // (B, Ms, 3)
@@ -602,6 +679,8 @@ struct K8dParams {
   const float* coord_mask;               // (B, C)
   const float *sX, *sT, *sS, *rho;       // (B,)
   int B, n, m, k, C, Ms;
+  int ipc;                               // items a flat CTA: 32, 64 or 128
+                                         // (sdp.shor_k.k8d_plan)
   float alpha, beta;
 };
 

@@ -13,12 +13,13 @@
 //   fx = sS [[1, Xt'], [Xt, M]],  M_tt = Wt[t], M_t1t2 = H[(t1, t2)],
 // and, with t given, projects an (N, k+1, k+1) batch (projection mode).
 //
-// What bounds them on the H100: fp32 FMAs.  K7t's 5x5 projection is 43 x 75
+// What bounds them on the H100: bytes.  K7t's 5x5 projection is 43 x 75
 // = 3,225 FMAs on upper triangles (omc::project_psd_small_sym, K7's code)
-// against 300 bytes of w/u/acc traffic plus 60 gathered; a 3x3 one of K7x
-// 43 x 27 = 1,161 FMAs (full products, omc::project_psd_small) against 108
-// + 16 bytes.  At BASELINE config 3's shape (B = 32, M5 = 1024, k = 2) K7t
-// projects 65,536 matrices and K7x 131,072.
+// against 300 bytes of w/u/acc traffic plus 60 gathered; K7x's 3x3 one 43 x
+// 18 = 774 FMAs against 216 bytes plus 28 gathered (at k = 4, 3,225 FMAs
+// against 600 + 64 bytes), below the card's 20 flops a byte.  At
+// BASELINE config 3's shape (B = 32, M5 = 1024, k = 2) K7t projects 65,536
+// matrices and K7x 131,072.
 //
 // K7t is K7's design (csrc/k7_minor_psd.cu): one thread per matrix, its
 // triangles in registers, threads numbered (b, l, t) with the term fastest,
@@ -29,8 +30,13 @@
 // entries, their coordinates, the five v entries): four 16-byte loads, the
 // same for the k threads of the minor, then the gathers of term t, all
 // independent.  Every slot value is exactly symmetric, so u = t - w uses the
-// symmetrised T.  K7x is a template on D = k + 1 (3, 4 or 5) so the matrices
-// stay in registers, one thread per coordinate, no shared memory.
+// symmetrised T.  K7x runs the same design on its (k+1)x(k+1) slots, a
+// template on D = k + 1 (3, 4 or 5) so the matrices stay in registers: one
+// thread per coordinate, threads numbered (b, c) in the (B, C, D, D)
+// layout's order, a CTA's 128 matrices of wx, ux and the EMA staged with
+// 16-byte accesses, the coordinate's entry coord_flat[c] then its k Xt
+// entries gathered while the blocks arrive; its projection mode stages t
+// and w the same way.
 #include "common.cuh"
 
 namespace {
@@ -119,67 +125,175 @@ __global__ void __launch_bounds__(kThreads7) k7t_kernel(K7tParams p) {
   if (p.acc != nullptr) omc::store_block<kThreads7>(p.acc + off, sa, nf);
 }
 
+// K7x's staged block: a CTA's kThreads7 matrices of D x D floats, in
+// order.  Where D * D is odd (D = 3, 5) a thread reads its matrix at an odd
+// stride, so a warp's reads fall in distinct banks; at D = 4 each row is one
+// 16-byte word, and row i of matrix r sits at word i ^ ((r >> 1) & 3) of the
+// matrix, so that the eight lanes of each quarter-warp read distinct banks.
+__device__ __forceinline__ int row_word(int r, int i) { return 4 * r + (i ^ ((r >> 1) & 3)); }
+
+template <int D>
+__device__ __forceinline__ void stage_in(const float* __restrict__ g, float* s, int nf) {
+  if constexpr (D == 4) {
+    const float4* __restrict__ g4 = reinterpret_cast<const float4*>(g);
+    float4* s4 = reinterpret_cast<float4*>(s);
+    for (int q = threadIdx.x; q < nf / 4; q += kThreads7) s4[row_word(q >> 2, q & 3)] = g4[q];
+  } else {
+    omc::load_block<kThreads7>(g, s, nf);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_out(float* __restrict__ g, const float* s, int nf) {
+  if constexpr (D == 4) {
+    float4* __restrict__ g4 = reinterpret_cast<float4*>(g);
+    const float4* s4 = reinterpret_cast<const float4*>(s);
+    for (int q = threadIdx.x; q < nf / 4; q += kThreads7) g4[q] = s4[row_word(q >> 2, q & 3)];
+  } else {
+    omc::store_block<kThreads7>(g, s, nf);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void read_mat(const float* s, int r, float (&A)[D][D]) {
+  if constexpr (D == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(s)[row_word(r, i)];
+      A[i][0] = v.x, A[i][1] = v.y, A[i][2] = v.z, A[i][3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) A[i][j] = s[r * D * D + i * D + j];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void write_mat(float* s, int r, const float (&A)[D][D]) {
+  if constexpr (D == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      reinterpret_cast<float4*>(s)[row_word(r, i)] = make_float4(A[i][0], A[i][1], A[i][2], A[i][3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) s[r * D * D + i * D + j] = A[i][j];
+  }
+}
+
+// One thread per matrix, threads numbered (b, c) in the layout's order, so a
+// CTA's matrices are one contiguous block of each of w, u and acc (or of t
+// and w in projection mode), staged through shared memory with 16-byte
+// accesses; the gathers of the coordinate's Xt, Wt and H are issued before
+// the block barrier.
 template <int D>
 __global__ void __launch_bounds__(kThreads7) k7x_kernel(K7xParams p) {
-  constexpr int K = D - 1;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= p.N) return;
-  const size_t off = (size_t)g * D * D;
-  float T[D][D], W[D][D];
+  constexpr int K = D - 1, KP = K * (K - 1) / 2, DD = D * D, NT = omc::kTri<D>;
+  __shared__ float4 k7x_smem[3 * kThreads7 * DD / 4];
+  float* sw = reinterpret_cast<float*>(k7x_smem);
+  float* su = sw + kThreads7 * DD;
+  float* sa = su + kThreads7 * DD;
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * kThreads7;
+  const int cnt = min(kThreads7, p.N - base);
+  const int nf = cnt * DD;
+  const size_t off = (size_t)base * DD;
+  const bool act = tid < cnt;
+  float T[NT], W[NT];
   if (p.t != nullptr) {
+    // projection mode: w = proj_PSD(sym(t))
+    stage_in<D>(p.t + off, sw, nf);
+    __syncthreads();
+    if (act) {
+      float A[D][D];
+      read_mat<D>(sw, tid, A);
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+      for (int i = 0; i < D; ++i)
 #pragma unroll
-      for (int j = 0; j < D; ++j) T[i][j] = p.t[off + i * D + j];
-    omc::project_psd_small<D>(T, W);
+        for (int j = i; j < D; ++j) T[tri<D>(i, j)] = i == j ? A[i][i] : 0.5f * (A[i][j] + A[j][i]);
+      omc::project_psd_small_sym<D>(T, W);
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+      for (int i = 0; i < D; ++i)
 #pragma unroll
-      for (int j = 0; j < D; ++j) p.w[off + i * D + j] = W[i][j];
+        for (int j = 0; j < D; ++j) A[i][j] = W[tri<D>(i, j)];
+      write_mat<D>(sw, tid, A);
+    }
+    __syncthreads();
+    stage_out<D>(p.w + off, sw, nf);
     return;
   }
 
-  // slot mode: one thread per (b, coordinate c)
-  const int b = g / p.C, c = g % p.C;
-  const int f = p.coord_flat[g];
+  // slot mode: thread (b, c) projects the XWH slot of coordinate c of slot b
+  stage_in<D>(p.w + off, sw, nf);
+  stage_in<D>(p.u + off, su, nf);
+  if (p.acc != nullptr) stage_in<D>(p.acc + off, sa, nf);
+  // the slot's values [[1, Xt'], [Xt, M]] while the blocks arrive
   float F[D][D];
-  F[0][0] = 1.0f;
+  float sS = 0.f, mask = 0.f, rho = 0.f;
+  if (act) {
+    const int g = base + tid, b = g / p.C, c = g - b * p.C;
+    const int f = __ldg(p.coord_flat + g);
+    F[0][0] = 1.0f;
 #pragma unroll
-  for (int t = 0; t < K; ++t) {
-    const float x = p.Xt[((size_t)b * K + t) * p.nm + f];
-    F[0][t + 1] = x;
-    F[t + 1][0] = x;
-    F[t + 1][t + 1] = p.Wt[((size_t)b * K + t) * p.C + c];
+    for (int t = 0; t < K; ++t) {
+      const size_t bt = (size_t)b * K + t;
+      const float x = __ldg(p.Xt + bt * p.nm + f);
+      F[0][t + 1] = x;
+      F[t + 1][0] = x;
+      F[t + 1][t + 1] = __ldg(p.Wt + bt * p.C + c);
+    }
+    int q = 0;
+#pragma unroll
+    for (int t1 = 0; t1 < K; ++t1)
+#pragma unroll
+      for (int t2 = t1 + 1; t2 < K; ++t2, ++q) {
+        const float h = __ldg(p.Hh + ((size_t)b * KP + q) * p.C + c);
+        F[t1 + 1][t2 + 1] = h;
+        F[t2 + 1][t1 + 1] = h;
+      }
+    sS = __ldg(p.sS + b), mask = __ldg(p.coord_mask + g), rho = __ldg(p.rho + b);
   }
-  int q = 0;
+  __syncthreads();
+  if (act) {
+    const float alpha = p.alpha, om = 1.0f - p.alpha;
+    float Wm[D][D], Um[D][D];
+    read_mat<D>(sw, tid, Wm);
+    read_mat<D>(su, tid, Um);
 #pragma unroll
-  for (int t1 = 0; t1 < K; ++t1)
+    for (int i = 0; i < D; ++i)
 #pragma unroll
-    for (int t2 = t1 + 1; t2 < K; ++t2, ++q) {
-      const float h = p.Hh[((size_t)b * (K * (K - 1) / 2) + q) * p.C + c];
-      F[t1 + 1][t2 + 1] = h;
-      F[t2 + 1][t1 + 1] = h;
+      for (int j = i; j < D; ++j) {
+        const float tij = (alpha * (sS * F[i][j]) + om * Wm[i][j]) + Um[i][j];
+        const float tji = (alpha * (sS * F[j][i]) + om * Wm[j][i]) + Um[j][i];
+        T[tri<D>(i, j)] = i == j ? tij : 0.5f * (tij + tji);
+      }
+    omc::project_psd_small_sym<D>(T, W);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        Wm[i][j] = W[tri<D>(i, j)];
+        Um[i][j] = (T[tri<D>(i, j)] - W[tri<D>(i, j)]) * mask;
+      }
+    write_mat<D>(sw, tid, Wm);
+    write_mat<D>(su, tid, Um);
+    if (p.acc != nullptr) {
+      float Am[D][D];
+      read_mat<D>(sa, tid, Am);
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < D; ++j) Am[i][j] = Am[i][j] + p.beta * (rho * Um[i][j] - Am[i][j]);
+      write_mat<D>(sa, tid, Am);
     }
-  const float sS = p.sS[b], alpha = p.alpha, om = 1.0f - p.alpha;
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const size_t e = off + i * D + j;
-      T[i][j] = (alpha * (sS * F[i][j]) + om * p.w[e]) + p.u[e];
-    }
-  omc::project_psd_small<D>(T, W);
-  const float mask = p.coord_mask[g], rho = p.rho[b];
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const size_t e = off + i * D + j;
-      const float u = (T[i][j] - W[i][j]) * mask;
-      p.w[e] = W[i][j];
-      p.u[e] = u;
-      if (p.acc != nullptr) p.acc[e] = p.acc[e] + p.beta * (rho * u - p.acc[e]);
-    }
+  }
+  __syncthreads();
+  stage_out<D>(p.w + off, sw, nf);
+  stage_out<D>(p.u + off, su, nf);
+  if (p.acc != nullptr) stage_out<D>(p.acc + off, sa, nf);
 }
 
 }  // namespace
@@ -193,6 +307,10 @@ OMC_EXPORT int omc_k7t_minor_k(const K7tParams* params, void* stream) {
 
 OMC_EXPORT int omc_k7x_xwh(const K7xParams* params, void* stream) {
   const K7xParams p = *params;
+  // the staged blocks move as 16-byte words
+  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (odd(p.w) || odd(p.t) || (p.t == nullptr && (odd(p.u) || odd(p.acc))))
+    return (int)cudaErrorInvalidValue;
   if (p.N > 0) {
     const int grid = (p.N + kThreads7 - 1) / kThreads7;
     cudaStream_t s = (cudaStream_t)stream;

@@ -313,10 +313,9 @@ __global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
   }
 }
 
-// K8b's CTA (both kinds) and its link tiles: 32 columns in 4 row groups
+// K8b's CTA (both kinds); its link CTAs are omc::link_rows's
 constexpr int kThreads8b = 128;
-constexpr int kLinkCols = 32;
-constexpr int kLinkRows = kThreads8b / kLinkCols;  // 4
+static_assert(kThreads8b == omc::kLinkCols * omc::kLinkRows, "a link CTA is 32 x 4 threads");
 
 struct K8bLayout {
   int links, coords, grid_x;
@@ -324,84 +323,23 @@ struct K8bLayout {
 
 __host__ __device__ __forceinline__ K8bLayout k8b_layout(int B, int n, int m, int qpc) {
   K8bLayout l;
-  l.links = B * omc::cdiv(m, kLinkCols);
+  l.links = B * omc::cdiv(m, omc::kLinkCols);
   l.coords = omc::cdiv(omc::cdiv(B * n * m, 4), qpc);
   l.grid_x = l.links + l.coords;
   return l;
 }
 
-// the values of one coordinate's RSOC row (r[0..2], its dual u and EMA a)
-// and W >= 0 slot (wp, up) at the primal (x, w), updated in place
-__device__ __forceinline__ void k8b_coord(float x, float w, float sm, float sS, float rho,
-                                          float alpha, float beta, float (&r)[3], float (&u)[3],
-                                          float (&a)[3], float& wp, float& up) {
-  const float om = 1.0f - alpha;
-  // RSOC row (0.5, W, X) scaled by sS
-  const float fr[3] = {sS * 0.5f, sS * w, sS * x};
-  float t[3], pr[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * r[c]) + u[c];
-  omc::project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float uc = (t[c] - pr[c]) * sm;
-    r[c] = pr[c];
-    u[c] = uc;
-    a[c] = a[c] + beta * (rho * uc - a[c]);
-  }
-  const float tp = (alpha * (sS * w) + om * wp) + up;
-  const float wn = fmaxf(tp, 0.f);
-  wp = wn;
-  up = tp - wn;
-}
-
-__device__ __forceinline__ float& lane4(float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-// (l): the link rows of columns [32 tile, 32 tile + 32) of slot b
-__device__ __forceinline__ void k8b_link(const K8bParams& p, int b, int tile) {
-  __shared__ float part[kLinkRows][kLinkCols];
-  const int lane = threadIdx.x % kLinkCols, g = threadIdx.x / kLinkCols;
-  const int n = p.n, m = p.m, j = tile * kLinkCols + lane;
-  const float* __restrict__ W = p.Ws + (size_t)b * n * m;
-  const float sW = __ldg(p.sX + b) * __ldg(p.sX + b);
-  // the row's other operands, loaded while the sums' loads are in flight
-  const size_t ql = (size_t)b * m + j;
-  const bool own = g == 0 && j < m;
-  float th = 0.f, ul = 0.f, al = 0.f;
-  if (own) th = __ldg(p.Ths + (size_t)b * m * m + (size_t)j * m + j), ul = p.ul[ql], al = p.acc_l[ql];
-  const float sT = __ldg(p.sT + b), rho = __ldg(p.rho + b);
-  float s = 0.f;
-  if (j < m) {
-#pragma unroll 8
-    for (int i = g; i < n; i += kLinkRows) s += __fmul_rn(sW, __ldg(W + (size_t)i * m + j));
-  }
-  part[g][lane] = s;
-  __syncthreads();
-  // Theta-link rows Theta_jj - sum_i W_ij: zero cone, the dual accumulates
-  if (own) {
-    float tot = 0.f;
-#pragma unroll
-    for (int r = 0; r < kLinkRows; ++r) tot += part[r][lane];
-    const float tl = p.alpha * (sT * th - tot) + ul;
-    p.wl[ql] = 0.f;
-    p.ul[ql] = tl;
-    p.acc_l[ql] = al + p.beta * (rho * tl - al);
-  }
-}
+using omc::lane4;
 
 // (q): the quads [quad0, quad0 + qpc) of the batch's flat B n m, a quad a
 // thread (fewer than 4 coordinates at the ragged end), a warp 32 quads.  The
 // RSOC triples of a warp's coordinates are one contiguous block of each of
 // wr, ur and acc_r (16-byte aligned: 12 floats a quad), staged through the
-// warp's own shared memory with 16-byte accesses by consecutive lanes, each
-// lane's loads issued before any store, no barrier but the warp's; a lane
-// reads its 12 floats as 3 words at a 48-byte stride (no bank conflicts).
-// X, W, the mask, wp and up are 16-byte words a lane.
+// warp's own shared memory (omc::triples_in), each lane's loads issued
+// before any store, no barrier but the warp's.  X, W, the mask, wp and up
+// are 16-byte words a lane.
 __device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
-  constexpr int kW4 = 3 * 32;  // 16-byte words of a warp's block of one array
-  __shared__ float4 k8b_smem[3 * kW4 * (kThreads8b / 32)];
+  __shared__ float4 k8b_smem[3 * 3 * 32 * (kThreads8b / 32)];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const float* __restrict__ X = p.Xs;
   const float* __restrict__ W = p.Ws;
@@ -413,9 +351,7 @@ __device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
   if (32 * warp >= p.qpc || c0 >= tot) return;
   const int cnt = min(128, tot - c0);
   const size_t off = 3 * (size_t)c0;
-  float4* sr = k8b_smem + 3 * kW4 * warp;
-  float4* su = sr + kW4;
-  float4* sa = su + kW4;
+  float4* s = k8b_smem + 3 * 3 * 32 * warp;
   const int q0 = c0 + 4 * lane;
   const int rem = q0 < tot ? min(4, tot - q0) : 0;
   // the quad's slots: b0, and b0 + 1 from coordinate bnd on (n m >= 4)
@@ -437,57 +373,17 @@ __device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
         lane4(p4, e) = wp[q0 + e], lane4(u4, e) = up[q0 + e];
       }
   }
-  // the warp's blocks of the three RSOC arrays, 3 words a lane of each
-  const int nf = 3 * cnt, n4 = nf >> 2;
-  {
-    const float4* gr = reinterpret_cast<const float4*>(p.wr + off);
-    const float4* gu = reinterpret_cast<const float4*>(p.ur + off);
-    const float4* ga = reinterpret_cast<const float4*>(p.acc_r + off);
-    float4 vr[3], vu[3], va[3];
-#pragma unroll
-    for (int h = 0; h < 3; ++h)
-      if (lane + 32 * h < n4) {
-        vr[h] = gr[lane + 32 * h], vu[h] = gu[lane + 32 * h], va[h] = ga[lane + 32 * h];
-      }
-#pragma unroll
-    for (int h = 0; h < 3; ++h)
-      if (lane + 32 * h < n4) sr[lane + 32 * h] = vr[h], su[lane + 32 * h] = vu[h],
-                              sa[lane + 32 * h] = va[h];
-    float* fr = reinterpret_cast<float*>(sr);
-    float* fu = reinterpret_cast<float*>(su);
-    float* fa = reinterpret_cast<float*>(sa);
-    for (int q = 4 * n4 + lane; q < nf; q += 32)
-      fr[q] = p.wr[off + q], fu[q] = p.ur[off + q], fa[q] = p.acc_r[off + q];
-  }
+  omc::triples_in(p.wr, p.ur, p.acc_r, off, 3 * cnt, s, lane);
   __syncwarp();
   if (rem > 0) {
-    float4 r4[3], v4[3], a4[3];
-#pragma unroll
-    for (int h = 0; h < 3; ++h) r4[h] = sr[3 * lane + h], v4[h] = su[3 * lane + h],
-                                a4[h] = sa[3 * lane + h];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (e >= rem) continue;
+    // the RSOC row and the W >= 0 slot of each coordinate
+    omc::triples_update(s, lane, rem, [&](int e, float (&r)[3], float (&u)[3], float (&a)[3]) {
       const bool hi = q0 + e >= bnd;
-      float r[3], u[3], a[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        r[c] = lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4);
-        u[c] = lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4);
-        a[c] = lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4);
-      }
-      k8b_coord(lane4(x4, e), lane4(w4, e), lane4(m4, e), hi ? sS1 : sS0, hi ? rho1 : rho0,
-                p.alpha, p.beta, r, u, a, lane4(p4, e), lane4(u4, e));
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4) = r[c];
-        lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4) = u[c];
-        lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4) = a[c];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 3; ++h) sr[3 * lane + h] = r4[h], su[3 * lane + h] = v4[h],
-                                sa[3 * lane + h] = a4[h];
+      const float sS = hi ? sS1 : sS0;
+      omc::rsoc_row(lane4(x4, e), lane4(w4, e), lane4(m4, e), sS, hi ? rho1 : rho0, p.alpha,
+                    p.beta, r, u, a);
+      omc::nonneg_slot(lane4(w4, e), sS, p.alpha, lane4(p4, e), lane4(u4, e));
+    });
     if (rem == 4) {
       *reinterpret_cast<float4*>(wp + q0) = p4;
       *reinterpret_cast<float4*>(up + q0) = u4;
@@ -498,28 +394,14 @@ __device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
     }
   }
   __syncwarp();
-  {
-    float4* gr = reinterpret_cast<float4*>(p.wr + off);
-    float4* gu = reinterpret_cast<float4*>(p.ur + off);
-    float4* ga = reinterpret_cast<float4*>(p.acc_r + off);
-#pragma unroll
-    for (int h = 0; h < 3; ++h)
-      if (lane + 32 * h < n4) gr[lane + 32 * h] = sr[lane + 32 * h],
-                              gu[lane + 32 * h] = su[lane + 32 * h],
-                              ga[lane + 32 * h] = sa[lane + 32 * h];
-    const float* fr = reinterpret_cast<const float*>(sr);
-    const float* fu = reinterpret_cast<const float*>(su);
-    const float* fa = reinterpret_cast<const float*>(sa);
-    for (int q = 4 * n4 + lane; q < nf; q += 32)
-      p.wr[off + q] = fr[q], p.ur[off + q] = fu[q], p.acc_r[off + q] = fa[q];
-  }
+  omc::triples_out(p.wr, p.ur, p.acc_r, off, 3 * cnt, s, lane);
 }
 
 __global__ void __launch_bounds__(kThreads8b) k8b_kernel(K8bParams p) {
   const int x = blockIdx.x;
-  const int tiles = omc::cdiv(p.m, kLinkCols);
+  const int tiles = omc::cdiv(p.m, omc::kLinkCols);
   if (x < p.B * tiles) {
-    k8b_link(p, x / tiles, x % tiles);
+    omc::link_rows(p, x / tiles, x % tiles);
   } else {
     k8b_coords(p, (x - p.B * tiles) * p.qpc);
   }

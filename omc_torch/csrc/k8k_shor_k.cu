@@ -44,13 +44,28 @@
 //   term, so both are spread over all of the slot's CTAs by index range,
 //   one table walk serving a v entry's k terms.
 // All sums run in a fixed order through tables built on the host once per
-// visit.  K8d keeps one CTA per (slot, 32 columns), 8 row groups.
+// visit.
+//
+// K8d's grid is sized to the card (omc_torch.sdp.shor_k.k8d_plan, export
+// omc_k8d_grid_x), one dimension, four kinds of CTA of 128 threads:
+//  (l) x < B ceil(m / 32): the Theta-link rows of 32 columns of a slot
+//      (omc::link_rows, K8b's: 4 row groups summing sW W in row order, the
+//      groups in order; no atomics, the same bits every run);
+//  (w) then W >= 0 over the batch's flat B n m, a quad of 4 entries a thread
+//      in 16-byte words;
+//  (r) then the RSOC rows of the batch's flat B Ms, a quad a thread: its
+//      entries and masks one 16-byte word each, then W and X gathered at
+//      the entries, the warp's triples staged through shared memory;
+//  (c) then the coordinates of the batch's flat B C, one a thread: its
+//      W-link row and its k Wt >= 0 slots, so Wt and H are read once.
+// Each flat kind takes ipc items a CTA (128, 64 or 32; the plan narrows it
+// until the flat CTAs fill the card's SMs), each lane issues all of its
+// loads before its first store, and the operands are __restrict__.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCols = 32;
-constexpr int kRows = omc::kThreads / kCols;  // 8
+constexpr int kCols = 32;  // K8c's widest tile
 
 // K8c's dynamic shared memory (floats): the kept per-entry values
 // (W, q_c, c, Wt, H: k + k(k-1)/2 + 3 fields of n x cols), two column sums
@@ -337,95 +352,185 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
   }
 }
 
-__global__ void __launch_bounds__(omc::kThreads) k8d_kernel(K8dParams p) {
-  __shared__ float part[kRows][kCols];
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % kCols, ty = tid / kCols;
-  const int n = p.n, m = p.m, nm = n * m, C = p.C, Ms = p.Ms, k = p.k;
-  const int kp = k * (k - 1) / 2;
-  const int j = blockIdx.x * kCols + lane;
-  const bool col = j < m;
-  const float rho = p.rho[b], sX = p.sX[b], sS = p.sS[b];
-  const float sW = sX * sX, alpha = p.alpha, om = 1.0f - p.alpha, beta = p.beta;
-  const float* Xs = p.Xs + (size_t)b * nm;
-  const float* Ws = p.Ws + (size_t)b * nm;
+// K8d's CTA (every kind); its link CTAs are omc::link_rows's
+constexpr int kThreads8d = 128;
+static_assert(kThreads8d == omc::kLinkCols * omc::kLinkRows, "a link CTA is 32 x 4 threads");
 
-  // ---- per entry: W >= 0; column sums of sW W for the Theta-link ----
-  float csum = 0.f;
-  if (col) {
-    for (int i = ty; i < n; i += kRows) {
-      const size_t q = (size_t)b * nm + i * m + j;
-      const float w = p.Ws[q];
-      csum += sW * w;
-      const float tp = (alpha * (sS * w) + om * p.wp[q]) + p.up[q];
-      const float wp = fmaxf(tp, 0.f);
-      p.wp[q] = wp;
-      p.up[q] = tp - wp;
-    }
-  }
-  part[ty][lane] = csum;
-  __syncthreads();
-  if (ty == 0 && col) {
-    float s = 0.f;
-    for (int r = 0; r < kRows; ++r) s += part[r][lane];
-    const size_t ql = (size_t)b * m + j;
-    const float f_link = p.sT[b] * p.Ths[(size_t)b * m * m + j * m + j] - s;
-    const float tl = alpha * f_link + p.ul[ql];
-    p.wl[ql] = 0.f;
-    p.ul[ql] = tl;
-    p.acc_l[ql] = p.acc_l[ql] + beta * (rho * tl - p.acc_l[ql]);
-  }
+struct K8dLayout {
+  int links, nonneg, rsoc, coords, grid_x;
+};
 
-  // ---- strided over the slot's CTAs: RSOC rows | W-link rows | Wt >= 0 ----
-  const float* Wt = p.Wt + (size_t)b * k * C;
-  const float* Hh = p.Hh + (size_t)b * kp * C;
-  for (int e = blockIdx.x * blockDim.x + tid; e < Ms + C + k * C; e += gridDim.x * blockDim.x) {
-    if (e < Ms) {
-      const size_t q = (size_t)b * Ms + e;
-      const int fl = p.soc_flat[q];
-      const float fr[3] = {sS * 0.5f, sS * Ws[fl], sS * Xs[fl]};
-      float t[3], pr[3];
+__host__ __device__ __forceinline__ K8dLayout k8d_layout(int B, int n, int m, int C, int Ms,
+                                                         int ipc) {
+  K8dLayout l;
+  l.links = B * omc::cdiv(m, omc::kLinkCols);
+  l.nonneg = omc::cdiv(omc::cdiv(B * n * m, 4), ipc);
+  l.rsoc = omc::cdiv(omc::cdiv(B * Ms, 4), ipc);
+  l.coords = omc::cdiv(B * C, ipc);
+  l.grid_x = l.links + l.nonneg + l.rsoc + l.coords;
+  return l;
+}
+
+using omc::lane4;
+
+// (w): the W >= 0 slots of the quads [quad0, quad0 + ipc) of the batch's
+// flat B n m, a quad of 4 consecutive entries a thread in 16-byte words
+// (fewer at the ragged end; a quad spans at most two slots, n m >= 4)
+__device__ __forceinline__ void k8d_nonneg(const K8dParams& p, int quad0) {
+  const float* __restrict__ W = p.Ws;
+  float* __restrict__ wp = p.wp;
+  float* __restrict__ up = p.up;
+  const int nm = p.n * p.m, tot = p.B * nm;
+  const int q0 = 4 * (quad0 + (int)threadIdx.x);
+  if ((int)threadIdx.x >= p.ipc || q0 >= tot) return;
+  const int rem = min(4, tot - q0);
+  const int b0 = q0 / nm, b1 = min(b0 + 1, p.B - 1), bnd = (b0 + 1) * nm;
+  const float sS0 = __ldg(p.sS + b0), sS1 = __ldg(p.sS + b1);
+  float4 w4 = {}, p4 = {}, u4 = {};
+  if (rem == 4) {
+    w4 = __ldg(reinterpret_cast<const float4*>(W + q0));
+    p4 = *reinterpret_cast<const float4*>(wp + q0);
+    u4 = *reinterpret_cast<const float4*>(up + q0);
+  } else {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * p.wr[3 * q + c]) + p.ur[3 * q + c];
-      omc::project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
-      const float sm = p.soc_mask[q];
+    for (int e = 0; e < 4; ++e)
+      if (e < rem) lane4(w4, e) = W[q0 + e], lane4(p4, e) = wp[q0 + e], lane4(u4, e) = up[q0 + e];
+  }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float u = (t[c] - pr[c]) * sm;
-        p.wr[3 * q + c] = pr[c];
-        p.ur[3 * q + c] = u;
-        p.acc_r[3 * q + c] = p.acc_r[3 * q + c] + beta * (rho * u - p.acc_r[3 * q + c]);
-      }
-    } else if (e < Ms + C) {
-      const int c = e - Ms;
-      const size_t q = (size_t)b * C + c;
-      float sw = Wt[c];
-      for (int t = 1; t < k; ++t) sw += Wt[(size_t)t * C + c];
-      float sh = Hh[c];
-      for (int t = 1; t < kp; ++t) sh += Hh[(size_t)t * C + c];
-      const float cm = p.coord_mask[q];
-      const float fwl = (sS * (Ws[p.coord_flat[q]] - sw - 2.0f * sh)) * cm;
-      const float tw = (alpha * fwl + p.uwl[q]) * cm;
-      p.wwl[q] = 0.f;
-      p.uwl[q] = tw;
-      p.acc_wl[q] = p.acc_wl[q] + beta * (rho * tw - p.acc_wl[q]);
-    } else {
-      const size_t q = (size_t)b * k * C + (e - Ms - C);
-      const float tq = (alpha * (sS * p.Wt[q]) + om * p.wq[q]) + p.uq[q];
-      const float wq = fmaxf(tq, 0.f);
-      p.wq[q] = wq;
-      p.uq[q] = tq - wq;
-    }
+  for (int e = 0; e < 4; ++e)
+    if (e < rem) omc::nonneg_slot(lane4(w4, e), q0 + e >= bnd ? sS1 : sS0, p.alpha,
+                                  lane4(p4, e), lane4(u4, e));
+  if (rem == 4) {
+    *reinterpret_cast<float4*>(wp + q0) = p4;
+    *reinterpret_cast<float4*>(up + q0) = u4;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < rem) wp[q0 + e] = lane4(p4, e), up[q0 + e] = lane4(u4, e);
   }
 }
 
-template <typename Kernel, typename Params>
-int launch_tiles(Kernel kernel, const Params& p, void* stream) {
-  if (p.B > 0 && p.m > 0) {
-    const dim3 grid((p.m + kCols - 1) / kCols, p.B);
-    kernel<<<grid, omc::kThreads, 0, (cudaStream_t)stream>>>(p);
+// (r): the RSOC rows of the quads [quad0, quad0 + ipc) of the batch's flat
+// B Ms, a quad of 4 consecutive rows a thread, a warp 32 quads: a quad's
+// entries (soc_flat) and masks are one 16-byte word each, then the rows' W
+// and X are gathered; the warp's triples of wr, ur and acc_r are staged
+// through its shared memory (omc::triples_in), each lane's loads issued
+// before any store (a quad spans at most two slots, Ms >= 4)
+__device__ __forceinline__ void k8d_rsoc(const K8dParams& p, int quad0) {
+  __shared__ float4 k8d_smem[3 * 3 * 32 * (kThreads8d / 32)];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* __restrict__ X = p.Xs;
+  const float* __restrict__ W = p.Ws;
+  const int* __restrict__ F = p.soc_flat;
+  const float* __restrict__ M = p.soc_mask;
+  const int nm = p.n * p.m, Ms = p.Ms, tot = p.B * Ms;
+  const int c0 = 4 * (quad0 + 32 * warp);  // the warp's first row
+  if (32 * warp >= p.ipc || c0 >= tot) return;
+  const int cnt = min(128, tot - c0);
+  const size_t off = 3 * (size_t)c0;
+  float4* s = k8d_smem + 3 * 3 * 32 * warp;
+  const int q0 = c0 + 4 * lane;
+  const int rem = q0 < tot ? min(4, tot - q0) : 0;
+  const int b0 = rem > 0 ? q0 / Ms : 0, b1 = min(b0 + 1, p.B - 1), bnd = (b0 + 1) * Ms;
+  const float sS0 = __ldg(p.sS + b0), rho0 = __ldg(p.rho + b0);
+  const float sS1 = __ldg(p.sS + b1), rho1 = __ldg(p.rho + b1);
+  int4 f4 = {};
+  float4 m4 = {};
+  if (rem == 4) {
+    f4 = __ldg(reinterpret_cast<const int4*>(F + q0));
+    m4 = __ldg(reinterpret_cast<const float4*>(M + q0));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < rem) {
+        (e == 0 ? f4.x : e == 1 ? f4.y : e == 2 ? f4.z : f4.w) = F[q0 + e];
+        lane4(m4, e) = M[q0 + e];
+      }
   }
-  return (int)cudaGetLastError();
+  const int fl[4] = {f4.x, f4.y, f4.z, f4.w};
+  float x[4] = {}, w[4] = {};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < rem) {
+      const size_t q = (size_t)(q0 + e >= bnd ? b1 : b0) * nm + fl[e];
+      x[e] = __ldg(X + q), w[e] = __ldg(W + q);
+    }
+  omc::triples_in(p.wr, p.ur, p.acc_r, off, 3 * cnt, s, lane);
+  __syncwarp();
+  if (rem > 0)
+    omc::triples_update(s, lane, rem, [&](int e, float (&r)[3], float (&u)[3], float (&a)[3]) {
+      const bool hi = q0 + e >= bnd;
+      omc::rsoc_row(x[e], w[e], lane4(m4, e), hi ? sS1 : sS0, hi ? rho1 : rho0, p.alpha, p.beta,
+                    r, u, a);
+    });
+  __syncwarp();
+  omc::triples_out(p.wr, p.ur, p.acc_r, off, 3 * cnt, s, lane);
+}
+
+// (c): the coordinates [g0, g0 + ipc) of the batch's flat B C, one a
+// thread: its W-link row (a zero cone: W_c - sum_t Wt - 2 sum_p H, masked)
+// and its K Wt >= 0 slots, so that Wt and H are read once
+template <int K>
+__device__ __forceinline__ void k8d_coords(const K8dParams& p, int g0) {
+  constexpr int KP = K * (K - 1) / 2;
+  const int g = g0 + threadIdx.x, C = p.C;
+  if ((int)threadIdx.x >= p.ipc || g >= p.B * C) return;
+  const int b = g / C, c = g - b * C;
+  const size_t q = (size_t)b * K * C + c;  // term 0 of the (B, K, C) arrays
+  const float* __restrict__ Wt = p.Wt;
+  const float* __restrict__ Hh = p.Hh + (size_t)b * KP * C + c;
+  float* __restrict__ wq = p.wq;
+  float* __restrict__ uq = p.uq;
+  const int fc = __ldg(p.coord_flat + g);
+  const float cm = __ldg(p.coord_mask + g), uwl = p.uwl[g], awl = p.acc_wl[g];
+  const float sS = __ldg(p.sS + b), rho = __ldg(p.rho + b);
+  float wt[K], pq[K], vq[K], h[KP];
+#pragma unroll
+  for (int t = 0; t < K; ++t)
+    wt[t] = __ldg(Wt + q + (size_t)t * C), pq[t] = wq[q + (size_t)t * C], vq[t] = uq[q + (size_t)t * C];
+#pragma unroll
+  for (int r = 0; r < KP; ++r) h[r] = __ldg(Hh + (size_t)r * C);
+  const float w = __ldg(p.Ws + (size_t)b * p.n * p.m + fc);
+  float sw = wt[0], sh = h[0];
+#pragma unroll
+  for (int t = 1; t < K; ++t) sw += wt[t];
+#pragma unroll
+  for (int r = 1; r < KP; ++r) sh += h[r];
+  const float fwl = (sS * (w - sw - 2.0f * sh)) * cm;
+  const float tw = (p.alpha * fwl + uwl) * cm;
+  p.wwl[g] = 0.f;
+  p.uwl[g] = tw;
+  p.acc_wl[g] = awl + p.beta * (rho * tw - awl);
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    omc::nonneg_slot(wt[t], sS, p.alpha, pq[t], vq[t]);
+    wq[q + (size_t)t * C] = pq[t];
+    uq[q + (size_t)t * C] = vq[t];
+  }
+}
+
+// one dimension: the link CTAs, then the W >= 0, RSOC and coordinates' CTAs
+// (k8d_layout; omc_torch.sdp.shor_k.k8d_plan)
+template <int K>
+__global__ void __launch_bounds__(kThreads8d) k8d_kernel(K8dParams p) {
+  const K8dLayout l = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc);
+  int x = blockIdx.x;
+  if (x < l.links) {
+    const int tiles = omc::cdiv(p.m, omc::kLinkCols);
+    omc::link_rows(p, x / tiles, x % tiles);
+    return;
+  }
+  x -= l.links;
+  if (x < l.nonneg) {
+    k8d_nonneg(p, x * p.ipc);
+    return;
+  }
+  x -= l.nonneg;
+  if (x < l.rsoc) {
+    k8d_rsoc(p, x * p.ipc);
+    return;
+  }
+  k8d_coords<K>(p, (x - l.rsoc) * p.ipc);
 }
 
 template <int K>
@@ -463,6 +568,27 @@ OMC_EXPORT long long omc_k8c_smem_bytes(int n, int m, int k, int cols) {
   return (long long)sizeof(float) * k8c_smem_floats(n, m, k, cols);
 }
 
+// K8d's grid width (omc_torch.sdp.shor_k.k8d_plan plans with it;
+// chip_smoke.py holds the plan against it)
+OMC_EXPORT int omc_k8d_grid_x(int B, int n, int m, int C, int Ms, int ipc) {
+  return k8d_layout(B, n, m, C, Ms, ipc).grid_x;
+}
+
 OMC_EXPORT int omc_k8d_shor_k_cone(const K8dParams* params, void* stream) {
-  return launch_tiles(k8d_kernel, *params, stream);
+  const K8dParams& p = *params;
+  // W, wp, up, the RSOC triples, soc_flat and soc_mask move as 16-byte words
+  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (p.B < 1 || p.n < 1 || p.m < 1 || p.n * p.m < 4 || p.C < 1 || p.Ms < 4 || p.ipc < 32 ||
+      p.ipc > kThreads8d || p.ipc % 32 || odd(p.Ws) || odd(p.wp) || odd(p.up) || odd(p.wr) ||
+      odd(p.ur) || odd(p.acc_r) || odd(p.soc_flat) || odd(p.soc_mask))
+    return (int)cudaErrorInvalidValue;
+  const int grid = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc).grid_x;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p.k) {
+    case 2: k8d_kernel<2><<<grid, kThreads8d, 0, s>>>(p); break;
+    case 3: k8d_kernel<3><<<grid, kThreads8d, 0, s>>>(p); break;
+    case 4: k8d_kernel<4><<<grid, kThreads8d, 0, s>>>(p); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

@@ -248,7 +248,7 @@ class K8dParams(ctypes.Structure):
         ("Xs", "Ws", "Ths", "Wt", "Hh", "wr", "ur", "acc_r", "wl", "ul", "acc_l",
          "wwl", "uwl", "acc_wl", "wp", "up", "wq", "uq", "soc_flat", "soc_mask",
          "coord_flat", "coord_mask", "sX", "sT", "sS", "rho"),
-        ("B", "n", "m", "k", "C", "Ms"), ("alpha", "beta"))
+        ("B", "n", "m", "k", "C", "Ms", "ipc"), ("alpha", "beta"))
 
 
 class K9sParams(ctypes.Structure):
@@ -327,6 +327,8 @@ def _load(path: Path):
     lib.omc_k8a_grid_x.restype = ctypes.c_int
     lib.omc_k8b_grid_x.argtypes = [ctypes.c_int] * 4
     lib.omc_k8b_grid_x.restype = ctypes.c_int
+    lib.omc_k8d_grid_x.argtypes = [ctypes.c_int] * 6
+    lib.omc_k8d_grid_x.restype = ctypes.c_int
     for name, nargs in (("omc_k2_smem_bytes", 8), ("omc_k3_smem_bytes", 8),
                         ("omc_k2_ws_doubles", 5), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs

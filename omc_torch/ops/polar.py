@@ -353,9 +353,12 @@ def project_psd_small(T, w_out=None):
 def project_psd_xwh(T, w_out=None):
     """K7x in its projection mode: the sign-schedule PSD projection of a
     (..., d, d) batch with 3 <= d <= 5 (the rank-k Shor XWH slots are
-    (k+1) x (k+1)), one thread per matrix on the GPU.  A CPU tensor runs the
-    plain ``project_psd_ns_small``; a CUDA tensor runs the kernel or
-    raises."""
+    (k+1) x (k+1)), one thread per matrix on the GPU, a CTA's 128 matrices
+    staged through shared memory as 16-byte words.  A CPU tensor runs the
+    plain ``project_psd_ns_small``; a CUDA tensor runs the kernel or raises
+    (also on storage that does not start 16-byte aligned).  The kernel's
+    order of work (the upper triangles of symmetric products) has the CPU
+    mirror ``project_psd_ns(T, matmul=symmetric_matmul())``."""
     dev = T.device
     if dev.type == "cpu":
         P = project_psd_ns_small(T)
@@ -370,6 +373,9 @@ def project_psd_xwh(T, w_out=None):
     p = kernels.K7xParams()
     p.t = kernels.check("t", T, T.shape, dev)
     p.w = kernels.check("w_out", w_out, T.shape, dev)
+    if p.t % 16 or p.w % 16:
+        raise ValueError("K7x stages t and w_out as 16-byte words: their storage must start "
+                         "16-byte aligned")
     p.N, p.k = T.numel() // (d * d), d - 1
     kernels.launch("K7x", "omc_k7x_xwh", p, dev)
     return w_out

@@ -690,6 +690,19 @@ def k8b_plan(B: int, n: int, m: int) -> dict:
                 threads=K8B_THREADS, link_rows=K8B_LINK_ROWS)
 
 
+def link_sums_tiled(sWW, G: int):
+    """The column sums of sWW (B, n, m) over its rows in the order of the
+    link CTAs of K8b and K8d: row group g of G sums rows g, g + G, ... in
+    order, then the G groups are added in order."""
+    tot = torch.zeros_like(sWW[:, 0])
+    for g in range(G):
+        part = torch.zeros_like(tot)
+        for i in range(g, sWW.shape[1], G):
+            part = part + sWW[:, i]
+        tot = tot + part
+    return tot
+
+
 def shor_cone_step_tiled(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l, plan: dict):
     """Torch mirror of K8b's order of work (``plan`` from ``k8b_plan``), for
     the tests: the link rows' column sums of sW W per row group (rows g, g +
@@ -698,15 +711,7 @@ def shor_cone_step_tiled(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l, pl
     the plain version's tuple."""
     out = list(shor_cone_step_plain(c, sc, st, acc_r, acc_l))
     core = st.core
-    n = core.X.shape[1]
-    sWW = (core.sX * core.sX)[:, None, None] * st.W
-    G = plan["link_rows"]
-    tot = torch.zeros_like(st.ul)
-    for g in range(G):
-        part = torch.zeros_like(st.ul)
-        for i in range(g, n, G):
-            part = part + sWW[:, i]
-        tot = tot + part
+    tot = link_sums_tiled((core.sX * core.sX)[:, None, None] * st.W, plan["link_rows"])
     f_link = core.sT[:, None] * torch.diagonal(core.Th, dim1=-2, dim2=-1) - tot
     ul = c.alpha * f_link + st.ul
     out[2], out[3] = torch.zeros_like(ul), ul

@@ -54,9 +54,10 @@ import torch
 
 from omc_torch import kernels
 from omc_torch.ops.cones import eigvalsh, project_psd, project_rsoc
-from omc_torch.ops.polar import project_psd_ns_multi, project_psd_ns_small, psd_epilogue
+from omc_torch.ops.polar import H100_SMS, project_psd_ns_multi, project_psd_ns_small, psd_epilogue
 from omc_torch.sdp.admm import (
     ADMMState,
+    _cdiv,
     _packed,
     cone_step,
     init_admm_state,
@@ -64,6 +65,7 @@ from omc_torch.sdp.admm import (
     zstep,
 )
 from omc_torch.sdp.admm import apply_best_duals as apply_core_best_duals
+from omc_torch.sdp.admm_shor import link_sums_tiled
 from omc_torch.sdp.relax import NodeBatch, _np, margin_rel_default, separation_eigpairs
 from omc_torch.sdp.shor_encode import _csr, fill_v_inverse, v_inverse_tables
 
@@ -885,11 +887,12 @@ def _k7t_operands(sc: _ShorKConsts, st: ShorKState, acc5) -> list:
 
 # K7t's operands, gathered cheaply for the reuse test of its packed block
 _K7T_ST = operator.attrgetter("w5", "u5", "Xt", "Wt", "v1", "v2", "v3")
-_K7T_CORE = operator.attrgetter("sS", "rho")
+# the per-slot scales K7t and K7x read
+_SS_RHO = operator.attrgetter("sS", "rho")
 
 
 def _k7t_tensors(sc: _ShorKConsts, st: ShorKState, acc5) -> tuple:
-    return _K7T_ST(st) + _K7T_CORE(st.core) + (sc.rec, sc.sb.minor_mask, acc5)
+    return _K7T_ST(st) + _SS_RHO(st.core) + (sc.rec, sc.sb.minor_mask, acc5)
 
 
 def _k7t_params(c, sc: _ShorKConsts, st: ShorKState, acc5, dev):
@@ -930,10 +933,11 @@ def xwh_step_plain(c, sc: _ShorKConsts, st: ShorKState, accx, proj):
 
 
 def xwh_step(c, sc: _ShorKConsts, st: ShorKState, accx, psd_method: str):
-    """K7x wrapper (fused mode): updates ``st.wx``, ``st.ux`` and the EMA
+    """K7x wrapper (slot mode): updates ``st.wx``, ``st.ux`` and the EMA
     ``accx`` in place.  A CPU state runs ``xwh_step_plain``; a CUDA state
-    launches ``csrc/k7k_minor_xwh.cu`` (one thread per coordinate) or
-    raises."""
+    launches ``csrc/k7k_minor_xwh.cu`` (one thread per coordinate, a CTA's
+    128 slots staged through shared memory) or raises.  The parameter block
+    is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -943,26 +947,53 @@ def xwh_step(c, sc: _ShorKConsts, st: ShorKState, accx, psd_method: str):
         return
     if dev.type != "cuda":
         raise ValueError(f"xwh_step: unsupported device {dev}")
+    kernels.launch("K7x", "omc_k7x_xwh", _k7x_params(c, sc, st, accx, dev), dev)
+
+
+def _k7x_operands(sc: _ShorKConsts, st: ShorKState, accx) -> list:
+    """(field, tensor, shape, dtype) of every K7x (slot mode) operand."""
     B, n, m, k, kp, C, Ms = _shapes(st)
-    _check_k("K7x", k)
-    sb = sc.sb
-    ck = kernels.check
     D = k + 1
-    p = kernels.K7xParams()
-    p.t = None
-    p.w = ck("wx", st.wx, (B, C, D, D), dev)
-    p.u = ck("ux", st.ux, (B, C, D, D), dev)
-    p.acc = ck("accx", accx, (B, C, D, D), dev)
-    p.Xt = ck("Xt", st.Xt, (B, k, n, m), dev)
-    p.Wt = ck("Wt", st.Wt, (B, k, C), dev)
-    p.Hh = ck("Hh", st.Hh, (B, kp, C), dev)
-    p.coord_flat = ck("coord_flat", sb.coord_flat, (B, C), dev, torch.int32)
-    p.coord_mask = ck("coord_mask", sb.coord_mask, (B, C), dev)
-    p.sS = ck("sS", core.sS, (B,), dev)
-    p.rho = ck("rho", core.rho, (B,), dev)
-    p.N, p.C, p.k, p.nm = B * C, C, k, n * m
-    p.alpha, p.beta = float(c.alpha), float(c.beta)
-    kernels.launch("K7x", "omc_k7x_xwh", p, dev)
+    f32 = torch.float32
+    return [("w", st.wx, (B, C, D, D), f32), ("u", st.ux, (B, C, D, D), f32),
+            ("acc", accx, (B, C, D, D), f32), ("Xt", st.Xt, (B, k, n, m), f32),
+            ("Wt", st.Wt, (B, k, C), f32), ("Hh", st.Hh, (B, kp, C), f32),
+            ("coord_flat", sc.sb.coord_flat, (B, C), torch.int32),
+            ("coord_mask", sc.sb.coord_mask, (B, C), f32), ("sS", st.core.sS, (B,), f32),
+            ("rho", st.core.rho, (B,), f32)]
+
+
+# the operands K7x stages as 16-byte words
+_K7X_WORDS = ("w", "u", "acc")
+# K7x's operands, gathered cheaply for the reuse test of its packed block
+_K7X_ST = operator.attrgetter("wx", "ux", "Xt", "Wt", "Hh")
+_K7X_SB = operator.attrgetter("coord_flat", "coord_mask")
+
+
+def _k7x_tensors(sc: _ShorKConsts, st: ShorKState, accx) -> tuple:
+    return _K7X_ST(st) + _K7X_SB(sc.sb) + _SS_RHO(st.core) + (accx,)
+
+
+def _k7x_params(c, sc: _ShorKConsts, st: ShorKState, accx, dev):
+    """K7x's parameter block (slot mode), packed once per operands
+    (``admm._packed``)."""
+    scalars = (float(c.alpha), float(c.beta))
+
+    def build():
+        B, n, m, k, kp, C, Ms = _shapes(st)
+        _check_k("K7x", k)
+        p = kernels.K7xParams()
+        for name, t, shape, dtype in _k7x_operands(sc, st, accx):
+            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+        if any(getattr(p, name) % 16 for name in _K7X_WORDS):
+            raise ValueError("K7x stages wx, ux and the EMA as 16-byte words: their storage "
+                             "must start 16-byte aligned")
+        p.t = None
+        p.N, p.C, p.k, p.nm = B * C, C, k, n * m
+        p.alpha, p.beta = scalars
+        return p
+
+    return _packed(("K7x", id(c), id(sc), id(st)), _k7x_tensors(sc, st, accx), scalars, build)
 
 
 # --------------------------------------------------------------------------
@@ -1008,11 +1039,62 @@ def shor_k_cone_step_plain(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, ac
     return wr, ur, wl, ul, wwl, uwl, wp, up, wq, uq, acc_r, acc_l, acc_wl
 
 
+# K8d's geometry (csrc/k8k_shor_k.cu): CTAs of 128 threads; a link CTA sums
+# a tile of 32 columns in 4 row groups; a flat CTA takes up to 128 items (a
+# quad of W >= 0 entries, a quad of RSOC rows or a coordinate a thread),
+# fewer until the flat CTAs fill the card's SMs
+K8D_THREADS, K8D_LINK_COLS, K8D_LINK_ROWS = 128, 32, 4
+K8D_TARGET_CTAS = H100_SMS
+
+
+def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int) -> dict:
+    """K8d's grid, one dimension: ``link_ctas`` = B ceil(m / 32) CTAs on the
+    Theta-link rows (slot x // ceil(m / 32), columns [32 t, 32 t + 32) for
+    t = x % ceil(m / 32); row group g of 4 sums rows g, g + 4, ... in order,
+    then the groups in order), then CTAs of ``ipc`` items: ``nonneg_ctas``
+    on the quads of 4 consecutive W >= 0 entries of the batch's flat B n m,
+    ``rsoc_ctas`` on the quads of 4 consecutive RSOC rows of its flat B Ms,
+    ``coord_ctas`` on the coordinates of its flat B C (``grid`` in all).
+    ``ipc`` halves from 128 to 32 while there are fewer flat CTAs than
+    ``K8D_TARGET_CTAS``.  Raises on a rank or a shape the kernel does not
+    take."""
+    _check_k("K8d", k)
+    if min(B, n, m, C) < 1 or n * m < 4 or Ms < 4:
+        raise ValueError(f"K8d: unsupported shape B={B}, n={n}, m={m}, C={C}, Ms={Ms}")
+    items = (_cdiv(B * n * m, 4), _cdiv(B * Ms, 4), B * C)
+    ipc = K8D_THREADS
+    while ipc > 32 and sum(_cdiv(x, ipc) for x in items) < K8D_TARGET_CTAS:
+        ipc //= 2
+    links = B * _cdiv(m, K8D_LINK_COLS)
+    nonneg, rsoc, coords = (_cdiv(x, ipc) for x in items)
+    return dict(ipc=ipc, link_ctas=links, nonneg_ctas=nonneg, rsoc_ctas=rsoc, coord_ctas=coords,
+                grid=links + nonneg + rsoc + coords, threads=K8D_THREADS,
+                link_rows=K8D_LINK_ROWS)
+
+
+def shor_k_cone_step_tiled(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl,
+                           plan: dict):
+    """Torch mirror of K8d's order of work (``plan`` from ``k8d_plan``), for
+    the tests: the Theta-link rows' column sums of sW W per row group (rows
+    g, g + G, ... in order), the G groups added in order; every other row
+    and slot as ``shor_k_cone_step_plain`` (none depends on another).
+    Returns the plain version's tuple."""
+    out = list(shor_k_cone_step_plain(c, sc, st, acc_r, acc_l, acc_wl))
+    core = st.core
+    tot = link_sums_tiled((core.sX * core.sX)[:, None, None] * st.W, plan["link_rows"])
+    f_link = core.sT[:, None] * torch.diagonal(core.Th, dim1=-2, dim2=-1) - tot
+    ul = c.alpha * f_link + st.ul
+    out[2], out[3] = torch.zeros_like(ul), ul
+    out[11] = acc_l + c.beta * (core.rho[:, None] * ul - acc_l)
+    return tuple(out)
+
+
 def shor_k_cone_step(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl):
     """K8d wrapper: updates the RSOC, Theta-link, W-link, W >= 0 and
     Wt >= 0 slots of ``st`` and the EMAs ``acc_r``, ``acc_l``, ``acc_wl`` in
     place.  A CPU state runs ``shor_k_cone_step_plain``; a CUDA state
-    launches ``csrc/k8k_shor_k.cu`` or raises."""
+    launches ``csrc/k8k_shor_k.cu`` (``k8d_plan``'s grid) or raises.  The
+    parameter block is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -1023,33 +1105,62 @@ def shor_k_cone_step(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_k_cone_step: unsupported device {dev}")
+    kernels.launch("K8d", "omc_k8d_shor_k_cone",
+                   _k8d_params(c, sc, st, acc_r, acc_l, acc_wl, dev), dev)
+
+
+def _k8d_operands(sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl) -> list:
+    """(field, tensor, shape, dtype) of every K8d operand."""
     B, n, m, k, kp, C, Ms = _shapes(st)
-    _check_k("K8d", k)
-    sb = sc.sb
-    ck = kernels.check
-    p = kernels.K8dParams()
-    p.Xs = ck("X", core.X, (B, n, m), dev)
-    p.Ws = ck("W", st.W, (B, n, m), dev)
-    p.Ths = ck("Th", core.Th, (B, m, m), dev)
-    p.Wt = ck("Wt", st.Wt, (B, k, C), dev)
-    p.Hh = ck("Hh", st.Hh, (B, kp, C), dev)
-    for name, t, shape in (("wr", st.wr, (B, Ms, 3)), ("ur", st.ur, (B, Ms, 3)),
-                           ("acc_r", acc_r, (B, Ms, 3)), ("wl", st.wl, (B, m)),
-                           ("ul", st.ul, (B, m)), ("acc_l", acc_l, (B, m)),
-                           ("wwl", st.wwl, (B, C)), ("uwl", st.uwl, (B, C)),
-                           ("acc_wl", acc_wl, (B, C)), ("wp", st.wp, (B, n, m)),
-                           ("up", st.up, (B, n, m)), ("wq", st.wq, (B, k, C)),
-                           ("uq", st.uq, (B, k, C))):
-        setattr(p, name, ck(name, t, shape, dev))
-    p.soc_flat = ck("soc_flat", sb.soc_flat, (B, Ms), dev, torch.int32)
-    p.soc_mask = ck("soc_mask", sb.soc_mask, (B, Ms), dev)
-    p.coord_flat = ck("coord_flat", sb.coord_flat, (B, C), dev, torch.int32)
-    p.coord_mask = ck("coord_mask", sb.coord_mask, (B, C), dev)
-    for name in ("sX", "sT", "sS", "rho"):
-        setattr(p, name, ck(name, getattr(core, name), (B,), dev))
-    p.B, p.n, p.m, p.k, p.C, p.Ms = B, n, m, k, C, Ms
-    p.alpha, p.beta = float(c.alpha), float(c.beta)
-    kernels.launch("K8d", "omc_k8d_shor_k_cone", p, dev)
+    sb, core = sc.sb, st.core
+    f32, i32 = torch.float32, torch.int32
+    return ([("Xs", core.X, (B, n, m), f32), ("Ws", st.W, (B, n, m), f32),
+             ("Ths", core.Th, (B, m, m), f32), ("Wt", st.Wt, (B, k, C), f32),
+             ("Hh", st.Hh, (B, kp, C), f32), ("wr", st.wr, (B, Ms, 3), f32),
+             ("ur", st.ur, (B, Ms, 3), f32), ("acc_r", acc_r, (B, Ms, 3), f32),
+             ("wl", st.wl, (B, m), f32), ("ul", st.ul, (B, m), f32), ("acc_l", acc_l, (B, m), f32),
+             ("wwl", st.wwl, (B, C), f32), ("uwl", st.uwl, (B, C), f32),
+             ("acc_wl", acc_wl, (B, C), f32), ("wp", st.wp, (B, n, m), f32),
+             ("up", st.up, (B, n, m), f32), ("wq", st.wq, (B, k, C), f32),
+             ("uq", st.uq, (B, k, C), f32), ("soc_flat", sb.soc_flat, (B, Ms), i32),
+             ("soc_mask", sb.soc_mask, (B, Ms), f32), ("coord_flat", sb.coord_flat, (B, C), i32),
+             ("coord_mask", sb.coord_mask, (B, C), f32)]
+            + [(name, getattr(core, name), (B,), f32) for name in ("sX", "sT", "sS", "rho")])
+
+
+# the operands K8d reads and writes as 16-byte words
+_K8D_WORDS = ("Ws", "wp", "up", "wr", "ur", "acc_r", "soc_flat", "soc_mask")
+# K8d's operands, gathered cheaply for the reuse test of its packed block
+_K8D_ST = operator.attrgetter("W", "Wt", "Hh", "wr", "ur", "wl", "ul", "wwl", "uwl", "wp", "up",
+                              "wq", "uq")
+_K8D_CORE = operator.attrgetter("X", "Th", "sX", "sT", "sS", "rho")
+_K8D_SB = operator.attrgetter("soc_flat", "soc_mask", "coord_flat", "coord_mask")
+
+
+def _k8d_tensors(sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl) -> tuple:
+    return _K8D_ST(st) + _K8D_CORE(st.core) + _K8D_SB(sc.sb) + (acc_r, acc_l, acc_wl)
+
+
+def _k8d_params(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl, dev):
+    """K8d's parameter block, packed once per operands (``admm._packed``)."""
+    scalars = (float(c.alpha), float(c.beta))
+
+    def build():
+        B, n, m, k, kp, C, Ms = _shapes(st)
+        plan = k8d_plan(B, n, m, k, C, Ms)
+        p = kernels.K8dParams()
+        for name, t, shape, dtype in _k8d_operands(sc, st, acc_r, acc_l, acc_wl):
+            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+        if any(getattr(p, name) % 16 for name in _K8D_WORDS):
+            raise ValueError("K8d reads W, the RSOC slots and tables and the W >= 0 slot as "
+                             "16-byte words: their storage must start 16-byte aligned")
+        p.B, p.n, p.m, p.k, p.C, p.Ms = B, n, m, k, C, Ms
+        p.ipc = plan["ipc"]
+        p.alpha, p.beta = scalars
+        return p
+
+    return _packed(("K8d", id(c), id(sc), id(st)), _k8d_tensors(sc, st, acc_r, acc_l, acc_wl),
+                   scalars, build)
 
 
 def shor_k_iteration(c, sc: _ShorKConsts, st: ShorKState, ts, acc, psd_method: str):
@@ -1392,7 +1503,7 @@ __all__ = [
     "ShorKState",
     "init_shor_k_state", "make_shor_k_consts", "make_shor_k_solver", "shor_k_iteration",
     "shor_k_zstep", "shor_k_zstep_plain", "minor_k_step", "minor_k_step_plain", "minor_records",
-    "xwh_step", "xwh_step_plain", "shor_k_cone_step", "shor_k_cone_step_plain",
-    "safe_dual_bound_shor_k", "safe_dual_bound_shor_k2", "host_certified_bound_shor_k",
-    "apply_best_duals",
+    "xwh_step", "xwh_step_plain", "shor_k_cone_step", "shor_k_cone_step_plain", "k8d_plan",
+    "shor_k_cone_step_tiled", "safe_dual_bound_shor_k", "safe_dual_bound_shor_k2",
+    "host_certified_bound_shor_k", "apply_best_duals",
 ]
