@@ -25,9 +25,10 @@ Phases, in order (each prints its numbers on lines of its own):
                k2k3_plan could take; K8a, K7 (fused and projection mode)
                and K8b at every shape of the Shor k=1 loop (SHOR_SHAPES),
                K7t, K7x (fused) and K8d at k = 2, 3 and 4 and K7x's
-               projection mode, with their device times; the build fails
-               if ptxas reports a spill in K2, K3, K6, K7, K7t, K7x, K8a,
-               K8b, K8c or K8d
+               projection mode, K9a and K9b at (B, n=m, k) = (64, 50, 1),
+               (64, 75, 2), (1, 50, 1), (16, 50, 1) (MC_SHAPES), with their
+               device times; the build fails if ptxas reports a spill in
+               K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9a or K9b
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -62,7 +63,8 @@ of a kernel are its launches over all those phases (``COUNTED``).
 torch.profiler trace of the Shor loop at config 2's shape and at the shor
 cell's (with K7's, K8a's and K8b's device ms per iteration), of the
 rank-k Shor loop at config 3's (with K7t's, K7x's and K8d's), of the
-McCormick loop at the headline's, of the headline's root visit at B=1
+McCormick loop at the headline's (B=1 and B=64, with K9a's and K9b's), of
+the headline's root visit at B=1
 (with the device's idle share), of one base-path root visit at B=64 with
 its safe-bound calls, and of safe-bound calls at config 4's shape (B=128,
 n=m=250, k=5), each split into K4 and the torch terms; K2's and K3's
@@ -70,10 +72,11 @@ device ms per iteration of the two Shor loops and the two root visits are
 given on their own.
 
 ``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
-builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x and K8d and times them,
-with that tree's parameter blocks, beside every K2/K3 row of the kernels
-phase up to 512 cuts and every K7/K8a/K8b/K7t/K7x/K8d row, and reports
-ptxas's registers of its K7, K7t, K7x, K8a, K8b and K8d.
+builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d, K9s, K9a and K9b
+and times them, with that tree's parameter blocks, beside every K2/K3 row
+of the kernels phase up to 512 cuts and every K7/K8a/K8b/K7t/K7x/K8d/K9s/
+K9a/K9b row, and reports ptxas's registers of its K7, K7t, K7x, K8a, K8b, K8d, K9a
+and K9b.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -225,7 +228,8 @@ def phase_device(res):
 
 
 # the kernels whose small arrays must stay in registers (no stack frame)
-NO_FRAME = ("k7_kernel", "k7t_kernel", "k7x_kernel", "k8a_kernel", "k8b_kernel", "k8d_kernel")
+NO_FRAME = ("k7_kernel", "k7t_kernel", "k7x_kernel", "k8a_kernel", "k8b_kernel", "k8d_kernel",
+            "k9a_kernel", "k9b_kernel")
 
 
 def phase_build(res):
@@ -246,16 +250,18 @@ def phase_build(res):
     keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel") + NO_FRAME
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
-    log("build: K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c and K8d registers", json.dumps(regs))
+    log("build: K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9a and K9b registers",
+        json.dumps(regs))
     if PARENT:
         res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
                                if any(x in f for x in NO_FRAME)}
-        log("build: the parent's K7, K7t, K7x, K8a, K8b and K8d", json.dumps(res["parent_ptxas"]))
-    # K2's, K3's, K6's, K7's, K7t's, K7x's, K8a's, K8b's, K8c's and K8d's
-    # instantiations keep every value in registers; K7's, K7t's, K7x's,
-    # K8a's, K8b's and K8d's index their small arrays only with constants (no
-    # stack frame: a 5x5 triangle in local memory costs K7 ten times its
-    # time)
+        log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9a and K9b",
+            json.dumps(res["parent_ptxas"]))
+    # K2's, K3's, K6's, K7's, K7t's, K7x's, K8a's, K8b's, K8c's, K8d's,
+    # K9a's and K9b's instantiations keep every value in registers; K7's,
+    # K7t's, K7x's, K8a's, K8b's, K8d's, K9a's and K9b's index their small
+    # arrays only with constants (no stack frame: a 5x5 triangle in local
+    # memory costs K7 ten times its time)
     assert not [f for f in spills if any(x in f for x in keep)], spills
     frames = {f: r["stack"] for f, r in report.items()
               if any(x in f for x in NO_FRAME) and r["stack"]}
@@ -569,18 +575,21 @@ def phase_kernels(res):
                        and r["rel_err"] <= 2e-4 and r["deterministic"]
                        and not r["control_16bit_vs_eigh"] <= 1e-4))
 
-    # ---- K9s, K9a, K9b at the headline's shape and at config 3's ----
+    # ---- K9s, K9a, K9b at the headline's shape and at config 3's; K9a
+    # and K9b also at the root visit's batch and a mid-tree frontier's ----
     for name in ("K9s", "K9a", "K9b"):
         out[name] = []
-    for B, n, k in ((64, 50, 1), (64, 75, 2)):
-        rows = _check_mc_kernels(B, n, n, k, gen, dev)
+    for B, n, k in MC_SHAPES:
+        rows = _check_mc_kernels(B, n, n, k, gen, dev, k9s=B == 64)
         for name, row in rows.items():
             log(name, json.dumps(row))
             # float32 sums in another order than the plain version's, so
             # 1e-5 relative as K8c/K8d; two launches give the same bits;
-            # K9s's factors reproduce the row Grams
+            # K9s's factors reproduce the row Grams; K9a's and K9b's grids
+            # are k9_plan's
             checks.append((name, row, row["rel_err"] <= 1e-5 and row["deterministic"]
-                           and row.get("gram_rel_err", 0.0) <= 1e-5))
+                           and row.get("gram_rel_err", 0.0) <= 1e-5
+                           and row.get("plan_matches_kernel", name == "K9s")))
             out[name].append(row)
 
     # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps ----
@@ -1198,7 +1207,7 @@ def _to64(x):
     return x
 
 
-# The parent tree's K2, K3, K7, K8a, K8b, K7t, K7x and K8d (``--parent DIR``: a
+# The parent tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d and K9s-K9b (``--parent DIR``: a
 # checkout of an older tree), built from DIR's sources and launched on the same inputs as
 # the rows, for the records.  Their parameter blocks are DIR's own
 # (``omc_torch/kernels.py`` there), each field filled by name: a field this
@@ -1206,11 +1215,12 @@ def _to64(x):
 # packed wrongly.  K2's and K3's plan fields come from DIR's own
 # ``k2k3_plan`` (``omc_torch/sdp/admm.py`` there).
 PARENT = {}
-PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh", "k8k_shor_k")
+PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh", "k8k_shor_k",
+                  "k9_mccormick")
 
 
 def _load_parent(src):
-    """Build DIR's K2, K3, K7, K8, K7t/K7x and K8c/K8d sources into one
+    """Build DIR's K2, K3, K7, K8, K7t/K7x, K8c/K8d and K9 sources into one
     library (one nvcc each, in parallel), bind their entry points to DIR's
     blocks, take DIR's ``k2k3_plan`` and keep ptxas's report of DIR's
     kernels."""
@@ -1250,12 +1260,16 @@ def _load_parent(src):
                    (lib.omc_k8a_shor_zstep, mod.K8aParams),
                    (lib.omc_k8b_shor_cone, mod.K8bParams),
                    (lib.omc_k7t_minor_k, mod.K7tParams), (lib.omc_k7x_xwh, mod.K7xParams),
-                   (lib.omc_k8d_shor_k_cone, mod.K8dParams)):
+                   (lib.omc_k8d_shor_k_cone, mod.K8dParams),
+                   (lib.omc_k9s_setup, mod.K9sParams), (lib.omc_k9a_zstep, mod.K9aParams),
+                   (lib.omc_k9b_cone, mod.K9bParams)):
         fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
                   P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, P7x=mod.K7xParams,
-                  P8d=mod.K8dParams, k2k3_plan=plan, src=src,
+                  P8d=mod.K8dParams, P9s=mod.K9sParams, P9a=mod.K9aParams, P9b=mod.K9bParams,
+                  k2k3_plan=plan,
+                  src=src,
                   ptxas=_ptxas_report("".join(logs)))
 
 
@@ -1432,6 +1446,48 @@ def _parent_k8d(c, sc, st, acc_r, acc_l, acc_wl):
     v = _parent_shor_k_values(c, sc, st)
     v.update(acc_r=acc_r, acc_l=acc_l, acc_wl=acc_wl)
     return _parent_launch(PARENT["lib"].omc_k8d_shor_k_cone, _parent_block(PARENT["P8d"], v))
+
+
+def _parent_mc_values(c, st):
+    """The values a parent K9a or K9b block's fields may name: the
+    McCormick state's slots and primal blocks, the per-call constants and
+    the shape."""
+    v = {name: getattr(st, name) for name in (
+        "w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wmc",
+        "umc", "worth", "uorth", "U", "t", "Y", "sX", "sT", "rho")}
+    v.update(Xs=st.X, Ths=st.Th, U_lo=c.batch.U_lo, U_hi=c.batch.U_hi, maskA=c.maskA,
+             mask=c.mask, Mc=c.Mc, Si=c.Si, Gc=c.Gc, B=st.rho.shape[0], n=c.n, m=c.m, k=c.k,
+             gamma=c.gamma, alpha=c.alpha)
+    return v
+
+
+def _parent_k9s(batch, k):
+    """The parent's K9s on ``batch``, writing into factors of its own."""
+    import torch
+
+    B, n = batch.U_lo.shape[:2]
+    q = k * (k + 1) // 2
+    out = [torch.empty(s, dtype=torch.float32, device=batch.U_lo.device)
+           for s in ((B, n, k + q, k + q), (B, n, k + q, q), (B, q, q))]
+    v = dict(U_lo=batch.U_lo, U_hi=batch.U_hi, Mc=out[0], Si=out[1], Gc=out[2], B=B, n=n, k=k)
+    return _parent_launch(PARENT["lib"].omc_k9s_setup, _parent_block(PARENT["P9s"], v), *out)
+
+
+def _parent_k9a(c, st):
+    """The parent's K9a on (c, st), writing into st."""
+    return _parent_launch(PARENT["lib"].omc_k9a_zstep,
+                          _parent_block(PARENT["P9a"], _parent_mc_values(c, st)))
+
+
+def _parent_k9b(c, st, ts, acc, beta):
+    """The parent's K9b on (c, st), writing into st, ts and acc (a block
+    with a quads-a-CTA field takes this tree's ``k9_plan``'s)."""
+    from omc_torch.sdp.mccormick import k9_plan
+
+    v = _parent_mc_values(c, st)
+    v.update(t1=ts[0], t2=ts[1], t3=ts[2], acc_mc=acc[0], acc_orth=acc[1], beta=beta,
+             qpc=k9_plan(v["B"], c.n, c.m, c.k)["qpc"])
+    return _parent_launch(PARENT["lib"].omc_k9b_cone, _parent_block(PARENT["P9b"], v))
 
 
 def _parent_k7_projection(T, w):
@@ -1636,44 +1692,34 @@ def _mc_inputs(B, n, m, k, gen, dev):
     return c, st
 
 
-def _check_mc_kernels(B, n, m, k, gen, dev):
-    """K9s, K9a and K9b against their plain versions on the same inputs
-    (K9b at K9a's outputs), with times, bounds, a determinism check of each
-    and, for K9s, Mc Mc' against the row Grams."""
+# (B, n = m, k) of the McCormick kernels' rows: the McCormick cell's batch
+# at the headline's shape and at config 3's, the root visit, a mid-tree
+# frontier
+MC_SHAPES = ((64, 50, 1), (64, 75, 2), (1, 50, 1), (16, 50, 1))
+
+
+def _check_mc_kernels(B, n, m, k, gen, dev, k9s=True):
+    """K9s (with ``k9s``), K9a and K9b against their plain versions on the
+    same inputs (K9b at K9a's outputs), with CUDA-event and device times
+    (with ``--parent``, the parent's kernels on the same inputs beside),
+    bounds, a determinism check of each and, for K9s, Mc Mc' against the row
+    Grams."""
     import torch
 
     from omc_torch.sdp import mccormick as MC
+
+    from omc_torch import kernels
 
     c, st = _mc_inputs(B, n, m, k, gen, dev)
     q = k * (k + 1) // 2
     kq = k + q
     d1, d2 = n + m, n + k
+    plan = MC.k9_plan(B, n, m, k)
+    lib = kernels.library()
 
     out = {}
-    # ---- K9s ----
-    got = MC.mc_setup(c.batch, k)
-    got2 = MC.mc_setup(c.batch, k)
-    torch.cuda.synchronize()
-    ref = MC.mc_setup_plain(c.batch, k)
-    gram = MC.mc_gram_plain(c.batch, k)
-    rel, ab = _errs(got, ref)
-    Et = torch.zeros((kq, q), dtype=torch.float32, device=dev)
-    Et[k:] = torch.eye(q, dtype=torch.float32, device=dev)
-    Etb = Et.expand(B, n, kq, q).contiguous()
-    out["K9s"] = dict(B=B, n=n, k=k, rel_err=rel, max_abs_err=ab,
-                      gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
-                      deterministic=_same_bits(got, got2),
-                      ms=cuda_time_ms(lambda: MC.mc_setup(c.batch, k)),
-                      plain_ms=cuda_time_ms(lambda: MC.mc_setup_plain(c.batch, k)),
-                      # the library chain on the same Grams: cuSOLVER's
-                      # batched Cholesky, then the triangular solves for S_i
-                      library_ms=cuda_time_ms(
-                          lambda: torch.cholesky_solve(Etb, torch.linalg.cholesky(gram))))
-    # boxes in; Mc, Si, Gc out.  Per row: the Gram (4q rank-1 updates of
-    # (k+q)^2), its Cholesky, q solves; per slot G's sum and Cholesky
-    with_bound(out["K9s"], 4 * (B * n * (2 * k + kq * kq + kq * q) + B * q * q),
-               B * n * (8 * q * kq * kq + kq ** 3 // 3 + 2 * q * kq * kq) + B * (n * q * q + q ** 3))
-
+    if k9s:
+        out["K9s"] = _check_k9s(c, B, n, k, dev)
     # ---- K9a ----
     zs = lambda x: (x.X, x.Y, x.Th, x.U, x.t)  # noqa: E731
     sk = st.clone()
@@ -1683,18 +1729,25 @@ def _check_mc_kernels(B, n, m, k, gen, dev):
     torch.cuda.synchronize()
     rel, ab = _errs(zs(sk), MC.mc_zstep_plain(c, st))
     s3 = st.clone()
-    out["K9a"] = dict(B=B, n=n, m=m, k=k, rel_err=rel, max_abs_err=ab,
-                      deterministic=_same_bits(zs(sk), zs(s2)),
-                      ms=cuda_time_ms(lambda: MC.mc_zstep(c, s3)),
-                      plain_ms=cuda_time_ms(lambda: MC.mc_zstep_plain(c, st)),
-                      library_ms=None)
+    fns = {"kernel": lambda: MC.mc_zstep(c, s3)}
+    out["K9a"] = row = dict(B=B, n=n, m=m, k=k, plan=plan,
+                            plan_matches_kernel=plan["k9a_grid"] == lib.omc_k9a_grid_x(B, n, m),
+                            rel_err=rel, max_abs_err=ab,
+                            deterministic=_same_bits(zs(sk), zs(s2)),
+                            ms=cuda_time_ms(fns["kernel"]),
+                            plain_ms=cuda_time_ms(lambda: MC.mc_zstep_plain(c, st)),
+                            library_ms=None)
+    if PARENT:
+        fns["parent"] = _parent_k9a(c, st.clone())
+        row["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(row, fns)
     # per slot: the X, Theta, Y blocks of w1/u1, the Y and U blocks of
     # w2/u2, w3/u3, the trace, SOC, box, envelope and orthogonality slots,
     # the boxes, Mc, Si, Gc; out X, Y, Theta, U, t; mask and mask*A once
     rd = (2 * (n * m + m * m + n * n) + 2 * (n * n + n * k) + 2 * n * n + 2 + 2 * k * n
           + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + n * (kq * kq + kq * q) + q * q + 3)
     wr = n * m + n * n + m * m + n * k + n * q
-    with_bound(out["K9a"], 4 * (B * (rd + wr) + 2 * n * m),
+    with_bound(row, 4 * (B * (rd + wr) + 2 * n * m),
                B * (10 * (n * m + m * m + n * n) + n * (40 * q + 4 * kq * kq + 2 * kq * q)))
 
     # ---- K9b at K9a's outputs, with the running means ----
@@ -1716,20 +1769,70 @@ def _check_mc_kernels(B, n, m, k, gen, dev):
     s4 = sk.clone()
     a4 = [a.clone() for a in acc]
     ts4 = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
-    out["K9b"] = dict(B=B, n=n, m=m, k=k, rel_err=rel, max_abs_err=ab,
-                      deterministic=_same_bits(got, got2),
-                      ms=cuda_time_ms(lambda: MC.mc_cone_step(c, s4, ts4, a4, beta)),
-                      plain_ms=cuda_time_ms(lambda: MC.mc_cone_step_plain(c, sk, acc, beta)),
-                      library_ms=None)
+    fns = {"kernel": lambda: MC.mc_cone_step(c, s4, ts4, a4, beta)}
+    out["K9b"] = row = dict(B=B, n=n, m=m, k=k, plan=plan,
+                            plan_matches_kernel=plan["k9b_grid"] == lib.omc_k9b_grid_x(
+                                B, n, m, k, plan["qpc"]),
+                            rel_err=rel, max_abs_err=ab,
+                            deterministic=_same_bits(got, got2),
+                            ms=cuda_time_ms(fns["kernel"]),
+                            plain_ms=cuda_time_ms(
+                                lambda: MC.mc_cone_step_plain(c, sk, acc, beta)),
+                            library_ms=None)
+    if PARENT:
+        fns["parent"] = _parent_k9b(c, sk.clone(), tuple(torch.empty_like(x) for x in ts4),
+                                    [a.clone() for a in acc], beta)
+        row["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(row, fns)
     # per slot: X, Y, Theta, U, t and the w/u of every slot in, the boxes and
     # both running means (read and written); t1-t3 and the non-PSD slots out
     rd = (n * m + n * n + m * m + n * k + n * q + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
           + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + 4 * n * q + q + 3)
     wr = (d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q
           + 4 * n * q + q)
-    with_bound(out["K9b"], 4 * B * (rd + wr),
+    with_bound(row, 4 * B * (rd + wr),
                B * (5 * (d1 * d1 + d2 * d2 + n * n) + 20 * n * q + 10 * n * k))
     return out
+
+
+def _check_k9s(c, B, n, k, dev):
+    """K9s against its plain version, with CUDA-event and device times (with
+    ``--parent``, the parent's kernel on the same inputs beside), its bound,
+    a determinism check and Mc Mc' against the row Grams."""
+    import torch
+
+    from omc_torch.sdp import mccormick as MC
+
+    q = k * (k + 1) // 2
+    kq = k + q
+    got = MC.mc_setup(c.batch, k)
+    got2 = MC.mc_setup(c.batch, k)
+    torch.cuda.synchronize()
+    ref = MC.mc_setup_plain(c.batch, k)
+    gram = MC.mc_gram_plain(c.batch, k)
+    rel, ab = _errs(got, ref)
+    Et = torch.zeros((kq, q), dtype=torch.float32, device=dev)
+    Et[k:] = torch.eye(q, dtype=torch.float32, device=dev)
+    Etb = Et.expand(B, n, kq, q).contiguous()
+    fns = {"kernel": lambda: MC.mc_setup(c.batch, k)}
+    row = dict(B=B, n=n, k=k, rel_err=rel, max_abs_err=ab,
+               gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
+               deterministic=_same_bits(got, got2),
+               ms=cuda_time_ms(fns["kernel"]),
+               plain_ms=cuda_time_ms(lambda: MC.mc_setup_plain(c.batch, k)),
+               # the library chain on the same Grams: cuSOLVER's batched
+               # Cholesky, then the triangular solves for S_i
+               library_ms=cuda_time_ms(
+                   lambda: torch.cholesky_solve(Etb, torch.linalg.cholesky(gram))))
+    if PARENT:
+        fns["parent"] = _parent_k9s(c.batch, k)
+        row["parent_ms"] = cuda_time_ms(fns["parent"])
+    _device_rows(row, fns)
+    # boxes in; Mc, Si, Gc out.  Per row: the Gram (4q rank-1 updates of
+    # (k+q)^2), its Cholesky, q solves; per slot G's sum and Cholesky
+    return with_bound(row, 4 * (B * n * (2 * k + kq * kq + kq * q) + B * q * q),
+                      B * n * (8 * q * kq * kq + kq ** 3 // 3 + 2 * q * kq * kq)
+                      + B * (n * q * q + q ** 3))
 
 
 def _eig_batch(B, d, gen, dev):
@@ -2782,8 +2885,9 @@ def phase_trace(res):
     iteration, of the rank-k Shor loop at config 3's (B=32, n=m=75, k=2,
     M5=1024, L=8), with K7t's, K7x's and K8d's, 20 iterations each, of the
     McCormick loop at the headline's shape (n=m=50, k=1; B=1 and B=64), 50
-    iterations each, and of one base-path root visit at B=64 with its two
-    safe-bound calls (K4) and its separation (K5)."""
+    iterations each, with K9a's and K9b's device ms per iteration, and of
+    one base-path root visit at B=64 with its two safe-bound calls (K4) and
+    its separation (K5)."""
     import torch
 
     from omc_torch.sdp import admm_shor as S
@@ -2833,6 +2937,8 @@ def phase_trace(res):
         ts = (torch.empty_like(st.w1), torch.empty_like(st.w2), torch.empty_like(st.w3))
         row = _trace_loop(lambda: MC.mc_iteration(c, st, ts, acc, 0.25, "ns"), names, 50,
                           B=B, n=50, m=50, k=1)
+        for name in ("K9a", "K9b"):
+            row[f"{name.lower()}_ms_per_iter"] = row["kernel_ms_per_iter"].get(name, 0.0)
         log("trace mccormick", json.dumps(row))
         res[f"trace_mccormick_B{B}"] = row
     # the headline's root visit runs at B=1: the K1 chain's latency and the
@@ -2985,7 +3091,7 @@ def main(argv=None):
                     help="comma-separated subset of: " + ", ".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7, K8a, K8b, "
-                    "K7t, K7x and K8d are timed beside the kernels phase's rows")
+                    "K7t, K7x, K8d, K9s, K9a and K9b are timed beside the kernels phase's rows")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:

@@ -636,7 +636,8 @@ struct K9sParams {
   int B, n, k;
 };
 
-// K9a: McCormick adjoint + z-step -> Xs, Y, Ths, U, t
+// K9a: McCormick adjoint + z-step -> Xs, Y, Ths, U, t; B slot CTAs, then
+// the X chunks and the Theta and Y tile pairs of every slot (omc_k9a_grid_x)
 struct K9aParams {
   const float *w1, *u1, *w2, *u2, *w3, *u3, *w4, *u4, *wsoc, *usoc, *wbox, *ubox,
       *wmc, *umc, *worth, *uorth;
@@ -650,15 +651,17 @@ struct K9aParams {
 };
 
 // K9b: McCormick forward map + cone step of every slot but the PSD blocks,
-// with the running means of rho*umc and rho*uorth (acc null: none)
+// with the running means of rho*umc and rho*uorth (acc null: none); B slot
+// CTAs, then CTAs of qpc quads of the batch's t1, t2, t3 (omc_k9b_grid_x).
 struct K9bParams {
   const float *Xs, *Y, *Ths, *U, *t;
-  const float *w1, *u1, *w2, *u2, *w3, *u3;
-  float *t1, *t2, *t3;
+  const float *w1, *u1, *w2, *u2, *w3, *u3;  // 16-byte aligned
+  float *t1, *t2, *t3;                       // 16-byte aligned
   float *w4, *u4, *wsoc, *usoc, *wbox, *ubox, *wmc, *umc, *worth, *uorth;
   float *acc_mc, *acc_orth;
   const float *U_lo, *U_hi, *sX, *sT, *rho;
   int B, n, m, k;
+  int qpc;  // quads a flat CTA: 32, 64 or 128 (sdp.mccormick.k9_plan)
   float alpha, beta;
 };
 

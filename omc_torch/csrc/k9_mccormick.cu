@@ -29,17 +29,38 @@
 // (B, 4, n, q) coefficient tensor exists in device memory.
 //
 // What bounds them on the H100: bytes.  K9a and K9b stream the slot blocks
-// of one node slot ((n+m)^2 + (n+k)^2 + n^2 floats of w and u) once with a
+// of every node slot ((n+m)^2 + (n+k)^2 + n^2 floats of w and u) once with a
 // few flops per element; the (k+q)^2 per-row solves are O(n (k+q)^2).  K9s
 // is a few hundred flops per row on (B, n, k) inputs and is launch-bound.
-// Design: one CTA per node slot, so every cross-row sum (tr Y, sum_i z0_i[k:],
-// sum_i t[i, p], the column norms of the SOC slots, G) is a reduction inside
-// the CTA in a fixed order (warp shuffles, shared memory, sequential loops;
-// no atomics) and two launches on the same input give the same bits.  Each
-// row's (k+q) x (k+q) factor is held by one thread in registers (templated on
-// k in {1, 2, 3}, so k+q <= 9).  K9a's two reductions (the trace and the
-// Woodbury sum) are a second pass inside the CTA after a barrier, not a second
-// launch: the pre-correction Y and z0 are kept in global and shared memory.
+//
+// Design.  K9s: one CTA per node slot, each row's (k+q) x (k+q) factor held
+// by one thread in registers (templated on k in {1, 2, 3}, so k+q <= 9), G
+// summed over the rows in order.  K9a and K9b split the work the way K8b
+// and K8d do: what needs a sum over rows goes to one slot CTA a node slot,
+// first in the grid; the rest goes to flat CTAs of 128 threads that wait on
+// no sum (k9a_layout, k9b_layout; omc_torch.sdp.mccormick.k9_plan).
+//  K9a slot CTA: the per-row (U, t) solves, z0 summed over the rows, the Gc
+//      solve, tr(rho gY / 3) from the diagonals and Y's n diagonal entries
+//      (the trace correction touches only those);
+//  K9a flat CTAs (units a slot): X in chunks of 512 entries, then Theta's
+//      and Y's off-diagonal entries as pairs of 16 x 16 tiles: tiles (I, J)
+//      and (J, I) staged coalesced in shared memory (rows of 17 floats, so
+//      the transposed read is free of bank conflicts), both symmetrised
+//      tiles written coalesced; no thread reads w1 across rows.  Small
+//      tiles keep each thread's loads few (a Y entry takes six), so a flat
+//      CTA's chain is about a slot CTA's.
+//  K9b slot CTA: tr Y, the k SOC column norms and sum_i t[i, p], then the
+//      trace, SOC, box, envelope and orthogonality slots with the running
+//      means;
+//  K9b flat CTAs: t1, t2, t3 in 16-byte quads of the batch's flat entries,
+//      qpc quads a CTA (the plan narrows qpc until the flat CTAs fill the
+//      card); each entry of a quad resolves its own (slot, i, j) and block.
+// Every sum is over a CTA's threads in a fixed order (each thread's rows in
+// order, warp shuffles, then the warps in order): no atomics, so two
+// launches on the same input give the same bits.  The flat entries' (i, j)
+// come from a float reciprocal (omc::divmod), with no integer divide an
+// entry; operands the kernels do not write are read through the read-only
+// path (omc::RO).
 #include "common.cuh"
 
 namespace {
@@ -108,13 +129,14 @@ __device__ __forceinline__ void cho_solve(const float (&L)[D][D], float (&x)[D])
   }
 }
 
-// the lower triangle of a row-major D x D factor from global memory
+// the lower triangle of a row-major D x D factor at g[off], a read-only
+// view of global memory
 template <int D>
-__device__ __forceinline__ void load_lower(const float* g, float (&L)[D][D]) {
+__device__ __forceinline__ void load_lower(omc::RO g, int off, float (&L)[D][D]) {
 #pragma unroll
   for (int i = 0; i < D; ++i)
 #pragma unroll
-    for (int j = 0; j < D; ++j) L[i][j] = (j <= i) ? g[i * D + j] : 0.f;
+    for (int j = 0; j < D; ++j) L[i][j] = (j <= i) ? g[off + i * D + j] : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -208,78 +230,136 @@ __global__ void __launch_bounds__(omc::kThreads) k9s_kernel(K9sParams p) {
 }
 
 // ---------------------------------------------------------------------------
+// K9a and K9b: the grid (omc_torch.sdp.mccormick.k9_plan; omc_k9a_grid_x,
+// omc_k9b_grid_x)
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads9 = 128, kWarps9 = kThreads9 / 32;
+constexpr int kTile = 16;                      // side of K9a's Theta and Y tiles
+constexpr int kTileRows = kThreads9 / kTile;   // tile rows a pass of a CTA
+constexpr int kTilePasses = kTile / kTileRows; // passes over a tile
+constexpr int kXItems = 4;                     // X entries a thread of an X CTA
+constexpr int kXChunk = kThreads9 * kXItems;   // X entries an X CTA
+
+// K9a: B slot CTAs, then `units` CTAs a slot (slot x / units): X chunks of
+// kXChunk entries, the Theta tile pairs, the Y tile pairs
+struct K9aLayout {
+  int x, th, y, units, grid_x;
+};
+
+__host__ __device__ __forceinline__ K9aLayout k9a_layout(int B, int n, int m) {
+  K9aLayout l;
+  const int tn = omc::cdiv(n, kTile), tm = omc::cdiv(m, kTile);
+  l.x = omc::cdiv(n * m, kXChunk);
+  l.th = tm * (tm + 1) / 2;
+  l.y = tn * (tn + 1) / 2;
+  l.units = l.x + l.th + l.y;
+  l.grid_x = B + B * l.units;
+  return l;
+}
+
+// K9b: B slot CTAs, then CTAs of qpc quads of 4 consecutive entries of the
+// batch's flat t1, t2, t3
+struct K9bLayout {
+  int t1, t2, t3, grid_x;
+};
+
+__host__ __device__ __forceinline__ K9bLayout k9b_layout(int B, int n, int m, int k, int qpc) {
+  K9bLayout l;
+  const int d1 = n + m, d2 = n + k;
+  l.t1 = omc::cdiv(omc::cdiv(B * d1 * d1, 4), qpc);
+  l.t2 = omc::cdiv(omc::cdiv(B * d2 * d2, 4), qpc);
+  l.t3 = omc::cdiv(omc::cdiv(B * n * n, 4), qpc);
+  l.grid_x = B + l.t1 + l.t2 + l.t3;
+  return l;
+}
+
+// tile pair p of a T x T grid of tiles -> (I, J), I <= J, row by row
+__device__ __forceinline__ void tile_pair(int p, int T, int& I, int& J) {
+  I = 0;
+  while (p >= T - I) p -= T - I, ++I;
+  J = I + p;
+}
+
+// ---------------------------------------------------------------------------
 // K9a
 // ---------------------------------------------------------------------------
 
+// The slot CTA of slot b: per row the (U, t) right-hand side and its Mc
+// solve (a thread a row, every load of the row issued before its first
+// FMA), z0 kept in shared memory; Y's diagonal before the trace correction;
+// sum_i z0_i[k:] and tr(rho gY / 3) as each thread's rows in order, warp
+// shuffles, then the warps in order; the Gc solve; then U, t = (z0 - S_i
+// tcorr) / rho and Y's n diagonal entries, the only ones the trace
+// correction touches.
 template <int K>
-__global__ void __launch_bounds__(omc::kThreads) k9a_kernel(K9aParams p) {
+__device__ __forceinline__ void k9a_slot(const K9aParams& p, int b, float* smem) {
   constexpr int Q = K * (K + 1) / 2, KQ = K + Q;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int n = p.n, m = p.m;
-  const int D1 = n + m, D2 = n + K;
-  float* red = smem;         // 32
-  float* z0s = red + 32;     // n * KQ   z0 per row
-  float* tc = z0s + n * KQ;  // Q        sum_i z0_i[k:], then tcorr
+  __shared__ float red[kWarps9][Q + 1];
+  __shared__ float tot[Q + 1];  // tcorr, then tr(rho gY / 3)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = p.n, m = p.m, D1 = n + m, D2 = n + K;
+  float* z0s = smem;          // n * KQ
+  float* ydg = z0s + n * KQ;  // n     rho gY_ii / 3
+  const float rho = __ldg(p.rho + b);
+  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const omc::RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  const omc::RO wsoc{p.wsoc + (size_t)b * K * (1 + n)}, usoc{p.usoc + (size_t)b * K * (1 + n)};
+  const omc::RO wbox{p.wbox + (size_t)b * n * K}, ubox{p.ubox + (size_t)b * n * K};
+  const omc::RO wmc{p.wmc + (size_t)b * 4 * n * Q}, umc{p.umc + (size_t)b * 4 * n * Q};
+  const omc::RO lo{p.U_lo + (size_t)b * n * K}, hi{p.U_hi + (size_t)b * n * K};
+  const omc::RO Mc{p.Mc + (size_t)b * n * KQ * KQ}, Si{p.Si + (size_t)b * n * KQ * Q};
+  float* __restrict__ U = p.U + (size_t)b * n * K;
+  float* __restrict__ t = p.t + (size_t)b * n * Q;
+  float* __restrict__ Y = p.Y + (size_t)b * n * n;
+  const float y4 = __ldg(p.w4 + b) - __ldg(p.u4 + b) - (float)K;
+  float yo[Q];  // the orthogonality rows' residual, the same for every row
+#pragma unroll
+  for (int pp = 0; pp < Q; ++pp) {
+    int j1 = 0, j2 = 0;
+    pair_of<K>(pp, j1, j2);
+    yo[pp] = __ldg(p.worth + b * Q + pp) - __ldg(p.uorth + b * Q + pp) + (j1 == j2 ? 1.0f : 0.f);
+  }
 
-  const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b];
-  const float* w1 = p.w1 + (size_t)b * D1 * D1;
-  const float* u1 = p.u1 + (size_t)b * D1 * D1;
-  const float* w2 = p.w2 + (size_t)b * D2 * D2;
-  const float* u2 = p.u2 + (size_t)b * D2 * D2;
-  const float* w3 = p.w3 + (size_t)b * n * n;
-  const float* u3 = p.u3 + (size_t)b * n * n;
-  const float* wsoc = p.wsoc + (size_t)b * K * (1 + n);
-  const float* usoc = p.usoc + (size_t)b * K * (1 + n);
-  const float* wbox = p.wbox + (size_t)b * n * K;
-  const float* ubox = p.ubox + (size_t)b * n * K;
-  const float* wmc = p.wmc + (size_t)b * 4 * n * Q;
-  const float* umc = p.umc + (size_t)b * 4 * n * Q;
-  const float* lo = p.U_lo + (size_t)b * n * K;
-  const float* hi = p.U_hi + (size_t)b * n * K;
-  float* Xs = p.Xs + (size_t)b * n * m;
-  float* Y = p.Y + (size_t)b * n * n;
-  float* Ths = p.Ths + (size_t)b * m * m;
-  float* U = p.U + (size_t)b * n * K;
-  float* t = p.t + (size_t)b * n * Q;
-  const float y4 = p.w4[b] - p.u4[b] - (float)K;
+  // the S_i of the thread's first row and (thread 0) Gc, in flight across
+  // the rows' solves and the sums
+  float si[KQ * Q], G[Q][Q];
+  if (tid < n) {
+#pragma unroll
+    for (int c = 0; c < KQ * Q; ++c) si[c] = Si[tid * KQ * Q + c];
+  }
+  if (tid == 0) load_lower<Q>(omc::RO{p.Gc + (size_t)b * Q * Q}, 0, G);
 
-  // X block: zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho sX^2)
-  for (int e = tid; e < n * m; e += blockDim.x) {
-    const int i = e / m, j = e % m;
-    const int q = i * D1 + n + j;
-    const float gX = sX * 2.0f * (w1[q] - u1[q]);
-    const float rX = rho * gX + sX * p.maskA[e];
-    const float dX = p.mask[e] * (sX * sX) + rho * 2.0f * sX * sX;
-    Xs[e] = rX / dX;
-  }
-  // Theta block, symmetrised directly
-  const float cth = sT * 0.5f / p.gamma;
-  for (int e = tid; e < m * m; e += blockDim.x) {
-    const int i = e / m, j = e % m;
-    const int q1 = (n + i) * D1 + n + j, q2 = (n + j) * D1 + n + i;
-    const float dg = (i == j) ? cth : 0.f;
-    const float za = (rho * (sT * (w1[q1] - u1[q1])) - dg) / (rho * sT * sT);
-    const float zb = (rho * (sT * (w1[q2] - u1[q2])) - dg) / (rho * sT * sT);
-    Ths[e] = 0.5f * (za + zb);
-  }
-  // Y before the trace correction: rho gY / 3
-  for (int e = tid; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    const int q1 = i * D1 + j, q2 = i * D2 + j;
-    float gY = (w1[q1] - u1[q1]) + (w2[q2] - u2[q2]) -
-               (w3[e] - u3[e] - (i == j ? 1.0f : 0.f));
-    if (i == j) gY -= y4;
-    Y[e] = (rho * gY) / 3.0f;
-  }
-  // (U, t) per row: r = rho (gU, gt), z0 = M_i^-1 r
-  for (int i = tid; i < n; i += blockDim.x) {
-    float r[KQ];
-    float g1[K], g2[K];
+  float part[Q + 1];
+#pragma unroll
+  for (int a = 0; a <= Q; ++a) part[a] = 0.f;
+  for (int i = tid; i < n; i += kThreads9) {
+    float a2[K], as[K], ab[K], l[K], h[K], ym[4][Q], L[KQ][KQ];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int q2 = i * D2 + n + j, qs = j * (1 + n) + 1 + i;
-      r[j] = 2.0f * (w2[q2] - u2[q2]) + (wsoc[qs] - usoc[qs]) + (wbox[i * K + j] - ubox[i * K + j]);
+      a2[j] = w2[q2] - u2[q2];
+      as[j] = wsoc[qs] - usoc[qs];
+      ab[j] = wbox[i * K + j] - ubox[i * K + j];
+      l[j] = lo[i * K + j];
+      h[j] = hi[i * K + j];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int pp = 0; pp < Q; ++pp) {
+        const int q = (rr * n + i) * Q + pp;
+        ym[rr][pp] = wmc[q] - umc[q];
+      }
+    load_lower<KQ>(Mc, i * KQ * KQ, L);
+    const float d1 = w1[i * D1 + i] - u1[i * D1 + i], d2 = w2[i * D2 + i] - u2[i * D2 + i];
+    const float d3 = w3[i * n + i] - u3[i * n + i];
+
+    float r[KQ], g1[K], g2[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      r[j] = 2.0f * a2[j] + as[j] + ab[j];
       g1[j] = 0.f;
       g2[j] = 0.f;
     }
@@ -288,190 +368,363 @@ __global__ void __launch_bounds__(omc::kThreads) k9a_kernel(K9aParams p) {
     for (int j1 = 0; j1 < K; ++j1)
 #pragma unroll
       for (int j2 = j1; j2 < K; ++j2, ++pp) {
-        const float lo1 = lo[i * K + j1], lo2 = lo[i * K + j2];
-        const float hi1 = hi[i * K + j1], hi2 = hi[i * K + j2];
         float mc1 = 0.f, mc2 = 0.f, gt = 0.f;
 #pragma unroll
         for (int rr = 0; rr < 4; ++rr) {
           float s, c1, c2, d;
-          envelope(rr, lo1, lo2, hi1, hi2, s, c1, c2, d);
-          const size_t q = ((size_t)rr * n + i) * Q + pp;
-          const float y = wmc[q] - umc[q] - d;
+          envelope(rr, l[j1], l[j2], h[j1], h[j2], s, c1, c2, d);
+          const float y = ym[rr][pp] - d;
           mc1 += y * c1;
           mc2 += y * c2;
           gt += y * s;
         }
         g1[j1] += mc1;
         g2[j2] += mc2;
-        const size_t qo = (size_t)b * Q + pp;
-        const float delta = (j1 == j2) ? 1.0f : 0.f;
-        r[K + pp] = rho * (gt + (p.worth[qo] - p.uorth[qo] + delta));
+        r[K + pp] = rho * (gt + yo[pp]);
       }
 #pragma unroll
     for (int j = 0; j < K; ++j) r[j] = rho * ((r[j] + g1[j]) + g2[j]);
-    float L[KQ][KQ];
-    load_lower<KQ>(p.Mc + ((size_t)b * n + i) * KQ * KQ, L);
     cho_solve<KQ>(L, r);
 #pragma unroll
     for (int c = 0; c < KQ; ++c) z0s[i * KQ + c] = r[c];
+#pragma unroll
+    for (int a = 0; a < Q; ++a) part[a] += r[K + a];
+    // Y_ii before the trace correction: rho gY_ii / 3
+    const float yp = (rho * ((d1 + d2 - (d3 - 1.0f)) - y4)) / 3.0f;
+    ydg[i] = yp;
+    part[Q] += yp;
   }
-  __syncthreads();
-
-  // second pass: tr(rY / 3) and sum_i z0_i[k:] (rows in order), tcorr
-  float tr = 0.f;
-  for (int i = tid; i < n; i += blockDim.x) tr += Y[i * n + i];
-  tr = omc::block_sum(tr, red);
-  if (tid < Q) {
-    float s = 0.f;
-    for (int i = 0; i < n; ++i) s += z0s[i * KQ + K + tid];
-    tc[tid] = s;
+#pragma unroll
+  for (int a = 0; a <= Q; ++a) {
+    const float v = omc::warp_sum(part[a]);
+    if (lane == 0) red[warp][a] = v;
   }
   __syncthreads();
   if (tid == 0) {
-    float L[Q][Q], x[Q];
-    load_lower<Q>(p.Gc + (size_t)b * Q * Q, L);
+    float x[Q + 1];
 #pragma unroll
-    for (int a = 0; a < Q; ++a) x[a] = tc[a];
-    cho_solve<Q>(L, x);
+    for (int a = 0; a <= Q; ++a) {
+      float s = 0.f;
 #pragma unroll
-    for (int a = 0; a < Q; ++a) tc[a] = x[a];
+      for (int w = 0; w < kWarps9; ++w) s += red[w][a];
+      x[a] = s;
+    }
+    float z[Q];
+#pragma unroll
+    for (int a = 0; a < Q; ++a) z[a] = x[a];
+    cho_solve<Q>(G, z);
+#pragma unroll
+    for (int a = 0; a < Q; ++a) tot[a] = z[a];
+    tot[Q] = x[Q];
   }
   __syncthreads();
 
-  // Y = sym((zY - tr / (3 + n) I) / rho)
-  const float ctr = tr / (3.0f + (float)n);
-  for (int e = tid; e < n * n; e += blockDim.x) {
-    const int i = e / n, j = e % n;
-    if (i > j) continue;
-    const float dg = (i == j) ? ctr : 0.f;
-    const float a = (Y[i * n + j] - dg) / rho;
-    const float c = (Y[j * n + i] - dg) / rho;
-    const float ys = 0.5f * (a + c);
-    Y[i * n + j] = ys;
-    Y[j * n + i] = ys;
-  }
-  // z = z0 - S_i tcorr;  U, t = z / rho
-  for (int i = tid; i < n; i += blockDim.x) {
-    const float* Si = p.Si + ((size_t)b * n + i) * KQ * Q;
+  float tc[Q];
+#pragma unroll
+  for (int a = 0; a < Q; ++a) tc[a] = tot[a];
+  const float ctr = tot[Q] / (3.0f + (float)n);
+  for (int i = tid; i < n; i += kThreads9) {
+    if (i != tid) {
+#pragma unroll
+      for (int c = 0; c < KQ * Q; ++c) si[c] = Si[i * KQ * Q + c];
+    }
 #pragma unroll
     for (int c = 0; c < KQ; ++c) {
       float s = 0.f;
 #pragma unroll
-      for (int a = 0; a < Q; ++a) s += Si[c * Q + a] * tc[a];
+      for (int a = 0; a < Q; ++a) s += si[c * Q + a] * tc[a];
       const float z = (z0s[i * KQ + c] - s) / rho;
       if (c < K) U[i * K + c] = z;
       else t[i * Q + (c - K)] = z;
     }
+    const float a = (ydg[i] - ctr) / rho;
+    Y[i * n + i] = 0.5f * (a + a);
   }
+}
+
+// X chunk `chunk` of slot b: zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho
+// sX^2), kXItems entries a thread, every load before the first store
+__device__ __forceinline__ void k9a_x(const K9aParams& p, int b, int chunk) {
+  const int n = p.n, m = p.m, D1 = n + m, nm = n * m;
+  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::RO maskA{p.maskA}, mask{p.mask};
+  float* __restrict__ Xs = p.Xs + (size_t)b * nm;
+  const float rho = __ldg(p.rho + b), sX = __ldg(p.sX + b);
+  const float inv = 1.0f / (float)m;
+  const int e0 = chunk * kXChunk + threadIdx.x;
+  float d[kXItems], ma[kXItems], mk[kXItems];
+#pragma unroll
+  for (int u = 0; u < kXItems; ++u) {
+    const int e = e0 + u * kThreads9;
+    if (e < nm) {
+      int i, j;
+      omc::divmod(e, m, inv, i, j);
+      const int q = i * D1 + n + j;
+      d[u] = w1[q] - u1[q];
+      ma[u] = maskA[e];
+      mk[u] = mask[e];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kXItems; ++u) {
+    const int e = e0 + u * kThreads9;
+    if (e < nm) {
+      const float gX = sX * 2.0f * d[u];
+      const float rX = rho * gX + sX * ma[u];
+      const float dX = mk[u] * (sX * sX) + rho * 2.0f * sX * sX;
+      Xs[e] = rX / dX;
+    }
+  }
+}
+
+// A tile pair of an N x N block whose entry (i, j) stages as v(i, j): tile
+// (I, J) into sA and, for I < J, tile (J, I) into sB; thread x on column x %
+// kTile of rows x / kTile, x / kTile + kTileRows, ... (a half-warp on a
+// row's consecutive columns: coalesced); rows stride kTile + 1, so the
+// transposed reads below fall in distinct banks
+template <class V>
+__device__ __forceinline__ void stage_pair(int N, int I, int J, V v, float (*sA)[kTile + 1],
+                                           float (*sB)[kTile + 1]) {
+  const int col = threadIdx.x % kTile, row = threadIdx.x / kTile;
+  float a[kTilePasses], c[kTilePasses];
+#pragma unroll
+  for (int u = 0; u < kTilePasses; ++u) {
+    const int r = row + kTileRows * u;
+    a[u] = c[u] = 0.f;
+    const int ia = I * kTile + r, ja = J * kTile + col, ib = J * kTile + r, jb = I * kTile + col;
+    if (ia < N && ja < N) a[u] = v(ia, ja);
+    if (I != J && ib < N && jb < N) c[u] = v(ib, jb);
+  }
+#pragma unroll
+  for (int u = 0; u < kTilePasses; ++u) {
+    const int r = row + kTileRows * u;
+    sA[r][col] = a[u];
+    if (I != J) sB[r][col] = c[u];
+  }
+  __syncthreads();
+}
+
+// Both tiles of the pair from the staged values: out(i, j) = sym(x_ij,
+// x_ji) with x_ji read transposed from the other tile (or the same tile on
+// the diagonal); sym is symmetric in its arguments, so tile (J, I) gets the
+// same bits as the transpose of tile (I, J)
+template <class S>
+__device__ __forceinline__ void store_pair(int N, int I, int J, S sym, float* __restrict__ out,
+                                           const float (*sA)[kTile + 1],
+                                           const float (*sB)[kTile + 1]) {
+  const int col = threadIdx.x % kTile, row = threadIdx.x / kTile;
+  const float(*tB)[kTile + 1] = (I == J) ? sA : sB;
+#pragma unroll
+  for (int u = 0; u < kTilePasses; ++u) {
+    const int r = row + kTileRows * u, i = I * kTile + r, j = J * kTile + col;
+    if (i < N && j < N) sym(i, j, sA[r][col], tB[col][r], out);
+  }
+  if (I == J) return;
+#pragma unroll
+  for (int u = 0; u < kTilePasses; ++u) {
+    const int r = row + kTileRows * u, i = J * kTile + r, j = I * kTile + col;
+    if (i < N && j < N) sym(i, j, sB[r][col], sA[col][r], out);
+  }
+}
+
+// Theta tile pair `pair` of slot b: Theta = sym((rho sT d - dg) / (rho sT^2)),
+// d = w1 - u1 of the Theta block, dg = sT / (2 gamma) on the diagonal
+__device__ __forceinline__ void k9a_theta(const K9aParams& p, int b, int pair,
+                                          float (*sA)[kTile + 1], float (*sB)[kTile + 1]) {
+  const int n = p.n, m = p.m, D1 = n + m;
+  int I, J;
+  tile_pair(pair, omc::cdiv(m, kTile), I, J);
+  const omc::RO w1{p.w1 + (size_t)b * D1 * D1 + (size_t)n * D1 + n};
+  const omc::RO u1{p.u1 + (size_t)b * D1 * D1 + (size_t)n * D1 + n};
+  stage_pair(m, I, J, [&](int i, int j) { return w1[i * D1 + j] - u1[i * D1 + j]; }, sA, sB);
+  const float rho = __ldg(p.rho + b), sT = __ldg(p.sT + b);
+  const float cth = sT * 0.5f / p.gamma, den = rho * sT * sT;
+  store_pair(m, I, J, [&](int i, int j, float x, float y, float* __restrict__ out) {
+    const float dg = (i == j) ? cth : 0.f;
+    const float za = (rho * (sT * x) - dg) / den;
+    const float zb = (rho * (sT * y) - dg) / den;
+    out[i * m + j] = 0.5f * (za + zb);
+  }, p.Ths + (size_t)b * m * m, sA, sB);
+}
+
+// Y tile pair `pair` of slot b, off the diagonal (the slot CTA writes the
+// diagonal): Y = sym((rho gY / 3) / rho), gY = (w1 - u1) + (w2 - u2) -
+// (w3 - u3) of the Y blocks
+template <int K>
+__device__ __forceinline__ void k9a_y(const K9aParams& p, int b, int pair, float (*sA)[kTile + 1],
+                                      float (*sB)[kTile + 1]) {
+  const int n = p.n, m = p.m, D1 = n + m, D2 = n + K;
+  int I, J;
+  tile_pair(pair, omc::cdiv(n, kTile), I, J);
+  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const omc::RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  stage_pair(n, I, J, [&](int i, int j) {
+    return (w1[i * D1 + j] - u1[i * D1 + j]) + (w2[i * D2 + j] - u2[i * D2 + j]) -
+           (w3[i * n + j] - u3[i * n + j] - 0.f);
+  }, sA, sB);
+  const float rho = __ldg(p.rho + b);
+  store_pair(n, I, J, [&](int i, int j, float x, float y, float* __restrict__ out) {
+    if (i == j) return;
+    const float a = ((rho * x) / 3.0f - 0.f) / rho;
+    const float c = ((rho * y) / 3.0f - 0.f) / rho;
+    out[i * n + j] = 0.5f * (a + c);
+  }, p.Y + (size_t)b * n * n, sA, sB);
+}
+
+// (k9a_layout; omc_torch.sdp.mccormick.k9_plan)
+template <int K>
+__global__ void __launch_bounds__(kThreads9) k9a_kernel(K9aParams p) {
+  extern __shared__ float smem[];
+  __shared__ float sA[kTile][kTile + 1], sB[kTile][kTile + 1];
+  const K9aLayout l = k9a_layout(p.B, p.n, p.m);
+  int x = blockIdx.x;
+  if (x < p.B) {
+    k9a_slot<K>(p, x, smem);
+    return;
+  }
+  x -= p.B;
+  const int b = x / l.units;
+  int u = x - b * l.units;
+  if (u < l.x) {
+    k9a_x(p, b, u);
+    return;
+  }
+  u -= l.x;
+  if (u < l.th) {
+    k9a_theta(p, b, u, sA, sB);
+    return;
+  }
+  k9a_y<K>(p, b, u - l.th, sA, sB);
 }
 
 // ---------------------------------------------------------------------------
 // K9b
 // ---------------------------------------------------------------------------
 
+// The slot CTA of slot b: per row (a thread a row, the row's loads first)
+// the box slot and the envelope rows with their running mean, the SOC
+// slots' t kept in shared memory, and each thread's parts of tr Y, the k
+// SOC column norms and sum_i t[i, p] in row order; the sums by warp
+// shuffles, then the warps in order; then the trace, SOC and orthogonality
+// slots.
 template <int K>
-__global__ void __launch_bounds__(omc::kThreads) k9b_kernel(K9bParams p) {
-  constexpr int Q = K * (K + 1) / 2;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int n = p.n, m = p.m;
-  const int D1 = n + m, D2 = n + K;
+__device__ __forceinline__ void k9b_slot(const K9bParams& p, int b, float* smem) {
+  constexpr int Q = K * (K + 1) / 2, NS = 1 + K + Q;  // tr Y, |tsoc_j[1:]|^2, sum_i t
+  __shared__ float red[kWarps9][NS];
+  __shared__ float tot[NS];
+  __shared__ float head[K];  // tsoc_j[0]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = p.n;
   const float alpha = p.alpha, om = 1.0f - p.alpha;
-  float* red = smem;      // 32
-  float* nx = red + 32;   // K   ||tsoc_j[1:]||
-  float* ts0 = nx + K;    // K   tsoc_j[0]
-  float* tsum = ts0 + K;  // Q   sum_i t[i, p]
+  const float rho = __ldg(p.rho + b);
+  const omc::RO Y{p.Y + (size_t)b * n * n}, U{p.U + (size_t)b * n * K}, t{p.t + (size_t)b * n * Q};
+  const omc::RO lo{p.U_lo + (size_t)b * n * K}, hi{p.U_hi + (size_t)b * n * K};
+  float* __restrict__ wsoc = p.wsoc + (size_t)b * K * (1 + n);
+  float* __restrict__ usoc = p.usoc + (size_t)b * K * (1 + n);
+  float* __restrict__ wbox = p.wbox + (size_t)b * n * K;
+  float* __restrict__ ubox = p.ubox + (size_t)b * n * K;
+  float* __restrict__ wmc = p.wmc + (size_t)b * 4 * n * Q;
+  float* __restrict__ umc = p.umc + (size_t)b * 4 * n * Q;
+  float* __restrict__ acc = p.acc_mc ? p.acc_mc + (size_t)b * 4 * n * Q : nullptr;
+  float* sv = smem;  // K * (1 + n): tsoc
 
-  const float sX = p.sX[b], sT = p.sT[b], rho = p.rho[b];
-  const float* Xs = p.Xs + (size_t)b * n * m;
-  const float* Y = p.Y + (size_t)b * n * n;
-  const float* Ths = p.Ths + (size_t)b * m * m;
-  const float* U = p.U + (size_t)b * n * K;
-  const float* t = p.t + (size_t)b * n * Q;
-  const float* lo = p.U_lo + (size_t)b * n * K;
-  const float* hi = p.U_hi + (size_t)b * n * K;
-  float* wsoc = p.wsoc + (size_t)b * K * (1 + n);
-  float* usoc = p.usoc + (size_t)b * K * (1 + n);
-
-  // ---- reductions (read phase) ----
-  float tr = 0.f;
-  for (int i = tid; i < n; i += blockDim.x) tr += Y[i * n + i];
-  tr = omc::block_sum(tr, red);
-  for (int task = warp; task < K + Q; task += nwarps) {
-    float s = 0.f;
-    if (task < K) {
-      const int j = task;
-      for (int i = lane; i < n; i += 32) {
-        const int q = j * (1 + n) + 1 + i;
-        const float v = (alpha * U[i * K + j] + om * wsoc[q]) + usoc[q];
-        s += v * v;
-      }
-      s = omc::warp_sum(s);
-      if (lane == 0) {
-        const int q = j * (1 + n);
-        nx[j] = sqrtf(s);
-        ts0[j] = (alpha * 1.0f + om * wsoc[q]) + usoc[q];
-      }
-    } else {
-      const int pp = task - K;
-      for (int i = lane; i < n; i += 32) s += t[i * Q + pp];
-      s = omc::warp_sum(s);
-      if (lane == 0) tsum[pp] = s;
+  if (tid < K) head[tid] = (alpha * 1.0f + om * wsoc[tid * (1 + n)]) + usoc[tid * (1 + n)];
+  // the trace and orthogonality slots' w and u, in flight across the sums
+  const size_t qo = (size_t)b * Q + min(tid, Q - 1);
+  const float w4 = p.w4[b], u4 = p.u4[b], wo = p.worth[qo], uo = p.uorth[qo];
+  const float ao = p.acc_orth ? p.acc_orth[qo] : 0.f;
+  float part[NS];
+#pragma unroll
+  for (int a = 0; a < NS; ++a) part[a] = 0.f;
+  for (int i = tid; i < n; i += kThreads9) {
+    float Ui[K], ti[Q], ws[K], us[K], wb[K], ub[K], l[K], h[K], wm[4][Q], um[4][Q], am[4][Q];
+    const float yii = Y[i * n + i];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      Ui[j] = U[i * K + j];
+      ws[j] = wsoc[j * (1 + n) + 1 + i];
+      us[j] = usoc[j * (1 + n) + 1 + i];
+      wb[j] = wbox[i * K + j];
+      ub[j] = ubox[i * K + j];
+      l[j] = lo[i * K + j];
+      h[j] = hi[i * K + j];
     }
+#pragma unroll
+    for (int pp = 0; pp < Q; ++pp) ti[pp] = t[i * Q + pp];
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int pp = 0; pp < Q; ++pp) {
+        const int q = (rr * n + i) * Q + pp;
+        wm[rr][pp] = wmc[q];
+        um[rr][pp] = umc[q];
+        am[rr][pp] = acc ? acc[q] : 0.f;
+      }
+
+    part[0] += yii;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float v = (alpha * Ui[j] + om * ws[j]) + us[j];
+      sv[j * (1 + n) + 1 + i] = v;
+      part[1 + j] += v * v;
+    }
+#pragma unroll
+    for (int pp = 0; pp < Q; ++pp) part[1 + K + pp] += ti[pp];
+    // box slot
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float v = (alpha * Ui[j] + om * wb[j]) + ub[j];
+      const float w = fminf(fmaxf(v, l[j]), h[j]);
+      wbox[i * K + j] = w;
+      ubox[i * K + j] = v - w;
+    }
+    // envelope rows (>= 0) and their running mean
+    int pp = 0;
+#pragma unroll
+    for (int j1 = 0; j1 < K; ++j1)
+#pragma unroll
+      for (int j2 = j1; j2 < K; ++j2, ++pp)
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          float s, c1, c2, d;
+          envelope(rr, l[j1], l[j2], h[j1], h[j2], s, c1, c2, d);
+          const float f = ((s * ti[pp] + c1 * Ui[j1]) + c2 * Ui[j2]) + d;
+          const int q = (rr * n + i) * Q + pp;
+          const float v = (alpha * f + om * wm[rr][pp]) + um[rr][pp];
+          const float w = fmaxf(v, 0.f), u = v - w;
+          wmc[q] = w;
+          umc[q] = u;
+          if (acc) acc[q] = am[rr][pp] + p.beta * (rho * u - am[rr][pp]);
+        }
+  }
+#pragma unroll
+  for (int a = 0; a < NS; ++a) {
+    const float v = omc::warp_sum(part[a]);
+    if (lane == 0) red[warp][a] = v;
+  }
+  __syncthreads();
+  if (tid < NS) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps9; ++w) s += red[w][tid];
+    tot[tid] = s;
   }
   __syncthreads();
 
-  // ---- PSD slots: t = alpha f + (1 - alpha) w + u ----
-  {
-    const float* w1 = p.w1 + (size_t)b * D1 * D1;
-    const float* u1 = p.u1 + (size_t)b * D1 * D1;
-    float* t1 = p.t1 + (size_t)b * D1 * D1;
-    for (int e = tid; e < D1 * D1; e += blockDim.x) {
-      const int i = e / D1, j = e % D1;
-      float f;
-      if (i < n && j < n) f = Y[i * n + j];
-      else if (i < n) f = sX * Xs[i * m + (j - n)];
-      else if (j < n) f = sX * Xs[j * m + (i - n)];
-      else f = sT * Ths[(i - n) * m + (j - n)];
-      t1[e] = (alpha * f + om * w1[e]) + u1[e];
-    }
-    const float* w2 = p.w2 + (size_t)b * D2 * D2;
-    const float* u2 = p.u2 + (size_t)b * D2 * D2;
-    float* t2 = p.t2 + (size_t)b * D2 * D2;
-    for (int e = tid; e < D2 * D2; e += blockDim.x) {
-      const int i = e / D2, j = e % D2;
-      float f;
-      if (i < n && j < n) f = Y[i * n + j];
-      else if (i < n) f = U[i * K + (j - n)];
-      else if (j < n) f = U[j * K + (i - n)];
-      else f = (i == j) ? 1.0f : 0.f;
-      t2[e] = (alpha * f + om * w2[e]) + u2[e];
-    }
-    const float* w3 = p.w3 + (size_t)b * n * n;
-    const float* u3 = p.u3 + (size_t)b * n * n;
-    float* t3 = p.t3 + (size_t)b * n * n;
-    for (int e = tid; e < n * n; e += blockDim.x) {
-      const int i = e / n, j = e % n;
-      const float f = (i == j ? 1.0f : 0.f) - Y[e];
-      t3[e] = (alpha * f + om * w3[e]) + u3[e];
-    }
-  }
-
-  // ---- trace slot ----
+  // trace slot
   if (tid == 0) {
-    const float t4 = (alpha * ((float)K - tr) + om * p.w4[b]) + p.u4[b];
-    const float w4 = fmaxf(t4, 0.f);
-    p.w4[b] = w4;
-    p.u4[b] = t4 - w4;
+    const float t4 = (alpha * ((float)K - tot[0]) + om * w4) + u4;
+    const float w = fmaxf(t4, 0.f);
+    p.w4[b] = w;
+    p.u4[b] = t4 - w;
   }
-
-  // ---- SOC slots (1, U_j) ----
-  for (int e = tid; e < K * (1 + n); e += blockDim.x) {
-    const int j = e / (1 + n), q = e % (1 + n);
-    const float f = (q == 0) ? 1.0f : U[(q - 1) * K + j];
-    const float v = (alpha * f + om * wsoc[e]) + usoc[e];
-    const float tt = ts0[j], nj = nx[j];
+  // SOC slots (1, U_j)
+  for (int e = tid; e < K * (1 + n); e += kThreads9) {
+    int j = 0, q = e;
+    while (q >= 1 + n) q -= 1 + n, ++j;
+    const float tt = head[j], nj = sqrtf(tot[1 + j]);
+    const float v = (q == 0) ? tt : sv[e];
     float w;
     if (nj <= tt) w = v;
     else if (nj <= -tt) w = 0.f;
@@ -480,57 +733,125 @@ __global__ void __launch_bounds__(omc::kThreads) k9b_kernel(K9bParams p) {
     wsoc[e] = w;
     usoc[e] = v - w;
   }
-
-  // ---- box slot ----
-  for (int e = tid; e < n * K; e += blockDim.x) {
-    const size_t q = (size_t)b * n * K + e;
-    const float v = (alpha * U[e] + om * p.wbox[q]) + p.ubox[q];
-    const float w = fminf(fmaxf(v, p.U_lo[q]), p.U_hi[q]);
-    p.wbox[q] = w;
-    p.ubox[q] = v - w;
-  }
-
-  // ---- envelope rows (>= 0) and their running mean ----
-  for (int e = tid; e < 4 * n * Q; e += blockDim.x) {
-    const int rr = e / (n * Q), i = (e / Q) % n, pp = e % Q;
+  // orthogonality rows (= 0) and their running mean
+  if (tid < Q) {
     int j1 = 0, j2 = 0;
-    pair_of<K>(pp, j1, j2);
-    float s, c1, c2, d;
-    envelope(rr, lo[i * K + j1], lo[i * K + j2], hi[i * K + j1], hi[i * K + j2], s, c1, c2, d);
-    const float f = ((s * t[i * Q + pp] + c1 * U[i * K + j1]) + c2 * U[i * K + j2]) + d;
-    const size_t q = (size_t)b * 4 * n * Q + e;
-    const float v = (alpha * f + om * p.wmc[q]) + p.umc[q];
-    const float w = fmaxf(v, 0.f), u = v - w;
-    p.wmc[q] = w;
-    p.umc[q] = u;
-    if (p.acc_mc) p.acc_mc[q] = p.acc_mc[q] + p.beta * (rho * u - p.acc_mc[q]);
-  }
-
-  // ---- orthogonality rows (= 0) and their running mean ----
-  for (int pp = tid; pp < Q; pp += blockDim.x) {
-    int j1 = 0, j2 = 0;
-    pair_of<K>(pp, j1, j2);
-    const size_t q = (size_t)b * Q + pp;
-    const float f = tsum[pp] - ((j1 == j2) ? 1.0f : 0.f);
-    const float v = (alpha * f + om * p.worth[q]) + p.uorth[q];
-    p.worth[q] = 0.f;
-    p.uorth[q] = v;
-    if (p.acc_orth) p.acc_orth[q] = p.acc_orth[q] + p.beta * (rho * v - p.acc_orth[q]);
+    pair_of<K>(tid, j1, j2);
+    const float f = tot[1 + K + tid] - ((j1 == j2) ? 1.0f : 0.f);
+    const float v = (alpha * f + om * wo) + uo;
+    p.worth[qo] = 0.f;
+    p.uorth[qo] = v;
+    if (p.acc_orth) p.acc_orth[qo] = ao + p.beta * (rho * v - ao);
   }
 }
 
+// t1 (kind 0), t2 (1) or t3 (2) on the quads [quad0, quad0 + qpc) of the
+// batch's flat B D^2: t = alpha f + (1 - alpha) w + u, a quad of 4
+// consecutive entries a thread, w, u and t as 16-byte words; a quad may
+// straddle a row, a block or a slot, so each entry resolves its own (b, i,
+// j) and block of f; every load before the store
+template <int K>
+__device__ __forceinline__ void k9b_t(const K9bParams& p, int kind, int quad0) {
+  const int n = p.n, m = p.m;
+  const int D = kind == 0 ? n + m : kind == 1 ? n + K : n, DD = D * D, tot = p.B * DD;
+  const int q0 = 4 * (quad0 + (int)threadIdx.x);
+  if ((int)threadIdx.x >= p.qpc || q0 >= tot) return;
+  const float* __restrict__ w = kind == 0 ? p.w1 : kind == 1 ? p.w2 : p.w3;
+  const float* __restrict__ u = kind == 0 ? p.u1 : kind == 1 ? p.u2 : p.u3;
+  float* __restrict__ tt = kind == 0 ? p.t1 : kind == 1 ? p.t2 : p.t3;
+  const int rem = min(4, tot - q0);
+  float4 w4 = {}, u4 = {};
+  if (rem == 4) {
+    w4 = __ldg(reinterpret_cast<const float4*>(w + q0));
+    u4 = __ldg(reinterpret_cast<const float4*>(u + q0));
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < rem) omc::lane4(w4, c) = __ldg(w + q0 + c), omc::lane4(u4, c) = __ldg(u + q0 + c);
+  }
+  const int b0 = q0 / DD;
+  const float inv = 1.0f / (float)D;
+  float f[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    f[c] = 0.f;
+    if (c >= rem) continue;
+    const int e = q0 + c, b = b0 + (e >= (b0 + 1) * DD);
+    int i, j;
+    omc::divmod(e - b * DD, D, inv, i, j);
+    const omc::RO Y{p.Y + (size_t)b * n * n};
+    if (kind == 2) {
+      f[c] = (i == j ? 1.0f : 0.f) - Y[i * n + j];
+    } else if (i < n && j < n) {
+      f[c] = Y[i * n + j];
+    } else if (kind == 0) {
+      const omc::RO Xs{p.Xs + (size_t)b * n * m}, Ths{p.Ths + (size_t)b * m * m};
+      if (i < n) f[c] = __ldg(p.sX + b) * Xs[i * m + (j - n)];
+      else if (j < n) f[c] = __ldg(p.sX + b) * Xs[j * m + (i - n)];
+      else f[c] = __ldg(p.sT + b) * Ths[(i - n) * m + (j - n)];
+    } else {
+      const omc::RO U{p.U + (size_t)b * n * K};
+      if (i < n) f[c] = U[i * K + (j - n)];
+      else if (j < n) f[c] = U[j * K + (i - n)];
+      else f[c] = (i == j) ? 1.0f : 0.f;
+    }
+  }
+  const float alpha = p.alpha, om = 1.0f - p.alpha;
+  float4 t4;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    omc::lane4(t4, c) = (alpha * f[c] + om * omc::lane4(w4, c)) + omc::lane4(u4, c);
+  if (rem == 4) {
+    *reinterpret_cast<float4*>(tt + q0) = t4;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < rem) tt[q0 + c] = omc::lane4(t4, c);
+  }
+}
+
+// (k9b_layout; omc_torch.sdp.mccormick.k9_plan)
+template <int K>
+__global__ void __launch_bounds__(kThreads9) k9b_kernel(K9bParams p) {
+  extern __shared__ float smem[];
+  const K9bLayout l = k9b_layout(p.B, p.n, p.m, K, p.qpc);
+  int x = blockIdx.x;
+  if (x < p.B) {
+    k9b_slot<K>(p, x, smem);
+    return;
+  }
+  x -= p.B;
+  if (x < l.t1) {
+    k9b_t<K>(p, 0, x * p.qpc);
+    return;
+  }
+  x -= l.t1;
+  if (x < l.t2) {
+    k9b_t<K>(p, 1, x * p.qpc);
+    return;
+  }
+  k9b_t<K>(p, 2, (x - l.t2) * p.qpc);
+}
+
 template <typename Kernel, typename Params>
-int launch_k(Kernel kern, const Params& p, size_t smem, void* stream) {
+int launch_k(Kernel kern, const Params& p, int grid, int threads, size_t smem, void* stream) {
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if (p.B > 0) kern<<<p.B, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
+  if (grid > 0) kern<<<grid, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 constexpr int q_of(int k) { return k * (k + 1) / 2; }
+
+// the shapes K9a and K9b take: the flat entries' (i, j) come from a float
+// reciprocal (omc::divmod), exact below 2^24 entries a block, and a quad of
+// t3 spans at most two slots (n >= 2)
+bool k9_shape_ok(int B, int n, int m, int k) {
+  return B >= 1 && n >= 2 && m >= 1 && k >= 1 && k <= 3 && n + m <= 4096;
+}
 
 }  // namespace
 
@@ -539,32 +860,48 @@ OMC_EXPORT int omc_k9s_setup(const K9sParams* params, void* stream) {
   const int Q = q_of(p.k);
   const size_t smem = (size_t)(p.n + 1) * Q * Q * sizeof(float);
   switch (p.k) {
-    case 1: return launch_k(k9s_kernel<1>, p, smem, stream);
-    case 2: return launch_k(k9s_kernel<2>, p, smem, stream);
-    case 3: return launch_k(k9s_kernel<3>, p, smem, stream);
+    case 1: return launch_k(k9s_kernel<1>, p, p.B, omc::kThreads, smem, stream);
+    case 2: return launch_k(k9s_kernel<2>, p, p.B, omc::kThreads, smem, stream);
+    case 3: return launch_k(k9s_kernel<3>, p, p.B, omc::kThreads, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// K9a's and K9b's grid widths (omc_torch.sdp.mccormick.k9_plan plans with
+// them; chip_smoke.py holds the plan against them)
+OMC_EXPORT int omc_k9a_grid_x(int B, int n, int m) { return k9a_layout(B, n, m).grid_x; }
+
+OMC_EXPORT int omc_k9b_grid_x(int B, int n, int m, int k, int qpc) {
+  return k9b_layout(B, n, m, k, qpc).grid_x;
+}
+
 OMC_EXPORT int omc_k9a_zstep(const K9aParams* params, void* stream) {
   const K9aParams& p = *params;
-  const int Q = q_of(p.k);
-  const size_t smem = (size_t)(32 + p.n * (p.k + Q) + Q) * sizeof(float);
+  if (!k9_shape_ok(p.B, p.n, p.m, p.k)) return (int)cudaErrorInvalidValue;
+  // the slot CTA's z0 and Y diagonal
+  const size_t smem = (size_t)p.n * (p.k + q_of(p.k) + 1) * sizeof(float);
+  const int grid = k9a_layout(p.B, p.n, p.m).grid_x;
   switch (p.k) {
-    case 1: return launch_k(k9a_kernel<1>, p, smem, stream);
-    case 2: return launch_k(k9a_kernel<2>, p, smem, stream);
-    case 3: return launch_k(k9a_kernel<3>, p, smem, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch_k(k9a_kernel<1>, p, grid, kThreads9, smem, stream);
+    case 2: return launch_k(k9a_kernel<2>, p, grid, kThreads9, smem, stream);
+    default: return launch_k(k9a_kernel<3>, p, grid, kThreads9, smem, stream);
   }
 }
 
 OMC_EXPORT int omc_k9b_cone(const K9bParams* params, void* stream) {
   const K9bParams& p = *params;
-  const size_t smem = (size_t)(32 + 2 * p.k + q_of(p.k)) * sizeof(float);
+  // w1-w3, u1-u3 and t1-t3 move as 16-byte words
+  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (!k9_shape_ok(p.B, p.n, p.m, p.k) || p.qpc < 32 || p.qpc > kThreads9 || p.qpc % 32 ||
+      odd(p.w1) || odd(p.u1) || odd(p.w2) || odd(p.u2) || odd(p.w3) || odd(p.u3) ||
+      odd(p.t1) || odd(p.t2) || odd(p.t3))
+    return (int)cudaErrorInvalidValue;
+  // the slot CTA's SOC slots
+  const size_t smem = (size_t)p.k * (1 + p.n) * sizeof(float);
+  const int grid = k9b_layout(p.B, p.n, p.m, p.k, p.qpc).grid_x;
   switch (p.k) {
-    case 1: return launch_k(k9b_kernel<1>, p, smem, stream);
-    case 2: return launch_k(k9b_kernel<2>, p, smem, stream);
-    case 3: return launch_k(k9b_kernel<3>, p, smem, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch_k(k9b_kernel<1>, p, grid, kThreads9, smem, stream);
+    case 2: return launch_k(k9b_kernel<2>, p, grid, kThreads9, smem, stream);
+    default: return launch_k(k9b_kernel<3>, p, grid, kThreads9, smem, stream);
   }
 }

@@ -268,7 +268,7 @@ class K9bParams(ctypes.Structure):
         ("Xs", "Y", "Ths", "U", "t", "w1", "u1", "w2", "u2", "w3", "u3", "t1",
          "t2", "t3", "w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wmc", "umc",
          "worth", "uorth", "acc_mc", "acc_orth", "U_lo", "U_hi", "sX", "sT", "rho"),
-        ("B", "n", "m", "k"), ("alpha", "beta"))
+        ("B", "n", "m", "k", "qpc"), ("alpha", "beta"))
 
 
 class K4Params(ctypes.Structure):
@@ -329,6 +329,10 @@ def _load(path: Path):
     lib.omc_k8b_grid_x.restype = ctypes.c_int
     lib.omc_k8d_grid_x.argtypes = [ctypes.c_int] * 6
     lib.omc_k8d_grid_x.restype = ctypes.c_int
+    lib.omc_k9a_grid_x.argtypes = [ctypes.c_int] * 3
+    lib.omc_k9a_grid_x.restype = ctypes.c_int
+    lib.omc_k9b_grid_x.argtypes = [ctypes.c_int] * 5
+    lib.omc_k9b_grid_x.restype = ctypes.c_int
     for name, nargs in (("omc_k2_smem_bytes", 8), ("omc_k3_smem_bytes", 8),
                         ("omc_k2_ws_doubles", 5), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs

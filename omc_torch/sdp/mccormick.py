@@ -44,13 +44,15 @@ the float64 certificate) are numpy copies of ``omc``'s.
 from __future__ import annotations
 
 import dataclasses
+import operator
 
 import numpy as np
 import torch
 
 from omc_torch import kernels
 from omc_torch.ops.cones import project_psd, project_soc
-from omc_torch.ops.polar import project_psd_ns_multi, psd_epilogue
+from omc_torch.ops.polar import H100_SMS, project_psd_ns_multi, psd_epilogue
+from omc_torch.sdp.admm import _packed
 from omc_torch.sdp.relax import separation_eigpairs
 
 # ---------------------------------------------------------------------------
@@ -514,6 +516,91 @@ def make_mc_consts(A, mask, batch: MCBatch, state: MCState, n, m, k, gamma, alph
 
 
 # ---------------------------------------------------------------------------
+# K9a's and K9b's grid
+# ---------------------------------------------------------------------------
+
+# K9a's and K9b's geometry (csrc/k9_mccormick.cu): CTAs of 128 threads, one
+# slot CTA a node slot first in the grid; K9a's flat CTAs take X in chunks of
+# 512 entries and Theta's and Y's tile pairs of 16 x 16 tiles; K9b's take a
+# quad of 4 consecutive t1, t2 or t3 entries a thread, qpc quads a CTA, fewer
+# until the flat CTAs fill the card's SMs
+K9_THREADS, K9_TILE, K9_X_CHUNK = 128, 16, 512
+K9B_TARGET_CTAS = H100_SMS
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def k9_plan(B: int, n: int, m: int, k: int) -> dict:
+    """K9a's and K9b's grids, one dimension each.  K9a (``k9a_grid``): B
+    slot CTAs (slot x: the per-row (U, t) solves, the sums over rows, Y's
+    diagonal), then ``units`` CTAs a slot (slot x // units): ``x_chunks``
+    chunks of 512 entries of X, ``th_pairs`` tile pairs (I <= J, row by
+    row) of Theta's ceil(m / 16)^2 tiles, ``y_pairs`` of Y's ceil(n / 16)^2.
+    K9b (``k9b_grid``): B slot CTAs, then ``t1_ctas``, ``t2_ctas`` and
+    ``t3_ctas`` CTAs of ``qpc`` quads of 4 consecutive entries of the
+    batch's flat t1, t2, t3; ``qpc`` halves from 128 to 32 while the flat
+    CTAs are fewer than ``K9B_TARGET_CTAS``.  Raises on a rank or a shape
+    the kernels do not take."""
+    _check_k("K9", k)
+    if min(B, m) < 1 or n < 2 or n + m > 4096:
+        raise ValueError(f"K9: unsupported shape B={B}, n={n}, m={m} (B, m >= 1, n >= 2, "
+                         "n + m <= 4096)")
+    tn, tm = _cdiv(n, K9_TILE), _cdiv(m, K9_TILE)
+    x, th, y = _cdiv(n * m, K9_X_CHUNK), tm * (tm + 1) // 2, tn * (tn + 1) // 2
+    units = x + th + y
+    quads = (_cdiv(B * (n + m) ** 2, 4), _cdiv(B * (n + k) ** 2, 4), _cdiv(B * n * n, 4))
+    qpc = K9_THREADS
+    while qpc > 32 and sum(_cdiv(x, qpc) for x in quads) < K9B_TARGET_CTAS:
+        qpc //= 2
+    t1, t2, t3 = (_cdiv(x, qpc) for x in quads)
+    return dict(threads=K9_THREADS, tile=K9_TILE, x_chunk=K9_X_CHUNK, slot_ctas=B, x_chunks=x,
+                th_pairs=th, y_pairs=y, units=units, k9a_grid=B + B * units, qpc=qpc,
+                t1_ctas=t1, t2_ctas=t2, t3_ctas=t3, k9b_grid=B + t1 + t2 + t3)
+
+
+def tile_pairs(T: int) -> list:
+    """The tile pairs (I, J), I <= J, of a T x T grid of tiles in K9a's
+    order (row by row)."""
+    return [(I, J) for I in range(T) for J in range(I, T)]
+
+
+def cta_sum(x, threads: int = K9_THREADS):
+    """The sum over dim -2 of x (B, n, F) in the order of a slot CTA of
+    ``threads`` threads (K9a, K9b): thread r adds rows r, r + threads, ...
+    in order, each warp of 32 adds its lanes by xor shuffles (offsets 16,
+    8, 4, 2, 1), then the warps are added in order.  Returns (B, F)."""
+    B, n, F = x.shape
+    rows = _cdiv(n, threads) * threads
+    xp = torch.zeros((B, rows, F), dtype=x.dtype, device=x.device)
+    xp[:, :n] = x
+    xp = xp.reshape(B, rows // threads, threads, F)
+    part = torch.zeros((B, threads, F), dtype=x.dtype, device=x.device)
+    for r in range(rows // threads):
+        part = part + xp[:, r]
+    lane = torch.arange(threads, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[:, (lane // 32) * 32 + ((lane % 32) ^ o)]
+    tot = torch.zeros((B, F), dtype=x.dtype, device=x.device)
+    for w in range(threads // 32):
+        tot = tot + part[:, 32 * w]
+    return tot
+
+
+def _sym_tiles(z, T: int, tile: int):
+    """0.5 (z + z') written tile pair by tile pair, both tiles of a pair
+    from the same two staged tiles (K9a's order); entries no pair writes
+    stay NaN."""
+    out = torch.full_like(z, float("nan"))
+    for I, J in tile_pairs(T):
+        a, b = slice(I * tile, (I + 1) * tile), slice(J * tile, (J + 1) * tile)
+        out[:, a, b] = 0.5 * (z[:, a, b] + z[:, b, a].transpose(-1, -2))
+        out[:, b, a] = 0.5 * (z[:, b, a] + z[:, a, b].transpose(-1, -2))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K9a: adjoint + z-step
 # ---------------------------------------------------------------------------
 
@@ -560,6 +647,64 @@ def mc_zstep_plain(c: _MCConsts, st: MCState):
     return Xs, Y, Ths, U, t
 
 
+def mc_zstep_tiled(c: _MCConsts, st: MCState, plan: dict):
+    """Torch mirror of K9a's order of work (``plan`` from ``k9_plan``), for
+    the tests: X entry by entry; Theta's and Y's entries tile pair by tile
+    pair, each pair's two tiles from the same staged values; Y's diagonal
+    from the slot CTA: tr(rho gY / 3) summed in its order (``cta_sum``) and
+    the trace correction on the diagonal only; the per-row (U, t) solves
+    with sum_i z0_i[k:] in the same order.  Returns (Xs, Y, Ths, U, t) as
+    ``mc_zstep_plain``."""
+    n, m, k, q = c.n, c.m, c.k, c.q
+    tile = plan["tile"]
+    rho_b = st.rho
+    rho, sX, sT = rho_b[:, None, None], st.sX[:, None, None], st.sT[:, None, None]
+    d1 = st.w1 - st.u1
+    Xs = (rho * (sX * 2.0 * d1[:, :n, n:]) + sX * c.maskA) / (
+        c.mask * (sX * sX) + rho * 2.0 * sX * sX)
+    # Theta: dg on the diagonal of both terms
+    eye_m = torch.eye(m, dtype=d1.dtype, device=d1.device)
+    cth = sT * 0.5 / c.gamma
+    za = (rho * (sT * d1[:, n:, n:]) - cth * eye_m) / (rho * sT * sT)
+    Ths = _sym_tiles(za, _cdiv(m, tile), tile)
+    # Y off the diagonal from the tile pairs, its diagonal from the slot CTA
+    g = (d1[:, :n, :n] + (st.w2 - st.u2)[:, :n, :n]) - ((st.w3 - st.u3) - 0.0)
+    Y = _sym_tiles(((rho * g) / 3.0 - 0.0) / rho, _cdiv(n, tile), tile)
+    diag = lambda x: torch.diagonal(x, dim1=-2, dim2=-1)  # noqa: E731
+    y4 = (st.w4 - st.u4) - float(k)
+    dg = (diag(d1[:, :n, :n]) + diag(st.w2 - st.u2)[:, :n]) - (diag(st.w3 - st.u3) - 1.0)
+    yp = (rho_b[:, None] * (dg - y4[:, None])) / 3.0
+    ctr = cta_sum(yp[..., None], plan["threads"])[..., 0] / (3.0 + n)
+    a = (yp - ctr[:, None]) / rho_b[:, None]
+    diag(Y).copy_(0.5 * (a + a))
+    # (U, t): the row's right-hand side, its Mc solve, the Woodbury sum
+    s, c1, c2, d = c.coef
+    ym = (st.wmc - st.umc) - d  # (B, 4, n, q)
+    rU = 2.0 * (st.w2 - st.u2)[:, :n, n:] + (st.wsoc - st.usoc)[..., 1:].transpose(-1, -2) + (
+        st.wbox - st.ubox)
+    g1 = torch.zeros_like(rU)
+    g2 = torch.zeros_like(rU)
+    gt = torch.zeros_like(st.t)
+    mc1 = torch.zeros_like(st.t)
+    mc2 = torch.zeros_like(st.t)
+    for rr in range(4):
+        mc1 = mc1 + ym[:, rr] * c1[:, rr]
+        mc2 = mc2 + ym[:, rr] * c2[:, rr]
+        gt = gt + ym[:, rr] * s[:, rr]
+    for pp, (j1, j2) in enumerate(zip(c.J1.tolist(), c.J2.tolist())):
+        g1[..., j1] = g1[..., j1] + mc1[..., pp]
+        g2[..., j2] = g2[..., j2] + mc2[..., pp]
+    yo = (st.worth - st.uorth) + c.delta  # (B, q)
+    r = torch.cat([rho * ((rU + g1) + g2), rho * (gt + yo[:, None, :])], dim=-1)
+    z0 = torch.cholesky_solve(r[..., None], c.Mc)[..., 0]
+    tcorr = torch.cholesky_solve(cta_sum(z0[..., k:], plan["threads"])[..., None], c.Gc)[..., 0]
+    corr = torch.zeros_like(z0)
+    for aa in range(q):
+        corr = corr + c.Si[..., aa] * tcorr[:, None, None, aa]
+    z = (z0 - corr) / rho
+    return Xs, Y, Ths, z[..., :k], z[..., k:]
+
+
 def _shapes(B, n, m, k):
     q = k * (k + 1) // 2
     return {
@@ -579,8 +724,10 @@ _SLOTS = ("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc", "wbox"
 
 def mc_zstep(c: _MCConsts, st: MCState):
     """K9a wrapper: writes (Xs, Y, Ths, U, t) into ``st``.  A CPU state runs
-    ``mc_zstep_plain``; a CUDA state launches ``csrc/k9_mccormick.cu`` (one
-    CTA per node slot) or raises."""
+    ``mc_zstep_plain``; a CUDA state launches ``csrc/k9_mccormick.cu``
+    (``k9_plan``'s grid: a slot CTA a node slot, then the X chunks and the
+    Theta and Y tile pairs) or raises.  The parameter block is packed once
+    per operands (``admm._packed``)."""
     dev = st.w1.device
     if dev.type == "cpu":
         for dst, src in zip((st.X, st.Y, st.Th, st.U, st.t), mc_zstep_plain(c, st)):
@@ -588,31 +735,46 @@ def mc_zstep(c: _MCConsts, st: MCState):
         return
     if dev.type != "cuda":
         raise ValueError(f"mc_zstep: unsupported device {dev}")
-    _check_k("K9a", c.k)
+    kernels.launch("K9a", "omc_k9a_zstep", _k9a_params(c, st, dev), dev)
+
+
+# K9a's and K9b's state operands, gathered cheaply for the reuse test of
+# their packed blocks
+_K9_ST = operator.attrgetter(*_SLOTS, "X", "Y", "Th", "U", "t", "sX", "sT", "rho")
+
+
+def _k9a_tensors(c: _MCConsts, st: MCState) -> tuple:
+    return _K9_ST(st) + (c.batch.U_lo, c.batch.U_hi, c.maskA, c.mask, c.Mc, c.Si, c.Gc)
+
+
+def _k9a_operands(c: _MCConsts, st: MCState) -> list:
+    """(field, tensor, shape) of every K9a operand (float32)."""
     B = st.rho.shape[0]
     n, m, k, q = c.n, c.m, c.k, c.q
     shapes = _shapes(B, n, m, k)
-    prm = kernels.K9aParams()
-    for name in _SLOTS:
-        setattr(prm, name, kernels.check(name, getattr(st, name), shapes[name], dev))
-    prm.U_lo = kernels.check("U_lo", c.batch.U_lo, (B, n, k), dev)
-    prm.U_hi = kernels.check("U_hi", c.batch.U_hi, (B, n, k), dev)
-    prm.maskA = kernels.check("maskA", c.maskA, (n, m), dev)
-    prm.mask = kernels.check("mask", c.mask, (n, m), dev)
-    prm.sX = kernels.check("sX", st.sX, (B,), dev)
-    prm.sT = kernels.check("sT", st.sT, (B,), dev)
-    prm.rho = kernels.check("rho", st.rho, (B,), dev)
-    prm.Mc = kernels.check("Mc", c.Mc, (B, n, k + q, k + q), dev)
-    prm.Si = kernels.check("Si", c.Si, (B, n, k + q, q), dev)
-    prm.Gc = kernels.check("Gc", c.Gc, (B, q, q), dev)
-    prm.Xs = kernels.check("X", st.X, shapes["X"], dev)
-    prm.Y = kernels.check("Y", st.Y, shapes["Y"], dev)
-    prm.Ths = kernels.check("Th", st.Th, shapes["Th"], dev)
-    prm.U = kernels.check("U", st.U, shapes["U"], dev)
-    prm.t = kernels.check("t", st.t, shapes["t"], dev)
-    prm.B, prm.n, prm.m, prm.k = B, n, m, k
-    prm.gamma = float(c.gamma)
-    kernels.launch("K9a", "omc_k9a_zstep", prm, dev)
+    return ([(name, getattr(st, name), shapes[name]) for name in _SLOTS]
+            + [("U_lo", c.batch.U_lo, (B, n, k)), ("U_hi", c.batch.U_hi, (B, n, k)),
+               ("maskA", c.maskA, (n, m)), ("mask", c.mask, (n, m)), ("sX", st.sX, (B,)),
+               ("sT", st.sT, (B,)), ("rho", st.rho, (B,)), ("Mc", c.Mc, (B, n, k + q, k + q)),
+               ("Si", c.Si, (B, n, k + q, q)), ("Gc", c.Gc, (B, q, q)),
+               ("Xs", st.X, shapes["X"]), ("Y", st.Y, shapes["Y"]), ("Ths", st.Th, shapes["Th"]),
+               ("U", st.U, shapes["U"]), ("t", st.t, shapes["t"])])
+
+
+def _k9a_params(c: _MCConsts, st: MCState, dev):
+    """K9a's parameter block, packed once per operands (``admm._packed``)."""
+
+    def build():
+        B = st.rho.shape[0]
+        k9_plan(B, c.n, c.m, c.k)  # refuses a rank or a shape the kernel does not take
+        p = kernels.K9aParams()
+        for name, t, shape in _k9a_operands(c, st):
+            setattr(p, name, kernels.check(name, t, shape, dev))
+        p.B, p.n, p.m, p.k = B, c.n, c.m, c.k
+        p.gamma = float(c.gamma)
+        return p
+
+    return _packed(("K9a", id(c), id(st)), _k9a_tensors(c, st), (c.gamma,), build)
 
 
 # ---------------------------------------------------------------------------
@@ -662,12 +824,47 @@ def mc_cone_step_plain(c: _MCConsts, st: MCState, acc=None, beta: float = 0.0):
     return t1, t2, t3, rest, acc_new
 
 
+def mc_cone_step_tiled(c: _MCConsts, st: MCState, acc, beta: float, plan: dict):
+    """Torch mirror of K9b's order of work (``plan`` from ``k9_plan``), for
+    the tests: tr Y, the k SOC column norms and sum_i t[i, p] summed in the
+    slot CTA's order (``cta_sum``), and the trace, SOC and orthogonality
+    slots from them; t1, t2, t3, the box and the envelope rows entry by
+    entry as ``mc_cone_step_plain`` (no entry depends on another).  Returns
+    the plain version's tuple."""
+    t1, t2, t3, rest, acc_new = mc_cone_step_plain(c, st, acc, beta)
+    w4, u4, wsoc, usoc, wbox, ubox, wmc, umc, worth, uorth = rest
+    alpha, om, k, nt = c.alpha, 1.0 - c.alpha, c.k, plan["threads"]
+    tr = cta_sum(torch.diagonal(st.Y, dim1=-2, dim2=-1)[..., None], nt)[..., 0]
+    t4 = (alpha * (k - tr) + om * st.w4) + st.u4
+    w4 = torch.clamp(t4, min=0.0)
+    u4 = t4 - w4
+    v = (alpha * st.U.transpose(-1, -2) + om * st.wsoc[..., 1:]) + st.usoc[..., 1:]  # (B, k, n)
+    tt = (alpha * 1.0 + om * st.wsoc[..., 0]) + st.usoc[..., 0]  # (B, k)
+    nj = torch.sqrt(cta_sum((v * v).transpose(-1, -2), nt))  # (B, k)
+    zero = torch.zeros_like(v)
+    tail = torch.where(nj > 0, 0.5 * (1.0 + tt / nj), torch.zeros_like(nj))[..., None] * v
+    tail = torch.where((nj <= -tt)[..., None], zero, tail)
+    tail = torch.where((nj <= tt)[..., None], v, tail)
+    head = torch.where(nj <= -tt, torch.zeros_like(tt), 0.5 * (tt + nj))
+    head = torch.where(nj <= tt, tt, head)
+    wsoc = torch.cat([head[..., None], tail], dim=-1)
+    usoc = torch.cat([tt[..., None], v], dim=-1) - wsoc
+    f = cta_sum(st.t, nt) - c.delta
+    uorth = (alpha * f + om * st.worth) + st.uorth
+    worth = torch.zeros_like(uorth)
+    if acc is not None:
+        acc_new = (acc_new[0], acc[1] + beta * (st.rho[:, None] * uorth - acc[1]))
+    return t1, t2, t3, (w4, u4, wsoc, usoc, wbox, ubox, wmc, umc, worth, uorth), acc_new
+
+
 def mc_cone_step(c: _MCConsts, st: MCState, ts, acc=None, beta: float = 0.0):
     """K9b wrapper: writes the pre-projection PSD slots into ``ts`` (t1,
     t2, t3), updates the non-PSD slots of ``st`` and, when given, the
     running means ``acc`` (rho umc, rho uorth) in place.  A CPU state runs
     ``mc_cone_step_plain``; a CUDA state launches ``csrc/k9_mccormick.cu``
-    (one CTA per node slot) or raises."""
+    (``k9_plan``'s grid: a slot CTA a node slot, then the quads of t1, t2,
+    t3) or raises.  The parameter block is packed once per operands
+    (``admm._packed``); ``beta`` is set on it at every launch."""
     dev = st.w1.device
     if dev.type == "cpu":
         t1, t2, t3, rest, acc_new = mc_cone_step_plain(c, st, acc, beta)
@@ -681,30 +878,58 @@ def mc_cone_step(c: _MCConsts, st: MCState, ts, acc=None, beta: float = 0.0):
         return
     if dev.type != "cuda":
         raise ValueError(f"mc_cone_step: unsupported device {dev}")
-    _check_k("K9b", c.k)
+    kernels.launch("K9b", "omc_k9b_cone", _k9b_params(c, st, ts, acc, beta, dev), dev)
+
+
+# the operands K9b reads and writes as 16-byte words
+_K9B_WORDS = ("w1", "u1", "w2", "u2", "w3", "u3", "t1", "t2", "t3")
+
+
+def _k9b_tensors(c: _MCConsts, st: MCState, ts, acc) -> tuple:
+    return (_K9_ST(st) + (c.batch.U_lo, c.batch.U_hi) + tuple(ts)
+            + (tuple(acc) if acc is not None else ()))
+
+
+def _k9b_operands(c: _MCConsts, st: MCState, ts, acc) -> list:
+    """(field, tensor, shape) of every K9b operand (float32; the running
+    means only when ``acc`` is given)."""
     B = st.rho.shape[0]
     n, m, k = c.n, c.m, c.k
     shapes = _shapes(B, n, m, k)
-    prm = kernels.K9bParams()
-    for name in ("X", "Y", "Th", "U", "t"):
-        setattr(prm, {"X": "Xs", "Th": "Ths"}.get(name, name),
-                kernels.check(name, getattr(st, name), shapes[name], dev))
-    for name in _SLOTS:
-        setattr(prm, name, kernels.check(name, getattr(st, name), shapes[name], dev))
-    prm.t1 = kernels.check("t1", ts[0], shapes["w1"], dev)
-    prm.t2 = kernels.check("t2", ts[1], shapes["w2"], dev)
-    prm.t3 = kernels.check("t3", ts[2], shapes["w3"], dev)
-    if acc is not None:
-        prm.acc_mc = kernels.check("acc_mc", acc[0], shapes["umc"], dev)
-        prm.acc_orth = kernels.check("acc_orth", acc[1], shapes["uorth"], dev)
-    prm.U_lo = kernels.check("U_lo", c.batch.U_lo, (B, n, k), dev)
-    prm.U_hi = kernels.check("U_hi", c.batch.U_hi, (B, n, k), dev)
-    prm.sX = kernels.check("sX", st.sX, (B,), dev)
-    prm.sT = kernels.check("sT", st.sT, (B,), dev)
-    prm.rho = kernels.check("rho", st.rho, (B,), dev)
-    prm.B, prm.n, prm.m, prm.k = B, n, m, k
-    prm.alpha, prm.beta = float(c.alpha), float(beta)
-    kernels.launch("K9b", "omc_k9b_cone", prm, dev)
+    return ([("Xs", st.X, shapes["X"]), ("Y", st.Y, shapes["Y"]), ("Ths", st.Th, shapes["Th"]),
+             ("U", st.U, shapes["U"]), ("t", st.t, shapes["t"])]
+            + [(name, getattr(st, name), shapes[name]) for name in _SLOTS]
+            + [("t1", ts[0], shapes["w1"]), ("t2", ts[1], shapes["w2"]),
+               ("t3", ts[2], shapes["w3"])]
+            + ([("acc_mc", acc[0], shapes["umc"]), ("acc_orth", acc[1], shapes["uorth"])]
+               if acc is not None else [])
+            + [("U_lo", c.batch.U_lo, (B, n, k)), ("U_hi", c.batch.U_hi, (B, n, k)),
+               ("sX", st.sX, (B,)), ("sT", st.sT, (B,)), ("rho", st.rho, (B,))])
+
+
+def _k9b_params(c: _MCConsts, st: MCState, ts, acc, beta: float, dev):
+    """K9b's parameter block, packed once per operands (``admm._packed``);
+    the running means' weight ``beta``, which changes every iteration of
+    the averaging window, is set on it at every call."""
+
+    def build():
+        B = st.rho.shape[0]
+        plan = k9_plan(B, c.n, c.m, c.k)
+        p = kernels.K9bParams()
+        for name, t, shape in _k9b_operands(c, st, ts, acc):
+            setattr(p, name, kernels.check(name, t, shape, dev))
+        if any(getattr(p, name) % 16 for name in _K9B_WORDS):
+            raise ValueError("K9b reads w1-w3 and u1-u3 and writes t1-t3 as 16-byte words: "
+                             "their storage must start 16-byte aligned")
+        p.B, p.n, p.m, p.k = B, c.n, c.m, c.k
+        p.qpc = plan["qpc"]
+        p.alpha = float(c.alpha)
+        return p
+
+    p = _packed(("K9b", id(c), id(st), acc is None), _k9b_tensors(c, st, ts, acc), (c.alpha,),
+                build)
+    p.beta = float(beta)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -896,6 +1121,7 @@ __all__ = [
     "pair_indices", "mccormick_coeffs", "t_corner_box", "mccormick_box_feasible",
     "mccormick_lp_feasible", "master_feasible_mccormick", "MCBatch", "MCState",
     "init_mc_state", "make_mccormick_solver", "mc_gram_plain", "mc_setup", "mc_setup_plain",
-    "mc_zstep", "mc_zstep_plain", "mc_cone_step", "mc_cone_step_plain",
+    "mc_zstep", "mc_zstep_plain", "mc_cone_step", "mc_cone_step_plain", "k9_plan",
+    "mc_zstep_tiled", "mc_cone_step_tiled", "cta_sum", "tile_pairs",
     "mccormick_safe_dual_bound", "host_certified_bound_mc",
 ]
