@@ -15,10 +15,14 @@ Phases, in order (each prints its numbers on lines of its own):
                time the card could take for the same work); K1 (B=1 to 64,
                d=50 to 2000, with its time on every path k1_plan could take)
                and the Jacobi kernels K4/K4s/K5 also against a float64 eigh,
-               the latter with their sweep counts; K4 and K5 (d=50 to 1000,
-               B=1 to 128) on every path k4_plan could take, and the block
-               path's grid barrier; K6 (n=m=50, 250, 1000; k=1 to 10; B=4
-               and 64) on every path k6_plan could take, against the
+               the latter with their sweep counts; K4 (d=50 to 1000, B=1 to
+               128) on every path k4_plan could take, and the block path's
+               grid barrier; K5 at every driving phase's (B, n, k) on every
+               path k5_plan could take (its tridiagonal kernel with the
+               triangle in float64 or float32, K4's Jacobi paths), K4s at
+               the Shor bounds' batches, each with device times; K6
+               (n=m=50, 250, 1000; k=1 to 10; B=4 and 64) on every path
+               k6_plan could take, against the
                library's batched solve; K8c at k=2 (timed), 3 and 4; K2 and
                K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
                variant) with their device times on every cluster size
@@ -72,11 +76,12 @@ device ms per iteration of the two Shor loops and the two root visits are
 given on their own.
 
 ``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
-builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d, K9s, K9a and K9b
-and times them, with that tree's parameter blocks, beside every K2/K3 row
-of the kernels phase up to 512 cuts and every K7/K8a/K8b/K7t/K7x/K8d/K9s/
-K9a/K9b row, and reports ptxas's registers of its K7, K7t, K7x, K8a, K8b, K8d, K9a
-and K9b.
+builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d, K9s, K9a, K9b, K4
+and K4s and times them, with that tree's parameter blocks, beside every
+K2/K3 row of the kernels phase up to 512 cuts and every K7/K8a/K8b/K7t/
+K7x/K8d/K9s/K9a/K9b/K4s/K5 row (the parent's K5 is K4's Jacobi template on
+the path k4_plan gives it), and reports ptxas's registers of its K7, K7t,
+K7x, K8a, K8b, K8d, K9a and K9b.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -170,10 +175,11 @@ def with_bound(row, nbytes, flops, peak=PEAK_FP32_FLOPS):
 
 def with_path_bound(row, path, nbytes, flops):
     """K4's and K5's bound on the path the row's plan takes: the fp32 rate
-    on the CTA path, the 3xTF32 rate (three tensor-core passes) on the block
-    path, whose tile products and projection epilogue are 3xTF32, with the
-    fp32 reading beside it (``bound_fp32_ms``), as K1's rows have."""
-    if path == "cta":
+    on the CTA path and on K5's tridiag paths, the 3xTF32 rate (three
+    tensor-core passes) on the block path, whose tile products and
+    projection epilogue are 3xTF32, with the fp32 reading beside it
+    (``bound_fp32_ms``), as K1's rows have."""
+    if path != "block16":
         return with_bound(row, nbytes, flops)
     with_bound(row, nbytes, 3 * flops, PEAK_TF32_FLOPS)
     row["bound_flops"] = float(flops)
@@ -1207,8 +1213,8 @@ def _to64(x):
     return x
 
 
-# The parent tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d and K9s-K9b (``--parent DIR``: a
-# checkout of an older tree), built from DIR's sources and launched on the same inputs as
+# The parent tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d, K9s-K9b, K4 and K4s (``--parent
+# DIR``: a checkout of an older tree), built from DIR's sources and launched on the same inputs as
 # the rows, for the records.  Their parameter blocks are DIR's own
 # (``omc_torch/kernels.py`` there), each field filled by name: a field this
 # script has no value for raises, so a tree whose blocks differ cannot be
@@ -1216,12 +1222,12 @@ def _to64(x):
 # ``k2k3_plan`` (``omc_torch/sdp/admm.py`` there).
 PARENT = {}
 PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh", "k8k_shor_k",
-                  "k9_mccormick")
+                  "k9_mccormick", "k4_jacobi", "k4s_jacobi_small")
 
 
 def _load_parent(src):
-    """Build DIR's K2, K3, K7, K8, K7t/K7x, K8c/K8d and K9 sources into one
-    library (one nvcc each, in parallel), bind their entry points to DIR's
+    """Build DIR's K2, K3, K7, K8, K7t/K7x, K8c/K8d, K9, K4 and K4s sources into
+    one library (one nvcc each, in parallel), bind their entry points to DIR's
     blocks, take DIR's ``k2k3_plan`` and keep ptxas's report of DIR's
     kernels."""
     import ctypes
@@ -1262,12 +1268,16 @@ def _load_parent(src):
                    (lib.omc_k7t_minor_k, mod.K7tParams), (lib.omc_k7x_xwh, mod.K7xParams),
                    (lib.omc_k8d_shor_k_cone, mod.K8dParams),
                    (lib.omc_k9s_setup, mod.K9sParams), (lib.omc_k9a_zstep, mod.K9aParams),
-                   (lib.omc_k9b_cone, mod.K9bParams)):
+                   (lib.omc_k9b_cone, mod.K9bParams), (lib.omc_k4_jacobi, mod.K4Params),
+                   (lib.omc_k4s_jacobi_small, mod.K4sParams)):
         fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int] * 4
+    lib.omc_k4_workspace_floats.restype = ctypes.c_longlong
     PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
                   P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, P7x=mod.K7xParams,
                   P8d=mod.K8dParams, P9s=mod.K9sParams, P9a=mod.K9aParams, P9b=mod.K9bParams,
+                  P4=mod.K4Params, P4s=mod.K4sParams,
                   k2k3_plan=plan,
                   src=src,
                   ptxas=_ptxas_report("".join(logs)))
@@ -1497,6 +1507,38 @@ def _parent_k7_projection(T, w):
     v.update(dict.fromkeys(("M5", "nm", "P1", "P2", "P3", "m"), 0), alpha=0.0, beta=0.0, t=T,
              w=w, N=T.numel() // 25)
     return _parent_launch(PARENT["lib"].omc_k7_minor_psd, _parent_block(PARENT["P7"], v))
+
+
+def _parent_k5(U, Y, nout):
+    """The parent's K5 (K4's Jacobi template on U U' - Y) on the path this
+    tree's ``k4_plan`` gives the eigenpairs, which the parent's separation
+    took: a launcher with its block and outputs (and the block path's
+    workspace) allocated once."""
+    import torch
+
+    from omc_torch.ops.cones import k4_plan
+
+    B, d, k = U.shape
+    path = int(k4_plan(B, d, 2)["path"] != "cta")
+    lib = PARENT["lib"]
+    nwork = lib.omc_k4_workspace_floats(B, d, 2, path)
+    f32 = dict(dtype=torch.float32, device=U.device)
+    v = dict(M=None, U=U, Y=Y, w=torch.empty(B, nout, **f32), V=torch.empty(B, d, nout, **f32),
+             P=None, sweeps=torch.empty(B, dtype=torch.int32, device=U.device),
+             work=torch.empty(nwork, **f32) if nwork else None, B=B, d=d, k=k, nout=nout, mode=2,
+             path=path)
+    return _parent_launch(lib.omc_k4_jacobi, _parent_block(PARENT["P4"], v),
+                          *[x for x in v.values() if isinstance(x, torch.Tensor)])
+
+
+def _parent_k4s(T):
+    """The parent's K4s on the (N, D, D) batch T into an output of its own."""
+    import torch
+
+    out = torch.empty_like(T)
+    v = dict(t=T, w=out, sweeps=None, N=T.shape[0], D=T.shape[-1])
+    return _parent_launch(PARENT["lib"].omc_k4s_jacobi_small, _parent_block(PARENT["P4s"], v), T,
+                          out)
 
 
 def _k2k3_device_ms(fns, reps=20, medians=("kernel", "parent")):
@@ -1858,6 +1900,66 @@ def _eig_batch(B, d, gen, dev):
     return T, T.double()
 
 
+# K5's rows (B, n, k): the headline's base path (64, 50, 1; the row of the
+# record), config 3's (64, 75, 2), the headline's root visit (1, 50, 1),
+# the multinode and shor cells' (4, 50, 1), shork's (32, 75, 2), config 2's
+# (32, 100, 1) and config 4's (128, 250, 5); K4s's (N, D): config 2's 5x5
+# minors (32 x 4096), the shor cell's (4 x 4096), shork's per-term minors
+# (32 x 1024 x 2) and XWH slots (32 x 4096, k + 1 = 3)
+K5_SHAPES = ((64, 50, 1), (64, 75, 2), (1, 50, 1), (4, 50, 1), (32, 75, 2), (32, 100, 1),
+             (128, 250, 5))
+K4S_SHAPES = ((32 * 4096, 5), (4 * 4096, 5), (32 * 1024 * 2, 5), (32 * 4096, 3))
+
+
+def _check_k5_special(rows, path, d, case, gen, dev, launch, plan, max_iters):
+    """One K5 row on ``path`` at order ``d`` (B = 4) on an input that takes
+    a special branch of the kernel (``case``), held as the mirror's tests
+    hold it: the residual ||A v - lambda v|| and the eigenvalues within
+    1e-5 max(||A||_F, 1) of a float64 eigh of the same float32 input, V'V
+    within 1e-5 of I, all finite, no inverse iteration past its cap."""
+    import torch
+
+    B = 4
+    U = torch.zeros(B, d, 1, dtype=torch.float64)
+    if case.startswith("gap"):
+        gap = float(case.split()[1])
+        U = torch.randn(B, d, 1, generator=gen, dtype=torch.float64)
+        Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64))
+        lam = torch.empty(B, d, dtype=torch.float64).uniform_(-0.3, 1.0, generator=gen)
+        lam[:, 0], lam[:, 1] = -1.0, -1.0 + gap
+        Y = U @ U.transpose(-1, -2) - (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
+    elif case == "zero":
+        Y = torch.zeros(B, d, d, dtype=torch.float64)
+    elif case == "Y=UU'":
+        U = torch.randn(B, d, 1, generator=gen, dtype=torch.float64)
+        Y = U @ U.transpose(-1, -2)
+    else:
+        diag = torch.empty(B, d, dtype=torch.float64).uniform_(-1.0, 1.0, generator=gen)
+        if case == "diagonal repeated":
+            diag[:, 0] = diag[:, d - 1] = diag.amin(-1) - 0.1
+        Y = -torch.diag_embed(diag)
+    U32 = U.float().to(dev).contiguous()
+    Y32 = (0.5 * (Y + Y.transpose(-1, -2))).float().to(dev).contiguous()
+    it = torch.empty(B, dtype=torch.int32, device=dev)
+    w, V = launch(U32, Y32, plan(B, d, path), it)
+    torch.cuda.synchronize()
+    M = U32.double() @ U32.double().transpose(-1, -2) - Y32.double()
+    A = 0.5 * (M + M.transpose(-1, -2))
+    w64 = torch.linalg.eigvalsh(A)[:, :2]
+    scale = torch.linalg.norm(A, dim=(-2, -1)).clamp(min=1.0)
+    w, V = w.double(), V.double()
+    row = dict(path=path, d=d, case=case, max_iters=int(it.max()),
+               finite=bool(torch.isfinite(w).all() and torch.isfinite(V).all()),
+               resid=float((torch.linalg.norm(A @ V - V * w[:, None, :], dim=-2).amax(-1)
+                            / scale).max()),
+               orth_err=float((V.transpose(-1, -2) @ V - torch.eye(2, dtype=V.dtype,
+                                                                 device=dev)).abs().max()),
+               eig_err=float(((w - w64).abs().amax(-1) / scale).max()))
+    row["ok"] = (row["finite"] and row["resid"] <= 1e-5 and row["orth_err"] <= 1e-5
+                 and row["eig_err"] <= 1e-5 and row["max_iters"] <= max_iters)
+    rows.append(row)
+
+
 def _check_eig_kernels(gen, dev):
     """K4 (three epilogues), K4s, K5 and K6 against float64 references and
     their plain versions on the card, with times, bounds and sweep counts.
@@ -1870,6 +1972,7 @@ def _check_eig_kernels(gen, dev):
     from omc_torch import kernels
     from omc_torch.ops import cones
     from omc_torch.ops.jacobi import MAX_SWEEPS
+    from omc_torch.ops.tridiag import MAX_ITERS as K5_MAX_ITERS
     from omc_torch.ops.linalg import (
         K6_PATHS,
         k6_plan,
@@ -1878,9 +1981,18 @@ def _check_eig_kernels(gen, dev):
         v_step,
         v_step_plain,
     )
-    from omc_torch.sdp.relax import separation_eigpairs, separation_eigpairs_plain
+    from omc_torch.ops.cones import K4_PATHS
+    from omc_torch.sdp.relax import (
+        K5_PATHS,
+        K5_TRIDIAG,
+        _k5_launch,
+        k5_plan,
+        separation_eigpairs,
+        separation_eigpairs_plain,
+    )
 
-    out = {"K4": [], "K4s": [], "K5": [], "K6": [], "K4_nonfinite": []}
+    out = {"K4": [], "K4s": [], "K5": [], "K6": [], "K4_nonfinite": [], "K5_nonfinite": [],
+           "K5_special": []}
     i32 = dict(dtype=torch.int32, device=dev)
 
     def tm(fn, warm=False):
@@ -1904,6 +2016,28 @@ def _check_eig_kernels(gen, dev):
         row = dict(D=D, path=path, sweeps=sw.tolist(), all_nan=bool(got.isnan().all()))
         row["ok"] = row["all_nan"] and row["sweeps"] == [MAX_SWEEPS + 1] * 2
         out["K4_nonfinite"].append(row)
+    # and on K5's tridiag paths: NaN out, the inverse iteration at its cap
+    for path in K5_TRIDIAG:
+        T, _ = _eig_batch(2, 50, gen, dev)
+        T[0, 1, 2], T[1, 0, 0] = float("nan"), float("inf")
+        it = torch.empty(2, **i32)
+        w, V = _k5_launch(torch.zeros(2, 50, 1, device=dev), T, k5_plan(2, 50, path), it)
+        torch.cuda.synchronize()
+        row = dict(D=50, path=path, iters=it.tolist(),
+                   all_nan=bool(w.isnan().all() and V.isnan().all()))
+        row["ok"] = row["all_nan"] and row["iters"] == [K5_MAX_ITERS + 1] * 2
+        out["K5_nonfinite"].append(row)
+    # and on the inputs that take K5's special branches, on each tridiag
+    # path: a repeated and a near-repeated smallest pair (warp 1's inverse
+    # iteration orthogonalised against the first vector after every
+    # solve), and tridiagonals that split (the zero matrix, whose
+    # orthogonalisation leaves nothing and reseeds; a diagonal matrix, its
+    # smallest entry once or twice; Y = U U'), at d = 50 and at config 4's
+    # 250 on the float32 triangle
+    for path, d in [(p, 50) for p in K5_TRIDIAG] + [("tridiag32", 250)]:
+        for case in ("gap 0", "gap 1e-9", "zero", "diagonal", "diagonal repeated", "Y=UU'"):
+            _check_k5_special(out["K5_special"], path, d, case, gen, dev, _k5_launch, k5_plan,
+                              K5_MAX_ITERS)
 
     # ---- K4: the headline's S1 first (the row the record times), the
     # headline's B=1 and multinode's B=4 visits (S1 at d = 100, S2 at d =
@@ -2023,9 +2157,11 @@ def _check_eig_kernels(gen, dev):
     log("K4 barrier", json.dumps(probe))
     out["K4_barrier"] = [probe]
 
-    # ---- K4s: the Shor bounds' 5x5 minors and 3x3 XWH slots, 32 x 4096 ----
-    for D in (5, 3):
-        T, T64 = _eig_batch(32 * 4096, D, gen, dev)
+    # ---- K4s: the Shor bounds' 5x5 minors at config 2's (32 x 4096; the
+    # row of the record), the shor cell's (4 x 4096) and the rank-k
+    # per-term minors (32 x 1024 x 2), then the 3x3 XWH slots (32 x 4096) ----
+    for N, D in K4S_SHAPES:
+        T, T64 = _eig_batch(N, D, gen, dev)
         sw = torch.empty(T.shape[0], **i32)
         got = cones.k4s_project_psd(T, sw)
         torch.cuda.synchronize()
@@ -2039,14 +2175,22 @@ def _check_eig_kernels(gen, dev):
                    plain_ms=tm(lambda: cones.project_psd_plain(T)),
                    # cuSOLVER's batched eigh, chunked below its limit
                    library_ms=tm(lambda: cones.eigh_plain(T)))
+        plan = cones.k4s_plan(N, D)
+        row.update(plan=plan, plan_matches_kernel=plan["ctas"] == lib.omc_k4s_grid_x(N),
+                   smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D))
         row["ok"] = (row["rel_err_vs_f64"] <= 1e-5 and row["per_matrix_err_vs_f64"] <= 1e-5
-                     and row["max_sweeps"] <= MAX_SWEEPS)
+                     and row["max_sweeps"] <= MAX_SWEEPS and row["plan_matches_kernel"]
+                     and row["smem_matches_kernel"])
         with_bound(row, 4 * 2 * T.numel(), T.shape[0] * 10 * D ** 3)
+        fns = {"kernel": lambda: cones.k4s_project_psd(T)}
+        if PARENT:
+            fns["parent"] = _parent_k4s(T)
+        _device_rows(row, fns)
         out["K4s"].append(row)
 
-    # ---- K5: U U' - Y with its two smallest eigenvalues -1 and -0.6 ----
-    # (the headline's B=1 visit's separation too)
-    for B, n, k in ((64, 50, 1), (64, 75, 2), (1, 50, 1), (C4["B"], C4["n"], C4["k"])):
+    # ---- K5: U U' - Y with its two smallest eigenvalues -1 and -0.6, at
+    # every driving phase's shape (K5_SHAPES) ----
+    for B, n, k in K5_SHAPES:
         U = torch.randn(B, n, k, generator=gen, dtype=torch.float64)
         Q, _ = torch.linalg.qr(torch.randn(B, n, n, generator=gen, dtype=torch.float64))
         lam = torch.empty(B, n, dtype=torch.float64).uniform_(-0.3, 1.0, generator=gen)
@@ -2056,8 +2200,9 @@ def _check_eig_kernels(gen, dev):
         Y32 = (0.5 * (Y + Y.transpose(-1, -2))).float().to(dev).contiguous()
         M64 = U32.double() @ U32.double().transpose(-1, -2) - Y32.double()
         w64, V64 = torch.linalg.eigh(0.5 * (M64 + M64.transpose(-1, -2)))
-        sw = torch.empty(B, **i32)
-        w, V = cones.k4_jacobi(None, 2, 2, U=U32, Y=Y32, sweeps=sw)
+        plan = k5_plan(B, n)
+        it = torch.empty(B, **i32)
+        w, V = _k5_launch(U32, Y32, plan, it)
         torch.cuda.synchronize()
         wp, Vp = separation_eigpairs_plain(U32, Y32)
 
@@ -2066,35 +2211,60 @@ def _check_eig_kernels(gen, dev):
 
         M32 = 0.5 * (M64 + M64.transpose(-1, -2)).float()
 
-        def judge(w, V, sw):
+        def judge(w, V, it, path):
+            """The bars of one path: eigenvalues and sign-aligned vectors
+            within 1e-5 of a float64 eigh; the sweep cap on K4's paths (the
+            tridiag paths report inverse iterations, no bar)."""
             Va = aligned(V.double(), V64[..., :2])
-            r = dict(max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
-                     eig_err_vs_f64=float(((w.double() - w64[:, :2]).abs().amax(-1)
-                                           / w64.abs().amax(-1)).max()),
-                     vec_err_vs_f64=float((Va - V64[..., :2]).norm(dim=-2).max()))
+            count = "sweeps" if path in K4_PATHS else "iters"
+            r = {f"max_{count}": int(it.max()), f"min_{count}": int(it.min()),
+                 "eig_err_vs_f64": float(((w.double() - w64[:, :2]).abs().amax(-1)
+                                          / w64.abs().amax(-1)).max()),
+                 "vec_err_vs_f64": float((Va - V64[..., :2]).norm(dim=-2).max())}
             r["ok"] = (r["eig_err_vs_f64"] <= 1e-5 and r["vec_err_vs_f64"] <= 1e-5
-                       and r["max_sweeps"] <= MAX_SWEEPS)
+                       and (path not in K4_PATHS or r["max_sweeps"] <= MAX_SWEEPS))
             return r
 
+        # every path k5_plan could take, each timed once (the planned
+        # path's time is the row's), its bars, and a tridiag path's shared
+        # memory and threads held against the kernel's exports
         by_path, err_by_path = {}, {}
-        for path in cones.K4_PATHS:
-            if path == "cta" and not cones.k4_cta_fits(n, 2):
-                continue
-            sw2 = torch.empty(B, **i32)
-            w2, V2 = cones.k4_jacobi(None, 2, 2, U=U32, Y=Y32, sweeps=sw2, path=path)
+        for path in K5_PATHS:
+            try:
+                pp = k5_plan(B, n, path)
+            except ValueError:
+                continue  # the triangle (or K4's A and V) does not fit
+            it2 = torch.empty(B, **i32)
+            w2, V2 = _k5_launch(U32, Y32, pp, it2)
             torch.cuda.synchronize()
-            err_by_path[path] = judge(w2, V2, sw2)
-            by_path[path] = tm(lambda: cones.k4_jacobi(None, 2, 2, U=U32, Y=Y32, path=path))
-        row = dict(B=B, n=n, k=k, plan=cones.k4_plan(B, n, 2), **judge(w, V, sw),
+            err_by_path[path] = judge(w2, V2, it2, path)
+            if path in K5_TRIDIAG:
+                err_by_path[path]["smem_matches_kernel"] = (
+                    pp["smem_bytes"] == lib.omc_k5_smem_bytes(n, K5_TRIDIAG.index(path))
+                    and pp["threads"] == lib.omc_k5_threads())
+            by_path[path] = tm(lambda: _k5_launch(U32, Y32, pp), warm=True)
+        row = dict(B=B, n=n, k=k, plan=plan, **judge(w, V, it, plan["path"]),
                    max_abs_err=max(float((w - wp).abs().max()),
                                    float((aligned(V, Vp) - Vp).abs().max())),
-                   ms=tm(lambda: separation_eigpairs(U32, Y32)),
+                   ms=by_path[plan["path"]],
                    plain_ms=tm(lambda: separation_eigpairs_plain(U32, Y32)),
                    library_ms=tm(lambda: torch.linalg.eigh(M32)),
                    ms_by_path=by_path, err_by_path=err_by_path)
-        row["ok"] = row["ok"] and all(e["ok"] for e in err_by_path.values())
-        with_path_bound(row, row["plan"]["path"], 4 * B * (n * k + n * n + 2 + 2 * n),
-                        B * 9 * n ** 3)
+        row["smem_matches_kernel"] = all(e.get("smem_matches_kernel", True)
+                                         for e in err_by_path.values())
+        row["ok"] = row["ok"] and all(e["ok"] for e in err_by_path.values()) and \
+            row["smem_matches_kernel"]
+        # U and Y read, w and V written; the two smallest eigenpairs need
+        # the reduction to tridiagonal form, (4/3) n^3, after U U', 2 n^2 k
+        # (bound_all_ms: the 9 n^3 of a full Jacobi eigendecomposition,
+        # the figure K5's rows had before its own kernel)
+        nbytes = 4 * B * (n * k + n * n + 2 + 2 * n)
+        with_path_bound(row, plan["path"], nbytes, B * (4 * n ** 3 / 3 + 2 * n * n * k))
+        row["bound_all_ms"] = with_path_bound({}, plan["path"], nbytes, B * 9 * n ** 3)["bound_ms"]
+        fns = {"kernel": lambda: separation_eigpairs(U32, Y32)}
+        if PARENT:
+            fns["parent"] = _parent_k5(U32, Y32, 2)
+        _device_rows(row, fns)
         out["K5"].append(row)
 
     # ---- K6: one V-step + U-step at the headline's n = m = 50, config 4's
@@ -2694,7 +2864,8 @@ def phase_mccormick(res):
 C4 = dict(n=250, m=250, k=5, L=8, B=128, iters=400, substeps=2, gamma=80.0)
 # kernel names in a profile: K4 and K5 share one template per path
 K4_NAMES = {"k4_kernel<false>": "K4", "k4_kernel<true>": "K5",
-            "k4_block_kernel<16, false>": "K4", "k4_block_kernel<16, true>": "K5"}
+            "k4_block_kernel<16, false>": "K4", "k4_block_kernel<16, true>": "K5",
+            "k5_kernel": "K5"}
 
 
 def _config4_frontier(dev, B=None, iters=None):
@@ -3059,7 +3230,7 @@ KERNELS = (
      "omc_torch/csrc/k4s_jacobi_small.cu", "omc/sdp/admm_shor.py:786"),
     ("K5", ("K5",),
      "K5 separation eigenpairs of UU'-Y, two smallest (B=64, n=50)",
-     "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/admm.py:576"),
+     "omc_torch/csrc/k5_separation.cu", "omc/sdp/admm.py:576"),
     ("K6", ("K6",),
      "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
@@ -3091,7 +3262,8 @@ def main(argv=None):
                     help="comma-separated subset of: " + ", ".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--parent", help="a checkout of an older tree: its K2, K3, K7, K8a, K8b, "
-                    "K7t, K7x, K8d, K9s, K9a and K9b are timed beside the kernels phase's rows")
+                    "K7t, K7x, K8d, K9s, K9a, K9b, K4s and K5 are timed beside the kernels "
+                    "phase's rows")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:

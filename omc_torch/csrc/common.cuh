@@ -703,6 +703,17 @@ struct K4Params {
   int path;            // 0: one CTA per matrix; 1: the block path
 };
 
+// K5: the nout <= 2 smallest eigenpairs of sym(U U' - Y), one CTA per
+// matrix (Householder tridiagonalisation, multisection, inverse iteration)
+struct K5Params {
+  const float *U, *Y;  // (B, d, k), (B, d, d)
+  float* w;            // (B, nout) ascending
+  float* V;            // (B, d, nout) unit columns
+  int* iters;          // (B,) inverse iterations run; kK5MaxIters + 1 at the cap
+  int B, d, k, nout;
+  int path;            // 0: the triangle in float64; 1: in float32
+};
+
 // K4s: PSD projection of N tiny (D x D, D <= 8) symmetric matrices, one
 // thread per matrix in registers
 struct K4sParams {

@@ -33,7 +33,8 @@ PyTorch version:
 - K4 ``omc_torch.ops.cones.eigvalsh`` and
   ``project_psd`` (d > 8)                          (``csrc/k4_jacobi.cu``)
 - K4s ``omc_torch.ops.cones.project_psd`` (d <= 8) (``csrc/k4s_jacobi_small.cu``)
-- K5 ``omc_torch.sdp.relax.separation_eigpairs``   (``csrc/k4_jacobi.cu``)
+- K5 ``omc_torch.sdp.relax.separation_eigpairs``   (``csrc/k5_separation.cu``;
+  ``k5_plan`` gives K4's paths the matrices whose triangle does not fit)
 - K6 ``omc_torch.ops.linalg.v_step`` and
   ``u_step_unconstrained``                         (``csrc/k6_altmin.cu``)
 
@@ -276,6 +277,10 @@ class K4Params(ctypes.Structure):
                        ("B", "d", "k", "nout", "mode", "path"), ())
 
 
+class K5Params(ctypes.Structure):
+    _fields_ = _struct(("U", "Y", "w", "V", "iters"), ("B", "d", "k", "nout", "path"), ())
+
+
 class K4sParams(ctypes.Structure):
     _fields_ = _struct(("t", "w", "sweeps"), ("N", "D"), ())
 
@@ -302,6 +307,7 @@ def _load(path: Path):
         ("omc_k9a_zstep", K9aParams),
         ("omc_k9b_cone", K9bParams),
         ("omc_k4_jacobi", K4Params),
+        ("omc_k5_separation", K5Params),
         ("omc_k4s_jacobi_small", K4sParams),
         ("omc_k6_vstep", K6Params),
         ("omc_k6_ustep", K6Params),
@@ -313,6 +319,14 @@ def _load(path: Path):
     lib.omc_error_string.restype = ctypes.c_char_p
     lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.omc_k4_workspace_floats.restype = ctypes.c_longlong
+    lib.omc_k5_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.omc_k5_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k5_threads.argtypes = []
+    lib.omc_k5_threads.restype = ctypes.c_int
+    lib.omc_k4s_smem_bytes.argtypes = [ctypes.c_int]
+    lib.omc_k4s_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k4s_grid_x.argtypes = [ctypes.c_int]
+    lib.omc_k4s_grid_x.restype = ctypes.c_int
     lib.omc_k1_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.omc_k1_scratch_floats.restype = ctypes.c_longlong
     lib.omc_k1_cluster_smem.argtypes = [ctypes.c_int, ctypes.c_int]

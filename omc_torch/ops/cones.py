@@ -185,6 +185,20 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
     return P if mode == 1 else (w if mode == 0 else (w, V))
 
 
+# K4s's geometry (csrc/k4s_jacobi_small.cu): matrices (threads) a CTA
+K4S_THREADS = 128
+
+
+def k4s_plan(N, D):
+    """K4s's launch for ``N`` matrices of order ``D``: ``ctas`` of
+    ``threads`` matrices each (the last one ragged), every matrix staged at
+    a row of ``stride`` = D^2 | 1 floats (odd), ``smem_bytes`` a CTA (the
+    kernel's ``omc_k4s_grid_x`` and ``omc_k4s_smem_bytes``)."""
+    stride = (D * D) | 1
+    return dict(ctas=-(-N // K4S_THREADS), threads=K4S_THREADS, stride=stride,
+                smem_bytes=4 * K4S_THREADS * stride)
+
+
 def k4s_project_psd(M, sweeps=None):
     """Launch K4s: the PSD projection of a (..., d, d) batch, d <= 8, one
     thread per matrix, any batch size in one launch."""

@@ -342,3 +342,141 @@ def jacobi_project_psd_blocked(M, width: int = 16, max_sweeps: int = MAX_SWEEPS)
     wp = torch.where(w > 0, w, torch.where(torch.isnan(w), w, torch.zeros_like(w)))
     P = _block_matmul(M.dtype)(V * wp[..., None, :], V.transpose(-1, -2))
     return torch.triu(P) + torch.triu(P, 1).transpose(-1, -2), sweeps
+
+
+# ---------------------------------------------------------------------------
+# K4s (csrc/k4s_jacobi_small.cu): cyclic-by-row Jacobi, one thread a matrix
+# ---------------------------------------------------------------------------
+
+
+def k4s_scale(normF):
+    """K4s's power of two 2^k, k = 1 - frexp exponent of ||A||_F (so that
+    ||A||_F 2^k lies in [1, 2)), clamped to the dtype's normal range; 2^0
+    for a zero or non-finite norm."""
+    lim = 126 if normF.dtype == torch.float32 else 1022
+    ex = torch.frexp(normF).exponent
+    k = torch.clamp(1 - ex, -lim, lim)
+    k = torch.where(torch.isfinite(normF) & (normF != 0), k, torch.zeros_like(k))
+    return torch.ldexp(torch.ones_like(normF), k)
+
+
+def k4s_rotation(app, aqq, apq, floor2):
+    """K4s's skip test and rotation (``k4s_rotation.cuh``) on scaled
+    values: ``rot`` where |a_pq|^2 > max(eps^2 |a_pp| |a_qq|, floor^2) (a
+    NaN rotates); with h = a_qq - a_pp, g = 2 a_pq, g' = sign(h) g, e = |h| +
+    sqrt(h^2 + g^2), f = sqrt(e^2 + g^2): t = g' / e, s = g' / f and r =
+    g' / (e + f), t and r from the one reciprocal 1 / (e (e + f)).  Returns
+    ``(rot, t, s, r)``, the parameters 0 where the pair is skipped."""
+    eps = torch.finfo(app.dtype).eps
+    rel2 = (eps * eps) * (torch.abs(app) * torch.abs(aqq))
+    thr2 = torch.where(rel2 > floor2, rel2, floor2)
+    rot = ~(apq * apq <= thr2)
+    h, g = aqq - app, 2.0 * apq
+    g = torch.where(rot, g, torch.ones_like(g))
+    gs = torch.copysign(torch.ones_like(h), h) * g
+    e = torch.abs(h) + torch.sqrt(h * h + g * g)
+    n2 = e * e + g * g
+    inv = torch.rsqrt(n2)
+    f = n2 * inv
+    q = 1.0 / (e * (e + f))
+    zero = torch.zeros_like(g)
+    t = torch.where(rot, gs * (e + f) * q, zero)
+    r = torch.where(rot, gs * e * q, zero)
+    s = torch.where(rot, gs * inv, zero)
+    return rot, t, s, r
+
+
+def k4s_eigh(M, max_sweeps: int = MAX_SWEEPS):
+    """Eigenvalues (unsorted: the diagonal at the end), eigenvectors and
+    sweep counts of a batch of symmetric (..., D, D) matrices by K4s's
+    schedule: the matrix symmetrised and scaled by ``k4s_scale``,
+    cyclic-by-row sweeps (pairs (p, q), p < q, row by row) with
+    ``k4s_rotation`` and K4's floor eps ||A||_F / (4 D) (NaN for a
+    non-finite matrix, which then rotates to the cap), each rotation applied
+    to rows and columns p and q in Rutishauser's form, then a_pp -= t a_pq,
+    a_qq += t a_pq, a_pq = 0; the sweeps stop after the first that rotates
+    no pair, or at ``max_sweeps`` (``sweeps`` is then ``max_sweeps + 1``).
+    Returns ``(w, V, sweeps)``, ``w`` unscaled (NaN for a non-finite
+    input)."""
+    shape = M.shape
+    D = shape[-1]
+    A = M.reshape(-1, D, D)
+    A = 0.5 * (A + A.transpose(-1, -2))
+    Bn = A.shape[0]
+    dt, dev = A.dtype, A.device
+    eps = torch.finfo(dt).eps
+    normF = torch.sqrt(torch.sum(A * A, dim=(-2, -1)))
+    bad = ~torch.isfinite(normF)
+    sc = k4s_scale(normF)
+    floor = torch.where(bad, torch.full_like(normF, float("nan")), eps * (normF * sc) / (4.0 * D))
+    floor2 = floor * floor
+    A = A * sc[:, None, None]
+    V = torch.eye(D, dtype=dt, device=dev).expand(Bn, D, D).clone()
+    sweeps = torch.full((Bn,), max_sweeps + 1, dtype=torch.int32, device=dev)
+    active = torch.ones((Bn,), dtype=torch.bool, device=dev)
+    for sweep in range(1, max_sweeps + 1):
+        rotated = torch.zeros((Bn,), dtype=torch.bool, device=dev)
+        for p in range(D - 1):
+            for q in range(p + 1, D):
+                app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]
+                rot, t, s, r = k4s_rotation(app, aqq, apq, floor2)
+                rot = rot & active
+                if not bool(rot.any()):
+                    continue
+                rotated = rotated | rot
+                s, r, t = (torch.where(rot, x, torch.zeros_like(x)) for x in (s, r, t))
+                ks = [k for k in range(D) if k not in (p, q)]
+                A = A.clone()
+                if ks:
+                    x, y = A[:, ks, p], A[:, ks, q]
+                    xn = _rot0(x, y, s[:, None], r[:, None])
+                    yn = _rot1(x, y, s[:, None], r[:, None])
+                    A[:, ks, p], A[:, p, ks] = xn, xn
+                    A[:, ks, q], A[:, q, ks] = yn, yn
+                A[:, p, p] = torch.where(rot, app - t * apq, app)
+                A[:, q, q] = torch.where(rot, aqq + t * apq, aqq)
+                apq0 = torch.where(rot, torch.zeros_like(apq), apq)
+                A[:, p, q], A[:, q, p] = apq0, apq0
+                Vp, Vq = V[:, :, p], V[:, :, q]
+                V = V.clone()
+                V[:, :, p] = _rot0(Vp, Vq, s[:, None], r[:, None])
+                V[:, :, q] = _rot1(Vp, Vq, s[:, None], r[:, None])
+        newly = active & ~rotated
+        sweeps = torch.where(newly, torch.full_like(sweeps, sweep), sweeps)
+        active = active & rotated
+        if not bool(active.any()):
+            break
+    w = torch.diagonal(A, dim1=-2, dim2=-1) / sc[:, None]
+    w = torch.where(bad[:, None], torch.full_like(w, float("nan")), w)
+    return w.reshape(shape[:-1]), V.reshape(shape), sweeps.reshape(shape[:-2])
+
+
+def k4s_project_psd(M, max_sweeps: int = MAX_SWEEPS):
+    """The PSD projection V max(w, 0) V' of K4s through ``k4s_eigh`` (NaN
+    eigenvalues propagate).  Returns ``(P, sweeps)``."""
+    w, V, sweeps = k4s_eigh(M, max_sweeps)
+    wp = torch.where(w > 0, w, torch.where(torch.isnan(w), w, torch.zeros_like(w)))
+    return (V * wp[..., None, :]) @ V.transpose(-1, -2), sweeps
+
+
+def k4s_staging(N: int, D: int, aligned: bool = True, threads: int = 128):
+    """K4s's staging of a batch of ``N`` (D, D) matrices, as the kernel's
+    ``stage_in`` walks it: warp g of the grid takes matrices [32 g, min(N,
+    32 g + 32)), in 16-byte quads of its floats while they last (none where
+    the tensor is not 16-byte aligned), the ragged tail one float at a time;
+    float f of a CTA of ``threads`` matrices (warp g % (threads / 32) of CTA
+    g // (threads / 32)) lands in its staging slot (f // D^2) (D^2 | 1) +
+    f % D^2.  Returns ``(cta, flat, slot)`` int64 tensors, one entry per
+    load, in the order each warp issues them."""
+    DD = D * D
+    LD = DD | 1
+    per = threads // 32
+    ctas, flats, slots = [], [], []
+    for g in range(-(-N // 32)):
+        nf = (min(N, 32 * g + 32) - 32 * g) * DD
+        n4 = nf // 4 if aligned else 0
+        f = torch.cat([torch.arange(4 * n4), torch.arange(4 * n4, nf)]) + (g % per) * 32 * DD
+        ctas.append(torch.full_like(f, g // per))
+        flats.append((g // per) * threads * DD + f)
+        slots.append((f // DD) * LD + f % DD)
+    return torch.cat(ctas), torch.cat(flats), torch.cat(slots)

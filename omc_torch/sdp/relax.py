@@ -25,7 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from omc_torch.ops.cones import eigvalsh, k4_jacobi, project_psd
+from omc_torch import kernels
+from omc_torch.ops.cones import K4_PATHS, _cuda, eigvalsh, k4_jacobi, k4_plan, project_psd
 
 
 @dataclasses.dataclass
@@ -154,16 +155,84 @@ def safe_dual_bound2(A, mask, batch: NodeBatch, y1, y2, ya, yb, yc, gamma, k,
     return lb - margin_rel * scale, lb
 
 
+# K5's geometry (csrc/k5_separation.cu): one CTA a matrix holds the packed
+# lower triangle of U U' - Y in shared memory, in float64 ("tridiag64")
+# where it fits, else in float32 ("tridiag32"), for the two smallest
+# eigenpairs; K4's paths (``ops.cones.k4_plan``) take the rest
+K5_SMEM_MAX = 232448
+K5_THREADS = 512  # a tridiag-path CTA's threads (omc_k5_threads), at every order
+K5_TRIDIAG = ("tridiag64", "tridiag32")
+K5_PATHS = K5_TRIDIAG + K4_PATHS
+
+
+def k5_smem_bytes(d, path):
+    """Shared memory of one tridiag-path CTA (``omc_k5_smem_bytes``), or 0
+    where it does not fit (d > 224 in float64, d > 309 in float32): 16 d + 8
+    doubles (the tridiagonal, each reflector's tau and scale, the step's p
+    and p_r v_r, two vectors and their LU factors, eight scalars), the
+    packed triangle in the path's type, and two pivot-flag bytes an index,
+    rounded up to 16."""
+    size = 8 if path == "tridiag64" else 4
+    b = 8 * (16 * d + 8) + size * (d * (d + 1) // 2) + 2 * d
+    b = -(-b // 16) * 16
+    return b if b <= K5_SMEM_MAX else 0
+
+
+def k5_plan(B, d, path=None):
+    """K5's path for ``B`` separations of order ``d``: the float64 triangle
+    where it fits one CTA, else the float32 triangle, else K4's plan for
+    the eigenpairs.  ``path`` (one of ``K5_PATHS``) forces one; a tridiag
+    path raises ``ValueError`` where its triangle does not fit.  Returns a
+    dict: ``path``, ``smem_bytes`` and ``threads`` a CTA (the kernel's
+    exports; 0 on K4's paths)."""
+    if path is None:
+        fits = [p for p in K5_TRIDIAG if k5_smem_bytes(d, p)]
+        path = fits[0] if fits else k4_plan(B, d, 2)["path"]
+    if path not in K5_PATHS:
+        raise ValueError(f"K5 path must be one of {K5_PATHS}, got {path!r}")
+    if path in K4_PATHS:
+        return dict(path=path, smem_bytes=0, threads=0, k4=k4_plan(B, d, 2, path))
+    if not k5_smem_bytes(d, path):
+        raise ValueError(f"K5's {path} path: d={d} does not fit")
+    return dict(path=path, smem_bytes=k5_smem_bytes(d, path), threads=K5_THREADS)
+
+
 def separation_eigpairs(U, Y):
     """The two smallest eigenpairs of the symmetrised U U' - Y, the
     branching separation of every family (``omc``: ``eigh(U U' - Y)``
     sliced to two).  ``U`` (B, n, k), ``Y`` (B, n, n); returns ``sep_w``
     (B, 2) ascending and ``sep_V`` (B, n, 2).  Kernel K5 on a CUDA tensor,
-    ``separation_eigpairs_plain`` on a CPU tensor.
-    Neither fixes the eigenvectors' signs, as ``omc`` does not."""
+    on the path ``k5_plan`` gives; ``separation_eigpairs_plain`` on a CPU
+    tensor.  Neither fixes the eigenvectors' signs, as ``omc`` does not."""
     if U.device.type == "cpu":
         return separation_eigpairs_plain(U, Y)
-    return k4_jacobi(None, 2, min(2, Y.shape[-1]), U=U, Y=Y)
+    return _k5_launch(U, Y, k5_plan(Y.shape[0], Y.shape[-1]))
+
+
+def _k5_launch(U, Y, plan, iters=None):
+    """Launch K5 on ``plan``'s path (K4's kernel on K4's paths), with its
+    count a matrix in ``iters`` (optional int32 (B,): inverse iterations on
+    the tridiag paths, Jacobi sweeps on K4's)."""
+    dev = _cuda("K5", Y)
+    B, d = Y.shape[0], Y.shape[-1]
+    nout = min(2, d)
+    if plan["path"] in K4_PATHS:
+        return k4_jacobi(None, 2, nout, U=U, Y=Y, sweeps=iters, path=plan["path"])
+    U, Y = U.contiguous(), Y.contiguous()
+    p = kernels.K5Params()
+    p.B, p.d, p.k, p.nout = B, d, U.shape[-1], nout
+    p.path = K5_TRIDIAG.index(plan["path"])
+    p.U = kernels.check("U", U, (B, d, p.k), dev)
+    p.Y = kernels.check("Y", Y, (B, d, d), dev)
+    if iters is None:
+        iters = torch.empty((B,), dtype=torch.int32, device=dev)
+    p.iters = kernels.check("iters", iters, (B,), dev, torch.int32)
+    w = torch.empty((B, nout), dtype=torch.float32, device=dev)
+    V = torch.empty((B, d, nout), dtype=torch.float32, device=dev)
+    p.w, p.V = w.data_ptr(), V.data_ptr()
+    if B:
+        kernels.launch("K5", "omc_k5_separation", p, dev)
+    return w, V
 
 
 def separation_eigpairs_plain(U, Y):
