@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``omc_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, about 8 minutes on an H100
+    python3 chip_smoke.py            # every phase, about 10 minutes on an H100
 
 Phases, in order (each prints its numbers on lines of its own):
 
@@ -31,29 +31,33 @@ Phases, in order (each prints its numbers on lines of its own):
                K7t, K7x (fused) and K8d at k = 2, 3 and 4 and K7x's
                projection mode, K9a and K9b at (B, n=m, k) = (64, 50, 1),
                (64, 75, 2), (1, 50, 1), (16, 50, 1) (MC_SHAPES), with their
-               device times; the build fails if ptxas reports a spill in
-               K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9a or K9b
+               device times, and K9s also at (64, 50, 3); the build fails if
+               ptxas reports a spill in K2, K3, K6, K7, K7t, K7x, K8a, K8b,
+               K8c, K8d, K9s, K9a or K9b
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
 5. fixtures  — the four certified instances of tests/fixtures/instances.json
 6. headline  — rank-1 50x50, 50% observed, gamma 80, gap 1e-4 (cold, warm)
 7. multinode — the 30%-observed instance, gap 1e-4
-8. branch    — the 20%-observed instance, 45 s budget
-9. shor      — the 30%-observed instance with static Shor minors
+8. dist      — the multi-process frontier: two ranks of
+               omc_torch.parallel.worker on the card over gloo, the
+               multinode instance at batch 8, 60 s
+9. branch    — the 20%-observed instance, 30 s budget
+10. shor     — the 30%-observed instance with static Shor minors
                (breadth-first, 60 s): the K7/K8a/K8b path
-10. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
-               60 s, with soundness checks
-11. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 75 s
-12. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
+11. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
+               45 s, with soundness checks
+12. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
+               smallest_2_eigvec, best-first/depth-first, batch 64), 60 s
+13. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
-               call (iterative Shor, batch 32), 75 s
-13. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
+               call (iterative Shor, batch 32), 60 s
+14. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
-               McCormick B&B on the headline instance, 45 s
-14. config4  — BASELINE config 4's frontier step (rank-5 250x250, a device
+               McCormick B&B on the headline instance, 30 s
+15. config4  — BASELINE config 4's frontier step (rank-5 250x250, a device
                batch of 128 nodes, 400 iterations, one safe-bound call: K4 at
                d=500, 255 and 250, K5 at d=250): a warm-up step, then two
                timed sub-steps, the 8 lowest bounds certified in float64
@@ -87,7 +91,8 @@ Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
 record and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Without a CUDA device it exits with code 2.  ``--phases a,b`` runs a
+Without a CUDA device it exits with code 2, and outside a checkout of the
+repository (no ``omc_torch`` beside it) with code 4.  ``--phases a,b`` runs a
 subset (for debugging; the final lines are printed only for a full run);
 ``--out FILE`` also writes every phase's numbers to a JSON file.
 This script imports no jax and nothing of the ``omc`` package.
@@ -105,8 +110,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
-          "multinode", "branch", "shor", "config2", "config3", "shork", "mccormick",
-          "config4")
+          "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
+          "mccormick", "config4")
 EXTRA_PHASES = ("trace",)  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -235,7 +240,7 @@ def phase_device(res):
 
 # the kernels whose small arrays must stay in registers (no stack frame)
 NO_FRAME = ("k7_kernel", "k7t_kernel", "k7x_kernel", "k8a_kernel", "k8b_kernel", "k8d_kernel",
-            "k9a_kernel", "k9b_kernel")
+            "k9s_kernel", "k9a_kernel", "k9b_kernel")
 
 
 def phase_build(res):
@@ -256,18 +261,18 @@ def phase_build(res):
     keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel") + NO_FRAME
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
-    log("build: K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9a and K9b registers",
+    log("build: K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9s, K9a and K9b registers",
         json.dumps(regs))
     if PARENT:
         res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
                                if any(x in f for x in NO_FRAME)}
-        log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9a and K9b",
+        log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9s, K9a and K9b",
             json.dumps(res["parent_ptxas"]))
     # K2's, K3's, K6's, K7's, K7t's, K7x's, K8a's, K8b's, K8c's, K8d's,
-    # K9a's and K9b's instantiations keep every value in registers; K7's,
-    # K7t's, K7x's, K8a's, K8b's, K8d's, K9a's and K9b's index their small
-    # arrays only with constants (no stack frame: a 5x5 triangle in local
-    # memory costs K7 ten times its time)
+    # K9s's, K9a's and K9b's instantiations keep every value in registers;
+    # K7's, K7t's, K7x's, K8a's, K8b's, K8d's, K9s's, K9a's and K9b's index
+    # their small arrays only with constants (no stack frame: a 5x5 triangle
+    # in local memory costs K7 ten times its time)
     assert not [f for f in spills if any(x in f for x in keep)], spills
     frames = {f: r["stack"] for f, r in report.items()
               if any(x in f for x in NO_FRAME) and r["stack"]}
@@ -585,17 +590,20 @@ def phase_kernels(res):
     # and K9b also at the root visit's batch and a mid-tree frontier's ----
     for name in ("K9s", "K9a", "K9b"):
         out[name] = []
-    for B, n, k in MC_SHAPES:
-        rows = _check_mc_kernels(B, n, n, k, gen, dev, k9s=B == 64)
+    for B, n, k in MC_SHAPES + K9S_EXTRA_SHAPES:
+        if (B, n, k) in K9S_EXTRA_SHAPES:
+            rows = {"K9s": _check_k9s(_mc_inputs(B, n, n, k, gen, dev)[0], B, n, k, dev)}
+        else:
+            rows = _check_mc_kernels(B, n, n, k, gen, dev, k9s=B == 64)
         for name, row in rows.items():
             log(name, json.dumps(row))
             # float32 sums in another order than the plain version's, so
             # 1e-5 relative as K8c/K8d; two launches give the same bits;
-            # K9s's factors reproduce the row Grams; K9a's and K9b's grids
-            # are k9_plan's
+            # K9s's factors reproduce the row Grams; the grids are k9s_plan's
+            # and k9_plan's
             checks.append((name, row, row["rel_err"] <= 1e-5 and row["deterministic"]
                            and row.get("gram_rel_err", 0.0) <= 1e-5
-                           and row.get("plan_matches_kernel", name == "K9s")))
+                           and row["plan_matches_kernel"]))
             out[name].append(row)
 
     # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps ----
@@ -1738,6 +1746,8 @@ def _mc_inputs(B, n, m, k, gen, dev):
 # at the headline's shape and at config 3's, the root visit, a mid-tree
 # frontier
 MC_SHAPES = ((64, 50, 1), (64, 75, 2), (1, 50, 1), (16, 50, 1))
+# K9s alone at rank 3: the structured Gram's largest saving over a dense one
+K9S_EXTRA_SHAPES = ((64, 50, 3),)
 
 
 def _check_mc_kernels(B, n, m, k, gen, dev, k9s=True):
@@ -1845,6 +1855,8 @@ def _check_k9s(c, B, n, k, dev):
 
     from omc_torch.sdp import mccormick as MC
 
+    from omc_torch import kernels
+
     q = k * (k + 1) // 2
     kq = k + q
     got = MC.mc_setup(c.batch, k)
@@ -1856,11 +1868,22 @@ def _check_k9s(c, B, n, k, dev):
     Et = torch.zeros((kq, q), dtype=torch.float32, device=dev)
     Et[k:] = torch.eye(q, dtype=torch.float32, device=dev)
     Etb = Et.expand(B, n, kq, q).contiguous()
+    plan = MC.k9s_plan(B, n, k)
+    lib = kernels.library()
+    # ms: the wrapper as the solver calls it (a new buffer, the block packed
+    # and every operand checked); launch_ms: the launch alone, of a block
+    # packed beforehand into one buffer, as parent_ms launches the parent's
+    buf = MC.mc_setup_buffer(B, n, k, dev)
+    prm = MC._k9s_params(c.batch, k, MC._k9s_views(buf, B, n, k), dev)
     fns = {"kernel": lambda: MC.mc_setup(c.batch, k)}
-    row = dict(B=B, n=n, k=k, rel_err=rel, max_abs_err=ab,
+    row = dict(B=B, n=n, k=k, plan=plan,
+               plan_matches_kernel=(plan["threads"] == lib.omc_k9s_threads(n, k)
+                                    and plan["smem_bytes"] == lib.omc_k9s_smem_bytes(n, k)),
+               rel_err=rel, max_abs_err=ab,
                gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
                deterministic=_same_bits(got, got2),
                ms=cuda_time_ms(fns["kernel"]),
+               launch_ms=cuda_time_ms(lambda: kernels.launch("K9s", "omc_k9s_setup", prm, dev)),
                plain_ms=cuda_time_ms(lambda: MC.mc_setup_plain(c.batch, k)),
                # the library chain on the same Grams: cuSOLVER's batched
                # Cholesky, then the triangular solves for S_i
@@ -1870,10 +1893,11 @@ def _check_k9s(c, B, n, k, dev):
         fns["parent"] = _parent_k9s(c.batch, k)
         row["parent_ms"] = cuda_time_ms(fns["parent"])
     _device_rows(row, fns)
-    # boxes in; Mc, Si, Gc out.  Per row: the Gram (4q rank-1 updates of
-    # (k+q)^2), its Cholesky, q solves; per slot G's sum and Cholesky
+    # boxes in; Mc, Si, Gc out.  Per row: the Gram from its structure (each
+    # envelope row's at most 3 x 3 block: 4 q rows of at most 12 operations),
+    # its Cholesky, q solves; per slot G's sum and Cholesky
     return with_bound(row, 4 * (B * n * (2 * k + kq * kq + kq * q) + B * q * q),
-                      B * n * (8 * q * kq * kq + kq ** 3 // 3 + 2 * q * kq * kq)
+                      B * n * (48 * q + kq ** 3 // 3 + 2 * q * kq * kq)
                       + B * (n * q * q + q ** 3))
 
 
@@ -2449,8 +2473,8 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # the phases that drive the port's paths through its entry points: every
 # launch they make counts in the record (the kernels phase's launches, made
 # to compare each kernel with its plain version, do not)
-COUNTED = ("admm", "fixtures", "headline", "multinode", "branch", "shor", "config2", "config3",
-           "shork", "mccormick", "config4")
+COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
+           "config3", "shork", "mccormick", "config4")
 _PHASE = {"name": None}
 
 
@@ -2564,7 +2588,7 @@ def phase_branch(res):
 
     A, idx = _bench_instance(0.2)
     kernels.reset_launches()
-    sol, inst, secs = _solve(A, idx, 80.0, **{**BENCH_KW, "time_limit": 45})
+    sol, inst, secs = _solve(A, idx, 80.0, **{**BENCH_KW, "time_limit": 30})
     _assert_launched(kernels.LAUNCHES, BOUND_KEYS)
     row = _summary(sol, inst, secs)
     log_ = inst["run_log"]
@@ -2578,6 +2602,106 @@ def phase_branch(res):
     assert row["gap_final"] < row["gap_first"], row
     assert row["objective"] <= row["objective_initial"] + 1e-12, row
     res["branch"] = row
+
+
+# the multi-process frontier: two ranks of omc_torch.parallel.worker on the
+# card, over gloo, on the multinode instance (BENCH_KW with batch 8, so that
+# the frontier outgrows a batch, 60 s, rebalancing every round; the root's
+# budget not boosted and at most two refinement visits a node, since with
+# either this root certifies alone and rank 1 would get no node)
+DIST_RANKS = 2
+DIST_TIME_LIMIT = 60
+# seconds a rank may take, start-up and the final gather included
+DIST_TIMEOUT = 240
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dist(res):
+    """Two ranks of ``python -m omc_torch.parallel.worker --instance
+    multinode`` share the card: the root starts on
+    rank 0, rank 1 starts empty and gets nodes only by migration.  Both exit
+    0, agree on the objective (the instance's optimum within the combined
+    gaps), certify the gap or keep every lower bound at or below the
+    optimum, rank 1 explores nodes, the global census is the sum of the
+    ranks', each rank's K1-K6 launch counts grew, and the migration was
+    warm: migrated states were installed, and none had a leaf that did not
+    fit the wire: rank 1 installed states that came with its nodes."""
+    from omc_torch import kernels
+
+    kernels.library()  # the build phase's library: the ranks load it, never build
+    out_dir = os.path.join(HERE, "build", "dist_phase")
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "omc_torch.parallel.worker", "--coordinator",
+           f"localhost:{_free_port()}", "--world", str(DIST_RANKS), "--instance", "multinode",
+           "--device", "cuda", "--set", f"time_limit={DIST_TIME_LIMIT}",
+           "--timeout", "120"]
+    procs, files = [], []
+    for r in range(DIST_RANKS):
+        fo = open(os.path.join(out_dir, f"rank{r}.out"), "w+")
+        fe = open(os.path.join(out_dir, f"rank{r}.err"), "w+")
+        files.append((fo, fe))
+        procs.append(subprocess.Popen(cmd + ["--rank", str(r)], cwd=HERE, stdout=fo, stderr=fe,
+                                      text=True))
+    deadline = time.time() + DIST_TIMEOUT
+    ranks = []
+    try:
+        for r, (p, (fo, fe)) in enumerate(zip(procs, files)):
+            rc = p.wait(timeout=max(1.0, deadline - time.time()))
+            fo.seek(0)
+            fe.seek(0)
+            out, err = fo.read(), fe.read()
+            assert rc == 0, f"rank {r} exited {rc}:\n{err[-3000:]}"
+            line = [x for x in out.splitlines() if x.startswith("RESULT ")][-1]
+            ranks.append(json.loads(line[len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fo, fe in files:
+            fo.close()
+            fe.close()
+    for r in ranks:
+        log(f"dist rank {r['pid']} wall_s {r['wall_seconds']:.3f} solve_s "
+            f"{r['solve_seconds']:.3f}")
+        log(f"dist rank {r['pid']} dist_sync_seconds {r['dist_sync_seconds']:.3f}")
+        log(f"dist rank {r['pid']} states_installed {r['states_installed']} "
+            f"state_refit_leaves {r['state_refit_leaves']}")
+        log("dist rank", r["pid"], json.dumps(r))
+    tot = res.setdefault("launches_by_phase", {}).setdefault(
+        "dist", dict.fromkeys(kernels.LAUNCHES, 0))
+    for r in ranks:
+        for key, v in r["launches"].items():
+            tot[key] += v
+    r0, r1 = ranks
+    assert r0["pid"] == 0 and r1["pid"] == 1, ranks
+    assert r0["process_count"] == r1["process_count"] == DIST_RANKS, ranks
+    gap = max(r0["gap"], r1["gap"])
+    assert r0["objective"] == r1["objective"], ranks
+    assert abs(r0["objective"] - MULTI_OBJ) <= (gap + MULTI_GAP) * MULTI_OBJ, ranks
+    certified = gap <= 1e-4
+    for r in ranks:
+        # no certified lower bound above the instance's optimum
+        assert r["lower_max"] is None or r["lower_max"] <= MULTI_OBJ * (1 + 1e-9), r
+        assert certified or r["solve_seconds"] >= DIST_TIME_LIMIT, r
+        _assert_launched(r["launches"], ("K1", "K2", "K3", "K4", "K5", "K6"))
+    # rank 1 starts empty: its nodes came by migration
+    assert r1["nodes_explored_local"] > 0, ranks
+    # warm migration: every migrated state fitted the wire spec, and rank 1
+    # installed states that came with its nodes
+    assert r0["state_refit_leaves"] == r1["state_refit_leaves"] == 0, ranks
+    assert r1["states_installed"] > 0, ranks
+    assert r0["census_global"] == r1["census_global"], ranks
+    for key in ("nodes_explored", "refinement_visits"):
+        assert r0["census_global"][key] == r0[f"{key}_local"] + r1[f"{key}_local"], (key, ranks)
+    res["dist"] = dict(ranks=ranks, certified=certified, gap=gap)
 
 
 SHOR_KW = dict(
@@ -2622,7 +2746,7 @@ CONFIG2_KW = dict(
     disjunctive_cuts_breakpoints="smallest_1_eigvec",
     add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=60, batch_size=32,
+    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=45, batch_size=32,
     sdp_iters=2000, dtype="float32", altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: one visit's budget is not boosted 8x
     sdp_iter_boost_max=1,
@@ -2631,7 +2755,7 @@ CONFIG2_KW = dict(
 
 def phase_config2(res):
     """BASELINE config 2 at full width (rank-1 100x100, 30% observed, seed 1,
-    iterative [4]-minor Shor, breadth-first, batch 32), 60 s."""
+    iterative [4]-minor Shor, breadth-first, batch 32), 45 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -2671,10 +2795,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=75, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=60, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget, and the budget is 75 s
+    # of K1's d=150 chain) does not fit the budget, and the budget is 60 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -2729,7 +2853,7 @@ def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
 
 def phase_config3(res):
     """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
-    smallest_2_eigvec, best-first/depth-first, batch 64), 75 s: the base
+    smallest_2_eigvec, best-first/depth-first, batch 64), 60 s: the base
     path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
     from omc_torch import kernels
 
@@ -2744,7 +2868,7 @@ def phase_config3(res):
 def phase_shork(res):
     """The rank-k Shor path on config 3's instance: (i) one root visit of
     2,000 iterations, held to omc's bound for the same call; (ii) the full
-    call (iterative Shor, batch 32), 75 s, through K1, K2, K3, K7t, K7x,
+    call (iterative Shor, batch 32), 60 s, through K1, K2, K3, K7t, K7x,
     K8c and K8d."""
     from omc_torch import kernels
 
@@ -2775,7 +2899,7 @@ def phase_shork(res):
 # with one visit's budget not boosted 8x (a cut of depth, so that the root
 # splits inside the budget)
 MC_KW = dict(BENCH_KW, use_disjunctive_cuts=False, disjunctive_cuts_type=None,
-             disjunctive_cuts_breakpoints=None, time_limit=45, sdp_iter_boost_max=1)
+             disjunctive_cuts_breakpoints=None, time_limit=30, sdp_iter_boost_max=1)
 # config 3's instance and batch on the McCormick path, one root visit
 MC3_KW = dict(node_selection="bestfirst", use_disjunctive_cuts=False, gap=1e-2,
               time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
@@ -2793,7 +2917,7 @@ def phase_mccormick(res):
     relaxation entry point on the headline's root node, held to omc's bound;
     (ii) a rank-2 root visit of the driver on config 3's instance, held to
     omc's bound; (iii) the full McCormick B&B on the headline instance,
-    45 s."""
+    30 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -3277,7 +3401,13 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    import omc_torch  # noqa: F401  (fails here when run outside the repository)
+    try:
+        import omc_torch  # noqa: F401
+    except ImportError as err:
+        # the script alone, outside a checkout of the repository
+        print(f"chip_smoke: the omc_torch package is not beside this script ({err})",
+              file=sys.stderr)
+        return 4
 
     if args.parent:
         _load_parent(args.parent)

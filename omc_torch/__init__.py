@@ -11,9 +11,10 @@ the kernels of ``omc_torch/csrc`` on the GPU and their plain torch versions
 on the CPU, certification is float64 on the host, altmin supplies upper
 bounds, and a run can checkpoint and resume.  The standalone entry points
 ``alternating_minimization`` and ``matrix_completion_SDP_relaxation`` run
-the heuristic or one node's relaxation of any family.  Meshes, multiple
-hosts and profiling raise ``NotImplementedError`` from ``SolverConfig``
-(see ROADMAP.md).
+the heuristic or one node's relaxation of any family.  Several processes
+can share one frontier (``distributed=True``, ``omc_torch.parallel.dist``
+over gloo).  Meshes and profiling raise ``NotImplementedError`` from
+``SolverConfig`` (see ROADMAP.md).
 
 This package imports torch, numpy and scipy only, never jax.
 """

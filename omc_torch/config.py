@@ -13,8 +13,9 @@ The port runs the disjunctive-cut ADMM path (linear, linear2 or linear3
 cuts, smallest_1_eigvec or smallest_2_eigvec breakpoints), with or without
 the Shor valid inequalities (rank 1 and rank k > 1), and the McCormick path
 (``use_disjunctive_cuts=False``), under every node selection policy, with
-checkpoint/resume.  A valid setting that selects a path the port does not
-have yet (meshes, multiple hosts, profiling) raises ``NotImplementedError``
+checkpoint/resume, in one process or several (``distributed=True``).  A
+valid setting that selects a path the port does not have yet (meshes,
+profiling) raises ``NotImplementedError``
 naming its ROADMAP item; it never runs some other path instead.
 """
 
@@ -234,8 +235,6 @@ class SolverConfig:
             not_ported("sdp_halpern", '"Not to port"')
         if self.mesh_shape is not None and math.prod(int(s) for s in self.mesh_shape) > 1:
             not_ported("mesh_shape", "queue 1, parallel/mesh.py")
-        if self.distributed:
-            not_ported("distributed=True", "queue 1, parallel/dist.py")
         if self.profile_dir is not None:
             not_ported("profile_dir", "queue 1, profile_dir")
 

@@ -31,14 +31,25 @@
 // What bounds them on the H100: bytes.  K9a and K9b stream the slot blocks
 // of every node slot ((n+m)^2 + (n+k)^2 + n^2 floats of w and u) once with a
 // few flops per element; the (k+q)^2 per-row solves are O(n (k+q)^2).  K9s
-// is a few hundred flops per row on (B, n, k) inputs and is launch-bound.
+// reads 2 n k floats a slot and writes n (k+q)(k+2q) floats of factors; at
+// the McCormick shapes its bound is below a microsecond, so a launch's floor
+// and each thread's dependent chain set its time.
 //
-// Design.  K9s: one CTA per node slot, each row's (k+q) x (k+q) factor held
-// by one thread in registers (templated on k in {1, 2, 3}, so k+q <= 9), G
-// summed over the rows in order.  K9a and K9b split the work the way K8b
-// and K8d do: what needs a sum over rows goes to one slot CTA a node slot,
-// first in the grid; the rest goes to flat CTAs of 128 threads that wait on
-// no sum (k9a_layout, k9b_layout; omc_torch.sdp.mccormick.k9_plan).
+// Design.  K9s: one CTA per node slot, its threads n rounded up to whole
+// warps (128 to 256, rows in chunks of that many), a thread a row.  The
+// row Gram is built from its structure (k9s_gram: each envelope row touches
+// at most 3 x 3 entries, the t block is 4 I_q), factored with one
+// reciprocal square root a pivot (chol_rcp), reused by the column and by
+// the q two-sided solves for S_i e_q, whose forward pass starts at row
+// k + q.  A chunk's Mc and Si rows are staged in shared memory and stored
+// as the slot's contiguous blocks with 16-byte words (store_span); G's
+// lower triangle is summed over each thread's rows in order, xor shuffles,
+// then the warps in order (a lane of warp 0 an entry), and lane 0 of warp 0
+// factors it.
+// K9a and K9b split the work the way K8b and K8d do: what needs a sum over
+// rows goes to one slot CTA a node slot, first in the grid; the rest goes
+// to flat CTAs of 128 threads that wait on no sum (k9a_layout, k9b_layout;
+// omc_torch.sdp.mccormick.k9_plan).
 //  K9a slot CTA: the per-row (U, t) solves, z0 summed over the rows, the Gc
 //      solve, tr(rho gY / 3) from the diagonals and Y's n diagonal entries
 //      (the trace correction touches only those);
@@ -88,25 +99,27 @@ __device__ __forceinline__ void pair_of(int p, int& j1, int& j2) {
       if (a == p) j1 = x, j2 = y;
 }
 
-// lower Cholesky factor of a D x D matrix in registers (reads the lower
-// triangle, writes zeros above the diagonal)
+// lower Cholesky factor, in place, of the D x D matrix whose lower triangle
+// is in A (the upper triangle is not read or written), with one reciprocal
+// square root a pivot: L[j][j] = d rsqrt(d) and inv[j] = rsqrt(d) = 1 /
+// L[j][j], which the column below it and every later solve multiply by
 template <int D>
-__device__ __forceinline__ void cholesky(const float (&M)[D][D], float (&L)[D][D]) {
+__device__ __forceinline__ void chol_rcp(float (&A)[D][D], float (&inv)[D]) {
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    float s = M[j][j];
+    float d = A[j][j];
 #pragma unroll
-    for (int l = 0; l < j; ++l) s -= L[j][l] * L[j][l];
-    L[j][j] = sqrtf(s);
+    for (int l = 0; l < j; ++l) d = fmaf(-A[j][l], A[j][l], d);
+    const float r = rsqrtf(d);
+    A[j][j] = d * r;
+    inv[j] = r;
 #pragma unroll
     for (int i = j + 1; i < D; ++i) {
-      float t = M[i][j];
+      float t = A[i][j];
 #pragma unroll
-      for (int l = 0; l < j; ++l) t -= L[i][l] * L[j][l];
-      L[i][j] = t / L[j][j];
+      for (int l = 0; l < j; ++l) t = fmaf(-A[i][l], A[j][l], t);
+      A[i][j] = t * r;
     }
-#pragma unroll
-    for (int i = 0; i < j; ++i) L[i][j] = 0.f;
   }
 }
 
@@ -143,89 +156,186 @@ __device__ __forceinline__ void load_lower(omc::RO g, int off, float (&L)[D][D])
 // K9s
 // ---------------------------------------------------------------------------
 
-template <int K>
-__global__ void __launch_bounds__(omc::kThreads) k9s_kernel(K9sParams p) {
-  constexpr int Q = K * (K + 1) / 2, KQ = K + Q;
-  extern __shared__ float smem[];
-  float* stt = smem;          // n * Q * Q   S_i[k:, :] per row
-  float* G = stt + p.n * Q * Q;  // Q * Q
-  const int b = blockIdx.x, tid = threadIdx.x, n = p.n;
-  const float* lo = p.U_lo + (size_t)b * n * K;
-  const float* hi = p.U_hi + (size_t)b * n * K;
+// K9s's CTA: one a node slot, its threads n rounded up to whole warps, at
+// least 128 (the warps past n's rows store and sum: at n = 50, k = 3 the
+// stores drain 10% sooner) and at most 256 (a thread takes rows tid,
+// tid + T, ... in chunks of T)
+constexpr int kThreads9s = 256, kMinThreads9s = 128;
 
-  for (int i = tid; i < n; i += blockDim.x) {
-    float M[KQ][KQ];
+__host__ __device__ __forceinline__ int k9s_threads(int n) {
+  const int t = 32 * omc::cdiv(n, 32);
+  return t < kMinThreads9s ? kMinThreads9s : t < kThreads9s ? t : kThreads9s;
+}
+
+// dynamic shared memory of a K9s CTA, in floats: a chunk's Mc and Si rows
+// staged for the coalesced stores (each with 4 floats of alignment slack),
+// then each warp's partial sums of G's lower triangle
+__host__ __device__ __forceinline__ int k9s_smem_floats(int n, int k) {
+  const int q = k * (k + 1) / 2, kq = k + q, T = k9s_threads(n);
+  return (4 + T * kq * kq) + (4 + T * kq * q) + (T / 32) * (q * (q + 1) / 2);
+}
+
+// nf floats from shared s to global g, where s and g agree modulo 16 bytes:
+// scalars up to g's first 16-byte boundary, then 16-byte words, then the
+// scalar tail, the CTA's threads on consecutive words
+__device__ __forceinline__ void store_span(float* __restrict__ g, const float* s, int nf) {
+  int head = (int)(((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) >> 2);
+  head = head < nf ? head : nf;
+  const int n4 = (nf - head) >> 2;
+  for (int q = threadIdx.x; q < head; q += blockDim.x) g[q] = s[q];
+  float4* g4 = reinterpret_cast<float4*>(g + head);
+  const float4* s4 = reinterpret_cast<const float4*>(s + head);
+  for (int q = threadIdx.x; q < n4; q += blockDim.x) g4[q] = s4[q];
+  for (int q = head + 4 * n4 + threadIdx.x; q < nf; q += blockDim.x) g[q] = s[q];
+}
+
+// the place in a 16-byte aligned staging area at which a span bound for g
+// starts, so that the span and g agree modulo 16 bytes
+__device__ __forceinline__ float* staged_for(float* stage, const float* g) {
+  return stage + ((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
+}
+
+// The row Gram from its structure.  Envelope row r of pair p = (j1, j2) is
+// a = c1 e_j1 + c2 e_j2 + s e_{k+p} with s = +-1, so it touches at most a
+// 3 x 3 block, and summed over its four rows (envelope()):
+//   j1 < j2:  M[j1][j1] += 2 (lo2^2 + hi2^2),  M[j2][j2] += 2 (lo1^2 + hi1^2),
+//             M[j2][j1] += (lo1 + hi1)(lo2 + hi2),
+//             M[k+p][j1] = -2 (lo2 + hi2),      M[k+p][j2] = -2 (lo1 + hi1);
+//   j1 = j2 = j:  M[j][j] += 4 (lo^2 + hi^2) + 2 (lo + hi)^2,  M[k+p][j] = -4 (lo + hi);
+// and the t block is 4 I_q (s^2 = 1 four times, each pair its own t), so
+// M = that + diag(4 I_k, 0) + 1e-9 I.  Writes the lower triangle of A.
+template <int K>
+__device__ __forceinline__ void k9s_gram(const float (&l)[K], const float (&h)[K],
+                                         float (&A)[K + K * (K + 1) / 2][K + K * (K + 1) / 2]) {
+  constexpr int Q = K * (K + 1) / 2, KQ = K + Q;
 #pragma unroll
-    for (int a = 0; a < KQ; ++a)
+  for (int a = 0; a < KQ; ++a)
 #pragma unroll
-      for (int c = 0; c < KQ; ++c) M[a][c] = 0.f;
-    int pp = 0;
+    for (int c = 0; c <= a; ++c) A[a][c] = 0.f;
+  int p = 0;
 #pragma unroll
-    for (int j1 = 0; j1 < K; ++j1)
+  for (int j1 = 0; j1 < K; ++j1)
 #pragma unroll
-      for (int j2 = j1; j2 < K; ++j2, ++pp) {
-        const float lo1 = lo[i * K + j1], lo2 = lo[i * K + j2];
-        const float hi1 = hi[i * K + j1], hi2 = hi[i * K + j2];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float s, c1, c2, d;
-          envelope(r, lo1, lo2, hi1, hi2, s, c1, c2, d);
-          float a[KQ];
-#pragma unroll
-          for (int c = 0; c < KQ; ++c) a[c] = 0.f;
-          a[j1] += c1;
-          a[j2] += c2;
-          a[K + pp] = s;
-#pragma unroll
-          for (int x = 0; x < KQ; ++x)
-#pragma unroll
-            for (int y = 0; y < KQ; ++y) M[x][y] = fmaf(a[x], a[y], M[x][y]);
-        }
+    for (int j2 = j1; j2 < K; ++j2, ++p) {
+      if (j1 == j2) {
+        const float sl = l[j1] + h[j1];
+        A[j1][j1] += 4.f * (l[j1] * l[j1] + h[j1] * h[j1]) + 2.f * (sl * sl);
+        A[K + p][j1] = -4.f * sl;
+      } else {
+        const float s1 = l[j1] + h[j1], s2 = l[j2] + h[j2];
+        A[j1][j1] += 2.f * (l[j2] * l[j2] + h[j2] * h[j2]);
+        A[j2][j2] += 2.f * (l[j1] * l[j1] + h[j1] * h[j1]);
+        A[j2][j1] += s1 * s2;
+        A[K + p][j1] = -2.f * s2;
+        A[K + p][j2] = -2.f * s1;
       }
-#pragma unroll
-    for (int c = 0; c < K; ++c) M[c][c] += 4.0f;
-#pragma unroll
-    for (int c = 0; c < KQ; ++c) M[c][c] += 1e-9f;
-    float L[KQ][KQ];
-    cholesky<KQ>(M, L);
-    float* Mc = p.Mc + ((size_t)b * n + i) * KQ * KQ;
-#pragma unroll
-    for (int x = 0; x < KQ; ++x)
-#pragma unroll
-      for (int y = 0; y < KQ; ++y) Mc[x * KQ + y] = L[x][y];
-    float* Si = p.Si + ((size_t)b * n + i) * KQ * Q;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      float x[KQ];
-#pragma unroll
-      for (int c = 0; c < KQ; ++c) x[c] = (c == K + q) ? 1.f : 0.f;
-      cho_solve<KQ>(L, x);
-#pragma unroll
-      for (int c = 0; c < KQ; ++c) Si[c * Q + q] = x[c];
-#pragma unroll
-      for (int a = 0; a < Q; ++a) stt[(i * Q + a) * Q + q] = x[K + a];
     }
+  // + 4 on every diagonal entry: diag(4 I_k) on U's block, 4 I_q on t's
+#pragma unroll
+  for (int a = 0; a < KQ; ++a) A[a][a] = (A[a][a] + 4.f) + 1e-9f;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads9s) k9s_kernel(K9sParams p) {
+  constexpr int Q = K * (K + 1) / 2, KQ = K + Q, NG = Q * (Q + 1) / 2;
+  extern __shared__ float4 k9s_smem4[];
+  float* const smem = reinterpret_cast<float*>(k9s_smem4);
+  const int b = blockIdx.x, tid = threadIdx.x, T = blockDim.x, n = p.n;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  float* const stMc = smem;                      // 4 + T KQ^2
+  float* const stSi = stMc + 4 + T * KQ * KQ;    // 4 + T KQ Q
+  float* const red = stSi + 4 + T * KQ * Q;      // nw NG
+  const omc::RO lo{p.U_lo + (size_t)b * n * K}, hi{p.U_hi + (size_t)b * n * K};
+
+  // this thread's rows' S_i[k:, :], lower triangle, summed in row order
+  float gs[NG];
+#pragma unroll
+  for (int e = 0; e < NG; ++e) gs[e] = 0.f;
+
+  for (int r0 = 0; r0 < n; r0 += T) {
+    const int rows = min(T, n - r0);
+    float* const gMc = p.Mc + ((size_t)b * n + r0) * KQ * KQ;
+    float* const gSi = p.Si + ((size_t)b * n + r0) * KQ * Q;
+    float* const sMc = staged_for(stMc, gMc);
+    float* const sSi = staged_for(stSi, gSi);
+    if (tid < rows) {
+      const int i = r0 + tid;
+      float l[K], h[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) l[j] = lo[i * K + j], h[j] = hi[i * K + j];
+      float A[KQ][KQ], inv[KQ];
+      k9s_gram<K>(l, h, A);
+      chol_rcp<KQ>(A, inv);
+      float* const m = sMc + tid * KQ * KQ;
+#pragma unroll
+      for (int a = 0; a < KQ; ++a)
+#pragma unroll
+        for (int c = 0; c < KQ; ++c) m[a * KQ + c] = c <= a ? A[a][c] : 0.f;
+      // S_i e_q = M_i^-1 e_{k+q}: the forward solve starts at row k + q
+      // (the right-hand side is 0 above it), then the backward solve
+      float* const si = sSi + tid * KQ * Q;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        float x[KQ];
+#pragma unroll
+        for (int a = 0; a < K + q; ++a) x[a] = 0.f;
+        x[K + q] = inv[K + q];
+#pragma unroll
+        for (int a = K + q + 1; a < KQ; ++a) {
+          float t = 0.f;
+#pragma unroll
+          for (int c = K + q; c < a; ++c) t = fmaf(-A[a][c], x[c], t);
+          x[a] = t * inv[a];
+        }
+#pragma unroll
+        for (int a = KQ - 1; a >= 0; --a) {
+          float t = x[a];
+#pragma unroll
+          for (int c = a + 1; c < KQ; ++c) t = fmaf(-A[c][a], x[c], t);
+          x[a] = t * inv[a];
+        }
+#pragma unroll
+        for (int a = 0; a < KQ; ++a) si[a * Q + q] = x[a];
+        // G's lower triangle: entries (a, q) with a >= q
+#pragma unroll
+        for (int a = q; a < Q; ++a) gs[a * (a + 1) / 2 + q] += x[K + a];
+      }
+    }
+    __syncthreads();
+    store_span(gMc, sMc, rows * KQ * KQ);
+    store_span(gSi, sSi, rows * KQ * Q);
+    __syncthreads();  // the staging is free for the next chunk
+  }
+
+  // G = I_q + sum_i S_i[k:, :]: xor shuffles within each warp; lane e of
+  // warp 0 adds entry e over the warps in order, the sums are gathered by
+  // shuffles (no load on the factorisation's path) and lane 0 factors G
+#pragma unroll
+  for (int e = 0; e < NG; ++e) {
+    float v = gs[e];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp * NG + e] = v;
   }
   __syncthreads();
-  // G = I_q + sum_i S_i[k:, :], rows summed in order
-  for (int e = tid; e < Q * Q; e += blockDim.x) {
-    float s = 0.f;
-    for (int i = 0; i < n; ++i) s += stt[i * Q * Q + e];
-    G[e] = ((e / Q == e % Q) ? 1.f : 0.f) + s;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float Gm[Q][Q], L[Q][Q];
+  if (warp == 0) {
+    float g = 0.f;
+    if (lane < NG)
+      for (int w = 0; w < nw; ++w) g += red[w * NG + lane];
+    float G[Q][Q], ginv[Q];
 #pragma unroll
     for (int a = 0; a < Q; ++a)
 #pragma unroll
-      for (int c = 0; c < Q; ++c) Gm[a][c] = G[a * Q + c];
-    cholesky<Q>(Gm, L);
-    float* Gc = p.Gc + (size_t)b * Q * Q;
+      for (int c = 0; c <= a; ++c)
+        G[a][c] = (a == c ? 1.f : 0.f) + __shfl_sync(0xffffffffu, g, a * (a + 1) / 2 + c);
+    if (lane == 0) {
+      chol_rcp<Q>(G, ginv);
+      float* const Gc = p.Gc + (size_t)b * Q * Q;
 #pragma unroll
-    for (int a = 0; a < Q; ++a)
+      for (int a = 0; a < Q; ++a)
 #pragma unroll
-      for (int c = 0; c < Q; ++c) Gc[a * Q + c] = L[a][c];
+        for (int c = 0; c < Q; ++c) Gc[a * Q + c] = c <= a ? G[a][c] : 0.f;
+    }
   }
 }
 
@@ -855,14 +965,21 @@ bool k9_shape_ok(int B, int n, int m, int k) {
 
 }  // namespace
 
+// K9s's CTA (omc_torch.sdp.mccormick.k9s_plan plans with them; chip_smoke.py
+// holds the plan against them)
+OMC_EXPORT int omc_k9s_threads(int n, int k) { return k9s_threads(n); }
+
+OMC_EXPORT int omc_k9s_smem_bytes(int n, int k) { return 4 * k9s_smem_floats(n, k); }
+
 OMC_EXPORT int omc_k9s_setup(const K9sParams* params, void* stream) {
   const K9sParams& p = *params;
-  const int Q = q_of(p.k);
-  const size_t smem = (size_t)(p.n + 1) * Q * Q * sizeof(float);
+  if (p.B < 1 || p.n < 1) return (int)cudaErrorInvalidValue;
+  const int threads = k9s_threads(p.n);
+  const size_t smem = (size_t)4 * k9s_smem_floats(p.n, p.k);
   switch (p.k) {
-    case 1: return launch_k(k9s_kernel<1>, p, p.B, omc::kThreads, smem, stream);
-    case 2: return launch_k(k9s_kernel<2>, p, p.B, omc::kThreads, smem, stream);
-    case 3: return launch_k(k9s_kernel<3>, p, p.B, omc::kThreads, smem, stream);
+    case 1: return launch_k(k9s_kernel<1>, p, p.B, threads, smem, stream);
+    case 2: return launch_k(k9s_kernel<2>, p, p.B, threads, smem, stream);
+    case 3: return launch_k(k9s_kernel<3>, p, p.B, threads, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -91,16 +91,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library():
-    """The loaded kernel library, built on first call."""
+def library(build: bool = True):
+    """The loaded kernel library, built on first call.  With ``build=False``
+    a library of these sources must exist already (a process that shares
+    the build of another, as the ranks of a multi-process run do)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = _load(_build())
+            _lib = _load(_build(build))
     return _lib
 
 
-def _build() -> Path:
+def _build(build: bool = True) -> Path:
     srcs = _sources()
     h = hashlib.sha256()
     for p in srcs:
@@ -113,6 +115,9 @@ def _build() -> Path:
     if so.exists():
         BUILD_INFO.update(seconds=0.0, cached=True)
         return so
+    if not build:
+        raise RuntimeError(f"the kernel library {so} is not built; build it first "
+                           "(omc_torch.kernels.library())")
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = os.getpid()
@@ -343,6 +348,10 @@ def _load(path: Path):
     lib.omc_k8b_grid_x.restype = ctypes.c_int
     lib.omc_k8d_grid_x.argtypes = [ctypes.c_int] * 6
     lib.omc_k8d_grid_x.restype = ctypes.c_int
+    lib.omc_k9s_threads.argtypes = [ctypes.c_int] * 2
+    lib.omc_k9s_threads.restype = ctypes.c_int
+    lib.omc_k9s_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.omc_k9s_smem_bytes.restype = ctypes.c_int
     lib.omc_k9a_grid_x.argtypes = [ctypes.c_int] * 3
     lib.omc_k9a_grid_x.restype = ctypes.c_int
     lib.omc_k9b_grid_x.argtypes = [ctypes.c_int] * 5

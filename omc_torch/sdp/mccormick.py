@@ -44,6 +44,7 @@ the float64 certificate) are numpy copies of ``omc``'s.
 from __future__ import annotations
 
 import dataclasses
+import math
 import operator
 
 import numpy as np
@@ -462,29 +463,162 @@ def _check_k(name, k):
         raise ValueError(f"{name}: the kernel takes 1 <= k <= 3, got k={k}")
 
 
+# K9s's CTA (csrc/k9_mccormick.cu): one a node slot, n threads rounded up to
+# whole warps, 128 to 256 (a thread takes a row of each chunk of that many)
+K9S_THREADS, K9S_MIN_THREADS = 256, 128
+
+
+def k9s_plan(B: int, n: int, k: int) -> dict:
+    """K9s's launch at (B, n, k): B CTAs of ``threads``, the rows in
+    ``chunks`` of that many, ``smem_bytes`` of dynamic shared memory (a
+    chunk's Mc and Si rows staged with 4 floats of alignment slack each,
+    then each warp's partials of G's q(q+1)/2 lower entries)."""
+    _check_k("K9s", k)
+    if B < 1 or n < 1:
+        raise ValueError(f"K9s: B={B}, n={n}")
+    q = k * (k + 1) // 2
+    kq = k + q
+    threads = min(K9S_THREADS, max(K9S_MIN_THREADS, 32 * _cdiv(n, 32)))
+    floats = (4 + threads * kq * kq) + (4 + threads * kq * q) + (threads // 32) * (q * (q + 1) // 2)
+    return dict(threads=threads, chunks=_cdiv(n, threads), smem_bytes=4 * floats)
+
+
+def _k9s_layout(B: int, n: int, k: int):
+    """K9s's one output buffer: the (offset, shape) of Mc, Si and Gc in it,
+    each on a 256-byte boundary, and its length in floats."""
+    q = k * (k + 1) // 2
+    kq = k + q
+    out, o = [], 0
+    for shape in ((B, n, kq, kq), (B, n, kq, q), (B, q, q)):
+        out.append((o, shape))
+        o += _cdiv(math.prod(shape), 64) * 64
+    return out, o
+
+
+def _k9s_views(buf, B: int, n: int, k: int):
+    """(Mc, Si, Gc) as views of ``buf`` (``mc_setup_buffer``)."""
+    return tuple(buf[o:o + math.prod(shape)].view(shape)
+                 for o, shape in _k9s_layout(B, n, k)[0])
+
+
+def mc_setup_buffer(B: int, n: int, k: int, device) -> torch.Tensor:
+    """One flat float32 buffer holding K9s's three outputs."""
+    return torch.empty(_k9s_layout(B, n, k)[1], dtype=torch.float32, device=device)
+
+
 def mc_setup(batch: MCBatch, k: int):
     """K9s wrapper: returns (Mc, Si, Gc).  A CPU batch runs
     ``mc_setup_plain``; a CUDA batch launches ``csrc/k9_mccormick.cu``
-    (one CTA per slot, one thread per row with the (k+q)^2 factor in
-    registers, a fixed-order reduction for G) or raises."""
+    (``k9s_plan``: one CTA per slot, a thread a row with its factor in
+    registers, the slot's factors stored coalesced, a fixed-order sum for
+    G) or raises.  The three outputs are views of one new buffer
+    (``mc_setup_buffer``).  The wrapper runs once per solver call
+    (``make_mc_consts``), each time into a new buffer, so its parameter
+    block is packed at every call and kept by no cache."""
     dev = batch.U_lo.device
     if dev.type == "cpu":
         return mc_setup_plain(batch, k)
     if dev.type != "cuda":
         raise ValueError(f"mc_setup: unsupported device {dev}")
-    _check_k("K9s", k)
     B, n = batch.U_lo.shape[:2]
+    k9s_plan(B, n, k)  # refuses a rank or a shape before the allocation
+    views = _k9s_views(mc_setup_buffer(B, n, k, dev), B, n, k)
+    kernels.launch("K9s", "omc_k9s_setup", _k9s_params(batch, k, views, dev), dev)
+    return views
+
+
+def _k9s_params(batch: MCBatch, k: int, views, dev):
+    """K9s's parameter block: the boxes and the three outputs ``views``
+    ((Mc, Si, Gc), ``_k9s_views``), each operand checked."""
+    B, n = batch.U_lo.shape[:2]
+    k9s_plan(B, n, k)
     q = k * (k + 1) // 2
-    Mc = torch.empty((B, n, k + q, k + q), dtype=torch.float32, device=dev)
-    Si = torch.empty((B, n, k + q, q), dtype=torch.float32, device=dev)
-    Gc = torch.empty((B, q, q), dtype=torch.float32, device=dev)
+    kq = k + q
     prm = kernels.K9sParams()
     prm.U_lo = kernels.check("U_lo", batch.U_lo, (B, n, k), dev)
     prm.U_hi = kernels.check("U_hi", batch.U_hi, (B, n, k), dev)
-    prm.Mc, prm.Si, prm.Gc = Mc.data_ptr(), Si.data_ptr(), Gc.data_ptr()
+    prm.Mc = kernels.check("Mc", views[0], (B, n, kq, kq), dev)
+    prm.Si = kernels.check("Si", views[1], (B, n, kq, q), dev)
+    prm.Gc = kernels.check("Gc", views[2], (B, q, q), dev)
     prm.B, prm.n, prm.k = B, n, k
-    kernels.launch("K9s", "omc_k9s_setup", prm, dev)
-    return Mc, Si, Gc
+    return prm
+
+
+def mc_setup_structured(batch: MCBatch, k: int, threads: int = None):
+    """K9s's order of work in torch, on the CPU (a mirror for the tests):
+    the row Grams from their structure (``csrc/k9_mccormick.cu``
+    ``k9s_gram``), Cholesky factors with one reciprocal square root a pivot
+    (``chol_rcp``), the q solves for S_i e_q with the forward pass from row
+    k + q, and G's lower triangle summed as the CTA of ``threads``
+    (``k9s_plan``'s by default) sums it: each thread's rows in order, xor
+    shuffles within each warp (lane 0's value), the warps in order.
+    Returns (Mc, Si, Gc) like ``mc_setup_plain``."""
+    lo, hi = batch.U_lo, batch.U_hi
+    dtype = lo.dtype
+    B, n = lo.shape[:2]
+    q = k * (k + 1) // 2
+    kq = k + q
+    T = threads or k9s_plan(B, n, k)["threads"]
+    A = torch.zeros((B, n, kq, kq), dtype=dtype)
+    p = 0
+    for j1 in range(k):
+        for j2 in range(j1, k):
+            l1, h1, l2, h2 = lo[..., j1], hi[..., j1], lo[..., j2], hi[..., j2]
+            if j1 == j2:
+                sl = l1 + h1
+                A[..., j1, j1] += 4.0 * (l1 * l1 + h1 * h1) + 2.0 * (sl * sl)
+                A[..., k + p, j1] = -4.0 * sl
+            else:
+                s1, s2 = l1 + h1, l2 + h2
+                A[..., j1, j1] += 2.0 * (l2 * l2 + h2 * h2)
+                A[..., j2, j2] += 2.0 * (l1 * l1 + h1 * h1)
+                A[..., j2, j1] += s1 * s2
+                A[..., k + p, j1] = -2.0 * s2
+                A[..., k + p, j2] = -2.0 * s1
+            p += 1
+    eye = torch.arange(kq)
+    A[..., eye, eye] = (A[..., eye, eye] + 4.0) + 1e-9
+
+    def chol_rcp(A, D):
+        inv = torch.empty(A.shape[:-2] + (D,), dtype=A.dtype)
+        for j in range(D):
+            d = A[..., j, j] - (A[..., j, :j] * A[..., j, :j]).sum(-1)
+            r = torch.rsqrt(d)
+            A[..., j, j] = d * r
+            inv[..., j] = r
+            for i in range(j + 1, D):
+                A[..., i, j] = (A[..., i, j] - (A[..., i, :j] * A[..., j, :j]).sum(-1)) * r
+        return torch.tril(A), inv
+
+    L, inv = chol_rcp(A, kq)
+    Si = torch.zeros((B, n, kq, q), dtype=dtype)
+    for c in range(q):
+        x = torch.zeros((B, n, kq), dtype=dtype)
+        x[..., k + c] = inv[..., k + c]
+        for a in range(k + c + 1, kq):
+            x[..., a] = -(L[..., a, k + c:a] * x[..., k + c:a]).sum(-1) * inv[..., a]
+        for a in range(kq - 1, -1, -1):
+            x[..., a] = (x[..., a] - (L[..., a + 1:, a] * x[..., a + 1:]).sum(-1)) * inv[..., a]
+        Si[..., c] = x
+    # G: rows i = t, t + T, ... to thread t in order; xor shuffles; warps
+    low = Si[..., k:, :]  # (B, n, q, q)
+    Tn = _cdiv(n, T) * T
+    rows = torch.zeros((B, Tn, q, q), dtype=dtype)
+    rows[:, :n] = low
+    per = rows.reshape(B, Tn // T, T, q, q)
+    acc = torch.zeros((B, T, q, q), dtype=dtype)
+    for c in range(Tn // T):
+        acc = acc + per[:, c]
+    lanes = acc.reshape(B, T // 32, 32, q, q)
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, :, idx ^ o]
+    G = torch.zeros((B, q, q), dtype=dtype)
+    for w in range(T // 32):
+        G = G + lanes[:, w, 0]
+    G = torch.eye(q, dtype=dtype) + G
+    Gc, _ = chol_rcp(G.clone(), q)
+    return L.contiguous(), Si.contiguous(), Gc.contiguous()
 
 
 def make_mc_consts(A, mask, batch: MCBatch, state: MCState, n, m, k, gamma, alpha,

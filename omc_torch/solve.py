@@ -1,5 +1,5 @@
 """Branch-and-bound driver — the public entry point (port of the
-single-device paths of ``omc/solve.py``).
+single-device and multi-process paths of ``omc/solve.py``).
 
 Up to ``batch_size`` frontier nodes are popped per super-step (best-first
 or breadth-first), relaxed together by the batched ADMM solver on one
@@ -19,7 +19,13 @@ are screened for relaxation feasibility on the host (interval test, then
 the envelope LP), master feasibility is the reference's oracle, and a split
 bisects the widest U interval.  ``checkpoint_path`` saves the tree, the
 incumbent, the census and the RNG state every ``checkpoint_every`` seconds
-and at the end; ``resume=True`` continues from that file.
+and at the end; ``resume=True`` continues from that file.  With
+``distributed=True`` every process of the gloo group
+(``omc_torch.parallel.dist.init_distributed``) runs this driver on its own
+frontier shard: the root starts on process 0, bounds are fused every
+super-step and surplus nodes migrate every ``dist_rebalance_every`` rounds,
+warm with their solver-state slices unless ``dist_migrate_state=False``;
+checkpoints go to one file a process (``<checkpoint_path>.proc<i>``).
 
 Soundness notes (as in ``omc``):
 
@@ -124,6 +130,32 @@ def _m5_bucket(need: int) -> int:
         if need <= b:
             return b
     raise ValueError(f"Shor minor count {need} exceeds the largest bucket")
+
+
+def family_state(family: str, Bb: int, n: int, m: int, k: int, L: int, M5, dtype, device,
+                 **kw):
+    """The initial solver state of ``family`` ("admm", "shor", "shor_k" or
+    "mccormick") at batch ``Bb``, ``L`` cut rows and ``M5`` minor slots
+    (the Shor families)."""
+    if family == "mccormick":
+        kw.pop("sS", None)
+        return init_mc_state(Bb, n, m, k, dtype, device=device, **kw)
+    if family == "shor_k":
+        return init_shor_k_state(Bb, n, m, k, L, M5, n * m, dtype, device=device, **kw)
+    if family == "shor":
+        return init_shor_state(Bb, n, m, k, L, M5, n * m, dtype, device=device, **kw)
+    return init_admm_state(Bb, n, m, k, L, dtype, device=device, **kw)
+
+
+def wire_state_spec(family: str, n: int, m: int, k: int, Lmax: int, Mmax: int, dtype):
+    """Per-node solver-state leaf shapes for the rebalancing wire (batch
+    axis stripped), from a batch-of-one state on the meta device: no
+    allocation.  Deterministic in (family, shapes, Lmax, Mmax), so every
+    process derives the same spec from the fused RoundState."""
+    Lb = _l_bucket(max(1, Lmax))
+    M5b = _m5_bucket(max(1, Mmax)) if family in ("shor", "shor_k") else None
+    st = family_state(family, 1, n, m, k, Lb, M5b, dtype, "meta")
+    return [tuple(leaf.shape[1:]) for leaf in st.leaves()]
 
 
 def _with_minors(n, m, minors) -> ShorInfo:
@@ -308,6 +340,8 @@ def matrix_completion_branchandbound(
     use_shor = cfg.add_Shor_valid_inequalities and not use_mccormick
     # k > 1 uses the Xt-split Shor relaxation (omc_torch.sdp.shor_k)
     use_shor_k = use_shor and k > 1
+    family = ("mccormick" if use_mccormick else "shor_k" if use_shor_k
+              else "shor" if use_shor else "admm")
 
     mask = indices.astype(np.float64)
     rng = np.random.default_rng(cfg.seed)
@@ -506,7 +540,8 @@ def matrix_completion_branchandbound(
     # resume (not in the reference, which loses the tree on timeout):
     # warm-start states are not checkpointed, so resumed nodes get a fresh
     # refinement budget
-    if cfg.resume and cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+    resumed = bool(cfg.resume and cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path))
+    if resumed:
         payload = load_checkpoint(cfg.checkpoint_path)
         tree = payload["tree"]
         for nd in tree.nodes.values():
@@ -523,11 +558,74 @@ def matrix_completion_branchandbound(
         ], echo=echo)
     last_checkpoint = time.time()
 
+    # ------------------------------------------------------------------
+    # Multi-process distribution (omc_torch/parallel/dist.py): the root
+    # starts on process 0; the other processes begin with an empty shard
+    # and receive nodes by rebalancing.  The deterministic warm start gives
+    # every process the same incumbent, so bounds are shared from round one.
+    # ------------------------------------------------------------------
+    dist = None
+    dist_stop = False
+    if cfg.distributed:
+        from omc_torch.parallel.dist import DistContext
+
+        dist = DistContext(rebalance_every=cfg.dist_rebalance_every)
+        if dist.process_index != 0 and not resumed:
+            tree.nodes.clear()
+            tree._heap_lb.clear()
+            tree._fifo.clear()
+            tree._heap.clear()
+
+    def dist_sync():
+        """Once-per-round collective: fuse bounds, maybe rebalance.
+        Returns True when a process requested stop (time/steps): a GLOBAL
+        decision, so every process exits the same round (collectives stay
+        matched)."""
+        nonlocal dist_stop
+        lb_candidate = min(tree.min_queued_lb(), tree.closed_lb_floor)
+        want_stop = (
+            (cfg.use_max_steps and tree.counter >= cfg.max_steps)
+            or time.time() - start_time > cfg.time_limit
+        )
+        max_cuts = max((len(nd.cuts or []) for nd in tree.nodes.values()), default=0)
+        max_minors = max(
+            (len(nd.Shor_info.constraints_indexes) for nd in tree.nodes.values()
+             if nd.Shor_info is not None),
+            default=0,
+        )
+        rs = dist.sync_round(
+            tree.best_upper_bound, lb_candidate, len(tree), want_stop, max_cuts, max_minors,
+        )
+        tree.best_upper_bound = min(tree.best_upper_bound, rs.global_ub)
+        # the process-local monotone lower bound can exceed the true global
+        # bound (another process may hold worse nodes): the distributed
+        # value is authoritative
+        tree.best_lower_bound = rs.global_lb
+        tree.now_gap = compute_gap(tree.best_lower_bound, tree.best_upper_bound)
+        if dist.should_rebalance(rs):
+            spec = None
+            if cfg.sdp_warm_start and cfg.dist_migrate_state:
+                # move device-resident states to the host cache so migrating
+                # nodes' latest slices travel, then derive the wire spec (the
+                # same on every process: a function of the fused RoundState's
+                # Lmax/Mmax and the shared config)
+                _flush_last_solve()
+                spec = wire_state_spec(family, n, m, k, rs.Lmax, rs.Mmax, dtype)
+            dist.rebalance(
+                tree, rs, n, k, m=m, state_spec=spec,
+                state_get=state_cache.get, state_put=_cache_put,
+            )
+        dist_stop = rs.stop
+        return rs.stop
+
     def maybe_checkpoint(force=False):
         nonlocal last_checkpoint
-        if cfg.checkpoint_path and (
+        ckpt_path = cfg.checkpoint_path
+        if dist is not None and ckpt_path:  # one frontier shard file per process
+            ckpt_path = f"{ckpt_path}.proc{dist.process_index}"
+        if ckpt_path and (
                 force or time.time() - last_checkpoint >= cfg.checkpoint_every):
-            save_checkpoint(cfg.checkpoint_path, {
+            save_checkpoint(ckpt_path, {
                 "tree": tree, "solution": solution, "census": census,
                 "run_log": run_log, "rng_state": rng.bit_generator.state,
             })
@@ -624,6 +722,13 @@ def matrix_completion_branchandbound(
     # incumbent moves; host leaves fetched lazily
     template_cache: Dict[tuple, tuple] = {}
 
+    def _init_state(Bb, L, M5, device, **kw):
+        """The solver family's initial state at batch ``Bb``."""
+        kw.update(sX=sX, sT=sT, sS=sS, rho=rho_base)
+        if use_mccormick:
+            kw.update(rho=cfg.sdp_rho_mccormick)
+        return family_state(family, Bb, n, m, k, L, M5, dtype, device, **kw)
+
     def _template_cached(Bb, L, M5=None):
         key = (Bb, L, M5)
         hit = template_cache.get(key)
@@ -632,18 +737,8 @@ def matrix_completion_branchandbound(
         U0 = solution["U"]
         X0 = solution["X"]
         V0 = U0.T @ X0
-        kw = dict(sX=sX, sT=sT, sS=sS, X0=X0[None], Y0=(U0 @ U0.T)[None],
-                  Th0=(V0.T @ V0)[None], U0=U0[None], rho=rho_base)
-        if use_mccormick:
-            kw.update(rho=cfg.sdp_rho_mccormick)
-            del kw["sS"]
-            dev_state = init_mc_state(Bb, n, m, k, dtype, device=dev, **kw)
-        elif use_shor_k:
-            dev_state = init_shor_k_state(Bb, n, m, k, L, M5, n * m, dtype, device=dev, **kw)
-        elif use_shor:
-            dev_state = init_shor_state(Bb, n, m, k, L, M5, n * m, dtype, device=dev, **kw)
-        else:
-            dev_state = init_admm_state(Bb, n, m, k, L, dtype, device=dev, **kw)
+        dev_state = _init_state(Bb, L, M5, dev, X0=X0[None], Y0=(U0 @ U0.T)[None],
+                                Th0=(V0.T @ V0)[None], U0=U0[None])
         host_box = {"h": None}
 
         def host():
@@ -732,18 +827,24 @@ def matrix_completion_branchandbound(
     def _keep_running():
         if tree.now_gap <= cfg.gap:
             return False
+        if dist is not None:
+            # time/steps termination is the GLOBAL stop decision, so every
+            # process exits on the same round (see dist_sync)
+            return not dist_stop
         return (
             not (cfg.use_max_steps and tree.counter >= cfg.max_steps)
             and time.time() - start_time <= cfg.time_limit
         )
 
     while _keep_running():
-        if len(tree) == 0:
+        # a process whose shard is empty keeps syncing: it receives nodes
+        # by rebalancing, and every process must join every round
+        if len(tree) == 0 and dist is None:
             break
         popped = tree.retrieve_batch(
             cfg.node_selection, B, cfg.bestfirst_depthfirst_cutoff
         )
-        if not popped:
+        if not popped and dist is None:
             break
 
         # dominance pre-check (reference lines 725-728)
@@ -772,6 +873,12 @@ def matrix_completion_branchandbound(
                 work.append(node)
         if not work:
             tree.update_lower_bound()
+            if dist is not None:
+                stop_now = dist_sync()
+                add_update(echo_row=False)
+                if stop_now:
+                    break
+                continue
             add_update(echo_row=False)
             continue
 
@@ -1233,6 +1340,13 @@ def matrix_completion_branchandbound(
             root_resolved = True
         lower_bounds_updated = tree.update_lower_bound()
         tree.now_gap = compute_gap(tree.best_lower_bound, tree.best_upper_bound)
+        if dist is not None:
+            stop_now = dist_sync()  # overwrites the bounds with the global view
+            lower_bounds_updated = True
+            if stop_now:
+                add_update(echo_row=verbosity >= 1)
+                maybe_checkpoint()
+                break
 
         print_now = (
             lower_bounds_updated
@@ -1259,6 +1373,23 @@ def matrix_completion_branchandbound(
             if nd.refines > 0:
                 census["nodes_relax_feasible_pruned"] += 1
         root_resolved = True
+
+    census_global = None
+    if dist is not None:
+        # the best incumbent may live on another process; likewise the
+        # GLOBAL node census (every process calls these collectives in the
+        # same order, so they stay matched)
+        obj_g, X_g, U_g = dist.gather_best_solution(
+            solution["objective"], solution["X"], solution["U"]
+        )
+        if obj_g < solution["objective"]:
+            update_solution(obj_g, U_g @ U_g.T, U_g, X_g, time_taken)
+        census_global = dist.sum_counters({
+            **census,
+            "nodes_explored": tree.nodes_explored,
+            "refinement_visits": tree.refinement_visits,
+            "nodes_total": tree.counter,
+        })
 
     root_node_timeout = bool(time_taken > cfg.time_limit and not root_resolved)
 
@@ -1305,6 +1436,16 @@ def matrix_completion_branchandbound(
         }
     )
     run_details.update(census)
+    if dist is not None:
+        run_details["process_count"] = dist.process_count
+        run_details["process_index"] = dist.process_index
+        run_details["census_global"] = census_global
+        # wall-clock inside cross-process collectives
+        run_details["dist_sync_seconds"] = dist.sync_seconds
+        # warm migration: leaves that did not fit the wire spec, and the
+        # migrated states installed into this process's warm-start cache
+        run_details["dist_state_refit_leaves"] = dist.state_refit_leaves
+        run_details["dist_states_installed"] = dist.states_installed
 
     instance = {"run_log": run_log, "run_details": run_details}
 

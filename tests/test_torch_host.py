@@ -76,7 +76,6 @@ def test_config_invalid_values_raise_like_omc(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(mesh_shape=(2,)),
-    dict(distributed=True),
     dict(profile_dir="trace"),
     dict(sdp_halpern=True),
     dict(sdp_method="pdhg"),
@@ -89,7 +88,6 @@ def test_unported_options_raise_not_implemented(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh_shape=(2,)), "queue 1, parallel/mesh.py"),
-    (dict(distributed=True), "queue 1, parallel/dist.py"),
     (dict(profile_dir="trace"), "queue 1, profile_dir"),
 ])
 def test_unported_option_messages_name_their_roadmap_item(kw, item):
@@ -114,6 +112,8 @@ def test_unported_option_messages_name_their_roadmap_item(kw, item):
     dict(use_disjunctive_cuts=False, node_selection="breadthfirst", altmin_flag=False),
     dict(checkpoint_path="ckpt.pkl"),
     dict(checkpoint_path="ckpt.pkl", resume=True, checkpoint_every=5),
+    dict(distributed=True, dist_rebalance_every=2),
+    dict(distributed=True, dist_migrate_state=False),
 ])
 def test_ported_options_configure_like_omc(kw):
     full = {**_MAIN, **kw}

@@ -21,6 +21,8 @@ import omc_torch.sdp.shor_k
 import omc_torch.sdp.mccormick
 import omc_torch.api
 import omc_torch.utils.checkpoint
+import omc_torch.parallel.dist
+import omc_torch.parallel.worker
 from omc_torch.sdp.admm import init_admm_state, make_admm_solver
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.tree import root_box
@@ -42,6 +44,7 @@ r = omc_torch.api.matrix_completion_SDP_relaxation(
     use_disjunctive_cuts=False, iters=2, device="cpu")
 assert np.isfinite(r["lower_bound"]), r["lower_bound"]
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+assert "omc" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
 print("NOJAX_OK", int(out["iters_run"][0]))
 """
 
@@ -70,3 +73,31 @@ def test_sources_name_no_jax_and_no_pallas():
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         src = fh.read()
     assert not re.search(r"^\s*(import|from)\s+(jax|omc)\b", src, re.MULTILINE)
+
+
+_WORKER = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["omc"] = None  # and so does any `import omc`
+sys.path.insert(0, sys.argv[1])
+import socket
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+from omc_torch.parallel import worker
+sys.exit(worker.main(["--coordinator", f"localhost:{port}", "--rank", "0", "--world", "1",
+                      "--timeout", "60", "--device", "cpu"]))
+"""
+
+
+def test_worker_runs_without_jax_or_omc():
+    """The multi-process worker, a world of one over gloo, with jax and omc
+    unimportable."""
+    env = {key: val for key, val in os.environ.items() if key != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", _WORKER, REPO], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert res.returncode == 0, res.stderr
+    line = [x for x in res.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    assert '"process_count": 1' in line
