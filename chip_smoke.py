@@ -26,7 +26,8 @@ Phases, in order (each prints its numbers on lines of its own):
                library's batched solve; K8c at k=2 (timed), 3 and 4; K2 and
                K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
                variant) with their device times on every cluster size
-               k2k3_plan could take; K8a, K7 (fused and projection mode)
+               k2k3_plan could take, and K3 in its Halpern mode up to 512
+               cuts, with its device time; K8a, K7 (fused and projection mode)
                and K8b at every shape of the Shor k=1 loop (SHOR_SHAPES),
                K7t, K7x (fused) and K8d at k = 2, 3 and 4 and K7x's
                projection mode, K9a and K9b at (B, n=m, k) = (64, 50, 1),
@@ -42,17 +43,17 @@ Phases, in order (each prints its numbers on lines of its own):
 7. multinode — the 30%-observed instance, gap 1e-4
 8. dist      — the multi-process frontier: two ranks of
                omc_torch.parallel.worker on the card over gloo, the
-               multinode instance at batch 8, 60 s
+               multinode instance at batch 8, 35 s
 9. branch    — the 20%-observed instance, 30 s budget
 10. shor     — the 30%-observed instance with static Shor minors
-               (breadth-first, 60 s): the K7/K8a/K8b path
+               (breadth-first, 40 s): the K7/K8a/K8b path
 11. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
-               45 s, with soundness checks
+               35 s, with soundness checks
 12. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 60 s
+               smallest_2_eigvec, best-first/depth-first, batch 64), 45 s
 13. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
-               call (iterative Shor, batch 32), 60 s
+               call (iterative Shor, batch 32), 45 s
 14. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
@@ -61,6 +62,17 @@ Phases, in order (each prints its numbers on lines of its own):
                batch of 128 nodes, 400 iterations, one safe-bound call: K4 at
                d=500, 255 and 250, K5 at d=250): a warm-up step, then two
                timed sub-steps, the 8 lowest bounds certified in float64
+16. mesh     — the node-batch split (mesh_shape): the multinode instance at
+               batch 8 as two shards on streams of the one card, certified;
+               then the Shor k=1 solver at config 2's shape (B=32 as two
+               shards of 16, K4's block path at d=200 on both streams)
+               against the same call on one device
+17. pdhg     — omc's PDHG relaxation (sdp_method="pdhg"): a root-only
+               visit of 1,000 iterations on the headline instance (K4, K5)
+18. halpern  — Halpern-anchored ADMM (sdp_halpern=True, K3's Halpern
+               mode): a root-only visit of 4,000 iterations on the headline
+19. profile  — the headline with profile_dir: a torch.profiler Chrome trace
+               of its first super-steps holding K1's, K2's and K3's kernels
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -111,7 +123,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
-          "mccormick", "config4")
+          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile")
 EXTRA_PHASES = ("trace",)  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -484,6 +496,12 @@ def phase_kernels(res):
             err = r["rel_err_vs_f64"] if n >= 250 or L > 32 else r["rel_err"]
             checks.append((name, r, err <= 1e-6 and r["deterministic"]
                            and r["plan_matches_kernel"]))
+            if "halpern" in r:
+                # K3's Halpern mode: the same bars as its normal mode
+                h = r["halpern"]
+                err = h["rel_err_vs_f64"] if n >= 250 or L > 32 else h["rel_err"]
+                checks.append(("K3halpern", h, err <= 1e-6 and h["deterministic"]))
+                log("K3 halpern", json.dumps(dict(B=B, n=n, k=k, L=L, **h)))
         k2.append(r2)
         k3.append(r3)
     # K2's band in Y's rows at the headline's shape, against the same plain
@@ -1568,16 +1586,18 @@ def _k2k3_device_ms(fns, reps=20, medians=("kernel", "parent")):
                    for ev in prof.key_averages()) / 1e3 / reps
 
     def timed(fn, want):
-        # the median of ``want`` traces that saw the kernel (at most 3 want
-        # tries)
+        # the median of ``want`` traces that saw the kernel (at most 5 want
+        # tries; the misses come in runs, so a miss waits 0.1 s)
         got = []
-        for _ in range(3 * want):
+        for _ in range(5 * want):
             t = traced(fn)
             if t > 0:
                 got.append(t)
+            else:
+                time.sleep(0.1)
             if len(got) == want:
                 break
-        assert got, f"no trace of {3 * want} saw a device kernel"
+        assert got, f"no trace of {5 * want} saw a device kernel"
         return statistics.median(got)
 
     for fn in fns.values():
@@ -1595,6 +1615,8 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     cluster size with ``sweep``, ``device_ms_by_cluster``) and, with
     ``--parent``, the parent tree's kernels' beside them.  ``shor``: K2's variant that writes Y and U
     only; ``band`` forces K2's band (K3 then runs unchecked)."""
+    import dataclasses
+
     import torch
 
     from omc_torch import kernels
@@ -1603,6 +1625,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
         K2K3_CLUSTERS,
         cone_step,
         cone_step_plain,
+        halpern_anchors,
         k2k3_plan,
         zstep,
         zstep_plain,
@@ -1689,6 +1712,37 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     with_bound(r3, 4 * B * (rd + wr),
                B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)))
 
+    # K3's Halpern mode (up to 512 cuts): the same step at iteration 3 of a
+    # call, every pre-projection slot blended with the anchors w + u of the
+    # input state, against its plain version in float32 and float64
+    if L <= 512:
+        ch = dataclasses.replace(c, anchors=halpern_anchors(st))
+        hit = 3
+        s5, s5b = s_k.clone(), s_k.clone()
+        acc5, acc5b = [a.clone() for a in acc], [a.clone() for a in acc]
+        ts5, ts5b = tuple(torch.empty_like(t) for t in ts), tuple(torch.empty_like(t) for t in ts)
+        cone_step(ch, s5, ts5, acc5, it=hit)
+        cone_step(ch, s5b, ts5b, acc5b, it=hit)
+        torch.cuda.synchronize()
+        h1, h2, h3, hrest, hacc = cone_step_plain(ch, s_k, acc, hit)
+        H1, H2, H3, hrest64, hacc64 = cone_step_plain(_to64(ch), _to64(s_k), _to64(acc), hit)
+        goth = k3out(s5, ts5, acc5)
+        refh, refh64 = [h1, h2, h3, *hrest, *hacc], [H1, H2, H3, *hrest64, *hacc64]
+        eh, ah = _errs(goth, refh)
+        s6, acc6 = s_k.clone(), [a.clone() for a in acc]
+        k3fn["halpern"] = lambda: cone_step(ch, s6, ts5, acc6, it=hit)
+        rh = dict(it=hit, rel_err=eh, rel_err_vs_f64=_errs(goth, refh64)[0],
+                  plain_vs_f64=_errs(refh, refh64)[0], max_abs_err=ah,
+                  deterministic=_same_bits(goth, k3out(s5b, ts5b, acc5b)),
+                  ms=cuda_time_ms(k3fn["halpern"]),
+                  plain_ms=cuda_time_ms(lambda: cone_step_plain(ch, s_k, acc, hit)))
+        # the nine anchors read, and three flops an entry of every slot
+        anc = d1 * d1 + d2 * d2 + n * n + 1 + k * (1 + n) + n * k + 2 * L * k + L
+        with_bound(rh, 4 * B * (rd + wr + anc),
+                   B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)
+                        + 3 * anc))
+        r3["halpern"] = rh
+
     # the parent's kernels on the same inputs (up to 512 cuts), and every
     # cluster size
     if PARENT and L <= 512:
@@ -1702,12 +1756,15 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
             if C <= min(n, m):
                 k2fn[C] = (lambda C=C: zstep(c, s_t, shor, cluster=C))
                 k3fn[C] = (lambda C=C: cone_step(c, s4, ts_k, acc4, cluster=C))
-    # device times: the kernel, the parent's, and (sweep) every cluster size
+    # device times: the kernel, the parent's, K3's Halpern mode and (sweep)
+    # every cluster size
     for r, fns in ((r2, k2fn), (r3, k3fn)):
-        dms = _k2k3_device_ms(fns)
+        dms = _k2k3_device_ms(fns, medians=("kernel", "parent", "halpern"))
         r["device_ms"] = dms.pop("kernel")
         if "parent" in dms:
             r["parent_device_ms"] = dms.pop("parent")
+        if "halpern" in dms:
+            r["halpern"]["device_ms"] = dms.pop("halpern")
         if dms:
             r["device_ms_by_cluster"] = dms
     return r2, r3
@@ -2474,7 +2531,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # launch they make counts in the record (the kernels phase's launches, made
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
-           "config3", "shork", "mccormick", "config4")
+           "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile")
 _PHASE = {"name": None}
 
 
@@ -2606,11 +2663,11 @@ def phase_branch(res):
 
 # the multi-process frontier: two ranks of omc_torch.parallel.worker on the
 # card, over gloo, on the multinode instance (BENCH_KW with batch 8, so that
-# the frontier outgrows a batch, 60 s, rebalancing every round; the root's
+# the frontier outgrows a batch, 35 s, rebalancing every round; the root's
 # budget not boosted and at most two refinement visits a node, since with
 # either this root certifies alone and rank 1 would get no node)
 DIST_RANKS = 2
-DIST_TIME_LIMIT = 60
+DIST_TIME_LIMIT = 35
 # seconds a rank may take, start-up and the final gather included
 DIST_TIMEOUT = 240
 
@@ -2707,17 +2764,18 @@ def phase_dist(res):
 SHOR_KW = dict(
     BENCH_KW, node_selection="breadthfirst", add_Shor_valid_inequalities=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    add_Shor_valid_inequalities_fraction=0.25, time_limit=60,
+    add_Shor_valid_inequalities_fraction=0.25, time_limit=40,
 )
-# the certified gap the shor phase must reach in its 60 s: 1e-4 is out of
+# the certified gap the shor phase must reach in its 40 s: 1e-4 is out of
 # reach for this relaxation there (the card reaches ~3e-3 in 180 s and
-# ~8e-3 by its second visit; PERF.md, "shor phase"), so the bar is 1e-2
+# ~5e-3 by its second visit, some 10 s in; PERF.md, "shor phase"), so the
+# bar is 1e-2
 SHOR_GAP = 1e-2
 
 
 def phase_shor(res):
     """Static Shor ([4]-minors, a quarter of them) on the 30%-observed
-    50x50 instance, breadth-first, 60 s: the K7/K8a/K8b path through the
+    50x50 instance, breadth-first, 40 s: the K7/K8a/K8b path through the
     entry point."""
     from omc_torch import kernels
 
@@ -2746,7 +2804,7 @@ CONFIG2_KW = dict(
     disjunctive_cuts_breakpoints="smallest_1_eigvec",
     add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=45, batch_size=32,
+    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=35, batch_size=32,
     sdp_iters=2000, dtype="float32", altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: one visit's budget is not boosted 8x
     sdp_iter_boost_max=1,
@@ -2755,7 +2813,7 @@ CONFIG2_KW = dict(
 
 def phase_config2(res):
     """BASELINE config 2 at full width (rank-1 100x100, 30% observed, seed 1,
-    iterative [4]-minor Shor, breadth-first, batch 32), 45 s."""
+    iterative [4]-minor Shor, breadth-first, batch 32), 35 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -2795,10 +2853,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=60, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=45, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget, and the budget is 60 s
+    # of K1's d=150 chain) does not fit the budget, and the budget is 45 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -2853,7 +2911,7 @@ def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
 
 def phase_config3(res):
     """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
-    smallest_2_eigvec, best-first/depth-first, batch 64), 60 s: the base
+    smallest_2_eigvec, best-first/depth-first, batch 64), 45 s: the base
     path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
     from omc_torch import kernels
 
@@ -2868,7 +2926,7 @@ def phase_config3(res):
 def phase_shork(res):
     """The rank-k Shor path on config 3's instance: (i) one root visit of
     2,000 iterations, held to omc's bound for the same call; (ii) the full
-    call (iterative Shor, batch 32), 60 s, through K1, K2, K3, K7t, K7x,
+    call (iterative Shor, batch 32), 45 s, through K1, K2, K3, K7t, K7x,
     K8c and K8d."""
     from omc_torch import kernels
 
@@ -3307,6 +3365,243 @@ def _trace_visit(names):
     call = _bound_split(args, c, [out[key] for key in ("y1", "y2", "ya", "yb", "yc")], reps=5)
     call.update(B=64, n=50, m=50, k=1, L=8)
     return visit, call
+
+
+# ---- the node-batch split, PDHG, Halpern-anchored ADMM and the profiler
+
+# the multinode instance at batch 8 split over two shards (streams) of the
+# one card
+MESH_KW = dict(BENCH_KW, batch_size=8, mesh_shape=(2,))
+# the shard solver's check: config 2's shape (rank-1 100x100, 30%, Shor
+# k=1, M5 bucket 1,024), B = 32 as two shards of 16, 1,000 iterations with a
+# safe-bound call every 500 at +inf targets
+MESH_SHOR = dict(n=100, B=32, L=8, M5=1024, iters=1000, check_every=500, gamma=80.0)
+
+
+def _mesh_shard_check():
+    """The Shor k=1 solver at config 2's shape, split over two shards on
+    streams of the one card, against the same call on one device: the
+    host-certified bounds within 1e-3 (1 + |b|) and Y within 1e-3 relative
+    Frobenius (float32 on the card, other kernel plans at B = 16 than at
+    32).  The on-device bound (K4's block path at d = 200) runs on both
+    streams: no slot exits early."""
+    import numpy as np
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.data import generate_matrix_completion_data
+    from omc_torch.ops.cones import k4_plan
+    from omc_torch.parallel.mesh import make_mesh, shard_solver_shor
+    from omc_torch.sdp import admm_shor
+    from omc_torch.sdp.relax import NodeBatch
+    from omc_torch.sdp.shor import shor_soc_complement
+    from omc_torch.sdp.shor_encode import pack_shor_batch
+    from omc_torch.solve import _polish_incumbent
+    from omc_torch.tree import root_box
+
+    c = MESH_SHOR
+    n, B, L, M5, gamma, k = c["n"], c["B"], c["L"], c["M5"], c["gamma"], 1
+    dev = torch.device("cuda", 0)
+    A, idx = generate_matrix_completion_data(1, n, n, int(0.3 * n * n), seed=1)
+    mask = idx.astype(np.float64)
+    U0 = np.linalg.svd(A * mask, full_matrices=False)[0][:, :k]
+    obj0, X0, U0 = _polish_incumbent(U0 @ (U0.T @ (A * mask)), A, mask, gamma, k)
+    V0 = U0.T @ X0
+    sX = max(1.0, float(np.max(np.abs(A))))
+    sT = max(1.0, 2.0 * gamma * obj0 / (4.0 * n))
+    rho = min(0.05, (62.5 / (n * n)) * min(2.0, 0.5 / max(mask.mean(), 1e-6)))
+    rng = np.random.default_rng(7)
+    minors = []
+    for _ in range(B):  # distinct random 2x2 minors, M5 - 24 a slot
+        i = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
+        j = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
+        ok = (i[:, 0] < i[:, 1]) & (j[:, 0] < j[:, 1])
+        cand = dict.fromkeys(map(tuple, np.stack([i[:, 0], i[:, 1], j[:, 0], j[:, 1]], 1)[ok]))
+        minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
+    sbh = pack_shor_batch(n, n, minors, [shor_soc_complement(n, n, mm) for mm in minors], M5,
+                          n * n)
+    lo, hi = root_box(n, k)
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    hb = NodeBatch(np.zeros((B, L, n)), np.zeros((B, L, k)), np.zeros((B, L, k)),
+                   np.zeros((B, L)), np.broadcast_to(lo, (B, n, k)).copy(),
+                   np.broadcast_to(hi, (B, n, k)).copy())
+    batch = hb.map(f)
+    st = admm_shor.init_shor_state(B, n, n, k, L, M5, n * n, torch.float32, device=dev, sX=sX,
+                                   sT=sT, sS=sX, rho=rho, X0=X0[None], Y0=(U0 @ U0.T)[None],
+                                   Th0=(V0.T @ V0)[None], U0=U0[None])
+    solve = admm_shor.make_shor_solver(n, n, L, M5, n * n, gamma, iters=c["iters"],
+                                       dtype=torch.float32, check_every=c["check_every"],
+                                       ema_iters=1000)
+    ub_bar = obj0 * (1 + 1e-9) + 1e-9
+    target = torch.full((B,), float("inf"), device=dev)
+    group = torch.arange(B, device=dev)
+    args = (f(A), f(mask), batch, sbh, ub_bar, st, c["iters"], target, group)
+    mesh = make_mesh(2)
+    step = shard_solver_shor(mesh, solve)
+    runs = {}
+    for name, fn in (("one_device", solve), ("mesh", step)):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, out = fn(*args)
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.time() - t0, out={kk: v.cpu().numpy() for kk, v in
+                                                          out.items()},
+                          launches=dict(kernels.LAUNCHES))
+    lbs = {name: admm_shor.host_certified_bound_shor(A, mask, hb, sbh, r["out"], gamma, ub_bar)
+           for name, r in runs.items()}
+    one, msh = runs["one_device"]["out"], runs["mesh"]["out"]
+    d_lb = np.abs(lbs["mesh"] - lbs["one_device"]) / (1.0 + np.abs(lbs["one_device"]))
+    y_rel = float(np.linalg.norm(msh["Y"] - one["Y"]) / np.linalg.norm(one["Y"]))
+    row = dict(c, mesh=[str(d) for d in mesh], k4_path_d200=k4_plan(B // 2, 2 * n, 1)["path"],
+               seconds={name: r["seconds"] for name, r in runs.items()},
+               launches_mesh=runs["mesh"]["launches"],
+               launches_one_device=runs["one_device"]["launches"],
+               iters_run_mesh=sorted(set(int(x) for x in msh["iters_run"])),
+               lb_one_device_min=float(lbs["one_device"].min()),
+               lb_mesh_min=float(lbs["mesh"].min()),
+               worst_rel_lb=float(d_lb.max()), y_rel_fro=y_rel)
+    log("mesh shard_solver", json.dumps(row))
+    assert all(np.isfinite(v).all() for v in lbs.values()), row
+    assert row["worst_rel_lb"] <= 1e-3, row
+    assert y_rel <= 1e-3, row
+    assert row["iters_run_mesh"] == [c["iters"]], row  # no slot exited early
+    # each shard ran its own bound calls and separation: K4 and K5 twice
+    # as often as on one device
+    lm, l1 = row["launches_mesh"], row["launches_one_device"]
+    assert lm["K5"] == 2 * l1["K5"] == 2 and lm["K4"] == 2 * l1["K4"] > 0, row
+    _assert_launched(lm, ("K1", "K2", "K3", "K7", "K8a", "K8b", "K4s", "K4", "K5"))
+    return row
+
+
+def phase_mesh(res):
+    """The node-batch split (omc_torch.parallel.mesh): (i) the multinode
+    instance at mesh_shape=(2,) and batch 8, two shards of 4 slots on
+    streams of cuda:0, certified as the multinode phase is, with both
+    shards in run_details; (ii) the shard solver at config 2's shape
+    against one-device solves (``_mesh_shard_check``)."""
+    from omc_torch import kernels
+
+    A, idx = _bench_instance(0.3)
+    kernels.reset_launches()
+    sol, inst, secs = _solve(A, idx, 80.0, **MESH_KW)
+    launches = dict(kernels.LAUNCHES)
+    rd = inst["run_details"]
+    row = _summary(sol, inst, secs)
+    row.update(mesh_devices=rd["mesh_devices"], launches=launches)
+    log("mesh multinode", json.dumps(row))
+    assert rd["mesh_devices"] == ["cuda:0", "cuda:0"], rd["mesh_devices"]
+    assert row["gap"] <= 1e-4, row
+    assert abs(row["objective"] - MULTI_OBJ) <= (1e-4 + MULTI_GAP) * abs(MULTI_OBJ), row
+    lowers = [r["lower"] for r in inst["run_log"] if r["lower"] > -1e300]
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:]))
+    _assert_launched(launches, ("K1", "K2", "K3") + BOUND_KEYS)
+    _bank(res)  # the launches so far count, then 0
+    res["mesh"] = dict(multinode=row, shard_solver=_mesh_shard_check())
+
+
+# the PDHG relaxation (sdp_method="pdhg"): a root-only visit of 1,000
+# iterations on the headline instance
+PDHG_KW = dict(BENCH_KW, sdp_method="pdhg", root_only=True, sdp_iters=1000,
+               sdp_iter_boost_max=1)
+
+
+def phase_pdhg(res):
+    """omc's reference solver through the entry point: its host-certified
+    root bound is finite and, by weak duality, at most the instance's
+    optimum; its exact projections run through K4 and its separation
+    through K5."""
+    import numpy as np
+
+    from omc_torch import kernels
+
+    A, idx = _bench_instance(0.5)
+    kernels.reset_launches()
+    sol, inst, secs = _solve(A, idx, 80.0, **PDHG_KW)
+    launches = dict(kernels.LAUNCHES)
+    rd = inst["run_details"]
+    row = _summary(sol, inst, secs)
+    row.update(lower_root=float(inst["run_log"][-1]["lower"]), launches=launches,
+               ms_per_iter=1e3 * rd["solve_time_device"] / max(rd["sdp_iters_total"], 1))
+    log("pdhg", json.dumps(row))
+    log(f"pdhg ms_per_iter {row['ms_per_iter']:.4f}")
+    assert np.isfinite(row["lower_root"]), row
+    assert row["lower_root"] <= HEADLINE_OBJ * (1 + 1e-9), row
+    assert row["sdp_iters_total"] == PDHG_KW["sdp_iters"], row
+    _assert_launched(launches, ("K4", "K5", "K6"))
+    res["pdhg"] = row
+
+
+# Halpern-anchored ADMM (sdp_halpern=True): a root-only visit of 4,000
+# iterations on the headline instance
+HALPERN_KW = dict(BENCH_KW, sdp_halpern=True, root_only=True, sdp_iters=4000,
+                  sdp_iter_boost_max=1)
+
+
+def phase_halpern(res):
+    """The base solver with K3 in its Halpern mode through the entry point:
+    a finite certified root bound at most the instance's optimum."""
+    import numpy as np
+
+    from omc_torch import kernels
+
+    A, idx = _bench_instance(0.5)
+    kernels.reset_launches()
+    sol, inst, secs = _solve(A, idx, 80.0, **HALPERN_KW)
+    launches = dict(kernels.LAUNCHES)
+    rd = inst["run_details"]
+    row = _summary(sol, inst, secs)
+    row.update(lower_root=float(inst["run_log"][-1]["lower"]), launches=launches,
+               ms_per_iter=1e3 * rd["solve_time_device"] / max(rd["sdp_iters_total"], 1))
+    log("halpern", json.dumps(row))
+    assert np.isfinite(row["lower_root"]), row
+    assert row["lower_root"] <= HEADLINE_OBJ * (1 + 1e-9), row
+    assert 0 < row["sdp_iters_total"] <= HALPERN_KW["sdp_iters"], row
+    _assert_launched(launches, ("K1", "K2", "K3") + BOUND_KEYS)
+    res["halpern"] = row
+
+
+def phase_profile(res):
+    """The headline with profile_dir (a directory under build/, removed
+    after) and profile_steps=3: the Chrome trace holds CUDA kernel events
+    of the base loop's K1, K2 and K3 by their symbol names, and the
+    certified objective is the unprofiled headline's within the gap.  The
+    wall time is logged beside the cold headline's."""
+    import tempfile
+
+    from omc_torch import kernels
+
+    A, idx = _bench_instance(0.5)
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        sol, inst, secs = _solve(A, idx, 80.0, **BENCH_KW, profile_dir=tmp, profile_steps=3)
+        rd = inst["run_details"]
+        path = rd["profile_trace"]
+        size = os.path.getsize(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    launches = dict(kernels.LAUNCHES)
+    kern = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+    seen = {key: sum(pat in nm for nm in kern) for key, pat in
+            (("K1", "k1_"), ("K2", "k2_kernel"), ("K3", "k3_kernel"))}
+    row = _summary(sol, inst, secs)
+    cold = res.get("headline", {}).get("cold")
+    row.update(trace_bytes=size, trace_events=len(events), kernel_events=len(kern),
+               kernel_events_by_key=seen, profile_super_steps=rd["profile_super_steps"],
+               launches=launches, headline_cold_seconds=cold["seconds"] if cold else None)
+    log("profile", json.dumps(row))
+    log(f"profile wall_s {secs:.3f} headline_cold_wall_s "
+        f"{cold['seconds'] if cold else float('nan'):.3f}")
+    assert all(v > 0 for v in seen.values()), row
+    assert row["gap"] <= 1e-4, row
+    assert abs(row["objective"] - HEADLINE_OBJ) <= (1e-4 + HEADLINE_GAP) * HEADLINE_OBJ, row
+    if cold:
+        tol = (row["gap"] + cold["gap"]) * abs(cold["objective"])
+        assert abs(row["objective"] - cold["objective"]) <= tol, (row, cold)
+    _assert_launched(launches, ("K1", "K2", "K3") + BOUND_KEYS)
+    res["profile"] = row
 
 
 KERNELS = (

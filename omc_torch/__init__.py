@@ -13,8 +13,11 @@ bounds, and a run can checkpoint and resume.  The standalone entry points
 ``alternating_minimization`` and ``matrix_completion_SDP_relaxation`` run
 the heuristic or one node's relaxation of any family.  Several processes
 can share one frontier (``distributed=True``, ``omc_torch.parallel.dist``
-over gloo).  Meshes and profiling raise ``NotImplementedError`` from
-``SolverConfig`` (see ROADMAP.md).
+over gloo), a node batch can be split over devices or streams of one card
+(``mesh_shape``, ``omc_torch.parallel.mesh``), the driver can write a
+profiler trace (``profile_dir``), and ``omc``'s PDHG relaxation
+(``sdp_method="pdhg"``) and Halpern-anchored ADMM (``sdp_halpern``) run
+too: every configuration ``omc`` accepts runs in the port.
 
 This package imports torch, numpy and scipy only, never jax.
 """

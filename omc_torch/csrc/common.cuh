@@ -504,10 +504,14 @@ struct K3Params {
   const float *sX, *sT, *rho;
   double* ws;                  // null, or the partials in global memory
                                // (omc_k3_ws_doubles a slot)
+  // the Halpern mode's anchors s0 = w + u of the nine slots at the solve
+  // call's start (each shaped as its slot), or all null: the normal mode
+  const float *h1, *h2, *h3, *h4, *hsoc, *hbox, *ha, *hb, *hc;
   int B, n, m, k, L;
   int C;                       // CTAs per cluster, one cluster per slot (1..16)
   int xsmem;                   // 1: the cut vectors staged in shared memory
   int slsmem;                  // 1: rank 0 stages the trace, interval and chord slots
+  int hal_it;                  // the Halpern mode's iteration index in the call
   float alpha, beta;
 };
 

@@ -43,6 +43,13 @@
 // Where even one CTA's partials outgrow shared memory (a deep tree's 2048
 // cuts at n = 1000, rank 10), they live in a global workspace (ws): each
 // rank's are fenced before the cluster barrier and read through L2.
+//
+// Halpern mode (omc/sdp/admm.py:342-425; K3Params.h1..hc non-null): every
+// pre-projection entry t is blended with its anchor, the slot's w + u at the
+// solve call's start, as t <- b s0 + (1 - b) t with b = 1 / (it + 2) and it
+// the iteration's index in the call (K3Params.hal_it, set on the packed
+// block at each launch), before it is stored, projected or summed.  The
+// normal mode is the kernel's other instantiation and loads no anchor.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -97,8 +104,8 @@ __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int
   return s;
 }
 
-// kWs: the partials in the global workspace
-template <bool kWs>
+// kWs: the partials in the global workspace; kHal: the Halpern mode
+template <bool kWs, bool kHal>
 __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
@@ -109,6 +116,15 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   const int n = p.n, m = p.m, k = p.k, L = p.L;
   const int D1 = n + m, D2 = n + k, NP = 1 + L + k + L * k, Lk = L * k;
   const float alpha = p.alpha, om = 1.0f - p.alpha;
+  // the Halpern blend of a slot entry q with its anchor (the normal mode:
+  // t as it is)
+  const float hbeta = kHal ? 1.0f / ((float)p.hal_it + 2.0f) : 0.f, hom = 1.0f - hbeta;
+  const auto hal = [&](float t, const float* h, size_t q) -> float {
+    if constexpr (kHal)
+      return hbeta * __ldg(h + q) + hom * t;
+    else
+      return t;
+  };
   const K3Smem S = k3_smem(n, m, k, L, C, p.xsmem, p.slsmem, kWs);
   // the slot's workspace, and where part and tot live
   double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
@@ -138,6 +154,11 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   float* t3 = p.t3 + (size_t)b * n * n;
   float* wsoc = p.wsoc + (size_t)b * k * (1 + n);
   float* usoc = p.usoc + (size_t)b * k * (1 + n);
+  // the slot's anchors of the PSD and SOC slots (Halpern mode)
+  const float* h1 = kHal ? p.h1 + (size_t)b * D1 * D1 : nullptr;
+  const float* h2 = kHal ? p.h2 + (size_t)b * D2 * D2 : nullptr;
+  const float* h3 = kHal ? p.h3 + (size_t)b * n * n : nullptr;
+  const float* hsoc = kHal ? p.hsoc + (size_t)b * k * (1 + n) : nullptr;
 
   if (p.xsmem)
     for (int l = warp; l < L; l += kWarps)
@@ -147,7 +168,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   for (int e = tid; e < n * k; e += blockDim.x) us[e] = U[e];
   for (int j = tid; j < k; j += blockDim.x) {
     const int q = j * (1 + n);
-    ts0[j] = alpha * 1.0f + om * wsoc[q] + usoc[q];
+    ts0[j] = hal(alpha * 1.0f + om * wsoc[q] + usoc[q], hsoc, q);
   }
   if (rank == 0 && p.slsmem) {  // the slots rank 0 updates after the cluster sums
     const size_t qk = (size_t)b * Lk, ql = (size_t)b * L;
@@ -200,9 +221,9 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
         const int i = iv[u], j = jv[u];
         if (l0 == 0) {
           const int q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
-          t1[q1] = (alpha * y[u] + om * a1[u]) + b1[u];
-          t2[q2] = (alpha * y[u] + om * a2[u]) + b2[u];
-          t3[q3] = (alpha * ((i == j ? 1.0f : 0.f) - y[u]) + om * a3[u]) + b3[u];
+          t1[q1] = hal((alpha * y[u] + om * a1[u]) + b1[u], h1, q1);
+          t2[q2] = hal((alpha * y[u] + om * a2[u]) + b2[u], h2, q2);
+          t3[q3] = hal((alpha * ((i == j ? 1.0f : 0.f) - y[u]) + om * a3[u]) + b3[u], h3, q3);
           if (j == i) tr += y[u];
         }
         const double yd = y[u];
@@ -231,7 +252,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   // t2's U columns of the band's rows
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const int ii = e / k, c = e - ii * k, q = (i0 + ii) * D2 + n + c;
-    t2[q] = (alpha * us[(i0 + ii) * k + c] + om * w2[q]) + u2[q];
+    t2[q] = hal((alpha * us[(i0 + ii) * k + c] + om * w2[q]) + u2[q], h2, q);
   }
 
   // ---- the band's SOC entries tsoc_j[1 + i], kept, with ||.||^2 (a warp
@@ -240,7 +261,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     double s = 0.0;
     for (int ii = lane; ii < nb; ii += 32) {
       const int i = i0 + ii, q = j * (1 + n) + 1 + i;
-      const float t = (alpha * us[i * k + j] + om * wsoc[q]) + usoc[q];
+      const float t = hal((alpha * us[i * k + j] + om * wsoc[q]) + usoc[q], hsoc, q);
       tsb[j * nb + ii] = t;
       s = fma((double)t, (double)t, s);
     }
@@ -292,7 +313,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
         const int rr = r0 + 2 * h, i = I * kT + rr, a = J * kT + cc;
         if (i < n && a < m) {
           tt[rr * (kT + 1) + cc] = x[h];
-          t1[i * D1 + n + a] = (alpha * (sX * x[h]) + om * wu[h]) + uu[h];
+          t1[i * D1 + n + a] = hal((alpha * (sX * x[h]) + om * wu[h]) + uu[h], h1, i * D1 + n + a);
         }
       }
       __syncwarp();
@@ -300,7 +321,8 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
       for (int h = 0; h < R; ++h) {
         const int rr = r0 + 2 * h, a = J * kT + rr, j = I * kT + cc;
         if (a < m && j < n)
-          t1[(n + a) * D1 + j] = (alpha * (sX * tt[cc * (kT + 1) + rr]) + om * wl[h]) + ul[h];
+          t1[(n + a) * D1 + j] =
+              hal((alpha * (sX * tt[cc * (kT + 1) + rr]) + om * wl[h]) + ul[h], h1, (n + a) * D1 + j);
       }
       __syncwarp();
     }
@@ -313,25 +335,26 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
         return make_float3(Ths[a * m + j], w1[q], u1[q]);
       },
       [&](int aa, int j, float3 v) {
-        t1[(n + a0 + aa) * D1 + n + j] = (alpha * (sT * v.x) + om * v.y) + v.z;
+        const int q = (n + a0 + aa) * D1 + n + j;
+        t1[q] = hal((alpha * (sT * v.x) + om * v.y) + v.z, h1, q);
       });
   // t2's rows n + c: [U', I], row c by CTA c mod C
   for (int c = rank + C * warp; c < k; c += C * kWarps) {
     const int r = n + c;
     for (int j = lane; j < n; j += 32) {
       const int q = r * D2 + j;
-      t2[q] = (alpha * us[j * k + c] + om * w2[q]) + u2[q];
+      t2[q] = hal((alpha * us[j * k + c] + om * w2[q]) + u2[q], h2, q);
     }
     for (int j = lane; j < k; j += 32) {
       const int q = r * D2 + n + j;
-      t2[q] = (alpha * (c == j ? 1.0f : 0.f) + om * w2[q]) + u2[q];
+      t2[q] = hal((alpha * (c == j ? 1.0f : 0.f) + om * w2[q]) + u2[q], h2, q);
     }
   }
 
   // ---- box slot of the band's rows
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const size_t q = (size_t)b * n * k + (size_t)i0 * k + e;
-    const float t = (alpha * us[i0 * k + e] + om * p.wbox[q]) + p.ubox[q];
+    const float t = hal((alpha * us[i0 * k + e] + om * p.wbox[q]) + p.ubox[q], p.hbox, q);
     const float w = fminf(fmaxf(t, Ulo[q]), Uhi[q]);
     p.wbox[q] = w;
     p.ubox[q] = t - w;
@@ -384,7 +407,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
       const float tr_y = (float)tot[0];
       const float w40 = stg ? sl[8 * Lk + 4 * L] : p.w4[b];
       const float u40 = stg ? sl[8 * Lk + 4 * L + 1] : p.u4[b];
-      const float t4 = (alpha * ((float)k - tr_y) + om * w40) + u40;
+      const float t4 = hal((alpha * ((float)k - tr_y) + om * w40) + u40, p.h4, b);
       const float w4 = fmaxf(t4, 0.f);
       p.w4[b] = w4;
       p.u4[b] = t4 - w4;
@@ -394,13 +417,13 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     for (int e = tid; e < Lk; e += blockDim.x) {
       const size_t q = qk + e;
       const float lo = lo_[e], hi = hi_[e], c = cm[e / k], ve = (float)v[e];
-      const float ta = (alpha * (ve - lo) + om * wa0[e]) + ua0[e];
+      const float ta = hal((alpha * (ve - lo) + om * wa0[e]) + ua0[e], p.ha, q);
       const float wa = fmaxf(ta, 0.f), ua = (ta - wa) * c;
       const float aa = aa0[e];
       p.wa[q] = wa;
       p.ua[q] = ua;
       p.acc_a[q] = aa + p.beta * (rho * ua - aa);
-      const float tb = (alpha * (hi - ve) + om * wb0[e]) + ub0[e];
+      const float tb = hal((alpha * (hi - ve) + om * wb0[e]) + ub0[e], p.hb, q);
       const float wb = fmaxf(tb, 0.f), ub = (tb - wb) * c;
       const float ab = ab0[e];
       p.wb[q] = wb;
@@ -417,7 +440,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
       }
       const float f = cv + bc - (float)tot[1 + l];
       const size_t q = ql + l;
-      const float tc = (alpha * f + om * wc0[l]) + uc0[l];
+      const float tc = hal((alpha * f + om * wc0[l]) + uc0[l], p.hc, q);
       const float wc = fmaxf(tc, 0.f), uc = (tc - wc) * cm[l];
       const float ac = ac0[l];
       p.wc[q] = wc;
@@ -433,7 +456,7 @@ int fail(cudaError_t err) {
   return (int)err;
 }
 
-template <bool kWs>
+template <bool kWs, bool kHal>
 int launch(const K3Params& p, cudaStream_t stream) {
   static int smem_attr = -1;
   static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
@@ -452,23 +475,23 @@ int launch(const K3Params& p, cudaStream_t stream) {
   cfg.numAttrs = 1;
   cudaError_t err;
   if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
-    err = cudaFuncSetAttribute(k3_kernel<kWs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(k3_kernel<kWs, kHal>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return fail(err);
     smem_attr = 0;
   }
   if (smem > smem_attr) {
-    err = cudaFuncSetAttribute(k3_kernel<kWs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(k3_kernel<kWs, kHal>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return fail(err);
     smem_attr = smem;
   }
   if (smem > schedulable[p.C]) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k3_kernel<kWs>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k3_kernel<kWs, kHal>, &cfg);
     if (err != cudaSuccess) return fail(err);
     if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
     schedulable[p.C] = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, k3_kernel<kWs>, p);
+  err = cudaLaunchKernelEx(&cfg, k3_kernel<kWs, kHal>, p);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
 }
@@ -493,5 +516,10 @@ OMC_EXPORT int omc_k3_cone(const K3Params* params, void* stream) {
   if (p.C < 1 || p.C > 16 || p.B < 1 || p.n < 1 || p.m < 1 || p.k < 1 || p.L < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return p.ws ? launch<true>(p, st) : launch<false>(p, st);
+  const bool hal = p.h1 != nullptr;
+  if (hal && (!p.h2 || !p.h3 || !p.h4 || !p.hsoc || !p.hbox || !p.ha || !p.hb || !p.hc ||
+              p.hal_it < 0))
+    return (int)cudaErrorInvalidValue;
+  if (p.ws) return hal ? launch<true, true>(p, st) : launch<true, false>(p, st);
+  return hal ? launch<false, true>(p, st) : launch<false, false>(p, st);
 }

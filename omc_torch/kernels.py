@@ -17,7 +17,8 @@ PyTorch version:
 
 - K1 ``omc_torch.ops.polar.project_psd_ns_multi``  (``csrc/k1_psd_sign.cu``)
 - K2 ``omc_torch.sdp.admm.zstep``                  (``csrc/k2_zstep.cu``)
-- K3 ``omc_torch.sdp.admm.cone_step``              (``csrc/k3_cone.cu``)
+- K3 ``omc_torch.sdp.admm.cone_step``, also in its
+  Halpern mode                                     (``csrc/k3_cone.cu``)
 - K7 ``omc_torch.ops.polar.project_psd_small`` and
   ``omc_torch.sdp.admm_shor.minor_step``           (``csrc/k7_minor_psd.cu``)
 - K8a ``omc_torch.sdp.admm_shor.shor_zstep``       (``csrc/k8_shor.cu``)
@@ -186,12 +187,17 @@ _K3_PTRS = (
 )
 
 
+# the Halpern mode's anchors s0 = w + u of the nine slots (null: the
+# normal mode)
+K3_ANCHORS = ("h1", "h2", "h3", "h4", "hsoc", "hbox", "ha", "hb", "hc")
+
+
 class K3Params(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in _K3_PTRS + ("ws",)] + [
+    _fields_ = [(name, ctypes.c_void_p) for name in _K3_PTRS + ("ws",) + K3_ANCHORS] + [
         ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
         ("k", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
-        ("xsmem", ctypes.c_int), ("slsmem", ctypes.c_int), ("alpha", ctypes.c_float),
-        ("beta", ctypes.c_float),
+        ("xsmem", ctypes.c_int), ("slsmem", ctypes.c_int), ("hal_it", ctypes.c_int),
+        ("alpha", ctypes.c_float), ("beta", ctypes.c_float),
     ]
 
 

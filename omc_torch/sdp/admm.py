@@ -32,6 +32,10 @@ three steps run as plain torch (``zstep_plain``, ``cone_step_plain``,
 ``project_psd_ns_merged`` or ``project_psd`` plus ``psd_epilogue``), in the
 order of operations of ``omc``, so float64 iterates match ``omc``.
 
+With ``halpern`` (``omc``'s anchored scheme) K3 runs in its Halpern mode:
+every pre-projection slot is blended with its anchor, the slot's w + u at
+the call's start, as t <- b s0 + (1 - b) t with b = 1/(it + 2).
+
 Every ``check_every`` iterations the bias-corrected EMA duals go through
 the torch ``safe_dual_bound2`` (full fp32 matmuls), the best chunk by the
 estimator is kept, and the early-exit flag is read on the host once.
@@ -306,6 +310,19 @@ class _Consts:
     gamma: float
     alpha: float
     beta: float
+    # Halpern mode: the anchors s0 = w + u of the nine slots at the call's
+    # start (``ANCHOR_SLOTS`` order), or None
+    anchors: tuple | None = None
+
+
+# the slots a Halpern anchor blends, in omc's order: (w, u) field names
+ANCHOR_SLOTS = (("w1", "u1"), ("w2", "u2"), ("w3", "u3"), ("w4", "u4"), ("wsoc", "usoc"),
+                ("wbox", "ubox"), ("wa", "ua"), ("wb", "ub"), ("wc", "uc"))
+
+
+def halpern_anchors(st: "ADMMState") -> tuple:
+    """The Halpern anchors s0 = w + u of every slot of ``st``."""
+    return tuple((getattr(st, w) + getattr(st, u)).contiguous() for w, u in ANCHOR_SLOTS)
 
 
 # --------------------------------------------------------------------------
@@ -472,7 +489,8 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -
 # tensor object (held by a weak reference, so the cache keeps no memory
 # alive) at the same address; the last few blocks are kept.
 _PACKED: dict = {}
-_PACKED_MAX = 16
+_PACKED_PER_SHARD = 16
+_PACKED_MAX = _PACKED_PER_SHARD
 _SLOTS = operator.attrgetter("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc", "usoc",
                              "wbox", "ubox", "wa", "ua", "wb", "ub", "wc", "uc")
 _PRIMAL = operator.attrgetter("X", "Y", "Th", "U", "sX", "sT", "rho")
@@ -492,6 +510,13 @@ def _packed(key, tensors, scalars, build):
         del _PACKED[next(iter(_PACKED))]
     _PACKED[key] = (tuple(map(weakref.ref, tensors)), ptrs, scalars, prm)
     return prm
+
+
+def reserve_packed_blocks(shards: int):
+    """Keep the last blocks of ``shards`` solver calls (a mesh of that many
+    shards), not of one."""
+    global _PACKED_MAX
+    _PACKED_MAX = max(_PACKED_MAX, _PACKED_PER_SHARD * int(shards))
 
 
 # --------------------------------------------------------------------------
@@ -601,11 +626,14 @@ def _workspace(prm, doubles, dev):
 # --------------------------------------------------------------------------
 
 
-def cone_step_plain(c: _Consts, st: ADMMState, acc):
+def cone_step_plain(c: _Consts, st: ADMMState, acc, it: int = 0):
     """Plain version of K3 at the current (Xs, Y, Ths, U) of ``st``:
     returns ``(t1, t2, t3, rest, acc_new)`` where ``rest`` holds the new
     (w4, u4, wsoc, usoc, wbox, ubox, wa, ua, wb, ub, wc, uc) and
-    ``acc_new`` the updated EMA of (rho ua, rho ub, rho uc)."""
+    ``acc_new`` the updated EMA of (rho ua, rho ub, rho uc).  With
+    ``c.anchors`` (Halpern mode) every pre-projection slot is blended with
+    its anchor, t <- b s0 + (1 - b) t with b = 1 / (it + 2), ``it`` the
+    iteration's index in the call, in the compute dtype as ``omc``."""
     b = c.batch
     cm = b.cut_mask
     alpha = c.alpha
@@ -615,26 +643,35 @@ def cone_step_plain(c: _Consts, st: ADMMState, acc):
     def relax_mix(fz, w):
         return alpha * fz + (1.0 - alpha) * w
 
-    t1 = relax_mix(f[0], st.w1) + st.u1
-    t2 = relax_mix(f[1], st.w2) + st.u2
-    t3 = relax_mix(f[2], st.w3) + st.u3
-    t4 = relax_mix(f[3], st.w4) + st.u4
+    if c.anchors is not None:
+        hb = 1.0 / (torch.tensor(it, dtype=st.rho.dtype, device=st.rho.device) + 2.0)
+
+        def hal(t, j):
+            return hb * c.anchors[j] + (1.0 - hb) * t
+    else:
+        def hal(t, j):
+            return t
+
+    t1 = hal(relax_mix(f[0], st.w1) + st.u1, 0)
+    t2 = hal(relax_mix(f[1], st.w2) + st.u2, 1)
+    t3 = hal(relax_mix(f[2], st.w3) + st.u3, 2)
+    t4 = hal(relax_mix(f[3], st.w4) + st.u4, 3)
     w4 = torch.clamp(t4, min=0.0)
     u4 = t4 - w4
-    tsoc = relax_mix(f[4], st.wsoc) + st.usoc
+    tsoc = hal(relax_mix(f[4], st.wsoc) + st.usoc, 4)
     pt, pw = project_soc(tsoc[..., 0], tsoc[..., 1:])
     wsoc = torch.cat([pt[..., None], pw], dim=-1)
     usoc = tsoc - wsoc
-    tbox = relax_mix(f[5], st.wbox) + st.ubox
+    tbox = hal(relax_mix(f[5], st.wbox) + st.ubox, 5)
     wbox = torch.minimum(torch.maximum(tbox, b.U_lo), b.U_hi)
     ubox = tbox - wbox
-    ta = relax_mix(f[6], st.wa) + st.ua
+    ta = hal(relax_mix(f[6], st.wa) + st.ua, 6)
     wa = torch.clamp(ta, min=0.0)
     ua = (ta - wa) * cm[..., None]
-    tb = relax_mix(f[7], st.wb) + st.ub
+    tb = hal(relax_mix(f[7], st.wb) + st.ub, 7)
     wb = torch.clamp(tb, min=0.0)
     ub = (tb - wb) * cm[..., None]
-    tc = relax_mix(f[8], st.wc) + st.uc
+    tc = hal(relax_mix(f[8], st.wc) + st.uc, 8)
     wc = torch.clamp(tc, min=0.0)
     uc = (tc - wc) * cm
     beta = c.beta
@@ -652,16 +689,17 @@ _REST = ("w4", "u4", "wsoc", "usoc", "wbox", "ubox", "wa", "ua", "wb", "ub",
          "wc", "uc")
 
 
-def cone_step(c: _Consts, st: ADMMState, ts, acc, cluster=None):
+def cone_step(c: _Consts, st: ADMMState, ts, acc, cluster=None, it: int = 0):
     """K3 wrapper: writes the pre-projection PSD slots into ``ts`` (t1, t2,
     t3), updates the non-PSD slots of ``st`` and the EMA accumulators
-    ``acc`` (rho ua, rho ub, rho uc) in place.  A CPU state runs
+    ``acc`` (rho ua, rho ub, rho uc) in place; with ``c.anchors`` in the
+    Halpern mode at the call's iteration ``it``.  A CPU state runs
     ``cone_step_plain``; a CUDA state launches ``csrc/k3_cone.cu``
     (``k2k3_plan``'s cluster per node slot; ``cluster`` forces a size, for
     timing) or raises."""
     dev = st.w1.device
     if dev.type == "cpu":
-        t1, t2, t3, rest, acc_new = cone_step_plain(c, st, acc)
+        t1, t2, t3, rest, acc_new = cone_step_plain(c, st, acc, it)
         for dst, src in zip(ts, (t1, t2, t3)):
             dst.copy_(src)
         for name, src in zip(_REST, rest):
@@ -673,13 +711,16 @@ def cone_step(c: _Consts, st: ADMMState, ts, acc, cluster=None):
         raise ValueError(f"cone_step: unsupported device {dev}")
     prm = _packed(("K3", id(c), id(st), cluster), _k3_tensors(c, st, ts, acc),
                   (c.alpha, c.beta), lambda: _k3_params(c, st, ts, acc, cluster))
+    # the iteration index changes every launch: set on the block, not a key
+    prm.hal_it = it
     kernels.launch("K3", "omc_k3_cone", prm, dev)
 
 
 def _k3_tensors(c: _Consts, st: ADMMState, ts, acc) -> tuple:
     """Every K3 operand, gathered cheaply for the reuse test."""
     b = c.batch
-    return _SLOTS(st) + _PRIMAL(st) + _CUTS(b) + (b.U_lo, b.U_hi) + tuple(ts) + tuple(acc)
+    return (_SLOTS(st) + _PRIMAL(st) + _CUTS(b) + (b.U_lo, b.U_hi) + tuple(ts) + tuple(acc)
+            + tuple(c.anchors or ()))
 
 
 def _k3_params(c: _Consts, st: ADMMState, ts, acc, cluster):
@@ -716,6 +757,9 @@ def _k3_params(c: _Consts, st: ADMMState, ts, acc, cluster):
     prm.C, prm.xsmem = plan["k3_cluster"], int(plan["k3_xs"] == "smem")
     prm.slsmem = int(plan["k3_slots"] == "smem")
     prm.alpha, prm.beta = float(c.alpha), float(c.beta)
+    if c.anchors is not None:
+        for (w, _), name, h in zip(ANCHOR_SLOTS, kernels.K3_ANCHORS, c.anchors):
+            setattr(prm, name, kernels.check(name, h, shapes[w], dev))
     _workspace(prm, B * plan["k3_ws"], dev)
     return prm
 
@@ -769,17 +813,17 @@ def make_consts(A, mask, batch: NodeBatch, state: ADMMState, n, m, k, gamma,
     )
 
 
-def iteration(c: _Consts, st: ADMMState, ts, acc, psd_method: str):
-    """One in-place ADMM iteration: K2 -> K3 -> K1 (see the module
-    docstring).  ``acc`` holds the five EMA accumulators (rho u1, rho u2,
-    rho ua, rho ub, rho uc); ``ts`` the t1/t2/t3 scratch.  Each step is
-    its kernel's wrapper, so a CPU state runs the plain versions and a
-    CUDA state the kernels."""
+def iteration(c: _Consts, st: ADMMState, ts, acc, psd_method: str, it: int = 0):
+    """One in-place ADMM iteration, the call's ``it``-th: K2 -> K3 -> K1
+    (see the module docstring).  ``acc`` holds the five EMA accumulators
+    (rho u1, rho u2, rho ua, rho ub, rho uc); ``ts`` the t1/t2/t3 scratch.
+    Each step is its kernel's wrapper, so a CPU state runs the plain
+    versions and a CUDA state the kernels."""
     ws = (st.w1, st.w2, st.w3)
     us = (st.u1, st.u2, st.u3)
     accs = (acc[0], acc[1], None)
     zstep(c, st)
-    cone_step(c, st, ts, acc[2:])
+    cone_step(c, st, ts, acc[2:], it=it)
     if psd_method == "ns":
         project_psd_ns_multi(list(ts), w_out=ws, u_out=us, acc=accs,
                              rho=st.rho, beta=c.beta)
@@ -791,16 +835,21 @@ def iteration(c: _Consts, st: ADMMState, ts, acc, psd_method: str):
 def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
                      iters: int = 400, dtype=torch.float32,
                      alpha: float = 1.6, psd_method: str = "auto",
-                     check_every: int = 2000, ema_iters: int = 1500):
+                     check_every: int = 2000, halpern: bool = False,
+                     ema_iters: int = 1500):
     """Build the batched ADMM solver (port of
-    ``omc.sdp.admm.make_admm_solver`` without the PDHG-era ``adapt_rho``
-    and ``halpern`` options).
+    ``omc.sdp.admm.make_admm_solver`` without its unreachable ``adapt_rho``
+    branch).
 
     ``psd_method``: "ns" (sign schedule, kernel K1 on the GPU), "eigh"
     (exact, CPU only), or "auto" (ns for float32, eigh for float64).
     ``check_every``: iterations between on-device safe-bound evaluations
-    and early-exit checks.  The ADMM penalty is each state's own ``rho``
-    (``init_admm_state``, ``set_slot_rho``)."""
+    and early-exit checks.  ``halpern``: the anchored scheme of ``omc``,
+    s_{k+1} = b_k s_0 + (1 - b_k) T(s_k) with b_k = 1/(k + 2), the anchors
+    s_0 = w + u of every slot taken at the call's start and k counted from
+    the call's first iteration (K3's Halpern mode on the GPU).  The ADMM
+    penalty is each state's own ``rho`` (``init_admm_state``,
+    ``set_slot_rho``)."""
     if psd_method == "auto":
         psd_method = "eigh" if dtype == torch.float64 else "ns"
     if psd_method not in ("ns", "eigh"):
@@ -831,6 +880,8 @@ def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
         st = state.clone()
         beta = 1.0 / max(ema_iters, 1)
         c = make_consts(A, mask, batch_t, st, n, m, k, gamma, alpha, beta, dtype)
+        if halpern:
+            c.anchors = halpern_anchors(st)
         ts = (torch.empty_like(st.w1), torch.empty_like(st.w2),
               torch.empty_like(st.w3))
         if group is None:
@@ -854,8 +905,8 @@ def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
         done = False
         while it < ni and not done:
             chunk = min(check_every, ni - it)
-            for _ in range(chunk):
-                iteration(c, st, ts, ema, psd_method)
+            for i in range(chunk):
+                iteration(c, st, ts, ema, psd_method, it + i)
             # bias correction (the EMA starts from zero duals), in the
             # compute dtype
             corr = 1.0 - (1.0 - beta_t) ** torch.tensor(float(it + chunk), dtype=dtype, device=dev)

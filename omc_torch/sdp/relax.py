@@ -9,6 +9,11 @@ The node relaxation (disjunctive-cut path, reference lines 1491-1857):
          k - tr(Y) >= 0, U in [U_lo, U_hi], (1, U_j) in SOC,
          per cut l: lo_l <= U' x_l <= hi_l and the chord row.
 
+``omc``'s PDHG (primal-dual hybrid gradient) solver of this relaxation,
+its reference solver (``sdp_method="pdhg"``), is here too: ``PDHGState``,
+``init_state``, its own operator pair ``_forward``/``_adjoint``,
+``_estimate_opnorm`` and ``make_solver``.
+
 Lower bounds do not come from the solver's objective: ``safe_dual_bound2``
 evaluates the partial Lagrangian dual in closed form for any dual iterate
 (multipliers re-projected onto their cones; Y, Theta, X, U minimised over a
@@ -26,7 +31,15 @@ import numpy as np
 import torch
 
 from omc_torch import kernels
-from omc_torch.ops.cones import K4_PATHS, _cuda, eigvalsh, k4_jacobi, k4_plan, project_psd
+from omc_torch.ops.cones import (
+    K4_PATHS,
+    _cuda,
+    eigvalsh,
+    k4_jacobi,
+    k4_plan,
+    project_psd,
+    project_soc,
+)
 
 
 @dataclasses.dataclass
@@ -241,6 +254,255 @@ def separation_eigpairs_plain(U, Y):
     M = 0.5 * (M + M.transpose(-1, -2))
     w, V = torch.linalg.eigh(M)
     return w[..., :2], V[..., :, :2]
+
+
+# ---------------------------------------------------------------------------
+# PDHG relaxation solver (omc's reference solver, ``sdp_method="pdhg"``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PDHGState:
+    """PDHG iterate; field order matches ``omc.sdp.relax.PDHGState`` (warm
+    slices, the multi-process wire).  Primal matrices are stored scaled (X
+    = sX * X, Theta = sT * Th internally)."""
+
+    X: torch.Tensor  # (B, n, m)
+    Y: torch.Tensor  # (B, n, n)
+    Th: torch.Tensor  # (B, m, m)
+    U: torch.Tensor  # (B, n, k)
+    Xb: torch.Tensor  # extrapolated copies (z-bar)
+    Yb: torch.Tensor
+    Thb: torch.Tensor
+    Ub: torch.Tensor
+    y1: torch.Tensor  # (B, n+m, n+m)
+    y2: torch.Tensor  # (B, n+k, n+k)
+    y3: torch.Tensor  # (B, n, n)
+    y4: torch.Tensor  # (B,)
+    ysoc: torch.Tensor  # (B, k, 1+n)
+    ya: torch.Tensor  # (B, L, k)
+    yb: torch.Tensor  # (B, L, k)
+    yc: torch.Tensor  # (B, L)
+
+    def leaves(self) -> list:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    @classmethod
+    def from_leaves(cls, leaves) -> "PDHGState":
+        return cls(*leaves)
+
+    def clone(self) -> "PDHGState":
+        return PDHGState(*[x.clone(memory_format=torch.contiguous_format)
+                           for x in self.leaves()])
+
+
+def init_state(B, n, m, k, L, dtype=torch.float32, *, device, sX=1.0, sT=1.0,
+               X0=None, Y0=None, Th0=None, U0=None) -> PDHGState:
+    """Zero state, optionally warm-started from an (unscaled) primal point,
+    e.g. the incumbent (U V, U U', V'V, U), feasible for every node's core
+    cones."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def prim(val, shape, scale):
+        if val is None:
+            return z(*shape)
+        v = torch.as_tensor(val, dtype=dtype, device=device) / scale
+        return torch.broadcast_to(v, shape).clone()
+
+    X = prim(X0, (B, n, m), sX)
+    Y = prim(Y0, (B, n, n), 1.0)
+    Th = prim(Th0, (B, m, m), sT)
+    U = prim(U0, (B, n, k), 1.0)
+    return PDHGState(
+        X=X, Y=Y, Th=Th, U=U, Xb=X.clone(), Yb=Y.clone(), Thb=Th.clone(), Ub=U.clone(),
+        y1=z(B, n + m, n + m), y2=z(B, n + k, n + k), y3=z(B, n, n), y4=z(B),
+        ysoc=z(B, k, 1 + n), ya=z(B, L, k), yb=z(B, L, k), yc=z(B, L),
+    )
+
+
+def _eye(d, like):
+    return torch.eye(d, dtype=like.dtype, device=like.device)
+
+
+def _forward(batch: NodeBatch, Xs, Y, Ths, U, k: int, sX, sT):
+    """PDHG's constraint operator on the scaled primal: the values of the
+    eight constraint slots (X = sX * Xs, Theta = sT * Ths; U's box is kept
+    by a clip, so it has no slot)."""
+    X = sX * Xs
+    Th = sT * Ths
+    Xt = X.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    n = Y.shape[-1]
+    w1 = torch.cat([torch.cat([Y, X], dim=-1), torch.cat([Xt, Th], dim=-1)], dim=-2)
+    eye_k = torch.broadcast_to(_eye(k, U), Ut.shape[:-2] + (k, k))
+    w2 = torch.cat([torch.cat([Y, U], dim=-1), torch.cat([Ut, eye_k], dim=-1)], dim=-2)
+    w3 = _eye(n, Y) - Y
+    w4 = k - torch.diagonal(Y, dim1=-2, dim2=-1).sum(-1)
+    ones = torch.ones(U.shape[:-2] + (k, 1), dtype=U.dtype, device=U.device)
+    wsoc = torch.cat([ones, Ut], dim=-1)  # (B, k, 1+n)
+    v = batch.cut_x @ U
+    wa = v - batch.cut_lo
+    wb = batch.cut_hi - v
+    c = batch.cut_lo + batch.cut_hi
+    bconst = torch.sum(-batch.cut_lo * batch.cut_hi, dim=-1)  # (B, L)
+    xYx = torch.sum((batch.cut_x @ Y) * batch.cut_x, dim=-1)
+    wc = torch.sum(c * v, dim=-1) + bconst - xYx
+    return w1, w2, w3, w4, wsoc, wa, wb, wc
+
+
+def _adjoint(batch: NodeBatch, y1, y2, y3, y4, ysoc, ya, yb, yc, n, m, k, sX, sT):
+    """Adjoint of PDHG's scaled operator: duals -> gradients on (Xs, Y,
+    Ths, U)."""
+    gX = sX * 2.0 * y1[..., :n, n:]
+    gY = (
+        y1[..., :n, :n]
+        + y2[..., :n, :n]
+        - y3
+        - y4[..., None, None] * _eye(n, y3)
+        - (batch.cut_x * yc[..., None]).transpose(-1, -2) @ batch.cut_x
+    )
+    gTh = sT * y1[..., n:, n:]
+    c = batch.cut_lo + batch.cut_hi
+    coef = ya - yb + yc[..., None] * c  # (B, L, k)
+    gU = (
+        2.0 * y2[..., :n, n:]
+        + ysoc[..., 1:].transpose(-1, -2)  # (B, n, k)
+        + batch.cut_x.transpose(-1, -2) @ coef
+    )
+    return gX, gY, gTh, gU
+
+
+def _estimate_opnorm(batch: NodeBatch, n, m, k, sX, sT, iters=20, seed=0):
+    """Per-node power iteration on K'K for ||K|| of the scaled operator,
+    from a normal start drawn by a ``torch.Generator`` seeded with ``seed``
+    (``omc`` draws from ``jax.random.PRNGKey(seed)``: another start, so the
+    two estimates agree to the iteration's accuracy, not to rounding)."""
+    B, L = batch.cut_mask.shape
+    dtype, dev = batch.cut_x.dtype, batch.cut_x.device
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype).to(dev)
+
+    X = normal(B, n, m)
+    Y = normal(B, n, n)
+    Y = 0.5 * (Y + Y.transpose(-1, -2))
+    Th = normal(B, m, m)
+    Th = 0.5 * (Th + Th.transpose(-1, -2))
+    U = normal(B, n, k)
+
+    def nrm(*zs):
+        return torch.sqrt(sum(torch.sum(a * a, dim=tuple(range(1, a.ndim))) for a in zs))
+
+    z0 = (torch.zeros((B, n, m), dtype=dtype, device=dev),
+          torch.zeros((B, n, n), dtype=dtype, device=dev),
+          torch.zeros((B, m, m), dtype=dtype, device=dev),
+          torch.zeros((B, n, k), dtype=dtype, device=dev))
+    offs = _forward(batch, *z0, k, sX, sT)
+    cm = batch.cut_mask
+    for _ in range(iters):
+        s = nrm(X, Y, Th, U)[:, None, None] + 1e-30
+        X, Y, Th, U = X / s, Y / s, Th / s, U / s
+        ws = _forward(batch, X, Y, Th, U, k, sX, sT)
+        w1, w2, w3, w4, wsoc, wa, wb, wc = [w - o for w, o in zip(ws, offs)]
+        wa, wb, wc = wa * cm[..., None], wb * cm[..., None], wc * cm
+        X, Y, Th, U = _adjoint(batch, w1, w2, w3, w4, wsoc, wa, wb, wc, n, m, k, sX, sT)
+        Y = 0.5 * (Y + Y.transpose(-1, -2))
+        Th = 0.5 * (Th + Th.transpose(-1, -2))
+    return torch.sqrt(nrm(X, Y, Th, U)) * 1.05 + 1e-3  # ||K'K z|| -> ||K||^2
+
+
+def make_solver(n: int, m: int, k: int, L: int, gamma: float, *,
+                iters: int = 400, dtype=torch.float32, omega: float = 1.0,
+                sX: float = 1.0, sT: float = 1.0):
+    """Build the batched PDHG relaxation solver (port of
+    ``omc.sdp.relax.make_solver``).
+
+    Returns ``solve(A, mask, batch, ub_bar, state, n_iters=None,
+    opnorm=None) -> (state, out)``: ``out`` carries the unscaled primal (X,
+    Y, Th, U), the dual blocks the host certificate needs and the
+    separation eigenpairs of U U' - Y.  ``omega`` balances the primal and
+    dual steps; ``sX``/``sT`` are the block scales.  ``opnorm`` ((B,),
+    optional) replaces ``_estimate_opnorm``'s per-node estimate of ||K||.
+    Its hot ops are the exact PSD projections (``ops.cones.project_psd``:
+    K4, or K4s for d <= 8, on the GPU) and the separation (K5); the rest is
+    plain tensor work, as in ``omc``."""
+
+    def solve(A, mask, batch: NodeBatch, ub_bar, state: PDHGState, n_iters=None,
+              opnorm=None):
+        dev = state.Y.device
+        if dev.type == "cuda":
+            kernels.require_full_fp32()
+            if dtype != torch.float32:
+                raise ValueError("the CUDA path runs float32 only")
+        ni = int(iters if n_iters is None else n_iters)
+        A = torch.as_tensor(A, device=dev).to(dtype)
+        mask = torch.as_tensor(mask, device=dev).to(dtype)
+        b = batch.map(lambda x: torch.as_tensor(x, device=dev).to(dtype).contiguous())
+        R_Xs = float(np.sqrt(2.0 * gamma * ub_bar)) / sX
+        T_s = 2.0 * gamma * ub_bar / sT
+        if opnorm is None:
+            opnorm = _estimate_opnorm(b, n, m, k, sX, sT)
+        opnorm = torch.as_tensor(opnorm, device=dev).to(dtype)
+        tau = (omega / opnorm)[:, None, None]
+        sig = 1.0 / (omega * opnorm)
+        sig3 = sig[:, None, None]
+        cm = b.cut_mask
+        eye_m, eye_n = _eye(m, A), _eye(n, A)
+        s = state
+        for _ in range(ni):
+            # ---- dual ascent at the extrapolated primal
+            w1, w2, w3, w4, wsoc, wa, wb, wc = _forward(b, s.Xb, s.Yb, s.Thb, s.Ub, k, sX, sT)
+            t1 = s.y1 + sig3 * w1
+            y1 = t1 - project_psd(t1)
+            t2 = s.y2 + sig3 * w2
+            y2 = t2 - project_psd(t2)
+            t3 = s.y3 + sig3 * w3
+            y3 = t3 - project_psd(t3)
+            y4 = torch.clamp(s.y4 + sig * w4, max=0.0)
+            tsoc = s.ysoc + sig3 * wsoc
+            pt, pw = project_soc(tsoc[..., 0], tsoc[..., 1:])
+            ysoc = tsoc - torch.cat([pt[..., None], pw], dim=-1)
+            ya = torch.clamp(s.ya + sig3 * wa, max=0.0) * cm[..., None]
+            yb = torch.clamp(s.yb + sig3 * wb, max=0.0) * cm[..., None]
+            yc = torch.clamp(s.yc + sig[:, None] * wc, max=0.0) * cm
+
+            # ---- primal descent
+            gX, gY, gTh, gU = _adjoint(b, y1, y2, y3, y4, ysoc, ya, yb, yc, n, m, k, sX, sT)
+            Xn = s.X - tau * gX
+            Yn = s.Y - tau * gY
+            Thn = s.Th - tau * gTh
+            Un = s.U - tau * gU
+            Yn = 0.5 * (Yn + Yn.transpose(-1, -2))
+            Thn = 0.5 * (Thn + Thn.transpose(-1, -2))
+            # prox of the objective and the box keep-sets (all separable):
+            # X, 1/2 (sX Xs - A)^2 per observed entry
+            Xn = torch.where(mask > 0, (Xn + tau * sX * A) / (1.0 + tau * sX * sX), Xn)
+            Xn = torch.clamp(Xn, -R_Xs, R_Xs)
+            # Theta, the linear (sT / 2 gamma) tr(Ths)
+            Thn = Thn - (tau * (sT * 0.5 / gamma)) * eye_m
+            d_th = torch.diagonal(Thn, dim1=-2, dim2=-1)
+            Thn = Thn + (torch.clamp(d_th, 0.0, T_s) - d_th)[..., None, :] * eye_m
+            Thn = torch.clamp(Thn, -T_s, T_s)
+            d_y = torch.diagonal(Yn, dim1=-2, dim2=-1)
+            Yn = Yn + (torch.clamp(d_y, 0.0, 1.0) - d_y)[..., None, :] * eye_n
+            Yn = torch.clamp(Yn, -1.0, 1.0)
+            Un = torch.minimum(torch.maximum(Un, b.U_lo), b.U_hi)
+            s = PDHGState(
+                X=Xn, Y=Yn, Th=Thn, U=Un,
+                Xb=2.0 * Xn - s.X, Yb=2.0 * Yn - s.Y, Thb=2.0 * Thn - s.Th, Ub=2.0 * Un - s.U,
+                y1=y1, y2=y2, y3=y3, y4=y4, ysoc=ysoc, ya=ya, yb=yb, yc=yc,
+            )
+        sep_w, sep_V = separation_eigpairs(s.U, s.Y)
+        out = {
+            "X": sX * s.X, "Y": s.Y, "Th": sT * s.Th, "U": s.U,
+            "y1": s.y1, "y2": s.y2, "ya": s.ya, "yb": s.yb, "yc": s.yc,
+            "sep_w": sep_w, "sep_V": sep_V,
+        }
+        return s, out
+
+    return solve
 
 
 # ---------------------------------------------------------------------------

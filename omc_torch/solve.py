@@ -26,6 +26,13 @@ frontier shard: the root starts on process 0, bounds are fused every
 super-step and surplus nodes migrate every ``dist_rebalance_every`` rounds,
 warm with their solver-state slices unless ``dist_migrate_state=False``;
 checkpoints go to one file a process (``<checkpoint_path>.proc<i>``).
+With ``mesh_shape`` the solver calls split the node batch over devices
+(``omc_torch.parallel.mesh``; on one card, over streams of it), with the
+full batch a visit and no rho portfolio, as ``omc``.  ``profile_dir``
+writes a ``torch.profiler`` Chrome trace of the first super-steps.
+``sdp_method="pdhg"`` relaxes the base path with ``omc``'s PDHG solver
+(``sdp.relax.make_solver``), ``sdp_halpern`` anchors the base ADMM solver
+(K3's Halpern mode on the GPU).
 
 Soundness notes (as in ``omc``):
 
@@ -43,8 +50,8 @@ The device is chosen once, by the ``device`` argument, ``"cuda"`` unless
 the caller asks for ``"cpu"``.  On a CUDA device the solver runs float32
 through the hand-written kernels (``omc_torch/csrc``): K1-K3 on the base
 path, K2, K8a, K3, K1, K7, K8b on the rank-1 Shor path, K2, K8c, K3, K1,
-K7t, K7x, K8d on the rank-k Shor path, and K9s, K9a, K9b, K1 on the
-McCormick path.
+K7t, K7x, K8d on the rank-k Shor path, K9s, K9a, K9b, K1 on the McCormick
+path, and K4 (K4s for d <= 8) with K5 in the PDHG relaxation.
 """
 
 from __future__ import annotations
@@ -91,9 +98,12 @@ from omc_torch.sdp.mccormick import (
 )
 from omc_torch.sdp.relax import (
     NodeBatch,
+    PDHGState,
     apply_warm_slices,
     host_certified_bound,
     host_state_slice,
+    init_state,
+    make_solver,
     state_to_host,
 )
 from omc_torch.sdp.shor_encode import pack_shor_batch
@@ -134,9 +144,13 @@ def _m5_bucket(need: int) -> int:
 
 def family_state(family: str, Bb: int, n: int, m: int, k: int, L: int, M5, dtype, device,
                  **kw):
-    """The initial solver state of ``family`` ("admm", "shor", "shor_k" or
-    "mccormick") at batch ``Bb``, ``L`` cut rows and ``M5`` minor slots
-    (the Shor families)."""
+    """The initial solver state of ``family`` ("admm", "pdhg", "shor",
+    "shor_k" or "mccormick") at batch ``Bb``, ``L`` cut rows and ``M5``
+    minor slots (the Shor families)."""
+    if family == "pdhg":
+        kw.pop("sS", None)
+        kw.pop("rho", None)
+        return init_state(Bb, n, m, k, L, dtype, device=device, **kw)
     if family == "mccormick":
         kw.pop("sS", None)
         return init_mc_state(Bb, n, m, k, dtype, device=device, **kw)
@@ -341,7 +355,7 @@ def matrix_completion_branchandbound(
     # k > 1 uses the Xt-split Shor relaxation (omc_torch.sdp.shor_k)
     use_shor_k = use_shor and k > 1
     family = ("mccormick" if use_mccormick else "shor_k" if use_shor_k
-              else "shor" if use_shor else "admm")
+              else "shor" if use_shor else cfg.sdp_method)
 
     mask = indices.astype(np.float64)
     rng = np.random.default_rng(cfg.seed)
@@ -637,6 +651,33 @@ def matrix_completion_branchandbound(
 
     add_message(printlist, UPDATE_HEADER, echo=echo)
 
+    # opt-in profiling: a torch.profiler trace (CPU activity, and CUDA
+    # activity on the card) of the first super-steps, written to
+    # profile_dir as a Chrome trace.  omc's count: it rises once a
+    # super-step (and at the forced stop), and the trace stops once it
+    # passes profile_steps, or at the end
+    profiling = {"prof": None, "steps": 0, "path": None, "traced": 0}
+    if cfg.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        profiling["prof"] = profile(activities=acts)
+        profiling["prof"].start()
+
+    def maybe_stop_profiler(force=False):
+        prof = profiling["prof"]
+        if prof is None:
+            return
+        profiling["steps"] += 1
+        if force or profiling["steps"] > cfg.profile_steps:
+            prof.stop()
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            path = os.path.join(cfg.profile_dir,
+                                f"omc_torch.{os.getpid()}.{int(start_time * 1e3)}.pt.trace.json")
+            prof.export_chrome_trace(path)
+            # the super-steps the trace covers (the forced stop is none)
+            profiling.update(prof=None, path=path, traced=profiling["steps"] - int(force))
+
     def add_update(altmin_flag=False, echo_row=True):
         tree.now_gap = compute_gap(tree.best_lower_bound, tree.best_upper_bound)
         msg = update_row(tree, time.time() - start_time, altmin_flag=altmin_flag)
@@ -678,9 +719,31 @@ def matrix_completion_branchandbound(
         )
         return [mm for _, mm in scored]
 
+    # node-batch split over devices (omc_torch.parallel.mesh, BASELINE
+    # configs 4-5): the solver calls shard the batch axis over the mesh's
+    # devices (on one card, several streams of it); A, the mask, ub_bar and
+    # the iteration budget replicate
+    mesh = None
+    if cfg.mesh_shape:
+        n_dev = int(np.prod(cfg.mesh_shape))
+        if n_dev > 1:
+            if B % n_dev != 0:
+                raise ValueError(
+                    f"batch_size {B} must be divisible by the mesh size {n_dev}"
+                )
+            if cfg.sdp_method != "admm":
+                raise NotImplementedError(
+                    "mesh_shape requires the ADMM solver family "
+                    "(disjunctive cuts, McCormick, and Shor paths)"
+                )
+            from omc_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(n_dev, device=dev.type)
+
     def get_solver(L, M5=None):
         """The base solver per cut bucket; with Shor, per (cut, minor)
-        bucket (omc's Shor solver keeps its own over-relaxation 1.6)."""
+        bucket (omc's Shor solver keeps its own over-relaxation 1.6); under
+        a mesh, sharded over it."""
         key = (L, M5)
         if key not in solvers:
             if use_mccormick:
@@ -698,12 +761,23 @@ def matrix_completion_branchandbound(
                     n, m, L, M5, n * m, gamma, iters=cfg.sdp_iters, dtype=dtype,
                     check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
                 )
+            elif cfg.sdp_method == "pdhg":
+                solvers[key] = make_solver(
+                    n, m, k, L, gamma, iters=cfg.sdp_iters, dtype=dtype,
+                    omega=cfg.sdp_omega, sX=sX, sT=sT,
+                )
             else:
                 solvers[key] = make_admm_solver(
                     n, m, k, L, gamma, iters=cfg.sdp_iters, dtype=dtype,
-                    alpha=cfg.sdp_alpha,
-                    check_every=cfg.sdp_check_every, ema_iters=cfg.sdp_ema_iters,
+                    alpha=cfg.sdp_alpha, check_every=cfg.sdp_check_every,
+                    halpern=cfg.sdp_halpern, ema_iters=cfg.sdp_ema_iters,
                 )
+            if mesh is not None:
+                from omc_torch.parallel.mesh import shard_solver, shard_solver_shor
+
+                solvers[key] = (shard_solver_shor(mesh, solvers[key]) if use_shor
+                                else shard_solver(mesh, solvers[key],
+                                                  extra_sharded=0 if use_mccormick else 2))
         return solvers[key]
 
     # Warm-start cache: node_id (raw final state, refinement continuation)
@@ -803,7 +877,8 @@ def matrix_completion_branchandbound(
         # w5/u5/v: the minor tables are prefix-stable (shor_encode)
         apply_warm_slices(base, slices)
         state_cls = (MCState if use_mccormick else ShorKState if use_shor_k
-                     else ShorADMMState if use_shor else ADMMState)
+                     else ShorADMMState if use_shor
+                     else PDHGState if cfg.sdp_method == "pdhg" else ADMMState)
         return state_cls.from_leaves(
             [torch.as_tensor(b_, device=dev) for b_ in base]
         ), True
@@ -888,12 +963,16 @@ def matrix_completion_branchandbound(
         # otherwise-padded slots at different penalties; every replica bound
         # is valid, the per-node max is taken, and the winning replica's
         # state carries forward.  First visits run solo at the tight bucket.
+        # A mesh runs the full batch and no portfolio (as omc).
         use_portfolio = (
-            not use_shor and not use_mccormick and len(cfg.rho_portfolio) > 0
+            not use_shor and not use_mccormick and cfg.sdp_method == "admm"
+            and mesh is None and len(cfg.rho_portfolio) > 0
             and all(nd.refines > 0 for nd in work)
         )
         P = 1 + len(cfg.rho_portfolio)
-        if use_portfolio:
+        if mesh is not None:
+            Bb = B
+        elif use_portfolio:
             Bb = _b_bucket(min(len(work) * P, B), B)
         else:
             Bb = _b_bucket(len(work), B)
@@ -976,6 +1055,12 @@ def matrix_completion_branchandbound(
             if cfg.sdp_best_dual_warm:
                 apply = apply_shor_k_best_duals if use_shor_k else apply_shor_best_duals
                 fin_state = apply(fin_state, out_dev)
+        elif cfg.sdp_method == "pdhg":
+            # the PDHG reference solver: its duals are the final iterate's,
+            # and it has no on-device early exit
+            fin_state, out_dev = get_solver(L)(
+                A_dev, mask_dev, batch_dev, ub_bar, state0, visit_iters,
+            )
         else:
             fin_state, out_dev = get_solver(L)(
                 A_dev, mask_dev, batch_dev, ub_bar, state0, visit_iters,
@@ -988,7 +1073,7 @@ def matrix_completion_branchandbound(
             if cfg.sdp_best_dual_warm:
                 state_bd = apply_best_duals(fin_state, out_dev)
         out = to_numpy_out(out_dev)  # one synchronised fetch
-        iters_done = int(np.max(out["iters_run"]))
+        iters_done = int(np.max(out["iters_run"])) if "iters_run" in out else visit_iters
         t_dev_end = time.time()
         if use_mccormick:
             lbs = host_certified_bound_mc(A, mask, batch.U_lo, batch.U_hi, out, gamma, k, ub_bar)
@@ -996,7 +1081,7 @@ def matrix_completion_branchandbound(
             lbs = host_certified_bound_shor_k(A, mask, batch, sbh, out, gamma, k, ub_bar)
         elif use_shor:
             lbs = host_certified_bound_shor(A, mask, batch, sbh, out, gamma, ub_bar)
-        elif Bb > cfg.host_certify_max_batch:
+        elif Bb > cfg.host_certify_max_batch and "lb_dev" in out:
             # scale path: f64-certify only the binding slots (prune/close
             # candidates by the estimator, and the lowest bounds, which
             # drive the global LB); the rest keep the on-device
@@ -1358,6 +1443,7 @@ def matrix_completion_branchandbound(
         )
         add_update(echo_row=print_now if verbosity >= 1 else verbosity >= 3)
         maybe_checkpoint()
+        maybe_stop_profiler()
 
         if cfg.root_only:
             break
@@ -1365,6 +1451,7 @@ def matrix_completion_branchandbound(
     end_time = time.time()
     time_taken = end_time - start_time
     maybe_checkpoint(force=True)
+    maybe_stop_profiler(force=True)
 
     # terminal accounting for nodes still queued mid-refinement at a
     # gap-certified exit (their outcome is a within-gap bound prune -> (6))
@@ -1436,6 +1523,12 @@ def matrix_completion_branchandbound(
         }
     )
     run_details.update(census)
+    if mesh is not None:
+        # the shards' devices: two shards on one card are two entries
+        run_details["mesh_devices"] = [str(d) for d in mesh]
+    if profiling["path"] is not None:
+        run_details["profile_trace"] = profiling["path"]
+        run_details["profile_super_steps"] = profiling["traced"]
     if dist is not None:
         run_details["process_count"] = dist.process_count
         run_details["process_index"] = dist.process_index

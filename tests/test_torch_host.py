@@ -49,9 +49,8 @@ def test_data_bit_identical(args):
 def test_config_fields_and_defaults_match():
     jf = {f.name: f.default for f in dataclasses.fields(jconfig.SolverConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tconfig.SolverConfig)}
-    # the port drops the PDHG step balance and the per-call duration caps
-    assert set(jf) - set(tf) == {"sdp_omega", "sdp_max_call_seconds",
-                                  "sdp_first_call_iters"}
+    # the port drops the per-call duration caps
+    assert set(jf) - set(tf) == {"sdp_max_call_seconds", "sdp_first_call_iters"}
     assert set(tf) <= set(jf)
     for name, default in tf.items():
         assert default == jf[name], name
@@ -75,30 +74,6 @@ def test_config_invalid_values_raise_like_omc(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh_shape=(2,)),
-    dict(profile_dir="trace"),
-    dict(sdp_halpern=True),
-    dict(sdp_method="pdhg"),
-])
-def test_unported_options_raise_not_implemented(kw):
-    jconfig.SolverConfig(**{**_MAIN, **kw})  # valid for omc
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.SolverConfig(**{**_MAIN, **kw})
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh_shape=(2,)), "queue 1, parallel/mesh.py"),
-    (dict(profile_dir="trace"), "queue 1, profile_dir"),
-])
-def test_unported_option_messages_name_their_roadmap_item(kw, item):
-    """Each option the port lacks names its ROADMAP.md item by the module or
-    option it ports, as queue 1 lists it."""
-    with pytest.raises(NotImplementedError) as err:
-        tconfig.SolverConfig(**{**_MAIN, **kw})
-    assert f"(ROADMAP.md, {item})" in str(err.value)
-
-
-@pytest.mark.parametrize("kw", [
     dict(add_Shor_valid_inequalities=True),
     dict(add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
          add_Shor_valid_inequalities_fraction=0.5, node_selection="breadthfirst"),
@@ -114,6 +89,10 @@ def test_unported_option_messages_name_their_roadmap_item(kw, item):
     dict(checkpoint_path="ckpt.pkl", resume=True, checkpoint_every=5),
     dict(distributed=True, dist_rebalance_every=2),
     dict(distributed=True, dist_migrate_state=False),
+    dict(mesh_shape=(2,)),
+    dict(profile_dir="trace"),
+    dict(sdp_halpern=True),
+    dict(sdp_method="pdhg", sdp_omega=2.0),
 ])
 def test_ported_options_configure_like_omc(kw):
     full = {**_MAIN, **kw}

@@ -23,6 +23,7 @@ import omc_torch.api
 import omc_torch.utils.checkpoint
 import omc_torch.parallel.dist
 import omc_torch.parallel.worker
+import omc_torch.parallel.mesh
 from omc_torch.sdp.admm import init_admm_state, make_admm_solver
 from omc_torch.sdp.relax import NodeBatch
 from omc_torch.tree import root_box
@@ -38,6 +39,11 @@ st = init_admm_state(B, n, m, k, L, torch.float64, device="cpu", rho=0.05)
 solve = make_admm_solver(n, m, k, L, 10.0, iters=1, dtype=torch.float64, check_every=1)
 fin, out = solve(t(A), t(mask), batch, 10.0, st)
 assert np.all(np.isfinite(out["lb_est"].numpy())), out["lb_est"]
+from omc_torch.sdp import relax
+pd = relax.make_solver(n, m, k, L, 10.0, iters=1, dtype=torch.float64, omega=3.0)
+_, pout = pd(t(A), t(mask), batch, 10.0, relax.init_state(B, n, m, k, L, torch.float64,
+                                                           device="cpu"))
+assert np.all(np.isfinite(pout["Y"].numpy()))
 from omc_torch.tree import BBNode
 r = omc_torch.api.matrix_completion_SDP_relaxation(
     BBNode(1, 0, lo, hi, -np.inf, 0, cuts=None), n, k, A, mask, 10.0,
