@@ -32,9 +32,14 @@ Phases, in order (each prints its numbers on lines of its own):
                K7t, K7x (fused) and K8d at k = 2, 3 and 4 and K7x's
                projection mode, K9a and K9b at (B, n=m, k) = (64, 50, 1),
                (64, 75, 2), (1, 50, 1), (16, 50, 1) (MC_SHAPES), with their
-               device times, and K9s also at (64, 50, 3); the build fails if
-               ptxas reports a spill in K2, K3, K6, K7, K7t, K7x, K8a, K8b,
-               K8c, K8d, K9s, K9a or K9b
+               device times, and K9s also at (64, 50, 3); then the float64
+               builds of K2 and K3 (both modes; the headline's and the
+               fixtures' shapes), K4 (modes 0-2 at B=1 and 64, d=100/51/50,
+               and the block path at d=150), K4s (5x5), K5 ((64, 50, 1),
+               (1, 50, 1)) and K6 (n=m=50; B=4, 64; k=1, 2, 10) against
+               their plain versions in float64 and K4, K4s and K5 against a
+               float64 LAPACK eigh; the build fails if ptxas reports a spill
+               in any kernel of either type
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -43,25 +48,25 @@ Phases, in order (each prints its numbers on lines of its own):
 7. multinode — the 30%-observed instance, gap 1e-4
 8. dist      — the multi-process frontier: two ranks of
                omc_torch.parallel.worker on the card over gloo, the
-               multinode instance at batch 8, 35 s
+               multinode instance at batch 8, 25 s
 9. branch    — the 20%-observed instance, 30 s budget
 10. shor     — the 30%-observed instance with static Shor minors
-               (breadth-first, 40 s): the K7/K8a/K8b path
+               (breadth-first, 20 s): the K7/K8a/K8b path
 11. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
-               35 s, with soundness checks
+               20 s, with soundness checks
 12. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 45 s
+               smallest_2_eigvec, best-first/depth-first, batch 64), 25 s
 13. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
-               call (iterative Shor, batch 32), 45 s
+               call (iterative Shor, batch 32), 20 s
 14. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
-               McCormick B&B on the headline instance, 30 s
+               McCormick B&B on the headline instance, 15 s
 15. config4  — BASELINE config 4's frontier step (rank-5 250x250, a device
                batch of 128 nodes, 400 iterations, one safe-bound call: K4 at
-               d=500, 255 and 250, K5 at d=250): a warm-up step, then two
-               timed sub-steps, the 8 lowest bounds certified in float64
+               d=500, 255 and 250, K5 at d=250): a warm-up step, then one
+               timed sub-step, the 8 lowest bounds certified in float64
 16. mesh     — the node-batch split (mesh_shape): the multinode instance at
                batch 8 as two shards on streams of the one card, certified;
                then the Shor k=1 solver at config 2's shape (B=32 as two
@@ -73,13 +78,22 @@ Phases, in order (each prints its numbers on lines of its own):
                mode): a root-only visit of 4,000 iterations on the headline
 19. profile  — the headline with profile_dir: a torch.profiler Chrome trace
                of its first super-steps holding K1's, K2's and K3's kernels
+20. float64  — omc's dtype="float64" on the card (the float64 builds of K2,
+               K3, K4, K5, K6): api.alternating_minimization and
+               api.matrix_completion_SDP_relaxation (1,000 iterations) at
+               their defaults on the headline's root, each against the same
+               call on the CPU, and a 4x4 root (K4s); the four fixtures at
+               their own gap_target;
+               the headline branch-and-bound for 15 s (sound bounds); one
+               traced iteration at B=1 in float64 beside float32
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
 bounds' small slots, K5 the separation, K6 altmin).  The record's launches
 of a kernel are its launches over all those phases (``COUNTED``).
 
-``--phases device,build,trace`` runs the optional ``trace`` phase: a
+``--phases device,build,kernels64`` runs the kernels phase's float64 rows
+alone.  ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape and at the shor
 cell's (with K7's, K8a's and K8b's device ms per iteration), of the
 rank-k Shor loop at config 3's (with K7t's, K7x's and K8d's), of the
@@ -92,12 +106,13 @@ device ms per iteration of the two Shor loops and the two root visits are
 given on their own.
 
 ``--parent DIR`` (a checkout of an older tree, e.g. from ``git archive``)
-builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d, K9s, K9a, K9b, K4
-and K4s and times them, with that tree's parameter blocks, beside every
-K2/K3 row of the kernels phase up to 512 cuts and every K7/K8a/K8b/K7t/
-K7x/K8d/K9s/K9a/K9b/K4s/K5 row (the parent's K5 is K4's Jacobi template on
-the path k4_plan gives it), and reports ptxas's registers of its K7, K7t,
-K7x, K8a, K8b, K8d, K9a and K9b.
+builds that tree's K2, K3, K7, K8a, K8b, K7t, K7x, K8d, K9s, K9a, K9b, K4,
+K4s, K5 and K6 and times them, with that tree's parameter blocks, beside
+every K2/K3 row of the kernels phase up to 512 cuts, every K7/K8a/K8b/K7t/
+K7x/K8d/K9s/K9a/K9b/K4s/K5/K6 row and every K4 row of at most 20 ms (the
+float32 rows; each on this tree's float32 plan, which is the parent's),
+and reports ptxas's registers of its K7, K7t, K7x, K8a, K8b, K8d, K9a and
+K9b.
 
 Any failed check raises; the script then exits non-zero and prints no
 final line.  On success the line before the last is the per-kernel JSON
@@ -113,6 +128,7 @@ This script imports no jax and nothing of the ``omc`` package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import statistics
@@ -123,8 +139,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
-          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile")
-EXTRA_PHASES = ("trace",)  # run only when named in --phases
+          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64")
+EXTRA_PHASES = ("trace", "kernels64")  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
 # certificates recorded in BENCH_r05.json; they are facts about the
@@ -146,6 +162,11 @@ SHORK_ROOT_OMC = -168.05748086136975
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_TF32_FLOPS = 495e12
+# fp64 outside the tensor cores (the float64 builds' FMAs) and on them (the
+# figure given beside the float64 block path's bound, whose tile products
+# could go there)
+PEAK_FP64_FLOPS = 34e12
+PEAK_FP64_TC_FLOPS = 67e12
 # products in one sign-schedule projection: 3 per quintic step, 2 per cubic
 # step, 1 for (T + sign(T) T) / 2
 SIGN_PRODUCTS = 3 * 12 + 2 * 2 + 1
@@ -270,22 +291,23 @@ def phase_build(res):
     report = _ptxas_report(info.get("ptxas", ""))
     res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
     log("build: kernels that spill", json.dumps(spills))
-    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel") + NO_FRAME
+    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel", "k4", "k5_kernel") + NO_FRAME
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
-    log("build: K2, K3, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9s, K9a and K9b registers",
+    log("build: K2, K3, K4, K4s, K5, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9s, K9a and K9b "
+        "registers",
         json.dumps(regs))
     if PARENT:
         res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
                                if any(x in f for x in NO_FRAME)}
         log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9s, K9a and K9b",
             json.dumps(res["parent_ptxas"]))
-    # K2's, K3's, K6's, K7's, K7t's, K7x's, K8a's, K8b's, K8c's, K8d's,
-    # K9s's, K9a's and K9b's instantiations keep every value in registers;
+    # every instantiation of every kernel, the float64 builds of K2, K3,
+    # K4, K4s, K5 and K6 included, keeps its values in registers (no spill);
     # K7's, K7t's, K7x's, K8a's, K8b's, K8d's, K9s's, K9a's and K9b's index
     # their small arrays only with constants (no stack frame: a 5x5 triangle
     # in local memory costs K7 ten times its time)
-    assert not [f for f in spills if any(x in f for x in keep)], spills
+    assert not spills, spills
     frames = {f: r["stack"] for f, r in report.items()
               if any(x in f for x in NO_FRAME) and r["stack"]}
     assert not frames, frames
@@ -624,13 +646,15 @@ def phase_kernels(res):
                            and row["plan_matches_kernel"]))
             out[name].append(row)
 
-    # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps ----
-    rows = _check_eig_kernels(gen, dev)
-    for name, rs in rows.items():
-        for row in rs:
-            log(name, json.dumps(row))
-            checks.append((name, row, row["ok"]))
-    out.update(rows)
+    # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps; then
+    # the float64 builds of K2-K6 ----
+    for check in (_check_eig_kernels, _check_float64_kernels):
+        rows = check(gen, dev)
+        for name, rs in rows.items():
+            for row in rs:
+                log(name, json.dumps(row))
+                checks.append((name, row, row["ok"]))
+        out.update(rows)
     res["kernels"] = out
     failed = [(name, row) for name, row, ok in checks if not ok]
     assert not failed, failed
@@ -1173,9 +1197,10 @@ def _k7t_gathered(sc, nm):
     return sc.k * cnt
 
 
-def _admm_inputs(B, n, m, k, L, gen, dev):
+def _admm_inputs(B, n, m, k, L, gen, dev, dtype=None):
     """Random ADMM state and node batch at a main-path shape (float32 on
-    the card): slot values and duals of unit scale, ~L/2 real cuts."""
+    the card, or ``dtype``): slot values and duals of unit scale, ~L/2 real
+    cuts."""
     import numpy as np
     import torch
 
@@ -1199,10 +1224,11 @@ def _admm_inputs(B, n, m, k, L, gen, dev):
                 "linear", rng.integers(0, 2, k), rng.uniform(-0.5, 0.5, k))
             cut_mask[b, l] = 1.0
     lo, hi = root_box(n, k)
-    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+    dt = dtype or torch.float32
+    f = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)
     batch = NodeBatch(f(cut_x), f(cut_lo), f(cut_hi), f(cut_mask),
                       f(np.broadcast_to(lo, (B, n, k))), f(np.broadcast_to(hi, (B, n, k))))
-    st = init_admm_state(B, n, m, k, L, torch.float32, device=dev, sX=2.5, sT=1.7, rho=0.02)
+    st = init_admm_state(B, n, m, k, L, dt, device=dev, sX=2.5, sT=1.7, rho=0.02)
     for name in ("w1", "w2", "w3", "w4", "wsoc", "wbox", "wa", "wb", "wc",
                  "u1", "u2", "u3", "u4", "usoc", "ubox", "ua", "ub", "uc",
                  "X", "Y", "Th", "U"):
@@ -1216,7 +1242,7 @@ def _admm_inputs(B, n, m, k, L, gen, dev):
             v = v * batch.cut_mask
         t.copy_(v)
     st.rho.copy_(f(rng.uniform(0.01, 0.1, B)))
-    c = make_consts(f(A), f(mask), batch, st, n, m, k, 80.0, 1.9, 1e-3, torch.float32)
+    c = make_consts(f(A), f(mask), batch, st, n, m, k, 80.0, 1.9, 1e-3, dt)
     acc = [torch.zeros_like(st.ua), torch.zeros_like(st.ub), torch.zeros_like(st.uc)]
     for a in acc:
         a.copy_(torch.randn(a.shape, generator=gen).to(dev) * 0.1)
@@ -1248,11 +1274,11 @@ def _to64(x):
 # ``k2k3_plan`` (``omc_torch/sdp/admm.py`` there).
 PARENT = {}
 PARENT_SOURCES = ("k2_zstep", "k3_cone", "k7_minor_psd", "k8_shor", "k7k_minor_xwh", "k8k_shor_k",
-                  "k9_mccormick", "k4_jacobi", "k4s_jacobi_small")
+                  "k9_mccormick", "k4_jacobi", "k4s_jacobi_small", "k5_separation", "k6_altmin")
 
 
 def _load_parent(src):
-    """Build DIR's K2, K3, K7, K8, K7t/K7x, K8c/K8d, K9, K4 and K4s sources into
+    """Build DIR's K2, K3, K7, K8, K7t/K7x, K8c/K8d, K9, K4, K4s, K5 and K6 sources into
     one library (one nvcc each, in parallel), bind their entry points to DIR's
     blocks, take DIR's ``k2k3_plan`` and keep ptxas's report of DIR's
     kernels."""
@@ -1295,7 +1321,9 @@ def _load_parent(src):
                    (lib.omc_k8d_shor_k_cone, mod.K8dParams),
                    (lib.omc_k9s_setup, mod.K9sParams), (lib.omc_k9a_zstep, mod.K9aParams),
                    (lib.omc_k9b_cone, mod.K9bParams), (lib.omc_k4_jacobi, mod.K4Params),
-                   (lib.omc_k4s_jacobi_small, mod.K4sParams)):
+                   (lib.omc_k4s_jacobi_small, mod.K4sParams),
+                   (lib.omc_k5_separation, mod.K5Params), (lib.omc_k6_vstep, mod.K6Params),
+                   (lib.omc_k6_ustep, mod.K6Params)):
         fn.argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int] * 4
@@ -1303,7 +1331,7 @@ def _load_parent(src):
     PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
                   P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, P7x=mod.K7xParams,
                   P8d=mod.K8dParams, P9s=mod.K9sParams, P9a=mod.K9aParams, P9b=mod.K9bParams,
-                  P4=mod.K4Params, P4s=mod.K4sParams,
+                  P4=mod.K4Params, P4s=mod.K4sParams, P5=mod.K5Params, P6=mod.K6Params,
                   k2k3_plan=plan,
                   src=src,
                   ptxas=_ptxas_report("".join(logs)))
@@ -1378,10 +1406,13 @@ def _parent_k2(c, st, shor=False):
 
 
 def _parent_k3(c, st, ts, acc):
-    """The parent's K3 on (c, st), writing into st, ts and acc."""
+    """The parent's K3 on (c, st), writing into st, ts and acc (its normal
+    mode: a parent with K3's Halpern mode gets null anchors)."""
+    from omc_torch.kernels import K3_ANCHORS
+
     v = _parent_values(c, st)
     v.update(_parent_plan_values(c, st, "k3"), t1=ts[0], t2=ts[1], t3=ts[2], acc_a=acc[0],
-             acc_b=acc[1], acc_c=acc[2])
+             acc_b=acc[1], acc_c=acc[2], hal_it=0, **dict.fromkeys(K3_ANCHORS))
     return _parent_launch(PARENT["lib"].omc_k3_cone, _parent_block(PARENT["P3"], v), v["ws"])
 
 
@@ -1535,26 +1566,89 @@ def _parent_k7_projection(T, w):
     return _parent_launch(PARENT["lib"].omc_k7_minor_psd, _parent_block(PARENT["P7"], v))
 
 
-def _parent_k5(U, Y, nout):
-    """The parent's K5 (K4's Jacobi template on U U' - Y) on the path this
-    tree's ``k4_plan`` gives the eigenpairs, which the parent's separation
-    took: a launcher with its block and outputs (and the block path's
-    workspace) allocated once."""
+def _parent_k4(M, mode, path):
+    """The parent's K4 on the float32 batch M in ``mode`` on ``path`` (one
+    of this tree's K4_PATHS, whose float32 plans are the parent's): a
+    launcher with its block, outputs and workspace allocated once."""
     import torch
 
-    from omc_torch.ops.cones import k4_plan
+    lib = PARENT["lib"]
+    B, d = M.shape[0], M.shape[-1]
+    p = int(path != "cta")
+    nwork = lib.omc_k4_workspace_floats(B, d, mode, p)
+    f32 = dict(dtype=torch.float32, device=M.device)
+    v = dict(M=M, U=None, Y=None, w=torch.empty(B, d, **f32) if mode != 1 else None,
+             V=torch.empty(B, d, d, **f32) if mode == 2 else None,
+             P=torch.empty(B, d, d, **f32) if mode == 1 else None,
+             sweeps=torch.empty(B, dtype=torch.int32, device=M.device),
+             work=torch.empty(nwork, **f32) if nwork else None, B=B, d=d, k=0, nout=d,
+             mode=mode, path=p)
+    return _parent_launch(lib.omc_k4_jacobi, _parent_block(PARENT["P4"], v),
+                          *[x for x in v.values() if isinstance(x, torch.Tensor)])
+
+
+def _parent_k5(U, Y, nout):
+    """The parent's K5 on the path this tree's float32 ``k5_plan`` gives (the
+    parent's own: its tridiag kernel, or K4's Jacobi template beyond): a
+    launcher with its block and outputs (and K4's workspace) allocated
+    once."""
+    import torch
+
+    from omc_torch.sdp.relax import K5_TRIDIAG, k5_plan
 
     B, d, k = U.shape
-    path = int(k4_plan(B, d, 2)["path"] != "cta")
+    plan = k5_plan(B, d)
     lib = PARENT["lib"]
-    nwork = lib.omc_k4_workspace_floats(B, d, 2, path)
     f32 = dict(dtype=torch.float32, device=U.device)
-    v = dict(M=None, U=U, Y=Y, w=torch.empty(B, nout, **f32), V=torch.empty(B, d, nout, **f32),
-             P=None, sweeps=torch.empty(B, dtype=torch.int32, device=U.device),
+    out = dict(w=torch.empty(B, nout, **f32), V=torch.empty(B, d, nout, **f32))
+    if plan["path"] in K5_TRIDIAG:
+        v = dict(U=U, Y=Y, **out, iters=torch.empty(B, dtype=torch.int32, device=U.device),
+                 B=B, d=d, k=k, nout=nout, path=K5_TRIDIAG.index(plan["path"]))
+        return _parent_launch(lib.omc_k5_separation, _parent_block(PARENT["P5"], v),
+                              *[x for x in v.values() if isinstance(x, torch.Tensor)])
+    path = int(plan["path"] != "cta")
+    nwork = lib.omc_k4_workspace_floats(B, d, 2, path)
+    v = dict(M=None, U=U, Y=Y, **out, P=None,
+             sweeps=torch.empty(B, dtype=torch.int32, device=U.device),
              work=torch.empty(nwork, **f32) if nwork else None, B=B, d=d, k=k, nout=nout, mode=2,
              path=path)
     return _parent_launch(lib.omc_k4_jacobi, _parent_block(PARENT["P4"], v),
                           *[x for x in v.values() if isinstance(x, torch.Tensor)])
+
+
+def _parent_k6(U, A, mask, gamma, path):
+    """The parent's K6 V-step and then its U-step (on its own V) on this
+    tree's float32 ``k6_plan`` path (the parent's plans): one launcher of
+    both, its blocks, outputs and scratch allocated once."""
+    import torch
+
+    from omc_torch.ops.linalg import K6_PATHS, k6_plan
+
+    B, n, k = U.shape
+    m = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=U.device)
+    V = torch.empty(B, k, m, **f32)
+    U2 = torch.empty(B, n, k, **f32)
+    slots = path == "slots"
+    # the slots path reads the U-step's factor as (B, m, k) rows: V's copy
+    Vt = torch.empty(B, m, k, **f32) if slots else V
+    gram = torch.empty(B, k * (k + 1) // 2, **f32) if slots else None
+    runs = []
+    for F, out, R, O, fn in ((U, V, n, m, "omc_k6_vstep"), (Vt, U2, m, n, "omc_k6_ustep")):
+        pl = k6_plan(B, R, O, k, path)
+        v = dict(F=F, A=A, mask=mask, out=out, gram=gram, B=B, n=n, m=m, k=k,
+                 path=K6_PATHS.index(path), S=pl["S"], W=pl["W"], rpw=pl["rpw"],
+                 inv_gamma=1.0 / gamma, ridge_eps=1e-10)
+        runs.append(_parent_launch(getattr(PARENT["lib"], fn), _parent_block(PARENT["P6"], v),
+                                   F, out, A, mask, *([gram] if slots else [])))
+
+    def run():
+        runs[0]()
+        if slots:
+            Vt.copy_(V.transpose(-1, -2))
+        runs[1]()
+    run.keep = (V, U2, Vt)
+    return run
 
 
 def _parent_k4s(T):
@@ -1614,7 +1708,9 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     exports; CUDA-event times and device times (``device_ms``; on every
     cluster size with ``sweep``, ``device_ms_by_cluster``) and, with
     ``--parent``, the parent tree's kernels' beside them.  ``shor``: K2's variant that writes Y and U
-    only; ``band`` forces K2's band (K3 then runs unchecked)."""
+    only; ``band`` forces K2's band (K3 then runs unchecked).  A float64
+    state runs the float64 builds (its plain version is then the float64
+    one; its bounds at 8 bytes a value and the FP64 rate; no parent)."""
     import dataclasses
 
     import torch
@@ -1633,7 +1729,10 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
 
     lib = kernels.library()
     B, n, m, k, L = c.batch.cut_mask.shape[0], c.n, c.m, c.k, c.L
-    plan = k2k3_plan(B, n, m, k, L, band=band)
+    dt = st.w1.dtype
+    f64 = dt == torch.float64
+    e, peak = (8, PEAK_FP64_FLOPS) if f64 else (4, PEAK_FP32_FLOPS)
+    plan = k2k3_plan(B, n, m, k, L, band=band, dtype=dt)
     shape = dict(B=B, n=n, m=m, k=k, L=L)
     outs = (lambda x: (x.Y, x.U)) if shor else (lambda x: (x.X, x.Y, x.Th, x.U))  # noqa: E731
     s_k, s_2 = st.clone(), st.clone()
@@ -1651,8 +1750,8 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     r2 = dict(**shape, shor=shor, plan=plan,
               plan_matches_kernel=plan["k2_smem"] == lib.omc_k2_smem_bytes(
                   n, m, k, L, plan["k2_cluster"], int(plan["band"] == "smem"),
-                  int(plan["k2_xs"] == "smem"), int(ws2))
-              and plan["k2_ws"] == (lib.omc_k2_ws_doubles(n, m, k, L, plan["k2_cluster"])
+                  int(plan["k2_xs"] == "smem"), int(ws2), e)
+              and plan["k2_ws"] == (lib.omc_k2_ws_doubles(n, m, k, L, plan["k2_cluster"], e)
                                     if ws2 else 0),
               rel_err=e2, rel_err_vs_f64=_errs(outs(s_k), ref64)[0],
               plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a2,
@@ -1668,8 +1767,8 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     rd = (2 * (n * n + xt * (n * m + m * m)) + 2 * (n * n + n * k) + 2 * n * n + 2 + 4 * k * n
           + 4 * L * k + 2 * L + L * n + 2 * L * k + L + 3 + p * (p + 1) // 2)
     wr = n * n + n * k + xt * (n * m + m * m)
-    with_bound(r2, 4 * (B * (rd + wr) + xt * 2 * n * m),
-               B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m * xt + n * n)))
+    with_bound(r2, e * (B * (rd + wr) + xt * 2 * n * m),
+               B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m * xt + n * n)), peak)
     if band is not None:
         return r2, None
 
@@ -1693,7 +1792,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     r3 = dict(**shape, plan=plan,
               plan_matches_kernel=plan["k3_smem"] == lib.omc_k3_smem_bytes(
                   n, m, k, L, plan["k3_cluster"], int(plan["k3_xs"] == "smem"),
-                  int(plan["k3_slots"] == "smem"), int(ws3))
+                  int(plan["k3_slots"] == "smem"), int(ws3), e)
               and plan["k3_ws"] == (lib.omc_k3_ws_doubles(n, m, k, L, plan["k3_cluster"])
                                     if ws3 else 0),
               rel_err=e3, rel_err_vs_f64=_errs(got, ref64)[0],
@@ -1709,8 +1808,8 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
           + 3 * L * k + L + 2 * n * k + 3)
     wr = d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L \
         + 2 * L * k + L
-    with_bound(r3, 4 * B * (rd + wr),
-               B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)))
+    with_bound(r3, e * B * (rd + wr),
+               B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)), peak)
 
     # K3's Halpern mode (up to 512 cuts): the same step at iteration 3 of a
     # call, every pre-projection slot blended with the anchors w + u of the
@@ -1738,14 +1837,14 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
                   plain_ms=cuda_time_ms(lambda: cone_step_plain(ch, s_k, acc, hit)))
         # the nine anchors read, and three flops an entry of every slot
         anc = d1 * d1 + d2 * d2 + n * n + 1 + k * (1 + n) + n * k + 2 * L * k + L
-        with_bound(rh, 4 * B * (rd + wr + anc),
+        with_bound(rh, e * B * (rd + wr + anc),
                    B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)
-                        + 3 * anc))
+                        + 3 * anc), peak)
         r3["halpern"] = rh
 
     # the parent's kernels on the same inputs (up to 512 cuts), and every
     # cluster size
-    if PARENT and L <= 512:
+    if PARENT and L <= 512 and not f64:
         sp, accp = s_k.clone(), [a.clone() for a in acc]
         k2fn["parent"] = _parent_k2(c, st.clone(), shor)
         k3fn["parent"] = _parent_k3(c, sp, tuple(torch.empty_like(t) for t in ts), accp)
@@ -1958,13 +2057,14 @@ def _check_k9s(c, B, n, k, dev):
                       + B * (n * q * q + q ** 3))
 
 
-def _eig_batch(B, d, gen, dev):
+def _eig_batch(B, d, gen, dev, dtype=None):
     """Symmetric (B, d, d) float32 matrices Q diag(lam) Q' on the card, lam
     uniform in [-1, 1] with degenerate and negative clusters: for d >= 20
     five eigenvalues equal to 0.5, five within 1e-7 of -0.3 and five zeros;
     for small d a double eigenvalue in every second matrix and zeros in
     every fourth.  Returns the float32 batch and its float64 copy (the
-    reference's input is the float32 matrix itself)."""
+    reference's input is the float32 matrix itself); with ``dtype``
+    float64 the batch is formed and kept in float64 (both returns)."""
     import torch
 
     Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64))
@@ -1977,7 +2077,7 @@ def _eig_batch(B, d, gen, dev):
         lam[1::2, :2] = 0.5
         lam[::4, 2:] = 0.0
     T = (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
-    T = (0.5 * (T + T.transpose(-1, -2))).float().to(dev).contiguous()
+    T = (0.5 * (T + T.transpose(-1, -2))).to(dtype or torch.float32).to(dev).contiguous()
     return T, T.double()
 
 
@@ -2211,6 +2311,10 @@ def _check_eig_kernels(gen, dev):
                     err_by_path[path].update(st)
             row.update(ms=by_path[plan["path"]], plain_ms=plain_ms, library_ms=library,
                        ms_by_path=by_path, err_by_path=err_by_path)
+            if PARENT and row["ms"] <= 20.0:
+                # device ms beside the parent's K4 on the same path
+                _device_rows(row, {"kernel": lambda: cones.k4_jacobi(T, mode),
+                                   "parent": _parent_k4(T, mode, plan["path"])})
             row["ok"] = row["ok"] and all(
                 e["ok"] and e["workspace_matches_kernel"] for e in err_by_path.values())
             # an eigendecomposition counts 9 d^3 flops with vectors and
@@ -2258,7 +2362,7 @@ def _check_eig_kernels(gen, dev):
                    library_ms=tm(lambda: cones.eigh_plain(T)))
         plan = cones.k4s_plan(N, D)
         row.update(plan=plan, plan_matches_kernel=plan["ctas"] == lib.omc_k4s_grid_x(N),
-                   smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D))
+                   smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D, 4))
         row["ok"] = (row["rel_err_vs_f64"] <= 1e-5 and row["per_matrix_err_vs_f64"] <= 1e-5
                      and row["max_sweeps"] <= MAX_SWEEPS and row["plan_matches_kernel"]
                      and row["smem_matches_kernel"])
@@ -2381,7 +2485,8 @@ def _check_eig_kernels(gen, dev):
                 deterministic=_same_bits((V, U2), (V_b, U2_b)),
                 smem_matches_kernel=all(
                     x["smem_bytes"] == lib.omc_k6_smem_bytes(
-                        K6_PATHS.index(path), k, x["S"], x["W"], x["rpw"]) for x in pl.values()))
+                        K6_PATHS.index(path), k, x["S"], x["W"], x["rpw"], 4)
+                    for x in pl.values()))
             by_path[path] = cuda_time_ms(lambda: u_step_unconstrained(
                 v_step(U, A, mask, 80.0, path=path), A, mask, 80.0, path=path))
         plans = {"v": k6_plan(B, n, m, k), "u": k6_plan(B, m, n, k)}
@@ -2402,6 +2507,10 @@ def _check_eig_kernels(gen, dev):
                                                     torch.linalg.solve(H, r2))))
         row["max_abs_err"] = max(e["max_abs_err"] for e in err_by_path.values())
         row["beats_library"] = row["ms"] <= row["library_ms"]
+        if PARENT:  # device ms beside the parent's K6 on the same path
+            _device_rows(row, {"kernel": lambda: u_step_unconstrained(
+                v_step(U, A, mask, 80.0), A, mask, 80.0),
+                "parent": _parent_k6(U, A, mask, 80.0, path)})
         row["ok"] = all(e["rel_err"] <= 1e-5 and e["deterministic"] and e["smem_matches_kernel"]
                         for e in err_by_path.values())
         # A and the mask read once, U in, V and U out; per observed entry
@@ -2412,6 +2521,286 @@ def _check_eig_kernels(gen, dev):
                    2 * B * nnz * (k * k + 3 * k))
         out["K6"].append(row)
     return out
+
+
+# The float64 builds' rows (B, n, k, L) of K2 and K3: the base path at B=64
+# (the row of the record), the headline's root visit (B=1; the api phase's
+# call) and the four fixtures' shapes at their batch of 8
+F64_ADMM_SHAPES = ((64, 50, 1, 8), (1, 50, 1, 8), (8, 12, 1, 8), (8, 16, 1, 8), (8, 20, 1, 8),
+                   (8, 10, 2, 8))
+# K4's float64 rows (B, d, modes, path): the three blocks of the headline's
+# eigh route at the root visit (B=1) and at B=64 on the planned (CTA) path,
+# and config 3's d = 150 on the block path (above the CTA path's float64
+# limits with vectors)
+F64_K4_SHAPES = ((64, 100, (1, 0, 2), None), (1, 100, (1, 0, 2), None),
+                 (64, 51, (1, 0, 2), None), (1, 51, (1, 0, 2), None),
+                 (64, 50, (1, 0, 2), None), (1, 50, (1, 0, 2), None),
+                 (4, 150, (1, 0, 2), "block16"), (64, 150, (1,), "block16"))
+F64_K6_SHAPES = ((50, 4, 1), (50, 64, 1), (50, 4, 2), (50, 64, 2), (50, 4, 10))
+
+
+def _check_float64_kernels(gen, dev):
+    """The float64 builds of K2, K3 (both modes), K4 (modes 0, 1, 2 on both
+    paths), K4s, K5 and K6 against their plain versions in float64 on the
+    same inputs, with times, bounds (8 bytes a value, the FP64 rate) and
+    the library call.  Bars: K2, K3 and K6 within 1e-10 relative Frobenius
+    of the plain version (float64 sums in another order; the same bits from
+    two launches); K4, K4s and K5 within 1e-11 max|lambda| of a float64
+    LAPACK eigh of the same input on the host (eigenvalues; K4's
+    projection within 1e-11 relative Frobenius, its and K5's vectors with
+    a residual and orthogonality within 1e-11 sqrt(d) and, K5's, within
+    1e-10 of LAPACK's up to sign: a vector's error grows with ||A|| over
+    its gap), no sweep or iteration cap, their plans the kernels' own."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops import cones
+    from omc_torch.ops.jacobi import MAX_SWEEPS
+    from omc_torch.ops.linalg import (
+        K6_PATHS,
+        k6_plan,
+        u_step_unconstrained,
+        u_step_unconstrained_plain,
+        v_step,
+        v_step_plain,
+    )
+    from omc_torch.ops.tridiag import MAX_ITERS as K5_MAX_ITERS
+    from omc_torch.sdp.relax import _k5_launch, k5_plan, separation_eigpairs_plain
+
+    f64 = torch.float64
+    lib = kernels.library()
+    out = {key: [] for key in ("K2_f64", "K3_f64", "K4_f64", "K4s_f64", "K5_f64", "K6_f64")}
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def tm(fn):
+        """Median of 5 timed calls; of 3 for a call over 20 ms (cuSOLVER's
+        float64 eigh at B=64)."""
+        probe = cuda_time_ms(fn, reps=1, warmup=1)
+        return cuda_time_ms(fn, reps=5) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
+
+    # ---- K2 and K3 (and K3's Halpern mode) ----
+    for B, n, k, L in F64_ADMM_SHAPES:
+        c, st, acc, ts = _admm_inputs(B, n, n, k, L, gen, dev, f64)
+        r2, r3 = _check_k2_k3(c, st, acc, ts, sweep=False)
+        r2["ok"] = r2["rel_err"] <= 1e-10 and r2["deterministic"] and r2["plan_matches_kernel"]
+        h = r3["halpern"]
+        r3["ok"] = (r3["rel_err"] <= 1e-10 and r3["deterministic"] and r3["plan_matches_kernel"]
+                    and h["rel_err"] <= 1e-10 and h["deterministic"])
+        out["K2_f64"].append(r2)
+        out["K3_f64"].append(r3)
+        del c, st, acc, ts
+
+    def lapack(T):  # float64 LAPACK on the host, the independent reference
+        w, V = torch.linalg.eigh(T.cpu())
+        return w.to(dev), V.to(dev)
+
+    # ---- K4: modes 0, 1 and 2 ----
+    for B, d, modes, force in F64_K4_SHAPES:
+        T, _ = _eig_batch(B, d, gen, dev, f64)
+        w64, V64 = lapack(T)
+        P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
+        lam = w64.abs().amax(-1)
+        lib_ms = {}
+        for mode in modes:
+            plan = cones.k4_plan(B, d, mode, force, f64)
+            sw = torch.empty(B, **i32)
+            got = cones.k4_jacobi(T, mode, sweeps=sw, path=force)
+            got_b = cones.k4_jacobi(T, mode, path=force)
+            torch.cuda.synchronize()
+            row = dict(B=B, d=d, mode=("eigvalsh", "projection", "eigh")[mode], plan=plan,
+                       max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
+                       deterministic=_same_bits(got if mode == 2 else (got,),
+                                                got_b if mode == 2 else (got_b,)),
+                       workspace_matches_kernel=plan["workspace_floats"] ==
+                       lib.omc_k4_workspace_floats(B, d, mode, int(plan["path"] != "cta")),
+                       smem_matches_kernel=plan["path"] != "cta" or plan["smem_bytes"] ==
+                       lib.omc_k4_cta_smem_bytes(d, mode, 8))
+            if mode == 1:
+                row["rel_err_vs_f64"] = float(((got - P64).norm(dim=(-2, -1))
+                                               / P64.norm(dim=(-2, -1))).max())
+                ok = row["rel_err_vs_f64"] <= 1e-11
+                plain = cones.project_psd_plain(T)
+                row["max_abs_err"] = float((got - plain).abs().max())
+                row["plain_ms"] = tm(lambda: cones.project_psd_plain(T))
+                name = "eigh"
+            else:
+                w = got if mode == 0 else got[0]
+                row["eig_err_vs_f64"] = float(((w - w64).abs().amax(-1) / lam).max())
+                ok = row["eig_err_vs_f64"] <= 1e-11
+                if mode == 2:
+                    V = got[1]
+                    resid = (T @ V - V * w[..., None, :]).norm(dim=(-2, -1))
+                    eye = torch.eye(d, dtype=f64, device=dev)
+                    row["residual"] = float((resid / T.norm(dim=(-2, -1))).max())
+                    row["orthogonality"] = float((V.transpose(-1, -2) @ V - eye)
+                                                 .norm(dim=(-2, -1)).max())
+                    ok = (ok and row["residual"] <= 1e-11 * d ** 0.5
+                          and row["orthogonality"] <= 1e-11 * d ** 0.5)
+                # the plain versions are the library calls (cuSOLVER in float64)
+                name = "eigvalsh" if mode == 0 else "eigh"
+                ref = torch.linalg.eigvalsh(T) if mode == 0 else torch.linalg.eigh(T)[0]
+                row["max_abs_err"] = float((w - ref).abs().max())
+            if name not in lib_ms:
+                fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
+                lib_ms[name] = tm(lambda: fn(T))
+            row["library_ms"] = lib_ms[name]
+            row.setdefault("plain_ms", lib_ms[name])
+            row["ms"] = tm(lambda: cones.k4_jacobi(T, mode, path=force))
+            # the other path where it takes the shape too: the measurement
+            # behind the float64 plan
+            row["ms_by_path"] = {plan["path"]: row["ms"]}
+            for path in cones.K4_PATHS:
+                if path != plan["path"] and (path != "cta" or cones.k4_cta_fits(d, mode, f64)):
+                    row["ms_by_path"][path] = tm(lambda: cones.k4_jacobi(T, mode, path=path))
+            if plan["path"] != "cta":
+                st = {}
+                cones.k4_jacobi(T, mode, path=force, stats=st)
+                row.update(st)
+            row["ok"] = (ok and row["max_sweeps"] <= MAX_SWEEPS and row["deterministic"]
+                         and row["workspace_matches_kernel"] and row["smem_matches_kernel"])
+            # an eigendecomposition counts 9 d^3 flops with vectors and
+            # 4 d^3 / 3 without; the projection adds V max(w, 0) V' (d^3)
+            outf = (d, d * d, d * d + d)[mode]
+            flops = B * (4 * d ** 3 / 3, 10 * d ** 3, 9 * d ** 3)[mode]
+            with_bound(row, 8 * B * (d * d + outf), flops, PEAK_FP64_FLOPS)
+            if plan["path"] != "cta":  # the tile products could run on the FP64 tensor cores
+                row["bound_fp64_tc_ms"] = bound(row["bound_bytes"], flops, PEAK_FP64_TC_FLOPS)[0]
+            out["K4_f64"].append(row)
+
+    # ---- K4s: the shor cell's 5x5 minors (4 x 4096) ----
+    for N, D in ((4 * 4096, 5),):
+        T, _ = _eig_batch(N, D, gen, dev, f64)
+        sw = torch.empty(N, **i32)
+        got = cones.k4s_project_psd(T, sw)
+        got_b = cones.k4s_project_psd(T)
+        torch.cuda.synchronize()
+        w64, V64 = lapack(T)
+        P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
+        plain = cones.project_psd_plain(T)
+        plan = cones.k4s_plan(N, D, f64)
+        row = dict(N=N, D=D, plan=plan,
+                   rel_err_vs_f64=float(((got - P64).norm(dim=(-2, -1))
+                                         / T.norm(dim=(-2, -1)).clamp(min=1e-300)).max()),
+                   max_abs_err=float((got - plain).abs().max()),
+                   max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
+                   deterministic=_same_bits((got,), (got_b,)),
+                   smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D, 8),
+                   ms=cuda_time_ms(lambda: cones.k4s_project_psd(T)),
+                   plain_ms=tm(lambda: cones.project_psd_plain(T)),
+                   library_ms=tm(lambda: cones.eigh_plain(T)))
+        row["ok"] = (row["rel_err_vs_f64"] <= 1e-11 and row["max_sweeps"] <= MAX_SWEEPS
+                     and row["deterministic"] and row["smem_matches_kernel"])
+        with_bound(row, 8 * 2 * T.numel(), N * 10 * D ** 3, PEAK_FP64_FLOPS)
+        out["K4s_f64"].append(row)
+
+    # ---- K5: U U' - Y with its two smallest eigenvalues -1 and -0.6 ----
+    for B, n, k in ((64, 50, 1), (1, 50, 1)):
+        U = torch.randn(B, n, k, generator=gen, dtype=f64)
+        Q, _ = torch.linalg.qr(torch.randn(B, n, n, generator=gen, dtype=f64))
+        lam = torch.empty(B, n, dtype=f64).uniform_(-0.3, 1.0, generator=gen)
+        lam[:, 0], lam[:, 1] = -1.0, -0.6
+        Y = U @ U.transpose(-1, -2) - (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
+        U, Y = U.to(dev).contiguous(), (0.5 * (Y + Y.transpose(-1, -2))).to(dev).contiguous()
+        M = U @ U.transpose(-1, -2) - Y
+        w64, V64 = lapack(0.5 * (M + M.transpose(-1, -2)))
+        plan = k5_plan(B, n, dtype=f64)
+        it = torch.empty(B, **i32)
+        w, V = _k5_launch(U, Y, plan, it)
+        w_b, V_b = _k5_launch(U, Y, plan)
+        torch.cuda.synchronize()
+        wp, Vp = separation_eigpairs_plain(U, Y)
+
+        def aligned(X, R):  # X's columns with R's signs
+            return X * torch.sign(torch.sum(X * R, dim=-2, keepdim=True))
+
+        row = dict(B=B, n=n, k=k, plan=plan, max_iters=int(it.max()), min_iters=int(it.min()),
+                   eig_err_vs_f64=float(((w - w64[:, :2]).abs().amax(-1)
+                                         / w64.abs().amax(-1)).max()),
+                   vec_err_vs_f64=float((aligned(V, V64[..., :2]) - V64[..., :2])
+                                        .norm(dim=-2).max()),
+                   max_abs_err=max(float((w - wp).abs().max()),
+                                   float((aligned(V, Vp) - Vp).abs().max())),
+                   deterministic=_same_bits((w, V), (w_b, V_b)),
+                   smem_matches_kernel=plan["smem_bytes"] == lib.omc_k5_smem_bytes(n, 0),
+                   ms=cuda_time_ms(lambda: _k5_launch(U, Y, plan)),
+                   plain_ms=tm(lambda: separation_eigpairs_plain(U, Y)),
+                   library_ms=tm(lambda: torch.linalg.eigh(M)))
+        row["ok"] = (row["eig_err_vs_f64"] <= 1e-11 and row["vec_err_vs_f64"] <= 1e-10
+                     and row["max_iters"] <= K5_MAX_ITERS and row["deterministic"]
+                     and row["smem_matches_kernel"] and plan["path"] == "tridiag64")
+        with_bound(row, 8 * B * (n * k + n * n + 2 + 2 * n),
+                   B * (4 * n ** 3 / 3 + 2 * n * n * k), PEAK_FP64_FLOPS)
+        out["K5_f64"].append(row)
+
+    # ---- K6: a V-step + U-step at the headline's n = m = 50 on every path
+    # k6_plan could take ----
+    for n, B, k in F64_K6_SHAPES:
+        m = n
+        A = torch.randn(n, m, generator=gen, dtype=f64).to(dev)
+        mask = (torch.rand(n, m, generator=gen) < 0.5).to(f64).to(dev)
+        Q, _ = torch.linalg.qr(torch.randn(B, n, k, generator=gen, dtype=f64))
+        U = (Q * torch.empty(B, 1, k, dtype=f64).uniform_(0.5, 2.0, generator=gen))
+        U = U.to(dev).contiguous()
+        by_path, err_by_path = {}, {}
+        for path in K6_PATHS:
+            try:
+                pl = {"v": k6_plan(B, n, m, k, path, f64), "u": k6_plan(B, m, n, k, path, f64)}
+            except ValueError:
+                continue
+            V = v_step(U, A, mask, 80.0, path=path)
+            U2 = u_step_unconstrained(V, A, mask, 80.0, path=path)
+            V_b = v_step(U, A, mask, 80.0, path=path)
+            U2_b = u_step_unconstrained(V, A, mask, 80.0, path=path)
+            torch.cuda.synchronize()
+            Vp = v_step_plain(U, A, mask, 80.0)
+            U2p = u_step_unconstrained_plain(V, A, mask, 80.0)
+            err_by_path[path] = dict(
+                rel_err=max(rel_fro(V, Vp), rel_fro(U2, U2p)),
+                max_abs_err=max(float((V - Vp).abs().max()), float((U2 - U2p).abs().max())),
+                deterministic=_same_bits((V, U2), (V_b, U2_b)),
+                smem_matches_kernel=all(
+                    x["smem_bytes"] == lib.omc_k6_smem_bytes(
+                        K6_PATHS.index(path), k, x["S"], x["W"], x["rpw"], 8)
+                    for x in pl.values()))
+            by_path[path] = cuda_time_ms(lambda: u_step_unconstrained(
+                v_step(U, A, mask, 80.0, path=path), A, mask, 80.0, path=path))
+        plans = {"v": k6_plan(B, n, m, k, dtype=f64), "u": k6_plan(B, m, n, k, dtype=f64)}
+        path = plans["v"]["path"]
+        V = v_step(U, A, mask, 80.0)
+        eye = torch.eye(k, dtype=f64, device=dev)
+        G = torch.einsum("bnk,nm,bnl->bmkl", U, mask, U) + (1 / 80.0) * (
+            U.transpose(-1, -2) @ U)[:, None] + 1e-10 * eye
+        r = (U.transpose(-1, -2) @ (mask * A)).transpose(-1, -2)[..., None]
+        H = torch.einsum("bkm,nm,blm->bnkl", V, mask, V) + (1 / 80.0) * (
+            V @ V.transpose(-1, -2))[:, None] + 1e-10 * eye
+        r2 = ((mask * A) @ V.transpose(-1, -2))[..., None]
+        row = dict(B=B, n=n, m=m, k=k, plan=plans, **err_by_path[path],
+                   ms=by_path[path], ms_by_path=by_path, err_by_path=err_by_path,
+                   plain_ms=cuda_time_ms(lambda: u_step_unconstrained_plain(
+                       v_step_plain(U, A, mask, 80.0), A, mask, 80.0)),
+                   library_ms=cuda_time_ms(lambda: (torch.linalg.solve(G, r),
+                                                    torch.linalg.solve(H, r2))))
+        row["max_abs_err"] = max(e["max_abs_err"] for e in err_by_path.values())
+        row["ok"] = all(e["rel_err"] <= 1e-10 and e["deterministic"] and e["smem_matches_kernel"]
+                        for e in err_by_path.values())
+        nnz = float(mask.sum())
+        with_bound(row, 8 * (2 * n * m + B * (2 * n * k + k * m)),
+                   2 * B * nnz * (k * k + 3 * k), PEAK_FP64_FLOPS)
+        out["K6_f64"].append(row)
+    return out
+
+
+def phase_kernels64(res):
+    """(Run on request only.)  The kernels phase's float64 rows alone."""
+    import torch
+
+    rows = _check_float64_kernels(torch.Generator().manual_seed(0), torch.device("cuda", 0))
+    for name, rs in rows.items():
+        for row in rs:
+            log(name, json.dumps(row))
+    res["kernels64"] = rows
+    failed = [(name, row) for name, rs in rows.items() for row in rs if not row["ok"]]
+    assert not failed, failed
 
 
 def _bench_instance(frac, seed=0, n=50):
@@ -2428,8 +2817,9 @@ BENCH_KW = dict(
 )
 
 
-def _admm_root(B=64, L=8, iters=2000):
-    """One root ADMM visit of the headline instance at a batch of B copies:
+def _admm_root(B=64, L=8, iters=2000, dtype=None):
+    """One root ADMM visit of the headline instance at a batch of B copies
+    (float32, or ``dtype``: float64 projects with the exact Jacobi route):
     the solver, its arguments and the problem's constants."""
     import numpy as np
     import torch
@@ -2450,14 +2840,15 @@ def _admm_root(B=64, L=8, iters=2000):
     sT = max(1.0, 2.0 * gamma * obj0 / (4.0 * m))
     rho = min(0.05, (62.5 / (n * m)) * min(2.0, 0.5 / max(mask.mean(), 1e-6)))
     lo, hi = root_box(n, k)
-    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+    dt = dtype or torch.float32
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
     batch = NodeBatch(f(np.zeros((B, L, n))), f(np.zeros((B, L, k))), f(np.zeros((B, L, k))),
                       f(np.zeros((B, L))), f(np.broadcast_to(lo, (B, n, k))),
                       f(np.broadcast_to(hi, (B, n, k))))
-    st = init_admm_state(B, n, m, k, L, torch.float32, device=dev, sX=sX, sT=sT,
+    st = init_admm_state(B, n, m, k, L, dt, device=dev, sX=sX, sT=sT,
                          X0=X0[None], Y0=(U0 @ U0.T)[None], Th0=(V0.T @ V0)[None],
                          U0=U0[None], rho=rho)
-    solve = make_admm_solver(n, m, k, L, gamma, iters=iters, dtype=torch.float32,
+    solve = make_admm_solver(n, m, k, L, gamma, iters=iters, dtype=dt,
                              alpha=1.9, check_every=1000, ema_iters=1000)
     ub_bar = obj0 * (1 + 1e-9) + 1e-9
     return solve, (f(A), f(mask), batch, ub_bar, st), dict(A=A, mask=mask, k=k, gamma=gamma,
@@ -2531,7 +2922,8 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # launch they make counts in the record (the kernels phase's launches, made
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
-           "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile")
+           "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
+           "float64")
 _PHASE = {"name": None}
 
 
@@ -2663,11 +3055,11 @@ def phase_branch(res):
 
 # the multi-process frontier: two ranks of omc_torch.parallel.worker on the
 # card, over gloo, on the multinode instance (BENCH_KW with batch 8, so that
-# the frontier outgrows a batch, 35 s, rebalancing every round; the root's
+# the frontier outgrows a batch, 25 s, rebalancing every round; the root's
 # budget not boosted and at most two refinement visits a node, since with
 # either this root certifies alone and rank 1 would get no node)
 DIST_RANKS = 2
-DIST_TIME_LIMIT = 35
+DIST_TIME_LIMIT = 25
 # seconds a rank may take, start-up and the final gather included
 DIST_TIMEOUT = 240
 
@@ -2764,9 +3156,9 @@ def phase_dist(res):
 SHOR_KW = dict(
     BENCH_KW, node_selection="breadthfirst", add_Shor_valid_inequalities=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    add_Shor_valid_inequalities_fraction=0.25, time_limit=40,
+    add_Shor_valid_inequalities_fraction=0.25, time_limit=20,
 )
-# the certified gap the shor phase must reach in its 40 s: 1e-4 is out of
+# the certified gap the shor phase must reach in its 20 s: 1e-4 is out of
 # reach for this relaxation there (the card reaches ~3e-3 in 180 s and
 # ~5e-3 by its second visit, some 10 s in; PERF.md, "shor phase"), so the
 # bar is 1e-2
@@ -2775,7 +3167,7 @@ SHOR_GAP = 1e-2
 
 def phase_shor(res):
     """Static Shor ([4]-minors, a quarter of them) on the 30%-observed
-    50x50 instance, breadth-first, 40 s: the K7/K8a/K8b path through the
+    50x50 instance, breadth-first, 20 s: the K7/K8a/K8b path through the
     entry point."""
     from omc_torch import kernels
 
@@ -2804,7 +3196,7 @@ CONFIG2_KW = dict(
     disjunctive_cuts_breakpoints="smallest_1_eigvec",
     add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=35, batch_size=32,
+    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=20, batch_size=32,
     sdp_iters=2000, dtype="float32", altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: one visit's budget is not boosted 8x
     sdp_iter_boost_max=1,
@@ -2813,7 +3205,7 @@ CONFIG2_KW = dict(
 
 def phase_config2(res):
     """BASELINE config 2 at full width (rank-1 100x100, 30% observed, seed 1,
-    iterative [4]-minor Shor, breadth-first, batch 32), 35 s."""
+    iterative [4]-minor Shor, breadth-first, batch 32), 20 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -2853,10 +3245,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=45, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=25, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget, and the budget is 45 s
+    # of K1's d=150 chain) does not fit the budget, and the budget is 25 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -2865,7 +3257,7 @@ SHORK_KW = dict(
     CONFIG3_KW, batch_size=32, add_Shor_valid_inequalities=True,
     add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100,
+    update_Shor_indices_n_minors=100, time_limit=20,
 )
 
 
@@ -2911,7 +3303,7 @@ def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
 
 def phase_config3(res):
     """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
-    smallest_2_eigvec, best-first/depth-first, batch 64), 45 s: the base
+    smallest_2_eigvec, best-first/depth-first, batch 64), 25 s: the base
     path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
     from omc_torch import kernels
 
@@ -2926,7 +3318,7 @@ def phase_config3(res):
 def phase_shork(res):
     """The rank-k Shor path on config 3's instance: (i) one root visit of
     2,000 iterations, held to omc's bound for the same call; (ii) the full
-    call (iterative Shor, batch 32), 45 s, through K1, K2, K3, K7t, K7x,
+    call (iterative Shor, batch 32), 20 s, through K1, K2, K3, K7t, K7x,
     K8c and K8d."""
     from omc_torch import kernels
 
@@ -2957,7 +3349,7 @@ def phase_shork(res):
 # with one visit's budget not boosted 8x (a cut of depth, so that the root
 # splits inside the budget)
 MC_KW = dict(BENCH_KW, use_disjunctive_cuts=False, disjunctive_cuts_type=None,
-             disjunctive_cuts_breakpoints=None, time_limit=30, sdp_iter_boost_max=1)
+             disjunctive_cuts_breakpoints=None, time_limit=15, sdp_iter_boost_max=1)
 # config 3's instance and batch on the McCormick path, one root visit
 MC3_KW = dict(node_selection="bestfirst", use_disjunctive_cuts=False, gap=1e-2,
               time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
@@ -2975,7 +3367,7 @@ def phase_mccormick(res):
     relaxation entry point on the headline's root node, held to omc's bound;
     (ii) a rank-2 root visit of the driver on config 3's instance, held to
     omc's bound; (iii) the full McCormick B&B on the headline instance,
-    30 s."""
+    15 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -3040,13 +3432,15 @@ def phase_mccormick(res):
 # BASELINE config 4 (benchmarks/bench_configs.py config4): rank-5 250x250,
 # 30% observed, seed 1, gamma 80, L = 8, a device batch of 128 nodes, 400
 # ADMM iterations per step with one safe-bound call and one separation.
-# The one cut: the timed frontier is 2 sub-steps (256 node relaxations)
+# The one cut: the timed frontier is 1 sub-step (128 node relaxations)
 # after one warm-up step, where bench_configs.py defaults to 1,024 and
 # BASELINE asks for 4,096; n, m, k, L and the device batch are as published.
-C4 = dict(n=250, m=250, k=5, L=8, B=128, iters=400, substeps=2, gamma=80.0)
+C4 = dict(n=250, m=250, k=5, L=8, B=128, iters=400, substeps=1, gamma=80.0)
 # kernel names in a profile: K4 and K5 share one template per path
-K4_NAMES = {"k4_kernel<false>": "K4", "k4_kernel<true>": "K5",
-            "k4_block_kernel<16, false>": "K4", "k4_block_kernel<16, true>": "K5",
+# (prefixes: the kernels are templates on the element type too, as
+# "k4_kernel<false, float>"; an older tree's have no such argument)
+K4_NAMES = {"k4_kernel<false": "K4", "k4_kernel<true": "K5",
+            "k4_block_kernel<16, false": "K4", "k4_block_kernel<16, true": "K5",
             "k5_kernel": "K5"}
 
 
@@ -3116,7 +3510,7 @@ def phase_config4(res):
     benchmarks/bench_configs.py): rank-5 250x250, a device batch of 128
     nodes, 400 iterations a step with one safe-bound call (K4 at d = 500,
     255 and 250) and one separation (K5 at d = 250, k = 5); one warm-up
-    step, then two timed sub-steps.  The 8 slots with the lowest lb_est are
+    step, then one timed sub-step.  The 8 slots with the lowest lb_est are
     certified in float64 on the host; the same bound through torch's
     float32 eigh is logged as a reading."""
     import numpy as np
@@ -3561,6 +3955,202 @@ def phase_halpern(res):
     res["halpern"] = row
 
 
+# the float64 phase: omc's own configuration (dtype="float64") on the card.
+# The api calls at their defaults (1,000 ADMM iterations for the
+# relaxation) on the headline's root, each against the same call on the
+# CPU; the four fixtures at their own gap_target with make_fixtures.py's
+# batch and iterations (tests/fixtures/instances.json records their
+# certificates); the headline branch-and-bound for 15 s as a reading, its
+# visits cut to 500 iterations unboosted (a float64 iteration at the root
+# costs ~40x a float32 one: a boosted root alone would take minutes).
+F64_API_ITERS = 1000
+F64_FIXTURE_KW = {  # (k, n, seed) -> benchmarks/make_fixtures.py's settings
+    (1, 12, 3): dict(batch_size=4, sdp_iters=1500), (1, 16, 1): dict(batch_size=8, sdp_iters=1500),
+    (1, 20, 2): dict(batch_size=8, sdp_iters=2000), (2, 10, 6): dict(batch_size=8, sdp_iters=1500)}
+F64_BRANCH_KW = dict(BENCH_KW, dtype="float64", time_limit=15, sdp_iters=500,
+                     sdp_iter_boost_max=1)
+F64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K5_f64", "K6_f64")
+
+
+def _launched_since(before):
+    from omc_torch import kernels
+
+    return {key: kernels.LAUNCHES[key] - before[key] for key in before}
+
+
+def _f64_iteration_trace(dtype, psd_method, B=1, iters=20):
+    """One ADMM iteration of the headline's root at a batch of B, in
+    ``dtype`` on its route, traced: CUDA-event ms an iteration, device ms by
+    kernel (the rest under "other: ...": the eigh route's torch epilogue,
+    psd_epilogue), the idle share."""
+    import torch
+
+    from omc_torch.sdp.admm import iteration, make_consts
+
+    solve, (A, mask, batch, ub_bar, st), c = _admm_root(B, dtype=dtype)
+    st = st.clone()
+    cs = make_consts(A, mask, batch, st, 50, 50, 1, c["gamma"], 1.9, 1e-3, dtype)
+    ts = (torch.empty_like(st.w1), torch.empty_like(st.w2), torch.empty_like(st.w3))
+    ema = [torch.zeros_like(x) for x in (st.u1, st.u2, st.ua, st.ub, st.uc)]
+    names = {"k1_": "K1", "k2_kernel": "K2", "k3_kernel": "K3", "k4_kernel": "K4",
+             "k4s_kernel": "K4s"}
+    row = _trace_loop(lambda: iteration(cs, st, ts, ema, psd_method), names, iters,
+                      B=B, dtype=str(dtype), psd_method=psd_method)
+    other = sum(v for key, v in row["kernel_ms_per_iter"].items() if key.startswith("other"))
+    row["torch_ops_ms_per_iter"] = other
+    row["torch_ops_share_of_event"] = other / row["event_ms_per_iter"]
+    return row
+
+
+def phase_float64(res):
+    """The port in float64 on the card, through the float64 builds of K2,
+    K3, K4, K5 and K6: the api's two entry points at their defaults against
+    the same calls on the CPU, the four fixtures at their own gap, a 15 s
+    headline branch-and-bound whose bounds must be sound, and one traced
+    iteration at B=1 in float64 (eigh route) beside float32 (sign
+    schedule)."""
+    import numpy as np
+    import torch
+
+    from omc_torch import api, kernels
+    from omc_torch.data import generate_matrix_completion_data
+    from omc_torch.tree import BBNode, root_box
+
+    row = {}
+    A, idx = _bench_instance(0.5)
+    n, k, gamma = 50, 1, 80.0
+    mask = idx.astype(np.float64)
+    U0 = np.linalg.svd(A * mask, full_matrices=False)[0][:, :k]
+    # altmin at its defaults (float64, cuda), then on the CPU: the two runs
+    # take the same steps (1e-14-level rounding apart), so their objectives
+    # agree within 1e-8 relative and their iteration counts exactly
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    am = api.alternating_minimization(A, n, k, idx, gamma, U_initial=U0)
+    am_s = time.time() - t0
+    am_launches = _launched_since(before)
+    t0 = time.time()
+    am_cpu = api.alternating_minimization(A, n, k, idx, gamma, U_initial=U0, device="cpu")
+    am_cpu_s = time.time() - t0
+    obj, obj_cpu = float(am["objectives"][-1]), float(am_cpu["objectives"][-1])
+    row["altmin"] = dict(seconds=am_s, seconds_cpu=am_cpu_s, n_iters=int(am["n_iters"]),
+                         n_iters_cpu=int(am_cpu["n_iters"]), objective=obj,
+                         objective_cpu=obj_cpu, rel_dist=abs(obj - obj_cpu) / abs(obj_cpu),
+                         X_rel_dist=float(np.linalg.norm(am["U"] @ am["V"] - am_cpu["U"] @
+                                                         am_cpu["V"])
+                                          / np.linalg.norm(am_cpu["U"] @ am_cpu["V"])),
+                         tol=1e-8, launches=am_launches)
+    log("float64 altmin", json.dumps(row["altmin"]))
+    assert am_launches["K6_f64"] > 0 and am_launches["K6"] == 0, am_launches
+    assert row["altmin"]["n_iters"] == row["altmin"]["n_iters_cpu"], row["altmin"]
+    assert row["altmin"]["rel_dist"] <= 1e-8, row["altmin"]
+    # the root's relaxation at its defaults but 1,000 iterations, then on
+    # the CPU: ADMM's step is nonexpansive, so the rounding of the two
+    # devices stays at its own level; bound and objective within 1e-8
+    # relative.  The CPU's call runs in a thread beside the card's work of
+    # this phase and is read before the traced iterations.
+    lo, hi = root_box(n, k)
+    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0, cuts=[])
+
+    def on_cpu():
+        t0 = time.time()
+        out = api.matrix_completion_SDP_relaxation(node, n, k, A, idx, gamma,
+                                                   iters=F64_API_ITERS, device="cpu")
+        return out, time.time() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu_future = pool.submit(on_cpu)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    sdp = api.matrix_completion_SDP_relaxation(node, n, k, A, idx, gamma, iters=F64_API_ITERS)
+    sdp_s = time.time() - t0
+    sdp_launches = _launched_since(before)
+    _assert_launched(sdp_launches, ("K2_f64", "K3_f64", "K4_f64", "K5_f64"))
+    assert not any(sdp_launches[key] for key in ("K1", "K2", "K3", "K4", "K5")), sdp_launches
+
+    # a 4 x 4 root (blocks of order 8, 5 and 4: K4s's float64 build takes
+    # every projection) against the same call on the CPU, 1e-8 relative
+    A4, idx4 = generate_matrix_completion_data(1, 4, 4, 10, 0)
+    lo4, hi4 = root_box(4, 1)
+    node4 = BBNode(node_id=1, parent_id=0, U_lower=lo4, U_upper=hi4, LB=-np.inf, depth=0, cuts=[])
+    before = dict(kernels.LAUNCHES)
+    small = api.matrix_completion_SDP_relaxation(node4, 4, 1, A4, idx4, gamma, iters=F64_API_ITERS)
+    small_launches = _launched_since(before)
+    small_cpu = api.matrix_completion_SDP_relaxation(node4, 4, 1, A4, idx4, gamma,
+                                                     iters=F64_API_ITERS, device="cpu")
+    r4 = dict(lower_bound=float(small["lower_bound"]), launches=small_launches,
+              lower_bound_cpu=float(small_cpu["lower_bound"]), tol=1e-8)
+    r4["lower_bound_rel_dist"] = abs(r4["lower_bound"] - r4["lower_bound_cpu"]) / max(
+        1.0, abs(r4["lower_bound_cpu"]))
+    row["relaxation_4x4"] = r4
+    log("float64 relaxation 4x4", json.dumps(r4))
+    _assert_launched(small_launches, ("K2_f64", "K3_f64", "K4s_f64", "K5_f64"))
+    assert r4["lower_bound_rel_dist"] <= 1e-8, r4
+
+    # the four fixtures in float64 at their own gap_target
+    with open(os.path.join(HERE, "tests", "fixtures", "instances.json")) as fh:
+        fixtures = json.load(fh)
+    rows = []
+    for fx in fixtures:
+        A_, idx_ = generate_matrix_completion_data(
+            fx["k"], fx["n"], fx["m"], fx["n_indices"], fx["seed"])
+        before = dict(kernels.LAUNCHES)
+        sol, inst, secs = _solve(
+            A_, idx_, fx["gamma"], k=fx["k"], node_selection="bestfirst",
+            disjunctive_cuts_type="linear", disjunctive_cuts_breakpoints="smallest_1_eigvec",
+            gap=fx["gap_target"], dtype="float64", time_limit=60, verbosity=0,
+            **F64_FIXTURE_KW[(fx["k"], fx["n"], fx["seed"])])
+        fr = dict(k=fx["k"], n=fx["n"], seed=fx["seed"], gap_target=fx["gap_target"],
+                  **_summary(sol, inst, secs))
+        ref = fx["certified_objective"]
+        fr.update(reference=ref, tol=(fx["certified_gap"] + fx["gap_target"]) * max(1.0, abs(ref)),
+                  launches=_launched_since(before))
+        log("float64 fixture", json.dumps(fr))
+        _assert_launched(fr["launches"], F64_KEYS)
+        assert fr["gap"] <= fx["gap_target"], fr
+        assert abs(fr["objective"] - ref) <= fr["tol"], fr
+        assert fr["lower"] <= ref * (1.0 + fx["certified_gap"]) + 1e-9, fr
+        rows.append(fr)
+    row["fixtures"] = rows
+
+    # the headline branch-and-bound, 15 s, as a reading: sound bounds
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A, idx, gamma, **F64_BRANCH_KW)
+    br = _summary(sol, inst, secs)
+    lowers = [x["lower"] for x in inst["run_log"] if x["lower"] > -1e300]
+    br.update(launches=_launched_since(before), lowers=len(lowers))
+    log("float64 branch", json.dumps(br))
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert br["lower"] <= HEADLINE_OBJ * (1 + 1e-9), br
+    row["branch"] = br
+
+    # the relaxation against its CPU call (the thread's result)
+    sdp_cpu, cpu_s = cpu_future.result()
+    pool.shutdown()
+    r = dict(seconds=sdp_s, seconds_cpu=cpu_s, ms_per_iter=1e3 * sdp_s / F64_API_ITERS,
+             tol=1e-8, launches=sdp_launches)
+    for key in ("lower_bound", "objective"):
+        a_, b_ = float(sdp[key]), float(sdp_cpu[key])
+        r[key], r[key + "_cpu"] = a_, b_
+        r[key + "_rel_dist"] = abs(a_ - b_) / max(1.0, abs(b_))
+    r["Y_rel_dist"] = float(np.linalg.norm(sdp["Y"] - sdp_cpu["Y"]) / np.linalg.norm(sdp_cpu["Y"]))
+    row["relaxation"] = r
+    log("float64 relaxation", json.dumps(r))
+    assert r["lower_bound_rel_dist"] <= 1e-8 and r["objective_rel_dist"] <= 1e-8, r
+    assert r["lower_bound"] <= HEADLINE_OBJ * (1 + 1e-9), r
+
+    # ms an iteration at the root visit's B=1: float64 on the eigh route
+    # (K2, K3, three K4 launches, the torch epilogue) beside float32 on the
+    # sign schedule (K2, K3, K1)
+    t0 = time.time()
+    row["iteration"] = {dt: _f64_iteration_trace(getattr(torch, dt), pm)
+                        for dt, pm in (("float64", "eigh"), ("float32", "ns"))}
+    row["iteration_seconds"] = time.time() - t0
+    for dt, tr in row["iteration"].items():
+        log(f"float64 iteration ({dt})", json.dumps(tr))
+    res["float64"] = row
+
+
 def phase_profile(res):
     """The headline with profile_dir (a directory under build/, removed
     after) and profile_steps=3: the Chrome trace holds CUDA kernel events
@@ -3652,6 +4242,21 @@ KERNELS = (
      "omc_torch/csrc/k5_separation.cu", "omc/sdp/admm.py:576"),
     ("K6", ("K6",),
      "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
+     "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
+    # the float64 builds (the float64 phase's launches)
+    ("K2_f64", ("K2_f64",), "K2 float64 build: adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
+     "omc_torch/csrc/k2_zstep.cu", "omc/sdp/admm.py:324"),
+    ("K3_f64", ("K3_f64",), "K3 float64 build: forward map + cone step (B=64, n=m=50, L=8)",
+     "omc_torch/csrc/k3_cone.cu", "omc/sdp/admm.py:133"),
+    ("K4_f64", ("K4_f64",),
+     "K4 float64 build: Jacobi PSD projection, CTA path (B=64, d=100)",
+     "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),
+    ("K4s_f64", ("K4s_f64",),
+     "K4s float64 build: Jacobi PSD projection of 5x5 matrices (4x4096)",
+     "omc_torch/csrc/k4s_jacobi_small.cu", "omc/sdp/admm_shor.py:786"),
+    ("K5_f64", ("K5_f64",), "K5 float64 build: separation eigenpairs (B=64, n=50)",
+     "omc_torch/csrc/k5_separation.cu", "omc/sdp/admm.py:576"),
+    ("K6_f64", ("K6_f64",), "K6 float64 build: masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
 )
 

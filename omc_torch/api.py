@@ -7,9 +7,13 @@ the branch-and-bound driver.  Each call packs one node (a batch of 1), runs
 the batched solver of its family (base, Shor k = 1, Shor k > 1, McCormick)
 and returns a dict with the reference's keys, as ``omc.api`` does.
 
-Both run on the GPU (``device="cuda"``, float32, the kernels) unless the
-caller asks for ``device="cpu"`` (the plain versions); without a GPU the
-default raises.
+Both run on the GPU (``device="cuda"``, the kernels) unless the caller
+asks for ``device="cpu"`` (the plain versions); without a GPU the default
+raises.  Their default dtype is ``omc``'s float64: on the GPU the base
+family runs it through the float64 builds of K2-K6 (exact Jacobi
+projections, as ``omc``'s eigh route); a float64 Shor or McCormick
+relaxation on the GPU raises (``kernels.require_cuda_dtype``), and runs in
+float32 or on the CPU.
 """
 
 from __future__ import annotations

@@ -32,19 +32,22 @@ constexpr int kThreads = 256;
 static __constant__ float kSignSched[14][3] = OMC_SIGN_SCHED;
 constexpr int kSignSteps = 14;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// (T: float, or double in the float64 builds)
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Block-wide sum; every thread gets the result.  `red` holds >= 32 floats
+// Block-wide sum; every thread gets the result.  `red` holds >= 32 values
 // of shared memory; the call contains two __syncthreads().
-__device__ __forceinline__ float block_sum(float v, float* red) {
+template <class T>
+__device__ __forceinline__ T block_sum(T v, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_sum(v);
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  float r = 0.f;
+  T r = 0;
   const int nw = (blockDim.x + 31) >> 5;
   for (int i = 0; i < nw; ++i) r += red[i];
   __syncthreads();
@@ -61,11 +64,19 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) 
 // A read-only view of a kernel input: loads go through the non-coherent
 // path (ld.global.nc), which the compiler may schedule ahead of the
 // kernel's own stores.  Only for data the kernel does not write.
-struct RO {
-  const float* p;
+template <class T>
+struct ROT {
+  const T* p;
   template <class I>
-  __device__ __forceinline__ float operator[](I i) const { return __ldg(p + i); }
+  __device__ __forceinline__ T operator[](I i) const { return __ldg(p + i); }
 };
+using RO = ROT<float>;
+
+// the float64 builds' quiet NaN and infinity beside float32's
+__device__ __forceinline__ float qnan_of(float) { return __int_as_float(0x7fffffff); }
+__device__ __forceinline__ double qnan_of(double) { return __longlong_as_double(0x7fffffffffffffffLL); }
+__device__ __forceinline__ float inf_of(float) { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ double inf_of(double) { return __longlong_as_double(0x7ff0000000000000LL); }
 
 // nf floats from global g (16-byte aligned at its start, or the copy goes a
 // float at a time) into shared s, and back: a CTA's NT threads on
@@ -427,9 +438,14 @@ __device__ __forceinline__ void triples_update(float4* s, int lane, int rem, Row
 constexpr int kJacobiMaxSweeps = 30;
 
 // The floor of the stopping rule: eps ||A||_F / (4 d), or NaN for a
-// non-finite matrix, so that every pair then rotates until the cap.
+// non-finite matrix, so that every pair then rotates until the cap.  eps is
+// the operands' own: FLT_EPSILON, or DBL_EPSILON in the float64 builds
+// (the CPU mirror's torch.finfo(dtype).eps).
 __device__ __forceinline__ float jacobi_floor(float normF, int d) {
   return isfinite(normF) ? FLT_EPSILON * normF / (4.f * d) : __int_as_float(0x7fffffff);
+}
+__device__ __forceinline__ double jacobi_floor(double normF, int d) {
+  return isfinite(normF) ? DBL_EPSILON * normF / (4.0 * d) : qnan_of(0.0);
 }
 
 // One rotation of the pair (p, q) of a symmetric matrix (Golub & Van Loan,
@@ -449,10 +465,24 @@ __device__ __forceinline__ bool jacobi_rotation(float app, float aqq, float apq,
   return true;
 }
 
+__device__ __forceinline__ bool jacobi_rotation(double app, double aqq, double apq,
+                                                double floor_, double& t, double& s, double& r) {
+  const double rel = DBL_EPSILON * sqrt(fabs(app)) * sqrt(fabs(aqq));
+  const double thr = rel > floor_ ? rel : floor_;
+  if (fabs(apq) <= thr) return false;
+  const double tau = (aqq - app) / (2.0 * apq);
+  t = copysign(1.0, tau) / (fabs(tau) + hypot(1.0, tau));
+  const double c = 1.0 / sqrt(1.0 + t * t);
+  s = t * c;
+  r = s / (1.0 + c);
+  return true;
+}
+
 // (c x - s y, s x + c y) in Rutishauser's form: the rounding error is
 // relative to the change, so small late-sweep angles keep V orthogonal
-__device__ __forceinline__ void jacobi_rot(float& x, float& y, float s, float r) {
-  const float x0 = x, y0 = y;
+template <class T>
+__device__ __forceinline__ void jacobi_rot(T& x, T& y, T s, T r) {
+  const T x0 = x, y0 = y;
   x = x0 - s * (y0 + r * x0);
   y = y0 + s * (x0 - r * y0);
 }
@@ -477,43 +507,51 @@ struct K1Params {
   float beta;
 };
 
-struct K2Params {
-  const float *w1, *u1, *w2, *u2, *w3, *u3, *w4, *u4, *wsoc, *usoc, *wbox,
+// K2's, K3's, K4's, K5's, K4s's and K6's blocks are templates on the
+// element type T: float, or double for the float64 builds (the entry points
+// named ..._f64; the ctypes blocks of omc_torch/kernels.py with c_double
+// scalars).  The float blocks keep their names.
+template <class T>
+struct K2ParamsT {
+  const T *w1, *u1, *w2, *u2, *w3, *u3, *w4, *u4, *wsoc, *usoc, *wbox,
       *ubox, *wa, *ua, *wb, *ub, *wc, *uc;
-  const float *cut_x, *cut_lo, *cut_hi, *cut_mask;
-  const float *maskA, *mask;  // (n, m): mask * A and the 0/1 mask
-  const float *sX, *sT, *rho;  // (B,)
-  const float* G1i;            // (B, p, p) inverse of G1
-  float *Xs, *Y, *Ths, *U;     // outputs (Xs, Ths null: Y and U only)
-  double* ws;                  // null, or the partials of s and the p- and L k-sized
-                               // vectors in global memory (omc_k2_ws_doubles a slot)
+  const T *cut_x, *cut_lo, *cut_hi, *cut_mask;
+  const T *maskA, *mask;  // (n, m): mask * A and the 0/1 mask
+  const T *sX, *sT, *rho;  // (B,)
+  const T* G1i;            // (B, p, p) inverse of G1
+  T *Xs, *Y, *Ths, *U;     // outputs (Xs, Ths null: Y and U only)
+  double* ws;              // null, or the partials of s and the p- and L k-sized
+                           // vectors in global memory (omc_k2_ws_doubles a slot)
   int B, n, m, k, L;
-  int C;                       // CTAs per cluster, one cluster per slot (1..16)
-  int band;                    // 1: sym(zY) bands in shared memory; 0: in Y's rows
-  int xsmem;                   // 1: the cut vectors staged in shared memory
-  float gamma;
+  int C;                   // CTAs per cluster, one cluster per slot (1..16)
+  int band;                // 1: sym(zY) bands in shared memory; 0: in Y's rows
+  int xsmem;               // 1: the cut vectors staged in shared memory
+  T gamma;
 };
+using K2Params = K2ParamsT<float>;
 
-struct K3Params {
-  const float *Xs, *Y, *Ths, *U;
-  const float *w1, *u1, *w2, *u2, *w3, *u3;
-  float *t1, *t2, *t3;
-  float *w4, *u4, *wsoc, *usoc, *wbox, *ubox, *wa, *ua, *wb, *ub, *wc, *uc;
-  float *acc_a, *acc_b, *acc_c;
-  const float *cut_x, *cut_lo, *cut_hi, *cut_mask, *U_lo, *U_hi;
-  const float *sX, *sT, *rho;
-  double* ws;                  // null, or the partials in global memory
-                               // (omc_k3_ws_doubles a slot)
+template <class T>
+struct K3ParamsT {
+  const T *Xs, *Y, *Ths, *U;
+  const T *w1, *u1, *w2, *u2, *w3, *u3;
+  T *t1, *t2, *t3;
+  T *w4, *u4, *wsoc, *usoc, *wbox, *ubox, *wa, *ua, *wb, *ub, *wc, *uc;
+  T *acc_a, *acc_b, *acc_c;
+  const T *cut_x, *cut_lo, *cut_hi, *cut_mask, *U_lo, *U_hi;
+  const T *sX, *sT, *rho;
+  double* ws;              // null, or the partials in global memory
+                           // (omc_k3_ws_doubles a slot)
   // the Halpern mode's anchors s0 = w + u of the nine slots at the solve
   // call's start (each shaped as its slot), or all null: the normal mode
-  const float *h1, *h2, *h3, *h4, *hsoc, *hbox, *ha, *hb, *hc;
+  const T *h1, *h2, *h3, *h4, *hsoc, *hbox, *ha, *hb, *hc;
   int B, n, m, k, L;
-  int C;                       // CTAs per cluster, one cluster per slot (1..16)
-  int xsmem;                   // 1: the cut vectors staged in shared memory
-  int slsmem;                  // 1: rank 0 stages the trace, interval and chord slots
-  int hal_it;                  // the Halpern mode's iteration index in the call
-  float alpha, beta;
+  int C;                   // CTAs per cluster, one cluster per slot (1..16)
+  int xsmem;               // 1: the cut vectors staged in shared memory
+  int slsmem;              // 1: rank 0 stages the trace, interval and chord slots
+  int hal_it;              // the Halpern mode's iteration index in the call
+  T alpha, beta;
 };
+using K3Params = K3ParamsT<float>;
 
 // K7: with t given, w = proj_PSD(t) for N 5x5 matrices; with t null, the
 // Shor minor slots of B node slots (N = B * M5) are gathered from the
@@ -695,46 +733,54 @@ struct K8dParams {
 // K5 (M null) forms U U' - Y.  mode 0: the eigenvalues ascending into w
 // (nout = d); mode 1: the PSD projection V max(w, 0) V' into P; mode 2: the
 // nout smallest eigenpairs into w and V.
-struct K4Params {
-  const float* M;      // (B, d, d), or null for K5
-  const float *U, *Y;  // K5: (B, d, k), (B, d, d)
-  float* w;            // (B, nout) or null
-  float* V;            // (B, d, nout) or null
-  float* P;            // (B, d, d) or null
+template <class T>
+struct K4ParamsT {
+  const T* M;          // (B, d, d), or null for K5
+  const T *U, *Y;      // K5: (B, d, k), (B, d, d)
+  T* w;                // (B, nout) or null
+  T* V;                // (B, d, nout) or null
+  T* P;                // (B, d, d) or null
   int* sweeps;         // (B,) sweeps run; kJacobiMaxSweeps + 1 at the cap
-  float* work;         // omc_k4_workspace_floats(B, d, mode, path) floats, or null
+  T* work;             // omc_k4_workspace_floats(B, d, mode, path) values of T, or null
   int B, d, k, nout, mode;
   int path;            // 0: one CTA per matrix; 1: the block path
 };
+using K4Params = K4ParamsT<float>;
 
 // K5: the nout <= 2 smallest eigenpairs of sym(U U' - Y), one CTA per
 // matrix (Householder tridiagonalisation, multisection, inverse iteration)
-struct K5Params {
-  const float *U, *Y;  // (B, d, k), (B, d, d)
-  float* w;            // (B, nout) ascending
-  float* V;            // (B, d, nout) unit columns
+template <class T>
+struct K5ParamsT {
+  const T *U, *Y;      // (B, d, k), (B, d, d)
+  T* w;                // (B, nout) ascending
+  T* V;                // (B, d, nout) unit columns
   int* iters;          // (B,) inverse iterations run; kK5MaxIters + 1 at the cap
   int B, d, k, nout;
-  int path;            // 0: the triangle in float64; 1: in float32
+  int path;            // 0: the triangle in float64; 1: in float32 (float operands only)
 };
+using K5Params = K5ParamsT<float>;
 
 // K4s: PSD projection of N tiny (D x D, D <= 8) symmetric matrices, one
 // thread per matrix in registers
-struct K4sParams {
-  const float* t;      // (N, D, D)
-  float* w;            // (N, D, D)
+template <class T>
+struct K4sParamsT {
+  const T* t;          // (N, D, D)
+  T* w;                // (N, D, D)
   int* sweeps;         // (N,) or null
   int N, D;
 };
+using K4sParams = K4sParamsT<float>;
 
 // K6: altmin's masked ridge step; the V-step reads U (B, n, k) and writes
 // V (B, k, m), the U-step reads V (B, k, m) and writes U (B, n, k)
-struct K6Params {
-  const float* F;      // the fixed factor
-  const float *A, *mask;  // (n, m)
-  float* out;          // the solved factor
-  float* gram;         // slots path: (B, k(k+1)/2) scratch for (1/gamma) F'F
+template <class T>
+struct K6ParamsT {
+  const T* F;          // the fixed factor
+  const T *A, *mask;   // (n, m)
+  T* out;              // the solved factor
+  T* gram;             // slots path: (B, k(k+1)/2) scratch for (1/gamma) F'F
   int B, n, m, k;
   int path, S, W, rpw;  // the plan (ops.linalg.k6_plan)
-  float inv_gamma, ridge_eps;
+  T inv_gamma, ridge_eps;
 };
+using K6Params = K6ParamsT<float>;

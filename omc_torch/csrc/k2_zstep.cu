@@ -52,6 +52,12 @@
 // through L2, and t's rows are spread over the cluster, a warp a row of
 // G1^-1 (coalesced), and gathered through the workspace behind one more
 // cluster barrier.
+//
+// The float64 build (omc_k2_zstep_f64) is the same kernel on doubles (T):
+// its float section of shared memory (and of the workspace) is counted in
+// doubles, so the plan's bytes come from k2_smem at 8 bytes a value, and it
+// runs one CTA an SM where the float build runs three (the registers of
+// the double values).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -60,7 +66,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr float kSqrt2 = 1.41421356237309515f;
+// sqrt(2) rounded to T
+template <class T>
+__host__ __device__ constexpr T sqrt2_of() { return T(1.41421356237309515); }
 constexpr int kWarps = omc::kThreads / 32;
 constexpr int kChunk = 8;    // chord sums a lane keeps in registers at once
 constexpr int kT = 16;       // Theta's tile edge
@@ -68,11 +76,12 @@ constexpr int kGiMax = 112;  // G1^-1 is staged in shared memory up to p = kGiMa
 constexpr int kU = 4;        // items a thread loads before it stores any
 
 // Shared memory of one CTA: doubles first (per-warp partials, the CTA's
-// partials of s, their cluster sums), then floats.  Offsets in elements of
-// their type from the start; omc_torch.sdp.admm.k2_smem_bytes mirrors it.
-// With ws, part and tot (doubles) and cl, coef, sv and tv (floats) are
+// partials of s, their cluster sums), then values of T (floats, or doubles
+// in the float64 build: elem bytes each).  Offsets in elements of their
+// type from the start; omc_torch.sdp.admm.k2_smem_bytes mirrors it.  With
+// ws, part and tot (doubles) and cl, coef, sv and tv (values of T) are
 // counted from the start of the rank's region of wsr doubles in the slot's
-// wss doubles of workspace instead; t's gathered rows (floats) start at wst.
+// wss doubles of workspace instead; t's gathered rows (T) start at wst.
 struct K2Smem {
   int wpart, part, stage, tot;                     // doubles
   int xs, cms, cl, yc, coef, sv, tv, ub, gi, tt, buf;  // floats
@@ -81,7 +90,7 @@ struct K2Smem {
 };
 
 __host__ __device__ inline K2Smem k2_smem(int n, int m, int k, int L, int C, int band,
-                                          int xsmem, int ws) {
+                                          int xsmem, int ws, int elem = 4) {
   K2Smem s;
   const int P = 1 + L + L * k, bw = omc::cdiv(n, C);
   int d = 0, g = 0;  // doubles: shared memory, the rank's workspace region
@@ -96,7 +105,8 @@ __host__ __device__ inline K2Smem k2_smem(int n, int m, int k, int L, int C, int
     s.stage = C > 1 ? d : s.part, d += C > 1 ? C * P : 0;
     s.tot = C > 1 ? d : s.part, d += C > 1 ? P : 0;
   }
-  int f = 2 * d, h = 2 * g;  // floats
+  const int per = 8 / elem;         // values of T a double
+  int f = per * d, h = per * g;     // values of T
   int& v = ws ? h : f;       // where the p- and L k-sized vectors go
   s.xs = f, f += xsmem ? L * n : 0;  // masked cut vectors
   s.cms = f, f += L;          // the cut mask
@@ -109,21 +119,22 @@ __host__ __device__ inline K2Smem k2_smem(int n, int m, int k, int L, int C, int
   s.gi = f, f += P <= kGiMax ? P * P : 0;        // G1^-1
   s.tt = f, f += kWarps * 2 * kT * (kT + 1);     // a Theta tile pair a warp
   s.buf = f, f += band ? bw * omc::odd_ld(n) : 0;  // the band of sym(zY)
-  s.bytes = (size_t)f * sizeof(float);
-  s.wsr = ws ? (h + 1) / 2 : 0;
+  s.bytes = (size_t)f * elem;
+  s.wsr = ws ? (h + per - 1) / per : 0;
   s.wst = C * s.wsr;
-  s.wss = ws ? s.wst + (P + 1) / 2 : 0;
+  s.wss = ws ? s.wst + (P + per - 1) / per : 0;
   return s;
 }
 
 // The masked cut vectors x_l[j]: staged in shared memory (s), or, where
 // they do not fit, read from the input g and masked by cm[l]
+template <class T>
 struct CutX {
-  const float* s;
-  omc::RO g;
-  const float* cm;
+  const T* s;
+  omc::ROT<T> g;
+  const T* cm;
   int n;
-  __device__ __forceinline__ float operator()(int l, int j) const {
+  __device__ __forceinline__ T operator()(int l, int j) const {
     return s ? s[l * n + j] : g[l * n + j] * cm[l];
   }
 };
@@ -133,17 +144,17 @@ struct CutX {
 // every entry out(a, c, v(a, c) + v(c, a)) takes the symmetric sum, the two
 // tiles' entries loaded (coalesced, 16 columns a row) before either is
 // stored, and transposed through the warp's 2 x 16 x 17 floats at t.
-template <class F, class O>
-__device__ __forceinline__ void tile_pairs(int N, int cw, int CW, float* t, F f, O out) {
+template <class T, class F, class O>
+__device__ __forceinline__ void tile_pairs(int N, int cw, int CW, T* t, F f, O out) {
   constexpr int R = kT / 2, ld = kT + 1;
   const int lane = threadIdx.x & 31, nt = omc::cdiv(N, kT), cc = lane & (kT - 1), r0 = lane >> 4;
-  float* ta = t;
-  float* tb = t + kT * ld;
+  T* ta = t;
+  T* tb = t + kT * ld;
   for (int pr = cw; pr < nt * (nt + 1) / 2; pr += CW) {
     int I = 0;
     while ((I + 1) * (I + 2) / 2 <= pr) ++I;
     const int J = pr - I * (I + 1) / 2;
-    float va[R], vb[R];
+    T va[R], vb[R];
 #pragma unroll
     for (int h = 0; h < R; ++h) {
       const int rr = r0 + 2 * h;
@@ -157,7 +168,7 @@ __device__ __forceinline__ void tile_pairs(int N, int cw, int CW, float* t, F f,
       if (I != J && J * kT + rr < N && I * kT + cc < N) tb[rr * ld + cc] = vb[h];
     }
     __syncwarp();
-    const float* tt = I != J ? tb : ta;  // v at (J-block rows, I-block columns)
+    const T* tt = I != J ? tb : ta;  // v at (J-block rows, I-block columns)
 #pragma unroll
     for (int h = 0; h < R; ++h) {
       const int rr = r0 + 2 * h;
@@ -172,50 +183,52 @@ __device__ __forceinline__ void tile_pairs(int N, int cw, int CW, float* t, F f,
 
 // three CTAs an SM (80 registers, no spill): at 250 x 250 nodes the bands
 // need the occupancy more than the registers.  kWs: the partials in the
-// global workspace (two CTAs an SM: its t rows need the registers)
-template <bool kBand, bool kWs>
-__global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params p) {
+// global workspace (two CTAs an SM: its t rows need the registers).  The
+// float64 build: one CTA an SM.
+template <class T, bool kBand, bool kWs>
+__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 : 3))
+    k2_kernel(K2ParamsT<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
-  float* const fsm = reinterpret_cast<float*>(smem_raw);
+  T* const fsm = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = p.C, rank = (int)cluster.block_rank(), b = blockIdx.x / C;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n, m = p.m, k = p.k, L = p.L;
   const int D1 = n + m, D2 = n + k, P = 1 + L + L * k;
-  const K2Smem S = k2_smem(n, m, k, L, C, kBand, p.xsmem, kWs);
+  const K2Smem S = k2_smem(n, m, k, L, C, kBand, p.xsmem, kWs, sizeof(T));
   // the slot's workspace, and where part, tot, cl, coef, sv and tv live
   double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
   double* const rd = kWs ? wsd + (size_t)rank * S.wsr : dsm;
-  float* const rf = reinterpret_cast<float*>(rd);
+  T* const rf = reinterpret_cast<T*>(rd);
   double* wpart = dsm + S.wpart;
   double* part = rd + S.part;
   double* tot = rd + S.tot;
-  const float y4 = p.w4[b] - p.u4[b] - (float)k;
-  float* xs = fsm + S.xs;
-  float* cms = fsm + S.cms;
-  float* cl = rf + S.cl;
-  float* yc = fsm + S.yc;
-  float* coef = rf + S.coef;
-  float* sv = rf + S.sv;
-  float* tv = rf + S.tv;
-  float* Ub = fsm + S.ub;
+  const T y4 = p.w4[b] - p.u4[b] - (T)k;
+  T* xs = fsm + S.xs;
+  T* cms = fsm + S.cms;
+  T* cl = rf + S.cl;
+  T* yc = fsm + S.yc;
+  T* coef = rf + S.coef;
+  T* sv = rf + S.sv;
+  T* tv = rf + S.tv;
+  T* Ub = fsm + S.ub;
   // this CTA's rows [i0, i0 + nb) of Y and U
   const int i0 = omc::band_lo(n, C, rank), nb = omc::band_lo(n, C, rank + 1) - i0;
 
-  const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b];
+  const T rho = p.rho[b], sX = p.sX[b], sT = p.sT[b];
   // every operand K2 reads it does not write
-  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
-  const omc::RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
-  const omc::RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
-  const omc::RO cx{p.cut_x + (size_t)b * L * n}, clo{p.cut_lo + (size_t)b * L * k};
-  const omc::RO chi{p.cut_hi + (size_t)b * L * k}, cm{p.cut_mask + (size_t)b * L};
-  const omc::RO maskA{p.maskA}, mask{p.mask};
-  const float* G1i = p.G1i + (size_t)b * P * P;
-  const float* Gi = P <= kGiMax ? fsm + S.gi : G1i;
-  float* Y = p.Y + (size_t)b * n * n;
-  float* U = p.U + (size_t)b * n * k;
-  float* Yb = kBand ? fsm + S.buf : Y + (size_t)i0 * n;
+  const omc::ROT<T> w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::ROT<T> w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const omc::ROT<T> w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  const omc::ROT<T> cx{p.cut_x + (size_t)b * L * n}, clo{p.cut_lo + (size_t)b * L * k};
+  const omc::ROT<T> chi{p.cut_hi + (size_t)b * L * k}, cm{p.cut_mask + (size_t)b * L};
+  const omc::ROT<T> maskA{p.maskA}, mask{p.mask};
+  const T* G1i = p.G1i + (size_t)b * P * P;
+  const T* Gi = P <= kGiMax ? fsm + S.gi : G1i;
+  T* Y = p.Y + (size_t)b * n * n;
+  T* U = p.U + (size_t)b * n * k;
+  T* Yb = kBand ? fsm + S.buf : Y + (size_t)i0 * n;
   const int ldY = kBand ? omc::odd_ld(n) : n;
 
   // ======== phase 1: the loads the sums of s need
@@ -225,20 +238,20 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
   for (int l = tid; l < L; l += blockDim.x) cms[l] = cm[l];
   if (p.xsmem)
     for (int l = warp; l < L; l += kWarps) {
-      const float c = cm[l];
+      const T c = cm[l];
       for (int j = lane; j < n; j += 32) xs[l * n + j] = cx[l * n + j] * c;
     }
-  const CutX X{p.xsmem ? xs : nullptr, cx, cms, n};
+  const CutX<T> X{p.xsmem ? xs : nullptr, cx, cms, n};
   for (int e = tid; e < L * k; e += blockDim.x) {
     const int l = e / k;
-    float bc = 0.f;
+    T bc = T(0);
     for (int j = 0; j < k; ++j) bc += -clo[l * k + j] * chi[l * k + j];
-    const float ycl = (__ldg(p.wc + b * L + l) - __ldg(p.uc + b * L + l) - bc) * cm[l];
+    const T ycl = (__ldg(p.wc + b * L + l) - __ldg(p.uc + b * L + l) - bc) * cm[l];
     if (e == l * k) yc[l] = ycl;
     const size_t q = (size_t)b * L * k + e;
-    const float lo = clo[e], hi = chi[e];
-    const float ya = (__ldg(p.wa + q) - __ldg(p.ua + q) - (-lo)) * cm[l];
-    const float yb = (__ldg(p.wb + q) - __ldg(p.ub + q) - hi) * cm[l];
+    const T lo = clo[e], hi = chi[e];
+    const T ya = (__ldg(p.wa + q) - __ldg(p.ua + q) - (-lo)) * cm[l];
+    const T yb = (__ldg(p.wb + q) - __ldg(p.ub + q) - hi) * cm[l];
     coef[e] = ya - yb + ycl * (lo + hi);
     cl[e] = (lo + hi) * cm[l];
   }
@@ -249,7 +262,7 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
     const int ii = e / k, j = e - ii * k, i = i0 + ii;
     const int q2 = i * D2 + n + j, qs = j * (1 + n) + 1 + i;
     const size_t ws = (size_t)b * k * (1 + n) + qs, wb = (size_t)b * n * k + i * k + j;
-    Ub[e] = 2.0f * (w2[q2] - u2[q2]) + (__ldg(p.wsoc + ws) - __ldg(p.usoc + ws)) +
+    Ub[e] = T(2) * (w2[q2] - u2[q2]) + (__ldg(p.wsoc + ws) - __ldg(p.usoc + ws)) +
             (__ldg(p.wbox + wb) - __ldg(p.ubox + wb));
   }
   // the band's residual r = (w1 - u1) + (w2 - u2) - (w3 - u3): r(i, j) row
@@ -261,11 +274,11 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
   };
   omc::grid_items<kU>(
       nb, n, tid, blockDim.x, [&](int ii, int j) { return resid(i0 + ii, j); },
-      [&](int ii, int j, float v) { Yb[ii * ldY + j] = v; });
+      [&](int ii, int j, T v) { Yb[ii * ldY + j] = v; });
   __syncthreads();
   omc::grid_items<kU>(
       n, nb, tid, blockDim.x, [&](int j, int ii) { return resid(j, i0 + ii); },
-      [&](int j, int ii, float v) { Yb[ii * ldY + j] += v; });
+      [&](int j, int ii, T v) { Yb[ii * ldY + j] += v; });
   __syncthreads();
 
   // zY = rho gY / (3 rho), gY = r - y4 I + I - sum_l yc_l x_l x_l' (the
@@ -283,13 +296,13 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
       int ii, j;
       omc::divmod(e, n, inv_n, ii, j);
       const int i = i0 + ii;
-      float z;
+      T z;
       if (l0 == 0) {
-        float cc = 0.f;
+        T cc = T(0);
         for (int l = 0; l < L; ++l) cc += yc[l] * (X(l, i) * X(l, j));
-        float g = 0.5f * Yb[ii * ldY + j] - cc;
-        if (j == i) g += 1.0f - y4;
-        z = (rho * g) / (3.0f * rho);
+        T g = T(0.5) * Yb[ii * ldY + j] - cc;
+        if (j == i) g += T(1) - y4;
+        z = (rho * g) / (T(3) * rho);
         Yb[ii * ldY + j] = z;
         if (j == i) tr += z;
       } else {
@@ -322,7 +335,7 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
     const int ii = e / k, j = e - ii * k, i = i0 + ii;
     double ct = 0.0;  // U's few entries sum over every cut: float64
     for (int l = 0; l < L; ++l) ct = fma((double)X(l, i), (double)coef[l * k + j], ct);
-    Ub[e] = (rho * (Ub[e] + (float)ct)) / (4.0f * rho);
+    Ub[e] = (rho * (Ub[e] + (T)ct)) / (T(4) * rho);
   }
   __syncthreads();
 
@@ -346,31 +359,31 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
   // batches no CTA holds both)
   const int cw = (C - 1 - rank) * kWarps + warp, CW = C * kWarps;
   if (p.Xs) {
-    float* Xs = p.Xs + (size_t)b * n * m;
+    T* Xs = p.Xs + (size_t)b * n * m;
     omc::grid_items<kU>(
         n, m, rank * blockDim.x + tid, C * blockDim.x,
         [&](int i, int j) {
           const int q = i * D1 + n + j, e = i * m + j;
-          const float gX = sX * 2.0f * (w1[q] - u1[q]);
-          const float rX = rho * gX + sX * maskA[e];
-          const float dX = mask[e] * (sX * sX) + rho * 2.0f * sX * sX;
+          const T gX = sX * T(2) * (w1[q] - u1[q]);
+          const T rX = rho * gX + sX * maskA[e];
+          const T dX = mask[e] * (sX * sX) + rho * T(2) * sX * sX;
           return rX / dX;
         },
-        [&](int i, int j, float v) { Xs[i * m + j] = v; });
+        [&](int i, int j, T v) { Xs[i * m + j] = v; });
   }
   // Theta (no Woodbury correction) over the cluster's warps, a tile pair at
   // a time: Ths = (z + z') / 2
-  float* ta = fsm + S.tt + warp * 2 * kT * (kT + 1);
+  T* ta = fsm + S.tt + warp * 2 * kT * (kT + 1);
   if (p.Ths) {
-    float* Ths = p.Ths + (size_t)b * m * m;
-    const float cth = sT * 0.5f / p.gamma, den = rho * sT * sT;
+    T* Ths = p.Ths + (size_t)b * m * m;
+    const T cth = sT * T(0.5) / p.gamma, den = rho * sT * sT;
     tile_pairs(
         m, cw, CW, ta,
         [&](int a, int j) {
           const int q = (n + a) * D1 + n + j;
-          return (rho * (sT * (w1[q] - u1[q])) - (a == j ? cth : 0.f)) / den;
+          return (rho * (sT * (w1[q] - u1[q])) - (a == j ? cth : T(0))) / den;
         },
-        [&](int a, int j, float s) { Ths[(size_t)a * m + j] = 0.5f * s; });
+        [&](int a, int j, T s) { Ths[(size_t)a * m + j] = T(0.5) * s; });
   }
   omc::cluster_wait();
   // the partials' sums over the cluster, in rank order
@@ -382,15 +395,15 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
   }
   // s = V'z: [trace | -x_l'zY x_l + sum_j c_lj x_l'zU_j | sqrt2 x_l'zU_j]
   for (int q = tid; q < P; q += blockDim.x) {
-    float s;
+    T s;
     if (q == 0) {
-      s = (float)tot[0];
+      s = (T)tot[0];
     } else if (q <= L) {
       double ch = -tot[q];
       for (int j = 0; j < k; ++j) ch += (double)cl[(q - 1) * k + j] * tot[1 + L + (q - 1) * k + j];
-      s = (float)ch;
+      s = (T)ch;
     } else {
-      s = kSqrt2 * (float)tot[q];
+      s = sqrt2_of<T>() * (T)tot[q];
     }
     sv[q] = s;
   }
@@ -401,10 +414,10 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
     // the rows of t spread over the cluster, a warp a row of G1^-1 read
     // coalesced, four independent sums a lane, then gathered from the
     // workspace behind a cluster barrier (L2 reads)
-    float* tg = reinterpret_cast<float*>(wsd + S.wst);
+    T* tg = reinterpret_cast<T*>(wsd + S.wst);
     const int q1 = omc::band_lo(P, C, rank + 1);
     for (int q = omc::band_lo(P, C, rank) + warp; q < q1; q += kWarps) {
-      const float* g = p.G1i + (size_t)b * P * P + (size_t)q * P;
+      const T* g = p.G1i + (size_t)b * P * P + (size_t)q * P;
       double s[4] = {0.0, 0.0, 0.0, 0.0};
       int r = lane;
       for (; r + 96 < P; r += 128)
@@ -413,7 +426,7 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
           s[h] = fma((double)__ldg(g + r + 32 * h), (double)sv[r + 32 * h], s[h]);
       for (; r < P; r += 32) s[0] = fma((double)__ldg(g + r), (double)sv[r], s[0]);
       const double t = omc::warp_sum_d((s[0] + s[1]) + (s[2] + s[3]));
-      if (lane == 0) tg[q] = rho * (float)t;
+      if (lane == 0) tg[q] = rho * (T)t;
     }
     __threadfence();
     omc::cluster_arrive();
@@ -425,28 +438,28 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
     // a thread per entry (p is odd: the rows' reads fall in distinct banks),
     // four independent sums a thread
     for (int q = tid; q < P; q += blockDim.x) {
-      const float* g = Gi + q * P;
+      const T* g = Gi + q * P;
       double s[4] = {0.0, 0.0, 0.0, 0.0};
       int r = 0;
       for (; r + 4 <= P; r += 4)
 #pragma unroll
         for (int h = 0; h < 4; ++h) s[h] = fma((double)g[r + h], (double)sv[r + h], s[h]);
       for (; r < P; ++r) s[0] = fma((double)g[r], (double)sv[r], s[0]);
-      tv[q] = rho * (float)((s[0] + s[1]) + (s[2] + s[3]));
+      tv[q] = rho * (T)((s[0] + s[1]) + (s[2] + s[3]));
     }
     __syncthreads();
   }
 
   // z -= D^-1 V t: Y (3 rho) and U (4 rho), each entry written once
-  const float t0 = tv[0];
+  const T t0 = tv[0];
   for (int e = tid; e < nb * n; e += blockDim.x) {
     int ii, j;
     omc::divmod(e, n, inv_n, ii, j);
     const int i = i0 + ii;
-    float vy = 0.f;
+    T vy = T(0);
     for (int l = 0; l < L; ++l) vy += tv[1 + l] * (X(l, i) * X(l, j));
-    vy = (i == j ? t0 : 0.f) - vy;
-    Y[(size_t)i * n + j] = Yb[ii * ldY + j] - vy / (3.0f * rho);
+    vy = (i == j ? t0 : T(0)) - vy;
+    Y[(size_t)i * n + j] = Yb[ii * ldY + j] - vy / (T(3) * rho);
   }
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const int ii = e / k, j = e - ii * k, i = i0 + ii;
@@ -456,8 +469,8 @@ __global__ void __launch_bounds__(omc::kThreads, kWs ? 2 : 3) k2_kernel(K2Params
       a = fma((double)tv[1 + l] * xli, (double)cl[l * k + j], a);
       d = fma(xli, (double)tv[1 + L + l * k + j], d);
     }
-    const float vu = (float)a + kSqrt2 * (float)d;
-    U[i * k + j] = Ub[e] - vu / (4.0f * rho);
+    const T vu = (T)a + sqrt2_of<T>() * (T)d;
+    U[i * k + j] = Ub[e] - vu / (T(4) * rho);
   }
   omc::cluster_wait();  // no CTA leaves while another may read its partials
 }
@@ -469,11 +482,11 @@ int fail(cudaError_t err) {
   return (int)err;
 }
 
-template <bool kBand, bool kWs>
-int launch(const K2Params& p, cudaStream_t stream) {
+template <class T, bool kBand, bool kWs>
+int launch(const K2ParamsT<T>& p, cudaStream_t stream) {
   static int smem_attr = -1;
   static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
-  const int smem = (int)k2_smem(p.n, p.m, p.k, p.L, p.C, kBand, p.xsmem, kWs).bytes;
+  const int smem = (int)k2_smem(p.n, p.m, p.k, p.L, p.C, kBand, p.xsmem, kWs, sizeof(T)).bytes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.C * p.B, 1, 1);
   cfg.blockDim = dim3(omc::kThreads, 1, 1);
@@ -488,47 +501,57 @@ int launch(const K2Params& p, cudaStream_t stream) {
   cfg.numAttrs = 1;
   cudaError_t err;
   if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
-    err = cudaFuncSetAttribute(k2_kernel<kBand, kWs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(k2_kernel<T, kBand, kWs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return fail(err);
     smem_attr = 0;
   }
   if (smem > smem_attr) {
-    err = cudaFuncSetAttribute(k2_kernel<kBand, kWs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(k2_kernel<T, kBand, kWs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return fail(err);
     smem_attr = smem;
   }
   if (smem > schedulable[p.C]) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k2_kernel<kBand, kWs>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k2_kernel<T, kBand, kWs>, &cfg);
     if (err != cudaSuccess) return fail(err);
     if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
     schedulable[p.C] = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, k2_kernel<kBand, kWs>, p);
+  err = cudaLaunchKernelEx(&cfg, k2_kernel<T, kBand, kWs>, p);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// the shared memory omc_torch.sdp.admm.k2k3_plan plans with (chip_smoke.py
-// holds the plan against it at every K2 row)
+// the shared memory omc_torch.sdp.admm.k2k3_plan plans with, at elem bytes
+// a value (4, or 8 for the float64 build; chip_smoke.py holds the plan
+// against it at every K2 row)
 OMC_EXPORT long long omc_k2_smem_bytes(int n, int m, int k, int L, int C, int band, int xsmem,
-                                       int ws) {
-  return (long long)k2_smem(n, m, k, L, C, band, xsmem, ws).bytes;
+                                       int ws, int elem) {
+  return (long long)k2_smem(n, m, k, L, C, band, xsmem, ws, elem).bytes;
 }
 
 // the doubles of global workspace a slot takes where the partials of s live
 // there (K2Params.ws)
-OMC_EXPORT long long omc_k2_ws_doubles(int n, int m, int k, int L, int C) {
-  return (long long)k2_smem(n, m, k, L, C, 0, 0, 1).wss;
+OMC_EXPORT long long omc_k2_ws_doubles(int n, int m, int k, int L, int C, int elem) {
+  return (long long)k2_smem(n, m, k, L, C, 0, 0, 1, elem).wss;
 }
 
-OMC_EXPORT int omc_k2_zstep(const K2Params* params, void* stream) {
-  const K2Params& p = *params;
+template <class T>
+int k2_entry(const K2ParamsT<T>& p, void* stream) {
   if (p.C < 1 || p.C > 16 || p.B < 1 || p.n < 1 || p.m < 1 || p.k < 1 || p.L < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (p.ws) return p.band ? launch<true, true>(p, st) : launch<false, true>(p, st);
-  return p.band ? launch<true, false>(p, st) : launch<false, false>(p, st);
+  if (p.ws) return p.band ? launch<T, true, true>(p, st) : launch<T, false, true>(p, st);
+  return p.band ? launch<T, true, false>(p, st) : launch<T, false, false>(p, st);
+}
+
+OMC_EXPORT int omc_k2_zstep(const K2Params* params, void* stream) {
+  return k2_entry(*params, stream);
+}
+
+// the float64 build: double operands and outputs
+OMC_EXPORT int omc_k2_zstep_f64(const K2ParamsT<double>* params, void* stream) {
+  return k2_entry(*params, stream);
 }

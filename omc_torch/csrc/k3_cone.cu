@@ -50,6 +50,10 @@
 // the iteration's index in the call (K3Params.hal_it, set on the packed
 // block at each launch), before it is stored, projected or summed.  The
 // normal mode is the kernel's other instantiation and loads no anchor.
+//
+// The float64 build (omc_k3_cone_f64) is the same kernel on doubles (T):
+// its float section of shared memory is counted in doubles (k3_smem at 8
+// bytes a value), and it runs one CTA an SM.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -62,6 +66,14 @@ constexpr int kWarps = omc::kThreads / 32;
 constexpr int kChunk = 8;  // chord sums a lane keeps in registers at once
 constexpr int kT = 16;     // X's tile edge
 constexpr int kU = 4;      // items a thread loads before it stores any
+
+// three values of T loaded together (t1's lower right)
+template <class T>
+struct Triple {
+  T x, y, z;
+};
+template <class T>
+__device__ __forceinline__ Triple<T> make_triple(T x, T y, T z) { return {x, y, z}; }
 
 // Shared memory of one CTA: doubles first (per-warp partials, the CTA's
 // partials, their cluster sums: tr Y, x_l'Y x_l, ||tsoc_j[1:]||^2, x_l'U_j),
@@ -76,7 +88,7 @@ struct K3Smem {
 };
 
 __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int xsmem,
-                                          int slsmem, int ws) {
+                                          int slsmem, int ws, int elem = 4) {
   K3Smem s;
   const int NP = 1 + L + k + L * k;
   int d = 0;
@@ -92,7 +104,7 @@ __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int
   s.wsr = ws ? 2 * NP : 0;
   s.wss = C * s.wsr;
   s.xd = d, d += xsmem ? L * n : 0;  // the cut vectors, in float64 for x'Yx and x'U
-  int f = 2 * d;
+  int f = (8 / elem) * d;  // values of T (elem bytes each)
   s.us = f, f += n * k;                   // U
   s.ts0 = f, f += k;                      // tsoc_j[0]
   s.tsb = f, f += k * omc::cdiv(n, C);    // the band's tsoc_j[1 + i]
@@ -100,32 +112,34 @@ __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int
   // rank 0's staged slots (where they fit): wa, ua, wb, ub, acc_a, acc_b,
   // lo, hi (L k each); wc, uc, acc_c, cm (L each); w4, u4
   s.sl = f, f += slsmem ? 8 * L * k + 4 * L + 2 : 0;
-  s.bytes = (size_t)f * sizeof(float);
+  s.bytes = (size_t)f * elem;
   return s;
 }
 
-// kWs: the partials in the global workspace; kHal: the Halpern mode
-template <bool kWs, bool kHal>
-__global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
+// kWs: the partials in the global workspace; kHal: the Halpern mode; T:
+// T, or double (the float64 build, one CTA an SM)
+template <class T, bool kWs, bool kHal>
+__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
+    k3_kernel(K3ParamsT<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
-  float* const fsm = reinterpret_cast<float*>(smem_raw);
+  T* const fsm = reinterpret_cast<T*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = p.C, rank = (int)cluster.block_rank(), b = blockIdx.x / C;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n, m = p.m, k = p.k, L = p.L;
   const int D1 = n + m, D2 = n + k, NP = 1 + L + k + L * k, Lk = L * k;
-  const float alpha = p.alpha, om = 1.0f - p.alpha;
+  const T alpha = p.alpha, om = T(1) - p.alpha;
   // the Halpern blend of a slot entry q with its anchor (the normal mode:
   // t as it is)
-  const float hbeta = kHal ? 1.0f / ((float)p.hal_it + 2.0f) : 0.f, hom = 1.0f - hbeta;
-  const auto hal = [&](float t, const float* h, size_t q) -> float {
+  const T hbeta = kHal ? T(1) / ((T)p.hal_it + T(2)) : T(0), hom = T(1) - hbeta;
+  const auto hal = [&](T t, const T* h, size_t q) -> T {
     if constexpr (kHal)
       return hbeta * __ldg(h + q) + hom * t;
     else
       return t;
   };
-  const K3Smem S = k3_smem(n, m, k, L, C, p.xsmem, p.slsmem, kWs);
+  const K3Smem S = k3_smem(n, m, k, L, C, p.xsmem, p.slsmem, kWs, sizeof(T));
   // the slot's workspace, and where part and tot live
   double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
   double* const rd = kWs ? wsd + (size_t)rank * S.wsr : dsm;
@@ -133,32 +147,32 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   double* part = rd + S.part;
   double* tot = rd + S.tot;
   double* xd = dsm + S.xd;
-  float* us = fsm + S.us;
-  float* ts0 = fsm + S.ts0;
-  float* tsb = fsm + S.tsb;
-  float* sl = fsm + S.sl;
+  T* us = fsm + S.us;
+  T* ts0 = fsm + S.ts0;
+  T* tsb = fsm + S.tsb;
+  T* sl = fsm + S.sl;
   // this CTA's rows of Y [i0, i0 + nb) and of Theta [a0, a0 + nbT)
   const int i0 = omc::band_lo(n, C, rank), nb = omc::band_lo(n, C, rank + 1) - i0;
   const int a0 = omc::band_lo(m, C, rank), nbT = omc::band_lo(m, C, rank + 1) - a0;
 
-  const float sX = p.sX[b], sT = p.sT[b], rho = p.rho[b];
+  const T sX = p.sX[b], sT = p.sT[b], rho = p.rho[b];
   // the operands K3 reads and does not write
-  const omc::RO Xs{p.Xs + (size_t)b * n * m}, Y{p.Y + (size_t)b * n * n};
-  const omc::RO Ths{p.Ths + (size_t)b * m * m}, U{p.U + (size_t)b * n * k};
-  const omc::RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
-  const omc::RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
-  const omc::RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
-  const omc::RO cx{p.cut_x + (size_t)b * L * n}, Ulo{p.U_lo}, Uhi{p.U_hi};
-  float* t1 = p.t1 + (size_t)b * D1 * D1;
-  float* t2 = p.t2 + (size_t)b * D2 * D2;
-  float* t3 = p.t3 + (size_t)b * n * n;
-  float* wsoc = p.wsoc + (size_t)b * k * (1 + n);
-  float* usoc = p.usoc + (size_t)b * k * (1 + n);
+  const omc::ROT<T> Xs{p.Xs + (size_t)b * n * m}, Y{p.Y + (size_t)b * n * n};
+  const omc::ROT<T> Ths{p.Ths + (size_t)b * m * m}, U{p.U + (size_t)b * n * k};
+  const omc::ROT<T> w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const omc::ROT<T> w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const omc::ROT<T> w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  const omc::ROT<T> cx{p.cut_x + (size_t)b * L * n}, Ulo{p.U_lo}, Uhi{p.U_hi};
+  T* t1 = p.t1 + (size_t)b * D1 * D1;
+  T* t2 = p.t2 + (size_t)b * D2 * D2;
+  T* t3 = p.t3 + (size_t)b * n * n;
+  T* wsoc = p.wsoc + (size_t)b * k * (1 + n);
+  T* usoc = p.usoc + (size_t)b * k * (1 + n);
   // the slot's anchors of the PSD and SOC slots (Halpern mode)
-  const float* h1 = kHal ? p.h1 + (size_t)b * D1 * D1 : nullptr;
-  const float* h2 = kHal ? p.h2 + (size_t)b * D2 * D2 : nullptr;
-  const float* h3 = kHal ? p.h3 + (size_t)b * n * n : nullptr;
-  const float* hsoc = kHal ? p.hsoc + (size_t)b * k * (1 + n) : nullptr;
+  const T* h1 = kHal ? p.h1 + (size_t)b * D1 * D1 : nullptr;
+  const T* h2 = kHal ? p.h2 + (size_t)b * D2 * D2 : nullptr;
+  const T* h3 = kHal ? p.h3 + (size_t)b * n * n : nullptr;
+  const T* hsoc = kHal ? p.hsoc + (size_t)b * k * (1 + n) : nullptr;
 
   if (p.xsmem)
     for (int l = warp; l < L; l += kWarps)
@@ -168,7 +182,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   for (int e = tid; e < n * k; e += blockDim.x) us[e] = U[e];
   for (int j = tid; j < k; j += blockDim.x) {
     const int q = j * (1 + n);
-    ts0[j] = hal(alpha * 1.0f + om * wsoc[q] + usoc[q], hsoc, q);
+    ts0[j] = hal(alpha * T(1) + om * wsoc[q] + usoc[q], hsoc, q);
   }
   if (rank == 0 && p.slsmem) {  // the slots rank 0 updates after the cluster sums
     const size_t qk = (size_t)b * Lk, ql = (size_t)b * L;
@@ -198,7 +212,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) acc[c] = 0.0;
     for (int e0 = tid; e0 < nbn; e0 += kU * blockDim.x) {
-      float y[kU], a1[kU], b1[kU], a2[kU], b2[kU], a3[kU], b3[kU];
+      T y[kU], a1[kU], b1[kU], a2[kU], b2[kU], a3[kU], b3[kU];
       int iv[kU], jv[kU];
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
@@ -223,7 +237,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
           const int q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
           t1[q1] = hal((alpha * y[u] + om * a1[u]) + b1[u], h1, q1);
           t2[q2] = hal((alpha * y[u] + om * a2[u]) + b2[u], h2, q2);
-          t3[q3] = hal((alpha * ((i == j ? 1.0f : 0.f) - y[u]) + om * a3[u]) + b3[u], h3, q3);
+          t3[q3] = hal((alpha * ((i == j ? T(1) : T(0)) - y[u]) + om * a3[u]) + b3[u], h3, q3);
           if (j == i) tr += y[u];
         }
         const double yd = y[u];
@@ -261,7 +275,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     double s = 0.0;
     for (int ii = lane; ii < nb; ii += 32) {
       const int i = i0 + ii, q = j * (1 + n) + 1 + i;
-      const float t = hal((alpha * us[i * k + j] + om * wsoc[q]) + usoc[q], hsoc, q);
+      const T t = hal((alpha * us[i * k + j] + om * wsoc[q]) + usoc[q], hsoc, q);
       tsb[j * nb + ii] = t;
       s = fma((double)t, (double)t, s);
     }
@@ -286,7 +300,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
   // X's tiles, every warp of the cluster in turn: t1's upper right as read,
   // its lower left through the warp's tile in shared memory
   {
-    float* tt = fsm + S.tt + warp * kT * (kT + 1);
+    T* tt = fsm + S.tt + warp * kT * (kT + 1);
     const int ntn = omc::cdiv(n, kT), ntm = omc::cdiv(m, kT), cc = lane & (kT - 1),
               r0 = lane >> 4;
     constexpr int R = kT / 2;  // rows of a tile a lane takes
@@ -294,7 +308,7 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     for (int tl = (C - 1 - rank) * kWarps + warp; tl < ntn * ntm; tl += C * kWarps) {
       const int I = tl / ntm, J = tl - I * ntm;
       // every load of the tile pair's entries first, then the stores
-      float x[R], wu[R], uu[R], wl[R], ul[R];
+      T x[R], wu[R], uu[R], wl[R], ul[R];
 #pragma unroll
       for (int h = 0; h < R; ++h) {
         const int rr = r0 + 2 * h, i = I * kT + rr, a = J * kT + cc;
@@ -332,9 +346,9 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
       nbT, m, tid, blockDim.x,
       [&](int aa, int j) {
         const int a = a0 + aa, q = (n + a) * D1 + n + j;
-        return make_float3(Ths[a * m + j], w1[q], u1[q]);
+        return make_triple(Ths[a * m + j], w1[q], u1[q]);
       },
-      [&](int aa, int j, float3 v) {
+      [&](int aa, int j, Triple<T> v) {
         const int q = (n + a0 + aa) * D1 + n + j;
         t1[q] = hal((alpha * (sT * v.x) + om * v.y) + v.z, h1, q);
       });
@@ -347,15 +361,15 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     }
     for (int j = lane; j < k; j += 32) {
       const int q = r * D2 + n + j;
-      t2[q] = hal((alpha * (c == j ? 1.0f : 0.f) + om * w2[q]) + u2[q], h2, q);
+      t2[q] = hal((alpha * (c == j ? T(1) : T(0)) + om * w2[q]) + u2[q], h2, q);
     }
   }
 
   // ---- box slot of the band's rows
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const size_t q = (size_t)b * n * k + (size_t)i0 * k + e;
-    const float t = hal((alpha * us[i0 * k + e] + om * p.wbox[q]) + p.ubox[q], p.hbox, q);
-    const float w = fminf(fmaxf(t, Ulo[q]), Uhi[q]);
+    const T t = hal((alpha * us[i0 * k + e] + om * p.wbox[q]) + p.ubox[q], p.hbox, q);
+    const T w = fmin(fmax(t, Ulo[q]), Uhi[q]);
     p.wbox[q] = w;
     p.ubox[q] = t - w;
   }
@@ -369,19 +383,19 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
 
   // ---- SOC slots (1, U_j): the band's entries, and the heads on rank 0
   for (int j = 0; j < k; ++j) {
-    const float tt = ts0[j], nj = (float)sqrt(tot[1 + L + j]);
+    const T tt = ts0[j], nj = (T)sqrt(tot[1 + L + j]);
     const bool inside = nj <= tt, polar = nj <= -tt;
-    const float scale = nj > 0.f ? 0.5f * (1.0f + tt / nj) : 0.f;
+    const T scale = nj > T(0) ? T(0.5) * (T(1) + tt / nj) : T(0);
     for (int ii = tid; ii < nb; ii += blockDim.x) {
       const int q = j * (1 + n) + 1 + i0 + ii;
-      const float t = tsb[j * nb + ii];
-      const float w = inside ? t : (polar ? 0.f : scale * t);
+      const T t = tsb[j * nb + ii];
+      const T w = inside ? t : (polar ? T(0) : scale * t);
       wsoc[q] = w;
       usoc[q] = t - w;
     }
     if (rank == 0 && tid == 0) {
       const int q = j * (1 + n);
-      const float w = inside ? tt : (polar ? 0.f : 0.5f * (tt + nj));
+      const T w = inside ? tt : (polar ? T(0) : T(0.5) * (tt + nj));
       wsoc[q] = w;
       usoc[q] = tt - w;
     }
@@ -390,25 +404,25 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     // the slots as staged, or in place where they did not fit
     const bool stg = p.slsmem;
     const size_t qk = (size_t)b * Lk, ql = (size_t)b * L;
-    const float* wa0 = stg ? sl : p.wa + qk;
-    const float* ua0 = stg ? sl + Lk : p.ua + qk;
-    const float* wb0 = stg ? sl + 2 * Lk : p.wb + qk;
-    const float* ub0 = stg ? sl + 3 * Lk : p.ub + qk;
-    const float* aa0 = stg ? sl + 4 * Lk : p.acc_a + qk;
-    const float* ab0 = stg ? sl + 5 * Lk : p.acc_b + qk;
-    const float* lo_ = stg ? sl + 6 * Lk : p.cut_lo + qk;
-    const float* hi_ = stg ? sl + 7 * Lk : p.cut_hi + qk;
-    const float* wc0 = stg ? sl + 8 * Lk : p.wc + ql;
-    const float* uc0 = stg ? sl + 8 * Lk + L : p.uc + ql;
-    const float* ac0 = stg ? sl + 8 * Lk + 2 * L : p.acc_c + ql;
-    const float* cm = stg ? sl + 8 * Lk + 3 * L : p.cut_mask + ql;
+    const T* wa0 = stg ? sl : p.wa + qk;
+    const T* ua0 = stg ? sl + Lk : p.ua + qk;
+    const T* wb0 = stg ? sl + 2 * Lk : p.wb + qk;
+    const T* ub0 = stg ? sl + 3 * Lk : p.ub + qk;
+    const T* aa0 = stg ? sl + 4 * Lk : p.acc_a + qk;
+    const T* ab0 = stg ? sl + 5 * Lk : p.acc_b + qk;
+    const T* lo_ = stg ? sl + 6 * Lk : p.cut_lo + qk;
+    const T* hi_ = stg ? sl + 7 * Lk : p.cut_hi + qk;
+    const T* wc0 = stg ? sl + 8 * Lk : p.wc + ql;
+    const T* uc0 = stg ? sl + 8 * Lk + L : p.uc + ql;
+    const T* ac0 = stg ? sl + 8 * Lk + 2 * L : p.acc_c + ql;
+    const T* cm = stg ? sl + 8 * Lk + 3 * L : p.cut_mask + ql;
     // ---- trace slot
     if (tid == 0) {
-      const float tr_y = (float)tot[0];
-      const float w40 = stg ? sl[8 * Lk + 4 * L] : p.w4[b];
-      const float u40 = stg ? sl[8 * Lk + 4 * L + 1] : p.u4[b];
-      const float t4 = hal((alpha * ((float)k - tr_y) + om * w40) + u40, p.h4, b);
-      const float w4 = fmaxf(t4, 0.f);
+      const T tr_y = (T)tot[0];
+      const T w40 = stg ? sl[8 * Lk + 4 * L] : p.w4[b];
+      const T u40 = stg ? sl[8 * Lk + 4 * L + 1] : p.u4[b];
+      const T t4 = hal((alpha * ((T)k - tr_y) + om * w40) + u40, p.h4, b);
+      const T w4 = fmax(t4, T(0));
       p.w4[b] = w4;
       p.u4[b] = t4 - w4;
     }
@@ -416,33 +430,33 @@ __global__ void __launch_bounds__(omc::kThreads, 2) k3_kernel(K3Params p) {
     const double* v = tot + 1 + L + k;
     for (int e = tid; e < Lk; e += blockDim.x) {
       const size_t q = qk + e;
-      const float lo = lo_[e], hi = hi_[e], c = cm[e / k], ve = (float)v[e];
-      const float ta = hal((alpha * (ve - lo) + om * wa0[e]) + ua0[e], p.ha, q);
-      const float wa = fmaxf(ta, 0.f), ua = (ta - wa) * c;
-      const float aa = aa0[e];
+      const T lo = lo_[e], hi = hi_[e], c = cm[e / k], ve = (T)v[e];
+      const T ta = hal((alpha * (ve - lo) + om * wa0[e]) + ua0[e], p.ha, q);
+      const T wa = fmax(ta, T(0)), ua = (ta - wa) * c;
+      const T aa = aa0[e];
       p.wa[q] = wa;
       p.ua[q] = ua;
       p.acc_a[q] = aa + p.beta * (rho * ua - aa);
-      const float tb = hal((alpha * (hi - ve) + om * wb0[e]) + ub0[e], p.hb, q);
-      const float wb = fmaxf(tb, 0.f), ub = (tb - wb) * c;
-      const float ab = ab0[e];
+      const T tb = hal((alpha * (hi - ve) + om * wb0[e]) + ub0[e], p.hb, q);
+      const T wb = fmax(tb, T(0)), ub = (tb - wb) * c;
+      const T ab = ab0[e];
       p.wb[q] = wb;
       p.ub[q] = ub;
       p.acc_b[q] = ab + p.beta * (rho * ub - ab);
     }
     // chord slots
     for (int l = tid; l < L; l += blockDim.x) {
-      float cv = 0.f, bc = 0.f;
+      T cv = T(0), bc = T(0);
       for (int j = 0; j < k; ++j) {
-        const float lo = lo_[l * k + j], hi = hi_[l * k + j];
-        cv += (lo + hi) * (float)v[l * k + j];
+        const T lo = lo_[l * k + j], hi = hi_[l * k + j];
+        cv += (lo + hi) * (T)v[l * k + j];
         bc += -lo * hi;
       }
-      const float f = cv + bc - (float)tot[1 + l];
+      const T f = cv + bc - (T)tot[1 + l];
       const size_t q = ql + l;
-      const float tc = hal((alpha * f + om * wc0[l]) + uc0[l], p.hc, q);
-      const float wc = fmaxf(tc, 0.f), uc = (tc - wc) * cm[l];
-      const float ac = ac0[l];
+      const T tc = hal((alpha * f + om * wc0[l]) + uc0[l], p.hc, q);
+      const T wc = fmax(tc, T(0)), uc = (tc - wc) * cm[l];
+      const T ac = ac0[l];
       p.wc[q] = wc;
       p.uc[q] = uc;
       p.acc_c[q] = ac + p.beta * (rho * uc - ac);
@@ -456,11 +470,11 @@ int fail(cudaError_t err) {
   return (int)err;
 }
 
-template <bool kWs, bool kHal>
-int launch(const K3Params& p, cudaStream_t stream) {
+template <class T, bool kWs, bool kHal>
+int launch(const K3ParamsT<T>& p, cudaStream_t stream) {
   static int smem_attr = -1;
   static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
-  const int smem = (int)k3_smem(p.n, p.m, p.k, p.L, p.C, p.xsmem, p.slsmem, kWs).bytes;
+  const int smem = (int)k3_smem(p.n, p.m, p.k, p.L, p.C, p.xsmem, p.slsmem, kWs, sizeof(T)).bytes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.C * p.B, 1, 1);
   cfg.blockDim = dim3(omc::kThreads, 1, 1);
@@ -475,34 +489,35 @@ int launch(const K3Params& p, cudaStream_t stream) {
   cfg.numAttrs = 1;
   cudaError_t err;
   if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
-    err = cudaFuncSetAttribute(k3_kernel<kWs, kHal>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(k3_kernel<T, kWs, kHal>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return fail(err);
     smem_attr = 0;
   }
   if (smem > smem_attr) {
-    err = cudaFuncSetAttribute(k3_kernel<kWs, kHal>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(k3_kernel<T, kWs, kHal>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return fail(err);
     smem_attr = smem;
   }
   if (smem > schedulable[p.C]) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k3_kernel<kWs, kHal>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k3_kernel<T, kWs, kHal>, &cfg);
     if (err != cudaSuccess) return fail(err);
     if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
     schedulable[p.C] = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, k3_kernel<kWs, kHal>, p);
+  err = cudaLaunchKernelEx(&cfg, k3_kernel<T, kWs, kHal>, p);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// the shared memory omc_torch.sdp.admm.k2k3_plan plans with (chip_smoke.py
-// holds the plan against it at every K3 row)
+// the shared memory omc_torch.sdp.admm.k2k3_plan plans with, at elem bytes
+// a value (4, or 8 for the float64 build; chip_smoke.py holds the plan
+// against it at every K3 row)
 OMC_EXPORT long long omc_k3_smem_bytes(int n, int m, int k, int L, int C, int xsmem,
-                                       int slsmem, int ws) {
-  return (long long)k3_smem(n, m, k, L, C, xsmem, slsmem, ws).bytes;
+                                       int slsmem, int ws, int elem) {
+  return (long long)k3_smem(n, m, k, L, C, xsmem, slsmem, ws, elem).bytes;
 }
 
 // the doubles of global workspace a slot takes where the partials live
@@ -511,8 +526,8 @@ OMC_EXPORT long long omc_k3_ws_doubles(int n, int m, int k, int L, int C) {
   return (long long)k3_smem(n, m, k, L, C, 0, 0, 1).wss;
 }
 
-OMC_EXPORT int omc_k3_cone(const K3Params* params, void* stream) {
-  const K3Params& p = *params;
+template <class T>
+int k3_entry(const K3ParamsT<T>& p, void* stream) {
   if (p.C < 1 || p.C > 16 || p.B < 1 || p.n < 1 || p.m < 1 || p.k < 1 || p.L < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -520,6 +535,15 @@ OMC_EXPORT int omc_k3_cone(const K3Params* params, void* stream) {
   if (hal && (!p.h2 || !p.h3 || !p.h4 || !p.hsoc || !p.hbox || !p.ha || !p.hb || !p.hc ||
               p.hal_it < 0))
     return (int)cudaErrorInvalidValue;
-  if (p.ws) return hal ? launch<true, true>(p, st) : launch<true, false>(p, st);
-  return hal ? launch<false, true>(p, st) : launch<false, false>(p, st);
+  if (p.ws) return hal ? launch<T, true, true>(p, st) : launch<T, true, false>(p, st);
+  return hal ? launch<T, false, true>(p, st) : launch<T, false, false>(p, st);
+}
+
+OMC_EXPORT int omc_k3_cone(const K3Params* params, void* stream) {
+  return k3_entry(*params, stream);
+}
+
+// the float64 build: double operands and outputs
+OMC_EXPORT int omc_k3_cone_f64(const K3ParamsT<double>* params, void* stream) {
+  return k3_entry(*params, stream);
 }

@@ -83,6 +83,7 @@
 // other CTAs wrote is read through L2 (cp.async.cg, __ldcg).
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -101,52 +102,59 @@ __host__ __device__ inline size_t head_floats(int d) {
 }
 
 // the shared memory of one CTA-path launch, or 0 when A (and V) do not fit
+// (every slot of the head and of A and V is one element of T: 4 bytes, or
+// 8 in the float64 build, which so takes d up to 118 with vectors and 167
+// without)
+template <class T>
 __host__ inline size_t cta_smem_bytes(int d, int mode) {
   const size_t mat = (size_t)d * ld_of(d);
-  const size_t bytes = (head_floats(d) + mat * (mode != 0 ? 2 : 1)) * sizeof(float);
+  const size_t bytes = (head_floats(d) + mat * (mode != 0 ? 2 : 1)) * sizeof(T);
   return bytes <= kSmemBytes ? bytes : 0;
 }
 
 // kSep: K5 (A = sym(U U' - Y)); a template argument so that a profile
-// tells the two apart
-template <bool kSep>
-__global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
-  extern __shared__ float smem[];
+// tells the two apart.  T: float, or double (the float64 build: the same
+// schedule, rotation and stopping rule at double's epsilon)
+template <bool kSep, class T>
+__global__ void __launch_bounds__(512) k4_kernel(K4ParamsT<T> p) {
+  extern __shared__ __align__(16) unsigned char k4_smem_raw[];
+  T* const smem = reinterpret_cast<T*>(k4_smem_raw);
   const int b = blockIdx.x, d = p.d, ld = ld_of(d);
   const int P = (d + 1) / 2, N = 2 * P;
   const int tid = threadIdx.x, nt = blockDim.x;
-  float* pt = smem;
-  float* ps = pt + P;
-  float* pr = ps + P;
+  T* pt = smem;
+  T* ps = pt + P;
+  T* pr = ps + P;
+  // the ints take slots of T (the same offsets as floats in the float build)
   int* pp = reinterpret_cast<int*>(pr + P);
-  int* pq = pp + P;
-  int* prot = pq + P;
-  float* red = reinterpret_cast<float*>(prot + P);
-  float* wd = red + 32;   // diagonal at the end
-  float* wp = wd + d;     // sorted eigenvalues, clamped at 0 (mode 1)
+  int* pq = reinterpret_cast<int*>(pr + 2 * P);
+  int* prot = reinterpret_cast<int*>(pr + 3 * P);
+  T* red = pr + 4 * P;
+  T* wd = red + 32;   // diagonal at the end
+  T* wp = wd + d;     // sorted eigenvalues, clamped at 0 (mode 1)
   int* order = reinterpret_cast<int*>(wp + d);
-  int* first = order + d;
-  float* A = reinterpret_cast<float*>(first + 1);
-  float* V = p.mode != 0 ? A + (size_t)d * ld : nullptr;
+  int* first = reinterpret_cast<int*>(wp + 2 * d);
+  T* A = wp + 2 * d + 1;
+  T* V = p.mode != 0 ? A + (size_t)d * ld : nullptr;
 
   // ---- load: A = sym(M), or sym(U U' - Y); V = I ----
-  float ss = 0.f;
+  T ss = 0;
   if (!kSep) {
-    const float* Mb = p.M + (size_t)b * d * d;
+    const T* Mb = p.M + (size_t)b * d * d;
     for (int e = tid; e < d * d; e += nt) {
       const int i = e / d, j = e - i * d;
-      const float v = 0.5f * (Mb[i * d + j] + Mb[j * d + i]);
+      const T v = T(0.5) * (Mb[i * d + j] + Mb[j * d + i]);
       A[i * ld + j] = v;
       ss += v * v;
     }
   } else {
-    const float* Ub = p.U + (size_t)b * d * p.k;
-    const float* Yb = p.Y + (size_t)b * d * d;
+    const T* Ub = p.U + (size_t)b * d * p.k;
+    const T* Yb = p.Y + (size_t)b * d * d;
     for (int e = tid; e < d * d; e += nt) {
       const int i = e / d, j = e - i * d;
-      float uu = 0.f;
-      for (int l = 0; l < p.k; ++l) uu = fmaf(Ub[i * p.k + l], Ub[j * p.k + l], uu);
-      const float v = uu - 0.5f * (Yb[i * d + j] + Yb[j * d + i]);
+      T uu = 0;
+      for (int l = 0; l < p.k; ++l) uu = fma(Ub[i * p.k + l], Ub[j * p.k + l], uu);
+      const T v = uu - T(0.5) * (Yb[i * d + j] + Yb[j * d + i]);
       A[i * ld + j] = v;
       ss += v * v;
     }
@@ -154,10 +162,10 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
   if (V)
     for (int e = tid; e < d * d; e += nt) {
       const int i = e / d, j = e - i * d;
-      V[i * ld + j] = i == j ? 1.f : 0.f;
+      V[i * ld + j] = i == j ? T(1) : T(0);
     }
-  const float normF = sqrtf(omc::block_sum(ss, red));  // (contains barriers)
-  const float floor_ = omc::jacobi_floor(normF, d);
+  const T normF = sqrt(omc::block_sum(ss, red));  // (contains barriers)
+  const T floor_ = omc::jacobi_floor(normF, d);
 
   // ---- sweeps ----
   int sweep = 1;
@@ -170,7 +178,7 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
         const int y = a == 0 ? r : (r - a + N - 1) % (N - 1);
         const int pi = min(x, y);
         int qi = max(x, y);
-        float t = 0.f, s = 0.f, rr = 0.f;
+        T t = 0, s = 0, rr = 0;
         int rot = 0;
         if (qi < d) {
           rot = omc::jacobi_rotation(A[pi * ld + pi], A[qi * ld + qi], A[pi * ld + qi],
@@ -178,9 +186,9 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
         } else {
           qi = -1;  // the bye
         }
-        pt[a] = rot ? t : 0.f;
-        ps[a] = rot ? s : 0.f;
-        pr[a] = rot ? rr : 0.f;
+        pt[a] = rot ? t : T(0);
+        ps[a] = rot ? s : T(0);
+        pr[a] = rot ? rr : T(0);
         pp[a] = pi;
         pq[a] = qi;
         prot[a] = rot;
@@ -194,18 +202,18 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
         if (a > c || !(prot[a] | prot[c])) continue;
         const int pa = pp[a], qa = pq[a];
         if (a == c) {  // the rotated pair's own block: diagonal exactly
-          const float t = pt[a], apq = A[pa * ld + qa];
+          const T t = pt[a], apq = A[pa * ld + qa];
           A[pa * ld + pa] -= t * apq;
           A[qa * ld + qa] += t * apq;
-          A[pa * ld + qa] = 0.f;
-          A[qa * ld + pa] = 0.f;
+          A[pa * ld + qa] = 0;
+          A[qa * ld + pa] = 0;
           continue;
         }
         const int pc = pp[c], qc = pq[c];
-        float x00 = A[pa * ld + pc];
-        float x01 = qc >= 0 ? A[pa * ld + qc] : 0.f;
-        float x10 = qa >= 0 ? A[qa * ld + pc] : 0.f;
-        float x11 = (qa >= 0 && qc >= 0) ? A[qa * ld + qc] : 0.f;
+        T x00 = A[pa * ld + pc];
+        T x01 = qc >= 0 ? A[pa * ld + qc] : T(0);
+        T x10 = qa >= 0 ? A[qa * ld + pc] : T(0);
+        T x11 = (qa >= 0 && qc >= 0) ? A[qa * ld + qc] : T(0);
         if (prot[a]) {  // rows p_a, q_a
           omc::jacobi_rot(x00, x10, ps[a], pr[a]);
           omc::jacobi_rot(x01, x11, ps[a], pr[a]);
@@ -244,42 +252,42 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
   for (int i = tid; i < d; i += nt) wd[i] = A[i * ld + i];
   __syncthreads();
   for (int i = tid; i < d; i += nt) {
-    const float ki = isnan(wd[i]) ? __int_as_float(0x7f800000) : wd[i];
+    const T ki = isnan(wd[i]) ? omc::inf_of(T(0)) : wd[i];
     int rank = 0;
     for (int j = 0; j < d; ++j) {
-      const float kj = isnan(wd[j]) ? __int_as_float(0x7f800000) : wd[j];
+      const T kj = isnan(wd[j]) ? omc::inf_of(T(0)) : wd[j];
       rank += (kj < ki) || (kj == ki && j < i);
     }
     order[rank] = i;
   }
   __syncthreads();
   const bool bad = !isfinite(normF);  // a non-finite input gives NaN out
-  const float qnan = __int_as_float(0x7fffffff);
+  const T qnan = omc::qnan_of(T(0));
   if (tid == 0) p.sweeps[b] = sweep;
 
   if (p.mode == 1) {
     // P = V max(w, 0) V' over the positive (and NaN) eigenvalues, which the
     // sort put last
     for (int r = tid; r < d; r += nt) {
-      const float w = wd[order[r]];
-      wp[r] = bad ? qnan : (w > 0.f ? w : (isnan(w) ? w : 0.f));
+      const T w = wd[order[r]];
+      wp[r] = bad ? qnan : (w > T(0) ? w : (isnan(w) ? w : T(0)));
     }
     __syncthreads();
     if (tid == 0) {
       int f = d;
-      while (f > 0 && wp[f - 1] != 0.f) --f;
+      while (f > 0 && wp[f - 1] != T(0)) --f;
       *first = f;
     }
     __syncthreads();
     const int f = *first;
-    float* Pb = p.P + (size_t)b * d * d;
+    T* Pb = p.P + (size_t)b * d * d;
     for (int e = tid; e < d * d; e += nt) {
       const int i = e / d, j = e - i * d;
       if (j < i) continue;
-      float acc = 0.f;
+      T acc = 0;
       for (int r = f; r < d; ++r) {
         const int o = order[r];
-        acc = fmaf(V[i * ld + o] * wp[r], V[j * ld + o], acc);
+        acc = fma(V[i * ld + o] * wp[r], V[j * ld + o], acc);
       }
       Pb[i * d + j] = acc;
       Pb[j * d + i] = acc;
@@ -289,7 +297,7 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
   const int nout = p.nout;
   for (int r = tid; r < nout; r += nt) p.w[(size_t)b * nout + r] = bad ? qnan : wd[order[r]];
   if (p.mode == 2) {
-    float* Vb = p.V + (size_t)b * d * nout;
+    T* Vb = p.V + (size_t)b * d * nout;
     for (int e = tid; e < d * nout; e += nt) {
       const int i = e / nout, r = e - i * nout;
       Vb[e] = bad ? qnan : V[i * ld + order[r]];
@@ -297,13 +305,13 @@ __global__ void __launch_bounds__(512) k4_kernel(K4Params p) {
   }
 }
 
-template <bool kSep>
-int launch_k4(const K4Params& p, size_t smem, void* stream) {
+template <bool kSep, class T>
+int launch_k4(const K4ParamsT<T>& p, size_t smem, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      k4_kernel<kSep>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      k4_kernel<kSep, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = p.d <= 32 ? 128 : (p.d <= 64 ? 256 : 512);
-  k4_kernel<kSep><<<p.B, threads, smem, (cudaStream_t)stream>>>(p);
+  k4_kernel<kSep, T><<<p.B, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -348,18 +356,37 @@ struct BGeom {
   __host__ __device__ int tiles(int mode) const { return a_tiles() + (mode ? P * P : 0); }
 };
 
-template <int W>
+// T: the element type of A, V, E and the tiles (float; double in the
+// float64 build, whose tile products are FP64 FMAs)
+template <int W, class T = float>
 struct BCfg {
   static constexpr int N2 = 2 * W;
   static constexpr int L = N2 + 4;  // smem row stride: fragment loads hit 32 banks
   static constexpr int TILE = N2 * L;
   static constexpr int WARPS = 8;
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr size_t SMEM = (size_t)WARPS * 3 * TILE * sizeof(float);
+  static constexpr int VW = 16 / sizeof(T);  // elements of a 16-byte copy
+  static constexpr size_t SMEM = (size_t)WARPS * 3 * TILE * sizeof(T);
   // phase 1 in a warp's three tiles: the subproblem in float64 (row stride
   // N2 + 1), E, and the round's rotations (s, r, p, q, rot)
-  static_assert(2 * N2 * (N2 + 1) + TILE + 5 * W <= 3 * TILE, "phase 1 does not fit");
+  static_assert(8 * N2 * (N2 + 1) + sizeof(T) * (TILE + 5 * W) <= sizeof(T) * 3 * TILE,
+                "phase 1 does not fit");
 };
+
+// 16 bytes of T: a float4 or a double2, unpacked and packed
+__device__ __forceinline__ void unpack16(const float4& v, float* o) {
+  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+}
+__device__ __forceinline__ void unpack16(const double2& v, double* o) { o[0] = v.x, o[1] = v.y; }
+__device__ __forceinline__ float4 pack16(const float* o) { return make_float4(o[0], o[1], o[2], o[3]); }
+__device__ __forceinline__ double2 pack16(const double* o) { return make_double2(o[0], o[1]); }
+template <class T>
+using Vec16 = typename std::conditional<sizeof(T) == 8, double2, float4>::type;
+
+// the bits kept of ||A||_F: only whether it is finite is read back (as a
+// float), so the float64 build keeps 0 or the bits of +inf
+__device__ __forceinline__ int norm_bits(float x) { return __float_as_int(x); }
+__device__ __forceinline__ int norm_bits(double x) { return isfinite(x) ? 0 : 0x7f800000; }
 
 // pair c of round q of the round robin over N players (pi < qi): the
 // block pairs of an outer round (N = Nb; qi == nb is the bye) and the index
@@ -460,9 +487,33 @@ __device__ __forceinline__ void tile_update(const float* src, const float* A, co
   __syncwarp();
 }
 
+// The float64 build's tile update, in FP64 FMAs: lane c forms column c of
+// the product, every row, summed in order of k (N2 = 32 columns, one a
+// lane), held in registers until every lane has read its operands.
+template <int W, bool kTA>
+__device__ __forceinline__ void tile_update(const double* src, const double* A, const double* Bm,
+                                            double* dst) {
+  constexpr int N2 = BCfg<W, double>::N2, L = BCfg<W, double>::L;
+  static_assert(N2 == 32, "a lane a column");
+  const int c = threadIdx.x & 31;
+  double out[N2];
+#pragma unroll
+  for (int i = 0; i < N2; ++i) out[i] = 0.0;
+#pragma unroll 4
+  for (int k = 0; k < N2; ++k) {
+    const double b = Bm[k * L + c];
+#pragma unroll
+    for (int i = 0; i < N2; ++i) out[i] = fma(kTA ? A[k * L + i] : A[i * L + k], b, out[i]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < N2; ++i) dst[i * L + c] = src[i * L + c] + out[i];
+  __syncwarp();
+}
+
 // ---- tiles between global memory and a warp's shared memory ----
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
 }
@@ -500,13 +551,13 @@ __device__ __forceinline__ Group warp_group() { return {(int)(threadIdx.x & 31),
 // two W-row segments starting at r[0], r[1] and whose columns the two
 // W-column segments starting at c[0], c[1], into shared memory (stride L),
 // copied by the group's threads
-template <int W>
-__device__ __forceinline__ void tile_load(float* dst, const float* src, size_t ld,
+template <int W, class T>
+__device__ __forceinline__ void tile_load(T* dst, const T* src, size_t ld,
                                           const int (&r)[2], const int (&c)[2],
                                           const Group& gr) {
-  constexpr int N2 = BCfg<W>::N2, L = BCfg<W>::L, Q = N2 / 4;
+  constexpr int N2 = BCfg<W, T>::N2, L = BCfg<W, T>::L, VW = BCfg<W, T>::VW, Q = N2 / VW;
   for (int e = gr.tid; e < N2 * Q; e += gr.nt) {
-    const int i = e / Q, j = 4 * (e - i * Q);
+    const int i = e / Q, j = VW * (e - i * Q);
     const size_t gi = r[i / W] + i % W, gj = c[j / W] + j % W;
     cp_async16(dst + i * L + j, src + gi * ld + gj);
   }
@@ -517,37 +568,39 @@ __device__ __forceinline__ void tile_wait(const Group& gr) {
 }
 
 // the tile back (and, kMirror, its transpose at rows c, columns r)
-template <int W, bool kMirror>
-__device__ __forceinline__ void tile_store(float* dst, const float* src, size_t ld,
+template <int W, bool kMirror, class T>
+__device__ __forceinline__ void tile_store(T* dst, const T* src, size_t ld,
                                            const int (&r)[2], const int (&c)[2],
                                            const Group& gr) {
-  constexpr int N2 = BCfg<W>::N2, L = BCfg<W>::L, Q = N2 / 4;
+  constexpr int N2 = BCfg<W, T>::N2, L = BCfg<W, T>::L, VW = BCfg<W, T>::VW, Q = N2 / VW;
   for (int e = gr.tid; e < N2 * Q; e += gr.nt) {
-    const int i = e / Q, j = 4 * (e - i * Q);
+    const int i = e / Q, j = VW * (e - i * Q);
     const size_t gi = r[i / W] + i % W, gj = c[j / W] + j % W;
-    *reinterpret_cast<float4*>(dst + gi * ld + gj) =
-        *reinterpret_cast<const float4*>(src + i * L + j);
+    *reinterpret_cast<Vec16<T>*>(dst + gi * ld + gj) =
+        *reinterpret_cast<const Vec16<T>*>(src + i * L + j);
     if (kMirror) {  // row i of the transpose: column i of the tile
       const size_t ti = c[i / W] + i % W, tj = r[j / W] + j % W;
-      *reinterpret_cast<float4*>(dst + ti * ld + tj) =
-          make_float4(src[j * L + i], src[(j + 1) * L + i], src[(j + 2) * L + i],
-                      src[(j + 3) * L + i]);
+      T col[VW];
+#pragma unroll
+      for (int q = 0; q < VW; ++q) col[q] = src[(j + q) * L + i];
+      *reinterpret_cast<Vec16<T>*>(dst + ti * ld + tj) = pack16(col);
     }
   }
 }
 
 // ---- the kernel ----
 
+template <class T>
 struct BView {
-  const K4Params& p;
+  const K4ParamsT<T>& p;
   const BGeom& g;
-  __device__ float* mat(int b) const { return p.work + kCtl + (size_t)b * g.mat_floats; }
-  __device__ float* A(int b) const { return mat(b); }
-  __device__ float* V(int b) const { return mat(b) + g.v_off; }
-  __device__ float* E(int b, int a) const {
+  __device__ T* mat(int b) const { return p.work + kCtl + (size_t)b * g.mat_floats; }
+  __device__ T* A(int b) const { return mat(b); }
+  __device__ T* V(int b) const { return mat(b) + g.v_off; }
+  __device__ T* E(int b, int a) const {
     return mat(b) + g.e_off + (size_t)a * g.N2 * g.N2;
   }
-  __device__ float* ss(int b) const { return mat(b) + g.ss_off; }
+  __device__ T* ss(int b) const { return mat(b) + g.ss_off; }
   __device__ int* flags(int b) const { return reinterpret_cast<int*>(mat(b) + g.fl_off); }
   // flags: [0, P) rotated per pair, P converged sweep, P + 1 + (s & 1)
   // rotated this sweep, P + 3 the bits of ||A||_F
@@ -586,32 +639,32 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
 
 // load: A = sym(M) (or sym(U U' - Y)) padded with zero rows and columns to
 // D, V = I on the d real indices, each row's sum of squares; one warp a row
-template <bool kSep>
-__device__ void blk_load(const BView& v, int gw, int nw) {
-  const K4Params& p = v.p;
+template <bool kSep, class T>
+__device__ void blk_load(const BView<T>& v, int gw, int nw) {
+  const K4ParamsT<T>& p = v.p;
   const int d = v.g.d, D = v.g.D, lane = threadIdx.x & 31;
   for (long long it = gw; it < (long long)p.B * D; it += nw) {
     const int b = (int)(it / D), i = (int)(it - (long long)b * D);
-    float* A = v.A(b) + (size_t)i * D;
-    float* V = p.mode ? v.V(b) + (size_t)i * D : nullptr;
-    float ss = 0.f;
+    T* A = v.A(b) + (size_t)i * D;
+    T* V = p.mode ? v.V(b) + (size_t)i * D : nullptr;
+    T ss = 0;
     for (int j = lane; j < D; j += 32) {
-      float x = 0.f;
+      T x = 0;
       if (i < d && j < d) {
         if (!kSep) {
-          const float* Mb = p.M + (size_t)b * d * d;
-          x = 0.5f * (Mb[(size_t)i * d + j] + Mb[(size_t)j * d + i]);
+          const T* Mb = p.M + (size_t)b * d * d;
+          x = T(0.5) * (Mb[(size_t)i * d + j] + Mb[(size_t)j * d + i]);
         } else {
-          const float* Ub = p.U + (size_t)b * d * p.k;
-          const float* Yb = p.Y + (size_t)b * d * d;
-          float uu = 0.f;
-          for (int l = 0; l < p.k; ++l) uu = fmaf(Ub[i * p.k + l], Ub[j * p.k + l], uu);
-          x = uu - 0.5f * (Yb[(size_t)i * d + j] + Yb[(size_t)j * d + i]);
+          const T* Ub = p.U + (size_t)b * d * p.k;
+          const T* Yb = p.Y + (size_t)b * d * d;
+          T uu = 0;
+          for (int l = 0; l < p.k; ++l) uu = fma(Ub[i * p.k + l], Ub[j * p.k + l], uu);
+          x = uu - T(0.5) * (Yb[(size_t)i * d + j] + Yb[(size_t)j * d + i]);
         }
       }
       A[j] = x;
       ss += x * x;
-      if (V) V[j] = (i == j && i < d) ? 1.f : 0.f;
+      if (V) V[j] = (i == j && i < d) ? T(1) : T(0);
     }
     ss = omc::warp_sum(ss);
     if (lane == 0) {
@@ -634,22 +687,23 @@ __device__ __forceinline__ void jacobi_rot_d(double& x, double& y, double s, dou
 // phase 1 of round r of sweep s: every active pair's inner sweep, one
 // group of G warps a pair (the group's shared memory is its first warp's:
 // the subproblem in float64, E in float32, the round's rotations)
-template <int W>
-__device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, float* smem) {
-  constexpr int N2 = BCfg<W>::N2, L = BCfg<W>::L, LS = N2 + 1, H = W;
-  const K4Params p = vin.p;  // the caller's are in local memory
+template <int W, class T>
+__device__ __noinline__ void blk_phase1(const BView<T>& vin, int s, int r, int G, T* smem) {
+  using Cfg = BCfg<W, T>;
+  constexpr int N2 = Cfg::N2, L = Cfg::L, LS = N2 + 1, H = W, VW = Cfg::VW;
+  const K4ParamsT<T> p = vin.p;  // the caller's are in local memory
   const BGeom g = vin.g;
-  const BView v{p, g};
+  const BView<T> v{p, g};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, d = g.d;
-  const int per_cta = BCfg<W>::WARPS / G;
+  const int per_cta = Cfg::WARPS / G;
   const Group gr{(int)threadIdx.x - (warp / G) * G * 32, 32 * G, G == 1 ? 0 : 1 + warp / G};
-  double* S = reinterpret_cast<double*>(smem + (size_t)(warp / G) * G * 3 * BCfg<W>::TILE);
-  float* E = reinterpret_cast<float*>(S + N2 * LS);
-  float* ps = E + BCfg<W>::TILE;  // per pair of the inner round: s, r, p, q, rot
-  float* pr = ps + H;
+  double* S = reinterpret_cast<double*>(smem + (size_t)(warp / G) * G * 3 * Cfg::TILE);
+  T* E = reinterpret_cast<T*>(S + N2 * LS);
+  T* ps = E + Cfg::TILE;  // per pair of the inner round: s, r, p, q, rot
+  T* pr = ps + H;
   int* pp = reinterpret_cast<int*>(pr + H);
-  int* pq = pp + H;
-  int* prot = pq + H;
+  int* pq = reinterpret_cast<int*>(pr + 2 * H);
+  int* prot = reinterpret_cast<int*>(pr + 3 * H);
   for (long long it = blockIdx.x * per_cta + warp / G; it < (long long)v.p.B * g.P;
        it += (long long)gridDim.x * per_cta) {
     const int b = (int)(it / g.P), a = (int)(it - (long long)b * g.P);
@@ -658,22 +712,21 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
       if (gr.tid == 0) f[a] = 0;
       continue;
     }
-    float ss = 0.f;  // every warp sums all rows, in the same order
+    T ss = 0;  // every warp sums all rows, in the same order
     for (int i = lane; i < g.D; i += 32) ss += __ldcg(v.ss(b) + i);
-    const float normF = sqrtf(omc::warp_sum(ss));
-    const float floor_ = omc::jacobi_floor(normF, d);
-    if (gr.tid == 0 && s == 1 && r == 0 && a == 0) f[g.P + 3] = __float_as_int(normF);
+    const T normF = sqrt(omc::warp_sum(ss));
+    const T floor_ = omc::jacobi_floor(normF, d);
+    if (gr.tid == 0 && s == 1 && r == 0 && a == 0) f[g.P + 3] = norm_bits(normF);
     int I, J;
     rr_pair(r, a, g.Nb, I, J);
-    float* Ab = v.A(b);
+    T* Ab = v.A(b);
     auto gidx = [&](int l) { return l < W ? I * W + l : J * W + l - W; };
-    for (int e = gr.tid; e < N2 * N2 / 4; e += gr.nt) {
-      const int i = e / (N2 / 4), j = 4 * (e - i * (N2 / 4));
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(Ab + (size_t)gidx(i) * g.D + gidx(j)));
-      S[i * LS + j] = x.x;
-      S[i * LS + j + 1] = x.y;
-      S[i * LS + j + 2] = x.z;
-      S[i * LS + j + 3] = x.w;
+    for (int e = gr.tid; e < N2 * N2 / VW; e += gr.nt) {
+      const int i = e / (N2 / VW), j = VW * (e - i * (N2 / VW));
+      T x[VW];
+      unpack16(__ldcg(reinterpret_cast<const Vec16<T>*>(Ab + (size_t)gidx(i) * g.D + gidx(j))), x);
+#pragma unroll
+      for (int q = 0; q < VW; ++q) S[i * LS + j + q] = x[q];
     }
     gr.sync();
     auto valid = [&](int l) { return gidx(l) < d; };
@@ -682,9 +735,9 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
     for (int e = gr.tid; e < N2 * N2; e += gr.nt) {
       const int i = e / N2, j = e - i * N2;
       if (i < j && valid(i) && valid(j)) {
-        float t, s_, rr;
-        need |= omc::jacobi_rotation((float)S[i * LS + i], (float)S[j * LS + j],
-                                     (float)S[i * LS + j], floor_, t, s_, rr);
+        T t, s_, rr;
+        need |= omc::jacobi_rotation((T)S[i * LS + i], (T)S[j * LS + j], (T)S[i * LS + j],
+                                     floor_, t, s_, rr);
       }
     }
     if (!gr.any(need)) {
@@ -693,7 +746,7 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
     }
     for (int e = gr.tid; e < N2 * N2; e += gr.nt) {
       const int i = e / N2, j = e - i * N2;
-      E[i * L + j] = 0.f;
+      E[i * L + j] = 0;
     }
     // one sweep of the scalar schedule over the 2W local indices
     for (int q = 0; q < N2 - 1; ++q) {
@@ -701,13 +754,13 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
       for (int c = gr.tid; c < H; c += gr.nt) {
         int pi, qi;
         rr_pair(q, c, N2, pi, qi);
-        float t = 0.f, s_ = 0.f, rr = 0.f;
+        T t = 0, s_ = 0, rr = 0;
         int rot = 0;
         if (valid(pi) && valid(qi))
-          rot = omc::jacobi_rotation((float)S[pi * LS + pi], (float)S[qi * LS + qi],
-                                     (float)S[pi * LS + qi], floor_, t, s_, rr);
-        ps[c] = rot ? s_ : 0.f;
-        pr[c] = rot ? rr : 0.f;
+          rot = omc::jacobi_rotation((T)S[pi * LS + pi], (T)S[qi * LS + qi],
+                                     (T)S[pi * LS + qi], floor_, t, s_, rr);
+        ps[c] = rot ? s_ : T(0);
+        pr[c] = rot ? rr : T(0);
         pp[c] = pi;
         pq[c] = qi;
         prot[c] = rot;
@@ -741,13 +794,13 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
         S[qa * LS + qc] = x11;
         S[qc * LS + qa] = x11;
       }
-      // E <- (I + E) J - I in float32
+      // E <- (I + E) J - I in T
       for (int e = gr.tid; e < N2 * H; e += gr.nt) {
         const int i = e / H, c = e - i * H;
         if (!prot[c]) continue;
         const int pi = pp[c], qi = pq[c];
-        const float sn = ps[c], rn = pr[c];
-        float x = E[i * L + pi], y = E[i * L + qi];
+        const T sn = ps[c], rn = pr[c];
+        T x = E[i * L + pi], y = E[i * L + qi];
         omc::jacobi_rot(x, y, sn, rn);
         if (i == pi) {
           x -= sn * rn;
@@ -761,11 +814,12 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
       }
       gr.sync();
     }
-    for (int e = gr.tid; e < N2 * N2 / 4; e += gr.nt) {
-      const int i = e / (N2 / 4), j = 4 * (e - i * (N2 / 4));
-      *reinterpret_cast<float4*>(Ab + (size_t)gidx(i) * g.D + gidx(j)) =
-          make_float4((float)S[i * LS + j], (float)S[i * LS + j + 1], (float)S[i * LS + j + 2],
-                      (float)S[i * LS + j + 3]);
+    for (int e = gr.tid; e < N2 * N2 / VW; e += gr.nt) {
+      const int i = e / (N2 / VW), j = VW * (e - i * (N2 / VW));
+      T x[VW];
+#pragma unroll
+      for (int q = 0; q < VW; ++q) x[q] = (T)S[i * LS + j + q];
+      *reinterpret_cast<Vec16<T>*>(Ab + (size_t)gidx(i) * g.D + gidx(j)) = pack16(x);
     }
     const int er[2] = {0, W};
     tile_store<W, false>(v.E(b, a), E, N2, er, er, gr);
@@ -779,17 +833,17 @@ __device__ __noinline__ void blk_phase1(const BView& vin, int s, int r, int G, f
 
 // phase 2 of round r: the A tiles between pairs a < c and V's tiles; in the
 // last round of a sweep, also each matrix's convergence bookkeeping
-template <int W>
-__device__ __noinline__ void blk_phase2(const BView& vin, int s, int r, bool last, float* sm,
+template <int W, class Tv>
+__device__ __noinline__ void blk_phase2(const BView<Tv>& vin, int s, int r, bool last, Tv* sm,
                                         int gw, int nw) {
-  constexpr int N2 = BCfg<W>::N2;
-  const K4Params p = vin.p;  // the caller's are in local memory
+  constexpr int N2 = BCfg<W, Tv>::N2;
+  const K4ParamsT<Tv> p = vin.p;  // the caller's are in local memory
   const BGeom g = vin.g;
-  const BView v{p, g};
+  const BView<Tv> v{p, g};
   const int mode = v.p.mode;
-  float* T = sm;
-  float* Ec = sm + BCfg<W>::TILE;
-  float* Ea = sm + 2 * BCfg<W>::TILE;
+  Tv* T = sm;
+  Tv* Ec = sm + BCfg<W, Tv>::TILE;
+  Tv* Ea = sm + 2 * BCfg<W, Tv>::TILE;
   const Group wg = warp_group();
   const int na = g.a_tiles(), per = g.tiles(mode);
   for (long long it = gw; it < (long long)v.p.B * per; it += nw) {
@@ -806,14 +860,14 @@ __device__ __noinline__ void blk_phase2(const BView& vin, int s, int r, bool las
       rr_pair(r, a, g.Nb, Ia, Ja);
       rr_pair(r, c, g.Nb, Ic, Jc);
       const int rr[2] = {Ia * W, Ja * W}, cc[2] = {Ic * W, Jc * W}, er[2] = {0, W};
-      float* Ab = v.A(b);
+      Tv* Ab = v.A(b);
       // T, E_c and E_a in flight together; X = T + T E_c over E_c, then
       // T' = X + E_a' X over T
       tile_load<W>(T, Ab, g.D, rr, cc, wg);
       if (rcn) tile_load<W>(Ec, v.E(b, c), N2, er, er, wg);
       if (ra) tile_load<W>(Ea, v.E(b, a), N2, er, er, wg);
       tile_wait(wg);
-      const float* cur = T;
+      const Tv* cur = T;
       if (rcn) {
         tile_update<W, false>(T, T, Ec, Ec);
         cur = Ec;
@@ -830,7 +884,7 @@ __device__ __noinline__ void blk_phase2(const BView& vin, int s, int r, bool las
       int I, J;
       rr_pair(r, a, g.Nb, I, J);
       const int rr[2] = {t * N2, t * N2 + W}, cc[2] = {I * W, J * W}, er[2] = {0, W};
-      float* Vb = v.V(b);
+      Tv* Vb = v.V(b);
       tile_load<W>(T, Vb, g.D, rr, cc, wg);
       tile_load<W>(Ea, v.E(b, a), N2, er, er, wg);
       tile_wait(wg);
@@ -856,15 +910,17 @@ __device__ __noinline__ void blk_phase2(const BView& vin, int s, int r, bool las
 }
 
 // epilogues: mode 1 the projection as 32 x 32 upper tiles; modes 0 and 2
-// the rank sort (ascending, ties by index, NaN last) and the nout smallest
-template <int W>
-__device__ __noinline__ void blk_epilogue(const BView& vin, float* sm, int gw, int nw) {
-  constexpr int L = BCfg<W>::L;
-  const K4Params p = vin.p;  // the caller's are in local memory
+// the rank sort (ascending, ties by index, NaN last) and the nout smallest.
+// The float build forms the tiles in 3xTF32 products; the float64 build in
+// FP64 FMAs, a lane a column.
+template <int W, class T>
+__device__ __noinline__ void blk_epilogue(const BView<T>& vin, T* sm, int gw, int nw) {
+  constexpr int L = BCfg<W, T>::L, VW = BCfg<W, T>::VW;
+  const K4ParamsT<T> p = vin.p;  // the caller's are in local memory
   const BGeom g = vin.g;
-  const BView v{p, g};
+  const BView<T> v{p, g};
   const int d = g.d, D = g.D, lane = threadIdx.x & 31;
-  const float qnan = __int_as_float(0x7fffffff);
+  const T qnan = omc::qnan_of(T(0));
   const int gt = blockIdx.x * blockDim.x + threadIdx.x, nt = gridDim.x * blockDim.x;
   for (int b = gt; b < p.B; b += nt) {
     const int done = __ldcg(v.flags(b) + g.P);
@@ -872,58 +928,73 @@ __device__ __noinline__ void blk_epilogue(const BView& vin, float* sm, int gw, i
   }
   if (p.mode == 1) {
     const int nt32 = D / 32, per = nt32 * (nt32 + 1) / 2;
-    float* X = sm;
-    float* Y = sm + BCfg<W>::TILE;
-    float* Z = sm + 2 * BCfg<W>::TILE;
+    T* X = sm;
+    T* Y = sm + BCfg<W, T>::TILE;
+    T* Z = sm + 2 * BCfg<W, T>::TILE;
     for (long long it = gw; it < (long long)p.B * per; it += nw) {
       const int b = (int)(it / per);
       int j = (int)(it - (long long)b * per), I = 0;
       while (j >= nt32 - I) j -= nt32 - I++;
       const int J = I + j;
-      const float* Vb = v.V(b);
-      const float* Ab = v.A(b);
+      const T* Vb = v.V(b);
+      const T* Ab = v.A(b);
       const bool bad = !isfinite(__int_as_float(__ldcg(v.flags(b) + g.P + 3)));
       const int g4 = lane >> 2, t4 = lane & 3;
-      float acc[2][4][4] = {};
+      float acc[2][4][4] = {};  // the float build's fragments
+      double accd[32] = {};     // the float64 build's column of the tile
       for (int kc = 0; kc < D && !bad; kc += 32) {
-        for (int e = lane; e < 32 * 8; e += 32) {
-          const int i = e / 8, c = 4 * (e - 8 * (e / 8));
+        for (int e = lane; e < 32 * (32 / VW); e += 32) {
+          const int i = e / (32 / VW), c = VW * (e - (32 / VW) * (e / (32 / VW)));
           cp_async16(X + i * L + c, Vb + (size_t)(I * 32 + i) * D + kc + c);
           cp_async16(Y + i * L + c, Vb + (size_t)(J * 32 + i) * D + kc + c);
         }
         cp_async_wait_all();
         const int k = kc + lane;
-        const float dk = k < d ? __ldcg(Ab + (size_t)k * D + k) : 0.f;
-        const float wk = dk > 0.f ? dk : (isnan(dk) ? dk : 0.f);
+        const T dk = k < d ? __ldcg(Ab + (size_t)k * D + k) : T(0);
+        const T wk = dk > T(0) ? dk : (isnan(dk) ? dk : T(0));
         __syncwarp();
         for (int i = 0; i < 32; ++i) X[i * L + lane] *= wk;
         __syncwarp();
+        if constexpr (sizeof(T) == 4) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float out[4][4];
-          warp_mm<32, L, false, true>(X, Y, 16 * h, 0, out);
+          for (int h = 0; h < 2; ++h) {
+            float out[4][4];
+            warp_mm<32, L, false, true>(X, Y, 16 * h, 0, out);
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
+            for (int n = 0; n < 4; ++n)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) acc[h][n][i] += out[n][i];
+              for (int i = 0; i < 4; ++i) acc[h][n][i] += out[n][i];
+          }
+        } else {
+#pragma unroll 4
+          for (int kk = 0; kk < 32; ++kk) {
+            const double y = Y[lane * L + kk];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) accd[i] = fma(X[i * L + kk], y, accd[i]);
+          }
         }
         __syncwarp();
       }
+      if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+          for (int n = 0; n < 4; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            Z[(16 * h + g4 + 8 * (i >> 1)) * L + 8 * n + 2 * t4 + (i & 1)] =
-                bad ? qnan : acc[h][n][i];
+            for (int i = 0; i < 4; ++i)
+              Z[(16 * h + g4 + 8 * (i >> 1)) * L + 8 * n + 2 * t4 + (i & 1)] =
+                  bad ? qnan : acc[h][n][i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) Z[i * L + lane] = bad ? qnan : accd[i];
+      }
       __syncwarp();
-      float* Pb = p.P + (size_t)b * d * d;
+      T* Pb = p.P + (size_t)b * d * d;
       for (int e = lane; e < 32 * 32; e += 32) {
         const int i = e / 32, c = e - 32 * i;
         const int gi = I * 32 + i, gj = J * 32 + c;
         if (gi >= d || gj >= d || (I == J && c < i)) continue;
-        const float x = Z[i * L + c];
+        const T x = Z[i * L + c];
         Pb[(size_t)gi * d + gj] = x;
         Pb[(size_t)gj * d + gi] = x;
       }
@@ -933,21 +1004,21 @@ __device__ __noinline__ void blk_epilogue(const BView& vin, float* sm, int gw, i
   }
   for (long long it = gt; it < (long long)p.B * d; it += nt) {
     const int b = (int)(it / d), i = (int)(it - (long long)b * d);
-    const float* Ab = v.A(b);
-    const float wi = __ldcg(Ab + (size_t)i * D + i);
-    const float ki = isnan(wi) ? __int_as_float(0x7f800000) : wi;
+    const T* Ab = v.A(b);
+    const T wi = __ldcg(Ab + (size_t)i * D + i);
+    const T ki = isnan(wi) ? omc::inf_of(T(0)) : wi;
     int rank = 0;
     for (int j = 0; j < d; ++j) {
-      const float wj = __ldcg(Ab + (size_t)j * D + j);
-      const float kj = isnan(wj) ? __int_as_float(0x7f800000) : wj;
+      const T wj = __ldcg(Ab + (size_t)j * D + j);
+      const T kj = isnan(wj) ? omc::inf_of(T(0)) : wj;
       rank += (kj < ki) || (kj == ki && j < i);
     }
     if (rank >= p.nout) continue;
     const bool bad = !isfinite(__int_as_float(__ldcg(v.flags(b) + g.P + 3)));
     p.w[(size_t)b * p.nout + rank] = bad ? qnan : wi;
     if (p.mode == 2) {
-      const float* Vb = v.V(b);
-      float* Vo = p.V + (size_t)b * d * p.nout;
+      const T* Vb = v.V(b);
+      T* Vo = p.V + (size_t)b * d * p.nout;
       for (int r = 0; r < d; ++r)
         Vo[(size_t)r * p.nout + rank] = bad ? qnan : __ldcg(Vb + (size_t)r * D + i);
     }
@@ -956,16 +1027,17 @@ __device__ __noinline__ void blk_epilogue(const BView& vin, float* sm, int gw, i
 
 // The whole schedule in one persistent launch, with grid barriers between
 // the phases (a cooperative launch).  The phases do not depend on kSep:
-// they are compiled once per W (__noinline__) and shared by the K4 and K5
-// kernels.
-template <int W, bool kSep>
-__global__ void __launch_bounds__(BCfg<W>::THREADS) k4_block_kernel(K4Params p, int G) {
-  extern __shared__ float smem[];
+// they are compiled once per W and T (__noinline__) and shared by the K4
+// and K5 kernels.
+template <int W, bool kSep, class T>
+__global__ void __launch_bounds__(BCfg<W, T>::THREADS) k4_block_kernel(K4ParamsT<T> p, int G) {
+  extern __shared__ __align__(16) unsigned char k4b_smem_raw[];
+  T* const smem = reinterpret_cast<T*>(k4b_smem_raw);
   const BGeom g(p.d, W, p.mode);
-  const BView v{p, g};
+  const BView<T> v{p, g};
   const int warp = threadIdx.x >> 5;
-  float* sm = smem + (size_t)warp * 3 * BCfg<W>::TILE;
-  const int gw = blockIdx.x * BCfg<W>::WARPS + warp, nw = gridDim.x * BCfg<W>::WARPS;
+  T* sm = smem + (size_t)warp * 3 * BCfg<W, T>::TILE;
+  const int gw = blockIdx.x * BCfg<W, T>::WARPS + warp, nw = gridDim.x * BCfg<W, T>::WARPS;
   unsigned* ctl = reinterpret_cast<unsigned*>(p.work);
   blk_load<kSep>(v, gw, nw);
   grid_sync(ctl);
@@ -1006,13 +1078,13 @@ inline int fail(cudaError_t err) {
 // occupancy at this shared memory), or fewer when the work items are fewer,
 // and G, the warps of phase 1's group per pair: the most (up to a CTA's) that
 // still give every pair of the call its own group
-template <int W, bool kSep>
-int block_shape(const K4Params& p, int& grid, int& G) {
-  using C = BCfg<W>;
+template <int W, bool kSep, class T>
+int block_shape(const K4ParamsT<T>& p, int& grid, int& G) {
+  using C = BCfg<W, T>;
   static int smem_set = 0;
   cudaError_t err;
   if (!smem_set) {
-    err = cudaFuncSetAttribute(k4_block_kernel<W, kSep>,
+    err = cudaFuncSetAttribute(k4_block_kernel<W, kSep, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return fail(err);
     smem_set = 1;
@@ -1021,7 +1093,7 @@ int block_shape(const K4Params& p, int& grid, int& G) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return fail(err);
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return fail(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k4_block_kernel<W, kSep>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k4_block_kernel<W, kSep, T>,
                                                       C::THREADS, C::SMEM);
   if (err != cudaSuccess) return fail(err);
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
@@ -1037,16 +1109,16 @@ int block_shape(const K4Params& p, int& grid, int& G) {
   return 0;
 }
 
-template <int W, bool kSep>
-int launch_block(K4Params p, cudaStream_t stream) {
-  using C = BCfg<W>;
+template <int W, bool kSep, class T>
+int launch_block(K4ParamsT<T> p, cudaStream_t stream) {
+  using C = BCfg<W, T>;
   int grid = 0, G = 1;
   const int rc = block_shape<W, kSep>(p, grid, G);
   if (rc) return rc;
-  cudaError_t err = cudaMemsetAsync(p.work, 0, kCtl * sizeof(float), stream);
+  cudaError_t err = cudaMemsetAsync(p.work, 0, kCtl * sizeof(T), stream);
   if (err != cudaSuccess) return fail(err);
   void* args[] = {&p, &G};
-  err = cudaLaunchCooperativeKernel((const void*)k4_block_kernel<W, kSep>, dim3(grid),
+  err = cudaLaunchCooperativeKernel((const void*)k4_block_kernel<W, kSep, T>, dim3(grid),
                                     dim3(C::THREADS), args, C::SMEM, stream);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
@@ -1054,22 +1126,38 @@ int launch_block(K4Params p, cudaStream_t stream) {
 
 constexpr int kBlockWidth = 16;
 
+template <class T>
+int k4_entry(const K4ParamsT<T>& p, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.path == 1)
+    return p.M ? launch_block<kBlockWidth, false>(p, st) : launch_block<kBlockWidth, true>(p, st);
+  const size_t smem = cta_smem_bytes<T>(p.d, p.mode);
+  if (p.path != 0 || smem == 0) return (int)cudaErrorInvalidValue;
+  return p.M ? launch_k4<false>(p, smem, stream) : launch_k4<true>(p, smem, stream);
+}
+
 }  // namespace
 
-// the whole call's workspace: none on the CTA path
+// the whole call's workspace in elements of the operands' type (floats, or
+// doubles for omc_k4_jacobi_f64): none on the CTA path
 OMC_EXPORT long long omc_k4_workspace_floats(int B, int d, int mode, int path) {
   if (path == 0) return 0;
   return (long long)kCtl + (long long)B * BGeom(d, kBlockWidth, mode).mat_floats;
 }
 
+// the CTA path's shared memory at the operands' element size (4 or 8), or
+// 0 where A (and V) do not fit
+OMC_EXPORT long long omc_k4_cta_smem_bytes(int d, int mode, int elem) {
+  return (long long)(elem == 8 ? cta_smem_bytes<double>(d, mode) : cta_smem_bytes<float>(d, mode));
+}
+
 // path 0: the CTA path (refused unless A, and V, fit in shared memory);
 // path 1: the block path, one cooperative launch
 OMC_EXPORT int omc_k4_jacobi(const K4Params* params, void* stream) {
-  const K4Params p = *params;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (p.path == 1)
-    return p.M ? launch_block<kBlockWidth, false>(p, st) : launch_block<kBlockWidth, true>(p, st);
-  const size_t smem = cta_smem_bytes(p.d, p.mode);
-  if (p.path != 0 || smem == 0) return (int)cudaErrorInvalidValue;
-  return p.M ? launch_k4<false>(p, smem, stream) : launch_k4<true>(p, smem, stream);
+  return k4_entry(*params, stream);
+}
+
+// the float64 build: double operands and outputs, the same paths
+OMC_EXPORT int omc_k4_jacobi_f64(const K4ParamsT<double>* params, void* stream) {
+  return k4_entry(*params, stream);
 }

@@ -26,6 +26,13 @@
 // and ~40 flops a rotation plus the 125-flop epilogue a matrix, against 200
 // bytes in and out: at 131,072 matrices a single wave of CTAs, so the
 // instruction chain of the slowest lane's sweeps sets the time.
+//
+// The float64 build (omc_k4s_jacobi_small_f64) is the same kernel on
+// doubles: 16-byte copies of two doubles, the staging at the same odd
+// stride in doubles (twice the bytes: dynamic shared memory, beyond 48 KB
+// at D >= 7), the scaling clamped to double's range, and K4s's rotation
+// on doubles (k4s_rotation.cuh: DBL_EPSILON's skip test, one square root,
+// rsqrt and one divide); the CPU mirror is ops.jacobi.k4s_eigh in float64.
 #include "common.cuh"
 #include "k4s_rotation.cuh"
 
@@ -36,7 +43,7 @@ constexpr int kThreads4s = 128;  // matrices (threads) a CTA
 template <int D>
 struct Stage {
   static constexpr int DD = D * D, LD = DD | 1;
-  // the staged slot of the CTA's float f (matrix f / DD, entry f % DD)
+  // the staged slot of the CTA's value f (matrix f / DD, entry f % DD)
   static __device__ __forceinline__ int slot(int f) { return (f / DD) * LD + f % DD; }
 };
 
@@ -79,49 +86,101 @@ __device__ __forceinline__ void stage_out(const float* st, float* g, int nf, int
   for (int f = 4 * n4 + lane; f < nf; f += 32) g[f] = st[S::slot(f)];
 }
 
+// the float64 build's: pairs of doubles (16 bytes) while they last where g
+// is 16-byte aligned, then one double a lane
+template <int D>
+__device__ __forceinline__ void stage_in(const double* g, double* st, int nf, int lane) {
+  using S = Stage<D>;
+  const int n2 = (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? nf / 2 : 0;
+  for (int q = lane; q < n2; q += 32) {
+    const double2 v = reinterpret_cast<const double2*>(g)[q];
+    st[S::slot(2 * q)] = v.x;
+    st[S::slot(2 * q + 1)] = v.y;
+  }
+  for (int f = 2 * n2 + lane; f < nf; f += 32) st[S::slot(f)] = g[f];
+}
+
+template <int D>
+__device__ __forceinline__ void stage_out(const double* st, double* g, int nf, int lane) {
+  using S = Stage<D>;
+  const int n2 = (reinterpret_cast<uintptr_t>(g) & 15) == 0 ? nf / 2 : 0;
+  for (int q = lane; q < n2; q += 32)
+    reinterpret_cast<double2*>(g)[q] = make_double2(st[S::slot(2 * q)], st[S::slot(2 * q + 1)]);
+  for (int f = 2 * n2 + lane; f < nf; f += 32) g[f] = st[S::slot(f)];
+}
+
+// frexp's exponent and 2^k in the operands' type; for a double from its
+// bits (frexp and ldexp on doubles go through local memory), for a normal
+// x and |k| <= 1022
+__device__ __forceinline__ int exponent_of(float x) {
+  int e = 0;
+  frexpf(x, &e);
+  return e;
+}
+__device__ __forceinline__ int exponent_of(double x) {
+  return (int)((__double_as_longlong(x) >> 52) & 0x7ff) - 1022;
+}
+__device__ __forceinline__ float pow2(float, int k) { return ldexpf(1.f, k); }
+__device__ __forceinline__ double pow2(double, int k) {
+  return __longlong_as_double((long long)(k + 1023) << 52);
+}
+
+// the CTA's staging: static shared memory in the float build, dynamic in
+// the float64 build (omc_k4s_smem_bytes at 8 bytes a value)
+template <int D, class T>
+__device__ __forceinline__ T* stage_buffer() {
+  if constexpr (sizeof(T) == 4) {
+    __shared__ __align__(16) float st[kThreads4s * Stage<D>::LD];
+    return st;
+  } else {
+    extern __shared__ __align__(16) double k4s_dyn[];
+    return k4s_dyn;
+  }
+}
+
 // A's upper triangle: A[i][j] with i <= j (indices are constants after
 // unrolling, so A stays in registers)
 #define AU(i, j) A[(i) < (j) ? (i) : (j)][(i) < (j) ? (j) : (i)]
 
-template <int D>
-__global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParams p) {
+template <int D, class T>
+__global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParamsT<T> p) {
   using S = Stage<D>;
-  __shared__ __align__(16) float st[kThreads4s * S::LD];
+  constexpr int kLim = sizeof(T) == 8 ? 1022 : 126;  // the type's normal exponents
+  T* const st = stage_buffer<D, T>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long m0 = (long long)blockIdx.x * kThreads4s + 32 * warp;  // the warp's first
   const int nm = (int)max(0LL, min(32LL, (long long)p.N - m0));
-  float* sw = st + 32 * warp * S::LD;
+  T* sw = st + 32 * warp * S::LD;
   stage_in<D>(p.t + m0 * S::DD, sw, nm * S::DD, lane);
   __syncwarp();
   if (lane < nm) {
-    float* sm = sw + lane * S::LD;
-    float A[D][D], V[D][D];
+    T* sm = sw + lane * S::LD;
+    T A[D][D], V[D][D];
 #pragma unroll
     for (int i = 0; i < D; ++i)
 #pragma unroll
       for (int j = i; j < D; ++j)
-        A[i][j] = i == j ? sm[i * D + i] : 0.5f * (sm[i * D + j] + sm[j * D + i]);
+        A[i][j] = i == j ? sm[i * D + i] : T(0.5) * (sm[i * D + j] + sm[j * D + i]);
     // ||A||_F summed in K4's order (every entry, row by row)
-    float ss = 0.f;
+    T ss = 0;
 #pragma unroll
     for (int i = 0; i < D; ++i)
 #pragma unroll
       for (int j = 0; j < D; ++j) ss += AU(i, j) * AU(i, j);
-    const float normF = sqrtf(ss);
+    const T normF = sqrt(ss);
     const bool bad = !isfinite(normF);
     // scale by 2^k so that ||A||_F lies in [1, 2); the rotations are
     // invariant under it, so the pairs and the angles are K4's
-    int ex = 0;
-    frexpf(normF, &ex);
-    const int kx = bad || normF == 0.f ? 0 : max(-126, min(126, 1 - ex));
-    const float sc = ldexpf(1.f, kx), unsc = ldexpf(1.f, -kx);
-    const float fs = omc::jacobi_floor(normF * sc, D), floor2 = fs * fs;
+    const int ex = exponent_of(normF);
+    const int kx = bad || normF == T(0) ? 0 : max(-kLim, min(kLim, 1 - ex));
+    const T sc = pow2(T(0), kx), unsc = pow2(T(0), -kx);
+    const T fs = omc::jacobi_floor(normF * sc, D), floor2 = fs * fs;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
       for (int j = i; j < D; ++j) A[i][j] *= sc;
 #pragma unroll
-      for (int j = 0; j < D; ++j) V[i][j] = i == j ? 1.f : 0.f;
+      for (int j = 0; j < D; ++j) V[i][j] = i == j ? T(1) : T(0);
     }
     int sweep = 1;
     for (; sweep <= omc::kJacobiMaxSweeps; ++sweep) {
@@ -130,10 +189,10 @@ __global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParams p) {
       for (int pi = 0; pi < D - 1; ++pi)
 #pragma unroll
         for (int qi = pi + 1; qi < D; ++qi) {
-          float t, s, r;
+          T t, s, r;
           if (!k4s::rotation(A[pi][pi], A[qi][qi], A[pi][qi], floor2, t, s, r)) continue;
           any = true;
-          const float apq = A[pi][qi];
+          const T apq = A[pi][qi];
 #pragma unroll
           for (int k = 0; k < D; ++k) {
             if (k == pi || k == qi) continue;
@@ -141,26 +200,26 @@ __global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParams p) {
           }
           A[pi][pi] -= t * apq;
           A[qi][qi] += t * apq;
-          A[pi][qi] = 0.f;
+          A[pi][qi] = 0;
 #pragma unroll
           for (int k = 0; k < D; ++k) omc::jacobi_rot(V[k][pi], V[k][qi], s, r);
         }
       if (!any) break;
     }
-    const float qnan = __int_as_float(0x7fffffff);
-    float wpos[D];
+    const T qnan = omc::qnan_of(T(0));
+    T wpos[D];
 #pragma unroll
     for (int r = 0; r < D; ++r) {
-      const float w = A[r][r];
-      wpos[r] = bad ? qnan : (w > 0.f ? w * unsc : (isnan(w) ? w : 0.f));
+      const T w = A[r][r];
+      wpos[r] = bad ? qnan : (w > T(0) ? w * unsc : (isnan(w) ? w : T(0)));
     }
 #pragma unroll
     for (int i = 0; i < D; ++i)
 #pragma unroll
       for (int j = i; j < D; ++j) {
-        float acc = 0.f;
+        T acc = 0;
 #pragma unroll
-        for (int r = 0; r < D; ++r) acc = fmaf(V[i][r] * wpos[r], V[j][r], acc);
+        for (int r = 0; r < D; ++r) acc = fma(V[i][r] * wpos[r], V[j][r], acc);
         sm[i * D + j] = acc;
         sm[j * D + i] = acc;
       }
@@ -172,28 +231,54 @@ __global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParams p) {
 
 #undef AU
 
+template <int D, class T>
+int launch_d(const K4sParamsT<T>& p, int blocks, cudaStream_t s) {
+  if constexpr (sizeof(T) == 4) {
+    k4s_kernel<D, T><<<blocks, kThreads4s, 0, s>>>(p);
+  } else {
+    static bool attr = false;
+    const int smem = kThreads4s * Stage<D>::LD * (int)sizeof(T);
+    if (!attr) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(k4s_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      attr = true;
+    }
+    k4s_kernel<D, T><<<blocks, kThreads4s, smem, s>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int k4s_entry(const K4sParamsT<T>& p, void* stream) {
+  const int blocks = (p.N + kThreads4s - 1) / kThreads4s;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p.D) {
+    case 1: return launch_d<1>(p, blocks, s);
+    case 2: return launch_d<2>(p, blocks, s);
+    case 3: return launch_d<3>(p, blocks, s);
+    case 4: return launch_d<4>(p, blocks, s);
+    case 5: return launch_d<5>(p, blocks, s);
+    case 6: return launch_d<6>(p, blocks, s);
+    case 7: return launch_d<7>(p, blocks, s);
+    case 8: return launch_d<8>(p, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-OMC_EXPORT long long omc_k4s_smem_bytes(int D) {
-  return (long long)kThreads4s * ((D * D) | 1) * (long long)sizeof(float);
+// a CTA's staging at the operands' element size (4, or 8 for the float64 build)
+OMC_EXPORT long long omc_k4s_smem_bytes(int D, int elem) {
+  return (long long)kThreads4s * ((D * D) | 1) * (long long)elem;
 }
 
 OMC_EXPORT int omc_k4s_grid_x(int N) { return (N + kThreads4s - 1) / kThreads4s; }
 
 OMC_EXPORT int omc_k4s_jacobi_small(const K4sParams* params, void* stream) {
-  const K4sParams p = *params;
-  const int blocks = omc_k4s_grid_x(p.N);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (p.D) {
-    case 1: k4s_kernel<1><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 2: k4s_kernel<2><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 3: k4s_kernel<3><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 4: k4s_kernel<4><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 5: k4s_kernel<5><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 6: k4s_kernel<6><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 7: k4s_kernel<7><<<blocks, kThreads4s, 0, s>>>(p); break;
-    case 8: k4s_kernel<8><<<blocks, kThreads4s, 0, s>>>(p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return k4s_entry(*params, stream);
+}
+
+OMC_EXPORT int omc_k4s_jacobi_small_f64(const K4sParamsT<double>* params, void* stream) {
+  return k4s_entry(*params, stream);
 }

@@ -41,4 +41,33 @@ __device__ __forceinline__ bool rotation(float app, float aqq, float apq, float 
   return true;
 }
 
+// The float64 build's: the same skip test at double's epsilon and the same
+// parameters, the roots from rsqrt and q from the approximate reciprocal
+// refined by two Newton steps (to the rounding level; no IEEE divide or
+// square root, whose slow-path calls made ptxas spill around them at D = 2)
+constexpr double kEps2d = DBL_EPSILON * DBL_EPSILON;
+
+__device__ __forceinline__ bool rotation(double app, double aqq, double apq, double floor2,
+                                         double& t, double& s, double& r) {
+  const double rel2 = kEps2d * (fabs(app) * fabs(aqq));
+  const double thr2 = rel2 > floor2 ? rel2 : floor2;
+  if (apq * apq <= thr2) return false;
+  const double h = aqq - app, g = 2.0 * apq;
+  const double gs = copysign(1.0, h) * g;
+  const double n1 = fma(h, h, g * g);
+  const double e = fabs(h) + n1 * rsqrt(n1);
+  const double n2 = fma(e, e, g * g);
+  const double inv = rsqrt(n2);  // 1 / f
+  const double f = n2 * inv;
+  const double den = e * (e + f);
+  double q;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(q) : "d"(den));
+  q = fma(q, fma(-den, q, 1.0), q);
+  q = fma(q, fma(-den, q, 1.0), q);
+  t = gs * (e + f) * q;
+  r = gs * e * q;
+  s = gs * inv;
+  return true;
+}
+
 }  // namespace k4s

@@ -48,8 +48,11 @@
 //     case of their own: the perturbed zero pivot makes the solve blow up
 //     in the block that holds the eigenvalue.
 //  5. Back-transform through the stored reflectors (a warp a vector),
-//     normalise, write w and V in float32.  A non-finite input gives NaN
+//     normalise, write w and V in the operands' type.  A non-finite input gives NaN
 //     and the cap's count, as K4's Jacobi gives NaN and its sweep cap.
+// The float64 build (omc_k5_separation_f64) reads U and Y and writes w and
+// V in double, on the float64 triangle only: every step above is float64
+// already, so it differs from the float build in its loads and stores.
 // What bounds it: the chain, not the bytes (0.0011 ms of them at B=64,
 // d=50) nor the card's FP64 rate: d - 2 steps of two barriers, kRounds
 // Sturm recurrences of d dependent reciprocals, the solves' recurrences.
@@ -239,9 +242,10 @@ __device__ int inverse_iteration(const double* __restrict__ Dg, const double* __
 }
 
 // S: the triangle's storage type (double: path 0, float: path 1); kQ: the
-// most rows of A22 a lane holds in the update (d <= 32 kQ)
-template <typename S, int kQ>
-__global__ void __launch_bounds__(kThreads5) k5_kernel(K5Params p) {
+// most rows of A22 a lane holds in the update (d <= 32 kQ); T: the
+// operands' type (float, or double in the float64 build)
+template <typename S, int kQ, typename T>
+__global__ void __launch_bounds__(kThreads5) k5_kernel(K5ParamsT<T> p) {
   extern __shared__ __align__(16) unsigned char k5_smem_raw[];
   const int b = blockIdx.x, d = p.d, k = p.k, nout = p.nout;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
@@ -258,8 +262,8 @@ __global__ void __launch_bounds__(kThreads5) k5_kernel(K5Params p) {
   unsigned char* piv = reinterpret_cast<unsigned char*>(A + tri_len(d));
 
   // ---- load: A = U U' - (Y + Y') / 2, rows by warps, columns by lanes ----
-  const float* Ub = p.U + (size_t)b * d * k;
-  const float* Yb = p.Y + (size_t)b * d * d;
+  const T* Ub = p.U + (size_t)b * d * k;
+  const T* Yb = p.Y + (size_t)b * d * d;
   int bad = 0;
   for (int i = warp; i < d; i += nw)
     for (int j = lane; j <= i; j += 32) {
@@ -456,25 +460,42 @@ __global__ void __launch_bounds__(kThreads5) k5_kernel(K5Params p) {
     double s2 = 0.0;
     for (int r = lane; r < d; r += 32) s2 = fma(zt[r], zt[r], s2);
     const double inv = 1.0 / sqrt(omc::warp_sum_d(s2));
-    const float qnan = __int_as_float(0x7fffffff);
-    float* Vb = p.V + (size_t)b * d * nout;
-    for (int r = lane; r < d; r += 32) Vb[r * nout + warp] = bad ? qnan : (float)(zt[r] * inv);
-    if (lane == 0) p.w[(size_t)b * nout + warp] = bad ? qnan : (float)sc[warp];
+    const T qnan = omc::qnan_of(T(0));
+    T* Vb = p.V + (size_t)b * d * nout;
+    for (int r = lane; r < d; r += 32) Vb[r * nout + warp] = bad ? qnan : (T)(zt[r] * inv);
+    if (lane == 0) p.w[(size_t)b * nout + warp] = bad ? qnan : (T)sc[warp];
   }
   if (tid == 0) p.iters[b] = bad ? kMaxIters + 1 : (nout == 2 ? max(its, (int)sc[3]) : its);
 }
 
-template <typename S, int kQ>
-int launch_k5(const K5Params& p, size_t smem, cudaStream_t stream) {
+template <typename S, int kQ, typename T>
+int launch_k5(const K5ParamsT<T>& p, size_t smem, cudaStream_t stream) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        k5_kernel<S, kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+        k5_kernel<S, kQ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  k5_kernel<S, kQ><<<p.B, kThreads5, smem, stream>>>(p);
+  k5_kernel<S, kQ, T><<<p.B, kThreads5, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int k5_entry(const K5ParamsT<T>& p, void* stream) {
+  // float64 operands take the float64 triangle only
+  if (p.nout < 1 || p.nout > 2 || p.nout > p.d || p.path < 0 || p.path > (sizeof(T) == 8 ? 0 : 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k5_smem(p.d, p.path);
+  if (!smem) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (sizeof(T) == 8) {
+    return p.d <= 128 ? launch_k5<double, 4>(p, smem, st) : launch_k5<double, 10>(p, smem, st);
+  } else {
+    if (p.d <= 128)
+      return p.path == 0 ? launch_k5<double, 4>(p, smem, st) : launch_k5<float, 4>(p, smem, st);
+    return p.path == 0 ? launch_k5<double, 10>(p, smem, st) : launch_k5<float, 10>(p, smem, st);
+  }
 }
 
 }  // namespace
@@ -485,13 +506,10 @@ OMC_EXPORT int omc_k5_threads() { return kThreads5; }
 
 // path 0: the triangle in float64; 1: in float32 (refused where it does not fit)
 OMC_EXPORT int omc_k5_separation(const K5Params* params, void* stream) {
-  const K5Params p = *params;
-  if (p.nout < 1 || p.nout > 2 || p.nout > p.d || p.path < 0 || p.path > 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = k5_smem(p.d, p.path);
-  if (!smem) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (p.d <= 128)
-    return p.path == 0 ? launch_k5<double, 4>(p, smem, st) : launch_k5<float, 4>(p, smem, st);
-  return p.path == 0 ? launch_k5<double, 10>(p, smem, st) : launch_k5<float, 10>(p, smem, st);
+  return k5_entry(*params, stream);
+}
+
+// the float64 build: double U, Y, w and V, the float64 triangle (path 0)
+OMC_EXPORT int omc_k5_separation_f64(const K5ParamsT<double>* params, void* stream) {
+  return k5_entry(*params, stream);
 }

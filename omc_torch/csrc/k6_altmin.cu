@@ -41,7 +41,15 @@
 //   scratch.
 // Sums run in a fixed order, so two launches give the same bits; k = 1
 // divides, as the plain version does.
+//
+// The float64 build (omc_k6_vstep_f64, omc_k6_ustep_f64) is the same
+// kernels on doubles: the Gram and the right-hand side in registers at two
+// registers a value, so both paths run at most 8 warps a CTA and one CTA
+// an SM (255 registers a thread: k = 10 keeps its 55 + 10 doubles without a
+// spill), 16-byte copies of two doubles, 8-byte cp.async for the mask and
+// A; its plan is ops.linalg.k6_plan at dtype float64.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -59,30 +67,42 @@ struct Geom {
 
 __host__ __device__ constexpr int tri(int a) { return a * (a + 1) / 2; }
 __host__ __device__ constexpr int fstride(int k) { return (k + 3) & ~3; }
+// the most warps of a slots-path CTA (the float64 build: 8, for its registers)
+template <class T>
+__host__ __device__ constexpr int max_slots_warps() {
+  return sizeof(T) == 8 ? kMaxWarps : kMaxSlotsWarps;
+}
 
-// the slots path's slot stride: rpw rows of k floats as they lie in the
+// the slots path's slot stride: rpw rows of k values as they lie in the
 // factor (so 16-byte copies land whole), rounded up to an odd number of
 // 16-byte units (lanes read distinct bank groups: float4 rows for k % 4 ==
-// 0, float2 rows two lanes a bank pair for even k)
-__host__ __device__ constexpr int slot_stride(int k, int rpw) {
-  return ((rpw * k + 3) & ~3) + ((((rpw * k + 3) & ~3) / 4) % 2 == 0 ? 4 : 0);
+// 0, float2 rows two lanes a bank pair for even k); vw values a unit (4
+// floats, or 2 doubles)
+__host__ __device__ constexpr int slot_stride(int k, int rpw, int vw = 4) {
+  return ((rpw * k + vw - 1) & ~(vw - 1)) +
+         ((((rpw * k + vw - 1) & ~(vw - 1)) / vw) % 2 == 0 ? vw : 0);
 }
+
+template <class T>
+using Pair = typename std::conditional<sizeof(T) == 8, double2, float2>::type;
+__device__ __forceinline__ float2 make_pair2(float a, float b) { return make_float2(a, b); }
+__device__ __forceinline__ double2 make_pair2(double a, double b) { return make_double2(a, b); }
 
 // 16 bytes global -> shared, of which `bytes` (0..16) are read and the rest
 // zero-filled (src is not read when bytes == 0)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
 }
 
-// dynamic shared memory (floats).  Tile path: per r range the padded
-// mask and A tiles of min(32, rpw) rows, per warp its factor chunk; the
-// combine reuses it for the S (W - 1) partials.  Slots path: two buffers
-// (cp.async double buffering), each the 32 slots' factor chunk, then the
-// W outputs' mask and A chunk.
-__host__ __device__ inline int smem_floats(int path, int k, int S, int W, int rpw) {
-  if (path == 1) return 2 * (kTile * slot_stride(k, rpw) + 2 * W * rpw);
+// dynamic shared memory (values of the operands' type; vw of them in 16
+// bytes).  Tile path: per r range the padded mask and A tiles of min(32,
+// rpw) rows, per warp its factor chunk; the combine reuses it for the S (W
+// - 1) partials.  Slots path: two buffers (cp.async double buffering), each
+// the 32 slots' factor chunk, then the W outputs' mask and A chunk.
+__host__ __device__ inline int smem_floats(int path, int k, int S, int W, int rpw, int vw = 4) {
+  if (path == 1) return 2 * (kTile * slot_stride(k, rpw, vw) + 2 * W * rpw);
   const int ch = rpw < kTile ? rpw : kTile;
   const int stage = W * 2 * ch * (kTile + 1) + S * W * ch * fstride(k);
   const int comb = S * (W - 1) * (tri(k) + k) * kTile;
@@ -108,10 +128,17 @@ __device__ __forceinline__ void stage(int count, Load load, Store store) {
 }
 
 // 4 bytes global -> shared, zero-filled where !valid (src is not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async_one(float* dst, const float* src, bool valid) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0)
+               : "memory");
+}
+// the float64 build's: 8 bytes
+__device__ __forceinline__ void cp_async_one(double* dst, const double* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -127,20 +154,35 @@ __device__ __forceinline__ void range_barrier(int id, int nthreads) {
 }
 
 // G += w f f' (lower), rhs += aw f
-template <int K>
-__device__ __forceinline__ void gram_update(float (&G)[tri(K)], float (&rhs)[K],
-                                            const float (&f)[fstride(K)], float w, float aw) {
+template <int K, class T>
+__device__ __forceinline__ void gram_update(T (&G)[tri(K)], T (&rhs)[K],
+                                            const T (&f)[fstride(K)], T w, T aw) {
 #pragma unroll
   for (int a = 0; a < K; ++a) {
-    rhs[a] = fmaf(aw, f[a], rhs[a]);
-    const float wu = w * f[a];
+    rhs[a] = fma(aw, f[a], rhs[a]);
+    const T wu = w * f[a];
 #pragma unroll
-    for (int c = 0; c <= a; ++c) G[tri(a) + c] = fmaf(wu, f[c], G[tri(a) + c]);
+    for (int c = 0; c <= a; ++c) G[tri(a) + c] = fma(wu, f[c], G[tri(a) + c]);
   }
 }
 
 // f[0 .. K) = row[0 .. K): float4 pieces for K % 4 == 0, float2 for even
-// K (the slots path's rows are K-float aligned)
+// K (the slots path's rows are K-float aligned); double2 pieces for even K
+// in the float64 build
+template <int K>
+__device__ __forceinline__ void load_row(double (&f)[fstride(K)], const double* row) {
+  if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int a = 0; a < K; a += 2) {
+      const double2 v = *reinterpret_cast<const double2*>(row + a);
+      f[a] = v.x, f[a + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < K; ++a) f[a] = row[a];
+  }
+}
+
 template <int K>
 __device__ __forceinline__ void load_row(float (&f)[fstride(K)], const float* row) {
   if constexpr (K % 4 == 0) {
@@ -163,9 +205,9 @@ __device__ __forceinline__ void load_row(float (&f)[fstride(K)], const float* ro
 
 // out[l * ol] = (G + eps I)^-1 rhs: k = 1 divides; else G = L L' in place
 // (packed lower), then L y = rhs, L' x = y
-template <int K>
-__device__ __forceinline__ void solve_store(float (&G)[tri(K)], float (&rhs)[K], float eps,
-                                            float* out, long long ol) {
+template <int K, class T>
+__device__ __forceinline__ void solve_store(T (&G)[tri(K)], T (&rhs)[K], T eps,
+                                            T* out, long long ol) {
 #pragma unroll
   for (int a = 0; a < K; ++a) G[tri(a) + a] += eps;
   if (K == 1) {
@@ -174,14 +216,14 @@ __device__ __forceinline__ void solve_store(float (&G)[tri(K)], float (&rhs)[K],
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    float djj = G[tri(j) + j];
+    T djj = G[tri(j) + j];
 #pragma unroll
     for (int q = 0; q < j; ++q) djj -= G[tri(j) + q] * G[tri(j) + q];
-    djj = sqrtf(djj);
+    djj = sqrt(djj);
     G[tri(j) + j] = djj;
 #pragma unroll
     for (int i = j + 1; i < K; ++i) {
-      float v = G[tri(i) + j];
+      T v = G[tri(i) + j];
 #pragma unroll
       for (int q = 0; q < j; ++q) v -= G[tri(i) + q] * G[tri(j) + q];
       G[tri(i) + j] = v / djj;
@@ -189,14 +231,14 @@ __device__ __forceinline__ void solve_store(float (&G)[tri(K)], float (&rhs)[K],
   }
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    float v = rhs[i];
+    T v = rhs[i];
 #pragma unroll
     for (int q = 0; q < i; ++q) v -= G[tri(i) + q] * rhs[q];
     rhs[i] = v / G[tri(i) + i];
   }
 #pragma unroll
   for (int i = K - 1; i >= 0; --i) {
-    float v = rhs[i];
+    T v = rhs[i];
 #pragma unroll
     for (int q = i + 1; q < K; ++q) v -= G[tri(q) + i] * rhs[q];
     rhs[i] = v / G[tri(i) + i];
@@ -206,88 +248,100 @@ __device__ __forceinline__ void solve_store(float (&G)[tri(K)], float (&rhs)[K],
 }
 
 // ---- tile path: lanes = 32 outputs of a slot ----
-template <int K>
-__global__ void __launch_bounds__(kMaxWarps * kTile, 2) k6_kernel(K6Params p, Geom g) {
+// two CTAs an SM in the float build; one in the float64 build (its Gram
+// takes twice the registers)
+template <int K, class T>
+__global__ void __launch_bounds__(kMaxWarps * kTile, sizeof(T) == 8 ? 1 : 2)
+    k6_kernel(K6ParamsT<T> p, Geom g) {
   constexpr int NT = tri(K), FS = fstride(K);
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(16) unsigned char k6_smem_raw[];
+  T* const sm = reinterpret_cast<T*>(k6_smem_raw);
   const int S = p.S, W = p.W, CH = min(p.rpw, kTile);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int s = warp % S, w = warp / S;
   const int b = blockIdx.y * S + s;
   const int o0 = blockIdx.x * kTile;
   const int lo = w * p.rpw, hi = min(g.R, lo + p.rpw);
-  float* mt = sm + w * 2 * CH * (kTile + 1);
-  float* at = mt + CH * (kTile + 1);
-  float* fac = sm + W * 2 * CH * (kTile + 1) + warp * CH * FS;
-  const float* F = p.F + (size_t)min(b, p.B - 1) * g.fB;
-  const float ig = p.inv_gamma;
+  T* mt = sm + w * 2 * CH * (kTile + 1);
+  T* at = mt + CH * (kTile + 1);
+  T* fac = sm + W * 2 * CH * (kTile + 1) + warp * CH * FS;
+  const T* F = p.F + (size_t)min(b, p.B - 1) * g.fB;
+  const T ig = p.inv_gamma;
   const int nthr = S * kTile;
   // U-step staging: the lanes as per x CH (row, output offset) pairs
   const bool v_step = g.so == 1;
   const int per = kTile / CH, lane_r = lane % CH, lane_o = lane / CH;
 
-  float G[NT], rhs[K];
+  T G[NT], rhs[K];
 #pragma unroll
-  for (int e = 0; e < NT; ++e) G[e] = 0.f;
+  for (int e = 0; e < NT; ++e) G[e] = 0;
 #pragma unroll
-  for (int a = 0; a < K; ++a) rhs[a] = 0.f;
+  for (int a = 0; a < K; ++a) rhs[a] = 0;
 
   for (int r0 = lo; r0 < hi; r0 += CH) {
     const int rows = min(CH, hi - r0);
     range_barrier(1 + w, nthr);  // the range's previous chunk is consumed
     // mask and A, coalesced: the lanes walk the stride-1 axis of (n, m)
     if (v_step) {  // outputs along the lanes, rows s, s + S, ...
-      stage<4, float2>((CH - s + S - 1) / S,
+      stage<4, Pair<T>>((CH - s + S - 1) / S,
                     [&](int i) {
                       const int rl = s + i * S;
-                      if (rl >= rows || o0 + lane >= g.O) return make_float2(0.f, 0.f);
+                      if (rl >= rows || o0 + lane >= g.O) return make_pair2(T(0), T(0));
                       const long long q = (long long)(r0 + rl) * g.sr + o0 + lane;
-                      return make_float2(__ldg(p.mask + q), __ldg(p.A + q));
+                      return make_pair2(__ldg(p.mask + q), __ldg(p.A + q));
                     },
-                    [&](int i, float2 v) {
+                    [&](int i, Pair<T> v) {
                       const int rl = s + i * S;
                       mt[rl * (kTile + 1) + lane] = v.x, at[rl * (kTile + 1) + lane] = v.y;
                     });
     } else if (lane < per * CH) {  // rows along the lanes, outputs lo_, lo_ + per, ...
-      stage<4, float2>((kTile - lane_o - s * per + S * per - 1) / (S * per),
+      stage<4, Pair<T>>((kTile - lane_o - s * per + S * per - 1) / (S * per),
                     [&](int i) {
                       const int ol = lane_o + (s + i * S) * per;
-                      if (lane_r >= rows || o0 + ol >= g.O) return make_float2(0.f, 0.f);
+                      if (lane_r >= rows || o0 + ol >= g.O) return make_pair2(T(0), T(0));
                       const long long q = (long long)(r0 + lane_r) * g.sr + (long long)(o0 + ol) * g.so;
-                      return make_float2(__ldg(p.mask + q), __ldg(p.A + q));
+                      return make_pair2(__ldg(p.mask + q), __ldg(p.A + q));
                     },
-                    [&](int i, float2 v) {
+                    [&](int i, Pair<T> v) {
                       const int ol = lane_o + (s + i * S) * per;
                       mt[lane_r * (kTile + 1) + ol] = v.x, at[lane_r * (kTile + 1) + ol] = v.y;
                     });
     }
     // this warp's factor rows
     if (g.fl == 1) {  // the chunk's CH x K floats are contiguous
-      stage<4, float>((CH * K - lane + kTile - 1) / kTile,
+      stage<4, T>((CH * K - lane + kTile - 1) / kTile,
                    [&](int i) {
                      const int q = lane + i * kTile, rl = q / K;
-                     return rl < rows ? __ldg(F + (size_t)r0 * g.fr + q) : 0.f;
+                     return rl < rows ? __ldg(F + (size_t)r0 * g.fr + q) : T(0);
                    },
-                   [&](int i, float v) {
+                   [&](int i, T v) {
                      const int q = lane + i * kTile, rl = q / K;
                      fac[rl * FS + q - rl * K] = v;
                    });
     } else if (lane < CH) {  // K rows of the chunk's CH contiguous floats
-      stage<4, float>(K,
+      stage<4, T>(K,
                    [&](int l) {
                      return lane < rows ? __ldg(F + (size_t)(r0 + lane) * g.fr + (size_t)l * g.fl)
-                                        : 0.f;
+                                        : T(0);
                    },
-                   [&](int l, float v) { fac[lane * FS + l] = v; });
+                   [&](int l, T v) { fac[lane * FS + l] = v; });
     }
     range_barrier(1 + w, nthr);
     for (int rl = 0; rl < rows; ++rl) {
-      const float wv = mt[rl * (kTile + 1) + lane];
-      float f[FS];
+      const T wv = mt[rl * (kTile + 1) + lane];
+      T f[FS];
+      if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int a = 0; a < FS; a += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(fac + rl * FS + a);
-        f[a] = v.x, f[a + 1] = v.y, f[a + 2] = v.z, f[a + 3] = v.w;
+        for (int a = 0; a < FS; a += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(fac + rl * FS + a);
+          f[a] = v.x, f[a + 1] = v.y, f[a + 2] = v.z, f[a + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int a = 0; a < FS; a += 2) {
+          const double2 v = *reinterpret_cast<const double2*>(fac + rl * FS + a);
+          f[a] = v.x, f[a + 1] = v.y;
+        }
       }
       gram_update<K>(G, rhs, f, wv + ig, wv * at[rl * (kTile + 1) + lane]);
     }
@@ -296,7 +350,7 @@ __global__ void __launch_bounds__(kMaxWarps * kTile, 2) k6_kernel(K6Params p, Ge
   // ---- the W partials in warp order ----
   __syncthreads();
   if (w > 0) {
-    float* dst = sm + ((w - 1) * S + s) * (NT + K) * kTile + lane;
+    T* dst = sm + ((w - 1) * S + s) * (NT + K) * kTile + lane;
 #pragma unroll
     for (int e = 0; e < NT; ++e) dst[e * kTile] = G[e];
 #pragma unroll
@@ -306,7 +360,7 @@ __global__ void __launch_bounds__(kMaxWarps * kTile, 2) k6_kernel(K6Params p, Ge
   const int o = o0 + lane;
   if (w != 0 || b >= p.B || o >= g.O) return;
   for (int v = 1; v < W; ++v) {
-    const float* src = sm + ((v - 1) * S + s) * (NT + K) * kTile + lane;
+    const T* src = sm + ((v - 1) * S + s) * (NT + K) * kTile + lane;
 #pragma unroll
     for (int e = 0; e < NT; ++e) G[e] += src[e * kTile];
 #pragma unroll
@@ -317,36 +371,38 @@ __global__ void __launch_bounds__(kMaxWarps * kTile, 2) k6_kernel(K6Params p, Ge
 
 // ---- slots path: (1/gamma) F'F per slot, kGramRanges r ranges added in order ----
 constexpr int kGramRanges = 16;
-template <int K>
-__global__ void __launch_bounds__(kGramRanges * 64) k6_gram_kernel(K6Params p, Geom g) {
+template <int K, class T>
+__global__ void __launch_bounds__(kGramRanges * 64) k6_gram_kernel(K6ParamsT<T> p, Geom g) {
   constexpr int NT = tri(K);
-  __shared__ float part[kGramRanges][64];
+  __shared__ T part[kGramRanges][64];
   const int e = threadIdx.x & 63, q = threadIdx.x >> 6, b = blockIdx.x;
-  const float* F = p.F + (size_t)b * g.fB;
-  float s = 0.f;
+  const T* F = p.F + (size_t)b * g.fB;
+  T s = 0;
   if (e < NT) {
     int a = 0;
     while (tri(a + 1) <= e) ++a;
     const int c = e - tri(a), len = (g.R + kGramRanges - 1) / kGramRanges;
     const int lo = q * len, hi = min(g.R, lo + len);
 #pragma unroll 4
-    for (int r = lo; r < hi; ++r) s = fmaf(F[r * g.fr + a * g.fl], F[r * g.fr + c * g.fl], s);
+    for (int r = lo; r < hi; ++r) s = fma(F[r * g.fr + a * g.fl], F[r * g.fr + c * g.fl], s);
   }
   part[q][e] = s;
   __syncthreads();
   if (q == 0 && e < NT) {
-    float t = part[0][e];
+    T t = part[0][e];
     for (int i = 1; i < kGramRanges; ++i) t += part[i][e];
     p.gram[(size_t)b * NT + e] = p.inv_gamma * t;
   }
 }
 
 // ---- slots path: lanes = 32 slots, warp = one output ----
-template <int K>
-__global__ void __launch_bounds__(kMaxSlotsWarps * kTile, 1) k6_slots_kernel(K6Params p, Geom g) {
-  constexpr int NT = tri(K), FS = fstride(K);
-  extern __shared__ __align__(16) float sm[];
-  const int NW = p.W, CH = p.rpw, FSTR = slot_stride(K, CH);
+template <int K, class T>
+__global__ void __launch_bounds__(max_slots_warps<T>() * kTile, 1)
+    k6_slots_kernel(K6ParamsT<T> p, Geom g) {
+  constexpr int NT = tri(K), FS = fstride(K), VW = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char k6s_smem_raw[];
+  T* const sm = reinterpret_cast<T*>(k6s_smem_raw);
+  const int NW = p.W, CH = p.rpw, FSTR = slot_stride(K, CH, VW);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.y * kTile, b = b0 + lane;
   const int o0 = blockIdx.x * NW, o = o0 + warp;
@@ -355,29 +411,29 @@ __global__ void __launch_bounds__(kMaxSlotsWarps * kTile, 1) k6_slots_kernel(K6P
   const int st_r = g.so == 1 ? threadIdx.x / NW : lane, st_o = g.so == 1 ? threadIdx.x % NW : warp;
   const int buf = kTile * FSTR + 2 * NW * CH;  // one buffer: [32][FSTR], [NW][CH] x 2
 
-  float G[NT], rhs[K];
+  T G[NT], rhs[K];
 #pragma unroll
-  for (int e = 0; e < NT; ++e) G[e] = 0.f;
+  for (int e = 0; e < NT; ++e) G[e] = 0;
 #pragma unroll
-  for (int a = 0; a < K; ++a) rhs[a] = 0.f;
+  for (int a = 0; a < K; ++a) rhs[a] = 0;
 
   // chunk r0's copies into buffer bs: the 32 slots' rows r0 .. r0 + 31 of
-  // the factor, (B, R, K) rows (32 K contiguous floats a slot, 16 bytes a
+  // the factor, (B, R, K) rows (32 K contiguous values a slot, 16 bytes a
   // copy), then one (row, output) of mask and A a thread
-  constexpr int Q = kTile * K / 4;  // 16-byte pieces of a slot's chunk
-  auto copy_chunk = [&](int r0, float* bs) {
+  constexpr int Q = kTile * K / VW;  // 16-byte pieces of a slot's chunk
+  auto copy_chunk = [&](int r0, T* bs) {
     const int rows = min(CH, g.R - r0);
     for (int c = threadIdx.x; c < kTile * Q; c += blockDim.x) {
       const int sl = c / Q, q = c - sl * Q, bb = b0 + sl;
-      const int bytes = bb < p.B ? 4 * min(4, max(0, rows * K - 4 * q)) : 0;
-      cp_async16(bs + sl * FSTR + 4 * q,
-                 bytes ? p.F + bb * g.fB + (size_t)r0 * K + 4 * q : p.F, bytes);
+      const int bytes = bb < p.B ? (int)sizeof(T) * min(VW, max(0, rows * K - VW * q)) : 0;
+      cp_async16(bs + sl * FSTR + VW * q,
+                 bytes ? p.F + bb * g.fB + (size_t)r0 * K + VW * q : p.F, bytes);
     }
     const bool in = st_r < rows && o0 + st_o < g.O;
     const long long q = in ? (long long)(r0 + st_r) * g.sr + (long long)(o0 + st_o) * g.so : 0;
-    float* ms = bs + kTile * FSTR;
-    cp_async4(ms + st_o * CH + st_r, p.mask + q, in);
-    cp_async4(ms + NW * CH + st_o * CH + st_r, p.A + q, in);
+    T* ms = bs + kTile * FSTR;
+    cp_async_one(ms + st_o * CH + st_r, p.mask + q, in);
+    cp_async_one(ms + NW * CH + st_o * CH + st_r, p.A + q, in);
     cp_async_commit();
   };
   const int nch = (g.R + CH - 1) / CH;
@@ -391,21 +447,21 @@ __global__ void __launch_bounds__(kMaxSlotsWarps * kTile, 1) k6_slots_kernel(K6P
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* fs = sm + (c & 1) * buf;
-    const float* ms = fs + kTile * FSTR;
-    const float* as = ms + NW * CH;
+    const T* fs = sm + (c & 1) * buf;
+    const T* ms = fs + kTile * FSTR;
+    const T* as = ms + NW * CH;
     const int rows = min(CH, g.R - c * CH);
     for (int rl = 0; rl < rows; ++rl) {
-      const float wv = ms[warp * CH + rl];  // the same for every lane
-      if (wv == 0.f) continue;
-      float f[FS];
+      const T wv = ms[warp * CH + rl];  // the same for every lane
+      if (wv == T(0)) continue;
+      T f[FS];
       load_row<K>(f, fs + lane * FSTR + rl * K);
       gram_update<K>(G, rhs, f, wv, wv * as[warp * CH + rl]);
     }
     __syncthreads();  // the buffer is refilled two chunks on
   }
   if (b >= p.B || o >= g.O) return;
-  const float* gr = p.gram + (size_t)b * NT;
+  const T* gr = p.gram + (size_t)b * NT;
 #pragma unroll
   for (int e = 0; e < NT; ++e) G[e] += gr[e];
   solve_store<K>(G, rhs, p.ridge_eps, p.out + b * g.oB + o * g.oo, g.ol);
@@ -421,33 +477,34 @@ cudaError_t allow_smem(Kernel kernel, bool& done) {
   return err;
 }
 
-template <int K>
-int launch_k(const K6Params& p, const Geom& g, void* stream) {
-  const size_t smem = sizeof(float) * smem_floats(p.path, K, p.S, p.W, p.rpw);
+template <int K, class T>
+int launch_k(const K6ParamsT<T>& p, const Geom& g, void* stream) {
+  const size_t smem = sizeof(T) * smem_floats(p.path, K, p.S, p.W, p.rpw, 16 / sizeof(T));
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (p.path == 0) {
     static bool done = false;
     if (smem > 48 * 1024) {
-      const cudaError_t err = allow_smem(k6_kernel<K>, done);
+      const cudaError_t err = allow_smem(k6_kernel<K, T>, done);
       if (err != cudaSuccess) return (int)err;
     }
     const dim3 grid((g.O + kTile - 1) / kTile, (p.B + p.S - 1) / p.S);
-    k6_kernel<K><<<grid, p.S * p.W * kTile, smem, st>>>(p, g);
+    k6_kernel<K, T><<<grid, p.S * p.W * kTile, smem, st>>>(p, g);
     return (int)cudaGetLastError();
   }
   static bool done = false;
   if (smem > 48 * 1024) {
-    const cudaError_t err = allow_smem(k6_slots_kernel<K>, done);
+    const cudaError_t err = allow_smem(k6_slots_kernel<K, T>, done);
     if (err != cudaSuccess) return (int)err;
   }
-  k6_gram_kernel<K><<<p.B, kGramRanges * 64, 0, st>>>(p, g);
+  k6_gram_kernel<K, T><<<p.B, kGramRanges * 64, 0, st>>>(p, g);
   const dim3 grid((g.O + p.W - 1) / p.W, (p.B + kTile - 1) / kTile);
-  k6_slots_kernel<K><<<grid, p.W * kTile, smem, st>>>(p, g);
+  k6_slots_kernel<K, T><<<grid, p.W * kTile, smem, st>>>(p, g);
   return (int)cudaGetLastError();
 }
 
-int launch(const K6Params& p, const Geom& g, void* stream) {
+template <class T>
+int launch(const K6ParamsT<T>& p, const Geom& g, void* stream) {
   const int R1 = g.R > 0 ? g.R : 1;
   if (p.path == 0) {
     // W non-empty ranges of a multiple of kUnit rows cover every r once,
@@ -455,8 +512,9 @@ int launch(const K6Params& p, const Geom& g, void* stream) {
     if (p.S < 1 || p.W < 1 || p.S * p.W > kMaxWarps || p.rpw < kUnit || p.rpw % kUnit ||
         (long long)(p.W - 1) * p.rpw >= R1 || (long long)p.W * p.rpw < R1)
       return (int)cudaErrorInvalidValue;
-  } else if (p.path != 1 || p.W < 1 || p.W > kMaxSlotsWarps || p.rpw != kTile ||
-             p.gram == nullptr || g.fl != 1 || g.fr != p.k || (long long)g.R * p.k % 4 ||
+  } else if (p.path != 1 || p.W < 1 || p.W > max_slots_warps<T>() || p.rpw != kTile ||
+             p.gram == nullptr || g.fl != 1 || g.fr != p.k ||
+             (long long)g.R * p.k % (16 / (int)sizeof(T)) ||
              reinterpret_cast<uintptr_t>(p.F) % 16) {
     // the slots path stages 32 rows a chunk in 16-byte pieces of (B, R, k)
     // rows, one (row, output) of mask and A a thread
@@ -478,27 +536,45 @@ int launch(const K6Params& p, const Geom& g, void* stream) {
   }
 }
 
-}  // namespace
-
-// V-step: U (B, n, k) fixed, V (B, k, m) solved per column j; r = row i
-OMC_EXPORT int omc_k6_vstep(const K6Params* params, void* stream) {
-  const K6Params p = *params;
+template <class T>
+int vstep(const K6ParamsT<T>& p, void* stream) {
   const Geom g{p.n, p.m, (long long)p.n * p.k, p.k, 1, p.m, 1,
                (long long)p.k * p.m, 1, p.m};
   return launch(p, g, stream);
 }
 
-// U-step: V (B, k, m) fixed, U (B, n, k) solved per row i; r = column j.
-// The slots path takes V transposed, (B, m, k): rows of k, as U is.
-OMC_EXPORT int omc_k6_ustep(const K6Params* params, void* stream) {
-  const K6Params p = *params;
+template <class T>
+int ustep(const K6ParamsT<T>& p, void* stream) {
   const bool rows = p.path == 1;
   const Geom g{p.m, p.n, (long long)p.k * p.m, rows ? p.k : 1, rows ? 1 : p.m, 1, p.m,
                (long long)p.n * p.k, p.k, 1};
   return launch(p, g, stream);
 }
 
-// the plan's shared memory, held against ops.linalg.k6_plan by the smoke
-OMC_EXPORT long long omc_k6_smem_bytes(int path, int k, int S, int W, int rpw) {
-  return (long long)sizeof(float) * smem_floats(path, k, S, W, rpw);
+}  // namespace
+
+// V-step: U (B, n, k) fixed, V (B, k, m) solved per column j; r = row i
+OMC_EXPORT int omc_k6_vstep(const K6Params* params, void* stream) {
+  return vstep(*params, stream);
+}
+
+// U-step: V (B, k, m) fixed, U (B, n, k) solved per row i; r = column j.
+// The slots path takes V transposed, (B, m, k): rows of k, as U is.
+OMC_EXPORT int omc_k6_ustep(const K6Params* params, void* stream) {
+  return ustep(*params, stream);
+}
+
+// the float64 build of both steps (double operands, outputs and scratch)
+OMC_EXPORT int omc_k6_vstep_f64(const K6ParamsT<double>* params, void* stream) {
+  return vstep(*params, stream);
+}
+
+OMC_EXPORT int omc_k6_ustep_f64(const K6ParamsT<double>* params, void* stream) {
+  return ustep(*params, stream);
+}
+
+// the plan's shared memory at the operands' element size (4, or 8 for the
+// float64 build), held against ops.linalg.k6_plan by the smoke
+OMC_EXPORT long long omc_k6_smem_bytes(int path, int k, int S, int W, int rpw, int elem) {
+  return (long long)elem * smem_floats(path, k, S, W, rpw, 16 / elem);
 }

@@ -41,6 +41,14 @@ PyTorch version:
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
+
+K2, K3, K4, K4s, K5 and K6 also have float64 builds: the same kernels on
+double operands, behind C entry points named ``..._f64`` that take the
+float64 parameter blocks (``float64_block``: pointer fields as in the float
+blocks, scalar fields in double).  A wrapper picks the build from its
+operands' dtype (``entry``) and checks every operand at that dtype; the
+other kernels take float32 only, and ``require_cuda_dtype`` refuses a
+float64 CUDA solve of their families.
 """
 
 from __future__ import annotations
@@ -56,10 +64,12 @@ from pathlib import Path
 
 import torch
 
-# launches of each kernel in this process (the wrappers add one per launch)
+# launches of each kernel in this process (the wrappers add one per
+# launch); a float64 build counts under its own key, "K2_f64" for K2's
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
             "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0,
-            "K4": 0, "K4s": 0, "K5": 0, "K6": 0}
+            "K4": 0, "K4s": 0, "K5": 0, "K6": 0,
+            "K2_f64": 0, "K3_f64": 0, "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
@@ -301,6 +311,72 @@ class K6Params(ctypes.Structure):
                        ("B", "n", "m", "k", "path", "S", "W", "rpw"), ("inv_gamma", "ridge_eps"))
 
 
+def float64_block(cls):
+    """The float64 build's parameter block of the float block ``cls``: the
+    same fields, its float scalars as doubles (``K?ParamsT<double>`` in
+    ``csrc/common.cuh``)."""
+    fields = [(name, ctypes.c_double if ctype is ctypes.c_float else ctype)
+              for name, ctype in cls._fields_]
+    return type(cls.__name__ + "64", (ctypes.Structure,), {"_fields_": fields})
+
+
+K2Params64, K3Params64, K4Params64, K5Params64, K4sParams64, K6Params64 = map(
+    float64_block, (K2Params, K3Params, K4Params, K5Params, K4sParams, K6Params))
+# the float64 builds: float block -> (float64 block, entry points)
+FLOAT64_BUILDS = {
+    K2Params: (K2Params64, ("omc_k2_zstep",)),
+    K3Params: (K3Params64, ("omc_k3_cone",)),
+    K4Params: (K4Params64, ("omc_k4_jacobi",)),
+    K5Params: (K5Params64, ("omc_k5_separation",)),
+    K4sParams: (K4sParams64, ("omc_k4s_jacobi_small",)),
+    K6Params: (K6Params64, ("omc_k6_vstep", "omc_k6_ustep")),
+}
+
+
+def block(cls, dtype):
+    """A fresh parameter block of kernel block ``cls`` for operands of
+    ``dtype`` (float32: ``cls``; float64: its float64 build's block)."""
+    if dtype == torch.float32:
+        return cls()
+    if dtype == torch.float64 and cls in FLOAT64_BUILDS:
+        return FLOAT64_BUILDS[cls][0]()
+    raise TypeError(f"{cls.__name__}: no {dtype} build")
+
+
+def entry(fn_name: str, dtype) -> str:
+    """The C entry point of ``fn_name``'s build for operands of ``dtype``."""
+    if dtype == torch.float32:
+        return fn_name
+    if dtype == torch.float64 and any(fn_name in fns for _, fns in FLOAT64_BUILDS.values()):
+        return fn_name + "_f64"
+    raise TypeError(f"{fn_name}: no {dtype} build")
+
+
+# The solver families whose every kernel has a float64 build: the base ADMM
+# family (K2, K3, K4, K4s, K5, K6) and the two options that run through its
+# kernels, PDHG (K4, K4s, K5) and Halpern (K3's Halpern mode).
+FLOAT64_FAMILIES = ("base", "pdhg", "halpern")
+FAMILIES = FLOAT64_FAMILIES + ("shor", "shor_k", "mccormick")
+FLOAT64_ROADMAP = ('ROADMAP.md queue 1, "float64 on the card": the float64 builds of K7, '
+                   "K8a, K8b (Shor k = 1), K7t, K7x, K8c, K8d (Shor k > 1) and K9s, "
+                   "K9a, K9b (McCormick)")
+
+
+def require_cuda_dtype(family: str, dtype) -> None:
+    """The CUDA guard of every solver family: float32 runs every family;
+    float64 runs the families of ``FLOAT64_FAMILIES``; anything else
+    raises ``ValueError`` (for a float64 Shor or McCormick request, the one
+    message that names the roadmap item)."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown solver family {family!r}")
+    if dtype == torch.float32 or (dtype == torch.float64 and family in FLOAT64_FAMILIES):
+        return
+    if dtype == torch.float64:
+        raise ValueError(f'the CUDA path runs the {family} family in dtype="float32" only; '
+                         f"its float64 build is still to come ({FLOAT64_ROADMAP})")
+    raise ValueError(f"the CUDA path runs float32 or float64, not {dtype}")
+
+
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name, params in (
@@ -326,6 +402,11 @@ def _load(path: Path):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(params), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for params, (params64, names) in FLOAT64_BUILDS.items():
+        for name in names:
+            fn = getattr(lib, name + "_f64")
+            fn.argtypes = [ctypes.POINTER(params64), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     lib.omc_error_string.argtypes = [ctypes.c_int]
     lib.omc_error_string.restype = ctypes.c_char_p
     lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int] * 4
@@ -334,7 +415,9 @@ def _load(path: Path):
     lib.omc_k5_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k5_threads.argtypes = []
     lib.omc_k5_threads.restype = ctypes.c_int
-    lib.omc_k4s_smem_bytes.argtypes = [ctypes.c_int]
+    lib.omc_k4_cta_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.omc_k4_cta_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k4s_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.omc_k4s_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k4s_grid_x.argtypes = [ctypes.c_int]
     lib.omc_k4s_grid_x.restype = ctypes.c_int
@@ -342,7 +425,7 @@ def _load(path: Path):
     lib.omc_k1_scratch_floats.restype = ctypes.c_longlong
     lib.omc_k1_cluster_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.omc_k1_cluster_smem.restype = ctypes.c_longlong
-    lib.omc_k6_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.omc_k6_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.omc_k6_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.omc_k8c_smem_bytes.restype = ctypes.c_longlong
@@ -362,8 +445,8 @@ def _load(path: Path):
     lib.omc_k9a_grid_x.restype = ctypes.c_int
     lib.omc_k9b_grid_x.argtypes = [ctypes.c_int] * 5
     lib.omc_k9b_grid_x.restype = ctypes.c_int
-    for name, nargs in (("omc_k2_smem_bytes", 8), ("omc_k3_smem_bytes", 8),
-                        ("omc_k2_ws_doubles", 5), ("omc_k3_ws_doubles", 5)):
+    for name, nargs in (("omc_k2_smem_bytes", 9), ("omc_k3_smem_bytes", 9),
+                        ("omc_k2_ws_doubles", 6), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
         getattr(lib, name).restype = ctypes.c_longlong
     return lib
@@ -371,19 +454,21 @@ def _load(path: Path):
 
 def launch(key: str, fn_name: str, params: ctypes.Structure, device):
     """Launch one kernel on the current stream of ``device``; raise on a
-    launch error, count the launch."""
+    launch error, count the launch (a float64 entry point under ``key``'s
+    "_f64" count)."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn_name)(ctypes.byref(params), ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.omc_error_string(err).decode()
         raise RuntimeError(f"{key} ({fn_name}) launch failed: {msg} ({err})")
-    LAUNCHES[key] += 1
+    LAUNCHES[key + "_f64" if fn_name.endswith("_f64") else key] += 1
 
 
 def check(name, t, shape, device, dtype=torch.float32):
-    """Validate one kernel operand: ``dtype`` (float32 values, int32
-    index tables), contiguous, on ``device``, of exactly ``shape``."""
+    """Validate one kernel operand: ``dtype`` (the call's value type,
+    float32 or, for a float64 build, float64; int32 index tables),
+    contiguous, on ``device``, of exactly ``shape``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:

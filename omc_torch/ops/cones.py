@@ -10,7 +10,9 @@ Jacobi spread over all SMs; ``k4_plan`` picks the path) and K4s
 (``csrc/k4s_jacobi_small.cu``: the PSD projection of matrices up to 8 x 8,
 one thread each).  A CPU tensor takes the plain version, LAPACK through
 ``torch.linalg`` (the float64 host certificates of the Shor bounds go
-through it); a CUDA tensor takes the kernel or raises.
+through it); a CUDA tensor takes the kernel or raises.  Both kernels have a
+float64 build, which a float64 CUDA tensor takes (``kernels.entry``): the
+same schedules at double's epsilon, with outputs in float64.
 """
 
 from __future__ import annotations
@@ -75,50 +77,69 @@ K4_CTA_EIGVALS_D = 150
 K4_CTA_VECTORS_D, K4_CTA_VECTORS_B = 100, 64
 
 
-def k4_cta_fits(d, mode):
-    """Whether the CTA path holds A (and, with vectors, V) of order ``d``
-    in one CTA's shared memory (``cta_smem_bytes`` in the kernel's source):
-    up to d = 237 for eigenvalues, 168 with vectors."""
+def k4_cta_smem_bytes(d, mode, dtype=torch.float32):
+    """The CTA path's shared memory (``cta_smem_bytes`` in the kernel's
+    source, ``omc_k4_cta_smem_bytes``): the per-pair and per-index head and
+    A (and, with vectors, V), every slot one value of ``dtype``."""
     ld = d | 1
     head = 6 * ((d + 1) // 2) + 32 + 3 * d + 1
-    return 4 * (head + d * ld * (2 if mode else 1)) <= K4_SMEM_MAX
+    return dtype.itemsize * (head + d * ld * (2 if mode else 1))
 
 
-def k4_block_geometry(d, mode):
+def k4_cta_fits(d, mode, dtype=torch.float32):
+    """Whether the CTA path holds A (and, with vectors, V) of order ``d``
+    in one CTA's shared memory: in float32 up to d = 237 for eigenvalues,
+    168 with vectors; in float64 up to 167 and 118."""
+    return k4_cta_smem_bytes(d, mode, dtype) <= K4_SMEM_MAX
+
+
+def k4_block_geometry(d, mode, dtype=torch.float32):
     """The block path's schedule and workspace (``BGeom`` in the kernel's
     source): ``nb`` blocks of ``K4_WIDTH``, ``rounds`` per outer sweep (with
     a bye block when ``nb`` is odd), ``pairs`` per round, the padded order
-    ``D`` and the workspace floats per matrix."""
+    ``D``, the workspace values per matrix (``mat_floats``, in ``dtype``)
+    and their bytes."""
     nb = -(-d // K4_WIDTH)
     Nb = nb + (nb & 1)
     P, D, N2 = Nb // 2, Nb * K4_WIDTH, 2 * K4_WIDTH
     floats = D * D * (2 if mode else 1) + P * N2 * N2 + D + (P + 4 + 3) // 4 * 4
-    return dict(nb=nb, rounds=Nb - 1, pairs=P, D=D, mat_floats=floats)
+    return dict(nb=nb, rounds=Nb - 1, pairs=P, D=D, mat_floats=floats,
+                mat_bytes=floats * dtype.itemsize)
 
 
-def k4_plan(B, d, mode, path=None):
-    """K4's path for ``B`` matrices of order ``d`` in ``mode``: the CTA path
-    (one CTA per matrix) where it wins (``K4_CTA_*`` above), else the block
-    path (blocks of 16).  ``path`` (one of ``K4_PATHS``) forces it; the CTA
-    path raises ``ValueError`` where A (and V) do not fit its shared
-    memory.  Returns a dict: ``path``, ``workspace_floats`` (the whole
-    call's, as ``omc_k4_workspace_floats`` reports it) and ``rounds`` per
-    outer sweep on the block path (two grid barriers each; 0 on the CTA
-    path)."""
+def k4_plan(B, d, mode, path=None, dtype=torch.float32):
+    """K4's path for ``B`` matrices of order ``d`` in ``mode``: in float32
+    the CTA path (one CTA per matrix) where it wins (``K4_CTA_*`` above),
+    else the block path (blocks of 16); in float64 the CTA path wherever A
+    (and V) fit its shared memory, else the block path (the float64 block
+    path's FP64 tile products are not yet measured against it).  ``path``
+    (one of ``K4_PATHS``) forces it; the CTA path raises ``ValueError``
+    where A (and V) do not fit.  Returns a dict: ``path``,
+    ``workspace_floats`` (the whole call's values of ``dtype``, as
+    ``omc_k4_workspace_floats`` reports it), ``workspace_bytes``,
+    ``smem_bytes`` (a CTA's on the CTA path) and ``rounds`` per outer sweep
+    on the block path (two grid barriers each; 0 on the CTA path)."""
+    f64 = dtype == torch.float64
     if path is None:
-        if mode == 0:
+        if f64:
+            cta = True
+        elif mode == 0:
             cta = d <= K4_CTA_EIGVALS_D
         else:
             cta = d <= K4_CTA_VECTORS_D and B >= K4_CTA_VECTORS_B
-        path = "cta" if cta and k4_cta_fits(d, mode) else "block16"
+        path = "cta" if cta and k4_cta_fits(d, mode, dtype) else "block16"
     if path not in K4_PATHS:
         raise ValueError(f"K4 path must be one of {K4_PATHS}, got {path!r}")
     if path == "cta":
-        if not k4_cta_fits(d, mode):
-            raise ValueError(f"K4's CTA path: d={d} (mode {mode}) does not fit shared memory")
-        return dict(path=path, workspace_floats=0, rounds=0)
-    geo = k4_block_geometry(d, mode)
-    return dict(path=path, workspace_floats=K4_CTL + B * geo["mat_floats"], rounds=geo["rounds"])
+        if not k4_cta_fits(d, mode, dtype):
+            raise ValueError(f"K4's CTA path: d={d} (mode {mode}, {dtype}) does not fit "
+                             "shared memory")
+        return dict(path=path, workspace_floats=0, workspace_bytes=0, rounds=0,
+                    smem_bytes=k4_cta_smem_bytes(d, mode, dtype))
+    geo = k4_block_geometry(d, mode, dtype)
+    n = K4_CTL + B * geo["mat_floats"]
+    return dict(path=path, workspace_floats=n, workspace_bytes=n * dtype.itemsize,
+                rounds=geo["rounds"], smem_bytes=0)
 
 
 def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=None,
@@ -132,7 +153,8 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
     dict, block path): waits for the kernel and fills in its grid barriers,
     the milliseconds its first CTA spent in each phase, barrier included,
     its grid (CTAs) and group (phase 1's warps per block pair).  Returns
-    ``w``, ``P`` or ``(w, V)``."""
+    ``w``, ``P`` or ``(w, V)``, in the operands' dtype (float32, or
+    float64 through the float64 build)."""
     key = "K4" if M is not None else "K5"
     if mode not in (0, 1, 2):
         raise ValueError(f"{key}: mode {mode!r} is not 0, 1 or 2")
@@ -145,41 +167,43 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
     nout = d if nout is None else nout
     if not 1 <= nout <= d:
         raise ValueError(f"{key}: nout {nout} outside 1..{d}")
-    plan = k4_plan(Bn, d, mode, path)
-    p = kernels.K4Params()
+    dt = src.dtype
+    plan = k4_plan(Bn, d, mode, path, dt)
+    p = kernels.block(kernels.K4Params, dt)
     p.B, p.d, p.nout, p.mode, p.k = Bn, d, nout, mode, 0
     p.path = int(plan["path"] != "cta")
     if M is not None:
         M = M.contiguous()
-        p.M = kernels.check("M", M, M.shape, dev)
+        p.M = kernels.check("M", M, M.shape, dev, dt)
     else:
         U, Y = U.contiguous(), Y.contiguous()
         p.k = U.shape[-1]
-        p.U = kernels.check("U", U, (Bn, d, p.k), dev)
-        p.Y = kernels.check("Y", Y, (Bn, d, d), dev)
+        p.U = kernels.check("U", U, (Bn, d, p.k), dev, dt)
+        p.Y = kernels.check("Y", Y, (Bn, d, d), dev, dt)
     if sweeps is None:
         sweeps = torch.empty(lead, dtype=torch.int32, device=dev)
     p.sweeps = kernels.check("sweeps", sweeps, lead, dev, torch.int32)
     w = V = P = None
     if mode == 1:
-        P = torch.empty((*lead, d, d), dtype=torch.float32, device=dev)
+        P = torch.empty((*lead, d, d), dtype=dt, device=dev)
         p.P = P.data_ptr()
     else:
-        w = torch.empty((*lead, nout), dtype=torch.float32, device=dev)
+        w = torch.empty((*lead, nout), dtype=dt, device=dev)
         p.w = w.data_ptr()
         if mode == 2:
-            V = torch.empty((*lead, d, nout), dtype=torch.float32, device=dev)
+            V = torch.empty((*lead, d, nout), dtype=dt, device=dev)
             p.V = V.data_ptr()
     nwork = kernels.library().omc_k4_workspace_floats(Bn, d, mode, p.path)
     # held until the launch is queued; the caching allocator reuses it only
     # for work queued after this launch on the same stream
-    work = torch.empty((nwork,), dtype=torch.float32, device=dev) if nwork else None
+    work = torch.empty((nwork,), dtype=dt, device=dev) if nwork else None
     p.work = work.data_ptr() if work is not None else None
     if Bn:
-        kernels.launch(key, "omc_k4_jacobi", p, dev)
+        kernels.launch(key, kernels.entry("omc_k4_jacobi", dt), p, dev)
     if stats is not None and p.path and Bn:
-        ctl = work[:K4_CTL].cpu()  # synchronises
-        ns, words = ctl[4:8].view(torch.int64), ctl.view(torch.int32)
+        # the control words: 32-bit, whatever the workspace's dtype
+        words = work[:K4_CTL].cpu().view(torch.int32)[:K4_CTL]  # synchronises
+        ns = words[4:8].view(torch.int64)
         stats.update(grid_barriers=int(words[1]), phase1_ms=float(ns[0]) / 1e6,
                      phase2_ms=float(ns[1]) / 1e6, grid=int(words[8]), group=int(words[9]))
     return P if mode == 1 else (w if mode == 0 else (w, V))
@@ -189,33 +213,36 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
 K4S_THREADS = 128
 
 
-def k4s_plan(N, D):
+def k4s_plan(N, D, dtype=torch.float32):
     """K4s's launch for ``N`` matrices of order ``D``: ``ctas`` of
     ``threads`` matrices each (the last one ragged), every matrix staged at
-    a row of ``stride`` = D^2 | 1 floats (odd), ``smem_bytes`` a CTA (the
-    kernel's ``omc_k4s_grid_x`` and ``omc_k4s_smem_bytes``)."""
+    a row of ``stride`` = D^2 | 1 values (odd) of ``dtype``, ``smem_bytes``
+    a CTA (the kernel's ``omc_k4s_grid_x`` and ``omc_k4s_smem_bytes``;
+    twice the float32 bytes in float64)."""
     stride = (D * D) | 1
     return dict(ctas=-(-N // K4S_THREADS), threads=K4S_THREADS, stride=stride,
-                smem_bytes=4 * K4S_THREADS * stride)
+                smem_bytes=dtype.itemsize * K4S_THREADS * stride)
 
 
 def k4s_project_psd(M, sweeps=None):
     """Launch K4s: the PSD projection of a (..., d, d) batch, d <= 8, one
-    thread per matrix, any batch size in one launch."""
+    thread per matrix, any batch size in one launch (float32, or float64
+    through the float64 build)."""
     dev = _cuda("K4s", M)
     d = M.shape[-1]
     if d > K4S_MAX_D:
         raise ValueError(f"K4s takes d <= {K4S_MAX_D}, got {d}")
     M = M.contiguous()
-    out = torch.empty(M.shape, dtype=torch.float32, device=dev)
-    p = kernels.K4sParams()
+    dt = M.dtype
+    p = kernels.block(kernels.K4sParams, dt)
+    out = torch.empty(M.shape, dtype=dt, device=dev)
     p.N, p.D = M.numel() // (d * d), d
-    p.t = kernels.check("t", M, M.shape, dev)
+    p.t = kernels.check("t", M, M.shape, dev, dt)
     p.w = out.data_ptr()
     p.sweeps = kernels.check("sweeps", sweeps, M.shape[:-2], dev, torch.int32) \
         if sweeps is not None else None
     if p.N:
-        kernels.launch("K4s", "omc_k4s_jacobi_small", p, dev)
+        kernels.launch("K4s", kernels.entry("omc_k4s_jacobi_small", dt), p, dev)
     return out
 
 

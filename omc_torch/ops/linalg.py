@@ -10,7 +10,8 @@ the batch dimension out: ``U`` (B, n, k), ``V`` (B, k, m), and ``A`` /
 (``csrc/k6_altmin.cu``, k <= 10): a CPU tensor takes the plain version
 (``v_step_plain``, ``u_step_unconstrained_plain``: batched LU solves), a
 CUDA tensor takes the kernel (Cholesky solves of the same SPD, ridged
-systems, on the tiling ``k6_plan`` picks) or raises.
+systems, on the tiling ``k6_plan`` picks; a float64 tensor its float64
+build) or raises.
 """
 
 from __future__ import annotations
@@ -29,26 +30,33 @@ K6_MAX_K = 10
 K6_TILE, K6_UNIT, K6_MAX_WARPS, K6_TARGET_WARPS = 32, 8, 8, 132 * 16
 K6_SLOTS_MAX_WARPS, K6_SLOTS_CTAS, K6_SLOTS_MIN_B, K6_SLOTS_MIN_R = 16, 100, 32, 512
 K6_PATHS = ("tile", "slots")
+# the float64 build's slots-path CTAs run at most 8 warps (its Gram takes
+# twice the registers: 255 a thread at k = 10)
+K6_SLOTS_MAX_WARPS_F64 = 8
 
 
-def k6_smem_bytes(path: str, k: int, S: int, W: int, rpw: int) -> int:
-    """K6's dynamic shared memory (``omc_k6_smem_bytes``).  Tile path: per
-    r range the padded tiles of mask and A of min(32, rpw) rows, per warp a
-    factor chunk; the combine reuses it for the S (W - 1) partial Grams.
-    Slots path: two buffers (cp.async double buffering), each the 32 slots'
-    rpw factor rows as they lie in the factor (a slot stride of an odd
-    number of 16-byte units), then the W outputs' mask and A rows."""
+def k6_smem_bytes(path: str, k: int, S: int, W: int, rpw: int, dtype=torch.float32) -> int:
+    """K6's dynamic shared memory (``omc_k6_smem_bytes``) at ``dtype``'s
+    element size.  Tile path: per r range the padded tiles of mask and A
+    of min(32, rpw) rows, per warp a factor chunk; the combine reuses it for
+    the S (W - 1) partial Grams.  Slots path: two buffers (cp.async double
+    buffering), each the 32 slots' rpw factor rows as they lie in the
+    factor (a slot stride of an odd number of 16-byte units), then the W
+    outputs' mask and A rows."""
+    e = dtype.itemsize
     if path == "slots":
-        chunk = (rpw * k + 3) & ~3
-        return 8 * (K6_TILE * (chunk + (4 if (chunk // 4) % 2 == 0 else 0)) + 2 * W * rpw)
+        vw = 16 // e  # values of a 16-byte unit
+        chunk = (rpw * k + vw - 1) & ~(vw - 1)
+        return 2 * e * (K6_TILE * (chunk + (vw if (chunk // vw) % 2 == 0 else 0)) + 2 * W * rpw)
     ch = min(rpw, K6_TILE)
     stage = W * 2 * ch * (K6_TILE + 1) + S * W * ch * ((k + 3) & ~3)
     comb = S * (W - 1) * (k * (k + 1) // 2 + k) * K6_TILE
-    return 4 * max(stage, comb)
+    return e * max(stage, comb)
 
 
 @functools.lru_cache(maxsize=256)
-def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None) -> dict:
+def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None,
+            dtype=torch.float32) -> dict:
     """K6's path and tiling for B slots, R reduction indices (n for the
     V-step, m for the U-step) and O outputs.
 
@@ -64,12 +72,17 @@ def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None) -> dict:
       (16, fewer where the grid would have under ``K6_SLOTS_CTAS`` CTAs),
       streaming the slots' factor rows in chunks of ``rpw`` = 32.
 
+    ``dtype`` float64 plans the float64 build: the same rules, 16-byte
+    pieces of two doubles (R k even), slots-path CTAs of at most
+    ``K6_SLOTS_MAX_WARPS_F64`` warps, the shared memory at 8 bytes a value.
+
     ``path`` forces one (timing); the default picks by shape.  (Cached: the
     altmin loop asks for the same shapes every iteration; do not mutate the
     returned dict.)"""
     if not 1 <= k <= K6_MAX_K:
         raise ValueError(f"K6 takes 1 <= k <= {K6_MAX_K}, got k = {k}")
-    rows16 = R * k % 4 == 0  # a slot's factor rows start on 16 bytes
+    vw = 16 // dtype.itemsize
+    rows16 = R * k % vw == 0  # a slot's factor rows start on 16 bytes
     if path is None:
         big = B >= K6_SLOTS_MIN_B and R >= K6_SLOTS_MIN_R
         path = "slots" if big and rows16 else "tile"
@@ -77,10 +90,12 @@ def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None) -> dict:
         raise ValueError(f"K6: unknown path {path!r}, expected one of {K6_PATHS}")
     if path == "slots" and not rows16:
         raise ValueError(f"K6: the slots path copies 16-byte pieces; R k = {R * k} is not "
-                         "a multiple of 4")
+                         f"a multiple of {vw}")
     if path == "slots":
         groups = -(-B // K6_TILE)
-        W = next((w for w in (16, 8, 4, 2) if -(-O // w) * groups >= K6_SLOTS_CTAS), 1)
+        most = K6_SLOTS_MAX_WARPS_F64 if dtype == torch.float64 else K6_SLOTS_MAX_WARPS
+        W = next((w for w in (16, 8, 4, 2) if w <= most and -(-O // w) * groups >= K6_SLOTS_CTAS),
+                 1)
         S, rpw, grid = 1, K6_TILE, (-(-O // W), groups)
     else:
         tiles = -(-O // K6_TILE)
@@ -92,7 +107,7 @@ def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None) -> dict:
         S = max(1, min(B, K6_MAX_WARPS // W, 4))
         grid = (tiles, -(-B // S))
     return dict(path=path, S=S, W=W, rpw=rpw, threads=32 * S * W, grid=grid,
-                smem_bytes=k6_smem_bytes(path, k, S, W, rpw))
+                smem_bytes=k6_smem_bytes(path, k, S, W, rpw, dtype))
 
 
 def _k6(fn_name, F, f_shape, A, mask, gamma, ridge_eps, k, out_shape, R, O, path):
@@ -100,7 +115,8 @@ def _k6(fn_name, F, f_shape, A, mask, gamma, ridge_eps, k, out_shape, R, O, path
     if dev.type != "cuda":
         raise ValueError(f"K6: unsupported device {dev}")
     B, (n, m) = F.shape[0], A.shape
-    plan = k6_plan(B, R, O, k, path)
+    dt = F.dtype
+    plan = k6_plan(B, R, O, k, path, dt)
     slots = plan["path"] == "slots"
     if slots and fn_name == "omc_k6_ustep":
         # the slots path copies rows of k: V (B, k, m) goes in as (B, m, k)
@@ -108,21 +124,21 @@ def _k6(fn_name, F, f_shape, A, mask, gamma, ridge_eps, k, out_shape, R, O, path
     F, A, mask = F.contiguous(), A.contiguous(), mask.contiguous()
     if slots and F.data_ptr() % 16:  # its copies start on 16 bytes
         F = F.clone()
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    p = kernels.K6Params()
+    p = kernels.block(kernels.K6Params, dt)
+    out = torch.empty(out_shape, dtype=dt, device=dev)
     p.B, p.n, p.m, p.k = B, n, m, k
     p.path = K6_PATHS.index(plan["path"])
     p.S, p.W, p.rpw = plan["S"], plan["W"], plan["rpw"]
-    p.F = kernels.check("factor", F, f_shape, dev)
-    p.A = kernels.check("A", A, (n, m), dev)
-    p.mask = kernels.check("mask", mask, (n, m), dev)
+    p.F = kernels.check("factor", F, f_shape, dev, dt)
+    p.A = kernels.check("A", A, (n, m), dev, dt)
+    p.mask = kernels.check("mask", mask, (n, m), dev, dt)
     p.out = out.data_ptr()
     if slots:  # (1/gamma) F'F of each slot
-        gram = torch.empty((B, k * (k + 1) // 2), dtype=torch.float32, device=dev)
+        gram = torch.empty((B, k * (k + 1) // 2), dtype=dt, device=dev)
         p.gram = gram.data_ptr()
     p.inv_gamma, p.ridge_eps = 1.0 / gamma, ridge_eps
     if B:
-        kernels.launch("K6", fn_name, p, dev)
+        kernels.launch("K6", kernels.entry(fn_name, dt), p, dev)
     return out
 
 

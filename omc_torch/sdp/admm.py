@@ -366,42 +366,49 @@ def _odd(n):
     return n | 1
 
 
-def k2_smem_bytes(n, m, k, L, C, band, xsmem=True, ws=False):
-    """K2's dynamic shared memory (``omc_k2_smem_bytes``): per-warp partials
-    of a chunk of chords, the CTA's partials of s, the cluster's gathered and
-    their sums (one CTA: its own; float64), the masked cuts (``xsmem``), the
-    mask, the cut-slot duals, s, t, the band's zU, G1^-1 (p <= K2_GI_MAX), a
-    Theta tile pair a warp, and with ``band`` the band of sym(zY) at an odd
-    row stride.  With ``ws`` the partials, their sums, s, t and the two L k
-    interval-slot vectors are in the global workspace (``k2_ws_doubles``)."""
+def k2_smem_bytes(n, m, k, L, C, band, xsmem=True, ws=False, dtype=torch.float32):
+    """K2's dynamic shared memory (``omc_k2_smem_bytes``) at ``dtype``: per-
+    warp partials of a chunk of chords, the CTA's partials of s, the
+    cluster's gathered and their sums (one CTA: its own; float64), the
+    masked cuts (``xsmem``), the mask, the cut-slot duals, s, t, the band's
+    zU, G1^-1 (p <= K2_GI_MAX), a Theta tile pair a warp, and with ``band``
+    the band of sym(zY) at an odd row stride, each a value of ``dtype``.
+    With ``ws`` the partials, their sums, s, t and the two L k interval-slot
+    vectors are in the global workspace (``k2_ws_doubles``)."""
+    e = dtype.itemsize
+    per = 8 // e  # values a double's room holds
     P = 1 + L + L * k
     bw = _cdiv(n, C)
-    sums = 0 if ws else 2 * (2 + C if C > 1 else 1) * P + 2 * L * k + 2 * P
-    f = (2 * K2K3_WARPS * (1 + K2K3_CHUNK) + sums + (L * n if xsmem else 0) + 2 * L
+    sums = 0 if ws else per * (2 + C if C > 1 else 1) * P + 2 * L * k + 2 * P
+    f = (per * K2K3_WARPS * (1 + K2K3_CHUNK) + sums + (L * n if xsmem else 0) + 2 * L
          + bw * k + (P * P if P <= K2_GI_MAX else 0)
          + K2K3_WARPS * 2 * K2K3_TILE * (K2K3_TILE + 1))
-    return 4 * (f + (bw * _odd(n) if band else 0))
+    return e * (f + (bw * _odd(n) if band else 0))
 
 
-def k2_ws_doubles(n, m, k, L, C):
+def k2_ws_doubles(n, m, k, L, C, dtype=torch.float32):
     """K2's global workspace a slot (``omc_k2_ws_doubles``): for each of the
     C CTAs its partials of s and their sums (float64), the two interval-slot
-    vectors, s and t (float32); then t's rows as the cluster forms them."""
+    vectors, s and t (values of ``dtype``); then t's rows as the cluster
+    forms them."""
+    per = 8 // dtype.itemsize
     P = 1 + L + L * k
-    return C * (3 * P + L * k) + (P + 1) // 2
+    return C * _cdiv(per * 2 * P + 2 * L * k + 2 * P, per) + _cdiv(P, per)
 
 
-def k3_smem_bytes(n, m, k, L, C, xsmem=True, slsmem=True, ws=False):
-    """K3's dynamic shared memory (``omc_k3_smem_bytes``): per-warp partials
-    of a chunk of chords, the CTA's partials (tr Y, x_l'Y x_l,
-    ||tsoc_j[1:]||^2, x_l'U_j), the cluster's gathered and their sums (one
-    CTA: its own; with ``ws`` in the global workspace, ``k3_ws_doubles``),
-    the cuts (``xsmem``; all float64), U, tsoc_j[0], the band's tsoc, an X
-    tile a warp, and (``slsmem``) the trace, interval and chord slots rank 0
-    stages."""
+def k3_smem_bytes(n, m, k, L, C, xsmem=True, slsmem=True, ws=False, dtype=torch.float32):
+    """K3's dynamic shared memory (``omc_k3_smem_bytes``) at ``dtype``:
+    per-warp partials of a chunk of chords, the CTA's partials (tr Y, x_l'Y
+    x_l, ||tsoc_j[1:]||^2, x_l'U_j), the cluster's gathered and their sums
+    (one CTA: its own; with ``ws`` in the global workspace,
+    ``k3_ws_doubles``), the cuts (``xsmem``; all float64), then values of
+    ``dtype``: U, tsoc_j[0], the band's tsoc, an X tile a warp, and
+    (``slsmem``) the trace, interval and chord slots rank 0 stages."""
+    e = dtype.itemsize
     NP = 1 + L + k + L * k
-    return 4 * (2 * (K2K3_WARPS * (1 + K2K3_CHUNK) + (0 if ws else (2 + C if C > 1 else 1) * NP)
-                     + (L * n if xsmem else 0))
+    return e * ((8 // e) * (K2K3_WARPS * (1 + K2K3_CHUNK)
+                            + (0 if ws else (2 + C if C > 1 else 1) * NP)
+                            + (L * n if xsmem else 0))
                 + n * k + k + k * _cdiv(n, C) + K2K3_WARPS * K2K3_TILE * (K2K3_TILE + 1)
                 + (8 * L * k + 4 * L + 2 if slsmem else 0))
 
@@ -412,7 +419,8 @@ def k3_ws_doubles(n, m, k, L, C):
     return 2 * C * (1 + L + k + L * k)
 
 
-def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -> dict:
+def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None,
+              dtype=torch.float32) -> dict:
     """K2's and K3's launches: one cluster of C CTAs per node slot (grid B C),
     CTA r owning rows [r n / C, (r + 1) n / C) of Y and U (and of t1-t3) and
     [r m / C, (r + 1) m / C) of Theta in K3; X's entries and the 16 x 16
@@ -429,7 +437,8 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -
     Where a CTA's partials (C p float64 gathered) would not fit
     (``k2_sums``/``k3_sums`` "global"), they go to a global workspace of
     ``k2_ws``/``k3_ws`` doubles a slot (K2 then spreads t's rows over the
-    cluster)."""
+    cluster).  ``dtype`` float64 plans the float64 builds: every byte count
+    from the kernels' formulas at 8 bytes a value (the band rule too)."""
     if min(B, n, m, k) < 1 or L < 0:
         raise ValueError(f"K2/K3: unsupported shape B={B}, n={n}, m={m}, k={k}, L={L}")
     if band not in (None, "smem", "rows"):
@@ -445,7 +454,7 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -
             C3 *= 2
         C2 = largest(K2_TARGET_CTAS if 1 + L + L * k <= K2_GI_MAX_FAST else K2K3_TARGET_CTAS)
         while (C2 < K2K3_CLUSTERS[-1] and 2 * C2 <= cap
-               and 4 * _cdiv(n, C2) * _odd(n) > K2_BAND_MAX):
+               and dtype.itemsize * _cdiv(n, C2) * _odd(n) > K2_BAND_MAX):
             C2 *= 2
     elif cluster in K2K3_CLUSTERS:
         C2 = C3 = cluster
@@ -455,13 +464,13 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -
     def fit2(C, ws):
         for bd in (band,) if band else ("smem", "rows"):
             for xsm in (True, False):
-                if k2_smem_bytes(n, m, k, L, C, bd == "smem", xsm, ws) <= K2K3_MAX_SMEM:
+                if k2_smem_bytes(n, m, k, L, C, bd == "smem", xsm, ws, dtype) <= K2K3_MAX_SMEM:
                     return bd, xsm
         return None
 
     def fit3(C, ws):
         for xsm, slm in ((True, True), (True, False), (False, True), (False, False)):
-            if k3_smem_bytes(n, m, k, L, C, xsm, slm, ws) <= K2K3_MAX_SMEM:
+            if k3_smem_bytes(n, m, k, L, C, xsm, slm, ws, dtype) <= K2K3_MAX_SMEM:
                 return xsm, slm
         return None
 
@@ -477,9 +486,9 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None) -
     return dict(k2_cluster=C2, k3_cluster=C3, threads=K2K3_THREADS, k2_rows=_cdiv(n, C2),
                 k3_rows=_cdiv(n, C3), band=bd, k2_xs=where[xs2], k3_xs=where[xs3],
                 k3_slots=where[sl3], k2_sums=where[not ws2], k3_sums=where[not ws3],
-                k2_smem=k2_smem_bytes(n, m, k, L, C2, bd == "smem", xs2, ws2),
-                k3_smem=k3_smem_bytes(n, m, k, L, C3, xs3, sl3, ws3),
-                k2_ws=k2_ws_doubles(n, m, k, L, C2) if ws2 else 0,
+                k2_smem=k2_smem_bytes(n, m, k, L, C2, bd == "smem", xs2, ws2, dtype),
+                k3_smem=k3_smem_bytes(n, m, k, L, C3, xs3, sl3, ws3, dtype),
+                k2_ws=k2_ws_doubles(n, m, k, L, C2, dtype) if ws2 else 0,
                 k3_ws=k3_ws_doubles(n, m, k, L, C3) if ws3 else 0)
 
 
@@ -567,10 +576,11 @@ def zstep(c: _Consts, st: ADMMState, shor: bool = False, cluster=None, band=None
         return
     if dev.type != "cuda":
         raise ValueError(f"zstep: unsupported device {dev}")
+    dt = st.w1.dtype
     prm = _packed(("K2", id(c), id(st), shor, cluster, band), _k2_tensors(c, st), (c.gamma,),
                   lambda: _k2_params(c, st, shor, k2k3_plan(st.rho.shape[0], c.n, c.m, c.k,
-                                                              c.L, cluster, band)))
-    kernels.launch("K2", "omc_k2_zstep", prm, dev)
+                                                              c.L, cluster, band, dt)))
+    kernels.launch("K2", kernels.entry("omc_k2_zstep", dt), prm, dev)
 
 
 def _k2_tensors(c: _Consts, st: ADMMState) -> tuple:
@@ -579,32 +589,37 @@ def _k2_tensors(c: _Consts, st: ADMMState) -> tuple:
 
 
 def _k2_params(c: _Consts, st: ADMMState, shor: bool, plan: dict):
-    """Validate K2's operands and pack its parameter block."""
-    dev = st.w1.device
+    """Validate K2's operands and pack its parameter block (the build of
+    the state's dtype)."""
+    dev, dt = st.w1.device, st.w1.dtype
     B = st.rho.shape[0]
     n, m, k, L = c.n, c.m, c.k, c.L
     p = 1 + L + L * k
     shapes = _state_shapes(B, n, m, k, L)
-    prm = kernels.K2Params()
+    prm = kernels.block(kernels.K2Params, dt)
+
+    def chk(name, t, shape):
+        return kernels.check(name, t, shape, dev, dt)
+
     for name in ("w1", "u1", "w2", "u2", "w3", "u3", "w4", "u4", "wsoc",
                  "usoc", "wbox", "ubox", "wa", "ua", "wb", "ub", "wc", "uc"):
-        setattr(prm, name, kernels.check(name, getattr(st, name), shapes[name], dev))
+        setattr(prm, name, chk(name, getattr(st, name), shapes[name]))
     b = c.batch
-    prm.cut_x = kernels.check("cut_x", b.cut_x, (B, L, n), dev)
-    prm.cut_lo = kernels.check("cut_lo", b.cut_lo, (B, L, k), dev)
-    prm.cut_hi = kernels.check("cut_hi", b.cut_hi, (B, L, k), dev)
-    prm.cut_mask = kernels.check("cut_mask", b.cut_mask, (B, L), dev)
-    prm.maskA = kernels.check("maskA", c.maskA, (n, m), dev)
-    prm.mask = kernels.check("mask", c.mask, (n, m), dev)
-    prm.sX = kernels.check("sX", st.sX, (B,), dev)
-    prm.sT = kernels.check("sT", st.sT, (B,), dev)
-    prm.rho = kernels.check("rho", st.rho, (B,), dev)
-    prm.G1i = kernels.check("G1i", c.G1i, (B, p, p), dev)
-    prm.Y = kernels.check("Y", st.Y, (B, n, n), dev)
-    prm.U = kernels.check("U", st.U, (B, n, k), dev)
+    prm.cut_x = chk("cut_x", b.cut_x, (B, L, n))
+    prm.cut_lo = chk("cut_lo", b.cut_lo, (B, L, k))
+    prm.cut_hi = chk("cut_hi", b.cut_hi, (B, L, k))
+    prm.cut_mask = chk("cut_mask", b.cut_mask, (B, L))
+    prm.maskA = chk("maskA", c.maskA, (n, m))
+    prm.mask = chk("mask", c.mask, (n, m))
+    prm.sX = chk("sX", st.sX, (B,))
+    prm.sT = chk("sT", st.sT, (B,))
+    prm.rho = chk("rho", st.rho, (B,))
+    prm.G1i = chk("G1i", c.G1i, (B, p, p))
+    prm.Y = chk("Y", st.Y, (B, n, n))
+    prm.U = chk("U", st.U, (B, n, k))
     if not shor:
-        prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
-        prm.Ths = kernels.check("Th", st.Th, (B, m, m), dev)
+        prm.Xs = chk("X", st.X, (B, n, m))
+        prm.Ths = chk("Th", st.Th, (B, m, m))
     prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
     prm.C, prm.band = plan["k2_cluster"], int(plan["band"] == "smem")
     prm.xsmem = int(plan["k2_xs"] == "smem")
@@ -713,7 +728,7 @@ def cone_step(c: _Consts, st: ADMMState, ts, acc, cluster=None, it: int = 0):
                   (c.alpha, c.beta), lambda: _k3_params(c, st, ts, acc, cluster))
     # the iteration index changes every launch: set on the block, not a key
     prm.hal_it = it
-    kernels.launch("K3", "omc_k3_cone", prm, dev)
+    kernels.launch("K3", kernels.entry("omc_k3_cone", st.w1.dtype), prm, dev)
 
 
 def _k3_tensors(c: _Consts, st: ADMMState, ts, acc) -> tuple:
@@ -724,42 +739,47 @@ def _k3_tensors(c: _Consts, st: ADMMState, ts, acc) -> tuple:
 
 
 def _k3_params(c: _Consts, st: ADMMState, ts, acc, cluster):
-    """Validate K3's operands and pack its parameter block."""
-    dev = st.w1.device
+    """Validate K3's operands and pack its parameter block (the build of
+    the state's dtype)."""
+    dev, dt = st.w1.device, st.w1.dtype
     B = st.rho.shape[0]
     n, m, k, L = c.n, c.m, c.k, c.L
-    plan = k2k3_plan(B, n, m, k, L, cluster)
+    plan = k2k3_plan(B, n, m, k, L, cluster, dtype=dt)
     shapes = _state_shapes(B, n, m, k, L)
-    prm = kernels.K3Params()
-    prm.Xs = kernels.check("X", st.X, (B, n, m), dev)
-    prm.Y = kernels.check("Y", st.Y, (B, n, n), dev)
-    prm.Ths = kernels.check("Th", st.Th, (B, m, m), dev)
-    prm.U = kernels.check("U", st.U, (B, n, k), dev)
+    prm = kernels.block(kernels.K3Params, dt)
+
+    def chk(name, t, shape):
+        return kernels.check(name, t, shape, dev, dt)
+
+    prm.Xs = chk("X", st.X, (B, n, m))
+    prm.Y = chk("Y", st.Y, (B, n, n))
+    prm.Ths = chk("Th", st.Th, (B, m, m))
+    prm.U = chk("U", st.U, (B, n, k))
     for name in ("w1", "u1", "w2", "u2", "w3", "u3") + _REST:
-        setattr(prm, name, kernels.check(name, getattr(st, name), shapes[name], dev))
-    prm.t1 = kernels.check("t1", ts[0], shapes["w1"], dev)
-    prm.t2 = kernels.check("t2", ts[1], shapes["w2"], dev)
-    prm.t3 = kernels.check("t3", ts[2], shapes["w3"], dev)
-    prm.acc_a = kernels.check("acc_a", acc[0], (B, L, k), dev)
-    prm.acc_b = kernels.check("acc_b", acc[1], (B, L, k), dev)
-    prm.acc_c = kernels.check("acc_c", acc[2], (B, L), dev)
+        setattr(prm, name, chk(name, getattr(st, name), shapes[name]))
+    prm.t1 = chk("t1", ts[0], shapes["w1"])
+    prm.t2 = chk("t2", ts[1], shapes["w2"])
+    prm.t3 = chk("t3", ts[2], shapes["w3"])
+    prm.acc_a = chk("acc_a", acc[0], (B, L, k))
+    prm.acc_b = chk("acc_b", acc[1], (B, L, k))
+    prm.acc_c = chk("acc_c", acc[2], (B, L))
     b = c.batch
-    prm.cut_x = kernels.check("cut_x", b.cut_x, (B, L, n), dev)
-    prm.cut_lo = kernels.check("cut_lo", b.cut_lo, (B, L, k), dev)
-    prm.cut_hi = kernels.check("cut_hi", b.cut_hi, (B, L, k), dev)
-    prm.cut_mask = kernels.check("cut_mask", b.cut_mask, (B, L), dev)
-    prm.U_lo = kernels.check("U_lo", b.U_lo, (B, n, k), dev)
-    prm.U_hi = kernels.check("U_hi", b.U_hi, (B, n, k), dev)
-    prm.sX = kernels.check("sX", st.sX, (B,), dev)
-    prm.sT = kernels.check("sT", st.sT, (B,), dev)
-    prm.rho = kernels.check("rho", st.rho, (B,), dev)
+    prm.cut_x = chk("cut_x", b.cut_x, (B, L, n))
+    prm.cut_lo = chk("cut_lo", b.cut_lo, (B, L, k))
+    prm.cut_hi = chk("cut_hi", b.cut_hi, (B, L, k))
+    prm.cut_mask = chk("cut_mask", b.cut_mask, (B, L))
+    prm.U_lo = chk("U_lo", b.U_lo, (B, n, k))
+    prm.U_hi = chk("U_hi", b.U_hi, (B, n, k))
+    prm.sX = chk("sX", st.sX, (B,))
+    prm.sT = chk("sT", st.sT, (B,))
+    prm.rho = chk("rho", st.rho, (B,))
     prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
     prm.C, prm.xsmem = plan["k3_cluster"], int(plan["k3_xs"] == "smem")
     prm.slsmem = int(plan["k3_slots"] == "smem")
     prm.alpha, prm.beta = float(c.alpha), float(c.beta)
     if c.anchors is not None:
         for (w, _), name, h in zip(ANCHOR_SLOTS, kernels.K3_ANCHORS, c.anchors):
-            setattr(prm, name, kernels.check(name, h, shapes[w], dev))
+            setattr(prm, name, chk(name, h, shapes[w]))
     _workspace(prm, B * plan["k3_ws"], dev)
     return prm
 
@@ -841,8 +861,9 @@ def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
     ``omc.sdp.admm.make_admm_solver`` without its unreachable ``adapt_rho``
     branch).
 
-    ``psd_method``: "ns" (sign schedule, kernel K1 on the GPU), "eigh"
-    (exact, CPU only), or "auto" (ns for float32, eigh for float64).
+    ``psd_method``: "ns" (sign schedule, kernel K1 on the GPU; float32),
+    "eigh" (exact: LAPACK on the CPU, K4's Jacobi and K4s on the GPU, where
+    it runs in float64), or "auto" (ns for float32, eigh for float64).
     ``check_every``: iterations between on-device safe-bound evaluations
     and early-exit checks.  ``halpern``: the anchored scheme of ``omc``,
     s_{k+1} = b_k s_0 + (1 - b_k) T(s_k) with b_k = 1/(k + 2), the anchors
@@ -868,10 +889,10 @@ def make_admm_solver(n: int, m: int, k: int, L: int, gamma: float, *,
         dev = state.rho.device
         if dev.type == "cuda":
             kernels.require_full_fp32()
-            if dtype != torch.float32:
-                raise ValueError("the CUDA path runs float32 only")
-            if psd_method != "ns":
-                raise ValueError('the CUDA path projects with psd_method="ns"')
+            kernels.require_cuda_dtype("halpern" if halpern else "base", dtype)
+            want = "ns" if dtype == torch.float32 else "eigh"
+            if psd_method != want:
+                raise ValueError(f'the CUDA path projects {dtype} with psd_method="{want}"')
         ni = int(iters if n_iters is None else n_iters)
         A = torch.as_tensor(A, device=dev).to(dtype).contiguous()
         mask = torch.as_tensor(mask, device=dev).to(dtype).contiguous()

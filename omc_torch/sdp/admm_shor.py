@@ -823,8 +823,7 @@ def make_shor_solver(n: int, m: int, L: int, M5: int, Ms: int, gamma: float, *,
         dev = state.core.rho.device
         if dev.type == "cuda":
             kernels.require_full_fp32()
-            if dtype != torch.float32:
-                raise ValueError("the CUDA path runs float32 only")
+            kernels.require_cuda_dtype("shor", dtype)
             if psd_method != "ns":
                 raise ValueError('the CUDA path projects with psd_method="ns"')
         ni = int(iters if n_iters is None else n_iters)

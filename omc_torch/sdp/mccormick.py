@@ -1112,8 +1112,7 @@ def make_mccormick_solver(n: int, m: int, k: int, gamma: float, *, iters: int = 
         dev = state.rho.device
         if dev.type == "cuda":
             kernels.require_full_fp32()
-            if dtype != torch.float32:
-                raise ValueError("the CUDA path runs float32 only")
+            kernels.require_cuda_dtype("mccormick", dtype)
             if psd_method != "ns":
                 raise ValueError('the CUDA path projects with psd_method="ns"')
         ni = int(iters if n_iters is None else n_iters)

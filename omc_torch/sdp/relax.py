@@ -191,20 +191,25 @@ def k5_smem_bytes(d, path):
     return b if b <= K5_SMEM_MAX else 0
 
 
-def k5_plan(B, d, path=None):
+def k5_plan(B, d, path=None, dtype=torch.float32):
     """K5's path for ``B`` separations of order ``d``: the float64 triangle
     where it fits one CTA, else the float32 triangle, else K4's plan for
-    the eigenpairs.  ``path`` (one of ``K5_PATHS``) forces one; a tridiag
-    path raises ``ValueError`` where its triangle does not fit.  Returns a
-    dict: ``path``, ``smem_bytes`` and ``threads`` a CTA (the kernel's
-    exports; 0 on K4's paths)."""
+    the eigenpairs.  Float64 operands (``dtype``) never take the float32
+    triangle: beyond the float64 one they go to K4's paths in float64.
+    ``path`` (one of ``K5_PATHS``) forces one; a tridiag path raises
+    ``ValueError`` where its triangle does not fit (or, "tridiag32", for
+    float64 operands).  Returns a dict: ``path``, ``smem_bytes`` and
+    ``threads`` a CTA (the kernel's exports; 0 on K4's paths)."""
+    tridiag = K5_TRIDIAG[:1] if dtype == torch.float64 else K5_TRIDIAG
     if path is None:
-        fits = [p for p in K5_TRIDIAG if k5_smem_bytes(d, p)]
-        path = fits[0] if fits else k4_plan(B, d, 2)["path"]
+        fits = [p for p in tridiag if k5_smem_bytes(d, p)]
+        path = fits[0] if fits else k4_plan(B, d, 2, dtype=dtype)["path"]
     if path not in K5_PATHS:
         raise ValueError(f"K5 path must be one of {K5_PATHS}, got {path!r}")
     if path in K4_PATHS:
-        return dict(path=path, smem_bytes=0, threads=0, k4=k4_plan(B, d, 2, path))
+        return dict(path=path, smem_bytes=0, threads=0, k4=k4_plan(B, d, 2, path, dtype))
+    if path not in tridiag:
+        raise ValueError(f"K5's {path} path takes float32 operands, not {dtype}")
     if not k5_smem_bytes(d, path):
         raise ValueError(f"K5's {path} path: d={d} does not fit")
     return dict(path=path, smem_bytes=k5_smem_bytes(d, path), threads=K5_THREADS)
@@ -216,10 +221,11 @@ def separation_eigpairs(U, Y):
     sliced to two).  ``U`` (B, n, k), ``Y`` (B, n, n); returns ``sep_w``
     (B, 2) ascending and ``sep_V`` (B, n, 2).  Kernel K5 on a CUDA tensor,
     on the path ``k5_plan`` gives; ``separation_eigpairs_plain`` on a CPU
-    tensor.  Neither fixes the eigenvectors' signs, as ``omc`` does not."""
+    tensor (in its dtype: float32, or float64 through the float64 build).
+    Neither fixes the eigenvectors' signs, as ``omc`` does not."""
     if U.device.type == "cpu":
         return separation_eigpairs_plain(U, Y)
-    return _k5_launch(U, Y, k5_plan(Y.shape[0], Y.shape[-1]))
+    return _k5_launch(U, Y, k5_plan(Y.shape[0], Y.shape[-1], dtype=Y.dtype))
 
 
 def _k5_launch(U, Y, plan, iters=None):
@@ -232,19 +238,20 @@ def _k5_launch(U, Y, plan, iters=None):
     if plan["path"] in K4_PATHS:
         return k4_jacobi(None, 2, nout, U=U, Y=Y, sweeps=iters, path=plan["path"])
     U, Y = U.contiguous(), Y.contiguous()
-    p = kernels.K5Params()
+    dt = Y.dtype
+    p = kernels.block(kernels.K5Params, dt)
     p.B, p.d, p.k, p.nout = B, d, U.shape[-1], nout
     p.path = K5_TRIDIAG.index(plan["path"])
-    p.U = kernels.check("U", U, (B, d, p.k), dev)
-    p.Y = kernels.check("Y", Y, (B, d, d), dev)
+    p.U = kernels.check("U", U, (B, d, p.k), dev, dt)
+    p.Y = kernels.check("Y", Y, (B, d, d), dev, dt)
     if iters is None:
         iters = torch.empty((B,), dtype=torch.int32, device=dev)
     p.iters = kernels.check("iters", iters, (B,), dev, torch.int32)
-    w = torch.empty((B, nout), dtype=torch.float32, device=dev)
-    V = torch.empty((B, d, nout), dtype=torch.float32, device=dev)
+    w = torch.empty((B, nout), dtype=dt, device=dev)
+    V = torch.empty((B, d, nout), dtype=dt, device=dev)
     p.w, p.V = w.data_ptr(), V.data_ptr()
     if B:
-        kernels.launch("K5", "omc_k5_separation", p, dev)
+        kernels.launch("K5", kernels.entry("omc_k5_separation", dt), p, dev)
     return w, V
 
 
@@ -434,8 +441,7 @@ def make_solver(n: int, m: int, k: int, L: int, gamma: float, *,
         dev = state.Y.device
         if dev.type == "cuda":
             kernels.require_full_fp32()
-            if dtype != torch.float32:
-                raise ValueError("the CUDA path runs float32 only")
+            kernels.require_cuda_dtype("pdhg", dtype)
         ni = int(iters if n_iters is None else n_iters)
         A = torch.as_tensor(A, device=dev).to(dtype)
         mask = torch.as_tensor(mask, device=dev).to(dtype)

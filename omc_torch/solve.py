@@ -47,11 +47,15 @@ Soundness notes (as in ``omc``):
   reference's keys.
 
 The device is chosen once, by the ``device`` argument, ``"cuda"`` unless
-the caller asks for ``"cpu"``.  On a CUDA device the solver runs float32
-through the hand-written kernels (``omc_torch/csrc``): K1-K3 on the base
+the caller asks for ``"cpu"``.  On a CUDA device the solver runs through
+the hand-written kernels (``omc_torch/csrc``): in float32 K1-K3 on the base
 path, K2, K8a, K3, K1, K7, K8b on the rank-1 Shor path, K2, K8c, K3, K1,
 K7t, K7x, K8d on the rank-k Shor path, K9s, K9a, K9b, K1 on the McCormick
-path, and K4 (K4s for d <= 8) with K5 in the PDHG relaxation.
+path, and K4 (K4s for d <= 8) with K5 in the PDHG relaxation; in float64
+(``dtype="float64"``, as ``omc`` runs it) the base path, PDHG and Halpern
+through the float64 builds of K2, K3, K4, K4s, K5 and K6, with exact
+Jacobi projections (K4, K4s) in place of K1's sign schedule.  A float64
+Shor or McCormick run on CUDA raises (``kernels.require_cuda_dtype``).
 """
 
 from __future__ import annotations
@@ -299,9 +303,12 @@ def _decayed_probability(depth, max_p, min_p, decay):
 
 
 def entry_device(device, dtype: str) -> torch.device:
-    """The device of an entry point: ``"cuda"`` (the kernels; float32 only)
-    unless the caller asks for ``"cpu"`` (the plain versions).  A CUDA
-    request without a usable GPU raises; it never falls back to the CPU."""
+    """The device of an entry point: ``"cuda"`` (the kernels: float32, or
+    float64 through the float64 builds of the base family's kernels) unless
+    the caller asks for ``"cpu"`` (the plain versions).  A CUDA request
+    without a usable GPU raises; it never falls back to the CPU.  Which
+    families run float64 on the card the solvers' guards say
+    (``kernels.require_cuda_dtype``)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -309,8 +316,6 @@ def entry_device(device, dtype: str) -> torch.device:
                 f"device={device!r} but no CUDA device is available; "
                 'pass device="cpu" to run the plain versions on the CPU'
             )
-        if dtype != "float32":
-            raise ValueError('the CUDA path runs dtype="float32" only')
         kernels.set_full_fp32()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
@@ -331,8 +336,9 @@ def matrix_completion_branchandbound(
     instance)`` with the field contract of ``omc.solve``.
 
     ``device``: where the relaxations run, ``"cuda"`` (the default: the
-    kernels; needs ``dtype="float32"``) or ``"cpu"`` (the plain versions,
-    only when asked for).  Without a GPU the default raises."""
+    kernels, in float32 or, for the base family, PDHG and Halpern, in
+    float64) or ``"cpu"`` (the plain versions, only when asked for).
+    Without a GPU the default raises."""
     cfg = SolverConfig(**kwargs)
     dev = entry_device(device, cfg.dtype)
 
@@ -361,6 +367,9 @@ def matrix_completion_branchandbound(
     rng = np.random.default_rng(cfg.seed)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     np_dtype = np.float64 if cfg.dtype == "float64" else np.float32
+    if dev.type == "cuda":  # a family without float64 builds raises here, not mid-run
+        gate = {"admm": "halpern" if cfg.sdp_halpern else "base"}.get(family, family)
+        kernels.require_cuda_dtype(gate, dtype)
     # ADMM penalty: explicit knob wins; otherwise size- and density-scaled
     # exactly as omc (solve.py:328-336 there, flagged in ROADMAP section 3:
     # the density factor has no floor at 1)
