@@ -33,13 +33,15 @@ Phases, in order (each prints its numbers on lines of its own):
                projection mode, K9a and K9b at (B, n=m, k) = (64, 50, 1),
                (64, 75, 2), (1, 50, 1), (16, 50, 1) (MC_SHAPES), with their
                device times, and K9s also at (64, 50, 3); then the float64
-               builds of K2 and K3 (both modes; the headline's and the
-               fixtures' shapes), K4 (modes 0-2 at B=1 and 64, d=100/51/50,
-               and the block path at d=150), K4s (5x5), K5 ((64, 50, 1),
-               (1, 50, 1)) and K6 (n=m=50; B=4, 64; k=1, 2, 10) against
-               their plain versions in float64 and K4, K4s and K5 against a
-               float64 LAPACK eigh; the build fails if ptxas reports a spill
-               in any kernel of either type
+               builds of K8a, K7 (fused: its exact Jacobi projection) and
+               K8b at every shape of SHOR_SHAPES, K2's Shor mode at (32,
+               100) and (4, 50), K2 and K3 (both modes; the headline's and
+               the fixtures' shapes), K4 (modes 0-2 at B=1 and 64,
+               d=100/51/50, and the block path at d=150), K4s (5x5), K5
+               ((64, 50, 1), (1, 50, 1)) and K6 (n=m=50; B=4, 64; k=1, 2,
+               10) against their plain versions in float64 and K7, K4, K4s
+               and K5 against a float64 LAPACK eigh; the build fails if
+               ptxas reports a spill in any kernel of either type
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
                same bound through torch's eigh is logged as a reading)
@@ -48,21 +50,21 @@ Phases, in order (each prints its numbers on lines of its own):
 7. multinode — the 30%-observed instance, gap 1e-4
 8. dist      — the multi-process frontier: two ranks of
                omc_torch.parallel.worker on the card over gloo, the
-               multinode instance at batch 8, 25 s
+               multinode instance at batch 8, 20 s
 9. branch    — the 20%-observed instance, 30 s budget
 10. shor     — the 30%-observed instance with static Shor minors
-               (breadth-first, 20 s): the K7/K8a/K8b path
+               (breadth-first, 15 s): the K7/K8a/K8b path
 11. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
-               20 s, with soundness checks
+               8 s, with soundness checks
 12. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 25 s
+               smallest_2_eigvec, best-first/depth-first, batch 64), 16 s
 13. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
-               call (iterative Shor, batch 32), 20 s
+               call (iterative Shor, batch 32), 12 s
 14. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
-               McCormick B&B on the headline instance, 15 s
+               McCormick B&B on the headline instance, 10 s
 15. config4  — BASELINE config 4's frontier step (rank-5 250x250, a device
                batch of 128 nodes, 400 iterations, one safe-bound call: K4 at
                d=500, 255 and 250, K5 at d=250): a warm-up step, then one
@@ -84,8 +86,16 @@ Phases, in order (each prints its numbers on lines of its own):
                their defaults on the headline's root, each against the same
                call on the CPU, and a 4x4 root (K4s); the four fixtures at
                their own gap_target;
-               the headline branch-and-bound for 15 s (sound bounds); one
+               the headline branch-and-bound for 5 s (sound bounds); one
                traced iteration at B=1 in float64 beside float32
+21. shor64   — omc's float64 on the Shor k = 1 family (the float64 builds of
+               K2's Shor mode, K8a, K3, K4, K7, K8b, K4s, K5): the api's Shor
+               relaxation at its defaults on the headline's root (1,024
+               minors, 1,000 iterations) against the same call on the CPU;
+               BASELINE config 2 in float64 (visits of 250 iterations, one
+               refinement before a growth, 12 s) with sound bounds and a
+               Shor growth; the Shor solver at its shape as two shards
+               (mesh) against one device; one traced iteration there
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -139,7 +149,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
-          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64")
+          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64")
 EXTRA_PHASES = ("trace", "kernels64")  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -243,6 +253,18 @@ def _errs(got, ref):
     return rel, max(float((a - b).abs().max()) for a, b in zip(got, ref))
 
 
+def _slot_errs(got, ref, groups):
+    """The largest relative Frobenius error over the slots ``groups`` (tuples
+    of output indices taken together: a slot's projection w and its dual u
+    = t - w, whose own norm may be rounding noise where t lies in the cone,
+    are held at the scale of the slot), and the largest absolute error."""
+    import torch
+
+    cat = lambda xs, g: torch.cat([xs[i].reshape(-1) for i in g])  # noqa: E731
+    rel = max(rel_fro(cat(got, g), cat(ref, g)) for g in groups)
+    return rel, max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+
 def _same_bits(xs, ys):
     import torch
 
@@ -299,8 +321,8 @@ def phase_build(res):
         json.dumps(regs))
     if PARENT:
         res["parent_ptxas"] = {f: r for f, r in PARENT["ptxas"].items()
-                               if any(x in f for x in NO_FRAME)}
-        log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9s, K9a and K9b",
+                               if any(x in f for x in NO_FRAME + ("k4s_kernel",))}
+        log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9s, K9a, K9b and K4s",
             json.dumps(res["parent_ptxas"]))
     # every instantiation of every kernel, the float64 builds of K2, K3,
     # K4, K4s, K5 and K6 included, keeps its values in registers (no spill);
@@ -541,8 +563,10 @@ def phase_kernels(res):
     # Shor k=1 loop runs them (the first row of each is the record's) ----
     for name in ("K8a", "K7fused", "K7", "K8b"):
         out[name] = []
+    shor_inputs = {}  # the float64 rows below take these inputs in float64
     for B, n, M5 in SHOR_SHAPES:
-        rows = _check_shor_kernels(B, n, n, 8, M5, gen, dev)
+        shor_inputs[B, n, M5] = _shor_inputs(B, n, n, 8, M5, gen, dev)
+        rows = _check_shor_kernels(*shor_inputs[B, n, M5], gen, dev)
         rows["K7"] = _check_k7_projection(B, M5, gen, dev)
         for name, row in rows.items():
             log(name, json.dumps(row))
@@ -647,8 +671,8 @@ def phase_kernels(res):
             out[name].append(row)
 
     # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps; then
-    # the float64 builds of K2-K6 ----
-    for check in (_check_eig_kernels, _check_float64_kernels):
+    # the float64 builds ----
+    for check in (_check_eig_kernels, lambda g, d: _check_float64_kernels(g, d, shor_inputs)):
         rows = check(gen, dev)
         for name, rs in rows.items():
             for row in rs:
@@ -660,10 +684,10 @@ def phase_kernels(res):
     assert not failed, failed
 
 
-def _shor_inputs(B, n, m, L, M5, gen, dev):
+def _shor_inputs(B, n, m, L, M5, gen, dev, dtype=None):
     """Random Shor ADMM state and node batch at a config-2 shape (float32
-    on the card): ~M5 - 24 random distinct 2x2 minors per slot, the RSOC
-    rows on the rest, slot values and duals of unit scale."""
+    on the card, or ``dtype``): ~M5 - 24 random distinct 2x2 minors per
+    slot, the RSOC rows on the rest, slot values and duals of unit scale."""
     import numpy as np
     import torch
 
@@ -671,7 +695,8 @@ def _shor_inputs(B, n, m, L, M5, gen, dev):
     from omc_torch.sdp.shor import shor_soc_complement
     from omc_torch.sdp.shor_encode import pack_shor_batch
 
-    c, core, acc, ts = _admm_inputs(B, n, m, 1, L, gen, dev)
+    dt = dtype or torch.float32
+    c, core, acc, ts = _admm_inputs(B, n, m, 1, L, gen, dev, dt)
     rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
     minors = []
     for _ in range(B):
@@ -682,136 +707,200 @@ def _shor_inputs(B, n, m, L, M5, gen, dev):
         minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
     socs = [shor_soc_complement(n, m, mm) for mm in minors]
     sbh = pack_shor_batch(n, m, minors, socs, M5, n * m)
-    sb = admm_shor.shor_batch_to_device(sbh, torch.float32, device=dev)
-    st = admm_shor.init_shor_state(B, n, m, 1, L, M5, n * m, torch.float32, device=dev)
+    sb = admm_shor.shor_batch_to_device(sbh, dt, device=dev)
+    st = admm_shor.init_shor_state(B, n, m, 1, L, M5, n * m, dt, device=dev)
     st = st.replace(core=core)
     core.sS.copy_(core.sX)
     for name in ("W", "v1", "v2", "v3", "w5", "u5", "wr", "ur", "wl", "ul", "wp", "up"):
         t = getattr(st, name)
-        v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=torch.float32, device=dev)
+        v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=dt, device=dev)
         if name in ("w5", "u5"):
             v = 0.5 * (v + v.transpose(-1, -2)) * sb.minor_mask[..., None, None]
         t.copy_(v)
-    sc = admm_shor.make_shor_consts(c, sb, core, 40.0)
+    sc = admm_shor.make_shor_consts(c, sb, core, SHOR_UB)
     return c, sc, st
 
 
+# the upper bound the Shor kernels' inputs are made for (its clip of X)
+SHOR_UB = 40.0
 # (B, n = m, M5) of the Shor k=1 loop's K7 and K8a launches: config 2's
 # frontier (the record's row), its root visit's first minor bucket, its
 # largest bucket after the growths, and the shor cell's root and frontier
 SHOR_SHAPES = ((32, 100, 1024), (1, 100, 64), (32, 100, 4096), (1, 50, 4096), (4, 50, 4096))
 
 
-def _check_shor_kernels(B, n, m, L, M5, gen, dev):
-    """K8a, K7 (fused) and K8b against their plain versions on the same
-    inputs, each at the outputs of the step before it: errors, the same bits
-    from two launches, CUDA-event and device times (with ``--parent``, the
-    parent tree's kernels on the same inputs)."""
+def _check_shor_kernels(c, sc, st, gen, dev):
+    """K8a, K7 (fused) and K8b against their plain versions on the inputs
+    (c, sc, st) of ``_shor_inputs`` (float32), or float64 copies of them
+    (``_shor64_of``: the float64 builds, rows ``K8a_f64``, ``K7_f64`` and
+    ``K8b_f64``), each at the outputs of the step before it: errors, the
+    same bits from two launches, CUDA-event and device times (float64: the
+    device ms is the row's ``ms``; float32 with ``--parent``, the parent
+    tree's kernels on the same inputs), the plans against the kernels'
+    exports and the bound (values at the dtype's size, int32 tables at 4
+    bytes, the dtype's FMA rate).  K7 projects as the dtype's route does:
+    float32 by the sign schedule, its plain version's and its own distance
+    to a float64 eigh beside; float64 by K4s's Jacobi, its plain version
+    the fused step with K4s's Jacobi mirror (``ops.jacobi.k4s_project_psd``),
+    with its distance to a float64 LAPACK projection of the same t5 on the
+    host (``err_vs_lapack``, over max|lambda|), the mirror's and K4s's
+    float64 build's sweeps on that t5, and the float64 eigh of the batch as
+    the library call.  The callers hold the rows to their bars."""
     import torch
 
-    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch import kernels
+    from omc_torch.ops import cones
+    from omc_torch.ops.jacobi import k4s_project_psd
     from omc_torch.ops.polar import project_psd_ns_small
     from omc_torch.sdp import admm_shor as S
 
-    from omc_torch import kernels
-
     lib = kernels.library()
-    c, sc, st = _shor_inputs(B, n, m, L, M5, gen, dev)
+    dt = st.core.X.dtype
+    f64 = dt == torch.float64
+    sfx, esz, peak = ("_f64", 8, PEAK_FP64_FLOPS) if f64 else ("", 4, PEAK_FP32_FLOPS)
+    psd = "eigh" if f64 else "ns"
+    tm = _tm if f64 else cuda_time_ms
+    parent = PARENT and not f64  # the parent tree has float32 builds only
+    (B, n, m), M5 = st.core.X.shape, sc.M5
     shape = dict(B=B, n=n, m=m, M5=M5)
-    k8a_out = lambda x: (x.core.X, x.core.Th, x.W, x.v1, x.v2, x.v3)  # noqa: E731
-    plan8 = S.k8a_plan(B, n, m, M5)
+    nm, N = n * m, B * M5
     P = sum(t.shape[1] for t in (st.v1, st.v2, st.v3))
-
+    A_ = float(sc.sb.minor_mask.sum())  # active minors over the batch
     out = {}
+
+    def timed(row, fns, plain):
+        row["ms"] = cuda_time_ms(fns["kernel"])
+        row["plain_ms"] = tm(plain)
+        if parent:
+            row["parent_ms"] = cuda_time_ms(fns["parent"])
+        _device_rows(row, fns)
+        if f64:
+            row["event_ms"], row["ms"] = row["ms"], row["device_ms"]
+
+    # K8a
+    k8a_out = lambda x: (x.core.X, x.core.Th, x.W, x.v1, x.v2, x.v3)  # noqa: E731
+    plan8 = S.k8a_plan(B, n, m, M5, dtype=dt)
     sk, s2 = st.clone(), st.clone()
     S.shor_zstep(c, sc, sk)
     S.shor_zstep(c, sc, s2)
     torch.cuda.synchronize()
-    ref = S.shor_zstep_plain(c, sc, st)
-    rel, ab = _errs(k8a_out(sk), ref)
+    rel, ab = _errs(k8a_out(sk), S.shor_zstep_plain(c, sc, st))
     s3 = st.clone()
     fns = {"kernel": lambda: S.shor_zstep(c, sc, s3)}
-    r8 = out["K8a"] = dict(
+    if parent:
+        fns["parent"] = _parent_k8a(c, sc, st.clone())
+    r8 = out["K8a" + sfx] = dict(
         **shape, plan=plan8, plan_matches_kernel=plan8["smem"] == lib.omc_k8a_smem_bytes(
-            n, m, plan8["cluster"], plan8["groups"])
+            n, m, plan8["cluster"], plan8["groups"], esz)
         and plan8["grid"][0] == lib.omc_k8a_grid_x(m, P, plan8["cluster"], plan8["groups"]),
         rel_err=rel, max_abs_err=ab, deterministic=_same_bits(k8a_out(sk), k8a_out(s2)),
-        ms=cuda_time_ms(fns["kernel"]),
-        plain_ms=cuda_time_ms(lambda: S.shor_zstep_plain(c, sc, st)))
-    if PARENT:
-        fns["parent"] = _parent_k8a(c, sc, st.clone())
-        r8["parent_ms"] = cuda_time_ms(fns["parent"])
-    _device_rows(r8, fns)
-    A_ = float(sc.sb.minor_mask.sum())  # active minors over the batch
-    nm = n * m
-    # per slot: X and Theta blocks of w1/u1, the RSOC X/W parts, W >= 0,
-    # Theta-link, counts and tables; per active minor the 14 entries of w5/u5
-    # the adjoint reads; out X, Theta, W, v
-    rd = 2 * (nm + m * m) + 4 * nm + nm + 2 * m + 2 * nm + 2 * nm + (nm + 1) + P + 3 + m + 4
-    with_bound(r8, 4 * (B * (rd + 2 * nm + m * m + P) + A_ * (2 * 14 + 9) + 2 * nm),
-               B * 25 * nm + A_ * 40)
+        library_ms=None)
+    timed(r8, fns, lambda: S.shor_zstep_plain(c, sc, st))
+    # values per slot: the X and Theta blocks of w1/u1, the RSOC X/W parts,
+    # the SOC mask, the link and W >= 0 slots, the counts of X, W and v,
+    # the link's g and the four scalars; out X, Theta, W and v; per active
+    # minor the 14 entries of w5/u5 the adjoint reads; maskA and mask once.
+    # int32: the CSR pointers of X/W (nm + 1) and of v (P + 3) per slot, the
+    # 9 entries of each active minor
+    vals = (2 * (nm + m * m) + 4 * nm + nm + 2 * m + 2 * nm + 2 * nm + P + m + 4
+            + 2 * nm + m * m + P)
+    with_bound(r8, esz * (B * vals + A_ * 2 * 14 + 2 * nm) + 4 * (B * (nm + 1 + P + 3) + A_ * 9),
+               B * 25 * nm + A_ * 40, peak)
 
-    # K7 fused at K8a's primal; the exact reference projects the same t5
-    acc5 = torch.randn(st.u5.shape, generator=gen).to(dev) * 0.1
+    # K7 fused at K8a's primal
+    acc5 = torch.randn(st.u5.shape, generator=gen, dtype=dt).to(dev) * 0.1
     s7, s7b = sk.clone(), sk.clone()
     a7, a7b = acc5.clone(), acc5.clone()
-    S.minor_step(c, sc, s7, a7, "ns")
-    S.minor_step(c, sc, s7b, a7b, "ns")
+    S.minor_step(c, sc, s7, a7, psd)
+    S.minor_step(c, sc, s7b, a7b, psd)
     torch.cuda.synchronize()
-    w5p, u5p, a5p = S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)
-    w5e, _, _ = S.minor_step_plain(c, sc, sk, acc5,
-                                   lambda t: project_psd_plain(t.double()).float())
-    rel, ab = _errs((s7.w5, s7.u5, a7), (w5p, u5p, a5p))
     s8, a8 = sk.clone(), acc5.clone()
-    fns = {"kernel": lambda: S.minor_step(c, sc, s8, a8, "ns")}
-    r7 = out["K7fused"] = dict(
-        **shape, rel_err=rel, max_abs_err=ab, plain_vs_eigh=rel_fro(w5p, w5e),
-        kernel_vs_eigh=rel_fro(s7.w5, w5e),
-        deterministic=_same_bits((s7.w5, s7.u5, a7), (s7b.w5, s7b.u5, a7b)),
-        ms=cuda_time_ms(fns["kernel"]),
-        plain_ms=cuda_time_ms(lambda: S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)))
-    if PARENT:
-        fns["parent"] = _parent_k7(c, sc, sk.clone(), acc5.clone())
-        r7["parent_ms"] = cuda_time_ms(fns["parent"])
-    _device_rows(r7, fns)
-    N = B * M5
+    fns = {"kernel": lambda: S.minor_step(c, sc, s8, a8, psd)}
+    got7 = (s7.w5, s7.u5, a7)
+    r7 = out["K7" + ("_f64" if f64 else "fused")] = dict(
+        **shape, deterministic=_same_bits(got7, (s7b.w5, s7b.u5, a7b)))
+    if f64:
+        seen = {}
+
+        def mirror(t):
+            seen["t5"] = t
+            P_, seen["sweeps"] = k4s_project_psd(t)
+            return P_
+
+        r7["rel_err"], r7["max_abs_err"] = _slot_errs(
+            got7, S.minor_step_plain(c, sc, sk, acc5, mirror), ((0, 1), (2,)))
+        t5 = seen["t5"]
+        w64, V64 = torch.linalg.eigh(t5.cpu())
+        exact = ((V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)).to(dev)
+        lam = w64.abs().amax(-1).to(dev)
+        sw4s = torch.empty(t5.shape[:-2], dtype=torch.int32, device=dev)
+        cones.k4s_project_psd(t5, sw4s)
+        plan7 = S.k7_plan(N, dt)
+        r7.update(
+            plan=plan7, plan_matches_kernel=(plan7["threads"] == lib.omc_k7_threads(8)
+                                             and plan7["smem"] == lib.omc_k7_smem_bytes(8)),
+            err_vs_lapack=float(((s7.w5 - exact).abs().amax((-2, -1))
+                                 / lam.clamp(min=1e-300)).max()),
+            mirror_sweeps_max=int(seen["sweeps"].max()),
+            mirror_sweeps_min=int(seen["sweeps"].min()),
+            k4s_sweeps_max=int(sw4s.max()), k4s_sweeps_min=int(sw4s.min()),
+            # the library call: the float64 eigh of the B M5 batch (cuSOLVER,
+            # chunked below its batch limit)
+            library_ms=_tm(lambda: cones.eigh_plain(t5)))
+        timed(r7, fns, lambda: S.minor_step_plain(c, sc, sk, acc5,
+                                                  lambda t: k4s_project_psd(t)[0]))
+        # the FP64 operations of the sweeps the mirror ran on these t5 (10
+        # pairs a sweep, ~90 flops a pair's test and rotation of A's rows
+        # and V), the rebuild (15 entries of 5 FMAs) and the mixing, u-step
+        # and EMA
+        flops = float(seen["sweeps"].double().sum()) * 10 * 90 + N * (150 + 100)
+    else:
+        ref = S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small)
+        w5e, _, _ = S.minor_step_plain(c, sc, sk, acc5,
+                                       lambda t: cones.project_psd_plain(t.double()).float())
+        r7["rel_err"], r7["max_abs_err"] = _errs(got7, ref)
+        r7.update(plain_vs_eigh=rel_fro(ref[0], w5e), kernel_vs_eigh=rel_fro(s7.w5, w5e))
+        if parent:
+            fns["parent"] = _parent_k7(c, sc, sk.clone(), acc5.clone())
+        timed(r7, fns, lambda: S.minor_step_plain(c, sc, sk, acc5, project_psd_ns_small))
+        # the symmetric schedule's products (the upper triangle, 15 entries
+        # of 5 FMAs) and the mixing, epilogue and EMA
+        flops = N * (SIGN_PRODUCTS * 150 + 75)
     xw, nv = _k7_gathered(sc.sb, st, n, m)
-    # w5/u5/acc read and written, the tables, and once each the entries of
-    # X, W and v that this batch's minors gather; the operations: the
-    # symmetric schedule's products (the upper triangle, 15 entries of 5
-    # FMAs) and the mixing, epilogue and EMA
-    with_bound(r7, 4 * (N * (6 * 25 + 10) + 2 * xw + nv + 2 * B),
-               N * (SIGN_PRODUCTS * 150 + 75))
+    # values: w5/u5/acc read and written and the minor mask, once each the
+    # entries of X, W and v that this batch's minors gather, sS and rho;
+    # int32: each minor's 4 indices and 5 v entries
+    with_bound(r7, esz * (N * (6 * 25 + 1) + 2 * xw + nv + 2 * B) + 4 * 9 * N, flops, peak)
 
     # K8b at K8a's primal
-    acc_r = torch.randn(st.ur.shape, generator=gen).to(dev) * 0.1
-    acc_l = torch.randn(st.ul.shape, generator=gen).to(dev) * 0.1
+    acc_r = torch.randn(st.ur.shape, generator=gen, dtype=dt).to(dev) * 0.1
+    acc_l = torch.randn(st.ul.shape, generator=gen, dtype=dt).to(dev) * 0.1
     k8b_out = lambda x, ar, al: (x.wr, x.ur, x.wl, x.ul, x.wp, x.up, ar, al)  # noqa: E731
     runs = [(sk.clone(), acc_r.clone(), acc_l.clone()) for _ in range(2)]
     for x, ar, al in runs:
         S.shor_cone_step(c, sc, x, ar, al)
     torch.cuda.synchronize()
     ref = S.shor_cone_step_plain(c, sc, sk, acc_r, acc_l)
-    rel, ab = _errs(k8b_out(*runs[0]), ref)
+    # float64: each slot's (w, u) held together (u = t - w may be all
+    # rounding noise where t lies in the cone)
+    rel, ab = (_slot_errs(k8b_out(*runs[0]), ref, ((0, 1), (2, 3), (4, 5), (6,), (7,))) if f64
+               else _errs(k8b_out(*runs[0]), ref))
     s9, ar9, al9 = sk.clone(), acc_r.clone(), acc_l.clone()
-    plan8b = S.k8b_plan(B, n, m)
+    plan8b = S.k8b_plan(B, n, m, dt)
     fns = {"kernel": lambda: S.shor_cone_step(c, sc, s9, ar9, al9)}
-    r8b = out["K8b"] = dict(
-        **shape, plan=plan8b,
-        plan_matches_kernel=plan8b["grid"] == lib.omc_k8b_grid_x(B, n, m, plan8b["qpc"]),
-        rel_err=rel, max_abs_err=ab,
-        deterministic=_same_bits(k8b_out(*runs[0]), k8b_out(*runs[1])),
-        ms=cuda_time_ms(fns["kernel"]),
-        plain_ms=cuda_time_ms(lambda: S.shor_cone_step_plain(c, sc, sk, acc_r, acc_l)))
-    if PARENT:
+    if parent:
         fns["parent"] = _parent_k8b(c, sc, sk.clone(), acc_r.clone(), acc_l.clone())
-        r8b["parent_ms"] = cuda_time_ms(fns["parent"])
-    _device_rows(r8b, fns)
+    r8b = out["K8b" + sfx] = dict(
+        **shape, plan=plan8b,
+        plan_matches_kernel=plan8b["grid"] == lib.omc_k8b_grid_x(B, n, m, plan8b["qpc"], esz),
+        rel_err=rel, max_abs_err=ab,
+        deterministic=_same_bits(k8b_out(*runs[0]), k8b_out(*runs[1])), library_ms=None)
+    timed(r8b, fns, lambda: S.shor_cone_step_plain(c, sc, sk, acc_r, acc_l))
     # per slot: X, W, the RSOC slots and their EMA (read and written), the
     # mask, W >= 0, Theta's diagonal and the link rows
-    with_bound(r8b, 4 * B * (2 * nm + 9 * nm + nm + 2 * nm + m + 3 * m + 9 * nm
-                             + 2 * nm + 3 * m + 4),
-               B * 40 * nm)
+    with_bound(r8b, esz * B * (2 * nm + 9 * nm + nm + 2 * nm + m + 3 * m + 9 * nm
+                               + 2 * nm + 3 * m + 4),
+               B * 40 * nm, peak)
     return out
 
 
@@ -2176,14 +2265,15 @@ def _check_eig_kernels(gen, dev):
            "K5_special": []}
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def tm(fn, warm=False):
-        """Median of 20 timed calls; of 3 for a call over 20 ms (cuSOLVER
-        at B=64), one call for a call over 200 ms (cuSOLVER at B=128).
-        ``warm``: the call has just run, so the first timed call counts."""
+    def tm(fn, warm=False, reps=20):
+        """Median of ``reps`` timed calls; of 3 for a call over 20 ms
+        (cuSOLVER at B=64), one call for a call over 200 ms (cuSOLVER at
+        B=128).  ``warm``: the call has just run, so the first timed call
+        counts."""
         probe = cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
         if probe > 200.0:
             return probe
-        return cuda_time_ms(fn) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
+        return cuda_time_ms(fn, reps=reps) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
 
     # a NaN or an Inf runs to the sweep cap and gives NaN out (K4 on each
     # of its paths, K4s)
@@ -2236,13 +2326,14 @@ def _check_eig_kernels(gen, dev):
         P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
         lam = w64.abs().amax(-1)
         # the plain eigenvalue and eigenpair versions are the library calls
-        # themselves: each is timed once
+        # themselves: each is timed once, the median of 5 calls (cuSOLVER's
+        # times spread little; 20 took 14 s of the phase)
         lib_ms = {}
 
         def library_ms(name):
             if name not in lib_ms:
                 fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
-                lib_ms[name] = tm(lambda: fn(T))
+                lib_ms[name] = tm(lambda: fn(T), reps=5)
             return lib_ms[name]
 
         for mode in modes:
@@ -2526,6 +2617,27 @@ def _check_eig_kernels(gen, dev):
 # The float64 builds' rows (B, n, k, L) of K2 and K3: the base path at B=64
 # (the row of the record), the headline's root visit (B=1; the api phase's
 # call) and the four fixtures' shapes at their batch of 8
+def _tm(fn):
+    """Median of 5 timed calls; of 3 for a call over 20 ms (cuSOLVER's
+    float64 eigh at B=64)."""
+    probe = cuda_time_ms(fn, reps=1, warmup=1)
+    return cuda_time_ms(fn, reps=5) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
+
+
+def _shor64_of(c, sc, st):
+    """Float64 copies of ``_shor_inputs``' state and tables, with the
+    constants computed from them in float64, as the solver computes them."""
+    import torch
+
+    from omc_torch.sdp.admm import make_consts
+    from omc_torch.sdp.admm_shor import make_shor_consts
+
+    c, sb, st = _to64(c), _to64(sc.sb), _to64(st)
+    c = make_consts(c.maskA, c.mask, c.batch, st.core, c.n, c.m, c.k, c.gamma, c.alpha, c.beta,
+                    torch.float64)
+    return c, make_shor_consts(c, sb, st.core, SHOR_UB), st
+
+
 F64_ADMM_SHAPES = ((64, 50, 1, 8), (1, 50, 1, 8), (8, 12, 1, 8), (8, 16, 1, 8), (8, 20, 1, 8),
                    (8, 10, 2, 8))
 # K4's float64 rows (B, d, modes, path): the three blocks of the headline's
@@ -2539,13 +2651,19 @@ F64_K4_SHAPES = ((64, 100, (1, 0, 2), None), (1, 100, (1, 0, 2), None),
 F64_K6_SHAPES = ((50, 4, 1), (50, 64, 1), (50, 4, 2), (50, 64, 2), (50, 4, 10))
 
 
-def _check_float64_kernels(gen, dev):
-    """The float64 builds of K2, K3 (both modes), K4 (modes 0, 1, 2 on both
-    paths), K4s, K5 and K6 against their plain versions in float64 on the
-    same inputs, with times, bounds (8 bytes a value, the FP64 rate) and
-    the library call.  Bars: K2, K3 and K6 within 1e-10 relative Frobenius
-    of the plain version (float64 sums in another order; the same bits from
-    two launches); K4, K4s and K5 within 1e-11 max|lambda| of a float64
+def _check_float64_kernels(gen, dev, shor_inputs=None):
+    """The float64 builds of K8a, K7 and K8b (``_check_shor_kernels``, on
+    float64 copies of ``shor_inputs``, the float32 rows' inputs by shape,
+    where given: ``_shor64_of``), K2 (also its Shor mode), K3 (both modes),
+    K4 (modes 0, 1, 2 on both paths), K4s, K5 and K6 against their plain
+    versions in float64 on the same inputs, with times, bounds (8 bytes a
+    value, the FP64 rate) and the library call.  Bars: K2, K3, K6, K8a, K7
+    and K8b within 1e-10 relative Frobenius of the plain version (float64
+    sums in another order, K8b's cone projections through rsqrt; K7's and
+    K8b's slots (w, u) taken together; the same bits from two launches; the
+    plans the kernels' own); K7 also within 1e-11 max|lambda| of a float64
+    LAPACK projection of the same t5, its mirror's and K4s's sweeps within
+    the cap; K4, K4s and K5 within 1e-11 max|lambda| of a float64
     LAPACK eigh of the same input on the host (eigenvalues; K4's
     projection within 1e-11 relative Frobenius, its and K5's vectors with
     a residual and orthogonality within 1e-11 sqrt(d) and, K5's, within
@@ -2569,14 +2687,31 @@ def _check_float64_kernels(gen, dev):
 
     f64 = torch.float64
     lib = kernels.library()
-    out = {key: [] for key in ("K2_f64", "K3_f64", "K4_f64", "K4s_f64", "K5_f64", "K6_f64")}
+    out = {key: [] for key in ("K2_f64", "K3_f64", "K7_f64", "K8a_f64", "K8b_f64", "K4_f64",
+                               "K4s_f64", "K5_f64", "K6_f64")}
     i32 = dict(dtype=torch.int32, device=dev)
+    tm = _tm
 
-    def tm(fn):
-        """Median of 5 timed calls; of 3 for a call over 20 ms (cuSOLVER's
-        float64 eigh at B=64)."""
-        probe = cuda_time_ms(fn, reps=1, warmup=1)
-        return cuda_time_ms(fn, reps=5) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
+    # ---- K8a, K7 (fused) and K8b: every shape of the Shor k=1 loop; K2's
+    # Shor mode at config 2's and the shor cell's ----
+    for B, n, M5 in SHOR_SHAPES:
+        inputs = (shor_inputs or {}).get((B, n, M5))
+        inputs = (_shor64_of(*inputs) if inputs else
+                  _shor_inputs(B, n, n, 8, M5, gen, dev, f64))
+        for name, row in _check_shor_kernels(*inputs, gen, dev).items():
+            row["ok"] = (row["rel_err"] <= 1e-10 and row["deterministic"]
+                         and row["plan_matches_kernel"])
+            if name == "K7_f64":
+                row["ok"] = (row["ok"] and row["err_vs_lapack"] <= 1e-11
+                             and row["mirror_sweeps_max"] <= MAX_SWEEPS
+                             and row["k4s_sweeps_max"] <= MAX_SWEEPS)
+            out[name].append(row)
+    for B, n in ((32, 100), (4, 50)):
+        c, st, acc, ts = _admm_inputs(B, n, n, 1, 8, gen, dev, f64)
+        r2, _ = _check_k2_k3(c, st, acc, ts, shor=True, sweep=False)
+        r2["ok"] = r2["rel_err"] <= 1e-10 and r2["deterministic"] and r2["plan_matches_kernel"]
+        out["K2_f64"].append(dict(r2, shor=True))
+        del c, st, acc, ts
 
     # ---- K2 and K3 (and K3's Halpern mode) ----
     for B, n, k, L in F64_ADMM_SHAPES:
@@ -2923,7 +3058,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
            "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
-           "float64")
+           "float64", "shor64")
 _PHASE = {"name": None}
 
 
@@ -3055,11 +3190,11 @@ def phase_branch(res):
 
 # the multi-process frontier: two ranks of omc_torch.parallel.worker on the
 # card, over gloo, on the multinode instance (BENCH_KW with batch 8, so that
-# the frontier outgrows a batch, 25 s, rebalancing every round; the root's
+# the frontier outgrows a batch, 20 s, rebalancing every round; the root's
 # budget not boosted and at most two refinement visits a node, since with
 # either this root certifies alone and rank 1 would get no node)
 DIST_RANKS = 2
-DIST_TIME_LIMIT = 25
+DIST_TIME_LIMIT = 20
 # seconds a rank may take, start-up and the final gather included
 DIST_TIMEOUT = 240
 
@@ -3156,9 +3291,9 @@ def phase_dist(res):
 SHOR_KW = dict(
     BENCH_KW, node_selection="breadthfirst", add_Shor_valid_inequalities=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    add_Shor_valid_inequalities_fraction=0.25, time_limit=20,
+    add_Shor_valid_inequalities_fraction=0.25, time_limit=15,
 )
-# the certified gap the shor phase must reach in its 20 s: 1e-4 is out of
+# the certified gap the shor phase must reach in its 15 s: 1e-4 is out of
 # reach for this relaxation there (the card reaches ~3e-3 in 180 s and
 # ~5e-3 by its second visit, some 10 s in; PERF.md, "shor phase"), so the
 # bar is 1e-2
@@ -3167,7 +3302,7 @@ SHOR_GAP = 1e-2
 
 def phase_shor(res):
     """Static Shor ([4]-minors, a quarter of them) on the 30%-observed
-    50x50 instance, breadth-first, 20 s: the K7/K8a/K8b path through the
+    50x50 instance, breadth-first, 15 s: the K7/K8a/K8b path through the
     entry point."""
     from omc_torch import kernels
 
@@ -3196,7 +3331,7 @@ CONFIG2_KW = dict(
     disjunctive_cuts_breakpoints="smallest_1_eigvec",
     add_Shor_valid_inequalities=True, add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=20, batch_size=32,
+    update_Shor_indices_n_minors=100, gap=1e-2, time_limit=8, batch_size=32,
     sdp_iters=2000, dtype="float32", altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: one visit's budget is not boosted 8x
     sdp_iter_boost_max=1,
@@ -3205,7 +3340,7 @@ CONFIG2_KW = dict(
 
 def phase_config2(res):
     """BASELINE config 2 at full width (rank-1 100x100, 30% observed, seed 1,
-    iterative [4]-minor Shor, breadth-first, batch 32), 20 s."""
+    iterative [4]-minor Shor, breadth-first, batch 32), 8 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -3245,10 +3380,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=25, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=16, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget, and the budget is 25 s
+    # of K1's d=150 chain) does not fit the budget, and the budget is 16 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -3257,7 +3392,7 @@ SHORK_KW = dict(
     CONFIG3_KW, batch_size=32, add_Shor_valid_inequalities=True,
     add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, time_limit=20,
+    update_Shor_indices_n_minors=100, time_limit=12,
 )
 
 
@@ -3303,7 +3438,7 @@ def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
 
 def phase_config3(res):
     """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
-    smallest_2_eigvec, best-first/depth-first, batch 64), 25 s: the base
+    smallest_2_eigvec, best-first/depth-first, batch 64), 16 s: the base
     path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
     from omc_torch import kernels
 
@@ -3318,7 +3453,7 @@ def phase_config3(res):
 def phase_shork(res):
     """The rank-k Shor path on config 3's instance: (i) one root visit of
     2,000 iterations, held to omc's bound for the same call; (ii) the full
-    call (iterative Shor, batch 32), 20 s, through K1, K2, K3, K7t, K7x,
+    call (iterative Shor, batch 32), 12 s, through K1, K2, K3, K7t, K7x,
     K8c and K8d."""
     from omc_torch import kernels
 
@@ -3349,7 +3484,7 @@ def phase_shork(res):
 # with one visit's budget not boosted 8x (a cut of depth, so that the root
 # splits inside the budget)
 MC_KW = dict(BENCH_KW, use_disjunctive_cuts=False, disjunctive_cuts_type=None,
-             disjunctive_cuts_breakpoints=None, time_limit=15, sdp_iter_boost_max=1)
+             disjunctive_cuts_breakpoints=None, time_limit=10, sdp_iter_boost_max=1)
 # config 3's instance and batch on the McCormick path, one root visit
 MC3_KW = dict(node_selection="bestfirst", use_disjunctive_cuts=False, gap=1e-2,
               time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
@@ -3367,7 +3502,7 @@ def phase_mccormick(res):
     relaxation entry point on the headline's root node, held to omc's bound;
     (ii) a rank-2 root visit of the driver on config 3's instance, held to
     omc's bound; (iii) the full McCormick B&B on the headline instance,
-    15 s."""
+    10 s."""
     import numpy as np
 
     from omc_torch import kernels
@@ -3772,13 +3907,14 @@ MESH_KW = dict(BENCH_KW, batch_size=8, mesh_shape=(2,))
 MESH_SHOR = dict(n=100, B=32, L=8, M5=1024, iters=1000, check_every=500, gamma=80.0)
 
 
-def _mesh_shard_check():
+def _mesh_shard_check(dtype=None):
     """The Shor k=1 solver at config 2's shape, split over two shards on
     streams of the one card, against the same call on one device: the
     host-certified bounds within 1e-3 (1 + |b|) and Y within 1e-3 relative
     Frobenius (float32 on the card, other kernel plans at B = 16 than at
-    32).  The on-device bound (K4's block path at d = 200) runs on both
-    streams: no slot exits early."""
+    32; in float64, ``dtype``, 50 iterations with a bound call every 25,
+    within 1e-8: float64's rounding).  The on-device bound (K4's block path
+    at d = 200) runs on both streams: no slot exits early."""
     import numpy as np
     import torch
 
@@ -3793,7 +3929,10 @@ def _mesh_shard_check():
     from omc_torch.solve import _polish_incumbent
     from omc_torch.tree import root_box
 
-    c = MESH_SHOR
+    dt = dtype or torch.float32
+    f64 = dt == torch.float64
+    c = dict(MESH_SHOR, iters=50, check_every=25) if f64 else MESH_SHOR
+    tol, sfx = (1e-8, "_f64") if f64 else (1e-3, "")
     n, B, L, M5, gamma, k = c["n"], c["B"], c["L"], c["M5"], c["gamma"], 1
     dev = torch.device("cuda", 0)
     A, idx = generate_matrix_completion_data(1, n, n, int(0.3 * n * n), seed=1)
@@ -3815,19 +3954,19 @@ def _mesh_shard_check():
     sbh = pack_shor_batch(n, n, minors, [shor_soc_complement(n, n, mm) for mm in minors], M5,
                           n * n)
     lo, hi = root_box(n, k)
-    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)  # noqa: E731
     hb = NodeBatch(np.zeros((B, L, n)), np.zeros((B, L, k)), np.zeros((B, L, k)),
                    np.zeros((B, L)), np.broadcast_to(lo, (B, n, k)).copy(),
                    np.broadcast_to(hi, (B, n, k)).copy())
     batch = hb.map(f)
-    st = admm_shor.init_shor_state(B, n, n, k, L, M5, n * n, torch.float32, device=dev, sX=sX,
+    st = admm_shor.init_shor_state(B, n, n, k, L, M5, n * n, dt, device=dev, sX=sX,
                                    sT=sT, sS=sX, rho=rho, X0=X0[None], Y0=(U0 @ U0.T)[None],
                                    Th0=(V0.T @ V0)[None], U0=U0[None])
     solve = admm_shor.make_shor_solver(n, n, L, M5, n * n, gamma, iters=c["iters"],
-                                       dtype=torch.float32, check_every=c["check_every"],
+                                       dtype=dt, check_every=c["check_every"],
                                        ema_iters=1000)
     ub_bar = obj0 * (1 + 1e-9) + 1e-9
-    target = torch.full((B,), float("inf"), device=dev)
+    target = torch.full((B,), float("inf"), dtype=dt, device=dev)
     group = torch.arange(B, device=dev)
     args = (f(A), f(mask), batch, sbh, ub_bar, st, c["iters"], target, group)
     mesh = make_mesh(2)
@@ -3847,7 +3986,8 @@ def _mesh_shard_check():
     one, msh = runs["one_device"]["out"], runs["mesh"]["out"]
     d_lb = np.abs(lbs["mesh"] - lbs["one_device"]) / (1.0 + np.abs(lbs["one_device"]))
     y_rel = float(np.linalg.norm(msh["Y"] - one["Y"]) / np.linalg.norm(one["Y"]))
-    row = dict(c, mesh=[str(d) for d in mesh], k4_path_d200=k4_plan(B // 2, 2 * n, 1)["path"],
+    row = dict(c, dtype=str(dt), mesh=[str(d) for d in mesh],
+               k4_path_d200=k4_plan(B // 2, 2 * n, 1, dtype=dt)["path"],
                seconds={name: r["seconds"] for name, r in runs.items()},
                launches_mesh=runs["mesh"]["launches"],
                launches_one_device=runs["one_device"]["launches"],
@@ -3857,14 +3997,16 @@ def _mesh_shard_check():
                worst_rel_lb=float(d_lb.max()), y_rel_fro=y_rel)
     log("mesh shard_solver", json.dumps(row))
     assert all(np.isfinite(v).all() for v in lbs.values()), row
-    assert row["worst_rel_lb"] <= 1e-3, row
-    assert y_rel <= 1e-3, row
+    assert row["worst_rel_lb"] <= tol, row
+    assert y_rel <= tol, row
     assert row["iters_run_mesh"] == [c["iters"]], row  # no slot exited early
     # each shard ran its own bound calls and separation: K4 and K5 twice
     # as often as on one device
     lm, l1 = row["launches_mesh"], row["launches_one_device"]
-    assert lm["K5"] == 2 * l1["K5"] == 2 and lm["K4"] == 2 * l1["K4"] > 0, row
-    _assert_launched(lm, ("K1", "K2", "K3", "K7", "K8a", "K8b", "K4s", "K4", "K5"))
+    k4, k5 = "K4" + sfx, "K5" + sfx
+    assert lm[k5] == 2 * l1[k5] == 2 and lm[k4] == 2 * l1[k4] > 0, row
+    _assert_launched(lm, tuple(key + sfx for key in ("K2", "K3", "K7", "K8a", "K8b", "K4s", "K4",
+                                                       "K5")) + (() if f64 else ("K1",)))
     return row
 
 
@@ -3960,14 +4102,14 @@ def phase_halpern(res):
 # relaxation) on the headline's root, each against the same call on the
 # CPU; the four fixtures at their own gap_target with make_fixtures.py's
 # batch and iterations (tests/fixtures/instances.json records their
-# certificates); the headline branch-and-bound for 15 s as a reading, its
+# certificates); the headline branch-and-bound for 5 s as a reading, its
 # visits cut to 500 iterations unboosted (a float64 iteration at the root
 # costs ~40x a float32 one: a boosted root alone would take minutes).
 F64_API_ITERS = 1000
 F64_FIXTURE_KW = {  # (k, n, seed) -> benchmarks/make_fixtures.py's settings
     (1, 12, 3): dict(batch_size=4, sdp_iters=1500), (1, 16, 1): dict(batch_size=8, sdp_iters=1500),
     (1, 20, 2): dict(batch_size=8, sdp_iters=2000), (2, 10, 6): dict(batch_size=8, sdp_iters=1500)}
-F64_BRANCH_KW = dict(BENCH_KW, dtype="float64", time_limit=15, sdp_iters=500,
+F64_BRANCH_KW = dict(BENCH_KW, dtype="float64", time_limit=5, sdp_iters=500,
                      sdp_iter_boost_max=1)
 F64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K5_f64", "K6_f64")
 
@@ -4005,7 +4147,7 @@ def _f64_iteration_trace(dtype, psd_method, B=1, iters=20):
 def phase_float64(res):
     """The port in float64 on the card, through the float64 builds of K2,
     K3, K4, K5 and K6: the api's two entry points at their defaults against
-    the same calls on the CPU, the four fixtures at their own gap, a 15 s
+    the same calls on the CPU, the four fixtures at their own gap, a 5 s
     headline branch-and-bound whose bounds must be sound, and one traced
     iteration at B=1 in float64 (eigh route) beside float32 (sign
     schedule)."""
@@ -4113,7 +4255,7 @@ def phase_float64(res):
         rows.append(fr)
     row["fixtures"] = rows
 
-    # the headline branch-and-bound, 15 s, as a reading: sound bounds
+    # the headline branch-and-bound, 5 s, as a reading: sound bounds
     before = dict(kernels.LAUNCHES)
     sol, inst, secs = _solve(A, idx, gamma, **F64_BRANCH_KW)
     br = _summary(sol, inst, secs)
@@ -4149,6 +4291,150 @@ def phase_float64(res):
     for dt, tr in row["iteration"].items():
         log(f"float64 iteration ({dt})", json.dumps(tr))
     res["float64"] = row
+
+
+# the shor64 phase: omc's float64 Shor k = 1 relaxation on the card.  (a)
+# The api's Shor relaxation at its defaults (float64, cuda) on the
+# headline's root, 1,000 iterations, with the root's first 1,024 fully
+# observed 2x2 minors (config 2's frontier bucket; all ~94,000 would take
+# the CPU's reference call minutes), against the same call on the CPU, run
+# in a thread beside this phase's card work.  (b) BASELINE config 2 at full
+# width in float64 (bench_configs.py's off-TPU dtype), cut in depth only:
+# visits of 250 iterations, one refinement visit before a node grows or
+# splits, 12 s.  (c) The Shor solver at config 2's shape split over two
+# shards (mesh_shape's path) against one device, 50 iterations.  (d) One
+# traced float64 iteration at config 2's shape.
+SHOR64_API_ITERS = 1000
+SHOR64_API_MINORS = 1024
+CONFIG2_F64_KW = dict(CONFIG2_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=12)
+SHOR64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K7_f64", "K8a_f64", "K8b_f64", "K4s_f64", "K5_f64")
+
+
+def _shor_iteration_trace(B=32, n=100, M5=1024, iters=10):
+    """One Shor k = 1 iteration at config 2's shape in float64 (the eigh
+    route: K2, K8a, K3, three K4 launches and the torch epilogue, K7, K8b),
+    traced: CUDA-event ms an iteration, device ms by kernel (the rest under
+    "other: ..."), K4's share, the idle share."""
+    import torch
+
+    from omc_torch.sdp import admm_shor as S
+
+    dev = torch.device("cuda", 0)
+    c, sc, st = _shor_inputs(B, n, n, 8, M5, torch.Generator().manual_seed(3), dev,
+                             torch.float64)
+    core = st.core
+    acc = [torch.zeros_like(x) for x in (core.u1, core.u2, core.ua, core.ub, core.uc, st.u5,
+                                         st.ur, st.ul)]
+    ts = (torch.empty_like(core.w1), torch.empty_like(core.w2), torch.empty_like(core.w3))
+    names = {"k2_kernel": "K2", "k3_kernel": "K3", "k7_kernel": "K7", "k8a_kernel": "K8a",
+             "k8b_kernel": "K8b", "k4s_kernel": "K4s", "k4_": "K4"}
+    row = _trace_loop(lambda: S.shor_iteration(c, sc, st, ts, acc, "eigh"), names, iters,
+                      B=B, n=n, m=n, M5=M5, L=8, dtype="float64")
+    row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
+    return row
+
+
+def phase_shor64(res):
+    """The Shor k = 1 family in float64 on the card, through the float64
+    builds of K2 (its Shor mode), K8a, K3, K4, K7, K8b, K4s and K5: the api's
+    Shor relaxation at its defaults against the same call on the CPU (bound
+    and objective within 1e-8 relative), BASELINE config 2 in float64 with
+    sound bounds and a Shor growth, the Shor solver at its shape split over
+    two shards against one device (``_mesh_shard_check``), one traced
+    iteration at its shape."""
+    import numpy as np
+    import torch
+
+    from omc_torch import api, kernels
+    from omc_torch.sdp.shor import (
+        generate_rank1_matrix_completion_Shor_constraints_indexes,
+        shor_soc_complement,
+    )
+    from omc_torch.tree import BBNode, ShorInfo, root_box
+    from omc_torch.data import generate_matrix_completion_data
+
+    row = {}
+    A, idx = _bench_instance(0.5)
+    n, k, gamma = 50, 1, 80.0
+    minors = generate_rank1_matrix_completion_Shor_constraints_indexes(idx, [4])
+    minors = minors[:SHOR64_API_MINORS]
+    lo, hi = root_box(n, k)
+    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0, cuts=[],
+                  Shor_info=ShorInfo(constraints_indexes=minors,
+                                     SOC_constraints_indexes=shor_soc_complement(n, n, minors)))
+    kw = dict(add_Shor_valid_inequalities=True, iters=SHOR64_API_ITERS)
+
+    def on_cpu():
+        t0 = time.time()
+        out = api.matrix_completion_SDP_relaxation(node, n, k, A, idx, gamma, device="cpu", **kw)
+        return out, time.time() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu_future = pool.submit(on_cpu)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    sdp = api.matrix_completion_SDP_relaxation(node, n, k, A, idx, gamma, **kw)
+    sdp_s = time.time() - t0
+    sdp_launches = _launched_since(before)
+    log("shor64 relaxation launches", json.dumps(sdp_launches))
+    _assert_launched(sdp_launches, SHOR64_KEYS)
+    assert not any(sdp_launches[key] for key in ("K1", "K7", "K8a", "K8b")), sdp_launches
+
+    # BASELINE config 2 in float64 (benchmarks/bench_configs.py:63 off a TPU)
+    n2 = 100
+    A2, idx2 = generate_matrix_completion_data(1, n2, n2, int(0.3 * n2 * n2), seed=1)
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A2, idx2, 80.0, **CONFIG2_F64_KW)
+    launches = _launched_since(before)
+    rd = inst["run_details"]
+    log_ = inst["run_log"]
+    lowers = [r["lower"] for r in log_ if r["lower"] > -1e300]
+    c2 = _summary(sol, inst, secs)
+    mask = idx2.astype(np.float64)
+    X = np.asarray(sol["X"], np.float64)
+    obj64 = 0.5 * float(np.sum(mask * (X - A2) ** 2)) + (0.5 / 80.0) * float(np.sum(X * X))
+    c2.update(launches=launches, growths=int(rd["shor_growths"]),
+              minors_max=int(rd["shor_minors_max"]),
+              ms_per_iter=1e3 * rd["solve_time_device"] / max(rd["sdp_iters_total"], 1),
+              gap_first=float(log_[0]["gap"]), gap_final=float(log_[-1]["gap"]),
+              lowers=lowers, objective_f64=obj64)
+    log("shor64 config2", json.dumps(c2))
+    log(f"shor64 config2 ms_per_iter {c2['ms_per_iter']:.4f} growths {c2['growths']} "
+        f"minors_max {c2['minors_max']} gap {c2['gap']:.6g}")
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert lowers and lowers[-1] <= c2["objective"] * (1 + 1e-12), c2
+    assert abs(obj64 - c2["objective"]) <= 1e-9 * abs(obj64), c2
+    assert c2["growths"] >= 1, c2
+    _assert_launched(launches, SHOR64_KEYS)
+    assert not any(launches[key] for key in ("K1", "K7", "K8a", "K8b")), launches
+    row["config2"] = c2
+
+    # the Shor solver at config 2's shape split over two shards (the
+    # driver's mesh path), against one device (it resets the counts: the
+    # launches so far count first)
+    _bank(res)
+    row["mesh"] = _mesh_shard_check(torch.float64)
+
+    # one float64 iteration at config 2's shape, split by kernel
+    row["iteration"] = _shor_iteration_trace()
+    log("shor64 iteration", json.dumps(row["iteration"]))
+
+    # the relaxation against its CPU call (the thread's result)
+    sdp_cpu, cpu_s = cpu_future.result()
+    pool.shutdown()
+    r = dict(minors=len(minors), iters=SHOR64_API_ITERS, seconds=sdp_s, seconds_cpu=cpu_s,
+             ms_per_iter=1e3 * sdp_s / SHOR64_API_ITERS, tol=1e-8, launches=sdp_launches)
+    for key in ("lower_bound", "objective"):
+        a_, b_ = float(sdp[key]), float(sdp_cpu[key])
+        r[key], r[key + "_cpu"] = a_, b_
+        r[key + "_rel_dist"] = abs(a_ - b_) / max(1.0, abs(b_))
+    r["Y_rel_dist"] = float(np.linalg.norm(sdp["Y"] - sdp_cpu["Y"]) / np.linalg.norm(sdp_cpu["Y"]))
+    r["W_rel_dist"] = float(np.linalg.norm(sdp["W"] - sdp_cpu["W"]) / np.linalg.norm(sdp_cpu["W"]))
+    row["relaxation"] = r
+    log("shor64 relaxation", json.dumps(r))
+    assert r["lower_bound_rel_dist"] <= 1e-8 and r["objective_rel_dist"] <= 1e-8, r
+    assert r["lower_bound"] <= HEADLINE_OBJ * (1 + 1e-9), r
+    res["shor64"] = row
 
 
 def phase_profile(res):
@@ -4243,11 +4529,18 @@ KERNELS = (
     ("K6", ("K6",),
      "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
-    # the float64 builds (the float64 phase's launches)
+    # the float64 builds (the float64 and shor64 phases' launches)
     ("K2_f64", ("K2_f64",), "K2 float64 build: adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
      "omc_torch/csrc/k2_zstep.cu", "omc/sdp/admm.py:324"),
     ("K3_f64", ("K3_f64",), "K3 float64 build: forward map + cone step (B=64, n=m=50, L=8)",
      "omc_torch/csrc/k3_cone.cu", "omc/sdp/admm.py:133"),
+    ("K7_f64", ("K7_f64",),
+     "K7 float64 build: 5x5 minor slots, fused, exact Jacobi projection (B=32, M5=1024)",
+     "omc_torch/csrc/k7_minor_psd.cu", "omc/ops/polar.py:127"),
+    ("K8a_f64", ("K8a_f64",), "K8a float64 build: Shor adjoint + z-step (B=32, n=m=100, M5=1024)",
+     "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:178"),
+    ("K8b_f64", ("K8b_f64",), "K8b float64 build: Shor RSOC/link/W>=0 cone step (B=32, n=m=100)",
+     "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:423"),
     ("K4_f64", ("K4_f64",),
      "K4 float64 build: Jacobi PSD projection, CTA path (B=64, d=100)",
      "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),

@@ -7,6 +7,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -78,24 +79,53 @@ __device__ __forceinline__ double qnan_of(double) { return __longlong_as_double(
 __device__ __forceinline__ float inf_of(float) { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ double inf_of(double) { return __longlong_as_double(0x7ff0000000000000LL); }
 
-// nf floats from global g (16-byte aligned at its start, or the copy goes a
-// float at a time) into shared s, and back: a CTA's NT threads on
+// 16 bytes of T: four floats, or two doubles in the float64 builds
+template <class T>
+using Vec16 = typename std::conditional<sizeof(T) == 8, double2, float4>::type;
+
+// nf values of T from global g (16-byte aligned at its start, or the copy
+// goes a value at a time) into shared s, and back: a CTA's NT threads on
 // consecutive 16-byte words (K7's and K7t's staged records)
-template <int NT>
-__device__ __forceinline__ void load_block(const float* g, float* s, int nf) {
-  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
+template <int NT, class T>
+__device__ __forceinline__ void load_block(const T* g, T* s, int nf) {
+  constexpr int kSh = sizeof(T) == 8 ? 1 : 2, kPer = 1 << kSh;  // values a word
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> kSh;
   for (int q = threadIdx.x; q < n4; q += NT)
-    reinterpret_cast<float4*>(s)[q] = reinterpret_cast<const float4*>(g)[q];
-  for (int q = 4 * n4 + threadIdx.x; q < nf; q += NT) s[q] = g[q];
+    reinterpret_cast<Vec16<T>*>(s)[q] = reinterpret_cast<const Vec16<T>*>(g)[q];
+  for (int q = kPer * n4 + threadIdx.x; q < nf; q += NT) s[q] = g[q];
 }
 
-template <int NT>
-__device__ __forceinline__ void store_block(float* g, const float* s, int nf) {
-  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> 2;
+template <int NT, class T>
+__device__ __forceinline__ void store_block(T* g, const T* s, int nf) {
+  constexpr int kSh = sizeof(T) == 8 ? 1 : 2, kPer = 1 << kSh;
+  const int n4 = (reinterpret_cast<uintptr_t>(g) & 15) ? 0 : nf >> kSh;
   for (int q = threadIdx.x; q < n4; q += NT)
-    reinterpret_cast<float4*>(g)[q] = reinterpret_cast<const float4*>(s)[q];
-  for (int q = 4 * n4 + threadIdx.x; q < nf; q += NT) g[q] = s[q];
+    reinterpret_cast<Vec16<T>*>(g)[q] = reinterpret_cast<const Vec16<T>*>(s)[q];
+  for (int q = kPer * n4 + threadIdx.x; q < nf; q += NT) g[q] = s[q];
 }
+
+// 1 / x to the float64 rounding level: the hardware's approximate
+// reciprocal refined by two Newton steps (no call to the IEEE divide's
+// slow path, around which ptxas spilled in K4s's float64 build).  x is a
+// normal nonzero number.
+__device__ __forceinline__ double rcp(double x) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+  r = fma(r, fma(-x, r, 1.0), r);
+  return fma(r, fma(-x, r, 1.0), r);
+}
+
+// a / b: the IEEE quotient in float; in double a * rcp(b) corrected once
+// (within an ulp).  b is a normal nonzero number.
+__device__ __forceinline__ float quot(float a, float b) { return a / b; }
+__device__ __forceinline__ double quot(double a, double b) {
+  const double q = rcp(b), y = a * q;
+  return fma(q, fma(-b, y, a), y);
+}
+
+// x * y rounded to nearest, never contracted into an FMA
+__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
+__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
 
 // an odd row stride >= n for a shared-memory band: a column of it, read or
 // written by consecutive lanes, then falls in distinct banks
@@ -278,22 +308,48 @@ __device__ __forceinline__ void project_rsoc1(float u, float v, float x, float& 
   px = zx;
 }
 
-// ---- the cone steps' shared parts (K8b, K8d) ----
+// The float64 builds': the same cases, with 1/sqrt2 as a product, ||(s,
+// x)|| as n2 rsqrt(n2) and t / ||(s, x)|| as t rsqrt(n2) (no IEEE divide or
+// square root: their slow-path calls made ptxas spill in K4s's float64
+// build)
+__device__ __forceinline__ void project_rsoc1(double u, double v, double x, double& pu,
+                                              double& pv, double& px) {
+  constexpr double kInvS2 = 0.70710678118654752440;
+  const double t = (u + v) * kInvS2, s = (u - v) * kInvS2;
+  const double n2 = s * s + x * x;
+  const double inv = n2 > 0.0 ? rsqrt(n2) : 0.0;
+  const double nz = n2 * inv;
+  double tp, zs, zx;
+  if (nz <= t) {
+    tp = t, zs = s, zx = x;
+  } else if (nz <= -t) {
+    tp = 0.0, zs = 0.0, zx = 0.0;
+  } else {  // nz > |t| >= 0
+    const double scale = 0.5 * (1.0 + t * inv);
+    tp = 0.5 * (t + nz), zs = scale * s, zx = scale * x;
+  }
+  pu = (tp + zs) * kInvS2;
+  pv = (tp - zs) * kInvS2;
+  px = zx;
+}
+
+// ---- the cone steps' shared parts (K8b, K8d; T float, or double in K8b's
+// float64 build) ----
 
 // one RSOC row (0.5, W, X) at the primal (x, w), scaled by sS, against its
 // slot r, dual u and EMA a (updated in place; sm the row's mask)
-__device__ __forceinline__ void rsoc_row(float x, float w, float sm, float sS, float rho,
-                                         float alpha, float beta, float (&r)[3], float (&u)[3],
-                                         float (&a)[3]) {
-  const float om = 1.0f - alpha;
-  const float fr[3] = {sS * 0.5f, sS * w, sS * x};
-  float t[3], pr[3];
+template <class T>
+__device__ __forceinline__ void rsoc_row(T x, T w, T sm, T sS, T rho, T alpha, T beta,
+                                         T (&r)[3], T (&u)[3], T (&a)[3]) {
+  const T om = T(1) - alpha;
+  const T fr[3] = {sS * T(0.5), sS * w, sS * x};
+  T t[3], pr[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) t[c] = (alpha * fr[c] + om * r[c]) + u[c];
   project_rsoc1(t[0], t[1], t[2], pr[0], pr[1], pr[2]);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float uc = (t[c] - pr[c]) * sm;
+    const T uc = (t[c] - pr[c]) * sm;
     r[c] = pr[c];
     u[c] = uc;
     a[c] = a[c] + beta * (rho * uc - a[c]);
@@ -301,16 +357,19 @@ __device__ __forceinline__ void rsoc_row(float x, float w, float sm, float sS, f
 }
 
 // a nonnegative slot (wp, up) at the primal w scaled by sS, updated in place
-__device__ __forceinline__ void nonneg_slot(float w, float sS, float alpha, float& wp, float& up) {
-  const float tp = (alpha * (sS * w) + (1.0f - alpha) * wp) + up;
-  const float wn = fmaxf(tp, 0.f);
+template <class T>
+__device__ __forceinline__ void nonneg_slot(T w, T sS, T alpha, T& wp, T& up) {
+  const T tp = (alpha * (sS * w) + (T(1) - alpha) * wp) + up;
+  const T wn = fmax(tp, T(0));
   wp = wn;
   up = tp - wn;
 }
 
+// value c of a 16-byte word
 __device__ __forceinline__ float& lane4(float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
+__device__ __forceinline__ double& lane4(double2& v, int c) { return c == 0 ? v.x : v.y; }
 
 // The Theta-link rows of columns [32 tile, 32 tile + 32) of slot b, by a CTA
 // of 128 threads: 4 row groups of 32 columns, group g summing sW W_ij over
@@ -318,56 +377,59 @@ __device__ __forceinline__ float& lane4(float4& v, int c) {
 // atomics: the same bits every run); then, a zero cone, t_l = alpha (sT
 // Theta_jj - sum) + ul, wl = 0, ul = t_l and the EMA of rho ul.  P is a
 // parameter block with Ws, Ths, sX, sT, rho, wl, ul, acc_l, n, m, alpha,
-// beta.
+// beta (of float, or double in K8b's float64 build).
 constexpr int kLinkCols = 32, kLinkRows = 4;
 
 template <class P>
 __device__ __forceinline__ void link_rows(const P& p, int b, int tile) {
-  __shared__ float part[kLinkRows][kLinkCols];
+  using T = typename std::remove_cv<typename std::remove_pointer<decltype(P::Ws)>::type>::type;
+  __shared__ T part[kLinkRows][kLinkCols];
   const int lane = threadIdx.x % kLinkCols, g = threadIdx.x / kLinkCols;
   const int n = p.n, m = p.m, j = tile * kLinkCols + lane;
-  const float* __restrict__ W = p.Ws + (size_t)b * n * m;
-  const float sW = __ldg(p.sX + b) * __ldg(p.sX + b);
+  const T* __restrict__ W = p.Ws + (size_t)b * n * m;
+  const T sW = __ldg(p.sX + b) * __ldg(p.sX + b);
   // the row's other operands, loaded while the sums' loads are in flight
   const size_t ql = (size_t)b * m + j;
   const bool own = g == 0 && j < m;
-  float th = 0.f, ul = 0.f, al = 0.f;
+  T th = 0, ul = 0, al = 0;
   if (own) th = __ldg(p.Ths + (size_t)b * m * m + (size_t)j * m + j), ul = p.ul[ql], al = p.acc_l[ql];
-  const float sT = __ldg(p.sT + b), rho = __ldg(p.rho + b);
-  float s = 0.f;
+  const T sT = __ldg(p.sT + b), rho = __ldg(p.rho + b);
+  T s = 0;
   if (j < m) {
 #pragma unroll 8
-    for (int i = g; i < n; i += kLinkRows) s += __fmul_rn(sW, __ldg(W + (size_t)i * m + j));
+    for (int i = g; i < n; i += kLinkRows) s += mul_rn(sW, __ldg(W + (size_t)i * m + j));
   }
   part[g][lane] = s;
   __syncthreads();
   if (own) {
-    float tot = 0.f;
+    T tot = 0;
 #pragma unroll
     for (int r = 0; r < kLinkRows; ++r) tot += part[r][lane];
-    const float tl = p.alpha * (sT * th - tot) + ul;
-    p.wl[ql] = 0.f;
+    const T tl = p.alpha * (sT * th - tot) + ul;
+    p.wl[ql] = T(0);
     p.ul[ql] = tl;
     p.acc_l[ql] = al + p.beta * (rho * tl - al);
   }
 }
 
-// A warp's block of RSOC triples: the nf = 3 cnt floats (cnt <= 128 rows)
-// of wr, ur and acc_r from float offset off (16-byte aligned), staged
-// through the warp's shared block s (3 x 96 16-byte words: wr's, ur's,
-// acc_r's) by consecutive lanes in 16-byte words, each lane's loads issued
-// before its stores.  A lane then holds its 4 rows' 12 floats of each array
-// as the words 3 lane .. 3 lane + 2 (a 48-byte stride: no bank conflicts).
-__device__ __forceinline__ void triples_in(const float* __restrict__ wr,
-                                           const float* __restrict__ ur,
-                                           const float* __restrict__ ar, size_t off, int nf,
-                                           float4* s, int lane) {
-  constexpr int kW4 = 3 * 32;
-  const int n4 = nf >> 2;
-  const float4* gr = reinterpret_cast<const float4*>(wr + off);
-  const float4* gu = reinterpret_cast<const float4*>(ur + off);
-  const float4* ga = reinterpret_cast<const float4*>(ar + off);
-  float4 vr[3], vu[3], va[3];
+// A warp's block of RSOC triples: the nf = 3 cnt values (cnt <= 32 E rows,
+// E = 16 / sizeof(T) values a 16-byte word: 4 floats, 2 doubles) of wr, ur
+// and acc_r from offset off (16-byte aligned), staged through the warp's
+// shared block s (3 x 96 16-byte words: wr's, ur's, acc_r's) by consecutive
+// lanes in 16-byte words, each lane's loads issued before its stores.  A
+// lane then holds its E rows' 3 E values of each array as the words 3 lane
+// .. 3 lane + 2 (a 48-byte stride: no bank conflicts).
+template <class T>
+__device__ __forceinline__ void triples_in(const T* __restrict__ wr, const T* __restrict__ ur,
+                                           const T* __restrict__ ar, size_t off, int nf,
+                                           Vec16<T>* s, int lane) {
+  using V = Vec16<T>;
+  constexpr int kW4 = 3 * 32, kSh = sizeof(T) == 8 ? 1 : 2, E = 1 << kSh;
+  const int n4 = nf >> kSh;
+  const V* gr = reinterpret_cast<const V*>(wr + off);
+  const V* gu = reinterpret_cast<const V*>(ur + off);
+  const V* ga = reinterpret_cast<const V*>(ar + off);
+  V vr[3], vu[3], va[3];
 #pragma unroll
   for (int h = 0; h < 3; ++h)
     if (lane + 32 * h < n4) vr[h] = gr[lane + 32 * h], vu[h] = gu[lane + 32 * h], va[h] = ga[lane + 32 * h];
@@ -375,55 +437,59 @@ __device__ __forceinline__ void triples_in(const float* __restrict__ wr,
   for (int h = 0; h < 3; ++h)
     if (lane + 32 * h < n4) s[lane + 32 * h] = vr[h], s[kW4 + lane + 32 * h] = vu[h],
                             s[2 * kW4 + lane + 32 * h] = va[h];
-  float* fs = reinterpret_cast<float*>(s);
-  for (int q = 4 * n4 + lane; q < nf; q += 32)
-    fs[q] = wr[off + q], fs[4 * kW4 + q] = ur[off + q], fs[8 * kW4 + q] = ar[off + q];
+  T* fs = reinterpret_cast<T*>(s);
+  for (int q = E * n4 + lane; q < nf; q += 32)
+    fs[q] = wr[off + q], fs[E * kW4 + q] = ur[off + q], fs[2 * E * kW4 + q] = ar[off + q];
 }
 
-__device__ __forceinline__ void triples_out(float* __restrict__ wr, float* __restrict__ ur,
-                                            float* __restrict__ ar, size_t off, int nf,
-                                            const float4* s, int lane) {
-  constexpr int kW4 = 3 * 32;
-  const int n4 = nf >> 2;
-  float4* gr = reinterpret_cast<float4*>(wr + off);
-  float4* gu = reinterpret_cast<float4*>(ur + off);
-  float4* ga = reinterpret_cast<float4*>(ar + off);
+template <class T>
+__device__ __forceinline__ void triples_out(T* __restrict__ wr, T* __restrict__ ur,
+                                            T* __restrict__ ar, size_t off, int nf,
+                                            const Vec16<T>* s, int lane) {
+  using V = Vec16<T>;
+  constexpr int kW4 = 3 * 32, kSh = sizeof(T) == 8 ? 1 : 2, E = 1 << kSh;
+  const int n4 = nf >> kSh;
+  V* gr = reinterpret_cast<V*>(wr + off);
+  V* gu = reinterpret_cast<V*>(ur + off);
+  V* ga = reinterpret_cast<V*>(ar + off);
 #pragma unroll
   for (int h = 0; h < 3; ++h)
     if (lane + 32 * h < n4) gr[lane + 32 * h] = s[lane + 32 * h],
                             gu[lane + 32 * h] = s[kW4 + lane + 32 * h],
                             ga[lane + 32 * h] = s[2 * kW4 + lane + 32 * h];
-  const float* fs = reinterpret_cast<const float*>(s);
-  for (int q = 4 * n4 + lane; q < nf; q += 32)
-    wr[off + q] = fs[q], ur[off + q] = fs[4 * kW4 + q], ar[off + q] = fs[8 * kW4 + q];
+  const T* fs = reinterpret_cast<const T*>(s);
+  for (int q = E * n4 + lane; q < nf; q += 32)
+    wr[off + q] = fs[q], ur[off + q] = fs[E * kW4 + q], ar[off + q] = fs[2 * E * kW4 + q];
 }
 
-// The RSOC rows e < rem of a lane's quad from its staged words (s, the
-// warp's block, as triples_in leaves it), at the primal (x, w) of each row
-// with its mask, scale and rho; the results back into the same words.
-template <class Row>
-__device__ __forceinline__ void triples_update(float4* s, int lane, int rem, Row row) {
-  constexpr int kW4 = 3 * 32;
-  float4 r4[3], v4[3], a4[3];
+// The RSOC rows e < rem of a lane's E rows from its staged words (s, the
+// warp's block, as triples_in leaves it: float4 or double2 words), at the
+// primal (x, w) of each row with its mask, scale and rho; the results back
+// into the same words.
+template <class V, class Row>
+__device__ __forceinline__ void triples_update(V* s, int lane, int rem, Row row) {
+  using T = decltype(V::x);
+  constexpr int kW4 = 3 * 32, E = 16 / sizeof(T);
+  V r4[3], v4[3], a4[3];
 #pragma unroll
   for (int h = 0; h < 3; ++h) r4[h] = s[3 * lane + h], v4[h] = s[kW4 + 3 * lane + h],
                               a4[h] = s[2 * kW4 + 3 * lane + h];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < E; ++e) {
     if (e >= rem) continue;
-    float r[3], u[3], a[3];
+    T r[3], u[3], a[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      r[c] = lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4);
-      u[c] = lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4);
-      a[c] = lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4);
+      r[c] = lane4(r4[(3 * e + c) / E], (3 * e + c) % E);
+      u[c] = lane4(v4[(3 * e + c) / E], (3 * e + c) % E);
+      a[c] = lane4(a4[(3 * e + c) / E], (3 * e + c) % E);
     }
     row(e, r, u, a);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      lane4(r4[(3 * e + c) / 4], (3 * e + c) % 4) = r[c];
-      lane4(v4[(3 * e + c) / 4], (3 * e + c) % 4) = u[c];
-      lane4(a4[(3 * e + c) / 4], (3 * e + c) % 4) = a[c];
+      lane4(r4[(3 * e + c) / E], (3 * e + c) % E) = r[c];
+      lane4(v4[(3 * e + c) / E], (3 * e + c) % E) = u[c];
+      lane4(a4[(3 * e + c) / E], (3 * e + c) % E) = a[c];
     }
   }
 #pragma unroll
@@ -507,7 +573,8 @@ struct K1Params {
   float beta;
 };
 
-// K2's, K3's, K4's, K5's, K4s's and K6's blocks are templates on the
+// K2's, K3's, K7's, K8a's, K8b's, K4's, K5's, K4s's and K6's blocks are
+// templates on the
 // element type T: float, or double for the float64 builds (the entry points
 // named ..._f64; the ctypes blocks of omc_torch/kernels.py with c_double
 // scalars).  The float blocks keep their names.
@@ -555,60 +622,68 @@ using K3Params = K3ParamsT<float>;
 
 // K7: with t given, w = proj_PSD(t) for N 5x5 matrices; with t null, the
 // Shor minor slots of B node slots (N = B * M5) are gathered from the
-// primal, relax-mixed with w/u, projected, and u and the EMA updated.
-struct K7Params {
-  const float* t;              // (N, 5, 5) or null
-  float* w;                    // (N, 5, 5) projections (w5 in place)
-  float* u;                    // (N, 5, 5) u5 (gather mode)
-  float* acc;                  // (N, 5, 5) EMA of rho*u5, or null
-  const float *Xs, *Ws;        // (B, n*m) scaled primal
-  const float *v1, *v2, *v3;   // (B, P1), (B, P2), (B, P3)
+// primal, relax-mixed with w/u, projected, and u and the EMA updated (the
+// float64 build: the fused mode only, projected exactly by Jacobi).
+template <class T>
+struct K7ParamsT {
+  const T* t;                  // (N, 5, 5) or null
+  T* w;                        // (N, 5, 5) projections (w5 in place)
+  T* u;                        // (N, 5, 5) u5 (gather mode)
+  T* acc;                      // (N, 5, 5) EMA of rho*u5, or null
+  const T *Xs, *Ws;            // (B, n*m) scaled primal
+  const T *v1, *v2, *v3;       // (B, P1), (B, P2), (B, P3)
   const int* minor_idx;        // (B, M5, 4)
   const int *iv1a, *iv1b, *iv2a, *iv2b, *iv3;  // (B, M5)
-  const float* minor_mask;     // (B, M5)
-  const float *sS, *rho;       // (B,)
+  const T* minor_mask;         // (B, M5)
+  const T *sS, *rho;           // (B,)
   int N, M5, nm, P1, P2, P3, m;
-  float alpha, beta;
+  T alpha, beta;
 };
+using K7Params = K7ParamsT<float>;
 
 // K8a: the Shor part of the z-step (adjoint of the minor, RSOC, link and
 // W >= 0 slots, diagonal solves, Theta-link correction) -> Xs, Ths, W, v;
 // per node slot Q clusters of C CTAs on the X/W coordinates, then CTAs on
 // Theta's off-diagonal tile pairs and on the v entries (omc_k8a_grid_x).
-struct K8aParams {
-  const float *w1, *u1;                 // (B, n+m, n+m)
-  const float *w5, *u5;                 // (B, M5, 5, 5)
-  const float *wr, *ur, *soc_mask;      // (B, n*m, 3), (B, n*m)
-  const float *wl, *ul;                 // (B, m)
-  const float *wp, *up;                 // (B, n, m)
+template <class T>
+struct K8aParamsT {
+  const T *w1, *u1;                     // (B, n+m, n+m)
+  const T *w5, *u5;                     // (B, M5, 5, 5)
+  const T *wr, *ur, *soc_mask;          // (B, n*m, 3), (B, n*m)
+  const T *wl, *ul;                     // (B, m)
+  const T *wp, *up;                     // (B, n, m)
   const int *xw_ptr, *xw_ent, *v1_ptr, *v1_ent, *v2_ptr, *v2_ent, *v3_ptr, *v3_ent;
-  const float *cnt_X, *cnt_W, *cnt_v1, *cnt_v2, *cnt_v3;
-  const float* g_link;                  // (B, m) Theta-link Gram diagonal
-  const float *maskA, *mask;            // (n, m)
-  const float *sX, *sT, *sS, *rho;      // (B,)
-  float *Xs, *Ths, *Ws, *v1, *v2, *v3;  // outputs
+  const T *cnt_X, *cnt_W, *cnt_v1, *cnt_v2, *cnt_v3;
+  const T* g_link;                      // (B, m) Theta-link Gram diagonal
+  const T *maskA, *mask;                // (n, m)
+  const T *sX, *sT, *sS, *rho;          // (B,)
+  T *Xs, *Ths, *Ws, *v1, *v2, *v3;      // outputs
   int B, n, m, M5, P1, P2, P3;
   int C, Q;                             // the X/W coordinates' clusters of C CTAs
                                         // (1..8) over Q column groups
                                         // (omc_torch.sdp.admm_shor.k8a_plan)
-  float gamma, R_X;                     // R_X = sqrt(2 gamma ub_bar)
+  T gamma, R_X;                         // R_X = sqrt(2 gamma ub_bar)
 };
+using K8aParams = K8aParamsT<float>;
 
 // K8b: cone step of the RSOC, Theta-link and W >= 0 slots with their EMAs;
-// B ceil(m / 32) CTAs on the link rows, then CTAs of qpc quads of four
-// consecutive coordinates of the batch (omc_k8b_grid_x).
-struct K8bParams {
-  const float *Xs, *Ws, *Ths;    // (B, n, m), (B, n, m), (B, m, m)
-  float *wr, *ur, *acc_r;        // (B, n*m, 3)
-  const float* soc_mask;         // (B, n*m)
-  float *wl, *ul, *acc_l;        // (B, m)
-  float *wp, *up;                // (B, n, m)
-  const float *sX, *sT, *sS, *rho;
+// B ceil(m / 32) CTAs on the link rows, then CTAs of qpc groups of 16 / sizeof(T)
+// consecutive coordinates of the batch (quads; pairs in the float64 build;
+// omc_k8b_grid_x).
+template <class T>
+struct K8bParamsT {
+  const T *Xs, *Ws, *Ths;        // (B, n, m), (B, n, m), (B, m, m)
+  T *wr, *ur, *acc_r;            // (B, n*m, 3)
+  const T* soc_mask;             // (B, n*m)
+  T *wl, *ul, *acc_l;            // (B, m)
+  T *wp, *up;                    // (B, n, m)
+  const T *sX, *sT, *sS, *rho;
   int B, n, m;
-  int qpc;                       // quads a coordinates' CTA: 32, 64 or 128
+  int qpc;                       // groups a coordinates' CTA: 32, 64 or 128
                                  // (sdp.admm_shor.k8b_plan)
-  float alpha, beta;
+  T alpha, beta;
 };
+using K8bParams = K8bParamsT<float>;
 
 // K7t: the per-term 5x5 minor slots of the rank-k Shor relaxation, gathered
 // from term t of Xt, Wt and v1-v3, relax-mixed, projected, u and EMA updated.

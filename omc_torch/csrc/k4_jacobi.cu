@@ -380,8 +380,7 @@ __device__ __forceinline__ void unpack16(const float4& v, float* o) {
 __device__ __forceinline__ void unpack16(const double2& v, double* o) { o[0] = v.x, o[1] = v.y; }
 __device__ __forceinline__ float4 pack16(const float* o) { return make_float4(o[0], o[1], o[2], o[3]); }
 __device__ __forceinline__ double2 pack16(const double* o) { return make_double2(o[0], o[1]); }
-template <class T>
-using Vec16 = typename std::conditional<sizeof(T) == 8, double2, float4>::type;
+using omc::Vec16;
 
 // the bits kept of ||A||_F: only whether it is finite is read back (as a
 // float), so the float64 build keeps 0 or the bits of +inf

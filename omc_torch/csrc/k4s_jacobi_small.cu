@@ -21,7 +21,8 @@
 // stopping rule until a sweep rotates no pair or the cap, on the upper
 // triangle of A only, with K4s's rotation (k4s_rotation.cuh: no square root
 // in the skip test, one reciprocal), and writes V max(w, 0) V' back through
-// the staging.  Templated on D in 1..8 so that A and V live in registers.
+// the staging (k4s_jacobi.cuh, which K7's float64 build shares).
+// Templated on D in 1..8 so that A and V live in registers.
 // What bounds it on the H100: at D = 5, ~6 sweeps x 10 pairs of a skip test
 // and ~40 flops a rotation plus the 125-flop epilogue a matrix, against 200
 // bytes in and out: at 131,072 matrices a single wave of CTAs, so the
@@ -34,7 +35,7 @@
 // on doubles (k4s_rotation.cuh: DBL_EPSILON's skip test, one square root,
 // rsqrt and one divide); the CPU mirror is ops.jacobi.k4s_eigh in float64.
 #include "common.cuh"
-#include "k4s_rotation.cuh"
+#include "k4s_jacobi.cuh"
 
 namespace {
 
@@ -109,22 +110,6 @@ __device__ __forceinline__ void stage_out(const double* st, double* g, int nf, i
   for (int f = 2 * n2 + lane; f < nf; f += 32) g[f] = st[S::slot(f)];
 }
 
-// frexp's exponent and 2^k in the operands' type; for a double from its
-// bits (frexp and ldexp on doubles go through local memory), for a normal
-// x and |k| <= 1022
-__device__ __forceinline__ int exponent_of(float x) {
-  int e = 0;
-  frexpf(x, &e);
-  return e;
-}
-__device__ __forceinline__ int exponent_of(double x) {
-  return (int)((__double_as_longlong(x) >> 52) & 0x7ff) - 1022;
-}
-__device__ __forceinline__ float pow2(float, int k) { return ldexpf(1.f, k); }
-__device__ __forceinline__ double pow2(double, int k) {
-  return __longlong_as_double((long long)(k + 1023) << 52);
-}
-
 // the CTA's staging: static shared memory in the float build, dynamic in
 // the float64 build (omc_k4s_smem_bytes at 8 bytes a value)
 template <int D, class T>
@@ -138,14 +123,9 @@ __device__ __forceinline__ T* stage_buffer() {
   }
 }
 
-// A's upper triangle: A[i][j] with i <= j (indices are constants after
-// unrolling, so A stays in registers)
-#define AU(i, j) A[(i) < (j) ? (i) : (j)][(i) < (j) ? (j) : (i)]
-
 template <int D, class T>
 __global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParamsT<T> p) {
   using S = Stage<D>;
-  constexpr int kLim = sizeof(T) == 8 ? 1022 : 126;  // the type's normal exponents
   T* const st = stage_buffer<D, T>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long m0 = (long long)blockIdx.x * kThreads4s + 32 * warp;  // the warp's first
@@ -155,81 +135,21 @@ __global__ void __launch_bounds__(kThreads4s) k4s_kernel(K4sParamsT<T> p) {
   __syncwarp();
   if (lane < nm) {
     T* sm = sw + lane * S::LD;
-    T A[D][D], V[D][D];
+    T A[D][D];
 #pragma unroll
     for (int i = 0; i < D; ++i)
 #pragma unroll
       for (int j = i; j < D; ++j)
         A[i][j] = i == j ? sm[i * D + i] : T(0.5) * (sm[i * D + j] + sm[j * D + i]);
-    // ||A||_F summed in K4's order (every entry, row by row)
-    T ss = 0;
-#pragma unroll
-    for (int i = 0; i < D; ++i)
-#pragma unroll
-      for (int j = 0; j < D; ++j) ss += AU(i, j) * AU(i, j);
-    const T normF = sqrt(ss);
-    const bool bad = !isfinite(normF);
-    // scale by 2^k so that ||A||_F lies in [1, 2); the rotations are
-    // invariant under it, so the pairs and the angles are K4's
-    const int ex = exponent_of(normF);
-    const int kx = bad || normF == T(0) ? 0 : max(-kLim, min(kLim, 1 - ex));
-    const T sc = pow2(T(0), kx), unsc = pow2(T(0), -kx);
-    const T fs = omc::jacobi_floor(normF * sc, D), floor2 = fs * fs;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = i; j < D; ++j) A[i][j] *= sc;
-#pragma unroll
-      for (int j = 0; j < D; ++j) V[i][j] = i == j ? T(1) : T(0);
-    }
-    int sweep = 1;
-    for (; sweep <= omc::kJacobiMaxSweeps; ++sweep) {
-      bool any = false;
-#pragma unroll
-      for (int pi = 0; pi < D - 1; ++pi)
-#pragma unroll
-        for (int qi = pi + 1; qi < D; ++qi) {
-          T t, s, r;
-          if (!k4s::rotation(A[pi][pi], A[qi][qi], A[pi][qi], floor2, t, s, r)) continue;
-          any = true;
-          const T apq = A[pi][qi];
-#pragma unroll
-          for (int k = 0; k < D; ++k) {
-            if (k == pi || k == qi) continue;
-            omc::jacobi_rot(AU(k, pi), AU(k, qi), s, r);
-          }
-          A[pi][pi] -= t * apq;
-          A[qi][qi] += t * apq;
-          A[pi][qi] = 0;
-#pragma unroll
-          for (int k = 0; k < D; ++k) omc::jacobi_rot(V[k][pi], V[k][qi], s, r);
-        }
-      if (!any) break;
-    }
-    const T qnan = omc::qnan_of(T(0));
-    T wpos[D];
-#pragma unroll
-    for (int r = 0; r < D; ++r) {
-      const T w = A[r][r];
-      wpos[r] = bad ? qnan : (w > T(0) ? w * unsc : (isnan(w) ? w : T(0)));
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i)
-#pragma unroll
-      for (int j = i; j < D; ++j) {
-        T acc = 0;
-#pragma unroll
-        for (int r = 0; r < D; ++r) acc = fma(V[i][r] * wpos[r], V[j][r], acc);
-        sm[i * D + j] = acc;
-        sm[j * D + i] = acc;
-      }
+    const int sweep = k4s::project_psd<D>(A, [&](int i, int j, T v) {
+      sm[i * D + j] = v;
+      sm[j * D + i] = v;
+    });
     if (p.sweeps) p.sweeps[m0 + lane] = sweep;
   }
   __syncwarp();
   stage_out<D>(sw, p.w + m0 * S::DD, nm * S::DD, lane);
 }
-
-#undef AU
 
 template <int D, class T>
 int launch_d(const K4sParamsT<T>& p, int blocks, cudaStream_t s) {

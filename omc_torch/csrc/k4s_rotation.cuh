@@ -18,6 +18,8 @@
 
 #include <cfloat>
 
+#include "common.cuh"
+
 namespace k4s {
 
 constexpr float kEps2 = FLT_EPSILON * FLT_EPSILON;
@@ -60,10 +62,7 @@ __device__ __forceinline__ bool rotation(double app, double aqq, double apq, dou
   const double inv = rsqrt(n2);  // 1 / f
   const double f = n2 * inv;
   const double den = e * (e + f);
-  double q;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(q) : "d"(den));
-  q = fma(q, fma(-den, q, 1.0), q);
-  q = fma(q, fma(-den, q, 1.0), q);
+  const double q = omc::rcp(den);
   t = gs * (e + f) * q;
   r = gs * e * q;
   s = gs * inv;

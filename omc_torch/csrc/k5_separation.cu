@@ -95,15 +95,10 @@ __device__ __forceinline__ double start_entry(int j, int seed) {
   return (double)(x >> 11) * 0x1.0p-52 - 1.0;
 }
 
-// 1 / x to the float64 rounding level: the approximate reciprocal and two
-// Newton steps (x is never 0 or subnormal here: Sturm pivots are at least
-// pivmin, LU pivots at least eps ||T||_1)
-__device__ __forceinline__ double rcp(double x) {
-  double r;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
-  r = fma(r, fma(-x, r, 1.0), r);
-  return fma(r, fma(-x, r, 1.0), r);
-}
+// 1 / x to the float64 rounding level (omc::rcp; x is never 0 or
+// subnormal here: Sturm pivots are at least pivmin, LU pivots at least
+// eps ||T||_1)
+using omc::rcp;
 
 // dlarfg for x = (alpha, x'), ||x'||^2 = xn2: beta = -sign(alpha) ||x||,
 // tau = (beta - alpha) / beta, scale = 1 / (alpha - beta), from one

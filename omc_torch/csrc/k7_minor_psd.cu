@@ -26,7 +26,23 @@
 // symmetrised T.  A CTA is 128 threads (smaller CTAs were never faster on
 // the H100 at the Shor loop's shapes: a matrix's chain of products is the
 // time, even where 128 leaves SMs idle).
+//
+// The float64 build (omc_k7_minor_psd_f64, the fused mode only) follows
+// omc's float64 route, which projects the minors exactly (project_psd,
+// omc/sdp/admm_shor.py:233-240): the sign schedule stops at ~1e-4 relative
+// and would floor a float64 run.  Per minor one thread gathers and mixes
+// t5 as above, projects it by K4s's cyclic Jacobi in registers
+// (k4s_jacobi.cuh: K4s's power-of-two scaling and rotation, K4's floor at
+// DBL_EPSILON; ~6 sweeps of 10 pairs and a 125-flop rebuild in FP64, about
+// as many operations as the 43 float32 products), and writes V max(w, 0) V',
+// the u-step and the EMA.  t5 waits in the u5 block of the staging while
+// the thread projects (A, V: 40 doubles in registers).  A CTA is 64
+// minors, so that the three staged blocks of doubles (38,400 bytes) stay
+// static shared memory; a stride of 25 doubles is odd in 8-byte words (no
+// bank conflicts).  CPU mirror: minor_step_plain with
+// ops.jacobi.k4s_project_psd.
 #include "common.cuh"
+#include "k4s_jacobi.cuh"
 
 namespace {
 
@@ -34,6 +50,7 @@ constexpr int kD = 5;
 constexpr int kD5 = kD * kD;
 constexpr int kNT = omc::kTri<kD>;
 constexpr int kThreads7 = 128;
+constexpr int kThreads7d = 64;  // the float64 build's minors a CTA
 
 using omc::tri;
 
@@ -135,7 +152,109 @@ __global__ void __launch_bounds__(kThreads7) k7_kernel(K7Params p) {
   if (p.acc != nullptr) omc::store_block<kThreads7>(p.acc + off, sa, nf);
 }
 
+// The float64 build's fused mode: the minor slots' gather, mix, exact
+// projection by Jacobi, u-step and EMA (t null; see the header).
+__global__ void __launch_bounds__(kThreads7d) k7_kernel_f64(K7ParamsT<double> p) {
+  __shared__ double2 k7d_smem[3 * kThreads7d * kD5 / 2];
+  double* sw = reinterpret_cast<double*>(k7d_smem);
+  double* su = sw + kThreads7d * kD5;
+  double* sa = su + kThreads7d * kD5;
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * kThreads7d;
+  const int cnt = min(kThreads7d, p.N - base);
+  const int nf = cnt * kD5;
+  const size_t off = (size_t)base * kD5;
+  double* mw = sw + tid * kD5;
+  double* mu = su + tid * kD5;
+  double* ma = sa + tid * kD5;
+
+  omc::load_block<kThreads7d>(p.w + off, sw, nf);
+  omc::load_block<kThreads7d>(p.u + off, su, nf);
+  if (p.acc != nullptr) omc::load_block<kThreads7d>(p.acc + off, sa, nf);
+  const bool act = tid < cnt;
+  double x11 = 0, x12 = 0, x21 = 0, x22 = 0, w11 = 0, w12 = 0, w21 = 0, w22 = 0;
+  double V1a = 0, V1b = 0, V2a = 0, V2b = 0, V3 = 0, sS = 0, mask = 0, rho = 0;
+  if (act) {
+    const int g = base + tid;
+    const int b = g / p.M5;
+    const int4 mi = reinterpret_cast<const int4*>(p.minor_idx)[g];  // (i1, i2, j1, j2)
+    const double* X = p.Xs + (size_t)b * p.nm;
+    const double* Wv = p.Ws + (size_t)b * p.nm;
+    const int f11 = mi.x * p.m + mi.z, f12 = mi.x * p.m + mi.w;
+    const int f21 = mi.y * p.m + mi.z, f22 = mi.y * p.m + mi.w;
+    x11 = X[f11], x12 = X[f12], x21 = X[f21], x22 = X[f22];
+    w11 = Wv[f11], w12 = Wv[f12], w21 = Wv[f21], w22 = Wv[f22];
+    V1a = p.v1[(size_t)b * p.P1 + p.iv1a[g]];
+    V1b = p.v1[(size_t)b * p.P1 + p.iv1b[g]];
+    V2a = p.v2[(size_t)b * p.P2 + p.iv2a[g]];
+    V2b = p.v2[(size_t)b * p.P2 + p.iv2b[g]];
+    V3 = p.v3[(size_t)b * p.P3 + p.iv3[g]];
+    sS = p.sS[b], mask = p.minor_mask[g], rho = p.rho[b];
+  }
+  __syncthreads();
+  if (act) {
+    const double F[kD][kD] = {
+        {1.0, x11, x12, x21, x22},
+        {x11, w11, V1a, V2a, V3},
+        {x12, V1a, w12, V3, V2b},
+        {x21, V2a, V3, w21, V1b},
+        {x22, V3, V2b, V1b, w22},
+    };
+    const double alpha = p.alpha, om = 1.0 - p.alpha;
+    // t5 = sym(alpha f5 + (1 - alpha) w5 + u5): A's upper triangle, and in
+    // the u5 block for the u-step
+    double A[kD][kD];
+#pragma unroll
+    for (int i = 0; i < kD; ++i)
+#pragma unroll
+      for (int j = i; j < kD; ++j) {
+        const double tij = (alpha * (sS * F[i][j]) + om * mw[i * kD + j]) + mu[i * kD + j];
+        const double tji = (alpha * (sS * F[j][i]) + om * mw[j * kD + i]) + mu[j * kD + i];
+        const double t = i == j ? tij : 0.5 * (tij + tji);
+        A[i][j] = t;
+        mu[i * kD + j] = t;
+        mu[j * kD + i] = t;
+      }
+    const double beta = p.beta;
+    const bool ema = p.acc != nullptr;
+    k4s::project_psd<kD>(A, [&](int i, int j, double w) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && i == j) break;
+        const int q = h == 0 ? i * kD + j : j * kD + i;
+        const double u = (mu[q] - w) * mask;
+        mw[q] = w;
+        mu[q] = u;
+        if (ema) ma[q] = ma[q] + beta * (rho * u - ma[q]);
+      }
+    });
+  }
+  __syncthreads();
+  omc::store_block<kThreads7d>(p.w + off, sw, nf);
+  omc::store_block<kThreads7d>(p.u + off, su, nf);
+  if (p.acc != nullptr) omc::store_block<kThreads7d>(p.acc + off, sa, nf);
+}
+
 }  // namespace
+
+// minors (threads) a CTA and its static staging bytes, for the operands'
+// element size (4, or 8 for the float64 build; sdp.admm_shor.k7_plan plans
+// with them, chip_smoke.py holds the plan against them)
+OMC_EXPORT int omc_k7_threads(int elem) { return elem == 8 ? kThreads7d : kThreads7; }
+
+OMC_EXPORT long long omc_k7_smem_bytes(int elem) {
+  return 3LL * omc_k7_threads(elem) * kD5 * elem;
+}
+
+OMC_EXPORT int omc_k7_minor_psd_f64(const K7ParamsT<double>* params, void* stream) {
+  const K7ParamsT<double>& p = *params;
+  if (p.t != nullptr) return (int)cudaErrorInvalidValue;  // no projection mode in float64
+  if (p.N > 0) {
+    const int grid = (p.N + kThreads7d - 1) / kThreads7d;
+    k7_kernel_f64<<<grid, kThreads7d, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
 
 OMC_EXPORT int omc_k7_minor_psd(const K7Params* params, void* stream) {
   const K7Params& p = *params;

@@ -52,6 +52,15 @@
 //      triples are staged through shared memory as whole 16-byte words.  No
 //      coordinate depends on another, so a thread's loads are all in flight
 //      at once (the operands are __restrict__: no load waits on a store).
+//
+// The float64 builds (omc_k8a_shor_zstep_f64, omc_k8b_shor_cone_f64) are
+// the same kernels on doubles: K8a's shared memory and the cluster's
+// partial column sums (still added in rank order) in doubles, K8b's thread
+// taking a pair of coordinates (one 16-byte word of each of X, W, the mask,
+// wp and up; its 6 RSOC values 3 words of the warp's staging, at the float
+// build's stride), and every divide, square root and 1/sqrt2 of the float
+// build done as omc::quot and project_rsoc1's float64 form do them (the
+// hardware reciprocal or rsqrt refined, not the IEEE slow paths).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -65,20 +74,21 @@ constexpr int kTile = 32;                      // K8a's Theta tiles
 constexpr int kClusterMax = 8;                 // K8a's clusters: the portable size
 constexpr int kChunk = 4;                      // CSR entries whose loads fly together
 
-__device__ __forceinline__ float y5(const float* w5, const float* u5, int l, int i, int j) {
+template <class T>
+__device__ __forceinline__ T y5(const T* w5, const T* u5, int l, int i, int j) {
   const int q = l * kD5 + i * 5 + j;
   return w5[q] - u5[q];
 }
 
 // The sum of term(ent[e]) over the CSR list e in [lo, hi), in list order:
 // kChunk entries' loads are issued before any of them is added.
-template <class Term>
-__device__ __forceinline__ float csr_sum(const int* ent, int lo, int hi, Term term) {
-  float g = 0.f;
+template <class T, class Term>
+__device__ __forceinline__ T csr_sum(const int* ent, int lo, int hi, Term term) {
+  T g = 0;
   for (int e0 = lo; e0 < hi; e0 += kChunk) {
-    float v[kChunk];
+    T v[kChunk];
 #pragma unroll
-    for (int u = 0; u < kChunk; ++u) v[u] = e0 + u < hi ? term(ent[e0 + u]) : 0.f;
+    for (int u = 0; u < kChunk; ++u) v[u] = e0 + u < hi ? term(ent[e0 + u]) : T(0);
 #pragma unroll
     for (int u = 0; u < kChunk; ++u)
       if (e0 + u < hi) g += v[u];
@@ -98,7 +108,10 @@ __device__ __forceinline__ void tile_pair(int pr, int& I, int& J) {
 // and columns [band_lo(m, Q, k), band_lo(m, Q, k + 1)), the cluster's column
 // sums, t_l, W's correction and Theta's diagonal there; shared memory holds
 // the columns' partials and t_l, then the tile's zW and W's diagonal d_W
-__device__ __forceinline__ void k8a_coords(const K8aParams& p, int b, int k, float* smem) {
+// (values of T; the divides are omc::quot's)
+template <class T>
+__device__ __forceinline__ void k8a_coords(const K8aParamsT<T>& p, int b, int k, T* smem) {
+  using omc::quot;
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank(), C = p.C;
   const int n = p.n, m = p.m, D1 = n + m, nm = n * m;
@@ -106,38 +119,38 @@ __device__ __forceinline__ void k8a_coords(const K8aParams& p, int b, int k, flo
   const int j0 = omc::band_lo(m, p.Q, k), mw = omc::band_lo(m, p.Q, k + 1) - j0;
   const int items = (hi - lo) * mw;
   const float inv_w = 1.0f / (float)mw;
-  float* part = smem;
-  float* tl_s = part + mw;
-  float* zw_s = tl_s + mw;
-  float* dw_s = zw_s + items;
-  const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
-  const float sW = sX * sX, sS2 = sS * sS;
-  const float* w1 = p.w1 + (size_t)b * D1 * D1;
-  const float* u1 = p.u1 + (size_t)b * D1 * D1;
-  const float* w5 = p.w5 + (size_t)b * p.M5 * kD5;
-  const float* u5 = p.u5 + (size_t)b * p.M5 * kD5;
+  T* part = smem;
+  T* tl_s = part + mw;
+  T* zw_s = tl_s + mw;
+  T* dw_s = zw_s + items;
+  const T rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
+  const T sW = sX * sX, sS2 = sS * sS;
+  const T* w1 = p.w1 + (size_t)b * D1 * D1;
+  const T* u1 = p.u1 + (size_t)b * D1 * D1;
+  const T* w5 = p.w5 + (size_t)b * p.M5 * kD5;
+  const T* u5 = p.u5 + (size_t)b * p.M5 * kD5;
   const int* xw_ptr = p.xw_ptr + (size_t)b * (nm + 1);
   const int* xw_ent = p.xw_ent + (size_t)b * 4 * p.M5;
-  const float R_Xs = p.R_X / sX;
-  float* Ws = p.Ws + (size_t)b * nm;
+  const T R_Xs = quot(p.R_X, sX);
+  T* Ws = p.Ws + (size_t)b * nm;
 
   for (int e = threadIdx.x; e < items; e += blockDim.x) {
     int il, jl;
     omc::divmod(e, mw, inv_w, il, jl);
     const int i = lo + il, j = j0 + jl, f = i * m + j;
     const size_t q = (size_t)b * nm + f;
-    const float yl = p.wl[b * m + j] - p.ul[b * m + j];
+    const T yl = p.wl[b * m + j] - p.ul[b * m + j];
     // the minors at this coordinate: 2 sS y5[0, c] on X, sS y5[c, c] on W
-    float gx = 0.f, gw = 0.f;
+    T gx = 0, gw = 0;
     const int e1 = xw_ptr[f + 1];
     for (int e0 = xw_ptr[f]; e0 < e1; e0 += kChunk) {
-      float vx[kChunk], vw[kChunk];
+      T vx[kChunk], vw[kChunk];
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        vx[u] = vw[u] = 0.f;
+        vx[u] = vw[u] = T(0);
         if (e0 + u < e1) {
           const int ent = xw_ent[e0 + u], l = ent >> 2, c = (ent & 3) + 1;
-          vx[u] = 2.0f * (sS * y5(w5, u5, l, 0, c));
+          vx[u] = T(2) * (sS * y5(w5, u5, l, 0, c));
           vw[u] = sS * y5(w5, u5, l, c, c);
         }
       }
@@ -145,72 +158,74 @@ __device__ __forceinline__ void k8a_coords(const K8aParams& p, int b, int k, flo
       for (int u = 0; u < kChunk; ++u)
         if (e0 + u < e1) gx += vx[u], gw += vw[u];
     }
-    const float sm = p.soc_mask[q];
+    const T sm = p.soc_mask[q];
     gw += sS * (p.wr[3 * q + 1] - p.ur[3 * q + 1]) * sm;
     gx += sS * (p.wr[3 * q + 2] - p.ur[3 * q + 2]) * sm;
     gw = gw - sW * yl;
     gw = gw + sS * (p.wp[q] - p.up[q]);
     const int q1 = i * D1 + n + j;
-    const float rX = sX * 2.0f * (w1[q1] - u1[q1]);
-    const float RX = rho * (rX + gx) + sX * p.maskA[f];
-    const float dX1 = 2.0f * sX * sX + sS2 * p.cnt_X[q];
-    const float zX = RX / (rho * dX1);
-    p.Xs[q] = fminf(fmaxf(zX, -R_Xs), R_Xs);
-    const float RW = rho * gw - 0.5f * sW * p.mask[f];
-    const float dW1 = sS2 * fmaxf(p.cnt_W[q], 1.0f);
-    zw_s[e] = RW / (rho * dW1);
+    const T rX = sX * T(2) * (w1[q1] - u1[q1]);
+    const T RX = rho * (rX + gx) + sX * p.maskA[f];
+    const T dX1 = T(2) * sX * sX + sS2 * p.cnt_X[q];
+    const T zX = quot(RX, rho * dX1);
+    p.Xs[q] = fmin(fmax(zX, -R_Xs), R_Xs);
+    const T RW = rho * gw - T(0.5) * sW * p.mask[f];
+    const T dW1 = sS2 * fmax(p.cnt_W[q], T(1));
+    zw_s[e] = quot(RW, rho * dW1);
     dw_s[e] = dW1;
   }
   __syncthreads();
   // this CTA's column sums of zW, its rows in order
   for (int jl = threadIdx.x; jl < mw; jl += blockDim.x) {
-    float s = 0.f;
+    T s = 0;
     for (int il = 0; il < hi - lo; ++il) s += zw_s[il * mw + jl];
     part[jl] = s;
   }
   omc::cluster_arrive();
   omc::cluster_wait();
   // the cluster's sums in rank order -> t_l; Theta's diagonal from rank 0
-  float* Ths = p.Ths + (size_t)b * m * m;
+  T* Ths = p.Ths + (size_t)b * m * m;
   for (int jl = threadIdx.x; jl < mw; jl += blockDim.x) {
     const int j = j0 + jl;
-    float v[kClusterMax];
+    T v[kClusterMax];
 #pragma unroll
     for (int rr = 0; rr < kClusterMax; ++rr)
       if (rr < C) v[rr] = *cluster.map_shared_rank(part + jl, rr);
-    float s = 0.f;
+    T s = 0;
 #pragma unroll
     for (int rr = 0; rr < kClusterMax; ++rr)
       if (rr < C) s += v[rr];
-    const float yl = p.wl[b * m + j] - p.ul[b * m + j];
+    const T yl = p.wl[b * m + j] - p.ul[b * m + j];
     const int qd = (n + j) * D1 + n + j;
-    const float RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - sT * 0.5f / p.gamma;
-    const float zTh = RT / (rho * sT * sT);
-    const float t_l = rho * (sT * zTh - sW * s) / p.g_link[b * m + j];
+    const T RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - quot(sT * T(0.5), p.gamma);
+    const T zTh = quot(RT, rho * sT * sT);
+    const T t_l = quot(rho * (sT * zTh - sW * s), p.g_link[b * m + j]);
     tl_s[jl] = t_l;
-    if (r == 0) Ths[j * m + j] = zTh - t_l / (rho * sT);
+    if (r == 0) Ths[j * m + j] = zTh - quot(t_l, rho * sT);
   }
   __syncthreads();
   omc::cluster_arrive();  // this CTA reads no peer's partials any more
   for (int e = threadIdx.x; e < items; e += blockDim.x) {
     int il, jl;
     omc::divmod(e, mw, inv_w, il, jl);
-    Ws[(lo + il) * m + j0 + jl] = zw_s[e] + sW * tl_s[jl] / (rho * dw_s[e]);
+    Ws[(lo + il) * m + j0 + jl] = zw_s[e] + quot(sW * tl_s[jl], rho * dw_s[e]);
   }
   omc::cluster_wait();  // no CTA leaves while a peer may read its partials
 }
 
 // (b): Theta's off-diagonal on the tile pair (I, J), I >= J: sym of the base
 // slots' share (no link term); the diagonal is (a)'s
-__device__ __forceinline__ void k8a_theta(const K8aParams& p, int b, int pr, float* tiles) {
+template <class T>
+__device__ __forceinline__ void k8a_theta(const K8aParamsT<T>& p, int b, int pr, T* tiles) {
+  using omc::quot;
   int I, J;
   tile_pair(pr, I, J);
-  float(*ta)[kTile + 1] = reinterpret_cast<float(*)[kTile + 1]>(tiles);
-  float(*tb)[kTile + 1] = ta + kTile;
+  T(*ta)[kTile + 1] = reinterpret_cast<T(*)[kTile + 1]>(tiles);
+  T(*tb)[kTile + 1] = ta + kTile;
   const int n = p.n, m = p.m, D1 = n + m;
-  const float* w1 = p.w1 + (size_t)b * D1 * D1;
-  const float* u1 = p.u1 + (size_t)b * D1 * D1;
-  const float rho = p.rho[b], sT = p.sT[b];
+  const T* w1 = p.w1 + (size_t)b * D1 * D1;
+  const T* u1 = p.u1 + (size_t)b * D1 * D1;
+  const T rho = p.rho[b], sT = p.sT[b];
   const int lane = threadIdx.x % kTile, ty = threadIdx.x / kTile;
   const int ny = blockDim.x / kTile;
   // ta[ii][jj] = z(I*32 + ii, J*32 + jj), tb[ii][jj] = z(J*32 + ii, I*32 + jj)
@@ -218,61 +233,62 @@ __device__ __forceinline__ void k8a_theta(const K8aParams& p, int b, int pr, flo
     const int ra = I * kTile + ii, ca = J * kTile + lane;
     if (ra < m && ca < m) {
       const int q = (n + ra) * D1 + n + ca;
-      ta[ii][lane] = (rho * (sT * (w1[q] - u1[q]))) / (rho * sT * sT);
+      ta[ii][lane] = quot(rho * (sT * (w1[q] - u1[q])), rho * sT * sT);
     }
     const int rb = J * kTile + ii, cb = I * kTile + lane;
     if (I != J && rb < m && cb < m) {
       const int q = (n + rb) * D1 + n + cb;
-      tb[ii][lane] = (rho * (sT * (w1[q] - u1[q]))) / (rho * sT * sT);
+      tb[ii][lane] = quot(rho * (sT * (w1[q] - u1[q])), rho * sT * sT);
     }
   }
   __syncthreads();
-  float* Ths = p.Ths + (size_t)b * m * m;
+  T* Ths = p.Ths + (size_t)b * m * m;
   for (int ii = ty; ii < kTile; ii += ny) {
     const int i = I * kTile + ii, j = J * kTile + lane;
     if (i < m && j < m && i != j)
-      Ths[i * m + j] = 0.5f * (ta[ii][lane] + (I != J ? tb[lane][ii] : ta[lane][ii]));
+      Ths[i * m + j] = T(0.5) * (ta[ii][lane] + (I != J ? tb[lane][ii] : ta[lane][ii]));
     const int i2 = J * kTile + ii, j2 = I * kTile + lane;
-    if (I != J && i2 < m && j2 < m) Ths[i2 * m + j2] = 0.5f * (tb[ii][lane] + ta[lane][ii]);
+    if (I != J && i2 < m && j2 < m) Ths[i2 * m + j2] = T(0.5) * (tb[ii][lane] + ta[lane][ii]);
   }
 }
 
 // (c): the shared v entries v1 | v2 | v3, entry e of the slot
-__device__ __forceinline__ void k8a_v(const K8aParams& p, int b, int e) {
+template <class T>
+__device__ __forceinline__ void k8a_v(const K8aParamsT<T>& p, int b, int e) {
   const int P1 = p.P1, P2 = p.P2, P3 = p.P3;
   if (e >= P1 + P2 + P3) return;
-  const float rho = p.rho[b], sS = p.sS[b], sS2 = sS * sS;
-  const float* w5 = p.w5 + (size_t)b * p.M5 * kD5;
-  const float* u5 = p.u5 + (size_t)b * p.M5 * kD5;
-  float g, cnt;
-  float* out;
+  const T rho = p.rho[b], sS = p.sS[b], sS2 = sS * sS;
+  const T* w5 = p.w5 + (size_t)b * p.M5 * kD5;
+  const T* u5 = p.u5 + (size_t)b * p.M5 * kD5;
+  T g, cnt;
+  T* out;
   if (e < P1) {
     const int* ptr = p.v1_ptr + (size_t)b * (P1 + 1);
-    g = csr_sum(p.v1_ent + (size_t)b * 2 * p.M5, ptr[e], ptr[e + 1], [&](int ent) {
+    g = csr_sum<T>(p.v1_ent + (size_t)b * 2 * p.M5, ptr[e], ptr[e + 1], [&](int ent) {
       const int l = ent >> 1;
-      return (ent & 1) ? 2.0f * (sS * y5(w5, u5, l, 3, 4)) : 2.0f * (sS * y5(w5, u5, l, 1, 2));
+      return (ent & 1) ? T(2) * (sS * y5(w5, u5, l, 3, 4)) : T(2) * (sS * y5(w5, u5, l, 1, 2));
     });
     cnt = p.cnt_v1[(size_t)b * P1 + e];
     out = p.v1 + (size_t)b * P1 + e;
   } else if (e < P1 + P2) {
     const int r = e - P1;
     const int* ptr = p.v2_ptr + (size_t)b * (P2 + 1);
-    g = csr_sum(p.v2_ent + (size_t)b * 2 * p.M5, ptr[r], ptr[r + 1], [&](int ent) {
+    g = csr_sum<T>(p.v2_ent + (size_t)b * 2 * p.M5, ptr[r], ptr[r + 1], [&](int ent) {
       const int l = ent >> 1;
-      return (ent & 1) ? 2.0f * (sS * y5(w5, u5, l, 2, 4)) : 2.0f * (sS * y5(w5, u5, l, 1, 3));
+      return (ent & 1) ? T(2) * (sS * y5(w5, u5, l, 2, 4)) : T(2) * (sS * y5(w5, u5, l, 1, 3));
     });
     cnt = p.cnt_v2[(size_t)b * P2 + r];
     out = p.v2 + (size_t)b * P2 + r;
   } else {
     const int r = e - P1 - P2;
     const int* ptr = p.v3_ptr + (size_t)b * (P3 + 1);
-    g = csr_sum(p.v3_ent + (size_t)b * p.M5, ptr[r], ptr[r + 1], [&](int l) {
-      return 2.0f * (sS * y5(w5, u5, l, 1, 4) + sS * y5(w5, u5, l, 2, 3));
+    g = csr_sum<T>(p.v3_ent + (size_t)b * p.M5, ptr[r], ptr[r + 1], [&](int l) {
+      return T(2) * (sS * y5(w5, u5, l, 1, 4) + sS * y5(w5, u5, l, 2, 3));
     });
     cnt = p.cnt_v3[(size_t)b * P3 + r];
     out = p.v3 + (size_t)b * P3 + r;
   }
-  *out = (rho * g) / (rho * (sS2 * fmaxf(cnt, 1.0f)));
+  *out = omc::quot(rho * g, rho * (sS2 * fmax(cnt, T(1))));
 }
 
 // CTAs of each kind a slot takes: Q C on the coordinates, one per tile pair
@@ -293,21 +309,24 @@ __host__ __device__ __forceinline__ K8aLayout k8a_layout(int m, int P, int C, in
 }
 
 // the partials, t_l, zW and d_W of a coordinates' CTA (at most cdiv(n, C)
-// rows of cdiv(m, Q) columns), or the two tiles
-__host__ __device__ __forceinline__ int k8a_smem(int n, int m, int C, int Q) {
+// rows of cdiv(m, Q) columns), or the two tiles, in values of elem bytes
+// (4, or 8 in the float64 build)
+__host__ __device__ __forceinline__ int k8a_smem(int n, int m, int C, int Q, int elem) {
   const int rows = omc::cdiv(n, C), cols = omc::cdiv(m, Q);
   const int tiles = 2 * kTile * (kTile + 1), coords = 2 * cols + 2 * rows * cols;
-  return (int)sizeof(float) * (tiles > coords ? tiles : coords);
+  return elem * (tiles > coords ? tiles : coords);
 }
 
-__global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParams p) {
-  extern __shared__ float k8a_smem_f[];
+template <class T>
+__global__ void __launch_bounds__(omc::kThreads) k8a_kernel(K8aParamsT<T> p) {
+  extern __shared__ __align__(16) unsigned char k8a_smem_raw[];
+  T* const smem = reinterpret_cast<T*>(k8a_smem_raw);
   const int b = blockIdx.y, x = blockIdx.x;
   const K8aLayout l = k8a_layout(p.m, p.P1 + p.P2 + p.P3, p.C, p.Q);
   if (x < l.coords) {
-    k8a_coords(p, b, x / p.C, k8a_smem_f);
+    k8a_coords(p, b, x / p.C, smem);
   } else if (x < l.coords + l.pairs) {
-    k8a_theta(p, b, x - l.coords, k8a_smem_f);
+    k8a_theta(p, b, x - l.coords, smem);
   } else {
     k8a_v(p, b, (x - l.coords - l.pairs) * blockDim.x + threadIdx.x);
   }
@@ -321,53 +340,59 @@ struct K8bLayout {
   int links, coords, grid_x;
 };
 
-__host__ __device__ __forceinline__ K8bLayout k8b_layout(int B, int n, int m, int qpc) {
+// E = 16 / elem consecutive coordinates a thread (quads; pairs in the
+// float64 build), qpc of them a coordinates' CTA
+__host__ __device__ __forceinline__ K8bLayout k8b_layout(int B, int n, int m, int qpc, int E) {
   K8bLayout l;
   l.links = B * omc::cdiv(m, omc::kLinkCols);
-  l.coords = omc::cdiv(omc::cdiv(B * n * m, 4), qpc);
+  l.coords = omc::cdiv(omc::cdiv(B * n * m, E), qpc);
   l.grid_x = l.links + l.coords;
   return l;
 }
 
 using omc::lane4;
 
-// (q): the quads [quad0, quad0 + qpc) of the batch's flat B n m, a quad a
-// thread (fewer than 4 coordinates at the ragged end), a warp 32 quads.  The
-// RSOC triples of a warp's coordinates are one contiguous block of each of
-// wr, ur and acc_r (16-byte aligned: 12 floats a quad), staged through the
-// warp's own shared memory (omc::triples_in), each lane's loads issued
-// before any store, no barrier but the warp's.  X, W, the mask, wp and up
-// are 16-byte words a lane.
-__device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
-  __shared__ float4 k8b_smem[3 * 3 * 32 * (kThreads8b / 32)];
+// (q): the groups [quad0, quad0 + qpc) of E = 16 / sizeof(T) consecutive
+// coordinates of the batch's flat B n m (quads of floats, pairs of
+// doubles), a group a thread (fewer than E coordinates at the ragged end),
+// a warp 32 groups.  The RSOC triples of a warp's coordinates are one
+// contiguous block of each of wr, ur and acc_r (16-byte aligned: 3 E values
+// a group), staged through the warp's own shared memory (omc::triples_in),
+// each lane's loads issued before any store, no barrier but the warp's.  X,
+// W, the mask, wp and up are 16-byte words a lane.
+template <class T>
+__device__ __forceinline__ void k8b_coords(const K8bParamsT<T>& p, int quad0) {
+  using V = omc::Vec16<T>;
+  constexpr int E = 16 / sizeof(T);
+  __shared__ V k8b_smem[3 * 3 * 32 * (kThreads8b / 32)];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float* __restrict__ X = p.Xs;
-  const float* __restrict__ W = p.Ws;
-  const float* __restrict__ M = p.soc_mask;
-  float* __restrict__ wp = p.wp;
-  float* __restrict__ up = p.up;
+  const T* __restrict__ X = p.Xs;
+  const T* __restrict__ W = p.Ws;
+  const T* __restrict__ M = p.soc_mask;
+  T* __restrict__ wp = p.wp;
+  T* __restrict__ up = p.up;
   const int nm = p.n * p.m, tot = p.B * nm;
-  const int c0 = 4 * (quad0 + 32 * warp);  // the warp's first coordinate
+  const int c0 = E * (quad0 + 32 * warp);  // the warp's first coordinate
   if (32 * warp >= p.qpc || c0 >= tot) return;
-  const int cnt = min(128, tot - c0);
+  const int cnt = min(32 * E, tot - c0);
   const size_t off = 3 * (size_t)c0;
-  float4* s = k8b_smem + 3 * 3 * 32 * warp;
-  const int q0 = c0 + 4 * lane;
-  const int rem = q0 < tot ? min(4, tot - q0) : 0;
-  // the quad's slots: b0, and b0 + 1 from coordinate bnd on (n m >= 4)
+  V* s = k8b_smem + 3 * 3 * 32 * warp;
+  const int q0 = c0 + E * lane;
+  const int rem = q0 < tot ? min(E, tot - q0) : 0;
+  // the group's slots: b0, and b0 + 1 from coordinate bnd on (n m >= 4)
   const int b0 = rem > 0 ? q0 / nm : 0, b1 = min(b0 + 1, p.B - 1), bnd = (b0 + 1) * nm;
-  const float sS0 = __ldg(p.sS + b0), rho0 = __ldg(p.rho + b0);
-  const float sS1 = __ldg(p.sS + b1), rho1 = __ldg(p.rho + b1);
-  float4 x4 = {}, w4 = {}, m4 = {}, p4 = {}, u4 = {};
-  if (rem == 4) {
-    x4 = __ldg(reinterpret_cast<const float4*>(X + q0));
-    w4 = __ldg(reinterpret_cast<const float4*>(W + q0));
-    m4 = __ldg(reinterpret_cast<const float4*>(M + q0));
-    p4 = *reinterpret_cast<const float4*>(wp + q0);
-    u4 = *reinterpret_cast<const float4*>(up + q0);
+  const T sS0 = __ldg(p.sS + b0), rho0 = __ldg(p.rho + b0);
+  const T sS1 = __ldg(p.sS + b1), rho1 = __ldg(p.rho + b1);
+  V x4 = {}, w4 = {}, m4 = {}, p4 = {}, u4 = {};
+  if (rem == E) {
+    x4 = __ldg(reinterpret_cast<const V*>(X + q0));
+    w4 = __ldg(reinterpret_cast<const V*>(W + q0));
+    m4 = __ldg(reinterpret_cast<const V*>(M + q0));
+    p4 = *reinterpret_cast<const V*>(wp + q0);
+    u4 = *reinterpret_cast<const V*>(up + q0);
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < E; ++e)
       if (e < rem) {
         lane4(x4, e) = X[q0 + e], lane4(w4, e) = W[q0 + e], lane4(m4, e) = M[q0 + e];
         lane4(p4, e) = wp[q0 + e], lane4(u4, e) = up[q0 + e];
@@ -377,19 +402,19 @@ __device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
   __syncwarp();
   if (rem > 0) {
     // the RSOC row and the W >= 0 slot of each coordinate
-    omc::triples_update(s, lane, rem, [&](int e, float (&r)[3], float (&u)[3], float (&a)[3]) {
+    omc::triples_update(s, lane, rem, [&](int e, T (&r)[3], T (&u)[3], T (&a)[3]) {
       const bool hi = q0 + e >= bnd;
-      const float sS = hi ? sS1 : sS0;
+      const T sS = hi ? sS1 : sS0;
       omc::rsoc_row(lane4(x4, e), lane4(w4, e), lane4(m4, e), sS, hi ? rho1 : rho0, p.alpha,
                     p.beta, r, u, a);
       omc::nonneg_slot(lane4(w4, e), sS, p.alpha, lane4(p4, e), lane4(u4, e));
     });
-    if (rem == 4) {
-      *reinterpret_cast<float4*>(wp + q0) = p4;
-      *reinterpret_cast<float4*>(up + q0) = u4;
+    if (rem == E) {
+      *reinterpret_cast<V*>(wp + q0) = p4;
+      *reinterpret_cast<V*>(up + q0) = u4;
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < E; ++e)
         if (e < rem) wp[q0 + e] = lane4(p4, e), up[q0 + e] = lane4(u4, e);
     }
   }
@@ -397,7 +422,8 @@ __device__ __forceinline__ void k8b_coords(const K8bParams& p, int quad0) {
   omc::triples_out(p.wr, p.ur, p.acc_r, off, 3 * cnt, s, lane);
 }
 
-__global__ void __launch_bounds__(kThreads8b) k8b_kernel(K8bParams p) {
+template <class T>
+__global__ void __launch_bounds__(kThreads8b) k8b_kernel(K8bParamsT<T> p) {
   const int x = blockIdx.x;
   const int tiles = omc::cdiv(p.m, omc::kLinkCols);
   if (x < p.B * tiles) {
@@ -416,23 +442,26 @@ int fail(cudaError_t err) {
 
 }  // namespace
 
-// K8a's shared memory and its grid's width a slot (omc_torch.sdp.admm_shor
-// .k8a_plan plans with them; chip_smoke.py holds the plan against them)
-OMC_EXPORT long long omc_k8a_smem_bytes(int n, int m, int C, int Q) {
-  return k8a_smem(n, m, C, Q);
+// K8a's shared memory (values of elem bytes) and its grid's width a slot
+// (omc_torch.sdp.admm_shor.k8a_plan plans with them; chip_smoke.py holds the
+// plan against them)
+OMC_EXPORT long long omc_k8a_smem_bytes(int n, int m, int C, int Q, int elem) {
+  return k8a_smem(n, m, C, Q, elem);
 }
 
 OMC_EXPORT int omc_k8a_grid_x(int m, int P, int C, int Q) { return k8a_layout(m, P, C, Q).grid_x; }
 
-OMC_EXPORT int omc_k8a_shor_zstep(const K8aParams* params, void* stream) {
-  const K8aParams& p = *params;
+namespace {
+
+template <class T>
+int k8a_launch(const K8aParamsT<T>& p, void* stream) {
   if (p.C < 1 || p.C > kClusterMax || p.C > p.n || p.Q < 1 || p.Q > p.m || p.B < 1 || p.n < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = k8a_smem(p.n, p.m, p.C, p.Q);
+  const int smem = k8a_smem(p.n, p.m, p.C, p.Q, (int)sizeof(T));
   static int smem_attr = 48 * 1024;
   cudaError_t err;
   if (smem > smem_attr) {
-    err = cudaFuncSetAttribute(k8a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(k8a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return fail(err);
     smem_attr = smem;
   }
@@ -448,22 +477,41 @@ OMC_EXPORT int omc_k8a_shor_zstep(const K8aParams* params, void* stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, k8a_kernel, p);
+  err = cudaLaunchKernelEx(&cfg, k8a_kernel<T>, p);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
 }
 
-// K8b's grid width (omc_torch.sdp.admm_shor.k8b_plan plans with it;
-// chip_smoke.py holds the plan against it)
-OMC_EXPORT int omc_k8b_grid_x(int B, int n, int m, int qpc) {
-  return k8b_layout(B, n, m, qpc).grid_x;
-}
-
-OMC_EXPORT int omc_k8b_shor_cone(const K8bParams* params, void* stream) {
-  const K8bParams& p = *params;
+template <class T>
+int k8b_launch(const K8bParamsT<T>& p, void* stream) {
   if (p.B < 1 || p.n < 1 || p.m < 1 || p.n * p.m < 4 || p.qpc < 32 || p.qpc > kThreads8b ||
       p.qpc % 32)
     return (int)cudaErrorInvalidValue;
-  k8b_kernel<<<k8b_layout(p.B, p.n, p.m, p.qpc).grid_x, kThreads8b, 0, (cudaStream_t)stream>>>(p);
+  const int grid = k8b_layout(p.B, p.n, p.m, p.qpc, 16 / (int)sizeof(T)).grid_x;
+  k8b_kernel<T><<<grid, kThreads8b, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+OMC_EXPORT int omc_k8a_shor_zstep(const K8aParams* params, void* stream) {
+  return k8a_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k8a_shor_zstep_f64(const K8aParamsT<double>* params, void* stream) {
+  return k8a_launch(*params, stream);
+}
+
+// K8b's grid width at elem bytes a value (omc_torch.sdp.admm_shor.k8b_plan
+// plans with it; chip_smoke.py holds the plan against it)
+OMC_EXPORT int omc_k8b_grid_x(int B, int n, int m, int qpc, int elem) {
+  return k8b_layout(B, n, m, qpc, 16 / elem).grid_x;
+}
+
+OMC_EXPORT int omc_k8b_shor_cone(const K8bParams* params, void* stream) {
+  return k8b_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k8b_shor_cone_f64(const K8bParamsT<double>* params, void* stream) {
+  return k8b_launch(*params, stream);
 }

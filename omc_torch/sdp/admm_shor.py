@@ -25,6 +25,11 @@ plain PyTorch version beside it (CPU tensors take the plain versions, in
 5. K7  ``minor_step``      -- gather, projection and u/EMA of the minors;
 6. K8b ``shor_cone_step``  -- RSOC, Theta-link and W >= 0 slots with EMAs.
 
+In float64 (``omc``'s float64 route, ``psd_method="eigh"``) the kernels
+are their float64 builds and the projections exact: step 4 is three K4
+Jacobi launches and the torch ``psd_epilogue``, step 5 K7's float64 build,
+which projects each minor by K4s's Jacobi in registers.
+
 Every ``check_every`` iterations the bias-corrected EMA duals go through
 the torch ``safe_dual_bound_shor2`` (its eigendecompositions are kernels
 K4 and K4s on the GPU, ``omc_torch.ops.cones``) and the best chunk is kept.
@@ -337,7 +342,8 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def k8a_plan(B: int, n: int, m: int, M5: int, cluster=None, groups=None) -> dict:
+def k8a_plan(B: int, n: int, m: int, M5: int, cluster=None, groups=None,
+             dtype=torch.float32) -> dict:
     """K8a's grid: per node slot (grid row b) ``groups`` Q column groups of
     the X/W coordinates, each a cluster of C CTAs (``cluster``; CTA r owns
     rows [r n / C, (r + 1) n / C) of its group's columns [k m / Q, (k + 1) m
@@ -353,8 +359,9 @@ def k8a_plan(B: int, n: int, m: int, M5: int, cluster=None, groups=None) -> dict
     split columns; on the H100 the Q this picks was the fastest, or within
     2%, at every shape the Shor loop runs), and beyond that until a CTA's
     tile of zW and W's diagonal, with its columns' partials and t_l, fits
-    its shared memory (``smem``, or two tiles of Theta).  ``cluster`` and
-    ``groups`` force C and Q; a forced Q whose tile does not fit raises."""
+    its shared memory (``smem``, or two tiles of Theta; values of
+    ``dtype``, 8 bytes in the float64 build).  ``cluster`` and ``groups``
+    force C and Q; a forced Q whose tile does not fit raises."""
     if min(B, n, m, M5) < 1:
         raise ValueError(f"K8a: unsupported shape B={B}, n={n}, m={m}, M5={M5}")
     if cluster is None:
@@ -369,7 +376,7 @@ def k8a_plan(B: int, n: int, m: int, M5: int, cluster=None, groups=None) -> dict
 
     def smem_of(Q):
         cols = _cdiv(m, Q)
-        return 4 * max(2 * K8A_TILE * (K8A_TILE + 1), 2 * cols + 2 * rows * cols)
+        return dtype.itemsize * max(2 * K8A_TILE * (K8A_TILE + 1), 2 * cols + 2 * rows * cols)
 
     if groups is None:
         Q = 1
@@ -494,11 +501,12 @@ def shor_zstep(c, sc: _ShorConsts, st: ShorADMMState):
     if dev.type != "cuda":
         raise ValueError(f"shor_zstep: unsupported device {dev}")
     scalars = (float(c.gamma), float(sc.R_X))
+    dt = core.X.dtype
 
     def build():
         B, n, m = core.X.shape
-        plan = k8a_plan(B, n, m, sc.M5)
-        p = kernels.K8aParams()
+        plan = k8a_plan(B, n, m, sc.M5, dtype=dt)
+        p = kernels.block(kernels.K8aParams, dt)
         for name, t, shape, dtype in _k8a_operands(c, sc, st):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         p.B, p.n, p.m, p.M5 = B, n, m, sc.M5
@@ -508,7 +516,7 @@ def shor_zstep(c, sc: _ShorConsts, st: ShorADMMState):
         return p
 
     prm = _packed(("K8a", id(c), id(sc), id(st)), _k8a_tensors(c, sc, st), scalars, build)
-    kernels.launch("K8a", "omc_k8a_shor_zstep", prm, dev)
+    kernels.launch("K8a", kernels.entry("omc_k8a_shor_zstep", dt), prm, dev)
 
 
 # K7's and K8a's operands, gathered cheaply for the reuse test of their
@@ -532,30 +540,31 @@ def _k7_tensors(sc: _ShorConsts, st: ShorADMMState, acc5) -> tuple:
 
 
 def _k8a_operands(c, sc: _ShorConsts, st: ShorADMMState) -> list:
-    """(field, tensor, shape, dtype) of every K8a operand."""
+    """(field, tensor, shape, dtype) of every K8a operand: values in the
+    state's dtype, the index tables int32."""
     core, sb = st.core, sc.sb
     B, n, m = core.X.shape
     M5, D1, nm = sc.M5, n + m, n * m
     P = (2 * M5, 2 * M5, M5)
-    f32, i32 = torch.float32, torch.int32
-    ops = [("w1", core.w1, (B, D1, D1), f32), ("u1", core.u1, (B, D1, D1), f32)]
-    ops += [(nm_, getattr(st, nm_), (B, M5, 5, 5), f32) for nm_ in ("w5", "u5")]
-    ops += [(nm_, getattr(st, nm_), (B, nm, 3), f32) for nm_ in ("wr", "ur")]
-    ops += [("soc_mask", sb.soc_mask, (B, nm), f32)]
-    ops += [(nm_, getattr(st, nm_), (B, m), f32) for nm_ in ("wl", "ul")]
-    ops += [(nm_, getattr(st, nm_), (B, n, m), f32) for nm_ in ("wp", "up")]
+    fv, i32 = core.X.dtype, torch.int32
+    ops = [("w1", core.w1, (B, D1, D1), fv), ("u1", core.u1, (B, D1, D1), fv)]
+    ops += [(nm_, getattr(st, nm_), (B, M5, 5, 5), fv) for nm_ in ("w5", "u5")]
+    ops += [(nm_, getattr(st, nm_), (B, nm, 3), fv) for nm_ in ("wr", "ur")]
+    ops += [("soc_mask", sb.soc_mask, (B, nm), fv)]
+    ops += [(nm_, getattr(st, nm_), (B, m), fv) for nm_ in ("wl", "ul")]
+    ops += [(nm_, getattr(st, nm_), (B, n, m), fv) for nm_ in ("wp", "up")]
     for name, size, ents in (("xw", nm, 4 * M5), ("v1", P[0], 2 * M5), ("v2", P[1], 2 * M5),
                              ("v3", P[2], M5)):
         ops += [(f"{name}_ptr", getattr(sb, f"{name}_ptr"), (B, size + 1), i32),
                 (f"{name}_ent", getattr(sb, f"{name}_ent"), (B, ents), i32)]
-    ops += [("cnt_X", sb.cnt_X, (B, n, m), f32), ("cnt_W", sb.cnt_W, (B, n, m), f32)]
-    ops += [(f"cnt_v{g + 1}", getattr(sb, f"cnt_v{g + 1}"), (B, P[g]), f32) for g in range(3)]
-    ops += [("g_link", sc.g_link, (B, m), f32), ("maskA", c.maskA, (n, m), f32),
-            ("mask", c.mask, (n, m), f32)]
-    ops += [(nm_, getattr(core, nm_), (B,), f32) for nm_ in ("sX", "sT", "sS", "rho")]
-    ops += [("Xs", core.X, (B, n, m), f32), ("Ths", core.Th, (B, m, m), f32),
-            ("Ws", st.W, (B, n, m), f32)]
-    ops += [(f"v{g + 1}", getattr(st, f"v{g + 1}"), (B, P[g]), f32) for g in range(3)]
+    ops += [("cnt_X", sb.cnt_X, (B, n, m), fv), ("cnt_W", sb.cnt_W, (B, n, m), fv)]
+    ops += [(f"cnt_v{g + 1}", getattr(sb, f"cnt_v{g + 1}"), (B, P[g]), fv) for g in range(3)]
+    ops += [("g_link", sc.g_link, (B, m), fv), ("maskA", c.maskA, (n, m), fv),
+            ("mask", c.mask, (n, m), fv)]
+    ops += [(nm_, getattr(core, nm_), (B,), fv) for nm_ in ("sX", "sT", "sS", "rho")]
+    ops += [("Xs", core.X, (B, n, m), fv), ("Ths", core.Th, (B, m, m), fv),
+            ("Ws", st.W, (B, n, m), fv)]
+    ops += [(f"v{g + 1}", getattr(st, f"v{g + 1}"), (B, P[g]), fv) for g in range(3)]
     return ops
 
 
@@ -583,8 +592,10 @@ def minor_step(c, sc: _ShorConsts, st: ShorADMMState, acc5, psd_method: str):
     """K7 wrapper (fused mode): updates ``st.w5``, ``st.u5`` and the EMA
     ``acc5`` in place.  A CPU state runs ``minor_step_plain`` (the sign
     schedule, or ``eigh`` with ``psd_method="eigh"``); a CUDA state
-    launches ``csrc/k7_minor_psd.cu`` (one thread per minor) or raises.
-    The parameter block is packed once per operands (``admm._packed``)."""
+    launches ``csrc/k7_minor_psd.cu`` (one thread per minor: the sign
+    schedule in float32, ``psd_method="ns"``; K4s's exact Jacobi in the
+    float64 build, ``psd_method="eigh"``) or raises.  The parameter block
+    is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -594,11 +605,15 @@ def minor_step(c, sc: _ShorConsts, st: ShorADMMState, acc5, psd_method: str):
         return
     if dev.type != "cuda":
         raise ValueError(f"minor_step: unsupported device {dev}")
+    dt = core.X.dtype
+    want = "eigh" if dt == torch.float64 else "ns"
+    if psd_method != want:
+        raise ValueError(f'K7 projects {dt} with psd_method="{want}", not {psd_method!r}')
     scalars = (float(c.alpha), float(c.beta))
 
     def build():
         B, n, m = core.X.shape
-        p = kernels.K7Params()
+        p = kernels.block(kernels.K7Params, dt)
         for name, t, shape, dtype in _k7_operands(sc, st, acc5):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         if p.minor_idx % 16:
@@ -609,24 +624,39 @@ def minor_step(c, sc: _ShorConsts, st: ShorADMMState, acc5, psd_method: str):
         return p
 
     prm = _packed(("K7", id(c), id(sc), id(st)), _k7_tensors(sc, st, acc5), scalars, build)
-    kernels.launch("K7", "omc_k7_minor_psd", prm, dev)
+    kernels.launch("K7", kernels.entry("omc_k7_minor_psd", dt), prm, dev)
+
+
+# K7's CTAs (csrc/k7_minor_psd.cu): 128 minors (threads) a CTA in float32,
+# 64 in the float64 build, each CTA staging its minors' w5, u5 and acc (25
+# values each) in static shared memory (at most 48 KB)
+K7_THREADS = {torch.float32: 128, torch.float64: 64}
+
+
+def k7_plan(N: int, dtype=torch.float32) -> dict:
+    """K7's launch for ``N`` minors (the kernel's ``omc_k7_threads`` and
+    ``omc_k7_smem_bytes``): ``threads`` minors a CTA, ``ctas`` CTAs, and
+    the three staged blocks' ``smem`` bytes."""
+    threads = K7_THREADS[dtype]
+    return dict(threads=threads, ctas=_cdiv(N, threads), smem=3 * threads * 25 * dtype.itemsize)
 
 
 def _k7_operands(sc: _ShorConsts, st: ShorADMMState, acc5) -> list:
-    """(field, tensor, shape, dtype) of every K7 operand (fused mode)."""
+    """(field, tensor, shape, dtype) of every K7 operand (fused mode):
+    values in the state's dtype, the index tables int32."""
     core, sb = st.core, sc.sb
     B, n, m = core.X.shape
     M5 = sc.M5
-    f32, i32 = torch.float32, torch.int32
-    return ([("w", st.w5, (B, M5, 5, 5), f32), ("u", st.u5, (B, M5, 5, 5), f32),
-             ("acc", acc5, (B, M5, 5, 5), f32), ("Xs", core.X, (B, n, m), f32),
-             ("Ws", st.W, (B, n, m), f32), ("v1", st.v1, (B, 2 * M5), f32),
-             ("v2", st.v2, (B, 2 * M5), f32), ("v3", st.v3, (B, M5), f32),
+    fv, i32 = core.X.dtype, torch.int32
+    return ([("w", st.w5, (B, M5, 5, 5), fv), ("u", st.u5, (B, M5, 5, 5), fv),
+             ("acc", acc5, (B, M5, 5, 5), fv), ("Xs", core.X, (B, n, m), fv),
+             ("Ws", st.W, (B, n, m), fv), ("v1", st.v1, (B, 2 * M5), fv),
+             ("v2", st.v2, (B, 2 * M5), fv), ("v3", st.v3, (B, M5), fv),
              ("minor_idx", sb.minor_idx, (B, M5, 4), i32)]
             + [(name, getattr(sb, name), (B, M5), i32)
                for name in ("iv1a", "iv1b", "iv2a", "iv2b", "iv3")]
-            + [("minor_mask", sb.minor_mask, (B, M5), f32), ("sS", core.sS, (B,), f32),
-               ("rho", core.rho, (B,), f32)])
+            + [("minor_mask", sb.minor_mask, (B, M5), fv), ("sS", core.sS, (B,), fv),
+               ("rho", core.rho, (B,), fv)])
 
 
 # --------------------------------------------------------------------------
@@ -666,28 +696,34 @@ def shor_cone_step_plain(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l):
 
 # K8b's geometry (csrc/k8_shor.cu): CTAs of 128 threads; a link CTA sums a
 # tile of 32 columns in 4 row groups; a coordinates' CTA takes up to 128
-# quads of 4 coordinates, fewer until the grid has a CTA for every SM
+# groups of coordinates (quads of 4 in float32, pairs in the float64 build:
+# a 16-byte word of each operand a thread), fewer until the grid has a CTA
+# for every SM; a warp stages its groups' RSOC values (3 words a thread)
 K8B_THREADS, K8B_LINK_COLS, K8B_LINK_ROWS = 128, 32, 4
 K8B_TARGET_CTAS = H100_SMS
 
 
-def k8b_plan(B: int, n: int, m: int) -> dict:
+def k8b_plan(B: int, n: int, m: int, dtype=torch.float32) -> dict:
     """K8b's grid, one dimension: ``link_ctas`` = B ceil(m / 32) CTAs on the
     link rows (slot x // ceil(m / 32), columns [32 t, 32 t + 32) for t = x %
     ceil(m / 32); row group g of 4 sums rows g, g + 4, ... in order, then
-    the groups in order), then ``coord_ctas`` CTAs of ``qpc`` quads of 4
-    consecutive coordinates of the batch's flat B n m (``grid``).  ``qpc``
+    the groups in order), then ``coord_ctas`` CTAs of ``qpc`` groups of
+    ``per_thread`` = 16 / itemsize consecutive coordinates of the batch's
+    flat B n m (``grid``; quads in float32, pairs in float64).  ``qpc``
     halves from 128 to 32 while there are fewer coordinates' CTAs than
-    ``K8B_TARGET_CTAS``."""
+    ``K8B_TARGET_CTAS``.  ``smem``: the static staging of a CTA's warps,
+    3 arrays x 3 words x 32 lanes of 16 bytes each."""
     if min(B, n, m) < 1 or n * m < 4:
         raise ValueError(f"K8b: unsupported shape B={B}, n={n}, m={m}")
-    quads = _cdiv(B * n * m, 4)
+    E = 16 // dtype.itemsize
+    groups = _cdiv(B * n * m, E)
     qpc = K8B_THREADS
-    while qpc > 32 and _cdiv(quads, qpc) < K8B_TARGET_CTAS:
+    while qpc > 32 and _cdiv(groups, qpc) < K8B_TARGET_CTAS:
         qpc //= 2
-    links, coords = B * _cdiv(m, K8B_LINK_COLS), _cdiv(quads, qpc)
-    return dict(qpc=qpc, link_ctas=links, coord_ctas=coords, grid=links + coords,
-                threads=K8B_THREADS, link_rows=K8B_LINK_ROWS)
+    links, coords = B * _cdiv(m, K8B_LINK_COLS), _cdiv(groups, qpc)
+    return dict(qpc=qpc, per_thread=E, link_ctas=links, coord_ctas=coords,
+                grid=links + coords, threads=K8B_THREADS, link_rows=K8B_LINK_ROWS,
+                smem=3 * 3 * K8B_THREADS * 16)
 
 
 def link_sums_tiled(sWW, G: int):
@@ -734,7 +770,8 @@ def shor_cone_step(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_cone_step: unsupported device {dev}")
-    kernels.launch("K8b", "omc_k8b_shor_cone", _k8b_params(c, sc, st, acc_r, acc_l, dev), dev)
+    kernels.launch("K8b", kernels.entry("omc_k8b_shor_cone", st.core.X.dtype),
+                   _k8b_params(c, sc, st, acc_r, acc_l, dev), dev)
 
 
 # the operands K8b reads and writes as 16-byte words
@@ -749,7 +786,8 @@ def _k8b_tensors(sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l) -> tuple:
 
 
 def _k8b_operands(sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l) -> list:
-    """(field, tensor, shape) of every K8b operand (float32)."""
+    """(field, tensor, shape) of every K8b operand (all of the state's
+    dtype)."""
     core = st.core
     B, n, m = core.X.shape
     nm = n * m
@@ -763,17 +801,18 @@ def _k8b_operands(sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l) -> list:
 def _k8b_params(c, sc: _ShorConsts, st: ShorADMMState, acc_r, acc_l, dev):
     """K8b's parameter block, packed once per operands (``admm._packed``)."""
     scalars = (float(c.alpha), float(c.beta))
+    dt = st.core.X.dtype
 
     def build():
         B, n, m = st.core.X.shape
-        p = kernels.K8bParams()
+        p = kernels.block(kernels.K8bParams, dt)
         for name, t, shape in _k8b_operands(sc, st, acc_r, acc_l):
-            setattr(p, name, kernels.check(name, t, shape, dev))
+            setattr(p, name, kernels.check(name, t, shape, dev, dt))
         if any(getattr(p, name) % 16 for name in _K8B_WORDS):
             raise ValueError("K8b reads X, W, the RSOC slots, the mask and the W >= 0 slot as "
                              "16-byte words: their storage must start 16-byte aligned")
         p.B, p.n, p.m = B, n, m
-        p.qpc = k8b_plan(B, n, m)["qpc"]
+        p.qpc = k8b_plan(B, n, m, dt)["qpc"]
         p.alpha, p.beta = scalars
         return p
 
@@ -824,8 +863,9 @@ def make_shor_solver(n: int, m: int, L: int, M5: int, Ms: int, gamma: float, *,
         if dev.type == "cuda":
             kernels.require_full_fp32()
             kernels.require_cuda_dtype("shor", dtype)
-            if psd_method != "ns":
-                raise ValueError('the CUDA path projects with psd_method="ns"')
+            want = "ns" if dtype == torch.float32 else "eigh"
+            if psd_method != want:
+                raise ValueError(f'the CUDA path projects {dtype} with psd_method="{want}"')
         ni = int(iters if n_iters is None else n_iters)
         A = torch.as_tensor(A, device=dev).to(dtype).contiguous()
         mask = torch.as_tensor(mask, device=dev).to(dtype).contiguous()
@@ -1077,7 +1117,7 @@ def apply_best_duals(state: ShorADMMState, out: dict) -> ShorADMMState:
 __all__ = [
     "ShorBatch", "shor_batch_to_device", "ShorADMMState", "init_shor_state",
     "make_shor_solver", "shor_zstep", "shor_zstep_plain", "shor_zstep_tiled", "k8a_plan",
-    "k8b_plan", "shor_cone_step_tiled",
+    "k8b_plan", "k7_plan", "shor_cone_step_tiled",
     "minor_step",
     "minor_step_plain", "shor_cone_step", "shor_cone_step_plain",
     "safe_dual_bound_shor", "safe_dual_bound_shor2", "host_certified_bound_shor",

@@ -8,9 +8,9 @@ independent recounts of the kernels' layouts, and give the float32 plans
 of before at float32; (b) the float64 Jacobi mirrors (``ops.jacobi``: the
 CTA path's, the block path's, K4s's) against LAPACK and ``omc``'s
 ``jnp.linalg.eigh`` from d = 2 to 150; (c) the family gate: base, PDHG and
-Halpern run float64 on CUDA, Shor k = 1, Shor k > 1 and McCormick raise the
-one message, from the gate, from their solvers' guards and from the
-driver; (d) the float64 wrappers pick the float64 builds, and a float64
+Halpern and Shor k = 1 run float64 on CUDA, Shor k > 1 and McCormick raise
+the one message, from the gate, from their solvers' guards and from the
+driver (Shor k = 1's guard and the driver's gate admit float64); (d) the float64 wrappers pick the float64 builds, and a float64
 CUDA tensor without a GPU raises (no conversion, no plain path); (e) the
 CPU path the card's float64 route mirrors (``psd_method="eigh"``) at the
 api's new defaults against ``omc`` in float64."""
@@ -292,12 +292,15 @@ def test_gate_float32_runs_every_family(family):
 
 @pytest.mark.parametrize("family", ALL)
 def test_gate_float64(family):
-    if family in ("base", "pdhg", "halpern"):
+    if family in ("base", "pdhg", "halpern", "shor"):
         kernels.require_cuda_dtype(family, F64)
         return
     with pytest.raises(ValueError, match="queue 1") as err:
         kernels.require_cuda_dtype(family, F64)
     assert kernels.FLOAT64_ROADMAP in str(err.value)
+    # the message names only the families still to come
+    assert "Shor k > 1" in str(err.value) and "McCormick" in str(err.value)
+    assert "Shor k = 1" not in kernels.FLOAT64_ROADMAP and "K8a" not in kernels.FLOAT64_ROADMAP
 
 
 def test_gate_refuses_other_dtypes_and_families():
@@ -344,10 +347,30 @@ class _State:
         self.core = self
 
 
+class _PastGuard(Exception):
+    pass
+
+
 @pytest.mark.parametrize("family", ["shor", "shor_k", "mccormick"])
-def test_shor_and_mccormick_solver_guards_raise_the_message(family, full_fp32):
+def test_shor_and_mccormick_solver_guards_raise_the_message(family, full_fp32, monkeypatch):
+    """Shor k = 1's guard admits float64 on CUDA with psd_method="eigh" (its
+    "auto" for float64; the solve then reaches its first tensor, here a
+    sentinel) and refuses "ns"; Shor k > 1's and McCormick's raise the one
+    message."""
     solve = _solver(family)
     args = (None,) * (5 if family != "mccormick" else 4)
+    if family == "shor":
+        from omc_torch.sdp.admm_shor import make_shor_solver
+
+        def sentinel(*a, **kw):
+            raise _PastGuard
+
+        with pytest.raises(ValueError, match='psd_method="eigh"'):
+            make_shor_solver(6, 6, 1, 4, 36, 20.0, dtype=F64, psd_method="ns")(*args, _State())
+        monkeypatch.setattr(torch, "as_tensor", sentinel)
+        with pytest.raises(_PastGuard):
+            solve(*args, _State())
+        return
     with pytest.raises(ValueError, match="queue 1"):
         solve(*args, _State())
 
@@ -360,16 +383,37 @@ _CUTS = dict(disjunctive_cuts_type="linear", disjunctive_cuts_breakpoints="small
                                 dict(use_disjunctive_cuts=False, disjunctive_cuts_type=None,
                                      disjunctive_cuts_breakpoints=None)])
 def test_driver_refuses_a_float64_shor_or_mccormick_run_on_cuda(kw, monkeypatch, full_fp32):
-    from omc_torch.solve import matrix_completion_branchandbound
+    """The driver's gate: a float64 Shor k = 1 run on CUDA passes it (the
+    run is stopped right after it, at its first log message); Shor k > 1
+    and McCormick raise the one message before any work."""
+    import omc_torch.solve as tsolve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(kernels, "set_full_fp32", lambda: None)
     kw = dict(kw)
     k = kw.pop("k", 1)
     A, idx = generate_matrix_completion_data(k, 8, 8, 40, 1)
+    run = lambda: tsolve.matrix_completion_branchandbound(  # noqa: E731
+        k, A, idx, 20.0, dtype="float64", device="cuda", verbosity=0, **kw)
+    if k == 1 and kw.get("add_Shor_valid_inequalities"):
+        gated = []
+        gate = kernels.require_cuda_dtype
+
+        def spy(family, dtype):
+            gate(family, dtype)
+            gated.append((family, dtype))
+
+        def sentinel(*a, **kw):
+            raise _PastGuard
+
+        monkeypatch.setattr(kernels, "require_cuda_dtype", spy)
+        monkeypatch.setattr(tsolve, "add_message", sentinel)
+        with pytest.raises(_PastGuard):
+            run()
+        assert gated == [("shor", F64)]
+        return
     with pytest.raises(ValueError, match="queue 1"):
-        matrix_completion_branchandbound(k, A, idx, 20.0, dtype="float64", device="cuda",
-                                         verbosity=0, **kw)
+        run()
 
 
 # ---- (d) the float64 wrappers pick the float64 builds, or raise ----
@@ -411,9 +455,56 @@ class _PlainCalled(Exception):
     pass
 
 
+def _shor64(call):
+    """A float64 Shor k = 1 step's wrapper (K7, K8a or K8b) on a small
+    CUDA-typed state: 6 x 6, one node slot, its fully observed minors."""
+    import dataclasses
+
+    from omc_torch.sdp import admm_shor
+    from omc_torch.sdp.admm import make_consts
+    from omc_torch.sdp.relax import NodeBatch
+    from omc_torch.sdp.shor import (
+        generate_rank1_matrix_completion_Shor_constraints_indexes,
+        shor_soc_complement,
+    )
+    from omc_torch.sdp.shor_encode import pack_shor_batch
+
+    def fake(x):
+        if isinstance(x, torch.Tensor):
+            return x.as_subclass(_FakeCuda)
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{fd.name: fake(getattr(x, fd.name)) for fd in dataclasses.fields(x)})
+        return type(x)(fake(y) for y in x) if isinstance(x, (list, tuple)) else x
+
+    n, L, M5 = 6, 2, 8
+    A, idx = generate_matrix_completion_data(1, n, n, 30, 1)
+    minors = generate_rank1_matrix_completion_Shor_constraints_indexes(idx, [4])[:M5]
+    sb = admm_shor.shor_batch_to_device(
+        pack_shor_batch(n, n, [minors], [shor_soc_complement(n, n, minors)], M5, n * n), F64,
+        device="cpu")
+    st = admm_shor.init_shor_state(1, n, n, 1, L, M5, n * n, F64, device="cpu")
+    lo, hi = ttree.root_box(n, 1)
+    z = lambda *s: torch.zeros(s, dtype=F64)  # noqa: E731
+    batch = NodeBatch(z(1, L, n), z(1, L, 1), z(1, L, 1), z(1, L), torch.as_tensor(lo[None]),
+                      torch.as_tensor(hi[None]))
+    c = make_consts(torch.as_tensor(np.ascontiguousarray(A)),
+                    torch.as_tensor(np.ascontiguousarray(idx), dtype=F64), batch, st.core, n, n,
+                    1, 20.0, 1.6, 0.01, F64)
+    c, sc, st = fake((c, admm_shor.make_shor_consts(c, sb, st.core, 30.0), st))
+    acc = [torch.zeros_like(x) for x in (st.u5, st.ur, st.ul)]
+    if call == "minor_step":
+        return admm_shor.minor_step(c, sc, st, acc[0], "eigh")
+    if call == "shor_zstep":
+        return admm_shor.shor_zstep(c, sc, st)
+    return admm_shor.shor_cone_step(c, sc, st, acc[1], acc[2])
+
+
 def _cuda64_calls():
     f = lambda *s: torch.zeros(*s, dtype=F64).as_subclass(_FakeCuda)  # noqa: E731
     return {
+        "minor_step_k7": lambda: _shor64("minor_step"),
+        "shor_zstep_k8a": lambda: _shor64("shor_zstep"),
+        "shor_cone_step_k8b": lambda: _shor64("shor_cone_step"),
         "eigvalsh": lambda: cones.eigvalsh(f(2, 12, 12)),
         "eigh": lambda: cones.k4_jacobi(f(2, 12, 12), 2),
         "project_psd_k4_cta": lambda: cones.project_psd(f(2, 100, 100)),
@@ -439,8 +530,12 @@ def test_float64_cuda_tensor_takes_its_build_or_raises(name, monkeypatch):
 
     for attr in ("eigh", "eigvalsh", "solve"):
         monkeypatch.setattr(torch.linalg, attr, plain)
+    from omc_torch.sdp import admm_shor
+
     for mod, attr in ((linalg, "v_step_plain"), (linalg, "u_step_unconstrained_plain"),
-                      (cones, "project_psd_plain"), (relax, "separation_eigpairs_plain")):
+                      (cones, "project_psd_plain"), (relax, "separation_eigpairs_plain"),
+                      (admm_shor, "minor_step_plain"), (admm_shor, "shor_zstep_plain"),
+                      (admm_shor, "shor_cone_step_plain")):
         monkeypatch.setattr(mod, attr, plain)
     blocks = []
     real_block = kernels.block
