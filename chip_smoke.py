@@ -34,13 +34,18 @@ Phases, in order (each prints its numbers on lines of its own):
                (64, 75, 2), (1, 50, 1), (16, 50, 1) (MC_SHAPES), with their
                device times, and K9s also at (64, 50, 3); then the float64
                builds of K8a, K7 (fused: its exact Jacobi projection) and
-               K8b at every shape of SHOR_SHAPES, K2's Shor mode at (32,
+               K8b at every shape of SHOR_SHAPES, K8c, K7t, K7x (slots: their
+               exact Jacobi projections) and K8d at config 3's frontier
+               (B=32, n=m=75, M5=1024) at k = 2, 3, 4 and K8c, K7x, K8d at
+               a root visit (B=1, M5=64), each beside the float32 build's
+               device ms on the same values, K2's Shor mode at (32,
                100) and (4, 50), K2 and K3 (both modes; the headline's and
                the fixtures' shapes), K4 (modes 0-2 at B=1 and 64,
                d=100/51/50, and the block path at d=150), K4s (5x5), K5
                ((64, 50, 1), (1, 50, 1)) and K6 (n=m=50; B=4, 64; k=1, 2,
-               10) against their plain versions in float64 and K7, K4, K4s
-               and K5 against a float64 LAPACK eigh; the build fails if
+               10) against their plain versions in float64 and K7, K7t,
+               K7x, K4, K4s and K5 against a float64 LAPACK eigh; the build
+               fails if
                ptxas reports a spill in any kernel of either type
 4. admm      — one root ADMM solve (B=64, L=8, 2000 iterations) on the
                headline instance; device bound vs float64 host bound (the
@@ -96,6 +101,15 @@ Phases, in order (each prints its numbers on lines of its own):
                refinement before a growth, 12 s) with sound bounds and a
                Shor growth; the Shor solver at its shape as two shards
                (mesh) against one device; one traced iteration there
+22. shork64  — omc's float64 on the rank-k Shor family (the float64 builds
+               of K2's Shor mode, K8c, K3, K4, K7t, K7x, K8d, K4s, K5, K6):
+               the api's rank-k Shor relaxation at its defaults on config
+               3's root (256 minors, 300 iterations) against the same call
+               on the CPU; config 3's instance on the shork cell's settings
+               in float64 (visits of 250 iterations, one refinement before
+               a growth, 12 s) with sound bounds, a Shor growth and no
+               float32 build launched; one traced iteration at config 3's
+               frontier shape
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -139,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
 import json
 import os
 import statistics
@@ -149,7 +164,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
-          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64")
+          "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64",
+          "shork64")
 EXTRA_PHASES = ("trace", "kernels64")  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -294,8 +310,8 @@ def phase_device(res):
 
 
 # the kernels whose small arrays must stay in registers (no stack frame)
-NO_FRAME = ("k7_kernel", "k7t_kernel", "k7x_kernel", "k8a_kernel", "k8b_kernel", "k8d_kernel",
-            "k9s_kernel", "k9a_kernel", "k9b_kernel")
+NO_FRAME = ("k7_kernel", "k7t_kernel", "k7x_kernel", "k8a_kernel", "k8b_kernel", "k8c_kernel",
+            "k8d_kernel", "k9s_kernel", "k9a_kernel", "k9b_kernel")
 
 
 def phase_build(res):
@@ -324,11 +340,11 @@ def phase_build(res):
                                if any(x in f for x in NO_FRAME + ("k4s_kernel",))}
         log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9s, K9a, K9b and K4s",
             json.dumps(res["parent_ptxas"]))
-    # every instantiation of every kernel, the float64 builds of K2, K3,
-    # K4, K4s, K5 and K6 included, keeps its values in registers (no spill);
-    # K7's, K7t's, K7x's, K8a's, K8b's, K8d's, K9s's, K9a's and K9b's index
-    # their small arrays only with constants (no stack frame: a 5x5 triangle
-    # in local memory costs K7 ten times its time)
+    # every instantiation of every kernel, the float64 builds included,
+    # keeps its values in registers (no spill); K7's, K7t's, K7x's, K8a's,
+    # K8b's, K8c's, K8d's, K9s's, K9a's and K9b's index their small arrays
+    # only with constants (no stack frame: a 5x5 triangle in local memory
+    # costs K7 ten times its time)
     assert not spills, spills
     frames = {f: r["stack"] for f, r in report.items()
               if any(x in f for x in NO_FRAME) and r["stack"]}
@@ -600,7 +616,10 @@ def phase_kernels(res):
     out["K7x"] = [row]
 
     # ---- K8c, K7t, K7x (slots), K8d at BASELINE config 3's shapes ----
-    rows = _check_shor_k_kernels(32, 75, 75, 8, 1024, gen, dev)
+    # (the float64 rows below take these inputs in float64)
+    shork_inputs = {(B, M5, k): _shor_k_inputs(B, 75, 75, 8, M5, gen, dev, k=k)
+                    for B, _, M5, k in F64_SHORK_SHAPES}
+    rows = _check_shor_k_kernels(*shork_inputs[32, 1024, 2], gen, dev)
     for name, row in rows.items():
         log(name, json.dumps(row))
     # K8c: float32 sums in another order than the plain version's
@@ -613,7 +632,7 @@ def phase_kernels(res):
     # K8c at k = 3 and 4: the same bars on the kernel's other instantiations;
     # K7t, K7x and K8d at k = 3 and 4 on K8c's primal
     for k in (3, 4):
-        r, stepped = _check_k8c(32, 75, 75, 8, 1024, k, gen, dev)
+        r, stepped = _check_k8c(*shork_inputs[32, 1024, k])
         log("K8c", json.dumps(r))
         checks.append(("K8c", r, r["rel_err"] <= 1e-5 and r["deterministic"]
                        and r["smem_matches_kernel"]))
@@ -624,12 +643,10 @@ def phase_kernels(res):
             out[name].append(r)
     # K7x and K8d at a root visit's B=1 (M5=64): K8d's last W >= 0 and RSOC
     # quads are ragged (n m = 5,625)
-    c, sc, st = _shor_k_inputs(1, 75, 75, 8, 64, gen, dev)
     for name, fn in (("K7xfused", _check_k7x), ("K8d", _check_k8d)):
-        r = fn(c, sc, st, gen, dev)
+        r = fn(*shork_inputs[1, 64, 2], gen, dev)
         log(name, json.dumps(r))
         out[name].append(r)
-    del c, sc, st
     # K8d: float32 link sums in another order than the plain version's, so
     # 1e-5 relative as K8c; the same bits twice; its plan the kernel's
     for r in out["K8d"]:
@@ -672,7 +689,8 @@ def phase_kernels(res):
 
     # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps; then
     # the float64 builds ----
-    for check in (_check_eig_kernels, lambda g, d: _check_float64_kernels(g, d, shor_inputs)):
+    for check in (_check_eig_kernels,
+                  lambda g, d: _check_float64_kernels(g, d, shor_inputs, shork_inputs)):
         rows = check(gen, dev)
         for name, rs in rows.items():
             for row in rs:
@@ -682,6 +700,24 @@ def phase_kernels(res):
     res["kernels"] = out
     failed = [(name, row) for name, row, ok in checks if not ok]
     assert not failed, failed
+
+
+def _random_minors(rng, B, n, m, M5):
+    """B slots' lists of M5 - 24 distinct random 2x2 minors (i1, i2, j1,
+    j2), i1 < i2, j1 < j2: of 4 M5 draws of two rows and two columns a slot,
+    the valid ones in the order of their first draw."""
+    import numpy as np
+
+    minors = []
+    for _ in range(B):
+        i = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
+        j = np.sort(rng.choice(m, (4 * M5, 2)), axis=1)
+        ok = (i[:, 0] < i[:, 1]) & (j[:, 0] < j[:, 1])
+        cand = np.stack([i[:, 0], i[:, 1], j[:, 0], j[:, 1]], 1)[ok]
+        key = ((cand[:, 0] * n + cand[:, 1]) * m + cand[:, 2]) * m + cand[:, 3]
+        first = np.sort(np.unique(key, return_index=True)[1])[: M5 - 24]
+        minors.append(list(map(tuple, cand[first].tolist())))
+    return minors
 
 
 def _shor_inputs(B, n, m, L, M5, gen, dev, dtype=None):
@@ -698,13 +734,7 @@ def _shor_inputs(B, n, m, L, M5, gen, dev, dtype=None):
     dt = dtype or torch.float32
     c, core, acc, ts = _admm_inputs(B, n, m, 1, L, gen, dev, dt)
     rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
-    minors = []
-    for _ in range(B):
-        i = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
-        j = np.sort(rng.choice(m, (4 * M5, 2)), axis=1)
-        ok = (i[:, 0] < i[:, 1]) & (j[:, 0] < j[:, 1])
-        cand = dict.fromkeys(map(tuple, np.stack([i[:, 0], i[:, 1], j[:, 0], j[:, 1]], 1)[ok]))
-        minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
+    minors = _random_minors(rng, B, n, m, M5)
     socs = [shor_soc_complement(n, m, mm) for mm in minors]
     sbh = pack_shor_batch(n, m, minors, socs, M5, n * m)
     sb = admm_shor.shor_batch_to_device(sbh, dt, device=dev)
@@ -968,35 +998,31 @@ def _device_rows(row, fns):
         row["parent_device_ms"] = dms.pop("parent")
 
 
-def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2):
+def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2, dtype=None):
     """Random rank-k Shor ADMM state and node batch at a config-3 shape
-    (float32 on the card): ~M5 - 24 random distinct 2x2 minors per slot, the
-    RSOC rows on the rest, slot values and duals of unit scale."""
+    (float32 on the card, or ``dtype``): ~M5 - 24 random distinct 2x2 minors
+    per slot, the RSOC rows on the rest, slot values and duals of unit
+    scale."""
     import numpy as np
     import torch
 
     from omc_torch.sdp import shor_k as SK
     from omc_torch.sdp.shor import shor_soc_complement
 
-    c, core, acc, ts = _admm_inputs(B, n, m, k, L, gen, dev)
+    dt = dtype or torch.float32
+    c, core, acc, ts = _admm_inputs(B, n, m, k, L, gen, dev, dt)
     rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
-    minors = []
-    for _ in range(B):
-        i = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
-        j = np.sort(rng.choice(m, (4 * M5, 2)), axis=1)
-        ok = (i[:, 0] < i[:, 1]) & (j[:, 0] < j[:, 1])
-        cand = dict.fromkeys(map(tuple, np.stack([i[:, 0], i[:, 1], j[:, 0], j[:, 1]], 1)[ok]))
-        minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
+    minors = _random_minors(rng, B, n, m, M5)
     socs = [shor_soc_complement(n, m, mm) for mm in minors]
     sbh = SK.pack_shor_k_batch(n, m, minors, socs, M5, n * m)
-    sb = SK.shor_k_batch_to_device(sbh, torch.float32, device=dev)
-    st = SK.init_shor_k_state(B, n, m, k, L, M5, n * m, torch.float32, device=dev)
+    sb = SK.shor_k_batch_to_device(sbh, dt, device=dev)
+    st = SK.init_shor_k_state(B, n, m, k, L, M5, n * m, dt, device=dev)
     st = st.replace(core=core)
     core.sS.copy_(core.sX)
     for name in ("Xt", "W", "Wt", "Hh", "v1", "v2", "v3", "w5", "u5", "wx", "ux", "wr", "ur",
                  "wl", "ul", "wwl", "uwl", "wp", "up", "wq", "uq"):
         t = getattr(st, name)
-        v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=torch.float32, device=dev)
+        v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=dt, device=dev)
         if name in ("w5", "u5"):
             v = 0.5 * (v + v.transpose(-1, -2)) * sb.minor_mask[..., None, None, None]
         if name in ("wx", "ux"):
@@ -1006,26 +1032,30 @@ def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2):
     return c, sc, st
 
 
-def _k8c_plan_row(B, n, m, k):
-    """K8c's tile at this shape, its shared memory held against the
-    kernel's own count (``omc_k8c_smem_bytes``)."""
+def _k8c_plan_row(B, n, m, k, dtype=None):
+    """K8c's tile at this shape (float32, or ``dtype``), its shared memory
+    held against the kernel's own count (``omc_k8c_smem_bytes``)."""
+    import torch
+
     from omc_torch import kernels
     from omc_torch.sdp.shor_k import k8c_plan
 
-    plan = k8c_plan(B, n, m, k)
-    smem = kernels.library().omc_k8c_smem_bytes(n, m, k, plan["cols"])
+    dt = dtype or torch.float32
+    plan = k8c_plan(B, n, m, k, dt)
+    smem = kernels.library().omc_k8c_smem_bytes(n, m, k, plan["cols"], dt.itemsize)
     return dict(plan=plan, smem_matches_kernel=smem == plan["smem_bytes"])
 
 
-def _check_k8c(B, n, m, L, M5, k, gen, dev):
-    """K8c alone at rank k: within 1e-5 relative of its plain version, the
-    same bits from two launches (no timing: a second instantiation of the
-    kernel on the card).  Returns the row and (c, sc, the stepped state)."""
+def _check_k8c(c, sc, st):
+    """K8c alone at rank k on the inputs (c, sc, st) of ``_shor_k_inputs``:
+    within 1e-5 relative of its plain version, the same bits from two
+    launches (no timing: a second instantiation of the kernel on the card).
+    Returns the row and (c, sc, the stepped state)."""
     import torch
 
     from omc_torch.sdp import shor_k as SK
 
-    c, sc, st = _shor_k_inputs(B, n, m, L, M5, gen, dev, k=k)
+    (B, n, m), k, M5 = st.core.X.shape, st.Xt.shape[1], sc.M5
     zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
     sk, s2 = st.clone(), st.clone()
     SK.shor_k_zstep(c, sc, sk)
@@ -1036,15 +1066,15 @@ def _check_k8c(B, n, m, L, M5, k, gen, dev):
                 deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k)), (c, sc, sk)
 
 
-def _check_shor_k_kernels(B, n, m, L, M5, gen, dev):
+def _check_shor_k_kernels(c, sc, st, gen, dev):
     """K8c, K7t, K7x (slots) and K8d against their plain versions on the
-    same inputs, each at the outputs of the step before it, with times,
-    bounds and a determinism check of each."""
+    inputs (c, sc, st) of ``_shor_k_inputs``, each at the outputs of the
+    step before it, with times, bounds and a determinism check of each."""
     import torch
 
     from omc_torch.sdp import shor_k as SK
 
-    c, sc, st = _shor_k_inputs(B, n, m, L, M5, gen, dev)
+    (B, n, m), M5 = st.core.X.shape, sc.M5
     k, kp, C, Ms = st.Xt.shape[1], st.Hh.shape[1], st.Wt.shape[2], st.wr.shape[1]
     nm = n * m
     P = sum(t.shape[2] for t in (st.v1, st.v2, st.v3))
@@ -1201,7 +1231,7 @@ def _check_k8d(c, sc, sk, gen, dev):
     plan = SK.k8d_plan(B, n, m, k, C, Ms)
     row = dict(B=B, n=n, m=m, k=k, C=C, Ms=Ms, plan=plan,
                plan_matches_kernel=plan["grid"] == kernels.library().omc_k8d_grid_x(
-                   B, n, m, C, Ms, plan["ipc"]),
+                   B, n, m, C, Ms, plan["ipc"], 4),
                rel_err=rel, max_abs_err=ab,
                deterministic=_same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
                ms=cuda_time_ms(fns["kernel"]),
@@ -2638,6 +2668,253 @@ def _shor64_of(c, sc, st):
     return c, make_shor_consts(c, sb, st.core, SHOR_UB), st
 
 
+def _shork64_of(c, sc, st):
+    """Float64 copies of ``_shor_k_inputs``' state and tables, with the
+    constants computed from them in float64, as the solver computes them."""
+    import torch
+
+    from omc_torch.sdp.admm import make_consts
+    from omc_torch.sdp.shor_k import make_shor_k_consts
+
+    c, sb, st = _to64(c), _to64(sc.sb), _to64(st)
+    c = make_consts(c.maskA, c.mask, c.batch, st.core, c.n, c.m, c.k, c.gamma, c.alpha, c.beta,
+                    torch.float64)
+    return c, make_shor_k_consts(c, sb, st.core, SHORK_UB, sc.k), st
+
+
+# the upper bound the rank-k Shor kernels' inputs are made for (its clip of Xt)
+SHORK_UB = 40.0
+# (B, n = m, M5, k) of the float64 rank-k rows: config 3's frontier at each
+# rank (k = 2 is the record's row), and a root visit's B=1 (K7x's and K8d's
+# ragged ends; K8c and K7t beside them)
+F64_SHORK_SHAPES = ((32, 75, 1024, 2), (32, 75, 1024, 3), (32, 75, 1024, 4), (1, 75, 64, 2))
+
+
+def _jacobi_pair_flops(D):
+    """FP64 operations of one Jacobi rotation of a D x D matrix held in
+    registers: its test and angle, A's two rows and columns, V's two
+    columns (90 at D = 5, the count of K7's float64 row)."""
+    return 26 + 16 * (D - 1)
+
+
+def _check_shor_k64_kernels(gen, dev, shork_inputs=None):
+    """The float64 builds of K8c, K7t, K7x (slot mode) and K8d against their
+    plain versions in float64 on float64 copies of ``_shor_k_inputs``'
+    float32 inputs (``_shork64_of``; the float32 rows' own, by (B, M5, k),
+    where given), each at the outputs of the step before
+    it (K8c's), at every shape of ``F64_SHORK_SHAPES``: errors (the slots'
+    (w, u) held together), the same bits from two launches, device ms (the
+    row's ``ms``; the float32 build's on the float32 inputs beside it,
+    ``f32_device_ms``, in the same profiler call), CUDA-event ms, the plain
+    version's and the library's ms, the plans against the kernels' exports
+    and the bound (values at 8 bytes, int32 tables at 4, FP64 operations at
+    34 TFLOP/s, the larger).  K7t and K7x project as omc's float64 route
+    does, exactly: their plain versions are the steps with K4s's Jacobi
+    mirror (``ops.jacobi.k4s_project_psd``), and each row holds the kernel's
+    projection to a float64 LAPACK projection of the same slot values on the
+    host (``err_vs_lapack``, over each matrix's max|lambda|), with the
+    mirror's and K4s's float64 build's sweeps on them and the float64 eigh
+    of the batch (cuSOLVER, chunked) as the library call."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops import cones
+    from omc_torch.ops.jacobi import MAX_SWEEPS, k4s_project_psd
+    from omc_torch.sdp import shor_k as SK
+
+    f64, i32 = torch.float64, torch.int32
+    lib = kernels.library()
+    out = {key: [] for key in ("K8c_f64", "K7t_f64", "K7x_f64", "K8d_f64")}
+    tm = _tm
+
+    def device(row, f64_fn, f32_fn):
+        dms = _k2k3_device_ms({"kernel": f64_fn, "float32": f32_fn},
+                              medians=("kernel", "float32"))
+        row["event_ms"] = cuda_time_ms(f64_fn)
+        row["ms"] = row["device_ms"] = dms["kernel"]
+        row["f32_device_ms"] = dms["float32"]
+        row["f64_over_f32"] = dms["kernel"] / dms["float32"]
+
+    def exact_err(w, t):
+        """max over the matrices of |w - proj_LAPACK(t)| / max|lambda(t)|"""
+        wl, Vl = torch.linalg.eigh(t.cpu())
+        ex = ((Vl * wl.clamp(min=0.0)[..., None, :]) @ Vl.transpose(-1, -2)).to(dev)
+        lam = wl.abs().amax(-1).to(dev)
+        return float(((w.reshape(t.shape) - ex).abs().amax((-2, -1))
+                      / lam.clamp(min=1e-300)).max())
+
+    def jacobi_row(row, got, got_b, ref, seen, D, N):
+        t = seen["t"]
+        sw = torch.empty(t.shape[:-2], dtype=i32, device=dev)
+        cones.k4s_project_psd(t, sw)
+        row["rel_err"], row["max_abs_err"] = _slot_errs(got, ref, ((0, 1), (2,)))
+        row.update(deterministic=_same_bits(got, got_b), err_vs_lapack=exact_err(got[0], t),
+                   mirror_sweeps_max=int(seen["sweeps"].max()),
+                   mirror_sweeps_min=int(seen["sweeps"].min()),
+                   k4s_sweeps_max=int(sw.max()), k4s_sweeps_min=int(sw.min()),
+                   library_ms=tm(lambda: cones.eigh_plain(t)))
+        row["ok"] = (row["rel_err"] <= 1e-10 and row["err_vs_lapack"] <= 1e-11
+                     and row["deterministic"] and row["plan_matches_kernel"]
+                     and row["mirror_sweeps_max"] <= MAX_SWEEPS
+                     and row["k4s_sweeps_max"] <= MAX_SWEEPS)
+        # the FP64 operations of the sweeps the mirror ran on these values,
+        # the rebuild V max(w, 0) V' (D (D + 1) / 2 entries of D FMAs) and
+        # the mixing, u-step and EMA
+        return (float(seen["sweeps"].double().sum()) * D * (D - 1) / 2 * _jacobi_pair_flops(D)
+                + N * (D * D * (D + 1) + 10 * D * D))
+
+    def mirror(seen):
+        def proj(t):
+            seen["t"] = t
+            P, seen["sweeps"] = k4s_project_psd(t)
+            return P
+        return proj
+
+    for B, n, M5, k in F64_SHORK_SHAPES:
+        c32, sc32, st32 = ((shork_inputs or {}).get((B, M5, k))
+                           or _shor_k_inputs(B, n, n, 8, M5, gen, dev, k=k))
+        c, sc, st = _shork64_of(c32, sc32, st32)
+        m, nm = n, n * n
+        _, _, _, _, kp, C, Ms = SK._shapes(st)
+        P = sum(t.shape[2] for t in (st.v1, st.v2, st.v3))
+        sb = sc.sb
+        A_ = float(sb.minor_mask.sum())   # active minors over the batch
+        Ca = float(sb.coord_mask.sum())   # active coordinates
+        Sa = float(sb.soc_mask.sum())     # active RSOC rows
+        shape = dict(B=B, n=n, m=m, k=k, M5=M5, C=C, Ms=Ms)
+
+        # K8c
+        zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
+        sk, s2 = st.clone(), st.clone()
+        SK.shor_k_zstep(c, sc, sk)
+        SK.shor_k_zstep(c, sc, s2)
+        torch.cuda.synchronize()
+        rel, ab = _errs(zs(sk), SK.shor_k_zstep_plain(c, sc, st))
+        r8c = dict(**shape, rel_err=rel, max_abs_err=ab, deterministic=_same_bits(zs(sk), zs(s2)),
+                   **_k8c_plan_row(B, n, m, k, f64), library_ms=None)
+        r8c["plan_matches_kernel"] = r8c.pop("smem_matches_kernel")
+        s3, s3f = st.clone(), st32.clone()
+        device(r8c, lambda: SK.shor_k_zstep(c, sc, s3), lambda: SK.shor_k_zstep(c32, sc32, s3f))
+        r8c["plain_ms"] = tm(lambda: SK.shor_k_zstep_plain(c, sc, st))
+        r8c["ok"] = r8c["rel_err"] <= 1e-10 and r8c["deterministic"] and r8c["plan_matches_kernel"]
+        # values per slot: the X and Theta blocks of w1/u1, Xt_prev, W >= 0,
+        # Wt >= 0, the link and W-link rows, the entry and coordinate
+        # constants, Theta's Schur complement, v's diagonal, the coordinate
+        # mask, the four scalars; out Xt, X, Theta, W, Wt, H, v; per active
+        # minor and term the 14 entries of w5/u5 the adjoint reads, per
+        # active coordinate the k^2 + k entries of wx/ux, per active RSOC row
+        # two of wr/ur and its mask; maskA and mask once.  int32: the entry
+        # tables (fm_ptr, flat_coord, flat_soc) and v's pointers per slot,
+        # the 9 list entries of each active minor
+        rd = (2 * (nm + m * m) + k * nm + 2 * nm + 2 * k * C + 2 * m + 2 * C + 3 * nm + 4 * C
+              + m + P + C + 4)
+        wr = k * nm + nm + m * m + nm + (k + kp) * C + k * P
+        with_bound(r8c, 8 * (B * (rd + wr) + A_ * k * 28 + Ca * 2 * (k * k + k) + Sa * 5 + 2 * nm)
+                   + 4 * (B * (3 * nm + 1 + P + 3) + 9 * A_),
+                   B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca, PEAK_FP64_FLOPS)
+        out["K8c_f64"].append(r8c)
+        # the float32 build's stepped state, for its timings beside
+        sk32 = st32.clone()
+        SK.shor_k_zstep(c32, sc32, sk32)
+
+        # K7t at K8c's primal
+        if M5 >= 1024:
+            N = B * M5 * k
+            acc5 = torch.randn(sk.u5.shape, generator=gen, dtype=f64).to(dev) * 0.1
+            runs = [(sk.clone(), acc5.clone()) for _ in range(2)]
+            for x, a in runs:
+                SK.minor_k_step(c, sc, x, a, "eigh")
+            torch.cuda.synchronize()
+            seen = {}
+            ref = SK.minor_k_step_plain(c, sc, sk, acc5, mirror(seen))
+            plan = SK.k7t_plan(N, f64)
+            r7 = dict(**shape, plan=plan,
+                      plan_matches_kernel=(plan["threads"] == lib.omc_k7t_threads(8)
+                                           and plan["smem"] == lib.omc_k7t_smem_bytes(8)))
+            flops = jacobi_row(r7, (runs[0][0].w5, runs[0][0].u5, runs[0][1]),
+                               (runs[1][0].w5, runs[1][0].u5, runs[1][1]), ref, seen, 5, N)
+            s8, a8 = sk.clone(), acc5.clone()
+            s8f, a8f = sk32.clone(), acc5.float()
+            device(r7, lambda: SK.minor_k_step(c, sc, s8, a8, "eigh"),
+                   lambda: SK.minor_k_step(c32, sc32, s8f, a8f, "ns"))
+            r7["plain_ms"] = tm(lambda: SK.minor_k_step_plain(
+                c, sc, sk, acc5, lambda t: k4s_project_psd(t)[0]))
+            # values: w5/u5/acc read and written, the minor mask, the gathered
+            # entries of Xt, Wt and v, sS and rho; int32: the 16-int records
+            with_bound(r7, 8 * (N * 6 * 25 + B * M5 + _k7t_gathered(sc, nm) + 2 * B)
+                       + 4 * 16 * B * M5, flops, PEAK_FP64_FLOPS)
+            out["K7t_f64"].append(r7)
+
+        # K7x (slot mode) at K8c's primal
+        D, N = k + 1, B * C
+        accx = torch.randn(sk.ux.shape, generator=gen, dtype=f64).to(dev) * 0.1
+        runs = [(sk.clone(), accx.clone()) for _ in range(2)]
+        for x, a in runs:
+            SK.xwh_step(c, sc, x, a, "eigh")
+        torch.cuda.synchronize()
+        seen = {}
+        ref = SK.xwh_step_plain(c, sc, sk, accx, mirror(seen))
+        plan = SK.k7x_plan(N, D, f64)
+        rx = dict(**shape, D=D, plan=plan,
+                  plan_matches_kernel=(plan["threads"] == lib.omc_k7x_threads(8, D)
+                                       and plan["smem"] == lib.omc_k7x_smem_bytes(8, D)))
+        flops = jacobi_row(rx, (runs[0][0].wx, runs[0][0].ux, runs[0][1]),
+                           (runs[1][0].wx, runs[1][0].ux, runs[1][1]), ref, seen, D, N)
+        s9, a9 = sk.clone(), accx.clone()
+        s9f, a9f = sk32.clone(), accx.float()
+        device(rx, lambda: SK.xwh_step(c, sc, s9, a9, "eigh"),
+               lambda: SK.xwh_step(c32, sc32, s9f, a9f, "ns"))
+        rx["plain_ms"] = tm(lambda: SK.xwh_step_plain(c, sc, sk, accx,
+                                                      lambda t: k4s_project_psd(t)[0]))
+        # values: wx/ux/acc read and written, the coordinate mask, the
+        # gathered entries of Xt, Wt and H, sS and rho; int32: coord_flat
+        fl = sb.coord_flat.long()
+        gathered = k * torch.unique(torch.arange(B, device=fl.device)[:, None] * nm + fl).numel()
+        with_bound(rx, 8 * (N * (6 * D * D + 1) + gathered + B * (k + kp) * C + 2 * B) + 4 * N,
+                   flops, PEAK_FP64_FLOPS)
+        out["K7x_f64"].append(rx)
+
+        # K8d at K8c's primal
+        accs = [torch.randn(x.shape, generator=gen, dtype=f64).to(dev) * 0.1
+                for x in (sk.ur, sk.ul, sk.uwl)]
+        kd = lambda x: (x.wr, x.ur, x.wl, x.ul, x.wwl, x.uwl, x.wp, x.up, x.wq, x.uq)  # noqa: E731
+        runs = [(sk.clone(), [a.clone() for a in accs]) for _ in range(2)]
+        for x, a in runs:
+            SK.shor_k_cone_step(c, sc, x, *a)
+        torch.cuda.synchronize()
+        ref = SK.shor_k_cone_step_plain(c, sc, sk, *accs)
+        (sd, ad), (sd2, ad2) = runs
+        # each slot's (w, u) held together (u = t - w may be all rounding
+        # noise where t lies in the cone), the EMAs on their own
+        rel, ab = _slot_errs(kd(sd) + tuple(ad), ref,
+                             ((0, 1), (2, 3), (4, 5), (6, 7), (8, 9), (10,), (11,), (12,)))
+        plan = SK.k8d_plan(B, n, m, k, C, Ms, f64)
+        rd8 = dict(**shape, plan=plan,
+                   plan_matches_kernel=plan["grid"] == lib.omc_k8d_grid_x(
+                       B, n, m, C, Ms, plan["ipc"], 8),
+                   rel_err=rel, max_abs_err=ab,
+                   deterministic=_same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
+                   library_ms=None)
+        s10, a10 = sk.clone(), [a.clone() for a in accs]
+        s10f, a10f = sk32.clone(), [a.float() for a in accs]
+        device(rd8, lambda: SK.shor_k_cone_step(c, sc, s10, *a10),
+               lambda: SK.shor_k_cone_step(c32, sc32, s10f, *a10f))
+        rd8["plain_ms"] = tm(lambda: SK.shor_k_cone_step_plain(c, sc, sk, *accs))
+        rd8["ok"] = rd8["rel_err"] <= 1e-10 and rd8["deterministic"] and rd8["plan_matches_kernel"]
+        # values per slot: X, W, Theta's diagonal, Wt, H, the RSOC rows with
+        # their EMA and mask, the link rows with their EMAs, W >= 0, Wt >= 0,
+        # the coordinate mask, the four scalars; out the same slots and
+        # EMAs; int32: soc_flat and coord_flat
+        rdv = (2 * nm + m + (k + kp) * C + 9 * Ms + Ms + 2 * m + 2 * C + 2 * nm + 2 * k * C
+               + 2 * C + C + 4)
+        wrv = 9 * Ms + 3 * m + 3 * C + 2 * nm + 2 * k * C
+        with_bound(rd8, 8 * B * (rdv + wrv) + 4 * B * (Ms + C),
+                   B * (40 * Ms + 6 * nm + (k + kp + 6) * C + 5 * k * C), PEAK_FP64_FLOPS)
+        out["K8d_f64"].append(rd8)
+        del c32, sc32, st32, c, sc, st, sk, s2, sk32
+    return out
+
+
 F64_ADMM_SHAPES = ((64, 50, 1, 8), (1, 50, 1, 8), (8, 12, 1, 8), (8, 16, 1, 8), (8, 20, 1, 8),
                    (8, 10, 2, 8))
 # K4's float64 rows (B, d, modes, path): the three blocks of the headline's
@@ -2651,7 +2928,7 @@ F64_K4_SHAPES = ((64, 100, (1, 0, 2), None), (1, 100, (1, 0, 2), None),
 F64_K6_SHAPES = ((50, 4, 1), (50, 64, 1), (50, 4, 2), (50, 64, 2), (50, 4, 10))
 
 
-def _check_float64_kernels(gen, dev, shor_inputs=None):
+def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
     """The float64 builds of K8a, K7 and K8b (``_check_shor_kernels``, on
     float64 copies of ``shor_inputs``, the float32 rows' inputs by shape,
     where given: ``_shor64_of``), K2 (also its Shor mode), K3 (both modes),
@@ -2706,6 +2983,9 @@ def _check_float64_kernels(gen, dev, shor_inputs=None):
                              and row["mirror_sweeps_max"] <= MAX_SWEEPS
                              and row["k4s_sweeps_max"] <= MAX_SWEEPS)
             out[name].append(row)
+    # ---- K8c, K7t, K7x (slots) and K8d: config 3's frontier at k = 2, 3, 4
+    # and a root visit ----
+    out.update(_check_shor_k64_kernels(gen, dev, shork_inputs))
     for B, n in ((32, 100), (4, 50)):
         c, st, acc, ts = _admm_inputs(B, n, n, 1, 8, gen, dev, f64)
         r2, _ = _check_k2_k3(c, st, acc, ts, shor=True, sweep=False)
@@ -2939,9 +3219,20 @@ def phase_kernels64(res):
 
 
 def _bench_instance(frac, seed=0, n=50):
+    """A rank-1 n x n instance with a fraction ``frac`` observed (a copy of
+    the one made at the first call with these arguments)."""
+    A, idx = _instance(1, n, int(round(frac * n * n)), seed)
+    return A.copy(), idx.copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _instance(k, n, n_indices, seed):
+    """``generate_matrix_completion_data`` once per arguments: its
+    rejection sampling takes seconds at n = 50 and 75, and every phase asks
+    for the same few instances."""
     from omc_torch.data import generate_matrix_completion_data
 
-    return generate_matrix_completion_data(1, n, n, int(round(frac * n * n)), seed)
+    return generate_matrix_completion_data(k, n, n, n_indices, seed)
 
 
 BENCH_KW = dict(
@@ -3058,7 +3349,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
            "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
-           "float64", "shor64")
+           "float64", "shor64", "shork64")
 _PHASE = {"name": None}
 
 
@@ -3344,10 +3635,9 @@ def phase_config2(res):
     import numpy as np
 
     from omc_torch import kernels
-    from omc_torch.data import generate_matrix_completion_data
 
     n = 100
-    A, idx = generate_matrix_completion_data(1, n, n, int(0.3 * n * n), seed=1)
+    A, idx = _bench_instance(0.3, seed=1, n=n)
     kernels.reset_launches()
     sol, inst, secs = _solve(A, idx, 80.0, **CONFIG2_KW)
     launches = dict(kernels.LAUNCHES)
@@ -3397,10 +3687,9 @@ SHORK_KW = dict(
 
 
 def _config3_instance():
-    from omc_torch.data import generate_matrix_completion_data
-
     n = 75
-    return generate_matrix_completion_data(2, n, n, int(0.5 * n * n), seed=1)
+    A, idx = _instance(2, n, int(0.5 * n * n), 1)
+    return A.copy(), idx.copy()
 
 
 def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
@@ -3919,7 +4208,6 @@ def _mesh_shard_check(dtype=None):
     import torch
 
     from omc_torch import kernels
-    from omc_torch.data import generate_matrix_completion_data
     from omc_torch.ops.cones import k4_plan
     from omc_torch.parallel.mesh import make_mesh, shard_solver_shor
     from omc_torch.sdp import admm_shor
@@ -3935,7 +4223,7 @@ def _mesh_shard_check(dtype=None):
     tol, sfx = (1e-8, "_f64") if f64 else (1e-3, "")
     n, B, L, M5, gamma, k = c["n"], c["B"], c["L"], c["M5"], c["gamma"], 1
     dev = torch.device("cuda", 0)
-    A, idx = generate_matrix_completion_data(1, n, n, int(0.3 * n * n), seed=1)
+    A, idx = _bench_instance(0.3, seed=1, n=n)
     mask = idx.astype(np.float64)
     U0 = np.linalg.svd(A * mask, full_matrices=False)[0][:, :k]
     obj0, X0, U0 = _polish_incumbent(U0 @ (U0.T @ (A * mask)), A, mask, gamma, k)
@@ -3944,13 +4232,7 @@ def _mesh_shard_check(dtype=None):
     sT = max(1.0, 2.0 * gamma * obj0 / (4.0 * n))
     rho = min(0.05, (62.5 / (n * n)) * min(2.0, 0.5 / max(mask.mean(), 1e-6)))
     rng = np.random.default_rng(7)
-    minors = []
-    for _ in range(B):  # distinct random 2x2 minors, M5 - 24 a slot
-        i = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
-        j = np.sort(rng.choice(n, (4 * M5, 2)), axis=1)
-        ok = (i[:, 0] < i[:, 1]) & (j[:, 0] < j[:, 1])
-        cand = dict.fromkeys(map(tuple, np.stack([i[:, 0], i[:, 1], j[:, 0], j[:, 1]], 1)[ok]))
-        minors.append([tuple(int(v) for v in mm) for mm in list(cand)[: M5 - 24]])
+    minors = _random_minors(rng, B, n, n, M5)  # distinct random 2x2 minors, M5 - 24 a slot
     sbh = pack_shor_batch(n, n, minors, [shor_soc_complement(n, n, mm) for mm in minors], M5,
                           n * n)
     lo, hi = root_box(n, k)
@@ -4351,7 +4633,6 @@ def phase_shor64(res):
         shor_soc_complement,
     )
     from omc_torch.tree import BBNode, ShorInfo, root_box
-    from omc_torch.data import generate_matrix_completion_data
 
     row = {}
     A, idx = _bench_instance(0.5)
@@ -4382,7 +4663,7 @@ def phase_shor64(res):
 
     # BASELINE config 2 in float64 (benchmarks/bench_configs.py:63 off a TPU)
     n2 = 100
-    A2, idx2 = generate_matrix_completion_data(1, n2, n2, int(0.3 * n2 * n2), seed=1)
+    A2, idx2 = _bench_instance(0.3, seed=1, n=n2)
     before = dict(kernels.LAUNCHES)
     sol, inst, secs = _solve(A2, idx2, 80.0, **CONFIG2_F64_KW)
     launches = _launched_since(before)
@@ -4435,6 +4716,129 @@ def phase_shor64(res):
     assert r["lower_bound_rel_dist"] <= 1e-8 and r["objective_rel_dist"] <= 1e-8, r
     assert r["lower_bound"] <= HEADLINE_OBJ * (1 + 1e-9), r
     res["shor64"] = row
+
+
+# the shork64 phase: omc's float64 rank-k Shor relaxation on the card.  (a)
+# The api's rank-k Shor relaxation at its defaults (float64, cuda) on config
+# 3's root (k = 2), cut to its first 256 fully observed 2x2 minors and 300
+# iterations (a CPU call of all of them, or of 2,000 iterations, would take
+# the CPU's reference call minutes), against the same call on the CPU, run
+# in a thread beside this phase's card work.  (b) Config 3's instance on
+# the shork cell's settings (SHORK_KW) in float64, cut in depth only: visits
+# of 250 iterations, one refinement visit before a node grows or splits,
+# 12 s.  (c) One traced float64 iteration at config 3's frontier shape.
+SHORK64_API_ITERS = 300
+SHORK64_API_MINORS = 256
+SHORK64_KW = dict(SHORK_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=12)
+SHORK64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K7t_f64", "K7x_f64", "K8c_f64", "K8d_f64",
+                "K4s_f64", "K5_f64")
+# the float32 builds a float64 rank-k run must not launch
+SHORK64_NO_F32 = ("K1", "K7t", "K7x", "K8c", "K8d")
+
+
+def _shork_iteration_trace(B=32, n=75, M5=1024, k=2, iters=5):
+    """One rank-k Shor iteration at config 3's frontier shape in float64
+    (the eigh route: K2, K8c, K3, three K4 launches and the torch epilogue,
+    K7t, K7x, K8d), traced: CUDA-event ms an iteration, device ms by kernel
+    (the rest under "other: ..."), K4's share, the idle share."""
+    import torch
+
+    from omc_torch.sdp import shor_k as SK
+
+    dev = torch.device("cuda", 0)
+    c, sc, st = _shor_k_inputs(B, n, n, 8, M5, torch.Generator().manual_seed(3), dev, k=k,
+                               dtype=torch.float64)
+    core = st.core
+    acc = [torch.zeros_like(x) for x in (core.u1, core.u2, core.ua, core.ub, core.uc, st.u5,
+                                         st.ux, st.ur, st.ul, st.uwl)]
+    ts = (torch.empty_like(core.w1), torch.empty_like(core.w2), torch.empty_like(core.w3))
+    names = {"k2_kernel": "K2", "k3_kernel": "K3", "k8c_kernel": "K8c", "k7t_kernel": "K7t",
+             "k7x_kernel": "K7x", "k8d_kernel": "K8d", "k4s_kernel": "K4s", "k4_": "K4"}
+    row = _trace_loop(lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "eigh"), names, iters,
+                      B=B, n=n, m=n, k=k, M5=M5, L=8, dtype="float64")
+    row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
+    return row
+
+
+def phase_shork64(res):
+    """The rank-k Shor family in float64 on the card, through the float64
+    builds of K2 (its Shor mode), K8c, K3, K4, K7t, K7x, K8d, K4s and K5:
+    the api's rank-k Shor relaxation at its defaults against the same call
+    on the CPU (bound and objective within 1e-8 relative), config 3's
+    instance on the shork cell's settings in float64 with sound bounds and a
+    Shor growth, and no float32 build launched; one traced iteration at its
+    frontier shape."""
+    import numpy as np
+
+    from omc_torch import api, kernels
+    from omc_torch.sdp.shor import (
+        generate_rank1_matrix_completion_Shor_constraints_indexes,
+        shor_soc_complement,
+    )
+    from omc_torch.tree import BBNode, ShorInfo, root_box
+
+    row = {}
+    A, idx = _config3_instance()
+    n, k, gamma = 75, 2, 80.0
+    minors = generate_rank1_matrix_completion_Shor_constraints_indexes(idx, [4])
+    n_all = len(minors)
+    minors = minors[:SHORK64_API_MINORS]
+    lo, hi = root_box(n, k)
+    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0, cuts=[],
+                  Shor_info=ShorInfo(constraints_indexes=minors,
+                                     SOC_constraints_indexes=shor_soc_complement(n, n, minors)))
+    kw = dict(add_Shor_valid_inequalities=True, iters=SHORK64_API_ITERS)
+
+    def on_cpu():
+        t0 = time.time()
+        out = api.matrix_completion_SDP_relaxation(node, n, k, A, idx, gamma, device="cpu", **kw)
+        return out, time.time() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu_future = pool.submit(on_cpu)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    sdp = api.matrix_completion_SDP_relaxation(node, n, k, A, idx, gamma, **kw)
+    sdp_s = time.time() - t0
+    sdp_launches = _launched_since(before)
+    log("shork64 relaxation launches", json.dumps(sdp_launches))
+    _assert_launched(sdp_launches, SHORK64_KEYS)
+    assert not any(sdp_launches[key] for key in SHORK64_NO_F32), sdp_launches
+
+    # config 3's instance on the shork cell's settings in float64
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A, idx, gamma, k=k, **SHORK64_KW)
+    launches = _launched_since(before)
+    c3 = _rank2_checks("shork64 config3", sol, inst, secs, A, idx, launches,
+                       SHORK64_KEYS + ("K6_f64",))
+    log(f"shork64 config3 ms_per_iter {c3['ms_per_iter']:.4f} growths {c3['growths']} "
+        f"minors_max {c3['minors_max']} gap {c3['gap']:.6g}")
+    assert c3["growths"] >= 1 and c3["minors_max"] > 0, c3
+    assert not any(launches[key] for key in SHORK64_NO_F32), launches
+    row["config3"] = c3
+
+    # one float64 iteration at config 3's frontier shape, split by kernel
+    row["iteration"] = _shork_iteration_trace()
+    log("shork64 iteration", json.dumps(row["iteration"]))
+
+    # the relaxation against its CPU call (the thread's result)
+    sdp_cpu, cpu_s = cpu_future.result()
+    pool.shutdown()
+    r = dict(minors=len(minors), minors_all=n_all, iters=SHORK64_API_ITERS, seconds=sdp_s,
+             seconds_cpu=cpu_s, ms_per_iter=1e3 * sdp_s / SHORK64_API_ITERS, tol=1e-8,
+             launches=sdp_launches)
+    for key in ("lower_bound", "objective"):
+        a_, b_ = float(sdp[key]), float(sdp_cpu[key])
+        r[key], r[key + "_cpu"] = a_, b_
+        r[key + "_rel_dist"] = abs(a_ - b_) / max(1.0, abs(b_))
+    for key in ("Y", "W"):
+        r[key + "_rel_dist"] = float(np.linalg.norm(sdp[key] - sdp_cpu[key])
+                                     / np.linalg.norm(sdp_cpu[key]))
+    row["relaxation"] = r
+    log("shork64 relaxation", json.dumps(r))
+    assert r["lower_bound_rel_dist"] <= 1e-8 and r["objective_rel_dist"] <= 1e-8, r
+    assert r["lower_bound"] <= CONFIG3_OBJ * (1 + 1e-9), r
+    res["shork64"] = row
 
 
 def phase_profile(res):
@@ -4529,7 +4933,7 @@ KERNELS = (
     ("K6", ("K6",),
      "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
-    # the float64 builds (the float64 and shor64 phases' launches)
+    # the float64 builds (the float64, shor64 and shork64 phases' launches)
     ("K2_f64", ("K2_f64",), "K2 float64 build: adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
      "omc_torch/csrc/k2_zstep.cu", "omc/sdp/admm.py:324"),
     ("K3_f64", ("K3_f64",), "K3 float64 build: forward map + cone step (B=64, n=m=50, L=8)",
@@ -4541,6 +4945,18 @@ KERNELS = (
      "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:178"),
     ("K8b_f64", ("K8b_f64",), "K8b float64 build: Shor RSOC/link/W>=0 cone step (B=32, n=m=100)",
      "omc_torch/csrc/k8_shor.cu", "omc/sdp/admm_shor.py:423"),
+    ("K7t_f64", ("K7t_f64",),
+     "K7t float64 build: per-term 5x5 minor slots, exact Jacobi projection (B=32, M5=1024, k=2)",
+     "omc_torch/csrc/k7k_minor_xwh.cu", "omc/sdp/shor_k.py:349"),
+    ("K7x_f64", ("K7x_f64",),
+     "K7x float64 build: (k+1)x(k+1) XWH slots, exact Jacobi projection (B=32, C=4096, k=2)",
+     "omc_torch/csrc/k7k_minor_xwh.cu", "omc/sdp/shor_k.py:373"),
+    ("K8c_f64", ("K8c_f64",),
+     "K8c float64 build: rank-k Shor adjoint + z-step (B=32, n=m=75, k=2, M5=1024)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:618"),
+    ("K8d_f64", ("K8d_f64",),
+     "K8d float64 build: rank-k Shor RSOC/link/W>=0/Wt>=0 cone step (B=32, n=m=75, k=2)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
     ("K4_f64", ("K4_f64",),
      "K4 float64 build: Jacobi PSD projection, CTA path (B=64, d=100)",
      "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),

@@ -573,10 +573,10 @@ struct K1Params {
   float beta;
 };
 
-// K2's, K3's, K7's, K8a's, K8b's, K4's, K5's, K4s's and K6's blocks are
-// templates on the
-// element type T: float, or double for the float64 builds (the entry points
-// named ..._f64; the ctypes blocks of omc_torch/kernels.py with c_double
+// K2's, K3's, K7's, K8a's, K8b's, K4's, K5's, K4s's and K6's blocks (and
+// K7t's, K7x's, K8c's and K8d's below) are templates on the element type
+// T: float, or double for the float64 builds (the entry points named
+// ..._f64; the ctypes blocks of omc_torch/kernels.py with c_double
 // scalars).  The float blocks keep their names.
 template <class T>
 struct K2ParamsT {
@@ -686,63 +686,71 @@ struct K8bParamsT {
 using K8bParams = K8bParamsT<float>;
 
 // K7t: the per-term 5x5 minor slots of the rank-k Shor relaxation, gathered
-// from term t of Xt, Wt and v1-v3, relax-mixed, projected, u and EMA updated.
-struct K7tParams {
-  float *w, *u, *acc;                    // (B, M5, k, 5, 5); acc may be null
-  const float *Xt;                       // (B, k, n*m) scaled
-  const float *Wt;                       // (B, k, C)
-  const float *v1, *v2, *v3;             // (B, k, P1), (B, k, P2), (B, k, P3)
+// from term t of Xt, Wt and v1-v3, relax-mixed, projected, u and EMA updated
+// (the float64 build projects exactly by Jacobi).
+template <class T>
+struct K7tParamsT {
+  T *w, *u, *acc;                        // (B, M5, k, 5, 5); acc may be null
+  const T *Xt;                           // (B, k, n*m) scaled
+  const T *Wt;                           // (B, k, C)
+  const T *v1, *v2, *v3;                 // (B, k, P1), (B, k, P2), (B, k, P3)
   const int *rec;                        // (B, M5, 16) a minor's index record
                                          // (sdp.shor_k.minor_records): the flat
                                          // entries of its four corners, their
                                          // coordinates, iv1a, iv1b, iv2a, iv2b,
                                          // iv3, 3 pad; 16-byte aligned
-  const float *minor_mask;               // (B, M5)
-  const float *sS, *rho;                 // (B,)
+  const T *minor_mask;                   // (B, M5)
+  const T *sS, *rho;                     // (B,)
   int B, M5, k, nm, C, P1, P2, P3;
-  float alpha, beta;
+  T alpha, beta;
 };
+using K7tParams = K7tParamsT<float>;
 
 // K7x: with t given, w = proj_PSD(t) for N (k+1)x(k+1) matrices; with t
-// null, the XWH slots [[1, Xt'], [Xt, M]] of N = B * C coordinates.
-struct K7xParams {
-  const float* t;                        // (N, D, D) or null
-  float *w, *u, *acc;                    // (N, D, D); u, acc in the slot mode
-  const float *Xt, *Wt, *Hh;             // (B, k, n*m), (B, k, C), (B, kp, C)
+// null, the XWH slots [[1, Xt'], [Xt, M]] of N = B * C coordinates (the
+// float64 build: the slot mode only, projected exactly by Jacobi).
+template <class T>
+struct K7xParamsT {
+  const T* t;                            // (N, D, D) or null
+  T *w, *u, *acc;                        // (N, D, D); u, acc in the slot mode
+  const T *Xt, *Wt, *Hh;                 // (B, k, n*m), (B, k, C), (B, kp, C)
   const int* coord_flat;                 // (B, C)
-  const float* coord_mask;               // (B, C)
-  const float *sS, *rho;                 // (B,)
+  const T* coord_mask;                   // (B, C)
+  const T *sS, *rho;                     // (B,)
   int N, C, k, nm;
-  float alpha, beta;
+  T alpha, beta;
 };
+using K7xParams = K7xParamsT<float>;
 
 // K8c: the rank-k Shor z-step (adjoint of every Shor slot, Sherman-Morrison
 // X solve per entry, diagonal solves, link Woodbury, clip) -> Xt, X = sum_t
 // Xt, Theta, W, Wt, H, v1-v3.
-struct K8cParams {
-  const float *w1, *u1;                  // (B, n+m, n+m)
-  const float *w5, *u5;                  // (B, M5, k, 5, 5)
-  const float *wx, *ux;                  // (B, C, k+1, k+1)
-  const float *wr, *ur;                  // (B, Ms, 3)
-  const float *wl, *ul;                  // (B, m)
-  const float *wwl, *uwl;                // (B, C)
-  const float *wp, *up;                  // (B, n, m)
-  const float *wq, *uq;                  // (B, k, C)
-  const float *soc_mask, *coord_mask;    // (B, Ms), (B, C)
+template <class T>
+struct K8cParamsT {
+  const T *w1, *u1;                      // (B, n+m, n+m)
+  const T *w5, *u5;                      // (B, M5, k, 5, 5)
+  const T *wx, *ux;                      // (B, C, k+1, k+1)
+  const T *wr, *ur;                      // (B, Ms, 3)
+  const T *wl, *ul;                      // (B, m)
+  const T *wwl, *uwl;                    // (B, C)
+  const T *wp, *up;                      // (B, n, m)
+  const T *wq, *uq;                      // (B, k, C)
+  const T *soc_mask, *coord_mask;        // (B, Ms), (B, C)
   const int *fm_ptr, *fm_ent;            // (B, n*m+1), (B, 4*M5) entry -> 4 l + corner
   const int *flat_coord, *flat_soc;      // (B, n*m) entry -> coordinate / RSOC slot or -1
   const int *v1_ptr, *v1_ent, *v2_ptr, *v2_ent, *v3_ptr, *v3_ent;
-  const float *D1x, *c1x, *D1w;          // (B, n*m)
-  const float *D1wt, *D1h, *D_c, *B_jc;  // (B, C)
-  const float* S_th;                     // (B, m)
-  const float *D1v1, *D1v2, *D1v3;       // (B, P*)
-  const float *maskA, *mask;             // (n, m)
-  const float *sX, *sT, *sS, *rho;       // (B,)
-  float *Xt, *Xs, *Ths, *Ws, *Wt, *Hh, *v1, *v2, *v3;  // outputs
+  const T *D1x, *c1x, *D1w;              // (B, n*m)
+  const T *D1wt, *D1h, *D_c, *B_jc;      // (B, C)
+  const T* S_th;                         // (B, m)
+  const T *D1v1, *D1v2, *D1v3;           // (B, P*)
+  const T *maskA, *mask;                 // (n, m)
+  const T *sX, *sT, *sS, *rho;           // (B,)
+  T *Xt, *Xs, *Ths, *Ws, *Wt, *Hh, *v1, *v2, *v3;  // outputs
   int B, n, m, k, M5, C, Ms, P1, P2, P3;
   int cols;                              // columns a CTA (sdp.shor_k.k8c_plan)
-  float gamma, R_X;                      // R_X = sqrt(2 gamma ub_bar)
+  T gamma, R_X;                          // R_X = sqrt(2 gamma ub_bar)
 };
+using K8cParams = K8cParamsT<float>;
 
 // K9s: rho-free factorisations of the McCormick z-step (once per solve call)
 struct K9sParams {
@@ -785,24 +793,27 @@ struct K9bParams {
 // K8d: cone step of the RSOC, Theta-link, W-link, W >= 0 and Wt >= 0 slots
 // of the rank-k Shor relaxation, with the EMAs of rho*ur, rho*ul, rho*uwl;
 // B ceil(m / 32) CTAs on the link rows, then CTAs of ipc items of the
-// batch's W >= 0 quads, RSOC quads and coordinates (omc_k8d_grid_x).
-struct K8dParams {
-  const float *Xs, *Ws, *Ths, *Wt, *Hh;  // (B,n,m), (B,n,m), (B,m,m), (B,k,C), (B,kp,C)
-  float *wr, *ur, *acc_r;                // (B, Ms, 3)
-  float *wl, *ul, *acc_l;                // (B, m)
-  float *wwl, *uwl, *acc_wl;             // (B, C)
-  float *wp, *up;                        // (B, n, m)
-  float *wq, *uq;                        // (B, k, C)
+// batch's W >= 0 groups, RSOC groups and coordinates (groups of 16 /
+// sizeof(T): quads, pairs in the float64 build; omc_k8d_grid_x).
+template <class T>
+struct K8dParamsT {
+  const T *Xs, *Ws, *Ths, *Wt, *Hh;      // (B,n,m), (B,n,m), (B,m,m), (B,k,C), (B,kp,C)
+  T *wr, *ur, *acc_r;                    // (B, Ms, 3)
+  T *wl, *ul, *acc_l;                    // (B, m)
+  T *wwl, *uwl, *acc_wl;                 // (B, C)
+  T *wp, *up;                            // (B, n, m)
+  T *wq, *uq;                            // (B, k, C)
   const int* soc_flat;                   // (B, Ms)
-  const float* soc_mask;                 // (B, Ms)
+  const T* soc_mask;                     // (B, Ms)
   const int* coord_flat;                 // (B, C)
-  const float* coord_mask;               // (B, C)
-  const float *sX, *sT, *sS, *rho;       // (B,)
+  const T* coord_mask;                   // (B, C)
+  const T *sX, *sT, *sS, *rho;           // (B,)
   int B, n, m, k, C, Ms;
   int ipc;                               // items a flat CTA: 32, 64 or 128
                                          // (sdp.shor_k.k8d_plan)
-  float alpha, beta;
+  T alpha, beta;
 };
+using K8dParams = K8dParamsT<float>;
 
 // K4 / K5: batched symmetric eigensolver, one CTA per matrix.  K4 reads M;
 // K5 (M null) forms U U' - Y.  mode 0: the eigenvalues ascending into w

@@ -37,7 +37,27 @@
 // 16-byte accesses, the coordinate's entry coord_flat[c] then its k Xt
 // entries gathered while the blocks arrive; its projection mode stages t
 // and w the same way.
+//
+// The float64 builds (omc_k7t_minor_k_f64, omc_k7x_xwh_f64: the slot mode
+// only) follow omc's float64 route, which projects both slot families
+// exactly (project_psd, omc/sdp/shor_k.py:748-753): the sign schedule
+// stops at ~1e-4 relative and would floor a float64 run.  Each is K7's
+// float64 build (csrc/k7_minor_psd.cu) on its own slots: one thread per
+// matrix gathers and mixes t as above, keeps t in the u block of the
+// staging, projects it by K4s's cyclic Jacobi in registers (k4s_jacobi.cuh:
+// A's upper triangle and V, D (D + 1) / 2 + D^2 doubles) and writes
+// V max(w, 0) V', the u-step and the EMA.  The staging of three blocks of
+// doubles stays static shared memory: K7t takes 64 minors a CTA (38,400
+// bytes); K7x 128 slots at D = 3 (27,648) and 64 at D = 4 and 5 (26,112
+// and 38,400).  A matrix sits at an odd stride of doubles, so that a
+// half-warp's 8-byte accesses (one matrix a lane) fall in distinct banks:
+// D^2 at D = 3 and 5, 17 at D = 4 (D = 4's swizzle of 16-byte rows does
+// not carry over to rows of 32 bytes); at D = 4 a 16-byte word of global
+// memory goes to two 8-byte stores, the words of a matrix to its 17
+// slots.  CPU mirrors: minor_k_step_plain and xwh_step_plain with
+// ops.jacobi.k4s_project_psd.
 #include "common.cuh"
+#include "k4s_jacobi.cuh"
 
 namespace {
 
@@ -296,6 +316,222 @@ __global__ void __launch_bounds__(kThreads7) k7x_kernel(K7xParams p) {
   if (p.acc != nullptr) stage_out<D>(p.acc + off, sa, nf);
 }
 
+// ---- the float64 builds ----
+
+constexpr int kThreads7t64 = 64;  // K7t's float64 build's minors a CTA
+
+// The float64 build of K7t: the per-term minor slots' gather, mix, exact
+// projection by Jacobi, u-step and EMA (see the header).
+__global__ void __launch_bounds__(kThreads7t64) k7t_kernel_f64(K7tParamsT<double> p) {
+  __shared__ double2 k7t_smem_d[3 * kThreads7t64 * kD5 / 2];
+  double* sw = reinterpret_cast<double*>(k7t_smem_d);
+  double* su = sw + kThreads7t64 * kD5;
+  double* sa = su + kThreads7t64 * kD5;
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * kThreads7t64;
+  const int cnt = min(kThreads7t64, p.B * p.M5 * p.k - base);
+  const int nf = cnt * kD5;
+  const size_t off = (size_t)base * kD5;
+  omc::load_block<kThreads7t64>(p.w + off, sw, nf);
+  omc::load_block<kThreads7t64>(p.u + off, su, nf);
+  if (p.acc != nullptr) omc::load_block<kThreads7t64>(p.acc + off, sa, nf);
+  // gather term t of the minor's 15 distinct entries while the blocks arrive
+  const bool act = tid < cnt;
+  double x11 = 0, x12 = 0, x21 = 0, x22 = 0, w11 = 0, w12 = 0, w21 = 0, w22 = 0;
+  double V1a = 0, V1b = 0, V2a = 0, V2b = 0, V3 = 0, sS = 0, mask = 0, rho = 0;
+  if (act) {
+    const int g = base + tid;  // (b, l, t), t fastest
+    const int t = g % p.k;
+    const int bl = g / p.k;    // b * M5 + l
+    const int b = bl / p.M5;
+    const int4* rec = reinterpret_cast<const int4*>(p.rec) + (size_t)bl * 4;
+    const int4 cf = __ldg(rec), mc = __ldg(rec + 1), iv = __ldg(rec + 2), iw = __ldg(rec + 3);
+    const size_t bt = (size_t)b * p.k + t;
+    const double* X = p.Xt + bt * p.nm;
+    const double* Wt = p.Wt + bt * p.C;
+    x11 = __ldg(X + cf.x), x12 = __ldg(X + cf.y), x21 = __ldg(X + cf.z), x22 = __ldg(X + cf.w);
+    w11 = __ldg(Wt + mc.x), w12 = __ldg(Wt + mc.y), w21 = __ldg(Wt + mc.z), w22 = __ldg(Wt + mc.w);
+    V1a = __ldg(p.v1 + bt * p.P1 + iv.x);
+    V1b = __ldg(p.v1 + bt * p.P1 + iv.y);
+    V2a = __ldg(p.v2 + bt * p.P2 + iv.z);
+    V2b = __ldg(p.v2 + bt * p.P2 + iv.w);
+    V3 = __ldg(p.v3 + bt * p.P3 + iw.x);
+    sS = __ldg(p.sS + b), mask = __ldg(p.minor_mask + bl), rho = __ldg(p.rho + b);
+  }
+  __syncthreads();
+  if (act) {
+    double* mw = sw + tid * kD5;
+    double* mu = su + tid * kD5;
+    double* ma = sa + tid * kD5;
+    const double F[kD][kD] = {
+        {1.0, x11, x12, x21, x22},
+        {x11, w11, V1a, V2a, V3},
+        {x12, V1a, w12, V3, V2b},
+        {x21, V2a, V3, w21, V1b},
+        {x22, V3, V2b, V1b, w22},
+    };
+    const double alpha = p.alpha, om = 1.0 - p.alpha;
+    // t5 = sym(alpha f5 + (1 - alpha) w5 + u5): A's upper triangle, and in
+    // the u5 block for the u-step
+    double A[kD][kD];
+#pragma unroll
+    for (int i = 0; i < kD; ++i)
+#pragma unroll
+      for (int j = i; j < kD; ++j) {
+        const double tij = (alpha * (sS * F[i][j]) + om * mw[i * kD + j]) + mu[i * kD + j];
+        const double tji = (alpha * (sS * F[j][i]) + om * mw[j * kD + i]) + mu[j * kD + i];
+        const double t = i == j ? tij : 0.5 * (tij + tji);
+        A[i][j] = t;
+        mu[i * kD + j] = t;
+        mu[j * kD + i] = t;
+      }
+    const double beta = p.beta;
+    const bool ema = p.acc != nullptr;
+    k4s::project_psd<kD>(A, [&](int i, int j, double w) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && i == j) break;
+        const int q = h == 0 ? i * kD + j : j * kD + i;
+        const double u = (mu[q] - w) * mask;
+        mw[q] = w;
+        mu[q] = u;
+        if (ema) ma[q] = ma[q] + beta * (rho * u - ma[q]);
+      }
+    });
+  }
+  __syncthreads();
+  omc::store_block<kThreads7t64>(p.w + off, sw, nf);
+  omc::store_block<kThreads7t64>(p.u + off, su, nf);
+  if (p.acc != nullptr) omc::store_block<kThreads7t64>(p.acc + off, sa, nf);
+}
+
+// K7x's float64 build: slots a CTA and the odd stride (in doubles) of a
+// staged D x D matrix
+template <int D>
+struct K7x64 {
+  static constexpr int kThreads = D == 3 ? 128 : 64;
+  static constexpr int kLd = (D * D) | 1;
+};
+
+// nf doubles of a CTA's D x D matrices from global g (16-byte aligned) into
+// shared s at stride kLd, and back: contiguous where kLd = D^2; at D = 4
+// each 16-byte word of g (two doubles of one matrix, one of its 8 words)
+// goes to two 8-byte slots, consecutive lanes on consecutive words
+template <int D>
+__device__ __forceinline__ void stage_in_f64(const double* __restrict__ g, double* s, int nf) {
+  constexpr int NT = K7x64<D>::kThreads, LD = K7x64<D>::kLd, DD = D * D;
+  if constexpr (LD == DD) {
+    omc::load_block<NT>(g, s, nf);
+  } else {
+    const double2* __restrict__ g2 = reinterpret_cast<const double2*>(g);
+    for (int q = threadIdx.x; q < nf / 2; q += NT) {
+      const double2 v = g2[q];
+      double* d = s + (q / (DD / 2)) * LD + 2 * (q % (DD / 2));
+      d[0] = v.x, d[1] = v.y;
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_out_f64(double* __restrict__ g, const double* s, int nf) {
+  constexpr int NT = K7x64<D>::kThreads, LD = K7x64<D>::kLd, DD = D * D;
+  if constexpr (LD == DD) {
+    omc::store_block<NT>(g, s, nf);
+  } else {
+    double2* __restrict__ g2 = reinterpret_cast<double2*>(g);
+    for (int q = threadIdx.x; q < nf / 2; q += NT) {
+      const double* d = s + (q / (DD / 2)) * LD + 2 * (q % (DD / 2));
+      g2[q] = make_double2(d[0], d[1]);
+    }
+  }
+}
+
+// The float64 build of K7x's slot mode: the XWH slots' gather, mix, exact
+// projection by Jacobi, u-step and EMA, one thread per coordinate (see the
+// header)
+template <int D>
+__global__ void __launch_bounds__(K7x64<D>::kThreads) k7x_kernel_f64(K7xParamsT<double> p) {
+  constexpr int K = D - 1, KP = K * (K - 1) / 2;
+  constexpr int NT = K7x64<D>::kThreads, LD = K7x64<D>::kLd;
+  __shared__ double2 k7x_smem_d[(3 * NT * LD + 1) / 2];
+  double* sw = reinterpret_cast<double*>(k7x_smem_d);
+  double* su = sw + NT * LD;
+  double* sa = su + NT * LD;
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * NT;
+  const int cnt = min(NT, p.N - base);
+  const int nf = cnt * D * D;
+  const size_t off = (size_t)base * D * D;
+  const bool act = tid < cnt;
+  stage_in_f64<D>(p.w + off, sw, nf);
+  stage_in_f64<D>(p.u + off, su, nf);
+  if (p.acc != nullptr) stage_in_f64<D>(p.acc + off, sa, nf);
+  // the slot's values [[1, Xt'], [Xt, M]] while the blocks arrive
+  double F[D][D];
+  double sS = 0, mask = 0, rho = 0;
+  if (act) {
+    const int g = base + tid, b = g / p.C, c = g - b * p.C;
+    const int f = __ldg(p.coord_flat + g);
+    F[0][0] = 1.0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      const size_t bt = (size_t)b * K + t;
+      const double x = __ldg(p.Xt + bt * p.nm + f);
+      F[0][t + 1] = x;
+      F[t + 1][0] = x;
+      F[t + 1][t + 1] = __ldg(p.Wt + bt * p.C + c);
+    }
+    int q = 0;
+#pragma unroll
+    for (int t1 = 0; t1 < K; ++t1)
+#pragma unroll
+      for (int t2 = t1 + 1; t2 < K; ++t2, ++q) {
+        const double h = __ldg(p.Hh + ((size_t)b * KP + q) * p.C + c);
+        F[t1 + 1][t2 + 1] = h;
+        F[t2 + 1][t1 + 1] = h;
+      }
+    sS = __ldg(p.sS + b), mask = __ldg(p.coord_mask + g), rho = __ldg(p.rho + b);
+  }
+  __syncthreads();
+  if (act) {
+    double* mw = sw + tid * LD;
+    double* mu = su + tid * LD;
+    double* ma = sa + tid * LD;
+    const double alpha = p.alpha, om = 1.0 - p.alpha;
+    // tx = sym(alpha fx + (1 - alpha) wx + ux): A's upper triangle, and in
+    // the ux block for the u-step
+    double A[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = i; j < D; ++j) {
+        const double tij = (alpha * (sS * F[i][j]) + om * mw[i * D + j]) + mu[i * D + j];
+        const double tji = (alpha * (sS * F[j][i]) + om * mw[j * D + i]) + mu[j * D + i];
+        const double t = i == j ? tij : 0.5 * (tij + tji);
+        A[i][j] = t;
+        mu[i * D + j] = t;
+        mu[j * D + i] = t;
+      }
+    const double beta = p.beta;
+    const bool ema = p.acc != nullptr;
+    k4s::project_psd<D>(A, [&](int i, int j, double w) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && i == j) break;
+        const int q = h == 0 ? i * D + j : j * D + i;
+        const double u = (mu[q] - w) * mask;
+        mw[q] = w;
+        mu[q] = u;
+        if (ema) ma[q] = ma[q] + beta * (rho * u - ma[q]);
+      }
+    });
+  }
+  __syncthreads();
+  stage_out_f64<D>(p.w + off, sw, nf);
+  stage_out_f64<D>(p.u + off, su, nf);
+  if (p.acc != nullptr) stage_out_f64<D>(p.acc + off, sa, nf);
+}
+
 }  // namespace
 
 OMC_EXPORT int omc_k7t_minor_k(const K7tParams* params, void* stream) {
@@ -318,6 +554,63 @@ OMC_EXPORT int omc_k7x_xwh(const K7xParams* params, void* stream) {
       case 2: k7x_kernel<3><<<grid, kThreads7, 0, s>>>(p); break;
       case 3: k7x_kernel<4><<<grid, kThreads7, 0, s>>>(p); break;
       case 4: k7x_kernel<5><<<grid, kThreads7, 0, s>>>(p); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// minors (threads) a CTA of K7t and its static staging bytes, for the
+// operands' element size (4, or 8 for the float64 build), and K7x's at
+// D = k + 1 (sdp.shor_k.k7t_plan and k7x_plan plan with them, chip_smoke.py
+// holds the plans against them)
+OMC_EXPORT int omc_k7t_threads(int elem) { return elem == 8 ? kThreads7t64 : kThreads7; }
+
+OMC_EXPORT long long omc_k7t_smem_bytes(int elem) {
+  return 3LL * omc_k7t_threads(elem) * kD5 * elem;
+}
+
+OMC_EXPORT int omc_k7x_threads(int elem, int D) {
+  if (elem != 8) return kThreads7;
+  return D == 3 ? K7x64<3>::kThreads : D == 4 ? K7x64<4>::kThreads : K7x64<5>::kThreads;
+}
+
+OMC_EXPORT long long omc_k7x_smem_bytes(int elem, int D) {
+  const int ld = elem == 8 ? (D * D) | 1 : D * D;
+  return 3LL * omc_k7x_threads(elem, D) * ld * elem;
+}
+
+OMC_EXPORT int omc_k7t_minor_k_f64(const K7tParamsT<double>* params, void* stream) {
+  const K7tParamsT<double> p = *params;
+  const int N = p.B * p.M5 * p.k;
+  if (N > 0)
+    k7t_kernel_f64<<<(N + kThreads7t64 - 1) / kThreads7t64, kThreads7t64, 0,
+                     (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int D>
+void launch_k7x_f64(const K7xParamsT<double>& p, cudaStream_t s) {
+  constexpr int NT = K7x64<D>::kThreads;
+  k7x_kernel_f64<D><<<(p.N + NT - 1) / NT, NT, 0, s>>>(p);
+}
+
+}  // namespace
+
+OMC_EXPORT int omc_k7x_xwh_f64(const K7xParamsT<double>* params, void* stream) {
+  const K7xParamsT<double> p = *params;
+  // no projection mode in float64 (K4s's float64 build serves it); the
+  // staged blocks move as 16-byte words
+  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (p.t != nullptr || odd(p.w) || odd(p.u) || odd(p.acc)) return (int)cudaErrorInvalidValue;
+  if (p.N > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (p.k) {
+      case 2: launch_k7x_f64<3>(p, s); break;
+      case 3: launch_k7x_f64<4>(p, s); break;
+      case 4: launch_k7x_f64<5>(p, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -61,101 +61,120 @@
 // Each flat kind takes ipc items a CTA (128, 64 or 32; the plan narrows it
 // until the flat CTAs fill the card's SMs), each lane issues all of its
 // loads before its first store, and the operands are __restrict__.
+//
+// The float64 builds (omc_k8c_shor_k_zstep_f64, omc_k8d_shor_k_cone_f64)
+// are the same kernels on doubles.  K8c keeps its values and the row
+// groups' column sums (still added in row-group order) in doubles, so its
+// tile narrows where they outgrow a CTA's shared memory (k8c_plan at 8
+// bytes a value); its divides are omc::quot's (the hardware reciprocal
+// refined, not the IEEE divide's slow path, around which ptxas spills).
+// K8d's thread takes a pair of doubles where the float build takes a quad
+// (one 16-byte word of each of W, wp, up, the RSOC mask; its 6 RSOC values
+// 3 words of the warp's staging, at the float build's 48-byte stride; two
+// soc_flat entries one 8-byte word), as K8b's float64 build does.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kCols = 32;  // K8c's widest tile
 
-// K8c's dynamic shared memory (floats): the kept per-entry values
+// K8c's dynamic shared memory (values of T): the kept per-entry values
 // (W, q_c, c, Wt, H: k + k(k-1)/2 + 3 fields of n x cols), two column sums
 // per row group, a_j, and Theta's staged block rows (cols x (m + 1))
-__host__ __device__ inline int k8c_smem_floats(int n, int m, int k, int cols) {
+__host__ __device__ inline int k8c_smem_values(int n, int m, int k, int cols) {
   const int nf = k + k * (k - 1) / 2 + 3, rg = omc::kThreads / cols;
   return nf * n * cols + 2 * rg * cols + cols + cols * (m + 1);
 }
 
+// a coordinate index kept in a value slot of T (its bits), and back
+__device__ __forceinline__ float int_in(float, int c) { return __int_as_float(c); }
+__device__ __forceinline__ double int_in(double, int c) { return __longlong_as_double(c); }
+__device__ __forceinline__ int int_of(float x) { return __float_as_int(x); }
+__device__ __forceinline__ int int_of(double x) { return (int)__double_as_longlong(x); }
+
 // (one CTA an SM at least: ptxas may then give k = 4 the registers it needs)
-template <int K>
-__global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
+template <int K, class T>
+__global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) {
+  using omc::quot;
   constexpr int KP = K * (K - 1) / 2;
   constexpr int D = K + 1, DD = D * D;
   // fields of the kept per-entry values
   constexpr int fW = 0, fQ = 1, fC = 2, fWt = 3, fH = 3 + K, NF = 3 + K + KP;
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(16) unsigned char k8c_smem_raw[];
+  T* const sm = reinterpret_cast<T*>(k8c_smem_raw);
   const int cols = p.cols, RG = omc::kThreads / cols;
   const int b = blockIdx.y, tid = threadIdx.x;
   const int col = tid % cols, rg = tid / cols;
   const int n = p.n, m = p.m, D1 = n + m, nm = n * m, C = p.C;
   const int j0 = blockIdx.x * cols, j = j0 + col;
   const bool live = j < m;
-  float* kept = sm;                            // [NF][n][cols]
-  float* part = kept + NF * n * cols;          // [2][RG][cols]
-  float* a_s = part + 2 * RG * cols;           // [cols]
-  float* thb = a_s + cols;                     // [cols][m + 1]
+  T* kept = sm;                         // [NF][n][cols]
+  T* part = kept + NF * n * cols;       // [2][RG][cols]
+  T* a_s = part + 2 * RG * cols;        // [cols]
+  T* thb = a_s + cols;                  // [cols][m + 1]
 #define KEPT(fld, i) kept[((fld) * n + (i)) * cols + col]
-  const float rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
-  const float sW = sX * sX;
-  const float* __restrict__ w1 = p.w1 + (size_t)b * D1 * D1;
-  const float* __restrict__ u1 = p.u1 + (size_t)b * D1 * D1;
-  const float* __restrict__ w5 = p.w5 + (size_t)b * p.M5 * K * 25;
-  const float* __restrict__ u5 = p.u5 + (size_t)b * p.M5 * K * 25;
-  const float* __restrict__ wx = p.wx + (size_t)b * C * DD;
-  const float* __restrict__ ux = p.ux + (size_t)b * C * DD;
-  const float* __restrict__ wr = p.wr + (size_t)b * p.Ms * 3;
-  const float* __restrict__ ur = p.ur + (size_t)b * p.Ms * 3;
-  const float* __restrict__ socm = p.soc_mask + (size_t)b * p.Ms;
-  const float* __restrict__ cdm = p.coord_mask + (size_t)b * C;
-  const float* __restrict__ wwl = p.wwl + (size_t)b * C;
-  const float* __restrict__ uwl = p.uwl + (size_t)b * C;
-  const float* __restrict__ wq = p.wq + (size_t)b * K * C;
-  const float* __restrict__ uq = p.uq + (size_t)b * K * C;
+  const T rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
+  const T sW = sX * sX;
+  const T* __restrict__ w1 = p.w1 + (size_t)b * D1 * D1;
+  const T* __restrict__ u1 = p.u1 + (size_t)b * D1 * D1;
+  const T* __restrict__ w5 = p.w5 + (size_t)b * p.M5 * K * 25;
+  const T* __restrict__ u5 = p.u5 + (size_t)b * p.M5 * K * 25;
+  const T* __restrict__ wx = p.wx + (size_t)b * C * DD;
+  const T* __restrict__ ux = p.ux + (size_t)b * C * DD;
+  const T* __restrict__ wr = p.wr + (size_t)b * p.Ms * 3;
+  const T* __restrict__ ur = p.ur + (size_t)b * p.Ms * 3;
+  const T* __restrict__ socm = p.soc_mask + (size_t)b * p.Ms;
+  const T* __restrict__ cdm = p.coord_mask + (size_t)b * C;
+  const T* __restrict__ wwl = p.wwl + (size_t)b * C;
+  const T* __restrict__ uwl = p.uwl + (size_t)b * C;
+  const T* __restrict__ wq = p.wq + (size_t)b * K * C;
+  const T* __restrict__ uq = p.uq + (size_t)b * K * C;
   const int* __restrict__ fm_ptr = p.fm_ptr + (size_t)b * (nm + 1);
   const int* __restrict__ fm_ent = p.fm_ent + (size_t)b * 4 * p.M5;
   const int* __restrict__ flat_coord = p.flat_coord + (size_t)b * nm;
   const int* __restrict__ flat_soc = p.flat_soc + (size_t)b * nm;
-  const float* __restrict__ D1x = p.D1x + (size_t)b * nm;
-  const float* __restrict__ c1x = p.c1x + (size_t)b * nm;
-  const float* __restrict__ D1w = p.D1w + (size_t)b * nm;
-  const float* __restrict__ D1wt = p.D1wt + (size_t)b * C;
-  const float* __restrict__ D1h = p.D1h + (size_t)b * C;
-  const float* __restrict__ D_c = p.D_c + (size_t)b * C;
-  const float* __restrict__ B_jc = p.B_jc + (size_t)b * C;
-  float* __restrict__ Xt = p.Xt + (size_t)b * K * nm;
-  float* __restrict__ Xs = p.Xs + (size_t)b * nm;
-  float* __restrict__ Ws = p.Ws + (size_t)b * nm;
-  float* __restrict__ Wt = p.Wt + (size_t)b * K * C;
-  float* __restrict__ Hh = p.Hh + (size_t)b * KP * C;
-  float* __restrict__ Ths = p.Ths + (size_t)b * m * m;
-  const float R_Xs = p.R_X / sX;
-  const float yl = live ? p.wl[b * m + j] - p.ul[b * m + j] : 0.f;
+  const T* __restrict__ D1x = p.D1x + (size_t)b * nm;
+  const T* __restrict__ c1x = p.c1x + (size_t)b * nm;
+  const T* __restrict__ D1w = p.D1w + (size_t)b * nm;
+  const T* __restrict__ D1wt = p.D1wt + (size_t)b * C;
+  const T* __restrict__ D1h = p.D1h + (size_t)b * C;
+  const T* __restrict__ D_c = p.D_c + (size_t)b * C;
+  const T* __restrict__ B_jc = p.B_jc + (size_t)b * C;
+  T* __restrict__ Xt = p.Xt + (size_t)b * K * nm;
+  T* __restrict__ Xs = p.Xs + (size_t)b * nm;
+  T* __restrict__ Ws = p.Ws + (size_t)b * nm;
+  T* __restrict__ Wt = p.Wt + (size_t)b * K * C;
+  T* __restrict__ Hh = p.Hh + (size_t)b * KP * C;
+  T* __restrict__ Ths = p.Ths + (size_t)b * m * m;
+  const T R_Xs = quot(p.R_X, sX);
+  const T yl = live ? p.wl[b * m + j] - p.ul[b * m + j] : T(0);
 
   // ---- Theta's block rows n + j0 .. n + j0 + cols - 1, read along rows ----
   for (int e = tid; e < cols * m; e += omc::kThreads) {
     const int cl = e / m, i = e - cl * m;
     if (j0 + cl < m) {
       const int qb = (n + j0 + cl) * D1 + n + i;
-      thb[cl * (m + 1) + i] = (rho * (sT * (w1[qb] - u1[qb]))) / (rho * sT * sT);
+      thb[cl * (m + 1) + i] = quot(rho * (sT * (w1[qb] - u1[qb])), rho * sT * sT);
     }
   }
 
   // ---- per entry: adjoint, X solve, uncorrected W / Wt / H, q_c ----
-  float csum = 0.f, bsum = 0.f;
+  T csum = 0, bsum = 0;
   if (live) {
     for (int i = rg; i < n; i += RG) {
       const int f = i * m + j;
-      float gx[K], zWt[K], zH[KP];
+      T gx[K], zWt[K], zH[KP];
 #pragma unroll
-      for (int t = 0; t < K; ++t) gx[t] = 0.f, zWt[t] = 0.f;
+      for (int t = 0; t < K; ++t) gx[t] = T(0), zWt[t] = T(0);
 #pragma unroll
-      for (int q = 0; q < KP; ++q) zH[q] = 0.f;
-      float gw = 0.f, ywl = 0.f;
+      for (int q = 0; q < KP; ++q) zH[q] = T(0);
+      T gw = 0, ywl = 0;
       const int c = flat_coord[f];
       if (c >= 0) {
-        const float cm = cdm[c];
-        float gwt[K], gh[KP];
+        const T cm = cdm[c];
+        T gwt[K], gh[KP];
 #pragma unroll
-        for (int t = 0; t < K; ++t) gwt[t] = 0.f;
+        for (int t = 0; t < K; ++t) gwt[t] = T(0);
         // per-term 5x5 minor duals of the entry's minors: (0, cc), (cc, cc)
         const int e1 = fm_ptr[f + 1];
         for (int e = fm_ptr[f]; e < e1; ++e) {
@@ -163,7 +182,7 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
 #pragma unroll
           for (int t = 0; t < K; ++t) {
             const size_t q = ((size_t)l * K + t) * 25;
-            gx[t] += 2.0f * (sS * (w5[q + cc] - u5[q + cc]));
+            gx[t] += T(2) * (sS * (w5[q + cc] - u5[q + cc]));
             gwt[t] += sS * (w5[q + cc * 6] - u5[q + cc * 6]);
           }
         }
@@ -171,7 +190,7 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
         const size_t qx = (size_t)c * DD;
 #pragma unroll
         for (int t = 0; t < K; ++t) {
-          gx[t] += 2.0f * ((sS * (wx[qx + t + 1] - ux[qx + t + 1])) * cm);
+          gx[t] += T(2) * ((sS * (wx[qx + t + 1] - ux[qx + t + 1])) * cm);
           const size_t qd = qx + (t + 1) * (D + 1);
           gwt[t] = gwt[t] + (sS * (wx[qd] - ux[qd])) * cm;
         }
@@ -189,20 +208,20 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
         for (int t = 0; t < K; ++t) {
           gwt[t] = gwt[t] - ywl;
           gwt[t] = gwt[t] + sS * (wq[(size_t)t * C + c] - uq[(size_t)t * C + c]);
-          zWt[t] = ((rho * gwt[t]) / rho) / D1wt[c];
+          zWt[t] = quot(quot(rho * gwt[t], rho), D1wt[c]);
         }
 #pragma unroll
         for (int q = 0; q < KP; ++q) {
-          gh[q] = gh[q] - 2.0f * ywl;
-          zH[q] = ((rho * gh[q]) / rho) / D1h[c];
+          gh[q] = gh[q] - T(2) * ywl;
+          zH[q] = quot(quot(rho * gh[q], rho), D1h[c]);
         }
       }
       // RSOC row (0.5, W, sum_t Xt): its X slot lands on every term
       const int s = flat_soc[f];
       if (s >= 0) {
-        const float sm_ = socm[s];
+        const T sm_ = socm[s];
         gw += (sS * (wr[3 * s + 1] - ur[3 * s + 1])) * sm_;
-        const float y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm_;
+        const T y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm_;
 #pragma unroll
         for (int t = 0; t < K; ++t) gx[t] += y2;
       }
@@ -214,42 +233,42 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
       // X block: (D1x I_k + c1x J_k)^-1 by Sherman-Morrison, proximal term
       // tau_x Xt_prev (read before it is overwritten), clip
       const int q1 = i * D1 + n + j;
-      const float rX = sX * 2.0f * (w1[q1] - u1[q1]);
-      const float cX = -sX * p.maskA[f];
-      float rx[K], rs = 0.f;
+      const T rX = sX * T(2) * (w1[q1] - u1[q1]);
+      const T cX = -sX * p.maskA[f];
+      T rx[K], rs = 0;
 #pragma unroll
       for (int t = 0; t < K; ++t) {
-        const float RX = rho * (rX + gx[t]) - cX;
-        rx[t] = RX / rho + (sX * sX) * Xt[(size_t)t * nm + f];
+        const T RX = rho * (rX + gx[t]) - cX;
+        rx[t] = quot(RX, rho) + (sX * sX) * Xt[(size_t)t * nm + f];
         rs = t == 0 ? rx[0] : rs + rx[t];
       }
-      const float d = D1x[f], e1 = c1x[f];
-      const float corr = e1 * rs / (d * (d + (float)K * e1));
-      float xs = 0.f;
+      const T d = D1x[f], e1 = c1x[f];
+      const T corr = quot(e1 * rs, d * (d + T(K) * e1));
+      T xs = 0;
 #pragma unroll
       for (int t = 0; t < K; ++t) {
-        const float z = fminf(fmaxf(rx[t] / d - corr, -R_Xs), R_Xs);
+        const T z = fmin(fmax(quot(rx[t], d) - corr, -R_Xs), R_Xs);
         Xt[(size_t)t * nm + f] = z;
         xs = t == 0 ? z : xs + z;
       }
       Xs[f] = xs;
-      const float zW = ((rho * gw - (0.5f * sW) * p.mask[f]) / rho) / D1w[f];
+      const T zW = quot(quot(rho * gw - (T(0.5) * sW) * p.mask[f], rho), D1w[f]);
       csum += zW;
       // the W-link row at the uncorrected values:
       // q_c = cdm sS (W_c - sum_t Wt - 2 sum_p H)
-      float qc = 0.f;
+      T qc = 0;
       if (c >= 0) {
-        float sw = zWt[0], sh = zH[0];
+        T sw = zWt[0], sh = zH[0];
 #pragma unroll
         for (int t = 1; t < K; ++t) sw += zWt[t];
 #pragma unroll
         for (int q = 1; q < KP; ++q) sh += zH[q];
-        qc = (cdm[c] * sS) * (zW - sw - 2.0f * sh);
-        bsum += B_jc[c] * (qc / D_c[c]);
+        qc = (cdm[c] * sS) * (zW - sw - T(2) * sh);
+        bsum += B_jc[c] * quot(qc, D_c[c]);
       }
       KEPT(fW, i) = zW;
       KEPT(fQ, i) = qc;
-      KEPT(fC, i) = __int_as_float(c);
+      KEPT(fC, i) = int_in(T(0), c);
 #pragma unroll
       for (int t = 0; t < K; ++t) KEPT(fWt + t, i) = zWt[t];
 #pragma unroll
@@ -262,44 +281,44 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
 
   // ---- per column, row groups in order: Theta's diagonal and a_j ----
   if (rg == 0 && live) {
-    float sw = 0.f, bq = 0.f;
+    T sw = 0, bq = 0;
     for (int r = 0; r < RG; ++r) sw += part[r * cols + col];
     for (int r = 0; r < RG; ++r) bq += part[(RG + r) * cols + col];
     const int qd = (n + j) * D1 + n + j;
-    const float RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - sT * 0.5f / p.gamma;
-    const float zTh = RT / (rho * sT * sT);
-    const float pj = sT * zTh - sW * sw;
-    const float a = (pj - bq) / p.S_th[b * m + j];
-    Ths[j * m + j] = zTh - a / sT;
+    const T RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - quot(sT * T(0.5), p.gamma);
+    const T zTh = quot(RT, rho * sT * sT);
+    const T pj = sT * zTh - sW * sw;
+    const T a = quot(pj - bq, p.S_th[b * m + j]);
+    Ths[j * m + j] = zTh - quot(a, sT);
     a_s[col] = a;
   }
   __syncthreads();
 
   // ---- per entry: link corrections of W, Wt, H; Theta off the diagonal ----
   if (live) {
-    const float a = a_s[col];
+    const T a = a_s[col];
     for (int i = rg; i < n; i += RG) {
       const int f = i * m + j;
-      float zW = KEPT(fW, i) - ((-sW) * a) / D1w[f];
-      const int c = __float_as_int(KEPT(fC, i));
+      T zW = KEPT(fW, i) - quot((-sW) * a, D1w[f]);
+      const int c = int_of(KEPT(fC, i));
       if (c >= 0) {
-        const float cm = cdm[c];
-        const float bc = (KEPT(fQ, i) - B_jc[c] * a) / D_c[c];
-        zW = zW + (-((sS * bc) * cm)) / D1w[f];
+        const T cm = cdm[c];
+        const T bc = quot(KEPT(fQ, i) - B_jc[c] * a, D_c[c]);
+        zW = zW + quot(-((sS * bc) * cm), D1w[f]);
 #pragma unroll
         for (int t = 0; t < K; ++t)
-          Wt[(size_t)t * C + c] = KEPT(fWt + t, i) - ((-(sS * bc)) * cm) / D1wt[c];
+          Wt[(size_t)t * C + c] = KEPT(fWt + t, i) - quot((-(sS * bc)) * cm, D1wt[c]);
 #pragma unroll
         for (int q = 0; q < KP; ++q)
-          Hh[(size_t)q * C + c] = KEPT(fH + q, i) - (((-(2.0f * sS)) * bc) * cm) / D1h[c];
+          Hh[(size_t)q * C + c] = KEPT(fH + q, i) - quot(((-(T(2) * sS)) * bc) * cm, D1h[c]);
       }
       Ws[f] = zW;
     }
     for (int i = rg; i < m; i += RG) {
       if (i == j) continue;
       const int qa = (n + i) * D1 + n + j;
-      const float za = (rho * (sT * (w1[qa] - u1[qa]))) / (rho * sT * sT);
-      Ths[i * m + j] = 0.5f * (za + thb[col * (m + 1) + i]);
+      const T za = quot(rho * (sT * (w1[qa] - u1[qa])), rho * sT * sT);
+      Ths[i * m + j] = T(0.5) * (za + thb[col * (m + 1) + i]);
     }
   }
 #undef KEPT
@@ -311,14 +330,14 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
        e += gridDim.x * blockDim.x) {
     if (e < C) {
       // a padded coordinate carries only its Wt >= 0 slot (H = 0)
-      if (cdm[e] != 0.f) continue;
+      if (cdm[e] != T(0)) continue;
 #pragma unroll
       for (int t = 0; t < K; ++t) {
-        const float g = sS * (wq[(size_t)t * C + e] - uq[(size_t)t * C + e]);
-        Wt[(size_t)t * C + e] = ((rho * g) / rho) / D1wt[e];
+        const T g = sS * (wq[(size_t)t * C + e] - uq[(size_t)t * C + e]);
+        Wt[(size_t)t * C + e] = quot(quot(rho * g, rho), D1wt[e]);
       }
 #pragma unroll
-      for (int q = 0; q < KP; ++q) Hh[(size_t)q * C + e] = 0.f;
+      for (int q = 0; q < KP; ++q) Hh[(size_t)q * C + e] = T(0);
       continue;
     }
     // v1 entry 2 l + c reads (1, 2) (c = 0) or (3, 4) of minor l, v2 (1, 3)
@@ -331,9 +350,9 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
     const int* __restrict__ ent = kind == 1 ? p.v1_ent + (size_t)b * 2 * p.M5
                                 : kind == 2 ? p.v2_ent + (size_t)b * 2 * p.M5
                                             : p.v3_ent + (size_t)b * p.M5;
-    float g[K];
+    T g[K];
 #pragma unroll
-    for (int t = 0; t < K; ++t) g[t] = 0.f;
+    for (int t = 0; t < K; ++t) g[t] = T(0);
     for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
       const int en = ent[h], l = kind == 3 ? en : en >> 1;
       const int o = kind == 1 ? ((en & 1) ? 19 : 7) : ((en & 1) ? 14 : 8);
@@ -341,14 +360,14 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParams p) {
       for (int t = 0; t < K; ++t) {
         const size_t q = ((size_t)l * K + t) * 25;
         g[t] += kind == 3
-                    ? 2.0f * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]))
-                    : 2.0f * (sS * (w5[q + o] - u5[q + o]));
+                    ? T(2) * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]))
+                    : T(2) * (sS * (w5[q + o] - u5[q + o]));
       }
     }
-    const float dv = (kind == 1 ? p.D1v1 : kind == 2 ? p.D1v2 : p.D1v3)[(size_t)b * P + v];
-    float* out = (kind == 1 ? p.v1 : kind == 2 ? p.v2 : p.v3) + (size_t)b * K * P + v;
+    const T dv = (kind == 1 ? p.D1v1 : kind == 2 ? p.D1v2 : p.D1v3)[(size_t)b * P + v];
+    T* out = (kind == 1 ? p.v1 : kind == 2 ? p.v2 : p.v3) + (size_t)b * K * P + v;
 #pragma unroll
-    for (int t = 0; t < K; ++t) out[(size_t)t * P] = ((rho * g[t]) / rho) / dv;
+    for (int t = 0; t < K; ++t) out[(size_t)t * P] = quot(quot(rho * g[t], rho), dv);
   }
 }
 
@@ -360,12 +379,14 @@ struct K8dLayout {
   int links, nonneg, rsoc, coords, grid_x;
 };
 
+// E = 16 / elem consecutive W >= 0 entries or RSOC rows a thread (quads;
+// pairs in the float64 build), ipc of them (or coordinates) a flat CTA
 __host__ __device__ __forceinline__ K8dLayout k8d_layout(int B, int n, int m, int C, int Ms,
-                                                         int ipc) {
+                                                         int ipc, int E) {
   K8dLayout l;
   l.links = B * omc::cdiv(m, omc::kLinkCols);
-  l.nonneg = omc::cdiv(omc::cdiv(B * n * m, 4), ipc);
-  l.rsoc = omc::cdiv(omc::cdiv(B * Ms, 4), ipc);
+  l.nonneg = omc::cdiv(omc::cdiv(B * n * m, E), ipc);
+  l.rsoc = omc::cdiv(omc::cdiv(B * Ms, E), ipc);
   l.coords = omc::cdiv(B * C, ipc);
   l.grid_x = l.links + l.nonneg + l.rsoc + l.coords;
   return l;
@@ -373,92 +394,117 @@ __host__ __device__ __forceinline__ K8dLayout k8d_layout(int B, int n, int m, in
 
 using omc::lane4;
 
-// (w): the W >= 0 slots of the quads [quad0, quad0 + ipc) of the batch's
-// flat B n m, a quad of 4 consecutive entries a thread in 16-byte words
-// (fewer at the ragged end; a quad spans at most two slots, n m >= 4)
-__device__ __forceinline__ void k8d_nonneg(const K8dParams& p, int quad0) {
-  const float* __restrict__ W = p.Ws;
-  float* __restrict__ wp = p.wp;
-  float* __restrict__ up = p.up;
+// E consecutive int32 table entries (E = 4: one 16-byte word, E = 2: one
+// 8-byte word)
+template <int E>
+struct IntVec;
+template <>
+struct IntVec<4> {
+  using V = int4;
+};
+template <>
+struct IntVec<2> {
+  using V = int2;
+};
+__device__ __forceinline__ int& lane_i(int4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ int& lane_i(int2& v, int c) { return c == 0 ? v.x : v.y; }
+
+// (w): the W >= 0 slots of the groups [quad0, quad0 + ipc) of E = 16 /
+// sizeof(T) consecutive entries of the batch's flat B n m (quads of floats,
+// pairs of doubles), a group a thread in 16-byte words (fewer at the ragged
+// end; a group spans at most two slots, n m >= 4)
+template <class T>
+__device__ __forceinline__ void k8d_nonneg(const K8dParamsT<T>& p, int quad0) {
+  using V = omc::Vec16<T>;
+  constexpr int E = 16 / sizeof(T);
+  const T* __restrict__ W = p.Ws;
+  T* __restrict__ wp = p.wp;
+  T* __restrict__ up = p.up;
   const int nm = p.n * p.m, tot = p.B * nm;
-  const int q0 = 4 * (quad0 + (int)threadIdx.x);
+  const int q0 = E * (quad0 + (int)threadIdx.x);
   if ((int)threadIdx.x >= p.ipc || q0 >= tot) return;
-  const int rem = min(4, tot - q0);
+  const int rem = min(E, tot - q0);
   const int b0 = q0 / nm, b1 = min(b0 + 1, p.B - 1), bnd = (b0 + 1) * nm;
-  const float sS0 = __ldg(p.sS + b0), sS1 = __ldg(p.sS + b1);
-  float4 w4 = {}, p4 = {}, u4 = {};
-  if (rem == 4) {
-    w4 = __ldg(reinterpret_cast<const float4*>(W + q0));
-    p4 = *reinterpret_cast<const float4*>(wp + q0);
-    u4 = *reinterpret_cast<const float4*>(up + q0);
+  const T sS0 = __ldg(p.sS + b0), sS1 = __ldg(p.sS + b1);
+  V w4 = {}, p4 = {}, u4 = {};
+  if (rem == E) {
+    w4 = __ldg(reinterpret_cast<const V*>(W + q0));
+    p4 = *reinterpret_cast<const V*>(wp + q0);
+    u4 = *reinterpret_cast<const V*>(up + q0);
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < E; ++e)
       if (e < rem) lane4(w4, e) = W[q0 + e], lane4(p4, e) = wp[q0 + e], lane4(u4, e) = up[q0 + e];
   }
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
+  for (int e = 0; e < E; ++e)
     if (e < rem) omc::nonneg_slot(lane4(w4, e), q0 + e >= bnd ? sS1 : sS0, p.alpha,
                                   lane4(p4, e), lane4(u4, e));
-  if (rem == 4) {
-    *reinterpret_cast<float4*>(wp + q0) = p4;
-    *reinterpret_cast<float4*>(up + q0) = u4;
+  if (rem == E) {
+    *reinterpret_cast<V*>(wp + q0) = p4;
+    *reinterpret_cast<V*>(up + q0) = u4;
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < E; ++e)
       if (e < rem) wp[q0 + e] = lane4(p4, e), up[q0 + e] = lane4(u4, e);
   }
 }
 
-// (r): the RSOC rows of the quads [quad0, quad0 + ipc) of the batch's flat
-// B Ms, a quad of 4 consecutive rows a thread, a warp 32 quads: a quad's
-// entries (soc_flat) and masks are one 16-byte word each, then the rows' W
-// and X are gathered; the warp's triples of wr, ur and acc_r are staged
-// through its shared memory (omc::triples_in), each lane's loads issued
-// before any store (a quad spans at most two slots, Ms >= 4)
-__device__ __forceinline__ void k8d_rsoc(const K8dParams& p, int quad0) {
-  __shared__ float4 k8d_smem[3 * 3 * 32 * (kThreads8d / 32)];
+// (r): the RSOC rows of the groups [quad0, quad0 + ipc) of E consecutive
+// rows of the batch's flat B Ms (quads; pairs in the float64 build), a group
+// a thread, a warp 32 groups: a group's entries (soc_flat) and masks are
+// one word each, then the rows' W and X are gathered; the warp's triples of
+// wr, ur and acc_r are staged through its shared memory (omc::triples_in),
+// each lane's loads issued before any store (a group spans at most two
+// slots, Ms >= 4)
+template <class T>
+__device__ __forceinline__ void k8d_rsoc(const K8dParamsT<T>& p, int quad0) {
+  using V = omc::Vec16<T>;
+  constexpr int E = 16 / sizeof(T);
+  using IV = typename IntVec<E>::V;
+  __shared__ V k8d_smem[3 * 3 * 32 * (kThreads8d / 32)];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float* __restrict__ X = p.Xs;
-  const float* __restrict__ W = p.Ws;
+  const T* __restrict__ X = p.Xs;
+  const T* __restrict__ W = p.Ws;
   const int* __restrict__ F = p.soc_flat;
-  const float* __restrict__ M = p.soc_mask;
+  const T* __restrict__ M = p.soc_mask;
   const int nm = p.n * p.m, Ms = p.Ms, tot = p.B * Ms;
-  const int c0 = 4 * (quad0 + 32 * warp);  // the warp's first row
+  const int c0 = E * (quad0 + 32 * warp);  // the warp's first row
   if (32 * warp >= p.ipc || c0 >= tot) return;
-  const int cnt = min(128, tot - c0);
+  const int cnt = min(32 * E, tot - c0);
   const size_t off = 3 * (size_t)c0;
-  float4* s = k8d_smem + 3 * 3 * 32 * warp;
-  const int q0 = c0 + 4 * lane;
-  const int rem = q0 < tot ? min(4, tot - q0) : 0;
+  V* s = k8d_smem + 3 * 3 * 32 * warp;
+  const int q0 = c0 + E * lane;
+  const int rem = q0 < tot ? min(E, tot - q0) : 0;
   const int b0 = rem > 0 ? q0 / Ms : 0, b1 = min(b0 + 1, p.B - 1), bnd = (b0 + 1) * Ms;
-  const float sS0 = __ldg(p.sS + b0), rho0 = __ldg(p.rho + b0);
-  const float sS1 = __ldg(p.sS + b1), rho1 = __ldg(p.rho + b1);
-  int4 f4 = {};
-  float4 m4 = {};
-  if (rem == 4) {
-    f4 = __ldg(reinterpret_cast<const int4*>(F + q0));
-    m4 = __ldg(reinterpret_cast<const float4*>(M + q0));
+  const T sS0 = __ldg(p.sS + b0), rho0 = __ldg(p.rho + b0);
+  const T sS1 = __ldg(p.sS + b1), rho1 = __ldg(p.rho + b1);
+  IV f4 = {};
+  V m4 = {};
+  if (rem == E) {
+    f4 = __ldg(reinterpret_cast<const IV*>(F + q0));
+    m4 = __ldg(reinterpret_cast<const V*>(M + q0));
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < E; ++e)
       if (e < rem) {
-        (e == 0 ? f4.x : e == 1 ? f4.y : e == 2 ? f4.z : f4.w) = F[q0 + e];
+        lane_i(f4, e) = F[q0 + e];
         lane4(m4, e) = M[q0 + e];
       }
   }
-  const int fl[4] = {f4.x, f4.y, f4.z, f4.w};
-  float x[4] = {}, w[4] = {};
+  T x[E] = {}, w[E] = {};
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
+  for (int e = 0; e < E; ++e)
     if (e < rem) {
-      const size_t q = (size_t)(q0 + e >= bnd ? b1 : b0) * nm + fl[e];
+      const size_t q = (size_t)(q0 + e >= bnd ? b1 : b0) * nm + lane_i(f4, e);
       x[e] = __ldg(X + q), w[e] = __ldg(W + q);
     }
   omc::triples_in(p.wr, p.ur, p.acc_r, off, 3 * cnt, s, lane);
   __syncwarp();
   if (rem > 0)
-    omc::triples_update(s, lane, rem, [&](int e, float (&r)[3], float (&u)[3], float (&a)[3]) {
+    omc::triples_update(s, lane, rem, [&](int e, T (&r)[3], T (&u)[3], T (&a)[3]) {
       const bool hi = q0 + e >= bnd;
       omc::rsoc_row(x[e], w[e], lane4(m4, e), hi ? sS1 : sS0, hi ? rho1 : rho0, p.alpha, p.beta,
                     r, u, a);
@@ -470,35 +516,35 @@ __device__ __forceinline__ void k8d_rsoc(const K8dParams& p, int quad0) {
 // (c): the coordinates [g0, g0 + ipc) of the batch's flat B C, one a
 // thread: its W-link row (a zero cone: W_c - sum_t Wt - 2 sum_p H, masked)
 // and its K Wt >= 0 slots, so that Wt and H are read once
-template <int K>
-__device__ __forceinline__ void k8d_coords(const K8dParams& p, int g0) {
+template <int K, class T>
+__device__ __forceinline__ void k8d_coords(const K8dParamsT<T>& p, int g0) {
   constexpr int KP = K * (K - 1) / 2;
   const int g = g0 + threadIdx.x, C = p.C;
   if ((int)threadIdx.x >= p.ipc || g >= p.B * C) return;
   const int b = g / C, c = g - b * C;
   const size_t q = (size_t)b * K * C + c;  // term 0 of the (B, K, C) arrays
-  const float* __restrict__ Wt = p.Wt;
-  const float* __restrict__ Hh = p.Hh + (size_t)b * KP * C + c;
-  float* __restrict__ wq = p.wq;
-  float* __restrict__ uq = p.uq;
+  const T* __restrict__ Wt = p.Wt;
+  const T* __restrict__ Hh = p.Hh + (size_t)b * KP * C + c;
+  T* __restrict__ wq = p.wq;
+  T* __restrict__ uq = p.uq;
   const int fc = __ldg(p.coord_flat + g);
-  const float cm = __ldg(p.coord_mask + g), uwl = p.uwl[g], awl = p.acc_wl[g];
-  const float sS = __ldg(p.sS + b), rho = __ldg(p.rho + b);
-  float wt[K], pq[K], vq[K], h[KP];
+  const T cm = __ldg(p.coord_mask + g), uwl = p.uwl[g], awl = p.acc_wl[g];
+  const T sS = __ldg(p.sS + b), rho = __ldg(p.rho + b);
+  T wt[K], pq[K], vq[K], h[KP];
 #pragma unroll
   for (int t = 0; t < K; ++t)
     wt[t] = __ldg(Wt + q + (size_t)t * C), pq[t] = wq[q + (size_t)t * C], vq[t] = uq[q + (size_t)t * C];
 #pragma unroll
   for (int r = 0; r < KP; ++r) h[r] = __ldg(Hh + (size_t)r * C);
-  const float w = __ldg(p.Ws + (size_t)b * p.n * p.m + fc);
-  float sw = wt[0], sh = h[0];
+  const T w = __ldg(p.Ws + (size_t)b * p.n * p.m + fc);
+  T sw = wt[0], sh = h[0];
 #pragma unroll
   for (int t = 1; t < K; ++t) sw += wt[t];
 #pragma unroll
   for (int r = 1; r < KP; ++r) sh += h[r];
-  const float fwl = (sS * (w - sw - 2.0f * sh)) * cm;
-  const float tw = (p.alpha * fwl + uwl) * cm;
-  p.wwl[g] = 0.f;
+  const T fwl = (sS * (w - sw - T(2) * sh)) * cm;
+  const T tw = (p.alpha * fwl + uwl) * cm;
+  p.wwl[g] = T(0);
   p.uwl[g] = tw;
   p.acc_wl[g] = awl + p.beta * (rho * tw - awl);
 #pragma unroll
@@ -511,9 +557,9 @@ __device__ __forceinline__ void k8d_coords(const K8dParams& p, int g0) {
 
 // one dimension: the link CTAs, then the W >= 0, RSOC and coordinates' CTAs
 // (k8d_layout; omc_torch.sdp.shor_k.k8d_plan)
-template <int K>
-__global__ void __launch_bounds__(kThreads8d) k8d_kernel(K8dParams p) {
-  const K8dLayout l = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc);
+template <int K, class T>
+__global__ void __launch_bounds__(kThreads8d) k8d_kernel(K8dParamsT<T> p) {
+  const K8dLayout l = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc, 16 / sizeof(T));
   int x = blockIdx.x;
   if (x < l.links) {
     const int tiles = omc::cdiv(p.m, omc::kLinkCols);
@@ -533,17 +579,49 @@ __global__ void __launch_bounds__(kThreads8d) k8d_kernel(K8dParams p) {
   k8d_coords<K>(p, (x - l.rsoc) * p.ipc);
 }
 
-template <int K>
-int launch_k8c(const K8cParams& p, void* stream) {
-  const size_t smem = sizeof(float) * k8c_smem_floats(p.n, p.m, K, p.cols);
+template <int K, class T>
+int launch_k8c(const K8cParamsT<T>& p, void* stream) {
+  const size_t smem = sizeof(T) * k8c_smem_values(p.n, p.m, K, p.cols);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        k8c_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        k8c_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   if (p.B > 0 && p.m > 0) {
     const dim3 grid((p.m + p.cols - 1) / p.cols, p.B);
-    k8c_kernel<K><<<grid, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
+    k8c_kernel<K, T><<<grid, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int k8c_launch(const K8cParamsT<T>& p, void* stream) {
+  // a tile is a power of two of at most 32 columns (whole row groups)
+  const int cols = p.cols;
+  if (cols < 1 || cols > kCols || (cols & (cols - 1))) return (int)cudaErrorInvalidValue;
+  switch (p.k) {
+    case 2: return launch_k8c<2>(p, stream);
+    case 3: return launch_k8c<3>(p, stream);
+    case 4: return launch_k8c<4>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class T>
+int k8d_launch(const K8dParamsT<T>& p, void* stream) {
+  // W, wp, up, the RSOC triples, soc_flat and soc_mask move as 16-byte words
+  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (p.B < 1 || p.n < 1 || p.m < 1 || p.n * p.m < 4 || p.C < 1 || p.Ms < 4 || p.ipc < 32 ||
+      p.ipc > kThreads8d || p.ipc % 32 || odd(p.Ws) || odd(p.wp) || odd(p.up) || odd(p.wr) ||
+      odd(p.ur) || odd(p.acc_r) || odd(p.soc_flat) || odd(p.soc_mask))
+    return (int)cudaErrorInvalidValue;
+  const int grid = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc, 16 / (int)sizeof(T)).grid_x;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p.k) {
+    case 2: k8d_kernel<2, T><<<grid, kThreads8d, 0, s>>>(p); break;
+    case 3: k8d_kernel<3, T><<<grid, kThreads8d, 0, s>>>(p); break;
+    case 4: k8d_kernel<4, T><<<grid, kThreads8d, 0, s>>>(p); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -551,44 +629,30 @@ int launch_k8c(const K8cParams& p, void* stream) {
 }  // namespace
 
 OMC_EXPORT int omc_k8c_shor_k_zstep(const K8cParams* params, void* stream) {
-  // a tile is a power of two of at most 32 columns (whole row groups)
-  const int cols = params->cols;
-  if (cols < 1 || cols > kCols || (cols & (cols - 1))) return (int)cudaErrorInvalidValue;
-  switch (params->k) {
-    case 2: return launch_k8c<2>(*params, stream);
-    case 3: return launch_k8c<3>(*params, stream);
-    case 4: return launch_k8c<4>(*params, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return k8c_launch(*params, stream);
 }
 
-// K8c's shared memory for a tile of `cols` columns, held against
-// sdp.shor_k.k8c_plan by the smoke
-OMC_EXPORT long long omc_k8c_smem_bytes(int n, int m, int k, int cols) {
-  return (long long)sizeof(float) * k8c_smem_floats(n, m, k, cols);
+OMC_EXPORT int omc_k8c_shor_k_zstep_f64(const K8cParamsT<double>* params, void* stream) {
+  return k8c_launch(*params, stream);
 }
 
-// K8d's grid width (omc_torch.sdp.shor_k.k8d_plan plans with it;
-// chip_smoke.py holds the plan against it)
-OMC_EXPORT int omc_k8d_grid_x(int B, int n, int m, int C, int Ms, int ipc) {
-  return k8d_layout(B, n, m, C, Ms, ipc).grid_x;
+// K8c's shared memory for a tile of `cols` columns at elem bytes a value
+// (4, or 8 in the float64 build), held against sdp.shor_k.k8c_plan by the
+// smoke
+OMC_EXPORT long long omc_k8c_smem_bytes(int n, int m, int k, int cols, int elem) {
+  return (long long)elem * k8c_smem_values(n, m, k, cols);
+}
+
+// K8d's grid width at elem bytes a value (omc_torch.sdp.shor_k.k8d_plan
+// plans with it; chip_smoke.py holds the plan against it)
+OMC_EXPORT int omc_k8d_grid_x(int B, int n, int m, int C, int Ms, int ipc, int elem) {
+  return k8d_layout(B, n, m, C, Ms, ipc, 16 / elem).grid_x;
 }
 
 OMC_EXPORT int omc_k8d_shor_k_cone(const K8dParams* params, void* stream) {
-  const K8dParams& p = *params;
-  // W, wp, up, the RSOC triples, soc_flat and soc_mask move as 16-byte words
-  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
-  if (p.B < 1 || p.n < 1 || p.m < 1 || p.n * p.m < 4 || p.C < 1 || p.Ms < 4 || p.ipc < 32 ||
-      p.ipc > kThreads8d || p.ipc % 32 || odd(p.Ws) || odd(p.wp) || odd(p.up) || odd(p.wr) ||
-      odd(p.ur) || odd(p.acc_r) || odd(p.soc_flat) || odd(p.soc_mask))
-    return (int)cudaErrorInvalidValue;
-  const int grid = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc).grid_x;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (p.k) {
-    case 2: k8d_kernel<2><<<grid, kThreads8d, 0, s>>>(p); break;
-    case 3: k8d_kernel<3><<<grid, kThreads8d, 0, s>>>(p); break;
-    case 4: k8d_kernel<4><<<grid, kThreads8d, 0, s>>>(p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return k8d_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k8d_shor_k_cone_f64(const K8dParamsT<double>* params, void* stream) {
+  return k8d_launch(*params, stream);
 }

@@ -42,14 +42,15 @@ PyTorch version:
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
 
-K2, K3, K7 (its fused mode, projecting exactly by Jacobi), K8a, K8b, K4,
-K4s, K5 and K6 also have float64 builds: the same kernels on double
-operands, behind C entry points named ``..._f64`` that take the float64
-parameter blocks (``float64_block``: pointer fields as in the float
-blocks, scalar fields in double).  A wrapper picks the build from its
-operands' dtype (``entry``) and checks every operand at that dtype; the
-other kernels take float32 only, and ``require_cuda_dtype`` refuses a
-float64 CUDA solve of their families (Shor k > 1, McCormick).
+K2, K3, K7 (its fused mode), K7t, K7x (its slot mode), K8a, K8b, K8c,
+K8d, K4, K4s, K5 and K6 also have float64 builds (K7's, K7t's and K7x's
+projecting exactly by Jacobi): the same kernels on double operands,
+behind C entry points named ``..._f64`` that take the float64 parameter
+blocks (``float64_block``: pointer fields as in the float blocks, scalar
+fields in double).  A wrapper picks the build from its operands' dtype (``entry``)
+and checks every operand at that dtype; the other kernels take float32
+only, and ``require_cuda_dtype`` refuses a float64 CUDA solve of their
+family (McCormick).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
             "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0,
             "K4": 0, "K4s": 0, "K5": 0, "K6": 0,
             "K2_f64": 0, "K3_f64": 0, "K7_f64": 0, "K8a_f64": 0, "K8b_f64": 0,
-            "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
+            "K7t_f64": 0, "K7x_f64": 0, "K8c_f64": 0, "K8d_f64": 0, "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
@@ -322,10 +323,10 @@ def float64_block(cls):
     return type(cls.__name__ + "64", (ctypes.Structure,), {"_fields_": fields})
 
 
-(K2Params64, K3Params64, K7Params64, K8aParams64, K8bParams64, K4Params64, K5Params64,
- K4sParams64, K6Params64) = map(float64_block, (K2Params, K3Params, K7Params, K8aParams,
-                                                K8bParams, K4Params, K5Params, K4sParams,
-                                                K6Params))
+(K2Params64, K3Params64, K7Params64, K8aParams64, K8bParams64, K7tParams64, K7xParams64,
+ K8cParams64, K8dParams64, K4Params64, K5Params64, K4sParams64, K6Params64) = map(
+    float64_block, (K2Params, K3Params, K7Params, K8aParams, K8bParams, K7tParams, K7xParams,
+                    K8cParams, K8dParams, K4Params, K5Params, K4sParams, K6Params))
 # the float64 builds: float block -> (float64 block, entry points)
 FLOAT64_BUILDS = {
     K2Params: (K2Params64, ("omc_k2_zstep",)),
@@ -333,6 +334,10 @@ FLOAT64_BUILDS = {
     K7Params: (K7Params64, ("omc_k7_minor_psd",)),
     K8aParams: (K8aParams64, ("omc_k8a_shor_zstep",)),
     K8bParams: (K8bParams64, ("omc_k8b_shor_cone",)),
+    K7tParams: (K7tParams64, ("omc_k7t_minor_k",)),
+    K7xParams: (K7xParams64, ("omc_k7x_xwh",)),
+    K8cParams: (K8cParams64, ("omc_k8c_shor_k_zstep",)),
+    K8dParams: (K8dParams64, ("omc_k8d_shor_k_cone",)),
     K4Params: (K4Params64, ("omc_k4_jacobi",)),
     K5Params: (K5Params64, ("omc_k5_separation",)),
     K4sParams: (K4sParams64, ("omc_k4s_jacobi_small",)),
@@ -361,19 +366,20 @@ def entry(fn_name: str, dtype) -> str:
 
 # The solver families whose every kernel has a float64 build: the base ADMM
 # family (K2, K3, K4, K4s, K5, K6), the two options that run through its
-# kernels, PDHG (K4, K4s, K5) and Halpern (K3's Halpern mode), and Shor k = 1
-# (K2's Shor mode, K8a, K3, K4, K7's fused mode, K8b, K4s, K5, K6).
-FLOAT64_FAMILIES = ("base", "pdhg", "halpern", "shor")
-FAMILIES = FLOAT64_FAMILIES + ("shor_k", "mccormick")
-FLOAT64_ROADMAP = ('ROADMAP.md queue 1, "float64 on the card": the float64 builds of K7t, '
-                   "K7x, K8c, K8d (Shor k > 1) and K9s, K9a, K9b (McCormick)")
+# kernels, PDHG (K4, K4s, K5) and Halpern (K3's Halpern mode), Shor k = 1
+# (K2's Shor mode, K8a, K3, K4, K7's fused mode, K8b, K4s, K5, K6) and Shor
+# k > 1 (K2's Shor mode, K8c, K3, K4, K7t, K7x's slot mode, K8d, K4s, K5, K6).
+FLOAT64_FAMILIES = ("base", "pdhg", "halpern", "shor", "shor_k")
+FAMILIES = FLOAT64_FAMILIES + ("mccormick",)
+FLOAT64_ROADMAP = ('ROADMAP.md queue 1, "float64 on the card": the float64 builds of K9s, '
+                   "K9a, K9b (McCormick)")
 
 
 def require_cuda_dtype(family: str, dtype) -> None:
     """The CUDA guard of every solver family: float32 runs every family;
     float64 runs the families of ``FLOAT64_FAMILIES``; anything else
-    raises ``ValueError`` (for a float64 Shor k > 1 or McCormick request,
-    the one message that names the roadmap item)."""
+    raises ``ValueError`` (for a float64 McCormick request, the one
+    message that names the roadmap item)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown solver family {family!r}")
     if dtype == torch.float32 or (dtype == torch.float64 and family in FLOAT64_FAMILIES):
@@ -434,7 +440,7 @@ def _load(path: Path):
     lib.omc_k1_cluster_smem.restype = ctypes.c_longlong
     lib.omc_k6_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.omc_k6_smem_bytes.restype = ctypes.c_longlong
-    lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.omc_k8c_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8a_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.omc_k8a_smem_bytes.restype = ctypes.c_longlong
@@ -446,7 +452,15 @@ def _load(path: Path):
     lib.omc_k7_threads.restype = ctypes.c_int
     lib.omc_k7_smem_bytes.argtypes = [ctypes.c_int]
     lib.omc_k7_smem_bytes.restype = ctypes.c_longlong
-    lib.omc_k8d_grid_x.argtypes = [ctypes.c_int] * 6
+    lib.omc_k7t_threads.argtypes = [ctypes.c_int]
+    lib.omc_k7t_threads.restype = ctypes.c_int
+    lib.omc_k7t_smem_bytes.argtypes = [ctypes.c_int]
+    lib.omc_k7t_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k7x_threads.argtypes = [ctypes.c_int] * 2
+    lib.omc_k7x_threads.restype = ctypes.c_int
+    lib.omc_k7x_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.omc_k7x_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k8d_grid_x.argtypes = [ctypes.c_int] * 7
     lib.omc_k8d_grid_x.restype = ctypes.c_int
     lib.omc_k9s_threads.argtypes = [ctypes.c_int] * 2
     lib.omc_k9s_threads.restype = ctypes.c_int

@@ -34,6 +34,12 @@ plain PyTorch version beside it (CPU tensors take the plain versions, in
 6. K7x ``xwh_step``        -- the (k+1)x(k+1) XWH slots;
 7. K8d ``shor_k_cone_step`` -- RSOC, Theta-link, W-link, W >= 0, Wt >= 0.
 
+In float64 (``omc``'s float64 route, ``psd_method="eigh"``) the kernels
+are their float64 builds and the projections exact: step 4 is three K4
+Jacobi launches and the torch ``psd_epilogue``, steps 5 and 6 K7t's and
+K7x's float64 builds, which project each 5x5 minor slot and each XWH slot
+by K4s's Jacobi in registers.
+
 The kernels sum through inverse tables built on the host once per visit
 (``inverse_tables_k``), so every sum is deterministic (no atomics).  Every
 ``check_every`` iterations the bias-corrected EMA duals of the ten dual
@@ -647,27 +653,29 @@ def _check_k(name, k):
 K8C_THREADS, K8C_TARGET_CTAS, K8C_MAX_SMEM = 256, 2 * 132, 232448
 
 
-def k8c_smem_bytes(n: int, m: int, k: int, cols: int) -> int:
+def k8c_smem_bytes(n: int, m: int, k: int, cols: int, dtype=torch.float32) -> int:
     """K8c's dynamic shared memory (``omc_k8c_smem_bytes``): the kept
     per-entry values (W, q_c, c, the k Wt, the k(k-1)/2 H) of n x cols
     entries, two column sums a row group, a_j, and Theta's staged block
-    rows (cols x (m + 1))."""
+    rows (cols x (m + 1)), values of ``dtype`` (8 bytes in the float64
+    build)."""
     nf = k + k * (k - 1) // 2 + 3
     rg = K8C_THREADS // cols
-    return 4 * (nf * n * cols + 2 * rg * cols + cols + cols * (m + 1))
+    return dtype.itemsize * (nf * n * cols + 2 * rg * cols + cols + cols * (m + 1))
 
 
-def k8c_plan(B: int, n: int, m: int, k: int) -> dict:
+def k8c_plan(B: int, n: int, m: int, k: int, dtype=torch.float32) -> dict:
     """K8c's tile: a CTA of 256 threads owns ``cols`` whole columns of one
     slot as 256 / cols row groups (the link Woodbury couples only the
     entries of a column).  The widest of 32, 16 and 8 columns that still
     gives ``K8C_TARGET_CTAS`` CTAs, else 8; narrower where the kept values
-    outgrow shared memory.  Raises where even one column does not fit."""
+    (of ``dtype``) outgrow shared memory.  Raises where even one column does
+    not fit."""
     _check_k("K8c", k)
     cols = next((c for c in (32, 16, 8) if -(-m // c) * B >= K8C_TARGET_CTAS), 8)
-    while cols > 1 and k8c_smem_bytes(n, m, k, cols) > K8C_MAX_SMEM:
+    while cols > 1 and k8c_smem_bytes(n, m, k, cols, dtype) > K8C_MAX_SMEM:
         cols //= 2
-    smem = k8c_smem_bytes(n, m, k, cols)
+    smem = k8c_smem_bytes(n, m, k, cols, dtype)
     if smem > K8C_MAX_SMEM:
         raise ValueError(f"K8c: n={n}, m={m}, k={k} needs {smem} bytes of shared memory "
                          f"for one column, more than {K8C_MAX_SMEM}")
@@ -753,34 +761,35 @@ def shor_k_zstep_plain(c, sc: _ShorKConsts, st: ShorKState):
 
 def _k8c_operands(c, sc: _ShorKConsts, st: ShorKState):
     """(field, tensor, shape, dtype) of every operand of K8c's parameter
-    block, in one fixed order."""
+    block, in one fixed order: values in the state's dtype, the index tables
+    int32."""
     core, sb = st.core, sc.sb
     B, n, m, k, kp, C, Ms = _shapes(st)
     M5, D1 = sc.M5, n + m
     P1, P2, P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
-    f32, i32 = torch.float32, torch.int32
-    ops = [("w1", core.w1, (B, D1, D1), f32), ("u1", core.u1, (B, D1, D1), f32)]
-    ops += [(name, getattr(st, name), shape, f32) for name, shape in (
+    fv, i32 = core.X.dtype, torch.int32
+    ops = [("w1", core.w1, (B, D1, D1), fv), ("u1", core.u1, (B, D1, D1), fv)]
+    ops += [(name, getattr(st, name), shape, fv) for name, shape in (
         ("w5", (B, M5, k, 5, 5)), ("u5", (B, M5, k, 5, 5)), ("wx", (B, C, k + 1, k + 1)),
         ("ux", (B, C, k + 1, k + 1)), ("wr", (B, Ms, 3)), ("ur", (B, Ms, 3)), ("wl", (B, m)),
         ("ul", (B, m)), ("wwl", (B, C)), ("uwl", (B, C)), ("wp", (B, n, m)), ("up", (B, n, m)),
         ("wq", (B, k, C)), ("uq", (B, k, C)))]
-    ops += [("soc_mask", sb.soc_mask, (B, Ms), f32), ("coord_mask", sb.coord_mask, (B, C), f32)]
+    ops += [("soc_mask", sb.soc_mask, (B, Ms), fv), ("coord_mask", sb.coord_mask, (B, C), fv)]
     # the inverse tables: batch B, each its own width
     ops += [(name, getattr(sb, name), (B,) + tuple(getattr(sb, name).shape[1:]), i32)
             for name in INVERSE_FIELDS]
-    ops += [("D1x", sc.D1x, (B, n, m), f32), ("c1x", sc.c1x, (B, n, m), f32),
-            ("D1w", sc.D1w, (B, n * m), f32)]
-    ops += [(name, getattr(sc, name), (B, C), f32) for name in ("D1wt", "D1h", "D_c", "B_jc")]
-    ops += [("S_th", sc.S_th, (B, m), f32)]
-    ops += [(name, d, (B, P), f32) for name, d, P in zip(("D1v1", "D1v2", "D1v3"), sc.D1v,
+    ops += [("D1x", sc.D1x, (B, n, m), fv), ("c1x", sc.c1x, (B, n, m), fv),
+            ("D1w", sc.D1w, (B, n * m), fv)]
+    ops += [(name, getattr(sc, name), (B, C), fv) for name in ("D1wt", "D1h", "D_c", "B_jc")]
+    ops += [("S_th", sc.S_th, (B, m), fv)]
+    ops += [(name, d, (B, P), fv) for name, d, P in zip(("D1v1", "D1v2", "D1v3"), sc.D1v,
                                                          (P1, P2, P3))]
-    ops += [("maskA", c.maskA, (n, m), f32), ("mask", c.mask, (n, m), f32)]
-    ops += [(name, getattr(core, name), (B,), f32) for name in ("sX", "sT", "sS", "rho")]
-    ops += [("Xt", st.Xt, (B, k, n, m), f32), ("Xs", core.X, (B, n, m), f32),
-            ("Ths", core.Th, (B, m, m), f32), ("Ws", st.W, (B, n, m), f32),
-            ("Wt", st.Wt, (B, k, C), f32), ("Hh", st.Hh, (B, kp, C), f32)]
-    ops += [(name, getattr(st, name), (B, k, P), f32) for name, P in (("v1", P1), ("v2", P2),
+    ops += [("maskA", c.maskA, (n, m), fv), ("mask", c.mask, (n, m), fv)]
+    ops += [(name, getattr(core, name), (B,), fv) for name in ("sX", "sT", "sS", "rho")]
+    ops += [("Xt", st.Xt, (B, k, n, m), fv), ("Xs", core.X, (B, n, m), fv),
+            ("Ths", core.Th, (B, m, m), fv), ("Ws", st.W, (B, n, m), fv),
+            ("Wt", st.Wt, (B, k, C), fv), ("Hh", st.Hh, (B, kp, C), fv)]
+    ops += [(name, getattr(st, name), (B, k, P), fv) for name, P in (("v1", P1), ("v2", P2),
                                                                      ("v3", P3))]
     return ops
 
@@ -802,15 +811,16 @@ def _k8c_tensors(c, sc: _ShorKConsts, st: ShorKState) -> tuple:
 
 def _k8c_params(c, sc: _ShorKConsts, st: ShorKState, dev):
     scalars = (float(c.gamma), float(sc.R_X))
+    dt = st.core.X.dtype
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
-        p = kernels.K8cParams()
+        p = kernels.block(kernels.K8cParams, dt)
         for name, t, shape, dtype in _k8c_operands(c, sc, st):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, sc.M5, C, Ms
         p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
-        p.cols = k8c_plan(B, n, m, k)["cols"]
+        p.cols = k8c_plan(B, n, m, k, dt)["cols"]
         p.gamma, p.R_X = scalars
         return p
 
@@ -821,7 +831,7 @@ def shor_k_zstep(c, sc: _ShorKConsts, st: ShorKState):
     """K8c wrapper: writes Xt, X = sum_t Xt, Ths, W, Wt, Hh, v1, v2, v3 into
     ``st``.  A CPU state runs ``shor_k_zstep_plain``; a CUDA state launches
     ``csrc/k8k_shor_k.cu`` (one CTA per node slot and ``k8c_plan``'s
-    columns) or raises."""
+    columns; its float64 build for a float64 state) or raises."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -831,7 +841,8 @@ def shor_k_zstep(c, sc: _ShorKConsts, st: ShorKState):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_k_zstep: unsupported device {dev}")
-    kernels.launch("K8c", "omc_k8c_shor_k_zstep", _k8c_params(c, sc, st, dev), dev)
+    kernels.launch("K8c", kernels.entry("omc_k8c_shor_k_zstep", st.core.X.dtype),
+                   _k8c_params(c, sc, st, dev), dev)
 
 
 # --------------------------------------------------------------------------
@@ -857,8 +868,10 @@ def minor_k_step(c, sc: _ShorKConsts, st: ShorKState, acc5, psd_method: str):
     """K7t wrapper: updates ``st.w5``, ``st.u5`` and the EMA ``acc5`` in
     place.  A CPU state runs ``minor_k_step_plain`` (the sign schedule, or
     ``eigh`` with ``psd_method="eigh"``); a CUDA state launches
-    ``csrc/k7k_minor_xwh.cu`` (one thread per minor and term) or raises.  The
-    parameter block is packed once per operands (``admm._packed``)."""
+    ``csrc/k7k_minor_xwh.cu`` (one thread per minor and term: the sign
+    schedule in float32, ``psd_method="ns"``; K4s's exact Jacobi in the
+    float64 build, ``psd_method="eigh"``) or raises.  The parameter block is
+    packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -868,21 +881,62 @@ def minor_k_step(c, sc: _ShorKConsts, st: ShorKState, acc5, psd_method: str):
         return
     if dev.type != "cuda":
         raise ValueError(f"minor_k_step: unsupported device {dev}")
-    kernels.launch("K7t", "omc_k7t_minor_k", _k7t_params(c, sc, st, acc5, dev), dev)
+    dt = core.X.dtype
+    _cuda_method("K7t", dt, psd_method)
+    kernels.launch("K7t", kernels.entry("omc_k7t_minor_k", dt),
+                   _k7t_params(c, sc, st, acc5, dev), dev)
+
+
+def _cuda_method(name: str, dtype, psd_method: str):
+    """The projection each CUDA build runs: the sign schedule in float32
+    (``"ns"``), K4s's exact Jacobi in float64 (``"eigh"``); another method
+    raises."""
+    want = "eigh" if dtype == torch.float64 else "ns"
+    if psd_method != want:
+        raise ValueError(f'{name} projects {dtype} with psd_method="{want}", not {psd_method!r}')
+
+
+# K7t's and K7x's CTAs (csrc/k7k_minor_xwh.cu): 128 matrices (threads) a
+# CTA in float32; in the float64 builds 64 for K7t and for K7x at D = 4 and
+# 5, 128 at D = 3, each CTA staging its matrices' w, u and acc in static
+# shared memory (at most 48 KB), K7x's float64 matrices at an odd stride of
+# doubles (D^2 | 1)
+K7T_THREADS = {torch.float32: 128, torch.float64: 64}
+K7X_THREADS = {torch.float32: {3: 128, 4: 128, 5: 128}, torch.float64: {3: 128, 4: 64, 5: 64}}
+
+
+def k7t_plan(N: int, dtype=torch.float32) -> dict:
+    """K7t's launch for ``N`` (minor, term) matrices (the kernel's
+    ``omc_k7t_threads`` and ``omc_k7t_smem_bytes``): ``threads`` matrices a
+    CTA, ``ctas`` CTAs, the three staged blocks' ``smem`` bytes."""
+    threads = K7T_THREADS[dtype]
+    return dict(threads=threads, ctas=_cdiv(N, threads), smem=3 * threads * 25 * dtype.itemsize)
+
+
+def k7x_plan(N: int, D: int, dtype=torch.float32) -> dict:
+    """K7x's launch (slot mode) for ``N`` D x D slots (``omc_k7x_threads``,
+    ``omc_k7x_smem_bytes``): ``threads`` slots a CTA, ``ctas`` CTAs, the
+    staged matrix's stride ``ld`` in values and the three staged blocks'
+    ``smem`` bytes."""
+    threads = K7X_THREADS[dtype][D]
+    ld = (D * D) | 1 if dtype == torch.float64 else D * D
+    return dict(threads=threads, ctas=_cdiv(N, threads), ld=ld,
+                smem=3 * threads * ld * dtype.itemsize)
 
 
 def _k7t_operands(sc: _ShorKConsts, st: ShorKState, acc5) -> list:
-    """(field, tensor, shape, dtype) of every K7t operand."""
+    """(field, tensor, shape, dtype) of every K7t operand: values in the
+    state's dtype, the records int32."""
     B, n, m, k, kp, C, Ms = _shapes(st)
     M5 = sc.M5
-    f32, i32 = torch.float32, torch.int32
-    return ([("w", st.w5, (B, M5, k, 5, 5), f32), ("u", st.u5, (B, M5, k, 5, 5), f32),
-             ("acc", acc5, (B, M5, k, 5, 5), f32), ("Xt", st.Xt, (B, k, n, m), f32),
-             ("Wt", st.Wt, (B, k, C), f32)]
-            + [(name, getattr(st, name), (B, k, getattr(st, name).shape[2]), f32)
+    fv, i32 = st.core.X.dtype, torch.int32
+    return ([("w", st.w5, (B, M5, k, 5, 5), fv), ("u", st.u5, (B, M5, k, 5, 5), fv),
+             ("acc", acc5, (B, M5, k, 5, 5), fv), ("Xt", st.Xt, (B, k, n, m), fv),
+             ("Wt", st.Wt, (B, k, C), fv)]
+            + [(name, getattr(st, name), (B, k, getattr(st, name).shape[2]), fv)
                for name in ("v1", "v2", "v3")]
-            + [("rec", sc.rec, (B, M5, 16), i32), ("minor_mask", sc.sb.minor_mask, (B, M5), f32),
-               ("sS", st.core.sS, (B,), f32), ("rho", st.core.rho, (B,), f32)])
+            + [("rec", sc.rec, (B, M5, 16), i32), ("minor_mask", sc.sb.minor_mask, (B, M5), fv),
+               ("sS", st.core.sS, (B,), fv), ("rho", st.core.rho, (B,), fv)])
 
 
 # K7t's operands, gathered cheaply for the reuse test of its packed block
@@ -898,11 +952,12 @@ def _k7t_tensors(sc: _ShorKConsts, st: ShorKState, acc5) -> tuple:
 def _k7t_params(c, sc: _ShorKConsts, st: ShorKState, acc5, dev):
     """K7t's parameter block, packed once per operands (``admm._packed``)."""
     scalars = (float(c.alpha), float(c.beta))
+    dt = st.core.X.dtype
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
         _check_k("K7t", k)
-        p = kernels.K7tParams()
+        p = kernels.block(kernels.K7tParams, dt)
         for name, t, shape, dtype in _k7t_operands(sc, st, acc5):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         if p.rec % 16:
@@ -934,10 +989,13 @@ def xwh_step_plain(c, sc: _ShorKConsts, st: ShorKState, accx, proj):
 
 def xwh_step(c, sc: _ShorKConsts, st: ShorKState, accx, psd_method: str):
     """K7x wrapper (slot mode): updates ``st.wx``, ``st.ux`` and the EMA
-    ``accx`` in place.  A CPU state runs ``xwh_step_plain``; a CUDA state
-    launches ``csrc/k7k_minor_xwh.cu`` (one thread per coordinate, a CTA's
-    128 slots staged through shared memory) or raises.  The parameter block
-    is packed once per operands (``admm._packed``)."""
+    ``accx`` in place.  A CPU state runs ``xwh_step_plain`` (the sign
+    schedule, or ``eigh`` with ``psd_method="eigh"``); a CUDA state launches
+    ``csrc/k7k_minor_xwh.cu`` (one thread per coordinate, a CTA's slots
+    staged through shared memory, ``k7x_plan``: the sign schedule in
+    float32, ``psd_method="ns"``; K4s's exact Jacobi in the float64 build,
+    ``psd_method="eigh"``) or raises.  The parameter block is packed once
+    per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -947,20 +1005,24 @@ def xwh_step(c, sc: _ShorKConsts, st: ShorKState, accx, psd_method: str):
         return
     if dev.type != "cuda":
         raise ValueError(f"xwh_step: unsupported device {dev}")
-    kernels.launch("K7x", "omc_k7x_xwh", _k7x_params(c, sc, st, accx, dev), dev)
+    dt = core.X.dtype
+    _cuda_method("K7x", dt, psd_method)
+    kernels.launch("K7x", kernels.entry("omc_k7x_xwh", dt), _k7x_params(c, sc, st, accx, dev),
+                   dev)
 
 
 def _k7x_operands(sc: _ShorKConsts, st: ShorKState, accx) -> list:
-    """(field, tensor, shape, dtype) of every K7x (slot mode) operand."""
+    """(field, tensor, shape, dtype) of every K7x (slot mode) operand:
+    values in the state's dtype, coord_flat int32."""
     B, n, m, k, kp, C, Ms = _shapes(st)
     D = k + 1
-    f32 = torch.float32
-    return [("w", st.wx, (B, C, D, D), f32), ("u", st.ux, (B, C, D, D), f32),
-            ("acc", accx, (B, C, D, D), f32), ("Xt", st.Xt, (B, k, n, m), f32),
-            ("Wt", st.Wt, (B, k, C), f32), ("Hh", st.Hh, (B, kp, C), f32),
+    fv = st.core.X.dtype
+    return [("w", st.wx, (B, C, D, D), fv), ("u", st.ux, (B, C, D, D), fv),
+            ("acc", accx, (B, C, D, D), fv), ("Xt", st.Xt, (B, k, n, m), fv),
+            ("Wt", st.Wt, (B, k, C), fv), ("Hh", st.Hh, (B, kp, C), fv),
             ("coord_flat", sc.sb.coord_flat, (B, C), torch.int32),
-            ("coord_mask", sc.sb.coord_mask, (B, C), f32), ("sS", st.core.sS, (B,), f32),
-            ("rho", st.core.rho, (B,), f32)]
+            ("coord_mask", sc.sb.coord_mask, (B, C), fv), ("sS", st.core.sS, (B,), fv),
+            ("rho", st.core.rho, (B,), fv)]
 
 
 # the operands K7x stages as 16-byte words
@@ -978,11 +1040,12 @@ def _k7x_params(c, sc: _ShorKConsts, st: ShorKState, accx, dev):
     """K7x's parameter block (slot mode), packed once per operands
     (``admm._packed``)."""
     scalars = (float(c.alpha), float(c.beta))
+    dt = st.core.X.dtype
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
         _check_k("K7x", k)
-        p = kernels.K7xParams()
+        p = kernels.block(kernels.K7xParams, dt)
         for name, t, shape, dtype in _k7x_operands(sc, st, accx):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         if any(getattr(p, name) % 16 for name in _K7X_WORDS):
@@ -1041,19 +1104,21 @@ def shor_k_cone_step_plain(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, ac
 
 # K8d's geometry (csrc/k8k_shor_k.cu): CTAs of 128 threads; a link CTA sums
 # a tile of 32 columns in 4 row groups; a flat CTA takes up to 128 items (a
-# quad of W >= 0 entries, a quad of RSOC rows or a coordinate a thread),
-# fewer until the flat CTAs fill the card's SMs
+# group of W >= 0 entries, a group of RSOC rows or a coordinate a thread; a
+# group is 16 bytes of values: a quad in float32, a pair in float64), fewer
+# until the flat CTAs fill the card's SMs
 K8D_THREADS, K8D_LINK_COLS, K8D_LINK_ROWS = 128, 32, 4
 K8D_TARGET_CTAS = H100_SMS
 
 
-def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int) -> dict:
+def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int, dtype=torch.float32) -> dict:
     """K8d's grid, one dimension: ``link_ctas`` = B ceil(m / 32) CTAs on the
     Theta-link rows (slot x // ceil(m / 32), columns [32 t, 32 t + 32) for
     t = x % ceil(m / 32); row group g of 4 sums rows g, g + 4, ... in order,
     then the groups in order), then CTAs of ``ipc`` items: ``nonneg_ctas``
-    on the quads of 4 consecutive W >= 0 entries of the batch's flat B n m,
-    ``rsoc_ctas`` on the quads of 4 consecutive RSOC rows of its flat B Ms,
+    on the groups of E = 16 / itemsize consecutive W >= 0 entries of the
+    batch's flat B n m (quads in float32, pairs in float64), ``rsoc_ctas``
+    on the groups of E consecutive RSOC rows of its flat B Ms,
     ``coord_ctas`` on the coordinates of its flat B C (``grid`` in all).
     ``ipc`` halves from 128 to 32 while there are fewer flat CTAs than
     ``K8D_TARGET_CTAS``.  Raises on a rank or a shape the kernel does not
@@ -1061,7 +1126,8 @@ def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int) -> dict:
     _check_k("K8d", k)
     if min(B, n, m, C) < 1 or n * m < 4 or Ms < 4:
         raise ValueError(f"K8d: unsupported shape B={B}, n={n}, m={m}, C={C}, Ms={Ms}")
-    items = (_cdiv(B * n * m, 4), _cdiv(B * Ms, 4), B * C)
+    E = 16 // dtype.itemsize
+    items = (_cdiv(B * n * m, E), _cdiv(B * Ms, E), B * C)
     ipc = K8D_THREADS
     while ipc > 32 and sum(_cdiv(x, ipc) for x in items) < K8D_TARGET_CTAS:
         ipc //= 2
@@ -1093,7 +1159,8 @@ def shor_k_cone_step(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl):
     """K8d wrapper: updates the RSOC, Theta-link, W-link, W >= 0 and
     Wt >= 0 slots of ``st`` and the EMAs ``acc_r``, ``acc_l``, ``acc_wl`` in
     place.  A CPU state runs ``shor_k_cone_step_plain``; a CUDA state
-    launches ``csrc/k8k_shor_k.cu`` (``k8d_plan``'s grid) or raises.  The
+    launches ``csrc/k8k_shor_k.cu`` (``k8d_plan``'s grid; its float64 build
+    for a float64 state) or raises.  The
     parameter block is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
@@ -1105,27 +1172,28 @@ def shor_k_cone_step(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_k_cone_step: unsupported device {dev}")
-    kernels.launch("K8d", "omc_k8d_shor_k_cone",
+    kernels.launch("K8d", kernels.entry("omc_k8d_shor_k_cone", core.X.dtype),
                    _k8d_params(c, sc, st, acc_r, acc_l, acc_wl, dev), dev)
 
 
 def _k8d_operands(sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl) -> list:
-    """(field, tensor, shape, dtype) of every K8d operand."""
+    """(field, tensor, shape, dtype) of every K8d operand: values in the
+    state's dtype, the index tables int32."""
     B, n, m, k, kp, C, Ms = _shapes(st)
     sb, core = sc.sb, st.core
-    f32, i32 = torch.float32, torch.int32
-    return ([("Xs", core.X, (B, n, m), f32), ("Ws", st.W, (B, n, m), f32),
-             ("Ths", core.Th, (B, m, m), f32), ("Wt", st.Wt, (B, k, C), f32),
-             ("Hh", st.Hh, (B, kp, C), f32), ("wr", st.wr, (B, Ms, 3), f32),
-             ("ur", st.ur, (B, Ms, 3), f32), ("acc_r", acc_r, (B, Ms, 3), f32),
-             ("wl", st.wl, (B, m), f32), ("ul", st.ul, (B, m), f32), ("acc_l", acc_l, (B, m), f32),
-             ("wwl", st.wwl, (B, C), f32), ("uwl", st.uwl, (B, C), f32),
-             ("acc_wl", acc_wl, (B, C), f32), ("wp", st.wp, (B, n, m), f32),
-             ("up", st.up, (B, n, m), f32), ("wq", st.wq, (B, k, C), f32),
-             ("uq", st.uq, (B, k, C), f32), ("soc_flat", sb.soc_flat, (B, Ms), i32),
-             ("soc_mask", sb.soc_mask, (B, Ms), f32), ("coord_flat", sb.coord_flat, (B, C), i32),
-             ("coord_mask", sb.coord_mask, (B, C), f32)]
-            + [(name, getattr(core, name), (B,), f32) for name in ("sX", "sT", "sS", "rho")])
+    fv, i32 = core.X.dtype, torch.int32
+    return ([("Xs", core.X, (B, n, m), fv), ("Ws", st.W, (B, n, m), fv),
+             ("Ths", core.Th, (B, m, m), fv), ("Wt", st.Wt, (B, k, C), fv),
+             ("Hh", st.Hh, (B, kp, C), fv), ("wr", st.wr, (B, Ms, 3), fv),
+             ("ur", st.ur, (B, Ms, 3), fv), ("acc_r", acc_r, (B, Ms, 3), fv),
+             ("wl", st.wl, (B, m), fv), ("ul", st.ul, (B, m), fv), ("acc_l", acc_l, (B, m), fv),
+             ("wwl", st.wwl, (B, C), fv), ("uwl", st.uwl, (B, C), fv),
+             ("acc_wl", acc_wl, (B, C), fv), ("wp", st.wp, (B, n, m), fv),
+             ("up", st.up, (B, n, m), fv), ("wq", st.wq, (B, k, C), fv),
+             ("uq", st.uq, (B, k, C), fv), ("soc_flat", sb.soc_flat, (B, Ms), i32),
+             ("soc_mask", sb.soc_mask, (B, Ms), fv), ("coord_flat", sb.coord_flat, (B, C), i32),
+             ("coord_mask", sb.coord_mask, (B, C), fv)]
+            + [(name, getattr(core, name), (B,), fv) for name in ("sX", "sT", "sS", "rho")])
 
 
 # the operands K8d reads and writes as 16-byte words
@@ -1144,11 +1212,12 @@ def _k8d_tensors(sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl) -> tupl
 def _k8d_params(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl, dev):
     """K8d's parameter block, packed once per operands (``admm._packed``)."""
     scalars = (float(c.alpha), float(c.beta))
+    dt = st.core.X.dtype
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
-        plan = k8d_plan(B, n, m, k, C, Ms)
-        p = kernels.K8dParams()
+        plan = k8d_plan(B, n, m, k, C, Ms, dt)
+        p = kernels.block(kernels.K8dParams, dt)
         for name, t, shape, dtype in _k8d_operands(sc, st, acc_r, acc_l, acc_wl):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         if any(getattr(p, name) % 16 for name in _K8D_WORDS):
@@ -1213,8 +1282,9 @@ def make_shor_k_solver(n: int, m: int, k: int, L: int, M5: int, Ms: int, gamma: 
         if dev.type == "cuda":
             kernels.require_full_fp32()
             kernels.require_cuda_dtype("shor_k", dtype)
-            if psd_method != "ns":
-                raise ValueError('the CUDA path projects with psd_method="ns"')
+            want = "ns" if dtype == torch.float32 else "eigh"
+            if psd_method != want:
+                raise ValueError(f'the CUDA path projects {dtype} with psd_method="{want}"')
         ni = int(iters if n_iters is None else n_iters)
         A = torch.as_tensor(A, device=dev).to(dtype).contiguous()
         mask = torch.as_tensor(mask, device=dev).to(dtype).contiguous()
@@ -1498,7 +1568,7 @@ def apply_best_duals(state: ShorKState, out: dict) -> ShorKState:
 
 __all__ = [
     "ShorKBatchHost", "ShorKBatch", "pack_shor_k_batch", "shor_k_batch_to_device",
-    "inverse_tables_k", "k8c_plan", "k8c_smem_bytes", "shor_k_batch_host_from_omc_leaves",
+    "inverse_tables_k", "k8c_plan", "k8c_smem_bytes", "k7t_plan", "k7x_plan", "shor_k_batch_host_from_omc_leaves",
     "ShorKState",
     "init_shor_k_state", "make_shor_k_consts", "make_shor_k_solver", "shor_k_iteration",
     "shor_k_zstep", "shor_k_zstep_plain", "minor_k_step", "minor_k_step_plain", "minor_records",

@@ -53,10 +53,11 @@ path, K2, K8a, K3, K1, K7, K8b on the rank-1 Shor path, K2, K8c, K3, K1,
 K7t, K7x, K8d on the rank-k Shor path, K9s, K9a, K9b, K1 on the McCormick
 path, and K4 (K4s for d <= 8) with K5 in the PDHG relaxation; in float64
 (``dtype="float64"``, as ``omc`` runs it) the base path, PDHG, Halpern and
-the rank-1 Shor path through the float64 builds of K2, K3, K4, K4s, K5, K6,
-K7, K8a and K8b, with exact Jacobi projections (K4, K4s, K7's float64
-build) in place of the sign schedule.  A float64 rank-k Shor or McCormick
-run on CUDA raises (``kernels.require_cuda_dtype``).
+the rank-1 and rank-k Shor paths through the float64 builds of K2, K3, K4,
+K4s, K5, K6, K7, K8a, K8b, K7t, K7x, K8c and K8d, with exact Jacobi
+projections (K4, K4s and the float64 builds of K7, K7t and K7x) in place
+of the sign schedule.  A float64 McCormick run on CUDA raises
+(``kernels.require_cuda_dtype``).
 """
 
 from __future__ import annotations
@@ -305,8 +306,8 @@ def _decayed_probability(depth, max_p, min_p, decay):
 
 def entry_device(device, dtype: str) -> torch.device:
     """The device of an entry point: ``"cuda"`` (the kernels: float32, or
-    float64 through the float64 builds of the base and rank-1 Shor
-    families' kernels) unless
+    float64 through the float64 builds of the base and Shor families'
+    kernels) unless
     the caller asks for ``"cpu"`` (the plain versions).  A CUDA request
     without a usable GPU raises; it never falls back to the CPU.  Which
     families run float64 on the card the solvers' guards say
@@ -338,8 +339,8 @@ def matrix_completion_branchandbound(
     instance)`` with the field contract of ``omc.solve``.
 
     ``device``: where the relaxations run, ``"cuda"`` (the default: the
-    kernels, in float32 or, for the base family, PDHG, Halpern and Shor
-    k = 1, in float64) or ``"cpu"`` (the plain versions, only when asked for).
+    kernels, in float32 or, for every family but McCormick, in float64) or
+    ``"cpu"`` (the plain versions, only when asked for).
     Without a GPU the default raises."""
     cfg = SolverConfig(**kwargs)
     dev = entry_device(device, cfg.dtype)
