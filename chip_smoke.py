@@ -37,7 +37,8 @@ Phases, in order (each prints its numbers on lines of its own):
                K8b at every shape of SHOR_SHAPES, K8c, K7t, K7x (slots: their
                exact Jacobi projections) and K8d at config 3's frontier
                (B=32, n=m=75, M5=1024) at k = 2, 3, 4 and K8c, K7x, K8d at
-               a root visit (B=1, M5=64), each beside the float32 build's
+               a root visit (B=1, M5=64), K9s, K9a and K9b at MC_SHAPES and
+               (64, 50, 3), each beside the float32 build's
                device ms on the same values, K2's Shor mode at (32,
                100) and (4, 50), K2 and K3 (both modes; the headline's and
                the fixtures' shapes), K4 (modes 0-2 at B=1 and 64,
@@ -110,6 +111,15 @@ Phases, in order (each prints its numbers on lines of its own):
                a growth, 12 s) with sound bounds, a Shor growth and no
                float32 build launched; one traced iteration at config 3's
                frontier shape
+23. mccormick64 — omc's float64 on the McCormick family (the float64
+               builds of K9s, K9a, K9b, K4, K5, K6): the api's McCormick
+               relaxation at its defaults on the headline's root (500
+               iterations) and at k = 2 on config 3's root (300), each
+               against the same call on the CPU; the headline's McCormick
+               B&B in float64 (visits of 250 iterations, one refinement
+               before a split, 8 s) with sound bounds, omc's objective, more
+               than one node and no float32 build launched; one traced
+               iteration at B=64 and at B=1
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -165,7 +175,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
           "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64",
-          "shork64")
+          "shork64", "mccormick64")
 EXTRA_PHASES = ("trace", "kernels64")  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
@@ -671,11 +681,13 @@ def phase_kernels(res):
     # and K9b also at the root visit's batch and a mid-tree frontier's ----
     for name in ("K9s", "K9a", "K9b"):
         out[name] = []
+    mc_inputs = {}  # by (B, n, k): the float64 rows take float64 copies
     for B, n, k in MC_SHAPES + K9S_EXTRA_SHAPES:
+        mc_inputs[B, n, k] = inputs = _mc_inputs(B, n, n, k, gen, dev)
         if (B, n, k) in K9S_EXTRA_SHAPES:
-            rows = {"K9s": _check_k9s(_mc_inputs(B, n, n, k, gen, dev)[0], B, n, k, dev)}
+            rows = {"K9s": _check_k9s(inputs[0], B, n, k, dev)}
         else:
-            rows = _check_mc_kernels(B, n, n, k, gen, dev, k9s=B == 64)
+            rows = _check_mc_kernels(*inputs, gen, dev, k9s=B == 64)
         for name, row in rows.items():
             log(name, json.dumps(row))
             # float32 sums in another order than the plain version's, so
@@ -690,7 +702,8 @@ def phase_kernels(res):
     # ---- K4, K4s, K5, K6: the eigensolvers and altmin's ridge steps; then
     # the float64 builds ----
     for check in (_check_eig_kernels,
-                  lambda g, d: _check_float64_kernels(g, d, shor_inputs, shork_inputs)):
+                  lambda g, d: _check_float64_kernels(g, d, shor_inputs, shork_inputs,
+                                                      mc_inputs)):
         rows = check(gen, dev)
         for name, rs in rows.items():
             for row in rs:
@@ -2025,22 +2038,57 @@ MC_SHAPES = ((64, 50, 1), (64, 75, 2), (1, 50, 1), (16, 50, 1))
 K9S_EXTRA_SHAPES = ((64, 50, 3),)
 
 
-def _check_mc_kernels(B, n, m, k, gen, dev, k9s=True):
+def _k9s_work(B, n, k):
+    """The values K9s moves and the operations it does: boxes in; Mc, Si, Gc
+    out.  Per row: the Gram from its structure (each envelope row's at most
+    3 x 3 block: 4 q rows of at most 12 operations), its Cholesky, q solves;
+    per slot G's sum and Cholesky."""
+    q = k * (k + 1) // 2
+    kq = k + q
+    return (B * n * (2 * k + kq * kq + kq * q) + B * q * q,
+            B * n * (48 * q + kq ** 3 // 3 + 2 * q * kq * kq) + B * (n * q * q + q ** 3))
+
+
+def _k9a_work(B, n, m, k):
+    """The values K9a moves and the operations it does: per slot the X,
+    Theta, Y blocks of w1/u1, the Y and U blocks of w2/u2, w3/u3, the trace,
+    SOC, box, envelope and orthogonality slots, the boxes, Mc, Si, Gc in; X,
+    Y, Theta, U, t out; mask and mask*A once."""
+    q = k * (k + 1) // 2
+    kq = k + q
+    rd = (2 * (n * m + m * m + n * n) + 2 * (n * n + n * k) + 2 * n * n + 2 + 2 * k * n
+          + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + n * (kq * kq + kq * q) + q * q + 3)
+    wr = n * m + n * n + m * m + n * k + n * q
+    return (B * (rd + wr) + 2 * n * m,
+            B * (10 * (n * m + m * m + n * n) + n * (40 * q + 4 * kq * kq + 2 * kq * q)))
+
+
+def _k9b_work(B, n, m, k):
+    """The values K9b moves and the operations it does: per slot X, Y,
+    Theta, U, t and the w/u of every slot in, the boxes and both running
+    means (read and written); t1-t3 and the non-PSD slots out."""
+    q = k * (k + 1) // 2
+    d1, d2 = n + m, n + k
+    rd = (n * m + n * n + m * m + n * k + n * q + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
+          + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + 4 * n * q + q + 3)
+    wr = (d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q
+          + 4 * n * q + q)
+    return B * (rd + wr), B * (5 * (d1 * d1 + d2 * d2 + n * n) + 20 * n * q + 10 * n * k)
+
+
+def _check_mc_kernels(c, st, gen, dev, k9s=True):
     """K9s (with ``k9s``), K9a and K9b against their plain versions on the
-    same inputs (K9b at K9a's outputs), with CUDA-event and device times
-    (with ``--parent``, the parent's kernels on the same inputs beside),
-    bounds, a determinism check of each and, for K9s, Mc Mc' against the row
-    Grams."""
+    inputs (c, st) of ``_mc_inputs`` (K9b at K9a's outputs), with CUDA-event
+    and device times (with ``--parent``, the parent's kernels on the same
+    inputs beside), bounds, a determinism check of each and, for K9s, Mc Mc'
+    against the row Grams."""
     import torch
 
     from omc_torch.sdp import mccormick as MC
 
     from omc_torch import kernels
 
-    c, st = _mc_inputs(B, n, m, k, gen, dev)
-    q = k * (k + 1) // 2
-    kq = k + q
-    d1, d2 = n + m, n + k
+    B, n, m, k = st.rho.shape[0], c.n, c.m, c.k
     plan = MC.k9_plan(B, n, m, k)
     lib = kernels.library()
 
@@ -2068,14 +2116,8 @@ def _check_mc_kernels(B, n, m, k, gen, dev, k9s=True):
         fns["parent"] = _parent_k9a(c, st.clone())
         row["parent_ms"] = cuda_time_ms(fns["parent"])
     _device_rows(row, fns)
-    # per slot: the X, Theta, Y blocks of w1/u1, the Y and U blocks of
-    # w2/u2, w3/u3, the trace, SOC, box, envelope and orthogonality slots,
-    # the boxes, Mc, Si, Gc; out X, Y, Theta, U, t; mask and mask*A once
-    rd = (2 * (n * m + m * m + n * n) + 2 * (n * n + n * k) + 2 * n * n + 2 + 2 * k * n
-          + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + n * (kq * kq + kq * q) + q * q + 3)
-    wr = n * m + n * n + m * m + n * k + n * q
-    with_bound(row, 4 * (B * (rd + wr) + 2 * n * m),
-               B * (10 * (n * m + m * m + n * n) + n * (40 * q + 4 * kq * kq + 2 * kq * q)))
+    vals, ops = _k9a_work(B, n, m, k)
+    with_bound(row, 4 * vals, ops)
 
     # ---- K9b at K9a's outputs, with the running means ----
     acc = [torch.randn(x.shape, generator=gen).to(dev) * 0.1 for x in (st.umc, st.uorth)]
@@ -2099,7 +2141,7 @@ def _check_mc_kernels(B, n, m, k, gen, dev, k9s=True):
     fns = {"kernel": lambda: MC.mc_cone_step(c, s4, ts4, a4, beta)}
     out["K9b"] = row = dict(B=B, n=n, m=m, k=k, plan=plan,
                             plan_matches_kernel=plan["k9b_grid"] == lib.omc_k9b_grid_x(
-                                B, n, m, k, plan["qpc"]),
+                                B, n, m, k, plan["qpc"], 4),
                             rel_err=rel, max_abs_err=ab,
                             deterministic=_same_bits(got, got2),
                             ms=cuda_time_ms(fns["kernel"]),
@@ -2111,14 +2153,8 @@ def _check_mc_kernels(B, n, m, k, gen, dev, k9s=True):
                                     [a.clone() for a in acc], beta)
         row["parent_ms"] = cuda_time_ms(fns["parent"])
     _device_rows(row, fns)
-    # per slot: X, Y, Theta, U, t and the w/u of every slot in, the boxes and
-    # both running means (read and written); t1-t3 and the non-PSD slots out
-    rd = (n * m + n * n + m * m + n * k + n * q + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
-          + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q + 2 * n * k + 4 * n * q + q + 3)
-    wr = (d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 8 * n * q + 2 * q
-          + 4 * n * q + q)
-    with_bound(row, 4 * B * (rd + wr),
-               B * (5 * (d1 * d1 + d2 * d2 + n * n) + 20 * n * q + 10 * n * k))
+    vals, ops = _k9b_work(B, n, m, k)
+    with_bound(row, 4 * vals, ops)
     return out
 
 
@@ -2152,8 +2188,8 @@ def _check_k9s(c, B, n, k, dev):
     prm = MC._k9s_params(c.batch, k, MC._k9s_views(buf, B, n, k), dev)
     fns = {"kernel": lambda: MC.mc_setup(c.batch, k)}
     row = dict(B=B, n=n, k=k, plan=plan,
-               plan_matches_kernel=(plan["threads"] == lib.omc_k9s_threads(n, k)
-                                    and plan["smem_bytes"] == lib.omc_k9s_smem_bytes(n, k)),
+               plan_matches_kernel=(plan["threads"] == lib.omc_k9s_threads(n, k, 4)
+                                    and plan["smem_bytes"] == lib.omc_k9s_smem_bytes(n, k, 4)),
                rel_err=rel, max_abs_err=ab,
                gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
                deterministic=_same_bits(got, got2),
@@ -2168,12 +2204,8 @@ def _check_k9s(c, B, n, k, dev):
         fns["parent"] = _parent_k9s(c.batch, k)
         row["parent_ms"] = cuda_time_ms(fns["parent"])
     _device_rows(row, fns)
-    # boxes in; Mc, Si, Gc out.  Per row: the Gram from its structure (each
-    # envelope row's at most 3 x 3 block: 4 q rows of at most 12 operations),
-    # its Cholesky, q solves; per slot G's sum and Cholesky
-    return with_bound(row, 4 * (B * n * (2 * k + kq * kq + kq * q) + B * q * q),
-                      B * n * (48 * q + kq ** 3 // 3 + 2 * q * kq * kq)
-                      + B * (n * q * q + q ** 3))
+    vals, ops = _k9s_work(B, n, k)
+    return with_bound(row, 4 * vals, ops)
 
 
 def _eig_batch(B, d, gen, dev, dtype=None):
@@ -2357,13 +2389,14 @@ def _check_eig_kernels(gen, dev):
         lam = w64.abs().amax(-1)
         # the plain eigenvalue and eigenpair versions are the library calls
         # themselves: each is timed once, the median of 5 calls (cuSOLVER's
-        # times spread little; 20 took 14 s of the phase)
+        # times spread little; 20 took 14 s of the phase), right after the
+        # row's reference has run the same routine on T (no warm-up call)
         lib_ms = {}
 
         def library_ms(name):
             if name not in lib_ms:
                 fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
-                lib_ms[name] = tm(lambda: fn(T), reps=5)
+                lib_ms[name] = tm(lambda: fn(T), warm=True, reps=5)
             return lib_ms[name]
 
         for mode in modes:
@@ -2400,7 +2433,8 @@ def _check_eig_kernels(gen, dev):
             if mode == 1:
                 plain = cones.project_psd_plain(T)
                 row["max_abs_err"] = float((got - plain).abs().max())
-                plain_ms, library = tm(lambda: cones.project_psd_plain(T)), library_ms("eigh")
+                plain_ms = tm(lambda: cones.project_psd_plain(T), warm=True)
+                library = library_ms("eigh")
             elif mode == 0:
                 row["max_abs_err"] = float((got - torch.linalg.eigvalsh(T)).abs().max())
                 plain_ms = library = library_ms("eigvalsh")
@@ -2478,9 +2512,9 @@ def _check_eig_kernels(gen, dev):
                    per_matrix_err_vs_f64=float(per), max_abs_err=float((got - plain).abs().max()),
                    max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
                    ms=tm(lambda: cones.k4s_project_psd(T)),
-                   plain_ms=tm(lambda: cones.project_psd_plain(T)),
+                   plain_ms=tm(lambda: cones.project_psd_plain(T), warm=True),
                    # cuSOLVER's batched eigh, chunked below its limit
-                   library_ms=tm(lambda: cones.eigh_plain(T)))
+                   library_ms=tm(lambda: cones.eigh_plain(T), warm=True))
         plan = cones.k4s_plan(N, D)
         row.update(plan=plan, plan_matches_kernel=plan["ctas"] == lib.omc_k4s_grid_x(N),
                    smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D, 4))
@@ -2553,8 +2587,8 @@ def _check_eig_kernels(gen, dev):
                    max_abs_err=max(float((w - wp).abs().max()),
                                    float((aligned(V, Vp) - Vp).abs().max())),
                    ms=by_path[plan["path"]],
-                   plain_ms=tm(lambda: separation_eigpairs_plain(U32, Y32)),
-                   library_ms=tm(lambda: torch.linalg.eigh(M32)),
+                   plain_ms=tm(lambda: separation_eigpairs_plain(U32, Y32), warm=True),
+                   library_ms=tm(lambda: torch.linalg.eigh(M32), warm=True),
                    ms_by_path=by_path, err_by_path=err_by_path)
         row["smem_matches_kernel"] = all(e.get("smem_matches_kernel", True)
                                          for e in err_by_path.values())
@@ -2647,10 +2681,12 @@ def _check_eig_kernels(gen, dev):
 # The float64 builds' rows (B, n, k, L) of K2 and K3: the base path at B=64
 # (the row of the record), the headline's root visit (B=1; the api phase's
 # call) and the four fixtures' shapes at their batch of 8
-def _tm(fn):
+def _tm(fn, warm=False):
     """Median of 5 timed calls; of 3 for a call over 20 ms (cuSOLVER's
-    float64 eigh at B=64)."""
-    probe = cuda_time_ms(fn, reps=1, warmup=1)
+    float64 eigh at B=64).  ``warm``: the same call (or the library routine
+    it runs, on the same shapes) has just run, so the probe takes no
+    warm-up call."""
+    probe = cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
     return cuda_time_ms(fn, reps=5) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
 
 
@@ -2666,6 +2702,30 @@ def _shor64_of(c, sc, st):
     c = make_consts(c.maskA, c.mask, c.batch, st.core, c.n, c.m, c.k, c.gamma, c.alpha, c.beta,
                     torch.float64)
     return c, make_shor_consts(c, sb, st.core, SHOR_UB), st
+
+
+def _mc64_of(c, st):
+    """Float64 copies of ``_mc_inputs``' state and boxes, with the constants
+    computed from them in float64, as the solver computes them (K9s's
+    float64 build factoring the boxes)."""
+    import torch
+
+    from omc_torch.sdp.mccormick import make_mc_consts
+
+    st = _to64(st)
+    return make_mc_consts(c.maskA.double(), c.mask.double(), _to64(c.batch), st, c.n, c.m, c.k,
+                          c.gamma, c.alpha, torch.float64), st
+
+
+def _f64_device(row, f64_fn, f32_fn):
+    """A float64 row's device ms (``ms``, ``device_ms``) beside the float32
+    build's on the float32 inputs (``f32_device_ms``), in the same profiler
+    call, their ratio, and the CUDA-event ms (``event_ms``)."""
+    dms = _k2k3_device_ms({"kernel": f64_fn, "float32": f32_fn}, medians=("kernel", "float32"))
+    row["event_ms"] = cuda_time_ms(f64_fn)
+    row["ms"] = row["device_ms"] = dms["kernel"]
+    row["f32_device_ms"] = dms["float32"]
+    row["f64_over_f32"] = dms["kernel"] / dms["float32"]
 
 
 def _shork64_of(c, sc, st):
@@ -2725,15 +2785,7 @@ def _check_shor_k64_kernels(gen, dev, shork_inputs=None):
     f64, i32 = torch.float64, torch.int32
     lib = kernels.library()
     out = {key: [] for key in ("K8c_f64", "K7t_f64", "K7x_f64", "K8d_f64")}
-    tm = _tm
-
-    def device(row, f64_fn, f32_fn):
-        dms = _k2k3_device_ms({"kernel": f64_fn, "float32": f32_fn},
-                              medians=("kernel", "float32"))
-        row["event_ms"] = cuda_time_ms(f64_fn)
-        row["ms"] = row["device_ms"] = dms["kernel"]
-        row["f32_device_ms"] = dms["float32"]
-        row["f64_over_f32"] = dms["kernel"] / dms["float32"]
+    tm, device = _tm, _f64_device
 
     def exact_err(w, t):
         """max over the matrices of |w - proj_LAPACK(t)| / max|lambda(t)|"""
@@ -2915,6 +2967,116 @@ def _check_shor_k64_kernels(gen, dev, shork_inputs=None):
     return out
 
 
+# (B, n = m, k) of the float64 McCormick rows: MC_SHAPES and (64, 50, 3),
+# where a slot thread holds the most values (k + q = 9)
+F64_MC_SHAPES = MC_SHAPES + K9S_EXTRA_SHAPES
+
+
+def _check_mc64_kernels(gen, dev, mc_inputs=None):
+    """The float64 builds of K9s, K9a and K9b against their plain versions
+    in float64 on float64 copies of ``_mc_inputs``' float32 inputs
+    (``_mc64_of``; the float32 rows' own, by (B, n, k), where given), K9b at
+    K9a's outputs, at every shape of ``F64_MC_SHAPES``: errors (K9s's
+    factors also against the row Grams, Mc Mc'), the same bits from two
+    launches, device ms (the row's ``ms``) beside the float32 build's on
+    the float32 inputs in the same profiler call (``f32_device_ms``),
+    CUDA-event ms, the plain version's and (K9s) the library chain's ms, the
+    plans against the kernels' exports and the bound (values at 8 bytes,
+    FP64 operations at 34 TFLOP/s, the larger).  Bars: 1e-10 relative of
+    the plain version, Mc Mc' within 1e-12 of the Grams."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.sdp import mccormick as MC
+
+    f64 = torch.float64
+    lib = kernels.library()
+    out = {key: [] for key in ("K9s_f64", "K9a_f64", "K9b_f64")}
+    for B, n, k in F64_MC_SHAPES:
+        c32, st32 = (mc_inputs or {}).get((B, n, k)) or _mc_inputs(B, n, n, k, gen, dev)
+        c, st = _mc64_of(c32, st32)
+        m, q = n, k * (k + 1) // 2
+        shape = dict(B=B, n=n, m=m, k=k)
+
+        # K9s, and the library chain on the same Grams: cuSOLVER's batched
+        # Cholesky, then the triangular solves for S_i
+        got, got2 = MC.mc_setup(c.batch, k), MC.mc_setup(c.batch, k)
+        torch.cuda.synchronize()
+        gram = MC.mc_gram_plain(c.batch, k)
+        rel, ab = _errs(got, MC.mc_setup_plain(c.batch, k))
+        Et = torch.zeros((k + q, q), dtype=f64, device=dev)
+        Et[k:] = torch.eye(q, dtype=f64, device=dev)
+        Etb = Et.expand(B, n, k + q, q).contiguous()
+        plan = MC.k9s_plan(B, n, k, f64)
+        rs = dict(**shape, plan=plan,
+                  plan_matches_kernel=(plan["threads"] == lib.omc_k9s_threads(n, k, 8)
+                                       and plan["smem_bytes"] == lib.omc_k9s_smem_bytes(n, k, 8)),
+                  rel_err=rel, max_abs_err=ab,
+                  gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
+                  deterministic=_same_bits(got, got2),
+                  plain_ms=_tm(lambda: MC.mc_setup_plain(c.batch, k)),
+                  library_ms=_tm(lambda: torch.cholesky_solve(Etb, torch.linalg.cholesky(gram))))
+        _f64_device(rs, lambda: MC.mc_setup(c.batch, k), lambda: MC.mc_setup(c32.batch, k))
+        rs["ok"] = (rs["rel_err"] <= 1e-10 and rs["gram_rel_err"] <= 1e-12
+                    and rs["deterministic"] and rs["plan_matches_kernel"])
+        vals, ops = _k9s_work(B, n, k)
+        with_bound(rs, 8 * vals, ops, PEAK_FP64_FLOPS)
+        out["K9s_f64"].append(rs)
+
+        # K9a
+        zs = lambda x: (x.X, x.Y, x.Th, x.U, x.t)  # noqa: E731
+        sk, s2 = st.clone(), st.clone()
+        MC.mc_zstep(c, sk)
+        MC.mc_zstep(c, s2)
+        torch.cuda.synchronize()
+        rel, ab = _errs(zs(sk), MC.mc_zstep_plain(c, st))
+        plan = MC.k9_plan(B, n, m, k, f64)
+        ra = dict(**shape, plan=plan,
+                  plan_matches_kernel=plan["k9a_grid"] == lib.omc_k9a_grid_x(B, n, m),
+                  rel_err=rel, max_abs_err=ab, deterministic=_same_bits(zs(sk), zs(s2)),
+                  plain_ms=_tm(lambda: MC.mc_zstep_plain(c, st)), library_ms=None)
+        s3, s3f = st.clone(), st32.clone()
+        _f64_device(ra, lambda: MC.mc_zstep(c, s3), lambda: MC.mc_zstep(c32, s3f))
+        ra["ok"] = ra["rel_err"] <= 1e-10 and ra["deterministic"] and ra["plan_matches_kernel"]
+        vals, ops = _k9a_work(B, n, m, k)
+        with_bound(ra, 8 * vals, ops, PEAK_FP64_FLOPS)
+        out["K9a_f64"].append(ra)
+
+        # K9b at K9a's outputs, with the running means (the float32 build at
+        # its own K9a's outputs beside)
+        sk32 = st32.clone()
+        MC.mc_zstep(c32, sk32)
+        acc = [torch.randn(x.shape, generator=gen, dtype=f64).to(dev) * 0.1
+               for x in (st.umc, st.uorth)]
+
+        def k9b(c_, s_, acc_):
+            """A launcher of K9b on copies of s_ and acc_, and its outputs."""
+            sb, a = s_.clone(), [x.clone() for x in acc_]
+            ts = tuple(torch.empty_like(x) for x in (sb.w1, sb.w2, sb.w3))
+            return (lambda: MC.mc_cone_step(c_, sb, ts, a, 0.25),
+                    lambda: ts + tuple(getattr(sb, name) for name in MC._REST) + tuple(a))
+
+        (run1, out1), (run2, out2) = k9b(c, sk, acc), k9b(c, sk, acc)
+        run1()
+        run2()
+        torch.cuda.synchronize()
+        t1, t2, t3, rest, acc_p = MC.mc_cone_step_plain(c, sk, acc, 0.25)
+        rel, ab = _errs(out1(), (t1, t2, t3) + tuple(rest) + tuple(acc_p))
+        rb = dict(**shape, plan=plan,
+                  plan_matches_kernel=plan["k9b_grid"] == lib.omc_k9b_grid_x(
+                      B, n, m, k, plan["qpc"], 8),
+                  rel_err=rel, max_abs_err=ab, deterministic=_same_bits(out1(), out2()),
+                  plain_ms=_tm(lambda: MC.mc_cone_step_plain(c, sk, acc, 0.25)),
+                  library_ms=None)
+        _f64_device(rb, k9b(c, sk, acc)[0], k9b(c32, sk32, [a.float() for a in acc])[0])
+        rb["ok"] = rb["rel_err"] <= 1e-10 and rb["deterministic"] and rb["plan_matches_kernel"]
+        vals, ops = _k9b_work(B, n, m, k)
+        with_bound(rb, 8 * vals, ops, PEAK_FP64_FLOPS)
+        out["K9b_f64"].append(rb)
+        del c32, st32, c, st, sk, s2, s3, s3f, sk32
+    return out
+
+
 F64_ADMM_SHAPES = ((64, 50, 1, 8), (1, 50, 1, 8), (8, 12, 1, 8), (8, 16, 1, 8), (8, 20, 1, 8),
                    (8, 10, 2, 8))
 # K4's float64 rows (B, d, modes, path): the three blocks of the headline's
@@ -2928,10 +3090,12 @@ F64_K4_SHAPES = ((64, 100, (1, 0, 2), None), (1, 100, (1, 0, 2), None),
 F64_K6_SHAPES = ((50, 4, 1), (50, 64, 1), (50, 4, 2), (50, 64, 2), (50, 4, 10))
 
 
-def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
+def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None, mc_inputs=None):
     """The float64 builds of K8a, K7 and K8b (``_check_shor_kernels``, on
     float64 copies of ``shor_inputs``, the float32 rows' inputs by shape,
-    where given: ``_shor64_of``), K2 (also its Shor mode), K3 (both modes),
+    where given: ``_shor64_of``), K8c, K7t, K7x and K8d
+    (``_check_shor_k64_kernels``), K9s, K9a and K9b
+    (``_check_mc64_kernels``), K2 (also its Shor mode), K3 (both modes),
     K4 (modes 0, 1, 2 on both paths), K4s, K5 and K6 against their plain
     versions in float64 on the same inputs, with times, bounds (8 bytes a
     value, the FP64 rate) and the library call.  Bars: K2, K3, K6, K8a, K7
@@ -2986,6 +3150,8 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
     # ---- K8c, K7t, K7x (slots) and K8d: config 3's frontier at k = 2, 3, 4
     # and a root visit ----
     out.update(_check_shor_k64_kernels(gen, dev, shork_inputs))
+    # ---- K9s, K9a and K9b: the McCormick rows' shapes and (64, 50, 3) ----
+    out.update(_check_mc64_kernels(gen, dev, mc_inputs))
     for B, n in ((32, 100), (4, 50)):
         c, st, acc, ts = _admm_inputs(B, n, n, 1, 8, gen, dev, f64)
         r2, _ = _check_k2_k3(c, st, acc, ts, shor=True, sweep=False)
@@ -3036,7 +3202,7 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
                 ok = row["rel_err_vs_f64"] <= 1e-11
                 plain = cones.project_psd_plain(T)
                 row["max_abs_err"] = float((got - plain).abs().max())
-                row["plain_ms"] = tm(lambda: cones.project_psd_plain(T))
+                row["plain_ms"] = tm(lambda: cones.project_psd_plain(T), warm=True)
                 name = "eigh"
             else:
                 w = got if mode == 0 else got[0]
@@ -3057,7 +3223,7 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
                 row["max_abs_err"] = float((w - ref).abs().max())
             if name not in lib_ms:
                 fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
-                lib_ms[name] = tm(lambda: fn(T))
+                lib_ms[name] = tm(lambda: fn(T), warm=True)
             row["library_ms"] = lib_ms[name]
             row.setdefault("plain_ms", lib_ms[name])
             row["ms"] = tm(lambda: cones.k4_jacobi(T, mode, path=force))
@@ -3101,8 +3267,8 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
                    deterministic=_same_bits((got,), (got_b,)),
                    smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D, 8),
                    ms=cuda_time_ms(lambda: cones.k4s_project_psd(T)),
-                   plain_ms=tm(lambda: cones.project_psd_plain(T)),
-                   library_ms=tm(lambda: cones.eigh_plain(T)))
+                   plain_ms=tm(lambda: cones.project_psd_plain(T), warm=True),
+                   library_ms=tm(lambda: cones.eigh_plain(T), warm=True))
         row["ok"] = (row["rel_err_vs_f64"] <= 1e-11 and row["max_sweeps"] <= MAX_SWEEPS
                      and row["deterministic"] and row["smem_matches_kernel"])
         with_bound(row, 8 * 2 * T.numel(), N * 10 * D ** 3, PEAK_FP64_FLOPS)
@@ -3138,8 +3304,8 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None):
                    deterministic=_same_bits((w, V), (w_b, V_b)),
                    smem_matches_kernel=plan["smem_bytes"] == lib.omc_k5_smem_bytes(n, 0),
                    ms=cuda_time_ms(lambda: _k5_launch(U, Y, plan)),
-                   plain_ms=tm(lambda: separation_eigpairs_plain(U, Y)),
-                   library_ms=tm(lambda: torch.linalg.eigh(M)))
+                   plain_ms=tm(lambda: separation_eigpairs_plain(U, Y), warm=True),
+                   library_ms=tm(lambda: torch.linalg.eigh(M), warm=True))
         row["ok"] = (row["eig_err_vs_f64"] <= 1e-11 and row["vec_err_vs_f64"] <= 1e-10
                      and row["max_iters"] <= K5_MAX_ITERS and row["deterministic"]
                      and row["smem_matches_kernel"] and plan["path"] == "tridiag64")
@@ -3221,18 +3387,28 @@ def phase_kernels64(res):
 def _bench_instance(frac, seed=0, n=50):
     """A rank-1 n x n instance with a fraction ``frac`` observed (a copy of
     the one made at the first call with these arguments)."""
-    A, idx = _instance(1, n, int(round(frac * n * n)), seed)
+    A, idx = _instance(1, n, n, int(round(frac * n * n)), seed)
     return A.copy(), idx.copy()
 
 
 @functools.lru_cache(maxsize=None)
-def _instance(k, n, n_indices, seed):
+def _instance(k, n, m, n_indices, seed):
     """``generate_matrix_completion_data`` once per arguments: its
-    rejection sampling takes seconds at n = 50 and 75, and every phase asks
-    for the same few instances."""
+    rejection sampling takes seconds at n = 50 and 75 (2-3 s for each of
+    the fixtures), and the phases ask for the same few instances."""
     from omc_torch.data import generate_matrix_completion_data
 
-    return generate_matrix_completion_data(k, n, n, n_indices, seed)
+    return generate_matrix_completion_data(k, n, m, n_indices, seed)
+
+
+def _fixtures():
+    """The four instances of tests/fixtures/instances.json: (fixture,
+    A, indices), each generated once for the fixtures and float64 phases."""
+    with open(os.path.join(HERE, "tests", "fixtures", "instances.json")) as fh:
+        fixtures = json.load(fh)
+    for fx in fixtures:
+        A, idx = _instance(fx["k"], fx["n"], fx["m"], fx["n_indices"], fx["seed"])
+        yield fx, A.copy(), idx.copy()
 
 
 BENCH_KW = dict(
@@ -3349,7 +3525,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
            "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
-           "float64", "shor64", "shork64")
+           "float64", "shor64", "shork64", "mccormick64")
 _PHASE = {"name": None}
 
 
@@ -3395,15 +3571,10 @@ def _summary(sol, inst, secs):
 
 def phase_fixtures(res):
     from omc_torch import kernels
-    from omc_torch.data import generate_matrix_completion_data
 
-    with open(os.path.join(HERE, "tests", "fixtures", "instances.json")) as fh:
-        fixtures = json.load(fh)
     rows = []
-    for fx in fixtures:
+    for fx, A, idx in _fixtures():
         _bank(res)  # the launches so far count, then 0
-        A, idx = generate_matrix_completion_data(
-            fx["k"], fx["n"], fx["m"], fx["n_indices"], fx["seed"])
         sol, inst, secs = _solve(
             A, idx, fx["gamma"], k=fx["k"], node_selection="bestfirst",
             disjunctive_cuts_type="linear",
@@ -3688,7 +3859,7 @@ SHORK_KW = dict(
 
 def _config3_instance():
     n = 75
-    A, idx = _instance(2, n, int(0.5 * n * n), 1)
+    A, idx = _instance(2, n, n, int(0.5 * n * n), 1)
     return A.copy(), idx.copy()
 
 
@@ -3786,22 +3957,29 @@ MC_API_OMC = -52.35261076808982
 MC3_ROOT_OMC = -229.971577418594
 
 
+def _mc_root(n, k):
+    """The root node of an n x n rank-k instance on the McCormick path (no
+    cuts)."""
+    import numpy as np
+
+    from omc_torch.tree import BBNode, root_box
+
+    lo, hi = root_box(n, k)
+    return BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0,
+                  cuts=None)
+
+
 def phase_mccormick(res):
     """The McCormick path (K9s/K9a/K9b with K1): (i) the standalone
     relaxation entry point on the headline's root node, held to omc's bound;
     (ii) a rank-2 root visit of the driver on config 3's instance, held to
     omc's bound; (iii) the full McCormick B&B on the headline instance,
     10 s."""
-    import numpy as np
-
     from omc_torch import kernels
     from omc_torch.api import matrix_completion_SDP_relaxation
-    from omc_torch.tree import BBNode, root_box
 
     A, idx = _bench_instance(0.5)
-    lo, hi = root_box(50, 1)
-    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0,
-                  cuts=None)
+    node = _mc_root(50, 1)
     kernels.reset_launches()
     t0 = time.time()
     r = matrix_completion_SDP_relaxation(node, 50, 1, A, idx, 80.0, use_disjunctive_cuts=False,
@@ -4512,12 +4690,8 @@ def phase_float64(res):
     assert r4["lower_bound_rel_dist"] <= 1e-8, r4
 
     # the four fixtures in float64 at their own gap_target
-    with open(os.path.join(HERE, "tests", "fixtures", "instances.json")) as fh:
-        fixtures = json.load(fh)
     rows = []
-    for fx in fixtures:
-        A_, idx_ = generate_matrix_completion_data(
-            fx["k"], fx["n"], fx["m"], fx["n_indices"], fx["seed"])
+    for fx, A_, idx_ in _fixtures():
         before = dict(kernels.LAUNCHES)
         sol, inst, secs = _solve(
             A_, idx_, fx["gamma"], k=fx["k"], node_selection="bestfirst",
@@ -4841,6 +5015,128 @@ def phase_shork64(res):
     res["shork64"] = row
 
 
+# the mccormick64 phase: omc's float64 McCormick relaxation on the card
+# (the float64 builds of K9s, K9a, K9b, K4, K5 and K6).  (a) The api's
+# McCormick relaxation at its defaults (float64, cuda) on the headline's root
+# (the mccormick phase's node), cut to 500 iterations, and (b) at k = 2 on
+# config 3's root, cut to 300 iterations as shork64 cut its call, each
+# against the same call on the CPU, run in a thread beside this phase's card
+# work.  (c) The headline instance's McCormick B&B in float64 (MC_KW), cut in
+# depth only: visits of 250 iterations, one refinement visit before a node
+# splits, 8 s.  (d) One traced float64 iteration at the headline's shape,
+# B=64 and the root's B=1.
+MC64_API_ITERS = 500
+MC64_K2_ITERS = 300
+MC64_KW = dict(MC_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=8)
+MC64_KEYS = ("K9s_f64", "K9a_f64", "K9b_f64", "K4_f64", "K5_f64", "K6_f64")
+# the float32 builds a float64 McCormick run must not launch
+MC64_NO_F32 = ("K1", "K9s", "K9a", "K9b")
+
+
+def _mc_iteration_trace(B, iters=10):
+    """One McCormick iteration at the headline's shape (n = m = 50, k = 1)
+    in float64 (the eigh route: K9a, K9b, three K4 launches and the torch
+    epilogue, the running means on), traced: CUDA-event ms an iteration,
+    device ms by kernel (the rest under "other: ..."), K4's share, the idle
+    share."""
+    import torch
+
+    from omc_torch.sdp import mccormick as MC
+
+    dev = torch.device("cuda", 0)
+    c, st = _mc64_of(*_mc_inputs(B, 50, 50, 1, torch.Generator().manual_seed(4), dev))
+    acc = [torch.zeros_like(x) for x in (st.u1, st.u2, st.umc, st.uorth)]
+    ts = (torch.empty_like(st.w1), torch.empty_like(st.w2), torch.empty_like(st.w3))
+    names = {"k9a_kernel": "K9a", "k9b_kernel": "K9b", "k4_": "K4"}
+    row = _trace_loop(lambda: MC.mc_iteration(c, st, ts, acc, 0.25, "eigh"), names, iters,
+                      B=B, n=50, m=50, k=1, dtype="float64")
+    row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
+    return row
+
+
+def phase_mccormick64(res):
+    """The McCormick family in float64 on the card, through the float64
+    builds of K9s, K9a, K9b, K4, K5 and K6: the api's McCormick relaxation
+    at its defaults on the headline's root and at k = 2 on config 3's root,
+    each against the same call on the CPU (bound and objective within 1e-8
+    relative); the headline's McCormick B&B in float64 with sound bounds,
+    omc's objective and more than one node; no float32 build launched; one
+    traced iteration at B=64 and at B=1."""
+    import numpy as np
+
+    from omc_torch import api, kernels
+
+    row = {}
+    A, idx = _bench_instance(0.5)
+    A3, idx3 = _config3_instance()
+    calls = {"k1": (_mc_root(50, 1), 50, 1, A, idx, MC64_API_ITERS, HEADLINE_OBJ),
+             "k2": (_mc_root(75, 2), 75, 2, A3, idx3, MC64_K2_ITERS, CONFIG3_OBJ)}
+
+    def relax(key, **kw):
+        node, n, k, A_, idx_, iters, _ = calls[key]
+        t0 = time.time()
+        out = api.matrix_completion_SDP_relaxation(node, n, k, A_, idx_, 80.0,
+                                                   use_disjunctive_cuts=False, iters=iters, **kw)
+        return out, time.time() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu_futures = {key: pool.submit(relax, key, device="cpu") for key in calls}
+    card = {}
+    for key in calls:
+        before = dict(kernels.LAUNCHES)
+        card[key] = relax(key) + (_launched_since(before),)
+        log(f"mccormick64 relaxation {key} launches", json.dumps(card[key][2]))
+        _assert_launched(card[key][2], MC64_KEYS[:5])
+        assert not any(card[key][2][x] for x in MC64_NO_F32), card[key][2]
+
+    # the headline's McCormick B&B in float64
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A, idx, 80.0, **MC64_KW)
+    launches = _launched_since(before)
+    lowers = [x["lower"] for x in inst["run_log"] if x["lower"] > -1e300]
+    br = _summary(sol, inst, secs)
+    br.update(launches=launches, lowers=lowers,
+              ms_per_iter=1e3 * br["device_s"] / max(br["sdp_iters_total"], 1))
+    log("mccormick64 branch", json.dumps(br))
+    assert abs(br["objective"] - HEADLINE_OBJ) <= 1e-6 * HEADLINE_OBJ, br
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert all(x <= HEADLINE_OBJ * (1 + 1e-4) for x in lowers), lowers
+    assert br["nodes_explored"] > 1, br
+    _assert_launched(launches, MC64_KEYS)
+    assert not any(launches[x] for x in MC64_NO_F32), launches
+    # one K9a, one K9b and three K4 projections an iteration, K9s and the
+    # separation once a visit
+    iters, visits = br["sdp_iters_total"], br["device_steps"]
+    assert launches["K9a_f64"] == launches["K9b_f64"] == iters, (launches, br)
+    assert launches["K4_f64"] == 3 * iters, (launches, br)
+    assert launches["K9s_f64"] == launches["K5_f64"] == visits, (launches, br)
+    row["branch"] = br
+
+    # one float64 iteration at B=64 and at the root's B=1, split by kernel
+    row["iteration"] = {f"B{B}": _mc_iteration_trace(B) for B in (64, 1)}
+    for key, tr in row["iteration"].items():
+        log(f"mccormick64 iteration {key}", json.dumps(tr))
+
+    # the relaxations against their CPU calls (the thread's results)
+    for key, (_, _, k, _, _, iters, obj) in calls.items():
+        (sdp, secs_), sdp_launches = card[key][:2], card[key][2]
+        sdp_cpu, cpu_s = cpu_futures[key].result()
+        r = dict(k=k, iters=iters, seconds=secs_, seconds_cpu=cpu_s,
+                 ms_per_iter=1e3 * secs_ / iters, tol=1e-8, launches=sdp_launches)
+        for name in ("lower_bound", "objective"):
+            a_, b_ = float(sdp[name]), float(sdp_cpu[name])
+            r[name], r[name + "_cpu"] = a_, b_
+            r[name + "_rel_dist"] = abs(a_ - b_) / max(1.0, abs(b_))
+        r["Y_rel_dist"] = float(np.linalg.norm(sdp["Y"] - sdp_cpu["Y"])
+                                / np.linalg.norm(sdp_cpu["Y"]))
+        row[f"relaxation_{key}"] = r
+        log(f"mccormick64 relaxation {key}", json.dumps(r))
+        assert r["lower_bound_rel_dist"] <= 1e-8 and r["objective_rel_dist"] <= 1e-8, r
+        assert r["lower_bound"] <= obj, r
+    pool.shutdown()
+    res["mccormick64"] = row
+
+
 def phase_profile(res):
     """The headline with profile_dir (a directory under build/, removed
     after) and profile_steps=3: the Chrome trace holds CUDA kernel events
@@ -4933,7 +5229,8 @@ KERNELS = (
     ("K6", ("K6",),
      "K6 altmin masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
-    # the float64 builds (the float64, shor64 and shork64 phases' launches)
+    # the float64 builds (the float64, shor64, shork64 and mccormick64
+    # phases' launches)
     ("K2_f64", ("K2_f64",), "K2 float64 build: adjoint + Woodbury z-step (B=64, n=m=50, L=8)",
      "omc_torch/csrc/k2_zstep.cu", "omc/sdp/admm.py:324"),
     ("K3_f64", ("K3_f64",), "K3 float64 build: forward map + cone step (B=64, n=m=50, L=8)",
@@ -4957,6 +5254,14 @@ KERNELS = (
     ("K8d_f64", ("K8d_f64",),
      "K8d float64 build: rank-k Shor RSOC/link/W>=0/Wt>=0 cone step (B=32, n=m=75, k=2)",
      "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
+    ("K9s_f64", ("K9s_f64",),
+     "K9s float64 build: McCormick row Grams, Cholesky factors, orthogonality Woodbury "
+     "(B=64, n=50, k=1)", "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:385"),
+    ("K9a_f64", ("K9a_f64",), "K9a float64 build: McCormick adjoint + z-step (B=64, n=m=50, k=1)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:446"),
+    ("K9b_f64", ("K9b_f64",),
+     "K9b float64 build: McCormick forward map + cone step (B=64, n=m=50, k=1)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
     ("K4_f64", ("K4_f64",),
      "K4 float64 build: Jacobi PSD projection, CTA path (B=64, d=100)",
      "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),

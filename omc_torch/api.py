@@ -9,12 +9,10 @@ and returns a dict with the reference's keys, as ``omc.api`` does.
 
 Both run on the GPU (``device="cuda"``, the kernels) unless the caller
 asks for ``device="cpu"`` (the plain versions); without a GPU the default
-raises.  Their default dtype is ``omc``'s float64: on the GPU the base
-family and the Shor relaxations (k = 1 and k > 1) run it through the
-float64 builds of K2-K6, K7, K8a, K8b, K7t, K7x, K8c and K8d (exact Jacobi
-projections, as ``omc``'s eigh route); a float64 McCormick relaxation on
-the GPU raises (``kernels.require_cuda_dtype``), and runs in float32 or on
-the CPU.
+raises.  Their default dtype is ``omc``'s float64: on the GPU every
+family (base, Shor k = 1 and k > 1, McCormick) runs it through the float64
+builds of its kernels (K2-K6, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a,
+K9b; exact Jacobi projections, as ``omc``'s eigh route).
 """
 
 from __future__ import annotations

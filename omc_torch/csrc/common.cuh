@@ -574,8 +574,8 @@ struct K1Params {
 };
 
 // K2's, K3's, K7's, K8a's, K8b's, K4's, K5's, K4s's and K6's blocks (and
-// K7t's, K7x's, K8c's and K8d's below) are templates on the element type
-// T: float, or double for the float64 builds (the entry points named
+// K7t's, K7x's, K8c's, K8d's, K9s's, K9a's and K9b's below) are templates
+// on the element type T: float, or double for the float64 builds (the entry points named
 // ..._f64; the ctypes blocks of omc_torch/kernels.py with c_double
 // scalars).  The float blocks keep their names.
 template <class T>
@@ -753,42 +753,49 @@ struct K8cParamsT {
 using K8cParams = K8cParamsT<float>;
 
 // K9s: rho-free factorisations of the McCormick z-step (once per solve call)
-struct K9sParams {
-  const float *U_lo, *U_hi;   // (B, n, k) node boxes
-  float* Mc;                  // (B, n, k+q, k+q) lower Cholesky factors of the row Grams
-  float* Si;                  // (B, n, k+q, q) M_i^-1 E_t
-  float* Gc;                  // (B, q, q) lower Cholesky factor of G = I + sum_i Si[i, k:, :]
+template <class T>
+struct K9sParamsT {
+  const T *U_lo, *U_hi;       // (B, n, k) node boxes
+  T* Mc;                      // (B, n, k+q, k+q) lower Cholesky factors of the row Grams
+  T* Si;                      // (B, n, k+q, q) M_i^-1 E_t
+  T* Gc;                      // (B, q, q) lower Cholesky factor of G = I + sum_i Si[i, k:, :]
   int B, n, k;
 };
+using K9sParams = K9sParamsT<float>;
 
 // K9a: McCormick adjoint + z-step -> Xs, Y, Ths, U, t; B slot CTAs, then
 // the X chunks and the Theta and Y tile pairs of every slot (omc_k9a_grid_x)
-struct K9aParams {
-  const float *w1, *u1, *w2, *u2, *w3, *u3, *w4, *u4, *wsoc, *usoc, *wbox, *ubox,
+template <class T>
+struct K9aParamsT {
+  const T *w1, *u1, *w2, *u2, *w3, *u3, *w4, *u4, *wsoc, *usoc, *wbox, *ubox,
       *wmc, *umc, *worth, *uorth;
-  const float *U_lo, *U_hi;   // (B, n, k)
-  const float *maskA, *mask;  // (n, m)
-  const float *sX, *sT, *rho; // (B,)
-  const float *Mc, *Si, *Gc;  // K9s
-  float *Xs, *Y, *Ths, *U, *t;
+  const T *U_lo, *U_hi;       // (B, n, k)
+  const T *maskA, *mask;      // (n, m)
+  const T *sX, *sT, *rho;     // (B,)
+  const T *Mc, *Si, *Gc;      // K9s
+  T *Xs, *Y, *Ths, *U, *t;
   int B, n, m, k;
-  float gamma;
+  T gamma;
 };
+using K9aParams = K9aParamsT<float>;
 
 // K9b: McCormick forward map + cone step of every slot but the PSD blocks,
 // with the running means of rho*umc and rho*uorth (acc null: none); B slot
-// CTAs, then CTAs of qpc quads of the batch's t1, t2, t3 (omc_k9b_grid_x).
-struct K9bParams {
-  const float *Xs, *Y, *Ths, *U, *t;
-  const float *w1, *u1, *w2, *u2, *w3, *u3;  // 16-byte aligned
-  float *t1, *t2, *t3;                       // 16-byte aligned
-  float *w4, *u4, *wsoc, *usoc, *wbox, *ubox, *wmc, *umc, *worth, *uorth;
-  float *acc_mc, *acc_orth;
-  const float *U_lo, *U_hi, *sX, *sT, *rho;
+// CTAs, then CTAs of qpc 16-byte words (quads; pairs in the float64 build)
+// of the batch's t1, t2, t3 (omc_k9b_grid_x).
+template <class T>
+struct K9bParamsT {
+  const T *Xs, *Y, *Ths, *U, *t;
+  const T *w1, *u1, *w2, *u2, *w3, *u3;  // 16-byte aligned
+  T *t1, *t2, *t3;                       // 16-byte aligned
+  T *w4, *u4, *wsoc, *usoc, *wbox, *ubox, *wmc, *umc, *worth, *uorth;
+  T *acc_mc, *acc_orth;
+  const T *U_lo, *U_hi, *sX, *sT, *rho;
   int B, n, m, k;
-  int qpc;  // quads a flat CTA: 32, 64 or 128 (sdp.mccormick.k9_plan)
-  float alpha, beta;
+  int qpc;  // words a flat CTA: 32, 64 or 128 (sdp.mccormick.k9_plan)
+  T alpha, beta;
 };
+using K9bParams = K9bParamsT<float>;
 
 // K8d: cone step of the RSOC, Theta-link, W-link, W >= 0 and Wt >= 0 slots
 // of the rank-k Shor relaxation, with the EMAs of rho*ur, rho*ul, rho*uwl;

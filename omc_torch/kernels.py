@@ -42,15 +42,15 @@ PyTorch version:
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
 
-K2, K3, K7 (its fused mode), K7t, K7x (its slot mode), K8a, K8b, K8c,
-K8d, K4, K4s, K5 and K6 also have float64 builds (K7's, K7t's and K7x's
-projecting exactly by Jacobi): the same kernels on double operands,
-behind C entry points named ``..._f64`` that take the float64 parameter
-blocks (``float64_block``: pointer fields as in the float blocks, scalar
-fields in double).  A wrapper picks the build from its operands' dtype (``entry``)
-and checks every operand at that dtype; the other kernels take float32
-only, and ``require_cuda_dtype`` refuses a float64 CUDA solve of their
-family (McCormick).
+Every kernel but K1 also has a float64 build (K7's, K7t's and K7x's
+projecting exactly by Jacobi; K7's fused mode, K7x's slot mode): the same
+kernels on double operands, behind C entry points named ``..._f64`` that
+take the float64 parameter blocks (``float64_block``: pointer fields as in
+the float blocks, scalar fields in double).  A wrapper picks the build from
+its operands' dtype (``entry``) and checks every operand at that dtype.
+K1, the float32 sign schedule, has none: the float64 solves project
+exactly through K4 and K4s, so every solver family runs float32 or
+float64 on the card (``require_cuda_dtype``).
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
             "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0,
             "K4": 0, "K4s": 0, "K5": 0, "K6": 0,
             "K2_f64": 0, "K3_f64": 0, "K7_f64": 0, "K8a_f64": 0, "K8b_f64": 0,
-            "K7t_f64": 0, "K7x_f64": 0, "K8c_f64": 0, "K8d_f64": 0, "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
+            "K7t_f64": 0, "K7x_f64": 0, "K8c_f64": 0, "K8d_f64": 0, "K9s_f64": 0, "K9a_f64": 0,
+            "K9b_f64": 0, "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "omc_torch"
@@ -324,9 +325,11 @@ def float64_block(cls):
 
 
 (K2Params64, K3Params64, K7Params64, K8aParams64, K8bParams64, K7tParams64, K7xParams64,
- K8cParams64, K8dParams64, K4Params64, K5Params64, K4sParams64, K6Params64) = map(
+ K8cParams64, K8dParams64, K9sParams64, K9aParams64, K9bParams64, K4Params64, K5Params64,
+ K4sParams64, K6Params64) = map(
     float64_block, (K2Params, K3Params, K7Params, K8aParams, K8bParams, K7tParams, K7xParams,
-                    K8cParams, K8dParams, K4Params, K5Params, K4sParams, K6Params))
+                    K8cParams, K8dParams, K9sParams, K9aParams, K9bParams, K4Params, K5Params,
+                    K4sParams, K6Params))
 # the float64 builds: float block -> (float64 block, entry points)
 FLOAT64_BUILDS = {
     K2Params: (K2Params64, ("omc_k2_zstep",)),
@@ -338,6 +341,9 @@ FLOAT64_BUILDS = {
     K7xParams: (K7xParams64, ("omc_k7x_xwh",)),
     K8cParams: (K8cParams64, ("omc_k8c_shor_k_zstep",)),
     K8dParams: (K8dParams64, ("omc_k8d_shor_k_cone",)),
+    K9sParams: (K9sParams64, ("omc_k9s_setup",)),
+    K9aParams: (K9aParams64, ("omc_k9a_zstep",)),
+    K9bParams: (K9bParams64, ("omc_k9b_cone",)),
     K4Params: (K4Params64, ("omc_k4_jacobi",)),
     K5Params: (K5Params64, ("omc_k5_separation",)),
     K4sParams: (K4sParams64, ("omc_k4s_jacobi_small",)),
@@ -364,30 +370,23 @@ def entry(fn_name: str, dtype) -> str:
     raise TypeError(f"{fn_name}: no {dtype} build")
 
 
-# The solver families whose every kernel has a float64 build: the base ADMM
-# family (K2, K3, K4, K4s, K5, K6), the two options that run through its
-# kernels, PDHG (K4, K4s, K5) and Halpern (K3's Halpern mode), Shor k = 1
-# (K2's Shor mode, K8a, K3, K4, K7's fused mode, K8b, K4s, K5, K6) and Shor
-# k > 1 (K2's Shor mode, K8c, K3, K4, K7t, K7x's slot mode, K8d, K4s, K5, K6).
-FLOAT64_FAMILIES = ("base", "pdhg", "halpern", "shor", "shor_k")
-FAMILIES = FLOAT64_FAMILIES + ("mccormick",)
-FLOAT64_ROADMAP = ('ROADMAP.md queue 1, "float64 on the card": the float64 builds of K9s, '
-                   "K9a, K9b (McCormick)")
+# The solver families whose every kernel has a float64 build, which is every
+# family: the base ADMM family (K2, K3, K4, K4s, K5, K6), the two options
+# that run through its kernels, PDHG (K4, K4s, K5) and Halpern (K3's Halpern
+# mode), Shor k = 1 (K2's Shor mode, K8a, K3, K4, K7's fused mode, K8b, K4s,
+# K5, K6), Shor k > 1 (K2's Shor mode, K8c, K3, K4, K7t, K7x's slot mode,
+# K8d, K4s, K5, K6) and McCormick (K9s, K9a, K9b, K4, K5, K6).
+FLOAT64_FAMILIES = ("base", "pdhg", "halpern", "shor", "shor_k", "mccormick")
 
 
 def require_cuda_dtype(family: str, dtype) -> None:
-    """The CUDA guard of every solver family: float32 runs every family;
-    float64 runs the families of ``FLOAT64_FAMILIES``; anything else
-    raises ``ValueError`` (for a float64 McCormick request, the one
-    message that names the roadmap item)."""
-    if family not in FAMILIES:
+    """The CUDA guard of every solver family: every family runs float32 and
+    float64 (``FLOAT64_FAMILIES``); an unknown family or another dtype
+    raises ``ValueError``."""
+    if family not in FLOAT64_FAMILIES:
         raise ValueError(f"unknown solver family {family!r}")
-    if dtype == torch.float32 or (dtype == torch.float64 and family in FLOAT64_FAMILIES):
-        return
-    if dtype == torch.float64:
-        raise ValueError(f'the CUDA path runs the {family} family in dtype="float32" only; '
-                         f"its float64 build is still to come ({FLOAT64_ROADMAP})")
-    raise ValueError(f"the CUDA path runs float32 or float64, not {dtype}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the CUDA path runs float32 or float64, not {dtype}")
 
 
 def _load(path: Path):
@@ -462,13 +461,13 @@ def _load(path: Path):
     lib.omc_k7x_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8d_grid_x.argtypes = [ctypes.c_int] * 7
     lib.omc_k8d_grid_x.restype = ctypes.c_int
-    lib.omc_k9s_threads.argtypes = [ctypes.c_int] * 2
+    lib.omc_k9s_threads.argtypes = [ctypes.c_int] * 3
     lib.omc_k9s_threads.restype = ctypes.c_int
-    lib.omc_k9s_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.omc_k9s_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.omc_k9s_smem_bytes.restype = ctypes.c_int
     lib.omc_k9a_grid_x.argtypes = [ctypes.c_int] * 3
     lib.omc_k9a_grid_x.restype = ctypes.c_int
-    lib.omc_k9b_grid_x.argtypes = [ctypes.c_int] * 5
+    lib.omc_k9b_grid_x.argtypes = [ctypes.c_int] * 6
     lib.omc_k9b_grid_x.restype = ctypes.c_int
     for name, nargs in (("omc_k2_smem_bytes", 9), ("omc_k3_smem_bytes", 9),
                         ("omc_k2_ws_doubles", 6), ("omc_k3_ws_doubles", 5)):

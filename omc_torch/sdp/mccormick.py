@@ -14,8 +14,8 @@ a (k+q) x (k+q) Gram per row — plus a rank-q orthogonality correction.  The
 row Grams and the q x q Woodbury matrix are rho-free, so they are factored
 once per solve call (K9s).
 
-One iteration on the GPU is three kernel launches (``csrc/k9_mccormick.cu``
-and ``csrc/k1_psd_sign.cu``):
+One iteration on the GPU is three kernel launches in float32
+(``csrc/k9_mccormick.cu`` and ``csrc/k1_psd_sign.cu``):
 
 1. K9a ``mc_zstep``     — the adjoint of the eight slot residuals (the
    McCormick duals scattered from pairs to coordinates), the X/Theta
@@ -28,6 +28,12 @@ and ``csrc/k1_psd_sign.cu``):
    rho*uorth;
 3. K1 ``project_psd_ns_multi`` — the PSD blocks (n+m)^2, (n+k)^2, n^2, with
    the running dual mean of rho*u1 and rho*u2.
+
+In float64 (``omc``'s float64 route, ``psd_method="eigh"``) K9a and K9b
+are their float64 builds and step 3 projects the three blocks exactly:
+K4's float64 build (``ops.cones.project_psd``), then the torch epilogue
+(``ops.polar.psd_epilogue``: u and the running means); K9s runs its
+float64 build once per solve call.
 
 ``omc`` averages rho*u over the last ``navg = max(1, iters // 4)``
 iterations as a sum times 1/navg; the port keeps a running mean (the
@@ -464,28 +470,41 @@ def _check_k(name, k):
 
 
 # K9s's CTA (csrc/k9_mccormick.cu): one a node slot, n threads rounded up to
-# whole warps, 128 to 256 (a thread takes a row of each chunk of that many)
+# whole warps, 128 to 256 (a thread takes a row of each chunk of that many),
+# fewer where a chunk's staging would pass a CTA's shared memory (227 KB)
 K9S_THREADS, K9S_MIN_THREADS = 256, 128
+K9_SMEM_MAX = 232448
 
 
-def k9s_plan(B: int, n: int, k: int) -> dict:
-    """K9s's launch at (B, n, k): B CTAs of ``threads``, the rows in
-    ``chunks`` of that many, ``smem_bytes`` of dynamic shared memory (a
-    chunk's Mc and Si rows staged with 4 floats of alignment slack each,
-    then each warp's partials of G's q(q+1)/2 lower entries)."""
+def _k9s_smem_values(threads: int, k: int, itemsize: int) -> int:
+    q = k * (k + 1) // 2
+    kq, slack = k + q, 16 // itemsize
+    return (slack + threads * kq * kq) + (slack + threads * kq * q) + (
+        threads // 32) * (q * (q + 1) // 2)
+
+
+def k9s_plan(B: int, n: int, k: int, dtype=torch.float32) -> dict:
+    """K9s's launch at (B, n, k) on values of ``dtype``: B CTAs of
+    ``threads``, the rows in ``chunks`` of that many, ``smem_bytes`` of
+    dynamic shared memory (a chunk's Mc and Si rows staged with one 16-byte
+    word of alignment slack each, then each warp's partials of G's
+    q(q+1)/2 lower entries); in float64 the threads narrow by warps until
+    that fits (k = 3: 192 threads)."""
     _check_k("K9s", k)
     if B < 1 or n < 1:
         raise ValueError(f"K9s: B={B}, n={n}")
-    q = k * (k + 1) // 2
-    kq = k + q
+    e = dtype.itemsize
     threads = min(K9S_THREADS, max(K9S_MIN_THREADS, 32 * _cdiv(n, 32)))
-    floats = (4 + threads * kq * kq) + (4 + threads * kq * q) + (threads // 32) * (q * (q + 1) // 2)
-    return dict(threads=threads, chunks=_cdiv(n, threads), smem_bytes=4 * floats)
+    while threads > K9S_MIN_THREADS and e * _k9s_smem_values(threads, k, e) > K9_SMEM_MAX:
+        threads -= 32
+    return dict(threads=threads, chunks=_cdiv(n, threads),
+                smem_bytes=e * _k9s_smem_values(threads, k, e))
 
 
 def _k9s_layout(B: int, n: int, k: int):
     """K9s's one output buffer: the (offset, shape) of Mc, Si and Gc in it,
-    each on a 256-byte boundary, and its length in floats."""
+    each on a boundary of 64 values (256 bytes in float32, 512 in float64),
+    and its length in values."""
     q = k * (k + 1) // 2
     kq = k + q
     out, o = [], 0
@@ -501,9 +520,10 @@ def _k9s_views(buf, B: int, n: int, k: int):
                  for o, shape in _k9s_layout(B, n, k)[0])
 
 
-def mc_setup_buffer(B: int, n: int, k: int, device) -> torch.Tensor:
-    """One flat float32 buffer holding K9s's three outputs."""
-    return torch.empty(_k9s_layout(B, n, k)[1], dtype=torch.float32, device=device)
+def mc_setup_buffer(B: int, n: int, k: int, device, dtype=torch.float32) -> torch.Tensor:
+    """One flat buffer of ``dtype`` (the batch's) holding K9s's three
+    outputs."""
+    return torch.empty(_k9s_layout(B, n, k)[1], dtype=dtype, device=device)
 
 
 def mc_setup(batch: MCBatch, k: int):
@@ -514,32 +534,38 @@ def mc_setup(batch: MCBatch, k: int):
     G) or raises.  The three outputs are views of one new buffer
     (``mc_setup_buffer``).  The wrapper runs once per solver call
     (``make_mc_consts``), each time into a new buffer, so its parameter
-    block is packed at every call and kept by no cache."""
+    block is packed at every call and kept by no cache.  A float64 batch
+    takes the float64 build (``omc_k9s_setup_f64``) and a float64
+    buffer."""
     dev = batch.U_lo.device
     if dev.type == "cpu":
         return mc_setup_plain(batch, k)
     if dev.type != "cuda":
         raise ValueError(f"mc_setup: unsupported device {dev}")
     B, n = batch.U_lo.shape[:2]
-    k9s_plan(B, n, k)  # refuses a rank or a shape before the allocation
-    views = _k9s_views(mc_setup_buffer(B, n, k, dev), B, n, k)
-    kernels.launch("K9s", "omc_k9s_setup", _k9s_params(batch, k, views, dev), dev)
+    dt = batch.U_lo.dtype
+    k9s_plan(B, n, k, dt)  # refuses a rank or a shape before the allocation
+    views = _k9s_views(mc_setup_buffer(B, n, k, dev, dt), B, n, k)
+    kernels.launch("K9s", kernels.entry("omc_k9s_setup", dt), _k9s_params(batch, k, views, dev),
+                   dev)
     return views
 
 
 def _k9s_params(batch: MCBatch, k: int, views, dev):
     """K9s's parameter block: the boxes and the three outputs ``views``
-    ((Mc, Si, Gc), ``_k9s_views``), each operand checked."""
+    ((Mc, Si, Gc), ``_k9s_views``), each operand checked at the boxes'
+    dtype."""
     B, n = batch.U_lo.shape[:2]
-    k9s_plan(B, n, k)
+    dt = batch.U_lo.dtype
+    k9s_plan(B, n, k, dt)
     q = k * (k + 1) // 2
     kq = k + q
-    prm = kernels.K9sParams()
-    prm.U_lo = kernels.check("U_lo", batch.U_lo, (B, n, k), dev)
-    prm.U_hi = kernels.check("U_hi", batch.U_hi, (B, n, k), dev)
-    prm.Mc = kernels.check("Mc", views[0], (B, n, kq, kq), dev)
-    prm.Si = kernels.check("Si", views[1], (B, n, kq, q), dev)
-    prm.Gc = kernels.check("Gc", views[2], (B, q, q), dev)
+    prm = kernels.block(kernels.K9sParams, dt)
+    prm.U_lo = kernels.check("U_lo", batch.U_lo, (B, n, k), dev, dt)
+    prm.U_hi = kernels.check("U_hi", batch.U_hi, (B, n, k), dev, dt)
+    prm.Mc = kernels.check("Mc", views[0], (B, n, kq, kq), dev, dt)
+    prm.Si = kernels.check("Si", views[1], (B, n, kq, q), dev, dt)
+    prm.Gc = kernels.check("Gc", views[2], (B, q, q), dev, dt)
     prm.B, prm.n, prm.k = B, n, k
     return prm
 
@@ -558,7 +584,7 @@ def mc_setup_structured(batch: MCBatch, k: int, threads: int = None):
     B, n = lo.shape[:2]
     q = k * (k + 1) // 2
     kq = k + q
-    T = threads or k9s_plan(B, n, k)["threads"]
+    T = threads or k9s_plan(B, n, k, dtype)["threads"]
     A = torch.zeros((B, n, kq, kq), dtype=dtype)
     p = 0
     for j1 in range(k):
@@ -656,8 +682,9 @@ def make_mc_consts(A, mask, batch: MCBatch, state: MCState, n, m, k, gamma, alph
 # K9a's and K9b's geometry (csrc/k9_mccormick.cu): CTAs of 128 threads, one
 # slot CTA a node slot first in the grid; K9a's flat CTAs take X in chunks of
 # 512 entries and Theta's and Y's tile pairs of 16 x 16 tiles; K9b's take a
-# quad of 4 consecutive t1, t2 or t3 entries a thread, qpc quads a CTA, fewer
-# until the flat CTAs fill the card's SMs
+# 16-byte word of consecutive t1, t2 or t3 entries a thread (a quad of
+# floats, a pair of doubles), qpc words a CTA, fewer until the flat CTAs
+# fill the card's SMs
 K9_THREADS, K9_TILE, K9_X_CHUNK = 128, 16, 512
 K9B_TARGET_CTAS = H100_SMS
 
@@ -666,25 +693,33 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def k9_plan(B: int, n: int, m: int, k: int) -> dict:
-    """K9a's and K9b's grids, one dimension each.  K9a (``k9a_grid``): B
-    slot CTAs (slot x: the per-row (U, t) solves, the sums over rows, Y's
-    diagonal), then ``units`` CTAs a slot (slot x // units): ``x_chunks``
+def k9_plan(B: int, n: int, m: int, k: int, dtype=torch.float32) -> dict:
+    """K9a's and K9b's grids on values of ``dtype``, one dimension each.
+    K9a (``k9a_grid``): B slot CTAs (slot x: the per-row (U, t) solves, the
+    sums over rows, Y's diagonal; z0 and Y's diagonal staged, n (k + q + 1)
+    values), then ``units`` CTAs a slot (slot x // units): ``x_chunks``
     chunks of 512 entries of X, ``th_pairs`` tile pairs (I <= J, row by
     row) of Theta's ceil(m / 16)^2 tiles, ``y_pairs`` of Y's ceil(n / 16)^2.
     K9b (``k9b_grid``): B slot CTAs, then ``t1_ctas``, ``t2_ctas`` and
-    ``t3_ctas`` CTAs of ``qpc`` quads of 4 consecutive entries of the
-    batch's flat t1, t2, t3; ``qpc`` halves from 128 to 32 while the flat
-    CTAs are fewer than ``K9B_TARGET_CTAS``.  Raises on a rank or a shape
-    the kernels do not take."""
+    ``t3_ctas`` CTAs of ``qpc`` words of E = 16 / itemsize consecutive
+    entries (quads in float32, pairs in float64) of the batch's flat t1,
+    t2, t3; ``qpc`` halves from 128 to 32 while the flat CTAs are fewer
+    than ``K9B_TARGET_CTAS``.  Raises on a rank or a shape the kernels do
+    not take, a slot CTA's staging past 227 KB among them (float64 only,
+    at n > 2,905 with k = 3)."""
     _check_k("K9", k)
     if min(B, m) < 1 or n < 2 or n + m > 4096:
         raise ValueError(f"K9: unsupported shape B={B}, n={n}, m={m} (B, m >= 1, n >= 2, "
                          "n + m <= 4096)")
+    staged = dtype.itemsize * n * (k + k * (k + 1) // 2 + 1)
+    if staged > K9_SMEM_MAX:
+        raise ValueError(f"K9: unsupported shape n={n}, k={k} in {dtype}: the slot CTA's "
+                         f"staging takes {staged} bytes, above {K9_SMEM_MAX}")
     tn, tm = _cdiv(n, K9_TILE), _cdiv(m, K9_TILE)
     x, th, y = _cdiv(n * m, K9_X_CHUNK), tm * (tm + 1) // 2, tn * (tn + 1) // 2
     units = x + th + y
-    quads = (_cdiv(B * (n + m) ** 2, 4), _cdiv(B * (n + k) ** 2, 4), _cdiv(B * n * n, 4))
+    E = 16 // dtype.itemsize
+    quads = (_cdiv(B * (n + m) ** 2, E), _cdiv(B * (n + k) ** 2, E), _cdiv(B * n * n, E))
     qpc = K9_THREADS
     while qpc > 32 and sum(_cdiv(x, qpc) for x in quads) < K9B_TARGET_CTAS:
         qpc //= 2
@@ -860,7 +895,8 @@ def mc_zstep(c: _MCConsts, st: MCState):
     """K9a wrapper: writes (Xs, Y, Ths, U, t) into ``st``.  A CPU state runs
     ``mc_zstep_plain``; a CUDA state launches ``csrc/k9_mccormick.cu``
     (``k9_plan``'s grid: a slot CTA a node slot, then the X chunks and the
-    Theta and Y tile pairs) or raises.  The parameter block is packed once
+    Theta and Y tile pairs; a float64 state the float64 build,
+    ``omc_k9a_zstep_f64``) or raises.  The parameter block is packed once
     per operands (``admm._packed``)."""
     dev = st.w1.device
     if dev.type == "cpu":
@@ -869,7 +905,8 @@ def mc_zstep(c: _MCConsts, st: MCState):
         return
     if dev.type != "cuda":
         raise ValueError(f"mc_zstep: unsupported device {dev}")
-    kernels.launch("K9a", "omc_k9a_zstep", _k9a_params(c, st, dev), dev)
+    kernels.launch("K9a", kernels.entry("omc_k9a_zstep", st.rho.dtype), _k9a_params(c, st, dev),
+                   dev)
 
 
 # K9a's and K9b's state operands, gathered cheaply for the reuse test of
@@ -882,7 +919,8 @@ def _k9a_tensors(c: _MCConsts, st: MCState) -> tuple:
 
 
 def _k9a_operands(c: _MCConsts, st: MCState) -> list:
-    """(field, tensor, shape) of every K9a operand (float32)."""
+    """(field, tensor, shape) of every K9a operand (each of the state's
+    dtype)."""
     B = st.rho.shape[0]
     n, m, k, q = c.n, c.m, c.k, c.q
     shapes = _shapes(B, n, m, k)
@@ -896,19 +934,22 @@ def _k9a_operands(c: _MCConsts, st: MCState) -> list:
 
 
 def _k9a_params(c: _MCConsts, st: MCState, dev):
-    """K9a's parameter block, packed once per operands (``admm._packed``)."""
+    """K9a's parameter block (the float64 build's for a float64 state),
+    packed once per operands (``admm._packed``); every operand checked at
+    the state's dtype."""
+    dt = st.rho.dtype
 
     def build():
         B = st.rho.shape[0]
-        k9_plan(B, c.n, c.m, c.k)  # refuses a rank or a shape the kernel does not take
-        p = kernels.K9aParams()
+        k9_plan(B, c.n, c.m, c.k, dt)  # refuses a rank or a shape the kernel does not take
+        p = kernels.block(kernels.K9aParams, dt)
         for name, t, shape in _k9a_operands(c, st):
-            setattr(p, name, kernels.check(name, t, shape, dev))
+            setattr(p, name, kernels.check(name, t, shape, dev, dt))
         p.B, p.n, p.m, p.k = B, c.n, c.m, c.k
         p.gamma = float(c.gamma)
         return p
 
-    return _packed(("K9a", id(c), id(st)), _k9a_tensors(c, st), (c.gamma,), build)
+    return _packed(("K9a", id(c), id(st), dt), _k9a_tensors(c, st), (c.gamma,), build)
 
 
 # ---------------------------------------------------------------------------
@@ -996,8 +1037,9 @@ def mc_cone_step(c: _MCConsts, st: MCState, ts, acc=None, beta: float = 0.0):
     t2, t3), updates the non-PSD slots of ``st`` and, when given, the
     running means ``acc`` (rho umc, rho uorth) in place.  A CPU state runs
     ``mc_cone_step_plain``; a CUDA state launches ``csrc/k9_mccormick.cu``
-    (``k9_plan``'s grid: a slot CTA a node slot, then the quads of t1, t2,
-    t3) or raises.  The parameter block is packed once per operands
+    (``k9_plan``'s grid: a slot CTA a node slot, then the 16-byte words of
+    t1, t2, t3; a float64 state the float64 build, ``omc_k9b_cone_f64``)
+    or raises.  The parameter block is packed once per operands
     (``admm._packed``); ``beta`` is set on it at every launch."""
     dev = st.w1.device
     if dev.type == "cpu":
@@ -1012,7 +1054,8 @@ def mc_cone_step(c: _MCConsts, st: MCState, ts, acc=None, beta: float = 0.0):
         return
     if dev.type != "cuda":
         raise ValueError(f"mc_cone_step: unsupported device {dev}")
-    kernels.launch("K9b", "omc_k9b_cone", _k9b_params(c, st, ts, acc, beta, dev), dev)
+    kernels.launch("K9b", kernels.entry("omc_k9b_cone", st.rho.dtype),
+                   _k9b_params(c, st, ts, acc, beta, dev), dev)
 
 
 # the operands K9b reads and writes as 16-byte words
@@ -1025,8 +1068,8 @@ def _k9b_tensors(c: _MCConsts, st: MCState, ts, acc) -> tuple:
 
 
 def _k9b_operands(c: _MCConsts, st: MCState, ts, acc) -> list:
-    """(field, tensor, shape) of every K9b operand (float32; the running
-    means only when ``acc`` is given)."""
+    """(field, tensor, shape) of every K9b operand (each of the state's
+    dtype; the running means only when ``acc`` is given)."""
     B = st.rho.shape[0]
     n, m, k = c.n, c.m, c.k
     shapes = _shapes(B, n, m, k)
@@ -1042,16 +1085,18 @@ def _k9b_operands(c: _MCConsts, st: MCState, ts, acc) -> list:
 
 
 def _k9b_params(c: _MCConsts, st: MCState, ts, acc, beta: float, dev):
-    """K9b's parameter block, packed once per operands (``admm._packed``);
-    the running means' weight ``beta``, which changes every iteration of
-    the averaging window, is set on it at every call."""
+    """K9b's parameter block (the float64 build's for a float64 state),
+    packed once per operands (``admm._packed``), every operand checked at
+    the state's dtype; the running means' weight ``beta``, which changes
+    every iteration of the averaging window, is set on it at every call."""
+    dt = st.rho.dtype
 
     def build():
         B = st.rho.shape[0]
-        plan = k9_plan(B, c.n, c.m, c.k)
-        p = kernels.K9bParams()
+        plan = k9_plan(B, c.n, c.m, c.k, dt)
+        p = kernels.block(kernels.K9bParams, dt)
         for name, t, shape in _k9b_operands(c, st, ts, acc):
-            setattr(p, name, kernels.check(name, t, shape, dev))
+            setattr(p, name, kernels.check(name, t, shape, dev, dt))
         if any(getattr(p, name) % 16 for name in _K9B_WORDS):
             raise ValueError("K9b reads w1-w3 and u1-u3 and writes t1-t3 as 16-byte words: "
                              "their storage must start 16-byte aligned")
@@ -1060,8 +1105,8 @@ def _k9b_params(c: _MCConsts, st: MCState, ts, acc, beta: float, dev):
         p.alpha = float(c.alpha)
         return p
 
-    p = _packed(("K9b", id(c), id(st), acc is None), _k9b_tensors(c, st, ts, acc), (c.alpha,),
-                build)
+    p = _packed(("K9b", id(c), id(st), acc is None, dt), _k9b_tensors(c, st, ts, acc),
+                (c.alpha,), build)
     p.beta = float(beta)
     return p
 
@@ -1072,7 +1117,8 @@ def _k9b_params(c: _MCConsts, st: MCState, ts, acc, beta: float, dev):
 
 
 def mc_iteration(c: _MCConsts, st: MCState, ts, acc, beta: float, psd_method: str):
-    """One in-place McCormick ADMM iteration: K9a -> K9b -> K1.  ``acc``
+    """One in-place McCormick ADMM iteration: K9a -> K9b -> K1 (float32,
+    ``psd_method="ns"``), or K4 and the torch epilogue (``"eigh"``).  ``acc``
     holds the running means of (rho u1, rho u2, rho umc, rho uorth),
     updated with weight ``beta`` (none when beta is 0); ``ts`` the t1/t2/t3
     scratch.  Each step is its kernel's wrapper, so a CPU state runs the
@@ -1113,8 +1159,9 @@ def make_mccormick_solver(n: int, m: int, k: int, gamma: float, *, iters: int = 
         if dev.type == "cuda":
             kernels.require_full_fp32()
             kernels.require_cuda_dtype("mccormick", dtype)
-            if psd_method != "ns":
-                raise ValueError('the CUDA path projects with psd_method="ns"')
+            want = "ns" if dtype == torch.float32 else "eigh"
+            if psd_method != want:
+                raise ValueError(f'the CUDA path projects {dtype} with psd_method="{want}"')
         ni = int(iters if n_iters is None else n_iters)
         A = torch.as_tensor(A, device=dev).to(dtype).contiguous()
         mask = torch.as_tensor(mask, device=dev).to(dtype).contiguous()

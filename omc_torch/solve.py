@@ -52,12 +52,10 @@ the hand-written kernels (``omc_torch/csrc``): in float32 K1-K3 on the base
 path, K2, K8a, K3, K1, K7, K8b on the rank-1 Shor path, K2, K8c, K3, K1,
 K7t, K7x, K8d on the rank-k Shor path, K9s, K9a, K9b, K1 on the McCormick
 path, and K4 (K4s for d <= 8) with K5 in the PDHG relaxation; in float64
-(``dtype="float64"``, as ``omc`` runs it) the base path, PDHG, Halpern and
-the rank-1 and rank-k Shor paths through the float64 builds of K2, K3, K4,
-K4s, K5, K6, K7, K8a, K8b, K7t, K7x, K8c and K8d, with exact Jacobi
-projections (K4, K4s and the float64 builds of K7, K7t and K7x) in place
-of the sign schedule.  A float64 McCormick run on CUDA raises
-(``kernels.require_cuda_dtype``).
+(``dtype="float64"``, as ``omc`` runs it) every path through the float64
+builds of its kernels (K2, K3, K4, K4s, K5, K6, K7, K8a, K8b, K7t, K7x,
+K8c, K8d, K9s, K9a and K9b), with exact Jacobi projections (K4, K4s and
+the float64 builds of K7, K7t and K7x) in place of the sign schedule.
 """
 
 from __future__ import annotations
@@ -306,12 +304,10 @@ def _decayed_probability(depth, max_p, min_p, decay):
 
 def entry_device(device, dtype: str) -> torch.device:
     """The device of an entry point: ``"cuda"`` (the kernels: float32, or
-    float64 through the float64 builds of the base and Shor families'
-    kernels) unless
+    float64 through the float64 builds of every family's kernels) unless
     the caller asks for ``"cpu"`` (the plain versions).  A CUDA request
-    without a usable GPU raises; it never falls back to the CPU.  Which
-    families run float64 on the card the solvers' guards say
-    (``kernels.require_cuda_dtype``)."""
+    without a usable GPU raises; it never falls back to the CPU.  The
+    solvers' guards check the dtype (``kernels.require_cuda_dtype``)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -339,8 +335,8 @@ def matrix_completion_branchandbound(
     instance)`` with the field contract of ``omc.solve``.
 
     ``device``: where the relaxations run, ``"cuda"`` (the default: the
-    kernels, in float32 or, for every family but McCormick, in float64) or
-    ``"cpu"`` (the plain versions, only when asked for).
+    kernels, in float32 or float64) or ``"cpu"`` (the plain versions, only
+    when asked for).
     Without a GPU the default raises."""
     cfg = SolverConfig(**kwargs)
     dev = entry_device(device, cfg.dtype)
@@ -370,7 +366,7 @@ def matrix_completion_branchandbound(
     rng = np.random.default_rng(cfg.seed)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     np_dtype = np.float64 if cfg.dtype == "float64" else np.float32
-    if dev.type == "cuda":  # a family without float64 builds raises here, not mid-run
+    if dev.type == "cuda":  # a dtype the kernels do not take raises here, not mid-run
         gate = {"admm": "halpern" if cfg.sdp_halpern else "base"}.get(family, family)
         kernels.require_cuda_dtype(gate, dtype)
     # ADMM penalty: explicit knob wins; otherwise size- and density-scaled

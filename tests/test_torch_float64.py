@@ -7,10 +7,10 @@ every float64 shape the smoke runs within one CTA's shared memory, by
 independent recounts of the kernels' layouts, and give the float32 plans
 of before at float32; (b) the float64 Jacobi mirrors (``ops.jacobi``: the
 CTA path's, the block path's, K4s's) against LAPACK and ``omc``'s
-``jnp.linalg.eigh`` from d = 2 to 150; (c) the family gate: base, PDHG,
-Halpern and Shor (k = 1 and k > 1) run float64 on CUDA, McCormick raises
-the one message, from the gate, from its solver's guard and from the
-driver (the Shor guards and the driver's gate admit float64); (d) the
+``jnp.linalg.eigh`` from d = 2 to 150; (c) the family gate: every family
+(base, PDHG, Halpern, Shor k = 1 and k > 1, McCormick) runs float64 on
+CUDA, through the gate, its solver's guard (with psd_method="eigh") and
+``matrix_completion_branchandbound``'s gate; (d) the
 float64 wrappers pick the float64 builds, and a float64
 CUDA tensor without a GPU raises (no conversion, no plain path); (e) the
 CPU path the card's float64 route mirrors (``psd_method="eigh"``) at the
@@ -293,16 +293,10 @@ def test_gate_float32_runs_every_family(family):
 
 @pytest.mark.parametrize("family", ALL)
 def test_gate_float64(family):
-    if family in ("base", "pdhg", "halpern", "shor", "shor_k"):
-        kernels.require_cuda_dtype(family, F64)
-        return
-    with pytest.raises(ValueError, match="queue 1") as err:
-        kernels.require_cuda_dtype(family, F64)
-    assert kernels.FLOAT64_ROADMAP in str(err.value)
-    # the message names only the family still to come
-    assert "McCormick" in str(err.value) and "Shor" not in kernels.FLOAT64_ROADMAP
-    assert all(name in kernels.FLOAT64_ROADMAP for name in ("K9s", "K9a", "K9b"))
-    assert not any(name in kernels.FLOAT64_ROADMAP for name in ("K7t", "K7x", "K8c", "K8d"))
+    """Every family, McCormick included, has float64 builds of all its
+    kernels: the gate passes float64."""
+    assert family in kernels.FLOAT64_FAMILIES
+    kernels.require_cuda_dtype(family, F64)
 
 
 def test_gate_refuses_other_dtypes_and_families():
@@ -355,29 +349,29 @@ class _PastGuard(Exception):
 
 @pytest.mark.parametrize("family", ["shor", "shor_k", "mccormick"])
 def test_shor_and_mccormick_solver_guards_raise_the_message(family, full_fp32, monkeypatch):
-    """The guards of Shor k = 1 and of Shor k > 1 admit float64 on CUDA with
-    psd_method="eigh" (their "auto" for float64; the solve then reaches its
-    first tensor, here a sentinel) and refuse "ns"; McCormick's raises the
-    one message."""
+    """The guards of Shor k = 1, Shor k > 1 and McCormick admit float64 on
+    CUDA with psd_method="eigh" (their "auto" for float64; the solve then
+    reaches its first tensor, here a sentinel) and refuse "ns" with the
+    message that names the method."""
+    from omc_torch.sdp.admm_shor import make_shor_solver
+    from omc_torch.sdp.mccormick import make_mccormick_solver
+    from omc_torch.sdp.shor_k import make_shor_k_solver
+
     solve = _solver(family)
     args = (None,) * (5 if family != "mccormick" else 4)
-    if family in ("shor", "shor_k"):
-        from omc_torch.sdp.admm_shor import make_shor_solver
-        from omc_torch.sdp.shor_k import make_shor_k_solver
 
-        def sentinel(*a, **kw):
-            raise _PastGuard
+    def sentinel(*a, **kw):
+        raise _PastGuard
 
-        ns = (make_shor_solver(6, 6, 1, 4, 36, 20.0, dtype=F64, psd_method="ns")
-              if family == "shor" else
-              make_shor_k_solver(6, 6, 2, 1, 4, 36, 20.0, dtype=F64, psd_method="ns"))
-        with pytest.raises(ValueError, match='psd_method="eigh"'):
-            ns(*args, _State())
-        monkeypatch.setattr(torch, "as_tensor", sentinel)
-        with pytest.raises(_PastGuard):
-            solve(*args, _State())
-        return
-    with pytest.raises(ValueError, match="queue 1"):
+    ns = (make_shor_solver(6, 6, 1, 4, 36, 20.0, dtype=F64, psd_method="ns")
+          if family == "shor" else
+          make_shor_k_solver(6, 6, 2, 1, 4, 36, 20.0, dtype=F64, psd_method="ns")
+          if family == "shor_k" else
+          make_mccormick_solver(6, 6, 1, 20.0, dtype=F64, psd_method="ns"))
+    with pytest.raises(ValueError, match='psd_method="eigh"'):
+        ns(*args, _State())
+    monkeypatch.setattr(torch, "as_tensor", sentinel)
+    with pytest.raises(_PastGuard):
         solve(*args, _State())
 
 
@@ -389,9 +383,10 @@ _CUTS = dict(disjunctive_cuts_type="linear", disjunctive_cuts_breakpoints="small
                                 dict(use_disjunctive_cuts=False, disjunctive_cuts_type=None,
                                      disjunctive_cuts_breakpoints=None)])
 def test_driver_refuses_a_float64_shor_or_mccormick_run_on_cuda(kw, monkeypatch, full_fp32):
-    """The driver's gate: a float64 Shor run on CUDA, k = 1 or k > 1,
-    passes it (the run is stopped right after it, at its first log
-    message); McCormick raises the one message before any work."""
+    """matrix_completion_branchandbound's gate: a float64 Shor run on CUDA
+    (k = 1 or k > 1) and a float64 McCormick run pass it, each gated once
+    under its own family (the run is stopped right after it, at its first
+    log message)."""
     import omc_torch.solve as tsolve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -399,27 +394,24 @@ def test_driver_refuses_a_float64_shor_or_mccormick_run_on_cuda(kw, monkeypatch,
     kw = dict(kw)
     k = kw.pop("k", 1)
     A, idx = generate_matrix_completion_data(k, 8, 8, 40, 1)
-    run = lambda: tsolve.matrix_completion_branchandbound(  # noqa: E731
-        k, A, idx, 20.0, dtype="float64", device="cuda", verbosity=0, **kw)
-    if kw.get("add_Shor_valid_inequalities"):
-        gated = []
-        gate = kernels.require_cuda_dtype
+    gated = []
+    gate = kernels.require_cuda_dtype
 
-        def spy(family, dtype):
-            gate(family, dtype)
-            gated.append((family, dtype))
+    def spy(family, dtype):
+        gate(family, dtype)
+        gated.append((family, dtype))
 
-        def sentinel(*a, **kw):
-            raise _PastGuard
+    def sentinel(*a, **kw):
+        raise _PastGuard
 
-        monkeypatch.setattr(kernels, "require_cuda_dtype", spy)
-        monkeypatch.setattr(tsolve, "add_message", sentinel)
-        with pytest.raises(_PastGuard):
-            run()
-        assert gated == [("shor" if k == 1 else "shor_k", F64)]
-        return
-    with pytest.raises(ValueError, match="queue 1"):
-        run()
+    monkeypatch.setattr(kernels, "require_cuda_dtype", spy)
+    monkeypatch.setattr(tsolve, "add_message", sentinel)
+    with pytest.raises(_PastGuard):
+        tsolve.matrix_completion_branchandbound(k, A, idx, 20.0, dtype="float64", device="cuda",
+                                                verbosity=0, **kw)
+    family = ("mccormick" if not kw.get("add_Shor_valid_inequalities")
+              else "shor" if k == 1 else "shor_k")
+    assert gated == [(family, F64)]
 
 
 # ---- (d) the float64 wrappers pick the float64 builds, or raise ----
