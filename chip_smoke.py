@@ -88,16 +88,16 @@ Phases, in order (each prints its numbers on lines of its own):
                of its first super-steps holding K1's, K2's and K3's kernels
 20. float64  — omc's dtype="float64" on the card (the float64 builds of K2,
                K3, K4, K5, K6): api.alternating_minimization and
-               api.matrix_completion_SDP_relaxation (1,000 iterations) at
+               api.matrix_completion_SDP_relaxation (250 iterations) at
                their defaults on the headline's root, each against the same
                call on the CPU, and a 4x4 root (K4s); the four fixtures at
                their own gap_target;
-               the headline branch-and-bound for 5 s (sound bounds); one
+               the headline branch-and-bound for 3 s (sound bounds); one
                traced iteration at B=1 in float64 beside float32
 21. shor64   — omc's float64 on the Shor k = 1 family (the float64 builds of
                K2's Shor mode, K8a, K3, K4, K7, K8b, K4s, K5): the api's Shor
                relaxation at its defaults on the headline's root (1,024
-               minors, 1,000 iterations) against the same call on the CPU;
+               minors, 250 iterations) against the same call on the CPU;
                BASELINE config 2 in float64 (visits of 250 iterations, one
                refinement before a growth, 12 s) with sound bounds and a
                Shor growth; the Shor solver at its shape as two shards
@@ -105,7 +105,7 @@ Phases, in order (each prints its numbers on lines of its own):
 22. shork64  — omc's float64 on the rank-k Shor family (the float64 builds
                of K2's Shor mode, K8c, K3, K4, K7t, K7x, K8d, K4s, K5, K6):
                the api's rank-k Shor relaxation at its defaults on config
-               3's root (256 minors, 300 iterations) against the same call
+               3's root (256 minors, 150 iterations) against the same call
                on the CPU; config 3's instance on the shork cell's settings
                in float64 (visits of 250 iterations, one refinement before
                a growth, 12 s) with sound bounds, a Shor growth and no
@@ -113,13 +113,32 @@ Phases, in order (each prints its numbers on lines of its own):
                frontier shape
 23. mccormick64 — omc's float64 on the McCormick family (the float64
                builds of K9s, K9a, K9b, K4, K5, K6): the api's McCormick
-               relaxation at its defaults on the headline's root (500
-               iterations) and at k = 2 on config 3's root (300), each
+               relaxation at its defaults on the headline's root (250
+               iterations) and at k = 2 on config 3's root (150), each
                against the same call on the CPU; the headline's McCormick
                B&B in float64 (visits of 250 iterations, one refinement
                before a split, 8 s) with sound bounds, omc's objective, more
                than one node and no float32 build launched; one traced
                iteration at B=64 and at B=1
+24. widerank — every rank omc runs through altmin and McCormick: K6's wide
+               path (k > 10) at (B, n = m, k) = (4, 250, 16), (64, 250, 16),
+               (64, 1000, 20), (4, 1000, 32), and in float64 (4, 250, 16),
+               (64, 1000, 20) and (4, 1000, 80) in its global workspace; the
+               wide K9s, K9a, K9b at (16, 50, 4), (4, 50, 6), (1, 75, 10)
+               and K9a, K9b at (1, 2100, 1) (n + m = 4,200) in both dtypes;
+               each against its plain version, twice for its bits, with
+               CUDA-event and device ms (events around launches queued
+               behind a held stream), its bound, the plain version's and
+               the library's ms; the wide kernels forced at K6's k = 10 and
+               K9's k <= 3, timed beside the register and unrolled ones;
+               then api.alternating_minimization at rank 20 on a 1000x1000
+               instance in both dtypes against the CPU, a rank-12 root
+               visit (the device bound no higher than the host
+               certificate), the api's McCormick relaxation at k = 4 on
+               config 3's instance in both dtypes against the CPU and its
+               4 s McCormick B&B, the McCormick relaxation at n = m = 2100,
+               and the shape gate refusing rank-k Shor at k = 5 before any
+               allocation on the card
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -127,7 +146,9 @@ bounds' small slots, K5 the separation, K6 altmin).  The record's launches
 of a kernel are its launches over all those phases (``COUNTED``).
 
 ``--phases device,build,kernels64`` runs the kernels phase's float64 rows
-alone.  ``--phases device,build,trace`` runs the optional ``trace`` phase: a
+alone.  ``--phases device,build,mcwide64`` runs McCormick in float64 past
+n + m = 4096: K4's float64 build at d = 4,200 against cuSOLVER's eigh, and
+the api's float64 relaxation at n = m = 2100 (K4 on its three PSD blocks).  ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape and at the shor
 cell's (with K7's, K8a's and K8b's device ms per iteration), of the
 rank-k Shor loop at config 3's (with K7t's, K7x's and K8d's), of the
@@ -175,8 +196,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
           "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64",
-          "shork64", "mccormick64")
-EXTRA_PHASES = ("trace", "kernels64")  # run only when named in --phases
+          "shork64", "mccormick64", "widerank")
+EXTRA_PHASES = ("trace", "kernels64", "mcwide64")  # run only when named in --phases
 
 # certified objectives of the three 50x50 instances (float64 host
 # certificates recorded in BENCH_r05.json; they are facts about the
@@ -339,7 +360,7 @@ def phase_build(res):
     report = _ptxas_report(info.get("ptxas", ""))
     res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
     log("build: kernels that spill", json.dumps(spills))
-    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel", "k4", "k5_kernel") + NO_FRAME
+    keep = ("k6_", "k8c_kernel", "k2_kernel", "k3_kernel", "k4", "k5_kernel", "_wide") + NO_FRAME
     res["registers"] = regs = {f: r["registers"] for f, r in report.items()
                                if any(x in f for x in keep)}
     log("build: K2, K3, K4, K4s, K5, K6, K7, K7t, K7x, K8a, K8b, K8c, K8d, K9s, K9a and K9b "
@@ -350,6 +371,14 @@ def phase_build(res):
                                if any(x in f for x in NO_FRAME + ("k4s_kernel",))}
         log("build: the parent's K7, K7t, K7x, K8a, K8b, K8d, K9s, K9a, K9b and K4s",
             json.dumps(res["parent_ptxas"]))
+        # every kernel both trees build (its name from the kernel's
+        # identifier on, without the file's internal namespace) against the
+        # parent's registers
+        now, was = _by_kernel(report), _by_kernel(PARENT["ptxas"])
+        res["registers_changed"] = changed = {f: [was[f], now[f]] for f in sorted(was)
+                                              if f in now and was[f] != now[f]}
+        log(f"build: {sum(f in now for f in was)} kernels of both trees, registers changed",
+            json.dumps(changed))
     # every instantiation of every kernel, the float64 builds included,
     # keeps its values in registers (no spill); K7's, K7t's, K7x's, K8a's,
     # K8b's, K8c's, K8d's, K9s's, K9a's and K9b's index their small arrays
@@ -360,6 +389,21 @@ def phase_build(res):
               if any(x in f for x in NO_FRAME) and r["stack"]}
     assert not frames, frames
 
+
+
+def _by_kernel(report):
+    """{kernel: registers} of a ptxas report, each mangled name cut to
+    start at the kernel's identifier (k1... to k9..., whose tail holds the
+    template arguments and the parameter types): the same key in two trees
+    built from other paths."""
+    import re
+
+    out = {}
+    for f, r in report.items():
+        m = re.search(r"\d(k\d[0-9a-z_]*?(?:kernel|wide))(?=I|\d|E)", f)
+        if m:
+            out[f[m.start(1):]] = r["registers"]
+    return out
 
 
 def _ptxas_report(text):
@@ -384,17 +428,26 @@ def _ptxas_report(text):
     return out
 
 
+def _qr_device(d, dev):
+    """Where a spectral batch's random orthogonal factors are formed (drawn
+    on the host from the seeded generator either way): on the card from d =
+    64 (the host's LAPACK took seconds at config 4's B = 128, d = 500), on
+    the host for the small matrices of the minor batches."""
+    return dev if d >= 64 else "cpu"
+
+
 def _spectral_batch(B, d, gen, dev):
     """Symmetric (B, d, d) matrices with eigenvalues +-[0.1, 1] (so every
     |lambda| / ||T||_F >= 1e-4, inside the sign schedule's resolution)."""
     import torch
 
-    Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64))
+    Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64).to(
+        _qr_device(d, dev)))
     lam = torch.empty(B, d, dtype=torch.float64).uniform_(0.1, 1.0, generator=gen)
     sign = torch.where(torch.rand(B, d, generator=gen) < 0.5, -1.0, 1.0).double()
-    T = (Q * (lam * sign)[:, None, :]) @ Q.transpose(-1, -2)
-    T = 0.5 * (T + T.transpose(-1, -2))
-    return T.float().to(dev).contiguous(), T
+    T = (Q * (lam * sign).to(Q.device)[:, None, :]) @ Q.transpose(-1, -2)
+    T = (0.5 * (T + T.transpose(-1, -2))).to(dev)
+    return T.float().contiguous(), T
 
 
 def phase_kernels(res):
@@ -2001,16 +2054,20 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     return r2, r3
 
 
-def _mc_inputs(B, n, m, k, gen, dev):
+def _mc_inputs(B, n, m, k, gen, dev, on_device=False):
     """Random McCormick ADMM state and node boxes at a main-path shape
     (float32 on the card): boxes inside [-1, 1] of widths 0.05 to 1, slot
-    values and duals of unit scale, penalties around omc's 10."""
+    values and duals of unit scale, penalties around omc's 10.
+    ``on_device``: the state's values drawn on the card (a seeded CUDA
+    generator), for widths where numpy's draw takes seconds."""
     import numpy as np
     import torch
 
     from omc_torch.sdp.mccormick import MCBatch, init_mc_state, make_mc_consts
 
-    rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+    rng = np.random.default_rng(seed)
+    dgen = torch.Generator(device=dev).manual_seed(seed) if on_device else None
     A = rng.standard_normal((n, m))
     mask = (rng.random((n, m)) < 0.5).astype(np.float64)
     lo = rng.uniform(-1.0, 0.5, (B, n, k))
@@ -2021,7 +2078,8 @@ def _mc_inputs(B, n, m, k, gen, dev):
     for name in ("w1", "w2", "w3", "w4", "wsoc", "wbox", "wmc", "worth", "u1", "u2", "u3",
                  "u4", "usoc", "ubox", "umc", "uorth", "X", "Y", "Th", "U", "t"):
         t = getattr(st, name)
-        v = f(rng.standard_normal(tuple(t.shape)) * 0.3)
+        v = (torch.randn(tuple(t.shape), generator=dgen, device=dev) * 0.3 if on_device
+             else f(rng.standard_normal(tuple(t.shape)) * 0.3))
         if v.ndim == 3 and v.shape[-1] == v.shape[-2]:
             v = 0.5 * (v + v.transpose(-1, -2))
         t.copy_(v)
@@ -2218,7 +2276,8 @@ def _eig_batch(B, d, gen, dev, dtype=None):
     float64 the batch is formed and kept in float64 (both returns)."""
     import torch
 
-    Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64))
+    Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=torch.float64).to(
+        _qr_device(d, dev)))
     lam = torch.empty(B, d, dtype=torch.float64).uniform_(-1.0, 1.0, generator=gen)
     if d >= 20:
         lam[:, :5] = 0.5
@@ -2227,7 +2286,7 @@ def _eig_batch(B, d, gen, dev, dtype=None):
     else:
         lam[1::2, :2] = 0.5
         lam[::4, 2:] = 0.0
-    T = (Q * lam[:, None, :]) @ Q.transpose(-1, -2)
+    T = (Q * lam.to(Q.device)[:, None, :]) @ Q.transpose(-1, -2)
     T = (0.5 * (T + T.transpose(-1, -2))).to(dtype or torch.float32).to(dev).contiguous()
     return T, T.double()
 
@@ -2328,12 +2387,12 @@ def _check_eig_kernels(gen, dev):
     i32 = dict(dtype=torch.int32, device=dev)
 
     def tm(fn, warm=False, reps=20):
-        """Median of ``reps`` timed calls; of 3 for a call over 20 ms
-        (cuSOLVER at B=64), one call for a call over 200 ms (cuSOLVER at
-        B=128).  ``warm``: the call has just run, so the first timed call
-        counts."""
+        """Median of ``reps`` timed calls; of 3 for a call over 20 ms, one
+        call for a call over 50 ms (cuSOLVER at B=64 and B=128, whose times
+        spread little).  ``warm``: the call has just run, so the first timed
+        call counts."""
         probe = cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
-        if probe > 200.0:
+        if probe > 50.0:
             return probe
         return cuda_time_ms(fn, reps=reps) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
 
@@ -2431,9 +2490,17 @@ def _check_eig_kernels(gen, dev):
             row = dict(B=B, d=d, mode=("eigvalsh", "projection", "eigh")[mode], plan=plan,
                        **judge(got, sw))
             if mode == 1:
+                # the plain version's call that gives the reference is timed
+                # too: past 200 ms (config 4's B = 128) it is the time
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                ev0.record()
                 plain = cones.project_psd_plain(T)
+                ev1.record()
+                torch.cuda.synchronize()
                 row["max_abs_err"] = float((got - plain).abs().max())
-                plain_ms = tm(lambda: cones.project_psd_plain(T), warm=True)
+                plain_ms = ev0.elapsed_time(ev1)
+                if plain_ms <= 200.0:
+                    plain_ms = tm(lambda: cones.project_psd_plain(T), warm=True)
                 library = library_ms("eigh")
             elif mode == 0:
                 row["max_abs_err"] = float((got - torch.linalg.eigvalsh(T)).abs().max())
@@ -2682,11 +2749,14 @@ def _check_eig_kernels(gen, dev):
 # (the row of the record), the headline's root visit (B=1; the api phase's
 # call) and the four fixtures' shapes at their batch of 8
 def _tm(fn, warm=False):
-    """Median of 5 timed calls; of 3 for a call over 20 ms (cuSOLVER's
-    float64 eigh at B=64).  ``warm``: the same call (or the library routine
-    it runs, on the same shapes) has just run, so the probe takes no
-    warm-up call."""
+    """Median of 5 timed calls; of 3 for a call over 20 ms; one call (the
+    warm probe) for a call over 50 ms (cuSOLVER's float64 eigh at B=64, the
+    plain versions with a Jacobi mirror).  ``warm``: the same call (or the
+    library routine it runs, on the same shapes) has just run, so the probe
+    takes no warm-up call."""
     probe = cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
+    if probe > 50.0:
+        return probe
     return cuda_time_ms(fn, reps=5) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
 
 
@@ -3419,10 +3489,11 @@ BENCH_KW = dict(
 )
 
 
-def _admm_root(B=64, L=8, iters=2000, dtype=None):
-    """One root ADMM visit of the headline instance at a batch of B copies
-    (float32, or ``dtype``: float64 projects with the exact Jacobi route):
-    the solver, its arguments and the problem's constants."""
+def _admm_root(B=64, L=8, iters=2000, dtype=None, inst=None, k=1):
+    """One root ADMM visit of the headline instance (or of ``inst``, an (A,
+    indices) pair at rank ``k``) at a batch of B copies (float32, or
+    ``dtype``: float64 projects with the exact Jacobi route): the solver,
+    its arguments and the problem's constants."""
     import numpy as np
     import torch
 
@@ -3432,9 +3503,9 @@ def _admm_root(B=64, L=8, iters=2000, dtype=None):
     from omc_torch.tree import root_box
 
     dev = torch.device("cuda", 0)
-    A, idx = _bench_instance(0.5)
+    A, idx = inst or _bench_instance(0.5)
     mask = idx.astype(np.float64)
-    n, m, k, gamma = 50, 50, 1, 80.0
+    (n, m), gamma = A.shape, 80.0
     U0 = np.linalg.svd(A * mask, full_matrices=False)[0][:, :k]
     obj0, X0, U0 = _polish_incumbent(U0 @ (U0.T @ (A * mask)), A, mask, gamma, k)
     V0 = U0.T @ X0
@@ -3525,7 +3596,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
            "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
-           "float64", "shor64", "shork64", "mccormick64")
+           "float64", "shor64", "shork64", "mccormick64", "widerank")
 _PHASE = {"name": None}
 
 
@@ -4369,9 +4440,9 @@ def _trace_visit(names):
 # one card
 MESH_KW = dict(BENCH_KW, batch_size=8, mesh_shape=(2,))
 # the shard solver's check: config 2's shape (rank-1 100x100, 30%, Shor
-# k=1, M5 bucket 1,024), B = 32 as two shards of 16, 1,000 iterations with a
-# safe-bound call every 500 at +inf targets
-MESH_SHOR = dict(n=100, B=32, L=8, M5=1024, iters=1000, check_every=500, gamma=80.0)
+# k=1, M5 bucket 1,024), B = 32 as two shards of 16, 500 iterations with a
+# safe-bound call every 250 at +inf targets
+MESH_SHOR = dict(n=100, B=32, L=8, M5=1024, iters=500, check_every=250, gamma=80.0)
 
 
 def _mesh_shard_check(dtype=None):
@@ -4558,18 +4629,18 @@ def phase_halpern(res):
 
 
 # the float64 phase: omc's own configuration (dtype="float64") on the card.
-# The api calls at their defaults (1,000 ADMM iterations for the
+# The api calls at their defaults (500 ADMM iterations for the
 # relaxation) on the headline's root, each against the same call on the
 # CPU; the four fixtures at their own gap_target with make_fixtures.py's
 # batch and iterations (tests/fixtures/instances.json records their
-# certificates); the headline branch-and-bound for 5 s as a reading, its
+# certificates); the headline branch-and-bound for 3 s as a reading, its
 # visits cut to 500 iterations unboosted (a float64 iteration at the root
 # costs ~40x a float32 one: a boosted root alone would take minutes).
-F64_API_ITERS = 1000
+F64_API_ITERS = 250
 F64_FIXTURE_KW = {  # (k, n, seed) -> benchmarks/make_fixtures.py's settings
     (1, 12, 3): dict(batch_size=4, sdp_iters=1500), (1, 16, 1): dict(batch_size=8, sdp_iters=1500),
     (1, 20, 2): dict(batch_size=8, sdp_iters=2000), (2, 10, 6): dict(batch_size=8, sdp_iters=1500)}
-F64_BRANCH_KW = dict(BENCH_KW, dtype="float64", time_limit=5, sdp_iters=500,
+F64_BRANCH_KW = dict(BENCH_KW, dtype="float64", time_limit=3, sdp_iters=500,
                      sdp_iter_boost_max=1)
 F64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K5_f64", "K6_f64")
 
@@ -4607,7 +4678,7 @@ def _f64_iteration_trace(dtype, psd_method, B=1, iters=20):
 def phase_float64(res):
     """The port in float64 on the card, through the float64 builds of K2,
     K3, K4, K5 and K6: the api's two entry points at their defaults against
-    the same calls on the CPU, the four fixtures at their own gap, a 5 s
+    the same calls on the CPU, the four fixtures at their own gap, a 3 s
     headline branch-and-bound whose bounds must be sound, and one traced
     iteration at B=1 in float64 (eigh route) beside float32 (sign
     schedule)."""
@@ -4646,7 +4717,7 @@ def phase_float64(res):
     assert am_launches["K6_f64"] > 0 and am_launches["K6"] == 0, am_launches
     assert row["altmin"]["n_iters"] == row["altmin"]["n_iters_cpu"], row["altmin"]
     assert row["altmin"]["rel_dist"] <= 1e-8, row["altmin"]
-    # the root's relaxation at its defaults but 1,000 iterations, then on
+    # the root's relaxation at its defaults but 250 iterations, then on
     # the CPU: ADMM's step is nonexpansive, so the rounding of the two
     # devices stays at its own level; bound and objective within 1e-8
     # relative.  The CPU's call runs in a thread beside the card's work of
@@ -4711,7 +4782,7 @@ def phase_float64(res):
         rows.append(fr)
     row["fixtures"] = rows
 
-    # the headline branch-and-bound, 5 s, as a reading: sound bounds
+    # the headline branch-and-bound, 3 s, as a reading: sound bounds
     before = dict(kernels.LAUNCHES)
     sol, inst, secs = _solve(A, idx, gamma, **F64_BRANCH_KW)
     br = _summary(sol, inst, secs)
@@ -4751,7 +4822,7 @@ def phase_float64(res):
 
 # the shor64 phase: omc's float64 Shor k = 1 relaxation on the card.  (a)
 # The api's Shor relaxation at its defaults (float64, cuda) on the
-# headline's root, 1,000 iterations, with the root's first 1,024 fully
+# headline's root, 250 iterations, with the root's first 1,024 fully
 # observed 2x2 minors (config 2's frontier bucket; all ~94,000 would take
 # the CPU's reference call minutes), against the same call on the CPU, run
 # in a thread beside this phase's card work.  (b) BASELINE config 2 at full
@@ -4760,7 +4831,7 @@ def phase_float64(res):
 # splits, 12 s.  (c) The Shor solver at config 2's shape split over two
 # shards (mesh_shape's path) against one device, 50 iterations.  (d) One
 # traced float64 iteration at config 2's shape.
-SHOR64_API_ITERS = 1000
+SHOR64_API_ITERS = 250
 SHOR64_API_MINORS = 1024
 CONFIG2_F64_KW = dict(CONFIG2_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=12)
 SHOR64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K7_f64", "K8a_f64", "K8b_f64", "K4s_f64", "K5_f64")
@@ -4894,14 +4965,14 @@ def phase_shor64(res):
 
 # the shork64 phase: omc's float64 rank-k Shor relaxation on the card.  (a)
 # The api's rank-k Shor relaxation at its defaults (float64, cuda) on config
-# 3's root (k = 2), cut to its first 256 fully observed 2x2 minors and 300
+# 3's root (k = 2), cut to its first 256 fully observed 2x2 minors and 150
 # iterations (a CPU call of all of them, or of 2,000 iterations, would take
 # the CPU's reference call minutes), against the same call on the CPU, run
 # in a thread beside this phase's card work.  (b) Config 3's instance on
 # the shork cell's settings (SHORK_KW) in float64, cut in depth only: visits
 # of 250 iterations, one refinement visit before a node grows or splits,
 # 12 s.  (c) One traced float64 iteration at config 3's frontier shape.
-SHORK64_API_ITERS = 300
+SHORK64_API_ITERS = 150
 SHORK64_API_MINORS = 256
 SHORK64_KW = dict(SHORK_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=12)
 SHORK64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K7t_f64", "K7x_f64", "K8c_f64", "K8d_f64",
@@ -5018,15 +5089,15 @@ def phase_shork64(res):
 # the mccormick64 phase: omc's float64 McCormick relaxation on the card
 # (the float64 builds of K9s, K9a, K9b, K4, K5 and K6).  (a) The api's
 # McCormick relaxation at its defaults (float64, cuda) on the headline's root
-# (the mccormick phase's node), cut to 500 iterations, and (b) at k = 2 on
-# config 3's root, cut to 300 iterations as shork64 cut its call, each
+# (the mccormick phase's node), cut to 250 iterations, and (b) at k = 2 on
+# config 3's root, cut to 150 iterations as shork64 cut its call, each
 # against the same call on the CPU, run in a thread beside this phase's card
 # work.  (c) The headline instance's McCormick B&B in float64 (MC_KW), cut in
 # depth only: visits of 250 iterations, one refinement visit before a node
 # splits, 8 s.  (d) One traced float64 iteration at the headline's shape,
 # B=64 and the root's B=1.
-MC64_API_ITERS = 500
-MC64_K2_ITERS = 300
+MC64_API_ITERS = 250
+MC64_K2_ITERS = 150
 MC64_KW = dict(MC_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=8)
 MC64_KEYS = ("K9s_f64", "K9a_f64", "K9b_f64", "K4_f64", "K5_f64", "K6_f64")
 # the float32 builds a float64 McCormick run must not launch
@@ -5136,6 +5207,602 @@ def phase_mccormick64(res):
     pool.shutdown()
     res["mccormick64"] = row
 
+
+# ---------------------------------------------------------------------------
+# widerank: every rank omc runs through altmin and McCormick (K6's wide
+# path past k = 10; K9s, K9a and K9b's wide kernels at k >= 4 and n + m >
+# 4096), and the shape gate's refusal of rank-k Shor at k >= 5
+# ---------------------------------------------------------------------------
+
+# K6's wide rows (B, n = m, k, dtype): config 5's scale (n = m = 1000) and
+# a mid-size width, batches of a root visit and of a frontier; at k = 80 in
+# float64 the 8 warps' entries pass a CTA's shared memory and go to the
+# global workspace
+K6W_SHAPES = ((4, 250, 16, "float32"), (64, 250, 16, "float32"), (64, 1000, 20, "float32"),
+              (4, 1000, 32, "float32"), (4, 250, 16, "float64"), (64, 1000, 20, "float64"),
+              (4, 1000, 80, "float64"))
+# the wide McCormick rows (B, n = m, k): rank 4 at a mid-tree batch, 6 and
+# 10 at small batches; K9a and K9b also at n + m = 4,200 (k = 1)
+MCW_SHAPES = ((16, 50, 4), (4, 50, 6), (1, 75, 10))
+MCW_WIDE_NM = ((1, 2100, 1),)
+# the paths: altmin at rank 20 on a 1000 x 1000 instance (config 5's
+# scale, 30% observed), a rank-12 root visit at 100 x 100, the McCormick
+# relaxation and B&B at k = 4 on config 3's instance, the McCormick
+# relaxation at n = m = 2100, k = 1
+WR_ALT = dict(k=20, n=1000, frac=0.3, seed=0, iters=1)
+WR_ROOT = dict(k=12, n=100, frac=0.3, seed=1, B=4, visit=500, iters=1000)
+WR_MC_ITERS, WR_MC_BB_S = 100, 4
+WR_MC_BIG = dict(n=2100, frac=0.3, seed=2, iters=20)
+WR_MC_KW = dict(MC_KW, time_limit=WR_MC_BB_S)
+# the wide kernels against the register and unrolled ones at the ranks
+# both take: K6 at k = 10 (B, n = m), K9s, K9a and K9b at k <= 3 (B, n = m, k)
+WR_K6_BOTH = ((64, 250), (4, 1000))
+WR_K9_BOTH = ((64, 50, 1), (16, 50, 3))
+# the float64 McCormick relaxation at n = m = 2100 (run on request: K4's
+# float64 build on the three PSD blocks at d = 4,200)
+WR_MC_BIG64_ITERS = 4
+
+
+def _held_device_ms(fn, reps=10):
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    calls queued behind a spin kernel that holds the stream until the host
+    has queued them all, so that they run back to back and the events span
+    the device's time alone (its gaps between launches included).  It reads
+    no profiler trace: late in a long process the profiler misses these
+    rows' kernels (PERF.md §7).  Raises where the hold ended before the last
+    call was queued at every hold tried (the span would hold the host's
+    time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 10 ** 7  # ~6 ms at the H100's clocks
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError(f"the stream's hold ended before {reps} calls were queued")
+
+
+def _wr_instance(k, n, frac, seed):
+    """A rank-k n x n instance from omc_torch.data with a fraction ``frac``
+    observed (its noise drawn at the instance's own size)."""
+    from omc_torch.data import generate_matrix_completion_data
+
+    return generate_matrix_completion_data(k, n, n, int(frac * n * n), seed, n_max=n, m_max=n)
+
+
+def _check_k6_wide(gen, dev):
+    """K6's wide path (V-step, then U-step on its V) against the plain
+    version in the row's dtype (and, in float32, in float64), two launches'
+    bits, its plan against the kernel's shared-memory export, CUDA-event and
+    device ms (``_held_device_ms``), the plain version's and the library's (torch.linalg.solve on
+    the prebuilt Grams) ms, and the bound (the register paths' count of
+    bytes and of the observed entries' operations; FP64 at 34 TFLOP/s).
+    Bars: float64 1e-12 relative; float32 1e-5 of the float32 plain
+    version, or, where the float32 plain version is itself more than 5e-6
+    from the float64 one (the Grams' conditioning), within twice that
+    distance of the float64 plain version."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops.linalg import (K6_WIDE, k6_plan, u_step_unconstrained,
+                                      u_step_unconstrained_plain, v_step, v_step_plain)
+
+    lib = kernels.library()
+    out = {"K6w": [], "K6w_f64": []}
+    for B, n, k, dts in K6W_SHAPES:
+        m, dt = n, getattr(torch, dts)
+        e = dt.itemsize
+        A = torch.randn(n, m, generator=gen, dtype=torch.float64).to(dev)
+        mask = (torch.rand(n, m, generator=gen) < 0.3).double().to(dev)
+        Q, _ = torch.linalg.qr(torch.randn(B, n, k, generator=gen, dtype=torch.float64))
+        U64 = (Q * torch.empty(B, 1, k, dtype=torch.float64).uniform_(0.5, 2.0, generator=gen))
+        U64 = U64.to(dev).contiguous()
+        U, A_, mask_ = U64.to(dt), A.to(dt), mask.to(dt)
+        pl = {"v": k6_plan(B, n, m, k, None, dt), "u": k6_plan(B, m, n, k, None, dt)}
+
+        def step():
+            V = v_step(U, A_, mask_, 80.0)
+            return V, u_step_unconstrained(V, A_, mask_, 80.0)
+
+        (V, U2), (V_b, U2_b) = step(), step()
+        torch.cuda.synchronize()
+        Vp, U2p = v_step_plain(U, A_, mask_, 80.0), u_step_unconstrained_plain(V, A_, mask_, 80.0)
+        row = dict(B=B, n=n, m=m, k=k, dtype=dts, plan=pl,
+                   rel_err=max(rel_fro(V, Vp), rel_fro(U2, U2p)),
+                   max_abs_err=max(float((V - Vp).abs().max()), float((U2 - U2p).abs().max())),
+                   deterministic=_same_bits((V, U2), (V_b, U2_b)),
+                   smem_matches_kernel=all(
+                       x["path"] == K6_WIDE and x["smem_bytes"] == lib.omc_k6_smem_bytes(
+                           2, k, x["S"], x["W"], x["rpw"], e) for x in pl.values()))
+        if dt == torch.float32:
+            # the float64 plain version on the same values, and the float32
+            # plain version's own distance from it
+            V64 = v_step_plain(U.double(), A, mask, 80.0)
+            U264 = u_step_unconstrained_plain(V.double(), A, mask, 80.0)
+            row["rel_err_vs_f64"] = max(rel_fro(V, V64), rel_fro(U2, U264))
+            row["plain_rel_err_vs_f64"] = max(rel_fro(Vp, V64), rel_fro(U2p, U264))
+            ok = row["rel_err"] <= 1e-5 or (
+                row["plain_rel_err_vs_f64"] > 5e-6
+                and row["rel_err_vs_f64"] <= 2 * row["plain_rel_err_vs_f64"])
+        else:
+            ok = row["rel_err"] <= 1e-12
+        fns = {"kernel": lambda: u_step_unconstrained(v_step(U, A_, mask_, 80.0), A_, mask_,
+                                                      80.0)}
+        G = torch.einsum("bnk,nm,bnl->bmkl", U, mask_, U) + (1 / 80.0) * (
+            U.transpose(-1, -2) @ U)[:, None] + 1e-10 * torch.eye(k, dtype=dt, device=dev)
+        r = (U.transpose(-1, -2) @ (mask_ * A_)).transpose(-1, -2)[..., None]
+        H = torch.einsum("bkm,nm,blm->bnkl", V, mask_, V) + (1 / 80.0) * (
+            V @ V.transpose(-1, -2))[:, None] + 1e-10 * torch.eye(k, dtype=dt, device=dev)
+        r2 = ((mask_ * A_) @ V.transpose(-1, -2))[..., None]
+        row.update(ms=cuda_time_ms(fns["kernel"], reps=10),
+                   plain_ms=_tm(lambda: u_step_unconstrained_plain(
+                       v_step_plain(U, A_, mask_, 80.0), A_, mask_, 80.0)),
+                   library_ms=_tm(lambda: (torch.linalg.solve(G, r), torch.linalg.solve(H, r2))))
+        row["device_ms"] = _held_device_ms(fns["kernel"])
+        row["ok"] = ok and row["deterministic"] and row["smem_matches_kernel"]
+        nnz = float(mask.sum())
+        with_bound(row, e * (2 * n * m + B * (2 * n * k + k * m)),
+                   2 * B * nnz * (k * k + 3 * k), PEAK_FP64_FLOPS if e == 8 else PEAK_FP32_FLOPS)
+        out["K6w" if e == 4 else "K6w_f64"].append(row)
+        del A, mask, U64, U, A_, mask_, G, H
+    return out
+
+
+def _check_mc_wide(gen, dev):
+    """K9s's, K9a's and K9b's wide kernels against their plain versions at
+    ``MCW_SHAPES`` (K9a and K9b also at ``MCW_WIDE_NM``), float32 on
+    ``_mc_inputs``' inputs and float64 on their float64 copies (K9b at
+    K9a's outputs, with the running means): errors (K9s's factors also
+    against the row Grams), two launches' bits, the plans against the
+    kernels' exports, CUDA-event and device ms (``_held_device_ms``), the
+    plain version's and
+    (K9s) the library chain's ms (cuSOLVER's Cholesky and the solves for
+    S_i on the same Grams), the bound (values at 4 or 8 bytes; FP64 at 34
+    TFLOP/s).  Bars: 1e-5 relative in float32 (sums in another order than
+    the plain version's), 1e-12 in float64; Mc Mc' within 1e-5 / 1e-12 of
+    the Grams."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.sdp import mccormick as MC
+
+    lib = kernels.library()
+    out = {key: [] for key in ("K9sw", "K9aw", "K9bw", "K9sw_f64", "K9aw_f64", "K9bw_f64")}
+    zs = lambda x: (x.X, x.Y, x.Th, x.U, x.t)  # noqa: E731
+    for B, n, k in MCW_SHAPES + MCW_WIDE_NM:
+        c32, st32 = _mc_inputs(B, n, n, k, gen, dev, on_device=(B, n, k) in MCW_WIDE_NM)
+        for c, st in ((c32, st32), _mc64_of(c32, st32)):
+            dt = st.rho.dtype
+            e, suf = dt.itemsize, "" if dt == torch.float32 else "_f64"
+            bar = 1e-5 if e == 4 else 1e-12
+            peak = PEAK_FP32_FLOPS if e == 4 else PEAK_FP64_FLOPS
+            m, q = n, k * (k + 1) // 2
+            shape = dict(B=B, n=n, m=m, k=k, dtype=str(dt).split(".")[1])
+            if k > 3:  # K9s's wide kernels (k <= 3 takes the unrolled one at any n)
+                got, got2 = MC.mc_setup(c.batch, k), MC.mc_setup(c.batch, k)
+                torch.cuda.synchronize()
+                gram = MC.mc_gram_plain(c.batch, k)
+                rel, ab = _errs(got, MC.mc_setup_plain(c.batch, k))
+                Et = torch.zeros((k + q, q), dtype=dt, device=dev)
+                Et[k:] = torch.eye(q, dtype=dt, device=dev)
+                Etb = Et.expand(B, n, k + q, q).contiguous()
+                plan = MC.k9s_plan(B, n, k, dt)
+                fns = {"kernel": lambda: MC.mc_setup(c.batch, k)}
+                rs = dict(**shape, plan=plan, plan_matches_kernel=plan.get("path") == "wide",
+                          rel_err=rel, max_abs_err=ab,
+                          gram_rel_err=rel_fro(got[0] @ got[0].transpose(-1, -2), gram),
+                          deterministic=_same_bits(got, got2),
+                          ms=cuda_time_ms(fns["kernel"], reps=10),
+                          plain_ms=_tm(lambda: MC.mc_setup_plain(c.batch, k)),
+                          library_ms=_tm(
+                              lambda: torch.cholesky_solve(Etb, torch.linalg.cholesky(gram))))
+                rs["device_ms"] = _held_device_ms(fns["kernel"])
+                rs["ok"] = (rs["rel_err"] <= bar and rs["gram_rel_err"] <= bar
+                            and rs["deterministic"] and rs["plan_matches_kernel"])
+                vals, ops = _k9s_work(B, n, k)
+                with_bound(rs, e * vals, ops, peak)
+                out["K9sw" + suf].append(rs)
+
+            # K9a
+            sk, s2 = st.clone(), st.clone()
+            MC.mc_zstep(c, sk)
+            MC.mc_zstep(c, s2)
+            torch.cuda.synchronize()
+            rel, ab = _errs(zs(sk), MC.mc_zstep_plain(c, st))
+            plan = MC.k9_plan(B, n, m, k, dt)
+            s3 = st.clone()
+            fns = {"kernel": lambda: MC.mc_zstep(c, s3)}
+            ra = dict(**shape, plan=plan,
+                      plan_matches_kernel=(plan.get("path") == "wide" and plan["k9a_grid"]
+                                           == lib.omc_k9a_wide_grid_x(B, n, m)
+                                           and plan["k9a_fix_smem"]
+                                           == lib.omc_k9a_fix_smem_bytes(k, e)),
+                      rel_err=rel, max_abs_err=ab, deterministic=_same_bits(zs(sk), zs(s2)),
+                      ms=cuda_time_ms(fns["kernel"], reps=10),
+                      plain_ms=_tm(lambda: MC.mc_zstep_plain(c, st)), library_ms=None)
+            ra["device_ms"] = _held_device_ms(fns["kernel"])
+            ra["ok"] = ra["rel_err"] <= bar and ra["deterministic"] and ra["plan_matches_kernel"]
+            vals, ops = _k9a_work(B, n, m, k)
+            with_bound(ra, e * vals, ops, peak)
+            out["K9aw" + suf].append(ra)
+
+            # K9b at K9a's outputs, with the running means
+            acc = [torch.randn(x.shape, generator=gen, dtype=torch.float64).to(dev, dt) * 0.1
+                   for x in (st.umc, st.uorth)]
+
+            def k9b(s_):
+                sb, a = s_.clone(), [x.clone() for x in acc]
+                ts = tuple(torch.empty_like(x) for x in (sb.w1, sb.w2, sb.w3))
+                return (lambda: MC.mc_cone_step(c, sb, ts, a, 0.25),
+                        lambda: ts + tuple(getattr(sb, name) for name in MC._REST) + tuple(a))
+
+            (run1, out1), (run2, out2) = k9b(sk), k9b(sk)
+            run1()
+            run2()
+            torch.cuda.synchronize()
+            t1, t2, t3, rest, acc_p = MC.mc_cone_step_plain(c, sk, acc, 0.25)
+            ref = (t1, t2, t3) + tuple(rest) + tuple(acc_p)
+            rel, ab, by_out = _k9b_errs(c, sk, out1(), ref, 0.25)
+            fns = {"kernel": k9b(sk)[0]}
+            rb = dict(**shape, plan=plan,
+                      plan_matches_kernel=(plan["k9b_grid"] == lib.omc_k9b_grid_x(
+                          B, n, m, k, plan["qpc"], e) and plan["k9b_smem"]
+                          == lib.omc_k9b_wide_smem_bytes(k, e)),
+                      rel_err=rel, max_abs_err=ab, err_by_output=by_out,
+                      deterministic=_same_bits(out1(), out2()),
+                      ms=cuda_time_ms(fns["kernel"], reps=10),
+                      plain_ms=_tm(lambda: MC.mc_cone_step_plain(c, sk, acc, 0.25)),
+                      library_ms=None)
+            rb["device_ms"] = _held_device_ms(fns["kernel"])
+            rb["ok"] = rb["rel_err"] <= bar and rb["deterministic"] and rb["plan_matches_kernel"]
+            vals, ops = _k9b_work(B, n, m, k)
+            with_bound(rb, e * vals, ops, peak)
+            out["K9bw" + suf].append(rb)
+            del sk, s2, s3, acc
+        del c32, st32
+    return out
+
+
+def _check_wide_vs_unrolled(gen, dev):
+    """The wide kernels forced at ranks the register and unrolled kernels
+    take, timed beside them on the same inputs in float32: K6 (V-step, then
+    U-step) at k = 10 (``WR_K6_BOTH``), K9s, K9a and K9b at k <= 3
+    (``WR_K9_BOTH``).  Each side's CUDA-event and held-stream device ms,
+    and the wide side's error against the plain version (bar 1e-5
+    relative, as its rows at k > 10 and k >= 4).  Whether the register and
+    unrolled paths earn their place beside the wide ones."""
+    import torch
+
+    from omc_torch.ops.linalg import (u_step_unconstrained, u_step_unconstrained_plain, v_step,
+                                      v_step_plain)
+    from omc_torch.sdp import mccormick as MC
+
+    def both(row, default, wide, err):
+        row.update(ms=cuda_time_ms(default, reps=10), wide_ms=cuda_time_ms(wide, reps=10),
+                   device_ms=_held_device_ms(default), wide_device_ms=_held_device_ms(wide),
+                   wide_rel_err=err)
+        row["wide_over_default"] = row["wide_device_ms"] / row["device_ms"]
+        row["ok"] = err <= 1e-5
+        log("wide vs unrolled", json.dumps(row))
+        return row
+
+    rows = []
+    for B, n in WR_K6_BOTH:
+        k = 10
+        A = torch.randn(n, n, generator=gen).to(dev)
+        mask = (torch.rand(n, n, generator=gen) < 0.3).float().to(dev)
+        Q, _ = torch.linalg.qr(torch.randn(B, n, k, generator=gen, dtype=torch.float64))
+        U = (Q * torch.empty(B, 1, k, dtype=torch.float64).uniform_(0.5, 2.0, generator=gen))
+        U = U.float().to(dev).contiguous()
+
+        def step(path):
+            V = v_step(U, A, mask, 80.0, path=path)
+            return V, u_step_unconstrained(V, A, mask, 80.0, path=path)
+
+        V, U2 = step("wide")
+        err = max(rel_fro(V, v_step_plain(U, A, mask, 80.0)),
+                  rel_fro(U2, u_step_unconstrained_plain(V, A, mask, 80.0)))
+        rows.append(both(dict(kernel="K6", B=B, n=n, k=k), lambda: step(None),
+                         lambda: step("wide"), err))
+    for B, n, k in WR_K9_BOTH:
+        c, st = _mc_inputs(B, n, n, k, gen, dev)
+        err = _errs(MC.mc_setup(c.batch, k, path="wide"), MC.mc_setup_plain(c.batch, k))[0]
+        rows.append(both(dict(kernel="K9s", B=B, n=n, k=k), lambda: MC.mc_setup(c.batch, k),
+                         lambda: MC.mc_setup(c.batch, k, path="wide"), err))
+        sa, sw = st.clone(), st.clone()
+        MC.mc_zstep(c, sw, path="wide")
+        err = _errs((sw.X, sw.Y, sw.Th, sw.U, sw.t), MC.mc_zstep_plain(c, st))[0]
+        rows.append(both(dict(kernel="K9a", B=B, n=n, k=k), lambda: MC.mc_zstep(c, sa),
+                         lambda: MC.mc_zstep(c, sw, path="wide"), err))
+        ts = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
+        tw = tuple(torch.empty_like(x) for x in ts)
+        sb, sw = st.clone(), st.clone()
+        MC.mc_cone_step(c, sw, tw, None, 0.0, path="wide")
+        t1, t2, t3, rest, _ = MC.mc_cone_step_plain(c, st)
+        err = _k9b_errs(c, st, tw + tuple(getattr(sw, x) for x in MC._REST),
+                        (t1, t2, t3) + tuple(rest), 0.0)[0]
+        rows.append(both(dict(kernel="K9b", B=B, n=n, k=k),
+                         lambda: MC.mc_cone_step(c, sb, ts, None, 0.0),
+                         lambda: MC.mc_cone_step(c, sb, tw, None, 0.0, path="wide"), err))
+        del c, st, sa, sb, sw
+    return rows
+
+
+def _k9b_errs(c, st, got, ref, beta):
+    """K9b's outputs (t1, t2, t3, the non-PSD slots, the running means)
+    against the plain version's: the largest error relative to each
+    output's scale, the largest absolute error, and both by output.  The
+    trace slot (w4, u4) sums n diagonal entries of Y and the orthogonality
+    rows (uorth, and acc_orth through beta rho uorth) n entries of t each:
+    their scale is the sum of the terms' magnitudes (alpha sum_i |Y_ii|,
+    alpha sum_i |t_ip|), not the sum's own, which cancels to a small value
+    at a (near-)feasible point; the sums run in another order than the
+    plain version's.  Every other output's scale is its own norm."""
+    import torch
+
+    from omc_torch.sdp import mccormick as MC
+
+    names = ("t1", "t2", "t3") + MC._REST + ("acc_mc", "acc_orth")
+    a = c.alpha
+    tr = a * torch.diagonal(st.Y, dim1=-2, dim2=-1).abs().sum(-1)  # (B,)
+    tt = a * st.t.abs().sum(-2)  # (B, q)
+    scale = {"w4": tr, "u4": tr, "uorth": tt, "acc_orth": beta * st.rho[:, None] * tt}
+    by_out, rel, ab = {}, 0.0, 0.0
+    for nm, x, y in zip(names, got, ref):
+        d = float(torch.linalg.norm((x - y).double()))
+        nrm = float(torch.linalg.norm(y.double()))
+        if nm in scale:
+            nrm = max(nrm, float(torch.linalg.norm(scale[nm].double())))
+        r = d / nrm if nrm > 0 else (0.0 if d == 0 else float("inf"))
+        by_out[nm] = (r, float((x - y).abs().max()))
+        rel, ab = max(rel, r), max(ab, by_out[nm][1])
+    return rel, ab, by_out
+
+
+def _wr_against_cpu(name, fn, tol, keys, cpu):
+    """``fn("cuda")`` on the card against ``cpu``, the future of the same
+    call on the CPU: the card's result, its seconds and launches, and the
+    relative distances of ``keys`` (numbers or arrays) from the CPU's."""
+    import numpy as np
+
+    from omc_torch import kernels
+
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    got = fn("cuda")
+    secs = time.time() - t0
+    launches = _launched_since(before)
+    ref = cpu.result()
+    row = dict(seconds=secs, tol=tol, launches={x: v for x, v in launches.items() if v})
+    for key in keys:
+        a, b = np.asarray(got[key], np.float64), np.asarray(ref[key], np.float64)
+        row[key + "_rel_dist"] = float(np.linalg.norm(a - b) / max(1.0, np.linalg.norm(b)))
+        assert row[key + "_rel_dist"] <= tol, (name, key, row)
+    log(f"widerank {name}", json.dumps(row))
+    return got, row
+
+
+def _wr_mc_big(dts, iters):
+    """The api's McCormick relaxation at n = m = 2100, k = 1 (n + m =
+    4,200: the wide K9a and K9b, and the PSD blocks at d = 4,200), in
+    ``dts`` for ``iters`` iterations, from altmin's incumbent: its bound
+    finite and no higher than altmin's objective, and its kernels launched
+    (float32: K1; float64: K4's float64 build)."""
+    import numpy as np
+
+    from omc_torch import api, kernels
+
+    nb = WR_MC_BIG["n"]
+    Ab, idxb = _wr_instance(1, nb, WR_MC_BIG["frac"], WR_MC_BIG["seed"])
+    # the top left singular vector of the observed entries, by power steps
+    Mb = Ab * idxb
+    Ub = np.random.default_rng(4).standard_normal((nb, 1))
+    for _ in range(8):
+        Ub = Mb @ (Mb.T @ Ub)
+        Ub /= np.linalg.norm(Ub)
+    alt = api.alternating_minimization(Ab, nb, 1, idxb, 80.0, U_initial=Ub, max_iters=20,
+                                       dtype=dts)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    big = api.matrix_completion_SDP_relaxation(_mc_root(nb, 1), nb, 1, Ab, idxb, 80.0,
+                                               use_disjunctive_cuts=False, iters=iters,
+                                               dtype=dts)
+    r = dict(dtype=dts, iters=iters, seconds=time.time() - t0, lower_bound=big["lower_bound"],
+             objective=big["objective"], altmin_objective=alt["objectives"][-1],
+             launches={x: v for x, v in _launched_since(before).items() if v})
+    log(f"widerank mccormick n=2100 {dts}", json.dumps(r))
+    assert np.isfinite(r["lower_bound"]) and r["lower_bound"] <= r["altmin_objective"], r
+    suf = "" if dts == "float32" else "_f64"
+    _assert_launched(r["launches"], tuple(x + suf for x in ("K9aw", "K9bw", "K9s"))
+                     + (("K1",) if dts == "float32" else ("K4_f64",)))
+    return r
+
+
+def phase_mcwide64(res):
+    """(Run on request only.)  McCormick in float64 past n + m = 4096: K4's
+    float64 build on one PSD block at d = 4,200 against its plain version
+    (cuSOLVER's eigh), 1e-10 relative, timed once each; then the api's
+    float64 relaxation at n = m = 2100, k = 1 for ``WR_MC_BIG64_ITERS``
+    iterations (``_wr_mc_big``)."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops.cones import k4_plan, project_psd, project_psd_plain
+
+    d = 2 * WR_MC_BIG["n"]
+    gen = torch.Generator().manual_seed(64)
+    dev = torch.device("cuda", 0)
+    T = torch.randn(1, d, d, generator=gen, dtype=torch.float64).to(dev)
+    T = (T + T.transpose(-1, -2)) / 2
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    got = project_psd(T)
+    torch.cuda.synchronize()
+    k4_s = time.time() - t0
+    launched = _launched_since(before)
+    t0 = time.time()
+    ref = project_psd_plain(T)
+    torch.cuda.synchronize()
+    r = dict(d=d, plan=k4_plan(1, d, "project", dtype=torch.float64), seconds=k4_s,
+             plain_seconds=time.time() - t0, rel_err=rel_fro(got, ref),
+             max_abs_err=float((got - ref).abs().max()),
+             launches={x: v for x, v in launched.items() if v})
+    log("mcwide64 K4_f64", json.dumps(r))
+    assert r["rel_err"] <= 1e-10 and r["launches"].get("K4_f64"), r
+    res["mcwide64"] = dict(k4=r, relaxation=_wr_mc_big("float64", WR_MC_BIG64_ITERS))
+
+
+def phase_widerank(res):
+    """Every rank omc runs through altmin and McCormick, on the card: the
+    wide kernels' rows (K6's wide path; K9s's, K9a's and K9b's wide
+    kernels) and the wide kernels beside the register and unrolled ones at
+    the ranks both take, then the paths through the entry points, each
+    launch of which counts: api.alternating_minimization at rank 20 on a
+    1000 x 1000 instance in float32 and float64 against the CPU; a rank-12
+    root visit (matrix_completion_branchandbound, root_only, then the
+    solver's device bound against the host float64 certificate); the api's
+    McCormick relaxation at k = 4 on config 3's instance in both dtypes
+    against the CPU; its McCormick B&B at k = 4 for ``WR_MC_BB_S`` s with
+    sound bounds; the api's McCormick relaxation at n = m = 2100, k = 1
+    (n + m = 4,200; ``_wr_mc_big``); and the shape gate refusing rank-k
+    Shor at k = 5 before any allocation on the card."""
+    import numpy as np
+    import torch
+
+    from omc_torch import api, kernels
+    from omc_torch.sdp import relax
+
+    gen = torch.Generator().manual_seed(21)
+    dev = torch.device("cuda", 0)
+    rows = {**_check_k6_wide(gen, dev), **_check_mc_wide(gen, dev)}
+    for name, rs in rows.items():
+        for row in rs:
+            log(name, json.dumps(row))
+    res.setdefault("kernels", {}).update(rows)
+    failed = [(name, row) for name, rs in rows.items() for row in rs if not row["ok"]]
+    both = _check_wide_vs_unrolled(gen, dev)
+    failed += [("wide vs unrolled", r) for r in both if not r["ok"]]
+    kernels.reset_launches()  # the paths' launches count from here
+    row = {"wide_vs_unrolled": both}
+
+    # the paths' CPU calls, one after another in a thread beside the card's
+    A, idx = _wr_instance(WR_ALT["k"], WR_ALT["n"], WR_ALT["frac"], WR_ALT["seed"])
+    n, k = WR_ALT["n"], WR_ALT["k"]
+    U0 = np.linalg.qr(np.random.default_rng(3).standard_normal((n, k)))[0]
+    A3, idx3 = _config3_instance()
+    node4 = _mc_root(75, 4)
+
+    def altmin(dts, d):
+        out = api.alternating_minimization(A, n, k, idx, 80.0, U_initial=U0,
+                                           max_iters=WR_ALT["iters"], eps=0.0, dtype=dts,
+                                           device=d)
+        return dict(out, objective=out["objectives"][-1])
+
+    def mc4(dts, d):
+        return api.matrix_completion_SDP_relaxation(node4, 75, 4, A3, idx3, 80.0,
+                                                    use_disjunctive_cuts=False,
+                                                    iters=WR_MC_ITERS, dtype=dts, device=d)
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu = {(fn.__name__, dts): pool.submit(fn, dts, "cpu")
+           for fn in (altmin, mc4) for dts in ("float32", "float64")}
+
+    # altmin at rank 20, 1000 x 1000 (K6's wide path)
+    for dts, tol in (("float32", 1e-3), ("float64", 1e-9)):
+        got, r = _wr_against_cpu(f"altmin {dts}", functools.partial(altmin, dts), tol,
+                                 ("U", "V", "objective"), cpu["altmin", dts])
+        r.update(objective=got["objective"], n_iters=got["n_iters"])
+        _assert_launched(r["launches"], ("K6w" if dts == "float32" else "K6w_f64",))
+        assert not r["launches"].get("K6") and not r["launches"].get("K6_f64"), r
+        row[f"altmin_{dts}"] = r
+
+    # a rank-12 root visit: matrix_completion_branchandbound (altmin at the
+    # root on K6's wide path), then the solver's device bound against the
+    # float64 certificate
+    A12, idx12 = _wr_instance(WR_ROOT["k"], WR_ROOT["n"], WR_ROOT["frac"], WR_ROOT["seed"])
+    sol, inst, secs = _solve(A12, idx12, 80.0, k=WR_ROOT["k"],
+                             **dict(BENCH_KW, root_only=True, sdp_iters=WR_ROOT["visit"],
+                                    sdp_iter_boost_max=1, batch_size=WR_ROOT["B"]))
+    lower = float(inst["run_log"][-1]["lower"])
+    r = dict(seconds=secs, lower=lower, objective=float(sol["objective"]),
+             iters=int(inst["run_details"]["sdp_iters_total"]))
+    assert np.isfinite(lower) and lower <= r["objective"] * (1 + 1e-9) + 1e-9, r
+    solve, args, c = _admm_root(WR_ROOT["B"], iters=WR_ROOT["iters"], inst=(A12, idx12),
+                                k=WR_ROOT["k"])
+    _, o = solve(*args)
+    o = {x: v.cpu().numpy() for x, v in o.items()}
+    lb_host = relax.host_certified_bound(c["A"], c["mask"], args[2], o, c["gamma"], c["k"],
+                                         c["ub_bar"])
+    lb_dev = o["lb_dev"].astype(np.float64)
+    r.update(lb_dev=lb_dev.tolist(), lb_host=lb_host.tolist())
+    log("widerank root k=12", json.dumps(r))
+    assert np.all(np.isfinite(lb_host)) and np.all(lb_dev <= lb_host), r
+    row["root_k12"] = r
+
+    # the McCormick relaxation at k = 4 on config 3's instance, both dtypes
+    for dts, tol in (("float32", 1e-3), ("float64", 1e-8)):
+        got, r = _wr_against_cpu(f"mccormick k=4 {dts}", functools.partial(mc4, dts), tol,
+                                 ("lower_bound", "objective"), cpu["mc4", dts])
+        r["lower_bound"] = got["lower_bound"]
+        suf = "" if dts == "float32" else "_f64"
+        _assert_launched(r["launches"], tuple(x + suf for x in ("K9sw", "K9aw", "K9bw")))
+        assert not any(r["launches"].get(x + suf) for x in ("K9s", "K9a", "K9b")), r
+        # a sound bound is at most the rank-4 optimum, itself at most the
+        # rank-2 one
+        assert np.isfinite(r["lower_bound"]) and r["lower_bound"] <= CONFIG3_OBJ, r
+        row[f"mccormick_k4_{dts}"] = r
+
+    # the McCormick B&B at k = 4
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A3, idx3, 80.0, k=4, **WR_MC_KW)
+    launches = _launched_since(before)
+    lowers = [x["lower"] for x in inst["run_log"] if x["lower"] > -1e300]
+    br = _summary(sol, inst, secs)
+    br.update(lowers=lowers)
+    log("widerank mccormick k=4 branch", json.dumps(br))
+    assert all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert lowers and all(x <= br["objective"] * (1 + 1e-9) + 1e-9 for x in lowers), br
+    assert br["objective"] <= br["objective_initial"] + 1e-12, br
+    _assert_launched(launches, ("K9sw", "K9aw", "K9bw", "K6"))
+    row["mccormick_k4_branch"] = br
+
+    # the McCormick relaxation at n = m = 2100, k = 1 (n + m = 4,200)
+    row["mccormick_n2100"] = _wr_mc_big("float32", WR_MC_BIG["iters"])
+
+    # the shape gate: rank-k Shor at k = 5 raises before any allocation
+    from omc_torch.solve import matrix_completion_branchandbound
+
+    torch.cuda.synchronize()
+    mem, before = torch.cuda.memory_allocated(dev), dict(kernels.LAUNCHES)
+    refused = []
+    for call in (lambda: api.matrix_completion_SDP_relaxation(
+                     _mc_root(75, 5), 75, 5, A3, idx3, 80.0, add_Shor_valid_inequalities=True,
+                     disjunctive_cuts_type="linear", dtype="float32"),
+                 lambda: matrix_completion_branchandbound(
+                     5, A3, idx3, 80.0, **dict(BENCH_KW, add_Shor_valid_inequalities=True))):
+        try:
+            call()
+        except ValueError as err:
+            refused.append(str(err))
+    r = dict(refused=refused, allocated=torch.cuda.memory_allocated(dev) - mem,
+             launches=sum(_launched_since(before).values()))
+    log("widerank gate", json.dumps(r))
+    assert len(refused) == 2 and all("k <= 4" in x for x in refused), r
+    assert r["allocated"] == 0 and r["launches"] == 0, r
+    row["gate"] = r
+    pool.shutdown()
+    res["widerank"] = row
+    assert not failed, failed  # the kernel rows, after the paths have run
 
 def phase_profile(res):
     """The headline with profile_dir (a directory under build/, removed
@@ -5272,6 +5939,32 @@ KERNELS = (
      "omc_torch/csrc/k5_separation.cu", "omc/sdp/admm.py:576"),
     ("K6_f64", ("K6_f64",), "K6 float64 build: masked ridge V-step + U-step (B=4, n=m=50, k=1)",
      "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
+    # the wide kernels (the widerank phase's launches): K6 past k = 10, the
+    # McCormick kernels at k >= 4 and n + m > 4096
+    ("K6w", ("K6w",),
+     "K6 wide path: masked ridge V-step + U-step, a warp an output (B=4, n=m=250, k=16)",
+     "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
+    ("K6w_f64", ("K6w_f64",),
+     "K6 wide path, float64 build: masked ridge V-step + U-step (B=4, n=m=250, k=16)",
+     "omc_torch/csrc/k6_altmin.cu", "omc/ops/linalg.py:15"),
+    ("K9sw", ("K9sw",),
+     "K9s wide: McCormick row Grams and factors in memory, a warp a row (B=16, n=50, k=4)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:385"),
+    ("K9aw", ("K9aw",),
+     "K9a wide: McCormick adjoint + z-step, a warp a row's solve (B=16, n=m=50, k=4)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:446"),
+    ("K9bw", ("K9bw",),
+     "K9b wide: McCormick forward map + cone step, a runtime rank (B=16, n=m=50, k=4)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
+    ("K9sw_f64", ("K9sw_f64",),
+     "K9s wide, float64 build: McCormick row Grams and factors (B=16, n=50, k=4)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:385"),
+    ("K9aw_f64", ("K9aw_f64",),
+     "K9a wide, float64 build: McCormick adjoint + z-step (B=16, n=m=50, k=4)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:446"),
+    ("K9bw_f64", ("K9bw_f64",),
+     "K9b wide, float64 build: McCormick forward map + cone step (B=16, n=m=50, k=4)",
+     "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
 )
 
 

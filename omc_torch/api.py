@@ -13,6 +13,14 @@ raises.  Their default dtype is ``omc``'s float64: on the GPU every
 family (base, Shor k = 1 and k > 1, McCormick) runs it through the float64
 builds of its kernels (K2-K6, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a,
 K9b; exact Jacobi projections, as ``omc``'s eigh route).
+
+What runs on the GPU, in float32 and float64: altmin and the base family
+at every rank and width (K6's wide path past k = 10), McCormick at every
+rank (K9s, K9a and K9b's wide kernels at k >= 4 or n + m > 4096) and at
+n + m < 46,341 (one node: (n + m)^2 < 2^31), Shor k = 1, and rank-k Shor at
+2 <= k <= 4.  Rank-k Shor at k >= 5 and McCormick at n + m >= 46,341 raise
+``ValueError`` before any allocation on the card
+(``kernels.require_cuda_shape``); ``device="cpu"`` runs them.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from omc_torch import kernels
 from omc_torch.problem import compute_SDP_relaxation_objective
 from omc_torch.solve import _cut_interval_arrays, _pack_batch, entry_device
 from omc_torch.tree import BBNode, root_box
@@ -62,6 +71,8 @@ def alternating_minimization(
     A = np.asarray(A, dtype=np.float64)
     mask = np.asarray(indices).astype(np.float64)
     m = A.shape[1]
+    if dev.type == "cuda":  # before any allocation on the card
+        kernels.require_cuda_shape("base", k, n, m)
     if U_lower is None or U_upper is None:
         lo_d, hi_d = root_box(n, k)
         U_lower = lo_d if U_lower is None else U_lower
@@ -121,6 +132,11 @@ def matrix_completion_SDP_relaxation(
     A = np.asarray(A, dtype=np.float64)
     mask = np.asarray(indices).astype(np.float64)
     m = A.shape[1]
+    if dev.type == "cuda":  # before any allocation on the card
+        family = ("mccormick" if not use_disjunctive_cuts
+                  else ("shor" if k == 1 else "shor_k") if add_Shor_valid_inequalities
+                  else "base")
+        kernels.require_cuda_shape(family, k, n, m)
     if ub_bar is None:
         ub_bar = 0.5 * float(np.sum(mask * A * A))  # objective at X = 0
     sX = max(1.0, float(np.max(np.abs(A))))

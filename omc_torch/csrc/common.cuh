@@ -553,6 +553,54 @@ __device__ __forceinline__ void jacobi_rot(T& x, T& y, T s, T r) {
   y = y0 + s * (x0 - r * y0);
 }
 
+// The wide kernels' systems (K6's wide path, K9s/K9a's wide kernels), any
+// order D, solved by one warp in memory (shared or global; ix(i, j) the
+// offset of entry (i, j)), every sum in a fixed order.  warp_cholesky: the
+// lower Cholesky factor in place of the lower triangle, by columns, column
+// j's pivot from the lanes' partial sums (xor shuffles), then its rows over
+// the lanes, each a sequential dot product.
+template <class T, class Ix>
+__device__ __forceinline__ void warp_cholesky(T* G, int D, Ix ix) {
+  const int lane = threadIdx.x & 31;
+  for (int j = 0; j < D; ++j) {
+    T s = 0;
+    for (int l = lane; l < j; l += 32) s = fma(G[ix(j, l)], G[ix(j, l)], s);
+    const T djj = sqrt(G[ix(j, j)] - warp_sum(s));
+    __syncwarp();
+    if (lane == 0) G[ix(j, j)] = djj;
+    for (int i = j + 1 + lane; i < D; i += 32) {
+      T v = G[ix(i, j)];
+      for (int l = 0; l < j; ++l) v -= G[ix(i, l)] * G[ix(j, l)];
+      G[ix(i, j)] = v / djj;
+    }
+    __syncwarp();
+  }
+}
+
+// x <- (L L')^-1 x by one warp, L from warp_cholesky and x(i) a reference
+// to entry i: L y = x from row `from` on (x is zero above it), each y_i's
+// dot product over the lanes (xor shuffles), then L' x = y with x_i taken
+// from the entries above it over the lanes
+template <class T, class Ix, class Xs>
+__device__ __forceinline__ void warp_cho_solve(const T* L, int D, Ix ix, Xs x, int from = 0) {
+  const int lane = threadIdx.x & 31;
+  for (int i = from; i < D; ++i) {
+    T s = 0;
+    for (int l = from + lane; l < i; l += 32) s = fma(L[ix(i, l)], x(l), s);
+    const T v = (x(i) - warp_sum(s)) / L[ix(i, i)];
+    __syncwarp();
+    if (lane == 0) x(i) = v;
+    __syncwarp();
+  }
+  for (int i = D - 1; i >= 0; --i) {
+    const T v = x(i) / L[ix(i, i)];
+    __syncwarp();
+    if (lane == 0) x(i) = v;
+    for (int l = lane; l < i; l += 32) x(l) -= L[ix(i, l)] * v;
+    __syncwarp();
+  }
+}
+
 }  // namespace omc
 
 struct K1Params {

@@ -48,6 +48,27 @@
 // an SM (255 registers a thread: k = 10 keeps its 55 + 10 doubles without a
 // spill), 16-byte copies of two doubles, 8-byte cp.async for the mask and
 // A; its plan is ops.linalg.k6_plan at dtype float64.
+//
+// Wide path (k > 10, both builds): a lane cannot hold a k x k Gram, so the
+// packed Gram and right-hand side of a (slot, output), tri(k) + k values,
+// lie in memory and are spread over a warp's lanes (entry e to lane e %
+// 32).  A CTA of W warps serves W outputs of one slot: the slot's factor
+// rows stream through shared memory in chunks of 32 rows (fewer where 32
+// rows of k would not fit, k in the hundreds; the U-step's wrapper
+// hands V in as (B, m, k), as on the slots path); each warp compacts the
+// rows its output observes (a ballot of the mask, the same for every slot)
+// and each lane adds them, in row order, into its own entries.  The
+// entries sit in shared memory where W warps' fit beside the chunk (S =
+// 1), else in a workspace in global memory behind the (1/gamma) F'F
+// scratch (S = 0).  (1/gamma) F'F comes from k6_gram_wide_kernel (a
+// thread an entry, r in order).  Then
+// the warp factors the Gram (Cholesky by columns, the column's rows over
+// the lanes) and solves L y = rhs (each y_i's dot product over the lanes,
+// xor shuffles) and L' x = y (x_i subtracted from the entries above it,
+// over the lanes), every sum in a fixed order: two launches give the same
+// bits.  Bounded by the same operations as the register paths, and by
+// shared-memory traffic: each observed (r, entry) reads two staged factor
+// values.
 #include <cstdint>
 #include <type_traits>
 
@@ -467,6 +488,103 @@ __global__ void __launch_bounds__(max_slots_warps<T>() * kTile, 1)
   solve_store<K>(G, rhs, p.ridge_eps, p.out + b * g.oB + o * g.oo, g.ol);
 }
 
+// ---- wide path: (1/gamma) F'F per slot, a thread an entry, r in order ----
+constexpr int kGramWideThreads = 256;
+template <class T>
+__global__ void __launch_bounds__(kGramWideThreads) k6_gram_wide_kernel(K6ParamsT<T> p, Geom g) {
+  const int k = p.k, NT = tri(k), b = blockIdx.x;
+  const T* F = p.F + (size_t)b * g.fB;
+  int a = 0, c = threadIdx.x;
+  for (int e = threadIdx.x; e < NT; e += kGramWideThreads, c += kGramWideThreads) {
+    while (c > a) c -= ++a;  // e = tri(a) + c, c <= a
+    T s = 0;
+    for (int r = 0; r < g.R; ++r) s = fma(F[(size_t)r * k + a], F[(size_t)r * k + c], s);
+    p.gram[(size_t)b * NT + e] = p.inv_gamma * s;
+  }
+}
+
+// the wide path's dynamic shared memory in bytes: the chunk's rpw factor
+// rows, each warp's compacted weights and weighted A (32 each), its
+// tri(k) + k entries where they are in shared memory (acc_smem), then each
+// warp's 32 row indices
+__host__ __device__ inline long long wide_smem_bytes(int k, int acc_smem, int W, int rpw,
+                                                     int elem) {
+  const long long E = tri(k) + k;
+  return (long long)elem * ((long long)rpw * k + 2LL * W * kTile + (acc_smem ? W * E : 0)) +
+         4LL * W * kTile;
+}
+
+// ---- wide path: a warp per (slot, output), W outputs of one slot a CTA ----
+template <class T>
+__global__ void __launch_bounds__(kMaxWarps * kTile) k6_wide_kernel(K6ParamsT<T> p, Geom g) {
+  extern __shared__ __align__(16) unsigned char k6w_smem_raw[];
+  T* const sm = reinterpret_cast<T*>(k6w_smem_raw);
+  const int k = p.k, NT = tri(k), E = NT + k, NW = p.W, CH = p.rpw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y, o = blockIdx.x * NW + warp;
+  const bool live = o < g.O;  // warps past the last output still stage
+  T* const fs = sm;                                 // [CH][k] the chunk's factor rows
+  T* const wl = fs + CH * k + warp * 2 * kTile;     // the warp's observed rows: weight,
+  T* const al = wl + kTile;                         // weight times A
+  T* const acc = p.S ? fs + CH * k + NW * 2 * kTile + warp * E
+                     : p.gram + (size_t)p.B * NT + ((size_t)b * g.O + min(o, g.O - 1)) * E;
+  int* const rl = reinterpret_cast<int*>(fs + CH * k + NW * 2 * kTile + (p.S ? NW * E : 0)) +
+                  warp * kTile;                     // and their rows in the chunk
+  const T* const F = p.F + (size_t)b * g.fB;
+  if (live)
+    for (int e = lane; e < E; e += kTile) acc[e] = T(0);
+  for (int r0 = 0; r0 < g.R; r0 += CH) {
+    const int rows = min(CH, g.R - r0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int q = threadIdx.x; q < rows * k; q += blockDim.x) fs[q] = __ldg(F + (size_t)r0 * k + q);
+    int cnt = 0;
+    if (live) {
+      T wv = 0, av = 0;
+      if (lane < rows) {
+        const long long q = (long long)(r0 + lane) * g.sr + (long long)o * g.so;
+        wv = __ldg(p.mask + q);
+        av = wv * __ldg(p.A + q);
+      }
+      const unsigned obs = __ballot_sync(0xffffffffu, wv != T(0));
+      if (wv != T(0)) {
+        const int at = __popc(obs & ((1u << lane) - 1u));
+        wl[at] = wv, al[at] = av, rl[at] = lane;
+      }
+      cnt = __popc(obs);
+    }
+    __syncthreads();
+    // lane's entries e = lane, lane + 32, ...: (a, c) of the packed lower
+    // Gram (e = tri(a) + c), then (a = k) the right-hand side's c
+    int a = 0, c = lane;
+    for (int e = lane; e < E && cnt; e += kTile, c += kTile) {
+      while (a < k && c > a) c -= ++a;
+      T s = acc[e];
+      if (a < k) {
+        for (int t = 0; t < cnt; ++t) {
+          const T* f = fs + rl[t] * k;
+          s = fma(wl[t] * f[a], f[c], s);
+        }
+      } else {
+        for (int t = 0; t < cnt; ++t) s = fma(al[t], fs[rl[t] * k + c], s);
+      }
+      acc[e] = s;
+    }
+  }
+  if (!live) return;
+  __syncwarp();
+  const T* gr = p.gram + (size_t)b * NT;
+  for (int e = lane; e < NT; e += kTile) acc[e] += gr[e];
+  __syncwarp();
+  for (int a = lane; a < k; a += kTile) acc[tri(a) + a] += p.ridge_eps;
+  __syncwarp();
+  const auto ix = [](int i, int j) { return tri(i) + j; };
+  omc::warp_cholesky(acc, k, ix);
+  T* const rhs = acc + NT;
+  omc::warp_cho_solve(acc, k, ix, [rhs](int i) -> T& { return rhs[i]; });
+  T* const out = p.out + b * g.oB + o * g.oo;
+  for (int l = lane; l < k; l += kTile) out[l * g.ol] = rhs[l];
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, bool& done) {
   // once per instantiation: the card's whole per-CTA shared memory
@@ -503,9 +621,33 @@ int launch_k(const K6ParamsT<T>& p, const Geom& g, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// the wide path: any k; W warps a CTA (at most 8), chunks of rpw <= 32 rows
+// of (B, R, k), the entries in shared memory (S = 1) or behind the (1/gamma) F'F
+// scratch in gram (S = 0)
+template <class T>
+int launch_wide(const K6ParamsT<T>& p, const Geom& g, void* stream) {
+  if (p.k < 1 || p.W < 1 || p.W > kMaxWarps || p.rpw < 1 || p.rpw > kTile ||
+      (p.S != 0 && p.S != 1) || p.gram == nullptr || g.fl != 1 || g.fr != p.k)
+    return (int)cudaErrorInvalidValue;
+  if (p.B <= 0 || g.O <= 0) return (int)cudaSuccess;
+  const long long smem = wide_smem_bytes(p.k, p.S, p.W, p.rpw, sizeof(T));
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  k6_gram_wide_kernel<T><<<p.B, kGramWideThreads, 0, st>>>(p, g);
+  const dim3 grid((g.O + p.W - 1) / p.W, p.B);
+  static bool done = false;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_smem(k6_wide_kernel<T>, done);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k6_wide_kernel<T><<<grid, p.W * kTile, (size_t)smem, st>>>(p, g);
+  return (int)cudaGetLastError();
+}
+
 template <class T>
 int launch(const K6ParamsT<T>& p, const Geom& g, void* stream) {
   const int R1 = g.R > 0 ? g.R : 1;
+  if (p.path == 2) return launch_wide(p, g, stream);
   if (p.path == 0) {
     // W non-empty ranges of a multiple of kUnit rows cover every r once,
     // in at most kMaxWarps warps
@@ -545,7 +687,7 @@ int vstep(const K6ParamsT<T>& p, void* stream) {
 
 template <class T>
 int ustep(const K6ParamsT<T>& p, void* stream) {
-  const bool rows = p.path == 1;
+  const bool rows = p.path != 0;
   const Geom g{p.m, p.n, (long long)p.k * p.m, rows ? p.k : 1, rows ? 1 : p.m, 1, p.m,
                (long long)p.n * p.k, p.k, 1};
   return launch(p, g, stream);
@@ -574,7 +716,9 @@ OMC_EXPORT int omc_k6_ustep_f64(const K6ParamsT<double>* params, void* stream) {
 }
 
 // the plan's shared memory at the operands' element size (4, or 8 for the
-// float64 build), held against ops.linalg.k6_plan by the smoke
+// float64 build), held against ops.linalg.k6_plan by the smoke; on the wide
+// path (2) S says whether the entries are in shared memory
 OMC_EXPORT long long omc_k6_smem_bytes(int path, int k, int S, int W, int rpw, int elem) {
+  if (path == 2) return wide_smem_bytes(k, S, W, rpw, elem);
   return (long long)elem * smem_floats(path, k, S, W, rpw, 16 / elem);
 }

@@ -74,6 +74,10 @@
 // entry; operands the kernels do not write are read through the read-only
 // path (omc::ROT).
 //
+// The wide kernels (omc_k9s_setup_wide, omc_k9a_zstep_wide,
+// omc_k9b_cone_wide and their _f64 builds) take every rank and width: see
+// their section below.
+//
 // The float64 builds (omc_k9s_setup_f64, omc_k9a_zstep_f64,
 // omc_k9b_cone_f64) are the same kernels on doubles, with these changes.
 // Every divide is omc::quot's (the hardware reciprocal refined, not the IEEE
@@ -626,9 +630,21 @@ __device__ __forceinline__ void k9a_slot(const K9aParamsT<T>& p, int b, T* smem)
   }
 }
 
+// (i, j) = divmod(e, W) for every 0 <= e < 2^31, the wide kernels' split
+// of the flat entries at any width: omc::divmod's float estimate, corrected
+// until j lies in [0, W) (one step at most while e / W < 2^21: the
+// estimate's error is a few float ulps of e / W)
+__device__ __forceinline__ void k9_split(int e, int W, float inv, int& i, int& j) {
+  i = __float2int_rz(((float)e + 0.5f) * inv);
+  j = e - i * W;
+  while (j < 0) --i, j += W;
+  while (j >= W) ++i, j -= W;
+}
+
 // X chunk `chunk` of slot b: zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho
-// sX^2), kXItems entries a thread, every load before the first store
-template <class T>
+// sX^2), kXItems entries a thread, every load before the first store; the
+// wide kernel (kExact) splits the entries with k9_split
+template <class T, bool kExact = false>
 __device__ __forceinline__ void k9a_x(const K9aParamsT<T>& p, int b, int chunk) {
   const int n = p.n, m = p.m, D1 = n + m, nm = n * m;
   const omc::ROT<T> w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
@@ -643,7 +659,8 @@ __device__ __forceinline__ void k9a_x(const K9aParamsT<T>& p, int b, int chunk) 
     const int e = e0 + u * kThreads9;
     if (e < nm) {
       int i, j;
-      omc::divmod(e, m, inv, i, j);
+      if constexpr (kExact) k9_split(e, m, inv, i, j);
+      else omc::divmod(e, m, inv, i, j);
       const int q = i * D1 + n + j;
       d[u] = w1[q] - u1[q];
       ma[u] = maskA[e];
@@ -736,10 +753,10 @@ __device__ __forceinline__ void k9a_theta(const K9aParamsT<T>& p, int b, int pai
 
 // Y tile pair `pair` of slot b, off the diagonal (the slot CTA writes the
 // diagonal): Y = sym((rho gY / 3) / rho), gY = (w1 - u1) + (w2 - u2) -
-// (w3 - u3) of the Y blocks
-template <int K, class T>
+// (w3 - u3) of the Y blocks (w2's order n + K)
+template <class T>
 __device__ __forceinline__ void k9a_y(const K9aParamsT<T>& p, int b, int pair, T (*sA)[kTile + 1],
-                                      T (*sB)[kTile + 1]) {
+                                      T (*sB)[kTile + 1], int K) {
   using omc::quot;
   const int n = p.n, m = p.m, D1 = n + m, D2 = n + K;
   int I, J;
@@ -783,7 +800,7 @@ __global__ void __launch_bounds__(kThreads9) k9a_kernel(K9aParamsT<T> p) {
     k9a_theta(p, b, u, sA, sB);
     return;
   }
-  k9a_y<K>(p, b, u - l.th, sA, sB);
+  k9a_y(p, b, u - l.th, sA, sB, K);
 }
 
 // ---------------------------------------------------------------------------
@@ -965,9 +982,10 @@ __device__ __forceinline__ void k9b_slot(const K9bParamsT<T>& p, int b, T* smem)
 // batch's flat B D^2: t = alpha f + (1 - alpha) w + u, a 16-byte word of E
 // consecutive entries a thread (4 floats, 2 doubles), w, u and t as 16-byte
 // words; a word may straddle a row, a block or a slot, so each entry
-// resolves its own (b, i, j) and block of f; every load before the store
-template <int K, class T>
-__device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, int quad0) {
+// resolves its own (b, i, j) and block of f (the wide kernel, kExact, with
+// k9_split); every load before the store
+template <class T, bool kExact = false>
+__device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, int quad0, int K) {
   using V = omc::Vec16<T>;
   constexpr int E = 16 / sizeof(T);
   using omc::lane4;
@@ -997,7 +1015,8 @@ __device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, int quad
     if (c >= rem) continue;
     const int e = q0 + c, b = b0 + (e >= (b0 + 1) * DD);
     int i, j;
-    omc::divmod(e - b * DD, D, inv, i, j);
+    if constexpr (kExact) k9_split(e - b * DD, D, inv, i, j);
+    else omc::divmod(e - b * DD, D, inv, i, j);
     const omc::ROT<T> Y{p.Y + (size_t)b * n * n};
     if (kind == 2) {
       f[c] = (i == j ? T(1) : T(0)) - Y[i * n + j];
@@ -1040,15 +1059,382 @@ __global__ void __launch_bounds__(kThreads9) k9b_kernel(K9bParamsT<T> p) {
   }
   x -= p.B;
   if (x < l.t1) {
-    k9b_t<K>(p, 0, x * p.qpc);
+    k9b_t(p, 0, x * p.qpc, K);
     return;
   }
   x -= l.t1;
   if (x < l.t2) {
-    k9b_t<K>(p, 1, x * p.qpc);
+    k9b_t(p, 1, x * p.qpc, K);
     return;
   }
-  k9b_t<K>(p, 2, (x - l.t2) * p.qpc);
+  k9b_t(p, 2, (x - l.t2) * p.qpc, K);
+}
+
+// ---------------------------------------------------------------------------
+// The wide kernels (any k >= 1, any n + m): K9s's, K9a's and K9b's work at
+// a runtime rank, for k >= 4, n + m > 4096 or a slot CTA's staging past
+// shared memory (omc_torch.sdp.mccormick.k9s_plan, k9_plan).  A row's
+// (k+q) x (k+q) system is held in memory, not in registers: K9s builds
+// M_i in its output Mc_i and factors it there, a warp a row
+// (omc::warp_cholesky); K9a solves a row's system in place in its outputs
+// (U_i, t_i), reading Mc_i and S_i where it uses them; K9b's slot CTA takes
+// its k column norms, 4q envelope rows a row and q row sums as loops over
+// the entries.  Every sum is in a fixed order (a warp's lanes over the rows
+// in order, then xor shuffles; the warps' sums each its own), so two
+// launches give the same bits; K9a's and K9b's flat CTAs split the entries
+// exactly at any width (k9_split).
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int tri_of(int k) { return k * (k + 1) / 2; }
+
+// pair p of rank k -> (j1, j2), j1 <= j2, in omc's order (pair_indices),
+// and back
+__device__ __forceinline__ void pair_at(int p, int k, int& j1, int& j2) {
+  j1 = 0;
+  while (p >= k - j1) p -= k - j1, ++j1;
+  j2 = j1 + p;
+}
+__device__ __forceinline__ int pair_index(int j1, int j2, int k) {
+  return j1 * k - j1 * (j1 - 1) / 2 + (j2 - j1);
+}
+
+// entry (a, c), c <= a, of row i's Gram M_i from the box entries l, h of
+// the row (k9s_gram's structure and order of sums)
+template <class T>
+__device__ __forceinline__ T k9s_gram_entry(const T* l, const T* h, int k, int a, int c) {
+  if (a < k) {
+    if (c < a) return (l[c] + h[c]) * (l[a] + h[a]);
+    T s = T(0);
+    for (int o = 0; o < k; ++o) {
+      if (o == a) {
+        const T sl = l[a] + h[a];
+        s += T(4) * (l[a] * l[a] + h[a] * h[a]) + T(2) * (sl * sl);
+      } else {
+        s += T(2) * (l[o] * l[o] + h[o] * h[o]);
+      }
+    }
+    return (s + T(4)) + T(1e-9);
+  }
+  if (c >= k) return c == a ? (T(0) + T(4)) + T(1e-9) : T(0);
+  int j1, j2;
+  pair_at(a - k, k, j1, j2);
+  if (j1 == j2) return c == j1 ? T(-4) * (l[j1] + h[j1]) : T(0);
+  return c == j1 ? T(-2) * (l[j2] + h[j2]) : c == j2 ? T(-2) * (l[j1] + h[j1]) : T(0);
+}
+
+// K9s, rows: a warp a row (kWarps9 rows a CTA): M_i's entries over the
+// lanes into Mc_i (zero above the diagonal), its Cholesky factor in place,
+// then S_i e_c = M_i^-1 e_{k+c} for each c, in place in Si_i's column c
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9s_rows_wide(K9sParamsT<T> p) {
+  const int k = p.k, q = tri_of(k), kq = k + q, n = p.n, R = omc::cdiv(n, kWarps9);
+  const int b = blockIdx.x / R, i = (blockIdx.x - b * R) * kWarps9 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const T* l = p.U_lo + ((size_t)b * n + i) * k;
+  const T* h = p.U_hi + ((size_t)b * n + i) * k;
+  T* const M = p.Mc + ((size_t)b * n + i) * kq * kq;
+  for (int e = lane; e < kq * kq; e += 32) {
+    const int a = e / kq, c = e - a * kq;
+    M[e] = c <= a ? k9s_gram_entry(l, h, k, a, c) : T(0);
+  }
+  __syncwarp();
+  const auto ix = [kq](int r, int c) { return r * kq + c; };
+  omc::warp_cholesky(M, kq, ix);
+  T* const S = p.Si + ((size_t)b * n + i) * kq * q;
+  for (int c = 0; c < q; ++c) {
+    for (int a = lane; a < kq; a += 32) S[a * q + c] = a == k + c ? T(1) : T(0);
+    __syncwarp();
+    omc::warp_cho_solve(M, kq, ix, [S, q, c](int a) -> T& { return S[a * q + c]; }, k + c);
+  }
+}
+
+// K9s, G: a CTA a slot; G = I + sum_i S_i[k:, :], entry (a, c) by warp (a q
+// + c) % kWarps9 (its rows over the lanes in order, xor shuffles), into Gc
+// (zero above the diagonal), then warp 0 factors Gc in place
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9s_g_wide(K9sParamsT<T> p) {
+  const int k = p.k, q = tri_of(k), kq = k + q, n = p.n, b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* const Gc = p.Gc + (size_t)b * q * q;
+  const T* S = p.Si + (size_t)b * n * kq * q;
+  for (int e = warp; e < q * q; e += kWarps9) {
+    const int a = e / q, c = e - a * q;
+    T s = T(0);
+    if (c <= a)
+      for (int i = lane; i < n; i += 32) s += S[((size_t)i * kq + k + a) * q + c];
+    s = omc::warp_sum(s);
+    if (lane == 0) Gc[e] = c <= a ? (a == c ? T(1) : T(0)) + s : T(0);
+  }
+  __syncthreads();
+  if (warp == 0) omc::warp_cholesky(Gc, q, [q](int r, int c) { return r * q + c; });
+}
+
+// K9a, row i of slot b (a warp): the (U, t) right-hand side over the lanes
+// into U_i and t_i (k9a_slot's sums in its order), Y_ii before the trace
+// correction (rho gY_ii / 3), then z0_i = M_i^-1 r in place
+template <class T>
+__device__ __forceinline__ void k9a_row_wide(const K9aParamsT<T>& p, int b, int i) {
+  using omc::quot;
+  using RO = omc::ROT<T>;
+  const int k = p.k, q = tri_of(k), kq = k + q, n = p.n, m = p.m, D1 = n + m, D2 = n + k;
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;
+  const RO w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
+  const RO w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
+  const RO w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
+  const RO wsoc{p.wsoc + (size_t)b * k * (1 + n)}, usoc{p.usoc + (size_t)b * k * (1 + n)};
+  const RO wbox{p.wbox + ((size_t)b * n + i) * k}, ubox{p.ubox + ((size_t)b * n + i) * k};
+  const RO wmc{p.wmc + (size_t)b * 4 * n * q}, umc{p.umc + (size_t)b * 4 * n * q};
+  const RO lo{p.U_lo + ((size_t)b * n + i) * k}, hi{p.U_hi + ((size_t)b * n + i) * k};
+  T* const U = p.U + ((size_t)b * n + i) * k;
+  T* const t = p.t + ((size_t)b * n + i) * q;
+  const T rho = __ldg(p.rho + b);
+  // pair (j1, j2)'s envelope duals summed against c1 (which = 1), c2 (2) or s (0)
+  const auto pair_sum = [&](int j1, int j2, int which) {
+    const int pp = pair_index(j1, j2, k);
+    const T l1 = lo[j1], l2 = lo[j2], h1 = hi[j1], h2 = hi[j2];
+    T acc = T(0);
+    for (int rr = 0; rr < 4; ++rr) {
+      T s, c1, c2, d;
+      envelope(rr, l1, l2, h1, h2, s, c1, c2, d);
+      const size_t qi = ((size_t)rr * n + i) * q + pp;
+      const T y = (wmc[qi] - umc[qi]) - d;
+      acc += y * (which == 1 ? c1 : which == 2 ? c2 : s);
+    }
+    return acc;
+  };
+  for (int c = lane; c < kq; c += 32) {
+    if (c < k) {
+      const int q2 = i * D2 + n + c, qs = c * (1 + n) + 1 + i;
+      const T r = T(2) * (w2[q2] - u2[q2]) + (wsoc[qs] - usoc[qs]) + (wbox[c] - ubox[c]);
+      T g1 = T(0), g2 = T(0);
+      for (int j2 = c; j2 < k; ++j2) g1 += pair_sum(c, j2, 1);
+      for (int j1 = 0; j1 <= c; ++j1) g2 += pair_sum(j1, c, 2);
+      U[c] = rho * ((r + g1) + g2);
+    } else {
+      const int pp = c - k;
+      int j1, j2;
+      pair_at(pp, k, j1, j2);
+      const T yo = __ldg(p.worth + (size_t)b * q + pp) - __ldg(p.uorth + (size_t)b * q + pp) +
+                   (j1 == j2 ? T(1) : T(0));
+      t[pp] = rho * (pair_sum(j1, j2, 0) + yo);
+    }
+  }
+  if (lane == 0) {
+    const T y4 = __ldg(p.w4 + b) - __ldg(p.u4 + b) - T(k);
+    const T d1 = w1[i * D1 + i] - u1[i * D1 + i], d2 = w2[i * D2 + i] - u2[i * D2 + i];
+    const T d3 = w3[i * n + i] - u3[i * n + i];
+    p.Y[(size_t)b * n * n + (size_t)i * n + i] = quot(rho * ((d1 + d2 - (d3 - T(1))) - y4), T(3));
+  }
+  __syncwarp();
+  const T* L = p.Mc + ((size_t)b * n + i) * kq * kq;
+  omc::warp_cho_solve(L, kq, [kq](int r, int c) { return r * kq + c; },
+                      [U, t, k](int c) -> T& { return c < k ? U[c] : t[c - k]; });
+}
+
+// K9a's wide grid: B ceil(n / kWarps9) row CTAs, then k9a_layout's flat
+// CTAs (X chunks, Theta and Y tile pairs)
+__host__ __device__ __forceinline__ int k9a_wide_grid_x(int B, int n, int m) {
+  return B * omc::cdiv(n, kWarps9) + B * k9a_layout(B, n, m).units;
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9a_wide_kernel(K9aParamsT<T> p) {
+  __shared__ T sA[kTile][kTile + 1], sB[kTile][kTile + 1];
+  const int R = omc::cdiv(p.n, kWarps9);
+  int x = blockIdx.x;
+  if (x < p.B * R) {
+    const int b = x / R;
+    k9a_row_wide(p, b, (x - b * R) * kWarps9 + (int)(threadIdx.x >> 5));
+    return;
+  }
+  x -= p.B * R;
+  const K9aLayout l = k9a_layout(p.B, p.n, p.m);
+  const int b = x / l.units;
+  int u = x - b * l.units;
+  if (u < l.x) {
+    k9a_x<T, true>(p, b, u);
+    return;
+  }
+  u -= l.x;
+  if (u < l.th) {
+    k9a_theta(p, b, u, sA, sB);
+    return;
+  }
+  k9a_y(p, b, u - l.th, sA, sB, p.k);
+}
+
+// K9a's second launch, a CTA a slot: sum_i z0_i[k:] and tr(rho gY / 3) (a
+// warp a sum, its lanes over the rows in order), the Gc solve by warp 0,
+// then U, t = (z0 - S_i tcorr) / rho a thread an entry and Y's diagonal
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9a_fix_wide(K9aParamsT<T> p) {
+  using omc::quot;
+  extern __shared__ float smem[];
+  T* const tot = reinterpret_cast<T*>(smem);  // q + 1: the sums, tcorr in place
+  const int k = p.k, q = tri_of(k), kq = k + q, n = p.n, b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* const U = p.U + (size_t)b * n * k;
+  T* const t = p.t + (size_t)b * n * q;
+  T* const Y = p.Y + (size_t)b * n * n;
+  const T* Si = p.Si + (size_t)b * n * kq * q;
+  const T rho = __ldg(p.rho + b);
+  for (int a = warp; a <= q; a += kWarps9) {
+    T s = T(0);
+    for (int i = lane; i < n; i += 32) s += a < q ? t[(size_t)i * q + a] : Y[(size_t)i * n + i];
+    s = omc::warp_sum(s);
+    if (lane == 0) tot[a] = s;
+  }
+  __syncthreads();
+  if (warp == 0)
+    omc::warp_cho_solve(p.Gc + (size_t)b * q * q, q, [q](int r, int c) { return r * q + c; },
+                        [tot](int a) -> T& { return tot[a]; });
+  __syncthreads();
+  const T ctr = quot(tot[q], T(3) + T(n));
+  for (int e = threadIdx.x; e < n * kq; e += kThreads9) {
+    const int i = e / kq, c = e - i * kq;
+    const T* S = Si + (size_t)e * q;
+    T s = T(0);
+    for (int a = 0; a < q; ++a) s += S[a] * tot[a];
+    T& z = c < k ? U[(size_t)i * k + c] : t[(size_t)i * q + (c - k)];
+    z = quot(z - s, rho);
+  }
+  for (int i = threadIdx.x; i < n; i += kThreads9) {
+    const T a = quot(Y[(size_t)i * n + i] - ctr, rho);
+    Y[(size_t)i * n + i] = T(0.5) * (a + a);
+  }
+}
+
+// K9b's wide slot CTA of slot b: the SOC slots' t (kept in usoc until the
+// norms), the box slot and the envelope rows with their running mean, an
+// entry a thread; then tr Y, the k column norms and sum_i t[i, p] (a warp a
+// sum, its lanes over the rows in order); then the trace, SOC and
+// orthogonality slots (k9b_slot's arithmetic)
+template <class T>
+__device__ __forceinline__ void k9b_slot_wide(const K9bParamsT<T>& p, int b, T* smem) {
+  const int k = p.k, q = tri_of(k), n = p.n, NS = 1 + k + q;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T alpha = p.alpha, om = T(1) - p.alpha;
+  const T rho = __ldg(p.rho + b);
+  T* const tot = smem;       // NS: tr Y, |tsoc_j[1:]|^2, sum_i t
+  T* const head = smem + NS;  // k: tsoc_j[0]
+  const omc::ROT<T> Y{p.Y + (size_t)b * n * n}, U{p.U + (size_t)b * n * k};
+  const omc::ROT<T> t{p.t + (size_t)b * n * q};
+  const omc::ROT<T> lo{p.U_lo + (size_t)b * n * k}, hi{p.U_hi + (size_t)b * n * k};
+  T* const wsoc = p.wsoc + (size_t)b * k * (1 + n);
+  T* const usoc = p.usoc + (size_t)b * k * (1 + n);
+  T* const wbox = p.wbox + (size_t)b * n * k;
+  T* const ubox = p.ubox + (size_t)b * n * k;
+  T* const wmc = p.wmc + (size_t)b * 4 * n * q;
+  T* const umc = p.umc + (size_t)b * 4 * n * q;
+  T* const acc = p.acc_mc ? p.acc_mc + (size_t)b * 4 * n * q : nullptr;
+  for (int j = tid; j < k; j += kThreads9)
+    head[j] = (alpha * T(1) + om * wsoc[j * (1 + n)]) + usoc[j * (1 + n)];
+  for (int e = tid; e < k * n; e += kThreads9) {
+    const int j = e / n, i = e - j * n, qs = j * (1 + n) + 1 + i;
+    usoc[qs] = (alpha * U[i * k + j] + om * wsoc[qs]) + usoc[qs];
+  }
+  for (int e = tid; e < n * k; e += kThreads9) {
+    const T v = (alpha * U[e] + om * wbox[e]) + ubox[e];
+    const T w = fmin(fmax(v, lo[e]), hi[e]);
+    wbox[e] = w;
+    ubox[e] = v - w;
+  }
+  for (int e = tid; e < n * q; e += kThreads9) {
+    const int i = e / q, pp = e - i * q;
+    int j1, j2;
+    pair_at(pp, k, j1, j2);
+    const T l1 = lo[i * k + j1], l2 = lo[i * k + j2], h1 = hi[i * k + j1], h2 = hi[i * k + j2];
+    const T ti = t[e], U1 = U[i * k + j1], U2 = U[i * k + j2];
+    for (int rr = 0; rr < 4; ++rr) {
+      T s, c1, c2, d;
+      envelope(rr, l1, l2, h1, h2, s, c1, c2, d);
+      const T f = ((s * ti + c1 * U1) + c2 * U2) + d;
+      const size_t qi = ((size_t)rr * n + i) * q + pp;
+      const T v = (alpha * f + om * wmc[qi]) + umc[qi];
+      const T w = fmax(v, T(0)), u = v - w;
+      wmc[qi] = w;
+      umc[qi] = u;
+      if (acc) acc[qi] = acc[qi] + p.beta * (rho * u - acc[qi]);
+    }
+  }
+  __syncthreads();
+  for (int a = warp; a < NS; a += kWarps9) {
+    T s = T(0);
+    for (int i = lane; i < n; i += 32) {
+      if (a == 0) {
+        s += Y[(size_t)i * n + i];
+      } else if (a <= k) {
+        const T v = usoc[(a - 1) * (1 + n) + 1 + i];
+        s += v * v;
+      } else {
+        s += t[(size_t)i * q + (a - 1 - k)];
+      }
+    }
+    s = omc::warp_sum(s);
+    if (lane == 0) tot[a] = s;
+  }
+  __syncthreads();
+  if (tid == 0) {  // trace slot
+    const T t4 = (alpha * (T(k) - tot[0]) + om * p.w4[b]) + p.u4[b];
+    const T w = fmax(t4, T(0));
+    p.w4[b] = w;
+    p.u4[b] = t4 - w;
+  }
+  for (int e = tid; e < k * (1 + n); e += kThreads9) {  // SOC slots (1, U_j)
+    const int j = e / (1 + n), qq = e - j * (1 + n);
+    const T tt = head[j], n2 = tot[1 + j];
+    T nj, inv = T(0);
+    if constexpr (sizeof(T) == 4) {
+      nj = sqrtf(n2);
+    } else {
+      inv = n2 > T(0) ? rsq(n2) : T(0);
+      nj = n2 * inv;
+    }
+    const T v = (qq == 0) ? tt : usoc[e];
+    T w;
+    if (nj <= tt) w = v;
+    else if (nj <= -tt) w = T(0);
+    else if (qq == 0) w = T(0.5) * (tt + nj);
+    else if constexpr (sizeof(T) == 4) w = (nj > 0.f ? 0.5f * (1.0f + tt / nj) : 0.f) * v;
+    else w = (T(0.5) * (T(1) + tt * inv)) * v;
+    wsoc[e] = w;
+    usoc[e] = v - w;
+  }
+  for (int pp = tid; pp < q; pp += kThreads9) {  // orthogonality rows (= 0)
+    int j1, j2;
+    pair_at(pp, k, j1, j2);
+    const size_t qo = (size_t)b * q + pp;
+    const T f = tot[1 + k + pp] - ((j1 == j2) ? T(1) : T(0));
+    const T v = (alpha * f + om * p.worth[qo]) + p.uorth[qo];
+    p.worth[qo] = T(0);
+    p.uorth[qo] = v;
+    if (p.acc_orth) p.acc_orth[qo] = p.acc_orth[qo] + p.beta * (rho * v - p.acc_orth[qo]);
+  }
+}
+
+// (k9b_layout at the runtime k; omc_torch.sdp.mccormick.k9_plan)
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9b_wide_kernel(K9bParamsT<T> p) {
+  extern __shared__ float smem[];
+  const K9bLayout l = k9b_layout(p.B, p.n, p.m, p.k, p.qpc, 16 / sizeof(T));
+  int x = blockIdx.x;
+  if (x < p.B) {
+    k9b_slot_wide(p, x, reinterpret_cast<T*>(smem));
+    return;
+  }
+  x -= p.B;
+  if (x < l.t1) {
+    k9b_t<T, true>(p, 0, x * p.qpc, p.k);
+    return;
+  }
+  x -= l.t1;
+  if (x < l.t2) {
+    k9b_t<T, true>(p, 1, x * p.qpc, p.k);
+    return;
+  }
+  k9b_t<T, true>(p, 2, (x - l.t2) * p.qpc, p.k);
 }
 
 template <typename Kernel, typename Params>
@@ -1116,6 +1502,55 @@ int k9b_launch(const K9bParamsT<T>& p, void* stream) {
   }
 }
 
+// the shapes the wide kernels take: any k >= 1; a word of t3 spans at
+// most two slots (n >= 2); the batch's flat t1 entries, and a block's, index
+// in int (B (n + m)^2 < 2^31)
+bool k9_wide_shape_ok(int B, int n, int m, int k) {
+  return B >= 1 && n >= 2 && m >= 1 && k >= 1 &&
+         (long long)B * (n + m) * (n + m) < (1LL << 31);
+}
+
+// the wide K9a's second launch: the slot's q + 1 sums in shared memory
+__host__ __device__ __forceinline__ long long k9a_fix_smem(int k, int elem) {
+  return (long long)elem * (tri_of(k) + 1);
+}
+
+// the wide K9b's slot CTA: tr Y, the k norms and q row sums, then the k SOC heads
+__host__ __device__ __forceinline__ long long k9b_wide_smem(int k, int elem) {
+  return (long long)elem * (1 + 2 * k + tri_of(k));
+}
+
+template <class T>
+int k9s_wide_launch(const K9sParamsT<T>& p, void* stream) {
+  if (p.B < 1 || p.n < 1 || p.k < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  k9s_rows_wide<T><<<p.B * omc::cdiv(p.n, kWarps9), kThreads9, 0, st>>>(p);
+  k9s_g_wide<T><<<p.B, kThreads9, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int k9a_wide_launch(const K9aParamsT<T>& p, void* stream) {
+  if (!k9_wide_shape_ok(p.B, p.n, p.m, p.k)) return (int)cudaErrorInvalidValue;
+  const int err = launch_k(k9a_wide_kernel<T>, p, k9a_wide_grid_x(p.B, p.n, p.m), kThreads9, 0,
+                           stream);
+  if (err) return err;
+  return launch_k(k9a_fix_wide<T>, p, p.B, kThreads9, (size_t)k9a_fix_smem(p.k, sizeof(T)),
+                  stream);
+}
+
+template <class T>
+int k9b_wide_launch(const K9bParamsT<T>& p, void* stream) {
+  const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
+  if (!k9_wide_shape_ok(p.B, p.n, p.m, p.k) || p.qpc < 32 || p.qpc > kThreads9 || p.qpc % 32 ||
+      odd(p.w1) || odd(p.u1) || odd(p.w2) || odd(p.u2) || odd(p.w3) || odd(p.u3) ||
+      odd(p.t1) || odd(p.t2) || odd(p.t3))
+    return (int)cudaErrorInvalidValue;
+  const int grid = k9b_layout(p.B, p.n, p.m, p.k, p.qpc, 16 / sizeof(T)).grid_x;
+  return launch_k(k9b_wide_kernel<T>, p, grid, kThreads9, (size_t)k9b_wide_smem(p.k, sizeof(T)),
+                  stream);
+}
+
 }  // namespace
 
 // K9s's CTA at elem bytes a value (4, or 8 in the float64 build;
@@ -1158,4 +1593,38 @@ OMC_EXPORT int omc_k9b_cone(const K9bParams* params, void* stream) {
 
 OMC_EXPORT int omc_k9b_cone_f64(const K9bParamsT<double>* params, void* stream) {
   return k9b_launch(*params, stream);
+}
+
+// the wide kernels (any k; n + m > 4096): K9s's two launches (rows, then G),
+// K9a's two (rows and flat CTAs, then the per-slot sums and corrections),
+// K9b's one; their grids and shared memory, held against k9s_plan /
+// k9_plan by the smoke
+OMC_EXPORT int omc_k9a_wide_grid_x(int B, int n, int m) { return k9a_wide_grid_x(B, n, m); }
+
+OMC_EXPORT long long omc_k9a_fix_smem_bytes(int k, int elem) { return k9a_fix_smem(k, elem); }
+
+OMC_EXPORT long long omc_k9b_wide_smem_bytes(int k, int elem) { return k9b_wide_smem(k, elem); }
+
+OMC_EXPORT int omc_k9s_setup_wide(const K9sParams* params, void* stream) {
+  return k9s_wide_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k9s_setup_wide_f64(const K9sParamsT<double>* params, void* stream) {
+  return k9s_wide_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k9a_zstep_wide(const K9aParams* params, void* stream) {
+  return k9a_wide_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k9a_zstep_wide_f64(const K9aParamsT<double>* params, void* stream) {
+  return k9a_wide_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k9b_cone_wide(const K9bParams* params, void* stream) {
+  return k9b_wide_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k9b_cone_wide_f64(const K9bParamsT<double>* params, void* stream) {
+  return k9b_wide_launch(*params, stream);
 }

@@ -39,6 +39,11 @@ PyTorch version:
 - K6 ``omc_torch.ops.linalg.v_step`` and
   ``u_step_unconstrained``                         (``csrc/k6_altmin.cu``)
 
+K6's wide path (k > 10) and K9s's, K9a's and K9b's wide kernels (k >= 4,
+or n + m > 4096, or a slot CTA's staging past shared memory) are kernels
+of their own in the same sources, behind the same wrappers, and count
+under their own keys: "K6w", "K9sw", "K9aw", "K9bw".
+
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
 
@@ -71,6 +76,8 @@ import torch
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
             "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0,
             "K4": 0, "K4s": 0, "K5": 0, "K6": 0,
+            "K6w": 0, "K9sw": 0, "K9aw": 0, "K9bw": 0,
+            "K6w_f64": 0, "K9sw_f64": 0, "K9aw_f64": 0, "K9bw_f64": 0,
             "K2_f64": 0, "K3_f64": 0, "K7_f64": 0, "K8a_f64": 0, "K8b_f64": 0,
             "K7t_f64": 0, "K7x_f64": 0, "K8c_f64": 0, "K8d_f64": 0, "K9s_f64": 0, "K9a_f64": 0,
             "K9b_f64": 0, "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
@@ -341,9 +348,9 @@ FLOAT64_BUILDS = {
     K7xParams: (K7xParams64, ("omc_k7x_xwh",)),
     K8cParams: (K8cParams64, ("omc_k8c_shor_k_zstep",)),
     K8dParams: (K8dParams64, ("omc_k8d_shor_k_cone",)),
-    K9sParams: (K9sParams64, ("omc_k9s_setup",)),
-    K9aParams: (K9aParams64, ("omc_k9a_zstep",)),
-    K9bParams: (K9bParams64, ("omc_k9b_cone",)),
+    K9sParams: (K9sParams64, ("omc_k9s_setup", "omc_k9s_setup_wide")),
+    K9aParams: (K9aParams64, ("omc_k9a_zstep", "omc_k9a_zstep_wide")),
+    K9bParams: (K9bParams64, ("omc_k9b_cone", "omc_k9b_cone_wide")),
     K4Params: (K4Params64, ("omc_k4_jacobi",)),
     K5Params: (K5Params64, ("omc_k5_separation",)),
     K4sParams: (K4sParams64, ("omc_k4s_jacobi_small",)),
@@ -389,6 +396,38 @@ def require_cuda_dtype(family: str, dtype) -> None:
         raise ValueError(f"the CUDA path runs float32 or float64, not {dtype}")
 
 
+# rank-k Shor's K7t, K7x, K8c and K8d are built for k = 2..4 (ROADMAP.md
+# queue 2, item 3 ports k >= 5)
+SHOR_K_CUDA_MAX_K = 4
+# McCormick's K9a and K9b index a batch's flat entries of the (n + m)^2 PSD
+# block in int: B (n + m)^2 stays below this (ROADMAP.md queue 2, item 4
+# indexes them in 64 bits)
+MCCORMICK_CUDA_MAX_FLAT = 2 ** 31
+
+
+def require_cuda_shape(family: str, k: int, n: int, m: int, batch: int = 1) -> None:
+    """The CUDA shape gate of every solver family, before any work on the
+    card: rank-k Shor past ``SHOR_K_CUDA_MAX_K``, and McCormick at a
+    ``batch`` (the most node slots a solver call takes: 1 for the api,
+    ``batch_size`` for the driver) with ``batch (n + m)^2`` at or past
+    ``MCCORMICK_CUDA_MAX_FLAT``, raise ``ValueError`` naming the range and
+    the roadmap item that will port it.  Every other (k, n, m) that ``omc``
+    runs passes: K6 and the McCormick kernels take any rank."""
+    if family not in FLOAT64_FAMILIES:
+        raise ValueError(f"unknown solver family {family!r}")
+    if k < 1 or min(n, m, batch) < 1:
+        raise ValueError(f"unsupported shape k={k}, n={n}, m={m}, batch={batch}")
+    if family == "shor_k" and k > SHOR_K_CUDA_MAX_K:
+        raise ValueError(f"the CUDA kernels of the shor_k family take k <= {SHOR_K_CUDA_MAX_K}, "
+                         f"got k = {k}; ROADMAP.md queue 2, item 3 will port k >= 5 "
+                         '(device="cpu" runs it)')
+    flat = batch * (n + m) ** 2
+    if family == "mccormick" and flat >= MCCORMICK_CUDA_MAX_FLAT:
+        raise ValueError(f"the CUDA kernels of the mccormick family take batch (n + m)^2 < 2^31, "
+                         f"got {batch} x {n + m}^2 = {flat}; ROADMAP.md queue 2, item 4 will "
+                         'index past it (a smaller batch_size, or device="cpu", runs it)')
+
+
 def _load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name, params in (
@@ -405,6 +444,9 @@ def _load(path: Path):
         ("omc_k9s_setup", K9sParams),
         ("omc_k9a_zstep", K9aParams),
         ("omc_k9b_cone", K9bParams),
+        ("omc_k9s_setup_wide", K9sParams),
+        ("omc_k9a_zstep_wide", K9aParams),
+        ("omc_k9b_cone_wide", K9bParams),
         ("omc_k4_jacobi", K4Params),
         ("omc_k5_separation", K5Params),
         ("omc_k4s_jacobi_small", K4sParams),
@@ -469,6 +511,11 @@ def _load(path: Path):
     lib.omc_k9a_grid_x.restype = ctypes.c_int
     lib.omc_k9b_grid_x.argtypes = [ctypes.c_int] * 6
     lib.omc_k9b_grid_x.restype = ctypes.c_int
+    lib.omc_k9a_wide_grid_x.argtypes = [ctypes.c_int] * 3
+    lib.omc_k9a_wide_grid_x.restype = ctypes.c_int
+    for name in ("omc_k9a_fix_smem_bytes", "omc_k9b_wide_smem_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 2
+        getattr(lib, name).restype = ctypes.c_longlong
     for name, nargs in (("omc_k2_smem_bytes", 9), ("omc_k3_smem_bytes", 9),
                         ("omc_k2_ws_doubles", 6), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs

@@ -7,11 +7,12 @@ the batch dimension out: ``U`` (B, n, k), ``V`` (B, k, m), and ``A`` /
 ``mask`` (n, m) shared by the batch.
 
 ``v_step`` and ``u_step_unconstrained`` are the wrappers of kernel K6
-(``csrc/k6_altmin.cu``, k <= 10): a CPU tensor takes the plain version
+(``csrc/k6_altmin.cu``, any k): a CPU tensor takes the plain version
 (``v_step_plain``, ``u_step_unconstrained_plain``: batched LU solves), a
 CUDA tensor takes the kernel (Cholesky solves of the same SPD, ridged
-systems, on the tiling ``k6_plan`` picks; a float64 tensor its float64
-build) or raises.
+systems, on the path and tiling ``k6_plan`` picks: the register paths to
+k = 10, the wide path beyond; a float64 tensor its float64 build) or
+raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 
 from omc_torch import kernels
 
+# the register paths ("tile", "slots") hold a lane's Gram in registers up
+# to k = K6_MAX_K; the wide path takes every k beyond (and any k forced)
 K6_MAX_K = 10
 # K6's tiling: lanes a warp, the tile path's r-range granularity, warps a
 # CTA, the warps the tile path aims to have resident on the H100 (132 SMs,
@@ -33,6 +36,9 @@ K6_PATHS = ("tile", "slots")
 # the float64 build's slots-path CTAs run at most 8 warps (its Gram takes
 # twice the registers: 255 a thread at k = 10)
 K6_SLOTS_MAX_WARPS_F64 = 8
+# the wide path: warps a CTA (an output each, one slot), rows a chunk, and
+# the shared memory a CTA may take
+K6_WIDE, K6_WIDE_WARPS, K6_WIDE_SMEM = "wide", 8, 232448
 
 
 def k6_smem_bytes(path: str, k: int, S: int, W: int, rpw: int, dtype=torch.float32) -> int:
@@ -44,6 +50,11 @@ def k6_smem_bytes(path: str, k: int, S: int, W: int, rpw: int, dtype=torch.float
     factor (a slot stride of an odd number of 16-byte units), then the W
     outputs' mask and A rows."""
     e = dtype.itemsize
+    if path == K6_WIDE:
+        # the chunk's rpw rows of k, each warp's 32 weights and weighted A,
+        # its tri(k) + k entries where they are in shared memory (S = 1),
+        # then each warp's 32 int32 row indices
+        return e * (rpw * k + 2 * W * K6_TILE + (S * W * (k * (k + 1) // 2 + k))) + 4 * W * K6_TILE
     if path == "slots":
         vw = 16 // e  # values of a 16-byte unit
         chunk = (rpw * k + vw - 1) & ~(vw - 1)
@@ -72,6 +83,15 @@ def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None,
       (16, fewer where the grid would have under ``K6_SLOTS_CTAS`` CTAs),
       streaming the slots' factor rows in chunks of ``rpw`` = 32.
 
+    - ``wide`` (k > ``K6_MAX_K``, or forced): a warp per output, W =
+      ``K6_WIDE_WARPS`` outputs of one slot a CTA, the slot's rows in
+      chunks of ``rpw`` = 32 (fewer past k ~ 200); a lane's share of the
+      packed Gram and right-hand side (tri(k) + k values) in shared memory
+      where the W warps' fit (``S`` = 1), else in a global workspace of
+      ``ws_bytes`` (``S`` = 0) behind the (1/gamma) F'F scratch of
+      ``gram_bytes``.  No rank limit of its own: the wrapper refuses a
+      workspace the card has no room for.
+
     ``dtype`` float64 plans the float64 build: the same rules, 16-byte
     pieces of two doubles (R k even), slots-path CTAs of at most
     ``K6_SLOTS_MAX_WARPS_F64`` warps, the shared memory at 8 bytes a value.
@@ -79,15 +99,21 @@ def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None,
     ``path`` forces one (timing); the default picks by shape.  (Cached: the
     altmin loop asks for the same shapes every iteration; do not mutate the
     returned dict.)"""
-    if not 1 <= k <= K6_MAX_K:
-        raise ValueError(f"K6 takes 1 <= k <= {K6_MAX_K}, got k = {k}")
+    if k < 1:
+        raise ValueError(f"K6 takes k >= 1, got k = {k}")
+    if path == K6_WIDE or (path is None and k > K6_MAX_K):
+        return _k6_wide_plan(B, O, k, dtype)
+    if k > K6_MAX_K:
+        raise ValueError(f"K6's {path} path holds a Gram in registers: k <= {K6_MAX_K}, got "
+                         f"k = {k} (the wide path takes it)")
     vw = 16 // dtype.itemsize
     rows16 = R * k % vw == 0  # a slot's factor rows start on 16 bytes
     if path is None:
         big = B >= K6_SLOTS_MIN_B and R >= K6_SLOTS_MIN_R
         path = "slots" if big and rows16 else "tile"
     if path not in K6_PATHS:
-        raise ValueError(f"K6: unknown path {path!r}, expected one of {K6_PATHS}")
+        raise ValueError(f"K6: unknown path {path!r}, expected one of "
+                         f"{K6_PATHS + (K6_WIDE,)}")
     if path == "slots" and not rows16:
         raise ValueError(f"K6: the slots path copies 16-byte pieces; R k = {R * k} is not "
                          f"a multiple of {vw}")
@@ -110,6 +136,25 @@ def k6_plan(B: int, R: int, O: int, k: int, path: str | None = None,
                 smem_bytes=k6_smem_bytes(path, k, S, W, rpw, dtype))
 
 
+def _k6_wide_plan(B, O, k, dtype):
+    e, NT, W = dtype.itemsize, k * (k + 1) // 2, K6_WIDE_WARPS
+
+    def smem(S, rpw):
+        return k6_smem_bytes(K6_WIDE, k, S, W, rpw, dtype)
+
+    ws = smem(1, K6_TILE) > K6_WIDE_SMEM
+    S = 0 if ws else 1
+    # chunks of 32 rows, fewer only where 32 rows of k pass a CTA's shared
+    # memory (k in the hundreds)
+    rpw = next((r for r in (32, 16, 8, 4, 2, 1) if smem(S, r) <= K6_WIDE_SMEM), None)
+    if rpw is None:
+        raise ValueError(f"K6's wide path: one row of k = {k} takes {smem(S, 1)} bytes of "
+                         f"shared memory, above {K6_WIDE_SMEM}")
+    return dict(path=K6_WIDE, S=S, W=W, rpw=rpw, threads=32 * W, grid=(-(-O // W), B),
+                smem_bytes=smem(S, rpw), gram_bytes=e * B * NT,
+                ws_bytes=e * B * O * (NT + k) if ws else 0)
+
+
 def _k6(fn_name, F, f_shape, A, mask, gamma, ridge_eps, k, out_shape, R, O, path):
     dev = F.device
     if dev.type != "cuda":
@@ -117,7 +162,7 @@ def _k6(fn_name, F, f_shape, A, mask, gamma, ridge_eps, k, out_shape, R, O, path
     B, (n, m) = F.shape[0], A.shape
     dt = F.dtype
     plan = k6_plan(B, R, O, k, path, dt)
-    slots = plan["path"] == "slots"
+    slots = plan["path"] != "tile"  # rows of k: the slots and wide paths
     if slots and fn_name == "omc_k6_ustep":
         # the slots path copies rows of k: V (B, k, m) goes in as (B, m, k)
         F, f_shape = F.transpose(-1, -2), (B, m, k)
@@ -127,18 +172,28 @@ def _k6(fn_name, F, f_shape, A, mask, gamma, ridge_eps, k, out_shape, R, O, path
     p = kernels.block(kernels.K6Params, dt)
     out = torch.empty(out_shape, dtype=dt, device=dev)
     p.B, p.n, p.m, p.k = B, n, m, k
-    p.path = K6_PATHS.index(plan["path"])
+    p.path = (K6_PATHS + (K6_WIDE,)).index(plan["path"])
     p.S, p.W, p.rpw = plan["S"], plan["W"], plan["rpw"]
     p.F = kernels.check("factor", F, f_shape, dev, dt)
     p.A = kernels.check("A", A, (n, m), dev, dt)
     p.mask = kernels.check("mask", mask, (n, m), dev, dt)
     p.out = out.data_ptr()
-    if slots:  # (1/gamma) F'F of each slot
+    if plan["path"] == "slots":  # (1/gamma) F'F of each slot
         gram = torch.empty((B, k * (k + 1) // 2), dtype=dt, device=dev)
+        p.gram = gram.data_ptr()
+    elif plan["path"] == K6_WIDE:  # and the wide path's workspace behind it
+        need = plan["gram_bytes"] + plan["ws_bytes"]
+        if plan["ws_bytes"]:
+            free = torch.cuda.mem_get_info(dev)[0]
+            if need > free:
+                raise ValueError(f"K6's wide path at (B, R, O, k) = ({B}, {R}, {O}, {k}): its "
+                                 f"workspace takes {need} bytes, the card has {free} free")
+        gram = torch.empty(need // dt.itemsize, dtype=dt, device=dev)
         p.gram = gram.data_ptr()
     p.inv_gamma, p.ridge_eps = 1.0 / gamma, ridge_eps
     if B:
-        kernels.launch("K6", kernels.entry(fn_name, dt), p, dev)
+        kernels.launch("K6w" if plan["path"] == K6_WIDE else "K6", kernels.entry(fn_name, dt),
+                       p, dev)
     return out
 
 

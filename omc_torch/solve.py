@@ -366,9 +366,10 @@ def matrix_completion_branchandbound(
     rng = np.random.default_rng(cfg.seed)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
     np_dtype = np.float64 if cfg.dtype == "float64" else np.float32
-    if dev.type == "cuda":  # a dtype the kernels do not take raises here, not mid-run
+    if dev.type == "cuda":  # a dtype or rank the kernels do not take raises here, not mid-run
         gate = {"admm": "halpern" if cfg.sdp_halpern else "base"}.get(family, family)
         kernels.require_cuda_dtype(gate, dtype)
+        kernels.require_cuda_shape(gate, k, n, m, cfg.batch_size)
     # ADMM penalty: explicit knob wins; otherwise size- and density-scaled
     # exactly as omc (solve.py:328-336 there, flagged in ROADMAP section 3:
     # the density factor has no floor at 1)

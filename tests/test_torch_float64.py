@@ -348,7 +348,8 @@ class _PastGuard(Exception):
 
 
 @pytest.mark.parametrize("family", ["shor", "shor_k", "mccormick"])
-def test_shor_and_mccormick_solver_guards_raise_the_message(family, full_fp32, monkeypatch):
+def test_shor_and_mccormick_solver_guards_admit_eigh_and_refuse_ns(family, full_fp32,
+                                                                   monkeypatch):
     """The guards of Shor k = 1, Shor k > 1 and McCormick admit float64 on
     CUDA with psd_method="eigh" (their "auto" for float64; the solve then
     reaches its first tensor, here a sentinel) and refuse "ns" with the
@@ -382,7 +383,7 @@ _CUTS = dict(disjunctive_cuts_type="linear", disjunctive_cuts_breakpoints="small
                                 dict(_CUTS, add_Shor_valid_inequalities=True, k=2),
                                 dict(use_disjunctive_cuts=False, disjunctive_cuts_type=None,
                                      disjunctive_cuts_breakpoints=None)])
-def test_driver_refuses_a_float64_shor_or_mccormick_run_on_cuda(kw, monkeypatch, full_fp32):
+def test_driver_gates_a_float64_shor_or_mccormick_run_on_cuda_once(kw, monkeypatch, full_fp32):
     """matrix_completion_branchandbound's gate: a float64 Shor run on CUDA
     (k = 1 or k > 1) and a float64 McCormick run pass it, each gated once
     under its own family (the run is stopped right after it, at its first

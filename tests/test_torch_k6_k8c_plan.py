@@ -172,9 +172,18 @@ def test_k6_mirror_matches_omc(k, dtype, path):
 
 
 def test_unsupported_k_raises_before_any_launch():
+    """k = 0 and an unknown path raise; k = 11, past the register paths, is
+    planned on the wide path, and refused where a register path is
+    forced."""
     for k in (0, 11):
-        with pytest.raises(ValueError):
-            tlinalg.k6_plan(4, 50, 50, k)
+        if k == 0:
+            with pytest.raises(ValueError):
+                tlinalg.k6_plan(4, 50, 50, k)
+        else:
+            assert tlinalg.k6_plan(4, 50, 50, k)["path"] == "wide"
+            for path in tlinalg.K6_PATHS:
+                with pytest.raises(ValueError, match="k <= 10"):
+                    tlinalg.k6_plan(4, 50, 50, k, path)
     with pytest.raises(ValueError):
         tlinalg.k6_plan(4, 50, 50, 2, "cta")
     for k in (1, 5):

@@ -138,12 +138,20 @@ def test_k9_plan_owns_every_entry_once(B, n, k):
 
 
 def test_k9_plan_refuses_ranks_and_shapes():
+    """k = 0 and shapes no kernel takes are refused.  The unrolled kernels'
+    old limits (k = 4, n + m = 4,097) are planned on the wide kernels."""
     for k in (0, 4):
-        with pytest.raises(ValueError, match="1 <= k <= 3"):
-            P.k9_plan(4, 50, 50, k)
+        if k == 0:
+            with pytest.raises(ValueError, match="k >= 1"):
+                P.k9_plan(4, 50, 50, k)
+        else:
+            assert P.k9_wide(50, 50, k) and P.k9_plan(4, 50, 50, k)["path"] == "wide"
     for shape in ((0, 50, 50), (1, 1, 5), (1, 50, 0), (1, 2048, 2049)):
-        with pytest.raises(ValueError, match="unsupported shape"):
-            P.k9_plan(*shape, 1)
+        if shape == (1, 2048, 2049):
+            assert P.k9_wide(2048, 2049, 1) and P.k9_plan(*shape, 1)["path"] == "wide"
+        else:
+            with pytest.raises(ValueError, match="unsupported shape"):
+                P.k9_plan(*shape, 1)
     p = P.k9_plan(1, 2, 1, 1)
     assert p["k9a_grid"] == 4 and p["k9b_grid"] == 4 and p["qpc"] == 32
 
@@ -350,9 +358,11 @@ def test_k9a_block_packed_once_and_for_the_same_operands():
     st.Y = st.Y.float()[:, :, :5]
     with pytest.raises(ValueError, match="shape"):
         P._k9a_params(c, st, cpu)
+    # k = 4 packs (the wide kernels' plan); k = 0 is refused
     _, (c4, st4) = _state(4, np.float32)
-    with pytest.raises(ValueError, match="1 <= k <= 3"):
-        P._k9a_params(c4, st4, cpu)
+    assert P._k9a_params(c4, st4, cpu).k == 4 and P.k9_plan(2, 6, 7, 4)["path"] == "wide"
+    with pytest.raises(ValueError, match="k >= 1"):
+        P._k9a_params(dataclasses.replace(c4, k=0), st4, cpu)
 
 
 def test_k9b_block_packed_once_and_for_the_same_operands():
@@ -390,8 +400,10 @@ def test_k9b_block_packed_once_and_for_the_same_operands():
         P._k9b_params(c, st, ts, acc, 0.5, cpu)
     _, (c4, st4) = _state(4, np.float32)
     ts4 = tuple(torch.empty_like(x) for x in (st4.w1, st4.w2, st4.w3))
-    with pytest.raises(ValueError, match="1 <= k <= 3"):
-        P._k9b_params(c4, st4, ts4, None, 0.0, cpu)
+    p4 = P._k9b_params(c4, st4, ts4, None, 0.0, cpu)
+    assert p4.k == 4 and p4.qpc == P.k9_plan(2, 6, 7, 4)["qpc"]
+    with pytest.raises(ValueError, match="k >= 1"):
+        P._k9b_params(dataclasses.replace(c4, k=0), st4, ts4, None, 0.0, cpu)
 
 
 def test_cuda_state_takes_no_plain_version(monkeypatch):

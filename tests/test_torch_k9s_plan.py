@@ -127,9 +127,14 @@ def test_k9s_plan(B, n, k, threads, chunks):
 
 
 def test_k9s_plan_refuses():
+    """Ranks and shapes no kernel takes raise; k = 4, past the unrolled
+    kernel, is planned on the wide kernels."""
     for args in ((4, 50, 0), (4, 50, 4), (0, 50, 1), (4, 0, 2)):
-        with pytest.raises(ValueError):
-            P.k9s_plan(*args)
+        if args == (4, 50, 4):
+            assert P.k9s_plan(*args)["path"] == "wide"
+        else:
+            with pytest.raises(ValueError):
+                P.k9s_plan(*args)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -182,7 +187,11 @@ def test_k9s_block_points_at_the_operands_and_views():
         P._k9s_params(batch, k, (views[0], views[1][:, :-1], views[2]), cpu)
     with pytest.raises(ValueError, match="not contiguous"):
         P._k9s_params(batch, k, (views[0].transpose(-1, -2), views[1], views[2]), cpu)
-    with pytest.raises(ValueError, match="1 <= k <= 3"):
+    # k = 0 is refused; k = 4 is planned (the wide kernels) and the rank-k
+    # operands it then checks refused
+    with pytest.raises(ValueError, match="k >= 1"):
+        P._k9s_params(batch, 0, views, cpu)
+    with pytest.raises(ValueError, match="shape"):
         P._k9s_params(batch, 4, views, cpu)
 
 

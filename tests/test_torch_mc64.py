@@ -193,16 +193,15 @@ def test_k9_plans_float64_own_every_entry_once(B, n, k):
 
 
 def test_k9_plan_float64_refuses_a_slot_staging_past_shared_memory():
-    """K9a's slot CTA stages z0 and Y's diagonal, n (k + q + 1) values: in
-    float64 at k = 3 that passes 227 KB above n = 2,905 (n + m <= 4096 lets
-    n reach 4,095); float32 never does."""
-    P.k9_plan(1, 2905, 1191, 3, F64)
-    with pytest.raises(ValueError, match="staging"):
-        P.k9_plan(1, 2906, 1190, 3, F64)
-    with pytest.raises(ValueError, match="staging"):
-        P.k9_plan(4, 4095, 1, 3, F64)
-    P.k9_plan(4, 4095, 1, 3)
-    P.k9_plan(4, 4095, 1, 2, F64)
+    """K9a's unrolled slot CTA stages z0 and Y's diagonal, n (k + q + 1)
+    values: in float64 at k = 3 that passes 227 KB above n = 2,905 (n + m <=
+    4096 lets n reach 4,095); float32 never does.  The unrolled kernels
+    refuse it, so the plan takes the wide kernels there."""
+    assert not P.k9_wide(2905, 1191, 3, F64) and "path" not in P.k9_plan(1, 2905, 1191, 3, F64)
+    for n, m in ((2906, 1190), (4095, 1)):
+        assert P.k9_wide(n, m, 3, F64) and P.k9_plan(4, n, m, 3, F64)["path"] == "wide"
+    assert not P.k9_wide(4095, 1, 3) and "path" not in P.k9_plan(4, 4095, 1, 3)
+    assert not P.k9_wide(4095, 1, 2, F64) and "path" not in P.k9_plan(4, 4095, 1, 2, F64)
 
 
 @pytest.mark.parametrize("k,n,threads", [(3, 193, 192), (3, 250, 192), (3, 192, 192),

@@ -56,7 +56,7 @@ def _problem(rng, n, m):
     return rng.standard_normal((n, m)), (rng.random((n, m)) < 0.6).astype(np.float64)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_coefficients_and_corner_box_match(k):
     rng = np.random.default_rng(k)
     lo, hi = _boxes(rng, 3, 7, k)
@@ -117,7 +117,7 @@ def test_master_feasibility_matches(k):
     assert not P.master_feasible_mccormick(Y, U.astype(np.float32), X, Th)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_setup_plain_is_omcs_factorisation(k):
     """K9s's plain version against omc's factorisation recomputed in numpy
     from omc's envelope coefficients: M_i = R_i'R_i + diag(4 I_k, 0) +
@@ -163,7 +163,7 @@ def _both_solvers(k, iters, seed, n=6, m=7, B=2):
     return (A, mask, lo, hi), (fj, {key: np.asarray(v) for key, v in oj.items()}), (ft, ot)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
 def test_one_iteration_matches_omc(k):
     """One iteration from one random state: the z-step outputs (X, Y, Theta,
     U, t; the K9a plain version), the cone-step outputs (every non-PSD slot;
