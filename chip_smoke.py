@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``omc_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, about 10 minutes on an H100
+    python3 chip_smoke.py            # every phase, about 8 minutes on an H100
 
 Phases, in order (each prints its numbers on lines of its own):
 
@@ -56,17 +56,17 @@ Phases, in order (each prints its numbers on lines of its own):
 7. multinode — the 30%-observed instance, gap 1e-4
 8. dist      — the multi-process frontier: two ranks of
                omc_torch.parallel.worker on the card over gloo, the
-               multinode instance at batch 8, 20 s
+               multinode instance at batch 8, 16 s
 9. branch    — the 20%-observed instance, 30 s budget
 10. shor     — the 30%-observed instance with static Shor minors
                (breadth-first, 15 s): the K7/K8a/K8b path
 11. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
                8 s, with soundness checks
 12. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 16 s
+               smallest_2_eigvec, best-first/depth-first, batch 64), 12 s
 13. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
-               call (iterative Shor, batch 32), 12 s
+               call (iterative Shor, batch 32), 10 s
 14. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
@@ -99,7 +99,7 @@ Phases, in order (each prints its numbers on lines of its own):
                relaxation at its defaults on the headline's root (1,024
                minors, 250 iterations) against the same call on the CPU;
                BASELINE config 2 in float64 (visits of 250 iterations, one
-               refinement before a growth, 12 s) with sound bounds and a
+               refinement before a growth, 10 s) with sound bounds and a
                Shor growth; the Shor solver at its shape as two shards
                (mesh) against one device; one traced iteration there
 22. shork64  — omc's float64 on the rank-k Shor family (the float64 builds
@@ -108,7 +108,7 @@ Phases, in order (each prints its numbers on lines of its own):
                3's root (256 minors, 150 iterations) against the same call
                on the CPU; config 3's instance on the shork cell's settings
                in float64 (visits of 250 iterations, one refinement before
-               a growth, 12 s) with sound bounds, a Shor growth and no
+               a growth, 10 s) with sound bounds, a Shor growth and no
                float32 build launched; one traced iteration at config 3's
                frontier shape
 23. mccormick64 — omc's float64 on the McCormick family (the float64
@@ -130,15 +130,29 @@ Phases, in order (each prints its numbers on lines of its own):
                CUDA-event and device ms (events around launches queued
                behind a held stream), its bound, the plain version's and
                the library's ms; the wide kernels forced at K6's k = 10 and
-               K9's k <= 3, timed beside the register and unrolled ones;
+               K9's k <= 3, held to their plain versions (timed beside the
+               register and unrolled ones on request: widevsunrolled);
                then api.alternating_minimization at rank 20 on a 1000x1000
                instance in both dtypes against the CPU, a rank-12 root
                visit (the device bound no higher than the host
                certificate), the api's McCormick relaxation at k = 4 on
                config 3's instance in both dtypes against the CPU and its
-               4 s McCormick B&B, the McCormick relaxation at n = m = 2100,
-               and the shape gate refusing rank-k Shor at k = 5 before any
-               allocation on the card
+               4 s McCormick B&B, and the McCormick relaxation at n = m =
+               2100
+25. shorkwide — rank-k Shor past k = 4 (K7t at any k; the wide K7x, K8c
+               and K8d): K8c, K7t, K7x and K8d at config 3's frontier
+               (B=32, n=m=75, M5=1024) at k = 5, 8, 12 and config 4's
+               root (B=1, n=m=250, M5=1024) at k = 5, in both dtypes,
+               each against its plain version, twice for its bits, with
+               CUDA-event and device ms (events behind a held stream), its
+               bound and the plain version's and the library's ms; the
+               wide K7x, K8c and K8d forced at k = 4 beside the register
+               kernels; then the api's rank-k Shor relaxation at k = 5 on
+               config 3's instance in float64 against the CPU, config 4's
+               root at k = 5 in float32 (device bound at most the host
+               certificate, at most altmin's objective) and a 4 s B&B at
+               k = 5 with iterative Shor (every lower bound at most config
+               3's rank-2 incumbent)
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -146,7 +160,9 @@ bounds' small slots, K5 the separation, K6 altmin).  The record's launches
 of a kernel are its launches over all those phases (``COUNTED``).
 
 ``--phases device,build,kernels64`` runs the kernels phase's float64 rows
-alone.  ``--phases device,build,mcwide64`` runs McCormick in float64 past
+alone; ``--phases device,build,widevsunrolled`` times the wide K6 and K9
+kernels beside the register and unrolled ones at the ranks both take.
+``--phases device,build,mcwide64`` runs McCormick in float64 past
 n + m = 4096: K4's float64 build at d = 4,200 against cuSOLVER's eigh, and
 the api's float64 relaxation at n = m = 2100 (K4 on its three PSD blocks).  ``--phases device,build,trace`` runs the optional ``trace`` phase: a
 torch.profiler trace of the Shor loop at config 2's shape and at the shor
@@ -196,8 +212,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
           "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64",
-          "shork64", "mccormick64", "widerank")
-EXTRA_PHASES = ("trace", "kernels64", "mcwide64")  # run only when named in --phases
+          "shork64", "mccormick64", "widerank", "shorkwide")
+# run only when named in --phases
+EXTRA_PHASES = ("trace", "kernels64", "mcwide64", "widevsunrolled")
 
 # certified objectives of the three 50x50 instances (float64 host
 # certificates recorded in BENCH_r05.json; they are facts about the
@@ -233,7 +250,7 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, reps=20, warmup=3):
+def cuda_time_ms(fn, reps=10, warmup=2):
     """Median milliseconds of ``fn`` over ``reps`` timed launches (CUDA
     events around each call, after ``warmup`` untimed calls)."""
     import torch
@@ -393,14 +410,14 @@ def phase_build(res):
 
 def _by_kernel(report):
     """{kernel: registers} of a ptxas report, each mangled name cut to
-    start at the kernel's identifier (k1... to k9..., whose tail holds the
-    template arguments and the parameter types): the same key in two trees
-    built from other paths."""
+    start at the kernel's identifier (k1... to k9..., a float64 build's
+    ``_f64`` kept, whose tail holds the template arguments and the parameter
+    types): the same key in two trees built from other paths."""
     import re
 
     out = {}
     for f, r in report.items():
-        m = re.search(r"\d(k\d[0-9a-z_]*?(?:kernel|wide))(?=I|\d|E)", f)
+        m = re.search(r"\d(k\d[0-9a-z_]*?(?:kernel|wide)(?:_f64)?)(?=I|\d|E)", f)
         if m:
             out[f[m.start(1):]] = r["registers"]
     return out
@@ -517,11 +534,11 @@ def phase_kernels(res):
         w2, u2, a2 = fresh()
         ms = cuda_time_ms(lambda: project_psd_ns_multi(
             ts, w_out=w2, u_out=u2, acc=a2, rho=rho, beta=beta))
-        ms_plain = cuda_time_ms(lambda: psd_epilogue(
+        ms_plain = _tm(lambda: psd_epilogue(
             ts, project_psd_ns_merged(ts), w2, u2, a2, rho, beta))
         # the library yardstick: the same chain of products through
         # torch.bmm (cuBLAS), without the epilogue
-        ms_lib = cuda_time_ms(lambda: project_psd_ns_merged(ts))
+        ms_lib = _tm(lambda: project_psd_ns_merged(ts))
         # every path k1_plan could take here (0: the tiles path, else the
         # cluster size): the measurements behind its choice
         by_cluster = {}
@@ -855,7 +872,7 @@ def _check_shor_kernels(c, sc, st, gen, dev):
     f64 = dt == torch.float64
     sfx, esz, peak = ("_f64", 8, PEAK_FP64_FLOPS) if f64 else ("", 4, PEAK_FP32_FLOPS)
     psd = "eigh" if f64 else "ns"
-    tm = _tm if f64 else cuda_time_ms
+    tm = _tm
     parent = PARENT and not f64  # the parent tree has float32 builds only
     (B, n, m), M5 = st.core.X.shape, sc.M5
     shape = dict(B=B, n=n, m=m, M5=M5)
@@ -1047,7 +1064,7 @@ def _check_k7_projection(B, M5, gen, dev):
                plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
                control_16bit_vs_eigh=ctl16, deterministic=torch.equal(wk, wb),
                ms=cuda_time_ms(fns["kernel"]),
-               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
+               plain_ms=_tm(lambda: project_psd_ns_small(T)))
     if PARENT:
         fns["parent"] = _parent_k7_projection(T, torch.empty_like(T))
     _device_rows(row, fns)
@@ -1064,11 +1081,12 @@ def _device_rows(row, fns):
         row["parent_device_ms"] = dms.pop("parent")
 
 
-def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2, dtype=None):
+def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2, dtype=None, on_device=False):
     """Random rank-k Shor ADMM state and node batch at a config-3 shape
     (float32 on the card, or ``dtype``): ~M5 - 24 random distinct 2x2 minors
     per slot, the RSOC rows on the rest, slot values and duals of unit
-    scale."""
+    scale (drawn on the card with ``on_device``: the wide rows' states run
+    to tens of millions of values)."""
     import numpy as np
     import torch
 
@@ -1085,10 +1103,14 @@ def _shor_k_inputs(B, n, m, L, M5, gen, dev, k=2, dtype=None):
     st = SK.init_shor_k_state(B, n, m, k, L, M5, n * m, dt, device=dev)
     st = st.replace(core=core)
     core.sS.copy_(core.sX)
+    dgen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31))) if on_device else None
     for name in ("Xt", "W", "Wt", "Hh", "v1", "v2", "v3", "w5", "u5", "wx", "ux", "wr", "ur",
                  "wl", "ul", "wwl", "uwl", "wp", "up", "wq", "uq"):
         t = getattr(st, name)
-        v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=dt, device=dev)
+        if on_device:
+            v = torch.randn(tuple(t.shape), generator=dgen, dtype=dt, device=dev) * 0.3
+        else:
+            v = torch.tensor(rng.standard_normal(tuple(t.shape)) * 0.3, dtype=dt, device=dev)
         if name in ("w5", "u5"):
             v = 0.5 * (v + v.transpose(-1, -2)) * sb.minor_mask[..., None, None, None]
         if name in ("wx", "ux"):
@@ -1115,7 +1137,7 @@ def _k8c_plan_row(B, n, m, k, dtype=None):
 def _check_k8c(c, sc, st):
     """K8c alone at rank k on the inputs (c, sc, st) of ``_shor_k_inputs``:
     within 1e-5 relative of its plain version, the same bits from two
-    launches (no timing: a second instantiation of the kernel on the card).
+    launches, CUDA-event ms and the plain version's (one warm call).
     Returns the row and (c, sc, the stepped state)."""
     import torch
 
@@ -1128,8 +1150,11 @@ def _check_k8c(c, sc, st):
     SK.shor_k_zstep(c, sc, s2)
     torch.cuda.synchronize()
     rel, ab = _errs(zs(sk), SK.shor_k_zstep_plain(c, sc, st))
+    s3 = st.clone()
     return dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
-                deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k)), (c, sc, sk)
+                deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k),
+                ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
+                plain_ms=_tm(lambda: SK.shor_k_zstep_plain(c, sc, st))), (c, sc, sk)
 
 
 def _check_shor_k_kernels(c, sc, st, gen, dev):
@@ -1162,7 +1187,7 @@ def _check_shor_k_kernels(c, sc, st, gen, dev):
     out["K8c"] = dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
                       deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k),
                       ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
-                      plain_ms=cuda_time_ms(lambda: SK.shor_k_zstep_plain(c, sc, st)))
+                      plain_ms=_tm(lambda: SK.shor_k_zstep_plain(c, sc, st)))
     # per slot: X and Theta blocks of w1/u1, Xt_prev, W >= 0, Wt >= 0, the
     # link rows, the entry/coordinate constants and tables; per active minor
     # and term the 14 entries of w5/u5 the adjoint reads, per active
@@ -1189,7 +1214,7 @@ def _check_k7x(c, sc, sk, gen, dev):
     the same inputs)."""
     import torch
 
-    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.cones import eigh_plain, project_psd_plain
     from omc_torch.ops.polar import project_psd_ns, project_psd_ns_small, truncated_matmul
     from omc_torch.sdp import shor_k as SK
 
@@ -1200,7 +1225,13 @@ def _check_k7x(c, sc, sk, gen, dev):
         SK.xwh_step(c, sc, x, a, "ns")
     torch.cuda.synchronize()
     plain = lambda proj: SK.xwh_step_plain(c, sc, sk, accx, proj)  # noqa: E731
-    wxp, uxp, axp = plain(project_psd_ns_small)
+    seen = {}
+
+    def keep(t):  # the slot batch, for the library call
+        seen["t"] = t
+        return project_psd_ns_small(t)
+
+    wxp, uxp, axp = plain(keep)
     wxe = plain(lambda t: project_psd_plain(t.double()).float())[0]
     wxc = plain(lambda t: project_psd_ns(t, matmul=truncated_matmul(16)))[0]
     (s7, a7), (s7b, a7b) = runs
@@ -1211,7 +1242,9 @@ def _check_k7x(c, sc, sk, gen, dev):
                kernel_vs_eigh=rel_fro(s7.wx, wxe), control_16bit_vs_eigh=rel_fro(wxc, wxe),
                deterministic=_same_bits((s7.wx, s7.ux, a7), (s7b.wx, s7b.ux, a7b)),
                ms=cuda_time_ms(fns["kernel"]),
-               plain_ms=cuda_time_ms(lambda: plain(project_psd_ns_small)))
+               plain_ms=_tm(lambda: plain(project_psd_ns_small)),
+               # cuSOLVER's eigh of the same slot batch, chunked
+               library_ms=_tm(lambda: eigh_plain(seen["t"])))
     if PARENT:
         fns["parent"] = _parent_k7x(c, sc, sk.clone(), accx.clone())
         row["parent_ms"] = cuda_time_ms(fns["parent"])
@@ -1260,7 +1293,7 @@ def _check_k7x_projection(B, C, D, gen, dev):
                plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
                control_16bit_vs_eigh=ctl16, deterministic=torch.equal(wk, wb),
                ms=cuda_time_ms(fns["kernel"]),
-               plain_ms=cuda_time_ms(lambda: project_psd_ns_small(T)))
+               plain_ms=_tm(lambda: project_psd_ns_small(T)))
     if PARENT:
         fns["parent"] = _parent_k7x_projection(T, torch.empty_like(T))
     _device_rows(row, fns)
@@ -1301,7 +1334,7 @@ def _check_k8d(c, sc, sk, gen, dev):
                rel_err=rel, max_abs_err=ab,
                deterministic=_same_bits(kd(sd) + tuple(ad), kd(sd2) + tuple(ad2)),
                ms=cuda_time_ms(fns["kernel"]),
-               plain_ms=cuda_time_ms(lambda: SK.shor_k_cone_step_plain(c, sc, sk, *accs)))
+               plain_ms=_tm(lambda: SK.shor_k_cone_step_plain(c, sc, sk, *accs)))
     if PARENT:
         fns["parent"] = _parent_k8d(c, sc, sk.clone(), *[a.clone() for a in accs])
         row["parent_ms"] = cuda_time_ms(fns["parent"])
@@ -1323,7 +1356,7 @@ def _check_k7t(c, sc, sk, gen, dev):
     times (with ``--parent``, the parent's kernel on the same inputs)."""
     import torch
 
-    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.cones import eigh_plain, project_psd_plain
     from omc_torch.ops.polar import project_psd_ns, project_psd_ns_small, truncated_matmul
     from omc_torch.sdp import shor_k as SK
 
@@ -1335,7 +1368,13 @@ def _check_k7t(c, sc, sk, gen, dev):
         SK.minor_k_step(c, sc, x, a, "ns")
     torch.cuda.synchronize()
     plain = lambda proj: SK.minor_k_step_plain(c, sc, sk, acc5, proj)  # noqa: E731
-    w5p, u5p, a5p = plain(project_psd_ns_small)
+    seen = {}
+
+    def keep(t):  # the slot batch, for the library call
+        seen["t"] = t
+        return project_psd_ns_small(t)
+
+    w5p, u5p, a5p = plain(keep)
     w5e = plain(lambda t: project_psd_plain(t.double()).float())[0]
     w5c = plain(lambda t: project_psd_ns(t, matmul=truncated_matmul(16)))[0]
     (s7, a7), (s7b, a7b) = runs
@@ -1345,8 +1384,10 @@ def _check_k7t(c, sc, sk, gen, dev):
     row = dict(B=B, M5=M5, k=k, rel_err=rel, max_abs_err=ab, plain_vs_eigh=rel_fro(w5p, w5e),
                kernel_vs_eigh=rel_fro(s7.w5, w5e), control_16bit_vs_eigh=rel_fro(w5c, w5e),
                deterministic=_same_bits((s7.w5, s7.u5, a7), (s7b.w5, s7b.u5, a7b)),
-               ms=cuda_time_ms(fns["kernel"]), plain_ms=cuda_time_ms(lambda: plain(
-                   project_psd_ns_small)))
+               ms=cuda_time_ms(fns["kernel"]), plain_ms=_tm(lambda: plain(
+                   project_psd_ns_small)),
+               # cuSOLVER's eigh of the same slot batch, chunked
+               library_ms=_tm(lambda: eigh_plain(seen["t"])))
     if PARENT:
         fns["parent"] = _parent_k7t(c, sc, sk.clone(), acc5.clone())
         row["parent_ms"] = cuda_time_ms(fns["parent"])
@@ -1846,7 +1887,7 @@ def _parent_k4s(T):
                           out)
 
 
-def _k2k3_device_ms(fns, reps=20, medians=("kernel", "parent")):
+def _k2k3_device_ms(fns, reps=10, medians=("kernel", "parent")):
     """Device milliseconds per launch of each kernel call in ``fns`` (name ->
     function), read from torch.profiler traces: the calls' CUDA-event times
     include the host's launch, which sets them at B=1.  A trace now and then
@@ -1941,7 +1982,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
               rel_err=e2, rel_err_vs_f64=_errs(outs(s_k), ref64)[0],
               plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a2,
               deterministic=_same_bits(outs(s_k), outs(s_2)),
-              ms=cuda_time_ms(k2fn["kernel"]), plain_ms=cuda_time_ms(lambda: zstep_plain(c, st)))
+              ms=cuda_time_ms(k2fn["kernel"]), plain_ms=_tm(lambda: zstep_plain(c, st)))
     p = 1 + L + L * k
     # per slot: the residual blocks K2 reads (Y, X, Theta of w1/u1; Y, U of
     # w2/u2; w3/u3; the SOC, box and cut slots), the cuts, G1 (its
@@ -1984,7 +2025,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
               plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a3,
               deterministic=_same_bits(got, k3out(s3b, ts_b, acc_b)),
               ms=cuda_time_ms(k3fn["kernel"]),
-              plain_ms=cuda_time_ms(lambda: cone_step_plain(c, s_k, acc)))
+              plain_ms=_tm(lambda: cone_step_plain(c, s_k, acc)))
     d1, d2 = n + m, n + k
     # per slot: X, Y, Theta, U and the w/u of every slot in; t1-t3 and the
     # non-PSD slots and the three EMAs out (the EMAs are read too)
@@ -2019,7 +2060,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
                   plain_vs_f64=_errs(refh, refh64)[0], max_abs_err=ah,
                   deterministic=_same_bits(goth, k3out(s5b, ts5b, acc5b)),
                   ms=cuda_time_ms(k3fn["halpern"]),
-                  plain_ms=cuda_time_ms(lambda: cone_step_plain(ch, s_k, acc, hit)))
+                  plain_ms=_tm(lambda: cone_step_plain(ch, s_k, acc, hit)))
         # the nine anchors read, and three flops an entry of every slot
         anc = d1 * d1 + d2 * d2 + n * n + 1 + k * (1 + n) + n * k + 2 * L * k + L
         with_bound(rh, e * B * (rd + wr + anc),
@@ -2168,7 +2209,7 @@ def _check_mc_kernels(c, st, gen, dev, k9s=True):
                             rel_err=rel, max_abs_err=ab,
                             deterministic=_same_bits(zs(sk), zs(s2)),
                             ms=cuda_time_ms(fns["kernel"]),
-                            plain_ms=cuda_time_ms(lambda: MC.mc_zstep_plain(c, st)),
+                            plain_ms=_tm(lambda: MC.mc_zstep_plain(c, st)),
                             library_ms=None)
     if PARENT:
         fns["parent"] = _parent_k9a(c, st.clone())
@@ -2203,7 +2244,7 @@ def _check_mc_kernels(c, st, gen, dev, k9s=True):
                             rel_err=rel, max_abs_err=ab,
                             deterministic=_same_bits(got, got2),
                             ms=cuda_time_ms(fns["kernel"]),
-                            plain_ms=cuda_time_ms(
+                            plain_ms=_tm(
                                 lambda: MC.mc_cone_step_plain(c, sk, acc, beta)),
                             library_ms=None)
     if PARENT:
@@ -2253,10 +2294,10 @@ def _check_k9s(c, B, n, k, dev):
                deterministic=_same_bits(got, got2),
                ms=cuda_time_ms(fns["kernel"]),
                launch_ms=cuda_time_ms(lambda: kernels.launch("K9s", "omc_k9s_setup", prm, dev)),
-               plain_ms=cuda_time_ms(lambda: MC.mc_setup_plain(c.batch, k)),
+               plain_ms=_tm(lambda: MC.mc_setup_plain(c.batch, k)),
                # the library chain on the same Grams: cuSOLVER's batched
                # Cholesky, then the triangular solves for S_i
-               library_ms=cuda_time_ms(
+               library_ms=_tm(
                    lambda: torch.cholesky_solve(Etb, torch.linalg.cholesky(gram))))
     if PARENT:
         fns["parent"] = _parent_k9s(c.batch, k)
@@ -2386,7 +2427,7 @@ def _check_eig_kernels(gen, dev):
            "K5_special": []}
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def tm(fn, warm=False, reps=20):
+    def tm(fn, warm=False, reps=10):
         """Median of ``reps`` timed calls; of 3 for a call over 20 ms, one
         call for a call over 50 ms (cuSOLVER at B=64 and B=128, whose times
         spread little).  ``warm``: the call has just run, so the first timed
@@ -2447,15 +2488,14 @@ def _check_eig_kernels(gen, dev):
         P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
         lam = w64.abs().amax(-1)
         # the plain eigenvalue and eigenpair versions are the library calls
-        # themselves: each is timed once, the median of 5 calls (cuSOLVER's
-        # times spread little; 20 took 14 s of the phase), right after the
-        # row's reference has run the same routine on T (no warm-up call)
+        # themselves: each is timed once, one call right after the row's
+        # reference has run the same routine on T (no warm-up call)
         lib_ms = {}
 
         def library_ms(name):
             if name not in lib_ms:
                 fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
-                lib_ms[name] = tm(lambda: fn(T), warm=True, reps=5)
+                lib_ms[name] = _tm(lambda: fn(T), warm=True)
             return lib_ms[name]
 
         for mode in modes:
@@ -2500,7 +2540,7 @@ def _check_eig_kernels(gen, dev):
                 row["max_abs_err"] = float((got - plain).abs().max())
                 plain_ms = ev0.elapsed_time(ev1)
                 if plain_ms <= 200.0:
-                    plain_ms = tm(lambda: cones.project_psd_plain(T), warm=True)
+                    plain_ms = _tm(lambda: cones.project_psd_plain(T), warm=True)
                 library = library_ms("eigh")
             elif mode == 0:
                 row["max_abs_err"] = float((got - torch.linalg.eigvalsh(T)).abs().max())
@@ -2579,9 +2619,9 @@ def _check_eig_kernels(gen, dev):
                    per_matrix_err_vs_f64=float(per), max_abs_err=float((got - plain).abs().max()),
                    max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
                    ms=tm(lambda: cones.k4s_project_psd(T)),
-                   plain_ms=tm(lambda: cones.project_psd_plain(T), warm=True),
+                   plain_ms=_tm(lambda: cones.project_psd_plain(T), warm=True),
                    # cuSOLVER's batched eigh, chunked below its limit
-                   library_ms=tm(lambda: cones.eigh_plain(T), warm=True))
+                   library_ms=_tm(lambda: cones.eigh_plain(T), warm=True))
         plan = cones.k4s_plan(N, D)
         row.update(plan=plan, plan_matches_kernel=plan["ctas"] == lib.omc_k4s_grid_x(N),
                    smem_matches_kernel=plan["smem_bytes"] == lib.omc_k4s_smem_bytes(D, 4))
@@ -2654,8 +2694,8 @@ def _check_eig_kernels(gen, dev):
                    max_abs_err=max(float((w - wp).abs().max()),
                                    float((aligned(V, Vp) - Vp).abs().max())),
                    ms=by_path[plan["path"]],
-                   plain_ms=tm(lambda: separation_eigpairs_plain(U32, Y32), warm=True),
-                   library_ms=tm(lambda: torch.linalg.eigh(M32), warm=True),
+                   plain_ms=_tm(lambda: separation_eigpairs_plain(U32, Y32), warm=True),
+                   library_ms=_tm(lambda: torch.linalg.eigh(M32), warm=True),
                    ms_by_path=by_path, err_by_path=err_by_path)
         row["smem_matches_kernel"] = all(e.get("smem_matches_kernel", True)
                                          for e in err_by_path.values())
@@ -2722,10 +2762,10 @@ def _check_eig_kernels(gen, dev):
         r2 = ((mask * A) @ V.transpose(-1, -2))[..., None]
         row = dict(B=B, n=n, m=m, k=k, plan=plans, **err_by_path[path],
                    ms=by_path[path], ms_by_path=by_path, err_by_path=err_by_path,
-                   plain_ms=cuda_time_ms(lambda: u_step_unconstrained_plain(
+                   plain_ms=_tm(lambda: u_step_unconstrained_plain(
                        v_step_plain(U, A, mask, 80.0), A, mask, 80.0)),
                    # the library's batched solves on the same Grams
-                   library_ms=cuda_time_ms(lambda: (torch.linalg.solve(G, r),
+                   library_ms=_tm(lambda: (torch.linalg.solve(G, r),
                                                     torch.linalg.solve(H, r2))))
         row["max_abs_err"] = max(e["max_abs_err"] for e in err_by_path.values())
         row["beats_library"] = row["ms"] <= row["library_ms"]
@@ -2749,15 +2789,11 @@ def _check_eig_kernels(gen, dev):
 # (the row of the record), the headline's root visit (B=1; the api phase's
 # call) and the four fixtures' shapes at their batch of 8
 def _tm(fn, warm=False):
-    """Median of 5 timed calls; of 3 for a call over 20 ms; one call (the
-    warm probe) for a call over 50 ms (cuSOLVER's float64 eigh at B=64, the
-    plain versions with a Jacobi mirror).  ``warm``: the same call (or the
-    library routine it runs, on the same shapes) has just run, so the probe
-    takes no warm-up call."""
-    probe = cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
-    if probe > 50.0:
-        return probe
-    return cuda_time_ms(fn, reps=5) if probe <= 20.0 else cuda_time_ms(fn, reps=3, warmup=0)
+    """One warm call of a plain version or a library routine (CUDA-event
+    ms; the rows' ``plain_ms`` and ``library_ms``, the kernels' own ``ms``
+    a median of many).  ``warm``: the same call (or the library routine it
+    runs, on the same shapes) has just run, so it takes no warm-up call."""
+    return cuda_time_ms(fn, reps=1, warmup=0 if warm else 1)
 
 
 def _shor64_of(c, sc, st):
@@ -3427,9 +3463,9 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None, mc_inp
         r2 = ((mask * A) @ V.transpose(-1, -2))[..., None]
         row = dict(B=B, n=n, m=m, k=k, plan=plans, **err_by_path[path],
                    ms=by_path[path], ms_by_path=by_path, err_by_path=err_by_path,
-                   plain_ms=cuda_time_ms(lambda: u_step_unconstrained_plain(
+                   plain_ms=_tm(lambda: u_step_unconstrained_plain(
                        v_step_plain(U, A, mask, 80.0), A, mask, 80.0)),
-                   library_ms=cuda_time_ms(lambda: (torch.linalg.solve(G, r),
+                   library_ms=_tm(lambda: (torch.linalg.solve(G, r),
                                                     torch.linalg.solve(H, r2))))
         row["max_abs_err"] = max(e["max_abs_err"] for e in err_by_path.values())
         row["ok"] = all(e["rel_err"] <= 1e-10 and e["deterministic"] and e["smem_matches_kernel"]
@@ -3596,7 +3632,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
            "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
-           "float64", "shor64", "shork64", "mccormick64", "widerank")
+           "float64", "shor64", "shork64", "mccormick64", "widerank", "shorkwide")
 _PHASE = {"name": None}
 
 
@@ -3723,11 +3759,11 @@ def phase_branch(res):
 
 # the multi-process frontier: two ranks of omc_torch.parallel.worker on the
 # card, over gloo, on the multinode instance (BENCH_KW with batch 8, so that
-# the frontier outgrows a batch, 20 s, rebalancing every round; the root's
+# the frontier outgrows a batch, 16 s, rebalancing every round; the root's
 # budget not boosted and at most two refinement visits a node, since with
 # either this root certifies alone and rank 1 would get no node)
 DIST_RANKS = 2
-DIST_TIME_LIMIT = 20
+DIST_TIME_LIMIT = 16
 # seconds a rank may take, start-up and the final gather included
 DIST_TIMEOUT = 240
 
@@ -3912,10 +3948,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=16, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=12, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget, and the budget is 16 s
+    # of K1's d=150 chain) does not fit the budget, and the budget is 12 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -3924,7 +3960,7 @@ SHORK_KW = dict(
     CONFIG3_KW, batch_size=32, add_Shor_valid_inequalities=True,
     add_Shor_valid_inequalities_iterative=True,
     Shor_valid_inequalities_noisy_rank1_num_entries_present=[4],
-    update_Shor_indices_n_minors=100, time_limit=12,
+    update_Shor_indices_n_minors=100, time_limit=10,
 )
 
 
@@ -3969,7 +4005,7 @@ def _rank2_checks(name, sol, inst, secs, A, idx, launches, keys):
 
 def phase_config3(res):
     """BASELINE config 3 at full width (rank-2 75x75, linear3 cuts,
-    smallest_2_eigvec, best-first/depth-first, batch 64), 16 s: the base
+    smallest_2_eigvec, best-first/depth-first, batch 64), 12 s: the base
     path at k = 2 through K1 (d = 150/77/75), K2 and K3."""
     from omc_torch import kernels
 
@@ -3984,7 +4020,7 @@ def phase_config3(res):
 def phase_shork(res):
     """The rank-k Shor path on config 3's instance: (i) one root visit of
     2,000 iterations, held to omc's bound for the same call; (ii) the full
-    call (iterative Shor, batch 32), 12 s, through K1, K2, K3, K7t, K7x,
+    call (iterative Shor, batch 32), 10 s, through K1, K2, K3, K7t, K7x,
     K8c and K8d."""
     from omc_torch import kernels
 
@@ -4828,12 +4864,12 @@ def phase_float64(res):
 # in a thread beside this phase's card work.  (b) BASELINE config 2 at full
 # width in float64 (bench_configs.py's off-TPU dtype), cut in depth only:
 # visits of 250 iterations, one refinement visit before a node grows or
-# splits, 12 s.  (c) The Shor solver at config 2's shape split over two
+# splits, 10 s.  (c) The Shor solver at config 2's shape split over two
 # shards (mesh_shape's path) against one device, 50 iterations.  (d) One
 # traced float64 iteration at config 2's shape.
 SHOR64_API_ITERS = 250
 SHOR64_API_MINORS = 1024
-CONFIG2_F64_KW = dict(CONFIG2_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=12)
+CONFIG2_F64_KW = dict(CONFIG2_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=10)
 SHOR64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K7_f64", "K8a_f64", "K8b_f64", "K4s_f64", "K5_f64")
 
 
@@ -4971,10 +5007,10 @@ def phase_shor64(res):
 # in a thread beside this phase's card work.  (b) Config 3's instance on
 # the shork cell's settings (SHORK_KW) in float64, cut in depth only: visits
 # of 250 iterations, one refinement visit before a node grows or splits,
-# 12 s.  (c) One traced float64 iteration at config 3's frontier shape.
+# 10 s.  (c) One traced float64 iteration at config 3's frontier shape.
 SHORK64_API_ITERS = 150
 SHORK64_API_MINORS = 256
-SHORK64_KW = dict(SHORK_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=12)
+SHORK64_KW = dict(SHORK_KW, dtype="float64", sdp_iters=250, max_refines=1, time_limit=10)
 SHORK64_KEYS = ("K2_f64", "K3_f64", "K4_f64", "K7t_f64", "K7x_f64", "K8c_f64", "K8d_f64",
                 "K4s_f64", "K5_f64")
 # the float32 builds a float64 rank-k run must not launch
@@ -5473,14 +5509,14 @@ def _check_mc_wide(gen, dev):
     return out
 
 
-def _check_wide_vs_unrolled(gen, dev):
+def _check_wide_vs_unrolled(gen, dev, timed=True):
     """The wide kernels forced at ranks the register and unrolled kernels
-    take, timed beside them on the same inputs in float32: K6 (V-step, then
-    U-step) at k = 10 (``WR_K6_BOTH``), K9s, K9a and K9b at k <= 3
-    (``WR_K9_BOTH``).  Each side's CUDA-event and held-stream device ms,
-    and the wide side's error against the plain version (bar 1e-5
-    relative, as its rows at k > 10 and k >= 4).  Whether the register and
-    unrolled paths earn their place beside the wide ones."""
+    take, in float32: K6 (V-step, then U-step) at k = 10 (``WR_K6_BOTH``),
+    K9s, K9a and K9b at k <= 3 (``WR_K9_BOTH``).  The wide side's error
+    against the plain version (bar 1e-5 relative, as its rows at k > 10 and
+    k >= 4); with ``timed``, each side's CUDA-event and held-stream device
+    ms on the same inputs (whether the register and unrolled paths earn
+    their place beside the wide ones)."""
     import torch
 
     from omc_torch.ops.linalg import (u_step_unconstrained, u_step_unconstrained_plain, v_step,
@@ -5488,10 +5524,11 @@ def _check_wide_vs_unrolled(gen, dev):
     from omc_torch.sdp import mccormick as MC
 
     def both(row, default, wide, err):
-        row.update(ms=cuda_time_ms(default, reps=10), wide_ms=cuda_time_ms(wide, reps=10),
-                   device_ms=_held_device_ms(default), wide_device_ms=_held_device_ms(wide),
-                   wide_rel_err=err)
-        row["wide_over_default"] = row["wide_device_ms"] / row["device_ms"]
+        row["wide_rel_err"] = err
+        if timed:
+            row.update(ms=cuda_time_ms(default, reps=10), wide_ms=cuda_time_ms(wide, reps=10),
+                       device_ms=_held_device_ms(default), wide_device_ms=_held_device_ms(wide))
+            row["wide_over_default"] = row["wide_device_ms"] / row["device_ms"]
         row["ok"] = err <= 1e-5
         log("wide vs unrolled", json.dumps(row))
         return row
@@ -5628,6 +5665,18 @@ def _wr_mc_big(dts, iters):
     return r
 
 
+def phase_widevsunrolled(res):
+    """(Run on request only.)  The wide kernels forced at the ranks the
+    register and unrolled kernels take, timed beside them
+    (``_check_wide_vs_unrolled``; the widerank phase holds them to their
+    plain versions untimed)."""
+    import torch
+
+    rows = _check_wide_vs_unrolled(torch.Generator().manual_seed(21), torch.device("cuda", 0))
+    res["widevsunrolled"] = rows
+    assert all(r["ok"] for r in rows), rows
+
+
 def phase_mcwide64(res):
     """(Run on request only.)  McCormick in float64 past n + m = 4096: K4's
     float64 build on one PSD block at d = 4,200 against its plain version
@@ -5673,9 +5722,9 @@ def phase_widerank(res):
     solver's device bound against the host float64 certificate); the api's
     McCormick relaxation at k = 4 on config 3's instance in both dtypes
     against the CPU; its McCormick B&B at k = 4 for ``WR_MC_BB_S`` s with
-    sound bounds; the api's McCormick relaxation at n = m = 2100, k = 1
-    (n + m = 4,200; ``_wr_mc_big``); and the shape gate refusing rank-k
-    Shor at k = 5 before any allocation on the card."""
+    sound bounds; and the api's McCormick relaxation at n = m = 2100, k = 1
+    (n + m = 4,200; ``_wr_mc_big``).  (Rank-k Shor past k = 4: the
+    shorkwide phase.)"""
     import numpy as np
     import torch
 
@@ -5690,7 +5739,10 @@ def phase_widerank(res):
             log(name, json.dumps(row))
     res.setdefault("kernels", {}).update(rows)
     failed = [(name, row) for name, rs in rows.items() for row in rs if not row["ok"]]
-    both = _check_wide_vs_unrolled(gen, dev)
+    # the wide kernels forced at the ranks the register and unrolled ones
+    # take, held to their plain versions (their timings beside the others':
+    # the widevsunrolled phase, on request)
+    both = _check_wide_vs_unrolled(gen, dev, timed=False)
     failed += [("wide vs unrolled", r) for r in both if not r["ok"]]
     kernels.reset_launches()  # the paths' launches count from here
     row = {"wide_vs_unrolled": both}
@@ -5779,30 +5831,468 @@ def phase_widerank(res):
     # the McCormick relaxation at n = m = 2100, k = 1 (n + m = 4,200)
     row["mccormick_n2100"] = _wr_mc_big("float32", WR_MC_BIG["iters"])
 
-    # the shape gate: rank-k Shor at k = 5 raises before any allocation
-    from omc_torch.solve import matrix_completion_branchandbound
-
-    torch.cuda.synchronize()
-    mem, before = torch.cuda.memory_allocated(dev), dict(kernels.LAUNCHES)
-    refused = []
-    for call in (lambda: api.matrix_completion_SDP_relaxation(
-                     _mc_root(75, 5), 75, 5, A3, idx3, 80.0, add_Shor_valid_inequalities=True,
-                     disjunctive_cuts_type="linear", dtype="float32"),
-                 lambda: matrix_completion_branchandbound(
-                     5, A3, idx3, 80.0, **dict(BENCH_KW, add_Shor_valid_inequalities=True))):
-        try:
-            call()
-        except ValueError as err:
-            refused.append(str(err))
-    r = dict(refused=refused, allocated=torch.cuda.memory_allocated(dev) - mem,
-             launches=sum(_launched_since(before).values()))
-    log("widerank gate", json.dumps(r))
-    assert len(refused) == 2 and all("k <= 4" in x for x in refused), r
-    assert r["allocated"] == 0 and r["launches"] == 0, r
-    row["gate"] = r
     pool.shutdown()
     res["widerank"] = row
     assert not failed, failed  # the kernel rows, after the paths have run
+
+
+# ---- shorkwide: rank-k Shor past k = 4 ----
+
+# (B, n = m, M5, k) of the wide rows: config 3's frontier at k = 5, 8 and 12
+# (K7x at D = 6, 9, 13), config 4's root (n = m = 250) at its rank, k = 5,
+# with the api call's M5; and config 3's frontier at k = 4, where the wide
+# K7x, K8c and K8d run forced beside the register kernels
+SKW_SHAPES = ((32, 75, 1024, 5), (32, 75, 1024, 8), (32, 75, 1024, 12), (1, 250, 1024, 5))
+SKW_FORCED = (32, 75, 1024, 4)
+# the paths: the api's rank-k Shor relaxation at k = 5 on config 3's
+# instance in float64 (the first 256 [4]-minors, 100 iterations) against
+# the CPU; the same at k = 5 on config 4's instance in float32 (the first
+# 1,024 [4]-minors, 300 iterations; altmin's 20 iterations for the upper
+# bound); the B&B at k = 5 with iterative Shor on config 3's instance on
+# the shork phase's settings, 4 s
+SKW_API = dict(k=5, minors=256, iters=100)
+SKW_C4 = dict(k=5, n=250, frac=0.3, seed=1, minors=1024, iters=300, altmin_iters=20)
+# config 4's root: the device bound within this of the host certificate of
+# the same duals, relative to the certificate
+SKW_C4_DEV_VS_HOST = 1e-3
+SKW_BB_KW = dict(SHORK_KW, time_limit=4)
+SKW_KEYS = ("K7t", "K7xw", "K8cw", "K8dw")
+# the bars: float32 as the register kernels' rows (K8c and K8d 1e-5 of their
+# plain versions, sums in another order; K7t and K7x the sign schedule's
+# 1e-4 against a float64 eigh projection and 2e-4 of their plain
+# versions); float64 1e-13 relative (the wide kernels' exact Jacobi
+# against cuSOLVER's eigh, K8c's and K8d's sums in another order)
+SKW_F64_BAR = 1e-13
+# matrices whose Jacobi sweeps the float64 bound counts (the mirror's, on
+# the first this many of the batch; their mean stands for the rest)
+SKW_SWEEP_SAMPLE = 2048
+
+
+def _first_minors(idx, count, present=4):
+    """The first ``count`` 2x2 minors with ``present`` observed entries,
+    in the enumeration order of
+    ``generate_rank1_matrix_completion_Shor_constraints_indexes`` (rows
+    pairs in order, then column pairs), without listing the rest."""
+    import itertools
+
+    import numpy as np
+
+    obs = np.asarray(idx, dtype=bool)
+    out = []
+    for i1, i2 in itertools.combinations(range(obs.shape[0]), 2):
+        both = np.flatnonzero(obs[i1] & obs[i2]).tolist()
+        assert present == 4
+        for j1, j2 in itertools.combinations(both, 2):
+            out.append((i1, i2, j1, j2))
+            if len(out) == count:
+                return out
+    return out
+
+
+def _skw_jacobi_flops(t, D, N):
+    """FP64 operations of K4s's Jacobi on the batch ``t`` (N D x D slots):
+    the mirror's sweeps on its first ``SKW_SWEEP_SAMPLE`` matrices, their
+    mean over all N, each sweep D (D - 1) / 2 rotations; then V max(w, 0) V'
+    and the mixing, u-step and EMA.  Returns (flops, mean sweeps)."""
+    from omc_torch.ops.jacobi import k4s_eigh
+
+    sw = k4s_eigh(t.reshape(-1, D, D)[:SKW_SWEEP_SAMPLE])[2].double().mean().item()
+    return (N * sw * D * (D - 1) / 2 * _jacobi_pair_flops(D)
+            + N * (D * D * (D + 1) + 10 * D * D)), sw
+
+
+def _skw_rows(c, sc, st, gen, dev, path=None):
+    """K8c, K7t, K7x (slot mode) and K8d at one shape and dtype, each at
+    the outputs of the step before it (K8c's), through the wrappers (the
+    wide kernels past k = 4), or with ``path="wide"`` the wide kernels of
+    K8c, K7x and K8d forced through their plans (each block built once per
+    state, launched on its entry): errors against the plain versions, two
+    launches' bits, the plans against the kernels' exports, CUDA-event ms
+    and device ms (``_held_device_ms``), the plain version's and (K7t, K7x)
+    the library's (cuSOLVER's eigh of the slot batch, chunked) ms over one
+    warm call, and the bound; forced, also the register kernels' device ms
+    on the same timed states."""
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.ops import cones
+    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.polar import project_psd_ns, project_psd_ns_small, truncated_matmul
+    from omc_torch.sdp import shor_k as SK
+
+    lib = kernels.library()
+    dt = st.core.X.dtype
+    f64 = dt == torch.float64
+    e = dt.itemsize
+    bar = SKW_F64_BAR if f64 else 1e-5
+    peak = PEAK_FP64_FLOPS if f64 else PEAK_FP32_FLOPS
+    meth = "eigh" if f64 else "ns"
+    B, n, m, k, kp, C, Ms = SK._shapes(st)
+    nm, M5 = n * m, sc.M5
+    P = sum(t.shape[2] for t in (st.v1, st.v2, st.v3))
+    sb = sc.sb
+    A_ = float(sb.minor_mask.sum())   # active minors over the batch
+    Ca = float(sb.coord_mask.sum())   # active coordinates
+    Sa = float(sb.soc_mask.sum())     # active RSOC rows
+    shape = dict(B=B, n=n, m=m, k=k, M5=M5, dtype=str(dt).split(".")[1], path=path)
+    out = {}
+
+    def k8c(x):  # launchers on the state x (and the EMAs a)
+        if not path:
+            return lambda: SK.shor_k_zstep(c, sc, x)
+        p = SK._k8c_block(c, sc, x, dev, SK.k8c_plan(B, n, m, k, dt, path))
+        return lambda: kernels.launch("K8cw", kernels.entry("omc_k8c_shor_k_zstep_wide", dt), p,
+                                      dev)
+
+    def k7x(x, a):
+        if not path:
+            return lambda: SK.xwh_step(c, sc, x, a, meth)
+        p = SK._k7x_block(c, sc, x, a, dev, SK.k7x_plan(B * C, k + 1, dt, path))
+        return lambda: kernels.launch("K7xw", kernels.entry("omc_k7x_xwh_wide", dt), p, dev)
+
+    def k8d(x, a):
+        if not path:
+            return lambda: SK.shor_k_cone_step(c, sc, x, *a)
+        p = SK._k8d_block(c, sc, x, *a, dev, SK.k8d_plan(B, n, m, k, C, Ms, dt, path))
+        return lambda: kernels.launch("K8dw", kernels.entry("omc_k8d_shor_k_cone_wide", dt), p,
+                                      dev)
+
+    def timed(row, fn, plain):
+        row.update(ms=cuda_time_ms(fn, reps=5), device_ms=_held_device_ms(fn, reps=5),
+                   plain_ms=_tm(plain))
+
+    def slot_errs(got, ref):
+        # float64: each slot's (w, u) held together (u = t - w may be all
+        # rounding noise where t lies in the cone), the EMA on its own
+        return _slot_errs(got, ref, ((0, 1), (2,))) if f64 else _errs(got, ref)
+
+    # K8c
+    zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
+    sk, s2 = st.clone(), st.clone()
+    k8c(sk)()
+    k8c(s2)()
+    torch.cuda.synchronize()
+    rel, ab = _errs(zs(sk), SK.shor_k_zstep_plain(c, sc, st))
+    plan = SK.k8c_plan(B, n, m, k, dt, path)
+    glob = plan.get("kept") == "global"
+    r = dict(**shape, plan=plan, rel_err=rel, max_abs_err=ab,
+             deterministic=_same_bits(zs(sk), zs(s2)), library_ms=None,
+             plan_matches_kernel=plan["smem_bytes"] == lib.omc_k8c_wide_smem_bytes(
+                 n, k, plan["cols"], int(glob), e))
+    s3 = st.clone()
+    timed(r, k8c(s3), lambda: SK.shor_k_zstep_plain(c, sc, st))
+    r["ok"] = r["rel_err"] <= bar and r["deterministic"] and r["plan_matches_kernel"]
+    # values per slot: the X and Theta blocks of w1/u1, Xt_prev, W >= 0,
+    # Wt >= 0, the link rows, the entry and coordinate constants, Theta's
+    # Schur complement, v's diagonal, the masks, the scalars; out Xt, X,
+    # Theta, W, Wt, H, v; per active minor and term the 14 entries of w5/u5
+    # the adjoint reads, per active coordinate k^2 + k entries of wx/ux, per
+    # active RSOC row 2 of wr/ur and its mask; int32 the entry tables, v's
+    # pointers and the 9 list entries of each active minor.  The kept values
+    # in the workspace are written and read once where the plan puts them
+    # there (they are part of this kernel's traffic, not of the function's:
+    # the bound leaves them out)
+    rd = (2 * (nm + m * m) + k * nm + 2 * nm + 2 * k * C + 2 * m + 2 * C + 3 * nm + 4 * C
+          + m + P + C + 4)
+    wr = k * nm + nm + m * m + nm + (k + kp) * C + k * P
+    with_bound(r, e * (B * (rd + wr) + A_ * k * 28 + Ca * 2 * (k * k + k) + Sa * 5 + 2 * nm)
+               + 4 * (B * (3 * nm + 1 + P + 3) + 9 * A_),
+               B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca, peak)
+    out["K8cw"] = r
+
+    # K7t at K8c's primal (its one kernel at every k), and K7x
+    for name, w_, u_, acc_shape, step, plain_step, D, N in (
+            ("K7t", "w5", "u5", sk.u5.shape,
+             lambda x, a: lambda: SK.minor_k_step(c, sc, x, a, meth), SK.minor_k_step_plain, 5,
+             B * M5 * k),
+            ("K7xw", "wx", "ux", sk.ux.shape, k7x, SK.xwh_step_plain, k + 1, B * C)):
+        if name == "K7t" and path:
+            continue
+        acc = torch.randn(acc_shape, generator=gen, dtype=torch.float64).to(dev, dt) * 0.1
+        runs = [(sk.clone(), acc.clone()) for _ in range(2)]
+        for x, a in runs:
+            step(x, a)()
+        torch.cuda.synchronize()
+        seen = {}
+
+        def keep(proj):
+            def f(t):
+                seen["t"] = t
+                return proj(t)
+            return f
+
+        got = (getattr(runs[0][0], w_), getattr(runs[0][0], u_), runs[0][1])
+        got_b = (getattr(runs[1][0], w_), getattr(runs[1][0], u_), runs[1][1])
+        if f64:
+            ref = plain_step(c, sc, sk, acc, keep(project_psd_plain))
+            plain = lambda: plain_step(c, sc, sk, acc, project_psd_plain)  # noqa: E731
+        else:
+            ref = plain_step(c, sc, sk, acc, keep(project_psd_ns_small))
+            plain = lambda: plain_step(c, sc, sk, acc, project_psd_ns_small)  # noqa: E731
+        t = seen["t"]
+        rel, ab = slot_errs(got, ref)
+        r = dict(**shape, D=D, N=N, rel_err=rel, max_abs_err=ab,
+                 deterministic=_same_bits(got, got_b))
+        if name == "K7t":
+            pl = SK.k7t_plan(N, dt)
+            r["plan_matches_kernel"] = (pl["threads"] == lib.omc_k7t_threads(e)
+                                        and pl["smem"] == lib.omc_k7t_smem_bytes(e))
+        else:
+            pl = SK.k7x_plan(N, D, dt, path)
+            r["plan_matches_kernel"] = (pl["path"] == SK.WIDE and pl["work_bytes"] == 0 and pl[
+                "smem"] == lib.omc_k7x_wide_smem_bytes(e, D, pl["warps"]))
+        r["plan"] = pl
+        if not f64:
+            # the sign schedule's bars against a float64 eigh projection of
+            # the same slot values, the 16-bit truncated-product control
+            # failing them
+            exact = plain_step(c, sc, sk, acc, lambda x: project_psd_plain(x.double()).float())[0]
+            ctl = plain_step(c, sc, sk, acc,
+                             lambda x: project_psd_ns(x, matmul=truncated_matmul(16)))[0]
+            r.update(plain_vs_eigh=rel_fro(ref[0], exact), kernel_vs_eigh=rel_fro(got[0], exact),
+                     control_16bit_vs_eigh=rel_fro(ctl, exact))
+            r["ok"] = (r["plain_vs_eigh"] <= 1e-4 and r["kernel_vs_eigh"] <= 1e-4
+                       and r["rel_err"] <= 2e-4 and not r["control_16bit_vs_eigh"] <= 1e-4)
+        else:
+            r["ok"] = r["rel_err"] <= bar
+        r["ok"] = r["ok"] and r["deterministic"] and r["plan_matches_kernel"]
+        s8, a8 = sk.clone(), acc.clone()
+        timed(r, step(s8, a8), plain)
+        r["library_ms"] = _tm(lambda: cones.eigh_plain(t))
+        # values: w/u/acc read and written, the masks, the gathered entries
+        # of Xt, Wt and v (K7t) or H (K7x), sS and rho; int32 K7t's records,
+        # K7x's coord_flat.  FP32: the sign schedule's symmetric products
+        # (D (D + 1) / 2 entries of D FMAs) and the mixing, epilogue and EMA;
+        # FP64: the Jacobi sweeps this batch needs
+        if name == "K7t":
+            vals = N * 6 * 25 + B * M5 + _k7t_gathered(sc, nm) + 2 * B
+            ints = 16 * B * M5
+        else:
+            fl = sb.coord_flat.long()
+            gathered = k * torch.unique(torch.arange(B, device=fl.device)[:, None] * nm
+                                        + fl).numel()
+            vals = N * (6 * D * D + 1) + gathered + B * (k + kp) * C + 2 * B
+            ints = N
+        if f64:
+            flops, r["sweeps_mean"] = _skw_jacobi_flops(t, D, N)
+        else:
+            flops = N * (SIGN_PRODUCTS * D * D * (D + 1) + 3 * D * D)
+        with_bound(r, e * vals + 4 * ints, flops, peak)
+        out[name] = r
+
+    # K8d at K8c's primal
+    accs = [torch.randn(x.shape, generator=gen, dtype=torch.float64).to(dev, dt) * 0.1
+            for x in (sk.ur, sk.ul, sk.uwl)]
+    kd = lambda x: (x.wr, x.ur, x.wl, x.ul, x.wwl, x.uwl, x.wp, x.up, x.wq, x.uq)  # noqa: E731
+    runs = [(sk.clone(), [a.clone() for a in accs]) for _ in range(2)]
+    for x, a in runs:
+        k8d(x, a)()
+    torch.cuda.synchronize()
+    ref = SK.shor_k_cone_step_plain(c, sc, sk, *accs)
+    (sd, ad), (sd2, ad2) = runs
+    got = kd(sd) + tuple(ad)
+    if f64:
+        rel, ab = _slot_errs(got, ref, ((0, 1), (2, 3), (4, 5), (6, 7), (8, 9), (10,), (11,),
+                                        (12,)))
+    else:
+        rel, ab = _errs(got, ref)
+    plan = SK.k8d_plan(B, n, m, k, C, Ms, dt, path)
+    r = dict(**shape, C=C, Ms=Ms, plan=plan, rel_err=rel, max_abs_err=ab,
+             deterministic=_same_bits(got, kd(sd2) + tuple(ad2)), library_ms=None,
+             plan_matches_kernel=plan.get("path") == SK.WIDE and plan["grid"] == lib.omc_k8d_grid_x(
+                 B, n, m, C, Ms, plan["ipc"], e))
+    s10, a10 = sk.clone(), [a.clone() for a in accs]
+    timed(r, k8d(s10, a10), lambda: SK.shor_k_cone_step_plain(c, sc, sk, *accs))
+    r["ok"] = r["rel_err"] <= bar and r["deterministic"] and r["plan_matches_kernel"]
+    # values per slot: X, W, Theta's diagonal, Wt, H, the RSOC rows with
+    # their EMA and mask, the link rows with their EMAs, W >= 0, Wt >= 0,
+    # the coordinate mask, the scalars; out the same slots and EMAs; int32
+    # soc_flat and coord_flat
+    rdv = (2 * nm + m + (k + kp) * C + 9 * Ms + Ms + 2 * m + 2 * C + 2 * nm + 2 * k * C
+           + 2 * C + C + 4)
+    wrv = 9 * Ms + 3 * m + 3 * C + 2 * nm + 2 * k * C
+    with_bound(r, e * B * (rdv + wrv) + 4 * B * (Ms + C),
+               B * (40 * Ms + 6 * nm + (k + kp + 6) * C + 5 * k * C), peak)
+    out["K8dw"] = r
+    if path:  # the register kernels on the wide rows' timed states, timed beside
+        for key, fn in (("K8cw", lambda: SK.shor_k_zstep(c, sc, s3)),
+                        ("K7xw", lambda: SK.xwh_step(c, sc, s8, a8, meth)),
+                        ("K8dw", lambda: SK.shor_k_cone_step(c, sc, s10, *a10))):
+            out[key]["register_device_ms"] = _held_device_ms(fn, reps=5)
+            out[key]["wide_over_register"] = out[key]["device_ms"] / out[key]["register_device_ms"]
+    return out
+
+
+def _check_shork_wide(gen, dev):
+    """The wide rows at ``SKW_SHAPES`` in float32 and float64 (the float64
+    rows on float64 copies of the float32 inputs, ``_shork64_of``), and the
+    wide kernels forced at ``SKW_FORCED`` in float32 beside the register
+    kernels.  Returns {row key: [rows]}."""
+    out = {}
+    for B, n, M5, k in SKW_SHAPES + (SKW_FORCED,):
+        c32, sc32, st32 = _shor_k_inputs(B, n, n, 8, M5, gen, dev, k=k, on_device=True)
+        forced = (B, n, M5, k) == SKW_FORCED
+        for c, sc, st in ((c32, sc32, st32),) if forced else (
+                (c32, sc32, st32), _shork64_of(c32, sc32, st32)):
+            f64 = st.core.X.dtype != st32.core.X.dtype
+            rows = _skw_rows(c, sc, st, gen, dev, path="wide" if forced else None)
+            for name, r in rows.items():
+                key = ("K7t_wide" if name == "K7t" else name) + ("_f64" if f64 else "")
+                if forced:
+                    key = name + "_forced_k4"
+                log(key, json.dumps(r))
+                out.setdefault(key, []).append(r)
+        del c32, sc32, st32
+    return out
+
+
+def _skw_api_k5(A, idx, dts, device="cuda"):
+    """The api's rank-k Shor relaxation at k = 5 on config 3's instance,
+    root box, the first ``SKW_API["minors"]`` [4]-minors."""
+    import numpy as np
+
+    from omc_torch import api
+    from omc_torch.sdp.shor import shor_soc_complement
+    from omc_torch.tree import BBNode, ShorInfo, root_box
+
+    n, k = A.shape[0], SKW_API["k"]
+    minors = _first_minors(idx, SKW_API["minors"])
+    lo, hi = root_box(n, k)
+    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0, cuts=[],
+                  Shor_info=ShorInfo(constraints_indexes=minors,
+                                     SOC_constraints_indexes=shor_soc_complement(n, n, minors)))
+    return api.matrix_completion_SDP_relaxation(node, n, k, A, idx, 80.0,
+                                                add_Shor_valid_inequalities=True,
+                                                iters=SKW_API["iters"], dtype=dts, device=device)
+
+
+def _skw_config4_root():
+    """Config 4's instance (rank 5, 250 x 250, 30% observed) at its root,
+    rank k = 5 with the first ``SKW_C4["minors"]`` [4]-minors, in float32
+    for ``SKW_C4["iters"]`` iterations through the rank-k Shor solver as
+    the api calls it; its device bound, the host float64 certificate of
+    its duals and altmin's objective (``SKW_C4["altmin_iters"]``
+    iterations from the top singular vectors of the observed entries)."""
+    import numpy as np
+    import torch
+
+    from omc_torch import api
+    from omc_torch.data import generate_matrix_completion_data
+    from omc_torch.sdp.shor import shor_soc_complement
+    from omc_torch.sdp.shor_k import (host_certified_bound_shor_k, init_shor_k_state,
+                                      make_shor_k_solver, pack_shor_k_batch)
+    from omc_torch.solve import _pack_batch
+    from omc_torch.tree import BBNode, root_box
+
+    n, k, gamma = SKW_C4["n"], SKW_C4["k"], 80.0
+    A, idx = generate_matrix_completion_data(k, n, n, int(SKW_C4["frac"] * n * n),
+                                             seed=SKW_C4["seed"])
+    mask = idx.astype(np.float64)
+    U0 = np.linalg.svd(A * mask)[0][:, :k]
+    t0 = time.time()
+    alt = api.alternating_minimization(A, n, k, idx, gamma, U_initial=U0,
+                                       max_iters=SKW_C4["altmin_iters"], dtype="float32")
+    alt_s = time.time() - t0
+    minors = _first_minors(idx, SKW_C4["minors"])
+    socs = shor_soc_complement(n, n, minors)
+    lo, hi = root_box(n, k)
+    node = BBNode(node_id=1, parent_id=0, U_lower=lo, U_upper=hi, LB=-np.inf, depth=0, cuts=[])
+    dev = torch.device("cuda", 0)
+    ub_bar = 0.5 * float(np.sum(mask * A * A))
+    M5 = len(minors)
+    batch = _pack_batch([node], 1, 1, n, k, None, np.float32)
+    sbh = pack_shor_k_batch(n, n, [minors], [socs], M5, n * n)
+    solve = make_shor_k_solver(n, n, k, 1, M5, n * n, gamma, iters=SKW_C4["iters"],
+                               dtype=torch.float32)
+    st0 = init_shor_k_state(1, n, n, k, 1, M5, n * n, torch.float32, device=dev,
+                            sX=max(1.0, float(np.max(np.abs(A)))),
+                            sT=max(1.0, 2.0 * gamma * ub_bar / (4.0 * n)))
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    t0 = time.time()
+    _, out = solve(f(A), f(mask), batch, sbh, ub_bar, st0)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    out = {x: v.cpu().numpy() for x, v in out.items()}
+    lb_host = host_certified_bound_shor_k(A, mask, batch, sbh, out, gamma, k, ub_bar)
+    return dict(n=n, k=k, M5=M5, iters=int(out["iters_run"][0]), seconds=secs,
+                lb_dev=float(out["lb_dev"][0]), lb_host=float(lb_host[0]),
+                altmin_objective=float(alt["objectives"][-1]), altmin_seconds=alt_s)
+
+
+def phase_shorkwide(res):
+    """Rank-k Shor past k = 4 on the card: the wide rows (K8c, K7t, K7x and
+    K8d at ``SKW_SHAPES`` in both dtypes, held to their plain versions,
+    twice for their bits, with CUDA-event and device ms, the bound, the
+    plain version's and the library's ms; the wide K7x, K8c and K8d forced
+    at k = 4 beside the register kernels), then the paths, whose launches
+    count: the api's rank-k Shor relaxation at k = 5 on config 3's instance
+    in float64 against the same call on the CPU (1e-8 relative); config 4's
+    root at k = 5 in float32 (its device bound no higher than the host
+    float64 certificate and within ``SKW_C4_DEV_VS_HOST`` of it, the
+    certificate no higher than altmin's objective); the
+    B&B at k = 5 with iterative Shor on config 3's instance for 4 s (every
+    lower bound at most ``CONFIG3_OBJ``, a rank-5 optimum being at most the
+    rank-2 incumbent), through K7t, K7x, K8c and K8d's wide kernels."""
+    import numpy as np
+    import torch
+
+    from omc_torch import kernels
+
+    gen = torch.Generator().manual_seed(22)
+    dev = torch.device("cuda", 0)
+    rows = _check_shork_wide(gen, dev)
+    res.setdefault("kernels", {}).update(rows)
+    failed = [(name, r) for name, rs in rows.items() for r in rs if not r["ok"]]
+    kernels.reset_launches()  # the paths' launches count from here
+    row = {}
+
+    # the api at k = 5 on config 3's instance, float64, against the CPU
+    A3, idx3 = _config3_instance()
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    cpu = pool.submit(_skw_api_k5, A3, idx3, "float64", "cpu")
+    got, r = _wr_against_cpu("shorkwide api k=5 float64",
+                             functools.partial(_skw_api_k5, A3, idx3, "float64"), 1e-8,
+                             ("lower_bound", "objective"), cpu)
+    pool.shutdown()
+    r.update(lower_bound=got["lower_bound"], objective=got["objective"])
+    _assert_launched(r["launches"], tuple(x + "_f64" for x in SKW_KEYS + ("K2", "K3", "K4")))
+    assert not any(r["launches"].get(x) for x in SKW_KEYS + ("K1",)), r
+    assert np.isfinite(r["lower_bound"]) and r["lower_bound"] <= CONFIG3_OBJ, r
+    row["api_k5_float64"] = r
+
+    # config 4's root at k = 5, float32
+    before = dict(kernels.LAUNCHES)
+    r = _skw_config4_root()
+    r["launches"] = {x: v for x, v in _launched_since(before).items() if v}
+    r["rel_dev_vs_host"] = (r["lb_host"] - r["lb_dev"]) / abs(r["lb_host"])
+    log("shorkwide config4 root k=5", json.dumps(r))
+    assert np.isfinite(r["lb_host"]) and r["lb_dev"] <= r["lb_host"], r
+    assert r["lb_host"] <= r["altmin_objective"], r
+    # the device's dual and bound formula against the host's: after 300
+    # float32 iterations the bound is far below the objective, so the
+    # ordering above holds for nearly any dual; the two bounds of one dual
+    # must agree
+    assert r["rel_dev_vs_host"] <= SKW_C4_DEV_VS_HOST, r
+    _assert_launched(r["launches"], SKW_KEYS + ("K1", "K2", "K3", "K6"))
+    row["config4_root_k5"] = r
+
+    # the B&B at k = 5 with iterative Shor on config 3's instance
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A3, idx3, 80.0, k=5, **SKW_BB_KW)
+    launches = _launched_since(before)
+    lowers = [x["lower"] for x in inst["run_log"] if x["lower"] > -1e300]
+    br = _summary(sol, inst, secs)
+    br.update(lowers=lowers, launches={x: v for x, v in launches.items() if v},
+              growths=int(inst["run_details"]["shor_growths"]))
+    log("shorkwide branch k=5", json.dumps(br))
+    assert lowers and all(b >= a - 1e-9 for a, b in zip(lowers, lowers[1:])), lowers
+    assert all(x <= CONFIG3_OBJ * (1 + 1e-9) for x in lowers), br
+    assert all(x <= br["objective"] * (1 + 1e-9) + 1e-9 for x in lowers), br
+    _assert_launched(launches, SKW_KEYS + ("K1", "K2", "K3", "K4s") + BOUND_KEYS)
+    row["branch_k5"] = br
+    res["shorkwide"] = row
+    assert not failed, failed  # the kernel rows, after the paths have run
+
 
 def phase_profile(res):
     """The headline with profile_dir (a directory under build/, removed
@@ -5965,6 +6455,26 @@ KERNELS = (
     ("K9bw_f64", ("K9bw_f64",),
      "K9b wide, float64 build: McCormick forward map + cone step (B=16, n=m=50, k=4)",
      "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
+    # the rank-k Shor wide kernels (the shorkwide phase's launches): K7x,
+    # K8c and K8d past k = 4
+    ("K7xw", ("K7xw",),
+     "K7x wide: (k+1)x(k+1) XWH slots, a warp a slot, sign schedule (B=32, C=4096, k=5)",
+     "omc_torch/csrc/k7x_wide.cu", "omc/sdp/shor_k.py:373"),
+    ("K7xw_f64", ("K7xw_f64",),
+     "K7x wide, float64 build: XWH slots, a warp's Jacobi (B=32, C=4096, k=5)",
+     "omc_torch/csrc/k7x_wide.cu", "omc/sdp/shor_k.py:373"),
+    ("K8cw", ("K8cw",),
+     "K8c wide: rank-k Shor adjoint + z-step, a runtime rank (B=32, n=m=75, k=5, M5=1024)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:618"),
+    ("K8cw_f64", ("K8cw_f64",),
+     "K8c wide, float64 build: rank-k Shor adjoint + z-step (B=32, n=m=75, k=5, M5=1024)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:618"),
+    ("K8dw", ("K8dw",),
+     "K8d wide: rank-k Shor RSOC/link/W>=0/Wt>=0 cone step, a runtime rank (B=32, n=m=75, k=5)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
+    ("K8dw_f64", ("K8dw_f64",),
+     "K8d wide, float64 build: rank-k Shor cone step (B=32, n=m=75, k=5)",
+     "omc_torch/csrc/k8k_shor_k.cu", "omc/sdp/shor_k.py:754"),
 )
 
 

@@ -14,13 +14,14 @@ family (base, Shor k = 1 and k > 1, McCormick) runs it through the float64
 builds of its kernels (K2-K6, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a,
 K9b; exact Jacobi projections, as ``omc``'s eigh route).
 
-What runs on the GPU, in float32 and float64: altmin and the base family
-at every rank and width (K6's wide path past k = 10), McCormick at every
-rank (K9s, K9a and K9b's wide kernels at k >= 4 or n + m > 4096) and at
-n + m < 46,341 (one node: (n + m)^2 < 2^31), Shor k = 1, and rank-k Shor at
-2 <= k <= 4.  Rank-k Shor at k >= 5 and McCormick at n + m >= 46,341 raise
-``ValueError`` before any allocation on the card
-(``kernels.require_cuda_shape``); ``device="cpu"`` runs them.
+What runs on the GPU, in float32 and float64: every family at every rank
+``omc`` takes.  Altmin and the base family at every width (K6's wide path
+past k = 10), Shor k = 1, rank-k Shor at every k >= 2 (K7t at any k, K7x's,
+K8c's and K8d's wide kernels past k = 4), and McCormick at every rank (K9s,
+K9a and K9b's wide kernels at k >= 4 or n + m > 4096) at n + m < 46,341
+(one node: (n + m)^2 < 2^31).  McCormick at n + m >= 46,341 is the one
+range that raises ``ValueError`` before any allocation on the card
+(``kernels.require_cuda_shape``); ``device="cpu"`` runs it.
 """
 
 from __future__ import annotations

@@ -770,6 +770,24 @@ struct K7xParamsT {
 };
 using K7xParams = K7xParamsT<float>;
 
+// K7x's wide kernel (csrc/k7x_wide.cu, any D): K7x's fields, then its
+// per-warp matrices in global memory, or null (shared memory), and its
+// launch (sdp.shor_k.k7x_plan)
+template <class T>
+struct K7xWideParamsT {
+  const T* t;
+  T *w, *u, *acc;
+  const T *Xt, *Wt, *Hh;
+  const int* coord_flat;
+  const T* coord_mask;
+  const T *sS, *rho;
+  int N, C, k, nm;
+  T alpha, beta;
+  T* work;
+  int warps, ctas;
+};
+using K7xWideParams = K7xWideParamsT<float>;
+
 // K8c: the rank-k Shor z-step (adjoint of every Shor slot, Sherman-Morrison
 // X solve per entry, diagonal solves, link Woodbury, clip) -> Xt, X = sum_t
 // Xt, Theta, W, Wt, H, v1-v3.
@@ -797,6 +815,9 @@ struct K8cParamsT {
   int B, n, m, k, M5, C, Ms, P1, P2, P3;
   int cols;                              // columns a CTA (sdp.shor_k.k8c_plan)
   T gamma, R_X;                          // R_X = sqrt(2 gamma ub_bar)
+  T* ws;                                 // the wide kernel's kept values in global
+                                         // memory, (B, NF, n, m), or null (shared
+                                         // memory; the register kernels: null)
 };
 using K8cParams = K8cParamsT<float>;
 

@@ -56,6 +56,11 @@
 // memory goes to two 8-byte stores, the words of a matrix to its 17
 // slots.  CPU mirrors: minor_k_step_plain and xwh_step_plain with
 // ops.jacobi.k4s_project_psd.
+//
+// Every rank: K7t's thread does nothing that depends on k (its term is its
+// index), so it takes any k as it is.  K7x's register kernels here stop at
+// D = 5; past it (and where forced) its wide kernel (csrc/k7x_wide.cu)
+// gives a slot to a warp and its matrices to memory, at any D.
 #include "common.cuh"
 #include "k4s_jacobi.cuh"
 

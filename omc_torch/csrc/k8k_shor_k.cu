@@ -62,6 +62,13 @@
 // until the flat CTAs fill the card's SMs), each lane issues all of its
 // loads before its first store, and the operands are __restrict__.
 //
+// The register kernels above are templates on K = k, instantiated for k =
+// 2..4.  The wide kernels take any k: k8c_kernel<0> (omc_k8c_shor_k_zstep
+// _wide) walks the terms at run time, its kept values in shared memory or
+// a global workspace, and also takes the k <= 4 shapes whose kept values
+// pass k8c_kernel's shared memory; k8d_kernel<0> (omc_k8d_shor_k_cone_wide)
+// is K8d with its coordinates' CTAs at a run-time rank.
+//
 // The float64 builds (omc_k8c_shor_k_zstep_f64, omc_k8d_shor_k_cone_f64)
 // are the same kernels on doubles.  K8c keeps its values and the row
 // groups' column sums (still added in row-group order) in doubles, so its
@@ -92,14 +99,39 @@ __device__ __forceinline__ double int_in(double, int c) { return __longlong_as_d
 __device__ __forceinline__ int int_of(float x) { return __float_as_int(x); }
 __device__ __forceinline__ int int_of(double x) { return (int)__double_as_longlong(x); }
 
-// (one CTA an SM at least: ptxas may then give k = 4 the registers it needs)
-template <int K, class T>
+// The register kernels, k8c_kernel<k, T> for k = 2..4, hold an entry's k
+// terms and k(k-1)/2 H in registers.  The wide kernel, k8c_kernel<0, T>,
+// takes any k, and the shapes whose kept values pass a CTA's shared memory:
+// the same column-owning CTA and the same three phases, with the rank a
+// run-time value.  Its phase 1 walks the terms in turn (each term's minor
+// duals, XWH duals and Wt solve, its X right-hand side summed into the
+// Sherman-Morrison sum), then walks them again for the X solve and the clip
+// (the same operations, so the same values), so that no per-term array
+// lives in registers.  Its kept values (NF = 3 + k + k(k-1)/2 per entry)
+// sit in shared memory where n x cols of them fit, else in a global
+// workspace of (B, NF, n, m) values (p.ws; sdp.shor_k.k8c_plan); it reads
+// Theta's transposed half from w1/u1 directly (no staged rows) and walks a
+// v entry's table once a term.  Every sum runs in the register kernels'
+// order.
+
+// the wide kernel's dynamic shared memory (values of T): the kept values
+// (none where they are in the workspace), two column sums a row group, a_j
+__host__ __device__ inline long long k8c_wide_smem_values(int n, int k, int cols, bool global) {
+  const long long nf = k + (long long)k * (k - 1) / 2 + 3, rg = omc::kThreads / cols;
+  return (global ? 0 : nf * n * cols) + 2 * rg * cols + cols;
+}
+
+// (one CTA an SM at least: ptxas may then give k = 4 the registers it
+// needs, and without it ptxas spilled the wide float build)
+template <int KR, class T>
 __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) {
   using omc::quot;
-  constexpr int KP = K * (K - 1) / 2;
-  constexpr int D = K + 1, DD = D * D;
+  constexpr bool kWide = KR == 0;
+  constexpr int KPR = KR * (KR - 1) / 2;  // the register kernels' extents
+  const int K = kWide ? p.k : KR, KP = K * (K - 1) / 2;
+  const int D = K + 1, DD = D * D;
   // fields of the kept per-entry values
-  constexpr int fW = 0, fQ = 1, fC = 2, fWt = 3, fH = 3 + K, NF = 3 + K + KP;
+  const int fW = 0, fQ = 1, fC = 2, fWt = 3, fH = 3 + K, NF = 3 + K + KP;
   extern __shared__ __align__(16) unsigned char k8c_smem_raw[];
   T* const sm = reinterpret_cast<T*>(k8c_smem_raw);
   const int cols = p.cols, RG = omc::kThreads / cols;
@@ -108,11 +140,15 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
   const int n = p.n, m = p.m, D1 = n + m, nm = n * m, C = p.C;
   const int j0 = blockIdx.x * cols, j = j0 + col;
   const bool live = j < m;
-  T* kept = sm;                         // [NF][n][cols]
-  T* part = kept + NF * n * cols;       // [2][RG][cols]
-  T* a_s = part + 2 * RG * cols;        // [cols]
-  T* thb = a_s + cols;                  // [cols][m + 1]
-#define KEPT(fld, i) kept[((fld) * n + (i)) * cols + col]
+  // kept value (field, row i) of this thread's column: [NF][n][cols] in
+  // shared memory, or [B][NF][n][m] in the wide kernel's workspace
+  const bool glob = kWide && p.ws != nullptr;
+  T* kept = glob ? p.ws + (size_t)b * NF * nm + j : sm;
+  T* part = sm + (glob ? 0 : NF * n * cols);  // [2][RG][cols]
+  T* a_s = part + 2 * RG * cols;              // [cols]
+  T* thb = a_s + cols;                        // [cols][m + 1] (register kernels)
+#define KEPT(fld, i) \
+  (glob ? kept[(size_t)(fld) * nm + (size_t)(i) * m] : kept[((fld) * n + (i)) * cols + col])
   const T rho = p.rho[b], sX = p.sX[b], sT = p.sT[b], sS = p.sS[b];
   const T sW = sX * sX;
   const T* __restrict__ w1 = p.w1 + (size_t)b * D1 * D1;
@@ -150,11 +186,13 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
   const T yl = live ? p.wl[b * m + j] - p.ul[b * m + j] : T(0);
 
   // ---- Theta's block rows n + j0 .. n + j0 + cols - 1, read along rows ----
-  for (int e = tid; e < cols * m; e += omc::kThreads) {
-    const int cl = e / m, i = e - cl * m;
-    if (j0 + cl < m) {
-      const int qb = (n + j0 + cl) * D1 + n + i;
-      thb[cl * (m + 1) + i] = quot(rho * (sT * (w1[qb] - u1[qb])), rho * sT * sT);
+  if constexpr (!kWide) {
+    for (int e = tid; e < cols * m; e += omc::kThreads) {
+      const int cl = e / m, i = e - cl * m;
+      if (j0 + cl < m) {
+        const int qb = (n + j0 + cl) * D1 + n + i;
+        thb[cl * (m + 1) + i] = quot(rho * (sT * (w1[qb] - u1[qb])), rho * sT * sT);
+      }
     }
   }
 
@@ -163,116 +201,212 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
   if (live) {
     for (int i = rg; i < n; i += RG) {
       const int f = i * m + j;
-      T gx[K], zWt[K], zH[KP];
+      if constexpr (!kWide) {
+        T gx[KR], zWt[KR], zH[KPR];
 #pragma unroll
-      for (int t = 0; t < K; ++t) gx[t] = T(0), zWt[t] = T(0);
+        for (int t = 0; t < K; ++t) gx[t] = T(0), zWt[t] = T(0);
 #pragma unroll
-      for (int q = 0; q < KP; ++q) zH[q] = T(0);
-      T gw = 0, ywl = 0;
-      const int c = flat_coord[f];
-      if (c >= 0) {
-        const T cm = cdm[c];
-        T gwt[K], gh[KP];
+        for (int q = 0; q < KP; ++q) zH[q] = T(0);
+        T gw = 0, ywl = 0;
+        const int c = flat_coord[f];
+        if (c >= 0) {
+          const T cm = cdm[c];
+          T gwt[KR], gh[KPR];
 #pragma unroll
-        for (int t = 0; t < K; ++t) gwt[t] = T(0);
-        // per-term 5x5 minor duals of the entry's minors: (0, cc), (cc, cc)
-        const int e1 = fm_ptr[f + 1];
-        for (int e = fm_ptr[f]; e < e1; ++e) {
-          const int ent = fm_ent[e], l = ent >> 2, cc = (ent & 3) + 1;
+          for (int t = 0; t < K; ++t) gwt[t] = T(0);
+          // per-term 5x5 minor duals of the entry's minors: (0, cc), (cc, cc)
+          const int e1 = fm_ptr[f + 1];
+          for (int e = fm_ptr[f]; e < e1; ++e) {
+            const int ent = fm_ent[e], l = ent >> 2, cc = (ent & 3) + 1;
+#pragma unroll
+            for (int t = 0; t < K; ++t) {
+              const size_t q = ((size_t)l * K + t) * 25;
+              gx[t] += T(2) * (sS * (w5[q + cc] - u5[q + cc]));
+              gwt[t] += sS * (w5[q + cc * 6] - u5[q + cc * 6]);
+            }
+          }
+          // XWH duals of this coordinate
+          const size_t qx = (size_t)c * DD;
 #pragma unroll
           for (int t = 0; t < K; ++t) {
-            const size_t q = ((size_t)l * K + t) * 25;
-            gx[t] += T(2) * (sS * (w5[q + cc] - u5[q + cc]));
-            gwt[t] += sS * (w5[q + cc * 6] - u5[q + cc * 6]);
+            gx[t] += T(2) * ((sS * (wx[qx + t + 1] - ux[qx + t + 1])) * cm);
+            const size_t qd = qx + (t + 1) * (D + 1);
+            gwt[t] = gwt[t] + (sS * (wx[qd] - ux[qd])) * cm;
+          }
+          int qp = 0;
+#pragma unroll
+          for (int t1 = 0; t1 < K; ++t1)
+#pragma unroll
+            for (int t2 = t1 + 1; t2 < K; ++t2, ++qp) {
+              const size_t qa = qx + (t1 + 1) * D + t2 + 1, qb = qx + (t2 + 1) * D + t1 + 1;
+              gh[qp] = (sS * (wx[qa] - ux[qa])) * cm + (sS * (wx[qb] - ux[qb])) * cm;
+            }
+          // W-link row: +ywl on W_c, -ywl on Wt, -2 ywl on H; then Wt >= 0
+          ywl = (sS * (wwl[c] - uwl[c])) * cm;
+#pragma unroll
+          for (int t = 0; t < K; ++t) {
+            gwt[t] = gwt[t] - ywl;
+            gwt[t] = gwt[t] + sS * (wq[(size_t)t * C + c] - uq[(size_t)t * C + c]);
+            zWt[t] = quot(quot(rho * gwt[t], rho), D1wt[c]);
+          }
+#pragma unroll
+          for (int q = 0; q < KP; ++q) {
+            gh[q] = gh[q] - T(2) * ywl;
+            zH[q] = quot(quot(rho * gh[q], rho), D1h[c]);
           }
         }
-        // XWH duals of this coordinate
-        const size_t qx = (size_t)c * DD;
+        // RSOC row (0.5, W, sum_t Xt): its X slot lands on every term
+        const int s = flat_soc[f];
+        if (s >= 0) {
+          const T sm_ = socm[s];
+          gw += (sS * (wr[3 * s + 1] - ur[3 * s + 1])) * sm_;
+          const T y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm_;
 #pragma unroll
-        for (int t = 0; t < K; ++t) {
-          gx[t] += T(2) * ((sS * (wx[qx + t + 1] - ux[qx + t + 1])) * cm);
-          const size_t qd = qx + (t + 1) * (D + 1);
-          gwt[t] = gwt[t] + (sS * (wx[qd] - ux[qd])) * cm;
+          for (int t = 0; t < K; ++t) gx[t] += y2;
         }
-        int qp = 0;
-#pragma unroll
-        for (int t1 = 0; t1 < K; ++t1)
-#pragma unroll
-          for (int t2 = t1 + 1; t2 < K; ++t2, ++qp) {
-            const size_t qa = qx + (t1 + 1) * D + t2 + 1, qb = qx + (t2 + 1) * D + t1 + 1;
-            gh[qp] = (sS * (wx[qa] - ux[qa])) * cm + (sS * (wx[qb] - ux[qb])) * cm;
-          }
-        // W-link row: +ywl on W_c, -ywl on Wt, -2 ywl on H; then Wt >= 0
-        ywl = (sS * (wwl[c] - uwl[c])) * cm;
-#pragma unroll
-        for (int t = 0; t < K; ++t) {
-          gwt[t] = gwt[t] - ywl;
-          gwt[t] = gwt[t] + sS * (wq[(size_t)t * C + c] - uq[(size_t)t * C + c]);
-          zWt[t] = quot(quot(rho * gwt[t], rho), D1wt[c]);
-        }
-#pragma unroll
-        for (int q = 0; q < KP; ++q) {
-          gh[q] = gh[q] - T(2) * ywl;
-          zH[q] = quot(quot(rho * gh[q], rho), D1h[c]);
-        }
-      }
-      // RSOC row (0.5, W, sum_t Xt): its X slot lands on every term
-      const int s = flat_soc[f];
-      if (s >= 0) {
-        const T sm_ = socm[s];
-        gw += (sS * (wr[3 * s + 1] - ur[3 * s + 1])) * sm_;
-        const T y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm_;
-#pragma unroll
-        for (int t = 0; t < K; ++t) gx[t] += y2;
-      }
-      gw += ywl;
-      gw = gw - sW * yl;
-      const size_t qe = (size_t)b * nm + f;
-      gw = gw + sS * (p.wp[qe] - p.up[qe]);
+        gw += ywl;
+        gw = gw - sW * yl;
+        const size_t qe = (size_t)b * nm + f;
+        gw = gw + sS * (p.wp[qe] - p.up[qe]);
 
-      // X block: (D1x I_k + c1x J_k)^-1 by Sherman-Morrison, proximal term
-      // tau_x Xt_prev (read before it is overwritten), clip
-      const int q1 = i * D1 + n + j;
-      const T rX = sX * T(2) * (w1[q1] - u1[q1]);
-      const T cX = -sX * p.maskA[f];
-      T rx[K], rs = 0;
+        // X block: (D1x I_k + c1x J_k)^-1 by Sherman-Morrison, proximal term
+        // tau_x Xt_prev (read before it is overwritten), clip
+        const int q1 = i * D1 + n + j;
+        const T rX = sX * T(2) * (w1[q1] - u1[q1]);
+        const T cX = -sX * p.maskA[f];
+        T rx[KR], rs = 0;
 #pragma unroll
-      for (int t = 0; t < K; ++t) {
-        const T RX = rho * (rX + gx[t]) - cX;
-        rx[t] = quot(RX, rho) + (sX * sX) * Xt[(size_t)t * nm + f];
-        rs = t == 0 ? rx[0] : rs + rx[t];
+        for (int t = 0; t < K; ++t) {
+          const T RX = rho * (rX + gx[t]) - cX;
+          rx[t] = quot(RX, rho) + (sX * sX) * Xt[(size_t)t * nm + f];
+          rs = t == 0 ? rx[0] : rs + rx[t];
+        }
+        const T d = D1x[f], e1 = c1x[f];
+        const T corr = quot(e1 * rs, d * (d + T(K) * e1));
+        T xs = 0;
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          const T z = fmin(fmax(quot(rx[t], d) - corr, -R_Xs), R_Xs);
+          Xt[(size_t)t * nm + f] = z;
+          xs = t == 0 ? z : xs + z;
+        }
+        Xs[f] = xs;
+        const T zW = quot(quot(rho * gw - (T(0.5) * sW) * p.mask[f], rho), D1w[f]);
+        csum += zW;
+        // the W-link row at the uncorrected values:
+        // q_c = cdm sS (W_c - sum_t Wt - 2 sum_p H)
+        T qc = 0;
+        if (c >= 0) {
+          T sw = zWt[0], sh = zH[0];
+#pragma unroll
+          for (int t = 1; t < K; ++t) sw += zWt[t];
+#pragma unroll
+          for (int q = 1; q < KP; ++q) sh += zH[q];
+          qc = (cdm[c] * sS) * (zW - sw - T(2) * sh);
+          bsum += B_jc[c] * quot(qc, D_c[c]);
+        }
+        KEPT(fW, i) = zW;
+        KEPT(fQ, i) = qc;
+        KEPT(fC, i) = int_in(T(0), c);
+#pragma unroll
+        for (int t = 0; t < K; ++t) KEPT(fWt + t, i) = zWt[t];
+#pragma unroll
+        for (int q = 0; q < KP; ++q) KEPT(fH + q, i) = zH[q];
+      } else {
+        const int c = flat_coord[f], s = flat_soc[f];
+        T cm = 0, ywl = 0, sw = 0, sh = 0, y2 = 0;
+        size_t qx = 0;
+        int e0 = 0, e1 = 0;
+        if (c >= 0) {
+          cm = cdm[c];
+          qx = (size_t)c * DD;
+          e0 = fm_ptr[f], e1 = fm_ptr[f + 1];
+          // W-link row: -ywl on Wt, -2 ywl on H; the H pairs
+          ywl = (sS * (wwl[c] - uwl[c])) * cm;
+          int qp = 0;
+          for (int t1 = 0; t1 < K; ++t1)
+            for (int t2 = t1 + 1; t2 < K; ++t2, ++qp) {
+              const size_t qa = qx + (t1 + 1) * D + t2 + 1, qb = qx + (t2 + 1) * D + t1 + 1;
+              T gh = (sS * (wx[qa] - ux[qa])) * cm + (sS * (wx[qb] - ux[qb])) * cm;
+              gh = gh - T(2) * ywl;
+              const T zH = quot(quot(rho * gh, rho), D1h[c]);
+              KEPT(fH + qp, i) = zH;
+              sh = qp == 0 ? zH : sh + zH;
+            }
+        }
+        // RSOC row (0.5, W, sum_t Xt): its X slot lands on every term
+        T gw = 0;
+        if (s >= 0) {
+          const T sm_ = socm[s];
+          gw += (sS * (wr[3 * s + 1] - ur[3 * s + 1])) * sm_;
+          y2 = (sS * (wr[3 * s + 2] - ur[3 * s + 2])) * sm_;
+        }
+        gw += ywl;
+        gw = gw - sW * yl;
+        const size_t qe = (size_t)b * nm + f;
+        gw = gw + sS * (p.wp[qe] - p.up[qe]);
+
+        // X block: (D1x I_k + c1x J_k)^-1 by Sherman-Morrison, proximal term
+        // tau_x Xt_prev, clip.  Pass 1: each term's Wt (kept) and its X
+        // right-hand side, summed over the terms in order
+        const int q1 = i * D1 + n + j;
+        const T rX = sX * T(2) * (w1[q1] - u1[q1]);
+        const T cX = -sX * p.maskA[f];
+        T rs = 0;
+        for (int t = 0; t < K; ++t) {
+          T gx = 0, gwt = 0;
+          for (int e = e0; e < e1; ++e) {
+            const int ent = fm_ent[e], l = ent >> 2, cc = (ent & 3) + 1;
+            const size_t q = ((size_t)l * K + t) * 25;
+            gx += T(2) * (sS * (w5[q + cc] - u5[q + cc]));
+            gwt += sS * (w5[q + cc * 6] - u5[q + cc * 6]);
+          }
+          if (c >= 0) {
+            gx += T(2) * ((sS * (wx[qx + t + 1] - ux[qx + t + 1])) * cm);
+            const size_t qd = qx + (t + 1) * (D + 1);
+            gwt = gwt + (sS * (wx[qd] - ux[qd])) * cm;
+            gwt = gwt - ywl;
+            gwt = gwt + sS * (wq[(size_t)t * C + c] - uq[(size_t)t * C + c]);
+            const T zWt = quot(quot(rho * gwt, rho), D1wt[c]);
+            KEPT(fWt + t, i) = zWt;
+            sw = t == 0 ? zWt : sw + zWt;
+          }
+          if (s >= 0) gx += y2;
+          const T rx = quot(rho * (rX + gx) - cX, rho) + (sX * sX) * Xt[(size_t)t * nm + f];
+          rs = t == 0 ? rx : rs + rx;
+        }
+        const T d = D1x[f], ex = c1x[f];
+        const T corr = quot(ex * rs, d * (d + T(K) * ex));
+        // pass 2: each term's right-hand side again, its solve and clip
+        T xs = 0;
+        for (int t = 0; t < K; ++t) {
+          T gx = 0;
+          for (int e = e0; e < e1; ++e) {
+            const int ent = fm_ent[e], l = ent >> 2, cc = (ent & 3) + 1;
+            const size_t q = ((size_t)l * K + t) * 25;
+            gx += T(2) * (sS * (w5[q + cc] - u5[q + cc]));
+          }
+          if (c >= 0) gx += T(2) * ((sS * (wx[qx + t + 1] - ux[qx + t + 1])) * cm);
+          if (s >= 0) gx += y2;
+          const T rx = quot(rho * (rX + gx) - cX, rho) + (sX * sX) * Xt[(size_t)t * nm + f];
+          const T z = fmin(fmax(quot(rx, d) - corr, -R_Xs), R_Xs);
+          Xt[(size_t)t * nm + f] = z;
+          xs = t == 0 ? z : xs + z;
+        }
+        Xs[f] = xs;
+        const T zW = quot(quot(rho * gw - (T(0.5) * sW) * p.mask[f], rho), D1w[f]);
+        csum += zW;
+        // the W-link row at the uncorrected values:
+        // q_c = cdm sS (W_c - sum_t Wt - 2 sum_p H)
+        T qc = 0;
+        if (c >= 0) {
+          qc = (cm * sS) * (zW - sw - T(2) * sh);
+          bsum += B_jc[c] * quot(qc, D_c[c]);
+        }
+        KEPT(fW, i) = zW;
+        KEPT(fQ, i) = qc;
+        KEPT(fC, i) = int_in(T(0), c);
       }
-      const T d = D1x[f], e1 = c1x[f];
-      const T corr = quot(e1 * rs, d * (d + T(K) * e1));
-      T xs = 0;
-#pragma unroll
-      for (int t = 0; t < K; ++t) {
-        const T z = fmin(fmax(quot(rx[t], d) - corr, -R_Xs), R_Xs);
-        Xt[(size_t)t * nm + f] = z;
-        xs = t == 0 ? z : xs + z;
-      }
-      Xs[f] = xs;
-      const T zW = quot(quot(rho * gw - (T(0.5) * sW) * p.mask[f], rho), D1w[f]);
-      csum += zW;
-      // the W-link row at the uncorrected values:
-      // q_c = cdm sS (W_c - sum_t Wt - 2 sum_p H)
-      T qc = 0;
-      if (c >= 0) {
-        T sw = zWt[0], sh = zH[0];
-#pragma unroll
-        for (int t = 1; t < K; ++t) sw += zWt[t];
-#pragma unroll
-        for (int q = 1; q < KP; ++q) sh += zH[q];
-        qc = (cdm[c] * sS) * (zW - sw - T(2) * sh);
-        bsum += B_jc[c] * quot(qc, D_c[c]);
-      }
-      KEPT(fW, i) = zW;
-      KEPT(fQ, i) = qc;
-      KEPT(fC, i) = int_in(T(0), c);
-#pragma unroll
-      for (int t = 0; t < K; ++t) KEPT(fWt + t, i) = zWt[t];
-#pragma unroll
-      for (int q = 0; q < KP; ++q) KEPT(fH + q, i) = zH[q];
     }
   }
   part[rg * cols + col] = csum;
@@ -318,13 +452,21 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
       if (i == j) continue;
       const int qa = (n + i) * D1 + n + j;
       const T za = quot(rho * (sT * (w1[qa] - u1[qa])), rho * sT * sT);
-      Ths[i * m + j] = T(0.5) * (za + thb[col * (m + 1) + i]);
+      T zt;
+      if constexpr (kWide) {
+        const int qt = (n + j) * D1 + n + i;
+        zt = quot(rho * (sT * (w1[qt] - u1[qt])), rho * sT * sT);
+      } else {
+        zt = thb[col * (m + 1) + i];
+      }
+      Ths[i * m + j] = T(0.5) * (za + zt);
     }
   }
 #undef KEPT
 
   // ---- strided over the slot's CTAs: padded coordinates, v1 | v2 | v3,
-  // one item a coordinate or v entry with its k terms (one table walk) ----
+  // one item a coordinate or v entry with its k terms (one table walk in
+  // the register kernels, one a term in the wide one) ----
   const int P1 = p.P1, P2 = p.P2, P3 = p.P3;
   for (int e = blockIdx.x * blockDim.x + tid; e < C + P1 + P2 + P3;
        e += gridDim.x * blockDim.x) {
@@ -350,24 +492,40 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
     const int* __restrict__ ent = kind == 1 ? p.v1_ent + (size_t)b * 2 * p.M5
                                 : kind == 2 ? p.v2_ent + (size_t)b * 2 * p.M5
                                             : p.v3_ent + (size_t)b * p.M5;
-    T g[K];
+    if constexpr (!kWide) {
+      T g[KR];
 #pragma unroll
-    for (int t = 0; t < K; ++t) g[t] = T(0);
-    for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
-      const int en = ent[h], l = kind == 3 ? en : en >> 1;
-      const int o = kind == 1 ? ((en & 1) ? 19 : 7) : ((en & 1) ? 14 : 8);
+      for (int t = 0; t < K; ++t) g[t] = T(0);
+      for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
+        const int en = ent[h], l = kind == 3 ? en : en >> 1;
+        const int o = kind == 1 ? ((en & 1) ? 19 : 7) : ((en & 1) ? 14 : 8);
 #pragma unroll
+        for (int t = 0; t < K; ++t) {
+          const size_t q = ((size_t)l * K + t) * 25;
+          g[t] += kind == 3
+                      ? T(2) * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]))
+                      : T(2) * (sS * (w5[q + o] - u5[q + o]));
+        }
+      }
+      const T dv = (kind == 1 ? p.D1v1 : kind == 2 ? p.D1v2 : p.D1v3)[(size_t)b * P + v];
+      T* out = (kind == 1 ? p.v1 : kind == 2 ? p.v2 : p.v3) + (size_t)b * K * P + v;
+#pragma unroll
+      for (int t = 0; t < K; ++t) out[(size_t)t * P] = quot(quot(rho * g[t], rho), dv);
+    } else {
+      const T dv = (kind == 1 ? p.D1v1 : kind == 2 ? p.D1v2 : p.D1v3)[(size_t)b * P + v];
+      T* out = (kind == 1 ? p.v1 : kind == 2 ? p.v2 : p.v3) + (size_t)b * K * P + v;
       for (int t = 0; t < K; ++t) {
-        const size_t q = ((size_t)l * K + t) * 25;
-        g[t] += kind == 3
-                    ? T(2) * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]))
-                    : T(2) * (sS * (w5[q + o] - u5[q + o]));
+        T g = 0;
+        for (int h = ptr[v]; h < ptr[v + 1]; ++h) {
+          const int en = ent[h], l = kind == 3 ? en : en >> 1;
+          const int o = kind == 1 ? ((en & 1) ? 19 : 7) : ((en & 1) ? 14 : 8);
+          const size_t q = ((size_t)l * K + t) * 25;
+          g += kind == 3 ? T(2) * (sS * (w5[q + 9] - u5[q + 9]) + sS * (w5[q + 13] - u5[q + 13]))
+                         : T(2) * (sS * (w5[q + o] - u5[q + o]));
+        }
+        out[(size_t)t * P] = quot(quot(rho * g, rho), dv);
       }
     }
-    const T dv = (kind == 1 ? p.D1v1 : kind == 2 ? p.D1v2 : p.D1v3)[(size_t)b * P + v];
-    T* out = (kind == 1 ? p.v1 : kind == 2 ? p.v2 : p.v3) + (size_t)b * K * P + v;
-#pragma unroll
-    for (int t = 0; t < K; ++t) out[(size_t)t * P] = quot(quot(rho * g[t], rho), dv);
   }
 }
 
@@ -555,8 +713,49 @@ __device__ __forceinline__ void k8d_coords(const K8dParamsT<T>& p, int g0) {
   }
 }
 
+// (c) of the wide kernel (any k): the same row and slots with the rank a
+// run-time value; Sum_t Wt and Sum_p H streamed in the register kernel's
+// order, then each term's Wt >= 0 slot in turn (its Wt read again), so no
+// per-term array lives in registers (the loops not unrolled: unrolled, the
+// float64 build spilled)
+template <class T>
+__device__ __forceinline__ void k8d_coords_wide(const K8dParamsT<T>& p, int g0) {
+  const int K = p.k, KP = K * (K - 1) / 2;
+  const int g = g0 + threadIdx.x, C = p.C;
+  if ((int)threadIdx.x >= p.ipc || g >= p.B * C) return;
+  const int b = g / C, c = g - b * C;
+  const size_t q = (size_t)b * K * C + c;  // term 0 of the (B, K, C) arrays
+  const T* __restrict__ Wt = p.Wt;
+  const T* __restrict__ Hh = p.Hh + (size_t)b * KP * C + c;
+  T* __restrict__ wq = p.wq;
+  T* __restrict__ uq = p.uq;
+  const int fc = __ldg(p.coord_flat + g);
+  const T cm = __ldg(p.coord_mask + g), uwl = p.uwl[g], awl = p.acc_wl[g];
+  const T sS = __ldg(p.sS + b), rho = __ldg(p.rho + b);
+  const T w = __ldg(p.Ws + (size_t)b * p.n * p.m + fc);
+  T sw = __ldg(Wt + q), sh = KP > 0 ? __ldg(Hh) : T(0);
+#pragma unroll 1
+  for (int t = 1; t < K; ++t) sw += __ldg(Wt + q + (size_t)t * C);
+#pragma unroll 1
+  for (int r = 1; r < KP; ++r) sh += __ldg(Hh + (size_t)r * C);
+  const T fwl = (sS * (w - sw - T(2) * sh)) * cm;
+  const T tw = (p.alpha * fwl + uwl) * cm;
+  p.wwl[g] = T(0);
+  p.uwl[g] = tw;
+  p.acc_wl[g] = awl + p.beta * (rho * tw - awl);
+#pragma unroll 1
+  for (int t = 0; t < K; ++t) {
+    const size_t qt = q + (size_t)t * C;
+    T pq = wq[qt], vq = uq[qt];
+    omc::nonneg_slot(__ldg(Wt + qt), sS, p.alpha, pq, vq);
+    wq[qt] = pq;
+    uq[qt] = vq;
+  }
+}
+
 // one dimension: the link CTAs, then the W >= 0, RSOC and coordinates' CTAs
-// (k8d_layout; omc_torch.sdp.shor_k.k8d_plan)
+// (k8d_layout; omc_torch.sdp.shor_k.k8d_plan); K = 0: the wide kernel
+// (k8d_coords_wide)
 template <int K, class T>
 __global__ void __launch_bounds__(kThreads8d) k8d_kernel(K8dParamsT<T> p) {
   const K8dLayout l = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc, 16 / sizeof(T));
@@ -576,7 +775,10 @@ __global__ void __launch_bounds__(kThreads8d) k8d_kernel(K8dParamsT<T> p) {
     k8d_rsoc(p, x * p.ipc);
     return;
   }
-  k8d_coords<K>(p, (x - l.rsoc) * p.ipc);
+  if constexpr (K == 0)
+    k8d_coords_wide(p, (x - l.rsoc) * p.ipc);
+  else
+    k8d_coords<K>(p, (x - l.rsoc) * p.ipc);
 }
 
 template <int K, class T>
@@ -608,7 +810,26 @@ int k8c_launch(const K8cParamsT<T>& p, void* stream) {
 }
 
 template <class T>
-int k8d_launch(const K8dParamsT<T>& p, void* stream) {
+int k8c_wide_launch(const K8cParamsT<T>& p, void* stream) {
+  // a tile is a power of two of at most 32 columns (whole row groups)
+  const int cols = p.cols;
+  if (p.k < 1 || cols < 1 || cols > kCols || (cols & (cols - 1))) return (int)cudaErrorInvalidValue;
+  const long long smem = sizeof(T) * k8c_wide_smem_values(p.n, p.k, cols, p.ws != nullptr);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k8c_kernel<0, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (p.B > 0 && p.m > 0) {
+    const dim3 grid((p.m + cols - 1) / cols, p.B);
+    k8c_kernel<0, T><<<grid, omc::kThreads, smem, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// wide: K8d's wide kernel (any k >= 1), else the register kernels (2..4)
+template <class T>
+int k8d_launch(const K8dParamsT<T>& p, void* stream, bool wide = false) {
   // W, wp, up, the RSOC triples, soc_flat and soc_mask move as 16-byte words
   const auto odd = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) != 0; };
   if (p.B < 1 || p.n < 1 || p.m < 1 || p.n * p.m < 4 || p.C < 1 || p.Ms < 4 || p.ipc < 32 ||
@@ -617,6 +838,11 @@ int k8d_launch(const K8dParamsT<T>& p, void* stream) {
     return (int)cudaErrorInvalidValue;
   const int grid = k8d_layout(p.B, p.n, p.m, p.C, p.Ms, p.ipc, 16 / (int)sizeof(T)).grid_x;
   cudaStream_t s = (cudaStream_t)stream;
+  if (wide) {
+    if (p.k < 1) return (int)cudaErrorInvalidValue;
+    k8d_kernel<0, T><<<grid, kThreads8d, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
   switch (p.k) {
     case 2: k8d_kernel<2, T><<<grid, kThreads8d, 0, s>>>(p); break;
     case 3: k8d_kernel<3, T><<<grid, kThreads8d, 0, s>>>(p); break;
@@ -634,6 +860,22 @@ OMC_EXPORT int omc_k8c_shor_k_zstep(const K8cParams* params, void* stream) {
 
 OMC_EXPORT int omc_k8c_shor_k_zstep_f64(const K8cParamsT<double>* params, void* stream) {
   return k8c_launch(*params, stream);
+}
+
+// the wide kernel (any k; the kept values in shared memory, or in p.ws)
+OMC_EXPORT int omc_k8c_shor_k_zstep_wide(const K8cParams* params, void* stream) {
+  return k8c_wide_launch(*params, stream);
+}
+
+OMC_EXPORT int omc_k8c_shor_k_zstep_wide_f64(const K8cParamsT<double>* params, void* stream) {
+  return k8c_wide_launch(*params, stream);
+}
+
+// the wide kernel's shared memory for a tile of `cols` columns, the kept
+// values in the workspace (global != 0) or not, at elem bytes a value; held
+// against sdp.shor_k.k8c_plan by the smoke
+OMC_EXPORT long long omc_k8c_wide_smem_bytes(int n, int k, int cols, int global, int elem) {
+  return (long long)elem * k8c_wide_smem_values(n, k, cols, global != 0);
 }
 
 // K8c's shared memory for a tile of `cols` columns at elem bytes a value
@@ -655,4 +897,13 @@ OMC_EXPORT int omc_k8d_shor_k_cone(const K8dParams* params, void* stream) {
 
 OMC_EXPORT int omc_k8d_shor_k_cone_f64(const K8dParamsT<double>* params, void* stream) {
   return k8d_launch(*params, stream);
+}
+
+// the wide kernel: the coordinates' CTAs at a run-time rank (any k)
+OMC_EXPORT int omc_k8d_shor_k_cone_wide(const K8dParams* params, void* stream) {
+  return k8d_launch(*params, stream, true);
+}
+
+OMC_EXPORT int omc_k8d_shor_k_cone_wide_f64(const K8dParamsT<double>* params, void* stream) {
+  return k8d_launch(*params, stream, true);
 }

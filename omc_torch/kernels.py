@@ -25,7 +25,8 @@ PyTorch version:
 - K8b ``omc_torch.sdp.admm_shor.shor_cone_step``   (``csrc/k8_shor.cu``)
 - K7t ``omc_torch.sdp.shor_k.minor_k_step``        (``csrc/k7k_minor_xwh.cu``)
 - K7x ``omc_torch.sdp.shor_k.xwh_step`` and
-  ``omc_torch.ops.polar.project_psd_xwh``          (``csrc/k7k_minor_xwh.cu``)
+  ``omc_torch.ops.polar.project_psd_xwh``          (``csrc/k7k_minor_xwh.cu``;
+  the wide kernel ``csrc/k7x_wide.cu``)
 - K8c ``omc_torch.sdp.shor_k.shor_k_zstep``        (``csrc/k8k_shor_k.cu``)
 - K8d ``omc_torch.sdp.shor_k.shor_k_cone_step``    (``csrc/k8k_shor_k.cu``)
 - K9s ``omc_torch.sdp.mccormick.mc_setup``         (``csrc/k9_mccormick.cu``)
@@ -39,10 +40,13 @@ PyTorch version:
 - K6 ``omc_torch.ops.linalg.v_step`` and
   ``u_step_unconstrained``                         (``csrc/k6_altmin.cu``)
 
-K6's wide path (k > 10) and K9s's, K9a's and K9b's wide kernels (k >= 4,
-or n + m > 4096, or a slot CTA's staging past shared memory) are kernels
-of their own in the same sources, behind the same wrappers, and count
-under their own keys: "K6w", "K9sw", "K9aw", "K9bw".
+K6's wide path (k > 10), K9s's, K9a's and K9b's wide kernels (k >= 4,
+or n + m > 4096, or a slot CTA's staging past shared memory) and K7x's,
+K8c's and K8d's wide kernels (rank-k Shor at k >= 5, and K8c where its
+kept values pass a CTA's shared memory) are kernels of their own in the
+same sources, behind the same wrappers, and count under their own keys:
+"K6w", "K9sw", "K9aw", "K9bw", "K7xw", "K8cw", "K8dw".  K7t takes every
+rank as it is.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises.  There is no fallback.
@@ -76,8 +80,9 @@ import torch
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K7": 0, "K8a": 0, "K8b": 0,
             "K7t": 0, "K7x": 0, "K8c": 0, "K8d": 0, "K9s": 0, "K9a": 0, "K9b": 0,
             "K4": 0, "K4s": 0, "K5": 0, "K6": 0,
-            "K6w": 0, "K9sw": 0, "K9aw": 0, "K9bw": 0,
-            "K6w_f64": 0, "K9sw_f64": 0, "K9aw_f64": 0, "K9bw_f64": 0,
+            "K6w": 0, "K9sw": 0, "K9aw": 0, "K9bw": 0, "K7xw": 0, "K8cw": 0, "K8dw": 0,
+            "K6w_f64": 0, "K9sw_f64": 0, "K9aw_f64": 0, "K9bw_f64": 0, "K7xw_f64": 0,
+            "K8cw_f64": 0, "K8dw_f64": 0,
             "K2_f64": 0, "K3_f64": 0, "K7_f64": 0, "K8a_f64": 0, "K8b_f64": 0,
             "K7t_f64": 0, "K7x_f64": 0, "K8c_f64": 0, "K8d_f64": 0, "K9s_f64": 0, "K9a_f64": 0,
             "K9b_f64": 0, "K4_f64": 0, "K4s_f64": 0, "K5_f64": 0, "K6_f64": 0}
@@ -265,6 +270,12 @@ class K7xParams(ctypes.Structure):
         ("N", "C", "k", "nm"), ("alpha", "beta"))
 
 
+class K7xWideParams(ctypes.Structure):
+    # K7x's fields, then the wide kernel's workspace (or null) and launch
+    _fields_ = K7xParams._fields_ + [
+        ("work", ctypes.c_void_p), ("warps", ctypes.c_int), ("ctas", ctypes.c_int)]
+
+
 class K8cParams(ctypes.Structure):
     _fields_ = _struct(
         ("w1", "u1", "w5", "u5", "wx", "ux", "wr", "ur", "wl", "ul", "wwl",
@@ -273,7 +284,8 @@ class K8cParams(ctypes.Structure):
          "v3_ent", "D1x", "c1x", "D1w", "D1wt", "D1h", "D_c", "B_jc", "S_th", "D1v1",
          "D1v2", "D1v3", "maskA", "mask", "sX", "sT", "sS", "rho", "Xt", "Xs", "Ths",
          "Ws", "Wt", "Hh", "v1", "v2", "v3"),
-        ("B", "n", "m", "k", "M5", "C", "Ms", "P1", "P2", "P3", "cols"), ("gamma", "R_X"))
+        ("B", "n", "m", "k", "M5", "C", "Ms", "P1", "P2", "P3", "cols"), ("gamma", "R_X")) + [
+        ("ws", ctypes.c_void_p)]  # the wide kernel's workspace, or null
 
 
 class K8dParams(ctypes.Structure):
@@ -332,11 +344,11 @@ def float64_block(cls):
 
 
 (K2Params64, K3Params64, K7Params64, K8aParams64, K8bParams64, K7tParams64, K7xParams64,
- K8cParams64, K8dParams64, K9sParams64, K9aParams64, K9bParams64, K4Params64, K5Params64,
- K4sParams64, K6Params64) = map(
+ K7xWideParams64, K8cParams64, K8dParams64, K9sParams64, K9aParams64, K9bParams64, K4Params64,
+ K5Params64, K4sParams64, K6Params64) = map(
     float64_block, (K2Params, K3Params, K7Params, K8aParams, K8bParams, K7tParams, K7xParams,
-                    K8cParams, K8dParams, K9sParams, K9aParams, K9bParams, K4Params, K5Params,
-                    K4sParams, K6Params))
+                    K7xWideParams, K8cParams, K8dParams, K9sParams, K9aParams, K9bParams,
+                    K4Params, K5Params, K4sParams, K6Params))
 # the float64 builds: float block -> (float64 block, entry points)
 FLOAT64_BUILDS = {
     K2Params: (K2Params64, ("omc_k2_zstep",)),
@@ -346,8 +358,9 @@ FLOAT64_BUILDS = {
     K8bParams: (K8bParams64, ("omc_k8b_shor_cone",)),
     K7tParams: (K7tParams64, ("omc_k7t_minor_k",)),
     K7xParams: (K7xParams64, ("omc_k7x_xwh",)),
-    K8cParams: (K8cParams64, ("omc_k8c_shor_k_zstep",)),
-    K8dParams: (K8dParams64, ("omc_k8d_shor_k_cone",)),
+    K7xWideParams: (K7xWideParams64, ("omc_k7x_xwh_wide",)),
+    K8cParams: (K8cParams64, ("omc_k8c_shor_k_zstep", "omc_k8c_shor_k_zstep_wide")),
+    K8dParams: (K8dParams64, ("omc_k8d_shor_k_cone", "omc_k8d_shor_k_cone_wide")),
     K9sParams: (K9sParams64, ("omc_k9s_setup", "omc_k9s_setup_wide")),
     K9aParams: (K9aParams64, ("omc_k9a_zstep", "omc_k9a_zstep_wide")),
     K9bParams: (K9bParams64, ("omc_k9b_cone", "omc_k9b_cone_wide")),
@@ -396,9 +409,6 @@ def require_cuda_dtype(family: str, dtype) -> None:
         raise ValueError(f"the CUDA path runs float32 or float64, not {dtype}")
 
 
-# rank-k Shor's K7t, K7x, K8c and K8d are built for k = 2..4 (ROADMAP.md
-# queue 2, item 3 ports k >= 5)
-SHOR_K_CUDA_MAX_K = 4
 # McCormick's K9a and K9b index a batch's flat entries of the (n + m)^2 PSD
 # block in int: B (n + m)^2 stays below this (ROADMAP.md queue 2, item 4
 # indexes them in 64 bits)
@@ -407,20 +417,17 @@ MCCORMICK_CUDA_MAX_FLAT = 2 ** 31
 
 def require_cuda_shape(family: str, k: int, n: int, m: int, batch: int = 1) -> None:
     """The CUDA shape gate of every solver family, before any work on the
-    card: rank-k Shor past ``SHOR_K_CUDA_MAX_K``, and McCormick at a
-    ``batch`` (the most node slots a solver call takes: 1 for the api,
-    ``batch_size`` for the driver) with ``batch (n + m)^2`` at or past
-    ``MCCORMICK_CUDA_MAX_FLAT``, raise ``ValueError`` naming the range and
-    the roadmap item that will port it.  Every other (k, n, m) that ``omc``
-    runs passes: K6 and the McCormick kernels take any rank."""
+    card: McCormick at a ``batch`` (the most node slots a solver call takes:
+    1 for the api, ``batch_size`` for the driver) with ``batch (n + m)^2``
+    at or past ``MCCORMICK_CUDA_MAX_FLAT`` raises ``ValueError`` naming the
+    range and the roadmap item that will port it.  Every other (k, n, m)
+    that ``omc`` runs passes: K6, the McCormick kernels and the rank-k Shor
+    kernels (K7x's, K8c's and K8d's wide kernels past k = 4) take any
+    rank."""
     if family not in FLOAT64_FAMILIES:
         raise ValueError(f"unknown solver family {family!r}")
     if k < 1 or min(n, m, batch) < 1:
         raise ValueError(f"unsupported shape k={k}, n={n}, m={m}, batch={batch}")
-    if family == "shor_k" and k > SHOR_K_CUDA_MAX_K:
-        raise ValueError(f"the CUDA kernels of the shor_k family take k <= {SHOR_K_CUDA_MAX_K}, "
-                         f"got k = {k}; ROADMAP.md queue 2, item 3 will port k >= 5 "
-                         '(device="cpu" runs it)')
     flat = batch * (n + m) ** 2
     if family == "mccormick" and flat >= MCCORMICK_CUDA_MAX_FLAT:
         raise ValueError(f"the CUDA kernels of the mccormick family take batch (n + m)^2 < 2^31, "
@@ -441,6 +448,9 @@ def _load(path: Path):
         ("omc_k7x_xwh", K7xParams),
         ("omc_k8c_shor_k_zstep", K8cParams),
         ("omc_k8d_shor_k_cone", K8dParams),
+        ("omc_k7x_xwh_wide", K7xWideParams),
+        ("omc_k8c_shor_k_zstep_wide", K8cParams),
+        ("omc_k8d_shor_k_cone_wide", K8dParams),
         ("omc_k9s_setup", K9sParams),
         ("omc_k9a_zstep", K9aParams),
         ("omc_k9b_cone", K9bParams),
@@ -483,6 +493,10 @@ def _load(path: Path):
     lib.omc_k6_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8c_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.omc_k8c_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k8c_wide_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.omc_k8c_wide_smem_bytes.restype = ctypes.c_longlong
+    lib.omc_k7x_wide_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.omc_k7x_wide_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8a_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.omc_k8a_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k8a_grid_x.argtypes = [ctypes.c_int] * 4

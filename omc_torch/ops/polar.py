@@ -352,13 +352,15 @@ def project_psd_small(T, w_out=None):
 
 def project_psd_xwh(T, w_out=None):
     """K7x in its projection mode: the sign-schedule PSD projection of a
-    (..., d, d) batch with 3 <= d <= 5 (the rank-k Shor XWH slots are
-    (k+1) x (k+1)), one thread per matrix on the GPU, a CTA's 128 matrices
-    staged through shared memory as 16-byte words.  A CPU tensor runs the
-    plain ``project_psd_ns_small``; a CUDA tensor runs the kernel or raises
-    (also on storage that does not start 16-byte aligned).  The kernel's
-    order of work (the upper triangles of symmetric products) has the CPU
-    mirror ``project_psd_ns(T, matmul=symmetric_matmul())``."""
+    (..., d, d) batch with d >= 3 (the rank-k Shor XWH slots are (k+1) x
+    (k+1)).  At d <= 5 one thread per matrix on the GPU, a CTA's 128
+    matrices staged through shared memory as 16-byte words; at d > 5 K7x's
+    wide kernel, a warp per matrix (``sdp.shor_k.k7x_plan``, counted as
+    "K7xw").  A CPU tensor runs the plain ``project_psd_ns_small``; a CUDA
+    tensor runs the kernel or raises (also, on the register kernel, on
+    storage that does not start 16-byte aligned).  Both kernels' order of
+    work (the upper triangles of symmetric products) has the CPU mirror
+    ``project_psd_ns(T, matmul=symmetric_matmul())``."""
     dev = T.device
     if dev.type == "cpu":
         P = project_psd_ns_small(T)
@@ -366,16 +368,20 @@ def project_psd_xwh(T, w_out=None):
     if dev.type != "cuda":
         raise ValueError(f"project_psd_xwh: unsupported device {dev}")
     d = T.shape[-1]
-    if T.ndim < 2 or T.shape[-2] != d or not 3 <= d <= 5:
-        raise ValueError(f"K7x takes d x d matrices with 3 <= d <= 5, got {tuple(T.shape)}")
+    if T.ndim < 2 or T.shape[-2] != d or d < 3:
+        raise ValueError(f"K7x takes d x d matrices with d >= 3, got {tuple(T.shape)}")
+    from omc_torch.sdp.shor_k import k7x_block, k7x_plan
+
+    N = T.numel() // (d * d)
+    p = k7x_block(k7x_plan(N, d), N, d, torch.float32, dev)
     if w_out is None:
         w_out = torch.empty_like(T)
-    p = kernels.K7xParams()
     p.t = kernels.check("t", T, T.shape, dev)
     p.w = kernels.check("w_out", w_out, T.shape, dev)
-    if p.t % 16 or p.w % 16:
+    if not p.wide and (p.t % 16 or p.w % 16):
         raise ValueError("K7x stages t and w_out as 16-byte words: their storage must start "
                          "16-byte aligned")
-    p.N, p.k = T.numel() // (d * d), d - 1
-    kernels.launch("K7x", "omc_k7x_xwh", p, dev)
+    p.N, p.k = N, d - 1
+    kernels.launch("K7xw" if p.wide else "K7x",
+                   "omc_k7x_xwh_wide" if p.wide else "omc_k7x_xwh", p, dev)
     return w_out

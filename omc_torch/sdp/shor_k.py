@@ -40,6 +40,15 @@ Jacobi launches and the torch ``psd_epilogue``, steps 5 and 6 K7t's and
 K7x's float64 builds, which project each 5x5 minor slot and each XWH slot
 by K4s's Jacobi in registers.
 
+Every rank k >= 2 runs on the card.  K7t loops over the terms at run time
+and takes any k.  K7x, K8c and K8d have register kernels for k = 2..4 and
+"wide" kernels for any k (the plans' ``path="wide"``, counted as "K7xw",
+"K8cw", "K8dw"): K7x's gives an XWH slot to a warp, its matrices in shared
+memory (or a global workspace); K8c's walks the terms at run time, its kept
+values in shared memory or a global workspace (also where the register
+kernel's do not fit, at any k); K8d's coordinate CTAs take the rank at run
+time.
+
 The kernels sum through inverse tables built on the host once per visit
 (``inverse_tables_k``), so every sum is deterministic (no atomics).  Every
 ``check_every`` iterations the bias-corrected EMA duals of the ten dual
@@ -644,8 +653,23 @@ def _shapes(st: ShorKState):
 
 
 def _check_k(name, k):
-    if not 2 <= k <= 4:
-        raise ValueError(f"{name}: the CUDA kernels take 2 <= k <= 4, got k={k}")
+    if k < 2:
+        raise ValueError(f"{name}: the rank-k Shor kernels take k >= 2, got k={k}")
+
+
+# the plans' path that forces (or, past k = 4, is) the wide kernels of K7x,
+# K8c and K8d
+WIDE = "wide"
+# the register kernels' ranks (K7x at D = k + 1 <= 5, K8c, K8d)
+REGISTER_MAX_K = 4
+
+
+def _wide(name, k, path):
+    """Whether ``name`` takes its wide kernel at rank ``k`` (``path`` None:
+    past ``REGISTER_MAX_K``; "wide": always)."""
+    if path not in (None, WIDE):
+        raise ValueError(f"{name}: path must be None or {WIDE!r}, got {path!r}")
+    return path == WIDE or k > REGISTER_MAX_K
 
 
 # K8c's CTA (threads), the CTAs the plan aims for (two a streaming
@@ -664,23 +688,58 @@ def k8c_smem_bytes(n: int, m: int, k: int, cols: int, dtype=torch.float32) -> in
     return dtype.itemsize * (nf * n * cols + 2 * rg * cols + cols + cols * (m + 1))
 
 
-def k8c_plan(B: int, n: int, m: int, k: int, dtype=torch.float32) -> dict:
+def k8c_wide_smem_bytes(n: int, k: int, cols: int, kept_global: bool,
+                        dtype=torch.float32) -> int:
+    """K8c's wide kernel's dynamic shared memory (``omc_k8c_wide_smem_bytes``):
+    the kept values of n x cols entries (none where they are in the global
+    workspace), two column sums a row group and a_j, values of ``dtype``."""
+    nf = k + k * (k - 1) // 2 + 3
+    rg = K8C_THREADS // cols
+    return dtype.itemsize * ((0 if kept_global else nf * n * cols) + 2 * rg * cols + cols)
+
+
+def k8c_plan(B: int, n: int, m: int, k: int, dtype=torch.float32, path=None,
+             free_bytes=None) -> dict:
     """K8c's tile: a CTA of 256 threads owns ``cols`` whole columns of one
     slot as 256 / cols row groups (the link Woodbury couples only the
     entries of a column).  The widest of 32, 16 and 8 columns that still
     gives ``K8C_TARGET_CTAS`` CTAs, else 8; narrower where the kept values
-    (of ``dtype``) outgrow shared memory.  Raises where even one column does
-    not fit."""
+    (of ``dtype``) outgrow shared memory.
+
+    At 2 <= k <= 4, where one column's kept values fit, the register kernel
+    (the dict has no ``path``).  Else, or with ``path="wide"``, the wide
+    kernel (``path`` "wide"): the same tile rule on its own shared memory
+    (``k8c_wide_smem_bytes``, no staged Theta rows), and where even one
+    column's kept values do not fit, the widest tile with the kept values
+    in a global workspace (``kept`` "global", ``ws_bytes`` = B NF n m values;
+    else ``kept`` "smem", 0).  No rank or width is refused for shared
+    memory; with ``free_bytes`` (the card's free memory) a workspace larger
+    than it raises, with the byte count."""
     _check_k("K8c", k)
-    cols = next((c for c in (32, 16, 8) if -(-m // c) * B >= K8C_TARGET_CTAS), 8)
-    while cols > 1 and k8c_smem_bytes(n, m, k, cols, dtype) > K8C_MAX_SMEM:
+    cols0 = next((c for c in (32, 16, 8) if -(-m // c) * B >= K8C_TARGET_CTAS), 8)
+    if not _wide("K8c", k, path):
+        cols = cols0
+        while cols > 1 and k8c_smem_bytes(n, m, k, cols, dtype) > K8C_MAX_SMEM:
+            cols //= 2
+        smem = k8c_smem_bytes(n, m, k, cols, dtype)
+        if smem <= K8C_MAX_SMEM:
+            return dict(cols=cols, row_groups=K8C_THREADS // cols, threads=K8C_THREADS,
+                        grid=(-(-m // cols), B), smem_bytes=smem)
+    cols = cols0
+    while cols > 1 and k8c_wide_smem_bytes(n, k, cols, False, dtype) > K8C_MAX_SMEM:
         cols //= 2
-    smem = k8c_smem_bytes(n, m, k, cols, dtype)
-    if smem > K8C_MAX_SMEM:
-        raise ValueError(f"K8c: n={n}, m={m}, k={k} needs {smem} bytes of shared memory "
-                         f"for one column, more than {K8C_MAX_SMEM}")
-    return dict(cols=cols, row_groups=K8C_THREADS // cols, threads=K8C_THREADS,
-                grid=(-(-m // cols), B), smem_bytes=smem)
+    kept_global = k8c_wide_smem_bytes(n, k, cols, False, dtype) > K8C_MAX_SMEM
+    if kept_global:
+        cols = cols0
+    nf = k + k * (k - 1) // 2 + 3
+    ws = dtype.itemsize * B * nf * n * m if kept_global else 0
+    if free_bytes is not None and ws > free_bytes:
+        raise ValueError(f"K8c's wide kernel at (B, n, m, k) = ({B}, {n}, {m}, {k}): its "
+                         f"workspace takes {ws} bytes, the card has {free_bytes} free")
+    return dict(path=WIDE, cols=cols, row_groups=K8C_THREADS // cols, threads=K8C_THREADS,
+                grid=(-(-m // cols), B),
+                smem_bytes=k8c_wide_smem_bytes(n, k, cols, kept_global, dtype),
+                kept="global" if kept_global else "smem", ws_bytes=ws)
 
 
 # --------------------------------------------------------------------------
@@ -809,29 +868,47 @@ def _k8c_tensors(c, sc: _ShorKConsts, st: ShorKState) -> tuple:
             + (c.maskA, c.mask))
 
 
-def _k8c_params(c, sc: _ShorKConsts, st: ShorKState, dev):
-    scalars = (float(c.gamma), float(sc.R_X))
+def _k8c_block(c, sc: _ShorKConsts, st: ShorKState, dev, plan: dict):
+    """A fresh K8c parameter block for ``plan`` (``k8c_plan``): ``wide`` says
+    which kernel it is for, ``workspace`` holds the wide kernel's kept values
+    where they go to global memory (refused past the card's free memory)."""
     dt = st.core.X.dtype
+    B, n, m, k, kp, C, Ms = _shapes(st)
+    p = kernels.block(kernels.K8cParams, dt)
+    for name, t, shape, dtype in _k8c_operands(c, sc, st):
+        setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+    p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, sc.M5, C, Ms
+    p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
+    p.cols = plan["cols"]
+    p.gamma, p.R_X = float(c.gamma), float(sc.R_X)
+    p.wide = plan.get("path") == WIDE
+    if p.wide and plan["ws_bytes"]:
+        if dev.type == "cuda":
+            k8c_plan(B, n, m, k, dt, WIDE, free_bytes=torch.cuda.mem_get_info(dev)[0])
+        p.workspace = torch.empty(plan["ws_bytes"] // dt.itemsize, dtype=dt, device=dev)
+        p.ws = p.workspace.data_ptr()
+    return p
+
+
+def _k8c_params(c, sc: _ShorKConsts, st: ShorKState, dev):
+    """K8c's parameter block on ``k8c_plan``'s kernel, packed once per
+    operands (``admm._packed``)."""
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
-        p = kernels.block(kernels.K8cParams, dt)
-        for name, t, shape, dtype in _k8c_operands(c, sc, st):
-            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
-        p.B, p.n, p.m, p.k, p.M5, p.C, p.Ms = B, n, m, k, sc.M5, C, Ms
-        p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
-        p.cols = k8c_plan(B, n, m, k, dt)["cols"]
-        p.gamma, p.R_X = scalars
-        return p
+        return _k8c_block(c, sc, st, dev, k8c_plan(B, n, m, k, st.core.X.dtype))
 
-    return _packed(("K8c", id(c), id(sc), id(st)), _k8c_tensors(c, sc, st), scalars, build)
+    return _packed(("K8c", id(c), id(sc), id(st)), _k8c_tensors(c, sc, st),
+                   (float(c.gamma), float(sc.R_X)), build)
 
 
 def shor_k_zstep(c, sc: _ShorKConsts, st: ShorKState):
     """K8c wrapper: writes Xt, X = sum_t Xt, Ths, W, Wt, Hh, v1, v2, v3 into
     ``st``.  A CPU state runs ``shor_k_zstep_plain``; a CUDA state launches
     ``csrc/k8k_shor_k.cu`` (one CTA per node slot and ``k8c_plan``'s
-    columns; its float64 build for a float64 state) or raises."""
+    columns: the register kernel, or the wide one, counted as "K8cw", past
+    k = 4 or where the register kernel's kept values do not fit; the
+    float64 builds for a float64 state) or raises."""
     core = st.core
     dev = core.w1.device
     if dev.type == "cpu":
@@ -841,8 +918,84 @@ def shor_k_zstep(c, sc: _ShorKConsts, st: ShorKState):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_k_zstep: unsupported device {dev}")
-    kernels.launch("K8c", kernels.entry("omc_k8c_shor_k_zstep", st.core.X.dtype),
-                   _k8c_params(c, sc, st, dev), dev)
+    p = _k8c_params(c, sc, st, dev)
+    kernels.launch("K8cw" if p.wide else "K8c",
+                   kernels.entry("omc_k8c_shor_k_zstep_wide" if p.wide
+                                 else "omc_k8c_shor_k_zstep", core.X.dtype), p, dev)
+
+
+def shor_k_zstep_tiled(c, sc: _ShorKConsts, st: ShorKState, plan: dict):
+    """Torch mirror of K8c's order of sums (both kernels; ``plan`` from
+    ``k8c_plan``), for the tests: the Sherman-Morrison sum of the k
+    right-hand sides, X = sum_t Xt and the W-link row's sums over the terms
+    and the pairs, each in order of t (pair); Theta's diagonal column sums
+    of the uncorrected W and of B_jc q_c / D_c per row group of
+    ``plan["row_groups"]`` (rows g, g + G, ... in order), the groups added
+    in order.  Every other value as ``shor_k_zstep_plain``.  Returns the
+    plain version's tuple."""
+    core = st.core
+    sb = sc.sb
+    k = sc.k
+    B, n, m = core.X.shape
+    G = plan["row_groups"]
+
+    def seq(x):  # sum over dim 1 in order
+        tot = x[:, 0]
+        for t in range(1, x.shape[1]):
+            tot = tot + x[:, t]
+        return tot
+
+    sX = core.sX[:, None, None]
+    sT = core.sT[:, None, None]
+    sT2 = core.sT[:, None]
+    sW = sX * sX
+    sW2 = (core.sX * core.sX)[:, None]
+    sS2 = core.sS[:, None]
+    r3 = core.rho[:, None, None]
+    r4 = core.rho[:, None, None, None]
+    cdm = sb.coord_mask
+    y1 = core.w1 - core.u1 - c.offs[0]
+    rX = sX * 2.0 * y1[..., :n, n:]
+    rTh = sT * y1[..., n:, n:]
+    gXt, gW, gWt, gH, gv1, gv2, gv3 = _adjoint_shor_k(
+        sb, st.w5 - st.u5 - sc.offs5, st.wx - st.ux - sc.offsx, st.wr - st.ur - sc.offsr,
+        st.wl - st.ul, st.wwl - st.uwl, B, n, m, k, sc.kp, core.sX, core.sX * core.sX,
+        core.sS)
+    sS3 = core.sS[:, None, None]
+    gW = gW + sS3 * (st.wp - st.up)
+    gWt = gWt + sS3 * (st.wq - st.uq)
+    yl = st.wl - st.ul
+    eye = torch.eye(m, dtype=y1.dtype, device=y1.device)
+    RXt = r4 * (rX[:, None] + gXt) - c.cX[:, None]
+    RT = r3 * (rTh + sT * yl[:, None, :] * eye) - c.cTh
+    RW = r3 * gW - sc.cW
+    rx = RXt / r4 + (sX * sX)[:, None] * st.Xt
+    zXt = rx / sc.D1x[:, None] - (sc.c1x * seq(rx) / (sc.D1x * (sc.D1x + k * sc.c1x)))[:, None]
+    zTh = RT / (r3 * sT * sT)
+    zW = (RW / r3).reshape(B, -1) / sc.D1w
+    zWt = ((r3 * gWt) / r3) / sc.D1wt[:, None, :]
+    zH = ((r3 * gH) / r3) / sc.D1h[:, None, :]
+    zv = tuple(((r3 * g) / r3) / d[:, None, :] for g, d in zip((gv1, gv2, gv3), sc.D1v))
+    cfl = sb.coord_flat.long()
+    cj = sb.coord_j.long()
+    zW_mat = zW.reshape(B, n, m)
+    p = sT2 * torch.diagonal(zTh, dim1=-2, dim2=-1) - sW2 * link_sums_tiled(zW_mat, G)
+    q = cdm * sS2 * (torch.gather(zW, 1, cfl) - seq(zWt) - 2.0 * seq(zH))
+    q0 = q / sc.D_c
+    # B_jc q_c / D_c at each active coordinate's entry, summed down its column
+    dense = torch.zeros_like(zW).scatter_add(1, cfl, sc.B_jc * q0 * (cdm > 0))
+    Bq = link_sums_tiled(dense.reshape(B, n, m), G)
+    a = (p - Bq) / sc.S_th
+    bb = (q - sc.B_jc * torch.gather(a, 1, cj)) / sc.D_c
+    zTh = zTh - (a / sT2)[:, None, :] * eye
+    zW_mat = zW_mat - ((-sW) * a[:, None, :]) / sc.D1w.reshape(B, n, m)
+    zW_flat = zW_mat.reshape(B, -1).scatter_add(1, cfl, -(sS2 * bb * cdm) / sc.D1w_c)
+    zWt = zWt - (-(sS2 * bb) * cdm / sc.D1wt)[:, None, :]
+    zH = zH - (-(2.0 * sS2) * bb * cdm / sc.D1h)[:, None, :]
+    Ths = 0.5 * (zTh + zTh.transpose(-1, -2))
+    R_Xs4 = sc.R_X / sX[:, None]
+    Xt = torch.minimum(torch.maximum(zXt, -R_Xs4), R_Xs4)
+    return (Xt, seq(Xt), Ths, zW_flat.reshape(B, n, m), zWt, zH) + zv
 
 
 # --------------------------------------------------------------------------
@@ -900,9 +1053,13 @@ def _cuda_method(name: str, dtype, psd_method: str):
 # CTA in float32; in the float64 builds 64 for K7t and for K7x at D = 4 and
 # 5, 128 at D = 3, each CTA staging its matrices' w, u and acc in static
 # shared memory (at most 48 KB), K7x's float64 matrices at an odd stride of
-# doubles (D^2 | 1)
+# doubles (D^2 | 1).  K7x's register kernels take D <= 5; its wide kernel
+# any D: a warp a slot, at most K7X_WIDE_WARPS warps a CTA, their matrices
+# in at most K8C_MAX_SMEM bytes of shared memory, else in a global
+# workspace for K7X_WIDE_WS_CTAS CTAs
 K7T_THREADS = {torch.float32: 128, torch.float64: 64}
 K7X_THREADS = {torch.float32: {3: 128, 4: 128, 5: 128}, torch.float64: {3: 128, 4: 64, 5: 64}}
+K7X_WIDE_WARPS, K7X_WIDE_WS_CTAS = 4, 2 * H100_SMS
 
 
 def k7t_plan(N: int, dtype=torch.float32) -> dict:
@@ -913,15 +1070,43 @@ def k7t_plan(N: int, dtype=torch.float32) -> dict:
     return dict(threads=threads, ctas=_cdiv(N, threads), smem=3 * threads * 25 * dtype.itemsize)
 
 
-def k7x_plan(N: int, D: int, dtype=torch.float32) -> dict:
-    """K7x's launch (slot mode) for ``N`` D x D slots (``omc_k7x_threads``,
-    ``omc_k7x_smem_bytes``): ``threads`` slots a CTA, ``ctas`` CTAs, the
-    staged matrix's stride ``ld`` in values and the three staged blocks'
-    ``smem`` bytes."""
-    threads = K7X_THREADS[dtype][D]
-    ld = (D * D) | 1 if dtype == torch.float64 else D * D
-    return dict(threads=threads, ctas=_cdiv(N, threads), ld=ld,
-                smem=3 * threads * ld * dtype.itemsize)
+def k7x_wide_values(D: int, dtype=torch.float32) -> int:
+    """The values one warp of K7x's wide kernel works in: float32 T, S,
+    S^2 and a scratch (4 D^2); float64 A, V, T (3 D^2) and max(w, 0) (D)."""
+    return 3 * D * D + D if dtype == torch.float64 else 4 * D * D
+
+
+def k7x_plan(N: int, D: int, dtype=torch.float32, path=None, free_bytes=None) -> dict:
+    """K7x's launch for ``N`` D x D slots.  At D <= 5 the register kernel
+    (``omc_k7x_threads``, ``omc_k7x_smem_bytes``): ``threads`` slots a CTA,
+    ``ctas`` CTAs, the staged matrix's stride ``ld`` in values and the three
+    staged blocks' ``smem`` bytes.  At D > 5, or with ``path="wide"``, the
+    wide kernel (``path`` "wide"): a warp a slot, ``warps`` of them a CTA
+    (4, fewer where their matrices, ``k7x_wide_values`` each, pass
+    ``K8C_MAX_SMEM``; ``omc_k7x_wide_smem_bytes``), ``ctas`` = ceil(N /
+    warps) CTAs; where one warp's matrices pass it, ``K7X_WIDE_WS_CTAS`` CTAs
+    of 4 warps working in a global workspace of ``work_bytes`` (``smem``
+    0), each warp looping over the slots; with ``free_bytes`` (the card's
+    free memory) a workspace larger than it raises, with the byte count."""
+    if D < 3:
+        raise ValueError(f"K7x takes D = k + 1 >= 3, got D = {D}")
+    if not _wide("K7x", D - 1, path):
+        threads = K7X_THREADS[dtype][D]
+        ld = (D * D) | 1 if dtype == torch.float64 else D * D
+        return dict(threads=threads, ctas=_cdiv(N, threads), ld=ld,
+                    smem=3 * threads * ld * dtype.itemsize)
+    per = k7x_wide_values(D, dtype) * dtype.itemsize
+    warps = next((w for w in (K7X_WIDE_WARPS, 2, 1) if w * per <= K8C_MAX_SMEM), 0)
+    if warps:
+        return dict(path=WIDE, warps=warps, threads=32 * warps, ctas=max(1, _cdiv(N, warps)),
+                    smem=warps * per, work_bytes=0)
+    ctas = max(1, min(K7X_WIDE_WS_CTAS, _cdiv(N, K7X_WIDE_WARPS)))
+    work = ctas * K7X_WIDE_WARPS * per
+    if free_bytes is not None and work > free_bytes:
+        raise ValueError(f"K7x's wide kernel at N = {N}, D = {D}: its workspace takes {work} "
+                         f"bytes, the card has {free_bytes} free")
+    return dict(path=WIDE, warps=K7X_WIDE_WARPS, threads=32 * K7X_WIDE_WARPS, ctas=ctas,
+                smem=0, work_bytes=work)
 
 
 def _k7t_operands(sc: _ShorKConsts, st: ShorKState, acc5) -> list:
@@ -962,6 +1147,8 @@ def _k7t_params(c, sc: _ShorKConsts, st: ShorKState, acc5, dev):
             setattr(p, name, kernels.check(name, t, shape, dev, dtype))
         if p.rec % 16:
             raise ValueError("rec: K7t reads each minor's index record as 16-byte words")
+        if B * sc.M5 * k >= 2 ** 31:
+            raise ValueError(f"K7t numbers its B M5 k = {B * sc.M5 * k} matrices in int")
         p.B, p.M5, p.k, p.nm, p.C = B, sc.M5, k, n * m, C
         p.P1, p.P2, p.P3 = st.v1.shape[2], st.v2.shape[2], st.v3.shape[2]
         p.alpha, p.beta = scalars
@@ -991,9 +1178,11 @@ def xwh_step(c, sc: _ShorKConsts, st: ShorKState, accx, psd_method: str):
     """K7x wrapper (slot mode): updates ``st.wx``, ``st.ux`` and the EMA
     ``accx`` in place.  A CPU state runs ``xwh_step_plain`` (the sign
     schedule, or ``eigh`` with ``psd_method="eigh"``); a CUDA state launches
-    ``csrc/k7k_minor_xwh.cu`` (one thread per coordinate, a CTA's slots
-    staged through shared memory, ``k7x_plan``: the sign schedule in
-    float32, ``psd_method="ns"``; K4s's exact Jacobi in the float64 build,
+    ``csrc/k7k_minor_xwh.cu`` (``k7x_plan``: at k <= 4 one thread per
+    coordinate, a CTA's slots staged through shared memory; past k = 4 the
+    wide kernel of ``csrc/k7x_wide.cu``, a warp per coordinate, counted as
+    "K7xw"; the sign schedule in float32,
+    ``psd_method="ns"``; K4s's exact Jacobi in the float64 builds,
     ``psd_method="eigh"``) or raises.  The parameter block is packed once
     per operands (``admm._packed``)."""
     core = st.core
@@ -1007,8 +1196,9 @@ def xwh_step(c, sc: _ShorKConsts, st: ShorKState, accx, psd_method: str):
         raise ValueError(f"xwh_step: unsupported device {dev}")
     dt = core.X.dtype
     _cuda_method("K7x", dt, psd_method)
-    kernels.launch("K7x", kernels.entry("omc_k7x_xwh", dt), _k7x_params(c, sc, st, accx, dev),
-                   dev)
+    p = _k7x_params(c, sc, st, accx, dev)
+    kernels.launch("K7xw" if p.wide else "K7x",
+                   kernels.entry("omc_k7x_xwh_wide" if p.wide else "omc_k7x_xwh", dt), p, dev)
 
 
 def _k7x_operands(sc: _ShorKConsts, st: ShorKState, accx) -> list:
@@ -1036,27 +1226,52 @@ def _k7x_tensors(sc: _ShorKConsts, st: ShorKState, accx) -> tuple:
     return _K7X_ST(st) + _K7X_SB(sc.sb) + _SS_RHO(st.core) + (accx,)
 
 
+def k7x_block(plan: dict, N: int, D: int, dtype, dev):
+    """A fresh K7x parameter block for ``plan`` (``k7x_plan`` of N D x D
+    matrices of ``dtype``) on ``dev``: the register kernels' block, or the
+    wide kernel's (``K7xWideParams``) with its launch fields and, where the
+    plan has one, its global workspace (held by the block; refused past the
+    card's free memory).  ``p.wide`` says which kernel it is for."""
+    wide = plan.get("path") == WIDE
+    p = kernels.block(kernels.K7xWideParams if wide else kernels.K7xParams, dtype)
+    p.wide = wide
+    if wide:
+        p.warps, p.ctas = plan["warps"], plan["ctas"]
+        if plan["work_bytes"]:
+            if dev.type == "cuda":
+                k7x_plan(N, D, dtype, WIDE, free_bytes=torch.cuda.mem_get_info(dev)[0])
+            p.workspace = torch.empty(plan["work_bytes"] // dtype.itemsize, dtype=dtype,
+                                      device=dev)
+            p.work = p.workspace.data_ptr()
+    return p
+
+
+def _k7x_block(c, sc: _ShorKConsts, st: ShorKState, accx, dev, plan: dict):
+    """A fresh K7x parameter block (slot mode) for ``plan`` (``k7x_plan``)."""
+    B, n, m, k, kp, C, Ms = _shapes(st)
+    _check_k("K7x", k)
+    p = k7x_block(plan, B * C, k + 1, st.core.X.dtype, dev)
+    for name, t, shape, dtype in _k7x_operands(sc, st, accx):
+        setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+    if not p.wide and any(getattr(p, name) % 16 for name in _K7X_WORDS):
+        raise ValueError("K7x stages wx, ux and the EMA as 16-byte words: their storage "
+                         "must start 16-byte aligned")
+    p.t = None
+    p.N, p.C, p.k, p.nm = B * C, C, k, n * m
+    p.alpha, p.beta = float(c.alpha), float(c.beta)
+    return p
+
+
 def _k7x_params(c, sc: _ShorKConsts, st: ShorKState, accx, dev):
-    """K7x's parameter block (slot mode), packed once per operands
-    (``admm._packed``)."""
-    scalars = (float(c.alpha), float(c.beta))
-    dt = st.core.X.dtype
+    """K7x's parameter block (slot mode) on ``k7x_plan``'s kernel, packed
+    once per operands (``admm._packed``)."""
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
-        _check_k("K7x", k)
-        p = kernels.block(kernels.K7xParams, dt)
-        for name, t, shape, dtype in _k7x_operands(sc, st, accx):
-            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
-        if any(getattr(p, name) % 16 for name in _K7X_WORDS):
-            raise ValueError("K7x stages wx, ux and the EMA as 16-byte words: their storage "
-                             "must start 16-byte aligned")
-        p.t = None
-        p.N, p.C, p.k, p.nm = B * C, C, k, n * m
-        p.alpha, p.beta = scalars
-        return p
+        return _k7x_block(c, sc, st, accx, dev, k7x_plan(B * C, k + 1, st.core.X.dtype))
 
-    return _packed(("K7x", id(c), id(sc), id(st)), _k7x_tensors(sc, st, accx), scalars, build)
+    return _packed(("K7x", id(c), id(sc), id(st)), _k7x_tensors(sc, st, accx),
+                   (float(c.alpha), float(c.beta)), build)
 
 
 # --------------------------------------------------------------------------
@@ -1111,7 +1326,8 @@ K8D_THREADS, K8D_LINK_COLS, K8D_LINK_ROWS = 128, 32, 4
 K8D_TARGET_CTAS = H100_SMS
 
 
-def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int, dtype=torch.float32) -> dict:
+def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int, dtype=torch.float32,
+             path=None) -> dict:
     """K8d's grid, one dimension: ``link_ctas`` = B ceil(m / 32) CTAs on the
     Theta-link rows (slot x // ceil(m / 32), columns [32 t, 32 t + 32) for
     t = x % ceil(m / 32); row group g of 4 sums rows g, g + 4, ... in order,
@@ -1121,9 +1337,12 @@ def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int, dtype=torch.float3
     on the groups of E consecutive RSOC rows of its flat B Ms,
     ``coord_ctas`` on the coordinates of its flat B C (``grid`` in all).
     ``ipc`` halves from 128 to 32 while there are fewer flat CTAs than
-    ``K8D_TARGET_CTAS``.  Raises on a rank or a shape the kernel does not
+    ``K8D_TARGET_CTAS``.  Past k = 4, or with ``path="wide"``, the wide
+    kernel on the same grid (``path`` "wide": its coordinates' CTAs take the
+    rank at run time).  Raises on a rank or a shape the kernel does not
     take."""
     _check_k("K8d", k)
+    wide = _wide("K8d", k, path)
     if min(B, n, m, C) < 1 or n * m < 4 or Ms < 4:
         raise ValueError(f"K8d: unsupported shape B={B}, n={n}, m={m}, C={C}, Ms={Ms}")
     E = 16 // dtype.itemsize
@@ -1133,18 +1352,22 @@ def k8d_plan(B: int, n: int, m: int, k: int, C: int, Ms: int, dtype=torch.float3
         ipc //= 2
     links = B * _cdiv(m, K8D_LINK_COLS)
     nonneg, rsoc, coords = (_cdiv(x, ipc) for x in items)
-    return dict(ipc=ipc, link_ctas=links, nonneg_ctas=nonneg, rsoc_ctas=rsoc, coord_ctas=coords,
-                grid=links + nonneg + rsoc + coords, threads=K8D_THREADS,
+    plan = dict(ipc=ipc, link_ctas=links, nonneg_ctas=nonneg, rsoc_ctas=rsoc,
+                coord_ctas=coords, grid=links + nonneg + rsoc + coords, threads=K8D_THREADS,
                 link_rows=K8D_LINK_ROWS)
+    if wide:
+        plan["path"] = WIDE
+    return plan
 
 
 def shor_k_cone_step_tiled(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl,
                            plan: dict):
-    """Torch mirror of K8d's order of work (``plan`` from ``k8d_plan``), for
-    the tests: the Theta-link rows' column sums of sW W per row group (rows
-    g, g + G, ... in order), the G groups added in order; every other row
-    and slot as ``shor_k_cone_step_plain`` (none depends on another).
-    Returns the plain version's tuple."""
+    """Torch mirror of K8d's order of work (``plan`` from ``k8d_plan``; both
+    kernels), for the tests: the Theta-link rows' column sums of sW W per
+    row group (rows g, g + G, ... in order), the G groups added in order;
+    the W-link rows' sums of the k Wt and of the k(k-1)/2 H in order of t
+    (pair); every other row and slot as ``shor_k_cone_step_plain`` (none
+    depends on another).  Returns the plain version's tuple."""
     out = list(shor_k_cone_step_plain(c, sc, st, acc_r, acc_l, acc_wl))
     core = st.core
     tot = link_sums_tiled((core.sX * core.sX)[:, None, None] * st.W, plan["link_rows"])
@@ -1152,6 +1375,18 @@ def shor_k_cone_step_tiled(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, ac
     ul = c.alpha * f_link + st.ul
     out[2], out[3] = torch.zeros_like(ul), ul
     out[11] = acc_l + c.beta * (core.rho[:, None] * ul - acc_l)
+    sw, sh = st.Wt[:, 0], st.Hh[:, 0]
+    for t in range(1, st.Wt.shape[1]):
+        sw = sw + st.Wt[:, t]
+    for r in range(1, st.Hh.shape[1]):
+        sh = sh + st.Hh[:, r]
+    B = st.W.shape[0]
+    cdm = sc.sb.coord_mask
+    Wat = torch.gather(st.W.reshape(B, -1), 1, sc.sb.coord_flat.long())
+    fwl = (core.sS[:, None] * (Wat - sw - 2.0 * sh)) * cdm
+    uwl = (c.alpha * fwl + st.uwl) * cdm
+    out[4], out[5] = torch.zeros_like(uwl), uwl
+    out[12] = acc_wl + c.beta * (core.rho[:, None] * uwl - acc_wl)
     return tuple(out)
 
 
@@ -1159,8 +1394,9 @@ def shor_k_cone_step(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl):
     """K8d wrapper: updates the RSOC, Theta-link, W-link, W >= 0 and
     Wt >= 0 slots of ``st`` and the EMAs ``acc_r``, ``acc_l``, ``acc_wl`` in
     place.  A CPU state runs ``shor_k_cone_step_plain``; a CUDA state
-    launches ``csrc/k8k_shor_k.cu`` (``k8d_plan``'s grid; its float64 build
-    for a float64 state) or raises.  The
+    launches ``csrc/k8k_shor_k.cu`` (``k8d_plan``'s grid: the register
+    kernel at k <= 4, the wide one, counted as "K8dw", past it; the float64
+    builds for a float64 state) or raises.  The
     parameter block is packed once per operands (``admm._packed``)."""
     core = st.core
     dev = core.w1.device
@@ -1172,8 +1408,10 @@ def shor_k_cone_step(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl):
         return
     if dev.type != "cuda":
         raise ValueError(f"shor_k_cone_step: unsupported device {dev}")
-    kernels.launch("K8d", kernels.entry("omc_k8d_shor_k_cone", core.X.dtype),
-                   _k8d_params(c, sc, st, acc_r, acc_l, acc_wl, dev), dev)
+    p = _k8d_params(c, sc, st, acc_r, acc_l, acc_wl, dev)
+    kernels.launch("K8dw" if p.wide else "K8d",
+                   kernels.entry("omc_k8d_shor_k_cone_wide" if p.wide else "omc_k8d_shor_k_cone",
+                                 core.X.dtype), p, dev)
 
 
 def _k8d_operands(sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl) -> list:
@@ -1209,27 +1447,34 @@ def _k8d_tensors(sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl) -> tupl
     return _K8D_ST(st) + _K8D_CORE(st.core) + _K8D_SB(sc.sb) + (acc_r, acc_l, acc_wl)
 
 
+def _k8d_block(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl, dev, plan: dict):
+    """A fresh K8d parameter block for ``plan`` (``k8d_plan``); ``wide`` says
+    which kernel it is for."""
+    B, n, m, k, kp, C, Ms = _shapes(st)
+    p = kernels.block(kernels.K8dParams, st.core.X.dtype)
+    for name, t, shape, dtype in _k8d_operands(sc, st, acc_r, acc_l, acc_wl):
+        setattr(p, name, kernels.check(name, t, shape, dev, dtype))
+    if any(getattr(p, name) % 16 for name in _K8D_WORDS):
+        raise ValueError("K8d reads W, the RSOC slots and tables and the W >= 0 slot as "
+                         "16-byte words: their storage must start 16-byte aligned")
+    p.B, p.n, p.m, p.k, p.C, p.Ms = B, n, m, k, C, Ms
+    p.ipc = plan["ipc"]
+    p.alpha, p.beta = float(c.alpha), float(c.beta)
+    p.wide = plan.get("path") == WIDE
+    return p
+
+
 def _k8d_params(c, sc: _ShorKConsts, st: ShorKState, acc_r, acc_l, acc_wl, dev):
-    """K8d's parameter block, packed once per operands (``admm._packed``)."""
-    scalars = (float(c.alpha), float(c.beta))
-    dt = st.core.X.dtype
+    """K8d's parameter block on ``k8d_plan``'s kernel, packed once per
+    operands (``admm._packed``)."""
 
     def build():
         B, n, m, k, kp, C, Ms = _shapes(st)
-        plan = k8d_plan(B, n, m, k, C, Ms, dt)
-        p = kernels.block(kernels.K8dParams, dt)
-        for name, t, shape, dtype in _k8d_operands(sc, st, acc_r, acc_l, acc_wl):
-            setattr(p, name, kernels.check(name, t, shape, dev, dtype))
-        if any(getattr(p, name) % 16 for name in _K8D_WORDS):
-            raise ValueError("K8d reads W, the RSOC slots and tables and the W >= 0 slot as "
-                             "16-byte words: their storage must start 16-byte aligned")
-        p.B, p.n, p.m, p.k, p.C, p.Ms = B, n, m, k, C, Ms
-        p.ipc = plan["ipc"]
-        p.alpha, p.beta = scalars
-        return p
+        return _k8d_block(c, sc, st, acc_r, acc_l, acc_wl, dev,
+                          k8d_plan(B, n, m, k, C, Ms, st.core.X.dtype))
 
     return _packed(("K8d", id(c), id(sc), id(st)), _k8d_tensors(sc, st, acc_r, acc_l, acc_wl),
-                   scalars, build)
+                   (float(c.alpha), float(c.beta)), build)
 
 
 def shor_k_iteration(c, sc: _ShorKConsts, st: ShorKState, ts, acc, psd_method: str):
@@ -1568,7 +1813,9 @@ def apply_best_duals(state: ShorKState, out: dict) -> ShorKState:
 
 __all__ = [
     "ShorKBatchHost", "ShorKBatch", "pack_shor_k_batch", "shor_k_batch_to_device",
-    "inverse_tables_k", "k8c_plan", "k8c_smem_bytes", "k7t_plan", "k7x_plan", "shor_k_batch_host_from_omc_leaves",
+    "inverse_tables_k", "k8c_plan", "k8c_smem_bytes", "k8c_wide_smem_bytes", "k7t_plan",
+    "k7x_plan", "k7x_block", "k7x_wide_values", "shor_k_batch_host_from_omc_leaves",
+    "shor_k_zstep_tiled", "WIDE",
     "ShorKState",
     "init_shor_k_state", "make_shor_k_consts", "make_shor_k_solver", "shor_k_iteration",
     "shor_k_zstep", "shor_k_zstep_plain", "minor_k_step", "minor_k_step_plain", "minor_records",

@@ -186,11 +186,18 @@ def test_unsupported_k_raises_before_any_launch():
                     tlinalg.k6_plan(4, 50, 50, k, path)
     with pytest.raises(ValueError):
         tlinalg.k6_plan(4, 50, 50, 2, "cta")
-    for k in (1, 5):
-        with pytest.raises(ValueError):
-            tshk.k8c_plan(32, 75, 75, k)
-    with pytest.raises(ValueError):
-        tshk.k8c_plan(2, 6000, 6000, 4)  # one column's kept values do not fit
+    with pytest.raises(ValueError, match="k >= 2"):
+        tshk.k8c_plan(32, 75, 75, 1)
+    # k = 5 takes K8c's wide kernel; a shape whose one column's kept values
+    # pass shared memory takes it too, with the kept values in its global
+    # workspace, refused only where the workspace passes the card's free
+    # memory
+    assert tshk.k8c_plan(32, 75, 75, 5)["path"] == "wide"
+    p = tshk.k8c_plan(2, 6000, 6000, 4)
+    assert p["path"] == "wide" and p["kept"] == "global"
+    assert p["ws_bytes"] == 4 * 2 * (4 + 6 + 3) * 6000 * 6000
+    with pytest.raises(ValueError, match=f"{p['ws_bytes']} bytes"):
+        tshk.k8c_plan(2, 6000, 6000, 4, free_bytes=p["ws_bytes"] - 1)
 
 
 # (B, n, m, k): the shork path (config 3: B = 32 and its root visit at B = 1,

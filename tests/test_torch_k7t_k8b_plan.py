@@ -381,8 +381,8 @@ def test_k8b_block_packed_once_and_for_the_same_operands():
 def test_k7t_block_packed_once_and_for_the_same_operands():
     """K7t's packed parameter block points at every operand (the index
     records, not the tables they were packed from), is reused for the same
-    tensors and packed anew for another; a wrong dtype, an unsupported rank
-    and records that are not 16-byte aligned are refused."""
+    tensors and packed anew for another; a wrong dtype and records that are
+    not 16-byte aligned are refused; k = 5 packs as k = 2 does."""
     c, sc, st = _shor_k(2, np.float32)
     acc5 = torch.ones_like(st.u5)
     cpu = torch.device("cpu")
@@ -404,9 +404,10 @@ def test_k7t_block_packed_once_and_for_the_same_operands():
     sc.rec = rec.copy_(sc.rec)
     with pytest.raises(ValueError, match="16-byte"):
         tshk._k7t_params(c, sc, st, acc5, cpu)
+    # K7t takes every rank: k = 5 packs its block as k = 2 does
     c5, sc5, st5 = _shor_k(5, np.float32)
-    with pytest.raises(ValueError, match="2 <= k <= 4"):
-        tshk._k7t_params(c5, sc5, st5, torch.ones_like(st5.u5), cpu)
+    p5 = tshk._k7t_params(c5, sc5, st5, torch.ones_like(st5.u5), cpu)
+    assert (p5.k, p5.M5) == (5, M5K) and p5.w == st5.w5.data_ptr()
 
 
 def test_cuda_state_takes_no_plain_version(monkeypatch):

@@ -129,9 +129,11 @@ def test_k8d_plan_refuses_tiny_shapes_and_ranks():
                   (1, 8, 8, 2, 256, 3)):
         with pytest.raises(ValueError):
             tshk.k8d_plan(*shape)
-    for k in (1, 5):
-        with pytest.raises(ValueError, match="2 <= k <= 4"):
-            tshk.k8d_plan(4, 50, 50, k, 256, 2500)
+    with pytest.raises(ValueError, match="k >= 2"):
+        tshk.k8d_plan(4, 50, 50, 1, 256, 2500)
+    # past k = 4 the wide kernel, on the register kernels' grid
+    p4, p5 = tshk.k8d_plan(4, 50, 50, 4, 256, 2500), tshk.k8d_plan(4, 50, 50, 5, 256, 2500)
+    assert "path" not in p4 and p5.pop("path") == "wide" and p5 == p4
     assert tshk.k8d_plan(1, 2, 2, 2, 4, 4)["grid"] == 4
 
 
@@ -353,9 +355,16 @@ def test_k7x_block_packed_once_and_for_the_same_operands():
     st.ux = _shifted(st.ux)
     with pytest.raises(ValueError, match="16-byte"):
         tshk._k7x_params(c, sc, st, accx, cpu)
+    assert not p.wide
+    # k = 5 packs the wide kernel's block, its launch from k7x_plan; a rank
+    # below 2 is refused
     _, (c5, sc5, st5) = _shor_k(5, np.float32)
-    with pytest.raises(ValueError, match="2 <= k <= 4"):
-        tshk._k7x_params(c5, sc5, st5, torch.ones_like(st5.ux), cpu)
+    p5 = tshk._k7x_params(c5, sc5, st5, torch.ones_like(st5.ux), cpu)
+    plan = tshk.k7x_plan(p5.N, 6)
+    assert p5.wide and plan["path"] == "wide" and (p5.warps, p5.ctas, p5.k) == (
+        plan["warps"], plan["ctas"], 5) and p5.work is None
+    with pytest.raises(ValueError, match="D = k \\+ 1 >= 3"):
+        tshk.k7x_plan(64, 2)
 
 
 def test_k8d_block_packed_once_and_for_the_same_operands():
@@ -392,10 +401,15 @@ def test_k8d_block_packed_once_and_for_the_same_operands():
     sc.sb.soc_flat = _shifted(sc.sb.soc_flat)
     with pytest.raises(ValueError, match="16-byte"):
         tshk._k8d_params(c, sc, st, *accs, cpu)
+    assert not p.wide
+    # k = 5 packs the wide kernel's block on the same plan; k = 1 is refused
     _, (c5, sc5, st5) = _shor_k(5, np.float32)
-    with pytest.raises(ValueError, match="2 <= k <= 4"):
-        tshk._k8d_params(c5, sc5, st5, *[torch.ones_like(x) for x in (st5.ur, st5.ul, st5.uwl)],
-                         cpu)
+    p5 = tshk._k8d_params(c5, sc5, st5, *[torch.ones_like(x) for x in (st5.ur, st5.ul, st5.uwl)],
+                          cpu)
+    B5, n5, m5, k5, _, C5, Ms5 = tshk._shapes(st5)
+    assert p5.wide and p5.k == 5 and p5.ipc == tshk.k8d_plan(B5, n5, m5, k5, C5, Ms5)["ipc"]
+    with pytest.raises(ValueError, match="k >= 2"):
+        tshk.k8d_plan(B5, n5, m5, 1, C5, Ms5)
 
 
 def test_k7x_projection_refuses_unaligned_storage():

@@ -5,8 +5,8 @@ and K9b's wide kernels (``omc_torch/csrc/k6_altmin.cu``,
 ``csrc/k9_mccormick.cu``) owning every output once, their shared memory
 against the kernels' formulas, the plans at the old ranks unchanged; a numpy
 mirror of the wide kernels' exact (i, j) split of the flat entries; and the
-CUDA shape gate, which refuses rank-k Shor at k >= 5 before any work on the
-card.  The wide kernels themselves run on the GPU only: ``chip_smoke.py``'s
+CUDA shape gate, which admits rank-k Shor at every rank and refuses
+McCormick past 2^31 flat entries before any work on the card.  The wide kernels themselves run on the GPU only: ``chip_smoke.py``'s
 ``widerank`` phase holds them against their plain versions there."""
 
 import dataclasses
@@ -393,15 +393,15 @@ def test_k9_split_matches_divmod_on_every_flat_entry(n, m):
 # ---- the CUDA shape gate ----
 
 
-def test_shape_gate_refuses_rank_k_shor_from_rank_5():
-    """kernels.require_cuda_shape refuses the shor_k family at k >= 5 with
-    the range and the roadmap item, admits k = 4, and admits every rank of
-    the other families (K6 and the McCormick kernels take any)."""
-    with pytest.raises(ValueError, match=r"k <= 4.*ROADMAP.md queue 2, item 3"):
-        kernels.require_cuda_shape("shor_k", 5, 75, 75)
-    with pytest.raises(ValueError, match="k <= 4"):
-        kernels.require_cuda_shape("shor_k", 12, 75, 75)
+def test_shape_gate_admits_rank_k_shor_at_every_rank():
+    """kernels.require_cuda_shape admits the shor_k family at k = 5 and 12
+    (K7x's, K8c's and K8d's wide kernels take any rank) as at k = 4, and
+    every rank of the other families (K6 and the McCormick kernels take
+    any); an unknown family and a rank below 1 raise."""
+    kernels.require_cuda_shape("shor_k", 5, 75, 75)
+    kernels.require_cuda_shape("shor_k", 12, 75, 75)
     kernels.require_cuda_shape("shor_k", 4, 75, 75)
+    assert not hasattr(kernels, "SHOR_K_CUDA_MAX_K")
     for family in ("base", "pdhg", "halpern", "shor", "mccormick"):
         kernels.require_cuda_shape(family, 64, 1000, 1000)
     with pytest.raises(ValueError, match="unknown solver family"):
@@ -418,15 +418,25 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(kernels, "set_full_fp32", lambda: None)
 
 
+class _ReachedCard(Exception):
+    """The port's first call on the card (CUDA's lazy initialisation, which
+    any allocation there makes first)."""
+
+
 @pytest.mark.parametrize("entry", ["branchandbound", "relaxation"])
-def test_entry_points_refuse_rank_5_shor_before_the_card(entry, fake_card):
-    """matrix_completion_branchandbound and the api's relaxation raise the
-    gate's ValueError for rank-k Shor at k = 5 on CUDA before any tensor
-    reaches the card (an allocation there would fail otherwise)."""
+def test_entry_points_take_rank_5_shor_to_the_card(entry, fake_card, monkeypatch):
+    """matrix_completion_branchandbound and the api's relaxation pass the
+    gate with rank-k Shor at k = 5 on CUDA and go on to the card: the first
+    thing they do there (here: CUDA's lazy initialisation, patched to raise)
+    is reached, not the gate's ValueError."""
     from omc_torch.solve import matrix_completion_branchandbound
 
+    def first_call():
+        raise _ReachedCard
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", first_call)
     A, idx = generate_matrix_completion_data(5, 10, 10, 100, 1)
-    with pytest.raises(ValueError, match="k <= 4"):
+    with pytest.raises(_ReachedCard):
         if entry == "branchandbound":
             matrix_completion_branchandbound(
                 5, A, idx, 20.0, device="cuda", add_Shor_valid_inequalities=True,
