@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``omc_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, about 8 minutes on an H100
+    python3 chip_smoke.py            # every phase, about 9 minutes on an H100
 
 Phases, in order (each prints its numbers on lines of its own):
 
@@ -63,14 +63,14 @@ Phases, in order (each prints its numbers on lines of its own):
 11. config2  — BASELINE config 2 (rank-1 100x100, iterative Shor, batch 32),
                8 s, with soundness checks
 12. config3  — BASELINE config 3 (rank-2 75x75, linear3 cuts,
-               smallest_2_eigvec, best-first/depth-first, batch 64), 12 s
+               smallest_2_eigvec, best-first/depth-first, batch 64), 8 s
 13. shork    — the rank-k Shor path (K7t/K7x/K8c/K8d) on config 3's
                instance: a root visit held to omc's bound, then the full
                call (iterative Shor, batch 32), 10 s
 14. mccormick — the McCormick path (K9s/K9a/K9b): the standalone relaxation
                entry point on the headline's root and a rank-2 root visit on
                config 3's instance, each held to omc's bound, then the full
-               McCormick B&B on the headline instance, 10 s
+               McCormick B&B on the headline instance, 6 s
 15. config4  — BASELINE config 4's frontier step (rank-5 250x250, a device
                batch of 128 nodes, 400 iterations, one safe-bound call: K4 at
                d=500, 255 and 250, K5 at d=250): a warm-up step, then one
@@ -137,8 +137,8 @@ Phases, in order (each prints its numbers on lines of its own):
                visit (the device bound no higher than the host
                certificate), the api's McCormick relaxation at k = 4 on
                config 3's instance in both dtypes against the CPU and its
-               4 s McCormick B&B, and the McCormick relaxation at n = m =
-               2100
+               4 s McCormick B&B (McCormick past n + m = 4096 through an
+               entry point: mcflat's driver)
 25. shorkwide — rank-k Shor past k = 4 (K7t at any k; the wide K7x, K8c
                and K8d): K8c, K7t, K7x and K8d at config 3's frontier
                (B=32, n=m=75, M5=1024) at k = 5, 8, 12 and config 4's
@@ -153,6 +153,19 @@ Phases, in order (each prints its numbers on lines of its own):
                certificate, at most altmin's objective) and a 4 s B&B at
                k = 5 with iterative Shor (every lower bound at most config
                3's rank-2 incumbent)
+26. mcflat   — McCormick past batch x (n + m)^2 >= 2^31: K9a and K9b at
+               128 slots of n + m = 4,096 (the unrolled kernels, exactly
+               2^31) and 64 of n + m = 5,796 (the wide ones) in both dtypes,
+               each against the same kernel on the batch's two halves, bit
+               for bit, and on the slot past entry 2^31 - 1 against its
+               plain version; K9a and K9b (both dtypes) and K2 and K3
+               (float32) at one node of n + m = 46,342 against their plain
+               versions on a gathered sub-problem; K1 at 1,024 slots of
+               1,449^2 against its halves; the bytes a McCormick solver
+               call takes a flat entry in each dtype; then the driver at
+               batch_size 64 on a 300 x 5,500 instance (n + m = 5,800),
+               one root visit on the card (lower bounds at most the
+               incumbent)
 
 Every phase that drives the solver asserts that the launch counts of the
 kernels its path runs grew (K4 the on-device safe bound, K4s the Shor
@@ -212,7 +225,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "admm", "fixtures", "headline",
           "multinode", "dist", "branch", "shor", "config2", "config3", "shork",
           "mccormick", "config4", "mesh", "pdhg", "halpern", "profile", "float64", "shor64",
-          "shork64", "mccormick64", "widerank", "shorkwide")
+          "shork64", "mccormick64", "widerank", "shorkwide", "mcflat")
 # run only when named in --phases
 EXTRA_PHASES = ("trace", "kernels64", "mcwide64", "widevsunrolled")
 
@@ -1137,8 +1150,9 @@ def _k8c_plan_row(B, n, m, k, dtype=None):
 def _check_k8c(c, sc, st):
     """K8c alone at rank k on the inputs (c, sc, st) of ``_shor_k_inputs``:
     within 1e-5 relative of its plain version, the same bits from two
-    launches, CUDA-event ms and the plain version's (one warm call).
-    Returns the row and (c, sc, the stepped state)."""
+    launches, CUDA-event ms, the plain version's (one warm call) and the
+    bound (``_k8c_work``).  Returns the row and (c, sc, the stepped
+    state)."""
     import torch
 
     from omc_torch.sdp import shor_k as SK
@@ -1151,10 +1165,34 @@ def _check_k8c(c, sc, st):
     torch.cuda.synchronize()
     rel, ab = _errs(zs(sk), SK.shor_k_zstep_plain(c, sc, st))
     s3 = st.clone()
-    return dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
-                deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k),
-                ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
-                plain_ms=_tm(lambda: SK.shor_k_zstep_plain(c, sc, st))), (c, sc, sk)
+    row = dict(B=B, n=n, m=m, k=k, M5=M5, rel_err=rel, max_abs_err=ab,
+               deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k),
+               ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
+               plain_ms=_tm(lambda: SK.shor_k_zstep_plain(c, sc, st)))
+    return with_bound(row, *_k8c_work(sc, st)), (c, sc, sk)
+
+
+def _k8c_work(sc, st):
+    """The bytes K8c moves (float32) and the operations it does on the
+    inputs (sc, st).  Per slot: X and Theta blocks of w1/u1, Xt_prev, W >=
+    0, Wt >= 0, the link rows, the entry/coordinate constants and tables;
+    per active minor and term the 14 entries of w5/u5 the adjoint reads, per
+    active coordinate k^2 + k entries of wx/ux, per active RSOC row 2 of
+    wr/ur; out Xt, X, Theta, W, Wt, H, v."""
+    B, n, m = st.core.X.shape
+    k, kp, C = st.Xt.shape[1], st.Hh.shape[1], st.Wt.shape[2]
+    nm = n * m
+    P = sum(t.shape[2] for t in (st.v1, st.v2, st.v3))
+    sb = sc.sb
+    A_ = float(sb.minor_mask.sum())   # active minors over the batch
+    Ca = float(sb.coord_mask.sum())   # active coordinates
+    Sa = float(sb.soc_mask.sum())     # active RSOC rows
+    rd = (2 * (nm + m * m) + k * nm + 2 * nm + 2 * k * C + 2 * m + 7 * nm + 5 * C + m + P
+          + 2 * m + (C + 1) + (P + 3) + 4)
+    wr = k * nm + nm + m * m + nm + (k + kp) * C + k * P
+    per_act = A_ * k * 2 * 14 + A_ * 9 + Ca * (2 * (k * k + k) + 3) + Sa * 5
+    return (4 * (B * (rd + wr) + per_act + 2 * nm),
+            B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca)
 
 
 def _check_shor_k_kernels(c, sc, st, gen, dev):
@@ -1166,13 +1204,7 @@ def _check_shor_k_kernels(c, sc, st, gen, dev):
     from omc_torch.sdp import shor_k as SK
 
     (B, n, m), M5 = st.core.X.shape, sc.M5
-    k, kp, C, Ms = st.Xt.shape[1], st.Hh.shape[1], st.Wt.shape[2], st.wr.shape[1]
-    nm = n * m
-    P = sum(t.shape[2] for t in (st.v1, st.v2, st.v3))
-    sb = sc.sb
-    A_ = float(sb.minor_mask.sum())   # active minors over the batch
-    Ca = float(sb.coord_mask.sum())   # active coordinates
-    Sa = float(sb.soc_mask.sum())     # active RSOC rows
+    k = st.Xt.shape[1]
 
     out = {}
     zs = lambda x: (x.Xt, x.core.X, x.core.Th, x.W, x.Wt, x.Hh, x.v1, x.v2, x.v3)  # noqa: E731
@@ -1188,17 +1220,7 @@ def _check_shor_k_kernels(c, sc, st, gen, dev):
                       deterministic=_same_bits(zs(sk), zs(s2)), **_k8c_plan_row(B, n, m, k),
                       ms=cuda_time_ms(lambda: SK.shor_k_zstep(c, sc, s3)),
                       plain_ms=_tm(lambda: SK.shor_k_zstep_plain(c, sc, st)))
-    # per slot: X and Theta blocks of w1/u1, Xt_prev, W >= 0, Wt >= 0, the
-    # link rows, the entry/coordinate constants and tables; per active minor
-    # and term the 14 entries of w5/u5 the adjoint reads, per active
-    # coordinate k^2 + k entries of wx/ux, per active RSOC row 2 of wr/ur;
-    # out Xt, X, Theta, W, Wt, H, v
-    rd = (2 * (nm + m * m) + k * nm + 2 * nm + 2 * k * C + 2 * m + 7 * nm + 5 * C + m + P
-          + 2 * m + (C + 1) + (P + 3) + 4)
-    wr = k * nm + nm + m * m + nm + (k + kp) * C + k * P
-    per_act = A_ * k * 2 * 14 + A_ * 9 + Ca * (2 * (k * k + k) + 3) + Sa * 5
-    with_bound(out["K8c"], 4 * (B * (rd + wr) + per_act + 2 * nm),
-               B * nm * (12 * k + 25) + 30 * k * A_ + 20 * Ca)
+    with_bound(out["K8c"], *_k8c_work(sc, st))
 
     out["K7t"] = _check_k7t(c, sc, sk, gen, dev)
     out["K7xfused"] = _check_k7x(c, sc, sk, gen, dev)
@@ -1926,6 +1948,42 @@ def _k2k3_device_ms(fns, reps=10, medians=("kernel", "parent")):
     return {name: timed(fn, 3 if name in medians else 1) for name, fn in fns.items()}
 
 
+def _k2_work(B, n, m, k, L, shor=False):
+    """The values K2 moves and the operations it does.  Per slot: the
+    residual blocks it reads (Y, X, Theta of w1/u1; Y, U of w2/u2; w3/u3;
+    the SOC, box and cut slots), the cuts, G1 (its triangle: the Cholesky
+    factor or the symmetric inverse is enough); out X, Y, Theta, U; mask
+    and mask*A once (the shor variant: no X or Theta blocks in or out, no
+    masks)."""
+    p = 1 + L + L * k
+    xt = 0 if shor else 1
+    rd = (2 * (n * n + xt * (n * m + m * m)) + 2 * (n * n + n * k) + 2 * n * n + 2 + 4 * k * n
+          + 4 * L * k + 2 * L + L * n + 2 * L * k + L + 3 + p * (p + 1) // 2)
+    wr = n * n + n * k + xt * (n * m + m * m)
+    return (B * (rd + wr) + xt * 2 * n * m,
+            B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m * xt + n * n)))
+
+
+def _k3_values(n, m, k, L):
+    """The values K3 reads and writes a slot: X, Y, Theta, U and the w/u of
+    every slot in; t1-t3 and the non-PSD slots and the three EMAs out (the
+    EMAs are read too)."""
+    d1, d2 = n + m, n + k
+    rd = (n * m + n * n + m * m + n * k + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
+          + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L + 2 * L * k + L + L * n
+          + 3 * L * k + L + 2 * n * k + 3)
+    wr = d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L \
+        + 2 * L * k + L
+    return rd, wr
+
+
+def _k3_work(B, n, m, k, L):
+    """The values K3 moves and the operations it does (``_k3_values``)."""
+    d1, d2 = n + m, n + k
+    rd, wr = _k3_values(n, m, k, L)
+    return B * (rd + wr), B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n))
+
+
 def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     """K2 and K3 against their plain versions on the same inputs, in float32
     (``rel_err``) and in float64 (``rel_err_vs_f64``, with the float32 plain
@@ -1983,18 +2041,8 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
               plain_vs_f64=_errs(ref, ref64)[0], max_abs_err=a2,
               deterministic=_same_bits(outs(s_k), outs(s_2)),
               ms=cuda_time_ms(k2fn["kernel"]), plain_ms=_tm(lambda: zstep_plain(c, st)))
-    p = 1 + L + L * k
-    # per slot: the residual blocks K2 reads (Y, X, Theta of w1/u1; Y, U of
-    # w2/u2; w3/u3; the SOC, box and cut slots), the cuts, G1 (its
-    # triangle: the Cholesky factor or the symmetric inverse is enough); out
-    # X, Y, Theta, U; mask and mask*A once (the shor variant: no X or Theta
-    # blocks in or out, no masks)
-    xt = 0 if shor else 1
-    rd = (2 * (n * n + xt * (n * m + m * m)) + 2 * (n * n + n * k) + 2 * n * n + 2 + 4 * k * n
-          + 4 * L * k + 2 * L + L * n + 2 * L * k + L + 3 + p * (p + 1) // 2)
-    wr = n * n + n * k + xt * (n * m + m * m)
-    with_bound(r2, e * (B * (rd + wr) + xt * 2 * n * m),
-               B * (8 * L * n * n + 4 * L * n * k + 2 * p * p + 10 * (n * m * xt + n * n)), peak)
+    vals, ops = _k2_work(B, n, m, k, L, shor)
+    with_bound(r2, e * vals, ops, peak)
     if band is not None:
         return r2, None
 
@@ -2027,15 +2075,9 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
               ms=cuda_time_ms(k3fn["kernel"]),
               plain_ms=_tm(lambda: cone_step_plain(c, s_k, acc)))
     d1, d2 = n + m, n + k
-    # per slot: X, Y, Theta, U and the w/u of every slot in; t1-t3 and the
-    # non-PSD slots and the three EMAs out (the EMAs are read too)
-    rd = (n * m + n * n + m * m + n * k + 2 * (d1 * d1 + d2 * d2 + n * n) + 2
-          + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L + 2 * L * k + L + L * n
-          + 3 * L * k + L + 2 * n * k + 3)
-    wr = d1 * d1 + d2 * d2 + n * n + 2 + 2 * k * (1 + n) + 2 * n * k + 4 * L * k + 2 * L \
-        + 2 * L * k + L
-    with_bound(r3, e * B * (rd + wr),
-               B * (2 * L * n * n + 2 * L * n * k + 5 * (d1 * d1 + d2 * d2 + n * n)), peak)
+    rd, wr = _k3_values(n, m, k, L)
+    vals, ops = _k3_work(B, n, m, k, L)
+    with_bound(r3, e * vals, ops, peak)
 
     # K3's Halpern mode (up to 512 cuts): the same step at iteration 3 of a
     # call, every pre-projection slot blended with the anchors w + u of the
@@ -3632,7 +3674,7 @@ BOUND_KEYS = ("K4", "K5", "K6")
 # to compare each kernel with its plain version, do not)
 COUNTED = ("admm", "fixtures", "headline", "multinode", "dist", "branch", "shor", "config2",
            "config3", "shork", "mccormick", "config4", "mesh", "pdhg", "halpern", "profile",
-           "float64", "shor64", "shork64", "mccormick64", "widerank", "shorkwide")
+           "float64", "shor64", "shork64", "mccormick64", "widerank", "shorkwide", "mcflat")
 _PHASE = {"name": None}
 
 
@@ -3948,10 +3990,10 @@ def phase_config2(res):
 CONFIG3_KW = dict(
     node_selection="bestfirst_depthfirst", bestfirst_depthfirst_cutoff=10000,
     disjunctive_cuts_type="linear3", disjunctive_cuts_breakpoints="smallest_2_eigvec",
-    gap=1e-2, time_limit=12, batch_size=64, sdp_iters=2000, dtype="float32",
+    gap=1e-2, time_limit=8, batch_size=64, sdp_iters=2000, dtype="float32",
     altmin_root_n_iters=3, verbosity=0,
     # cut of depth, not width: the 8x boosted root visit (16,000 iterations
-    # of K1's d=150 chain) does not fit the budget, and the budget is 12 s
+    # of K1's d=150 chain) does not fit the budget, and the budget is 8 s
     sdp_iter_boost_max=1,
 )
 # the rank-k Shor path on config 3's instance: config 2's Shor settings and
@@ -4051,7 +4093,7 @@ def phase_shork(res):
 # with one visit's budget not boosted 8x (a cut of depth, so that the root
 # splits inside the budget)
 MC_KW = dict(BENCH_KW, use_disjunctive_cuts=False, disjunctive_cuts_type=None,
-             disjunctive_cuts_breakpoints=None, time_limit=10, sdp_iter_boost_max=1)
+             disjunctive_cuts_breakpoints=None, time_limit=6, sdp_iter_boost_max=1)
 # config 3's instance and batch on the McCormick path, one root visit
 MC3_KW = dict(node_selection="bestfirst", use_disjunctive_cuts=False, gap=1e-2,
               time_limit=120, batch_size=64, sdp_iters=2000, dtype="float32",
@@ -4081,7 +4123,7 @@ def phase_mccormick(res):
     relaxation entry point on the headline's root node, held to omc's bound;
     (ii) a rank-2 root visit of the driver on config 3's instance, held to
     omc's bound; (iii) the full McCormick B&B on the headline instance,
-    10 s."""
+    6 s."""
     from omc_torch import kernels
     from omc_torch.api import matrix_completion_SDP_relaxation
 
@@ -5263,12 +5305,12 @@ MCW_SHAPES = ((16, 50, 4), (4, 50, 6), (1, 75, 10))
 MCW_WIDE_NM = ((1, 2100, 1),)
 # the paths: altmin at rank 20 on a 1000 x 1000 instance (config 5's
 # scale, 30% observed), a rank-12 root visit at 100 x 100, the McCormick
-# relaxation and B&B at k = 4 on config 3's instance, the McCormick
-# relaxation at n = m = 2100, k = 1
+# relaxation and B&B at k = 4 on config 3's instance; on request
+# (mcwide64), the float64 McCormick relaxation at n = m = 2100, k = 1
 WR_ALT = dict(k=20, n=1000, frac=0.3, seed=0, iters=1)
 WR_ROOT = dict(k=12, n=100, frac=0.3, seed=1, B=4, visit=500, iters=1000)
 WR_MC_ITERS, WR_MC_BB_S = 100, 4
-WR_MC_BIG = dict(n=2100, frac=0.3, seed=2, iters=20)
+WR_MC_BIG = dict(n=2100, frac=0.3, seed=2)
 WR_MC_KW = dict(MC_KW, time_limit=WR_MC_BB_S)
 # the wide kernels against the register and unrolled ones at the ranks
 # both take: K6 at k = 10 (B, n = m), K9s, K9a and K9b at k <= 3 (B, n = m, k)
@@ -5721,10 +5763,9 @@ def phase_widerank(res):
     root visit (matrix_completion_branchandbound, root_only, then the
     solver's device bound against the host float64 certificate); the api's
     McCormick relaxation at k = 4 on config 3's instance in both dtypes
-    against the CPU; its McCormick B&B at k = 4 for ``WR_MC_BB_S`` s with
-    sound bounds; and the api's McCormick relaxation at n = m = 2100, k = 1
-    (n + m = 4,200; ``_wr_mc_big``).  (Rank-k Shor past k = 4: the
-    shorkwide phase.)"""
+    against the CPU; and its McCormick B&B at k = 4 for ``WR_MC_BB_S`` s with
+    sound bounds.  (Rank-k Shor past k = 4: the shorkwide phase; McCormick
+    past n + m = 4096 through the driver: the mcflat phase.)"""
     import numpy as np
     import torch
 
@@ -5827,9 +5868,6 @@ def phase_widerank(res):
     assert br["objective"] <= br["objective_initial"] + 1e-12, br
     _assert_launched(launches, ("K9sw", "K9aw", "K9bw", "K6"))
     row["mccormick_k4_branch"] = br
-
-    # the McCormick relaxation at n = m = 2100, k = 1 (n + m = 4,200)
-    row["mccormick_n2100"] = _wr_mc_big("float32", WR_MC_BIG["iters"])
 
     pool.shutdown()
     res["widerank"] = row
@@ -6292,6 +6330,580 @@ def phase_shorkwide(res):
     row["branch_k5"] = br
     res["shorkwide"] = row
     assert not failed, failed  # the kernel rows, after the paths have run
+
+
+# ---- mcflat: McCormick past batch x (n + m)^2 >= 2^31 ----
+
+# (B, n, m, k) of the K9a/K9b rows held against the same kernel on the
+# batch's two halves (each below 2^31 flat entries): the unrolled kernels at
+# 128 slots of n + m = 4,096 (exactly 2^31) and the wide ones at the
+# driver's default batch of 64 at n + m = 5,796 (2,149,991,424)
+MCF_HALVES = ((128, 64, 4032, 1), (64, 64, 5732, 1))
+# one node past n + m = 46,340 (its own (n + m)^2 = 2,147,580,964 > 2^31,
+# n small): K9a and K9b (their wide kernels) in both dtypes, K2 and K3 in
+# float32, against their plain versions on a gathered sub-problem
+MCF_ONE = dict(n=8, m=46334, k=1, L=8)
+# the columns of the gathered sub-problem: MCF_SPREAD spread over Theta's
+# block and its last MCF_TAIL (which hold every entry past 2^31)
+MCF_SPREAD, MCF_TAIL = 240, 16
+# K1 alone at a McCormick batch past 2^31 (1,024 slots at n + m = 1,449:
+# 2,149,991,424 entries), against its two halves
+MCF_K1 = dict(B=1024, d=1449)
+# the bytes a McCormick solver call takes a flat entry: (B, n, m, iters)
+# at n + m = 1,449 where it fits, float32 and float64
+MCF_ITER = {"float32": (128, 64, 1385, 2), "float64": (8, 64, 1385, 2)}
+# the driver at its default batch_size past 2^31 (64 x 5,800^2): a rank-1
+# 300 x 5,500 instance from omc_torch.data, 30% observed, one root visit of
+# 20 iterations (at 2,900 x 2,900 the host's altmin, polish and set-up took
+# 79 s against 44)
+MCF_DRIVER = dict(n=300, m=5500, frac=0.3, seed=5)
+MCF_DRIVER_KW = dict(MC_KW, sdp_iters=20, root_only=True, max_refines=0, time_limit=60)
+
+
+def _mcf_mc(B, n, m, k, dt, dev, seed, share):
+    """A random McCormick state, node boxes, data and the constants K9a and
+    K9b read at (B, n, m, k) in ``dt``, drawn on the card (a seeded CUDA
+    generator) field by field; with ``share`` w1 and u1 are the last and the
+    first B slots of one buffer of B + 1 (u1's slot b is w1's slot b - 1:
+    K9a and K9b only read them), so the batch's (n + m)^2 blocks take one
+    copy, not two.  The constants are make_mc_consts' at one column, with
+    the full mask and mask A: they hold no (B, m, m) or (B, n + m, n + m)
+    tensor (only the plain version reads those).  Theta is left unset (K9a
+    writes it).  Returns (c, st, A, mask, generator)."""
+    import dataclasses
+
+    import torch
+
+    from omc_torch.sdp.mccormick import MCBatch, MCState, init_mc_state, make_mc_consts
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, D = k * (k + 1) // 2, n + m
+
+    def r(*s):
+        return torch.empty(s, dtype=dt, device=dev).normal_(0.0, 0.3, generator=g)
+
+    def uni(lo_, hi_, *s):
+        return torch.empty(s, dtype=dt, device=dev).uniform_(lo_, hi_, generator=g)
+
+    if share:
+        buf = r(B + 1, D, D)
+        w1, u1 = buf[1:], buf[:-1]
+    else:
+        w1, u1 = r(B, D, D), r(B, D, D)
+    st = MCState(w1=w1, w2=r(B, n + k, n + k), w3=r(B, n, n), w4=r(B), wsoc=r(B, k, 1 + n),
+                 wbox=r(B, n, k), wmc=r(B, 4, n, q), worth=r(B, q), u1=u1,
+                 u2=r(B, n + k, n + k), u3=r(B, n, n), u4=r(B), usoc=r(B, k, 1 + n),
+                 ubox=r(B, n, k), umc=r(B, 4, n, q), uorth=r(B, q), X=r(B, n, m),
+                 Y=r(B, n, n), Th=torch.empty((B, m, m), dtype=dt, device=dev), U=r(B, n, k),
+                 t=r(B, n, q), rho=uni(5.0, 15.0, B),
+                 sX=torch.full((B,), 2.5, dtype=dt, device=dev),
+                 sT=torch.full((B,), 1.7, dtype=dt, device=dev))
+    lo = uni(-1.0, 0.5, B, n, k)
+    hi = torch.minimum(lo + uni(0.05, 1.0, B, n, k), torch.ones_like(lo))
+    A = r(n, m) / 0.3
+    mask = (uni(0.0, 1.0, n, m) < 0.5).to(dt)
+    batch = MCBatch(lo, hi)
+    c1 = make_mc_consts(A[:, :1].contiguous(), mask[:, :1].contiguous(), batch,
+                        init_mc_state(B, n, 1, k, dt, device=dev), n, 1, k, 80.0, 1.6, dt)
+    c = dataclasses.replace(c1, mask=mask, maskA=(mask * A).contiguous(), m=m, cX=None,
+                            cTh=None, offs=None)
+    return c, st, A, mask, g
+
+
+def _mcf_slots(c, st, sl):
+    """The constants K9a and K9b read and the state of the batch's slots
+    ``sl``: views, no copy."""
+    import dataclasses
+
+    from omc_torch.sdp.mccormick import MCState
+
+    return (dataclasses.replace(c, batch=c.batch.map(lambda x: x[sl]), Mc=c.Mc[sl],
+                                Si=c.Si[sl], Gc=c.Gc[sl]),
+            MCState(*[x[sl] for x in st.leaves()]))
+
+
+def _mcf_k9_plan_ok(plan, B, n, m, k, e):
+    """K9a's and K9b's grids of ``plan`` against the kernels' exports."""
+    from omc_torch import kernels
+
+    lib = kernels.library()
+    k9a = lib.omc_k9a_wide_grid_x if plan.get("path") == "wide" else lib.omc_k9a_grid_x
+    return (plan["k9a_grid"] == k9a(B, n, m)
+            and plan["k9b_grid"] == lib.omc_k9b_grid_x(B, n, m, k, plan["qpc"], e))
+
+
+def _mcf_k9_halves(B, n, m, k, dt, dev, seed):
+    """K9a, then K9b at its outputs (with the running means), on a batch at
+    or past 2^31 flat entries: the whole batch's outputs against the same
+    kernel's on its two halves, bit for bit; the slots from the one holding
+    entry 2^31 - 1 on against their plain version on those slots alone
+    (constants of their own, at 1e-5 relative in float32 and the rows'
+    float64 bars: 1e-10 unrolled, 1e-12 wide); the grids against the
+    kernels' exports; CUDA-event and held-stream device ms and the bytes
+    bound of the whole batch, the plain version's ms on the tail slots."""
+    import dataclasses
+
+    import torch
+
+    from omc_torch.sdp import mccormick as MC
+    from omc_torch.sdp.mccormick import MCState, make_mc_consts
+
+    f64 = dt == torch.float64
+    e, D, h = dt.itemsize, n + m, B // 2
+    c, st, A, mask, g = _mcf_mc(B, n, m, k, dt, dev, seed, share=True)
+    plan = MC.k9_plan(B, n, m, k, dt)
+    wide = plan.get("path") == "wide"
+    bar = (1e-12 if wide else 1e-10) if f64 else 1e-5
+    peak = PEAK_FP64_FLOPS if f64 else PEAK_FP32_FLOPS
+    halves = (slice(0, h), slice(h, B))
+    tail = slice(min(B - 1, (2 ** 31 - 1) // (D * D)), B)
+    shape = dict(B=B, n=n, m=m, k=k, dtype=str(dt).split(".")[1], flat=B * D * D, wide=wide,
+                 tail_slots=[tail.start, B])
+    c_t, st_t = _mcf_slots(c, st, tail)
+    c_t = make_mc_consts(A, mask, c_t.batch, st_t, n, m, k, 80.0, 1.6, dt)
+
+    # K9a: the halves, then the whole batch
+    zs = lambda x: (x.X, x.Y, x.Th, x.U, x.t)  # noqa: E731
+    for sl in halves:
+        MC.mc_zstep(*_mcf_slots(c, st, sl))
+    torch.cuda.synchronize()
+    keep = [x.clone() for x in zs(st)]
+    MC.mc_zstep(c, st)
+    torch.cuda.synchronize()
+    ra = dict(**shape, same_bits_as_halves=_same_bits(zs(st), keep))
+    del keep
+    ref = MC.mc_zstep_plain(c_t, st_t)
+    ra["tail_rel_err"], ra["tail_max_abs_err"] = _errs(zs(st_t), ref)
+    del ref
+    ra["tail_plain_ms"] = _tm(lambda: MC.mc_zstep_plain(c_t, st_t), warm=True)
+    run = lambda: MC.mc_zstep(c, st)  # noqa: E731
+    ra["ms"] = cuda_time_ms(run, reps=3, warmup=1)
+    ra["device_ms"] = _held_device_ms(run, reps=3)
+    vals, ops = _k9a_work(B, n, m, k)
+    with_bound(ra, e * vals, ops, peak)
+    ra["plan_matches_kernel"] = _mcf_k9_plan_ok(plan, B, n, m, k, e)
+    ra["ok"] = (ra["same_bits_as_halves"] and ra["tail_rel_err"] <= bar
+                and ra["plan_matches_kernel"])
+    log("mcflat K9a", json.dumps(ra))
+
+    # K9b at K9a's outputs: the halves, then (its in-place slots and running
+    # means restored) the whole batch
+    acc = [torch.empty_like(x).normal_(0.0, 0.1, generator=g) for x in (st.umc, st.uorth)]
+    beta = 0.25
+    small = lambda: [getattr(st, f) for f in MC._REST] + acc  # noqa: E731
+    pre = [x.clone() for x in small()]
+    ts = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
+    for sl in halves:
+        c_, s_ = _mcf_slots(c, st, sl)
+        MC.mc_cone_step(c_, s_, tuple(t[sl] for t in ts), [a[sl] for a in acc], beta)
+    torch.cuda.synchronize()
+    keep = [x.clone() for x in small()]
+    for x, v in zip(small(), pre):
+        x.copy_(v)
+    ts2 = tuple(torch.empty_like(x) for x in ts)
+    MC.mc_cone_step(c, st, ts2, acc, beta)
+    torch.cuda.synchronize()
+    rb = dict(**shape, same_bits_as_halves=_same_bits(ts2, ts) and _same_bits(small(), keep))
+    got = [t[tail] for t in ts2] + [x[tail] for x in small()]
+    del ts, keep
+    nr = len(MC._REST)
+    st_pre = MCState(*[pre[MC._REST.index(f.name)][tail] if f.name in MC._REST
+                       else getattr(st_t, f.name) for f in dataclasses.fields(MCState)])
+    acc_pre = [x[tail] for x in pre[nr:]]
+    t1, t2, t3, rest, acc_p = MC.mc_cone_step_plain(c_t, st_pre, acc_pre, beta)
+    rb["tail_rel_err"], rb["tail_max_abs_err"], _ = _k9b_errs(
+        c_t, st_pre, got, (t1, t2, t3) + tuple(rest) + tuple(acc_p), beta)
+    del t1, t2, t3, rest, acc_p, got
+    rb["tail_plain_ms"] = _tm(lambda: MC.mc_cone_step_plain(c_t, st_pre, acc_pre, beta),
+                              warm=True)
+    run = lambda: MC.mc_cone_step(c, st, ts2, acc, beta)  # noqa: E731
+    rb["ms"] = cuda_time_ms(run, reps=3, warmup=1)
+    rb["device_ms"] = _held_device_ms(run, reps=3)
+    vals, ops = _k9b_work(B, n, m, k)
+    with_bound(rb, e * vals, ops, peak)
+    rb["plan_matches_kernel"] = ra["plan_matches_kernel"]
+    rb["ok"] = (rb["same_bits_as_halves"] and rb["tail_rel_err"] <= bar
+                and rb["plan_matches_kernel"])
+    log("mcflat K9b", json.dumps(rb))
+    return ra, rb
+
+
+def _mcf_once(fn):
+    """One call of ``fn`` (a check's own launch, at one node past n + m =
+    46,340, where a launch takes 15 ms to 3 s) timed by CUDA events around
+    it: the row's ``ms`` and, a lone launch on an idle stream, its
+    ``device_ms``."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def _mcf_cols(n, m, dev):
+    """The gathered sub-problem's columns of the m block (``MCF_SPREAD``
+    spread over it and its last ``MCF_TAIL``) and their rows and columns of
+    the (n + m)^2 blocks."""
+    import torch
+
+    S = torch.cat([torch.linspace(0, m - MCF_TAIL - 1, MCF_SPREAD).round().long(),
+                   torch.arange(m - MCF_TAIL, m)]).unique().to(dev)
+    return S, torch.cat([torch.arange(n, device=dev), n + S])
+
+
+def _mcf_gather(x, n, m, S, idx):
+    """x's entries at the gathered sub-problem: an (n + m)^2 block at rows
+    and columns ``idx``, an m^2 block at S, an (n, m) block at columns S;
+    any other tensor as a copy."""
+    D = n + m
+    if x.ndim >= 2 and tuple(x.shape[-2:]) == (D, D):
+        return x.index_select(-2, idx).index_select(-1, idx)
+    if x.ndim >= 2 and tuple(x.shape[-2:]) == (m, m):
+        return x.index_select(-2, S).index_select(-1, S)
+    if x.ndim >= 2 and tuple(x.shape[-2:]) == (n, m):
+        return x.index_select(-1, S)
+    return x.clone()
+
+
+def _mcf_gathered(obj, n, m, S, idx):
+    """A state (dataclass of tensors) or a tuple of tensors at the gathered
+    sub-problem."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(*[_mcf_gather(getattr(obj, f.name), n, m, S, idx)
+                           for f in dataclasses.fields(obj)])
+    return [_mcf_gather(x, n, m, S, idx) for x in obj]
+
+
+def _mcf_fits(nbytes):
+    """Whether ``nbytes`` more (and 2 GiB of slack) fit in the card's free
+    memory; the free bytes."""
+    import torch
+
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    return nbytes + 2 ** 31 <= free, free
+
+
+def _mcf_one_k9(dt, dev):
+    """K9a and K9b (their wide kernels) at one node past n + m = 46,340
+    (MCF_ONE) in ``dt`` against their plain versions on the gathered
+    sub-problem of the same node (``_mcf_cols``: every entry of its rows and
+    columns is the same function of the same inputs as in the whole node;
+    the sums over rows run over the node's n rows either way), K9b with the
+    running means; bars 1e-5 relative in float32, 1e-12 in float64 (the
+    wide rows').  Where the node's blocks do not fit on the card, says so
+    with the bytes instead."""
+    import torch
+
+    from omc_torch.sdp import mccormick as MC
+    from omc_torch.sdp.mccormick import MCState, make_mc_consts
+
+    n, m, k = MCF_ONE["n"], MCF_ONE["m"], MCF_ONE["k"]
+    D, e = n + m, dt.itemsize
+    f64 = dt == torch.float64
+    need = e * (3 * D * D + m * m)  # w1, u1, t1 and Theta
+    fits, free = _mcf_fits(need)
+    shape = dict(B=1, n=n, m=m, k=k, dtype=str(dt).split(".")[1], flat=D * D)
+    if not fits:
+        r = dict(**shape, skipped=f"needs {need} bytes of w1, u1, t1 and Theta, {free} free")
+        log("mcflat K9 one node", json.dumps(r))
+        return r, r
+    bar, peak = (1e-12, PEAK_FP64_FLOPS) if f64 else (1e-5, PEAK_FP32_FLOPS)
+    c, st, A, mask, g = _mcf_mc(1, n, m, k, dt, dev, 46342 + e, share=False)
+    S, idx = _mcf_cols(n, m, dev)
+    st_s = _mcf_gathered(st, n, m, S, idx)
+    c_s = make_mc_consts(A[:, S].contiguous(), mask[:, S].contiguous(), c.batch, st_s, n,
+                         len(S), k, 80.0, 1.6, dt)
+    zs = lambda x: (x.X, x.Y, x.Th, x.U, x.t)  # noqa: E731
+    ra = dict(**shape, sub_columns=len(S))
+    ra["ms"] = ra["device_ms"] = _mcf_once(lambda: MC.mc_zstep(c, st))
+    ra["rel_err"], ra["max_abs_err"] = _errs(_mcf_gathered(zs(st), n, m, S, idx),
+                                             MC.mc_zstep_plain(c_s, st_s))
+    ra["sub_plain_ms"] = _tm(lambda: MC.mc_zstep_plain(c_s, st_s))
+    vals, ops = _k9a_work(1, n, m, k)
+    with_bound(ra, e * vals, ops, peak)
+    ra["plan_matches_kernel"] = _mcf_k9_plan_ok(MC.k9_plan(1, n, m, k, dt), 1, n, m, k, e)
+    ra["ok"] = ra["rel_err"] <= bar and ra["plan_matches_kernel"]
+    log("mcflat K9a one node", json.dumps(ra))
+
+    acc = [torch.empty_like(x).normal_(0.0, 0.1, generator=g) for x in (st.umc, st.uorth)]
+    beta = 0.25
+    st_s = _mcf_gathered(st, n, m, S, idx)  # K9a's outputs, K9b's slots before it
+    acc_s = [a.clone() for a in acc]
+    ts = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
+    rb = dict(**shape, sub_columns=len(S))
+    rb["ms"] = rb["device_ms"] = _mcf_once(lambda: MC.mc_cone_step(c, st, ts, acc, beta))
+    got = _mcf_gathered(list(ts) + [getattr(st, f) for f in MC._REST] + acc, n, m, S, idx)
+    t1, t2, t3, rest, acc_p = MC.mc_cone_step_plain(c_s, st_s, acc_s, beta)
+    rb["rel_err"], rb["max_abs_err"], _ = _k9b_errs(c_s, st_s, got, (t1, t2, t3) + tuple(rest)
+                                                    + tuple(acc_p), beta)
+    rb["sub_plain_ms"] = _tm(lambda: MC.mc_cone_step_plain(c_s, st_s, acc_s, beta))
+    vals, ops = _k9b_work(1, n, m, k)
+    with_bound(rb, e * vals, ops, peak)
+    rb["plan_matches_kernel"] = ra["plan_matches_kernel"]
+    rb["ok"] = rb["rel_err"] <= bar and rb["plan_matches_kernel"]
+    log("mcflat K9b one node", json.dumps(rb))
+    return ra, rb
+
+
+def _mcf_one_k2k3(dev):
+    """K2, then K3 at its outputs, float32, at one node past n + m = 46,340
+    (MCF_ONE, L cuts of which half are real) against their plain versions
+    on the gathered sub-problem (``_mcf_one_k9``'s), the float32 plain
+    version's and the float64 one's: 1e-6 relative to the float64 one (the
+    kernels' bar at the large shapes); k2k3_plan's shared memory against the
+    kernels' exports."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from omc_torch import kernels
+    from omc_torch.sdp.admm import (_REST, cone_step, cone_step_plain, init_admm_state,
+                                    k2k3_plan, make_consts, zstep, zstep_plain)
+    from omc_torch.sdp.cuts import region_bounds
+    from omc_torch.sdp.relax import NodeBatch
+    from omc_torch.tree import root_box
+
+    n, m, k, L = MCF_ONE["n"], MCF_ONE["m"], MCF_ONE["k"], MCF_ONE["L"]
+    D, dt, e = n + m, torch.float32, 4
+    shape = dict(B=1, n=n, m=m, k=k, L=L, flat=D * D)
+    need = e * (3 * D * D + m * m)  # w1, u1, t1 and Theta
+    fits, free = _mcf_fits(need)
+    assert fits, ("K2/K3 at one node past n + m = 46,340", need, free)
+    g = torch.Generator(device=dev).manual_seed(46342)
+    rng = np.random.default_rng(46342)
+    cut_x, cut_lo = np.zeros((1, L, n)), np.zeros((1, L, k))
+    cut_hi, cut_mask = np.zeros((1, L, k)), np.zeros((1, L))
+    for l in range(L // 2):
+        x = rng.standard_normal(n)
+        cut_x[0, l] = x / np.linalg.norm(x)
+        cut_lo[0, l], cut_hi[0, l] = region_bounds("linear", rng.integers(0, 2, k),
+                                                   rng.uniform(-0.5, 0.5, k))
+        cut_mask[0, l] = 1.0
+    lo, hi = root_box(n, k)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=dt, device=dev)  # noqa: E731
+    batch = NodeBatch(f(cut_x), f(cut_lo), f(cut_hi), f(cut_mask), f(lo[None]), f(hi[None]))
+    st = init_admm_state(1, n, m, k, L, dt, device=dev, sX=2.5, sT=1.7, rho=0.02)
+    for name in ("w1", "w2", "w3", "w4", "wsoc", "wbox", "wa", "wb", "wc", "u1", "u2", "u3",
+                 "u4", "usoc", "ubox", "ua", "ub", "uc", "X", "Y", "Th", "U"):
+        t = getattr(st, name)
+        t.normal_(0.0, 0.3, generator=g)
+        if name in ("wa", "wb", "ua", "ub"):
+            t.mul_(batch.cut_mask[..., None])
+        if name in ("wc", "uc"):
+            t.mul_(batch.cut_mask)
+    A = torch.empty((n, m), dtype=dt, device=dev).normal_(generator=g)
+    mask = (torch.empty((n, m), dtype=dt, device=dev).uniform_(generator=g) < 0.5).to(dt)
+    # the constants K2 and K3 read: make_consts' at one column, with the full
+    # mask and mask A (no (1, m, m) or (1, n + m, n + m) tensor)
+    c1 = make_consts(A[:, :1].contiguous(), mask[:, :1].contiguous(), batch,
+                     init_admm_state(1, n, 1, k, L, dt, device=dev), n, 1, k, 80.0, 1.9, 1e-3, dt)
+    c = dataclasses.replace(c1, mask=mask, maskA=(mask * A).contiguous(), m=m, cX=None,
+                            cTh=None, offs=None)
+    S, idx = _mcf_cols(n, m, dev)
+    st_s = _mcf_gathered(st, n, m, S, idx)
+    c_s = make_consts(A[:, S].contiguous(), mask[:, S].contiguous(), batch, st_s, n, len(S), k,
+                      80.0, 1.9, 1e-3, dt)
+    lib = kernels.library()
+    plan = k2k3_plan(1, n, m, k, L, dtype=dt)
+    outs = lambda x: (x.X, x.Y, x.Th, x.U)  # noqa: E731
+    ms = _mcf_once(lambda: zstep(c, st))
+    got = _mcf_gathered(outs(st), n, m, S, idx)
+    r2 = dict(**shape, plan=plan, sub_columns=len(S),
+              plan_matches_kernel=plan["k2_smem"] == lib.omc_k2_smem_bytes(
+                  n, m, k, L, plan["k2_cluster"], int(plan["band"] == "smem"),
+                  int(plan["k2_xs"] == "smem"), int(plan["k2_sums"] == "global"), e))
+    r2["rel_err"], r2["max_abs_err"] = _errs(got, zstep_plain(c_s, st_s))
+    r2["rel_err_vs_f64"] = _errs(got, zstep_plain(_to64(c_s), _to64(st_s)))[0]
+    r2["ms"] = r2["device_ms"] = ms
+    r2["sub_plain_ms"] = _tm(lambda: zstep_plain(c_s, st_s))
+    vals, ops = _k2_work(1, n, m, k, L)
+    with_bound(r2, e * vals, ops)
+    r2["ok"] = r2["rel_err_vs_f64"] <= 1e-6 and r2["plan_matches_kernel"]
+    log("mcflat K2 one node", json.dumps(r2))
+
+    acc = [torch.empty_like(x).normal_(0.0, 0.1, generator=g) for x in (st.ua, st.ub, st.uc)]
+    st_s = _mcf_gathered(st, n, m, S, idx)  # K2's outputs, K3's slots before it
+    acc_s = [a.clone() for a in acc]
+    ts = tuple(torch.empty_like(x) for x in (st.w1, st.w2, st.w3))
+    ms = _mcf_once(lambda: cone_step(c, st, ts, acc))
+    got = _mcf_gathered(list(ts) + [getattr(st, nm) for nm in _REST] + acc, n, m, S, idx)
+    t1, t2, t3, rest, acc_p = cone_step_plain(c_s, st_s, acc_s)
+    T1, T2, T3, rest64, acc64 = cone_step_plain(_to64(c_s), _to64(st_s), _to64(acc_s))
+    r3 = dict(**shape, plan=plan, sub_columns=len(S),
+              plan_matches_kernel=plan["k3_smem"] == lib.omc_k3_smem_bytes(
+                  n, m, k, L, plan["k3_cluster"], int(plan["k3_xs"] == "smem"),
+                  int(plan["k3_slots"] == "smem"), int(plan["k3_sums"] == "global"), e))
+    r3["rel_err"], r3["max_abs_err"] = _errs(got, [t1, t2, t3, *rest, *acc_p])
+    r3["rel_err_vs_f64"] = _errs(got, [T1, T2, T3, *rest64, *acc64])[0]
+    r3["ms"] = r3["device_ms"] = ms
+    r3["sub_plain_ms"] = _tm(lambda: cone_step_plain(c_s, st_s, acc_s))
+    vals, ops = _k3_work(1, n, m, k, L)
+    with_bound(r3, e * vals, ops)
+    r3["ok"] = r3["rel_err_vs_f64"] <= 1e-6 and r3["plan_matches_kernel"]
+    log("mcflat K3 one node", json.dumps(r3))
+    return r2, r3
+
+
+def _mcf_k1(dev):
+    """K1 alone (one block, with McCormick's epilogue: u and the running
+    mean of rho u) at a McCormick batch past 2^31 (MCF_K1) against the same
+    call on the batch's two halves: the same bits where both take the same
+    k1_plan path (else 1e-5 relative); its time and the bytes it held."""
+    import torch
+
+    from omc_torch.ops.polar import k1_plan, project_psd_ns_multi
+
+    B, d = MCF_K1["B"], MCF_K1["d"]
+    h = B // 2
+    g = torch.Generator(device=dev).manual_seed(1449)
+    T = torch.empty((B, d, d), device=dev).normal_(generator=g)
+    rho = torch.empty(B, device=dev).uniform_(5.0, 15.0, generator=g)
+    W, U, ACC = (torch.empty_like(T) for _ in range(3))
+    ACC.copy_(T).mul_(0.1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    project_psd_ns_multi([T], w_out=[W], u_out=[U], acc=[ACC], rho=rho, beta=0.5)
+    b.record()
+    torch.cuda.synchronize()
+    plans = [k1_plan([d], B)["path"], k1_plan([d], h)["path"]]
+    r = dict(B=B, d=d, flat=B * d * d, plans=plans, ms=a.elapsed_time(b),
+             workspace_bytes=torch.cuda.max_memory_allocated() - base,
+             held_bytes=torch.cuda.max_memory_allocated())
+    same, err = True, 0.0
+    for sl in (slice(0, h), slice(h, B)):
+        outs = [torch.empty((h, d, d), device=dev) for _ in range(3)]
+        outs[2].copy_(T[sl]).mul_(0.1)
+        project_psd_ns_multi([T[sl]], w_out=[outs[0]], u_out=[outs[1]], acc=[outs[2]],
+                             rho=rho[sl], beta=0.5)
+        torch.cuda.synchronize()
+        whole = (W[sl], U[sl], ACC[sl])
+        same = same and _same_bits(whole, outs)
+        err = max(err, _errs(whole, outs)[0])
+        del outs
+    r.update(same_bits_as_halves=same, rel_err_vs_halves=err)
+    r["ok"] = same if plans[0] == plans[1] else err <= 1e-5
+    log("mcflat K1", json.dumps(r))
+    return r
+
+
+def _mcf_iteration_bytes(dev):
+    """The bytes a McCormick solver call takes a flat entry of its batch's
+    (n + m)^2 blocks, at MCF_ITER's (B, n, m, iters) in each dtype: the
+    peak allocated during the call, its state included (the caller's copy),
+    over B (n + m)^2; and the largest batch (n + m)^2 that the card's
+    memory would then hold."""
+    import numpy as np
+    import torch
+
+    from omc_torch.sdp.mccormick import MCBatch, init_mc_state, make_mccormick_solver
+
+    out = {}
+    for dts, (B, n, m, iters) in MCF_ITER.items():
+        dt = getattr(torch, dts)
+        rng = np.random.default_rng(B)
+        A = rng.standard_normal((n, m))
+        mask = (rng.random((n, m)) < 0.3).astype(np.float64)
+        lo = rng.uniform(-1.0, 0.5, (B, n, 1))
+        hi = np.minimum(lo + rng.uniform(0.05, 1.0, (B, n, 1)), 1.0)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        batch = MCBatch(*(torch.tensor(x, dtype=dt, device=dev) for x in (lo, hi)))
+        st = init_mc_state(B, n, m, 1, dt, device=dev, sX=2.5, sT=1.7, rho=10.0)
+        solve = make_mccormick_solver(n, m, 1, 80.0, iters=iters, dtype=dt)
+        t0 = time.time()
+        _, o = solve(A, mask, batch, 0.0, st)
+        torch.cuda.synchronize()
+        flat = B * (n + m) ** 2
+        used = torch.cuda.max_memory_allocated() - base
+        total = torch.cuda.get_device_properties(0).total_memory
+        out[dts] = r = dict(B=B, n=n, m=m, iters=iters, flat=flat, seconds=time.time() - t0,
+                            peak_bytes=used, bytes_per_flat_entry=used / flat,
+                            card_bytes=total, largest_flat=int(total / (used / flat)))
+        assert bool(torch.isfinite(o["Y"]).all()), r
+        del batch, st, o
+        log(f"mcflat McCormick call bytes {dts}", json.dumps(r))
+    return out
+
+
+def _mcf_driver():
+    """matrix_completion_branchandbound on the McCormick path at its default
+    batch_size of 64 past 2^31 (64 x 5,800^2; MCF_DRIVER): the gate passes,
+    the root visit runs on the card (K9s, K9a, K9b, K1 and altmin's K6
+    launched), its lower bounds finite and no higher than the incumbent."""
+    import numpy as np
+
+    from omc_torch import kernels
+    from omc_torch.data import generate_matrix_completion_data
+
+    n, m = MCF_DRIVER["n"], MCF_DRIVER["m"]
+    A, idx = generate_matrix_completion_data(1, n, m, int(MCF_DRIVER["frac"] * n * m),
+                                             MCF_DRIVER["seed"], n_max=n, m_max=m)
+    assert MCF_DRIVER_KW["batch_size"] * (n + m) ** 2 >= 2 ** 31
+    before = dict(kernels.LAUNCHES)
+    sol, inst, secs = _solve(A, idx, 80.0, k=1, **MCF_DRIVER_KW)
+    launches = _launched_since(before)
+    lowers = [x["lower"] for x in inst["run_log"] if x["lower"] > -1e300]
+    r = _summary(sol, inst, secs)
+    r.update(lowers=lowers, launches={x: v for x, v in launches.items() if v},
+             batch_size=MCF_DRIVER_KW["batch_size"], flat=MCF_DRIVER_KW["batch_size"] * (n + m) ** 2)
+    log("mcflat driver", json.dumps(r))
+    assert lowers and all(np.isfinite(lowers)), r
+    assert all(x <= r["objective"] * (1 + 1e-9) + 1e-9 for x in lowers), r
+    _assert_launched(launches, ("K9s", "K9aw", "K9bw", "K1", "K6"))
+    return r
+
+
+def phase_mcflat(res):
+    """McCormick past batch x (n + m)^2 >= 2^31: K9a and K9b on both paths
+    and in both dtypes at MCF_HALVES against their halves and their plain
+    version on the tail slots (``_mcf_k9_halves``); K9a and K9b in both
+    dtypes and K2 and K3 in float32 at one node past n + m = 46,340
+    (``_mcf_one_k9``, ``_mcf_one_k2k3``); K1 at a McCormick batch past 2^31
+    against its halves (no float32 McCormick solver call past 2^31 fits on
+    80 GB: ``_mcf_iteration_bytes`` measures the bytes a call takes a flat
+    entry); then the driver at batch_size 64 past 2^31, whose launches
+    count (``_mcf_driver``)."""
+    import torch
+
+    from omc_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    row, rows = {}, []
+    for i, (B, n, m, k) in enumerate(MCF_HALVES):
+        for dt in (torch.float32, torch.float64):
+            rows += _mcf_k9_halves(B, n, m, k, dt, dev, 31 + 2 * i + (dt == torch.float64))
+            torch.cuda.empty_cache()
+    for dt in (torch.float32, torch.float64):
+        for r in _mcf_one_k9(dt, dev):
+            if "skipped" in r:
+                row.setdefault("skipped", []).append(r)
+            else:
+                rows.append(r)
+        torch.cuda.empty_cache()
+    rows += _mcf_one_k2k3(dev)
+    torch.cuda.empty_cache()
+    rows.append(_mcf_k1(dev))
+    torch.cuda.empty_cache()
+    row["rows"] = rows
+    row["iteration_bytes"] = _mcf_iteration_bytes(dev)
+    torch.cuda.empty_cache()
+    kernels.reset_launches()  # the driver's launches count from here
+    row["driver"] = _mcf_driver()
+    res["mcflat"] = row
+    failed = [r for r in rows if not r["ok"]]
+    assert not failed, failed
 
 
 def phase_profile(res):

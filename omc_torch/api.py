@@ -15,13 +15,17 @@ builds of its kernels (K2-K6, K7, K8a, K8b, K7t, K7x, K8c, K8d, K9s, K9a,
 K9b; exact Jacobi projections, as ``omc``'s eigh route).
 
 What runs on the GPU, in float32 and float64: every family at every rank
-``omc`` takes.  Altmin and the base family at every width (K6's wide path
-past k = 10), Shor k = 1, rank-k Shor at every k >= 2 (K7t at any k, K7x's,
-K8c's and K8d's wide kernels past k = 4), and McCormick at every rank (K9s,
-K9a and K9b's wide kernels at k >= 4 or n + m > 4096) at n + m < 46,341
-(one node: (n + m)^2 < 2^31).  McCormick at n + m >= 46,341 is the one
-range that raises ``ValueError`` before any allocation on the card
-(``kernels.require_cuda_shape``); ``device="cpu"`` runs it.
+and width ``omc`` takes, within the card's memory (CUDA's out-of-memory
+error where a node does not fit) and, for the base and Shor families, K3's
+shared memory (``k2k3_plan`` refuses n k past 52,509 in float32, 25,230 in
+float64; ROADMAP.md queue 3, item 7).  Altmin and the base family
+(K6's wide path past k = 10), Shor k = 1, rank-k Shor at every k >= 2 (K7t
+at any k, K7x's, K8c's and K8d's wide kernels past k = 4), and McCormick
+at every rank (K9s, K9a and K9b's wide kernels at k >= 4 or n + m > 4096),
+past n + m = 46,340 too, where a node's (n + m)^2 entries pass 2^31 and
+the kernels index them in 64 bits.  ``kernels.require_cuda_shape`` refuses
+only an unknown family or a shape below 1, before any allocation on the
+card.
 """
 
 from __future__ import annotations

@@ -62,6 +62,8 @@
 
 #include "common.cuh"
 
+#include <climits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -181,13 +183,11 @@ __device__ __forceinline__ void tile_pairs(int N, int cw, int CW, T* t, F f, O o
   }
 }
 
-// three CTAs an SM (80 registers, no spill): at 250 x 250 nodes the bands
-// need the occupancy more than the registers.  kWs: the partials in the
-// global workspace (two CTAs an SM: its t rows need the registers).  The
-// float64 build: one CTA an SM.
-template <class T, bool kBand, bool kWs>
-__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 : 3))
-    k2_kernel(K2ParamsT<T> p) {
+// K2's body.  I: the type of a slot's own offsets (the products i D1,
+// (n + a) D1, i D2, i n): int where (n + m)^2 fits in int, size_t past n +
+// m = 46,340 (k2_kernel64)
+template <class T, bool kBand, bool kWs, class I>
+__device__ __forceinline__ void k2_body(const K2ParamsT<T>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
   T* const fsm = reinterpret_cast<T*>(smem_raw);
@@ -260,7 +260,8 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 :
   // the band's residual part of gU = 2 (w2 - u2) + (wsoc - usoc) + (wbox - ubox)
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const int ii = e / k, j = e - ii * k, i = i0 + ii;
-    const int q2 = i * D2 + n + j, qs = j * (1 + n) + 1 + i;
+    const I q2 = (I)i * D2 + n + j;
+    const int qs = j * (1 + n) + 1 + i;
     const size_t ws = (size_t)b * k * (1 + n) + qs, wb = (size_t)b * n * k + i * k + j;
     Ub[e] = T(2) * (w2[q2] - u2[q2]) + (__ldg(p.wsoc + ws) - __ldg(p.usoc + ws)) +
             (__ldg(p.wbox + wb) - __ldg(p.ubox + wb));
@@ -269,7 +270,7 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 :
   // by row, then (second round trip) r(j, i) from the inputs' column band,
   // read as runs of nb, added (r + r', the same bits at (j, i) in its band)
   const auto resid = [&](int i, int j) {
-    const int q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
+    const I q1 = (I)i * D1 + j, q2 = (I)i * D2 + j, q3 = (I)i * n + j;
     return (w1[q1] - u1[q1]) + (w2[q2] - u2[q2]) - (w3[q3] - u3[q3]);
   };
   omc::grid_items<kU>(
@@ -363,7 +364,8 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 :
     omc::grid_items<kU>(
         n, m, rank * blockDim.x + tid, C * blockDim.x,
         [&](int i, int j) {
-          const int q = i * D1 + n + j, e = i * m + j;
+          const I q = (I)i * D1 + n + j;
+          const int e = i * m + j;
           const T gX = sX * T(2) * (w1[q] - u1[q]);
           const T rX = rho * gX + sX * maskA[e];
           const T dX = mask[e] * (sX * sX) + rho * T(2) * sX * sX;
@@ -380,7 +382,7 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 :
     tile_pairs(
         m, cw, CW, ta,
         [&](int a, int j) {
-          const int q = (n + a) * D1 + n + j;
+          const I q = (I)(n + a) * D1 + n + j;
           return (rho * (sT * (w1[q] - u1[q])) - (a == j ? cth : T(0))) / den;
         },
         [&](int a, int j, T s) { Ths[(size_t)a * m + j] = T(0.5) * s; });
@@ -475,6 +477,24 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 :
   omc::cluster_wait();  // no CTA leaves while another may read its partials
 }
 
+// three CTAs an SM (80 registers, no spill): at 250 x 250 nodes the bands
+// need the occupancy more than the registers.  kWs: the partials in the
+// global workspace (two CTAs an SM: its t rows need the registers).  The
+// float64 build: one CTA an SM.
+template <class T, bool kBand, bool kWs>
+__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 : 3))
+    k2_kernel(K2ParamsT<T> p) {
+  k2_body<T, kBand, kWs, int>(p);
+}
+
+// past n + m = 46,340: a slot's offsets in 64 bits, two CTAs an SM in float
+// (the float build's 64-bit offsets spill within 80 registers)
+template <class T, bool kBand, bool kWs>
+__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
+    k2_kernel64(K2ParamsT<T> p) {
+  k2_body<T, kBand, kWs, size_t>(p);
+}
+
 // a failed runtime call also sets the thread's last error: clear it, so a
 // later launch's cudaGetLastError() does not report it again
 int fail(cudaError_t err) {
@@ -484,8 +504,13 @@ int fail(cudaError_t err) {
 
 template <class T, bool kBand, bool kWs>
 int launch(const K2ParamsT<T>& p, cudaStream_t stream) {
-  static int smem_attr = -1;
-  static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
+  // per kernel (int offsets, then 64-bit ones): its max dynamic shared
+  // memory, and the largest smem a cluster of C was shown to fit
+  static int smem_attr[2] = {-1, -1};
+  static int schedulable[2][17] = {};
+  const long long D = p.n + (p.m > p.k ? p.m : p.k);
+  const int w = D * D > INT_MAX;
+  void (*const kern)(K2ParamsT<T>) = w ? k2_kernel64<T, kBand, kWs> : k2_kernel<T, kBand, kWs>;
   const int smem = (int)k2_smem(p.n, p.m, p.k, p.L, p.C, kBand, p.xsmem, kWs, sizeof(T)).bytes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.C * p.B, 1, 1);
@@ -500,24 +525,24 @@ int launch(const K2ParamsT<T>& p, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err;
-  if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
-    err = cudaFuncSetAttribute(k2_kernel<T, kBand, kWs>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (smem_attr[w] < 0) {  // clusters of 16 are beyond the portable size of 8
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return fail(err);
-    smem_attr = 0;
+    smem_attr[w] = 0;
   }
-  if (smem > smem_attr) {
-    err = cudaFuncSetAttribute(k2_kernel<T, kBand, kWs>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > smem_attr[w]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return fail(err);
-    smem_attr = smem;
+    smem_attr[w] = smem;
   }
-  if (smem > schedulable[p.C]) {
+  if (smem > schedulable[w][p.C]) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k2_kernel<T, kBand, kWs>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
     if (err != cudaSuccess) return fail(err);
     if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    schedulable[p.C] = smem;
+    schedulable[w][p.C] = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, k2_kernel<T, kBand, kWs>, p);
+  err = cudaLaunchKernelEx(&cfg, kern, p);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
 }

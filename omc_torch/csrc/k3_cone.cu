@@ -58,6 +58,8 @@
 
 #include "common.cuh"
 
+#include <climits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -116,11 +118,11 @@ __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int
   return s;
 }
 
-// kWs: the partials in the global workspace; kHal: the Halpern mode; T:
-// T, or double (the float64 build, one CTA an SM)
-template <class T, bool kWs, bool kHal>
-__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
-    k3_kernel(K3ParamsT<T> p) {
+// K3's body.  Ix: the type of a slot's own offsets (the products i D1,
+// (n + a) D1, i D2, i n, a m): int where (n + m)^2 fits in int, size_t past
+// n + m = 46,340 (k3_kernel64)
+template <class T, bool kWs, bool kHal, class Ix>
+__device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
   T* const fsm = reinterpret_cast<T*>(smem_raw);
@@ -220,7 +222,8 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
         if (e < nbn) {
           int ii, j;
           omc::divmod(e, n, inv_n, ii, j);
-          const int i = i0 + ii, q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
+          const int i = i0 + ii;
+          const Ix q1 = (Ix)i * D1 + j, q2 = (Ix)i * D2 + j, q3 = (Ix)i * n + j;
           iv[u] = i, jv[u] = j;
           y[u] = Y[q3];
           if (l0 == 0) {
@@ -234,7 +237,7 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
         if (e0 + u * blockDim.x >= nbn) break;
         const int i = iv[u], j = jv[u];
         if (l0 == 0) {
-          const int q1 = i * D1 + j, q2 = i * D2 + j, q3 = i * n + j;
+          const Ix q1 = (Ix)i * D1 + j, q2 = (Ix)i * D2 + j, q3 = (Ix)i * n + j;
           t1[q1] = hal((alpha * y[u] + om * a1[u]) + b1[u], h1, q1);
           t2[q2] = hal((alpha * y[u] + om * a2[u]) + b2[u], h2, q2);
           t3[q3] = hal((alpha * ((i == j ? T(1) : T(0)) - y[u]) + om * a3[u]) + b3[u], h3, q3);
@@ -265,7 +268,8 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
   if (lane == 0) wpart[warp * (1 + kChunk)] = tr;
   // t2's U columns of the band's rows
   for (int e = tid; e < nb * k; e += blockDim.x) {
-    const int ii = e / k, c = e - ii * k, q = (i0 + ii) * D2 + n + c;
+    const int ii = e / k, c = e - ii * k;
+    const Ix q = (Ix)(i0 + ii) * D2 + n + c;
     t2[q] = hal((alpha * us[(i0 + ii) * k + c] + om * w2[q]) + u2[q], h2, q);
   }
 
@@ -313,12 +317,12 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
       for (int h = 0; h < R; ++h) {
         const int rr = r0 + 2 * h, i = I * kT + rr, a = J * kT + cc;
         if (i < n && a < m) {
-          const int q = i * D1 + n + a;
+          const Ix q = (Ix)i * D1 + n + a;
           x[h] = Xs[i * m + a], wu[h] = w1[q], uu[h] = u1[q];
         }
         const int a2 = J * kT + rr, j2 = I * kT + cc;
         if (a2 < m && j2 < n) {
-          const int q = (n + a2) * D1 + j2;
+          const Ix q = (Ix)(n + a2) * D1 + j2;
           wl[h] = w1[q], ul[h] = u1[q];
         }
       }
@@ -327,16 +331,18 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
         const int rr = r0 + 2 * h, i = I * kT + rr, a = J * kT + cc;
         if (i < n && a < m) {
           tt[rr * (kT + 1) + cc] = x[h];
-          t1[i * D1 + n + a] = hal((alpha * (sX * x[h]) + om * wu[h]) + uu[h], h1, i * D1 + n + a);
+          const Ix q = (Ix)i * D1 + n + a;
+          t1[q] = hal((alpha * (sX * x[h]) + om * wu[h]) + uu[h], h1, q);
         }
       }
       __syncwarp();
 #pragma unroll
       for (int h = 0; h < R; ++h) {
         const int rr = r0 + 2 * h, a = J * kT + rr, j = I * kT + cc;
-        if (a < m && j < n)
-          t1[(n + a) * D1 + j] =
-              hal((alpha * (sX * tt[cc * (kT + 1) + rr]) + om * wl[h]) + ul[h], h1, (n + a) * D1 + j);
+        if (a < m && j < n) {
+          const Ix q = (Ix)(n + a) * D1 + j;
+          t1[q] = hal((alpha * (sX * tt[cc * (kT + 1) + rr]) + om * wl[h]) + ul[h], h1, q);
+        }
       }
       __syncwarp();
     }
@@ -345,22 +351,23 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
   omc::grid_items<kU>(
       nbT, m, tid, blockDim.x,
       [&](int aa, int j) {
-        const int a = a0 + aa, q = (n + a) * D1 + n + j;
-        return make_triple(Ths[a * m + j], w1[q], u1[q]);
+        const int a = a0 + aa;
+        const Ix q = (Ix)(n + a) * D1 + n + j;
+        return make_triple(Ths[(Ix)a * m + j], w1[q], u1[q]);
       },
       [&](int aa, int j, Triple<T> v) {
-        const int q = (n + a0 + aa) * D1 + n + j;
+        const Ix q = (Ix)(n + a0 + aa) * D1 + n + j;
         t1[q] = hal((alpha * (sT * v.x) + om * v.y) + v.z, h1, q);
       });
   // t2's rows n + c: [U', I], row c by CTA c mod C
   for (int c = rank + C * warp; c < k; c += C * kWarps) {
     const int r = n + c;
     for (int j = lane; j < n; j += 32) {
-      const int q = r * D2 + j;
+      const Ix q = (Ix)r * D2 + j;
       t2[q] = hal((alpha * us[j * k + c] + om * w2[q]) + u2[q], h2, q);
     }
     for (int j = lane; j < k; j += 32) {
-      const int q = r * D2 + n + j;
+      const Ix q = (Ix)r * D2 + n + j;
       t2[q] = hal((alpha * (c == j ? T(1) : T(0)) + om * w2[q]) + u2[q], h2, q);
     }
   }
@@ -465,6 +472,21 @@ __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
   omc::cluster_wait();  // no CTA leaves while another may read its partials
 }
 
+// kWs: the partials in the global workspace; kHal: the Halpern mode; T:
+// T, or double (the float64 build, one CTA an SM)
+template <class T, bool kWs, bool kHal>
+__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
+    k3_kernel(K3ParamsT<T> p) {
+  k3_body<T, kWs, kHal, int>(p);
+}
+
+// past n + m = 46,340: a slot's offsets in 64 bits
+template <class T, bool kWs, bool kHal>
+__global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
+    k3_kernel64(K3ParamsT<T> p) {
+  k3_body<T, kWs, kHal, size_t>(p);
+}
+
 int fail(cudaError_t err) {
   cudaGetLastError();
   return (int)err;
@@ -472,8 +494,13 @@ int fail(cudaError_t err) {
 
 template <class T, bool kWs, bool kHal>
 int launch(const K3ParamsT<T>& p, cudaStream_t stream) {
-  static int smem_attr = -1;
-  static int schedulable[17] = {};  // largest smem a cluster of C was shown to fit
+  // per kernel (int offsets, then 64-bit ones): its max dynamic shared
+  // memory, and the largest smem a cluster of C was shown to fit
+  static int smem_attr[2] = {-1, -1};
+  static int schedulable[2][17] = {};
+  const long long D = p.n + (p.m > p.k ? p.m : p.k);
+  const int w = D * D > INT_MAX;
+  void (*const kern)(K3ParamsT<T>) = w ? k3_kernel64<T, kWs, kHal> : k3_kernel<T, kWs, kHal>;
   const int smem = (int)k3_smem(p.n, p.m, p.k, p.L, p.C, p.xsmem, p.slsmem, kWs, sizeof(T)).bytes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.C * p.B, 1, 1);
@@ -488,24 +515,24 @@ int launch(const K3ParamsT<T>& p, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err;
-  if (smem_attr < 0) {  // clusters of 16 are beyond the portable size of 8
-    err = cudaFuncSetAttribute(k3_kernel<T, kWs, kHal>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (smem_attr[w] < 0) {  // clusters of 16 are beyond the portable size of 8
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return fail(err);
-    smem_attr = 0;
+    smem_attr[w] = 0;
   }
-  if (smem > smem_attr) {
-    err = cudaFuncSetAttribute(k3_kernel<T, kWs, kHal>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > smem_attr[w]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return fail(err);
-    smem_attr = smem;
+    smem_attr[w] = smem;
   }
-  if (smem > schedulable[p.C]) {
+  if (smem > schedulable[w][p.C]) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)k3_kernel<T, kWs, kHal>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
     if (err != cudaSuccess) return fail(err);
     if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    schedulable[p.C] = smem;
+    schedulable[w][p.C] = smem;
   }
-  err = cudaLaunchKernelEx(&cfg, k3_kernel<T, kWs, kHal>, p);
+  err = cudaLaunchKernelEx(&cfg, kern, p);
   if (err != cudaSuccess) return fail(err);
   return (int)cudaGetLastError();
 }

@@ -163,7 +163,7 @@ __device__ __forceinline__ void k8a_coords(const K8aParamsT<T>& p, int b, int k,
     gx += sS * (p.wr[3 * q + 2] - p.ur[3 * q + 2]) * sm;
     gw = gw - sW * yl;
     gw = gw + sS * (p.wp[q] - p.up[q]);
-    const int q1 = i * D1 + n + j;
+    const size_t q1 = (size_t)i * D1 + n + j;
     const T rX = sX * T(2) * (w1[q1] - u1[q1]);
     const T RX = rho * (rX + gx) + sX * p.maskA[f];
     const T dX1 = T(2) * sX * sX + sS2 * p.cnt_X[q];
@@ -196,12 +196,12 @@ __device__ __forceinline__ void k8a_coords(const K8aParamsT<T>& p, int b, int k,
     for (int rr = 0; rr < kClusterMax; ++rr)
       if (rr < C) s += v[rr];
     const T yl = p.wl[b * m + j] - p.ul[b * m + j];
-    const int qd = (n + j) * D1 + n + j;
+    const size_t qd = (size_t)(n + j) * D1 + n + j;
     const T RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - quot(sT * T(0.5), p.gamma);
     const T zTh = quot(RT, rho * sT * sT);
     const T t_l = quot(rho * (sT * zTh - sW * s), p.g_link[b * m + j]);
     tl_s[jl] = t_l;
-    if (r == 0) Ths[j * m + j] = zTh - quot(t_l, rho * sT);
+    if (r == 0) Ths[(size_t)j * m + j] = zTh - quot(t_l, rho * sT);
   }
   __syncthreads();
   omc::cluster_arrive();  // this CTA reads no peer's partials any more
@@ -232,12 +232,12 @@ __device__ __forceinline__ void k8a_theta(const K8aParamsT<T>& p, int b, int pr,
   for (int ii = ty; ii < kTile; ii += ny) {
     const int ra = I * kTile + ii, ca = J * kTile + lane;
     if (ra < m && ca < m) {
-      const int q = (n + ra) * D1 + n + ca;
+      const size_t q = (size_t)(n + ra) * D1 + n + ca;
       ta[ii][lane] = quot(rho * (sT * (w1[q] - u1[q])), rho * sT * sT);
     }
     const int rb = J * kTile + ii, cb = I * kTile + lane;
     if (I != J && rb < m && cb < m) {
-      const int q = (n + rb) * D1 + n + cb;
+      const size_t q = (size_t)(n + rb) * D1 + n + cb;
       tb[ii][lane] = quot(rho * (sT * (w1[q] - u1[q])), rho * sT * sT);
     }
   }
@@ -246,9 +246,10 @@ __device__ __forceinline__ void k8a_theta(const K8aParamsT<T>& p, int b, int pr,
   for (int ii = ty; ii < kTile; ii += ny) {
     const int i = I * kTile + ii, j = J * kTile + lane;
     if (i < m && j < m && i != j)
-      Ths[i * m + j] = T(0.5) * (ta[ii][lane] + (I != J ? tb[lane][ii] : ta[lane][ii]));
+      Ths[(size_t)i * m + j] = T(0.5) * (ta[ii][lane] + (I != J ? tb[lane][ii] : ta[lane][ii]));
     const int i2 = J * kTile + ii, j2 = I * kTile + lane;
-    if (I != J && i2 < m && j2 < m) Ths[i2 * m + j2] = T(0.5) * (tb[ii][lane] + ta[lane][ii]);
+    if (I != J && i2 < m && j2 < m)
+      Ths[(size_t)i2 * m + j2] = T(0.5) * (tb[ii][lane] + ta[lane][ii]);
   }
 }
 

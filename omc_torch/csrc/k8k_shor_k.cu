@@ -190,7 +190,7 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
     for (int e = tid; e < cols * m; e += omc::kThreads) {
       const int cl = e / m, i = e - cl * m;
       if (j0 + cl < m) {
-        const int qb = (n + j0 + cl) * D1 + n + i;
+        const size_t qb = (size_t)(n + j0 + cl) * D1 + n + i;
         thb[cl * (m + 1) + i] = quot(rho * (sT * (w1[qb] - u1[qb])), rho * sT * sT);
       }
     }
@@ -271,7 +271,7 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
 
         // X block: (D1x I_k + c1x J_k)^-1 by Sherman-Morrison, proximal term
         // tau_x Xt_prev (read before it is overwritten), clip
-        const int q1 = i * D1 + n + j;
+        const size_t q1 = (size_t)i * D1 + n + j;
         const T rX = sX * T(2) * (w1[q1] - u1[q1]);
         const T cX = -sX * p.maskA[f];
         T rx[KR], rs = 0;
@@ -349,7 +349,7 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
         // X block: (D1x I_k + c1x J_k)^-1 by Sherman-Morrison, proximal term
         // tau_x Xt_prev, clip.  Pass 1: each term's Wt (kept) and its X
         // right-hand side, summed over the terms in order
-        const int q1 = i * D1 + n + j;
+        const size_t q1 = (size_t)i * D1 + n + j;
         const T rX = sX * T(2) * (w1[q1] - u1[q1]);
         const T cX = -sX * p.maskA[f];
         T rs = 0;
@@ -418,12 +418,12 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
     T sw = 0, bq = 0;
     for (int r = 0; r < RG; ++r) sw += part[r * cols + col];
     for (int r = 0; r < RG; ++r) bq += part[(RG + r) * cols + col];
-    const int qd = (n + j) * D1 + n + j;
+    const size_t qd = (size_t)(n + j) * D1 + n + j;
     const T RT = rho * (sT * (w1[qd] - u1[qd]) + sT * yl) - quot(sT * T(0.5), p.gamma);
     const T zTh = quot(RT, rho * sT * sT);
     const T pj = sT * zTh - sW * sw;
     const T a = quot(pj - bq, p.S_th[b * m + j]);
-    Ths[j * m + j] = zTh - quot(a, sT);
+    Ths[(size_t)j * m + j] = zTh - quot(a, sT);
     a_s[col] = a;
   }
   __syncthreads();
@@ -450,16 +450,16 @@ __global__ void __launch_bounds__(omc::kThreads, 1) k8c_kernel(K8cParamsT<T> p) 
     }
     for (int i = rg; i < m; i += RG) {
       if (i == j) continue;
-      const int qa = (n + i) * D1 + n + j;
+      const size_t qa = (size_t)(n + i) * D1 + n + j;
       const T za = quot(rho * (sT * (w1[qa] - u1[qa])), rho * sT * sT);
       T zt;
       if constexpr (kWide) {
-        const int qt = (n + j) * D1 + n + i;
+        const size_t qt = (size_t)(n + j) * D1 + n + i;
         zt = quot(rho * (sT * (w1[qt] - u1[qt])), rho * sT * sT);
       } else {
         zt = thb[col * (m + 1) + i];
       }
-      Ths[i * m + j] = T(0.5) * (za + zt);
+      Ths[(size_t)i * m + j] = T(0.5) * (za + zt);
     }
   }
 #undef KEPT

@@ -78,6 +78,14 @@
 // omc_k9b_cone_wide and their _f64 builds) take every rank and width: see
 // their section below.
 //
+// Indices.  Every slot's blocks start at a 64-bit offset.  K9b's flat
+// CTAs index the batch's B D^2 entries in int, with an int divide, where they
+// fit in int (k9b_kernel, k9b_wide_kernel), and in 64 bits past it
+// (k9b_kernel64, k9b_wide_kernel64: k9b_flat64, slot_of): a batch of 128
+// slots at n + m = 4096 already holds 2^31.  Inside a slot the unrolled kernels' entries
+// fit in int (n + m <= 4096); the wide kernels index X's, Theta's, Y's and
+// w1's rows in 64 bits, since (n + m)^2 passes 2^31 past n + m = 46,340.
+//
 // The float64 builds (omc_k9s_setup_f64, omc_k9a_zstep_f64,
 // omc_k9b_cone_f64) are the same kernels on doubles, with these changes.
 // Every divide is omc::quot's (the hardware reciprocal refined, not the IEEE
@@ -96,6 +104,8 @@
 // wmc, umc and acc as it updates them, where the float build loads all 4q
 // of each first.  The float builds are unchanged.
 #include "common.cuh"
+
+#include <climits>
 
 namespace {
 
@@ -422,7 +432,7 @@ struct K9aLayout {
 __host__ __device__ __forceinline__ K9aLayout k9a_layout(int B, int n, int m) {
   K9aLayout l;
   const int tn = omc::cdiv(n, kTile), tm = omc::cdiv(m, kTile);
-  l.x = omc::cdiv(n * m, kXChunk);
+  l.x = (int)(((long long)n * m + kXChunk - 1) / kXChunk);
   l.th = tm * (tm + 1) / 2;
   l.y = tn * (tn + 1) / 2;
   l.units = l.x + l.th + l.y;
@@ -436,15 +446,26 @@ struct K9bLayout {
   int t1, t2, t3, grid_x;
 };
 
+// I: the type of the flat entries' indices, int (the old kernels) or long
+// long past 2^31 (k9b_kernel64, k9b_wide_kernel64)
+template <class I = int>
 __host__ __device__ __forceinline__ K9bLayout k9b_layout(int B, int n, int m, int k, int qpc,
                                                          int E) {
   K9bLayout l;
   const int d1 = n + m, d2 = n + k;
-  l.t1 = omc::cdiv(omc::cdiv(B * d1 * d1, E), qpc);
-  l.t2 = omc::cdiv(omc::cdiv(B * d2 * d2, E), qpc);
-  l.t3 = omc::cdiv(omc::cdiv(B * n * n, E), qpc);
+  l.t1 = (int)((((I)B * d1 * d1 + E - 1) / E + qpc - 1) / qpc);
+  l.t2 = (int)((((I)B * d2 * d2 + E - 1) / E + qpc - 1) / qpc);
+  l.t3 = (int)((((I)B * n * n + E - 1) / E + qpc - 1) / qpc);
   l.grid_x = B + l.t1 + l.t2 + l.t3;
   return l;
+}
+
+// whether K9b indexes the batch's flat entries past int: where any kind's
+// B D^2 entries, or a word a CTA of qpc <= kThreads9 words could take, pass
+// INT_MAX
+__host__ __device__ __forceinline__ bool k9b_flat64(int B, int n, int m, int k, int E) {
+  const long long D = n + (m > k ? m : k);
+  return B * D * D > INT_MAX - E * kThreads9;
 }
 
 // tile pair p of a T x T grid of tiles -> (I, J), I <= J, row by row
@@ -630,38 +651,44 @@ __device__ __forceinline__ void k9a_slot(const K9aParamsT<T>& p, int b, T* smem)
   }
 }
 
-// (i, j) = divmod(e, W) for every 0 <= e < 2^31, the wide kernels' split
-// of the flat entries at any width: omc::divmod's float estimate, corrected
-// until j lies in [0, W) (one step at most while e / W < 2^21: the
-// estimate's error is a few float ulps of e / W)
-__device__ __forceinline__ void k9_split(int e, int W, float inv, int& i, int& j) {
+// (i, j) = divmod(e, W) for every e >= 0 of type I (int, or long long
+// where a slot's entries pass 2^31), the wide kernels' split of the flat
+// entries at any width: omc::divmod's float estimate, corrected until j
+// lies in [0, W) (one step at most while e / W < 2^21: the estimate's
+// error is a few float ulps of e / W)
+template <class I>
+__device__ __forceinline__ void k9_split(I e, int W, float inv, int& i, int& j) {
   i = __float2int_rz(((float)e + 0.5f) * inv);
-  j = e - i * W;
-  while (j < 0) --i, j += W;
-  while (j >= W) ++i, j -= W;
+  I r = e - (I)i * W;
+  while (r < 0) --i, r += W;
+  while (r >= W) ++i, r -= W;
+  j = (int)r;
 }
 
 // X chunk `chunk` of slot b: zX = (rho gX + sX mask A) / (mask sX^2 + 2 rho
 // sX^2), kXItems entries a thread, every load before the first store; the
-// wide kernel (kExact) splits the entries with k9_split
+// wide kernel (kExact) splits the entries with k9_split and indexes them,
+// and w1's, in 64 bits (n (n + m) passes 2^31 past n + m = 46,340)
 template <class T, bool kExact = false>
 __device__ __forceinline__ void k9a_x(const K9aParamsT<T>& p, int b, int chunk) {
-  const int n = p.n, m = p.m, D1 = n + m, nm = n * m;
+  using I = typename std::conditional<kExact, long long, int>::type;
+  const int n = p.n, m = p.m, D1 = n + m;
+  const I nm = (I)n * m;
   const omc::ROT<T> w1{p.w1 + (size_t)b * D1 * D1}, u1{p.u1 + (size_t)b * D1 * D1};
   const omc::ROT<T> maskA{p.maskA}, mask{p.mask};
   T* __restrict__ Xs = p.Xs + (size_t)b * nm;
   const T rho = __ldg(p.rho + b), sX = __ldg(p.sX + b);
   const float inv = 1.0f / (float)m;
-  const int e0 = chunk * kXChunk + threadIdx.x;
+  const I e0 = (I)chunk * kXChunk + threadIdx.x;
   T d[kXItems], ma[kXItems], mk[kXItems];
 #pragma unroll
   for (int u = 0; u < kXItems; ++u) {
-    const int e = e0 + u * kThreads9;
+    const I e = e0 + u * kThreads9;
     if (e < nm) {
       int i, j;
       if constexpr (kExact) k9_split(e, m, inv, i, j);
       else omc::divmod(e, m, inv, i, j);
-      const int q = i * D1 + n + j;
+      const I q = (I)i * D1 + n + j;
       d[u] = w1[q] - u1[q];
       ma[u] = maskA[e];
       mk[u] = mask[e];
@@ -669,7 +696,7 @@ __device__ __forceinline__ void k9a_x(const K9aParamsT<T>& p, int b, int chunk) 
   }
 #pragma unroll
   for (int u = 0; u < kXItems; ++u) {
-    const int e = e0 + u * kThreads9;
+    const I e = e0 + u * kThreads9;
     if (e < nm) {
       const T gX = sX * T(2) * d[u];
       const T rX = rho * gX + sX * ma[u];
@@ -730,8 +757,10 @@ __device__ __forceinline__ void store_pair(int N, int I, int J, S sym, T* __rest
 }
 
 // Theta tile pair `pair` of slot b: Theta = sym((rho sT d - dg) / (rho sT^2)),
-// d = w1 - u1 of the Theta block, dg = sT / (2 gamma) on the diagonal
-template <class T>
+// d = w1 - u1 of the Theta block, dg = sT / (2 gamma) on the diagonal.  Ix:
+// the in-slot index type (the wide kernel's long long: m (n + m) passes
+// 2^31 past n + m = 46,340)
+template <class T, class Ix = int>
 __device__ __forceinline__ void k9a_theta(const K9aParamsT<T>& p, int b, int pair,
                                           T (*sA)[kTile + 1], T (*sB)[kTile + 1]) {
   using omc::quot;
@@ -740,21 +769,24 @@ __device__ __forceinline__ void k9a_theta(const K9aParamsT<T>& p, int b, int pai
   tile_pair(pair, omc::cdiv(m, kTile), I, J);
   const omc::ROT<T> w1{p.w1 + (size_t)b * D1 * D1 + (size_t)n * D1 + n};
   const omc::ROT<T> u1{p.u1 + (size_t)b * D1 * D1 + (size_t)n * D1 + n};
-  stage_pair(m, I, J, [&](int i, int j) { return w1[i * D1 + j] - u1[i * D1 + j]; }, sA, sB);
+  stage_pair(m, I, J, [&](int i, int j) {
+    const Ix q = (Ix)i * D1 + j;
+    return w1[q] - u1[q];
+  }, sA, sB);
   const T rho = __ldg(p.rho + b), sT = __ldg(p.sT + b);
   const T cth = quot(sT * T(0.5), p.gamma), den = rho * sT * sT;
   store_pair(m, I, J, [&](int i, int j, T x, T y, T* __restrict__ out) {
     const T dg = (i == j) ? cth : T(0);
     const T za = quot(rho * (sT * x) - dg, den);
     const T zb = quot(rho * (sT * y) - dg, den);
-    out[i * m + j] = T(0.5) * (za + zb);
+    out[(Ix)i * m + j] = T(0.5) * (za + zb);
   }, p.Ths + (size_t)b * m * m, sA, sB);
 }
 
 // Y tile pair `pair` of slot b, off the diagonal (the slot CTA writes the
 // diagonal): Y = sym((rho gY / 3) / rho), gY = (w1 - u1) + (w2 - u2) -
-// (w3 - u3) of the Y blocks (w2's order n + K)
-template <class T>
+// (w3 - u3) of the Y blocks (w2's order n + K); Ix as k9a_theta's
+template <class T, class Ix = int>
 __device__ __forceinline__ void k9a_y(const K9aParamsT<T>& p, int b, int pair, T (*sA)[kTile + 1],
                                       T (*sB)[kTile + 1], int K) {
   using omc::quot;
@@ -765,15 +797,15 @@ __device__ __forceinline__ void k9a_y(const K9aParamsT<T>& p, int b, int pair, T
   const omc::ROT<T> w2{p.w2 + (size_t)b * D2 * D2}, u2{p.u2 + (size_t)b * D2 * D2};
   const omc::ROT<T> w3{p.w3 + (size_t)b * n * n}, u3{p.u3 + (size_t)b * n * n};
   stage_pair(n, I, J, [&](int i, int j) {
-    return (w1[i * D1 + j] - u1[i * D1 + j]) + (w2[i * D2 + j] - u2[i * D2 + j]) -
-           (w3[i * n + j] - u3[i * n + j] - T(0));
+    const Ix q1 = (Ix)i * D1 + j, q2 = (Ix)i * D2 + j, q3 = (Ix)i * n + j;
+    return (w1[q1] - u1[q1]) + (w2[q2] - u2[q2]) - (w3[q3] - u3[q3] - T(0));
   }, sA, sB);
   const T rho = __ldg(p.rho + b);
   store_pair(n, I, J, [&](int i, int j, T x, T y, T* __restrict__ out) {
     if (i == j) return;
     const T a = quot(quot(rho * x, T(3)) - T(0), rho);
     const T c = quot(quot(rho * y, T(3)) - T(0), rho);
-    out[i * n + j] = T(0.5) * (a + c);
+    out[(Ix)i * n + j] = T(0.5) * (a + c);
   }, p.Y + (size_t)b * n * n, sA, sB);
 }
 
@@ -978,25 +1010,38 @@ __device__ __forceinline__ void k9b_slot(const K9bParamsT<T>& p, int b, T* smem)
   }
 }
 
-// t1 (kind 0), t2 (1) or t3 (2) on the words [quad0, quad0 + qpc) of the
+// the slot e / DD of flat entry e: an int divide, or in 64 bits a float
+// estimate corrected until it brackets e (no 64-bit divide; the estimate is
+// off by a few float ulps of the slot, one slot at most below 2^21 slots)
+__device__ __forceinline__ int slot_of(int e, int DD) { return e / DD; }
+__device__ __forceinline__ int slot_of(long long e, long long DD) {
+  int b = __float2int_rz(__fdividef((float)e, (float)DD));
+  while ((long long)b * DD > e) --b;
+  while ((long long)(b + 1) * DD <= e) ++b;
+  return b;
+}
+
+// t1 (kind 0), t2 (1) or t3 (2) on the words [word0, word0 + qpc) of the
 // batch's flat B D^2: t = alpha f + (1 - alpha) w + u, a 16-byte word of E
 // consecutive entries a thread (4 floats, 2 doubles), w, u and t as 16-byte
 // words; a word may straddle a row, a block or a slot, so each entry
 // resolves its own (b, i, j) and block of f (the wide kernel, kExact, with
-// k9_split); every load before the store
-template <class T, bool kExact = false>
-__device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, int quad0, int K) {
+// k9_split); every load before the store.  I indexes the flat entries and a
+// slot's: int, or long long where they pass it (k9b_flat64)
+template <class T, bool kExact, class I>
+__device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, I word0, int K) {
   using V = omc::Vec16<T>;
   constexpr int E = 16 / sizeof(T);
   using omc::lane4;
   const int n = p.n, m = p.m;
-  const int D = kind == 0 ? n + m : kind == 1 ? n + K : n, DD = D * D, tot = p.B * DD;
-  const int q0 = E * (quad0 + (int)threadIdx.x);
+  const int D = kind == 0 ? n + m : kind == 1 ? n + K : n;
+  const I DD = (I)D * D, tot = (I)p.B * DD;
+  const I q0 = E * (word0 + (I)threadIdx.x);
   if ((int)threadIdx.x >= p.qpc || q0 >= tot) return;
   const T* __restrict__ w = kind == 0 ? p.w1 : kind == 1 ? p.w2 : p.w3;
   const T* __restrict__ u = kind == 0 ? p.u1 : kind == 1 ? p.u2 : p.u3;
   T* __restrict__ tt = kind == 0 ? p.t1 : kind == 1 ? p.t2 : p.t3;
-  const int rem = min(E, tot - q0);
+  const int rem = (int)(tot - q0 < E ? tot - q0 : E);
   V w4 = {}, u4 = {};
   if (rem == E) {
     w4 = __ldg(reinterpret_cast<const V*>(w + q0));
@@ -1006,27 +1051,28 @@ __device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, int quad
     for (int c = 0; c < E; ++c)
       if (c < rem) lane4(w4, c) = __ldg(w + q0 + c), lane4(u4, c) = __ldg(u + q0 + c);
   }
-  const int b0 = q0 / DD;
+  const int b0 = slot_of(q0, DD);
   const float inv = 1.0f / (float)D;
   T f[E];
 #pragma unroll
   for (int c = 0; c < E; ++c) {
     f[c] = T(0);
     if (c >= rem) continue;
-    const int e = q0 + c, b = b0 + (e >= (b0 + 1) * DD);
+    const I e = q0 + c;
+    const int b = b0 + (e >= (I)(b0 + 1) * DD);
     int i, j;
-    if constexpr (kExact) k9_split(e - b * DD, D, inv, i, j);
-    else omc::divmod(e - b * DD, D, inv, i, j);
+    if constexpr (kExact) k9_split(e - (I)b * DD, D, inv, i, j);
+    else omc::divmod((int)(e - (I)b * DD), D, inv, i, j);
     const omc::ROT<T> Y{p.Y + (size_t)b * n * n};
     if (kind == 2) {
-      f[c] = (i == j ? T(1) : T(0)) - Y[i * n + j];
+      f[c] = (i == j ? T(1) : T(0)) - Y[(I)i * n + j];
     } else if (i < n && j < n) {
-      f[c] = Y[i * n + j];
+      f[c] = Y[(I)i * n + j];
     } else if (kind == 0) {
       const omc::ROT<T> Xs{p.Xs + (size_t)b * n * m}, Ths{p.Ths + (size_t)b * m * m};
-      if (i < n) f[c] = __ldg(p.sX + b) * Xs[i * m + (j - n)];
-      else if (j < n) f[c] = __ldg(p.sX + b) * Xs[j * m + (i - n)];
-      else f[c] = __ldg(p.sT + b) * Ths[(i - n) * m + (j - n)];
+      if (i < n) f[c] = __ldg(p.sX + b) * Xs[(I)i * m + (j - n)];
+      else if (j < n) f[c] = __ldg(p.sX + b) * Xs[(I)j * m + (i - n)];
+      else f[c] = __ldg(p.sT + b) * Ths[(I)(i - n) * m + (j - n)];
     } else {
       const omc::ROT<T> U{p.U + (size_t)b * n * K};
       if (i < n) f[c] = U[i * K + (j - n)];
@@ -1048,10 +1094,10 @@ __device__ __forceinline__ void k9b_t(const K9bParamsT<T>& p, int kind, int quad
 }
 
 // (k9b_layout; omc_torch.sdp.mccormick.k9_plan)
-template <int K, class T>
-__global__ void __launch_bounds__(kThreads9) k9b_kernel(K9bParamsT<T> p) {
+template <int K, class T, class I>
+__device__ __forceinline__ void k9b_body(const K9bParamsT<T>& p) {
   extern __shared__ float smem[];
-  const K9bLayout l = k9b_layout(p.B, p.n, p.m, K, p.qpc, 16 / sizeof(T));
+  const K9bLayout l = k9b_layout<I>(p.B, p.n, p.m, K, p.qpc, 16 / sizeof(T));
   int x = blockIdx.x;
   if (x < p.B) {
     k9b_slot<K>(p, x, reinterpret_cast<T*>(smem));
@@ -1059,15 +1105,26 @@ __global__ void __launch_bounds__(kThreads9) k9b_kernel(K9bParamsT<T> p) {
   }
   x -= p.B;
   if (x < l.t1) {
-    k9b_t(p, 0, x * p.qpc, K);
+    k9b_t<T, false, I>(p, 0, (I)x * p.qpc, K);
     return;
   }
   x -= l.t1;
   if (x < l.t2) {
-    k9b_t(p, 1, x * p.qpc, K);
+    k9b_t<T, false, I>(p, 1, (I)x * p.qpc, K);
     return;
   }
-  k9b_t(p, 2, (x - l.t2) * p.qpc, K);
+  k9b_t<T, false, I>(p, 2, (I)(x - l.t2) * p.qpc, K);
+}
+
+template <int K, class T>
+__global__ void __launch_bounds__(kThreads9) k9b_kernel(K9bParamsT<T> p) {
+  k9b_body<K, T, int>(p);
+}
+
+// past 2^31 flat entries (k9b_flat64)
+template <int K, class T>
+__global__ void __launch_bounds__(kThreads9) k9b_kernel64(K9bParamsT<T> p) {
+  k9b_body<K, T, long long>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1206,7 +1263,8 @@ __device__ __forceinline__ void k9a_row_wide(const K9aParamsT<T>& p, int b, int 
   };
   for (int c = lane; c < kq; c += 32) {
     if (c < k) {
-      const int q2 = i * D2 + n + c, qs = c * (1 + n) + 1 + i;
+      const size_t q2 = (size_t)i * D2 + n + c;
+      const int qs = c * (1 + n) + 1 + i;
       const T r = T(2) * (w2[q2] - u2[q2]) + (wsoc[qs] - usoc[qs]) + (wbox[c] - ubox[c]);
       T g1 = T(0), g2 = T(0);
       for (int j2 = c; j2 < k; ++j2) g1 += pair_sum(c, j2, 1);
@@ -1223,8 +1281,9 @@ __device__ __forceinline__ void k9a_row_wide(const K9aParamsT<T>& p, int b, int 
   }
   if (lane == 0) {
     const T y4 = __ldg(p.w4 + b) - __ldg(p.u4 + b) - T(k);
-    const T d1 = w1[i * D1 + i] - u1[i * D1 + i], d2 = w2[i * D2 + i] - u2[i * D2 + i];
-    const T d3 = w3[i * n + i] - u3[i * n + i];
+    const size_t q1 = (size_t)i * D1 + i, q2 = (size_t)i * D2 + i, q3 = (size_t)i * n + i;
+    const T d1 = w1[q1] - u1[q1], d2 = w2[q2] - u2[q2];
+    const T d3 = w3[q3] - u3[q3];
     p.Y[(size_t)b * n * n + (size_t)i * n + i] = quot(rho * ((d1 + d2 - (d3 - T(1))) - y4), T(3));
   }
   __syncwarp();
@@ -1259,10 +1318,10 @@ __global__ void __launch_bounds__(kThreads9) k9a_wide_kernel(K9aParamsT<T> p) {
   }
   u -= l.x;
   if (u < l.th) {
-    k9a_theta(p, b, u, sA, sB);
+    k9a_theta<T, long long>(p, b, u, sA, sB);
     return;
   }
-  k9a_y(p, b, u - l.th, sA, sB, p.k);
+  k9a_y<T, long long>(p, b, u - l.th, sA, sB, p.k);
 }
 
 // K9a's second launch, a CTA a slot: sum_i z0_i[k:] and tr(rho gY / 3) (a
@@ -1415,10 +1474,10 @@ __device__ __forceinline__ void k9b_slot_wide(const K9bParamsT<T>& p, int b, T* 
 }
 
 // (k9b_layout at the runtime k; omc_torch.sdp.mccormick.k9_plan)
-template <class T>
-__global__ void __launch_bounds__(kThreads9) k9b_wide_kernel(K9bParamsT<T> p) {
+template <class T, class I>
+__device__ __forceinline__ void k9b_wide_body(const K9bParamsT<T>& p) {
   extern __shared__ float smem[];
-  const K9bLayout l = k9b_layout(p.B, p.n, p.m, p.k, p.qpc, 16 / sizeof(T));
+  const K9bLayout l = k9b_layout<I>(p.B, p.n, p.m, p.k, p.qpc, 16 / sizeof(T));
   int x = blockIdx.x;
   if (x < p.B) {
     k9b_slot_wide(p, x, reinterpret_cast<T*>(smem));
@@ -1426,15 +1485,26 @@ __global__ void __launch_bounds__(kThreads9) k9b_wide_kernel(K9bParamsT<T> p) {
   }
   x -= p.B;
   if (x < l.t1) {
-    k9b_t<T, true>(p, 0, x * p.qpc, p.k);
+    k9b_t<T, true, I>(p, 0, (I)x * p.qpc, p.k);
     return;
   }
   x -= l.t1;
   if (x < l.t2) {
-    k9b_t<T, true>(p, 1, x * p.qpc, p.k);
+    k9b_t<T, true, I>(p, 1, (I)x * p.qpc, p.k);
     return;
   }
-  k9b_t<T, true>(p, 2, (x - l.t2) * p.qpc, p.k);
+  k9b_t<T, true, I>(p, 2, (I)(x - l.t2) * p.qpc, p.k);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9b_wide_kernel(K9bParamsT<T> p) {
+  k9b_wide_body<T, int>(p);
+}
+
+// past 2^31 flat entries (k9b_flat64)
+template <class T>
+__global__ void __launch_bounds__(kThreads9) k9b_wide_kernel64(K9bParamsT<T> p) {
+  k9b_wide_body<T, long long>(p);
 }
 
 template <typename Kernel, typename Params>
@@ -1494,7 +1564,16 @@ int k9b_launch(const K9bParamsT<T>& p, void* stream) {
     return (int)cudaErrorInvalidValue;
   // the slot CTA's SOC slots
   const size_t smem = (size_t)p.k * (1 + p.n) * sizeof(T);
-  const int grid = k9b_layout(p.B, p.n, p.m, p.k, p.qpc, 16 / sizeof(T)).grid_x;
+  constexpr int E = 16 / sizeof(T);
+  if (k9b_flat64(p.B, p.n, p.m, p.k, E)) {
+    const int grid = k9b_layout<long long>(p.B, p.n, p.m, p.k, p.qpc, E).grid_x;
+    switch (p.k) {
+      case 1: return launch_k(k9b_kernel64<1, T>, p, grid, kThreads9, smem, stream);
+      case 2: return launch_k(k9b_kernel64<2, T>, p, grid, kThreads9, smem, stream);
+      default: return launch_k(k9b_kernel64<3, T>, p, grid, kThreads9, smem, stream);
+    }
+  }
+  const int grid = k9b_layout(p.B, p.n, p.m, p.k, p.qpc, E).grid_x;
   switch (p.k) {
     case 1: return launch_k(k9b_kernel<1, T>, p, grid, kThreads9, smem, stream);
     case 2: return launch_k(k9b_kernel<2, T>, p, grid, kThreads9, smem, stream);
@@ -1502,12 +1581,11 @@ int k9b_launch(const K9bParamsT<T>& p, void* stream) {
   }
 }
 
-// the shapes the wide kernels take: any k >= 1; a word of t3 spans at
-// most two slots (n >= 2); the batch's flat t1 entries, and a block's, index
-// in int (B (n + m)^2 < 2^31)
+// the shapes the wide kernels take: any k >= 1, any batch and width (the
+// flat entries and a slot's index in 64 bits past 2^31); a word of t3 spans
+// at most two slots (n >= 2)
 bool k9_wide_shape_ok(int B, int n, int m, int k) {
-  return B >= 1 && n >= 2 && m >= 1 && k >= 1 &&
-         (long long)B * (n + m) * (n + m) < (1LL << 31);
+  return B >= 1 && n >= 2 && m >= 1 && k >= 1;
 }
 
 // the wide K9a's second launch: the slot's q + 1 sums in shared memory
@@ -1546,9 +1624,14 @@ int k9b_wide_launch(const K9bParamsT<T>& p, void* stream) {
       odd(p.w1) || odd(p.u1) || odd(p.w2) || odd(p.u2) || odd(p.w3) || odd(p.u3) ||
       odd(p.t1) || odd(p.t2) || odd(p.t3))
     return (int)cudaErrorInvalidValue;
-  const int grid = k9b_layout(p.B, p.n, p.m, p.k, p.qpc, 16 / sizeof(T)).grid_x;
-  return launch_k(k9b_wide_kernel<T>, p, grid, kThreads9, (size_t)k9b_wide_smem(p.k, sizeof(T)),
-                  stream);
+  constexpr int E = 16 / sizeof(T);
+  const size_t smem = (size_t)k9b_wide_smem(p.k, sizeof(T));
+  if (k9b_flat64(p.B, p.n, p.m, p.k, E))
+    return launch_k(k9b_wide_kernel64<T>, p,
+                    k9b_layout<long long>(p.B, p.n, p.m, p.k, p.qpc, E).grid_x, kThreads9, smem,
+                    stream);
+  return launch_k(k9b_wide_kernel<T>, p, k9b_layout(p.B, p.n, p.m, p.k, p.qpc, E).grid_x,
+                  kThreads9, smem, stream);
 }
 
 }  // namespace
@@ -1576,7 +1659,7 @@ OMC_EXPORT int omc_k9s_setup_f64(const K9sParamsT<double>* params, void* stream)
 OMC_EXPORT int omc_k9a_grid_x(int B, int n, int m) { return k9a_layout(B, n, m).grid_x; }
 
 OMC_EXPORT int omc_k9b_grid_x(int B, int n, int m, int k, int qpc, int elem) {
-  return k9b_layout(B, n, m, k, qpc, 16 / elem).grid_x;
+  return k9b_layout<long long>(B, n, m, k, qpc, 16 / elem).grid_x;
 }
 
 OMC_EXPORT int omc_k9a_zstep(const K9aParams* params, void* stream) {

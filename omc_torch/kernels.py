@@ -409,30 +409,23 @@ def require_cuda_dtype(family: str, dtype) -> None:
         raise ValueError(f"the CUDA path runs float32 or float64, not {dtype}")
 
 
-# McCormick's K9a and K9b index a batch's flat entries of the (n + m)^2 PSD
-# block in int: B (n + m)^2 stays below this (ROADMAP.md queue 2, item 4
-# indexes them in 64 bits)
-MCCORMICK_CUDA_MAX_FLAT = 2 ** 31
-
-
 def require_cuda_shape(family: str, k: int, n: int, m: int, batch: int = 1) -> None:
     """The CUDA shape gate of every solver family, before any work on the
-    card: McCormick at a ``batch`` (the most node slots a solver call takes:
-    1 for the api, ``batch_size`` for the driver) with ``batch (n + m)^2``
-    at or past ``MCCORMICK_CUDA_MAX_FLAT`` raises ``ValueError`` naming the
-    range and the roadmap item that will port it.  Every other (k, n, m)
-    that ``omc`` runs passes: K6, the McCormick kernels and the rank-k Shor
-    kernels (K7x's, K8c's and K8d's wide kernels past k = 4) take any
-    rank."""
+    card: an unknown family, or a rank, width or ``batch`` (the most node
+    slots a solver call takes: 1 for the api, ``batch_size`` for the
+    driver) below 1, raises ``ValueError``.  Every (k, n, m, batch) that
+    ``omc`` runs passes: K6, the McCormick kernels and the rank-k Shor
+    kernels (K7x's, K8c's and K8d's wide kernels past k = 4) take any rank;
+    K9a and K9b index a batch's flat entries, and the kernels a slot's
+    entries, in 64 bits where they pass 2^31.  The card's memory is the
+    limit (CUDA's out-of-memory error where it runs out), and K3's shared
+    memory, which k2k3_plan refuses past n k = 52,509 (float32) or 25,230
+    (float64) at the base and Shor families' first visit (ROADMAP.md queue
+    3, item 7)."""
     if family not in FLOAT64_FAMILIES:
         raise ValueError(f"unknown solver family {family!r}")
     if k < 1 or min(n, m, batch) < 1:
         raise ValueError(f"unsupported shape k={k}, n={n}, m={m}, batch={batch}")
-    flat = batch * (n + m) ** 2
-    if family == "mccormick" and flat >= MCCORMICK_CUDA_MAX_FLAT:
-        raise ValueError(f"the CUDA kernels of the mccormick family take batch (n + m)^2 < 2^31, "
-                         f"got {batch} x {n + m}^2 = {flat}; ROADMAP.md queue 2, item 4 will "
-                         'index past it (a smaller batch_size, or device="cpu", runs it)')
 
 
 def _load(path: Path):

@@ -35,6 +35,17 @@ K4's float64 build (``ops.cones.project_psd``), then the torch epilogue
 (``ops.polar.psd_epilogue``: u and the running means); K9s runs its
 float64 build once per solve call.
 
+The kernels take every batch, rank and width ``omc`` runs: K9a and K9b
+at k <= 3 and n + m <= 4096 (their unrolled kernels, a batch's flat
+entries indexed in 64 bits where they pass 2^31: 128 slots at n + m = 4096
+already hold 2^31), their wide kernels elsewhere, a slot's entries too in
+64 bits past n + m = 46,340.  The card's memory is the only limit: a
+float32 solver call holds about 56 bytes a flat entry of the batch's
+(n + m)^2 blocks, a float64 one about 104 (w1, u1, their solve-call
+copies, t1, the running mean of rho u1, and K1's tiles-path workspace or
+K4's; PERF.md), so on an 80 GB card a float32 batch (n + m)^2 stops near
+1.5e9.
+
 ``omc`` averages rho*u over the last ``navg = max(1, iters // 4)``
 iterations as a sum times 1/navg; the port keeps a running mean (the
 epilogues' ``acc += beta (rho u - acc)`` with beta = 1/j on the j-th
@@ -771,11 +782,7 @@ def _k9_wide_plan(plan, B, n, m, k, dtype):
     rows a CTA) take the place of its slot CTAs, then a second launch of B
     CTAs (``k9a_fix_smem`` bytes: the slot's q + 1 sums, the Gc solve, the
     corrections); K9b's slot CTA takes ``k9b_smem`` bytes.  The flat
-    entries split exactly at any width; the batch's flat t1 entries index in
-    int, so B (n + m)^2 stays below 2^31."""
-    if B * (n + m) ** 2 >= 2 ** 31:
-        raise ValueError(f"K9: B (n + m)^2 = {B * (n + m) ** 2} flat entries of w1, at or above "
-                         "2^31")
+    entries split exactly at any width and batch (in 64 bits past 2^31)."""
     q, e = k * (k + 1) // 2, dtype.itemsize
     fix, slot = e * (q + 1), e * (1 + 2 * k + q)
     if max(fix, slot) > K9_SMEM_MAX:

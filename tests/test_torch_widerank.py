@@ -5,9 +5,11 @@ and K9b's wide kernels (``omc_torch/csrc/k6_altmin.cu``,
 ``csrc/k9_mccormick.cu``) owning every output once, their shared memory
 against the kernels' formulas, the plans at the old ranks unchanged; a numpy
 mirror of the wide kernels' exact (i, j) split of the flat entries; and the
-CUDA shape gate, which admits rank-k Shor at every rank and refuses
-McCormick past 2^31 flat entries before any work on the card.  The wide kernels themselves run on the GPU only: ``chip_smoke.py``'s
-``widerank`` phase holds them against their plain versions there."""
+CUDA shape gate, which admits rank-k Shor at every rank and McCormick past
+2^31 flat entries (the driver and the api go on to the card).  The wide
+kernels themselves run on the GPU only: ``chip_smoke.py``'s ``widerank``
+phase holds them against their plain versions there (``mcflat`` past 2^31
+flat entries)."""
 
 import dataclasses
 
@@ -259,7 +261,7 @@ def test_k6_plans_at_rank_10_and_below_are_unchanged(k, dtype):
 
 MC_WIDE = [(B, n, n, k) for B in (1, 4, 16, 64) for n in (50, 75) for k in (4, 5, 6, 10)] + [
     (1, 2048, 2049, 1), (1, 2048, 2049, 3), (2, 3000, 3000, 1), (1, 2000, 4000, 2),
-    (4, 2100, 2100, 1)]
+    (4, 2100, 2100, 1), (64, 300, 5500, 1), (1, 8, 46334, 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
@@ -269,9 +271,10 @@ def test_k9_wide_plans_own_every_entry_once(B, n, m, k, dtype):
     row, 4 rows a CTA) and K9a's own each (slot, row) once; K9a's flat CTAs
     follow (X chunks of 512 entries, Theta's and Y's tile pairs, each tile
     of each slot once); K9b's B slot CTAs, then words of E = 16 / itemsize
-    entries covering t1, t2, t3 once, a word spanning at most two slots,
-    the batch's flat index below 2^31; the second launch's sums and the
-    slot CTA's in shared memory as the kernel counts them."""
+    entries covering t1, t2, t3 once, a word spanning at most two slots
+    (past 2^31 flat entries too: B = 64 at n + m = 5,800, B = 1 at n + m =
+    46,342); the second launch's sums and the slot CTA's in shared memory
+    as the kernel counts them."""
     e, q = dtype.itemsize, _tri(k)
     if k >= 4:
         s = P.k9s_plan(B, n, k, dtype)
@@ -305,7 +308,6 @@ def test_k9_wide_plans_own_every_entry_once(B, n, m, k, dtype):
         tot = B * d * d
         assert (ctas - 1) * qpc * E < tot <= ctas * qpc * E and d * d >= E
     assert p["k9b_grid"] == B + p["t1_ctas"] + p["t2_ctas"] + p["t3_ctas"]
-    assert B * (n + m) ** 2 < 2 ** 31
 
 
 def _k9s_plan_before(B, n, k, dtype):
@@ -351,8 +353,14 @@ def test_k9_plans_at_rank_3_and_below_are_unchanged():
 
 
 def test_k9_wide_plan_refuses_past_int_indices():
-    with pytest.raises(ValueError, match="2\\^31"):
-        P.k9_plan(16, 6000, 6000, 1)
+    """(Named when the wide plan refused B (n + m)^2 >= 2^31.)  The wide
+    plan now plans such a batch (16 x 12,000^2 flat entries: K9a and K9b
+    index them in 64 bits), its K9b CTAs covering the flat once; a rank
+    below 1 is still refused."""
+    p = P.k9_plan(16, 6000, 6000, 1)
+    E, tot = 4, 16 * 12000 ** 2
+    assert p["path"] == "wide" and tot >= 2 ** 31
+    assert (p["t1_ctas"] - 1) * p["qpc"] * E < tot <= p["t1_ctas"] * p["qpc"] * E
     with pytest.raises(ValueError, match="k >= 1"):
         P.k9_plan(1, 50, 50, 0)
 
@@ -452,35 +460,40 @@ def test_entry_points_take_rank_5_shor_to_the_card(entry, fake_card, monkeypatch
                                                   dtype="float32")
 
 
-@pytest.mark.parametrize("n_plus_m,batch,admitted", [
-    (5792, 64, True), (5793, 64, False), (46340, 1, True), (46341, 1, False),
-    (1448, 1024, True), (1450, 1024, False)])
-def test_shape_gate_refuses_mccormick_past_int_flat_entries(n_plus_m, batch, admitted):
-    """kernels.require_cuda_shape refuses the mccormick family where batch
-    (n + m)^2 reaches 2^31 (K9a's and K9b's flat entries index in int),
-    naming the roadmap item, and admits just below; the other families
-    pass at the same shape."""
+# (the two tests below keep the names they had when the gate refused
+# McCormick at batch (n + m)^2 >= 2^31; K9a and K9b now index past it)
+@pytest.mark.parametrize("n_plus_m,batch,past_2_31", [
+    (5792, 64, False), (5793, 64, True), (46340, 1, False), (46341, 1, True),
+    (1448, 1024, False), (1450, 1024, True)])
+def test_shape_gate_refuses_mccormick_past_int_flat_entries(n_plus_m, batch, past_2_31):
+    """kernels.require_cuda_shape admits the mccormick family on both sides
+    of batch (n + m)^2 = 2^31 (K9a and K9b index the flat entries in 64
+    bits past it), as every other family at the same shape, and the module
+    keeps no flat limit."""
     n = n_plus_m // 2
     m = n_plus_m - n
-    if admitted:
-        kernels.require_cuda_shape("mccormick", 1, n, m, batch)
-    else:
-        with pytest.raises(ValueError, match=r"2\^31.*ROADMAP.md queue 2, item 4"):
-            kernels.require_cuda_shape("mccormick", 1, n, m, batch)
-    for family in ("base", "shor", "shor_k"):
+    assert (batch * n_plus_m ** 2 >= 2 ** 31) == past_2_31
+    for family in ("mccormick", "base", "shor", "shor_k"):
+        kernels.require_cuda_shape(family, 1, n, m, batch)
         kernels.require_cuda_shape(family, 2, n, m, batch)
+    assert not hasattr(kernels, "MCCORMICK_CUDA_MAX_FLAT")
 
 
-def test_driver_refuses_a_mccormick_batch_past_int_flat_entries(fake_card):
-    """matrix_completion_branchandbound gates McCormick at its batch_size:
-    1024 slots at n = m = 725 (1024 x 1450^2 >= 2^31) raise the gate's
-    ValueError on CUDA before any tensor reaches the card."""
+def test_driver_refuses_a_mccormick_batch_past_int_flat_entries(fake_card, monkeypatch):
+    """matrix_completion_branchandbound passes McCormick's gate at a
+    batch_size of 1024 slots at n = m = 725 (1024 x 1450^2 >= 2^31) on CUDA
+    and goes on to the card: its first call there (CUDA's lazy
+    initialisation, patched to raise) is reached, not a ValueError."""
     from omc_torch.solve import matrix_completion_branchandbound
 
+    def first_call():
+        raise _ReachedCard
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", first_call)
     rng = np.random.default_rng(7)
     A = rng.standard_normal((725, 725))
     idx = (rng.random((725, 725)) < 0.3).astype(np.int64)
-    with pytest.raises(ValueError, match=r"2\^31"):
+    with pytest.raises(_ReachedCard):
         matrix_completion_branchandbound(1, A, idx, 20.0, device="cuda",
                                          use_disjunctive_cuts=False, batch_size=1024,
                                          dtype="float32", verbosity=0)
