@@ -25,7 +25,8 @@ Phases, in order (each prints its numbers on lines of its own):
                k6_plan could take, against the
                library's batched solve; K8c at k=2 (timed), 3 and 4; K2 and
                K3 (B=1 to 128, n=m=50 to 1000, up to 2048 cuts, K2's Shor
-               variant) with their device times on every cluster size
+               variant; one node of n=m=6000 at rank 10, whose U K3 reads
+               from the input) with their device times on every cluster size
                k2k3_plan could take, and K3 in its Halpern mode up to 512
                cuts, with its device time; K8a, K7 (fused and projection mode)
                and K8b at every shape of the Shor k=1 loop (SHOR_SHAPES),
@@ -41,8 +42,12 @@ Phases, in order (each prints its numbers on lines of its own):
                (64, 50, 3), each beside the float32 build's
                device ms on the same values, K2's Shor mode at (32,
                100) and (4, 50), K2 and K3 (both modes; the headline's and
-               the fixtures' shapes), K4 (modes 0-2 at B=1 and 64,
-               d=100/51/50, and the block path at d=150), K4s (5x5), K5
+               the fixtures' shapes, and one node of n=m=2600 at rank 10,
+               U read from the input), K4 (modes 0-2 at B=1 and 64,
+               d=100/51/50, B=4 at d=150 and B=32 at d=200 on the planned
+               path, the tridiagonal one, the block path at d=150, and two
+               clustered batches, each beside every other path that takes
+               the shape, that path's time and bars), K4s (5x5), K5
                ((64, 50, 1), (1, 50, 1)) and K6 (n=m=50; B=4, 64; k=1, 2,
                10) against their plain versions in float64 and K7, K7t,
                K7x, K4, K4s and K5 against a float64 LAPACK eigh; the build
@@ -163,7 +168,7 @@ Phases, in order (each prints its numbers on lines of its own):
                versions on a gathered sub-problem; K1 at 1,024 slots of
                1,449^2 against its halves; the bytes a McCormick solver
                call takes a flat entry in each dtype; then the driver at
-               batch_size 64 on a 300 x 5,500 instance (n + m = 5,800),
+               batch_size 1,024 on a 100 x 1,350 instance (n + m = 1,450),
                one root visit on the card (lower bounds at most the
                incumbent)
 
@@ -387,6 +392,9 @@ def phase_build(res):
         if "registers" in line or "spill" in line:
             log("  ptxas:", line.strip())
     res["build_s"] = time.time() - t0
+    # each source's own nvcc (all run at once: the build takes the longest)
+    res["source_seconds"] = info.get("source_seconds", {})
+    log("build: seconds by source", json.dumps(res["source_seconds"]))
     report = _ptxas_report(info.get("ptxas", ""))
     res["spills"] = spills = {f: r["spill"] for f, r in report.items() if any(r["spill"])}
     log("build: kernels that spill", json.dumps(spills))
@@ -626,14 +634,15 @@ def phase_kernels(res):
     # vectors both kernels read from the input (at rank 10 both kernels'
     # partials live in the global workspace; with 2048 cuts at B=1, since
     # the plain version's batched cholesky_solve raises on the card at p =
-    # 12,289 and B=2)
+    # 12,289 and B=2); one node of n=m=6000 at rank 10, whose U (240 KB)
+    # K3 reads from the input (the plan's k3_u "global")
     k2, k3 = [], []
     for B, n, k, L, shor in ((64, 50, 1, 8, False), (64, 50, 1, 32, False), (1, 50, 1, 8, False),
                              (4, 50, 1, 8, False), (64, 75, 2, 8, False), (64, 75, 2, 32, False),
                              (32, 75, 2, 8, False), (32, 100, 1, 8, True),
                              (C4["B"], C4["n"], C4["k"], C4["L"], False), (2, 1000, 10, 8, False),
                              (4, 50, 1, 512, False), (2, 250, 10, 512, False),
-                             (1, 250, 10, 2048, False)):
+                             (1, 250, 10, 2048, False), (1, 6000, 10, 8, False)):
         c, st, acc, ts = _admm_inputs(B, n, n, k, L, gen, dev)
         r2, r3 = _check_k2_k3(c, st, acc, ts, shor=shor, sweep=n <= 250 and L <= 32)
         del c, st, acc, ts
@@ -650,11 +659,18 @@ def phase_kernels(res):
             checks.append((name, r, err <= 1e-6 and r["deterministic"]
                            and r["plan_matches_kernel"]))
             if "halpern" in r:
-                # K3's Halpern mode: the same bars as its normal mode
+                # K3's Halpern mode: the same bars as its normal mode.  At
+                # the one node of n = 6000 (K3's U read from the input) the
+                # blended trace slot's u4 lies near 0 and float32 cancels:
+                # the float32 plain version is itself 1.6e-5 from float64
+                # (abs 1.4e-6, on an H100), so there the kernel is held to
+                # within 1e-6, or four times the plain version's own
+                # distance, of float64 (a wrong read of U is O(1) off)
                 h = r["halpern"]
                 err = h["rel_err_vs_f64"] if n >= 250 or L > 32 else h["rel_err"]
-                checks.append(("K3halpern", h, err <= 1e-6 and h["deterministic"]))
-                log("K3 halpern", json.dumps(dict(B=B, n=n, k=k, L=L, **h)))
+                bar = 1e-6 if n < 6000 else max(1e-6, 4 * h["plain_vs_f64"])
+                checks.append(("K3halpern", h, err <= bar and h["deterministic"]))
+                log("K3 halpern", json.dumps(dict(B=B, n=n, k=k, L=L, bar=bar, **h)))
         k2.append(r2)
         k3.append(r3)
     # K2's band in Y's rows at the headline's shape, against the same plain
@@ -1054,7 +1070,7 @@ def _check_k7_projection(B, M5, gen, dev):
     control, the same bits twice, CUDA-event and device times."""
     import torch
 
-    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.cones import eigh_plain, project_psd_plain
     from omc_torch.ops.polar import (
         project_psd_ns,
         project_psd_ns_small,
@@ -1077,7 +1093,9 @@ def _check_k7_projection(B, M5, gen, dev):
                plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
                control_16bit_vs_eigh=ctl16, deterministic=torch.equal(wk, wb),
                ms=cuda_time_ms(fns["kernel"]),
-               plain_ms=_tm(lambda: project_psd_ns_small(T)))
+               plain_ms=_tm(lambda: project_psd_ns_small(T)),
+               # the library: cuSOLVER's eigh of the batch (chunked, as K4s's)
+               library_ms=_tm(lambda: eigh_plain(T)))
     if PARENT:
         fns["parent"] = _parent_k7_projection(T, torch.empty_like(T))
     _device_rows(row, fns)
@@ -1293,7 +1311,7 @@ def _check_k7x_projection(B, C, D, gen, dev):
     control, the same bits twice, CUDA-event and device times."""
     import torch
 
-    from omc_torch.ops.cones import project_psd_plain
+    from omc_torch.ops.cones import eigh_plain, project_psd_plain
     from omc_torch.ops.polar import (
         project_psd_ns,
         project_psd_ns_small,
@@ -1315,7 +1333,9 @@ def _check_k7x_projection(B, C, D, gen, dev):
                plain_vs_eigh=rel_fro(wp, exact), kernel_vs_eigh=rel_fro(wk, exact),
                control_16bit_vs_eigh=ctl16, deterministic=torch.equal(wk, wb),
                ms=cuda_time_ms(fns["kernel"]),
-               plain_ms=_tm(lambda: project_psd_ns_small(T)))
+               plain_ms=_tm(lambda: project_psd_ns_small(T)),
+               # the library: cuSOLVER's eigh of the batch (chunked, as K4s's)
+               library_ms=_tm(lambda: eigh_plain(T)))
     if PARENT:
         fns["parent"] = _parent_k7x_projection(T, torch.empty_like(T))
     _device_rows(row, fns)
@@ -1448,7 +1468,8 @@ def _k7t_gathered(sc, nm):
 def _admm_inputs(B, n, m, k, L, gen, dev, dtype=None):
     """Random ADMM state and node batch at a main-path shape (float32 on
     the card, or ``dtype``): slot values and duals of unit scale, ~L/2 real
-    cuts."""
+    cuts.  Past a million entries of X the state's values come from a
+    generator on the card (seeded from ``gen``), not from numpy."""
     import numpy as np
     import torch
 
@@ -1477,11 +1498,16 @@ def _admm_inputs(B, n, m, k, L, gen, dev, dtype=None):
     batch = NodeBatch(f(cut_x), f(cut_lo), f(cut_hi), f(cut_mask),
                       f(np.broadcast_to(lo, (B, n, k))), f(np.broadcast_to(hi, (B, n, k))))
     st = init_admm_state(B, n, m, k, L, dt, device=dev, sX=2.5, sT=1.7, rho=0.02)
+    big = n * m > 10 ** 6
+    gdev = torch.Generator(device=dev).manual_seed(int(rng.integers(0, 2**62))) if big else None
     for name in ("w1", "w2", "w3", "w4", "wsoc", "wbox", "wa", "wb", "wc",
                  "u1", "u2", "u3", "u4", "usoc", "ubox", "ua", "ub", "uc",
                  "X", "Y", "Th", "U"):
         t = getattr(st, name)
-        v = f(rng.standard_normal(tuple(t.shape)) * 0.3)
+        if big:
+            v = torch.randn(tuple(t.shape), generator=gdev, dtype=dt, device=dev) * 0.3
+        else:
+            v = f(rng.standard_normal(tuple(t.shape)) * 0.3)
         if v.ndim == 3 and v.shape[-1] == v.shape[-2]:
             v = 0.5 * (v + v.transpose(-1, -2))
         if name in ("wa", "wb", "ua", "ub"):
@@ -1489,6 +1515,7 @@ def _admm_inputs(B, n, m, k, L, gen, dev, dtype=None):
         if name in ("wc", "uc"):
             v = v * batch.cut_mask
         t.copy_(v)
+        del v
     st.rho.copy_(f(rng.uniform(0.01, 0.1, B)))
     c = make_consts(f(A), f(mask), batch, st, n, m, k, 80.0, 1.9, 1e-3, dt)
     acc = [torch.zeros_like(st.ua), torch.zeros_like(st.ub), torch.zeros_like(st.uc)]
@@ -1549,17 +1576,22 @@ def _load_parent(src):
     out = os.path.join(HERE, "build", "parent_kernels")
     os.makedirs(out, exist_ok=True)
     nvcc = kernels._nvcc()
-    jobs = [(os.path.join(out, f"{name}.o"), subprocess.Popen(
-        [nvcc, *kernels.NVCC_FLAGS, "-I", csrc, "-c", os.path.join(csrc, f"{name}.cu"), "-o",
-         os.path.join(out, f"{name}.o")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)) for name in PARENT_SOURCES]
-    logs = []
-    for _, proc in jobs:
-        _, err = proc.communicate()
-        assert proc.returncode == 0, err
-        logs.append(err)
+    def compile_one(name):  # one nvcc, timed
+        obj = os.path.join(out, f"{name}.o")
+        t = time.time()
+        r = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-I", csrc, "-c",
+                            os.path.join(csrc, f"{name}.cu"), "-o", obj],
+                           capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        return obj, r.stderr, time.time() - t
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(PARENT_SOURCES)) as ex:
+        jobs = list(ex.map(compile_one, PARENT_SOURCES))
+    logs = [err for _, err, _ in jobs]
+    seconds = {f"{name}.cu": sec for name, (_, _, sec) in zip(PARENT_SOURCES, jobs)}
+    log("parent build: seconds by source", json.dumps(seconds))
     so = os.path.join(out, "libparent_kernels.so")
-    subprocess.run([nvcc, "-shared", "-o", so, *[o for o, _ in jobs]], check=True)
+    subprocess.run([nvcc, "-shared", "-o", so, *[o for o, _, _ in jobs]], check=True)
     lib = ctypes.CDLL(so)
     for fn, st in ((lib.omc_k2_zstep, mod.K2Params), (lib.omc_k3_cone, mod.K3Params),
                    (lib.omc_k7_minor_psd, mod.K7Params),
@@ -1576,12 +1608,15 @@ def _load_parent(src):
         fn.restype = ctypes.c_int
     lib.omc_k4_workspace_floats.argtypes = [ctypes.c_int] * 4
     lib.omc_k4_workspace_floats.restype = ctypes.c_longlong
-    PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params,
+    # K4's float64 build (the float64 iteration's eigh route)
+    lib.omc_k4_jacobi_f64.argtypes = [ctypes.POINTER(mod.K4Params64), ctypes.c_void_p]
+    lib.omc_k4_jacobi_f64.restype = ctypes.c_int
+    PARENT.update(lib=lib, P2=mod.K2Params, P3=mod.K3Params, P7=mod.K7Params, P4_64=mod.K4Params64,
                   P8a=mod.K8aParams, P8b=mod.K8bParams, P7t=mod.K7tParams, P7x=mod.K7xParams,
                   P8d=mod.K8dParams, P9s=mod.K9sParams, P9a=mod.K9aParams, P9b=mod.K9bParams,
                   P4=mod.K4Params, P4s=mod.K4sParams, P5=mod.K5Params, P6=mod.K6Params,
                   k2k3_plan=plan,
-                  src=src,
+                  src=src, source_seconds=seconds,
                   ptxas=_ptxas_report("".join(logs)))
 
 
@@ -1641,6 +1676,16 @@ def _parent_plan_values(c, st, kernel):
              band=int(plan["band"] == "smem"), slsmem=int(plan["k3_slots"] == "smem"),
              ws=torch.empty(ws, dtype=torch.float64, device=st.rho.device) if ws else None)
     return v
+
+
+def _parent_admits(B, n, m, k, L):
+    """Whether the parent's ``k2k3_plan`` takes the shape (before K3 read
+    U from global memory it refused n k past its shared memory)."""
+    try:
+        PARENT["k2k3_plan"](B, n, m, k, L)
+    except ValueError:
+        return False
+    return True
 
 
 def _parent_k2(c, st, shor=False):
@@ -1833,6 +1878,43 @@ def _parent_k4(M, mode, path):
              mode=mode, path=p)
     return _parent_launch(lib.omc_k4_jacobi, _parent_block(PARENT["P4"], v),
                           *[x for x in v.values() if isinstance(x, torch.Tensor)])
+
+
+def _parent_k4_f64(M=None, mode=0, nout=None, **kw):
+    """The parent's float64 K4 on the float64 batch M in ``mode`` on the
+    parent's float64 plan (the CTA path wherever A, and V, fit its shared
+    memory, else the block path), launched at once; for K5's form (M None)
+    this tree's wrapper (the float64 iteration traced with the parent's
+    K4)."""
+    import ctypes
+
+    import torch
+
+    from omc_torch.ops import cones
+
+    if M is None or M.dtype != torch.float64 or kw.get("path") is not None:
+        return _PARENT_K4_F64_SELF(M, mode, nout, **kw)
+    lib = PARENT["lib"]
+    M = M.contiguous()
+    lead, d = M.shape[:-2], M.shape[-1]
+    B = M.numel() // (d * d)
+    nout = d if nout is None else nout
+    p = int(not cones.k4_cta_fits(d, mode, torch.float64))
+    nwork = lib.omc_k4_workspace_floats(B, d, mode, p)
+    o = dict(dtype=torch.float64, device=M.device)
+    v = dict(M=M, U=None, Y=None, w=torch.empty(*lead, nout, **o) if mode != 1 else None,
+             V=torch.empty(*lead, d, nout, **o) if mode == 2 else None,
+             P=torch.empty(*lead, d, d, **o) if mode == 1 else None,
+             sweeps=torch.empty(lead, dtype=torch.int32, device=M.device),
+             work=torch.empty(nwork, **o) if nwork else None, B=B, d=d, k=0, nout=nout,
+             mode=mode, path=p)
+    prm = _parent_block(PARENT["P4_64"], v)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    assert lib.omc_k4_jacobi_f64(ctypes.byref(prm), stream) == 0, "parent K4 launch failed"
+    return v["P"] if mode == 1 else (v["w"] if mode == 0 else (v["w"], v["V"]))
+
+
+_PARENT_K4_F64_SELF = None
 
 
 def _parent_k5(U, Y, nout):
@@ -2034,7 +2116,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     r2 = dict(**shape, shor=shor, plan=plan,
               plan_matches_kernel=plan["k2_smem"] == lib.omc_k2_smem_bytes(
                   n, m, k, L, plan["k2_cluster"], int(plan["band"] == "smem"),
-                  int(plan["k2_xs"] == "smem"), int(ws2), e)
+                  int(plan["k2_xs"] == "smem"), int(ws2), e, int(plan["k2_u"] == "smem"))
               and plan["k2_ws"] == (lib.omc_k2_ws_doubles(n, m, k, L, plan["k2_cluster"], e)
                                     if ws2 else 0),
               rel_err=e2, rel_err_vs_f64=_errs(outs(s_k), ref64)[0],
@@ -2066,7 +2148,7 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
     r3 = dict(**shape, plan=plan,
               plan_matches_kernel=plan["k3_smem"] == lib.omc_k3_smem_bytes(
                   n, m, k, L, plan["k3_cluster"], int(plan["k3_xs"] == "smem"),
-                  int(plan["k3_slots"] == "smem"), int(ws3), e)
+                  int(plan["k3_slots"] == "smem"), int(ws3), e, int(plan["k3_u"] == "smem"))
               and plan["k3_ws"] == (lib.omc_k3_ws_doubles(n, m, k, L, plan["k3_cluster"])
                                     if ws3 else 0),
               rel_err=e3, rel_err_vs_f64=_errs(got, ref64)[0],
@@ -2110,9 +2192,9 @@ def _check_k2_k3(c, st, acc, ts, shor=False, band=None, sweep=True):
                         + 3 * anc), peak)
         r3["halpern"] = rh
 
-    # the parent's kernels on the same inputs (up to 512 cuts), and every
-    # cluster size
-    if PARENT and L <= 512 and not f64:
+    # the parent's kernels on the same inputs (up to 512 cuts, where the
+    # parent's plan takes the shape), and every cluster size
+    if PARENT and L <= 512 and not f64 and _parent_admits(B, n, m, k, L):
         sp, accp = s_k.clone(), [a.clone() for a in acc]
         k2fn["parent"] = _parent_k2(c, st.clone(), shor)
         k3fn["parent"] = _parent_k3(c, sp, tuple(torch.empty_like(t) for t in ts), accp)
@@ -2347,6 +2429,25 @@ def _check_k9s(c, B, n, k, dev):
     _device_rows(row, fns)
     vals, ops = _k9s_work(B, n, k)
     return with_bound(row, 4 * vals, ops)
+
+
+def _eig_batch_clustered(B, d, gen, dev):
+    """Symmetric (B, d, d) float64 matrices Q diag(lam) Q' on the card whose
+    spectra are what ADMM's PSD iterates and rank-k slots give: max|lambda|
+    = 1, half the eigenvalues within 1e-13 of 0, an eighth repeated at 0.7
+    and an eighth at -0.4, the rest uniform in [-1, 1]."""
+    import torch
+
+    f64 = torch.float64
+    Q, _ = torch.linalg.qr(torch.randn(B, d, d, generator=gen, dtype=f64).to(_qr_device(d, dev)))
+    lam = torch.empty(B, d, dtype=f64).uniform_(-1.0, 1.0, generator=gen)
+    h, e = d // 2, d // 8
+    lam[:, :h] = 1e-13 * torch.empty(B, h, dtype=f64).uniform_(-1.0, 1.0, generator=gen)
+    lam[:, h:h + e] = 0.7
+    lam[:, h + e:h + 2 * e] = -0.4
+    lam[:, -1] = 1.0
+    T = (Q * lam.to(Q.device)[:, None, :]) @ Q.transpose(-1, -2)
+    return (0.5 * (T + T.transpose(-1, -2))).to(dev).contiguous()
 
 
 def _eig_batch(B, d, gen, dev, dtype=None):
@@ -3225,16 +3326,32 @@ def _check_mc64_kernels(gen, dev, mc_inputs=None):
     return out
 
 
+# (the last: one node of n=m=2600 at rank 10, whose U K3 reads from the
+# input in float64, k2k3_plan's k3_u "global")
 F64_ADMM_SHAPES = ((64, 50, 1, 8), (1, 50, 1, 8), (8, 12, 1, 8), (8, 16, 1, 8), (8, 20, 1, 8),
-                   (8, 10, 2, 8))
-# K4's float64 rows (B, d, modes, path): the three blocks of the headline's
-# eigh route at the root visit (B=1) and at B=64 on the planned (CTA) path,
-# and config 3's d = 150 on the block path (above the CTA path's float64
-# limits with vectors)
-F64_K4_SHAPES = ((64, 100, (1, 0, 2), None), (1, 100, (1, 0, 2), None),
-                 (64, 51, (1, 0, 2), None), (1, 51, (1, 0, 2), None),
-                 (64, 50, (1, 0, 2), None), (1, 50, (1, 0, 2), None),
-                 (4, 150, (1, 0, 2), "block16"), (64, 150, (1,), "block16"))
+                   (8, 10, 2, 8), (1, 2600, 10, 8))
+# K4's float64 rows (B, d, modes, path, spectrum): the three blocks of the
+# headline's eigh route at the root visit (B=1) and at B=64 on the planned
+# path (the tridiagonal one), config 3's d = 150 on the block path (above
+# the CTA path's float64 limits with vectors) and on the planned path,
+# config 2's d = 200 at its float64 batch (B=32), and two batches of
+# clustered spectra (_eig_batch_clustered) at B=1, d=100 and B=4, d=150,
+# and below the tridiagonal path's lower edge (K4_TRI_MIN_D): the Shor
+# bounds' XWH slots (k + 1 = 9 and 17, B x C = 32 x 4096 matrices, the
+# projection), d = 17 at batches between, and d = 9, 17, 24 at B = 1 and
+# 64; each beside every other path that takes the shape (past B = 4096 the
+# CTA and tridiagonal paths: the block path's time is not taken there)
+F64_K4_SHAPES = ((64, 100, (1, 0, 2), None, "mixed"), (1, 100, (1, 0, 2), None, "mixed"),
+                 (64, 51, (1, 0, 2), None, "mixed"), (1, 51, (1, 0, 2), None, "mixed"),
+                 (64, 50, (1, 0, 2), None, "mixed"), (1, 50, (1, 0, 2), None, "mixed"),
+                 (4, 150, (1, 0, 2), "block16", "mixed"), (64, 150, (1,), "block16", "mixed"),
+                 (4, 150, (1, 0, 2), None, "mixed"), (32, 200, (1, 0, 2), None, "mixed"),
+                 (1, 100, (1, 0, 2), None, "clustered"), (4, 150, (1, 0, 2), None, "clustered"),
+                 (131072, 9, (1,), None, "mixed"), (131072, 17, (1,), None, "mixed"),
+                 (8192, 17, (1,), None, "mixed"), (1024, 17, (1,), None, "mixed"),
+                 (1, 9, (1, 0, 2), None, "mixed"), (64, 9, (1, 0, 2), None, "mixed"),
+                 (1, 17, (1, 0, 2), None, "mixed"), (64, 17, (1, 0, 2), None, "mixed"),
+                 (64, 24, (1, 0, 2), None, "mixed"))
 F64_K6_SHAPES = ((50, 4, 1), (50, 64, 1), (50, 4, 2), (50, 64, 2), (50, 4, 10))
 
 
@@ -3323,9 +3440,34 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None, mc_inp
         w, V = torch.linalg.eigh(T.cpu())
         return w.to(dev), V.to(dev)
 
-    # ---- K4: modes 0, 1 and 2 ----
-    for B, d, modes, force in F64_K4_SHAPES:
-        T, _ = _eig_batch(B, d, gen, dev, f64)
+    # ---- K4: modes 0, 1 and 2, on the planned or forced path and, beside
+    # it, every other path that takes the shape ----
+    def k4_metrics(T, mode, got, w64, P64, lam, d):
+        """The row's bars of one K4 output: the projection within 1e-11
+        relative Frobenius of LAPACK's (relative to A's norm below d = 20,
+        where _eig_batch makes matrices whose projection is 0, as K4s's
+        rows); eigenvalues within 1e-11 max|lambda|; eigenpairs' residual
+        and orthogonality within 1e-11 sqrt(d)."""
+        if mode == 1:
+            scale = (P64 if d >= 20 else T).norm(dim=(-2, -1))
+            r = dict(rel_err_vs_f64=float(((got - P64).norm(dim=(-2, -1)) / scale).max()))
+            return r, r["rel_err_vs_f64"] <= 1e-11
+        w = got if mode == 0 else got[0]
+        r = dict(eig_err_vs_f64=float(((w - w64).abs().amax(-1) / lam).max()))
+        ok = r["eig_err_vs_f64"] <= 1e-11
+        if mode == 2:
+            V = got[1]
+            resid = (T @ V - V * w[..., None, :]).norm(dim=(-2, -1))
+            eye = torch.eye(d, dtype=f64, device=dev)
+            r["residual"] = float((resid / T.norm(dim=(-2, -1))).max())
+            r["orthogonality"] = float((V.transpose(-1, -2) @ V - eye).norm(dim=(-2, -1)).max())
+            ok = (ok and r["residual"] <= 1e-11 * d ** 0.5
+                  and r["orthogonality"] <= 1e-11 * d ** 0.5)
+        return r, ok
+
+    for B, d, modes, force, spectrum in F64_K4_SHAPES:
+        T = (_eig_batch(B, d, gen, dev, f64)[0] if spectrum == "mixed"
+             else _eig_batch_clustered(B, d, gen, dev))
         w64, V64 = lapack(T)
         P64 = (V64 * w64.clamp(min=0.0)[..., None, :]) @ V64.transpose(-1, -2)
         lam = w64.abs().amax(-1)
@@ -3336,64 +3478,80 @@ def _check_float64_kernels(gen, dev, shor_inputs=None, shork_inputs=None, mc_inp
             got = cones.k4_jacobi(T, mode, sweeps=sw, path=force)
             got_b = cones.k4_jacobi(T, mode, path=force)
             torch.cuda.synchronize()
+            code = cones.K4_PATH_CODES[plan["path"]]
             row = dict(B=B, d=d, mode=("eigvalsh", "projection", "eigh")[mode], plan=plan,
-                       max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
+                       spectrum=spectrum, max_sweeps=int(sw.max()), min_sweeps=int(sw.min()),
                        deterministic=_same_bits(got if mode == 2 else (got,),
                                                 got_b if mode == 2 else (got_b,)),
                        workspace_matches_kernel=plan["workspace_floats"] ==
-                       lib.omc_k4_workspace_floats(B, d, mode, int(plan["path"] != "cta")),
-                       smem_matches_kernel=plan["path"] != "cta" or plan["smem_bytes"] ==
-                       lib.omc_k4_cta_smem_bytes(d, mode, 8))
+                       lib.omc_k4_workspace_floats(B, d, mode, code),
+                       smem_matches_kernel=plan["smem_bytes"] == (
+                           lib.omc_k4_cta_smem_bytes(d, mode, 8) if code == 0 else
+                           lib.omc_k4_tri_smem_bytes(d) if code == 2 else 0))
+            m, ok = k4_metrics(T, mode, got, w64, P64, lam, d)
+            row.update(m)
             if mode == 1:
-                row["rel_err_vs_f64"] = float(((got - P64).norm(dim=(-2, -1))
-                                               / P64.norm(dim=(-2, -1))).max())
-                ok = row["rel_err_vs_f64"] <= 1e-11
                 plain = cones.project_psd_plain(T)
                 row["max_abs_err"] = float((got - plain).abs().max())
                 row["plain_ms"] = tm(lambda: cones.project_psd_plain(T), warm=True)
                 name = "eigh"
             else:
                 w = got if mode == 0 else got[0]
-                row["eig_err_vs_f64"] = float(((w - w64).abs().amax(-1) / lam).max())
-                ok = row["eig_err_vs_f64"] <= 1e-11
-                if mode == 2:
-                    V = got[1]
-                    resid = (T @ V - V * w[..., None, :]).norm(dim=(-2, -1))
-                    eye = torch.eye(d, dtype=f64, device=dev)
-                    row["residual"] = float((resid / T.norm(dim=(-2, -1))).max())
-                    row["orthogonality"] = float((V.transpose(-1, -2) @ V - eye)
-                                                 .norm(dim=(-2, -1)).max())
-                    ok = (ok and row["residual"] <= 1e-11 * d ** 0.5
-                          and row["orthogonality"] <= 1e-11 * d ** 0.5)
                 # the plain versions are the library calls (cuSOLVER in float64)
                 name = "eigvalsh" if mode == 0 else "eigh"
                 ref = torch.linalg.eigvalsh(T) if mode == 0 else torch.linalg.eigh(T)[0]
                 row["max_abs_err"] = float((w - ref).abs().max())
             if name not in lib_ms:
-                fn = torch.linalg.eigvalsh if name == "eigvalsh" else torch.linalg.eigh
+                # eigh in chunks of 16,384 (cuSOLVER's batched call refuses
+                # the Shor bounds' 131,072 slots), one call below that
+                fn = torch.linalg.eigvalsh if name == "eigvalsh" else cones.eigh_plain
                 lib_ms[name] = tm(lambda: fn(T), warm=True)
             row["library_ms"] = lib_ms[name]
             row.setdefault("plain_ms", lib_ms[name])
             row["ms"] = tm(lambda: cones.k4_jacobi(T, mode, path=force))
-            # the other path where it takes the shape too: the measurement
-            # behind the float64 plan
+            # every other path that takes the shape, with its time and its
+            # bars: the measurement behind the float64 plan
             row["ms_by_path"] = {plan["path"]: row["ms"]}
-            for path in cones.K4_PATHS:
-                if path != plan["path"] and (path != "cta" or cones.k4_cta_fits(d, mode, f64)):
-                    row["ms_by_path"][path] = tm(lambda: cones.k4_jacobi(T, mode, path=path))
+            row["err_by_path"], row["ok_by_path"] = {}, {}
+            for path in cones.K4_F64_PATHS:
+                takes = (cones.k4_cta_fits(d, mode, f64) if path == "cta" else
+                         bool(cones.k4_tri_smem_bytes(d)) if path == cones.K4_TRI else True)
+                if path == plan["path"] or not takes or (path == "block16" and B > 4096):
+                    continue
+                sw2 = torch.empty(B, **i32)
+                out2 = cones.k4_jacobi(T, mode, sweeps=sw2, path=path)
+                m2, ok2 = k4_metrics(T, mode, out2, w64, P64, lam, d)
+                row["err_by_path"][path] = m2
+                row["ok_by_path"][path] = ok2 and int(sw2.max()) <= MAX_SWEEPS
+                row["ms_by_path"][path] = tm(lambda: cones.k4_jacobi(T, mode, path=path))
+                del out2
+            st = {}
             if plan["path"] != "cta":
-                st = {}
                 cones.k4_jacobi(T, mode, path=force, stats=st)
-                row.update(st)
+            if plan["path"] == cones.K4_TRI:
+                row["vectors"] = sum(st.pop("vectors"))
+            row.update(st)
             row["ok"] = (ok and row["max_sweeps"] <= MAX_SWEEPS and row["deterministic"]
-                         and row["workspace_matches_kernel"] and row["smem_matches_kernel"])
-            # an eigendecomposition counts 9 d^3 flops with vectors and
-            # 4 d^3 / 3 without; the projection adds V max(w, 0) V' (d^3)
+                         and row["workspace_matches_kernel"] and row["smem_matches_kernel"]
+                         and all(row["ok_by_path"].values()))
             outf = (d, d * d, d * d + d)[mode]
-            flops = B * (4 * d ** 3 / 3, 10 * d ** 3, 9 * d ** 3)[mode]
-            with_bound(row, 8 * B * (d * d + outf), flops, PEAK_FP64_FLOPS)
-            if plan["path"] != "cta":  # the tile products could run on the FP64 tensor cores
-                row["bound_fp64_tc_ms"] = bound(row["bound_bytes"], flops, PEAK_FP64_TC_FLOPS)[0]
+            if plan["path"] == cones.K4_TRI:
+                # the tridiagonal path's own work: the reduction (4 d^3 / 3 a
+                # matrix), y = Q z (2 d^2 a vector) and in a projection
+                # V diag(c) V' over the triangle r <= c (d^2 a vector), for
+                # the vectors this run's matrices needed, all at the FP64
+                # tensor cores' rate (the least time; the eigenvalues'
+                # Sturm counts are left out)
+                flops = B * 4 * d ** 3 / 3 + (3 if mode == 1 else 2) * d * d * row["vectors"]
+                with_bound(row, 8 * B * (d * d + outf), flops, PEAK_FP64_TC_FLOPS)
+            else:
+                # an eigendecomposition counts 9 d^3 flops with vectors and
+                # 4 d^3 / 3 without; the projection adds V max(w, 0) V' (d^3)
+                flops = B * (4 * d ** 3 / 3, 10 * d ** 3, 9 * d ** 3)[mode]
+                with_bound(row, 8 * B * (d * d + outf), flops, PEAK_FP64_FLOPS)
+                if plan["path"] == "block16":  # its products could run on the FP64 tensor cores
+                    row["bound_fp64_tc_ms"] = bound(row["bound_bytes"], flops,
+                                                    PEAK_FP64_TC_FLOPS)[0]
             out["K4_f64"].append(row)
 
     # ---- K4s: the shor cell's 5x5 minors (4 x 4096) ----
@@ -4190,7 +4348,7 @@ C4 = dict(n=250, m=250, k=5, L=8, B=128, iters=400, substeps=1, gamma=80.0)
 # kernel names in a profile: K4 and K5 share one template per path
 # (prefixes: the kernels are templates on the element type too, as
 # "k4_kernel<false, float>"; an older tree's have no such argument)
-K4_NAMES = {"k4_kernel<false": "K4", "k4_kernel<true": "K5",
+K4_NAMES = {"k4_kernel<false": "K4", "k4_kernel<true": "K5", "k4t_": "K4",
             "k4_block_kernel<16, false": "K4", "k4_block_kernel<16, true": "K5",
             "k5_kernel": "K5"}
 
@@ -4729,14 +4887,25 @@ def _launched_since(before):
     return {key: kernels.LAUNCHES[key] - before[key] for key in before}
 
 
-def _f64_iteration_trace(dtype, psd_method, B=1, iters=20):
+def _f64_iteration_trace(dtype, psd_method, B=1, iters=20, parent=False):
     """One ADMM iteration of the headline's root at a batch of B, in
     ``dtype`` on its route, traced: CUDA-event ms an iteration, device ms by
     kernel (the rest under "other: ...": the eigh route's torch epilogue,
-    psd_epilogue), the idle share."""
+    psd_epilogue), K4's share, the idle share.  ``parent``: the parent's
+    float64 K4 on its own plan takes this tree's K4 calls (``--parent``)."""
+    global _PARENT_K4_F64_SELF
     import torch
 
+    from omc_torch.ops import cones
     from omc_torch.sdp.admm import iteration, make_consts
+
+    if parent:
+        _PARENT_K4_F64_SELF = cones.k4_jacobi
+        cones.k4_jacobi = _parent_k4_f64
+        try:
+            return _f64_iteration_trace(dtype, psd_method, B, iters)
+        finally:
+            cones.k4_jacobi = _PARENT_K4_F64_SELF
 
     solve, (A, mask, batch, ub_bar, st), c = _admm_root(B, dtype=dtype)
     st = st.clone()
@@ -4744,12 +4913,13 @@ def _f64_iteration_trace(dtype, psd_method, B=1, iters=20):
     ts = (torch.empty_like(st.w1), torch.empty_like(st.w2), torch.empty_like(st.w3))
     ema = [torch.zeros_like(x) for x in (st.u1, st.u2, st.ua, st.ub, st.uc)]
     names = {"k1_": "K1", "k2_kernel": "K2", "k3_kernel": "K3", "k4_kernel": "K4",
-             "k4s_kernel": "K4s"}
+             "k4t_": "K4", "k4s_kernel": "K4s"}
     row = _trace_loop(lambda: iteration(cs, st, ts, ema, psd_method), names, iters,
                       B=B, dtype=str(dtype), psd_method=psd_method)
     other = sum(v for key, v in row["kernel_ms_per_iter"].items() if key.startswith("other"))
     row["torch_ops_ms_per_iter"] = other
     row["torch_ops_share_of_event"] = other / row["event_ms_per_iter"]
+    row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
     return row
 
 
@@ -4892,6 +5062,9 @@ def phase_float64(res):
     t0 = time.time()
     row["iteration"] = {dt: _f64_iteration_trace(getattr(torch, dt), pm)
                         for dt, pm in (("float64", "eigh"), ("float32", "ns"))}
+    if PARENT:  # the parent's float64 K4 (its plan: the CTA path at B=1)
+        row["iteration"]["float64_parent"] = _f64_iteration_trace(torch.float64, "eigh",
+                                                                  parent=True)
     row["iteration_seconds"] = time.time() - t0
     for dt, tr in row["iteration"].items():
         log(f"float64 iteration ({dt})", json.dumps(tr))
@@ -4932,7 +5105,7 @@ def _shor_iteration_trace(B=32, n=100, M5=1024, iters=10):
                                          st.ur, st.ul)]
     ts = (torch.empty_like(core.w1), torch.empty_like(core.w2), torch.empty_like(core.w3))
     names = {"k2_kernel": "K2", "k3_kernel": "K3", "k7_kernel": "K7", "k8a_kernel": "K8a",
-             "k8b_kernel": "K8b", "k4s_kernel": "K4s", "k4_": "K4"}
+             "k8b_kernel": "K8b", "k4s_kernel": "K4s", "k4_": "K4", "k4t_": "K4"}
     row = _trace_loop(lambda: S.shor_iteration(c, sc, st, ts, acc, "eigh"), names, iters,
                       B=B, n=n, m=n, M5=M5, L=8, dtype="float64")
     row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
@@ -5076,7 +5249,7 @@ def _shork_iteration_trace(B=32, n=75, M5=1024, k=2, iters=5):
                                          st.ux, st.ur, st.ul, st.uwl)]
     ts = (torch.empty_like(core.w1), torch.empty_like(core.w2), torch.empty_like(core.w3))
     names = {"k2_kernel": "K2", "k3_kernel": "K3", "k8c_kernel": "K8c", "k7t_kernel": "K7t",
-             "k7x_kernel": "K7x", "k8d_kernel": "K8d", "k4s_kernel": "K4s", "k4_": "K4"}
+             "k7x_kernel": "K7x", "k8d_kernel": "K8d", "k4s_kernel": "K4s", "k4_": "K4", "k4t_": "K4"}
     row = _trace_loop(lambda: SK.shor_k_iteration(c, sc, st, ts, acc, "eigh"), names, iters,
                       B=B, n=n, m=n, k=k, M5=M5, L=8, dtype="float64")
     row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
@@ -5196,7 +5369,7 @@ def _mc_iteration_trace(B, iters=10):
     c, st = _mc64_of(*_mc_inputs(B, 50, 50, 1, torch.Generator().manual_seed(4), dev))
     acc = [torch.zeros_like(x) for x in (st.u1, st.u2, st.umc, st.uorth)]
     ts = (torch.empty_like(st.w1), torch.empty_like(st.w2), torch.empty_like(st.w3))
-    names = {"k9a_kernel": "K9a", "k9b_kernel": "K9b", "k4_": "K4"}
+    names = {"k9a_kernel": "K9a", "k9b_kernel": "K9b", "k4_": "K4", "k4t_": "K4"}
     row = _trace_loop(lambda: MC.mc_iteration(c, st, ts, acc, 0.25, "eigh"), names, iters,
                       B=B, n=50, m=50, k=1, dtype="float64")
     row["k4_share_of_event"] = row["kernel_ms_per_iter"].get("K4", 0.0) / row["event_ms_per_iter"]
@@ -6352,12 +6525,14 @@ MCF_K1 = dict(B=1024, d=1449)
 # the bytes a McCormick solver call takes a flat entry: (B, n, m, iters)
 # at n + m = 1,449 where it fits, float32 and float64
 MCF_ITER = {"float32": (128, 64, 1385, 2), "float64": (8, 64, 1385, 2)}
-# the driver at its default batch_size past 2^31 (64 x 5,800^2): a rank-1
-# 300 x 5,500 instance from omc_torch.data, 30% observed, one root visit of
-# 20 iterations (at 2,900 x 2,900 the host's altmin, polish and set-up took
-# 79 s against 44)
-MCF_DRIVER = dict(n=300, m=5500, frac=0.3, seed=5)
-MCF_DRIVER_KW = dict(MC_KW, sdp_iters=20, root_only=True, max_refines=0, time_limit=60)
+# the driver at a batch_size past 2^31 (1,024 x 1,450^2): a rank-1 100 x
+# 1,350 instance from omc_torch.data, 30% observed, one root visit of 20
+# iterations (at 64 x 5,800^2, a 300 x 5,500 instance, the visit took
+# 38-44 s, its float64 host certificate of the 5,800^2 block 26-30 s of
+# them; the visit runs one slot, so the batch only passes the gate)
+MCF_DRIVER = dict(n=100, m=1350, frac=0.3, seed=5)
+MCF_DRIVER_KW = dict(MC_KW, sdp_iters=20, root_only=True, max_refines=0, time_limit=60,
+                     batch_size=1024)
 
 
 def _mcf_mc(B, n, m, k, dt, dev, seed, share):
@@ -6718,7 +6893,8 @@ def _mcf_one_k2k3(dev):
     r2 = dict(**shape, plan=plan, sub_columns=len(S),
               plan_matches_kernel=plan["k2_smem"] == lib.omc_k2_smem_bytes(
                   n, m, k, L, plan["k2_cluster"], int(plan["band"] == "smem"),
-                  int(plan["k2_xs"] == "smem"), int(plan["k2_sums"] == "global"), e))
+                  int(plan["k2_xs"] == "smem"), int(plan["k2_sums"] == "global"), e,
+                  int(plan["k2_u"] == "smem")))
     r2["rel_err"], r2["max_abs_err"] = _errs(got, zstep_plain(c_s, st_s))
     r2["rel_err_vs_f64"] = _errs(got, zstep_plain(_to64(c_s), _to64(st_s)))[0]
     r2["ms"] = r2["device_ms"] = ms
@@ -6739,7 +6915,8 @@ def _mcf_one_k2k3(dev):
     r3 = dict(**shape, plan=plan, sub_columns=len(S),
               plan_matches_kernel=plan["k3_smem"] == lib.omc_k3_smem_bytes(
                   n, m, k, L, plan["k3_cluster"], int(plan["k3_xs"] == "smem"),
-                  int(plan["k3_slots"] == "smem"), int(plan["k3_sums"] == "global"), e))
+                  int(plan["k3_slots"] == "smem"), int(plan["k3_sums"] == "global"), e,
+                  int(plan["k3_u"] == "smem")))
     r3["rel_err"], r3["max_abs_err"] = _errs(got, [t1, t2, t3, *rest, *acc_p])
     r3["rel_err_vs_f64"] = _errs(got, [T1, T2, T3, *rest64, *acc64])[0]
     r3["ms"] = r3["device_ms"] = ms
@@ -6838,8 +7015,8 @@ def _mcf_iteration_bytes(dev):
 
 
 def _mcf_driver():
-    """matrix_completion_branchandbound on the McCormick path at its default
-    batch_size of 64 past 2^31 (64 x 5,800^2; MCF_DRIVER): the gate passes,
+    """matrix_completion_branchandbound on the McCormick path at a
+    batch_size past 2^31 (1,024 x 1,450^2; MCF_DRIVER): the gate passes,
     the root visit runs on the card (K9s, K9a, K9b, K1 and altmin's K6
     launched), its lower bounds finite and no higher than the incumbent."""
     import numpy as np
@@ -6861,7 +7038,7 @@ def _mcf_driver():
     log("mcflat driver", json.dumps(r))
     assert lowers and all(np.isfinite(lowers)), r
     assert all(x <= r["objective"] * (1 + 1e-9) + 1e-9 for x in lowers), r
-    _assert_launched(launches, ("K9s", "K9aw", "K9bw", "K1", "K6"))
+    _assert_launched(launches, ("K9s", "K9a", "K9b", "K1", "K6"))
     return r
 
 
@@ -6873,7 +7050,7 @@ def phase_mcflat(res):
     (``_mcf_one_k9``, ``_mcf_one_k2k3``); K1 at a McCormick batch past 2^31
     against its halves (no float32 McCormick solver call past 2^31 fits on
     80 GB: ``_mcf_iteration_bytes`` measures the bytes a call takes a flat
-    entry); then the driver at batch_size 64 past 2^31, whose launches
+    entry); then the driver at batch_size 1,024 past 2^31, whose launches
     count (``_mcf_driver``)."""
     import torch
 
@@ -7032,8 +7209,8 @@ KERNELS = (
      "K9b float64 build: McCormick forward map + cone step (B=64, n=m=50, k=1)",
      "omc_torch/csrc/k9_mccormick.cu", "omc/sdp/mccormick.py:477"),
     ("K4_f64", ("K4_f64",),
-     "K4 float64 build: Jacobi PSD projection, CTA path (B=64, d=100)",
-     "omc_torch/csrc/k4_jacobi.cu", "omc/sdp/relax.py:356"),
+     "K4 float64 build: PSD projection, tridiagonal path (B=64, d=100)",
+     "omc_torch/csrc/k4_tridiag.cu", "omc/sdp/relax.py:356"),
     ("K4s_f64", ("K4s_f64",),
      "K4s float64 build: Jacobi PSD projection of 5x5 matrices (4x4096)",
      "omc_torch/csrc/k4s_jacobi_small.cu", "omc/sdp/admm_shor.py:786"),

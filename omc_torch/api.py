@@ -16,9 +16,8 @@ K9b; exact Jacobi projections, as ``omc``'s eigh route).
 
 What runs on the GPU, in float32 and float64: every family at every rank
 and width ``omc`` takes, within the card's memory (CUDA's out-of-memory
-error where a node does not fit) and, for the base and Shor families, K3's
-shared memory (``k2k3_plan`` refuses n k past 52,509 in float32, 25,230 in
-float64; ROADMAP.md queue 3, item 7).  Altmin and the base family
+error where a node does not fit; past shared memory K3 reads U from the
+input and K2 keeps its band of zU in U's rows).  Altmin and the base family
 (K6's wide path past k = 10), Shor k = 1, rank-k Shor at every k >= 2 (K7t
 at any k, K7x's, K8c's and K8d's wide kernels past k = 4), and McCormick
 at every rank (K9s, K9a and K9b's wide kernels at k >= 4 or n + m > 4096),

@@ -641,6 +641,7 @@ struct K2ParamsT {
   int C;                   // CTAs per cluster, one cluster per slot (1..16)
   int band;                // 1: sym(zY) bands in shared memory; 0: in Y's rows
   int xsmem;               // 1: the cut vectors staged in shared memory
+  int usmem;               // 1: the band's zU in shared memory; 0: in U's rows
   T gamma;
 };
 using K2Params = K2ParamsT<float>;
@@ -664,6 +665,7 @@ struct K3ParamsT {
   int xsmem;               // 1: the cut vectors staged in shared memory
   int slsmem;              // 1: rank 0 stages the trace, interval and chord slots
   int hal_it;              // the Halpern mode's iteration index in the call
+  int usmem;               // 1: U staged in shared memory; 0: read from the input
   T alpha, beta;
 };
 using K3Params = K3ParamsT<float>;
@@ -905,7 +907,8 @@ struct K4ParamsT {
   int* sweeps;         // (B,) sweeps run; kJacobiMaxSweeps + 1 at the cap
   T* work;             // omc_k4_workspace_floats(B, d, mode, path) values of T, or null
   int B, d, k, nout, mode;
-  int path;            // 0: one CTA per matrix; 1: the block path
+  int path;            // 0: one CTA per matrix; 1: the block path; 2: the
+                       // tridiagonal path (float64 only, M given)
 };
 using K4Params = K4ParamsT<float>;
 

@@ -92,7 +92,7 @@ struct K2Smem {
 };
 
 __host__ __device__ inline K2Smem k2_smem(int n, int m, int k, int L, int C, int band,
-                                          int xsmem, int ws, int elem = 4) {
+                                          int xsmem, int ws, int elem = 4, int usmem = 1) {
   K2Smem s;
   const int P = 1 + L + L * k, bw = omc::cdiv(n, C);
   int d = 0, g = 0;  // doubles: shared memory, the rank's workspace region
@@ -117,7 +117,7 @@ __host__ __device__ inline K2Smem k2_smem(int n, int m, int k, int L, int C, int
   s.coef = v, v += L * k;     // interval-slot dual combination
   s.sv = v, v += P;           // s = V'z
   s.tv = v, v += P;           // t = rho G1^-1 s
-  s.ub = f, f += bw * k;      // the band's zU
+  s.ub = f, f += usmem ? bw * k : 0;  // the band's zU (else in U's rows)
   s.gi = f, f += P <= kGiMax ? P * P : 0;        // G1^-1
   s.tt = f, f += kWarps * 2 * kT * (kT + 1);     // a Theta tile pair a warp
   s.buf = f, f += band ? bw * omc::odd_ld(n) : 0;  // the band of sym(zY)
@@ -185,8 +185,11 @@ __device__ __forceinline__ void tile_pairs(int N, int cw, int CW, T* t, F f, O o
 
 // K2's body.  I: the type of a slot's own offsets (the products i D1,
 // (n + a) D1, i D2, i n): int where (n + m)^2 fits in int, size_t past n +
-// m = 46,340 (k2_kernel64)
-template <class T, bool kBand, bool kWs, class I>
+// m = 46,340 (k2_kernel64).  kUg: the band's zU kept in the output U's own
+// rows, where its ceil(n / C) k values do not fit shared memory (with the
+// band of sym(zY) in Y's rows; K2Params.usmem = 0): the same values in the
+// same order, so the same bits
+template <class T, bool kBand, bool kWs, class I, bool kUg>
 __device__ __forceinline__ void k2_body(const K2ParamsT<T>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
@@ -196,7 +199,7 @@ __device__ __forceinline__ void k2_body(const K2ParamsT<T>& p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n, m = p.m, k = p.k, L = p.L;
   const int D1 = n + m, D2 = n + k, P = 1 + L + L * k;
-  const K2Smem S = k2_smem(n, m, k, L, C, kBand, p.xsmem, kWs, sizeof(T));
+  const K2Smem S = k2_smem(n, m, k, L, C, kBand, p.xsmem, kWs, sizeof(T), !kUg);
   // the slot's workspace, and where part, tot, cl, coef, sv and tv live
   double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
   double* const rd = kWs ? wsd + (size_t)rank * S.wsr : dsm;
@@ -212,9 +215,9 @@ __device__ __forceinline__ void k2_body(const K2ParamsT<T>& p) {
   T* coef = rf + S.coef;
   T* sv = rf + S.sv;
   T* tv = rf + S.tv;
-  T* Ub = fsm + S.ub;
   // this CTA's rows [i0, i0 + nb) of Y and U
   const int i0 = omc::band_lo(n, C, rank), nb = omc::band_lo(n, C, rank + 1) - i0;
+  T* Ub = kUg ? p.U + (size_t)b * n * k + (size_t)i0 * k : fsm + S.ub;
 
   const T rho = p.rho[b], sX = p.sX[b], sT = p.sT[b];
   // every operand K2 reads it does not write
@@ -481,18 +484,18 @@ __device__ __forceinline__ void k2_body(const K2ParamsT<T>& p) {
 // need the occupancy more than the registers.  kWs: the partials in the
 // global workspace (two CTAs an SM: its t rows need the registers).  The
 // float64 build: one CTA an SM.
-template <class T, bool kBand, bool kWs>
+template <class T, bool kBand, bool kWs, bool kUg>
 __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : (kWs ? 2 : 3))
     k2_kernel(K2ParamsT<T> p) {
-  k2_body<T, kBand, kWs, int>(p);
+  k2_body<T, kBand, kWs, int, kUg>(p);
 }
 
 // past n + m = 46,340: a slot's offsets in 64 bits, two CTAs an SM in float
 // (the float build's 64-bit offsets spill within 80 registers)
-template <class T, bool kBand, bool kWs>
+template <class T, bool kBand, bool kWs, bool kUg>
 __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
     k2_kernel64(K2ParamsT<T> p) {
-  k2_body<T, kBand, kWs, size_t>(p);
+  k2_body<T, kBand, kWs, size_t, kUg>(p);
 }
 
 // a failed runtime call also sets the thread's last error: clear it, so a
@@ -502,7 +505,7 @@ int fail(cudaError_t err) {
   return (int)err;
 }
 
-template <class T, bool kBand, bool kWs>
+template <class T, bool kBand, bool kWs, bool kUg>
 int launch(const K2ParamsT<T>& p, cudaStream_t stream) {
   // per kernel (int offsets, then 64-bit ones): its max dynamic shared
   // memory, and the largest smem a cluster of C was shown to fit
@@ -510,8 +513,10 @@ int launch(const K2ParamsT<T>& p, cudaStream_t stream) {
   static int schedulable[2][17] = {};
   const long long D = p.n + (p.m > p.k ? p.m : p.k);
   const int w = D * D > INT_MAX;
-  void (*const kern)(K2ParamsT<T>) = w ? k2_kernel64<T, kBand, kWs> : k2_kernel<T, kBand, kWs>;
-  const int smem = (int)k2_smem(p.n, p.m, p.k, p.L, p.C, kBand, p.xsmem, kWs, sizeof(T)).bytes;
+  void (*const kern)(K2ParamsT<T>) =
+      w ? k2_kernel64<T, kBand, kWs, kUg> : k2_kernel<T, kBand, kWs, kUg>;
+  const int smem =
+      (int)k2_smem(p.n, p.m, p.k, p.L, p.C, kBand, p.xsmem, kWs, sizeof(T), !kUg).bytes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.C * p.B, 1, 1);
   cfg.blockDim = dim3(omc::kThreads, 1, 1);
@@ -549,12 +554,17 @@ int launch(const K2ParamsT<T>& p, cudaStream_t stream) {
 
 }  // namespace
 
+// this file is the float build's translation unit; k2_zstep_f64.cu includes
+// it with OMC_K2_F64 defined for the float64 build's (one nvcc each, run
+// side by side)
+#ifndef OMC_K2_F64
+
 // the shared memory omc_torch.sdp.admm.k2k3_plan plans with, at elem bytes
 // a value (4, or 8 for the float64 build; chip_smoke.py holds the plan
-// against it at every K2 row)
+// against it at every K2 row); usmem 0: the band's zU in U's rows
 OMC_EXPORT long long omc_k2_smem_bytes(int n, int m, int k, int L, int C, int band, int xsmem,
-                                       int ws, int elem) {
-  return (long long)k2_smem(n, m, k, L, C, band, xsmem, ws, elem).bytes;
+                                       int ws, int elem, int usmem) {
+  return (long long)k2_smem(n, m, k, L, C, band, xsmem, ws, elem, usmem).bytes;
 }
 
 // the doubles of global workspace a slot takes where the partials of s live
@@ -563,20 +573,32 @@ OMC_EXPORT long long omc_k2_ws_doubles(int n, int m, int k, int L, int C, int el
   return (long long)k2_smem(n, m, k, L, C, 0, 0, 1, elem).wss;
 }
 
+#endif  // OMC_K2_F64
+
 template <class T>
 int k2_entry(const K2ParamsT<T>& p, void* stream) {
   if (p.C < 1 || p.C > 16 || p.B < 1 || p.n < 1 || p.m < 1 || p.k < 1 || p.L < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (p.ws) return p.band ? launch<T, true, true>(p, st) : launch<T, false, true>(p, st);
-  return p.band ? launch<T, true, false>(p, st) : launch<T, false, false>(p, st);
+  if (!p.usmem) {  // zU in U's rows: only beside the sym(zY) band in Y's rows
+    if (p.band) return (int)cudaErrorInvalidValue;
+    return p.ws ? launch<T, false, true, true>(p, st) : launch<T, false, false, true>(p, st);
+  }
+  if (p.ws)
+    return p.band ? launch<T, true, true, false>(p, st) : launch<T, false, true, false>(p, st);
+  return p.band ? launch<T, true, false, false>(p, st) : launch<T, false, false, false>(p, st);
 }
 
+#ifndef OMC_K2_F64
 OMC_EXPORT int omc_k2_zstep(const K2Params* params, void* stream) {
   return k2_entry(*params, stream);
 }
+
+#else
 
 // the float64 build: double operands and outputs
 OMC_EXPORT int omc_k2_zstep_f64(const K2ParamsT<double>* params, void* stream) {
   return k2_entry(*params, stream);
 }
+
+#endif  // OMC_K2_F64

@@ -1,0 +1,5 @@
+// K2's float64 build: k2_zstep.cu compiled for double operands alone, in a
+// translation unit of its own, so that nvcc builds it beside the float
+// build (their instantiations took one nvcc 76-87 s together).
+#define OMC_K2_F64
+#include "k2_zstep.cu"

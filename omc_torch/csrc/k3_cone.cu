@@ -42,7 +42,12 @@
 //   entry is read by the CTA that writes it, or before the barrier.
 // Where even one CTA's partials outgrow shared memory (a deep tree's 2048
 // cuts at n = 1000, rank 10), they live in a global workspace (ws): each
-// rank's are fenced before the cluster barrier and read through L2.
+// rank's are fenced before the cluster barrier and read through L2.  Where
+// U's n k values do not fit beside the rest (n k past 52,509 in float32,
+// 25,230 in float64: (1, 6000, 6000, 10, 8) takes 240 KB of U alone), every
+// CTA reads U from the input through the non-coherent path instead
+// (K3Params.usmem = 0, the kernels' kUg instantiations), in the same order
+// of sums: the same bits.
 //
 // Halpern mode (omc/sdp/admm.py:342-425; K3Params.h1..hc non-null): every
 // pre-projection entry t is blended with its anchor, the slot's w + u at the
@@ -90,7 +95,7 @@ struct K3Smem {
 };
 
 __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int xsmem,
-                                          int slsmem, int ws, int elem = 4) {
+                                          int slsmem, int ws, int elem = 4, int usmem = 1) {
   K3Smem s;
   const int NP = 1 + L + k + L * k;
   int d = 0;
@@ -107,9 +112,9 @@ __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int
   s.wss = C * s.wsr;
   s.xd = d, d += xsmem ? L * n : 0;  // the cut vectors, in float64 for x'Yx and x'U
   int f = (8 / elem) * d;  // values of T (elem bytes each)
-  s.us = f, f += n * k;                   // U
+  s.us = f, f += usmem ? n * k : 0;       // U (where it fits)
   s.ts0 = f, f += k;                      // tsoc_j[0]
-  s.tsb = f, f += k * omc::cdiv(n, C);    // the band's tsoc_j[1 + i]
+  s.tsb = f, f += usmem ? k * omc::cdiv(n, C) : 0;  // the band's tsoc_j[1 + i]
   s.tt = f, f += kWarps * kT * (kT + 1);  // an X tile a warp
   // rank 0's staged slots (where they fit): wa, ua, wb, ub, acc_a, acc_b,
   // lo, hi (L k each); wc, uc, acc_c, cm (L each); w4, u4
@@ -120,8 +125,13 @@ __host__ __device__ inline K3Smem k3_smem(int n, int m, int k, int L, int C, int
 
 // K3's body.  Ix: the type of a slot's own offsets (the products i D1,
 // (n + a) D1, i D2, i n, a m): int where (n + m)^2 fits in int, size_t past
-// n + m = 46,340 (k3_kernel64)
-template <class T, bool kWs, bool kHal, class Ix>
+// n + m = 46,340 (k3_kernel64).  kUg: U read from global memory (through
+// the non-coherent path) where its n k values do not fit shared memory
+// beside the rest (K3Params.usmem = 0), and the band's tsoc entries kept
+// in their own wsoc entries between the phases (this CTA alone reads and
+// writes them); the same values in the same order of sums, so the same
+// bits as the staged copies
+template <class T, bool kWs, bool kHal, class Ix, bool kUg>
 __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* const dsm = reinterpret_cast<double*>(smem_raw);
@@ -141,7 +151,7 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
     else
       return t;
   };
-  const K3Smem S = k3_smem(n, m, k, L, C, p.xsmem, p.slsmem, kWs, sizeof(T));
+  const K3Smem S = k3_smem(n, m, k, L, C, p.xsmem, p.slsmem, kWs, sizeof(T), !kUg);
   // the slot's workspace, and where part and tot live
   double* const wsd = kWs ? p.ws + (size_t)b * S.wss : nullptr;
   double* const rd = kWs ? wsd + (size_t)rank * S.wsr : dsm;
@@ -181,7 +191,15 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
       for (int j = lane; j < n; j += 32) xd[l * n + j] = (double)cx[l * n + j];
   // the cut vectors: staged, or where they do not fit read from the input
   const auto X = [&](int l, int j) { return p.xsmem ? xd[l * n + j] : (double)cx[l * n + j]; };
-  for (int e = tid; e < n * k; e += blockDim.x) us[e] = U[e];
+  // U: staged, or where it does not fit read from the input
+  const auto Uv = [&](int e) -> T {
+    if constexpr (kUg)
+      return U[e];
+    else
+      return us[e];
+  };
+  if (!kUg)
+    for (int e = tid; e < n * k; e += blockDim.x) us[e] = U[e];
   for (int j = tid; j < k; j += blockDim.x) {
     const int q = j * (1 + n);
     ts0[j] = hal(alpha * T(1) + om * wsoc[q] + usoc[q], hsoc, q);
@@ -270,7 +288,7 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const int ii = e / k, c = e - ii * k;
     const Ix q = (Ix)(i0 + ii) * D2 + n + c;
-    t2[q] = hal((alpha * us[(i0 + ii) * k + c] + om * w2[q]) + u2[q], h2, q);
+    t2[q] = hal((alpha * Uv((i0 + ii) * k + c) + om * w2[q]) + u2[q], h2, q);
   }
 
   // ---- the band's SOC entries tsoc_j[1 + i], kept, with ||.||^2 (a warp
@@ -279,8 +297,11 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
     double s = 0.0;
     for (int ii = lane; ii < nb; ii += 32) {
       const int i = i0 + ii, q = j * (1 + n) + 1 + i;
-      const T t = hal((alpha * us[i * k + j] + om * wsoc[q]) + usoc[q], hsoc, q);
-      tsb[j * nb + ii] = t;
+      const T t = hal((alpha * Uv(i * k + j) + om * wsoc[q]) + usoc[q], hsoc, q);
+      if (kUg)  // kept in the slot's own entry until the projection
+        wsoc[q] = t;
+      else
+        tsb[j * nb + ii] = t;
       s = fma((double)t, (double)t, s);
     }
     s = omc::warp_sum_d(s);
@@ -289,7 +310,7 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
   for (int e = tid; e < Lk; e += blockDim.x) {
     const int l = e / k, j = e - l * k;
     double v = 0.0;
-    for (int i = i0; i < i0 + nb; ++i) v = fma(X(l, i), (double)us[i * k + j], v);
+    for (int i = i0; i < i0 + nb; ++i) v = fma(X(l, i), (double)Uv(i * k + j), v);
     part[1 + L + k + e] = v;
   }
   __syncthreads();
@@ -364,7 +385,7 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
     const int r = n + c;
     for (int j = lane; j < n; j += 32) {
       const Ix q = (Ix)r * D2 + j;
-      t2[q] = hal((alpha * us[j * k + c] + om * w2[q]) + u2[q], h2, q);
+      t2[q] = hal((alpha * Uv(j * k + c) + om * w2[q]) + u2[q], h2, q);
     }
     for (int j = lane; j < k; j += 32) {
       const Ix q = (Ix)r * D2 + n + j;
@@ -375,7 +396,7 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
   // ---- box slot of the band's rows
   for (int e = tid; e < nb * k; e += blockDim.x) {
     const size_t q = (size_t)b * n * k + (size_t)i0 * k + e;
-    const T t = hal((alpha * us[i0 * k + e] + om * p.wbox[q]) + p.ubox[q], p.hbox, q);
+    const T t = hal((alpha * Uv(i0 * k + e) + om * p.wbox[q]) + p.ubox[q], p.hbox, q);
     const T w = fmin(fmax(t, Ulo[q]), Uhi[q]);
     p.wbox[q] = w;
     p.ubox[q] = t - w;
@@ -395,7 +416,7 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
     const T scale = nj > T(0) ? T(0.5) * (T(1) + tt / nj) : T(0);
     for (int ii = tid; ii < nb; ii += blockDim.x) {
       const int q = j * (1 + n) + 1 + i0 + ii;
-      const T t = tsb[j * nb + ii];
+      const T t = kUg ? wsoc[q] : tsb[j * nb + ii];
       const T w = inside ? t : (polar ? T(0) : scale * t);
       wsoc[q] = w;
       usoc[q] = t - w;
@@ -472,19 +493,20 @@ __device__ __forceinline__ void k3_body(const K3ParamsT<T>& p) {
   omc::cluster_wait();  // no CTA leaves while another may read its partials
 }
 
-// kWs: the partials in the global workspace; kHal: the Halpern mode; T:
-// T, or double (the float64 build, one CTA an SM)
-template <class T, bool kWs, bool kHal>
+// kWs: the partials in the global workspace; kHal: the Halpern mode; kUg:
+// U read from global memory; T: float, or double (the float64 build, one
+// CTA an SM)
+template <class T, bool kWs, bool kHal, bool kUg>
 __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
     k3_kernel(K3ParamsT<T> p) {
-  k3_body<T, kWs, kHal, int>(p);
+  k3_body<T, kWs, kHal, int, kUg>(p);
 }
 
 // past n + m = 46,340: a slot's offsets in 64 bits
-template <class T, bool kWs, bool kHal>
+template <class T, bool kWs, bool kHal, bool kUg>
 __global__ void __launch_bounds__(omc::kThreads, sizeof(T) == 8 ? 1 : 2)
     k3_kernel64(K3ParamsT<T> p) {
-  k3_body<T, kWs, kHal, size_t>(p);
+  k3_body<T, kWs, kHal, size_t, kUg>(p);
 }
 
 int fail(cudaError_t err) {
@@ -492,7 +514,7 @@ int fail(cudaError_t err) {
   return (int)err;
 }
 
-template <class T, bool kWs, bool kHal>
+template <class T, bool kWs, bool kHal, bool kUg>
 int launch(const K3ParamsT<T>& p, cudaStream_t stream) {
   // per kernel (int offsets, then 64-bit ones): its max dynamic shared
   // memory, and the largest smem a cluster of C was shown to fit
@@ -500,8 +522,10 @@ int launch(const K3ParamsT<T>& p, cudaStream_t stream) {
   static int schedulable[2][17] = {};
   const long long D = p.n + (p.m > p.k ? p.m : p.k);
   const int w = D * D > INT_MAX;
-  void (*const kern)(K3ParamsT<T>) = w ? k3_kernel64<T, kWs, kHal> : k3_kernel<T, kWs, kHal>;
-  const int smem = (int)k3_smem(p.n, p.m, p.k, p.L, p.C, p.xsmem, p.slsmem, kWs, sizeof(T)).bytes;
+  void (*const kern)(K3ParamsT<T>) =
+      w ? k3_kernel64<T, kWs, kHal, kUg> : k3_kernel<T, kWs, kHal, kUg>;
+  const int smem =
+      (int)k3_smem(p.n, p.m, p.k, p.L, p.C, p.xsmem, p.slsmem, kWs, sizeof(T), !kUg).bytes;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.C * p.B, 1, 1);
   cfg.blockDim = dim3(omc::kThreads, 1, 1);
@@ -539,12 +563,17 @@ int launch(const K3ParamsT<T>& p, cudaStream_t stream) {
 
 }  // namespace
 
+// this file is the float build's translation unit; k3_cone_f64.cu includes
+// it with OMC_K3_F64 defined for the float64 build's (one nvcc each, run
+// side by side)
+#ifndef OMC_K3_F64
+
 // the shared memory omc_torch.sdp.admm.k2k3_plan plans with, at elem bytes
 // a value (4, or 8 for the float64 build; chip_smoke.py holds the plan
-// against it at every K3 row)
+// against it at every K3 row); usmem 0: U read from global memory
 OMC_EXPORT long long omc_k3_smem_bytes(int n, int m, int k, int L, int C, int xsmem,
-                                       int slsmem, int ws, int elem) {
-  return (long long)k3_smem(n, m, k, L, C, xsmem, slsmem, ws, elem).bytes;
+                                       int slsmem, int ws, int elem, int usmem) {
+  return (long long)k3_smem(n, m, k, L, C, xsmem, slsmem, ws, elem, usmem).bytes;
 }
 
 // the doubles of global workspace a slot takes where the partials live
@@ -552,6 +581,8 @@ OMC_EXPORT long long omc_k3_smem_bytes(int n, int m, int k, int L, int C, int xs
 OMC_EXPORT long long omc_k3_ws_doubles(int n, int m, int k, int L, int C) {
   return (long long)k3_smem(n, m, k, L, C, 0, 0, 1).wss;
 }
+
+#endif  // OMC_K3_F64
 
 template <class T>
 int k3_entry(const K3ParamsT<T>& p, void* stream) {
@@ -562,15 +593,24 @@ int k3_entry(const K3ParamsT<T>& p, void* stream) {
   if (hal && (!p.h2 || !p.h3 || !p.h4 || !p.hsoc || !p.hbox || !p.ha || !p.hb || !p.hc ||
               p.hal_it < 0))
     return (int)cudaErrorInvalidValue;
-  if (p.ws) return hal ? launch<T, true, true>(p, st) : launch<T, true, false>(p, st);
-  return hal ? launch<T, false, true>(p, st) : launch<T, false, false>(p, st);
+  if (p.usmem) {
+    if (p.ws) return hal ? launch<T, true, true, false>(p, st) : launch<T, true, false, false>(p, st);
+    return hal ? launch<T, false, true, false>(p, st) : launch<T, false, false, false>(p, st);
+  }
+  if (p.ws) return hal ? launch<T, true, true, true>(p, st) : launch<T, true, false, true>(p, st);
+  return hal ? launch<T, false, true, true>(p, st) : launch<T, false, false, true>(p, st);
 }
 
+#ifndef OMC_K3_F64
 OMC_EXPORT int omc_k3_cone(const K3Params* params, void* stream) {
   return k3_entry(*params, stream);
 }
+
+#else
 
 // the float64 build: double operands and outputs
 OMC_EXPORT int omc_k3_cone_f64(const K3ParamsT<double>* params, void* stream) {
   return k3_entry(*params, stream);
 }
+
+#endif  // OMC_K3_F64

@@ -10,8 +10,10 @@
 // port these are omc_torch.ops.cones.eigvalsh / project_psd (d > 8)
 // and omc_torch.sdp.relax.separation_eigpairs.
 //
-// Two paths (omc_torch.ops.cones.k4_plan picks one per call; the CPU
-// mirror of both is omc_torch/ops/jacobi.py):
+// Two paths here (omc_torch.ops.cones.k4_plan picks one per call; the CPU
+// mirror of both is omc_torch/ops/jacobi.py), and in float64 a third,
+// the tridiagonal path of csrc/k4_tridiag.cu (path 2), behind the same
+// entry point:
 //
 // * The CTA path (k4_kernel): cyclic two-sided Jacobi in parallel
 //   (round-robin) order, one CTA per matrix.  A sweep is N - 1 rounds over
@@ -86,6 +88,10 @@
 #include <type_traits>
 
 #include "common.cuh"
+
+// the tridiagonal path (path 2, float64 only), in csrc/k4_tridiag.cu
+int k4t_entry(const K4ParamsT<double>& p, void* stream);
+long long k4t_workspace_doubles(int B, int d, int mode);
 
 namespace {
 
@@ -1128,6 +1134,12 @@ constexpr int kBlockWidth = 16;
 template <class T>
 int k4_entry(const K4ParamsT<T>& p, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (p.path == 2) {  // the tridiagonal path: float64 operands only
+    if constexpr (sizeof(T) == 8)
+      return k4t_entry(p, stream);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   if (p.path == 1)
     return p.M ? launch_block<kBlockWidth, false>(p, st) : launch_block<kBlockWidth, true>(p, st);
   const size_t smem = cta_smem_bytes<T>(p.d, p.mode);
@@ -1138,9 +1150,11 @@ int k4_entry(const K4ParamsT<T>& p, void* stream) {
 }  // namespace
 
 // the whole call's workspace in elements of the operands' type (floats, or
-// doubles for omc_k4_jacobi_f64): none on the CTA path
+// doubles for omc_k4_jacobi_f64): none on the CTA path; the tridiagonal
+// path's in doubles
 OMC_EXPORT long long omc_k4_workspace_floats(int B, int d, int mode, int path) {
   if (path == 0) return 0;
+  if (path == 2) return k4t_workspace_doubles(B, d, mode);
   return (long long)kCtl + (long long)B * BGeom(d, kBlockWidth, mode).mat_floats;
 }
 
@@ -1151,7 +1165,8 @@ OMC_EXPORT long long omc_k4_cta_smem_bytes(int d, int mode, int elem) {
 }
 
 // path 0: the CTA path (refused unless A, and V, fit in shared memory);
-// path 1: the block path, one cooperative launch
+// path 1: the block path, one cooperative launch; path 2 (float64 only):
+// the tridiagonal path, csrc/k4_tridiag.cu
 OMC_EXPORT int omc_k4_jacobi(const K4Params* params, void* stream) {
   return k4_entry(*params, stream);
 }

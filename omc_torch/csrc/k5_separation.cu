@@ -11,7 +11,8 @@
 //
 // K4's Jacobi computes all d eigenpairs in ~10 sweeps of d - 1 rounds, two
 // CTA barriers a round.  This kernel reduces A to tridiagonal form once and
-// solves for two eigenpairs only:
+// solves for two eigenpairs only (steps 2 to 4 in tridiag.cuh, which K4's
+// float64 tridiagonal path, csrc/k4_tridiag.cu, runs too):
 //  1. Load: A = U U' - (Y + Y')/2 straight into shared memory as a packed
 //     lower triangle (column-major), in float64 (path 0) or, for orders
 //     whose float64 triangle does not fit, in float32 (path 1: d = 250 takes
@@ -57,17 +58,16 @@
 // d=50) nor the card's FP64 rate: d - 2 steps of two barriers, kRounds
 // Sturm recurrences of d dependent reciprocals, the solves' recurrences.
 #include "common.cuh"
+#include "tridiag.cuh"
 
 namespace {
 
+using tri::col0;
+using tri::kMaxIters;
+using tri::tri_len;
 constexpr size_t kSmemMax = 232448;  // the most one block may use on sm_90
-constexpr int kRounds = 11;          // 33^11 = 5.0e16: below eps of the bracket
-constexpr int kMaxIters = 5;         // dstein's MAXITS
-constexpr int kExtra = 2;            // dstein's EXTRA
-constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kThreads5 = 512;        // 16 warps at every order
-__host__ __device__ inline long long tri_len(int d) { return (long long)d * (d + 1) / 2; }
 // doubles ahead of the triangle: diagonal, off-diagonal, tau and scale of
 // each reflector, p and p_r v_r, two vectors and their LU factors (4 d
 // each), 8 scalars
@@ -81,159 +81,6 @@ __host__ inline size_t k5_smem(int d, int path) {
   const long long b = 8 * head_doubles(d) + (path == 0 ? 8 : 4) * tri_len(d) + 2LL * d;
   const long long r = (b + 15) / 16 * 16;
   return r <= (long long)kSmemMax ? (size_t)r : 0;
-}
-
-// (i, j), i >= j, of the packed lower triangle is at col0(j) + i
-__device__ __forceinline__ int col0(int j, int d) { return j * d - (j * (j - 1)) / 2 - j; }
-
-// entry j of start vector `seed`: splitmix64 of (2 j + seed + 1), uniform in [-1, 1)
-__device__ __forceinline__ double start_entry(int j, int seed) {
-  unsigned long long x = (unsigned long long)(2 * j + seed + 1) * 0x9E3779B97F4A7C15ull;
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
-  x ^= x >> 31;
-  return (double)(x >> 11) * 0x1.0p-52 - 1.0;
-}
-
-// 1 / x to the float64 rounding level (omc::rcp; x is never 0 or
-// subnormal here: Sturm pivots are at least pivmin, LU pivots at least
-// eps ||T||_1)
-using omc::rcp;
-
-// dlarfg for x = (alpha, x'), ||x'||^2 = xn2: beta = -sign(alpha) ||x||,
-// tau = (beta - alpha) / beta, scale = 1 / (alpha - beta), from one
-// reciprocal; tau = scale = 0 and beta = alpha where x' = 0
-__device__ __forceinline__ void reflector(double alpha, double xn2, double* beta, double* tau,
-                                          double* scale) {
-  if (xn2 == 0.0) {  // a NaN takes the other branch
-    *beta = alpha, *tau = 0.0, *scale = 0.0;
-    return;
-  }
-  const double bt = -copysign(sqrt(fma(alpha, alpha, xn2)), alpha), am = alpha - bt;
-  const double r = rcp(bt * am);
-  *beta = bt, *tau = -am * am * r, *scale = bt * r;
-}
-
-__device__ __forceinline__ double warp_max_d(double v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// Inverse iteration for the eigenvalue lam of the tridiagonal (Dg, Eo), by
-// one warp: lane 0 factors T - lam I and runs the solves' recurrences, the
-// lanes share the vector's scalings, norms and dot products; into x (unit
-// 2-norm, largest entry positive).  f: 4 d doubles of LU factors; piv: d
-// flags; z0: null, or the unit vector to orthogonalise against after every
-// solve.  Returns the solves run, or kMaxIters + 1 at the cap.
-__device__ int inverse_iteration(const double* __restrict__ Dg, const double* __restrict__ Eo,
-                                 int d, double lam, double tn, int seed, double* __restrict__ x,
-                                 double* __restrict__ f, unsigned char* __restrict__ piv,
-                                 const double* __restrict__ z0, int lane) {
-  double* u0 = f;          // U's diagonal, then its reciprocal
-  double* u1 = f + d;      // U's first superdiagonal
-  double* u2 = f + 2 * d;  // U's second (the fill of an interchange)
-  double* lm = f + 3 * d;  // the multipliers
-  const double tol = DBL_EPSILON * tn;
-  double unn = 0.0;
-  if (lane == 0) {
-    double r0 = Dg[0] - lam, r1 = d > 1 ? Eo[0] : 0.0;
-    for (int j = 0; j + 1 < d; ++j) {
-      const double bj = Eo[j], aj = Dg[j + 1] - lam, cj = j + 2 < d ? Eo[j + 1] : 0.0;
-      if (fabs(r0) >= fabs(bj)) {  // no interchange
-        const double l = r0 != 0.0 ? bj * rcp(r0) : 0.0;
-        u0[j] = r0, u1[j] = r1, u2[j] = 0.0, lm[j] = l, piv[j] = 0;
-        r0 = aj - l * r1;
-        r1 = cj;
-      } else {  // rows j and j + 1 interchanged
-        const double l = r0 * rcp(bj);
-        u0[j] = bj, u1[j] = aj, u2[j] = cj, lm[j] = l, piv[j] = 1;
-        r0 = r1 - l * aj;
-        r1 = -l * cj;
-      }
-    }
-    u0[d - 1] = r0;
-    unn = fabs(r0);
-  }
-  unn = __shfl_sync(kFull, unn, 0);
-  __syncwarp();
-  for (int j = lane; j < d; j += 32) {
-    double u = u0[j];
-    if (fabs(u) < tol) u = u < 0.0 ? -tol : tol;
-    u0[j] = rcp(u);
-    x[j] = start_entry(j, seed);
-  }
-  __syncwarp();
-  const double crit = sqrt(0.1 / d);  // dstein's DTPCRT
-  int its = 0, checks = 0;
-  while (++its <= kMaxIters) {
-    double bmax = 0.0;
-    for (int j = lane; j < d; j += 32) bmax = fmax(bmax, fabs(x[j]));
-    bmax = warp_max_d(bmax);
-    if (bmax == 0.0) {  // the orthogonalisation left nothing: a fresh start
-      seed += 2;
-      for (int j = lane; j < d; j += 32) bmax = fmax(bmax, fabs(x[j] = start_entry(j, seed)));
-      bmax = warp_max_d(bmax);
-    }
-    const double scl = d * tn * fmax(DBL_EPSILON, unn) / bmax;
-    for (int j = lane; j < d; j += 32) x[j] *= scl;
-    __syncwarp();
-    if (lane == 0) {
-      double cur = x[0];  // P and L, the chain carried in registers
-#pragma unroll 4
-      for (int j = 0; j + 1 < d; ++j) {
-        double nxt = x[j + 1];
-        if (piv[j]) {
-          const double tmp = cur;
-          cur = nxt;
-          nxt = tmp;
-        }
-        x[j] = cur;
-        cur = fma(-lm[j], cur, nxt);
-      }
-      double x1 = cur * u0[d - 1], x2 = 0.0;  // U (u2[d - 2] = 0)
-      x[d - 1] = x1;
-#pragma unroll 4
-      for (int j = d - 2; j >= 0; --j) {
-        const double xj = fma(-u2[j], x2, fma(-u1[j], x1, x[j])) * u0[j];
-        x[j] = xj;
-        x2 = x1;
-        x1 = xj;
-      }
-    }
-    __syncwarp();
-    if (z0) {
-      double dt = 0.0;
-      for (int j = lane; j < d; j += 32) dt = fma(x[j], z0[j], dt);
-      dt = omc::warp_sum_d(dt);
-      for (int j = lane; j < d; j += 32) x[j] = fma(-dt, z0[j], x[j]);
-    }
-    double nrm = 0.0;
-    for (int j = lane; j < d; j += 32) nrm = fmax(nrm, fabs(x[j]));
-    nrm = warp_max_d(nrm);
-    if (!(nrm >= crit)) continue;
-    if (++checks < kExtra + 1) continue;
-    break;
-  }
-  // unit 2-norm, the first of the largest entries positive
-  double s2 = 0.0, big = -1.0;
-  int jm = d;
-  for (int j = lane; j < d; j += 32) {
-    s2 = fma(x[j], x[j], s2);
-    if (fabs(x[j]) > big) big = fabs(x[j]), jm = j;
-  }
-  s2 = omc::warp_sum_d(s2);
-  for (int o = 16; o > 0; o >>= 1) {
-    const double ob = __shfl_xor_sync(kFull, big, o);
-    const int oj = __shfl_xor_sync(kFull, jm, o);
-    if (ob > big || (ob == big && oj < jm)) big = ob, jm = oj;
-  }
-  __syncwarp();
-  double scl = 1.0 / sqrt(s2);
-  if (jm < d && x[jm] < 0.0) scl = -scl;
-  __syncwarp();
-  for (int j = lane; j < d; j += 32) x[j] *= scl;
-  __syncwarp();
-  return its;
 }
 
 // S: the triangle's storage type (double: path 0, float: path 1); kQ: the
@@ -277,109 +124,8 @@ __global__ void __launch_bounds__(kThreads5) k5_kernel(K5ParamsT<T> p) {
       A[o] = (S)((double)A[o] - 0.5 * y);
     }
   __syncthreads();
-  if (warp == 0 && d >= 2) {  // column 0's reflector (column 0 starts at 0)
-    double s = 0.0;
-    for (int r = 2 + lane; r < d; r += 32) s = fma((double)A[r], (double)A[r], s);
-    s = omc::warp_sum_d(s);
-    if (lane == 0) {
-      Dg[0] = (double)A[0];
-      reflector((double)A[1], s, Eo, tau, vsc);
-    }
-  }
-  bad = __syncthreads_or(bad);
-
-  // ---- Householder tridiagonalisation (dsytd2, lower) ----
-  for (int i = 0; i + 2 < d; ++i) {
-    const int c0 = col0(i, d);
-    const double tau_i = tau[i], scale = vsc[i];
-    // p = A22 v: 2^sh threads a row of A22 (m rows), v(i+1) = 1
-    const int m = d - i - 1;
-    const int g = nt / m;
-    const int sh = g >= 32 ? 5 : 31 - __clz(g);
-    const int rr = tid >> sh, l = tid & ((1 << sh) - 1);
-    const int r = i + 1 + rr;
-    double acc = 0.0;
-    if (rr < m) {  // four chains over the row's columns, summed in order
-      const int cr = col0(r, d), st = 1 << sh;
-      auto term = [&](int c) {
-        const double vc = c == i + 1 ? 1.0 : (double)A[c0 + c] * scale;
-        return (c <= r ? (double)A[col0(c, d) + r] : (double)A[cr + c]) * vc;
-      };
-      double s1 = 0.0, s2 = 0.0, s3 = 0.0;
-      int c = i + 1 + l;
-      for (; c + 3 * st < d; c += 4 * st) {
-        acc += term(c);
-        s1 += term(c + st);
-        s2 += term(c + 2 * st);
-        s3 += term(c + 3 * st);
-      }
-      for (; c < d; c += st) acc += term(c);
-      acc = (acc + s1) + (s2 + s3);
-    }
-    for (int o = (1 << sh) >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-    if (rr < m && l == 0) {
-      pv[r] = acc;
-      pw[r] = acc * (r == i + 1 ? 1.0 : (double)A[c0 + r] * scale);
-    }
-    __syncthreads();
-    // w = tau p + a2 v, a2 = -tau^2 (p'v) / 2 (every warp sums p'v in the
-    // same order); the lane's rows i + 1 + lane + 32 q of A22 hold their v
-    // and w in registers
-    double pvs = 0.0;
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int rw = i + 1 + lane + 32 * q;
-      if (rw < d) pvs += pw[rw];
-    }
-    const double a2 = -0.5 * tau_i * tau_i * omc::warp_sum_d(pvs);
-    double vr[kQ], wr[kQ];
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int rw = i + 1 + lane + 32 * q;
-      vr[q] = rw == i + 1 ? 1.0 : (rw < d ? (double)A[c0 + rw] * scale : 0.0);
-      wr[q] = rw < d ? fma(tau_i, pv[rw], a2 * vr[q]) : 0.0;
-    }
-    // A22 -= v w' + w v': warp 0 takes column i + 1 and then the next
-    // step's reflector (its norm, beta, tau, scale) while the other warps
-    // take the rest, a column each in turn
-    if (warp == 0) {
-      const int cc = col0(i + 1, d);
-      const double wc = fma(tau_i, pv[i + 1], a2);
-      double nrm = 0.0, x0 = 0.0;
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const int rw = i + 1 + lane + 32 * q;
-        if (rw >= d) continue;
-        const S x = (S)fma(-vr[q], wc, (double)A[cc + rw] - wr[q]);  // v(i+1) = 1
-        A[cc + rw] = x;
-        if (q == 0) x0 = (double)x;
-        if (rw >= i + 3) nrm = fma((double)x, (double)x, nrm);
-      }
-      nrm = omc::warp_sum_d(nrm);
-      const double dnext = __shfl_sync(kFull, x0, 0);  // A(i+1, i+1)
-      const double alpha = __shfl_sync(kFull, x0, 1);  // A(i+2, i+1)
-      if (lane == 0) {
-        Dg[i + 1] = dnext;
-        reflector(alpha, nrm, Eo + i + 1, tau + i + 1, vsc + i + 1);
-      }
-    } else {
-#pragma unroll 2
-      for (int c = i + 1 + warp; c < d; c += nw - 1) {
-        const double vc = (double)A[c0 + c] * scale;
-        const double wc = fma(tau_i, pv[c], a2 * vc);
-        const int cc = col0(c, d);
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-          const int rw = i + 1 + lane + 32 * q;
-          if (rw < c || rw >= d) continue;
-          A[cc + rw] = (S)fma(-vr[q], wc, fma(-wr[q], vc, (double)A[cc + rw]));
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (tid == 0) Dg[d - 1] = (double)A[col0(d - 1, d) + d - 1];
-  __syncthreads();
+  // ---- Householder tridiagonalisation (dsytd2, lower; tridiag.cuh) ----
+  bad = tri::householder_lower<S, kQ>(A, Dg, Eo, tau, vsc, pv, pw, d, bad);
 
   // ---- the nout smallest eigenvalues: Sturm-count multisection ----
   if (warp < nout) {
@@ -395,29 +141,9 @@ __global__ void __launch_bounds__(kThreads5) k5_kernel(K5ParamsT<T> p) {
     const double pad = 2.1 * DBL_EPSILON * tn * d + 4.2 * pivmin;  // dstebz's fudge
     lo -= pad;
     hi += pad;
-    for (int round = 0; round < kRounds; ++round) {
-      const double h = (hi - lo) * (1.0 / 33.0);
-      const double x = fma((double)(lane + 1), h, lo);
-      double q = Dg[0] - x;
-      int cnt = 0;
-      if (q <= pivmin) ++cnt, q = fmin(q, -pivmin);
-#pragma unroll 4
-      for (int j = 1; j < d; ++j) {
-        const double e = Eo[j - 1];
-        q = (Dg[j] - x) - e * e * rcp(q);
-        if (q <= pivmin) ++cnt, q = fmin(q, -pivmin);
-      }
-      // the eigenvalue lies between the last shift that counts <= warp
-      // eigenvalues and the first that counts more
-      const unsigned above = __ballot_sync(kFull, cnt > warp);
-      const int l0 = above ? __ffs(above) - 1 : 32;
-      const double xl = __shfl_sync(kFull, x, l0 & 31);
-      const double xm = __shfl_sync(kFull, x, (l0 + 31) & 31);
-      hi = l0 < 32 ? xl : hi;
-      lo = l0 == 0 ? lo : xm;
-    }
+    const double lam = tri::sturm_multisection(Dg, Eo, d, lo, hi, pivmin, warp, lane);
     if (lane == 0) {
-      sc[warp] = 0.5 * (lo + hi);
+      sc[warp] = lam;
       if (warp == 0) sc[2] = tn > 0.0 ? tn : 1.0;
     }
   }
@@ -428,11 +154,12 @@ __global__ void __launch_bounds__(kThreads5) k5_kernel(K5ParamsT<T> p) {
   const bool close = nout == 2 && fabs(sc[1] - sc[0]) <= 1e-3 * tn;
   int its = 0;
   if (warp < nout && !(close && warp == 1))
-    its = inverse_iteration(Dg, Eo, d, sc[warp], tn, warp, z + warp * d, lu + 4 * warp * d,
-                            piv + warp * d, nullptr, lane);
+    its = tri::inverse_iteration(Dg, Eo, d, sc[warp], tn, warp, z + warp * d,
+                                 lu + 4 * warp * d, piv + warp * d, nullptr, 0, lane);
   __syncthreads();
   if (close && warp == 1)
-    its = inverse_iteration(Dg, Eo, d, sc[1], tn, 1, z + d, lu + 4 * d, piv + d, z, lane);
+    its = tri::inverse_iteration(Dg, Eo, d, sc[1], tn, 1, z + d, lu + 4 * d, piv + d, z, 1,
+                                 lane);
   if (tid == 32) sc[3] = its;
   __syncthreads();
 

@@ -33,7 +33,8 @@ PyTorch version:
 - K9a ``omc_torch.sdp.mccormick.mc_zstep``         (``csrc/k9_mccormick.cu``)
 - K9b ``omc_torch.sdp.mccormick.mc_cone_step``     (``csrc/k9_mccormick.cu``)
 - K4 ``omc_torch.ops.cones.eigvalsh`` and
-  ``project_psd`` (d > 8)                          (``csrc/k4_jacobi.cu``)
+  ``project_psd`` (d > 8)                          (``csrc/k4_jacobi.cu``;
+  the float64 tridiagonal path ``csrc/k4_tridiag.cu``)
 - K4s ``omc_torch.ops.cones.project_psd`` (d <= 8) (``csrc/k4s_jacobi_small.cu``)
 - K5 ``omc_torch.sdp.relax.separation_eigpairs``   (``csrc/k5_separation.cu``;
   ``k5_plan`` gives K4's paths the matrices whose triangle does not fit)
@@ -71,6 +72,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -96,7 +98,7 @@ NVCC_FLAGS = (
 
 _lib = None
 _lib_lock = threading.Lock()
-BUILD_INFO = {"seconds": None, "cached": None, "path": None, "ptxas": ""}
+BUILD_INFO = {"seconds": None, "cached": None, "path": None, "ptxas": "", "source_seconds": {}}
 
 
 def reset_launches():
@@ -149,30 +151,35 @@ def _build(build: bool = True) -> Path:
     nvcc = _nvcc()
     tag = os.getpid()
     t0 = time.time()
-    # one nvcc per source, all started together, then one link
-    jobs = []
-    for src in (p for p in srcs if p.suffix == ".cu"):
+    # one nvcc per source, all started together (a thread each waits for
+    # its own and times it), then one link
+    def compile_one(src):
         obj = out_dir / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
-        jobs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        t = time.time()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        return src, obj, res, time.time() - t
+
+    cus = [p for p in srcs if p.suffix == ".cu"]
+    with ThreadPoolExecutor(max_workers=len(cus)) as ex:
+        jobs = list(ex.map(compile_one, cus))
     logs, failed = [], []
-    for src, _, proc in jobs:
-        out, err = proc.communicate()
-        logs.append(err)
-        if proc.returncode != 0:
-            failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
+    for src, _, res, _ in jobs:
+        logs.append(res.stderr)
+        if res.returncode != 0:
+            failed.append(f"{src.name} ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = out_dir / f"libomc_torch_kernels.{tag}.so"
-    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _, _ in jobs]],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
-    for _, obj, _ in jobs:
+    for _, obj, _, _ in jobs:
         obj.unlink()
-    BUILD_INFO.update(seconds=time.time() - t0, cached=False, ptxas="".join(logs))
+    BUILD_INFO.update(seconds=time.time() - t0, cached=False, ptxas="".join(logs),
+                      source_seconds={src.name: sec for src, _, _, sec in jobs})
     return so
 
 
@@ -201,7 +208,8 @@ class K2Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _K2_PTRS + ("ws",)] + [
         ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
         ("k", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
-        ("band", ctypes.c_int), ("xsmem", ctypes.c_int), ("gamma", ctypes.c_float),
+        ("band", ctypes.c_int), ("xsmem", ctypes.c_int), ("usmem", ctypes.c_int),
+        ("gamma", ctypes.c_float),
     ]
 
 
@@ -223,7 +231,7 @@ class K3Params(ctypes.Structure):
         ("B", ctypes.c_int), ("n", ctypes.c_int), ("m", ctypes.c_int),
         ("k", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
         ("xsmem", ctypes.c_int), ("slsmem", ctypes.c_int), ("hal_it", ctypes.c_int),
-        ("alpha", ctypes.c_float), ("beta", ctypes.c_float),
+        ("usmem", ctypes.c_int), ("alpha", ctypes.c_float), ("beta", ctypes.c_float),
     ]
 
 
@@ -418,10 +426,9 @@ def require_cuda_shape(family: str, k: int, n: int, m: int, batch: int = 1) -> N
     kernels (K7x's, K8c's and K8d's wide kernels past k = 4) take any rank;
     K9a and K9b index a batch's flat entries, and the kernels a slot's
     entries, in 64 bits where they pass 2^31.  The card's memory is the
-    limit (CUDA's out-of-memory error where it runs out), and K3's shared
-    memory, which k2k3_plan refuses past n k = 52,509 (float32) or 25,230
-    (float64) at the base and Shor families' first visit (ROADMAP.md queue
-    3, item 7)."""
+    limit (CUDA's out-of-memory error where it runs out): where U passes
+    K3's shared memory, K3 reads it from the input (``k2k3_plan``'s
+    ``k3_u``)."""
     if family not in FLOAT64_FAMILIES:
         raise ValueError(f"unknown solver family {family!r}")
     if k < 1 or min(n, m, batch) < 1:
@@ -472,6 +479,8 @@ def _load(path: Path):
     lib.omc_k5_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k5_threads.argtypes = []
     lib.omc_k5_threads.restype = ctypes.c_int
+    lib.omc_k4_tri_smem_bytes.argtypes = [ctypes.c_int]
+    lib.omc_k4_tri_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k4_cta_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.omc_k4_cta_smem_bytes.restype = ctypes.c_longlong
     lib.omc_k4s_smem_bytes.argtypes = [ctypes.c_int] * 2
@@ -523,7 +532,7 @@ def _load(path: Path):
     for name in ("omc_k9a_fix_smem_bytes", "omc_k9b_wide_smem_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int] * 2
         getattr(lib, name).restype = ctypes.c_longlong
-    for name, nargs in (("omc_k2_smem_bytes", 9), ("omc_k3_smem_bytes", 9),
+    for name, nargs in (("omc_k2_smem_bytes", 10), ("omc_k3_smem_bytes", 10),
                         ("omc_k2_ws_doubles", 6), ("omc_k3_ws_doubles", 5)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
         getattr(lib, name).restype = ctypes.c_longlong

@@ -6,7 +6,8 @@ All functions accept leading batch dimensions.
 
 ``eigvalsh`` and ``project_psd`` are the wrappers of kernels K4
 (``csrc/k4_jacobi.cu``: parallel Jacobi, one CTA per matrix, or block
-Jacobi spread over all SMs; ``k4_plan`` picks the path) and K4s
+Jacobi spread over all SMs; in float64 also the tridiagonal path of
+``csrc/k4_tridiag.cu``; ``k4_plan`` picks the path) and K4s
 (``csrc/k4s_jacobi_small.cu``: the PSD projection of matrices up to 8 x 8,
 one thread each).  A CPU tensor takes the plain version, LAPACK through
 ``torch.linalg`` (the float64 host certificates of the Shor bounds go
@@ -75,6 +76,23 @@ K4_PATHS = ("cta", "block16")
 # each only while A (and V) fit in its shared memory
 K4_CTA_EIGVALS_D = 150
 K4_CTA_VECTORS_D, K4_CTA_VECTORS_B = 100, 64
+# the float64 build's third path (csrc/k4_tridiag.cu): Householder
+# reduction in one CTA a matrix, then a warp an eigenvalue or a vector over
+# the card; it takes d up to K4_TRI_MAX_D (the float64 triangle fits one
+# CTA's shared memory) and an explicit M (not K5's U U' - Y).  The plan
+# sends every float64 mode of order K4_TRI_MIN_D..K4_TRI_MAX_D there at
+# every batch, and below K4_TRI_MIN_D a batch of at most K4_TRI_SMALL_B
+# matrices from d = K4_TRI_SMALL_D[mode] on.  H100 measurements of the
+# three paths (chip_smoke.py, PERF.md): the tridiagonal path the fastest at
+# every shape of d = 50 to 200 and B = 1 to 64, and below d = 32 at B <= 64
+# in modes 0 and 1 from d = 9 and in mode 2 at d = 24 (the CTA path at d =
+# 9 and 17 in mode 2); the CTA path the faster at d = 17 from 1,024
+# matrices and at the Shor bounds' 131,072 XWH slots of d = 9 and 17
+K4_TRI = "tri"
+K4_F64_PATHS = K4_PATHS + (K4_TRI,)
+K4_TRI_SMALL_B, K4_TRI_SMALL_D = 64, (9, 9, 24)
+K4_TRI_MIN_D, K4_TRI_MAX_D = 32, 234
+K4_PATH_CODES = {"cta": 0, "block16": 1, K4_TRI: 2}
 
 
 def k4_cta_smem_bytes(d, mode, dtype=torch.float32):
@@ -107,19 +125,50 @@ def k4_block_geometry(d, mode, dtype=torch.float32):
                 mat_bytes=floats * dtype.itemsize)
 
 
-def k4_plan(B, d, mode, path=None, dtype=torch.float32):
+def k4_tri_smem_bytes(d):
+    """The tridiagonal path's reduction CTA (``reduce_smem`` in
+    ``csrc/k4_tridiag.cu``): 6 d + 8 doubles of head, then the packed
+    float64 triangle; 0 where it does not fit (d > ``K4_TRI_MAX_D``)."""
+    b = 8 * (6 * d + 8 + d * (d + 1) // 2)
+    return b if b <= K4_SMEM_MAX else 0
+
+
+def k4_tri_workspace(B, d, mode):
+    """The tridiagonal path's workspace in doubles (``TGeom`` in
+    ``csrc/k4_tridiag.cu``): per matrix T's diagonal and off-diagonal, the
+    reflectors' tau, the eigenvalues, each vector's eigenvalue, 8 control
+    values, and (modes 1, 2) the reflectors and the vectors (d^2 each)."""
+    return B * (5 * d + 8 + (2 * d * d if mode else 0))
+
+
+def k4_plan(B, d, mode, path=None, dtype=torch.float32, sep=False):
     """K4's path for ``B`` matrices of order ``d`` in ``mode``: in float32
     the CTA path (one CTA per matrix) where it wins (``K4_CTA_*`` above),
-    else the block path (blocks of 16); in float64 the CTA path wherever A
-    (and V) fit its shared memory, else the block path (the float64 block
-    path's FP64 tile products are not yet measured against it).  ``path``
-    (one of ``K4_PATHS``) forces it; the CTA path raises ``ValueError``
-    where A (and V) do not fit.  Returns a dict: ``path``,
+    else the block path (blocks of 16); in float64 the tridiagonal path
+    ("tri") at orders ``K4_TRI_MIN_D`` to ``K4_TRI_MAX_D`` and, at batches
+    of at most ``K4_TRI_SMALL_B``, from ``K4_TRI_SMALL_D[mode]``, else the
+    CTA path wherever A (and V) fit its shared memory, else the block path.
+    ``path`` (one of ``K4_PATHS``, or in float64 ``K4_F64_PATHS``) forces
+    it; the CTA path raises ``ValueError`` where A (and V) do not fit, the
+    tridiagonal path past ``K4_TRI_MAX_D`` or on float32 operands.  ``sep``:
+    the matrices are K5's U U' - Y, which the tridiagonal path does not
+    form (the plan keeps the Jacobi paths).  Returns a dict: ``path``,
     ``workspace_floats`` (the whole call's values of ``dtype``, as
     ``omc_k4_workspace_floats`` reports it), ``workspace_bytes``,
     ``smem_bytes`` (a CTA's on the CTA path) and ``rounds`` per outer sweep
     on the block path (two grid barriers each; 0 on the CTA path)."""
     f64 = dtype == torch.float64
+    if path is None and f64 and not sep and d <= K4_TRI_MAX_D and (
+            d >= K4_TRI_MIN_D or (B <= K4_TRI_SMALL_B and d >= K4_TRI_SMALL_D[mode])):
+        path = K4_TRI
+    if path == K4_TRI:
+        if not f64:
+            raise ValueError(f"K4's tridiagonal path takes float64 operands, not {dtype}")
+        if not k4_tri_smem_bytes(d):
+            raise ValueError(f"K4's tridiagonal path: d={d} above {K4_TRI_MAX_D}")
+        n = k4_tri_workspace(B, d, mode)
+        return dict(path=path, workspace_floats=n, workspace_bytes=8 * n, rounds=0,
+                    smem_bytes=k4_tri_smem_bytes(d))
     if path is None:
         if f64:
             cta = True
@@ -129,7 +178,8 @@ def k4_plan(B, d, mode, path=None, dtype=torch.float32):
             cta = d <= K4_CTA_VECTORS_D and B >= K4_CTA_VECTORS_B
         path = "cta" if cta and k4_cta_fits(d, mode, dtype) else "block16"
     if path not in K4_PATHS:
-        raise ValueError(f"K4 path must be one of {K4_PATHS}, got {path!r}")
+        raise ValueError(f"K4 path must be one of {K4_F64_PATHS if f64 else K4_PATHS}, "
+                         f"got {path!r}")
     if path == "cta":
         if not k4_cta_fits(d, mode, dtype):
             raise ValueError(f"K4's CTA path: d={d} (mode {mode}, {dtype}) does not fit "
@@ -152,9 +202,15 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
     was hit).  ``path`` forces ``k4_plan``'s path (timing).  ``stats`` (a
     dict, block path): waits for the kernel and fills in its grid barriers,
     the milliseconds its first CTA spent in each phase, barrier included,
-    its grid (CTAs) and group (phase 1's warps per block pair).  Returns
+    its grid (CTAs) and group (phase 1's warps per block pair); on the
+    tridiagonal path it waits and fills in ``vectors``, each matrix's count
+    of eigenvectors computed.  Returns
     ``w``, ``P`` or ``(w, V)``, in the operands' dtype (float32, or
-    float64 through the float64 build)."""
+    float64 through the float64 build).  On the tridiagonal path (float64
+    only) ``sweeps`` receives the most inverse-iteration solves of a
+    matrix's vectors (0 in mode 0), and ``MAX_SWEEPS + 1`` where the input
+    was not finite or a vector reached dstein's cap; one call is one
+    counted launch whatever the kernels it enqueues."""
     key = "K4" if M is not None else "K5"
     if mode not in (0, 1, 2):
         raise ValueError(f"{key}: mode {mode!r} is not 0, 1 or 2")
@@ -168,10 +224,12 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
     if not 1 <= nout <= d:
         raise ValueError(f"{key}: nout {nout} outside 1..{d}")
     dt = src.dtype
-    plan = k4_plan(Bn, d, mode, path, dt)
+    plan = k4_plan(Bn, d, mode, path, dt, sep=M is None)
+    if plan["path"] == K4_TRI and M is None:
+        raise ValueError("K4's tridiagonal path takes M, not K5's U U' - Y")
     p = kernels.block(kernels.K4Params, dt)
     p.B, p.d, p.nout, p.mode, p.k = Bn, d, nout, mode, 0
-    p.path = int(plan["path"] != "cta")
+    p.path = K4_PATH_CODES[plan["path"]]
     if M is not None:
         M = M.contiguous()
         p.M = kernels.check("M", M, M.shape, dev, dt)
@@ -200,12 +258,17 @@ def k4_jacobi(M=None, mode=0, nout=None, *, U=None, Y=None, sweeps=None, path=No
     p.work = work.data_ptr() if work is not None else None
     if Bn:
         kernels.launch(key, kernels.entry("omc_k4_jacobi", dt), p, dev)
-    if stats is not None and p.path and Bn:
+    if stats is not None and p.path == 1 and Bn:
         # the control words: 32-bit, whatever the workspace's dtype
         words = work[:K4_CTL].cpu().view(torch.int32)[:K4_CTL]  # synchronises
         ns = words[4:8].view(torch.int64)
         stats.update(grid_barriers=int(words[1]), phase1_ms=float(ns[0]) / 1e6,
                      phase2_ms=float(ns[1]) / 1e6, grid=int(words[8]), group=int(words[9]))
+    if stats is not None and p.path == 2 and Bn:
+        # each matrix's count of vectors (TGeom's ctl slot kCount; 0 in mode 0)
+        per = k4_tri_workspace(1, d, mode)
+        stats.update(vectors=work.view(Bn, per)[:, 5 * d + 5].cpu().long().tolist()
+                     if mode else [0] * Bn)
     return P if mode == 1 else (w if mode == 0 else (w, V))
 
 

@@ -1,7 +1,9 @@
 """A vectorised torch mirror of kernel K5's order of work
 (``omc_torch/csrc/k5_separation.cu``): the ``nout <= 2`` smallest
 eigenpairs of sym(U U' - Y) by Householder tridiagonalisation, Sturm-count
-multisection and inverse iteration.
+multisection and inverse iteration; and of K4's float64 tridiagonal path
+(``csrc/k4_tridiag.cu``), which runs the same steps for every eigenvalue
+of sym(M), and for the vectors it needs (end of this module).
 
 The kernel runs on the GPU only; this mirror runs the same algorithm on any
 device, so that the CPU tests can hold the reflectors, the 32-shift
@@ -167,11 +169,13 @@ def multisection(diag, off, nout):
     return 0.5 * (lo + hi), tn
 
 
-def inverse_iteration(diag, off, lam, tn, seed, z0=None):
+def inverse_iteration(diag, off, lam, tn, seed, z0=None, zs=None):
     """dstein's inverse iteration for the eigenvalues ``lam`` (B,) of T,
-    with the kernel's start vector ``seed`` and, where ``z0`` (B, d) is
-    given, its orthogonalisation after every solve.  Returns the unit
-    vectors (B, d), largest entry positive, and the solves run (B,)
+    with the kernel's start vector ``seed`` (an int, or one a row) and,
+    where ``z0`` (B, d) is given, its orthogonalisation after every solve;
+    where ``zs`` (B, G, d) is given, the same against each of its G vectors
+    in turn (modified Gram-Schmidt; K4's tridiagonal path).  Returns the
+    unit vectors (B, d), largest entry positive, and the solves run (B,)
     (``MAX_ITERS + 1`` at the cap)."""
     Bn, d = diag.shape
     tol = _EPS * tn
@@ -196,12 +200,14 @@ def inverse_iteration(diag, off, lam, tn, seed, z0=None):
     for u in u0:
         u = torch.where(torch.abs(u) < tol, torch.where(u < 0, -tol, tol), u)
         ru.append(1.0 / u)
-    x = start_vector(d, seed, diag.device).expand(Bn, d).clone()
+    seeds = [int(seed)] * Bn if isinstance(seed, int) else [int(t) for t in seed]
+    x = torch.stack([start_vector(d, t, diag.device) for t in seeds]) if Bn else \
+        torch.zeros(0, d, dtype=torch.float64, device=diag.device)
     crit = (0.1 / d) ** 0.5
     its = torch.full((Bn,), MAX_ITERS + 1, dtype=torch.int32, device=diag.device)
     checks = torch.zeros((Bn,), dtype=torch.int32, device=diag.device)
     done = torch.zeros((Bn,), dtype=torch.bool, device=diag.device)
-    reseed = torch.full((Bn,), seed, dtype=torch.int64, device=diag.device)
+    reseed = torch.tensor(seeds, dtype=torch.int64, device=diag.device)
     for it in range(1, MAX_ITERS + 1):
         y = x.clone()
         bmax = torch.amax(torch.abs(y), -1)
@@ -225,6 +231,9 @@ def inverse_iteration(diag, off, lam, tn, seed, z0=None):
         y = torch.stack(cols, -1)
         if z0 is not None:
             y = y - torch.sum(y * z0, -1, keepdim=True) * z0
+        if zs is not None:
+            for g in range(zs.shape[1]):
+                y = y - torch.sum(y * zs[:, g], -1, keepdim=True) * zs[:, g]
         passed = torch.amax(torch.abs(y), -1) >= crit
         live = ~done
         x = torch.where(live[:, None], y, x)
@@ -275,3 +284,136 @@ def separation_tridiag(U, Y, nout: int = 2, storage=torch.float64):
     V = torch.where(bad[:, None, None], nan, V)
     its = torch.where(bad, MAX_ITERS + 1, its)
     return w.to(U.dtype), V.to(U.dtype), its
+
+
+# ---- K4's tridiagonal path (float64; csrc/k4_tridiag.cu) ----
+#
+# The same reduction, multisection and inverse iteration for every
+# eigenvalue of sym(M), and the kernel's choice of vectors: mode 2 the nout
+# smallest; mode 1 (the PSD projection) those on the side of zero with
+# fewer eigenvalues beyond tau = d eps ||T||_1 (A minus the negative part,
+# or the positive part), an eigenvalue within tau of zero left out.  The
+# needed eigenvalues form dstein's groups (the next within 1e-3 ||T||_1 of
+# the last); a group's vectors run one after the other, each shift at least
+# 10 eps |lambda| above the last, each solve orthogonalised against the
+# group's earlier vectors; the start vector of eigenvalue j is seeded by j.
+
+
+def _tri_of(M):
+    """sym(M) in float64, T's diagonal and off-diagonal, the reflectors,
+    their tau and the non-finite flag (B,)."""
+    A = 0.5 * (M.double() + M.double().transpose(-1, -2))
+    bad = ~torch.isfinite(A).all(-1).all(-1)
+    diag, off, tau, R = tridiagonalise(torch.tril(A) + torch.tril(A, -1).transpose(-1, -2))
+    return A, diag, off, tau, R, bad
+
+
+def tri_needs(w, tn, mode, nout=None):
+    """The vectors K4's tridiagonal path computes for one matrix of
+    eigenvalues ``w`` (d,) and ||T||_1 ``tn``: a list of eigenvalue indices,
+    ascending, and the side (+1: P = sum over them of lambda y y'; -1: P = A
+    minus it; 0: mode 2's eigenpairs)."""
+    d = w.shape[-1]
+    if mode == 2:
+        return list(range(nout)), 0
+    tau = d * _EPS * float(tn)
+    na, nb = int((w < -tau).sum()), int((w > tau).sum())
+    if na < nb:
+        return [j for j in range(d) if float(w[j]) < -tau], -1
+    return [j for j in range(d) if float(w[j]) > tau], 1
+
+
+def tri_groups(w, idx, tn):
+    """dstein's groups of the needed eigenvalues ``idx``: runs in which each
+    is within 1e-3 ||T||_1 of the one before."""
+    groups = []
+    for j in idx:
+        if groups and not float(w[j]) - float(w[groups[-1][-1]]) > 1e-3 * float(tn):
+            groups[-1].append(j)
+        else:
+            groups.append([j])
+    return groups
+
+
+def tri_vectors(diag, off, w, tn, groups):
+    """The unit eigenvectors of one tridiagonal T (``diag`` (d,), ``off``
+    (d - 1,)) for ``groups`` of eigenvalue indices into ``w``: the groups'
+    p-th vectors together, each against its group's earlier ones.  Returns
+    a dict index -> (vector (d,), solves)."""
+    out, shift = {}, {}
+    for pos in range(max((len(g) for g in groups), default=0)):
+        live = [g for g in groups if len(g) > pos]
+        js = [g[pos] for g in live]
+        lam = []
+        for g in live:
+            x = float(w[g[pos]])
+            if pos:  # dstein: at least 10 eps |lambda| above the last shift
+                prev, pert = shift[g[pos - 1]], 10.0 * _EPS * abs(x)
+                x = prev + pert if x - prev < pert else x
+            shift[g[pos]] = x
+            lam.append(x)
+        G = len(live)
+        zs = torch.stack([torch.stack([out[j][0] for j in g[:pos]]) for g in live]) if pos else None
+        z, its = inverse_iteration(diag.expand(G, -1), off.expand(G, -1),
+                                   torch.tensor(lam, dtype=torch.float64, device=diag.device),
+                                   torch.full((G,), float(tn), dtype=torch.float64,
+                                              device=diag.device), js, zs=zs)
+        for t, j in enumerate(js):
+            out[j] = (z[t], int(its[t]))
+    return out
+
+
+def _tri_eig(M, mode, nout=None):
+    """K4's tridiagonal path in order of work on (B, d, d) ``M``: the
+    eigenvalues (B, d), and for modes 1 and 2 per matrix the needed
+    indices, side, back-transformed vectors (g, d) and the most solves."""
+    A, diag, off, tau, R, bad = _tri_of(M)
+    d = A.shape[-1]
+    w, tn = multisection(diag, off, d if mode == 1 else (nout or d))
+    per = []
+    if mode:
+        for b in range(A.shape[0]):
+            idx, side = tri_needs(w[b], tn[b], mode, nout)
+            vec = tri_vectors(diag[b], off[b, :max(d - 1, 0)], w[b], tn[b],
+                              tri_groups(w[b], idx, tn[b]))
+            Z = torch.stack([vec[j][0] for j in idx], -1) if idx else \
+                torch.zeros(d, 0, dtype=torch.float64)
+            Y = back_transform(Z[None], R[b:b + 1], tau[b:b + 1])[0] if idx else Z
+            per.append((idx, side, Y, max((vec[j][1] for j in idx), default=0)))
+    return A, w, bad, per
+
+
+def eigvalsh_tridiag(M):
+    """Eigenvalues (B, d), ascending to rounding, of sym(M) by K4's
+    tridiagonal path (float64); NaN where M is not finite."""
+    _, w, bad, _ = _tri_eig(M, 0)
+    return torch.where(bad[:, None], torch.full_like(w, float("nan")), w)
+
+
+def eigh_tridiag(M, nout):
+    """The ``nout`` smallest eigenpairs of sym(M) by K4's tridiagonal path
+    (mode 2): ``w`` (B, nout), ``V`` (B, d, nout) and the most solves of a
+    matrix's vectors (B,)."""
+    _, w, bad, per = _tri_eig(M, 2, nout)
+    V = torch.stack([Y for _, _, Y, _ in per])
+    its = torch.tensor([t for *_, t in per], dtype=torch.int32)
+    nan = float("nan")
+    return (torch.where(bad[:, None], nan, w), torch.where(bad[:, None, None], nan, V),
+            torch.where(bad, MAX_ITERS + 1, its))
+
+
+def project_psd_tridiag(M):
+    """The PSD projection of sym(M) (B, d, d) by K4's tridiagonal path (mode
+    1): A - sum_{lambda < -tau} lambda y y' or sum_{lambda > tau} lambda y
+    y', the side with fewer vectors, the sum over the vectors in ascending
+    order; NaN where M is not finite.  Returns ``(P, solves)``."""
+    A, w, bad, per = _tri_eig(M, 1)
+    Ps, its = [], []
+    for b, (idx, side, Y, most) in enumerate(per):
+        lam = w[b, idx] if idx else torch.zeros(0, dtype=torch.float64)
+        S = (Y * (side * lam)[None, :]) @ Y.transpose(-1, -2)
+        Ps.append(A[b] + S if side < 0 else S)
+        its.append(most)
+    P = torch.stack(Ps)
+    return (torch.where(bad[:, None, None], float("nan"), P),
+            torch.where(bad, MAX_ITERS + 1, torch.tensor(its, dtype=torch.int32)))

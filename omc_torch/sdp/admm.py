@@ -366,13 +366,14 @@ def _odd(n):
     return n | 1
 
 
-def k2_smem_bytes(n, m, k, L, C, band, xsmem=True, ws=False, dtype=torch.float32):
+def k2_smem_bytes(n, m, k, L, C, band, xsmem=True, ws=False, dtype=torch.float32, usmem=True):
     """K2's dynamic shared memory (``omc_k2_smem_bytes``) at ``dtype``: per-
     warp partials of a chunk of chords, the CTA's partials of s, the
     cluster's gathered and their sums (one CTA: its own; float64), the
     masked cuts (``xsmem``), the mask, the cut-slot duals, s, t, the band's
-    zU, G1^-1 (p <= K2_GI_MAX), a Theta tile pair a warp, and with ``band``
-    the band of sym(zY) at an odd row stride, each a value of ``dtype``.
+    zU (``usmem``; else in U's own rows), G1^-1 (p <= K2_GI_MAX), a Theta
+    tile pair a warp, and with ``band`` the band of sym(zY) at an odd row
+    stride, each a value of ``dtype``.
     With ``ws`` the partials, their sums, s, t and the two L k interval-slot
     vectors are in the global workspace (``k2_ws_doubles``)."""
     e = dtype.itemsize
@@ -381,7 +382,7 @@ def k2_smem_bytes(n, m, k, L, C, band, xsmem=True, ws=False, dtype=torch.float32
     bw = _cdiv(n, C)
     sums = 0 if ws else per * (2 + C if C > 1 else 1) * P + 2 * L * k + 2 * P
     f = (per * K2K3_WARPS * (1 + K2K3_CHUNK) + sums + (L * n if xsmem else 0) + 2 * L
-         + bw * k + (P * P if P <= K2_GI_MAX else 0)
+         + (bw * k if usmem else 0) + (P * P if P <= K2_GI_MAX else 0)
          + K2K3_WARPS * 2 * K2K3_TILE * (K2K3_TILE + 1))
     return e * (f + (bw * _odd(n) if band else 0))
 
@@ -396,20 +397,23 @@ def k2_ws_doubles(n, m, k, L, C, dtype=torch.float32):
     return C * _cdiv(per * 2 * P + 2 * L * k + 2 * P, per) + _cdiv(P, per)
 
 
-def k3_smem_bytes(n, m, k, L, C, xsmem=True, slsmem=True, ws=False, dtype=torch.float32):
+def k3_smem_bytes(n, m, k, L, C, xsmem=True, slsmem=True, ws=False, dtype=torch.float32,
+                  usmem=True):
     """K3's dynamic shared memory (``omc_k3_smem_bytes``) at ``dtype``:
     per-warp partials of a chunk of chords, the CTA's partials (tr Y, x_l'Y
     x_l, ||tsoc_j[1:]||^2, x_l'U_j), the cluster's gathered and their sums
     (one CTA: its own; with ``ws`` in the global workspace,
     ``k3_ws_doubles``), the cuts (``xsmem``; all float64), then values of
-    ``dtype``: U, tsoc_j[0], the band's tsoc, an X tile a warp, and
+    ``dtype``: U and the band's tsoc (``usmem``; else U read from the input
+    and the tsoc entries kept in wsoc's), tsoc_j[0], an X tile a warp, and
     (``slsmem``) the trace, interval and chord slots rank 0 stages."""
     e = dtype.itemsize
     NP = 1 + L + k + L * k
     return e * ((8 // e) * (K2K3_WARPS * (1 + K2K3_CHUNK)
                             + (0 if ws else (2 + C if C > 1 else 1) * NP)
                             + (L * n if xsmem else 0))
-                + n * k + k + k * _cdiv(n, C) + K2K3_WARPS * K2K3_TILE * (K2K3_TILE + 1)
+                + ((n * k + k * _cdiv(n, C)) if usmem else 0) + k
+                + K2K3_WARPS * K2K3_TILE * (K2K3_TILE + 1)
                 + (8 * L * k + 4 * L + 2 if slsmem else 0))
 
 
@@ -430,7 +434,12 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None,
     K2 keeps its band of sym(zY) in shared memory ("smem") where it fits,
     else in the CTA's own rows of Y ("rows"); either kernel stages the cut
     vectors in shared memory where they fit ("smem"), else reads them from
-    the input ("global"), and K3's rank 0 its small slots likewise.  ``cluster`` (both kernels) and ``band`` force a
+    the input ("global"), and K3's rank 0 its small slots likewise; K3
+    stages U and its band's SOC entries where some layout fits them
+    ("smem"), else every CTA reads U from the input and keeps the entries
+    in the slot's own (``k3_u`` "global"), and K2 keeps its band's zU in
+    U's own rows where it does not fit beside the rest (``k2_u``
+    "global"): the same bits either way.  ``cluster`` (both kernels) and ``band`` force a
     choice, for timing and checks.  Raises where a shape needs more shared
     memory than a CTA has.
 
@@ -461,22 +470,34 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None,
     else:
         raise ValueError(f"K2/K3: cluster {cluster!r} not in {K2K3_CLUSTERS}")
 
-    def fit2(C, ws):
+    def fit2(C, ws, us):
         for bd in (band,) if band else ("smem", "rows"):
+            if not us and bd == "smem":
+                continue  # zU in U's rows only beside the band in Y's rows
             for xsm in (True, False):
-                if k2_smem_bytes(n, m, k, L, C, bd == "smem", xsm, ws, dtype) <= K2K3_MAX_SMEM:
+                if k2_smem_bytes(n, m, k, L, C, bd == "smem", xsm, ws, dtype,
+                                 us) <= K2K3_MAX_SMEM:
                     return bd, xsm
         return None
 
-    def fit3(C, ws):
+    def fit3(C, ws, us):
         for xsm, slm in ((True, True), (True, False), (False, True), (False, False)):
-            if k3_smem_bytes(n, m, k, L, C, xsm, slm, ws, dtype) <= K2K3_MAX_SMEM:
+            if k3_smem_bytes(n, m, k, L, C, xsm, slm, ws, dtype, us) <= K2K3_MAX_SMEM:
                 return xsm, slm
         return None
 
-    # the partials in shared memory where they fit, else in the workspace
-    ws2, ws3 = fit2(C2, False) is None, fit3(C3, False) is None
-    f2, f3 = fit2(C2, ws2), fit3(C3, ws3)
+    # the partials in shared memory where they fit, else in the workspace;
+    # K3's U staged where either fits it, else read from the input
+    for us2 in (True, False):
+        ws2 = fit2(C2, False, us2) is None
+        f2 = fit2(C2, ws2, us2)
+        if f2 is not None:
+            break
+    for us3 in (True, False):
+        ws3 = fit3(C3, False, us3) is None
+        f3 = fit3(C3, ws3, us3)
+        if f3 is not None:
+            break
     if f2 is None or f3 is None:
         raise ValueError(f"K2/K3: n={n}, m={m}, k={k}, L={L} needs more than {K2K3_MAX_SMEM} "
                          "bytes of shared memory a CTA")
@@ -485,9 +506,10 @@ def k2k3_plan(B: int, n: int, m: int, k: int, L: int, cluster=None, band=None,
     where = {True: "smem", False: "global"}
     return dict(k2_cluster=C2, k3_cluster=C3, threads=K2K3_THREADS, k2_rows=_cdiv(n, C2),
                 k3_rows=_cdiv(n, C3), band=bd, k2_xs=where[xs2], k3_xs=where[xs3],
-                k3_slots=where[sl3], k2_sums=where[not ws2], k3_sums=where[not ws3],
-                k2_smem=k2_smem_bytes(n, m, k, L, C2, bd == "smem", xs2, ws2, dtype),
-                k3_smem=k3_smem_bytes(n, m, k, L, C3, xs3, sl3, ws3, dtype),
+                k3_slots=where[sl3], k2_u=where[us2], k3_u=where[us3],
+                k2_sums=where[not ws2], k3_sums=where[not ws3],
+                k2_smem=k2_smem_bytes(n, m, k, L, C2, bd == "smem", xs2, ws2, dtype, us2),
+                k3_smem=k3_smem_bytes(n, m, k, L, C3, xs3, sl3, ws3, dtype, us3),
                 k2_ws=k2_ws_doubles(n, m, k, L, C2, dtype) if ws2 else 0,
                 k3_ws=k3_ws_doubles(n, m, k, L, C3) if ws3 else 0)
 
@@ -623,6 +645,7 @@ def _k2_params(c: _Consts, st: ADMMState, shor: bool, plan: dict):
     prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
     prm.C, prm.band = plan["k2_cluster"], int(plan["band"] == "smem")
     prm.xsmem = int(plan["k2_xs"] == "smem")
+    prm.usmem = int(plan["k2_u"] == "smem")
     prm.gamma = float(c.gamma)
     _workspace(prm, B * plan["k2_ws"], dev)
     return prm
@@ -776,6 +799,7 @@ def _k3_params(c: _Consts, st: ADMMState, ts, acc, cluster):
     prm.B, prm.n, prm.m, prm.k, prm.L = B, n, m, k, L
     prm.C, prm.xsmem = plan["k3_cluster"], int(plan["k3_xs"] == "smem")
     prm.slsmem = int(plan["k3_slots"] == "smem")
+    prm.usmem = int(plan["k3_u"] == "smem")
     prm.alpha, prm.beta = float(c.alpha), float(c.beta)
     if c.anchors is not None:
         for (w, _), name, h in zip(ANCHOR_SLOTS, kernels.K3_ANCHORS, c.anchors):

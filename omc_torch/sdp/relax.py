@@ -203,7 +203,7 @@ def k5_plan(B, d, path=None, dtype=torch.float32):
     tridiag = K5_TRIDIAG[:1] if dtype == torch.float64 else K5_TRIDIAG
     if path is None:
         fits = [p for p in tridiag if k5_smem_bytes(d, p)]
-        path = fits[0] if fits else k4_plan(B, d, 2, dtype=dtype)["path"]
+        path = fits[0] if fits else k4_plan(B, d, 2, dtype=dtype, sep=True)["path"]
     if path not in K5_PATHS:
         raise ValueError(f"K5 path must be one of {K5_PATHS}, got {path!r}")
     if path in K4_PATHS:

@@ -128,21 +128,31 @@ def test_k2_k3_smem_formulas_at_both_dtypes(n, k, L, C, band, xsmem, ws):
 
 @pytest.mark.parametrize("B,d,mode", K4_F64)
 def test_k4_plan_float64(B, d, mode):
-    """In float64 the CTA path takes what fits (d <= 118 with vectors,
-    167 without, the head and A, V at 8 bytes a slot), else the block path,
-    whose workspace is counted at 8 bytes a value."""
+    """In float64 the tridiagonal path takes every mode of order 32..234
+    (its reduction CTA holds 6 d + 8 doubles and the packed float64
+    triangle; its workspace 5 d + 8 doubles a matrix, and two d x d blocks
+    with vectors), but never K5's U U' - Y; the CTA path takes what fits
+    (d <= 118 with vectors, 167 without, the head and A, V at 8 bytes a
+    slot), else the block path, whose workspace is counted at 8 bytes a
+    value."""
     plan = cones.k4_plan(B, d, mode, dtype=F64)
     head = 6 * ((d + 1) // 2) + 32 + 3 * d + 1
     cta_bytes = 8 * (head + d * (d | 1) * (2 if mode else 1))
     assert cones.k4_cta_fits(d, mode, F64) == (cta_bytes <= SMEM)
     assert cones.k4_cta_fits(d, mode, F64) == (d <= (167 if mode == 0 else 118))
-    assert plan["path"] == ("cta" if cta_bytes <= SMEM else "block16")
-    if plan["path"] == "cta":
-        assert plan["smem_bytes"] == cta_bytes <= SMEM and plan["workspace_floats"] == 0
+    assert plan["path"] == "tri"
+    tri_bytes = 8 * (6 * d + 8 + d * (d + 1) // 2)
+    assert plan["smem_bytes"] == tri_bytes <= SMEM
+    assert plan["workspace_floats"] == B * (5 * d + 8 + (2 * d * d if mode else 0))
+    assert plan["workspace_bytes"] == 8 * plan["workspace_floats"]
+    sep = cones.k4_plan(B, d, mode, dtype=F64, sep=True)
+    assert sep["path"] == ("cta" if cta_bytes <= SMEM else "block16")
+    if sep["path"] == "cta":
+        assert sep["smem_bytes"] == cta_bytes <= SMEM and sep["workspace_floats"] == 0
     else:
         geo = cones.k4_block_geometry(d, mode, F64)
-        assert plan["workspace_floats"] == 16 + B * geo["mat_floats"]
-        assert plan["workspace_bytes"] == 8 * plan["workspace_floats"]
+        assert sep["workspace_floats"] == 16 + B * geo["mat_floats"]
+        assert sep["workspace_bytes"] == 8 * sep["workspace_floats"]
         # the block path's CTA: 8 warps of three 32 x 36 tiles of doubles
         assert 8 * 3 * 32 * 36 * 8 <= SMEM
 

@@ -460,6 +460,144 @@ def test_k3_mirror_matches_omc(B, n, m, k, L, dtype, cuts):
             assert _rel(a.numpy(), r.numpy()) <= TOL[dtype]
 
 
+# one node whose U no longer fits one CTA beside the rest: K3 reads U from
+# the input and keeps its band's SOC entries in the slot's own (k3_u
+# "global"); the K2 band of zU stays in shared memory at rank 10
+BIG_U = [(1, 6000, 6000, 10, 8, torch.float32), (1, 2600, 2600, 10, 8, torch.float64),
+         (1, 20000, 20000, 10, 8, torch.float32)]
+
+
+@pytest.mark.parametrize("B,n,m,k,L,dt", BIG_U)
+def test_k2k3_plan_reads_u_from_the_input_past_shared_memory(B, n, m, k, L, dt):
+    """k2k3_plan admits the shapes whose U outgrows a CTA (past n k =
+    52,509 in float32, 25,230 in float64), with K3's U read from the input
+    only where no layout with U staged fits; every U row, SOC entry, box
+    entry and t2 row n + c is owned by one CTA of the cluster once."""
+    p = tadmm.k2k3_plan(B, n, m, k, L, dtype=dt)
+    big = tadmm.K2K3_MAX_SMEM
+    C3 = p["k3_cluster"]
+    assert p["k3_u"] == "global" and p["k2_u"] == "smem"
+    assert all(tadmm.k3_smem_bytes(n, m, k, L, C3, xs, sl, ws, dt) > big
+               for xs in (True, False) for sl in (True, False) for ws in (True, False))
+    assert p["k3_smem"] == tadmm.k3_smem_bytes(n, m, k, L, C3, p["k3_xs"] == "smem",
+                                               p["k3_slots"] == "smem",
+                                               p["k3_sums"] == "global", dt, False) <= big
+    assert p["k2_smem"] == tadmm.k2_smem_bytes(n, m, k, L, p["k2_cluster"], p["band"] == "smem",
+                                               p["k2_xs"] == "smem", p["k2_sums"] == "global",
+                                               dt) <= big
+    # U's rows (t2's U columns, the SOC and box entries, x_l'U_j) by bands
+    rows = np.zeros(n, np.int64)
+    for r in range(C3):
+        lo, hi = _band(n, C3, r)
+        rows[lo:hi] += 1
+    assert np.all(rows == 1)
+    # t2's rows n + c (U' and I): row c by CTA c mod C, warp c // C
+    owner = np.zeros(k, np.int64)
+    for r in range(C3):
+        for w in range(WARPS):
+            for c in range(r + C3 * w, k, C3 * WARPS):
+                owner[c] += 1
+    assert np.all(owner == 1)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_k2k3_plan_refuses_no_node_whose_state_fits_the_card(dt):
+    """At one node of n = m up to 46,000, ranks 1 to 400 and 8 to 2,048
+    cuts, wherever the ADMM state's (n + m)^2, (n + k)^2 and n^2 blocks
+    (w, u and t of each, X, Y and Theta) fit 80 GB, k2k3_plan admits the
+    shape (U, K2's band of zU and the cut vectors leave shared memory
+    first)."""
+    e = dt.itemsize
+    for k in (1, 2, 5, 10, 20, 32, 80, 400):
+        for L in (8, 2048):
+            for n in (100, 2600, 6000, 10000, 20000, 30000, 46000):
+                D1, D2 = 2 * n, n + k
+                if e * (3 * D1 * D1 + 3 * D2 * D2 + 3 * n * n + 3 * n * n) > 80e9:
+                    continue
+                p = tadmm.k2k3_plan(1, n, n, k, L, dtype=dt)
+                assert max(p["k2_smem"], p["k3_smem"]) <= tadmm.K2K3_MAX_SMEM
+
+
+def test_k2k3_plans_of_the_paths_keep_u_in_shared_memory():
+    """Every shape the paths ran before keeps U (K3) and the band of zU
+    (K2) staged: their plans are those of before."""
+    for B, n, k, L in SHAPES:
+        for dt in (torch.float32, torch.float64):
+            p = tadmm.k2k3_plan(B, n, n, k, L, dtype=dt)
+            assert p["k3_u"] == p["k2_u"] == "smem"
+
+
+def k3_u_mirror(c, st, plan):
+    """K3's reads of U in its order of work, CTA by CTA of the cluster:
+    from a staged copy (``k3_u`` "smem") or from the input (``k3_u``
+    "global", the band's SOC entries then kept in wsoc's own entries
+    between the phases).  Returns the U parts of the forward map, f2's U
+    columns (B, n, k) and rows (B, k, n), fsoc's (B, k, n), fbox and x_l'U_j
+    (float64 partials by band, added in rank order), and the band's tsoc
+    entries as the projection reads them back."""
+    b = c.batch
+    n, k, L = c.n, c.k, c.L
+    B = st.U.shape[0]
+    C = plan["k3_cluster"]
+    glob = plan["k3_u"] == "global"
+    al, om = c.alpha, 1.0 - c.alpha
+    cols, urows = torch.empty(B, n, k, dtype=st.U.dtype), torch.empty(B, k, n, dtype=st.U.dtype)
+    fsoc, fbox = torch.empty(B, k, n, dtype=st.U.dtype), torch.empty(B, n, k, dtype=st.U.dtype)
+    tsoc = torch.empty(B, k, n, dtype=st.U.dtype)
+    v = torch.zeros(B, L, k, dtype=torch.float64)
+    wsoc = st.wsoc.clone()
+    for r in range(C):
+        flat = st.U.reshape(B, n * k)
+        src = flat if glob else flat.clone()  # the staged copy: every CTA its own
+        lo, hi = _band(n, C, r)
+        for i in range(lo, hi):
+            for j in range(k):
+                cols[:, i, j] = src[:, i * k + j]
+                fsoc[:, j, i] = src[:, i * k + j]
+                fbox[:, i, j] = src[:, i * k + j]
+                t = (al * src[:, i * k + j] + om * st.wsoc[:, j, 1 + i]) + st.usoc[:, j, 1 + i]
+                if glob:
+                    wsoc[:, j, 1 + i] = t
+                else:
+                    tsoc[:, j, i] = t
+        part = torch.einsum("bli,bij->blj", b.cut_x[:, :, lo:hi].double(),
+                            src.reshape(B, n, k)[:, lo:hi].double())
+        v = v + part
+        for w in range(WARPS):
+            for cc in range(r + C * w, k, C * WARPS):
+                for j in range(n):
+                    urows[:, cc, j] = src[:, j * k + cc]
+    if glob:  # read back after the cluster barrier
+        tsoc = wsoc[..., 1:].clone()
+    return cols, urows, fsoc, fbox, v, tsoc
+
+
+@pytest.mark.parametrize("u", ["smem", "global"])
+def test_k3_u_reads_match_omc_forward_map(u):
+    """At a small shape with K3's U forced to either place: the U parts of
+    K3's forward map against omc's, and the band's SOC entries against the
+    plain cone step's (w + u)."""
+    B, n, m, k, L = 2, 13, 9, 3, 5
+    c, st, acc = _inputs(B, n, m, k, L, 3, torch.float64, 71)
+    plan = dict(tadmm.k2k3_plan(B, n, m, k, L, cluster=4), k3_u=u)
+    cols, urows, fsoc, fbox, v, tsoc = k3_u_mirror(c, st, plan)
+    J = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    jb = JNodeBatch(*[J(t) for t in c.batch.fields()])
+    ref = jadmm._forward(jb, J(st.X), J(st.Y), J(st.Th), J(st.U), k,
+                         J(st.sX)[:, None, None], J(st.sT)[:, None, None])
+    f2 = np.asarray(ref[1])
+    assert _rel(cols.numpy(), f2[:, :n, n:]) == 0.0
+    assert _rel(urows.numpy(), f2[:, n:, :n]) == 0.0
+    assert _rel(fsoc.numpy(), np.asarray(ref[4])[..., 1:]) == 0.0
+    assert _rel(fbox.numpy(), np.asarray(ref[5])) == 0.0
+    cm = c.batch.cut_mask.numpy()[..., None]
+    va = (np.asarray(ref[6]) + c.batch.cut_lo.numpy()) * cm
+    assert _rel(v.numpy() * cm, va) <= TOL["float64"]
+    rest = tadmm.cone_step_plain(c, st, acc)[3]
+    wsoc, usoc = rest[2], rest[3]
+    assert _rel(tsoc.numpy(), (wsoc + usoc)[..., 1:].numpy()) <= 1e-15
+
+
 def test_unsupported_shapes_raise_before_any_launch(monkeypatch):
     from omc_torch import kernels
 
@@ -468,7 +606,11 @@ def test_unsupported_shapes_raise_before_any_launch(monkeypatch):
 
     monkeypatch.setattr(kernels, "library", no_library)
     for shape in ((0, 50, 50, 1, 8), (4, 50, 50, 0, 8), (4, 0, 50, 1, 8), (4, 50, 50, 1, -1),
-                  (1, 20000, 20000, 10, 8)):  # the last: K3's copy of U outgrows a CTA
+                  (1, 20000, 20000, 10, 8)):
+        if shape[1] == 20000:  # U outgrows a CTA: K3 reads it from the input
+            plan = tadmm.k2k3_plan(*shape)
+            assert plan["k3_u"] == "global" and plan["k3_smem"] <= tadmm.K2K3_MAX_SMEM
+            continue
         with pytest.raises(ValueError):
             tadmm.k2k3_plan(*shape)
     for cluster in (3, 32, 0):
